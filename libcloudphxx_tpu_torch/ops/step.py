@@ -1,0 +1,305 @@
+"""The resident microphysics step without coalescence, and the re-binning
+merge (libcloudphxx_tpu/ops/pallas_step.py: step_resident, rebin_x).
+
+The TPU runs the step as one Pallas kernel over row blocks
+(pallas_step._kernel) plus the x pass of the re-binning
+(pallas_step._xmerge_kernel).  On the card the same work runs as three
+hand-written kernels, each beside its plain PyTorch version:
+
+  kernel B  csrc/cond.cu       cond / cond_plain: condensation substeps
+  kernel C  csrc/transport.cu  transport / transport_plain: vt refresh,
+            advection, sedimentation, walls, puddle partials, and the
+            target cell of every droplet
+  kernel D  csrc/merge.cu      rebin_x / rebin_x_plain: each row takes its
+            droplets from itself and its eight neighbours (the z and the x
+            pass of the re-binning at once)
+
+Dispatch is by device: CPU tensors run the plain version, CUDA tensors
+launch the kernel (float32, contiguous, or the wrapper raises), and
+``plain=True`` runs the plain version on any device, for comparisons and
+timings.  Layout: SD planes (n_cell, cap), row i*nz + k holding cell
+(i, k); cell fields (n_cell,).
+
+Coalescence (the do_coal phase of pallas_step._kernel) is not ported yet
+(ROADMAP.md, Queue 2).
+"""
+
+import torch
+
+from .. import _ext
+from ..common import constants as c
+from ..common import theta_dry
+from ..lgrngn.condensation import _advance_rw2_core, _root_iters
+from ..lgrngn.enums import as_t
+from ..lgrngn.hskpng import hskpng_Tpr
+from ..lgrngn.vterm import require_kernel_vt, vt_in_kernel
+from .compact import stable_partition_rows
+
+# source rows of the merge, as (di, dk) offsets in this order: own row,
+# the z neighbours, then the columns to the left and to the right
+MERGE_SOURCES = ((0, 0), (0, -1), (0, 1), (-1, 0), (-1, -1), (-1, 1),
+                 (1, 0), (1, -1), (1, 1))
+
+
+def _use_plain(name, t, plain):
+    if plain or t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return False
+
+
+def _check_planes(name, cap, *planes):
+    for p in planes:
+        if p.dim() != 2 or p.shape[1] != cap or p.shape != planes[0].shape:
+            raise ValueError(f"{name}: SD planes must all be (n_cell, {cap}), "
+                             f"got {tuple(p.shape)}")
+
+
+def _rows(cfg, n_cell, like):
+    r = torch.arange(n_cell, device=like.device)
+    return (r // cfg.nz).to(like.dtype)[:, None], \
+        (r % cfg.nz).to(like.dtype)[:, None]
+
+
+# ---------------------------------------------------------------- kernel B
+def cond_plain(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv,
+               th0, rv0, rhod, dv, lam_D, lam_K, p0):
+    """Percell substepped condensation of every row (pallas_step.py:191-231
+    with the closure after the loop).  th0/rv0 are the cell values saved at
+    the previous step's end, thadv/rvadv the advected ones; the advective
+    increment enters in sstp_cond equal parts.  Returns
+    (rw2, th, rv, T, p, RH, eta)."""
+    col = lambda a: a[:, None]
+    dth = (thadv - th0) / sstp_cond
+    drv = (rvadv - rv0) / sstp_cond
+    dt_sub = dt / sstp_cond
+    wgt = n * ((4.0 / 3) * c.pi * c.rho_w) / col(dv * rhod)
+    # the vt plane of the previous step's end, rebuilt from the cell state
+    # it was computed from (pallas_step.py:203-210)
+    T0, p_prev, _RH0, eta_prev = hskpng_Tpr(cfg, th0, rv0, rhod, p0)
+    vt = vt_in_kernel(cfg, rw2, col(T0), col(p_prev), col(rhod), col(eta_prev))
+    th, rv = th0, rv0
+    for _ in range(sstp_cond):
+        th = th + dth
+        rv = rv + drv
+        T, p, RH, eta = hskpng_Tpr(cfg, th, rv, rhod, p0)
+        rw2n = _advance_rw2_core(
+            dt_sub, rw2, rd3, kpa, vt, col(rhod), col(rv), col(T), col(p),
+            col(RH), col(eta), col(lam_D), col(lam_K), RH_max)
+        drw3 = rw2n * torch.sqrt(rw2n) \
+            - rw2 * torch.sqrt(torch.clamp(rw2, min=0.0))
+        # the row sum accumulates in float64 (as the kernel does), so the
+        # summation order of kernel and plain version drops out
+        dcell = -torch.sum(wgt * drw3, dim=1, dtype=torch.float64).to(th.dtype)
+        th, rv = th + dcell * theta_dry.d_th_d_rv(T, th), rv + dcell
+        rw2 = rw2n
+    T, p, RH, eta = hskpng_Tpr(cfg, th, rv, rhod, p0)
+    return rw2, th, rv, T, p, RH, eta
+
+
+def cond(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
+         rv0, rhod, dv, lam_D, lam_K, p0, *, plain=False):
+    """Kernel B, or its plain version cond_plain (same arguments and
+    results)."""
+    args = (n, rw2, rd3, kpa, thadv, rvadv, th0, rv0, rhod, dv, lam_D,
+            lam_K, p0)
+    if _use_plain("cond", n, plain):
+        return cond_plain(cfg, sstp_cond, dt, RH_max, *args)
+    n_cell, cap = n.shape
+    _check_planes("cond", cap, n, rw2, rd3, kpa)
+    require_kernel_vt(cfg)
+    cells = torch.stack([thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, p0])
+    if cells.shape != (9, n_cell):
+        raise ValueError(f"cond: cell fields must be ({n_cell},)")
+    _ext.check("cond", n, rw2, rd3, kpa, cells)
+    rw2_out = torch.empty_like(rw2)
+    cells_out = torch.empty((6, n_cell), dtype=n.dtype, device=n.device)
+    _ext.COND.launch(
+        n.data_ptr(), rw2.data_ptr(), rd3.data_ptr(), kpa.data_ptr(),
+        cells.data_ptr(), rw2_out.data_ptr(), cells_out.data_ptr(),
+        n_cell, cap, int(sstp_cond), dt / sstp_cond, float(RH_max),
+        int(cfg.th_dry), int(cfg.const_p), int(cfg.RH_formula),
+        _root_iters(n.dtype))
+    return (rw2_out,) + tuple(cells_out.unbind(0))
+
+
+# ---------------------------------------------------------------- kernel C
+def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
+                    C_l, C_r, C_b, C_a):
+    """vt refresh, SD advection, sedimentation, walls and puddle, then each
+    droplet's target row (pallas_step.py:338-487).  Returns
+    (n, x, z, vt, tgt, rowinfo): ``tgt`` is the int32 target row (-1 for
+    dead slots; a droplet that moved more than one cell on an axis keeps
+    its row and sets the row's flag), ``rowinfo`` (n_cell, 8) the per-row
+    puddle partials (liquid volume, dry volume, liquid number, particle
+    number) and far-mover flag."""
+    n_cell, cap = n.shape
+    col = lambda a: a[:, None]
+    # divisions by a tensor, not a Python number: on the card PyTorch
+    # turns those into multiplications by the reciprocal, which would
+    # classify a droplet on a cell face differently from the kernel
+    full = lambda v: torch.full((), v, dtype=x.dtype, device=x.device)
+    i_row, k_row = _rows(cfg, n_cell, x)
+    vt = vt_in_kernel(cfg, rw2, col(T), col(p), col(rhod), col(eta))
+
+    dCx = col(C_r - C_l)
+    dCz = col(C_a - C_b)
+    if as_t(cfg.adve_scheme) == as_t.implicit:
+        x = (x + cfg.dx * (col(C_l) - i_row * dCx)) / (1.0 - dCx)
+        z = (z + cfg.dz * (col(C_b) - k_row * dCz)) / (1.0 - dCz)
+    else:  # euler
+        x = x + dCx * (x - cfg.dx * i_row) + cfg.dx * col(C_l)
+        z = z + dCz * (z - cfg.dz * k_row) + cfg.dz * col(C_b)
+    if do_sedi:
+        z = z - dt * vt
+
+    if not cfg.open_side_walls:
+        w = cfg.x1 - cfg.x0
+        q = x - cfg.x0
+        x = cfg.x0 + (q - torch.floor(q / full(w)) * w)
+    else:
+        n = torch.where((x >= cfg.x1) | (x < cfg.x0), 0.0, n)
+    zero = torch.zeros(n_cell, dtype=n.dtype, device=n.device)
+    liq_vol = dry_vol = liq_num = prt_num = zero
+    if cfg.periodic_topbot_walls:
+        w = cfg.z1 - cfg.z0
+        q = z - cfg.z0
+        z = cfg.z0 + (q - torch.floor(q / full(w)) * w)
+    else:
+        n = torch.where(z >= cfg.z1, 0.0, n)
+        fell = (z < cfg.z0) & (n > 0)
+        nf = torch.where(fell, n, 0.0)
+        vol_c = 4.0 / 3 * c.pi
+        liq_vol = torch.sum(
+            vol_c * nf * rw2 * torch.sqrt(torch.clamp(rw2, min=0.0)), dim=1)
+        dry_vol = torch.sum(vol_c * nf * rd3, dim=1)
+        liq_num = torch.sum(torch.where(rw2 > 0, nf, 0.0), dim=1)
+        prt_num = torch.sum(nf, dim=1)
+        n = torch.where(fell, 0.0, n)
+
+    alive = n > 0
+    k_t = torch.clamp(torch.floor(z / full(cfg.dz)), 0, cfg.nz - 1)
+    i_t = torch.clamp(torch.floor(x / full(cfg.dx)), 0, cfg.nx - 1)
+    dk = k_t - k_row
+    di = i_t - i_row
+    wrap = float(cfg.nx - 1)
+    near = (torch.abs(dk) <= 1.0) & (
+        (di == 0.0) | (di == 1.0) | (di == -1.0) | (di == wrap)
+        | (di == -wrap))
+    rows = torch.arange(n_cell, device=n.device, dtype=torch.int32)[:, None]
+    tgt = torch.where(near, (i_t * cfg.nz + k_t).to(torch.int32), rows)
+    tgt = torch.where(alive, tgt, -1)
+    far = (alive & ~near).any(dim=1).to(n.dtype)
+    rowinfo = torch.stack([liq_vol, dry_vol, liq_num, prt_num, far,
+                           zero, zero, zero], dim=1)
+    return n, x, z, vt, tgt, rowinfo
+
+
+def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
+              C_r, C_b, C_a, *, plain=False):
+    """Kernel C, or its plain version transport_plain (same arguments and
+    results)."""
+    args = (n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r, C_b, C_a)
+    if _use_plain("transport", n, plain):
+        return transport_plain(cfg, dt, do_sedi, *args)
+    n_cell, cap = n.shape
+    _check_planes("transport", cap, n, rw2, rd3, x, z)
+    require_kernel_vt(cfg)
+    if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
+        raise NotImplementedError(
+            f"transport: advection scheme {as_t(cfg.adve_scheme).name} is not "
+            "ported (ROADMAP.md, Queue 1)")
+    cells = torch.stack([T, p, rhod, eta, C_l, C_r, C_b, C_a])
+    if cells.shape != (8, n_cell):
+        raise ValueError(f"transport: cell fields must be ({n_cell},)")
+    _ext.check("transport", n, rw2, rd3, x, z, cells)
+    n_out, x_out, z_out, vt_out = (torch.empty_like(n) for _ in range(4))
+    tgt = torch.empty((n_cell, cap), dtype=torch.int32, device=n.device)
+    rowinfo = torch.empty((n_cell, 8), dtype=n.dtype, device=n.device)
+    _ext.TRANSPORT.launch(
+        n.data_ptr(), rw2.data_ptr(), rd3.data_ptr(), x.data_ptr(),
+        z.data_ptr(), cells.data_ptr(), n_out.data_ptr(), x_out.data_ptr(),
+        z_out.data_ptr(), vt_out.data_ptr(), tgt.data_ptr(),
+        rowinfo.data_ptr(), n_cell, cap, cfg.nx, cfg.nz, cfg.dx, cfg.dz,
+        float(dt), cfg.x0, cfg.x1, cfg.z0, cfg.z1,
+        int(as_t(cfg.adve_scheme) == as_t.implicit), int(do_sedi),
+        int(cfg.open_side_walls),
+        int(cfg.periodic_topbot_walls))
+    return n_out, x_out, z_out, vt_out, tgt, rowinfo
+
+
+def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
+                  z, thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, C_l, C_r,
+                  C_b, C_a, p0, *, do_coal=False, plain=False):
+    """One microphysics step without coalescence: condensation (kernel B),
+    then transport and classification (kernel C); the merge (rebin_x)
+    follows.  Returns (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH,
+    eta, rowinfo)."""
+    if do_coal:
+        raise NotImplementedError(
+            "step_resident: the coalescence phase is not ported yet "
+            "(ROADMAP.md, Queue 2 item 6)")
+    rw2, th, rv, T, p, RH, eta = cond(
+        cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0, rv0,
+        rhod, dv, lam_D, lam_K, p0, plain=plain)
+    n, x, z, vt, tgt, rowinfo = transport(
+        cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r, C_b,
+        C_a, plain=plain)
+    return (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta, rowinfo)
+
+
+# ---------------------------------------------------------------- kernel D
+def _merge_sources(cfg, n_cell, device):
+    """(n_cell, 9) source rows of each destination row, in MERGE_SOURCES
+    order, and whether each exists (no z neighbour beyond the walls)."""
+    r = torch.arange(n_cell, device=device)
+    i, k = r // cfg.nz, r % cfg.nz
+    src, ok = [], []
+    for di, dk in MERGE_SOURCES:
+        ks = k + dk
+        src.append(torch.remainder(i + di, cfg.nx) * cfg.nz
+                   + torch.clamp(ks, 0, cfg.nz - 1))
+        ok.append((ks >= 0) & (ks < cfg.nz))
+    return torch.stack(src, 1), torch.stack(ok, 1)
+
+
+def rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt):
+    """Row r takes, in MERGE_SOURCES order and lane order within each
+    source, every droplet of its own and its eight neighbouring rows whose
+    target is r, packed alive-first; lanes past the last droplet are zero.
+    Returns (n, rw2, rd3, kpa, vt, x, z, drops) with ``drops`` (n_cell,)
+    the droplets each row could not hold."""
+    n_cell, cap = n.shape
+    src, ok = _merge_sources(cfg, n_cell, n.device)
+    rows = torch.arange(n_cell, device=n.device)[:, None, None]
+    take = ok[:, :, None] & (tgt[src] == rows)
+    flat = lambda a: a.reshape(n_cell, -1)
+    outs, count = stable_partition_rows(
+        flat(take), tuple(flat(p[src]) for p in (n, rw2, rd3, kpa, vt, x, z)))
+    keep = torch.arange(cap, device=n.device)[None, :] < count
+    outs = tuple(torch.where(keep, o[:, :cap], 0.0) for o in outs)
+    drops = torch.clamp(count[:, 0] - cap, min=0).to(n.dtype)
+    return outs + (drops,)
+
+
+def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, plain=False):
+    """Kernel D, or its plain version rebin_x_plain (same arguments and
+    results).  It does the work of the z-merge epilogue of
+    pallas_step._kernel and of pallas_step._xmerge_kernel together."""
+    if cfg.nx < 3:
+        raise ValueError("rebin_x: the merge needs nx >= 3 (left, own and "
+                         "right columns must differ)")
+    planes = (n, rw2, rd3, kpa, vt, x, z)
+    if _use_plain("rebin_x", n, plain):
+        return rebin_x_plain(cfg, *planes, tgt)
+    n_cell, cap = n.shape
+    _check_planes("rebin_x", cap, *planes, tgt)
+    _ext.check("rebin_x", *planes)
+    _ext.check("rebin_x", tgt, dtype=torch.int32)
+    outs = tuple(torch.empty_like(p) for p in planes)
+    drops = torch.empty(n_cell, dtype=n.dtype, device=n.device)
+    _ext.MERGE.launch(*(p.data_ptr() for p in planes), tgt.data_ptr(),
+                      *(o.data_ptr() for o in outs), drops.data_ptr(),
+                      n_cell, cap, cfg.nx, cfg.nz)
+    return outs + (drops,)
