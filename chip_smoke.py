@@ -2,24 +2,33 @@
 """Smoke run of the PyTorch/CUDA port (libcloudphxx_tpu_torch) on one GPU.
 
 Drives the port's main path, the GMD-2015 kinematic lgrngn case at 76x76
-cells and 64 super-droplets a cell (bench.py's configuration) with
-coalescence off, and checks it:
+cells and 64 super-droplets a cell with sstp_cond = sstp_coal = 10 and the
+geometric kernel (bench.py's configuration), and checks it:
 
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run
   2. build: compile the kernels from csrc/
   3. kernels against their plain PyTorch versions, on the card, at the main
-     path's shapes, from the real initial population
-  4. the slice: spin-up steps, then steps with sedimentation, through the
-     kernels; bench.py's physics checks; every kernel launched
-  5. timing: best of 3 from-init reps through the kernels and through the
-     plain versions, and each kernel against its plain version
+     path's shapes: A-D from the initial population, E (coalescence) from
+     the population after the spin-up, in stride, sort and standalone form
+     and with the hall kernel; then E's Golovin box gate (Scott 1967)
+  4. the slice without coalescence: spin-up and main steps through the
+     kernels, bench.py's physics checks, kernels A-D launched
+  5. the slice with coalescence (the main path): the same, kernels A-E
+     launched, and collisions happened
+  6. the standalone coalescence path (dense.coal): its form of kernel E
+  7. timing: best of 3 from-init reps through the kernels and through the
+     plain versions, with and without coalescence, and each kernel against
+     its plain version
 
-Run from the repository root: ``python3 chip_smoke.py``.  The last line is
-{"ok": true, "device": {...}}; the line before it the card's name and power
-limit; before that one JSON object with a row per kernel.  Any failed check
-raises, and the script exits non-zero.
+Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
+adds the device-time split of the coalescing steps (torch.profiler).  The
+last line is {"ok": true, "device": {...}}; the line before it the card's
+name and power limit; before that one JSON object with a row per kernel.
+Any failed check raises, and the script exits non-zero.
 """
 
+import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -28,13 +37,22 @@ import time
 import numpy as np
 import torch
 
+DEVICE = "cuda"
 NX = NZ = 76
 SD_CONC = 64
 SSTP_COND = 10
 SSTP_COAL = 10
 SLICE_SPINUP, SLICE_MAIN = 10, 10
-TIME_STEPS, TIME_REPS = 50, 3
+TIME_STEPS, TIME_REPS = 50, 3       # with coalescence: bench.py's protocol
+TIME_STEPS_NO_COAL = 20
 KERNEL_REPS = 20
+STANDALONE_CALLS = 3
+
+# the Golovin box of tests/test_pallas_coal_golovin.py
+GOLOVIN_SIM_TIME, GOLOVIN_SSTP = 800.0, 100
+GOLOVIN_R0, GOLOVIN_N0, GOLOVIN_B = 30.084e-6, 2.0 ** 23, 1500.0
+GOLOVIN_BOXES, GOLOVIN_CAP, GOLOVIN_SDS = 128, 256, 256
+GOLOVIN_BINS = 10.0 ** (-6 + np.arange(150) / 50.0)
 
 
 class CheckFailed(RuntimeError):
@@ -88,11 +106,11 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def make_model(Kinematic2D):
+def make_model(Kinematic2D, coal):
     return Kinematic2D(
         nx=NX, nz=NZ, micro="lgrngn", sd_conc=SD_CONC, sstp_cond=SSTP_COND,
         sstp_coal=SSTP_COAL, n_sd_max=SD_CONC * NX * NZ,
-        opts_init_kw={"coal_switch": False}, device="cuda")
+        opts_init_kw={"coal_switch": coal}, device=DEVICE)
 
 
 def physics_checks(model, water0, dry0, dense):
@@ -117,18 +135,84 @@ def physics_checks(model, water0, dry0, dense):
     return dw, dd
 
 
+def golovin_population():
+    """tests/test_pallas_coal_golovin.py _golovin_population."""
+    rng = np.random.default_rng(7)
+    lnr_lo, lnr_hi = np.log(GOLOVIN_R0 / 30), np.log(GOLOVIN_R0 * 12)
+    strata = (np.arange(GOLOVIN_SDS)[None, :]
+              + rng.random((GOLOVIN_BOXES, GOLOVIN_SDS))) / GOLOVIN_SDS
+    lnrd = lnr_lo + strata * (lnr_hi - lnr_lo)
+    r = np.exp(lnrd)
+    expvol = GOLOVIN_N0 * 3.0 * r ** 3 / GOLOVIN_R0 ** 3 \
+        * np.exp(-((r / GOLOVIN_R0) ** 3))
+    mult = np.floor(expvol * (lnr_hi - lnr_lo) / GOLOVIN_SDS + 0.5)
+    shape = (GOLOVIN_BOXES, GOLOVIN_CAP)
+    n, rw2, rd3 = np.zeros(shape), np.zeros(shape), np.zeros(shape)
+    n[:, :GOLOVIN_SDS] = mult
+    rw2[:, :GOLOVIN_SDS] = r ** 2
+    rd3[:, :GOLOVIN_SDS] = (r * 1e-3) ** 3
+    return n, rw2, rd3
+
+
+def golovin_rmsd(n, n1, rw2_1, c):
+    """RMSD of the mass-density spectrum against Scott's analytic Golovin
+    solution (tests/test_pallas_coal_golovin.py _spectrum_err)."""
+    from scipy import special
+    vol = lambda r: 4.0 / 3.0 * r ** 3 * np.pi
+    n0 = n[:, :GOLOVIN_SDS].sum() / GOLOVIN_BOXES
+    count = (n1 > 0).sum(axis=1, keepdims=True)
+    sig = 0.62 / np.maximum(count, 1.0) ** 0.2
+    x = np.maximum(rw2_1, 1e-300)
+    pref = 4.0 / 3.0 * c.rho_w * np.sqrt(c.pi / 2.0)
+    spec, ana = [], []
+    for i in range(GOLOVIN_BINS.size - 1):
+        rad = (GOLOVIN_BINS[i] + GOLOVIN_BINS[i + 1]) / 2
+        vals = n1 / sig * x ** 1.5 * np.exp(
+            -((0.5 * np.log(x) - np.log(rad)) / sig) ** 2 / 2.0)
+        spec.append(pref * vals.sum() / GOLOVIN_BOXES)
+        xx = vol(rad) / vol(GOLOVIN_R0)
+        tau = 1 - np.exp(-GOLOVIN_B * n0 * vol(GOLOVIN_R0) * GOLOVIN_SIM_TIME)
+        z = 2 * xx * np.sqrt(tau)
+        res = (n0 / vol(GOLOVIN_R0) * special.ive(1, z) * (1 - tau)
+               * np.exp(z - xx * (tau + 1)) / xx / np.sqrt(tau))
+        ana.append((res if np.isfinite(res) else 0.0) * vol(rad) ** 2
+                   * 3000.0)
+    spec, ana = np.array(spec), np.array(ana)
+    mask = (spec > 0) | (ana > 0)
+    return float(np.sqrt(np.mean((spec[mask] - ana[mask]) ** 2)))
+
+
+def collided(before, after):
+    """The share of the total multiplicity that collisions took between
+    two states (what fell into the puddle meanwhile excluded)."""
+    from libcloudphxx_tpu_torch.lgrngn.state import OUT_PRTCL_NUM
+    total = lambda d: float(d.n.double().sum())
+    fell = float(after.puddle[OUT_PRTCL_NUM] - before.puddle[OUT_PRTCL_NUM])
+    return (total(before) - total(after) - fell) / total(before)
+
+
+def reset(kernels):
+    for k in kernels:
+        k.launches = 0
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also print the device-time split of coalescing "
+                         "steps (torch.profiler)")
+    opts = ap.parse_args()
     # ---- 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from libcloudphxx_tpu_torch import Kinematic2D, _ext
-    from libcloudphxx_tpu_torch.lgrngn import dense
+    from libcloudphxx_tpu_torch.common import constants as c
+    from libcloudphxx_tpu_torch.lgrngn import dense, kernel_t
     from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp
-    from libcloudphxx_tpu_torch.lgrngn.state import OUT_PRTCL_NUM
     from libcloudphxx_tpu_torch.models import mpdata
-    from libcloudphxx_tpu_torch.ops import step
+    from libcloudphxx_tpu_torch.ops import coal, step
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -139,13 +223,13 @@ def main():
     path, secs, log = _ext.build(verbose=True)
     print(f"build: {secs:.1f} s -> {path.name}", flush=True)
     for line in log.splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if "Used" in line or "Compiling entry" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     _ext.load()
 
     # ---- 3. kernels against plain versions
     t0 = time.perf_counter()
-    model = make_model(Kinematic2D)
+    model = make_model(Kinematic2D, coal=False)
     torch.cuda.synchronize()
     d0, th0, rv0 = model.state, model.th, model.rv
     cfg = model.cfg
@@ -238,57 +322,169 @@ def main():
         check(rel_pud <= 1e-5, f"{label}: puddle rel {rel_pud:.2e} > 1e-5")
     check(float(pc[5].sum(0)[3]) > 0, "rain case: nothing reached the puddle")
 
-    # ---- 4. the slice through the kernels
+    # E: coalescence, from the population after the spin-up, with the same
+    # draws (seed, step) on both sides; and a drizzle variant (radii x10),
+    # in which droplets certainly collide
+    model_c = make_model(Kinematic2D, coal=True)
+    dc0, thc0, rvc0 = model_c.state, model_c.th, model_c.rv
+    model_c.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP)
+    ds = model_c.state
+    params = model_c.opts_init.kernel_parameters
+    e_cells = (ds.T, ds.p, ds.rhod, ds.eta, ds.dv)
+    cfg_hall = dataclasses.replace(cfg, kernel=kernel_t.hall.value)
+    populations = {"cloud": (ds.n, ds.rw2, ds.rd3, ds.kpa, ds.x, ds.z),
+                   "drizzle": (ds.n, ds.rw2 * 100.0, ds.rd3, ds.kpa, ds.x,
+                               ds.z)}
+
+    def coal_call(form, plain, kcfg=cfg, pop="cloud"):
+        args = (kcfg, params, SSTP_COAL, 1.0, ds.rng_seed, ds.rng_step) \
+            + populations[pop] + e_cells
+        if form == "standalone":
+            n, rw2, rd3, kpa, vt, x, z, ovf = coal.coal_standalone(
+                *args, plain=plain)
+            return (n, rw2, rd3, kpa, x, z, vt), ovf
+        *out, ovf = coal.coal_resident(*args, pairing=form, plain=plain)
+        return tuple(out), ovf
+
+    err["coal"] = err["coal_standalone"] = 0.0
+    cases = [(form, kcfg, pop, f"{pop} {label}")
+             for pop in populations
+             for form, kcfg, label in (("stride", cfg, "stride"),
+                                       ("sort", cfg, "sort"),
+                                       ("standalone", cfg, "standalone"),
+                                       ("stride", cfg_hall, "stride hall"))]
+    for form, kcfg, pop, label in cases:
+        (ko, kf), (po, pf) = (coal_call(form, plain, kcfg, pop)
+                              for plain in (False, True))
+        # per cell (n, rd3, kpa, x, z) exact, then rw2
+        mk = multiset(ko[0], (ko[2], ko[3], ko[4], ko[5], ko[1]))
+        mp = multiset(po[0], (po[2], po[3], po[4], po[5], po[1]))
+        check(mk.shape == mp.shape, f"E {label}: SD counts differ")
+        check(np.array_equal(mk[:, :6], mp[:, :6]),
+              f"E {label}: cells / n / rd3 / kappa / x / z differ")
+        rel_w = float(np.max(np.abs(mk[:, 6] - mp[:, 6])
+                             / np.maximum(np.abs(mp[:, 6]), 1e-300)))
+        key = "coal_standalone" if form == "standalone" else "coal"
+        err[key] = max(err[key], max(max_abs(a, b) for a, b in zip(ko, po)))
+        lanes = all(torch.equal(a, b) for a, b in zip(ko, po))
+        lost = float(ds.n.double().sum() - ko[0].double().sum())
+        print(f"E coal {label}: {mk.shape[0]} SDs, multiplicity lost "
+              f"{lost:.6g}, rw2 rel {rel_w:.2e}, flags equal "
+              f"{bool(torch.equal(kf, pf))} ({int(kf.sum())} rows), lanes "
+              f"equal {lanes}", flush=True)
+        check(rel_w <= 1e-6, f"E {label}: rw2 rel {rel_w:.2e} > 1e-6")
+        check(bool(torch.equal(kf, pf)), f"E {label}: overflow flags differ")
+        check(lost > 0.0 or pop == "cloud", f"E {label}: no collision")
+
+    # E: the Golovin box gate of the kernel itself
+    n_g, rw2_g, rd3_g = golovin_population()
+    cfg_g = dataclasses.replace(cfg, kernel=kernel_t.golovin.value)
+    gpu = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+    ones = torch.ones(GOLOVIN_BOXES, dtype=torch.float32, device=DEVICE)
+    for form in ("stride", "sort"):
+        out = coal.coal_resident(
+            cfg_g, (GOLOVIN_B,), GOLOVIN_SSTP, GOLOVIN_SIM_TIME, 1234, 0,
+            gpu(n_g), gpu(rw2_g), gpu(rd3_g), gpu(np.where(n_g > 0, 1e-10, 0)),
+            gpu(n_g * 0), gpu(n_g * 0), ones * 300.0, ones * 1e5, ones,
+            ones * 1.8e-5, ones, pairing=form)
+        n1, rw2_1 = (o.double().cpu().numpy() for o in out[:2])
+        m3_0, m3_1 = (n_g * rw2_g ** 1.5).sum(), (n1 * rw2_1 ** 1.5).sum()
+        water = abs(m3_1 - m3_0) / m3_0
+        frac = n1.sum() / n_g.sum()
+        rmsd = golovin_rmsd(n_g, n1, rw2_1, c)
+        print(f"E golovin {form}: RMSD {rmsd:.3e} (< 3.5e-5), water rel "
+              f"{water:.2e} (< 5e-5), total n {frac:.3f} x initial (< 0.6)")
+        check(rmsd < 3.5e-5 and water < 5e-5 and frac < 0.6,
+              f"Golovin gate failed in {form} mode")
+
+    # ---- 4. the slice without coalescence
     water0, dry0 = dense.water_dry_totals(d0, rv0)
-    for k in _ext.KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
+    reset(_ext.KERNELS)
     model.run_device_lgrngn(SLICE_SPINUP + SLICE_MAIN, spinup=SLICE_SPINUP)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _ext.KERNELS}
+    dw, dd = physics_checks(model, water0, dry0, dense)
+    print(f"slice, coalescence off: water rel err {dw:.2e}, dry rel err "
+          f"{dd:.2e}; launches {launches}", flush=True)
+    check(all(launches[k.name] > 0 for k in _ext.KERNELS[:4]),
+          f"a kernel of the path was not launched: {launches}")
+
+    # ---- 5. the slice with coalescence: the main path
+    model_c.state, model_c.th, model_c.rv = dc0, thc0, rvc0
+    reset(_ext.KERNELS)
+    t0 = time.perf_counter()
+    model_c.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP)
+    d_sp = model_c.state
+    model_c.run_device_lgrngn(SLICE_MAIN)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {k.name: k.launches for k in _ext.KERNELS}
-    dw, dd = physics_checks(model, water0, dry0, dense)
-    puddle = model.state.puddle
-    print(f"slice: {SLICE_SPINUP} spin-up + {SLICE_MAIN} main steps in "
-          f"{secs:.2f} s; water rel err {dw:.2e}, dry rel err {dd:.2e}, "
-          f"overflow {int(model.state.overflow)}, SDs "
-          f"{int((model.state.n > 0).sum())}, max occupancy "
-          f"{int((model.state.n > 0).sum(1).max())}/{model.state.cap}, "
-          f"puddle particles {float(puddle[OUT_PRTCL_NUM]):.6g}; launches "
-          f"{launches}",
-          flush=True)
-    check(all(v > 0 for v in launches.values()),
+    dw, dd = physics_checks(model_c, water0, dry0, dense)
+    d_end = model_c.state
+    lost = collided(d_sp, d_end)
+    print(f"slice, coalescence on: {SLICE_SPINUP} spin-up + {SLICE_MAIN} "
+          f"main steps in {secs:.2f} s; water rel err {dw:.2e}, dry rel err "
+          f"{dd:.2e}, SDs {int((d_end.n > 0).sum())}, max occupancy "
+          f"{int((d_end.n > 0).sum(1).max())}/{d_end.cap}, multiplicity lost "
+          f"to collisions {lost:.3e}; launches {launches}", flush=True)
+    check(all(launches[k] > 0 for k in
+              ("mpdata", "cond", "transport", "merge", "coal")),
           f"a kernel of the path was not launched: {launches}")
+    check(lost > 0.0, "no collision in the main steps")
+    main_launches = launches
 
-    # ---- 5. timing: from-init reps through the kernels and the plain path
-    def run_reps(plain):
-        model.run_device_lgrngn(2, plain=plain)  # warm-up
+    # ---- 6. the standalone coalescence path (dense.coal)
+    reset(_ext.KERNELS)
+    d = d_end
+    for _ in range(STANDALONE_CALLS):
+        d = dense.coal(cfg, d, params, 1.0, SSTP_COAL)
+    torch.cuda.synchronize()
+    standalone = _ext.COAL_STANDALONE.launches
+    m3 = lambda s: float((s.n.double() * s.rw2.double() ** 1.5).sum())
+    water_rel = abs(m3(d) - m3(d_end)) / m3(d_end)
+    print(f"standalone coalescence: {STANDALONE_CALLS} calls, launches "
+          f"{standalone}, liquid water rel change {water_rel:.2e}, "
+          f"multiplicity {float(d.n.sum()) / float(d_end.n.sum()):.6f} x")
+    check(standalone == STANDALONE_CALLS and water_rel < 1e-5
+          and float(d.n.sum()) <= float(d_end.n.sum()),
+          "standalone coalescence path failed")
+
+    # ---- 7. timing: from-init reps through the kernels and the plain path
+    def run_reps(m, init, steps, plain):
+        m.run_device_lgrngn(2, plain=plain)  # warm-up
         best = float("inf")
         for _ in range(TIME_REPS):
-            model.state, model.th, model.rv = d0, th0, rv0
+            m.state, m.th, m.rv = init
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.run_device_lgrngn(TIME_STEPS, plain=plain)
+            m.run_device_lgrngn(steps, plain=plain)
             torch.cuda.synchronize()
             best = min(best, time.perf_counter() - t0)
-            physics_checks(model, water0, dry0, dense)
-        out = (model.th, model.rv, model.state)
-        model.state, model.th, model.rv = d0, th0, rv0
+            physics_checks(m, water0, dry0, dense)
+        out = (m.th, m.rv, m.state)
+        m.state, m.th, m.rv = init
         return best, out
 
-    t_k, (th_k, rv_k, s_k) = run_reps(False)
-    t_p, (th_p2, rv_p2, s_p) = run_reps(True)
-    rel_th, rel_rv = max_rel(th_k, th_p2), max_rel(rv_k, rv_p2)
-    wk = dense.water_dry_totals(s_k, rv_k)[0]
-    wp = dense.water_dry_totals(s_p, rv_p2)[0]
-    for label, t in (("kernels", t_k), ("plain", t_p)):
-        print(f"timing {label}: {t / TIME_STEPS * 1e3:.3f} ms/step, "
-              f"{n_sd * TIME_STEPS / t:.4g} SD-updates/s ({TIME_STEPS} steps, "
-              f"best of {TIME_REPS}; {card})")
-    print(f"kernels vs plain after {TIME_STEPS} steps: th rel {rel_th:.2e}, "
-          f"rv rel {rel_rv:.2e}, total water rel {abs(wk - wp) / wp:.2e}")
-    check(rel_th <= 1e-4 and rel_rv <= 1e-3,
-          "the kernel path drifted from the plain path")
+    for label, m, init, steps in (
+            ("coalescence on", model_c, (dc0, thc0, rvc0), TIME_STEPS),
+            ("coalescence off", model, (d0, th0, rv0), TIME_STEPS_NO_COAL)):
+        t_k, (th_k, rv_k, s_k) = run_reps(m, init, steps, False)
+        t_p, (th_p2, rv_p2, s_p) = run_reps(m, init, steps, True)
+        rel_th, rel_rv = max_rel(th_k, th_p2), max_rel(rv_k, rv_p2)
+        wk = dense.water_dry_totals(s_k, rv_k)[0]
+        wp = dense.water_dry_totals(s_p, rv_p2)[0]
+        lost = collided(init[0], s_k)
+        for how, t in (("kernels", t_k), ("plain", t_p)):
+            print(f"timing {label}, {how}: {t / steps * 1e3:.3f} ms/step, "
+                  f"{n_sd * steps / t:.4g} SD-updates/s ({steps} steps, "
+                  f"best of {TIME_REPS}; {card})")
+        print(f"{label}, kernels vs plain after {steps} steps: th rel "
+              f"{rel_th:.2e}, rv rel {rel_rv:.2e}, total water rel "
+              f"{abs(wk - wp) / wp:.2e}; multiplicity lost to collisions "
+              f"{lost:.3e}", flush=True)
+        check(rel_th <= 1e-4 and rel_rv <= 1e-3,
+              f"{label}: the kernel path drifted from the plain path")
+        check(lost > 0.0 or m is model, f"{label}: no collision")
 
     # per-kernel device time at the main path's shapes
     mp = (model.gc_x, model.gc_z, model.G)
@@ -303,22 +499,61 @@ def main():
             cfg, 1.0, True, n, rw2, d0.rd3, x, z, T, p, d0.rhod, eta, *C,
             plain=plain),
         "merge": lambda plain: step.rebin_x(*merge_args, plain=plain),
+        "coal": lambda plain: coal_call("stride", plain),
+        "coal_standalone": lambda plain: coal_call("standalone", plain),
     }
+    launches = dict(main_launches, coal_standalone=standalone)
     rows = []
     for k in _ext.KERNELS:
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
-        print(f"kernel {k.name}: {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+        print(f"kernel {k.name}: {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"({card})")
+        check(launches[k.name] > 0, f"kernel {k.name} was not launched")
         rows.append({"name": k.name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": launches[k.name],
                      "max_abs_err": err[k.name], "ms": ms,
                      "plain_ms": plain_ms})
+
+    if opts.profile:
+        profile(model_c, (dc0, thc0, rvc0), card)
 
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def profile(model, init, card, warm=5, steps=20):
+    """Device time by kernel over ``steps`` coalescing steps (torch.profiler)
+    beside their unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    model.state, model.th, model.rv = init
+    model.run_device_lgrngn(SLICE_SPINUP + warm, spinup=SLICE_SPINUP)
+    state = (model.state, model.th, model.rv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.run_device_lgrngn(steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    model.state, model.th, model.rv = state
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        model.run_device_lgrngn(steps)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"profile: {steps} coalescing steps, wall {wall:.3f} ms/step "
+          f"unprofiled, device busy {busy:.3f} ms/step ({card})")
+    for name, ms, count in rows[:12]:
+        print(f"  {ms:8.4f} ms/step  {count:6.1f}/step  {name[:70]}")
+    model.state, model.th, model.rv = init
 
 
 if __name__ == "__main__":

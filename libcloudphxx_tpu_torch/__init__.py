@@ -6,8 +6,8 @@ use by _ext.py, with a plain PyTorch version beside it that CPU tensors
 run.  The JAX package stays the reference; this package imports neither
 jax nor libcloudphxx_tpu.
 
-Ported so far: the GMD-2015 kinematic lgrngn case on the dense engine
-without coalescence (models.Kinematic2D.run_device_lgrngn).
+Ported so far: the GMD-2015 kinematic lgrngn case on the dense engine,
+coalescence included (models.Kinematic2D.run_device_lgrngn).
 """
 
 from .models import Kinematic2D

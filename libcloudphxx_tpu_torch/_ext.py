@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 _D = ctypes.c_double
 
 
@@ -80,7 +81,19 @@ MERGE = Kernel(
     "libcloudphxx_tpu_torch/csrc/merge.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:716 (_xmerge_kernel) and :405 "
     "(_kernel z-merge epilogue)")
-KERNELS = (MPDATA, COND, TRANSPORT, MERGE)
+# planes in (6), cells, table; the outputs; the flags, n_cell, cap, sstp;
+# dt_sub, kernel, coef, r_max - 1e-6, clamp, seed, step
+_COAL_TAIL = [_P, _I, _I, _I, _D, _I, _D, _D, _I, _U, _U]
+COAL = Kernel(
+    "coal", "lcp_coal", [_P] * 8 + [_P] * 6 + _COAL_TAIL + [_I],
+    "libcloudphxx_tpu_torch/csrc/coal.cu",
+    "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, coal phase :233-336)")
+COAL_STANDALONE = Kernel(
+    "coal_standalone", "lcp_coal_standalone",
+    [_P] * 8 + [_P] * 7 + _COAL_TAIL,
+    "libcloudphxx_tpu_torch/csrc/coal.cu",
+    "libcloudphxx_tpu/ops/pallas_coal.py:99 (_kernel)")
+KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE)
 
 _lib = None
 
@@ -148,6 +161,25 @@ def load():
         lib.lcp_mpdata_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
+
+
+def use_plain(name, t, plain):
+    """Whether a wrapper runs its plain version: with ``plain``, or for a
+    tensor on the CPU.  A CUDA tensor launches the kernel; any other device
+    raises."""
+    if plain or t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return False
+
+
+def check_planes(name, cap, *planes):
+    """Raise unless every SD plane is (n_cell, cap), all of one shape."""
+    for p in planes:
+        if p.dim() != 2 or p.shape[1] != cap or p.shape != planes[0].shape:
+            raise ValueError(f"{name}: SD planes must all be (n_cell, {cap}), "
+                             f"got {tuple(p.shape)}")
 
 
 def check(name, *tensors, dtype=torch.float32):

@@ -4,6 +4,12 @@ The tests feed one state to both packages: the JAX side hands over its
 StaticConfig fields and DenseState arrays as plain Python values and numpy
 arrays (``dataclasses.asdict`` + ``numpy.asarray``), so this module
 imports nothing of JAX.
+
+The random streams do not carry over: the JAX state's ``key`` is a JAX
+PRNG key, while the port draws Philox numbers from a seed and a step
+counter (ops/philox.py).  A state converted from JAX is seeded from the
+configuration (opts_init.rng_seed) at step 0; the port's own arrays carry
+``rng_seed`` and ``rng_step`` and restore both.
 """
 
 import dataclasses
@@ -31,8 +37,12 @@ def static_config_from_numpy(fields: dict) -> StaticConfig:
         fields[k], np.generic) else fields[k] for k in names})
 
 
-def dense_state_from_numpy(arrays: dict, device, dtype) -> DenseState:
-    """A port DenseState from the JAX DenseState's arrays as numpy."""
+def dense_state_from_numpy(arrays: dict, device, dtype,
+                           rng_seed=44) -> DenseState:
+    """A port DenseState from the JAX DenseState's arrays as numpy.  The
+    coalescence draws are keyed by ``arrays["rng_seed"]`` where the arrays
+    came from the port, else by ``rng_seed`` (opts_init.rng_seed), and
+    continue from ``arrays["rng_step"]`` (else step 0)."""
     for k in _EMPTY:
         if k in arrays and np.asarray(arrays[k]).size:
             raise NotImplementedError(
@@ -42,11 +52,16 @@ def dense_state_from_numpy(arrays: dict, device, dtype) -> DenseState:
     return DenseState(
         **{k: t(arrays[k]) for k in ATTRS + _CELLS},
         overflow=torch.as_tensor(int(np.asarray(arrays["overflow"])),
-                                 dtype=torch.int64, device=device))
+                                 dtype=torch.int64, device=device),
+        rng_seed=int(arrays.get("rng_seed", rng_seed)),
+        rng_step=int(arrays.get("rng_step", 0)))
 
 
 def dense_state_to_numpy(d: DenseState) -> dict:
-    """The DenseState's arrays as numpy, under the JAX DenseState's names."""
+    """The DenseState's arrays as numpy, under the JAX DenseState's names,
+    and its random stream as ``rng_seed`` and ``rng_step``."""
     out = {k: getattr(d, k).detach().cpu().numpy() for k in ATTRS + _CELLS}
     out["overflow"] = np.asarray(int(d.overflow))
+    out["rng_seed"] = np.asarray(d.rng_seed)
+    out["rng_step"] = np.asarray(d.rng_step)
     return out

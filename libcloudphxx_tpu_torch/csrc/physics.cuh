@@ -1,9 +1,12 @@
-// Device functions shared by the step kernels (cond.cu, transport.cu): the
-// per-cell closure, the beard77 terminal velocity, drw2_dt and the
-// per-droplet backward-Euler root find.  Each follows its plain PyTorch
-// version operation for operation:
+// Device functions shared by the step kernels (cond.cu, transport.cu,
+// coal.cu): the per-cell closure, the beard77 terminal velocity, the
+// collision kernels, the Shima collision, drw2_dt and the per-droplet
+// backward-Euler root find.  Each follows its plain PyTorch version
+// operation for operation:
 //   closure        lgrngn/hskpng.py hskpng_Tpr
 //   vt_beard77     lgrngn/vterm.py vt_in_kernel
+//   kernel_value   lgrngn/coalescence.py kernel_value
+//   shima          lgrngn/dense.py _shima
 //   drw2_dt        lgrngn/condensation.py drw2_dt
 //   advance_rw2    lgrngn/condensation.py _advance_rw2_core
 //   solve_bracketed ops/rootfind.py solve_bracketed
@@ -157,6 +160,122 @@ __device__ __forceinline__ float vt_beard77(float rw2, float p, float rhoa,
   float y = (r <= F(20e-6)) ? polyval(small, lx) : polyval(large, lx);
   float v = fact * div_s(expf(y), 100.0);
   return rw2 > 0.0f ? v : 0.0f;
+}
+
+// The collision kernel of kernel E: lgrngn/coalescence.py kernel_value for
+// golovin, geometric, long and the hall family.  ``coef`` is golovin's
+// pi * 4/3 * b, or geometric's multiplier (1 without kernel_parameters).
+struct CollisionKernel {
+  int kern;         // kernel_t value
+  float coef;
+  const float* eff;  // hall family: the clamped 128x128 efficiency table
+  float r_max_m1;    // the table's largest radius [um] - 1e-6
+  int clamp;         // the table's saturation index
+};
+constexpr int kGeometric = 1, kGolovin = 2, kLong = 5;
+
+// coalescence.py _kernel_index
+__device__ __forceinline__ int eff_index(float r_um) {
+  return static_cast<int>(r_um <= 100.0f
+                              ? r_um
+                              : 100.0f + div_s(r_um - 100.0f, 10.0));
+}
+
+struct EffNode {
+  int i0, i1;
+  float w_hi, w_lo, d;
+};
+
+// coalescence.py interpolated_efficiency prep, indices clamped
+__device__ __forceinline__ EffNode eff_node(float r_m,
+                                            const CollisionKernel& k) {
+  EffNode e;
+  const float r = fminf(r_m * 1e6f, k.r_max_m1);
+  const bool big = r >= 100.0f;
+  const float x0 = big ? floorf(div_s(r, 10.0)) * 10.0f : floorf(r);
+  e.d = big ? 10.0f : 1.0f;
+  e.i0 = min(eff_index(x0), k.clamp);
+  e.i1 = min(eff_index(x0 + e.d), k.clamp);
+  e.w_hi = r - x0;
+  e.w_lo = x0 + e.d - r;
+  return e;
+}
+
+// coalescence.py interpolated_efficiency: four corners read through the
+// read-only cache, combined in the plain version's order
+__device__ __forceinline__ float efficiency(const CollisionKernel& k,
+                                            float rw_a, float rw_b) {
+  const EffNode a = eff_node(rw_a, k), b = eff_node(rw_b, k);
+  const float t00 = __ldg(k.eff + a.i0 * 128 + b.i0);
+  const float t10 = __ldg(k.eff + a.i1 * 128 + b.i0);
+  const float t01 = __ldg(k.eff + a.i0 * 128 + b.i1);
+  const float t11 = __ldg(k.eff + a.i1 * 128 + b.i1);
+  return (t00 * a.w_lo * b.w_lo + t10 * a.w_hi * b.w_lo
+          + t01 * a.w_lo * b.w_hi + t11 * a.w_hi * b.w_hi) / a.d / b.d;
+}
+
+// coalescence.py kernel_value
+__device__ __forceinline__ float kernel_value(const CollisionKernel& k,
+                                              float n_a, float n_b,
+                                              float rw2_a, float rw2_b,
+                                              float vt_a, float vt_b) {
+  const float n_max = fmaxf(n_a, n_b);
+  if (k.kern == kGolovin)
+    return k.coef * n_max * (rw2_a * sqrtf(rw2_a) + rw2_b * sqrtf(rw2_b));
+  const float rw_a = sqrtf(rw2_a), rw_b = sqrtf(rw2_b);
+  const float geo = F(pi) * n_max * fabsf(vt_a - vt_b)
+                    * (rw2_a + rw2_b + 2.0f * rw_a * rw_b);
+  if (k.kern == kGeometric) return geo * k.coef;
+  if (k.kern == kLong) {
+    const float r_L = fmaxf(rw_a, rw_b), r_s = fminf(rw_a, rw_b);
+    const float eff = r_s <= F(3e-6) ? 0.0f
+                      : F(4.5e8) * r_L * r_L * (1.0f - rdiv_s(3e-6, r_s));
+    return r_L < F(50e-6) ? geo * eff : geo;
+  }
+  return geo * efficiency(k, rw_a, rw_b);
+}
+
+struct Drop {
+  float n, rw2, rd3, kpa, vt;
+};
+
+struct Collision {
+  bool happened, overflow;
+  float n_big_new, rw2_small_new, rd3_small_new, kpa_small_new;
+};
+
+// lgrngn/dense.py _shima for one pair (a, b): ``ok`` whether it is a pair,
+// ``a_big`` whether a has the larger multiplicity, ``u`` the pair's draw,
+// ``dt_dv`` dt / dv, ``scale`` the Shima scale factor
+__device__ __forceinline__ Collision shima(const CollisionKernel& k,
+                                           const Drop& a, const Drop& b,
+                                           bool a_big, bool ok, float u,
+                                           float dt_dv, float scale) {
+  Collision s;
+  const float K = kernel_value(k, a.n, b.n, a.rw2, b.rw2, a.vt, b.vt);
+  const float prob = ok ? dt_dv * scale * K : 0.0f;
+  float col_no = floorf(prob);
+  s.overflow = ok && col_no >= 1.0f;
+  col_no = col_no + (u < prob - col_no ? 1.0f : 0.0f);
+  const Drop& big = a_big ? a : b;
+  const Drop& small = a_big ? b : a;
+  const float ratio =
+      small.n > 0.0f ? floorf(big.n / fmaxf(small.n, 1.0f)) : 0.0f;
+  col_no = fminf(col_no, ratio);
+  s.happened = ok && col_no > 0.0f;
+  s.n_big_new = big.n - col_no * small.n;
+  const float rw3 =
+      col_no * big.rw2 * sqrtf(big.rw2) + small.rw2 * sqrtf(small.rw2);
+  // dense.py _cbrt: the exp/log cube root of the plain version
+  const float r = expf(div_s(logf(fmaxf(rw3, F(1e-38))), 3.0));
+  s.rw2_small_new = r * r;
+  s.rd3_small_new = col_no * big.rd3 + small.rd3;
+  s.kpa_small_new =
+      s.rd3_small_new > 0.0f
+          ? (col_no * big.kpa * big.rd3 + small.kpa * small.rd3)
+                / s.rd3_small_new
+          : small.kpa;
+  return s;
 }
 
 // Per-droplet inputs of the growth rate that stay fixed over a substep.

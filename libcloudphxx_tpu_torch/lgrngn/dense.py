@@ -8,6 +8,9 @@ the re-binning after transport moves droplets between rows.
 
 The state is never updated in place: every step returns a new DenseState,
 so a caller may keep an old one (a benchmark restores its initial state).
+Its random stream goes with it: the coalescence draws are Philox numbers
+keyed by the state's seed and step counter (ops/philox.py), so restoring a
+state restores the draws that follow it.
 The per-cell closure (the JAX package's dense._Tpr) is hskpng.hskpng_Tpr.
 """
 
@@ -16,10 +19,12 @@ import dataclasses
 import torch
 
 from ..common import constants as c
+from ..ops import coal as coal_ops
 from ..ops.step import rebin_x, step_resident
+from . import coalescence as coal_mod
 from .hskpng import hskpng_mfp, ijk_of_xyz
-from .state import (N_PUDDLE, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL,
-                    OUT_PRTCL_NUM, StaticConfig)
+from .state import (N_PUDDLE, OUT_COAL_OVERFLOW, OUT_DRY_VOL, OUT_LIQ_NUM,
+                    OUT_LIQ_VOL, OUT_PRTCL_NUM, StaticConfig)
 
 ATTRS = ("n", "rw2", "rd3", "kpa", "vt", "x", "z")
 
@@ -51,6 +56,10 @@ class DenseState:
     courant_z: torch.Tensor
     puddle: torch.Tensor      # (N_PUDDLE,), slots as state.PUDDLE_KEYS
     overflow: torch.Tensor    # 0-d int64: SDs dropped because a row was full
+    # the coalescence draws: Philox key (opts_init.rng_seed) and the step
+    # counter, host integers advanced by every coalescence call
+    rng_seed: int = 44
+    rng_step: int = 0
 
     @property
     def cap(self):
@@ -81,11 +90,12 @@ def _distribute(n_cell, cap, cell, vals):
     return planes, torch.sum(in_dom & (lane >= cap))
 
 
-def pack(cfg: StaticConfig, sd: dict, cells: dict, cap: int) -> DenseState:
+def pack(cfg: StaticConfig, sd: dict, cells: dict, cap: int,
+         rng_seed: int = 44) -> DenseState:
     """Flat SD vectors -> DenseState (one stable sort + scatter).  ``sd``
     holds the flat attributes of ATTRS and the cell index ``ijk``; slots
     with n == 0 are dropped.  ``cells`` holds the DenseState cell fields
-    and courants."""
+    and courants; ``rng_seed`` keys the coalescence draws."""
     cell = torch.where(sd["n"] > 0, sd["ijk"], cfg.n_cell)
     planes, overflow = _distribute(cfg.n_cell, cap, cell,
                                    [sd[a] for a in ATTRS])
@@ -93,7 +103,7 @@ def pack(cfg: StaticConfig, sd: dict, cells: dict, cap: int) -> DenseState:
     return DenseState(
         **dict(zip(ATTRS, planes)), **cells,
         puddle=torch.zeros(N_PUDDLE, dtype=like.dtype, device=like.device),
-        overflow=overflow)
+        overflow=overflow, rng_seed=int(rng_seed))
 
 
 def _row_courants(cfg: StaticConfig, d: DenseState):
@@ -117,18 +127,193 @@ def _rebin_global(cfg: StaticConfig, d: DenseState) -> DenseState:
                                **dict(zip(ATTRS, planes)))
 
 
-def step_fused(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, dt, RH_max,
-               do_coal: bool, do_sedi: bool, *, plain=False):
-    """One whole microphysics step: condensation substeps, transport and
-    walls (step_resident), the re-binning merge (rebin_x), the puddle fold
-    and, when some SD moved more than one cell on an axis, the global
-    re-bin.  Same phase order as the reference step_sync + step_async
-    (particles_step.ipp:161-494) without coalescence, which is not ported
-    yet.  Returns (DenseState, th, rv)."""
-    if do_coal:
+# --------------------------------------------------------------- coal ----
+def _lshift(a):
+    """a[:, i+1] with the last lane repeated."""
+    return torch.cat([a[:, 1:], a[:, -1:]], dim=1)
+
+
+def _rshift(a):
+    """a[:, i-1] with the first lane repeated."""
+    return torch.cat([a[:, :1], a[:, :-1]], dim=1)
+
+
+def _rshift_mask(m):
+    """m[:, i-1] with False injected at lane 0."""
+    return torch.cat([torch.zeros_like(m[:, :1]), m[:, :-1]], dim=1)
+
+
+def _cbrt(v):
+    """The cube root kernel E computes (the exp/log form of the TPU
+    kernel's cbrt_pos), here so that the two agree bitwise."""
+    return torch.exp(torch.log(torch.clamp(v, min=1e-38)) / 3.0)
+
+
+def _shima(cfg, params, a, b, a_big, ok, u, dt, dv_row, scale, eff):
+    """The Shima collision of every pair (a, b) that ``ok`` marks, with
+    ``a_big`` saying which SD has the larger multiplicity (coal.ipp:98-236,
+    Shima 2009 eqs. 12-13).  Returns (happened, n_big_new, rw2_small_new,
+    rd3_small_new, kpa_small_new, overflow per row)."""
+    n_a, rw2_a, rd3_a, kpa_a, vt_a = a
+    n_b, rw2_b, rd3_b, kpa_b, vt_b = b
+    K = coal_mod.kernel_value(cfg, params, n_a, n_b, rw2_a, rw2_b, vt_a,
+                              vt_b, rd3_a, rd3_b, eff)
+    prob = torch.where(ok, dt / dv_row * scale * K, 0.0)
+    # all-or-nothing multi-collision (coal.ipp:218-236)
+    col_no = torch.floor(prob)
+    overflow = (ok & (col_no >= 1.0)).any(dim=-1)
+    col_no = col_no + (u < prob - col_no)
+    big = lambda p, q: torch.where(a_big, p, q)
+    n_big, n_small = big(n_a, n_b), big(n_b, n_a)
+    ratio = torch.where(n_small > 0,
+                        torch.floor(n_big / torch.clamp(n_small, min=1.0)),
+                        0.0)
+    col_no = torch.minimum(col_no, ratio)
+    happened = ok & (col_no > 0)
+    rw2_big, rw2_small = big(rw2_a, rw2_b), big(rw2_b, rw2_a)
+    rd3_big, rd3_small = big(rd3_a, rd3_b), big(rd3_b, rd3_a)
+    kpa_big, kpa_small = big(kpa_a, kpa_b), big(kpa_b, kpa_a)
+    n_big_new = n_big - col_no * n_small
+    rw3_small_new = col_no * rw2_big * torch.sqrt(rw2_big) \
+        + rw2_small * torch.sqrt(rw2_small)
+    r_new = _cbrt(rw3_small_new)
+    rd3_small_new = col_no * rd3_big + rd3_small
+    kpa_small_new = torch.where(
+        rd3_small_new > 0,
+        (col_no * kpa_big * rd3_big + kpa_small * rd3_small)
+        / torch.clamp(rd3_small_new, min=1e-300),
+        kpa_small)
+    return (happened, n_big_new, r_new * r_new, rd3_small_new,
+            kpa_small_new, overflow)
+
+
+def pair_and_collide(cfg, params, sorted_vals, count, dv_row, rhod_row,
+                     eta_row, dt, u01, eff=None):
+    """Adjacent pairing after the shuffle and the Shima collision math on
+    (rows, cap) planes (libcloudphxx_tpu/lgrngn/dense.py:574; reference
+    particles_impl_coal.ipp:98-546).  ``sorted_vals`` is (n, rw2, rd3, kpa,
+    vt) in shuffled lane order with the live SDs first, ``count`` (rows, 1)
+    the live SDs of each row, ``u01`` the Bernoulli draws; lane 2j pairs
+    with lane 2j+1 and takes the draw of lane 2j.  ``eff`` the hall
+    family's efficiencies (coalescence.efficiency); ``rhod_row`` and
+    ``eta_row`` are taken for the JAX signature (no ported kernel reads
+    them).  Returns (n, rw2, rd3, kpa, overflow), overflow (rows,) True
+    where a pair asked for more than one collision."""
+    n_a, rw2_a, rd3_a, kpa_a, vt_a = sorted_vals
+    # Shima 2009 sec 5.1.3 scale factor (coal.ipp:99-107)
+    half = torch.floor(count / 2)
+    scale = torch.where(count > 1, count * (count - 1) / 2.0 / half, 0.0)
+    lane = torch.arange(n_a.shape[-1], device=n_a.device)
+    is_pair = (lane % 2 == 0) & (lane + 1 < count)
+    b = tuple(_lshift(v) for v in sorted_vals)
+    a_is_big = n_a >= b[0]
+    happened, n_big_new, rw2_new, rd3_new, kpa_new, overflow = _shima(
+        cfg, params, sorted_vals, b, a_is_big, is_pair, u01, dt, dv_row,
+        scale, eff)
+    # lane 2j holds the pair's outcome; lane 2j+1 reads it shifted
+    hp, bigp = _rshift_mask(happened), _rshift(a_is_big)
+    n_s = torch.where(happened & a_is_big, n_big_new, n_a)
+    n_s = torch.where(hp & ~bigp, _rshift(n_big_new), n_s)
+    out = [n_s]
+    for own, new in ((rw2_a, rw2_new), (rd3_a, rd3_new), (kpa_a, kpa_new)):
+        v = torch.where(happened & ~a_is_big, new, own)
+        out.append(torch.where(hp & bigp, _rshift(new), v))
+    return (*out, overflow)
+
+
+def _xor_partner(a, stride, lane):
+    """a[:, lane ^ stride] for a power-of-two ``stride``."""
+    fwd = torch.roll(a, -stride, dims=1)
+    bwd = torch.roll(a, stride, dims=1)
+    return torch.where((lane & stride) == 0, fwd, bwd)
+
+
+def pair_and_collide_stride(cfg, params, vals, stride, dv_row, rhod_row,
+                            eta_row, dt, u01, eff=None):
+    """Shima collision math with XOR-stride partners: lane i pairs with
+    lane i ^ stride, and the lane with the stride bit clear carries the
+    pair's draw (libcloudphxx_tpu/lgrngn/dense.py:673; see
+    pair_and_collide_partners).  Returns (n, rw2, rd3, kpa, overflow)."""
+    lane = torch.arange(vals[0].shape[-1], device=vals[0].device)
+    partners = tuple(_xor_partner(a, stride, lane) for a in vals)
+    is_a = (lane & stride) == 0
+    u_b = _xor_partner(u01, stride, lane)
+    return pair_and_collide_partners(
+        cfg, params, vals, partners, is_a, dv_row, rhod_row, eta_row, dt,
+        u01, u_b, eff)
+
+
+def pair_and_collide_partners(cfg, params, vals, partners, is_a, dv_row,
+                              rhod_row, eta_row, dt, u01, u01_b, eff=None):
+    """The symmetric collision math of pair_and_collide_stride given the
+    partner planes (libcloudphxx_tpu/lgrngn/dense.py:711): every lane holds
+    one SD of a pair and computes its own outcome; pairs with a dead SD are
+    skipped, and the scale k(k-1)/2 / n_pairs over the k live SDs keeps the
+    collision count unbiased for any number of pairs.  ``is_a`` marks the
+    lane whose draw the pair uses (``u01`` own draws, ``u01_b`` the
+    partner's).  Returns (n, rw2, rd3, kpa, overflow)."""
+    n_a = vals[0]
+    n_b = partners[0]
+    alive = n_a > 0
+    pair_ok = alive & (n_b > 0)
+    one, zero = torch.ones_like(n_a), torch.zeros_like(n_a)
+    count = torch.sum(torch.where(alive, one, zero), dim=-1, keepdim=True)
+    npairs = torch.sum(torch.where(pair_ok & is_a, one, zero), dim=-1,
+                       keepdim=True)
+    scale = torch.where((count > 1) & (npairs > 0),
+                        count * (count - 1) / 2.0
+                        / torch.clamp(npairs, min=1.0), 0.0)
+    u_pair = torch.where(is_a, u01, u01_b)
+    # roles are symmetric, with an is_a tiebreak on equal n
+    self_is_big = (n_a > n_b) | ((n_a == n_b) & is_a)
+    happened, n_big_new, rw2_new, rd3_new, kpa_new, overflow = _shima(
+        cfg, params, vals, partners, self_is_big, pair_ok, u_pair, dt,
+        dv_row, scale, eff)
+    small = happened & ~self_is_big
+    return (torch.where(happened & self_is_big, n_big_new, n_a),
+            torch.where(small, rw2_new, vals[1]),
+            torch.where(small, rd3_new, vals[2]),
+            torch.where(small, kpa_new, vals[3]), overflow)
+
+
+def coal(cfg: StaticConfig, d: DenseState, params, dt, sstp_coal: int, *,
+         plain=False) -> DenseState:
+    """The sstp_coal coalescence loop with the terminal velocity refreshed
+    every substep, on its own (libcloudphxx_tpu/lgrngn/dense.py:855): kernel
+    E in its standalone form (ops/coal.coal_standalone; the TPU's
+    pallas_coal kernel).  The overflow flag is folded into the puddle."""
+    n, rw2, rd3, kpa, vt, x, z, ovf = coal_ops.coal_standalone(
+        cfg, params, sstp_coal, dt, d.rng_seed, d.rng_step, d.n, d.rw2,
+        d.rd3, d.kpa, d.x, d.z, d.T, d.p, d.rhod, d.eta, d.dv, plain=plain)
+    return dataclasses.replace(
+        d, n=n, rw2=rw2, rd3=rd3, kpa=kpa, vt=vt, x=x, z=z,
+        puddle=_fold_coal_overflow(d.puddle, ovf.any()),
+        rng_step=d.rng_step + 1)
+
+
+def _fold_coal_overflow(puddle, flag):
+    """The sticky coalescence overflow flag in its puddle slot (the
+    reference's increase_sstp_coal request, coal.ipp:224-227)."""
+    slot = torch.zeros_like(puddle)
+    slot[OUT_COAL_OVERFLOW] = flag.to(puddle.dtype)
+    return torch.maximum(puddle, slot)
+
+
+def step_fused(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params, dt,
+               RH_max, sstp_coal: int, do_coal: bool, do_sedi: bool, *,
+               coal_pairing="stride", plain=False):
+    """One whole microphysics step: condensation substeps, coalescence
+    substeps, transport and walls (step_resident), the re-binning merge
+    (rebin_x), the puddle fold and, when some SD moved more than one cell
+    on an axis, the global re-bin.  Same phase order as the reference
+    step_sync + step_async (particles_step.ipp:161-494).  ``params`` are
+    opts_init.kernel_parameters; ``coal_pairing`` "stride" (the default) or
+    "sort" (ops/coal.coal_resident).  Returns (DenseState, th, rv)."""
+    if do_coal and cfg.pure_const_multi:
         raise NotImplementedError(
-            "step_fused: coalescence is not ported yet (ROADMAP.md, Queue 2 "
-            "item 6); run with coal_switch=False or in spin-up")
+            "step_fused: coalescence of a const-multi population (the "
+            "increase_sstp_coal path) is not ported (ROADMAP.md, Queue 1 "
+            "item 10)")
     # mean free paths from the previous step's T/p (dense.py:1519)
     lam_D, lam_K = hskpng_mfp(d.T, d.p)
     C_l, C_r, C_b, C_a = _row_courants(cfg, d)
@@ -136,13 +321,18 @@ def step_fused(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, dt, RH_max,
      rowinfo) = step_resident(
         cfg, cfg.sstp_cond, dt, RH_max, do_sedi, d.n, d.rw2, d.rd3, d.kpa,
         d.x, d.z, th_adv, rv_adv, d.sstp_tmp_th, d.sstp_tmp_rv, d.rhod, d.dv,
-        lam_D, lam_K, C_l, C_r, C_b, C_a, d.p, plain=plain)
+        lam_D, lam_K, C_l, C_r, C_b, C_a, d.p, do_coal=do_coal,
+        params=params, sstp_coal=sstp_coal, rng=(d.rng_seed, d.rng_step),
+        coal_pairing=coal_pairing, plain=plain)
     info = rowinfo.sum(dim=0).to(d.puddle.dtype)
     fold = torch.zeros_like(d.puddle)
     fold[[OUT_LIQ_VOL, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_PRTCL_NUM]] = info[:4]
+    puddle = d.puddle + fold
+    if do_coal:
+        puddle = _fold_coal_overflow(puddle, info[6] > 0)
     d = dataclasses.replace(
         d, rw2=rw2, T=T, p=p, RH=RH, eta=eta, sstp_tmp_th=th,
-        sstp_tmp_rv=rv, puddle=d.puddle + fold)
+        sstp_tmp_rv=rv, puddle=puddle, rng_step=d.rng_step + int(do_coal))
     if cfg.nx < 3:
         # the merge needs distinct left, own and right columns
         d = dataclasses.replace(d, n=n, rd3=rd3, kpa=kpa, vt=vt, x=x, z=z)

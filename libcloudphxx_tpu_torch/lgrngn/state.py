@@ -116,4 +116,7 @@ OUT_LIQ_VOL = PUDDLE_KEYS.index("liquid_volume")
 OUT_DRY_VOL = PUDDLE_KEYS.index("dry_volume")
 OUT_PRTCL_NUM = PUDDLE_KEYS.index("particle_number")
 OUT_LIQ_NUM = PUDDLE_KEYS.index("liquid_number")
+# sticky flag: a coalescence pair asked for more than one collision in a
+# substep (the reference's increase_sstp_coal request)
+OUT_COAL_OVERFLOW = len(PUDDLE_KEYS) + 1
 N_PUDDLE = len(PUDDLE_KEYS) + 2

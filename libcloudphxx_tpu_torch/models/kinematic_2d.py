@@ -101,8 +101,8 @@ class Kinematic2D(nn.Module):
                  sd_conc=64, sstp_cond=1, sstp_coal=1, n_sd_max=None,
                  mpdata_iters=2, grid="cell", fct=False,
                  terminal_velocity=None,
-                 rng_seed=None, opts_init_kw=None, *, device,
-                 dtype=torch.float32):
+                 rng_seed=None, opts_init_kw=None, coal_pairing="stride", *,
+                 device, dtype=torch.float32):
         super().__init__()
         if micro != "lgrngn":
             raise NotImplementedError(
@@ -117,6 +117,7 @@ class Kinematic2D(nn.Module):
         self.dx, self.dz = s.X / nx, s.Z / nz
         self.mpdata_iters = mpdata_iters
         self.fct = fct
+        self.coal_pairing = coal_pairing
         self.device = torch.device(device)
         self.dtype = dtype
 
@@ -195,7 +196,8 @@ class Kinematic2D(nn.Module):
                      courant_x=self.C_x.reshape(-1),
                      courant_z=self.C_z.reshape(-1))
         counts = np.bincount(pop["ijk"][pop["n"] > 0], minlength=cfg.n_cell)
-        return dense.pack(cfg, sd, cells, dense_capacity(counts.max()))
+        return dense.pack(cfg, sd, cells, dense_capacity(counts.max()),
+                          rng_seed=oi.rng_seed)
 
     def _step(self, spinup, plain):
         """One model step: MPDATA of th/rv, then the microphysics step.
@@ -206,9 +208,11 @@ class Kinematic2D(nn.Module):
                                 self.G, n_iters=self.mpdata_iters,
                                 fct=self.fct, plain=plain)
         self.state, th, rv = dense.step_fused(
-            cfg, self.state, th.reshape(-1), rv.reshape(-1), self.setup.dt,
-            1.01 if spinup else 44.0, self._does_coal(spinup),
-            (not spinup) and cfg.sedi_switch, plain=plain)
+            cfg, self.state, th.reshape(-1), rv.reshape(-1),
+            self.opts_init.kernel_parameters, self.setup.dt,
+            1.01 if spinup else 44.0, cfg.sstp_coal, self._does_coal(spinup),
+            (not spinup) and cfg.sedi_switch,
+            coal_pairing=self.coal_pairing, plain=plain)
         self.th, self.rv = th.reshape(self.nx, self.nz), \
             rv.reshape(self.nx, self.nz)
 
@@ -230,11 +234,6 @@ class Kinematic2D(nn.Module):
             raise NotImplementedError(
                 "run_device_lgrngn: the repack policy is not ported "
                 "(ROADMAP.md, Queue 1)")
-        if nt > spinup and self._does_coal(False):
-            raise NotImplementedError(
-                "run_device_lgrngn: steps after spin-up run coalescence, "
-                "which is not ported yet (ROADMAP.md, Queue 2 item 6); set "
-                "opts_init coal_switch=False")
         for i in range(nt):
             self._step(i < spinup, plain)
         dropped = int(self.state.overflow)

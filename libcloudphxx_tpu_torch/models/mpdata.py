@@ -171,12 +171,9 @@ def _dispatch(fields, gc_x, gc_z, G, n_iters, fct, plain):
     G = torch.broadcast_to(torch.as_tensor(G, dtype=fields[0].dtype,
                                            device=fields[0].device),
                            fields[0].shape)
-    dev = fields[0].device.type
-    if plain or dev == "cpu":
+    if _ext.use_plain("mpdata", fields[0], plain):
         return tuple(_advect_body(f, gc_x, gc_z, G, n_iters, fct)
                      for f in fields)
-    if dev != "cuda":
-        raise ValueError(f"mpdata: no kernel for device {fields[0].device}")
     out = _mpdata_cuda(torch.stack(fields), gc_x, gc_z, G.contiguous(),
                        n_iters, fct)
     return tuple(out.unbind(0))

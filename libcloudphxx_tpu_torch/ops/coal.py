@@ -1,0 +1,207 @@
+"""The coalescence substep loop, in place of the coal phase of the resident
+TPU kernel (libcloudphxx_tpu/ops/pallas_step.py:233-336) and of the
+standalone one (libcloudphxx_tpu/ops/pallas_coal.py:99).
+
+On the card both run as kernel E (csrc/coal.cu), beside its plain PyTorch
+version:
+
+  coal_resident / coal_resident_plain      the phase of the resident step,
+      between condensation and transport.  "stride" pairing (the default):
+      one shuffle every n_strides substeps, then lane i pairs with lane
+      i ^ 2**(substep % n_strides).  "sort" pairing: a shuffle every
+      substep and adjacent pairs; a lane id rides the shuffles in place of
+      x/z, and one final unsort puts every SD back in its lane.
+  coal_standalone / coal_standalone_plain  the loop of dense.coal: vt
+      refreshed before every shuffle, x/z/vt ride it, adjacent pairs, no
+      unsort.
+
+The random numbers are Philox draws (ops/philox.py) keyed by (seed, row)
+with the counter (step, substep, kind, lane).  The shuffle sorts each row
+on a key that cannot tie, (bits << 16 | lane) with dead lanes keyed above
+every live one, so that any correct sort (torch.sort here, a bitonic
+network in the kernel) gives the same permutation.
+
+Dispatch is by device, as in ops/step.py: CPU tensors run the plain
+version, CUDA tensors launch the kernel (float32, contiguous, a power-of-
+two row capacity up to MAX_CAP, or the wrapper raises), and ``plain=True``
+runs the plain version on any device.  Every form returns a per-row
+overflow flag: some pair of the row asked for more than one collision in a
+substep (lane 6 of the TPU kernel's per-block flags, pallas_step.py:527).
+"""
+
+import torch
+
+from .. import _ext
+from ..common import constants as c
+from ..lgrngn import coalescence as coal_mod
+from ..lgrngn import dense
+from ..lgrngn.enums import kernel_t
+from ..lgrngn.vterm import require_kernel_vt, vt_in_kernel
+from . import philox
+
+MAX_CAP = 512        # one thread per lane: kernel E's __launch_bounds__
+PAIRINGS = ("stride", "sort")
+
+
+def n_strides_of(cap):
+    """How many XOR strides (1, 2, 4, ...) a shuffle serves: up to cap/4
+    and at most 6 (pallas_step.py:252-255); 6 at cap 128."""
+    n = 1
+    while (1 << n) <= cap // 4 and n < 6:
+        n += 1
+    return n
+
+
+def shuffle_key(bits, alive):
+    """The tie-free shuffle key of each lane: the 32 random bits above the
+    lane index, dead lanes above every live one."""
+    lane = torch.arange(bits.shape[-1], device=bits.device)
+    return (torch.where(alive, bits, 1 << 32) << 16) | lane
+
+
+def shuffle_rows(key, planes):
+    """Sort each row ascending by ``key`` (no ties) with ``planes`` riding
+    (the counterpart of pallas_coal.bitonic_sort_rows).  Returns
+    (sorted key, planes)."""
+    key, order = torch.sort(key, dim=1)
+    return key, tuple(torch.gather(p, 1, order) for p in planes)
+
+
+def _draws(seed, step, like):
+    n_cell, cap = like.shape
+    return lambda s, kind: philox.draw(seed, step, s, kind, n_cell, cap,
+                                       like.device)
+
+
+def coal_resident_plain(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3,
+                        kpa, x, z, T, p, rhod, eta, dv, pairing="stride"):
+    """The coalescence phase of the resident step (pallas_step.py:233-336):
+    ``sstp_coal`` substeps of dt/sstp_coal on the (n_cell, cap) planes,
+    with the cell fields (n_cell,) after condensation, in ``pairing``
+    "stride" or "sort".  Returns (n, rw2, rd3, kpa, x, z, overflow)."""
+    col = lambda a: a[:, None]
+    T, p, rhod, eta, dv = (col(a) for a in (T, p, rhod, eta, dv))
+    dt_sub = dt / sstp_coal
+    eff = coal_mod.efficiency(cfg.kernel, n.dtype, n.device)
+    draw = _draws(seed, step, n)
+    ovf = torch.zeros(n.shape[0], dtype=torch.bool, device=n.device)
+    if pairing == "stride":
+        n_strides = n_strides_of(n.shape[1])
+        for s in range(sstp_coal):
+            if s % n_strides == 0:
+                key = shuffle_key(draw(s, philox.SHUFFLE), n > 0)
+                _, (n, rw2, rd3, kpa, x, z) = shuffle_rows(
+                    key, (n, rw2, rd3, kpa, x, z))
+            vt = vt_in_kernel(cfg, rw2, T, p, rhod, eta)
+            u = philox.u01(draw(s, philox.BERNOULLI), n.dtype)
+            n, rw2, rd3, kpa, o = dense.pair_and_collide_stride(
+                cfg, params, (n, rw2, rd3, kpa, vt), 1 << (s % n_strides),
+                dv, rhod, eta, dt_sub, u, eff)
+            ovf = ovf | o
+        return n, rw2, rd3, kpa, x, z, ovf
+    lane_id = torch.arange(n.shape[1], device=n.device).expand(n.shape)
+    for s in range(sstp_coal):
+        key = shuffle_key(draw(s, philox.SHUFFLE), n > 0)
+        _, (n, rw2, rd3, kpa, lane_id) = shuffle_rows(
+            key, (n, rw2, rd3, kpa, lane_id))
+        vt = vt_in_kernel(cfg, rw2, T, p, rhod, eta)
+        count = torch.sum(n > 0, dim=1, keepdim=True).to(n.dtype)
+        u = philox.u01(draw(s, philox.BERNOULLI), n.dtype)
+        n, rw2, rd3, kpa, o = dense.pair_and_collide(
+            cfg, params, (n, rw2, rd3, kpa, vt), count, dv, rhod, eta,
+            dt_sub, u, eff)
+        ovf = ovf | o
+    _, (n, rw2, rd3, kpa) = shuffle_rows(lane_id, (n, rw2, rd3, kpa))
+    return n, rw2, rd3, kpa, x, z, ovf
+
+
+def coal_standalone_plain(cfg, params, sstp_coal, dt, seed, step, n, rw2,
+                          rd3, kpa, x, z, T, p, rhod, eta, dv):
+    """The standalone loop (pallas_coal.py:99-152): per substep vt from
+    rw2, a shuffle with vt, x and z riding, adjacent pairs.  Returns (n,
+    rw2, rd3, kpa, vt, x, z, overflow), vt refreshed after the last
+    substep."""
+    col = lambda a: a[:, None]
+    T, p, rhod, eta, dv = (col(a) for a in (T, p, rhod, eta, dv))
+    dt_sub = dt / sstp_coal
+    eff = coal_mod.efficiency(cfg.kernel, n.dtype, n.device)
+    draw = _draws(seed, step, n)
+    ovf = torch.zeros(n.shape[0], dtype=torch.bool, device=n.device)
+    for s in range(sstp_coal):
+        vt = vt_in_kernel(cfg, rw2, T, p, rhod, eta)
+        key = shuffle_key(draw(s, philox.SHUFFLE), n > 0)
+        _, (n, rw2, rd3, kpa, vt, x, z) = shuffle_rows(
+            key, (n, rw2, rd3, kpa, vt, x, z))
+        count = torch.sum(n > 0, dim=1, keepdim=True).to(n.dtype)
+        u = philox.u01(draw(s, philox.BERNOULLI), n.dtype)
+        n, rw2, rd3, kpa, o = dense.pair_and_collide(
+            cfg, params, (n, rw2, rd3, kpa, vt), count, dv, rhod, eta,
+            dt_sub, u, eff)
+        ovf = ovf | o
+    vt = vt_in_kernel(cfg, rw2, T, p, rhod, eta)
+    return n, rw2, rd3, kpa, vt, x, z, ovf
+
+
+def _launch(kernel, cfg, params, sstp_coal, dt, seed, step, planes, cells,
+            n_outs, *mode):
+    """Check what kernel E takes, launch it and return its n_outs planes
+    and the overflow flags."""
+    n_cell, cap = planes[0].shape
+    _ext.check_planes(kernel.name, cap, *planes)
+    if cap & (cap - 1) or cap > MAX_CAP:
+        raise ValueError(f"{kernel.name}: the row capacity must be a power of "
+                         f"two up to {MAX_CAP}, got {cap}")
+    require_kernel_vt(cfg)
+    kern = kernel_t(cfg.kernel)
+    eff = coal_mod.efficiency(kern, torch.float32, planes[0].device)
+    cells = torch.stack(cells)
+    if cells.shape != (5, n_cell):
+        raise ValueError(f"{kernel.name}: cell fields must be ({n_cell},)")
+    _ext.check(kernel.name, *planes, cells)
+    coef = 1.0     # golovin's pi * 4/3 * b, geometric's multiplier
+    if kern == kernel_t.golovin:
+        coef = c.pi * 4.0 / 3.0 * float(params[0])
+    elif kern == kernel_t.geometric and len(params):
+        coef = float(params[0])
+    outs = tuple(torch.empty_like(planes[0]) for _ in range(n_outs))
+    ovf = torch.empty(n_cell, dtype=torch.bool, device=cells.device)
+    kernel.launch(
+        *(a.data_ptr() for a in planes), cells.data_ptr(),
+        eff.table.data_ptr() if eff else None,
+        *(o.data_ptr() for o in outs), ovf.data_ptr(), n_cell, cap,
+        int(sstp_coal), dt / sstp_coal, kern.value, coef,
+        eff.r_max_um - 1e-6 if eff else 0.0, eff.clamp if eff else 0,
+        int(seed) & philox.MASK, int(step) & philox.MASK, *mode)
+    return outs + (ovf,)
+
+
+def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
+                  x, z, T, p, rhod, eta, dv, *, pairing="stride",
+                  plain=False):
+    """Kernel E in the resident step's form, or coal_resident_plain (same
+    arguments and results)."""
+    if pairing not in PAIRINGS:
+        raise ValueError(f"coal: pairing must be one of {PAIRINGS}, got "
+                         f"{pairing!r}")
+    args = (cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa, x, z,
+            T, p, rhod, eta, dv)
+    if _ext.use_plain("coal", n, plain):
+        return coal_resident_plain(*args, pairing=pairing)
+    return _launch(_ext.COAL, cfg, params, sstp_coal, dt, seed, step,
+                   (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
+                   int(pairing == "sort"))
+
+
+def coal_standalone(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
+                    x, z, T, p, rhod, eta, dv, *, plain=False):
+    """Kernel E in the standalone form, or coal_standalone_plain (same
+    arguments and results)."""
+    args = (cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa, x, z,
+            T, p, rhod, eta, dv)
+    if _ext.use_plain("coal_standalone", n, plain):
+        return coal_standalone_plain(*args)
+    *outs, ovf = _launch(_ext.COAL_STANDALONE, cfg, params, sstp_coal, dt,
+                         seed, step, (n, rw2, rd3, kpa, x, z),
+                         (T, p, rhod, eta, dv), 7)
+    n, rw2, rd3, kpa, x, z, vt = outs
+    return n, rw2, rd3, kpa, vt, x, z, ovf

@@ -1,12 +1,13 @@
-"""The resident microphysics step without coalescence, and the re-binning
-merge (libcloudphxx_tpu/ops/pallas_step.py: step_resident, rebin_x).
+"""The resident microphysics step and the re-binning merge
+(libcloudphxx_tpu/ops/pallas_step.py: step_resident, rebin_x).
 
 The TPU runs the step as one Pallas kernel over row blocks
 (pallas_step._kernel) plus the x pass of the re-binning
-(pallas_step._xmerge_kernel).  On the card the same work runs as three
+(pallas_step._xmerge_kernel).  On the card the same work runs as four
 hand-written kernels, each beside its plain PyTorch version:
 
   kernel B  csrc/cond.cu       cond / cond_plain: condensation substeps
+  kernel E  csrc/coal.cu       ops/coal.coal_resident: coalescence substeps
   kernel C  csrc/transport.cu  transport / transport_plain: vt refresh,
             advection, sedimentation, walls, puddle partials, and the
             target cell of every droplet
@@ -19,9 +20,6 @@ launch the kernel (float32, contiguous, or the wrapper raises), and
 ``plain=True`` runs the plain version on any device, for comparisons and
 timings.  Layout: SD planes (n_cell, cap), row i*nz + k holding cell
 (i, k); cell fields (n_cell,).
-
-Coalescence (the do_coal phase of pallas_step._kernel) is not ported yet
-(ROADMAP.md, Queue 2).
 """
 
 import torch
@@ -33,27 +31,13 @@ from ..lgrngn.condensation import _advance_rw2_core, _root_iters
 from ..lgrngn.enums import as_t
 from ..lgrngn.hskpng import hskpng_Tpr
 from ..lgrngn.vterm import require_kernel_vt, vt_in_kernel
+from . import coal as coal_ops
 from .compact import stable_partition_rows
 
 # source rows of the merge, as (di, dk) offsets in this order: own row,
 # the z neighbours, then the columns to the left and to the right
 MERGE_SOURCES = ((0, 0), (0, -1), (0, 1), (-1, 0), (-1, -1), (-1, 1),
                  (1, 0), (1, -1), (1, 1))
-
-
-def _use_plain(name, t, plain):
-    if plain or t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {t.device}")
-    return False
-
-
-def _check_planes(name, cap, *planes):
-    for p in planes:
-        if p.dim() != 2 or p.shape[1] != cap or p.shape != planes[0].shape:
-            raise ValueError(f"{name}: SD planes must all be (n_cell, {cap}), "
-                             f"got {tuple(p.shape)}")
 
 
 def _rows(cfg, n_cell, like):
@@ -104,10 +88,10 @@ def cond(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
     results)."""
     args = (n, rw2, rd3, kpa, thadv, rvadv, th0, rv0, rhod, dv, lam_D,
             lam_K, p0)
-    if _use_plain("cond", n, plain):
+    if _ext.use_plain("cond", n, plain):
         return cond_plain(cfg, sstp_cond, dt, RH_max, *args)
     n_cell, cap = n.shape
-    _check_planes("cond", cap, n, rw2, rd3, kpa)
+    _ext.check_planes("cond", cap, n, rw2, rd3, kpa)
     require_kernel_vt(cfg)
     cells = torch.stack([thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, p0])
     if cells.shape != (9, n_cell):
@@ -201,10 +185,10 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
     """Kernel C, or its plain version transport_plain (same arguments and
     results)."""
     args = (n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r, C_b, C_a)
-    if _use_plain("transport", n, plain):
+    if _ext.use_plain("transport", n, plain):
         return transport_plain(cfg, dt, do_sedi, *args)
     n_cell, cap = n.shape
-    _check_planes("transport", cap, n, rw2, rd3, x, z)
+    _ext.check_planes("transport", cap, n, rw2, rd3, x, z)
     require_kernel_vt(cfg)
     if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
         raise NotImplementedError(
@@ -231,21 +215,26 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
 
 def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
                   z, thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, C_l, C_r,
-                  C_b, C_a, p0, *, do_coal=False, plain=False):
-    """One microphysics step without coalescence: condensation (kernel B),
-    then transport and classification (kernel C); the merge (rebin_x)
-    follows.  Returns (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH,
-    eta, rowinfo)."""
-    if do_coal:
-        raise NotImplementedError(
-            "step_resident: the coalescence phase is not ported yet "
-            "(ROADMAP.md, Queue 2 item 6)")
+                  C_b, C_a, p0, *, do_coal=False, params=(), sstp_coal=1,
+                  rng=(0, 0), coal_pairing="stride", plain=False):
+    """One microphysics step: condensation (kernel B), with ``do_coal``
+    coalescence (kernel E, sstp_coal substeps of the draws ``rng`` =
+    (seed, step)), then transport and classification (kernel C); the
+    merge (rebin_x) follows.  Returns (n, rw2, rd3, kpa, vt, x, z, tgt,
+    th, rv, T, p, RH, eta, rowinfo), rowinfo's lane 6 the coalescence
+    overflow flag of each row."""
     rw2, th, rv, T, p, RH, eta = cond(
         cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0, rv0,
         rhod, dv, lam_D, lam_K, p0, plain=plain)
+    if do_coal:
+        n, rw2, rd3, kpa, x, z, coal_ovf = coal_ops.coal_resident(
+            cfg, params, sstp_coal, dt, *rng, n, rw2, rd3, kpa, x, z, T, p,
+            rhod, eta, dv, pairing=coal_pairing, plain=plain)
     n, x, z, vt, tgt, rowinfo = transport(
         cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r, C_b,
         C_a, plain=plain)
+    if do_coal:
+        rowinfo[:, 6] = coal_ovf.to(rowinfo.dtype)
     return (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta, rowinfo)
 
 
@@ -291,10 +280,10 @@ def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, plain=False):
         raise ValueError("rebin_x: the merge needs nx >= 3 (left, own and "
                          "right columns must differ)")
     planes = (n, rw2, rd3, kpa, vt, x, z)
-    if _use_plain("rebin_x", n, plain):
+    if _ext.use_plain("rebin_x", n, plain):
         return rebin_x_plain(cfg, *planes, tgt)
     n_cell, cap = n.shape
-    _check_planes("rebin_x", cap, *planes, tgt)
+    _ext.check_planes("rebin_x", cap, *planes, tgt)
     _ext.check("rebin_x", *planes)
     _ext.check("rebin_x", tgt, dtype=torch.int32)
     outs = tuple(torch.empty_like(p) for p in planes)

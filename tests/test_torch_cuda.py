@@ -6,8 +6,12 @@ row capacity 128).  These tests take the shapes and options that case does
 not reach: row capacity 32 (fewer lanes than a block has threads) and 256
 (more), an MPDATA grid that is not square, one field and n_iters 1, the
 euler scheme, open side walls and periodic top/bottom walls, and rain that
-fills the puddle.  They also check that the wrappers refuse what the
-kernels do not take, and count one launch per call.
+fills the puddle.  Kernel E (coalescence) runs at row
+capacity 32, 128 and 256 in its three forms (stride and sort pairing,
+standalone) with the golovin, geometric, long and hall kernels, on rows
+that are full, half empty, all dead or hold one droplet.  They also check
+that the wrappers refuse what the kernels do not take, and count one launch
+per call.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -18,7 +22,8 @@ Tolerances: the kernels follow their plain versions operation for
 operation (built with -fmad=false), and at the GMD case they agree
 bitwise; the bounds are those chip_smoke.py states (MPDATA rtol 1e-5;
 condensation th 2e-6, rv 2e-5, rw2 1e-5; cells, multiplicities, targets
-and overflow exact, rw2/x/z 1e-6, puddle 1e-5).
+and overflow exact, rw2/x/z 1e-6, puddle 1e-5; coalescence: per cell the
+multiset of (n, rd3, kpa) and the overflow flags exact, rw2 rel 1e-6).
 """
 
 import dataclasses
@@ -29,11 +34,11 @@ import torch
 from torch_parity import multiset
 
 from libcloudphxx_tpu_torch import Kinematic2D, _ext
-from libcloudphxx_tpu_torch.lgrngn import as_t, dense
+from libcloudphxx_tpu_torch.lgrngn import as_t, dense, kernel_t, vt_t
 from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp
 from libcloudphxx_tpu_torch.models import mpdata
 from libcloudphxx_tpu_torch.models.kinematic_2d import Setup, make_gc
-from libcloudphxx_tpu_torch.ops import step
+from libcloudphxx_tpu_torch.ops import coal, step
 
 pytestmark = pytest.mark.cuda
 
@@ -177,10 +182,12 @@ def test_slice_kernels_match_plain(dev):
     kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=3, n_sd_max=24 * 64,
               opts_init_kw={"coal_switch": False}, device=dev)
     mk, mp = Kinematic2D(**kw), Kinematic2D(**kw)
+    step_kernels = (_ext.MPDATA, _ext.COND, _ext.TRANSPORT, _ext.MERGE)
     before = {k.name: k.launches for k in _ext.KERNELS}
     mk.run_device_lgrngn(4, spinup=2)
     torch.cuda.synchronize()
-    assert all(k.launches == before[k.name] + 4 for k in _ext.KERNELS)
+    assert all(k.launches == before[k.name] + 4 for k in step_kernels)
+    assert _ext.COAL.launches == before["coal"]       # coalescence off
     mp.run_device_lgrngn(4, spinup=2, plain=True)
     assert _rel(mk.th, mp.th) <= 2e-6
     assert _rel(mk.rv, mp.rv) <= 2e-5
@@ -204,3 +211,126 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(model):
                       device=d.n.device)
     with pytest.raises(ValueError, match="SD planes"):
         step.rebin_x(m.cfg, d.n, d.rw2, d.rd3, d.kpa, d.vt, d.x, d.z, tgt)
+
+
+# ---------------------------------------------------------------- kernel E
+def _coal_rows(dev, cap, rows=48, seed=0):
+    """SD planes with full, half-empty, all-dead and one-droplet rows,
+    droplets of 2-300 um, and the cell fields of a cloudy column."""
+    rng = np.random.default_rng(seed + cap)
+    occ = rng.uniform(0.0, 1.0, rows)
+    occ[:4] = (1.0, 0.5, 0.0, 0.0)
+    alive = rng.random((rows, cap)) < occ[:, None]
+    alive[3, :] = False
+    alive[3, cap // 3] = True                      # one droplet
+    n = np.where(alive, np.floor(10.0 ** rng.uniform(5, 9, (rows, cap))), 0.0)
+    rw = np.exp(rng.uniform(np.log(2e-6), np.log(3e-4), (rows, cap)))
+    rw2 = np.where(alive, rw ** 2, 0.0)
+    rd3 = np.where(alive, (rw * rng.uniform(1e-3, 1e-1, (rows, cap))) ** 3,
+                   0.0)
+    kpa = np.where(alive, rng.uniform(0.1, 1.2, (rows, cap)), 0.0)
+    x = rng.uniform(0.0, 1500.0, (rows, cap))
+    z = rng.uniform(0.0, 1500.0, (rows, cap))
+    T = rng.uniform(280.0, 295.0, rows)
+    cells = (T, rng.uniform(8.5e4, 1e5, rows), rng.uniform(1.0, 1.2, rows),
+             1.72e-5 * (393.0 / (T + 120.0)) * (T / 273.16) ** 1.5,
+             rng.uniform(0.8e4, 1.2e4, rows) * 10.0 ** rng.integers(0, 3,
+                                                                   rows))
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                    dtype=torch.float32, device=dev)
+    return tuple(map(f32, (n, rw2, rd3, kpa, x, z))), tuple(map(f32, cells))
+
+
+@pytest.fixture(scope="module")
+def coal_model(dev):
+    return Kinematic2D(nx=8, nz=8, sd_conc=4, n_sd_max=4 * 64, device=dev)
+
+
+def _coal_cfg(model, kernel):
+    return dataclasses.replace(model.cfg, kernel=kernel.value)
+
+
+COAL_KERNELS = {"golovin": (kernel_t.golovin, (1500.0,)),
+                "geometric": (kernel_t.geometric, (2.0,)),
+                "long": (kernel_t.long, ()),
+                "hall": (kernel_t.hall, ())}
+
+
+@pytest.mark.parametrize("name", list(COAL_KERNELS))
+@pytest.mark.parametrize("form", ["stride", "sort", "standalone"])
+@pytest.mark.parametrize("cap", [32, 128, 256])
+def test_coal_kernel_matches_plain(coal_model, cap, form, name):
+    model = coal_model
+    kernel, params = COAL_KERNELS[name]
+    cfg = _coal_cfg(model, kernel)
+    planes, cells = _coal_rows(model.device, cap)
+    args = (cfg, params, 10, 100.0, 44, 3) + planes + cells
+    if form == "standalone":
+        run = lambda plain: coal.coal_standalone(*args, plain=plain)
+        k = _launches(_ext.COAL_STANDALONE, lambda: run(False))
+        p = run(True)
+        order = (0, 2, 3, 1, 5, 6, 4)      # n rd3 kpa rw2 x z vt
+    else:
+        run = lambda plain: coal.coal_resident(*args, pairing=form,
+                                               plain=plain)
+        k = _launches(_ext.COAL, lambda: run(False))
+        p = run(True)
+        order = (0, 2, 3, 1, 4, 5)         # n rd3 kpa rw2 x z
+    cpu = lambda o: tuple(o[i].cpu() for i in order)
+    mk, mp = multiset(k[0].cpu(), cpu(k)[1:]), multiset(p[0].cpu(), cpu(p)[1:])
+    assert mk.shape == mp.shape
+    np.testing.assert_array_equal(mk[:, :4], mp[:, :4])   # cell n rd3 kpa
+    np.testing.assert_allclose(mk[:, 4:], mp[:, 4:], rtol=1e-6)
+    assert torch.equal(k[-1], p[-1])                      # overflow flags
+    n0 = planes[0]
+    assert float(p[0].sum()) < float(n0.sum())            # collisions
+    for r in (2, 3):                                      # dead, one SD
+        assert torch.equal(torch.sort(p[0][r]).values,
+                           torch.sort(n0[r]).values)
+        assert not bool(p[-1][r])
+    if form == "sort":                # the unsort restores x and z
+        assert torch.equal(k[4], planes[4]) and torch.equal(k[5], planes[5])
+
+
+def test_coal_wrappers_refuse_what_the_kernel_does_not_take(coal_model):
+    model = coal_model
+    cfg = _coal_cfg(model, kernel_t.geometric)
+    planes, cells = _coal_rows(model.device, 128, rows=8)
+    call = lambda cfg, planes, cells=cells, fn=coal.coal_resident: fn(
+        cfg, (), 2, 1.0, 44, 0, *planes, *cells)
+    wide, _ = _coal_rows(model.device, 1024, rows=8)
+    for bad in (tuple(a[:, :96].contiguous() for a in planes), wide):
+        with pytest.raises(ValueError, match="power of two"):
+            call(cfg, bad)
+    with pytest.raises(TypeError, match="float32"):
+        call(cfg, tuple(a.double() for a in planes))
+    strided = planes[:1] + (planes[1].t().contiguous().t(),) + planes[2:]
+    with pytest.raises(ValueError, match="contiguous"):
+        call(cfg, strided)
+    for kern in (kernel_t.onishi_hall, kernel_t.vohl_davis_no_waals):
+        with pytest.raises(NotImplementedError, match=kern.name):
+            call(_coal_cfg(model, kern), planes, fn=coal.coal_standalone)
+    with pytest.raises(NotImplementedError, match="beard76"):
+        call(dataclasses.replace(cfg, terminal_velocity=vt_t.beard76.value),
+             planes)
+    with pytest.raises(ValueError, match="pairing"):
+        coal.coal_resident(cfg, (), 2, 1.0, 44, 0, *planes, *cells,
+                           pairing="xor")
+
+
+def test_coal_slice_kernels_match_plain(dev):
+    """Two spin-up and two coalescing steps of the 8x8 case (geometric
+    kernel times 100) through the kernels and the plain versions."""
+    kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=3, sstp_coal=3,
+              n_sd_max=24 * 64, opts_init_kw={"kernel_parameters": [100.0]},
+              device=dev)
+    mk, mp = Kinematic2D(**kw), Kinematic2D(**kw)
+    before = _ext.COAL.launches
+    mk.run_device_lgrngn(4, spinup=2)
+    torch.cuda.synchronize()
+    assert _ext.COAL.launches == before + 2
+    mp.run_device_lgrngn(4, spinup=2, plain=True)
+    assert _rel(mk.th, mp.th) <= 2e-6
+    assert _rel(mk.rv, mp.rv) <= 2e-5
+    assert torch.equal((mk.state.n > 0).sum(1), (mp.state.n > 0).sum(1))
+    assert float(mk.state.n.sum()) == float(mp.state.n.sum())

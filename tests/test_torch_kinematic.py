@@ -1,5 +1,5 @@
 """Port parity: the whole slice, Kinematic2D.run_device_lgrngn on the dense
-engine without coalescence, against the JAX package at float64 on the CPU.
+engine, against the JAX package at float64 on the CPU.
 
 8x8 cells, sd_conc 24, sstp_cond 3, 4 steps of which 2 spin-up, then
 sedimentation on and coal_switch=False; terminal_velocity=beard77 (the
@@ -22,6 +22,12 @@ Two references:
   1e-10, moments 0 and 3 rtol 1e-9, puddle rtol 1e-9.
 
 Per-cell SD counts are exact against both.
+
+With coalescence (sstp_coal 3, stride and sort pairing) the reference is
+the second one with the coalescence phase inserted between condensation and
+transport, built from the JAX pair functions and fed the port's shuffles
+and Bernoulli draws in the port's lane order (torch_parity.jax_coal_loop):
+the same tolerances, and collisions must happen.
 """
 
 import dataclasses
@@ -33,7 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import multiset, port_cfg, port_state
+from torch_parity import jax_coal_loop, multiset, port_cfg, port_state
 
 from libcloudphxx_tpu import lgrngn
 from libcloudphxx_tpu.common import theta_dry as jtheta_dry
@@ -45,7 +51,8 @@ from libcloudphxx_tpu_torch import Kinematic2D
 from libcloudphxx_tpu_torch.convert import (dense_state_to_numpy,
                                             static_config_from_numpy)
 from libcloudphxx_tpu_torch.lgrngn import dense as tdense
-from libcloudphxx_tpu_torch.lgrngn import vt_t
+from libcloudphxx_tpu_torch.lgrngn import kernel_t, vt_t
+from libcloudphxx_tpu_torch.lgrngn.state import OUT_PRTCL_NUM
 from libcloudphxx_tpu_torch.models.kinematic_2d import dense_capacity
 
 KW = dict(nx=8, nz=8, sd_conc=24, sstp_cond=3, n_sd_max=24 * 64,
@@ -85,10 +92,12 @@ def jax_run(jax_model, jax_init):
     return d, np.asarray(jax_model.th), np.asarray(jax_model.rv)
 
 
-@pytest.fixture(scope="module")
-def jax_loop(jax_model, jax_init):
+def _xla_loop(jax_model, d, coal_phase=None):
     """The JAX XLA dense step (the dense path of _lgrngn_step_fn_dense) with
-    vt rebuilt from the saved cell state before each condensation."""
+    vt rebuilt from the saved cell state before each condensation, from the
+    model's initial fields and the packed population ``d``.  With
+    ``coal_phase(i, d) -> d`` the coalescence phase of main step i runs
+    between condensation and transport, as in the resident kernel."""
     m, cfg = jax_model, jax_model.prtcls.cfg
     c = lambda a: a[:, None]
 
@@ -103,7 +112,6 @@ def jax_loop(jax_model, jax_init):
         return jdense.step_cond(cfg, d, tha.reshape(-1), rva.reshape(-1), 1.0,
                                 RH_max)
 
-    d = jax_init
     # the model's initial fields (jax_run may have advanced the model)
     th = jnp.full((8, 8), float(jtheta_dry.std2dry(m.setup.th_0,
                                                     m.setup.rv_0)))
@@ -113,8 +121,15 @@ def jax_loop(jax_model, jax_init):
         sp = i < SPINUP
         d, th, rv = cond(d, th.reshape(8, 8), rv.reshape(8, 8),
                          1.01 if sp else 44.0)
+        if coal_phase is not None and not sp:
+            d = coal_phase(i, d)
         d = jdense.step_async(cfg, d, params, 1.0, 1, False, not sp)
     return d, np.asarray(th).reshape(8, 8), np.asarray(rv).reshape(8, 8)
+
+
+@pytest.fixture(scope="module")
+def jax_loop(jax_model, jax_init):
+    return _xla_loop(jax_model, jax_init)
 
 
 def _moments(d):
@@ -157,9 +172,8 @@ def test_slice_matches_jax_with_kernel_vt(port, jax_loop):
     _compare(m, *jax_loop, rtol_th=1e-10, rtol_rv=1e-10, rtol_m3=1e-9)
 
 
-def test_slice_passes_bench_physics_checks(port):
+def _bench_checks(m, water0, dry0):
     """bench.py:45-96 on the port's final state."""
-    m, _, (water0, dry0) = port
     d, th, rv = m.state, m.th, m.rv
     alive = d.n > 0
     assert torch.isfinite(th).all() and torch.isfinite(rv).all()
@@ -171,6 +185,91 @@ def test_slice_passes_bench_physics_checks(port):
     assert abs(water - water0) / water0 < 1e-3
     assert abs(dry - dry0) / dry0 < 1e-4
     assert int(d.overflow) == 0
+
+
+def test_slice_passes_bench_physics_checks(port):
+    m, _, (water0, dry0) = port
+    _bench_checks(m, water0, dry0)
+
+
+# ---- the slice with coalescence: sstp_coal 3 and the geometric kernel
+# times 100 (opts_init.kernel_parameters), so that droplets collide within
+# the two main steps
+KW_COAL = dict(KW, sstp_coal=3, opts_init_kw={"kernel_parameters": [100.0]})
+PLANES = ("n", "rw2", "rd3", "kpa", "x", "z")
+
+
+@pytest.fixture(scope="module", params=["stride", "sort"])
+def coal_port(request):
+    """The port with coalescence after spin-up, run step by step; returns
+    the model, its state before each step and the initial totals."""
+    m = Kinematic2D(terminal_velocity=vt_t.beard77, device="cpu",
+                    dtype=torch.float64, coal_pairing=request.param,
+                    **KW_COAL)
+    totals = tdense.water_dry_totals(m.state, m.rv)
+    before = []
+    for i in range(NT):
+        before.append(m.state)
+        m.run_device_lgrngn(1, spinup=int(i < SPINUP))
+    return m, before, totals
+
+
+def _port_order(d, s):
+    """Gather index that puts the SDs of every row of the JAX state ``d``
+    in the lane order of the port state ``s`` (an SD is known by its rd3,
+    which no two SDs of a row share)."""
+    n_j, rd3_j = np.asarray(d.n), np.asarray(d.rd3)
+    n_p, rd3_p = s.n.numpy(), s.rd3.numpy()
+    perm = np.empty(n_j.shape, dtype=np.int64)
+    for r in range(n_j.shape[0]):
+        live_j = np.flatnonzero(n_j[r] > 0)
+        lane = dict(zip(rd3_j[r, live_j], live_j))
+        live_p = n_p[r] > 0
+        perm[r, live_p] = [lane[v] for v in rd3_p[r, live_p]]
+        perm[r, ~live_p] = np.flatnonzero(n_j[r] <= 0)
+    return perm
+
+
+@pytest.fixture(scope="module")
+def coal_ref(coal_port):
+    """The XLA loop with the coalescence phase built from the JAX pair
+    functions on the port's draws and lane order (torch_parity.
+    jax_coal_loop), at the port's row capacity."""
+    m_port, before, _ = coal_port
+    jm = JaxKinematic2D(micro="lgrngn", terminal_velocity=lgrngn.vt_t.beard77,
+                        **KW_COAL)
+    cfg, oi = jm.prtcls.cfg, jm.prtcls.opts_init
+    d0 = jax.jit(jdense.pack, static_argnums=(0, 2))(cfg, jm.prtcls.state,
+                                                      before[0].cap)
+
+    def coal_phase(i, d):
+        perm = _port_order(d, before[i])
+        planes = tuple(np.take_along_axis(np.asarray(getattr(d, a)), perm, 1)
+                       for a in PLANES)
+        cells = tuple(np.asarray(getattr(d, a))
+                      for a in ("T", "p", "rhod", "eta", "dv"))
+        out = jax_coal_loop(cfg, oi.kernel_parameters, oi.sstp_coal, 1.0,
+                            oi.rng_seed, i - SPINUP, planes, cells,
+                            m_port.coal_pairing)
+        return dataclasses.replace(
+            d, **{a: jnp.asarray(v) for a, v in zip(PLANES, out)})
+
+    return _xla_loop(jm, d0, coal_phase)
+
+
+def test_coal_slice_matches_jax_on_port_draws(coal_port, coal_ref):
+    m, _, _ = coal_port
+    _compare(m, *coal_ref, rtol_th=1e-10, rtol_rv=1e-10, rtol_m3=1e-9)
+
+
+def test_coal_slice_collides_and_passes_bench_physics_checks(coal_port):
+    m, before, (water0, dry0) = coal_port
+    # multiplicity lost in the main steps, less what fell into the puddle
+    lost = float(before[SPINUP].n.sum() - m.state.n.sum()
+                 - m.state.puddle[OUT_PRTCL_NUM])
+    assert lost > 0.0
+    assert m.state.rng_step == NT - SPINUP
+    _bench_checks(m, water0, dry0)
 
 
 def test_import_leaves_jax_out():
@@ -188,6 +287,8 @@ def test_convert_roundtrip(jax_init, jax_model):
     cfg = jax_model.prtcls.cfg
     assert dataclasses.asdict(port_cfg(cfg)) == dataclasses.asdict(cfg)
     back = dense_state_to_numpy(port_state(jax_init))
+    # the JAX key does not carry over: the port's draws start at step 0
+    assert (int(back.pop("rng_seed")), int(back.pop("rng_step"))) == (44, 0)
     for k, v in back.items():
         np.testing.assert_array_equal(v, np.asarray(getattr(jax_init, k)),
                                       err_msg=k)
@@ -200,9 +301,12 @@ def test_convert_roundtrip(jax_init, jax_model):
 def test_unported_paths_raise(what, port):
     m, _, _ = port
     if what == "coalescence":
+        # coalescence runs (test_coal_slice_*), but not with the turbulent
+        # kernels (ROADMAP.md, Queue 1 item 10)
         m2 = Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
-                         dtype=torch.float64)
-        with pytest.raises(NotImplementedError, match="coalescence"):
+                         dtype=torch.float64,
+                         opts_init_kw={"kernel": kernel_t.onishi_hall})
+        with pytest.raises(NotImplementedError, match="onishi_hall"):
             m2.run_device_lgrngn(2, spinup=1)
         return
     with pytest.raises(NotImplementedError):

@@ -93,7 +93,7 @@ def _check_step(cfg, d, th, rv, dt, expect_puddle):
     d_x = jdense.rebin(cfg, d_x)
 
     d_t, th_t, rv_t = tdense.step_fused(port_cfg(cfg), port_state(d), t(th),
-                                        t(rv), dt, 44.0, False, True)
+                                        t(rv), (), dt, 44.0, 1, False, True)
 
     np.testing.assert_allclose(th_t.numpy(), np.asarray(th_x), rtol=1e-12)
     np.testing.assert_allclose(rv_t.numpy(), np.asarray(rv_x), rtol=1e-12)
@@ -151,11 +151,17 @@ def test_step_fused_th_std_const_p_matches_jax_xla():
 
 
 def test_step_fused_refuses_coalescence():
+    """Coalescence runs, except where it is not ported: a const-multi
+    population (the increase_sstp_coal path) and the turbulent kernels."""
     m, cfg, d = _setup(False)
-    th = t(m.th).reshape(-1)
-    with pytest.raises(NotImplementedError, match="coalescence"):
-        tdense.step_fused(port_cfg(cfg), port_state(d), th, t(m.rv).reshape(-1),
-                          1.0, 44.0, True, True)
+    th, rv = t(m.th).reshape(-1), t(m.rv).reshape(-1)
+    for over, match in (({"pure_const_multi": True}, "const-multi"),
+                        ({"kernel": lgrngn.kernel_t.onishi_hall.value},
+                         "onishi_hall")):
+        with pytest.raises(NotImplementedError, match=match):
+            tdense.step_fused(dataclasses.replace(port_cfg(cfg), **over),
+                              port_state(d), th, rv, (), 1.0, 44.0, 2, True,
+                              True)
 
 
 def test_rebin_x_plain_takes_neighbours_in_order():

@@ -64,8 +64,8 @@ def test_step_fused_matches_pallas_kernel(rain):
             True)
     f32 = torch.float32
     d_t, th_t, rv_t = tdense.step_fused(port_cfg(cfg), port_state(d, f32),
-                                        t(th, f32), t(rv, f32), dt, 44.0,
-                                        False, True)
+                                        t(th, f32), t(rv, f32), (), dt,
+                                        44.0, 2, False, True)
     assert th_t.dtype == f32
     np.testing.assert_allclose(th_t.numpy(), np.asarray(th_k), rtol=2e-6)
     np.testing.assert_allclose(rv_t.numpy(), np.asarray(rv_k), rtol=2e-5)
