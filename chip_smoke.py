@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (libcloudphxx_tpu_torch) on one GPU.
 
-Drives the port's main path, the GMD-2015 kinematic lgrngn case at 76x76
+Drives the port's paths, the GMD-2015 kinematic lgrngn case at 76x76
 cells and 64 super-droplets a cell with sstp_cond = sstp_coal = 10 and the
-geometric kernel (bench.py's configuration), and checks it:
+geometric kernel (bench.py's configuration), on the dense engine (kernels
+A-E) and on the flat engine behind the public API (kernels A and F), and
+checks them:
 
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run
-  2. build: compile the kernels from csrc/
+  2. build: compile the kernels from csrc/, one nvcc per source in parallel
   3. kernels against their plain PyTorch versions, on the card, at the main
      path's shapes: A-D from the initial population, E (coalescence) from
      the population after the spin-up, in stride, sort and standalone form
@@ -16,15 +18,26 @@ geometric kernel (bench.py's configuration), and checks it:
   5. the slice with coalescence (the main path): the same, kernels A-E
      launched, and collisions happened
   6. the standalone coalescence path (dense.coal): its form of kernel E
-  7. timing: best of 3 from-init reps through the kernels and through the
-     plain versions, with and without coalescence, and each kernel against
-     its plain version
+  7. the flat engine through the public API (factory -> init ->
+     Kinematic2D.run(): step_sync / step_async): spin-up and coalescing
+     steps, bench.py's physics checks read through get_attr and
+     diag_puddle, kernel F sstp_cond times a step and kernel A twice, kernel
+     F against its plain version on the cell-sorted SD arrays after the
+     spin-up (and at lengths 1 and 32,773), run_device_lgrngn(engine=
+     "flat") against the stepwise loop, the kernel path against the plain
+     path
+  8. timing: best of 3 from-init reps through the kernels and through the
+     plain versions, with and without coalescence, on the dense engine;
+     best of 3 from-init reps of the flat slice; each kernel against its
+     plain version, beside its bound (bytes or operations at the card's
+     peak rates)
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
-adds the device-time split of the coalescing steps (torch.profiler).  The
-last line is {"ok": true, "device": {...}}; the line before it the card's
-name and power limit; before that one JSON object with a row per kernel.
-Any failed check raises, and the script exits non-zero.
+adds the device-time split of the coalescing steps on both engines
+(torch.profiler).  The last line is {"ok": true, "device": {...}}; the
+line before it the card's name and power limit; before that one JSON
+object with a row per kernel.  Any failed check raises, and the script
+exits non-zero.
 """
 
 import argparse
@@ -47,6 +60,21 @@ TIME_STEPS, TIME_REPS = 50, 3       # with coalescence: bench.py's protocol
 TIME_STEPS_NO_COAL = 20
 KERNEL_REPS = 20
 STANDALONE_CALLS = 3
+FLAT_TIME_STEPS = 20
+
+# the card's peak rates (H100 SXM data sheet, at a 700 W power limit):
+# device memory bytes/s and float32 operations/s outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# operations per element, counted from the device code (a transcendental
+# or a division counts as one): one drw2_dt evaluation, one root-find
+# iteration beside its evaluation, advance_rw2 outside both
+OPS_DRW2, OPS_ITER, OPS_ADVANCE = 94, 22, 25
+# per live SD: vt_beard77; kernel C's advection, walls and classification
+# beside it; kernel D's nine-source merge; kernel E per substep (two
+# Philox draws, the pair math, the shuffle's compare-exchanges)
+OPS_VT, OPS_TRANSPORT, OPS_MERGE, OPS_COAL = 45, 60, 30, 400
+# MPDATA per cell and field: the donor pass, and each corrective iteration
+OPS_DONOR, OPS_ANTIDIFF = 10, 60
 
 # the Golovin box of tests/test_pallas_coal_golovin.py
 GOLOVIN_SIM_TIME, GOLOVIN_SSTP = 800.0, 100
@@ -115,7 +143,7 @@ def make_model(Kinematic2D, coal):
 
 def physics_checks(model, water0, dry0, dense):
     """bench.py:45-96 on the port's state."""
-    d = model.state
+    d = model.dense_state
     th, rv = model.th, model.rv
     alive = d.n > 0
     rw2, rd3 = d.rw2[alive], d.rd3[alive]
@@ -196,11 +224,105 @@ def reset(kernels):
         k.launches = 0
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, ops):
+    """The least time the card could take [ms], and what sets it: the
+    bytes moved at the memory rate or the operations at the float32
+    rate."""
+    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def rootfind_ops(dt, arrays, RH_max):
+    """The operations advance_rw2 does on these droplets: the full root
+    find where the bracket holds, the explicit step where it does not, one
+    evaluation for dead slots and droplets that do not grow.  Returns
+    (operations, bracketed droplets)."""
+    from libcloudphxx_tpu_torch.lgrngn import condensation as cnd
+    rw2, rd3, *rest = arrays
+    grow = lambda x: cnd.drw2_dt(x, rd3, *rest, RH_max)
+    alive = rw2 > 0
+    w = torch.where(alive, rw2, 1e-12)
+    drw2 = dt * grow(w)
+    rd2 = torch.exp(torch.log(rd3) / 3.0) ** 2
+    a = torch.maximum(rd2, w + torch.clamp(2.0 * drw2, max=0.0))
+    b = w + torch.clamp(2.0 * drw2, min=0.0)
+    f = lambda x: w + dt * grow(x) - x
+    fa = torch.where(drw2 > 0, drw2, f(a))
+    fb = torch.where(drw2 > 0, f(b), drw2)
+    act = alive & (drw2 != 0)
+    brk = act & (fa * fb <= 0) & (a < b)
+    iters = cnd._root_iters(rw2.dtype)
+    n_brk, n_act = int(brk.sum()), int(act.sum())
+    per = {"bracketed": (4 + iters) * OPS_DRW2 + iters * OPS_ITER,
+           "explicit": 2 * OPS_DRW2, "idle": OPS_DRW2}
+    ops = (n_brk * per["bracketed"] + (n_act - n_brk) * per["explicit"]
+           + (rw2.numel() - n_act) * per["idle"] + rw2.numel() * OPS_ADVANCE)
+    return ops, n_brk
+
+
+def flat_totals(prtcls, rv, c):
+    """Total water mass [kg] and dry-aerosol volume sum [n*rd^3] of the
+    flat engine, read through the public API (get_attr, diag_puddle), in
+    float64: bench.py's conservation checks."""
+    n = prtcls.get_attr("n").astype(np.float64)
+    rw2 = prtcls.get_attr("rw2").astype(np.float64)
+    rd3 = prtcls.get_attr("rd3").astype(np.float64)
+    pud = prtcls.diag_puddle()
+    st = prtcls.state
+    vap = float((st.rhod.double() * st.dv.double()
+                 * rv.double().reshape(-1)).sum())
+    alive = n > 0
+    liq = 4.0 / 3 * c.pi * c.rho_w * float(
+        np.sum(n[alive] * rw2[alive] ** 1.5)) + c.rho_w * pud["liquid_volume"]
+    dry = float(np.sum(n[alive] * rd3[alive])) \
+        + pud["dry_volume"] / (4.0 / 3 * c.pi)
+    return vap + liq, dry
+
+
+def flat_physics_checks(model, water0, dry0, c):
+    """bench.py:45-96 on the flat engine, read through the public API."""
+    p, th, rv = model.prtcls, model.th, model.rv
+    n = p.get_attr("n")
+    rw2, rd3 = p.get_attr("rw2")[n > 0], p.get_attr("rd3")[n > 0]
+    check(bool(torch.isfinite(th).all() and torch.isfinite(rv).all()),
+          "flat: non-finite th/rv")
+    check(bool(((th > 250.0) & (th < 350.0)).all()),
+          "flat: th outside [250, 350] K")
+    check(bool(((rv > 0.0) & (rv < 0.03)).all()), "flat: rv outside (0, 0.03)")
+    check(bool(np.isfinite(rw2).all() and (rw2 > 0).all()),
+          "flat: non-physical rw2")
+    check(float(rw2.max()) < (5e-3) ** 2, "flat: rw > 5 mm")
+    check(bool((rd3 > 0).all()), "flat: non-positive rd3")
+    water, dry = flat_totals(p, rv, c)
+    dw, dd = abs(water - water0) / water0, abs(dry - dry0) / dry0
+    check(dw < 1e-3, f"flat: water conservation off by {dw:.2e}")
+    check(dd < 1e-4, f"flat: dry-mass conservation off by {dd:.2e}")
+    return dw, dd
+
+
+def flat_cond_arrays(cfg, st):
+    """The 12 arrays kernel F takes in a condensation substep of the flat
+    engine, from a State: the SDs sorted by cell, the cell values and the
+    mean free paths gathered to them (condensation._cond_percell_sorted)."""
+    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp
+    lam_D, lam_K = hskpng_mfp(st.T, st.p)
+    sijk, order = torch.sort(st.ijk, stable=True)
+    g = lambda a: a[sijk]
+    return (st.rw2[order], st.rd3[order], st.kpa[order], st.vt[order],
+            g(st.rhod), g(st.rv), g(st.T), g(st.p), g(st.RH), g(st.eta),
+            g(lam_D), g(lam_K))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also print the device-time split of coalescing "
-                         "steps (torch.profiler)")
+                         "steps on the dense and the flat engine "
+                         "(torch.profiler)")
     opts = ap.parse_args()
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -231,7 +353,7 @@ def main():
     t0 = time.perf_counter()
     model = make_model(Kinematic2D, coal=False)
     torch.cuda.synchronize()
-    d0, th0, rv0 = model.state, model.th, model.rv
+    d0, th0, rv0 = model.dense_state, model.th, model.rv
     cfg = model.cfg
     n_sd = int((d0.n > 0).sum())
     print(f"init: {n_sd} SDs, cap {d0.cap}, {time.perf_counter() - t0:.1f} s",
@@ -326,9 +448,10 @@ def main():
     # draws (seed, step) on both sides; and a drizzle variant (radii x10),
     # in which droplets certainly collide
     model_c = make_model(Kinematic2D, coal=True)
-    dc0, thc0, rvc0 = model_c.state, model_c.th, model_c.rv
-    model_c.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP)
-    ds = model_c.state
+    dc0, thc0, rvc0 = model_c.dense_state, model_c.th, model_c.rv
+    model_c.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP,
+                              engine="dense")
+    ds = model_c.dense_state
     params = model_c.opts_init.kernel_parameters
     e_cells = (ds.T, ds.p, ds.rhod, ds.eta, ds.dv)
     cfg_hall = dataclasses.replace(cfg, kernel=kernel_t.hall.value)
@@ -400,7 +523,8 @@ def main():
     # ---- 4. the slice without coalescence
     water0, dry0 = dense.water_dry_totals(d0, rv0)
     reset(_ext.KERNELS)
-    model.run_device_lgrngn(SLICE_SPINUP + SLICE_MAIN, spinup=SLICE_SPINUP)
+    model.run_device_lgrngn(SLICE_SPINUP + SLICE_MAIN, spinup=SLICE_SPINUP,
+                            engine="dense")
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in _ext.KERNELS}
     dw, dd = physics_checks(model, water0, dry0, dense)
@@ -410,17 +534,18 @@ def main():
           f"a kernel of the path was not launched: {launches}")
 
     # ---- 5. the slice with coalescence: the main path
-    model_c.state, model_c.th, model_c.rv = dc0, thc0, rvc0
+    model_c.dense_state, model_c.th, model_c.rv = dc0, thc0, rvc0
     reset(_ext.KERNELS)
     t0 = time.perf_counter()
-    model_c.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP)
-    d_sp = model_c.state
-    model_c.run_device_lgrngn(SLICE_MAIN)
+    model_c.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP,
+                              engine="dense")
+    d_sp = model_c.dense_state
+    model_c.run_device_lgrngn(SLICE_MAIN, engine="dense")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {k.name: k.launches for k in _ext.KERNELS}
     dw, dd = physics_checks(model_c, water0, dry0, dense)
-    d_end = model_c.state
+    d_end = model_c.dense_state
     lost = collided(d_sp, d_end)
     print(f"slice, coalescence on: {SLICE_SPINUP} spin-up + {SLICE_MAIN} "
           f"main steps in {secs:.2f} s; water rel err {dw:.2e}, dry rel err "
@@ -449,20 +574,114 @@ def main():
           and float(d.n.sum()) <= float(d_end.n.sum()),
           "standalone coalescence path failed")
 
-    # ---- 7. timing: from-init reps through the kernels and the plain path
+    # ---- 7. the flat engine through the public API
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    t0 = time.perf_counter()
+    model_f = make_model(Kinematic2D, coal=True)
+    prt = model_f.prtcls
+    torch.cuda.synchronize()
+    f_init = (prt.state, model_f.th, model_f.rv)
+    fw0, fd0 = flat_totals(prt, model_f.rv, c)
+    n_flat = int((prt.state.n > 0).sum())
+    print(f"flat init (factory -> particles_t.init): {n_flat} SDs in "
+          f"{prt.cfg.n_sd_max} slots, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def restore_flat(init):
+        prt.state, model_f.th, model_f.rv = init
+
+    def flat_launches():
+        return {k.name: k.launches for k in (_ext.MPDATA, _ext.COND_SD)}
+
+    reset(_ext.KERNELS)
+    t0 = time.perf_counter()
+    model_f.run(SLICE_SPINUP, spinup=SLICE_SPINUP)
+    torch.cuda.synchronize()
+    f_sp = (prt.state, model_f.th, model_f.rv)
+    model_f.run(SLICE_MAIN)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    flat_main = flat_launches()
+    dw, dd = flat_physics_checks(model_f, fw0, fd0, c)
+    st_end, f_end_th, f_end_rv = prt.state, model_f.th, model_f.rv
+    lost = collided(f_sp[0], st_end)
+    steps = SLICE_SPINUP + SLICE_MAIN
+    print(f"flat slice, public API: {SLICE_SPINUP} spin-up + {SLICE_MAIN} "
+          f"main steps in {secs:.2f} s; water rel err {dw:.2e}, dry rel err "
+          f"{dd:.2e}, SDs {int((st_end.n > 0).sum())}, multiplicity lost to "
+          f"collisions {lost:.3e}, coalescence step counter "
+          f"{st_end.rng_step}; launches {flat_main}", flush=True)
+    check(flat_main == {"mpdata": 2 * steps, "cond_sd": SSTP_COND * steps},
+          f"flat: kernel A twice and F sstp_cond times a step expected, "
+          f"got {flat_main}")
+    check(lost > 0.0, "flat: no collision in the main steps")
+    check(st_end.rng_step == SLICE_MAIN, "flat: coalescence did not run "
+          "every main step")
+
+    # F against its plain version: the cell-sorted arrays after the
+    # spin-up, and lengths 1 and 32,773 with every seventh slot dead
+    f_args = flat_cond_arrays(prt.cfg, f_sp[0])
+    dt_sub = 1.0 / SSTP_COND
+    err["cond_sd"] = 0.0
+    cases = [("main", f_args)]
+    for n in (1, 32773):
+        sub = [a[:n].clone() for a in f_args]
+        sub[0][::7] = 0.0
+        cases.append((f"n={n}", tuple(sub)))
+    for label, args in cases:
+        k = cond_ops.advance_rw2(dt_sub, *args, 44.0)
+        pl = cond_ops.advance_rw2(dt_sub, *args, 44.0, plain=True)
+        live = args[0] > 0
+        rel = max_rel(k[live], pl[live]) if bool(live.any()) else 0.0
+        same = bool(torch.equal(k, pl))
+        err["cond_sd"] = max(err["cond_sd"], max_abs(k, pl))
+        print(f"F cond_sd {label}: {args[0].numel()} SDs, rw2 max rel "
+              f"{rel:.2e}, bitwise equal {same}, dead slots kept "
+              f"{bool(torch.equal(k[~live], args[0][~live]))}", flush=True)
+        # both run physics.cuh's advance_rw2 / its operation-for-operation
+        # plain version under -fmad=false: anything but bitwise is a fault
+        check(same, f"F {label}: kernel disagrees with its plain version "
+              f"(rw2 max rel {rel:.2e})")
+
+    # run_device_lgrngn(engine="flat") from the post-spin-up state against
+    # the stepwise public-API loop: the same draws, so the same numbers
+    restore_flat(f_sp)
+    model_f.run_device_lgrngn(SLICE_MAIN)
+    torch.cuda.synchronize()
+    st_dev = prt.state
+    eq = {"th": bool(torch.equal(model_f.th, f_end_th)),
+          "rv": bool(torch.equal(model_f.rv, f_end_rv)),
+          "rw2": bool(torch.equal(st_dev.rw2, st_end.rw2)),
+          "n": bool(torch.equal(st_dev.n, st_end.n))}
+    print(f"flat run_device_lgrngn vs stepwise run(): equal {eq}",
+          flush=True)
+    check(all(eq.values()), "flat: run_device_lgrngn differs from run()")
+
+    # the kernel path against the plain path, from init
+    restore_flat(f_init)
+    model_f.run(steps, spinup=SLICE_SPINUP, plain=True)
+    torch.cuda.synchronize()
+    rel_th, rel_rv = max_rel(model_f.th, f_end_th), max_rel(model_f.rv,
+                                                             f_end_rv)
+    print(f"flat, kernels vs plain after {steps} steps: th rel {rel_th:.2e}, "
+          f"rv rel {rel_rv:.2e}", flush=True)
+    check(rel_th <= 1e-4 and rel_rv <= 1e-3,
+          "flat: the kernel path drifted from the plain path")
+
+    # ---- 8. timing: from-init reps through the kernels and the plain path
     def run_reps(m, init, steps, plain):
-        m.run_device_lgrngn(2, plain=plain)  # warm-up
+        m.run_device_lgrngn(2, plain=plain, engine="dense")  # warm-up
         best = float("inf")
         for _ in range(TIME_REPS):
-            m.state, m.th, m.rv = init
+            m.dense_state, m.th, m.rv = init
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            m.run_device_lgrngn(steps, plain=plain)
+            m.run_device_lgrngn(steps, plain=plain, engine="dense")
             torch.cuda.synchronize()
             best = min(best, time.perf_counter() - t0)
             physics_checks(m, water0, dry0, dense)
-        out = (m.th, m.rv, m.state)
-        m.state, m.th, m.rv = init
+        out = (m.th, m.rv, m.dense_state)
+        m.dense_state, m.th, m.rv = init
         return best, out
 
     for label, m, init, steps in (
@@ -486,6 +705,23 @@ def main():
               f"{label}: the kernel path drifted from the plain path")
         check(lost > 0.0 or m is model, f"{label}: no collision")
 
+    # the flat slice: from-init reps of the stepwise public-API loop
+    best = float("inf")
+    for _ in range(TIME_REPS):
+        restore_flat(f_init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model_f.run(FLAT_TIME_STEPS)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        flat_physics_checks(model_f, fw0, fd0, c)
+    print(f"timing flat slice (public API, coalescence on), kernels: "
+          f"{best / FLAT_TIME_STEPS * 1e3:.3f} ms/step, "
+          f"{n_flat * FLAT_TIME_STEPS / best:.4g} SD-updates/s "
+          f"({FLAT_TIME_STEPS} steps, best of {TIME_REPS}; {card})",
+          flush=True)
+    restore_flat(f_init)
+
     # per-kernel device time at the main path's shapes
     mp = (model.gc_x, model.gc_z, model.G)
     n, x, z = d0.n, d0.x, d0.z
@@ -501,22 +737,29 @@ def main():
         "merge": lambda plain: step.rebin_x(*merge_args, plain=plain),
         "coal": lambda plain: coal_call("stride", plain),
         "coal_standalone": lambda plain: coal_call("standalone", plain),
+        "cond_sd": lambda plain: cond_ops.advance_rw2(
+            dt_sub, *f_args, 44.0, plain=plain),
     }
-    launches = dict(main_launches, coal_standalone=standalone)
+    launches = dict(main_launches, coal_standalone=standalone,
+                    cond_sd=flat_main["cond_sd"])
+    bounds = kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, (model.gc_x,
+                           model.gc_z, model.G), kc, f_args, dt_sub)
     rows = []
     for k in _ext.KERNELS:
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
-        print(f"kernel {k.name}: {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"({card})")
+        bound_ms, bound_by = bounds[k.name]
+        print(f"kernel {k.name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) ({card})")
         check(launches[k.name] > 0, f"kernel {k.name} was not launched")
         rows.append({"name": k.name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": launches[k.name],
                      "max_abs_err": err[k.name], "ms": ms,
-                     "plain_ms": plain_ms})
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
 
     if opts.profile:
-        profile(model_c, (dc0, thc0, rvc0), card)
+        profile_both(model_c, (dc0, thc0, rvc0), model_f, f_init, card)
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -525,35 +768,115 @@ def main():
     return 0
 
 
-def profile(model, init, card, warm=5, steps=20):
-    """Device time by kernel over ``steps`` coalescing steps (torch.profiler)
-    beside their unprofiled wall time."""
+def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_args, dt_sub):
+    """{kernel: (bound_ms, bound_by)} from the inputs each kernel takes in
+    this run: every input read once and every output written once at the
+    memory rate, against the operations these inputs need at the float32
+    rate.  B's root-find work is counted on its first substep's data and
+    taken sstp_cond times."""
+    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp, hskpng_Tpr
+    from libcloudphxx_tpu_torch.lgrngn.vterm import vt_in_kernel
+    n_cell = d0.n.shape[0]
+    plane = nbytes(d0.n)
+    cell = nbytes(d0.rhod)
+    live0, live_s = int((d0.n > 0).sum()), int((ds.n > 0).sum())
+    out = {}
+    # A: two fields in, two out, the courants and G
+    out["mpdata"] = bound(
+        nbytes(th0, rv0, *mp) + nbytes(th0, rv0),
+        2 * n_cell * (OPS_DONOR + OPS_ANTIDIFF + OPS_DONOR))
+    # B: four planes and nine cell fields in, one plane and six cell
+    # fields out
+    col = lambda a: a[:, None].expand(-1, d0.cap).reshape(-1)
+    T0, p0, _, eta0 = hskpng_Tpr(cfg, d0.sstp_tmp_th, d0.sstp_tmp_rv,
+                                 d0.rhod, d0.p)
+    vt = vt_in_kernel(cfg, d0.rw2, T0[:, None], p0[:, None],
+                      d0.rhod[:, None], eta0[:, None])
+    th1 = d0.sstp_tmp_th + (tha.reshape(-1) - d0.sstp_tmp_th) / SSTP_COND
+    rv1 = d0.sstp_tmp_rv + (rva.reshape(-1) - d0.sstp_tmp_rv) / SSTP_COND
+    T1, p1, RH1, eta1 = hskpng_Tpr(cfg, th1, rv1, d0.rhod, d0.p)
+    lam_D, lam_K = hskpng_mfp(d0.T, d0.p)
+    arrays = (d0.rw2.reshape(-1), d0.rd3.reshape(-1), d0.kpa.reshape(-1),
+              vt.reshape(-1), col(d0.rhod), col(rv1), col(T1), col(p1),
+              col(RH1), col(eta1), col(lam_D), col(lam_K))
+    ops_b = SSTP_COND * rootfind_ops(1.0 / SSTP_COND, arrays, 44.0)[0]
+    out["cond"] = bound(5 * plane + 15 * cell, ops_b + live0 * OPS_VT)
+    # C: five planes and eight cell fields in; n, x, z, vt, the targets
+    # and the (n_cell, 8) row info out
+    out["transport"] = bound(
+        5 * plane + 8 * cell + 4 * plane + nbytes(kc[4], kc[5]),
+        live0 * (OPS_VT + OPS_TRANSPORT))
+    # D: seven planes and the targets in, seven planes and the drops out
+    out["merge"] = bound(7 * plane + nbytes(kc[4]) + 7 * plane + cell,
+                         live0 * OPS_MERGE)
+    # E: six planes and five cell fields in, six (standalone: seven)
+    # planes and the row flags out; sstp_coal substeps per live SD
+    ops_e = live_s * SSTP_COAL * OPS_COAL
+    out["coal"] = bound(12 * plane + 5 * cell + n_cell, ops_e)
+    out["coal_standalone"] = bound(13 * plane + 5 * cell + n_cell,
+                                   ops_e + live_s * SSTP_COAL * OPS_VT)
+    # F: twelve arrays in, one out
+    out["cond_sd"] = bound(nbytes(*f_args) + nbytes(f_args[0]),
+                           rootfind_ops(dt_sub, f_args, 44.0)[0])
+    return out
+
+
+def profile(label, start, run, card, steps=20):
+    """Device time by kernel over ``steps`` steps (torch.profiler) beside
+    their unprofiled wall time: ``start()`` puts the model at the window's
+    first step, ``run(n)`` runs n steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
-    model.state, model.th, model.rv = init
-    model.run_device_lgrngn(SLICE_SPINUP + warm, spinup=SLICE_SPINUP)
-    state = (model.state, model.th, model.rv)
+    start()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.run_device_lgrngn(steps)
+    run(steps)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps * 1e3
-    model.state, model.th, model.rv = state
+    start()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        model.run_device_lgrngn(steps)
+        run(steps)
         torch.cuda.synchronize()
     rows = [(e.key, e.device_time_total / 1e3 / steps, e.count / steps)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"profile: {steps} coalescing steps, wall {wall:.3f} ms/step "
-          f"unprofiled, device busy {busy:.3f} ms/step ({card})")
-    for name, ms, count in rows[:12]:
+    print(f"profile {label}: {steps} coalescing steps, wall {wall:.3f} "
+          f"ms/step unprofiled, device busy {busy:.3f} ms/step, busy share "
+          f"{busy / wall:.3f} ({card})")
+    for name, ms, count in rows[:14]:
         print(f"  {ms:8.4f} ms/step  {count:6.1f}/step  {name[:70]}")
-    model.state, model.th, model.rv = init
+
+
+def profile_both(model_c, dense_init, model_f, flat_init, card, warm=5):
+    """profile() of the dense engine's coalescing steps and of the flat
+    engine's through the public API, each after the spin-up and ``warm``
+    steps; both models are put back at their initial state."""
+    model_c.dense_state, model_c.th, model_c.rv = dense_init
+    model_c.run_device_lgrngn(SLICE_SPINUP + warm, spinup=SLICE_SPINUP,
+                              engine="dense")
+    d_warm = (model_c.dense_state, model_c.th, model_c.rv)
+
+    def dense_start():
+        model_c.dense_state, model_c.th, model_c.rv = d_warm
+
+    profile("dense", dense_start,
+            lambda n: model_c.run_device_lgrngn(n, engine="dense"), card)
+    model_c.dense_state, model_c.th, model_c.rv = dense_init
+
+    prt = model_f.prtcls
+    prt.state, model_f.th, model_f.rv = flat_init
+    model_f.run(SLICE_SPINUP + warm, spinup=SLICE_SPINUP)
+    f_warm = (prt.state, model_f.th, model_f.rv)
+
+    def flat_start():
+        prt.state, model_f.th, model_f.rv = f_warm
+
+    profile("flat, public API", flat_start, model_f.run, card)
+    prt.state, model_f.th, model_f.rv = flat_init
 
 
 if __name__ == "__main__":

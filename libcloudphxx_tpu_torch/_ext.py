@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (csrc/), and count their launches.
 
-The kernels are CUDA C++ for sm_90a with a plain C interface: nvcc compiles
-every csrc/*.cu into one shared library at first use, into ``_build/``
-beside this file (a directory git ignores), and ctypes loads it.  The
-library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and a stale library is never loaded.
+The kernels are CUDA C++ for sm_90a with a plain C interface: at first use
+one nvcc per csrc/*.cu compiles it to an object file, all of them at once,
+and one more links the objects into a shared library in ``_build/`` beside
+this file (a directory git ignores), which ctypes loads.  The library's
+name carries a hash of the sources and flags, so an edited source is
+rebuilt and a stale library is never loaded.
 
 Nothing here runs at import: tests import every module on machines
 without nvcc or a card.
@@ -24,10 +25,11 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _U = ctypes.c_uint32
 _D = ctypes.c_double
 
@@ -93,7 +95,13 @@ COAL_STANDALONE = Kernel(
     [_P] * 8 + [_P] * 7 + _COAL_TAIL,
     "libcloudphxx_tpu_torch/csrc/coal.cu",
     "libcloudphxx_tpu/ops/pallas_coal.py:99 (_kernel)")
-KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE)
+# 12 input arrays, the output; n, dt, RH_max, root-find iterations
+COND_SD = Kernel(
+    "cond_sd", "lcp_cond_sd", [_P] * 13 + [_L, _D, _D, _I],
+    "libcloudphxx_tpu_torch/csrc/cond_sd.cu",
+    "libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
+    ":46)")
+KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE, COND_SD)
 
 _lib = None
 
@@ -124,29 +132,38 @@ def _nvcc() -> str:
 
 
 def build(verbose=False):
-    """Compile csrc/ unless the library for these sources exists.  Returns
-    (path, seconds spent compiling, compiler output).  With ``verbose`` the
+    """Compile csrc/ unless the library for these sources exists: one nvcc
+    per source, all started together, then one link.  Returns (path,
+    seconds spent compiling, compiler output).  With ``verbose`` the
     compiler also reports each kernel's registers and shared memory."""
     out = library_path()
     if out.exists():
         return out, 0.0, ""
     BUILD.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, cu)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        objs = [os.path.join(tmp, f"{p.stem}.o") for p in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", o, str(p)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for p, o in zip(cu, objs)]
+        logs = [pr.communicate()[0] for pr in procs]
+        failed = [(p.name, pr.returncode, log)
+                  for p, pr, log in zip(cu, procs, logs) if pr.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+                               *objs], capture_output=True, text=True,
+                              check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(lib, out)
+    return out, time.perf_counter() - t0, "".join(logs)
 
 
 def load():

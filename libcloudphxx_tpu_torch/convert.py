@@ -1,9 +1,9 @@
 """Carry state between the JAX package and the port, through numpy.
 
 The tests feed one state to both packages: the JAX side hands over its
-StaticConfig fields and DenseState arrays as plain Python values and numpy
-arrays (``dataclasses.asdict`` + ``numpy.asarray``), so this module
-imports nothing of JAX.
+StaticConfig fields and its flat State or DenseState arrays as plain
+Python values and numpy arrays (``dataclasses.asdict`` +
+``numpy.asarray``), so this module imports nothing of JAX.
 
 The random streams do not carry over: the JAX state's ``key`` is a JAX
 PRNG key, while the port draws Philox numbers from a seed and a step
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .lgrngn.dense import ATTRS, DenseState
-from .lgrngn.state import StaticConfig
+from .lgrngn.state import TENSOR_FIELDS, State, StaticConfig
 
 # JAX DenseState fields the port does not hold: they must be empty (2-D,
 # no deferred x pass, no per-SD ambient copies) or are the JAX RNG key
@@ -64,4 +64,39 @@ def dense_state_to_numpy(d: DenseState) -> dict:
     out["overflow"] = np.asarray(int(d.overflow))
     out["rng_seed"] = np.asarray(d.rng_seed)
     out["rng_step"] = np.asarray(d.rng_step)
+    return out
+
+
+# JAX State fields the port's warm 2-D State does not hold: each must be
+# empty or all zero (the JAX RNG key aside)
+_FLAT_ABSENT = ("y", "incloud_time", "up", "vp", "wp", "ssp", "dot_ssp",
+                "ice_a", "ice_c", "ice_rho", "T_freeze", "rd2_insol",
+                "courant_y", "diss_rate", "sstp_tmp_p", "chem",
+                "ambient_chem", "sstp_tmp_chem")
+
+
+def state_from_numpy(arrays: dict, device, dtype, rng_seed=44) -> State:
+    """A port flat State from the JAX State's arrays as numpy.  The
+    coalescence draws are keyed by ``arrays["rng_seed"]`` where the arrays
+    came from the port, else by ``rng_seed`` (opts_init.rng_seed), and
+    continue from ``arrays["rng_step"]`` (else step 0)."""
+    for k in _FLAT_ABSENT:
+        if k in arrays and np.any(np.asarray(arrays[k])):
+            raise NotImplementedError(
+                f"state_from_numpy: {k} is not held by the port")
+    t = lambda a, dt=dtype: torch.tensor(np.asarray(a), dtype=dt,
+                                         device=device)
+    return State(
+        **{k: t(arrays[k], torch.int64 if k == "ijk" else dtype)
+           for k in TENSOR_FIELDS},
+        rng_seed=int(arrays.get("rng_seed", rng_seed)),
+        rng_step=int(arrays.get("rng_step", 0)))
+
+
+def state_to_numpy(st: State) -> dict:
+    """The State's arrays as numpy, under the JAX State's names, and its
+    random stream as ``rng_seed`` and ``rng_step``."""
+    out = {k: getattr(st, k).detach().cpu().numpy() for k in TENSOR_FIELDS}
+    out["rng_seed"] = np.asarray(st.rng_seed)
+    out["rng_step"] = np.asarray(st.rng_step)
     return out

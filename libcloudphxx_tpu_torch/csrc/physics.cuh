@@ -1,12 +1,12 @@
-// Device functions shared by the step kernels (cond.cu, transport.cu,
-// coal.cu): the per-cell closure, the beard77 terminal velocity, the
-// collision kernels, the Shima collision, drw2_dt and the per-droplet
+// Device functions shared by the step kernels (cond.cu, cond_sd.cu,
+// transport.cu, coal.cu): the per-cell closure, the beard77 terminal
+// velocity, the collision kernels, the Shima collision, drw2_dt and the per-droplet
 // backward-Euler root find.  Each follows its plain PyTorch version
 // operation for operation:
 //   closure        lgrngn/hskpng.py hskpng_Tpr
 //   vt_beard77     lgrngn/vterm.py vt_in_kernel
 //   kernel_value   lgrngn/coalescence.py kernel_value
-//   shima          lgrngn/dense.py _shima
+//   shima          lgrngn/coalescence.py shima
 //   drw2_dt        lgrngn/condensation.py drw2_dt
 //   advance_rw2    lgrngn/condensation.py _advance_rw2_core
 //   solve_bracketed ops/rootfind.py solve_bracketed
@@ -244,9 +244,9 @@ struct Collision {
   float n_big_new, rw2_small_new, rd3_small_new, kpa_small_new;
 };
 
-// lgrngn/dense.py _shima for one pair (a, b): ``ok`` whether it is a pair,
-// ``a_big`` whether a has the larger multiplicity, ``u`` the pair's draw,
-// ``dt_dv`` dt / dv, ``scale`` the Shima scale factor
+// lgrngn/coalescence.py shima for one pair (a, b): ``ok`` whether it is a
+// pair, ``a_big`` whether a has the larger multiplicity, ``u`` the pair's
+// draw, ``dt_dv`` dt / dv, ``scale`` the Shima scale factor
 __device__ __forceinline__ Collision shima(const CollisionKernel& k,
                                            const Drop& a, const Drop& b,
                                            bool a_big, bool ok, float u,
@@ -266,7 +266,7 @@ __device__ __forceinline__ Collision shima(const CollisionKernel& k,
   s.n_big_new = big.n - col_no * small.n;
   const float rw3 =
       col_no * big.rw2 * sqrtf(big.rw2) + small.rw2 * sqrtf(small.rw2);
-  // dense.py _cbrt: the exp/log cube root of the plain version
+  // coalescence.py _cbrt: the exp/log cube root of the plain version
   const float r = expf(div_s(logf(fmaxf(rw3, F(1e-38))), 3.0));
   s.rw2_small_new = r * r;
   s.rd3_small_new = col_no * big.rd3 + small.rd3;

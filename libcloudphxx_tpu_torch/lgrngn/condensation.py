@@ -1,20 +1,26 @@
 """Implicit per-droplet condensation/evaporation
-(libcloudphxx_tpu/lgrngn/condensation.py: drw2_dt, _advance_rw2_core;
-reference src/impl/condensation/common/particles_impl_cond_common.ipp).
+(libcloudphxx_tpu/lgrngn/condensation.py; reference
+src/impl/condensation/common/particles_impl_cond_common.ipp and the
+percell substepping, particles_impl_cond.ipp, sstp_percell_step.ipp).
 
-These are the plain versions of the per-droplet math that the condensation
-kernel runs (csrc/physics.cuh drw2_dt / advance_rw2); ops/step.py loops
-them over the substeps."""
+drw2_dt and _advance_rw2_core are the plain versions of the per-droplet
+math that kernels B and F run (csrc/physics.cuh drw2_dt / advance_rw2);
+ops/step.py loops them over the dense engine's substeps, cond_percell over
+the flat engine's (advance_rw2, kernel F on the card)."""
 
+import dataclasses
 from functools import partial
 
 import torch
 
 from ..common import constants as c
 from ..common import kappa_koehler, kelvin, maxwell_mason
-from ..common import transition_regime, ventil
+from ..common import theta_dry, transition_regime, ventil
 from ..common.fastmath import cbrt_pos
+from ..ops import cond as cond_ops
 from ..ops.rootfind import solve_bracketed
+from . import hskpng
+from .state import State, StaticConfig
 
 # reference src/detail/config.hpp:181-205
 COND_MLT = 2.0
@@ -88,3 +94,107 @@ def _advance_rw2_core(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH, eta,
     rw2_new = torch.where(bracketed, rw2_root, rw2_safe + drw2)
     rw2_new = torch.maximum(rw2_new, rd2)  # no evaporation below dry size
     return torch.where(alive & (drw2 != 0), rw2_new, rw2_old)
+
+
+def advance_rw2(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH, eta,
+                lambda_D, lambda_K, RH_max, *, plain=False):
+    """The backward-Euler rw^2 advance of a flat SD population: kernel F on
+    a CUDA tensor, _advance_rw2_core on a CPU one (ops/cond.py)."""
+    return cond_ops.advance_rw2(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH,
+                                eta, lambda_D, lambda_K, RH_max, plain=plain)
+
+
+def stale_mfp(state: State):
+    """Mean free paths from the cell T/p as they stand before the step's
+    thermodynamic refresh: the reference computes hskpng_mfp from the
+    previous step's Tpr (particles_step.ipp:190-196)."""
+    return hskpng.hskpng_mfp(state.T, state.p)
+
+
+def cond_percell(cfg: StaticConfig, state: State, dt, RH_max, lam,
+                 var_rho: bool = False, *, plain=False) -> State:
+    """The per-cell substepped condensation of step_cond, warm
+    (reference particles_step.ipp:237-256).  th/rv (and rhod, when the host
+    passes it each step: ``var_rho``) rewind to their values at the last
+    sstp_save and take the host model's increment back in sstp_cond equal
+    parts, each followed by the implicit droplet growth and the latent heat
+    of the cell.  ``lam`` is stale_mfp's (lambda_D, lambda_K) of the
+    state before the step's closure."""
+    if cfg.ice_switch or cfg.exact_sstp_cond:
+        raise NotImplementedError(
+            "cond_percell: ice and exact substepping are not ported "
+            "(ROADMAP.md, Queue 1 items 10 and 11)")
+    sstp = cfg.sstp_cond
+    delta_th = state.th - state.sstp_tmp_th
+    delta_rv = state.rv - state.sstp_tmp_rv
+    upd = dict(th=state.sstp_tmp_th, rv=state.sstp_tmp_rv)
+    if var_rho and sstp > 1:
+        # rhod is substepped too (sstp_percell_step.ipp:17-20)
+        delta_rh = state.rhod - state.sstp_tmp_rh
+        upd["rhod"] = state.sstp_tmp_rh
+    else:
+        delta_rh = torch.zeros_like(state.th)
+        var_rho = False
+    state = dataclasses.replace(state, **upd)
+    lambda_D, lambda_K = lam
+    wgt_nom = state.n * (4.0 / 3) * c.pi * c.rho_w
+    return _cond_percell_sorted(cfg, state, dt / sstp, sstp, RH_max, var_rho,
+                                delta_th, delta_rv, delta_rh, lambda_D,
+                                lambda_K, wgt_nom, plain)
+
+
+def _cond_percell_sorted(cfg, state, dt_sub, sstp, RH_max, var_rho,
+                         delta_th, delta_rv, delta_rh, lambda_D, lambda_K,
+                         wgt_nom, plain):
+    """cond_percell's substep loop in cell-sorted SD order
+    (libcloudphxx_tpu/lgrngn/condensation.py:312-388): one stable sort by
+    cell in, cell sums as a cumulative sum differenced at the cell ends,
+    and the new rw2 put back in slot order.  The cumulative sum runs in
+    float64, so float32 runs lose no digits to the population-wide
+    running total."""
+    sijk, order = torch.sort(state.ijk, stable=True)
+    rw2_s, rd3_s, kpa_s, vt_s, wgt_s = (
+        a[order] for a in (state.rw2, state.rd3, state.kpa, state.vt,
+                           wgt_nom))
+    lamD_s, lamK_s = lambda_D[sijk], lambda_K[sijk]
+    if not var_rho:
+        wgt_s = wgt_s / (state.dv * state.rhod)[sijk]
+    # last sorted position of each cell (cells are contiguous runs)
+    ends = torch.searchsorted(
+        sijk, torch.arange(1, cfg.n_cell + 1, device=sijk.device)) - 1
+
+    def cell_sum(vals):
+        cs = torch.cumsum(vals, 0, dtype=torch.float64)
+        tot = torch.where(ends >= 0, cs[torch.clamp(ends, min=0)], 0.0)
+        return torch.diff(tot, prepend=tot.new_zeros(1)).to(vals.dtype)
+
+    th, rv, rhod = state.th, state.rv, state.rhod
+    for _ in range(sstp):
+        th = th + delta_th / sstp
+        rv = rv + delta_rv / sstp
+        if var_rho:
+            rhod = rhod + delta_rh / sstp
+        T, p, RH, eta = hskpng.hskpng_Tpr(cfg, th, rv, rhod, state.p)
+        g = lambda a: a[sijk]
+        rw2_new = advance_rw2(dt_sub, rw2_s, rd3_s, kpa_s, vt_s, g(rhod),
+                              g(rv), g(T), g(p), g(RH), g(eta), lamD_s,
+                              lamK_s, RH_max, plain=plain)
+        drw3 = rw2_new * torch.sqrt(rw2_new) \
+            - rw2_s * torch.sqrt(torch.clamp(rw2_s, min=0.0))
+        wsub = wgt_s / g(state.dv * rhod) if var_rho else wgt_s
+        drv = -cell_sum(wsub * drw3)
+        th = th + drv * theta_dry.d_th_d_rv(T, th)
+        rv = rv + drv
+        rw2_s = rw2_new
+    rw2 = torch.empty_like(rw2_s)
+    rw2[order] = rw2_s
+    state = dataclasses.replace(state, rw2=rw2, th=th, rv=rv, rhod=rhod)
+    return hskpng.hskpng_Tpr_state(cfg, state)
+
+
+def sstp_save(state: State) -> State:
+    """Snapshot th/rv/rhod for the next substepping cycle
+    (reference sstp_save.ipp:7-35)."""
+    return dataclasses.replace(state, sstp_tmp_th=state.th,
+                               sstp_tmp_rv=state.rv,
+                               sstp_tmp_rh=state.rhod)

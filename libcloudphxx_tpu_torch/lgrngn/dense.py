@@ -23,8 +23,8 @@ from ..ops import coal as coal_ops
 from ..ops.step import rebin_x, step_resident
 from . import coalescence as coal_mod
 from .hskpng import hskpng_mfp, ijk_of_xyz
-from .state import (N_PUDDLE, OUT_COAL_OVERFLOW, OUT_DRY_VOL, OUT_LIQ_NUM,
-                    OUT_LIQ_VOL, OUT_PRTCL_NUM, StaticConfig)
+from .state import (OUT_COAL_OVERFLOW, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL,
+                    OUT_PRTCL_NUM, State, StaticConfig)
 
 ATTRS = ("n", "rw2", "rd3", "kpa", "vt", "x", "z")
 
@@ -90,20 +90,48 @@ def _distribute(n_cell, cap, cell, vals):
     return planes, torch.sum(in_dom & (lane >= cap))
 
 
-def pack(cfg: StaticConfig, sd: dict, cells: dict, cap: int,
-         rng_seed: int = 44) -> DenseState:
-    """Flat SD vectors -> DenseState (one stable sort + scatter).  ``sd``
-    holds the flat attributes of ATTRS and the cell index ``ijk``; slots
-    with n == 0 are dropped.  ``cells`` holds the DenseState cell fields
-    and courants; ``rng_seed`` keys the coalescence draws."""
-    cell = torch.where(sd["n"] > 0, sd["ijk"], cfg.n_cell)
+def pack(cfg: StaticConfig, state: State, cap: int) -> DenseState:
+    """Flat State -> DenseState (one stable sort by cell + scatter; dead
+    slots are dropped).  The cell fields, the puddle and the random stream
+    carry over."""
+    cell = torch.where(state.n > 0, state.ijk, cfg.n_cell)
     planes, overflow = _distribute(cfg.n_cell, cap, cell,
-                                   [sd[a] for a in ATTRS])
-    like = sd["n"]
+                                   [getattr(state, a) for a in ATTRS])
     return DenseState(
-        **dict(zip(ATTRS, planes)), **cells,
-        puddle=torch.zeros(N_PUDDLE, dtype=like.dtype, device=like.device),
-        overflow=overflow, rng_seed=int(rng_seed))
+        **dict(zip(ATTRS, planes)),
+        **{k: getattr(state, k) for k in (
+            "rhod", "p", "T", "RH", "eta", "dv", "sstp_tmp_th",
+            "sstp_tmp_rv", "courant_x", "courant_z", "puddle")},
+        overflow=overflow, rng_seed=state.rng_seed,
+        rng_step=state.rng_step)
+
+
+def unpack(cfg: StaticConfig, d: DenseState, state: State) -> State:
+    """DenseState -> flat State (libcloudphxx_tpu/lgrngn/dense.py:262): the
+    live SDs first, in row order, then dead slots, n_sd_max of them; th/rv
+    are the values saved at the end of the last step, and the random
+    stream carries over.  Stepping never creates SDs, so the live ones
+    fit."""
+    n_cell, cap = d.n.shape
+    flat = {a: getattr(d, a).reshape(-1) for a in ATTRS}
+    alive = flat["n"] > 0
+    rows = torch.arange(n_cell, device=d.n.device).repeat_interleave(cap)
+    _, order = torch.sort((~alive).to(torch.int8), stable=True)
+    n_sd = state.n_sd_max
+    keep = order[:n_sd]
+    pad = n_sd - keep.numel()
+
+    def take(a):
+        out = a[keep]
+        return torch.cat([out, out.new_zeros(pad)]) if pad > 0 else out
+
+    upd = {a: take(flat[a]) for a in ATTRS}
+    upd["ijk"] = take(torch.where(alive, rows, 0))
+    return dataclasses.replace(
+        state, **upd, th=d.sstp_tmp_th, rv=d.sstp_tmp_rv, p=d.p, T=d.T,
+        RH=d.RH, eta=d.eta, puddle=d.puddle, sstp_tmp_th=d.sstp_tmp_th,
+        sstp_tmp_rv=d.sstp_tmp_rv, sstp_tmp_rh=d.rhod, rng_seed=d.rng_seed,
+        rng_step=d.rng_step)
 
 
 def _row_courants(cfg: StaticConfig, d: DenseState):
@@ -143,50 +171,6 @@ def _rshift_mask(m):
     return torch.cat([torch.zeros_like(m[:, :1]), m[:, :-1]], dim=1)
 
 
-def _cbrt(v):
-    """The cube root kernel E computes (the exp/log form of the TPU
-    kernel's cbrt_pos), here so that the two agree bitwise."""
-    return torch.exp(torch.log(torch.clamp(v, min=1e-38)) / 3.0)
-
-
-def _shima(cfg, params, a, b, a_big, ok, u, dt, dv_row, scale, eff):
-    """The Shima collision of every pair (a, b) that ``ok`` marks, with
-    ``a_big`` saying which SD has the larger multiplicity (coal.ipp:98-236,
-    Shima 2009 eqs. 12-13).  Returns (happened, n_big_new, rw2_small_new,
-    rd3_small_new, kpa_small_new, overflow per row)."""
-    n_a, rw2_a, rd3_a, kpa_a, vt_a = a
-    n_b, rw2_b, rd3_b, kpa_b, vt_b = b
-    K = coal_mod.kernel_value(cfg, params, n_a, n_b, rw2_a, rw2_b, vt_a,
-                              vt_b, rd3_a, rd3_b, eff)
-    prob = torch.where(ok, dt / dv_row * scale * K, 0.0)
-    # all-or-nothing multi-collision (coal.ipp:218-236)
-    col_no = torch.floor(prob)
-    overflow = (ok & (col_no >= 1.0)).any(dim=-1)
-    col_no = col_no + (u < prob - col_no)
-    big = lambda p, q: torch.where(a_big, p, q)
-    n_big, n_small = big(n_a, n_b), big(n_b, n_a)
-    ratio = torch.where(n_small > 0,
-                        torch.floor(n_big / torch.clamp(n_small, min=1.0)),
-                        0.0)
-    col_no = torch.minimum(col_no, ratio)
-    happened = ok & (col_no > 0)
-    rw2_big, rw2_small = big(rw2_a, rw2_b), big(rw2_b, rw2_a)
-    rd3_big, rd3_small = big(rd3_a, rd3_b), big(rd3_b, rd3_a)
-    kpa_big, kpa_small = big(kpa_a, kpa_b), big(kpa_b, kpa_a)
-    n_big_new = n_big - col_no * n_small
-    rw3_small_new = col_no * rw2_big * torch.sqrt(rw2_big) \
-        + rw2_small * torch.sqrt(rw2_small)
-    r_new = _cbrt(rw3_small_new)
-    rd3_small_new = col_no * rd3_big + rd3_small
-    kpa_small_new = torch.where(
-        rd3_small_new > 0,
-        (col_no * kpa_big * rd3_big + kpa_small * rd3_small)
-        / torch.clamp(rd3_small_new, min=1e-300),
-        kpa_small)
-    return (happened, n_big_new, r_new * r_new, rd3_small_new,
-            kpa_small_new, overflow)
-
-
 def pair_and_collide(cfg, params, sorted_vals, count, dv_row, rhod_row,
                      eta_row, dt, u01, eff=None):
     """Adjacent pairing after the shuffle and the Shima collision math on
@@ -207,9 +191,9 @@ def pair_and_collide(cfg, params, sorted_vals, count, dv_row, rhod_row,
     is_pair = (lane % 2 == 0) & (lane + 1 < count)
     b = tuple(_lshift(v) for v in sorted_vals)
     a_is_big = n_a >= b[0]
-    happened, n_big_new, rw2_new, rd3_new, kpa_new, overflow = _shima(
-        cfg, params, sorted_vals, b, a_is_big, is_pair, u01, dt, dv_row,
-        scale, eff)
+    happened, n_big_new, rw2_new, rd3_new, kpa_new, overflow = \
+        coal_mod.shima(cfg, params, sorted_vals, b, a_is_big, is_pair, u01,
+                       dt, dv_row, scale, eff)
     # lane 2j holds the pair's outcome; lane 2j+1 reads it shifted
     hp, bigp = _rshift_mask(happened), _rshift(a_is_big)
     n_s = torch.where(happened & a_is_big, n_big_new, n_a)
@@ -266,9 +250,9 @@ def pair_and_collide_partners(cfg, params, vals, partners, is_a, dv_row,
     u_pair = torch.where(is_a, u01, u01_b)
     # roles are symmetric, with an is_a tiebreak on equal n
     self_is_big = (n_a > n_b) | ((n_a == n_b) & is_a)
-    happened, n_big_new, rw2_new, rd3_new, kpa_new, overflow = _shima(
-        cfg, params, vals, partners, self_is_big, pair_ok, u_pair, dt,
-        dv_row, scale, eff)
+    happened, n_big_new, rw2_new, rd3_new, kpa_new, overflow = \
+        coal_mod.shima(cfg, params, vals, partners, self_is_big, pair_ok,
+                       u_pair, dt, dv_row, scale, eff)
     small = happened & ~self_is_big
     return (torch.where(happened & self_is_big, n_big_new, n_a),
             torch.where(small, rw2_new, vals[1]),

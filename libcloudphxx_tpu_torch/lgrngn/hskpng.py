@@ -1,5 +1,8 @@
-"""Housekeeping: cell thermodynamics, mean free paths, cell indices
-(libcloudphxx_tpu/lgrngn/hskpng.py; reference src/impl/housekeeping/)."""
+"""Housekeeping: cell thermodynamics, mean free paths, cell indices and the
+per-cell moments of the flat engine (libcloudphxx_tpu/lgrngn/hskpng.py;
+reference src/impl/housekeeping/)."""
+
+import dataclasses
 
 import torch
 
@@ -32,6 +35,35 @@ def hskpng_Tpr(cfg: StaticConfig, th, rv, rhod, p0):
         T = th * theta_std.exner(p0)
     p = p0 if cfg.const_p else theta_dry.p(rhod, rv, T)
     return T, p, RH_of(cfg, p, rv, T), common_vterm.visc(T)
+
+
+def hskpng_Tpr_state(cfg: StaticConfig, state):
+    """hskpng_Tpr on a flat State: its T, p, RH and eta from th, rv and
+    rhod (and the pressure it holds, for th_std or const_p)."""
+    T, p, RH, eta = hskpng_Tpr(cfg, state.th, state.rv, state.rhod, state.p)
+    return dataclasses.replace(state, T=T, p=p, RH=RH, eta=eta)
+
+
+def segment_moment(cfg: StaticConfig, n_filtered, attr, power, ijk, dv,
+                   rhod):
+    """k-th specific moment of ``attr`` over the selected SDs of each cell,
+    divided by the cell volume and the dry-air density (reference
+    particles_impl_moms.ipp:276-360)."""
+    if power == 0:
+        vals = n_filtered
+    else:
+        vals = n_filtered * torch.where(n_filtered > 0, attr, 1.0) ** power
+    mom = torch.zeros(cfg.n_cell, dtype=vals.dtype, device=vals.device)
+    mom.index_add_(0, ijk, vals)
+    return mom / dv / rhod
+
+
+def sd_count_per_cell(cfg: StaticConfig, n_filtered, ijk):
+    """Number of selected super-droplets per cell (reference
+    particles_diag.ipp:196-219)."""
+    out = torch.zeros(cfg.n_cell, dtype=n_filtered.dtype,
+                      device=n_filtered.device)
+    return out.index_add_(0, ijk, (n_filtered > 0).to(n_filtered.dtype))
 
 
 def hskpng_mfp(T, p):

@@ -4,9 +4,11 @@
 The distribution analysis and the sampling run in numpy with the caller's
 ``numpy.random.Generator`` and the JAX package's draw order, so one seed
 gives the JAX package's population draw for draw; the equilibrium wet
-radius is solved on the tensors' device.
+radius is solved on the tensors' device.  particles_t.init runs the
+sequence on the flat State (init_SD_state, init_wet_state).
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -14,7 +16,7 @@ import torch
 
 from ..common import constants as c
 from ..common import kappa_koehler
-from .state import StaticConfig
+from .state import State, StaticConfig
 
 # reference src/detail/config.hpp:21-24
 RD_MIN_INIT = 1e-14
@@ -160,3 +162,31 @@ def init_wet(rd3, kpa, RH_sd, T_sd, RH_max):
     kappa-Koehler root solve (reference init_wet.ipp:18-77)."""
     rw3 = kappa_koehler.rw3_eq(rd3, kpa, torch.clamp(RH_sd, max=RH_max), T_sd)
     return rw3 ** (2.0 / 3)
+
+
+def init_SD_state(cfg: StaticConfig, oi, state: State,
+                  rng: np.random.Generator, rhod_host: np.ndarray) -> State:
+    """init_SD into the flat State's n_sd_max slots, the dead slots after
+    the live ones (n 0, rd3 1e-30, cell 0), as the JAX package fills
+    them; vt starts at zero."""
+    pop = init_SD(cfg, oi, rng, rhod_host)
+    pad = cfg.n_sd_max - pop["n"].size
+    like = state.rd3
+
+    def padded(a, fill=0.0, dtype=like.dtype):
+        return torch.as_tensor(np.concatenate([a, np.full(pad, fill)]),
+                               dtype=dtype, device=like.device)
+
+    return dataclasses.replace(
+        state, n=padded(pop["n"]), rd3=padded(pop["rd3"], fill=1e-30),
+        kpa=padded(pop["kpa"]), x=padded(pop["x"]), z=padded(pop["z"]),
+        ijk=padded(pop["ijk"], fill=0, dtype=torch.int64),
+        vt=torch.zeros_like(like))
+
+
+def init_wet_state(state: State, RH_max) -> State:
+    """init_wet on the flat State, from the cell RH and T of each SD; dead
+    slots get rw2 = 0."""
+    g = lambda a: a[state.ijk]
+    rw2 = init_wet(state.rd3, state.kpa, g(state.RH), g(state.T), RH_max)
+    return dataclasses.replace(state, rw2=torch.where(state.n > 0, rw2, 0.0))

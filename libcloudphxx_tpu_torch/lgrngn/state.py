@@ -1,11 +1,19 @@
-"""The static run configuration and the puddle slots
-(libcloudphxx_tpu/lgrngn/state.py: StaticConfig, PUDDLE_KEYS, OUT_*).
+"""The static run configuration, the flat engine's state and the puddle
+slots (libcloudphxx_tpu/lgrngn/state.py: StaticConfig, State, empty_state,
+PUDDLE_KEYS, OUT_*).
 
-The port keeps the population only in the dense cell-major layout
-(lgrngn/dense.DenseState), so the flat ``State`` container is not ported.
+The flat ``State`` holds the warm 2-D engine: per-SD arrays of length
+n_sd_max, where multiplicity n == 0 marks a dead slot, and the per-cell
+Eulerian mirrors.  Its random stream is the run's seed and a step counter
+(the coalescence draws are Philox numbers, ops/philox.py), so restoring a
+state restores its draws.  The dense engine keeps the same population in
+its cell-major layout (lgrngn/dense.DenseState).
 """
 
+import dataclasses
 from dataclasses import dataclass
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -102,6 +110,74 @@ class StaticConfig:
                 oi.sd_conc == 0
                 and (oi.sd_const_multi > 0 or len(oi.dry_sizes) > 0)),
         )
+
+
+@dataclass
+class State:
+    """The flat engine's state (reference src/impl/particles_impl.ipp:
+    66-146), warm and 2-D: per-SD arrays (n_sd_max,), cell arrays
+    (n_cell,), the staggered courants ((nx+1)*nz and nx*(nz+1)).  Every
+    step returns a new State; none is updated in place."""
+
+    # per-SD attributes
+    n: torch.Tensor       # multiplicity; 0 == dead slot
+    rd3: torch.Tensor     # dry radius cubed [m3]
+    rw2: torch.Tensor     # wet radius squared [m2]
+    kpa: torch.Tensor     # kappa hygroscopicity
+    x: torch.Tensor
+    z: torch.Tensor
+    vt: torch.Tensor      # terminal velocity [m/s]
+    ijk: torch.Tensor     # int64 cell index i*nz + k; dead slots cell 0
+    # Eulerian mirrors
+    th: torch.Tensor
+    rv: torch.Tensor
+    rhod: torch.Tensor
+    p: torch.Tensor
+    courant_x: torch.Tensor
+    courant_z: torch.Tensor
+    # diagnosed cell fields
+    T: torch.Tensor
+    RH: torch.Tensor
+    eta: torch.Tensor
+    dv: torch.Tensor      # cell volume [m3]
+    # condensation substepping snapshot (sstp_save)
+    sstp_tmp_th: torch.Tensor
+    sstp_tmp_rv: torch.Tensor
+    sstp_tmp_rh: torch.Tensor
+    puddle: torch.Tensor  # (N_PUDDLE,), slots as PUDDLE_KEYS
+    # the coalescence draws: Philox key (opts_init.rng_seed) and the step
+    # counter, advanced by every coalescence call
+    rng_seed: int = 44
+    rng_step: int = 0
+
+    @property
+    def n_sd_max(self):
+        return self.n.shape[0]
+
+    @property
+    def n_cell(self):
+        return self.th.shape[0]
+
+
+# the State's tensor fields, in declaration order
+TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(State)
+                      if f.name not in ("rng_seed", "rng_step"))
+
+
+def empty_state(cfg: StaticConfig, dtype, device, rng_seed=44) -> State:
+    """An all-dead-slot state for a 2-D config."""
+    zsd = torch.zeros(cfg.n_sd_max, dtype=dtype, device=device)
+    zc = torch.zeros(cfg.n_cell, dtype=dtype, device=device)
+    z = lambda m: torch.zeros(m, dtype=dtype, device=device)
+    return State(
+        n=zsd, rd3=zsd, rw2=zsd, kpa=zsd, x=zsd, z=zsd, vt=zsd,
+        ijk=torch.zeros(cfg.n_sd_max, dtype=torch.int64, device=device),
+        th=zc, rv=zc, rhod=zc, p=zc,
+        courant_x=z((cfg.nx + 1) * cfg.nz), courant_z=z(cfg.nx * (cfg.nz + 1)),
+        T=zc, RH=zc, eta=zc,
+        dv=torch.ones(cfg.n_cell, dtype=dtype, device=device),
+        sstp_tmp_th=zc, sstp_tmp_rv=zc, sstp_tmp_rh=zc,
+        puddle=z(N_PUDDLE), rng_seed=int(rng_seed))
 
 
 # puddle accumulator slots, mirroring common/output.hpp:8-42 output_t (the

@@ -2,6 +2,8 @@
 and the in-kernel formula of libcloudphxx_tpu/ops/pallas_coal._vt_in_kernel;
 reference src/impl/housekeeping/particles_impl_hskpng_vterm.ipp)."""
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -16,9 +18,17 @@ VT0_LN_R_MIN = float(np.log(0.5e-6))
 VT0_LN_R_MAX = float(np.log(3.5e-3))
 
 
+_VT0 = {}
+
+
 def _vt0_table(dtype, device):
-    r = np.exp(np.linspace(VT0_LN_R_MIN, VT0_LN_R_MAX, VT0_BINS))
-    return cv.vt_beard77_v0(torch.from_numpy(r)).to(dtype=dtype, device=device)
+    """The binned sea-level vt, made once per dtype and device."""
+    key = (dtype, str(device))
+    if key not in _VT0:
+        r = np.exp(np.linspace(VT0_LN_R_MIN, VT0_LN_R_MAX, VT0_BINS))
+        _VT0[key] = cv.vt_beard77_v0(torch.from_numpy(r)).to(dtype=dtype,
+                                                             device=device)
+    return _VT0[key]
 
 
 def vt_of(cfg: StaticConfig, rw2, T, p, rhod, eta):
@@ -42,6 +52,14 @@ def vt_of(cfg: StaticConfig, rw2, T, p, rhod, eta):
             f"vt_of: terminal velocity {formula.name} is not ported "
             "(ROADMAP.md, Queue 1)")
     return torch.where(rw2 > 0, v, 0.0)
+
+
+def hskpng_vterm_all(cfg: StaticConfig, state):
+    """Recompute vt of every SD of a flat State from its cell's T, p, rhod
+    and eta (reference hskpng_vterm_all)."""
+    g = lambda a: a[state.ijk]
+    return dataclasses.replace(state, vt=vt_of(
+        cfg, state.rw2, g(state.T), g(state.p), g(state.rhod), g(state.eta)))
 
 
 def require_kernel_vt(cfg: StaticConfig):

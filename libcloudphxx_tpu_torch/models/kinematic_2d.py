@@ -4,8 +4,11 @@ Lagrangian microphysics (libcloudphxx_tpu/models/kinematic_2d.py).
 The GMD-2015 / 8th ICMW case-1 setup (reference
 models/kinematic_2D/src/opts_common.hpp:48-66, cases/icmw8_case1.hpp):
 MPDATA advection of th/rv (models/mpdata.py) and the super-droplet
-microphysics on the dense cell-major layout (lgrngn/dense.py), on the
-cell-centred grid.  The port runs the lgrngn scheme only.
+microphysics through the public particles_t API (lgrngn/particles.py), on
+the cell-centred grid: the stepwise loop (step, run) calls step_sync and
+step_async, run_device_lgrngn runs the flat engine's step functions or
+the dense cell-major engine (lgrngn/dense.py).  The port runs the lgrngn
+scheme only.
 """
 
 import dataclasses
@@ -15,11 +18,10 @@ import torch
 from torch import nn
 
 from ..common import hydrostatic, theta_dry, theta_std
-from ..lgrngn import dense, init
-from ..lgrngn.enums import kernel_t, vt_t
-from ..lgrngn.hskpng import hskpng_Tpr
-from ..lgrngn.opts import opts_init_t
-from ..lgrngn.state import StaticConfig
+from ..lgrngn import dense
+from ..lgrngn.enums import backend_t, kernel_t, vt_t
+from ..lgrngn.opts import opts_init_t, opts_t
+from ..lgrngn.particles import factory, step_async_body, step_cond_body
 from . import mpdata
 
 
@@ -91,18 +93,21 @@ class Kinematic2D(nn.Module):
     """End-to-end kinematic cloud model with super-droplet microphysics
     (reference models/kinematic_2D/src/icicle.cpp + kin_cloud_2d_lgrngn.hpp).
 
-    ``device`` is required: every tensor is made there.  ``dtype`` is the
-    working precision of the fields and the population (float32 on the
-    card; the kernels take float32 only).  The courant and density fields
-    are buffers; th, rv (nx, nz) and the population ``state``
-    (lgrngn/dense.DenseState) are attributes that each run replaces."""
+    Every tensor is made on ``device``: the card unless the caller asks for
+    the CPU.  ``dtype`` is the working precision of the fields and the
+    population (float32 on the card; the kernels take float32 only).  The
+    courant and density fields are buffers; th and rv (nx, nz) are
+    attributes that each step replaces.  The microphysics is the public
+    API's particles_t (``prtcls``, lgrngn/particles.py) on the flat
+    engine; run_device_lgrngn(engine="dense") runs the same population on
+    the dense cell-major engine and writes it back."""
 
     def __init__(self, nx=76, nz=76, setup: Setup = None, micro="lgrngn",
                  sd_conc=64, sstp_cond=1, sstp_coal=1, n_sd_max=None,
                  mpdata_iters=2, grid="cell", fct=False,
                  terminal_velocity=None,
                  rng_seed=None, opts_init_kw=None, coal_pairing="stride", *,
-                 device, dtype=torch.float32):
+                 device="cuda", dtype=torch.float32):
         super().__init__()
         if micro != "lgrngn":
             raise NotImplementedError(
@@ -132,18 +137,6 @@ class Kinematic2D(nn.Module):
         C_x = gc_x / rhod_col[None, :]
         C_z = gc_z / rhod_profile(s, f64(z_zface)).numpy()[None, :]
 
-        dev = lambda a: torch.as_tensor(
-            a, dtype=dtype, device=self.device).contiguous()
-        self.register_buffer("gc_x", dev(gc_x))
-        self.register_buffer("gc_z", dev(gc_z))
-        self.register_buffer("G", dev(rhod))
-        self.register_buffer("rhod", dev(rhod))
-        self.register_buffer("C_x", dev(C_x))
-        self.register_buffer("C_z", dev(C_z))
-        # uniform dry-theta / vapour initial state (icmw8_case1.hpp:166-168)
-        self.th = dev(np.full((nx, nz), float(theta_dry.std2dry(s.th_0, s.rv_0))))
-        self.rv = dev(np.full((nx, nz), s.rv_0))
-
         oi = opts_init_t()
         oi.dry_distros = {(s.kappa, 0.0): s.lognormal_lnrd}
         oi.nx, oi.nz = nx, nz
@@ -160,87 +153,176 @@ class Kinematic2D(nn.Module):
         oi.terminal_velocity = terminal_velocity or vt_t.beard77fast
         for k, v in (opts_init_kw or {}).items():
             if not hasattr(oi, k):
-                raise ValueError(f"kinematic_2d: unknown opts_init field {k!r}")
+                raise ValueError(
+                    f"kinematic_2d: unknown opts_init field {k!r}")
             setattr(oi, k, v)
-        self.opts_init = oi
-        self.cfg = StaticConfig.from_opts_init(oi)
-        self.state = self._init_lgrngn(rhod)
-        self.t = 0.0
-
-    def _init_lgrngn(self, rhod_host):
-        """The lgrngn init sequence (particles.py:358-430): cell closure,
-        SD creation from the seeded numpy generator, equilibrium wet radii,
-        sstp_save; then the pack into the dense layout."""
-        cfg, oi = self.cfg, self.opts_init
-        if cfg.const_p or not cfg.th_dry:
+        if oi.const_p or not oi.th_dry:
             raise NotImplementedError(
                 "Kinematic2D: the port drives th_dry with variable pressure "
                 "only (ROADMAP.md, Queue 1)")
-        dev = lambda a: torch.as_tensor(a, dtype=self.dtype, device=self.device)
-        th, rv = self.th.reshape(-1), self.rv.reshape(-1)
-        rhod = self.rhod.reshape(-1)
-        T, p, RH, eta = hskpng_Tpr(cfg, th, rv, rhod, torch.zeros_like(rhod))
+        self.opts_init = oi
+        self.prtcls = factory(backend_t.CUDA, oi, device=self.device,
+                              dtype=dtype)
+        self.cfg = self.prtcls.cfg
 
-        seed = oi.rng_seed_init if oi.rng_seed_init_switch else oi.rng_seed
-        pop = init.init_SD(cfg, oi, np.random.default_rng(seed),
-                           rhod_host.reshape(-1))
-        sd = {k: dev(pop[k]) for k in ("n", "rd3", "kpa", "x", "z")}
-        sd["ijk"] = torch.as_tensor(pop["ijk"], device=self.device)
-        rw2 = init.init_wet(sd["rd3"], sd["kpa"], RH[sd["ijk"]],
-                            T[sd["ijk"]], oi.RH_max)
-        sd["rw2"] = torch.where(sd["n"] > 0, rw2, 0.0)
-        sd["vt"] = torch.zeros_like(rw2)
-        cells = dict(rhod=rhod, p=p, T=T, RH=RH, eta=eta,
-                     dv=dev(init.cell_dv(cfg)),
-                     sstp_tmp_th=th, sstp_tmp_rv=rv,  # sstp_save
-                     courant_x=self.C_x.reshape(-1),
-                     courant_z=self.C_z.reshape(-1))
-        counts = np.bincount(pop["ijk"][pop["n"] > 0], minlength=cfg.n_cell)
-        return dense.pack(cfg, sd, cells, dense_capacity(counts.max()),
-                          rng_seed=oi.rng_seed)
+        dev = lambda a: torch.as_tensor(
+            a, dtype=dtype, device=self.device).contiguous()
+        self.register_buffer("gc_x", dev(gc_x))
+        self.register_buffer("gc_z", dev(gc_z))
+        self.register_buffer("G", dev(rhod))
+        self.register_buffer("rhod", dev(rhod))
+        self.register_buffer("C_x", dev(C_x))
+        self.register_buffer("C_z", dev(C_z))
+        # uniform dry-theta / vapour initial state (icmw8_case1.hpp:166-168)
+        th = np.full((nx, nz), float(theta_dry.std2dry(s.th_0, s.rv_0)))
+        rv = np.full((nx, nz), s.rv_0)
+        self.th, self.rv = dev(th), dev(rv)
+        # the float64 host fields, as the JAX model passes them: init_SD
+        # scales the multiplicities by this rhod
+        self.prtcls.init(th, rv, rhod, Cx=C_x, Cz=C_z)
+        self.opts = opts_t()
+        # the population in the dense layout and the flat state it stands
+        # for (see dense_state)
+        self._dense = None
+        self.t = 0.0
 
-    def _step(self, spinup, plain):
-        """One model step: MPDATA of th/rv, then the microphysics step.
-        During spin-up coalescence and sedimentation are off and RH is
-        capped at 1.01 (set_rain, kin_cloud_2d_lgrngn.hpp:121-126)."""
+    # -------------------------------------------------- the stepwise loop
+    def advect_scalars(self, *, plain=False):
+        """The Eulerian part of one step: MPDATA of th and rv, one field a
+        call (kernel A on the card; ``plain``, its plain version)."""
+        mp = (self.gc_x, self.gc_z, self.G, self.mpdata_iters, self.fct)
+        self.th = mpdata.advect(self.th, *mp, plain=plain)
+        self.rv = mpdata.advect(self.rv, *mp, plain=plain)
+
+    def micro_step(self, spinup=False, *, plain=False):
+        """The microphysics of one step through the public API, th/rv (and
+        rhod) passed as device tensors.  During spin-up coalescence and
+        sedimentation are off and RH is capped at 1.01 (set_rain,
+        kin_cloud_2d_lgrngn.hpp:121-126)."""
+        opts = self.opts
+        opts.sedi = opts.coal = not spinup
+        opts.RH_max = 1.01 if spinup else 44.0
+        th, rv = self.prtcls.step_sync(opts, self.th, self.rv, self.rhod,
+                                       plain=plain)
+        self.th = th.reshape(self.nx, self.nz)
+        self.rv = rv.reshape(self.nx, self.nz)
+        self.prtcls.step_async(opts)
+
+    def step(self, spinup=False, *, plain=False):
+        """One model step: MPDATA of th/rv, then step_sync and step_async
+        (reference icicle.cpp:77 + hook_post_step)."""
+        self.advect_scalars(plain=plain)
+        self.micro_step(spinup=spinup, plain=plain)
+        self.t += self.setup.dt
+
+    def run(self, nt, spinup=0, *, plain=False):
+        """``nt`` steps of the stepwise loop, the first ``spinup`` of them
+        spin-up steps."""
+        for i in range(nt):
+            self.step(spinup=i < spinup, plain=plain)
+
+    # ------------------------------------------- the device-resident loops
+    def _does_coal(self, spinup):
+        return (not spinup) and self.cfg.coal_switch \
+            and self.cfg.kernel != kernel_t.undefined.value
+
+    def _flat_step(self, state, th, rv, spinup, plain):
+        """One step of the flat engine as a function over (State, th, rv)
+        (libcloudphxx_tpu/models/kinematic_2d.py:501-538): MPDATA of th and
+        rv, the condensation phase, the transport phase."""
+        cfg, dt = self.cfg, self.setup.dt
+        mp = (self.gc_x, self.gc_z, self.G, self.mpdata_iters, self.fct)
+        th = mpdata.advect(th, *mp, plain=plain)
+        rv = mpdata.advect(rv, *mp, plain=plain)
+        state = dataclasses.replace(state, th=th.reshape(-1),
+                                    rv=rv.reshape(-1))
+        state = step_cond_body(cfg, state, dt, 1.01 if spinup else 44.0,
+                               plain=plain)
+        th = state.th.reshape(self.nx, self.nz)
+        rv = state.rv.reshape(self.nx, self.nz)
+        switches = (self._does_coal(spinup), True,
+                    (not spinup) and cfg.sedi_switch, False)
+        params, w_LS = self.prtcls.async_consts()
+        state = step_async_body(cfg, cfg.sstp_coal, switches, state, params,
+                                w_LS, dt)
+        return state, th, rv
+
+    def _dense_step(self, d, spinup, plain):
+        """One step of the dense engine: MPDATA of th/rv, then the fused
+        microphysics step (lgrngn/dense.step_fused).  During spin-up
+        coalescence and sedimentation are off and RH is capped at 1.01."""
         cfg = self.cfg
         th, rv = mpdata.advect2(self.th, self.rv, self.gc_x, self.gc_z,
                                 self.G, n_iters=self.mpdata_iters,
                                 fct=self.fct, plain=plain)
-        self.state, th, rv = dense.step_fused(
-            cfg, self.state, th.reshape(-1), rv.reshape(-1),
+        d, th, rv = dense.step_fused(
+            cfg, d, th.reshape(-1), rv.reshape(-1),
             self.opts_init.kernel_parameters, self.setup.dt,
             1.01 if spinup else 44.0, cfg.sstp_coal, self._does_coal(spinup),
             (not spinup) and cfg.sedi_switch,
             coal_pairing=self.coal_pairing, plain=plain)
         self.th, self.rv = th.reshape(self.nx, self.nz), \
             rv.reshape(self.nx, self.nz)
+        return d
 
-    def _does_coal(self, spinup):
-        return (not spinup) and self.cfg.coal_switch \
-            and self.cfg.kernel != kernel_t.undefined.value
+    @property
+    def dense_state(self):
+        """The population in the dense cell-major layout
+        (lgrngn/dense.DenseState): the one the last dense run left while
+        the flat state is still the one it wrote back, else packed from
+        the flat state at the row capacity dense_capacity gives."""
+        st = self.prtcls.state
+        if self._dense is None or self._dense[1] is not st:
+            counts = torch.bincount(st.ijk[st.n > 0],
+                                    minlength=self.cfg.n_cell)
+            self._dense = (dense.pack(self.cfg, st, dense_capacity(
+                int(counts.max()))), st)
+        return self._dense[0]
 
-    def run_device_lgrngn(self, nt, spinup=0, engine="dense", repack_every=0,
+    @dense_state.setter
+    def dense_state(self, d):
+        """Write a dense population back into the flat state (dense.unpack),
+        so that the public API's diagnostics read it."""
+        p = self.prtcls
+        p.state = dense.unpack(self.cfg, d, p.state)
+        self._dense = (d, p.state)
+
+    def run_device_lgrngn(self, nt, spinup=0, engine="flat", repack_every=0,
                           *, plain=False):
         """``nt`` model steps, the first ``spinup`` of them spin-up steps,
-        on the dense engine, with the population on the device throughout.
-        ``plain`` runs the plain PyTorch version of every kernel (kernel
-        timings and comparisons).  Raises on SDs dropped at a full row."""
-        if engine != "dense":
-            raise NotImplementedError(
-                f"run_device_lgrngn: engine={engine!r} is not ported; only "
-                "'dense' (ROADMAP.md, Queue 1)")
+        with the population on the device throughout
+        (libcloudphxx_tpu/models/kinematic_2d.py:721).  engine="flat" runs
+        the public API's engine without its host-side bookkeeping;
+        engine="dense" packs the population into the dense layout, runs
+        the fused dense step, and writes it back at the end (raising if a
+        full row dropped SDs).  ``plain`` runs the plain PyTorch version of
+        every kernel (comparisons and timings)."""
+        if engine not in ("flat", "dense"):
+            raise ValueError(f"run_device_lgrngn: engine must be 'flat' or "
+                             f"'dense', got {engine!r}")
         if repack_every:
             raise NotImplementedError(
                 "run_device_lgrngn: the repack policy is not ported "
-                "(ROADMAP.md, Queue 1)")
-        for i in range(nt):
-            self._step(i < spinup, plain)
-        dropped = int(self.state.overflow)
-        if dropped:
-            raise RuntimeError(
-                f"dense engine: {dropped} SDs dropped on row overflow "
-                f"(capacity {self.state.cap}); raise cap")
+                "(ROADMAP.md, Open items)")
+        p = self.prtcls
+        if engine == "dense":
+            d = self.dense_state
+            for i in range(nt):
+                d = self._dense_step(d, i < spinup, plain)
+            dropped = int(d.overflow)
+            if dropped:
+                raise RuntimeError(
+                    f"dense engine: {dropped} SDs dropped on row overflow "
+                    f"(capacity {d.cap}); raise cap")
+            self.dense_state = d
+        else:
+            state, th, rv = p.state, self.th, self.rv
+            for i in range(nt):
+                state, th, rv = self._flat_step(state, th, rv, i < spinup,
+                                                plain)
+            p.state, self.th, self.rv = state, th, rv
+        p._should_now_run_cond = False
+        p._should_now_run_async = False
         self.t += nt * self.setup.dt
 
 

@@ -60,6 +60,17 @@ def draw(seed, step, substep, kind, n_rows, cap, device="cpu"):
     return philox4x32(ctr, (int(seed) & MASK, rows))[0]
 
 
+def draw_substeps(seed, step, n_substeps, kind, n, device="cpu"):
+    """(n_substeps, n) int64 tensor of 32-bit random words for a flat
+    population: substep s, slot l holds word 0 of Philox(key=(seed, 0),
+    ctr=(step, s, kind, l)), what draw(seed, step, s, kind, 1, n)[0]
+    gives."""
+    subs = torch.arange(n_substeps, dtype=torch.int64, device=device)[:, None]
+    slots = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    ctr = (int(step) & MASK, subs, int(kind) & MASK, slots)
+    return philox4x32(ctr, (int(seed) & MASK, 0))[0]
+
+
 def u01(bits, dtype):
     """Uniforms in [0, 1) in steps of 2**-23 from 32-bit words, as
     pallas_coal._u01 builds them: the top 23 bits as the mantissa of a

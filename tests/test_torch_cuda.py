@@ -9,9 +9,11 @@ euler scheme, open side walls and periodic top/bottom walls, and rain that
 fills the puddle.  Kernel E (coalescence) runs at row
 capacity 32, 128 and 256 in its three forms (stride and sort pairing,
 standalone) with the golovin, geometric, long and hall kernels, on rows
-that are full, half empty, all dead or hold one droplet.  They also check
-that the wrappers refuse what the kernels do not take, and count one launch
-per call.
+that are full, half empty, all dead or hold one droplet.  Kernel F (the
+flat engine's condensation root find) runs at lengths 1, 127 and 32,773
+with dead slots, and the flat slice runs through the public API with the
+kernels and with the plain versions.  They also check that the wrappers
+refuse what the kernels do not take, and count one launch per call.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -23,7 +25,8 @@ operation (built with -fmad=false), and at the GMD case they agree
 bitwise; the bounds are those chip_smoke.py states (MPDATA rtol 1e-5;
 condensation th 2e-6, rv 2e-5, rw2 1e-5; cells, multiplicities, targets
 and overflow exact, rw2/x/z 1e-6, puddle 1e-5; coalescence: per cell the
-multiset of (n, rd3, kpa) and the overflow flags exact, rw2 rel 1e-6).
+multiset of (n, rd3, kpa) and the overflow flags exact, rw2 rel 1e-6;
+kernel F: live droplets rw2 rel 1e-5, dead slots exact).
 """
 
 import dataclasses
@@ -39,6 +42,7 @@ from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp
 from libcloudphxx_tpu_torch.models import mpdata
 from libcloudphxx_tpu_torch.models.kinematic_2d import Setup, make_gc
 from libcloudphxx_tpu_torch.ops import coal, step
+from libcloudphxx_tpu_torch.ops import cond as cond_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -72,7 +76,7 @@ def model(dev, request):
     m = Kinematic2D(nx=8, nz=8, sd_conc=request.param, sstp_cond=3,
                     n_sd_max=request.param * 64,
                     opts_init_kw={"coal_switch": False}, device=dev)
-    assert m.state.cap == {16: 32, 128: 256}[request.param]
+    assert m.dense_state.cap == {16: 32, 128: 256}[request.param]
     return m
 
 
@@ -100,7 +104,7 @@ def test_mpdata_kernel_matches_plain(dev, n_iters, fct):
 
 
 def _cond_args(m, RH_max):
-    d = m.state
+    d = m.dense_state
     tha, rva = mpdata.advect2(m.th, m.rv, m.gc_x, m.gc_z, m.G, plain=True)
     lam_D, lam_K = hskpng_mfp(d.T, d.p)
     return (m.cfg, m.cfg.sstp_cond, 1.0, RH_max, d.n, d.rw2, d.rd3, d.kpa,
@@ -113,7 +117,7 @@ def test_cond_kernel_matches_plain(model, RH_max):
     args = _cond_args(model, RH_max)
     k = _launches(_ext.COND, lambda: step.cond(*args))
     p = step.cond(*args, plain=True)
-    alive = model.state.n > 0
+    alive = model.dense_state.n > 0
     assert _rel(k[1], p[1]) <= 2e-6          # th
     assert _rel(k[2], p[2]) <= 2e-5          # rv
     assert _rel(k[0][alive], p[0][alive]) <= 1e-5
@@ -138,7 +142,7 @@ def test_transport_and_merge_kernels_match_plain(model, variant):
     same multiset of droplets (lane order is free but fixed)."""
     over, rain = VARIANTS[variant]
     cfg = dataclasses.replace(model.cfg, **over)
-    d = model.state
+    d = model.dense_state
     n, rw2, z = d.n, d.rw2, d.z
     if rain:  # 1 mm drops in the lowest 20 m: the puddle fills
         alive = n > 0
@@ -184,15 +188,16 @@ def test_slice_kernels_match_plain(dev):
     mk, mp = Kinematic2D(**kw), Kinematic2D(**kw)
     step_kernels = (_ext.MPDATA, _ext.COND, _ext.TRANSPORT, _ext.MERGE)
     before = {k.name: k.launches for k in _ext.KERNELS}
-    mk.run_device_lgrngn(4, spinup=2)
+    mk.run_device_lgrngn(4, spinup=2, engine="dense")
     torch.cuda.synchronize()
     assert all(k.launches == before[k.name] + 4 for k in step_kernels)
     assert _ext.COAL.launches == before["coal"]       # coalescence off
-    mp.run_device_lgrngn(4, spinup=2, plain=True)
+    mp.run_device_lgrngn(4, spinup=2, engine="dense", plain=True)
     assert _rel(mk.th, mp.th) <= 2e-6
     assert _rel(mk.rv, mp.rv) <= 2e-5
-    assert torch.equal((mk.state.n > 0).sum(1), (mp.state.n > 0).sum(1))
-    assert int(mk.state.overflow) == int(mp.state.overflow) == 0
+    dk, dp = mk.dense_state, mp.dense_state
+    assert torch.equal((dk.n > 0).sum(1), (dp.n > 0).sum(1))
+    assert int(dk.overflow) == int(dp.overflow) == 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(model):
@@ -206,7 +211,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(model):
         mpdata.advect(m.th, gc_x_strided, m.gc_z, m.G)
     with pytest.raises(ValueError, match="do not fit"):
         mpdata.advect(m.th[:-1].contiguous(), m.gc_x, m.gc_z, m.G[:-1])
-    d = m.state
+    d = m.dense_state
     tgt = torch.zeros((d.n_cell, d.cap // 2), dtype=torch.int32,
                       device=d.n.device)
     with pytest.raises(ValueError, match="SD planes"):
@@ -326,11 +331,83 @@ def test_coal_slice_kernels_match_plain(dev):
               device=dev)
     mk, mp = Kinematic2D(**kw), Kinematic2D(**kw)
     before = _ext.COAL.launches
-    mk.run_device_lgrngn(4, spinup=2)
+    mk.run_device_lgrngn(4, spinup=2, engine="dense")
     torch.cuda.synchronize()
     assert _ext.COAL.launches == before + 2
-    mp.run_device_lgrngn(4, spinup=2, plain=True)
+    mp.run_device_lgrngn(4, spinup=2, engine="dense", plain=True)
     assert _rel(mk.th, mp.th) <= 2e-6
     assert _rel(mk.rv, mp.rv) <= 2e-5
-    assert torch.equal((mk.state.n > 0).sum(1), (mp.state.n > 0).sum(1))
-    assert float(mk.state.n.sum()) == float(mp.state.n.sum())
+    dk, dp = mk.dense_state, mp.dense_state
+    assert torch.equal((dk.n > 0).sum(1), (dp.n > 0).sum(1))
+    assert float(dk.n.sum()) == float(dp.n.sum())
+
+
+# ---------------------------------------------------------------- kernel F
+def _cond_sd_arrays(dev, n, seed=0):
+    """The 12 flat arrays of kernel F for ``n`` droplets of 0.01-30 um
+    (a tenth of them dead slots, rw2 = 0) in cells near saturation."""
+    rng = np.random.default_rng(seed + n)
+    rw = np.exp(rng.uniform(np.log(1e-8), np.log(3e-5), n))
+    rw2 = np.where(rng.random(n) < 0.1, 0.0, rw ** 2)
+    rd3 = (rw * rng.uniform(0.05, 0.9, n)) ** 3
+    T = rng.uniform(280.0, 292.0, n)
+    arrays = (rw2, rd3, rng.uniform(0.1, 1.2, n), rng.uniform(0.0, 0.05, n),
+              rng.uniform(1.0, 1.2, n), rng.uniform(6e-3, 9e-3, n), T,
+              rng.uniform(8.5e4, 1e5, n), rng.uniform(0.95, 1.02, n),
+              1.72e-5 * (393.0 / (T + 120.0)) * (T / 273.16) ** 1.5,
+              rng.uniform(6e-8, 7e-8, n), rng.uniform(9e-8, 1.1e-7, n))
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in arrays)
+
+
+@pytest.mark.parametrize("RH_max", [1.01, 44.0], ids=["spinup", "main"])
+@pytest.mark.parametrize("n", [1, 127, 32773])
+def test_cond_sd_kernel_matches_plain(dev, n, RH_max):
+    """Kernel F against its plain version at lengths that fill no block,
+    one ragged block and many: live droplets to rtol 1e-5 (the bound
+    chip_smoke.py states; at the GMD case they agree bitwise), dead slots
+    unchanged."""
+    arrays = _cond_sd_arrays(dev, n)
+    k = _launches(_ext.COND_SD,
+                  lambda: cond_ops.advance_rw2(0.1, *arrays, RH_max))
+    p = cond_ops.advance_rw2(0.1, *arrays, RH_max, plain=True)
+    live = arrays[0] > 0
+    if bool(live.any()):
+        assert _rel(k[live], p[live]) <= 1e-5
+    assert torch.equal(k[~live], arrays[0][~live])
+
+
+def test_cond_sd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    arrays = _cond_sd_arrays(dev, 64)
+    call = lambda a: cond_ops.advance_rw2(0.1, *a, 44.0)
+    with pytest.raises(TypeError, match="float32"):
+        call(tuple(a.double() for a in arrays))
+    strided = (arrays[0][::2],) + tuple(a[:32] for a in arrays[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(strided)
+    with pytest.raises(ValueError, match="one length"):
+        call(arrays[:1] + tuple(a[:32] for a in arrays[1:]))
+    with pytest.raises(ValueError, match="one length"):
+        call(tuple(a.reshape(8, 8) for a in arrays))
+
+
+def test_flat_slice_kernels_match_plain(dev):
+    """Two spin-up and two coalescing steps of the 8x8 case on the flat
+    engine through the public API, kernels against plain versions: kernel
+    F runs sstp_cond times a step and kernel A twice, and the fields, the
+    population and the draws agree."""
+    kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=3, sstp_coal=3,
+              n_sd_max=24 * 64, opts_init_kw={"kernel_parameters": [100.0]},
+              device=dev)
+    mk, mp = Kinematic2D(**kw), Kinematic2D(**kw)
+    before = {k.name: k.launches for k in _ext.KERNELS}
+    mk.run(4, spinup=2)
+    torch.cuda.synchronize()
+    assert _ext.COND_SD.launches == before["cond_sd"] + 4 * 3
+    assert _ext.MPDATA.launches == before["mpdata"] + 4 * 2
+    mp.run(4, spinup=2, plain=True)
+    assert _rel(mk.th, mp.th) <= 2e-6
+    assert _rel(mk.rv, mp.rv) <= 2e-5
+    sk, sp = mk.prtcls.state, mp.prtcls.state
+    assert torch.equal(sk.n, sp.n) and torch.equal(sk.ijk, sp.ijk)
+    assert _rel(sk.rw2[sk.n > 0], sp.rw2[sp.n > 0]) <= 1e-5

@@ -64,9 +64,9 @@ NT, SPINUP = 4, 2
 def port():
     m = Kinematic2D(terminal_velocity=vt_t.beard77, device="cpu",
                     dtype=torch.float64, **KW)
-    init = m.state
-    water0 = tdense.water_dry_totals(m.state, m.rv)
-    m.run_device_lgrngn(NT, spinup=SPINUP)
+    init = m.dense_state
+    water0 = tdense.water_dry_totals(m.dense_state, m.rv)
+    m.run_device_lgrngn(NT, spinup=SPINUP, engine="dense")
     return m, init, water0
 
 
@@ -148,7 +148,7 @@ def test_initial_population_matches_jax(port, jax_init):
 
 
 def _compare(port_model, d, th, rv, rtol_th, rtol_rv, rtol_m3):
-    s = port_model.state
+    s = port_model.dense_state
     np.testing.assert_allclose(port_model.th.numpy(), th, rtol=rtol_th)
     np.testing.assert_allclose(port_model.rv.numpy(), rv, rtol=rtol_rv)
     np.testing.assert_array_equal((s.n > 0).sum(1).numpy(),
@@ -174,7 +174,7 @@ def test_slice_matches_jax_with_kernel_vt(port, jax_loop):
 
 def _bench_checks(m, water0, dry0):
     """bench.py:45-96 on the port's final state."""
-    d, th, rv = m.state, m.th, m.rv
+    d, th, rv = m.dense_state, m.th, m.rv
     alive = d.n > 0
     assert torch.isfinite(th).all() and torch.isfinite(rv).all()
     assert ((th > 250) & (th < 350)).all() and ((rv > 0) & (rv < 0.03)).all()
@@ -206,11 +206,11 @@ def coal_port(request):
     m = Kinematic2D(terminal_velocity=vt_t.beard77, device="cpu",
                     dtype=torch.float64, coal_pairing=request.param,
                     **KW_COAL)
-    totals = tdense.water_dry_totals(m.state, m.rv)
+    totals = tdense.water_dry_totals(m.dense_state, m.rv)
     before = []
     for i in range(NT):
-        before.append(m.state)
-        m.run_device_lgrngn(1, spinup=int(i < SPINUP))
+        before.append(m.dense_state)
+        m.run_device_lgrngn(1, spinup=int(i < SPINUP), engine="dense")
     return m, before, totals
 
 
@@ -265,10 +265,10 @@ def test_coal_slice_matches_jax_on_port_draws(coal_port, coal_ref):
 def test_coal_slice_collides_and_passes_bench_physics_checks(coal_port):
     m, before, (water0, dry0) = coal_port
     # multiplicity lost in the main steps, less what fell into the puddle
-    lost = float(before[SPINUP].n.sum() - m.state.n.sum()
-                 - m.state.puddle[OUT_PRTCL_NUM])
+    lost = float(before[SPINUP].n.sum() - m.dense_state.n.sum()
+                 - m.dense_state.puddle[OUT_PRTCL_NUM])
     assert lost > 0.0
-    assert m.state.rng_step == NT - SPINUP
+    assert m.dense_state.rng_step == NT - SPINUP
     _bench_checks(m, water0, dry0)
 
 
@@ -307,13 +307,16 @@ def test_unported_paths_raise(what, port):
                          dtype=torch.float64,
                          opts_init_kw={"kernel": kernel_t.onishi_hall})
         with pytest.raises(NotImplementedError, match="onishi_hall"):
-            m2.run_device_lgrngn(2, spinup=1)
+            m2.run_device_lgrngn(2, spinup=1, engine="dense")
         return
     with pytest.raises(NotImplementedError):
         if what == "engine":
-            m.run_device_lgrngn(1, engine="flat")
+            # the flat engine runs (test_torch_flat_*.py), but not with
+            # exact per-particle substepping (ROADMAP.md, Queue 1 item 10)
+            Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
+                        opts_init_kw={"exact_sstp_cond": True})
         elif what == "repack":
-            m.run_device_lgrngn(1, repack_every=10)
+            m.run_device_lgrngn(1, repack_every=10, engine="dense")
         else:
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
                         **{what: "blk_1m" if what == "micro" else "node"})

@@ -111,3 +111,12 @@ def multiset(n, planes):
         + [np.asarray(p).reshape(-1)[alive] for p in planes]
     order = np.lexsort(cols[::-1])
     return np.stack([c[order] for c in cols], 1)
+
+
+def port_flat_state(jax_state, dtype=torch.float64):
+    """The port's flat State (CPU) for a JAX State; the draws start from
+    the config's seed (convert.state_from_numpy)."""
+    from libcloudphxx_tpu_torch.convert import state_from_numpy
+    arrays = {f.name: np.asarray(getattr(jax_state, f.name))
+              for f in dataclasses.fields(jax_state)}
+    return state_from_numpy(arrays, "cpu", dtype)
