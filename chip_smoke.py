@@ -21,11 +21,11 @@ checks them:
   7. the flat engine through the public API (factory -> init ->
      Kinematic2D.run(): step_sync / step_async): spin-up and coalescing
      steps, bench.py's physics checks read through get_attr and
-     diag_puddle, kernel F sstp_cond times a step and kernel A twice, kernel
-     F against its plain version on the cell-sorted SD arrays after the
-     spin-up (and at lengths 1 and 32,773), run_device_lgrngn(engine=
-     "flat") against the stepwise loop, the kernel path against the plain
-     path
+     diag_puddle, kernel F (the per-cell condensation substep loop) once a
+     step and kernel A twice, kernel F against its plain version on the
+     inputs a main step gives it (and with cell 0 holding 65,536 more dead
+     slots), run_device_lgrngn(engine="flat") against the stepwise loop,
+     the kernel path against the plain path
   8. timing: best of 3 from-init reps through the kernels and through the
      plain versions, with and without coalescence, on the dense engine;
      best of 3 from-init reps of the flat slice; each kernel against its
@@ -61,14 +61,26 @@ TIME_STEPS_NO_COAL = 20
 KERNEL_REPS = 20
 STANDALONE_CALLS = 3
 FLAT_TIME_STEPS = 20
+FLAT_DEAD_CELL0 = 65536     # dead slots added to cell 0 in F's second case
 
 # the card's peak rates (H100 SXM data sheet, at a 700 W power limit):
 # device memory bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
-# operations per element, counted from the device code (a transcendental
-# or a division counts as one): one drw2_dt evaluation, one root-find
-# iteration beside its evaluation, advance_rw2 outside both
-OPS_DRW2, OPS_ITER, OPS_ADVANCE = 94, 22, 25
+# operations per element, counted from the device code: one per add,
+# multiply, min/max, division, square root, exp or log (the library is
+# built with -fmad=false, so there is no multiply-add; the 67e12 rate
+# counts one as two), none per compare or select.  Condensation
+# (csrc/cond_cell.cuh): one drw2_dt evaluation (its cell terms apart, and
+# the Reynolds power that D's and K's Nusselt numbers share taken once);
+# one Anderson-Bjoerck iteration beside its evaluation; the root find's
+# other end and first point beside its evaluation; a live droplet's
+# substep outside these (the explicit step, the bracket and its test, the
+# new rw2, its d(rw^3) and weight); a cell's substep (the increments, the
+# closure, drw2_dt's cell terms, the butterfly, the latent heat's
+# feedback); the closure alone; a live droplet's set-up, once a call (the
+# dry radius' cube root and square, rd3 * (1 - kappa))
+OPS_DRW2, OPS_ITER, OPS_BRACKET, OPS_ADVANCE = 65, 19, 12, 24
+OPS_CELL_SUBSTEP, OPS_CLOSURE, OPS_DROP = 71, 32, 6
 # per live SD: vt_beard77; kernel C's advection, walls and classification
 # beside it; kernel D's nine-source merge; kernel E per substep (two
 # Philox draws, the pair math, the shuffle's compare-exchanges)
@@ -236,15 +248,17 @@ def bound(n_bytes, ops):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def rootfind_ops(dt, arrays, RH_max):
-    """The operations advance_rw2 does on these droplets: the full root
-    find where the bracket holds, the explicit step where it does not, one
-    evaluation for dead slots and droplets that do not grow.  Returns
-    (operations, bracketed droplets)."""
+def rootfind_ops(dt, arrays, RH_max, live):
+    """The operations one substep's growth needs on the ``live`` droplets of
+    these arrays: the explicit step, the bracket end the test needs, the
+    other end and the root-find iterations where the bracket holds; the
+    explicit step and the bracket test where it does not; one evaluation
+    for a droplet that does not grow; none for a dead slot.  Returns
+    (operations, bracketed droplets, live droplets)."""
     from libcloudphxx_tpu_torch.lgrngn import condensation as cnd
     rw2, rd3, *rest = arrays
     grow = lambda x: cnd.drw2_dt(x, rd3, *rest, RH_max)
-    alive = rw2 > 0
+    alive = live & (rw2 > 0)
     w = torch.where(alive, rw2, 1e-12)
     drw2 = dt * grow(w)
     rd2 = torch.exp(torch.log(rd3) / 3.0) ** 2
@@ -256,12 +270,12 @@ def rootfind_ops(dt, arrays, RH_max):
     act = alive & (drw2 != 0)
     brk = act & (fa * fb <= 0) & (a < b)
     iters = cnd._root_iters(rw2.dtype)
-    n_brk, n_act = int(brk.sum()), int(act.sum())
-    per = {"bracketed": (4 + iters) * OPS_DRW2 + iters * OPS_ITER,
-           "explicit": 2 * OPS_DRW2, "idle": OPS_DRW2}
+    n_brk, n_act, n_live = int(brk.sum()), int(act.sum()), int(live.sum())
+    per = {"bracketed": (3 + iters) * OPS_DRW2 + iters * OPS_ITER
+           + OPS_BRACKET, "explicit": 2 * OPS_DRW2, "idle": OPS_DRW2}
     ops = (n_brk * per["bracketed"] + (n_act - n_brk) * per["explicit"]
-           + (rw2.numel() - n_act) * per["idle"] + rw2.numel() * OPS_ADVANCE)
-    return ops, n_brk
+           + (n_live - n_act) * per["idle"] + n_live * OPS_ADVANCE)
+    return ops, n_brk, n_live
 
 
 def flat_totals(prtcls, rv, c):
@@ -304,17 +318,65 @@ def flat_physics_checks(model, water0, dry0, c):
     return dw, dd
 
 
-def flat_cond_arrays(cfg, st):
-    """The 12 arrays kernel F takes in a condensation substep of the flat
-    engine, from a State: the SDs sorted by cell, the cell values and the
-    mean free paths gathered to them (condensation._cond_percell_sorted)."""
-    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp
-    lam_D, lam_K = hskpng_mfp(st.T, st.p)
-    sijk, order = torch.sort(st.ijk, stable=True)
-    g = lambda a: a[sijk]
-    return (st.rw2[order], st.rd3[order], st.kpa[order], st.vt[order],
-            g(st.rhod), g(st.rv), g(st.T), g(st.p), g(st.RH), g(st.eta),
-            g(lam_D), g(lam_K))
+def capture(module, name, step):
+    """The arguments, by name, that the wrapper ``module.name`` takes on a
+    main path: ``step()`` runs a step with the wrapper wrapped to record
+    its last call."""
+    import inspect
+    real, seen = getattr(module, name), []
+
+    def spy(*args, **kw):
+        seen.append(inspect.signature(real).bind(*args, **kw).arguments)
+        return real(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        step()
+    finally:
+        setattr(module, name, real)
+    check(len(seen) > 0, f"a step did not call {name}")
+    return {k: v for k, v in seen[-1].items() if k != "plain"}
+
+
+def with_dead_cell0(kw, n_dead):
+    """Kernel F's arguments with ``n_dead`` dead slots (weight 0, keeping
+    the rw2 of the droplets they copy) added to cell 0 after its
+    droplets, as the flat engine parks dead slots there."""
+    at = int(kw["ends"][0]) + 1
+    src = torch.arange(n_dead, device=kw["rw2"].device) % kw["rw2"].numel()
+    out = dict(kw, ends=kw["ends"] + n_dead)
+    for k in ("sijk", "rw2", "rd3", "kpa", "vt", "wgt"):
+        fill = torch.zeros_like(kw[k][src]) if k in ("sijk", "wgt") \
+            else kw[k][src]
+        out[k] = torch.cat([kw[k][:at], fill, kw[k][at:]])
+    return out
+
+
+def flat_first_substep(cfg, kw):
+    """The per-droplet arrays of kernel F's first substep on its inputs
+    ``kw`` (cond_flat's arguments): the sorted SDs with the cell state
+    after the first increment gathered to them, as rootfind_ops takes
+    them."""
+    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_Tpr
+    sstp = kw["sstp"]
+    th = kw["th"] + kw["delta_th"] / sstp
+    rv = kw["rv"] + kw["delta_rv"] / sstp
+    rhod = kw["rhod"] + kw["delta_rh"] / sstp if kw["var_rho"] \
+        else kw["rhod"]
+    T, p, RH, eta = hskpng_Tpr(cfg, th, rv, rhod, kw["p"])
+    g = lambda a: a[kw["sijk"]]
+    return (kw["rw2"], kw["rd3"], kw["kpa"], kw["vt"], g(rhod), g(rv), g(T),
+            g(p), g(RH), g(eta), g(kw["lambda_D"]), g(kw["lambda_K"]))
+
+
+def segments(kw):
+    """(longest cell segment, most live droplets in a cell) of kernel F's
+    inputs."""
+    ends = kw["ends"]
+    seg = torch.diff(ends, prepend=ends.new_full((1,), -1))
+    live = torch.bincount(kw["sijk"][kw["wgt"] > 0],
+                          minlength=ends.numel())
+    return int(seg.max()), int(live.max())
 
 
 def main():
@@ -389,13 +451,21 @@ def main():
                  d0.sstp_tmp_rv, d0.rhod, d0.dv, lam_D, lam_K, d0.p)
     kb = step.cond(*cond_args)
     pb = step.cond(*cond_args, plain=True)
+    live_b = d0.n > 0
     rel_th, rel_rv = max_rel(kb[1], pb[1]), max_rel(kb[2], pb[2])
-    rel_rw2 = max_rel(kb[0][d0.n > 0], pb[0][d0.n > 0])
-    err["cond"] = max_abs(kb[0], pb[0])
+    rel_rw2 = max_rel(kb[0][live_b], pb[0][live_b])
+    err["cond"] = max(max_abs(kb[0][live_b], pb[0][live_b]),
+                      max_abs(kb[1], pb[1]), max_abs(kb[2], pb[2]))
+    same_cells = float(((kb[1] == pb[1]) & (kb[2] == pb[2])).double().mean())
+    same_sds = float((kb[0] == pb[0])[live_b].double().mean())
     print(f"B cond: th rel {rel_th:.2e}, rv rel {rel_rv:.2e}, rw2 rel "
-          f"{rel_rw2:.2e} (per lane)")
+          f"{rel_rw2:.2e} (live lanes); bitwise equal: {same_cells:.4f} of "
+          f"the cells (th and rv), {same_sds:.4f} of the droplets; dead "
+          f"lanes kept {bool(torch.equal(kb[0][~live_b], d0.rw2[~live_b]))}")
     check(rel_th <= 2e-6 and rel_rv <= 2e-5 and rel_rw2 <= 1e-5,
           "cond kernel disagrees with its plain version")
+    check(bool(torch.equal(kb[0][~live_b], d0.rw2[~live_b])),
+          "cond kernel changed a dead lane")
 
     # C+D: transport, walls, classification and merge; the cloudy state
     # after B, and a rain variant (mm drops in the lowest 20 m) that
@@ -540,6 +610,7 @@ def main():
     model_c.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP,
                               engine="dense")
     d_sp = model_c.dense_state
+    c_sp = (d_sp, model_c.th, model_c.rv)
     model_c.run_device_lgrngn(SLICE_MAIN, engine="dense")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -591,7 +662,7 @@ def main():
         prt.state, model_f.th, model_f.rv = init
 
     def flat_launches():
-        return {k.name: k.launches for k in (_ext.MPDATA, _ext.COND_SD)}
+        return {k.name: k.launches for k in (_ext.MPDATA, _ext.COND_FLAT)}
 
     reset(_ext.KERNELS)
     t0 = time.perf_counter()
@@ -611,37 +682,46 @@ def main():
           f"{dd:.2e}, SDs {int((st_end.n > 0).sum())}, multiplicity lost to "
           f"collisions {lost:.3e}, coalescence step counter "
           f"{st_end.rng_step}; launches {flat_main}", flush=True)
-    check(flat_main == {"mpdata": 2 * steps, "cond_sd": SSTP_COND * steps},
-          f"flat: kernel A twice and F sstp_cond times a step expected, "
-          f"got {flat_main}")
+    check(flat_main == {"mpdata": 2 * steps, "cond_flat": steps},
+          f"flat: kernel A twice and F once a step expected, got "
+          f"{flat_main}")
     check(lost > 0.0, "flat: no collision in the main steps")
     check(st_end.rng_step == SLICE_MAIN, "flat: coalescence did not run "
           "every main step")
 
-    # F against its plain version: the cell-sorted arrays after the
-    # spin-up, and lengths 1 and 32,773 with every seventh slot dead
-    f_args = flat_cond_arrays(prt.cfg, f_sp[0])
-    dt_sub = 1.0 / SSTP_COND
-    err["cond_sd"] = 0.0
-    cases = [("main", f_args)]
-    for n in (1, 32773):
-        sub = [a[:n].clone() for a in f_args]
-        sub[0][::7] = 0.0
-        cases.append((f"n={n}", tuple(sub)))
-    for label, args in cases:
-        k = cond_ops.advance_rw2(dt_sub, *args, 44.0)
-        pl = cond_ops.advance_rw2(dt_sub, *args, 44.0, plain=True)
-        live = args[0] > 0
-        rel = max_rel(k[live], pl[live]) if bool(live.any()) else 0.0
-        same = bool(torch.equal(k, pl))
-        err["cond_sd"] = max(err["cond_sd"], max_abs(k, pl))
-        print(f"F cond_sd {label}: {args[0].numel()} SDs, rw2 max rel "
-              f"{rel:.2e}, bitwise equal {same}, dead slots kept "
-              f"{bool(torch.equal(k[~live], args[0][~live]))}", flush=True)
-        # both run physics.cuh's advance_rw2 / its operation-for-operation
-        # plain version under -fmad=false: anything but bitwise is a fault
-        check(same, f"F {label}: kernel disagrees with its plain version "
-              f"(rw2 max rel {rel:.2e})")
+    # F against its plain version on what the first main step gives it,
+    # and with 65,536 more dead slots in cell 0
+    f_kw = capture(cond_ops, "cond_flat",
+                   lambda: (restore_flat(f_sp), model_f.run(1)))
+    f_dead = with_dead_cell0(f_kw, FLAT_DEAD_CELL0)
+    err["cond_flat"] = 0.0
+    for label, kw in (("main", f_kw), ("dead cell 0", f_dead)):
+        k = cond_ops.cond_flat(**kw)
+        pl = cond_ops.cond_flat(**kw, plain=True)
+        live = kw["wgt"] > 0
+        rel_w = max_rel(k[0][live], pl[0][live])
+        rel_th, rel_rv = max_rel(k[1], pl[1]), max_rel(k[2], pl[2])
+        rel_rh = max_rel(k[3], pl[3])
+        err["cond_flat"] = max(err["cond_flat"],
+                               max_abs(k[0][live], pl[0][live]),
+                               *(max_abs(a, b) for a, b in zip(k[1:], pl[1:])))
+        same_cells = float(((k[1] == pl[1]) & (k[2] == pl[2])).double()
+                           .mean())
+        same_sds = float((k[0] == pl[0])[live].double().mean())
+        kept = bool(torch.equal(k[0][~live], kw["rw2"][~live]))
+        longest, most = segments(kw)
+        print(f"F cond_flat {label}: {kw['rw2'].numel()} slots, "
+              f"{int(live.sum())} live, longest segment {longest} (cell 0: "
+              f"{int(kw['ends'][0]) + 1}), most live in a cell {most}; rw2 "
+              f"rel {rel_w:.2e}, th rel {rel_th:.2e}, rv rel {rel_rv:.2e}, "
+              f"rhod rel {rel_rh:.2e}; bitwise equal: {same_cells:.4f} of the "
+              f"cells (th and rv), {same_sds:.4f} of the droplets; dead "
+              f"slots kept {kept}", flush=True)
+        # the cell sums add in another order than the plain version's
+        # cumulative sum: B's tolerances
+        check(rel_th <= 2e-6 and rel_rv <= 2e-5 and rel_w <= 1e-5
+              and rel_rh <= 2e-6 and kept,
+              f"F {label}: kernel disagrees with its plain version")
 
     # run_device_lgrngn(engine="flat") from the post-spin-up state against
     # the stepwise public-API loop: the same draws, so the same numbers
@@ -737,13 +817,12 @@ def main():
         "merge": lambda plain: step.rebin_x(*merge_args, plain=plain),
         "coal": lambda plain: coal_call("stride", plain),
         "coal_standalone": lambda plain: coal_call("standalone", plain),
-        "cond_sd": lambda plain: cond_ops.advance_rw2(
-            dt_sub, *f_args, 44.0, plain=plain),
+        "cond_flat": lambda plain: cond_ops.cond_flat(**f_kw, plain=plain),
     }
     launches = dict(main_launches, coal_standalone=standalone,
-                    cond_sd=flat_main["cond_sd"])
+                    cond_flat=flat_main["cond_flat"])
     bounds = kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, (model.gc_x,
-                           model.gc_z, model.G), kc, f_args, dt_sub)
+                           model.gc_z, model.G), kc, prt.cfg, f_kw)
     rows = []
     for k in _ext.KERNELS:
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
@@ -757,6 +836,27 @@ def main():
                      "max_abs_err": err[k.name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
+    ms_dead = time_cuda(lambda: cond_ops.cond_flat(**f_dead), KERNEL_REPS)
+    print(f"kernel cond_flat with {FLAT_DEAD_CELL0} more dead slots in cell "
+          f"0: {ms_dead:.4f} ms ({card})")
+
+    # B on what a main step after the spin-up gives it (rows of unequal
+    # occupancy), against its plain version
+    def set_dense(s):
+        model_c.dense_state, model_c.th, model_c.rv = s
+
+    b_kw = capture(step, "cond", lambda: (
+        set_dense(c_sp), model_c.run_device_lgrngn(1, engine="dense")))
+    set_dense((dc0, thc0, rvc0))
+    k, pl = step.cond(**b_kw), step.cond(**b_kw, plain=True)
+    live = b_kw["n"] > 0
+    rel = (max_rel(k[1], pl[1]), max_rel(k[2], pl[2]),
+           max_rel(k[0][live], pl[0][live]))
+    print(f"B cond in a main step: live droplets a row {int(live.sum(1).min())}"
+          f"-{int(live.sum(1).max())}; th rel {rel[0]:.2e}, rv rel "
+          f"{rel[1]:.2e}, rw2 rel {rel[2]:.2e}; {time_cuda(lambda: step.cond(**b_kw), KERNEL_REPS):.4f} ms ({card})")
+    check(rel[0] <= 2e-6 and rel[1] <= 2e-5 and rel[2] <= 1e-5,
+          "cond kernel disagrees with its plain version in a main step")
 
     if opts.profile:
         profile_both(model_c, (dc0, thc0, rvc0), model_f, f_init, card)
@@ -768,12 +868,13 @@ def main():
     return 0
 
 
-def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_args, dt_sub):
+def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw):
     """{kernel: (bound_ms, bound_by)} from the inputs each kernel takes in
     this run: every input read once and every output written once at the
     memory rate, against the operations these inputs need at the float32
-    rate.  B's root-find work is counted on its first substep's data and
-    taken sstp_cond times."""
+    rate.  B's and F's growth work is counted on their first substep's data
+    and taken sstp_cond times, beside each cell's substeps and each live
+    droplet's set-up."""
     from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp, hskpng_Tpr
     from libcloudphxx_tpu_torch.lgrngn.vterm import vt_in_kernel
     n_cell = d0.n.shape[0]
@@ -785,8 +886,8 @@ def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_args, dt_sub):
     out["mpdata"] = bound(
         nbytes(th0, rv0, *mp) + nbytes(th0, rv0),
         2 * n_cell * (OPS_DONOR + OPS_ANTIDIFF + OPS_DONOR))
-    # B: four planes and nine cell fields in, one plane and six cell
-    # fields out
+    # B: four planes, nine cell fields and the row order in, one plane and
+    # six cell fields out
     col = lambda a: a[:, None].expand(-1, d0.cap).reshape(-1)
     T0, p0, _, eta0 = hskpng_Tpr(cfg, d0.sstp_tmp_th, d0.sstp_tmp_rv,
                                  d0.rhod, d0.p)
@@ -799,8 +900,14 @@ def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_args, dt_sub):
     arrays = (d0.rw2.reshape(-1), d0.rd3.reshape(-1), d0.kpa.reshape(-1),
               vt.reshape(-1), col(d0.rhod), col(rv1), col(T1), col(p1),
               col(RH1), col(eta1), col(lam_D), col(lam_K))
-    ops_b = SSTP_COND * rootfind_ops(1.0 / SSTP_COND, arrays, 44.0)[0]
-    out["cond"] = bound(5 * plane + 15 * cell, ops_b + live0 * OPS_VT)
+    ops_b, brk, live = rootfind_ops(1.0 / SSTP_COND, arrays, 44.0,
+                                    (d0.n > 0).reshape(-1))
+    print(f"B cond: {brk / live:.4f} of the {live} live droplets bracketed "
+          f"in the first substep")
+    out["cond"] = bound(
+        5 * plane + 16 * cell,
+        SSTP_COND * ops_b + live0 * (OPS_DROP + OPS_VT) + d0.n.numel()
+        + n_cell * (SSTP_COND * OPS_CELL_SUBSTEP + 2 * OPS_CLOSURE))
     # C: five planes and eight cell fields in; n, x, z, vt, the targets
     # and the (n_cell, 8) row info out
     out["transport"] = bound(
@@ -815,9 +922,19 @@ def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_args, dt_sub):
     out["coal"] = bound(12 * plane + 5 * cell + n_cell, ops_e)
     out["coal_standalone"] = bound(13 * plane + 5 * cell + n_cell,
                                    ops_e + live_s * SSTP_COAL * OPS_VT)
-    # F: twelve arrays in, one out
-    out["cond_sd"] = bound(nbytes(*f_args) + nbytes(f_args[0]),
-                           rootfind_ops(dt_sub, f_args, 44.0)[0])
+    # F: five SD arrays, the cell ends, ten cell fields and the cell order
+    # in; rw2 and three cell fields out
+    ops_f, brk, live = rootfind_ops(
+        f_kw["dt_sub"], flat_first_substep(f_cfg, f_kw), f_kw["RH_max"],
+        f_kw["wgt"] > 0)
+    print(f"F cond_flat: {brk / live:.4f} of the {live} live droplets "
+          f"bracketed in the first substep")
+    sd = [f_kw[k] for k in ("rw2", "rd3", "kpa", "vt", "wgt")]
+    n_f = f_kw["th"].numel()
+    out["cond_flat"] = bound(
+        nbytes(*sd, f_kw["ends"], f_kw["rw2"]) + 14 * nbytes(f_kw["th"]),
+        f_kw["sstp"] * ops_f + live * OPS_DROP
+        + n_f * (f_kw["sstp"] * OPS_CELL_SUBSTEP + OPS_CLOSURE))
     return out
 
 
@@ -846,7 +963,8 @@ def profile(label, start, run, card, steps=20):
     busy = sum(r[1] for r in rows)
     print(f"profile {label}: {steps} coalescing steps, wall {wall:.3f} "
           f"ms/step unprofiled, device busy {busy:.3f} ms/step, busy share "
-          f"{busy / wall:.3f} ({card})")
+          f"{busy / wall:.3f}, device launches {sum(r[2] for r in rows):.1f}"
+          f"/step ({card})")
     for name, ms, count in rows[:14]:
         print(f"  {ms:8.4f} ms/step  {count:6.1f}/step  {name[:70]}")
 
@@ -866,7 +984,13 @@ def profile_both(model_c, dense_init, model_f, flat_init, card, warm=5):
     profile("dense", dense_start,
             lambda n: model_c.run_device_lgrngn(n, engine="dense"), card)
     model_c.dense_state, model_c.th, model_c.rv = dense_init
+    profile_flat(model_f, flat_init, card, warm)
 
+
+def profile_flat(model_f, flat_init, card, warm=5):
+    """profile() of the flat engine's coalescing steps through the public
+    API (Kinematic2D.run), after the spin-up and ``warm`` steps; the model
+    is put back at its initial state."""
     prt = model_f.prtcls
     prt.state, model_f.th, model_f.rv = flat_init
     model_f.run(SLICE_SPINUP + warm, spinup=SLICE_SPINUP)

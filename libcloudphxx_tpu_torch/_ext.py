@@ -29,7 +29,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
 _U = ctypes.c_uint32
 _D = ctypes.c_double
 
@@ -67,9 +66,11 @@ MPDATA = Kernel(
     "mpdata", "lcp_mpdata", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
     "libcloudphxx_tpu_torch/csrc/mpdata.cu",
     "libcloudphxx_tpu/models/mpdata.py:256 (advect2; advect :226)")
+# planes in (4), cells, rw2 out, cells out, scratch (positions, floats),
+# row order; n_cell, cap, sstp; dt_sub, RH_max; th_dry, const_p, RH
+# formula, iterations
 COND = Kernel(
-    "cond", "lcp_cond",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _I, _I, _I, _I],
+    "cond", "lcp_cond", [_P] * 10 + [_I, _I, _I, _D, _D] + [_I] * 4,
     "libcloudphxx_tpu_torch/csrc/cond.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, cond phase :191-231)")
 TRANSPORT = Kernel(
@@ -95,13 +96,16 @@ COAL_STANDALONE = Kernel(
     [_P] * 8 + [_P] * 7 + _COAL_TAIL,
     "libcloudphxx_tpu_torch/csrc/coal.cu",
     "libcloudphxx_tpu/ops/pallas_coal.py:99 (_kernel)")
-# 12 input arrays, the output; n, dt, RH_max, root-find iterations
-COND_SD = Kernel(
-    "cond_sd", "lcp_cond_sd", [_P] * 13 + [_L, _D, _D, _I],
-    "libcloudphxx_tpu_torch/csrc/cond_sd.cu",
+# SD arrays in (5), ends, cells, rw2 out, cells out, scratch (positions,
+# floats), cell order; n_cell, n_sd, sstp; dt_sub, RH_max; th_dry,
+# const_p, RH formula, var_rho, iterations
+COND_FLAT = Kernel(
+    "cond_flat", "lcp_cond_flat", [_P] * 12 + [_I, _I, _I, _D, _D] + [_I] * 5,
+    "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
     "libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
-    ":46)")
-KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE, COND_SD)
+    ":46, with the host substep loop of lgrngn/condensation.py:312-388)")
+KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
+           COND_FLAT)
 
 _lib = None
 
@@ -189,6 +193,23 @@ def use_plain(name, t, plain):
     if t.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {t.device}")
     return False
+
+
+def longest_first(counts):
+    """The cells in descending order of their droplets ``counts`` (int32,
+    ties in cell order): the order in which the condensation kernels (B,
+    F) hand cells to warps, so that the longest cells start first and the
+    shortest fill the end."""
+    return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
+
+
+def cond_scratch(n_slots, device):
+    """The per-slot scratch of the condensation kernels (B, F): each
+    cell's live droplets, compacted, as int32 positions and six float32
+    rows (rw2, rd3, rd3 * (1 - kappa), rd^2, vt, the weight's
+    numerator)."""
+    return (torch.empty(n_slots, dtype=torch.int32, device=device),
+            torch.empty((6, n_slots), dtype=torch.float32, device=device))
 
 
 def check_planes(name, cap, *planes):

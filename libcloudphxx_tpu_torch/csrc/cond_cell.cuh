@@ -1,0 +1,355 @@
+// The condensation substep loop of one cell, run by one warp: the device
+// routine of kernel B (cond.cu, the dense (n_cell, cap) rows) and kernel F
+// (cond_flat.cu, the flat engine's cell-sorted segments).
+//
+// Per substep the cell's th/rv (and rhod) take their increment, the
+// closure gives T, p, RH and eta, every live droplet of the cell takes one
+// backward-Euler step of rw^2, and the latent heat of the cell's droplets
+// feeds th and rv of the next substep.  Plain versions: ops/step.py
+// cond_plain and ops/cond.py cond_flat_plain, both over
+// lgrngn/condensation.py drw2_dt and _advance_rw2_core.
+//
+// How the work is laid out:
+//   - a warp owns a cell for the whole substep loop; nothing is shared
+//     between warps, so the loop has no block barrier; a block is
+//     kCondWarps warps; the kernels hand the cells to the warps longest
+//     first (the wrappers' cell order), so that the cells with the longest
+//     serial work do not start last;
+//   - before the first substep the warp ranks the cell's live droplets
+//     (weight > 0, i.e. n > 0) by ballot, wherever they sit in the
+//     segment, and writes their positions to the front of the segment's
+//     span of a per-slot scratch; dead slots are copied through untouched
+//     and cost no growth-rate evaluation; then each lane writes beside
+//     the positions of its droplets what their growth takes from them
+//     alone (the dry radius' square, rd3 * (1 - kappa), vt, the weight's
+//     numerator), once a call (in a pass of its own: inlined into the
+//     unrolled scan it raised the kernels' registers from 66-70 to 80-86
+//     and slowed B by a tenth);
+//   - lane j takes the live droplets j, j+32, ... of the scratch, one at a
+//     time (one slot a lane); a cell of up to 32 live droplets keeps them
+//     in registers across all substeps, a longer one goes through them 32
+//     at a time, its rw^2 held in the scratch between substeps;
+//   - each growth-rate evaluation of the substep (the explicit step, the
+//     bracket ends, each Anderson-Bjoerck iteration) is a stage of one loop
+//     with one inlined drw2_dt; a warp runs the root-find stages only where
+//     a droplet of its 32 is bracketed, and a droplet without a bracket
+//     evaluates at its own rw2 meanwhile, so that no lane feeds a zero, an
+//     infinity or a NaN to an IEEE division or square root (their slow
+//     path would hold the warp);
+//   - the cell sum of the latent heat is a fixed __shfl_xor_sync butterfly
+//     in double, the same in every lane and from run to run.
+// The kernels are bound by instruction issue: 14 IEEE divisions, 9
+// exp/log and a square root an evaluation, up to 15 evaluations a droplet
+// and substep.  More slots a lane (independent chains interleaved) and
+// more warps an SM (a lower register cap) gained nothing on the card; one
+// slot a lane, which lets a warp skip the root find for 32 droplets at a
+// time, was the fastest (PERF.md section 6).
+//
+// Every droplet's arithmetic is that of _advance_rw2_core operation for
+// operation (the library is built with -fmad=false): rw^2 is bitwise the
+// plain version's wherever the cell's th/rv are.  What is evaluated once
+// instead of repeatedly gives the same values: the dry radius' cube root,
+// rd3 * (1 - kappa) and vt once a droplet and step, the cell's terms of
+// drw2_dt once a substep, and of the two bracket ends the root find
+// evaluates first, the one the bracket test already evaluated.  The cell
+// sums add in another order than the plain versions' (torch.sum over a
+// row; a cumulative sum differenced at the cell ends), so th/rv may
+// differ in the last bit.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "physics.cuh"
+
+namespace lcp {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kCondWarps = 8;  // cells a block
+
+// What drw2_dt (lgrngn/condensation.py) takes from the cell in a substep,
+// with the terms that depend on the cell alone evaluated once.
+struct CellGrowth {
+  float rhod, eta, T, lam_D, lam_K;
+  float Sc, Pr, RH, A, l_v, rho_v, lv_term;
+};
+
+__device__ __forceinline__ CellGrowth cell_growth(const Closure& c, float rhod,
+                                                  float rv, float lam_D,
+                                                  float lam_K, float RH_max) {
+  CellGrowth g;
+  g.rhod = rhod;
+  g.eta = c.eta;
+  g.T = c.T;
+  g.lam_D = lam_D;
+  g.lam_K = lam_K;
+  g.Sc = div_s(c.eta / rhod, D_0);
+  g.Pr = div_s(F(c_pd) * c.eta, K_0);
+  g.RH = fminf(c.RH, RH_max);
+  const float sg = F(0.07275) * (1.0f - F(0.002) * (c.T - 291.0f));
+  g.A = div_s(div_s(2.0f * sg, R_v) / c.T, rho_w);
+  g.l_v = F(c_pv - c_pw) * (c.T - F(T_tri)) + F(l_tri);
+  g.rho_v = rhod * rv;
+  g.lv_term = div_s(g.l_v, R_v) / c.T - 1.0f;
+  return g;
+}
+
+__device__ __forceinline__ float fs_beta(float Kn) {
+  return (1.0f + Kn) / (1.0f + F(1.71) * Kn + F(1.33) * Kn * Kn);
+}
+
+__device__ __forceinline__ float nusselt(float Pr, float Re) {
+  const float cb = expf(div_s(logf(1.0f + Re * Pr), 3.0));
+  const float pw = expf(logf(Re) * F(0.077));
+  return 1.0f + cb * fmaxf(pw, 1.0f);
+}
+
+// lgrngn/condensation.py drw2_dt for a droplet of dry volume rd3, with
+// rd3k = rd3 * (1 - kappa), and terminal velocity vt
+__device__ __forceinline__ float drw2_dt(float rw2, float rd3, float rd3k,
+                                         float vt, const CellGrowth& g) {
+  const float rw = sqrtf(rw2);
+  const float rw3 = rw2 * rw;
+  const float Re = vt * (2.0f * rw) * g.rhod / g.eta;
+  const float D = F(D_0) * fs_beta(g.lam_D / rw) * (nusselt(g.Sc, Re) * 0.5f);
+  const float K = F(K_0) * fs_beta(g.lam_K / rw) * (nusselt(g.Pr, Re) * 0.5f);
+  const float a_w = (rw3 - rd3) / (rw3 - rd3k);
+  const float klv = expf(g.A / rw);
+  const float num = div_s(1.0f - a_w * klv / g.RH, rho_w);
+  const float den = rdiv_s(1.0, D) / g.rho_v
+                    + g.l_v / K / g.RH / g.T * g.lv_term;
+  return 2.0f * (num / den);
+}
+
+// A live droplet as its growth takes it: rw2, rd3, rd3 * (1 - kappa), the
+// dry radius squared, vt, the weight's numerator; and its slot
+struct CondDrop {
+  float rw2, rd3, rd3k, rd2, vt, wnum;
+  int pos;
+};
+
+__device__ __forceinline__ CondDrop make_drop(long long pos, float rw2,
+                                              float rd3, float kpa, float vt,
+                                              float wnum) {
+  const float rd = expf(div_s(logf(rd3), 3.0));
+  return CondDrop{rw2, rd3, rd3 * (1.0f - kpa), rd * rd, vt, wnum,
+                  static_cast<int>(pos)};
+}
+
+// The per-slot scratch: a cell's live droplets, in rank order at the front
+// of its segment's span, each array of one element a slot
+struct Compact {
+  int* pos;
+  float *rw2, *rd3, *rd3k, *rd2, *vt, *wnum;
+  __device__ __forceinline__ void put(long long i,
+                                      const CondDrop& d) const {
+    pos[i] = d.pos;
+    rw2[i] = d.rw2;
+    rd3[i] = d.rd3;
+    rd3k[i] = d.rd3k;
+    rd2[i] = d.rd2;
+    vt[i] = d.vt;
+    wnum[i] = d.wnum;
+  }
+  __device__ __forceinline__ CondDrop get(long long i) const {
+    return CondDrop{rw2[i], rd3[i], rd3k[i], rd2[i],
+                    vt[i], wnum[i], pos[i]};
+  }
+};
+
+struct CondOpts {
+  int sstp;
+  float dt, RH_max;
+  int th_dry, const_p, rh_formula, var_rho, iters;
+};
+
+// The cell's inputs: the increments of one substep, th/rv/rhod where the
+// substep loop starts, and what stays fixed over it.
+struct CellIn {
+  float dth, drv, drh, th, rv, rhod, p0, dv, lam_D, lam_K;
+};
+
+// The Anderson-Bjoerck point of a bracket: the secant's root where it lies
+// inside, else the midpoint (ops/rootfind.py solve_bracketed, which also
+// divides by 1 where the denominator is 0: a division by 0 would take the
+// IEEE division's slow path, for the whole warp)
+__device__ __forceinline__ float ab_point(float a, float b, float fa,
+                                          float fb) {
+  const float denom = fb - fa;
+  const float mid = 0.5f * (a + b);
+  const float q = (a * fb - b * fa) / (denom == 0.0f ? 1.0f : denom);
+  const float sec = denom != 0.0f ? q : mid;
+  const float lo = fminf(a, b), hi = fmaxf(a, b);
+  return (sec > lo && sec < hi) ? sec : mid;
+}
+
+// One backward-Euler substep of the lane's droplet (``on`` where it holds
+// one): ops/rootfind.py solve_bracketed inside lgrngn/condensation.py
+// _advance_rw2_core.  Every growth-rate evaluation of a substep is one
+// stage of one loop, with one drw2_dt: stage 0 the explicit step at rw2, 1
+// the bracket end the bracket test needs, and, once a bracket holds
+// anywhere in the warp, 2 the other end and 3 ... the root-find
+// iterations.  Returns the lane's part of the cell sum of weight *
+// d(rw^3).
+__device__ __forceinline__ double advance(CondDrop& d, bool on,
+                                          const CellGrowth& g,
+                                          const CondOpts& o, float wden) {
+  const float dt = o.dt;
+  const float w = d.rw2;
+  float x = w, drw2 = 0.0f, a = 0.0f, b = 0.0f, fa = 0.0f, fb = 0.0f;
+  bool act = false, brk = false;
+  int stages = 2;
+#pragma unroll 1
+  for (int s = 0; s < stages; ++s) {
+    const float r = drw2_dt(x, d.rd3, d.rd3k, d.vt, g);
+    if (s == 0) {
+      // the explicit growth rate at rw2 itself (a droplet with rw2 <= 0
+      // keeps it, so _advance_rw2_core's rw2_safe for it is never needed),
+      // and the bracket from the cond_mlt-scaled explicit step
+      drw2 = dt * r;
+      act = on && w > 0.0f && drw2 != 0.0f;
+      a = fmaxf(d.rd2, w + fminf(F(COND_MLT) * drw2, 0.0f));
+      b = w + fmaxf(F(COND_MLT) * drw2, 0.0f);
+      x = drw2 > 0.0f ? b : a;
+      continue;
+    }
+    const float f = w + dt * r - x;
+    const bool up = drw2 > 0.0f;
+    if (s == 1) {
+      // the bracket test, with f(rw2) == drw2 at the other end
+      fa = up ? drw2 : f;
+      fb = up ? f : drw2;
+      brk = act && fa * fb <= 0.0f && a < b;
+      x = up ? a : b;
+      if (__any_sync(kFullMask, brk)) stages = 3 + o.iters;
+    } else if (s == 2) {
+      // solve_bracketed's f at both ends: this one, and the one the
+      // bracket test evaluated
+      const float ftest = up ? fb : fa;
+      fa = up ? f : ftest;
+      fb = up ? ftest : f;
+      // a droplet without a bracket evaluates at its own rw2 from here
+      // on, where the growth rate is finite, and its result is not used
+      x = brk ? ab_point(a, b, fa, fb) : w;
+    } else if (brk) {
+      // an Anderson-Bjoerck iteration at x
+      const bool left = fa * f <= 0.0f;
+      float m_l = 1.0f - f / (fb == 0.0f ? 1.0f : fb);
+      float m_r = 1.0f - f / (fa == 0.0f ? 1.0f : fa);
+      m_l = m_l > 0.0f ? m_l : 0.5f;
+      m_r = m_r > 0.0f ? m_r : 0.5f;
+      const float na = left ? a : x;
+      const float nfa = left ? fa * m_l : f;
+      const float nb = left ? x : b;
+      const float nfb = left ? f : fb * m_r;
+      a = f == 0.0f ? x : na;
+      b = f == 0.0f ? x : nb;
+      fa = nfa;
+      fb = nfb;
+      x = ab_point(a, b, fa, fb);
+    }
+  }
+  const float root = fabsf(fa) < fabsf(fb) ? a : b;
+  float nw = brk ? root : w + drw2;
+  nw = act ? fmaxf(nw, d.rd2) : w;
+  const float drw3 = nw * sqrtf(nw) - w * sqrtf(fmaxf(w, 0.0f));
+  d.rw2 = nw;
+  return on ? static_cast<double>((d.wnum / wden) * drw3) : 0.0;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
+}
+
+struct CellOut {
+  float th, rv, rhod;
+  Closure c;
+};
+
+// The substep loop of the cell whose droplets sit at positions [begin,
+// end) of the SD arrays.  ``Src`` reads a droplet: wnum(pos), the
+// numerator of its weight (n * 4/3 pi rho_w; it is live where wnum > 0),
+// and drop(pos, rw2, wnum), the CondDrop of a live one; its weight in the
+// cell sum is wnum / (dv * rhod).  ``cs`` is the per-slot scratch.  Every lane
+// returns the cell's end state.
+template <class Src>
+__device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
+                                             long long end, const CellIn& in,
+                                             const CondOpts& o,
+                                             const float* __restrict__ rw2,
+                                             float* __restrict__ rw2_out,
+                                             const Compact& cs) {
+  constexpr int kScan = 8;  // windows of 32 slots a scan step reads at once
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  // rank the live droplets into the scratch; copy the dead slots through
+  int nlive = 0;
+  for (long long w = begin; w < end; w += 32 * kScan) {
+    float wn[kScan], r2[kScan];
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      const long long pos = w + u * 32 + lane;
+      wn[u] = pos < end ? src.wnum(pos) : 0.0f;
+      r2[u] = pos < end ? rw2[pos] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      const long long pos = w + u * 32 + lane;
+      const bool live = wn[u] > 0.0f;
+      const unsigned m = __ballot_sync(kFullMask, live);
+      if (live)
+        cs.pos[begin + nlive + __popc(m & below)] = static_cast<int>(pos);
+      else if (pos < end)
+        rw2_out[pos] = r2[u];
+      nlive += __popc(m);
+    }
+  }
+  __syncwarp();
+  // each live droplet's set-up, once: lane j takes the droplets it will
+  // advance, j, j+32, ...
+  for (int i = lane; i < nlive; i += 32) {
+    const int pos = cs.pos[begin + i];
+    cs.put(begin + i, src.drop(pos, rw2[pos], src.wnum(pos)));
+  }
+  __syncwarp();
+
+  const int n_chunk = (nlive + 31) >> 5;
+  const bool resident = n_chunk <= 1;
+  CondDrop d;
+  float th = in.th, rv = in.rv, rhod = in.rhod;
+  for (int s = 0; s < o.sstp; ++s) {
+    th = th + in.dth;
+    rv = rv + in.drv;
+    if (o.var_rho) rhod = rhod + in.drh;
+    const Closure c =
+        closure(o.th_dry, o.const_p, o.rh_formula, th, rv, rhod, in.p0);
+    const CellGrowth g = cell_growth(c, rhod, rv, in.lam_D, in.lam_K, o.RH_max);
+    const float wden = in.dv * rhod;
+    const bool last = s == o.sstp - 1;
+    double part = 0.0;
+    for (int ch = 0; ch < n_chunk; ++ch) {
+      // lanes past the last droplet take its values, masked, so that no
+      // lane computes on garbage
+      const int i = ch * 32 + lane;
+      const bool on = i < nlive;
+      if (!resident || s == 0) d = cs.get(begin + min(i, nlive - 1));
+      part += advance(d, on, g, o, wden);
+      if (on && last) rw2_out[d.pos] = d.rw2;
+      else if (on && !resident) cs.rw2[begin + i] = d.rw2;
+    }
+    const float dcell = -static_cast<float>(warp_sum(part));
+    const float th_new = th + dcell * d_th_d_rv(c.T, th);
+    rv = rv + dcell;
+    th = th_new;
+  }
+  CellOut out;
+  out.th = th;
+  out.rv = rv;
+  out.rhod = rhod;
+  out.c = closure(o.th_dry, o.const_p, o.rh_formula, th, rv, rhod, in.p0);
+  return out;
+}
+
+}  // namespace lcp

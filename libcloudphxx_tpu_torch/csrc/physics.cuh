@@ -1,15 +1,13 @@
-// Device functions shared by the step kernels (cond.cu, cond_sd.cu,
+// Device functions shared by the step kernels (cond.cu, cond_flat.cu,
 // transport.cu, coal.cu): the per-cell closure, the beard77 terminal
-// velocity, the collision kernels, the Shima collision, drw2_dt and the per-droplet
-// backward-Euler root find.  Each follows its plain PyTorch version
-// operation for operation:
+// velocity, the collision kernels, the Shima collision and the block sum
+// (the condensation's per-droplet growth and root find are in
+// cond_cell.cuh).  Each follows its plain PyTorch version operation for
+// operation:
 //   closure        lgrngn/hskpng.py hskpng_Tpr
 //   vt_beard77     lgrngn/vterm.py vt_in_kernel
 //   kernel_value   lgrngn/coalescence.py kernel_value
 //   shima          lgrngn/coalescence.py shima
-//   drw2_dt        lgrngn/condensation.py drw2_dt
-//   advance_rw2    lgrngn/condensation.py _advance_rw2_core
-//   solve_bracketed ops/rootfind.py solve_bracketed
 // The library is built with -fmad=false, so no multiply-add is contracted
 // that the plain version rounds twice.  Where PyTorch on the card divides a
 // tensor by a Python number it multiplies by the float reciprocal, and it
@@ -276,100 +274,6 @@ __device__ __forceinline__ Collision shima(const CollisionKernel& k,
                 / s.rd3_small_new
           : small.kpa;
   return s;
-}
-
-// Per-droplet inputs of the growth rate that stay fixed over a substep.
-struct Growth {
-  float rd3, kpa, vt;            // droplet
-  float rhod, rv, T, p, RH, eta;  // cell
-  float lam_D, lam_K, RH_max;
-};
-
-// lgrngn/condensation.py drw2_dt
-__device__ __forceinline__ float fs_beta(float Kn) {
-  return (1.0f + Kn) / (1.0f + F(1.71) * Kn + F(1.33) * Kn * Kn);
-}
-
-__device__ __forceinline__ float nusselt(float Pr, float Re) {
-  float cb = expf(div_s(logf(1.0f + Re * Pr), 3.0));
-  float pw = expf(logf(Re) * F(0.077));
-  return 1.0f + cb * fmaxf(pw, 1.0f);
-}
-
-__device__ __forceinline__ float drw2_dt(float rw2, const Growth& g) {
-  float rw = sqrtf(rw2);
-  float rw3 = rw2 * rw;
-  float Re = g.vt * (2.0f * rw) * g.rhod / g.eta;
-  float Sc = div_s(g.eta / g.rhod, D_0);
-  float Pr = div_s(F(c_pd) * g.eta, K_0);
-  float D = F(D_0) * fs_beta(g.lam_D / rw) * (nusselt(Sc, Re) * 0.5f);
-  float K = F(K_0) * fs_beta(g.lam_K / rw) * (nusselt(Pr, Re) * 0.5f);
-  float RH = fminf(g.RH, g.RH_max);
-  float a_w = (rw3 - g.rd3) / (rw3 - g.rd3 * (1.0f - g.kpa));
-  float sg = F(0.07275) * (1.0f - F(0.002) * (g.T - 291.0f));
-  float A = div_s(div_s(2.0f * sg, R_v) / g.T, rho_w);
-  float klv = expf(A / rw);
-  float l_v = F(c_pv - c_pw) * (g.T - F(T_tri)) + F(l_tri);
-  float rho_v = g.rhod * g.rv;
-  float num = div_s(1.0f - a_w * klv / RH, rho_w);
-  float den = rdiv_s(1.0, D) / rho_v
-              + l_v / K / RH / g.T * (div_s(l_v, R_v) / g.T - 1.0f);
-  return 2.0f * (num / den);
-}
-
-__device__ __forceinline__ float minfun(float x, float rw2_safe, float dt,
-                                        const Growth& g) {
-  return rw2_safe + dt * drw2_dt(x, g) - x;
-}
-
-// ops/rootfind.py solve_bracketed: fixed-iteration Anderson-Bjoerck
-__device__ inline float solve_bracketed(float a, float b, float rw2_safe, float dt,
-                                 const Growth& g, int iters) {
-  float fa = minfun(a, rw2_safe, dt, g);
-  float fb = minfun(b, rw2_safe, dt, g);
-  for (int it = 0; it < iters; ++it) {
-    float denom = fb - fa;
-    float mid = 0.5f * (a + b);
-    float sec = denom != 0.0f ? (a * fb - b * fa) / denom : mid;
-    float lo = fminf(a, b), hi = fmaxf(a, b);
-    float x = (sec > lo && sec < hi) ? sec : mid;
-    float fx = minfun(x, rw2_safe, dt, g);
-    bool left = fa * fx <= 0.0f;
-    float m_l = 1.0f - fx / (fb == 0.0f ? 1.0f : fb);
-    float m_r = 1.0f - fx / (fa == 0.0f ? 1.0f : fa);
-    m_l = m_l > 0.0f ? m_l : 0.5f;
-    m_r = m_r > 0.0f ? m_r : 0.5f;
-    float na = left ? a : x;
-    float nfa = left ? fa * m_l : fx;
-    float nb = left ? x : b;
-    float nfb = left ? fx : fb * m_r;
-    a = fx == 0.0f ? x : na;
-    b = fx == 0.0f ? x : nb;
-    fa = nfa;
-    fb = nfb;
-  }
-  return fabsf(fa) < fabsf(fb) ? a : b;
-}
-
-// lgrngn/condensation.py _advance_rw2_core for one droplet.  The plain
-// version runs the root find on every element and selects; here it runs
-// only where the bracket holds, which selects the same value.
-__device__ inline float advance_rw2(float dt, float rw2_old, const Growth& g,
-                             int iters) {
-  bool alive = rw2_old > 0.0f;
-  float rw2_safe = alive ? rw2_old : powf(g.rd3, F(2.0 / 3));
-  float drw2 = dt * drw2_dt(rw2_safe, g);
-  float rd = expf(div_s(logf(g.rd3), 3.0));
-  float rd2 = rd * rd;
-  if (!(alive && drw2 != 0.0f)) return rw2_old;
-  float a = fmaxf(rd2, rw2_safe + fminf(F(COND_MLT) * drw2, 0.0f));
-  float b = rw2_safe + fmaxf(F(COND_MLT) * drw2, 0.0f);
-  float fa = drw2 > 0.0f ? drw2 : minfun(a, rw2_safe, dt, g);
-  float fb = drw2 > 0.0f ? minfun(b, rw2_safe, dt, g) : drw2;
-  bool bracketed = (fa * fb <= 0.0f) && (a < b);
-  float rw2_new = bracketed ? solve_bracketed(a, b, rw2_safe, dt, g, iters)
-                            : rw2_safe + drw2;
-  return fmaxf(rw2_new, rd2);
 }
 
 // Sum over the block, the same on every thread; a fixed shuffle tree and a

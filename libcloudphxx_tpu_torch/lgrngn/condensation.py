@@ -4,9 +4,9 @@ src/impl/condensation/common/particles_impl_cond_common.ipp and the
 percell substepping, particles_impl_cond.ipp, sstp_percell_step.ipp).
 
 drw2_dt and _advance_rw2_core are the plain versions of the per-droplet
-math that kernels B and F run (csrc/physics.cuh drw2_dt / advance_rw2);
-ops/step.py loops them over the dense engine's substeps, cond_percell over
-the flat engine's (advance_rw2, kernel F on the card)."""
+math that kernels B and F run (csrc/cond_cell.cuh); ops/step.py loops them
+over the dense engine's substeps, ops/cond.py over the flat engine's
+(cond_percell; kernel F on the card)."""
 
 import dataclasses
 from functools import partial
@@ -15,7 +15,7 @@ import torch
 
 from ..common import constants as c
 from ..common import kappa_koehler, kelvin, maxwell_mason
-from ..common import theta_dry, transition_regime, ventil
+from ..common import transition_regime, ventil
 from ..common.fastmath import cbrt_pos
 from ..ops import cond as cond_ops
 from ..ops.rootfind import solve_bracketed
@@ -96,14 +96,6 @@ def _advance_rw2_core(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH, eta,
     return torch.where(alive & (drw2 != 0), rw2_new, rw2_old)
 
 
-def advance_rw2(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH, eta,
-                lambda_D, lambda_K, RH_max, *, plain=False):
-    """The backward-Euler rw^2 advance of a flat SD population: kernel F on
-    a CUDA tensor, _advance_rw2_core on a CPU one (ops/cond.py)."""
-    return cond_ops.advance_rw2(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH,
-                                eta, lambda_D, lambda_K, RH_max, plain=plain)
-
-
 def stale_mfp(state: State):
     """Mean free paths from the cell T/p as they stand before the step's
     thermodynamic refresh: the reference computes hskpng_mfp from the
@@ -143,49 +135,29 @@ def cond_percell(cfg: StaticConfig, state: State, dt, RH_max, lam,
                                 lambda_K, wgt_nom, plain)
 
 
+def cell_ends(sijk, n_cell):
+    """The last position of each cell's run in the cell-sorted SD order
+    ``sijk`` (-1 for an empty cell before any SD): cell c holds positions
+    ends[c-1] + 1 to ends[c]."""
+    return torch.searchsorted(
+        sijk, torch.arange(1, n_cell + 1, device=sijk.device)) - 1
+
+
 def _cond_percell_sorted(cfg, state, dt_sub, sstp, RH_max, var_rho,
                          delta_th, delta_rv, delta_rh, lambda_D, lambda_K,
                          wgt_nom, plain):
     """cond_percell's substep loop in cell-sorted SD order
     (libcloudphxx_tpu/lgrngn/condensation.py:312-388): one stable sort by
-    cell in, cell sums as a cumulative sum differenced at the cell ends,
-    and the new rw2 put back in slot order.  The cumulative sum runs in
-    float64, so float32 runs lose no digits to the population-wide
-    running total."""
+    cell in, the loop (ops/cond.py cond_flat: kernel F on the card, the
+    host loop with float64 cumulative-sum cell sums as its plain version),
+    and the new rw2 put back in slot order."""
     sijk, order = torch.sort(state.ijk, stable=True)
-    rw2_s, rd3_s, kpa_s, vt_s, wgt_s = (
-        a[order] for a in (state.rw2, state.rd3, state.kpa, state.vt,
-                           wgt_nom))
-    lamD_s, lamK_s = lambda_D[sijk], lambda_K[sijk]
-    if not var_rho:
-        wgt_s = wgt_s / (state.dv * state.rhod)[sijk]
-    # last sorted position of each cell (cells are contiguous runs)
-    ends = torch.searchsorted(
-        sijk, torch.arange(1, cfg.n_cell + 1, device=sijk.device)) - 1
-
-    def cell_sum(vals):
-        cs = torch.cumsum(vals, 0, dtype=torch.float64)
-        tot = torch.where(ends >= 0, cs[torch.clamp(ends, min=0)], 0.0)
-        return torch.diff(tot, prepend=tot.new_zeros(1)).to(vals.dtype)
-
-    th, rv, rhod = state.th, state.rv, state.rhod
-    for _ in range(sstp):
-        th = th + delta_th / sstp
-        rv = rv + delta_rv / sstp
-        if var_rho:
-            rhod = rhod + delta_rh / sstp
-        T, p, RH, eta = hskpng.hskpng_Tpr(cfg, th, rv, rhod, state.p)
-        g = lambda a: a[sijk]
-        rw2_new = advance_rw2(dt_sub, rw2_s, rd3_s, kpa_s, vt_s, g(rhod),
-                              g(rv), g(T), g(p), g(RH), g(eta), lamD_s,
-                              lamK_s, RH_max, plain=plain)
-        drw3 = rw2_new * torch.sqrt(rw2_new) \
-            - rw2_s * torch.sqrt(torch.clamp(rw2_s, min=0.0))
-        wsub = wgt_s / g(state.dv * rhod) if var_rho else wgt_s
-        drv = -cell_sum(wsub * drw3)
-        th = th + drv * theta_dry.d_th_d_rv(T, th)
-        rv = rv + drv
-        rw2_s = rw2_new
+    sd = tuple(a[order] for a in (state.rw2, state.rd3, state.kpa, state.vt,
+                                  wgt_nom))
+    rw2_s, th, rv, rhod = cond_ops.cond_flat(
+        cfg, sstp, dt_sub, RH_max, var_rho, sijk, cell_ends(sijk, cfg.n_cell),
+        *sd, state.th, state.rv, state.rhod, delta_th, delta_rv, delta_rh,
+        state.p, state.dv, lambda_D, lambda_K, plain=plain)
     rw2 = torch.empty_like(rw2_s)
     rw2[order] = rw2_s
     state = dataclasses.replace(state, rw2=rw2, th=th, rv=rv, rhod=rhod)

@@ -1,39 +1,113 @@
-"""The per-droplet condensation root find on flat SD arrays, in place of the
-TPU kernel libcloudphxx_tpu/ops/pallas_cond.py:_kernel (advance_rw2_pallas).
+"""The flat engine's per-cell condensation substep loop, in place of the TPU
+kernel libcloudphxx_tpu/ops/pallas_cond.py:_kernel (advance_rw2_pallas) and
+the host loop around it (libcloudphxx_tpu/lgrngn/condensation.py:312-388).
 
-On the card it runs as kernel F (csrc/cond_sd.cu), beside its plain
-PyTorch version, lgrngn/condensation._advance_rw2_core.  Dispatch is by
-device, as in ops/step.py: CPU tensors run the plain version, CUDA tensors
-launch the kernel (float32, contiguous, 1-D, all of one length, at any
-length, or the wrapper raises), and ``plain=True`` runs the plain version
-on any device, for comparisons and timings.
+On the card it runs as kernel F (csrc/cond_flat.cu), one launch for all
+sstp_cond substeps, beside its plain PyTorch version cond_flat_plain, that
+host loop.  Dispatch is by device, as in ops/step.py: CPU tensors run the
+plain version, CUDA tensors launch the kernel (float32, contiguous, or the
+wrapper raises), and ``plain=True`` runs the plain version on any device,
+for comparisons and timings.  Both take the SD arrays sorted by cell
+(lgrngn/condensation.py _cond_percell_sorted) and the cell fields (n_cell,).
+
+On the card the kernel leaves the rw2 of a dead slot (n == 0) as it is,
+where the plain version advances any slot whose rw2 > 0 (as kernel B and
+its plain version do with the dense rows).  A dead slot's weight is zero,
+so the cells do not differ, and every other reader of rw2 weighs or masks
+it by n: the diagnostics, coalescence (which parks dead slots past the
+last cell), transport's puddle, and dense.pack.  Only the raw dumps,
+particles_t.get_attr and save, show a dead slot's rw2, which is then the
+kernel's or the plain version's.
 """
 
 import torch
 
 from .. import _ext
-from ..lgrngn import condensation
+from ..common import theta_dry
+from ..lgrngn import condensation, hskpng
 
 
-def advance_rw2(dt, rw2, rd3, kpa, vt, rhod, rv, T, p, RH, eta, lam_D, lam_K,
-                RH_max, *, plain=False):
-    """Backward-Euler advance of every droplet's rw^2 over ``dt``: kernel F,
-    or its plain version (condensation._advance_rw2_core).  The 12 arrays
-    are 1-D and of one length, the cell values already gathered to the
-    droplets; returns the new rw2."""
-    arrays = (rw2, rd3, kpa, vt, rhod, rv, T, p, RH, eta, lam_D, lam_K)
-    if _ext.use_plain("cond_sd", rw2, plain):
-        return condensation._advance_rw2_core(dt, *arrays, RH_max)
-    for a in arrays:
-        if a.dim() != 1 or a.shape != rw2.shape:
-            raise ValueError("cond_sd: the SD arrays must be 1-D and of one "
-                             f"length {tuple(rw2.shape)}, got "
-                             f"{tuple(a.shape)}")
-    _ext.check("cond_sd", *arrays)
-    out = torch.empty_like(rw2)
-    if out.numel() == 0:
-        return out
-    _ext.COND_SD.launch(*(a.data_ptr() for a in arrays), out.data_ptr(),
-                        rw2.numel(), float(dt), float(RH_max),
-                        condensation._root_iters(rw2.dtype))
-    return out
+def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
+                    rd3, kpa, vt, wgt, th, rv, rhod, delta_th, delta_rv,
+                    delta_rh, p, dv, lambda_D, lambda_K):
+    """sstp substeps of the cell-sorted droplets' growth, each closed by the
+    cells' latent heat (libcloudphxx_tpu/lgrngn/condensation.py:312-388):
+    cell sums as a float64 cumulative sum differenced at the cell ends.
+    Returns (rw2, th, rv, rhod)."""
+    lamD_s, lamK_s = lambda_D[sijk], lambda_K[sijk]
+    if not var_rho:
+        wgt = wgt / (dv * rhod)[sijk]
+
+    def cell_sum(vals):
+        cs = torch.cumsum(vals, 0, dtype=torch.float64)
+        tot = torch.where(ends >= 0, cs[torch.clamp(ends, min=0)], 0.0)
+        return torch.diff(tot, prepend=tot.new_zeros(1)).to(vals.dtype)
+
+    g = lambda a: a[sijk]
+    for _ in range(sstp):
+        th = th + delta_th / sstp
+        rv = rv + delta_rv / sstp
+        if var_rho:
+            rhod = rhod + delta_rh / sstp
+        T, p_, RH, eta = hskpng.hskpng_Tpr(cfg, th, rv, rhod, p)
+        rw2_new = condensation._advance_rw2_core(
+            dt_sub, rw2, rd3, kpa, vt, g(rhod), g(rv), g(T), g(p_), g(RH),
+            g(eta), lamD_s, lamK_s, RH_max)
+        drw3 = rw2_new * torch.sqrt(rw2_new) \
+            - rw2 * torch.sqrt(torch.clamp(rw2, min=0.0))
+        wsub = wgt / g(dv * rhod) if var_rho else wgt
+        drv = -cell_sum(wsub * drw3)
+        th = th + drv * theta_dry.d_th_d_rv(T, th)
+        rv = rv + drv
+        rw2 = rw2_new
+    return rw2, th, rv, rhod
+
+
+def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
+              vt, wgt, th, rv, rhod, delta_th, delta_rv, delta_rh, p, dv,
+              lambda_D, lambda_K, *, plain=False):
+    """Kernel F, or its plain version cond_flat_plain (same arguments and
+    results).  ``sijk`` the sorted cells of the SDs, ``ends`` the last
+    sorted position of each cell (condensation.cell_ends); ``rw2`` ...
+    ``wgt`` the sorted SD arrays (``wgt`` = n * 4/3 pi rho_w); th, rv and
+    rhod the cells at the last sstp_save, the deltas the step's increments,
+    ``p`` the pressure the closure takes, ``dv`` the cell volumes.
+    ``var_rho`` substeps rhod and the weights with it.  Returns (rw2, th,
+    rv, rhod)."""
+    sd = (sijk, rw2, rd3, kpa, vt, wgt)
+    cells = (th, rv, rhod, delta_th, delta_rv, delta_rh, p, dv, lambda_D,
+             lambda_K)
+    n_sd, n_cell = rw2.shape[0], th.shape[0]
+    if any(a.dim() != 1 or a.shape[0] != n_sd for a in sd):
+        raise ValueError("cond_flat: the SD arrays must be 1-D and of one "
+                         f"length, got {[tuple(a.shape) for a in sd]}")
+    if any(a.shape != (n_cell,) for a in cells + (ends,)):
+        raise ValueError("cond_flat: the cell fields and ends must be "
+                         f"({n_cell},), got "
+                         f"{[tuple(a.shape) for a in cells + (ends,)]}")
+    if _ext.use_plain("cond_flat", rw2, plain):
+        return cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk,
+                               ends, rw2, rd3, kpa, vt, wgt, th, rv, rhod,
+                               delta_th, delta_rv, delta_rh, p, dv, lambda_D,
+                               lambda_K)
+    if n_sd >= 2 ** 31:
+        raise ValueError("cond_flat: more than 2**31 - 1 SDs")
+    sd = sd[1:]
+    _ext.check("cond_flat", *sd)
+    _ext.check("cond_flat", ends, dtype=torch.int64)
+    cells_in = torch.stack([delta_th, delta_rv, delta_rh, th, rv, rhod, p,
+                            dv, lambda_D, lambda_K])
+    _ext.check("cond_flat", cells_in)
+    rw2_out = torch.empty_like(rw2)
+    cells_out = torch.empty((3, n_cell), dtype=rw2.dtype, device=rw2.device)
+    pos, buf = _ext.cond_scratch(n_sd, rw2.device)
+    sizes = torch.diff(ends, prepend=ends.new_full((1,), -1))
+    order = _ext.longest_first(sizes)
+    _ext.COND_FLAT.launch(
+        *(a.data_ptr() for a in (wgt, rw2, rd3, kpa, vt, ends, cells_in)),
+        rw2_out.data_ptr(), cells_out.data_ptr(), pos.data_ptr(),
+        buf.data_ptr(), order.data_ptr(), n_cell, n_sd, int(sstp),
+        float(dt_sub), float(RH_max), int(cfg.th_dry), int(cfg.const_p),
+        int(cfg.RH_formula), int(var_rho),
+        condensation._root_iters(rw2.dtype))
+    return (rw2_out,) + tuple(cells_out.unbind(0))

@@ -4,7 +4,7 @@ A fixed-iteration Anderson-Bjoerck regula falsi with a bisection safeguard:
 every element runs the same number of steps, so the whole population is
 solved with one instruction stream (reference: per-element TOMS-748,
 include/libcloudph++/common/detail/toms748.hpp).  The condensation kernel
-runs the same iteration per droplet (csrc/physics.cuh solve_bracketed).
+runs the same iteration per droplet (csrc/cond_cell.cuh advance_slots).
 """
 
 import torch

@@ -93,18 +93,23 @@ def cond(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
     n_cell, cap = n.shape
     _ext.check_planes("cond", cap, n, rw2, rd3, kpa)
     require_kernel_vt(cfg)
-    cells = torch.stack([thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, p0])
-    if cells.shape != (9, n_cell):
+    fields = (thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, p0)
+    if any(a.shape != (n_cell,) for a in fields):
         raise ValueError(f"cond: cell fields must be ({n_cell},)")
+    cells = torch.stack(fields)
     _ext.check("cond", n, rw2, rd3, kpa, cells)
+    if n.numel() >= 2 ** 31:
+        raise ValueError("cond: more than 2**31 - 1 SD lanes")
     rw2_out = torch.empty_like(rw2)
     cells_out = torch.empty((6, n_cell), dtype=n.dtype, device=n.device)
+    pos, buf = _ext.cond_scratch(n.numel(), n.device)
+    order = _ext.longest_first((n > 0).sum(1))
     _ext.COND.launch(
         n.data_ptr(), rw2.data_ptr(), rd3.data_ptr(), kpa.data_ptr(),
         cells.data_ptr(), rw2_out.data_ptr(), cells_out.data_ptr(),
-        n_cell, cap, int(sstp_cond), dt / sstp_cond, float(RH_max),
-        int(cfg.th_dry), int(cfg.const_p), int(cfg.RH_formula),
-        _root_iters(n.dtype))
+        pos.data_ptr(), buf.data_ptr(), order.data_ptr(), n_cell, cap,
+        int(sstp_cond), dt / sstp_cond, float(RH_max), int(cfg.th_dry),
+        int(cfg.const_p), int(cfg.RH_formula), _root_iters(n.dtype))
     return (rw2_out,) + tuple(cells_out.unbind(0))
 
 

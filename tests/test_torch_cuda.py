@@ -6,14 +6,20 @@ row capacity 128).  These tests take the shapes and options that case does
 not reach: row capacity 32 (fewer lanes than a block has threads) and 256
 (more), an MPDATA grid that is not square, one field and n_iters 1, the
 euler scheme, open side walls and periodic top/bottom walls, and rain that
-fills the puddle.  Kernel E (coalescence) runs at row
-capacity 32, 128 and 256 in its three forms (stride and sort pairing,
-standalone) with the golovin, geometric, long and hall kernels, on rows
-that are full, half empty, all dead or hold one droplet.  Kernel F (the
-flat engine's condensation root find) runs at lengths 1, 127 and 32,773
-with dead slots, and the flat slice runs through the public API with the
-kernels and with the plain versions.  They also check that the wrappers
-refuse what the kernels do not take, and count one launch per call.
+fills the puddle.  Kernel B (condensation) runs at row capacity 32, 128 and
+256 (one to eight chunks of 32 droplets a warp) on rows full, half empty,
+all dead or holding one droplet, with the dead lanes after the droplets or
+among them.  Kernel E (coalescence) runs at row capacity 32, 128 and 256 in
+its three forms (stride and sort pairing, standalone) with the golovin,
+geometric, long and hall kernels, on rows that are full, half empty, all
+dead or hold one droplet.  Kernel F (the flat engine's condensation
+substep loop) runs on cell-sorted segments with an empty cell, a cell
+of 700 droplets and a cell 0 holding 5,000 dead slots,
+under the th_dry, th_std and const_p closures and with rhod substepped,
+and the flat slice runs through the public API with the kernels and with
+the plain versions.  Kernels B and F give the same bits whatever order
+the cells go to the warps in.  They also check that the wrappers refuse what the kernels do not
+take, and count one launch per call.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -21,12 +27,12 @@ no JAX, so there run them without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: the kernels follow their plain versions operation for
-operation (built with -fmad=false), and at the GMD case they agree
-bitwise; the bounds are those chip_smoke.py states (MPDATA rtol 1e-5;
-condensation th 2e-6, rv 2e-5, rw2 1e-5; cells, multiplicities, targets
-and overflow exact, rw2/x/z 1e-6, puddle 1e-5; coalescence: per cell the
-multiset of (n, rd3, kpa) and the overflow flags exact, rw2 rel 1e-6;
-kernel F: live droplets rw2 rel 1e-5, dead slots exact).
+operation (built with -fmad=false); the bounds are those chip_smoke.py
+states (MPDATA rtol 1e-5; condensation th 2e-6, rv 2e-5, rw2 1e-5, as the
+kernels' cell sums add in another order than the plain versions'; cells,
+multiplicities, targets and overflow exact, rw2/x/z 1e-6, puddle 1e-5;
+coalescence: per cell the multiset of (n, rd3, kpa) and the overflow flags
+exact, rw2 rel 1e-6; the condensation kernels copy dead slots through).
 """
 
 import dataclasses
@@ -34,7 +40,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import multiset
+from torch_parity import flat_cond_case, multiset
 
 from libcloudphxx_tpu_torch import Kinematic2D, _ext
 from libcloudphxx_tpu_torch.lgrngn import as_t, dense, kernel_t, vt_t
@@ -126,6 +132,86 @@ def test_cond_kernel_matches_plain(model, RH_max):
         assert _rel(a, b) <= 2e-6
 
 
+def _cond_rows(dev, cap, shuffled, rows=24, seed=0):
+    """Kernel B's inputs on synthetic rows at row capacity ``cap``: rows
+    full, half empty, all dead, holding one droplet, and at random
+    occupancy; ``shuffled`` scatters each row's dead lanes among its
+    droplets (as the sort pairing leaves them), else the droplets come
+    first.  Haze to cloud droplets in cells from sub- to supersaturated,
+    with a host-model increment of th and rv."""
+    from libcloudphxx_tpu_torch.common import const_cp, theta_dry
+    rng = np.random.default_rng(seed + cap)
+    occ = rng.uniform(0.0, 1.0, rows)
+    occ[:4] = (1.0, 0.5, 0.0, 1.0 / cap)
+    count = np.round(occ * cap).astype(int)
+    alive = np.arange(cap)[None, :] < count[:, None]
+    if shuffled:
+        alive = np.stack([rng.permutation(a) for a in alive])
+    rw = np.exp(rng.uniform(np.log(2e-8), np.log(3e-5), (rows, cap)))
+    n = np.where(alive, np.floor(10.0 ** rng.uniform(7, 9, (rows, cap))), 0.0)
+    rw2 = np.where(alive, rw ** 2, 0.0)
+    rd3 = np.where(alive, (rw * rng.uniform(0.05, 0.9, (rows, cap))) ** 3,
+                   0.0)
+    kpa = np.where(alive, rng.uniform(0.1, 1.2, (rows, cap)), 0.0)
+    th0 = rng.uniform(289.0, 300.0, rows)
+    rhod = rng.uniform(1.0, 1.15, rows)
+    T = theta_dry.T(torch.tensor(th0), torch.tensor(rhod))
+    p = theta_dry.p(torch.tensor(rhod), torch.tensor(8e-3), T)
+    rv0 = rng.uniform(0.95, 1.02, rows) * const_cp.r_vs(T, p).numpy()
+    lam_D, lam_K = hskpng_mfp(T, p)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                    dtype=torch.float32, device=dev)
+    planes = tuple(map(f32, (n, rw2, rd3, kpa)))
+    cells = tuple(map(f32, (th0 + rng.normal(0.0, 0.05, rows),
+                            rv0 * (1.0 + rng.uniform(-2e-3, 4e-3, rows)),
+                            th0, rv0, rhod, np.full(rows, 400.0),
+                            lam_D.numpy(), lam_K.numpy(), p.numpy())))
+    return planes, cells
+
+
+@pytest.mark.parametrize("RH_max", [1.01, 44.0], ids=["spinup", "main"])
+@pytest.mark.parametrize("shuffled", [False, True], ids=["packed", "shuffled"])
+@pytest.mark.parametrize("cap", [32, 128, 256])
+def test_cond_kernel_matches_plain_on_rows(model, cap, shuffled, RH_max):
+    """Kernel B at row capacity 32, 128 and 256 (one to eight chunks of 32
+    droplets a warp), on rows full, empty, half empty and with one droplet,
+    with the dead lanes after the droplets or among them; dead lanes are
+    copied through."""
+    planes, cells = _cond_rows(model.device, cap, shuffled)
+    args = (model.cfg, 5, 1.0, RH_max) + planes + cells
+    k = _launches(_ext.COND, lambda: step.cond(*args))
+    p = step.cond(*args, plain=True)
+    alive = planes[0] > 0
+    assert _rel(k[1], p[1]) <= 2e-6          # th
+    assert _rel(k[2], p[2]) <= 2e-5          # rv
+    assert _rel(k[0][alive], p[0][alive]) <= 1e-5
+    assert torch.equal(k[0][~alive], planes[1][~alive])
+    for a, b in zip(k[3:], p[3:]):           # T, p, RH, eta
+        assert _rel(a, b) <= 2e-6
+    assert _rel(k[0][alive], planes[1][alive]) > 1e-3   # droplets grew
+
+
+@pytest.mark.parametrize("order", ["again", "in_order", "reversed"])
+def test_cond_kernels_repeat_in_any_cell_order(model, monkeypatch, order):
+    """Kernels B and F give the same bits when called again and whatever
+    order the cells go to the warps in (longest first, their own order,
+    reversed): a warp's cell sum does not depend on the other warps."""
+    planes, cells = _cond_rows(model.device, 256, True)
+    b_args = (model.cfg, 5, 1.0, 44.0) + planes + cells
+    cfg, kw = _flat_case(model.device, "long_cell", "var_rho")
+    f_call = lambda: cond_ops.cond_flat(cfg, RH_max=44.0, **kw)
+    ref_b, ref_f = step.cond(*b_args), f_call()
+    def cell_order(counts):
+        r = torch.arange(counts.numel(), dtype=torch.int32,
+                         device=counts.device)
+        return r.flip(0) if order == "reversed" else r
+
+    if order != "again":
+        monkeypatch.setattr(_ext, "longest_first", cell_order)
+    for got, ref in ((step.cond(*b_args), ref_b), (f_call(), ref_f)):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
 VARIANTS = {
     "cloud": ({}, False),
     "rain": ({}, True),
@@ -204,6 +290,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(model):
     args = list(_cond_args(model, 44.0))
     args[4:8] = [a.double() for a in args[4:8]]      # float64 SD planes
     with pytest.raises(TypeError, match="float32"):
+        step.cond(*args)
+    args = list(_cond_args(model, 44.0))
+    args[5] = args[5].t().contiguous().t()           # strided rw2 plane
+    with pytest.raises(ValueError, match="contiguous"):
+        step.cond(*args)
+    args = list(_cond_args(model, 44.0))
+    args[5] = args[5][:, :-1].contiguous()           # rw2 plane too narrow
+    with pytest.raises(ValueError, match="SD planes"):
+        step.cond(*args)
+    args[5] = _cond_args(model, 44.0)[5]
+    args[8] = args[8][:-1]                           # one cell short
+    with pytest.raises(ValueError, match="cell fields"):
         step.cond(*args)
     m = model
     gc_x_strided = m.gc_x.t().contiguous().t()       # same values, strided
@@ -343,59 +441,78 @@ def test_coal_slice_kernels_match_plain(dev):
 
 
 # ---------------------------------------------------------------- kernel F
-def _cond_sd_arrays(dev, n, seed=0):
-    """The 12 flat arrays of kernel F for ``n`` droplets of 0.01-30 um
-    (a tenth of them dead slots, rw2 = 0) in cells near saturation."""
-    rng = np.random.default_rng(seed + n)
-    rw = np.exp(rng.uniform(np.log(1e-8), np.log(3e-5), n))
-    rw2 = np.where(rng.random(n) < 0.1, 0.0, rw ** 2)
-    rd3 = (rw * rng.uniform(0.05, 0.9, n)) ** 3
-    T = rng.uniform(280.0, 292.0, n)
-    arrays = (rw2, rd3, rng.uniform(0.1, 1.2, n), rng.uniform(0.0, 0.05, n),
-              rng.uniform(1.0, 1.2, n), rng.uniform(6e-3, 9e-3, n), T,
-              rng.uniform(8.5e4, 1e5, n), rng.uniform(0.95, 1.02, n),
-              1.72e-5 * (393.0 / (T + 120.0)) * (T / 273.16) ** 1.5,
-              rng.uniform(6e-8, 7e-8, n), rng.uniform(9e-8, 1.1e-7, n))
-    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
-                 for a in arrays)
+# cell sizes (live droplets) and cell 0's dead slots: the GMD case's ~64 a
+# cell with an empty cell; a cell of 700, many chunks of 32 droplets a
+# warp; cell 0 holding thousands of dead slots
+FLAT_CASES = {
+    "gmd": ([64, 57, 0, 71, 64, 90, 33, 64], 0),
+    "long_cell": ([64, 0, 700, 64, 5, 64, 64, 64], 0),
+    "dead_cell0": ([64, 64, 0, 64, 70, 64, 58, 64], 5000),
+}
+FLAT_CONFIGS = {
+    "th_dry": dict(), "var_rho": dict(var_rho=True),
+    "th_std": dict(th_dry=False), "const_p": dict(const_p=True),
+}
+
+
+def _flat_case(dev, case, config, seed=0):
+    sizes, dead0 = FLAT_CASES[case]
+    over = dict(FLAT_CONFIGS[config])
+    var_rho = over.pop("var_rho", False)
+    cfg, kw = flat_cond_case(sizes, dead0, seed, dev, torch.float32, **over)
+    return cfg, dict(kw, var_rho=var_rho)
 
 
 @pytest.mark.parametrize("RH_max", [1.01, 44.0], ids=["spinup", "main"])
-@pytest.mark.parametrize("n", [1, 127, 32773])
-def test_cond_sd_kernel_matches_plain(dev, n, RH_max):
-    """Kernel F against its plain version at lengths that fill no block,
-    one ragged block and many: live droplets to rtol 1e-5 (the bound
-    chip_smoke.py states; at the GMD case they agree bitwise), dead slots
-    unchanged."""
-    arrays = _cond_sd_arrays(dev, n)
-    k = _launches(_ext.COND_SD,
-                  lambda: cond_ops.advance_rw2(0.1, *arrays, RH_max))
-    p = cond_ops.advance_rw2(0.1, *arrays, RH_max, plain=True)
-    live = arrays[0] > 0
-    if bool(live.any()):
-        assert _rel(k[live], p[live]) <= 1e-5
-    assert torch.equal(k[~live], arrays[0][~live])
+@pytest.mark.parametrize("config", list(FLAT_CONFIGS))
+@pytest.mark.parametrize("case", list(FLAT_CASES))
+def test_cond_flat_kernel_matches_plain(dev, case, config, RH_max):
+    """Kernel F against its plain version (the host substep loop) on
+    cell-sorted segments with an empty cell, a cell longer than a warp's
+    slots and cell 0 full of dead slots, under each closure and with rhod
+    substepped: live droplets rw2 rel 1e-5, th 2e-6, rv 2e-5 (the cell
+    sums add in another order), dead slots copied through."""
+    cfg, kw = _flat_case(dev, case, config)
+    k = _launches(_ext.COND_FLAT,
+                  lambda: cond_ops.cond_flat(cfg, RH_max=RH_max, **kw))
+    p = cond_ops.cond_flat(cfg, RH_max=RH_max, plain=True, **kw)
+    live = kw["wgt"] > 0
+    assert _rel(k[0][live], p[0][live]) <= 1e-5
+    assert torch.equal(k[0][~live], kw["rw2"][~live])
+    assert _rel(k[1], p[1]) <= 2e-6          # th
+    assert _rel(k[2], p[2]) <= 2e-5          # rv
+    assert _rel(k[3], p[3]) <= 1e-7          # rhod
+    assert _rel(k[0][live], kw["rw2"][live]) > 1e-3   # droplets grew
+    empty = kw["ends"] == torch.cat([kw["ends"].new_full((1,), -1),
+                                     kw["ends"][:-1]])
+    if bool(empty.any()):                    # no latent heat in empty cells
+        assert torch.equal(k[1][empty], p[1][empty])
 
 
-def test_cond_sd_wrapper_refuses_what_the_kernel_does_not_take(dev):
-    arrays = _cond_sd_arrays(dev, 64)
-    call = lambda a: cond_ops.advance_rw2(0.1, *a, 44.0)
+def test_cond_flat_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    cfg, kw = _flat_case(dev, "gmd", "th_dry")
+    call = lambda **over: cond_ops.cond_flat(cfg, RH_max=44.0,
+                                             **dict(kw, **over))
     with pytest.raises(TypeError, match="float32"):
-        call(tuple(a.double() for a in arrays))
-    strided = (arrays[0][::2],) + tuple(a[:32] for a in arrays[1:])
+        call(rw2=kw["rw2"].double())
+    with pytest.raises(TypeError, match="float32"):
+        call(th=kw["th"].double())
+    with pytest.raises(TypeError, match="int64"):
+        call(ends=kw["ends"].int())
+    strided = torch.stack([kw["rd3"], kw["rd3"]], 1)[:, 0]
     with pytest.raises(ValueError, match="contiguous"):
-        call(strided)
+        call(rd3=strided)
     with pytest.raises(ValueError, match="one length"):
-        call(arrays[:1] + tuple(a[:32] for a in arrays[1:]))
-    with pytest.raises(ValueError, match="one length"):
-        call(tuple(a.reshape(8, 8) for a in arrays))
+        call(kpa=kw["kpa"][:-1])
+    with pytest.raises(ValueError, match="cell fields"):
+        call(dv=kw["dv"][:-1])
 
 
 def test_flat_slice_kernels_match_plain(dev):
     """Two spin-up and two coalescing steps of the 8x8 case on the flat
     engine through the public API, kernels against plain versions: kernel
-    F runs sstp_cond times a step and kernel A twice, and the fields, the
-    population and the draws agree."""
+    F runs once a step and kernel A twice, and the fields, the population
+    and the draws agree."""
     kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=3, sstp_coal=3,
               n_sd_max=24 * 64, opts_init_kw={"kernel_parameters": [100.0]},
               device=dev)
@@ -403,7 +520,7 @@ def test_flat_slice_kernels_match_plain(dev):
     before = {k.name: k.launches for k in _ext.KERNELS}
     mk.run(4, spinup=2)
     torch.cuda.synchronize()
-    assert _ext.COND_SD.launches == before["cond_sd"] + 4 * 3
+    assert _ext.COND_FLAT.launches == before["cond_flat"] + 4
     assert _ext.MPDATA.launches == before["mpdata"] + 4 * 2
     mp.run(4, spinup=2, plain=True)
     assert _rel(mk.th, mp.th) <= 2e-6

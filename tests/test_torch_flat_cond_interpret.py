@@ -1,5 +1,6 @@
-"""Port parity: the flat engine's per-droplet root find (ops/cond.py
-advance_rw2, the plain version of kernel F) against the TPU kernel it
+"""Port parity: the flat engine's per-droplet root find
+(lgrngn/condensation._advance_rw2_core, which kernel F's plain version
+ops/cond.cond_flat_plain runs every substep) against the TPU kernel it
 replaces, libcloudphxx_tpu/ops/pallas_cond.advance_rw2_pallas, run in
 interpret mode on the CPU, at float32.
 
@@ -21,7 +22,7 @@ from torch_parity import t
 
 from libcloudphxx_tpu.lgrngn.condensation import _advance_rw2_core
 from libcloudphxx_tpu.ops.pallas_cond import advance_rw2_pallas
-from libcloudphxx_tpu_torch.ops import cond as cond_ops
+from libcloudphxx_tpu_torch.lgrngn import condensation as tcond
 
 
 @pytest.mark.parametrize("RH_max", [1.01, 44.0])
@@ -31,7 +32,7 @@ def test_advance_rw2_matches_pallas_interpret(n, RH_max):
     want = np.asarray(advance_rw2_pallas(
         _advance_rw2_core, 0.1, *a.values(), RH_max, block_rows=8,
         interpret=True))
-    got = cond_ops.advance_rw2(
+    got = tcond._advance_rw2_core(
         0.1, *(t(v, torch.float32) for v in a.values()), RH_max).numpy()
     assert got.dtype == np.float32 and got.shape == (n,)
     live = np.asarray(a["rw2"]) > 0

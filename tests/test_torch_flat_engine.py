@@ -60,7 +60,6 @@ from libcloudphxx_tpu_torch.lgrngn import transport as ttransport
 from libcloudphxx_tpu_torch.lgrngn import vterm as tvterm
 from libcloudphxx_tpu_torch.lgrngn.enums import as_t, kernel_t
 from libcloudphxx_tpu_torch.lgrngn.state import OUT_PRTCL_NUM, State
-from libcloudphxx_tpu_torch.ops import cond as cond_ops
 from libcloudphxx_tpu_torch.ops import philox
 
 KW = dict(nx=8, nz=8, sd_conc=16, sstp_cond=3, sstp_coal=3,
@@ -94,21 +93,24 @@ def test_state_converts_both_ways(flat):
 
 
 def test_advance_rw2_plain_matches_core_f64():
-    """ops/cond.advance_rw2 on CPU tensors is the plain version: it equals
-    the JAX core at float64 (32 root-find iterations both sides)."""
+    """The per-droplet math of kernel F's plain version
+    (condensation._advance_rw2_core) equals the JAX core at float64 (32
+    root-find iterations both sides)."""
     a = _population(513, seed=3, dtype=jnp.float64)
     want = np.asarray(_advance_rw2_core(1.0, *a.values(), 44.0))
-    got = cond_ops.advance_rw2(1.0, *(t(v) for v in a.values()), 44.0)
+    got = tcond._advance_rw2_core(1.0, *(t(v) for v in a.values()), 44.0)
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
 
 
-@pytest.mark.parametrize("var_rho", [False, True])
-def test_cond_percell_matches_jax(flat, var_rho):
+def _cond_percell_vs_jax(flat, var_rho, seed, **over):
+    """cond_percell of the port and of the JAX package on one host-model
+    increment (warmer here, moister there, and with ``var_rho`` a denser
+    cell column), under the closure flags ``over``; returns (the port's
+    State before and after)."""
     cfg, st, pcfg, ps = flat
-    rng = np.random.default_rng(5)
-    # a host-model increment: warmer here, moister there, and (var_rho) a
-    # denser cell column
+    cfg, pcfg = (dataclasses.replace(c, **over) for c in (cfg, pcfg))
+    rng = np.random.default_rng(seed)
     dth = rng.normal(0.0, 0.3, cfg.n_cell)
     frv = 1.0 + rng.uniform(-0.02, 0.04, cfg.n_cell)
     frh = 1.0 + rng.uniform(0.0, 0.01, cfg.n_cell) * var_rho
@@ -129,8 +131,28 @@ def test_cond_percell_matches_jax(flat, var_rho):
                                    np.asarray(getattr(want, k)), rtol=1e-13,
                                    err_msg=k)
     assert _rel(got.rw2, ps.rw2) > 1e-3          # droplets grew
+    return ps, got
+
+
+@pytest.mark.parametrize("var_rho", [False, True])
+def test_cond_percell_matches_jax(flat, var_rho):
+    _, got = _cond_percell_vs_jax(flat, var_rho, 5)
     saved = tcond.sstp_save(got)
     assert saved.sstp_tmp_th is got.th and saved.sstp_tmp_rh is got.rhod
+
+
+@pytest.mark.parametrize("var_rho", [False, True])
+@pytest.mark.parametrize("closure", ["th_std", "const_p", "th_std_const_p"])
+def test_cond_percell_closures_match_jax(flat, closure, var_rho):
+    """cond_percell's plain path (kernel F's plain version) under the
+    th_std and the prescribed-pressure closures, which the model's default
+    does not reach, against the JAX package; tolerances as for the
+    default closure."""
+    over = {"th_std": dict(th_dry=False), "const_p": dict(const_p=True),
+            "th_std_const_p": dict(th_dry=False, const_p=True)}[closure]
+    ps, got = _cond_percell_vs_jax(flat, var_rho, 6, **over)
+    if over.get("const_p"):                      # the pressure is held
+        np.testing.assert_array_equal(got.p.numpy(), ps.p.numpy())
 
 
 def _moved(st, lib, rng_seed=9):

@@ -120,3 +120,56 @@ def port_flat_state(jax_state, dtype=torch.float64):
     arrays = {f.name: np.asarray(getattr(jax_state, f.name))
               for f in dataclasses.fields(jax_state)}
     return state_from_numpy(arrays, "cpu", dtype)
+
+
+def flat_cond_case(sizes, dead0=0, seed=0, device="cpu", dtype=torch.float64,
+                   th_dry=True, const_p=False, sstp=4):
+    """The inputs of ops/cond.cond_flat (kernel F) for cells of ``sizes``
+    live droplets, cell 0 also holding ``dead0`` dead slots (n == 0) mixed
+    in among its droplets, as the flat engine keeps them (half of them
+    with the rw2 they died with): haze to cloud droplets in cells from
+    sub- to supersaturated, and a host-model increment of th, rv and rhod.
+    Returns (cfg, kwargs of cond_flat without RH_max, var_rho and plain)."""
+    from libcloudphxx_tpu_torch.common import const_cp, theta_dry
+    from libcloudphxx_tpu_torch.common import constants as c
+    from libcloudphxx_tpu_torch.lgrngn import opts_init_t
+    from libcloudphxx_tpu_torch.lgrngn.condensation import cell_ends
+    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp
+    from libcloudphxx_tpu_torch.lgrngn.state import StaticConfig
+    rng = np.random.default_rng(seed)
+    n_cell = len(sizes)
+    oi = opts_init_t()
+    oi.nx, oi.nz, oi.dx, oi.dz, oi.x1, oi.z1 = n_cell, 1, 20.0, 20.0, \
+        20.0 * n_cell, 20.0
+    oi.sstp_cond, oi.th_dry, oi.const_p = sstp, th_dry, const_p
+    cfg = StaticConfig.from_opts_init(oi)
+
+    counts = np.array(sizes)
+    counts[0] += dead0
+    sijk = np.repeat(np.arange(n_cell), counts)
+    n_sd = sijk.size
+    live = np.ones(n_sd, bool)
+    live[rng.permutation(counts[0])[:dead0]] = False
+    rw = np.exp(rng.uniform(np.log(2e-8), np.log(3e-5), n_sd))
+    rd3 = (rw * rng.uniform(0.05, 0.9, n_sd)) ** 3
+    rw2 = np.where(live | (rng.random(n_sd) < 0.5), rw ** 2, 0.0)
+    mult = np.where(live, np.floor(10.0 ** rng.uniform(7, 9, n_sd)), 0.0)
+
+    th = rng.uniform(289.0, 300.0, n_cell)
+    rhod = rng.uniform(1.0, 1.15, n_cell)
+    T = theta_dry.T(torch.tensor(th), torch.tensor(rhod))
+    p = theta_dry.p(torch.tensor(rhod), torch.tensor(8e-3), T)
+    rv = rng.uniform(0.95, 1.02, n_cell) * const_cp.r_vs(T, p).numpy()
+    lam_D, lam_K = (a.numpy() for a in hskpng_mfp(T, p))
+    arrays = dict(
+        rw2=rw2, rd3=rd3, kpa=rng.uniform(0.1, 1.2, n_sd),
+        vt=rng.uniform(0.0, 0.05, n_sd), wgt=mult * (4.0 / 3) * c.pi * c.rho_w,
+        th=th, rv=rv, rhod=rhod, delta_th=rng.normal(0.0, 0.05, n_cell),
+        delta_rv=rv * rng.uniform(-2e-3, 4e-3, n_cell),
+        delta_rh=rhod * rng.uniform(0.0, 2e-3, n_cell), p=p.numpy(),
+        dv=np.full(n_cell, 400.0), lambda_D=lam_D, lambda_K=lam_K)
+    kw = {k: torch.as_tensor(v, dtype=dtype, device=device)
+          for k, v in arrays.items()}
+    kw["sijk"] = torch.as_tensor(sijk, device=device)
+    kw["ends"] = cell_ends(kw["sijk"], n_cell)
+    return cfg, dict(kw, sstp=sstp, dt_sub=1.0 / sstp)
