@@ -10,9 +10,11 @@ checks them:
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run
   2. build: compile the kernels from csrc/, one nvcc per source in parallel
   3. kernels against their plain PyTorch versions, on the card, at the main
-     path's shapes: A-D from the initial population, E (coalescence) from
-     the population after the spin-up, in stride, sort and standalone form
-     and with the hall kernel; then E's Golovin box gate (Scott 1967)
+     path's shapes: A-D from the initial population (A bitwise, n_iters
+     1-3, FCT off and on), E (coalescence) from the population after the
+     spin-up, in stride, sort and standalone form, each with the geometric
+     and the hall kernel, lane by lane; then E's Golovin box gate (Scott
+     1967)
   4. the slice without coalescence: spin-up and main steps through the
      kernels, bench.py's physics checks, kernels A-D launched
   5. the slice with coalescence (the main path): the same, kernels A-E
@@ -82,11 +84,25 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 OPS_DRW2, OPS_ITER, OPS_BRACKET, OPS_ADVANCE = 65, 19, 12, 24
 OPS_CELL_SUBSTEP, OPS_CLOSURE, OPS_DROP = 71, 32, 6
 # per live SD: vt_beard77; kernel C's advection, walls and classification
-# beside it; kernel D's nine-source merge; kernel E per substep (two
-# Philox draws, the pair math, the shuffle's compare-exchanges)
-OPS_VT, OPS_TRANSPORT, OPS_MERGE, OPS_COAL = 45, 60, 30, 400
-# MPDATA per cell and field: the donor pass, and each corrective iteration
-OPS_DONOR, OPS_ANTIDIFF = 10, 60
+# beside it; kernel D's nine-source merge
+OPS_VT, OPS_TRANSPORT, OPS_MERGE = 45, 60, 30
+# kernel E (csrc/coal.cu), counted on the work its data needs (coal_work):
+# a Philox 4x32-10 word, 10 rounds of 2 multiply-highs, 2 multiply-lows
+# and 4 xors, and 2 key additions in rounds 2-10, each 32-bit integer
+# operation counted as one at the float32 rate (the data sheet gives no
+# int32 rate; Hopper runs integer multiplies at half the float32 rate,
+# so the bound is lower than the card can reach); the geometric kernel's
+# value of a pair and its collision count (physics.cuh kernel_value,
+# collision_count); a collision's outcome for its small droplet
+# (collide).  One draw a live SD a shuffle, one draw and one evaluation a
+# pair of live SDs, vt once a live SD and again with the outcome of each
+# droplet a collision changed; the shuffle's compare-exchanges and the
+# scale factors are not counted.
+OPS_PHILOX, OPS_PAIR, OPS_COLLIDE = 98, 17, 25
+# MPDATA per cell and field (csrc/mpdata.cu): the donor pass (four donor
+# fluxes, their divergence over G), and each corrective iteration's
+# antidiffusive velocities of a cell's x and z face
+OPS_DONOR, OPS_ANTIDIFF = 25, 46
 
 # the Golovin box of tests/test_pallas_coal_golovin.py
 GOLOVIN_SIM_TIME, GOLOVIN_SSTP = 800.0, 100
@@ -229,6 +245,56 @@ def collided(before, after):
     total = lambda d: float(d.n.double().sum())
     fell = float(after.puddle[OUT_PRTCL_NUM] - before.puddle[OUT_PRTCL_NUM])
     return (total(before) - total(after) - fell) / total(before)
+
+
+def coal_work(run, n):
+    """What one call of kernel E needs on its data, counted on its plain
+    version ``run()`` (a coal_resident or coal_standalone call with
+    plain=True) from the multiplicities ``n`` it starts from: the shuffle
+    draws (a live SD a shuffle), the pairs of live SDs, the droplets a
+    collision changed, and the live SDs at load."""
+    from libcloudphxx_tpu_torch.lgrngn import dense
+    work = {"draws": 0, "pairs": 0, "changed": 0,
+            "live": int((n > 0).sum())}
+    stride_fn, adjacent_fn = dense.pair_and_collide_stride, \
+        dense.pair_and_collide
+
+    def changed(vals, out):
+        work["changed"] += int((out[1] != vals[1]).sum())
+        return out
+
+    def stride(cfg, params, vals, stride, *args, **kw):
+        live = vals[0] > 0
+        if stride == 1:                    # the first stride follows a shuffle
+            work["draws"] += int(live.sum())
+        lane = torch.arange(live.shape[1], device=live.device)
+        partner = dense._xor_partner(vals[0], stride, lane)
+        work["pairs"] += int((live & (partner > 0)
+                              & ((lane & stride) == 0)).sum())
+        return changed(vals, stride_fn(cfg, params, vals, stride, *args,
+                                       **kw))
+
+    def adjacent(cfg, params, vals, count, *args, **kw):
+        work["draws"] += int((vals[0] > 0).sum())
+        work["pairs"] += int(torch.floor(count / 2).sum())
+        return changed(vals, adjacent_fn(cfg, params, vals, count, *args,
+                                         **kw))
+
+    dense.pair_and_collide_stride, dense.pair_and_collide = stride, adjacent
+    try:
+        run()
+    finally:
+        dense.pair_and_collide_stride, dense.pair_and_collide = \
+            stride_fn, adjacent_fn
+    return work
+
+
+def coal_ops(work):
+    """The operations of coal_work's ``work``."""
+    return (work["draws"] * OPS_PHILOX
+            + work["pairs"] * (OPS_PHILOX + OPS_PAIR)
+            + (work["live"] + work["changed"]) * OPS_VT
+            + work["changed"] * OPS_COLLIDE)
 
 
 def reset(kernels):
@@ -422,26 +488,31 @@ def main():
           flush=True)
     err = {}
 
-    # A: MPDATA, 1 and 2 fields, FCT off and on, on perturbed fields
+    # A: MPDATA, 1 and 2 fields, FCT off and on, n_iters 1-3, on perturbed
+    # fields: bitwise equal to the plain version
     rng = np.random.default_rng(0)
     like = lambda a: torch.as_tensor(a, dtype=th0.dtype, device=th0.device)
     th_p = th0 + like(rng.normal(0.0, 0.5, (NX, NZ)))
     rv_p = rv0 * (1.0 + like(rng.uniform(-0.05, 0.05, (NX, NZ))))
     err["mpdata"] = 0.0
     for fct in (False, True):
-        for n_iters in (2, 3):
+        for n_iters in (1, 2, 3):
             mp = (model.gc_x, model.gc_z, model.G, n_iters, fct)
-            k1 = mpdata.advect(th_p, *mp)
-            p1 = mpdata.advect(th_p, *mp, plain=True)
-            k2 = mpdata.advect2(th_p, rv_p, *mp)
-            p2 = mpdata.advect2(th_p, rv_p, *mp, plain=True)
-            rel = max(max_rel(k1, p1), max_rel(k2[0], p2[0]),
-                      max_rel(k2[1], p2[1]))
-            err["mpdata"] = max(err["mpdata"], max_abs(k1, p1),
-                                max_abs(k2[0], p2[0]), max_abs(k2[1], p2[1]))
-            print(f"A mpdata fct={fct} n_iters={n_iters}: max rel {rel:.2e}")
-            check(rel <= 1e-5, f"mpdata fct={fct} n_iters={n_iters}: "
-                  f"rel {rel:.2e} > 1e-5")
+            pairs = list(zip(
+                (mpdata.advect(th_p, *mp),
+                 *mpdata.advect2(th_p, rv_p, *mp)),
+                (mpdata.advect(th_p, *mp, plain=True),
+                 *mpdata.advect2(th_p, rv_p, *mp, plain=True))))
+            err["mpdata"] = max(err["mpdata"],
+                                *(max_abs(k, p) for k, p in pairs))
+            same = all(torch.equal(k, p) for k, p in pairs)
+            print(f"A mpdata fct={fct} n_iters={n_iters}: bitwise equal "
+                  f"{same}")
+            check(same, f"mpdata fct={fct} n_iters={n_iters}: kernel and "
+                  f"plain version differ")
+    print(f"A launch plan at {NX}x{NZ}: "
+          f"{mpdata._card_plan(NX, NZ, False)} (fct off), "
+          f"{mpdata._card_plan(NX, NZ, True)} (fct on)")
 
     # B: condensation, post-spin-up RH cap, from the initial population
     tha, rva = mpdata.advect2(th0, rv0, model.gc_x, model.gc_z, model.G)
@@ -540,12 +611,10 @@ def main():
         return tuple(out), ovf
 
     err["coal"] = err["coal_standalone"] = 0.0
-    cases = [(form, kcfg, pop, f"{pop} {label}")
+    cases = [(form, kcfg, pop, f"{pop} {form}{suffix}")
              for pop in populations
-             for form, kcfg, label in (("stride", cfg, "stride"),
-                                       ("sort", cfg, "sort"),
-                                       ("standalone", cfg, "standalone"),
-                                       ("stride", cfg_hall, "stride hall"))]
+             for kcfg, suffix in ((cfg, ""), (cfg_hall, " hall"))
+             for form in ("stride", "sort", "standalone")]
     for form, kcfg, pop, label in cases:
         (ko, kf), (po, pf) = (coal_call(form, plain, kcfg, pop)
                               for plain in (False, True))
@@ -567,6 +636,8 @@ def main():
               f"equal {lanes}", flush=True)
         check(rel_w <= 1e-6, f"E {label}: rw2 rel {rel_w:.2e} > 1e-6")
         check(bool(torch.equal(kf, pf)), f"E {label}: overflow flags differ")
+        check(lanes, f"E {label}: kernel and plain version differ lane by "
+              f"lane")
         check(lost > 0.0 or pop == "cloud", f"E {label}: no collision")
 
     # E: the Golovin box gate of the kernel itself
@@ -821,8 +892,12 @@ def main():
     }
     launches = dict(main_launches, coal_standalone=standalone,
                     cond_flat=flat_main["cond_flat"])
+    work_e = [coal_work(lambda: coal_call(form, True), ds.n)
+              for form in ("stride", "standalone")]
+    for form, w in zip(("stride", "standalone"), work_e):
+        print(f"E {form} work on the cloud population: {w}")
     bounds = kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, (model.gc_x,
-                           model.gc_z, model.G), kc, prt.cfg, f_kw)
+                           model.gc_z, model.G), kc, prt.cfg, f_kw, work_e)
     rows = []
     for k in _ext.KERNELS:
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
@@ -868,7 +943,8 @@ def main():
     return 0
 
 
-def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw):
+def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw,
+                  work_e):
     """{kernel: (bound_ms, bound_by)} from the inputs each kernel takes in
     this run: every input read once and every output written once at the
     memory rate, against the operations these inputs need at the float32
@@ -917,11 +993,12 @@ def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw):
     out["merge"] = bound(7 * plane + nbytes(kc[4]) + 7 * plane + cell,
                          live0 * OPS_MERGE)
     # E: six planes and five cell fields in, six (standalone: seven)
-    # planes and the row flags out; sstp_coal substeps per live SD
-    ops_e = live_s * SSTP_COAL * OPS_COAL
-    out["coal"] = bound(12 * plane + 5 * cell + n_cell, ops_e)
-    out["coal_standalone"] = bound(13 * plane + 5 * cell + n_cell,
-                                   ops_e + live_s * SSTP_COAL * OPS_VT)
+    # planes and the row flags out; the work its data needs (coal_work),
+    # and for the standalone form vt of the slots dead at load
+    out["coal"] = bound(12 * plane + 5 * cell + n_cell, coal_ops(work_e[0]))
+    out["coal_standalone"] = bound(
+        13 * plane + 5 * cell + n_cell,
+        coal_ops(work_e[1]) + (ds.n.numel() - live_s) * OPS_VT)
     # F: five SD arrays, the cell ends, ten cell fields and the cell order
     # in; rw2 and three cell fields out
     ops_f, brk, live = rootfind_ops(
@@ -965,8 +1042,10 @@ def profile(label, start, run, card, steps=20):
           f"ms/step unprofiled, device busy {busy:.3f} ms/step, busy share "
           f"{busy / wall:.3f}, device launches {sum(r[2] for r in rows):.1f}"
           f"/step ({card})")
-    for name, ms, count in rows[:14]:
-        print(f"  {ms:8.4f} ms/step  {count:6.1f}/step  {name[:70]}")
+    # the largest rows, and the port's own kernels wherever they rank
+    for i, (name, ms, count) in enumerate(rows):
+        if i < 14 or "lcp::" in name:
+            print(f"  {ms:8.4f} ms/step  {count:6.1f}/step  {name[:70]}")
 
 
 def profile_both(model_c, dense_init, model_f, flat_init, card, warm=5):

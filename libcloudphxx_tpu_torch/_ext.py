@@ -62,8 +62,11 @@ class Kernel:
         self.launches += 1
 
 
+# fields in and out, courants, G; nfields, nx, nz, n_iters, fct; the
+# launch plan (models/mpdata.py launch_plan: CTAs a cluster, columns a
+# CTA, shared bytes a CTA)
 MPDATA = Kernel(
-    "mpdata", "lcp_mpdata", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
+    "mpdata", "lcp_mpdata", [_P] * 5 + [_I] * 8,
     "libcloudphxx_tpu_torch/csrc/mpdata.cu",
     "libcloudphxx_tpu/models/mpdata.py:256 (advect2; advect :226)")
 # planes in (4), cells, rw2 out, cells out, scratch (positions, floats),
@@ -178,8 +181,8 @@ def load():
         lib = ctypes.CDLL(str(path))
         lib.lcp_error_string.argtypes = [_I]
         lib.lcp_error_string.restype = ctypes.c_char_p
-        lib.lcp_mpdata_smem_bytes.argtypes = [_I, _I, _I]
-        lib.lcp_mpdata_smem_bytes.restype = ctypes.c_size_t
+        lib.lcp_mpdata_clusters.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+        lib.lcp_mpdata_clusters.restype = _I
         _lib = lib
     return _lib
 

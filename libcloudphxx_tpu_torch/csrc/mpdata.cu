@@ -9,29 +9,56 @@
 // both the field before and after the donor pass.  Plain version:
 // models/mpdata.py _advect_body.
 //
-// What bounds it on the card: latency.  At 76x76 a field is 23 KB and a
-// pass is a few thousand cells of stencil arithmetic, while each pass
-// needs the whole result of the one before.
-// What the design does about it: one thread block per field, the whole
-// grid of that field in shared memory (field before and after, G, the two
-// courant fields and their antidiffusive successors, the FCT betas: 209 KB
-// at 76x76 with FCT, set through cudaFuncAttributeMaxDynamicSharedMemorySize),
-// and __syncthreads() between passes in place of kernel boundaries.  Fields
-// run on separate SMs in parallel.  A grid that does not fit raises in the
-// wrapper.
+// What bounds it on the card: latency and instruction count, not bytes.
+// At 76x76 a field is 23 KB and a pass a few thousand cells of stencil
+// arithmetic, while each pass needs the whole result of the one before.
+// What the design does about it: one thread-block cluster of R CTAs a
+// field (R = 16 where the card takes a cluster that large, else 8, never
+// above nx; models/mpdata.py launch_plan), so a field's passes run on R
+// SMs.  Each CTA owns a contiguous slab of x columns (a ceil split) and
+// the whole z extent, and keeps in its shared memory its slab plus one
+// halo column a side of psi before and after, G and the z courants, its
+// slab's x faces, and the FCT betas.  Between passes cluster.sync(), then
+// each CTA copies its halo columns from its neighbours' shared memory
+// (distributed shared memory; x is periodic, so rank 0's left neighbour is
+// rank R-1).  A slab's boundary x face is computed by both CTAs beside it
+// from the same inputs, so both hold the same bits.  Threads map to
+// (column, k), and no pass divides an integer.  Each cell's operations
+// follow _advect_body's order, so the kernel is bitwise equal to it.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace lcp {
 
-struct Grid {
-  int nx, nz;
-  __device__ int c(int i, int k) const { return i * nz + k; }      // cell
-  __device__ int fx(int f, int k) const { return f * nz + k; }     // x face
-  __device__ int fz(int i, int f) const { return i * (nz + 1) + f; }  // z face
-  __device__ int wrap(int i) const { return (i + nx) % nx; }
-  __device__ int clampk(int k) const { return k < 0 ? 0 : (k >= nz ? nz - 1 : k); }
+constexpr int kMaxCluster = 16;
+constexpr size_t kSmemLimit = 232448;  // models/mpdata.py SMEM_LIMIT
+
+// A CTA's view of its slab: local column 0 is the left halo, 1..w the
+// owned columns, w+1 the right halo; x faces 0..w are the faces x0..x0+w.
+// Arrays are laid out for ``cols`` columns (the plan's widest slab), so
+// every CTA of a cluster has the same offsets.
+struct Slab {
+  int nz, w;
+  __device__ int c(int ci, int k) const { return ci * nz + k; }  // cell
+  __device__ int fx(int fi, int k) const { return fi * nz + k; }  // x face
+  __device__ int fz(int ci, int f) const {                         // z face
+    return ci * (nz + 1) + f;
+  }
+  __device__ int clampk(int k) const {
+    return k < 0 ? 0 : (k >= nz ? nz - 1 : k);
+  }
 };
+
+// f(ci, k) for ci in [c0, c1) and k in [0, m), threads over (column, k)
+template <typename F>
+__device__ __forceinline__ void for2d(int c0, int c1, int m, F f) {
+  for (int ci = c0 + static_cast<int>(threadIdx.y); ci < c1;
+       ci += blockDim.y)
+    for (int k = threadIdx.x; k < m; k += blockDim.x) f(ci, k);
+}
 
 __device__ __forceinline__ float frac(float num, float den) {
   return den > 0.0f ? num / den : 0.0f;
@@ -41,27 +68,28 @@ __device__ __forceinline__ float donor(float psi_l, float psi_r, float gc) {
   return fmaxf(gc, 0.0f) * psi_l + fminf(gc, 0.0f) * psi_r;
 }
 
-// psi_new = psi - (dF_x + dF_z) / G  (mpdata.py _advect_once)
-__device__ void advect_once(const Grid& g, const float* psi, const float* gx,
+// psi_new = psi - (dF_x + dF_z) / G on the owned cells (mpdata.py
+// _advect_once)
+__device__ void advect_once(const Slab& g, const float* psi, const float* gx,
                             const float* gz, const float* G, float* out) {
-  for (int idx = threadIdx.x; idx < g.nx * g.nz; idx += blockDim.x) {
-    const int i = idx / g.nz, k = idx % g.nz;
-    const float p = psi[idx];
-    const float fl = donor(psi[g.c(g.wrap(i - 1), k)], p, gx[g.fx(i, k)]);
-    const float fr = donor(p, psi[g.c(g.wrap(i + 1), k)], gx[g.fx(i + 1, k)]);
-    const float fb = donor(psi[g.c(i, g.clampk(k - 1))], p, gz[g.fz(i, k)]);
-    const float fa = donor(p, psi[g.c(i, g.clampk(k + 1))], gz[g.fz(i, k + 1)]);
-    out[idx] = p - ((fr - fl) + (fa - fb)) / G[idx];
-  }
+  for2d(1, g.w + 1, g.nz, [&](int ci, int k) {
+    const float p = psi[g.c(ci, k)];
+    const float fl = donor(psi[g.c(ci - 1, k)], p, gx[g.fx(ci - 1, k)]);
+    const float fr = donor(p, psi[g.c(ci + 1, k)], gx[g.fx(ci, k)]);
+    const float fb = donor(psi[g.c(ci, g.clampk(k - 1))], p, gz[g.fz(ci, k)]);
+    const float fa =
+        donor(p, psi[g.c(ci, g.clampk(k + 1))], gz[g.fz(ci, k + 1)]);
+    out[g.c(ci, k)] = p - ((fr - fl) + (fa - fb)) / G[g.c(ci, k)];
+  });
 }
 
-// antidiffusive pseudo-velocities (mpdata.py _antidiff_gc)
-__device__ void antidiff(const Grid& g, const float* psi, const float* gx,
+// antidiffusive pseudo-velocities of the slab's x faces and owned z faces
+// (mpdata.py _antidiff_gc)
+__device__ void antidiff(const Slab& g, const float* psi, const float* gx,
                          const float* gz, const float* G, float* gx2,
                          float* gz2) {
-  for (int idx = threadIdx.x; idx < (g.nx + 1) * g.nz; idx += blockDim.x) {
-    const int f = idx / g.nz, k = idx % g.nz;
-    const int il = g.wrap(f - 1), ir = g.wrap(f);
+  for2d(0, g.w + 1, g.nz, [&](int fi, int k) {
+    const int il = fi, ir = fi + 1;
     const int kd = g.clampk(k - 1), ku = g.clampk(k + 1);
     const float pl = psi[g.c(il, k)], pr = psi[g.c(ir, k)];
     const float A = frac(pr - pl, pr + pl);
@@ -71,122 +99,164 @@ __device__ void antidiff(const Grid& g, const float* psi, const float* gx,
     const float B = 0.5f * frac(up - dn, up + dn);
     const float gzx = 0.25f * (gz[g.fz(il, k)] + gz[g.fz(il, k + 1)]
                                + gz[g.fz(ir, k)] + gz[g.fz(ir, k + 1)]);
-    const float c = gx[idx];
-    gx2[idx] = fabsf(c) * (1.0f - fabsf(c) / Gx) * A - c * gzx / Gx * B;
-  }
-  for (int idx = threadIdx.x; idx < g.nx * (g.nz + 1); idx += blockDim.x) {
-    const int i = idx / (g.nz + 1), f = idx % (g.nz + 1);
+    const float c = gx[g.fx(fi, k)];
+    gx2[g.fx(fi, k)] =
+        fabsf(c) * (1.0f - fabsf(c) / Gx) * A - c * gzx / Gx * B;
+  });
+  for2d(1, g.w + 1, g.nz + 1, [&](int ci, int f) {
     if (f == 0 || f == g.nz) {  // no antidiffusive flux through the walls
-      gz2[idx] = 0.0f;
-      continue;
+      gz2[g.fz(ci, f)] = 0.0f;
+      return;
     }
     const int kd = g.clampk(f - 1), ku = g.clampk(f);
-    const int iL = g.wrap(i - 1), iR = g.wrap(i + 1);
-    const float pd = psi[g.c(i, kd)], pu = psi[g.c(i, ku)];
+    const float pd = psi[g.c(ci, kd)], pu = psi[g.c(ci, ku)];
     const float A = frac(pu - pd, pu + pd);
-    const float Gz = 0.5f * (G[g.c(i, kd)] + G[g.c(i, ku)]);
-    const float right = psi[g.c(iR, ku)] + psi[g.c(iR, kd)];
-    const float left = psi[g.c(iL, ku)] + psi[g.c(iL, kd)];
+    const float Gz = 0.5f * (G[g.c(ci, kd)] + G[g.c(ci, ku)]);
+    const float right = psi[g.c(ci + 1, ku)] + psi[g.c(ci + 1, kd)];
+    const float left = psi[g.c(ci - 1, ku)] + psi[g.c(ci - 1, kd)];
     const float B = 0.5f * frac(right - left, right + left);
-    const float gxz = 0.25f * (gx[g.fx(i, kd)] + gx[g.fx(i + 1, kd)]
-                               + gx[g.fx(i, ku)] + gx[g.fx(i + 1, ku)]);
-    const float c = gz[idx];
-    gz2[idx] = fabsf(c) * (1.0f - fabsf(c) / Gz) * A - c * gxz / Gz * B;
-  }
+    const float gxz = 0.25f * (gx[g.fx(ci - 1, kd)] + gx[g.fx(ci, kd)]
+                               + gx[g.fx(ci - 1, ku)] + gx[g.fx(ci, ku)]);
+    const float c = gz[g.fz(ci, f)];
+    gz2[g.fz(ci, f)] =
+        fabsf(c) * (1.0f - fabsf(c) / Gz) * A - c * gxz / Gz * B;
+  });
 }
 
-__device__ __forceinline__ void star_extrema(const Grid& g, const float* psi,
-                                             int i, int k, float& mx,
+__device__ __forceinline__ void star_extrema(const Slab& g, const float* psi,
+                                             int ci, int k, float& mx,
                                              float& mn) {
-  const float a = psi[g.c(g.wrap(i - 1), k)], b = psi[g.c(g.wrap(i + 1), k)];
-  const float d = psi[g.c(i, g.clampk(k - 1))], u = psi[g.c(i, g.clampk(k + 1))];
-  const float p = psi[g.c(i, k)];
+  const float a = psi[g.c(ci - 1, k)], b = psi[g.c(ci + 1, k)];
+  const float d = psi[g.c(ci, g.clampk(k - 1))];
+  const float u = psi[g.c(ci, g.clampk(k + 1))];
+  const float p = psi[g.c(ci, k)];
   mx = fmaxf(fmaxf(a, b), fmaxf(fmaxf(d, u), p));
   mn = fminf(fminf(a, b), fminf(fminf(d, u), p));
 }
 
-// FCT betas (mpdata.py _fct_limit, first half): psi_n before the donor
-// pass of the last iteration, psi after it, gx2/gz2 the antidiffusive
-// courants to be limited
-__device__ void fct_betas(const Grid& g, const float* psi_n, const float* psi,
+// FCT betas of the owned cells (mpdata.py _fct_limit, first half): psi_n
+// before the donor pass of the last iteration, psi after it, gx2/gz2 the
+// antidiffusive courants to be limited
+__device__ void fct_betas(const Slab& g, const float* psi_n, const float* psi,
                           const float* gx2, const float* gz2, const float* G,
                           float* bup, float* bdn) {
-  for (int idx = threadIdx.x; idx < g.nx * g.nz; idx += blockDim.x) {
-    const int i = idx / g.nz, k = idx % g.nz;
+  for2d(1, g.w + 1, g.nz, [&](int ci, int k) {
     float mx, mn, mx_n, mn_n;
-    star_extrema(g, psi, i, k, mx, mn);
-    star_extrema(g, psi_n, i, k, mx_n, mn_n);
+    star_extrema(g, psi, ci, k, mx, mn);
+    star_extrema(g, psi_n, ci, k, mx_n, mn_n);
     mx = fmaxf(mx, mx_n);
     mn = fminf(mn, mn_n);
-    const float p = psi[idx];
-    const float fl = donor(psi[g.c(g.wrap(i - 1), k)], p, gx2[g.fx(i, k)]);
-    const float fr = donor(p, psi[g.c(g.wrap(i + 1), k)], gx2[g.fx(i + 1, k)]);
-    const float fb = donor(psi[g.c(i, g.clampk(k - 1))], p, gz2[g.fz(i, k)]);
-    const float fa = donor(p, psi[g.c(i, g.clampk(k + 1))], gz2[g.fz(i, k + 1)]);
+    const float p = psi[g.c(ci, k)];
+    const float fl = donor(psi[g.c(ci - 1, k)], p, gx2[g.fx(ci - 1, k)]);
+    const float fr = donor(p, psi[g.c(ci + 1, k)], gx2[g.fx(ci, k)]);
+    const float fb = donor(psi[g.c(ci, g.clampk(k - 1))], p, gz2[g.fz(ci, k)]);
+    const float fa =
+        donor(p, psi[g.c(ci, g.clampk(k + 1))], gz2[g.fz(ci, k + 1)]);
     const float f_in = fmaxf(fl, 0.0f) - fminf(fr, 0.0f) + fmaxf(fb, 0.0f)
                        - fminf(fa, 0.0f);
     const float f_out = fmaxf(fr, 0.0f) - fminf(fl, 0.0f) + fmaxf(fa, 0.0f)
                         - fminf(fb, 0.0f);
-    bup[idx] = frac((mx - p) * G[idx], f_in);
-    bdn[idx] = frac((p - mn) * G[idx], f_out);
-  }
+    bup[g.c(ci, k)] = frac((mx - p) * G[g.c(ci, k)], f_in);
+    bdn[g.c(ci, k)] = frac((p - mn) * G[g.c(ci, k)], f_out);
+  });
 }
 
 // FCT limit of each face by the donor's beta_dn and the receiver's beta_up
-__device__ void fct_limit(const Grid& g, const float* bup, const float* bdn,
+__device__ void fct_limit(const Slab& g, const float* bup, const float* bdn,
                           float* gx2, float* gz2) {
-  for (int idx = threadIdx.x; idx < (g.nx + 1) * g.nz; idx += blockDim.x) {
-    const int f = idx / g.nz, k = idx % g.nz;
-    const int l = g.c(g.wrap(f - 1), k), r = g.c(g.wrap(f), k);
-    const float c = gx2[idx];
+  for2d(0, g.w + 1, g.nz, [&](int fi, int k) {
+    const int l = g.c(fi, k), r = g.c(fi + 1, k);
+    const float c = gx2[g.fx(fi, k)];
     const float lim = c >= 0.0f ? fminf(1.0f, fminf(bdn[l], bup[r]))
                                 : fminf(1.0f, fminf(bup[l], bdn[r]));
-    gx2[idx] = c * lim;
-  }
-  for (int idx = threadIdx.x; idx < g.nx * (g.nz + 1); idx += blockDim.x) {
-    const int i = idx / (g.nz + 1), f = idx % (g.nz + 1);
-    const int d = g.c(i, g.clampk(f - 1)), u = g.c(i, g.clampk(f));
-    const float c = gz2[idx];
+    gx2[g.fx(fi, k)] = c * lim;
+  });
+  for2d(1, g.w + 1, g.nz + 1, [&](int ci, int f) {
+    const int d = g.c(ci, g.clampk(f - 1)), u = g.c(ci, g.clampk(f));
+    const float c = gz2[g.fz(ci, f)];
     const float lim = c >= 0.0f ? fminf(1.0f, fminf(bdn[d], bup[u]))
                                 : fminf(1.0f, fminf(bup[d], bdn[u]));
-    gz2[idx] = c * lim;
-  }
+    gz2[g.fz(ci, f)] = c * lim;
+  });
 }
 
-__global__ void __launch_bounds__(512)
+// The cluster's ring of slabs: after cluster.sync(), copy into ``a``'s
+// halo columns (len values a column, ``stride`` apart) the left
+// neighbour's last owned column and the right neighbour's first.
+struct Ring {
+  int left, right, w_left, w;
+  __device__ void halo(cg::cluster_group& cl, float* a, int stride,
+                       int len) const {
+    const float* l = cl.map_shared_rank(a, left);
+    const float* r = cl.map_shared_rank(a, right);
+    const int t = threadIdx.y * blockDim.x + threadIdx.x;
+    const int nt = blockDim.x * blockDim.y;
+    for (int k = t; k < len; k += nt) {
+      a[k] = l[w_left * stride + k];
+      a[(w + 1) * stride + k] = r[stride + k];
+    }
+  }
+};
+
+// grid (R, nfields), clusters of (R, 1, 1): CTA q of field blockIdx.y owns
+// columns [q * cols, min(nx, (q + 1) * cols))
+__global__ void __launch_bounds__(1024)
 mpdata_kernel(const float* __restrict__ psi_in, float* __restrict__ psi_out,
               const float* __restrict__ gcx, const float* __restrict__ gcz,
               const float* __restrict__ Gin, int nx, int nz, int n_iters,
-              int fct) {
+              int fct, int cols) {
   extern __shared__ float smem[];
-  const Grid g{nx, nz};
-  const int nc = nx * nz, nfx = (nx + 1) * nz, nfz = nx * (nz + 1);
+  cg::cluster_group cl = cg::this_cluster();
+  const int R = gridDim.x, q = blockIdx.x;
+  const int x0 = q * cols;
+  const int w = min(cols, nx - x0);
+  const int ql = q == 0 ? R - 1 : q - 1, qr = q == R - 1 ? 0 : q + 1;
+  const Ring ring{ql, qr, min(cols, nx - ql * cols), w};
+  const Slab g{nz, w};
+  const int nc = (cols + 2) * nz, nfx = (cols + 1) * nz,
+            nfz = (cols + 2) * (nz + 1);
   float* prev = smem;
   float* cur = prev + nc;
   float* G = cur + nc;
   float* gx = G + nc;
-  float* gz = gx + nfx;
-  float* gx2 = gz + nfz;
-  float* gz2 = gx2 + nfx;
+  float* gx2 = gx + nfx;
+  float* gz = gx2 + nfx;
+  float* gz2 = gz + nfz;
   float* bup = gz2 + nfz;  // only with fct
   float* bdn = bup + nc;
 
-  const float* src = psi_in + static_cast<size_t>(blockIdx.x) * nc;
-  for (int idx = threadIdx.x; idx < nc; idx += blockDim.x) {
-    prev[idx] = src[idx];
-    G[idx] = Gin[idx];
-  }
-  for (int idx = threadIdx.x; idx < nfx; idx += blockDim.x) gx[idx] = gcx[idx];
-  for (int idx = threadIdx.x; idx < nfz; idx += blockDim.x) gz[idx] = gcz[idx];
+  // the slab and its halo columns, x wrapped
+  const float* src = psi_in + static_cast<size_t>(blockIdx.y) * nx * nz;
+  for2d(0, w + 2, nz, [&](int ci, int k) {
+    int i = x0 + ci - 1;
+    i = i < 0 ? i + nx : (i >= nx ? i - nx : i);
+    prev[g.c(ci, k)] = src[i * nz + k];
+    G[g.c(ci, k)] = Gin[i * nz + k];
+  });
+  for2d(0, w + 2, nz + 1, [&](int ci, int f) {
+    int i = x0 + ci - 1;
+    i = i < 0 ? i + nx : (i >= nx ? i - nx : i);
+    gz[g.fz(ci, f)] = gcz[i * (nz + 1) + f];
+  });
+  for2d(0, w + 1, nz, [&](int fi, int k) {
+    gx[g.fx(fi, k)] = gcx[(x0 + fi) * nz + k];
+  });
   __syncthreads();
 
   advect_once(g, prev, gx, gz, G, cur);
-  __syncthreads();
+  if (n_iters > 1) {
+    cl.sync();
+    ring.halo(cl, cur, nz, nz);
+    __syncthreads();
+  }
   for (int it = 1; it < n_iters; ++it) {
     antidiff(g, cur, gx, gz, G, gx2, gz2);
     __syncthreads();
     if (fct) {
       fct_betas(g, prev, cur, gx2, gz2, G, bup, bdn);
+      cl.sync();
+      ring.halo(cl, bup, nz, nz);
+      ring.halo(cl, bdn, nz, nz);
       __syncthreads();
       fct_limit(g, bup, bdn, gx2, gz2);
       __syncthreads();
@@ -194,34 +264,112 @@ mpdata_kernel(const float* __restrict__ psi_in, float* __restrict__ psi_out,
     float* t = gx; gx = gx2; gx2 = t;
     t = gz; gz = gz2; gz2 = t;
     advect_once(g, cur, gx, gz, G, prev);  // prev is no longer needed
-    __syncthreads();
     t = prev; prev = cur; cur = t;
+    if (it + 1 < n_iters) {  // the next antidiff reads both halos
+      cl.sync();
+      ring.halo(cl, cur, nz, nz);
+      ring.halo(cl, gz, nz + 1, nz + 1);
+      __syncthreads();
+    }
   }
 
-  float* dst = psi_out + static_cast<size_t>(blockIdx.x) * nc;
-  for (int idx = threadIdx.x; idx < nc; idx += blockDim.x) dst[idx] = cur[idx];
+  __syncthreads();
+  float* dst = psi_out + static_cast<size_t>(blockIdx.y) * nx * nz;
+  for2d(1, w + 1, nz, [&](int ci, int k) {
+    dst[(x0 + ci - 1) * nz + k] = cur[g.c(ci, k)];
+  });
+  cl.sync();  // no CTA leaves while a neighbour may still read its memory
+}
+
+// Dynamic shared memory a CTA of ``cols`` columns needs (models/mpdata.py
+// launch_plan counts the same).
+size_t smem_bytes(int cols, int nz, int fct) {
+  const size_t nc = static_cast<size_t>(cols + 2) * nz;
+  const size_t faces = static_cast<size_t>(cols + 1) * nz
+                       + static_cast<size_t>(cols + 2) * (nz + 1);
+  return ((fct ? 5 : 3) * nc + 2 * faces) * sizeof(float);
+}
+
+dim3 block_of(int cols, int nz) {
+  const int bx = min(((nz + 1 + 31) / 32) * 32, 1024);
+  const int by = max(1, min(cols + 1, 1024 / bx));
+  return dim3(bx, by);
+}
+
+// Check a plan (R CTAs of ``cols`` columns, ``smem`` bytes each) against
+// the grid, set the kernel's attributes and fill the launch config.
+cudaError_t configure(int nfields, int nx, int nz, int fct, int R, int cols,
+                      int smem, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute& attr, cudaStream_t stream) {
+  if (nfields < 1 || nx < 1 || nz < 1 || R < 1 || R > kMaxCluster
+      || cols < 1 || static_cast<long long>(R) * cols < nx
+      || static_cast<long long>(R - 1) * cols >= nx
+      || smem < 0 || static_cast<size_t>(smem) != smem_bytes(cols, nz, fct)
+      || static_cast<size_t>(smem) > kSmemLimit)
+    return cudaErrorInvalidValue;
+  // the attributes only grow, so each is set once per size (setting them
+  // at every launch costs more host time than the kernel takes)
+  static int smem_set = 0;
+  static bool wide_set = false;
+  cudaError_t err = cudaSuccess;
+  if (smem > smem_set) {
+    err = cudaFuncSetAttribute(mpdata_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  if (R > 8 && !wide_set) {
+    err = cudaFuncSetAttribute(
+        mpdata_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    wide_set = true;
+  }
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = R;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(R, nfields);
+  cfg.blockDim = block_of(cols, nz);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace lcp
 
-// Dynamic shared memory the kernel needs for an nx x nz grid.
-extern "C" size_t lcp_mpdata_smem_bytes(int nx, int nz, int fct) {
-  const size_t nc = static_cast<size_t>(nx) * nz;
-  const size_t faces = static_cast<size_t>(nx + 1) * nz
-                       + static_cast<size_t>(nx) * (nz + 1);
-  return ((fct ? 5 : 3) * nc + 2 * faces) * sizeof(float);
+// How many clusters of the plan the card can hold at once (0: the plan
+// does not fit, e.g. a cluster of 16 where the card takes at most 8).
+extern "C" int lcp_mpdata_clusters(int nx, int nz, int fct, int R, int cols,
+                                   int smem, int* count) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      lcp::configure(1, nx, nz, fct, R, cols, smem, cfg, attr, nullptr);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(count, lcp::mpdata_kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused size is an answer, not a sticky error
+    *count = 0;
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" int lcp_mpdata(const float* psi_in, float* psi_out, const float* gcx,
                           const float* gcz, const float* G, int nfields,
-                          int nx, int nz, int n_iters, int fct,
-                          cudaStream_t stream) {
-  const size_t smem = lcp_mpdata_smem_bytes(nx, nz, fct);
-  cudaError_t err = cudaFuncSetAttribute(
-      lcp::mpdata_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                          int nx, int nz, int n_iters, int fct, int R,
+                          int cols, int smem, cudaStream_t stream) {
+  if (n_iters < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      lcp::configure(nfields, nx, nz, fct, R, cols, smem, cfg, attr, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lcp::mpdata_kernel<<<nfields, 512, smem, stream>>>(psi_in, psi_out, gcx, gcz,
-                                                     G, nx, nz, n_iters, fct);
+  err = cudaLaunchKernelEx(&cfg, lcp::mpdata_kernel, psi_in, psi_out, gcx,
+                           gcz, G, nx, nz, n_iters, fct, cols);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

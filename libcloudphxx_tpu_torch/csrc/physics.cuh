@@ -7,7 +7,7 @@
 //   closure        lgrngn/hskpng.py hskpng_Tpr
 //   vt_beard77     lgrngn/vterm.py vt_in_kernel
 //   kernel_value   lgrngn/coalescence.py kernel_value
-//   shima          lgrngn/coalescence.py shima
+//   collision_count, collide   lgrngn/coalescence.py shima
 // The library is built with -fmad=false, so no multiply-add is contracted
 // that the plain version rounds twice.  Where PyTorch on the card divides a
 // tensor by a Python number it multiplies by the float reciprocal, and it
@@ -238,29 +238,40 @@ struct Drop {
 };
 
 struct Collision {
-  bool happened, overflow;
+  bool happened;
   float n_big_new, rw2_small_new, rd3_small_new, kpa_small_new;
 };
 
-// lgrngn/coalescence.py shima for one pair (a, b): ``ok`` whether it is a
-// pair, ``a_big`` whether a has the larger multiplicity, ``u`` the pair's
-// draw, ``dt_dv`` dt / dv, ``scale`` the Shima scale factor
-__device__ __forceinline__ Collision shima(const CollisionKernel& k,
-                                           const Drop& a, const Drop& b,
-                                           bool a_big, bool ok, float u,
-                                           float dt_dv, float scale) {
-  Collision s;
+// lgrngn/coalescence.py shima for one pair (a, b), in two halves so that a
+// caller can skip the second where no pair of its warp collides.  The
+// first: the pair's collision count before the multiplicity cap, and
+// whether it asked for more than one (``overflow``); ``u`` the pair's
+// draw, ``dt_dv`` dt / dv, ``scale`` the Shima scale factor.
+__device__ __forceinline__ float collision_count(const CollisionKernel& k,
+                                                 const Drop& a, const Drop& b,
+                                                 float u, float dt_dv,
+                                                 float scale,
+                                                 bool& overflow) {
   const float K = kernel_value(k, a.n, b.n, a.rw2, b.rw2, a.vt, b.vt);
-  const float prob = ok ? dt_dv * scale * K : 0.0f;
-  float col_no = floorf(prob);
-  s.overflow = ok && col_no >= 1.0f;
-  col_no = col_no + (u < prob - col_no ? 1.0f : 0.0f);
-  const Drop& big = a_big ? a : b;
-  const Drop& small = a_big ? b : a;
+  const float prob = dt_dv * scale * K;
+  const float col_no = floorf(prob);
+  overflow = col_no >= 1.0f;
+  return col_no + (u < prob - col_no ? 1.0f : 0.0f);
+}
+
+// The second half, for a pair whose count is above 0: the outcome of
+// ``col_no`` capped by the multiplicities; ``a_big`` whether a has the
+// larger multiplicity.
+__device__ __forceinline__ Collision collide(const Drop& a, const Drop& b,
+                                            bool a_big, float col_no) {
+  Collision s;
+  // by value: a reference chosen at run time would put a and b on the stack
+  const Drop big = a_big ? a : b;
+  const Drop small = a_big ? b : a;
   const float ratio =
       small.n > 0.0f ? floorf(big.n / fmaxf(small.n, 1.0f)) : 0.0f;
   col_no = fminf(col_no, ratio);
-  s.happened = ok && col_no > 0.0f;
+  s.happened = col_no > 0.0f;
   s.n_big_new = big.n - col_no * small.n;
   const float rw3 =
       col_no * big.rw2 * sqrtf(big.rw2) + small.rw2 * sqrtf(small.rw2);

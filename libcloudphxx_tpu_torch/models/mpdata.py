@@ -12,16 +12,23 @@ donor pass.
 Fields: psi (nx, nz) cell-centred; gc_x (nx+1, nz) and gc_z (nx, nz+1)
 G-weighted Courant numbers on the staggered faces; G (nx, nz).
 
-On the card ``advect``/``advect2`` launch kernel A (csrc/mpdata.cu); on the
-CPU they run ``_advect_body``, its plain version.
+On the card ``advect``/``advect2`` launch kernel A (csrc/mpdata.cu), one
+thread-block cluster a field as ``launch_plan`` lays it out; on the CPU
+they run ``_advect_body``, its plain version.
 """
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _ext
 
-# dynamic shared memory one block can opt into on sm_90 (227 KB)
-_SMEM_LIMIT = 232448
+# dynamic shared memory one CTA can opt into on sm_90 (227 KB)
+SMEM_LIMIT = 232448
+# the largest cluster kernel A asks for (a non-portable size on sm_90)
+MAX_CLUSTER = 16
 
 
 def _frac(num, den):
@@ -144,6 +151,50 @@ def _advect_body(psi, gc_x, gc_z, G, n_iters, fct):
     return psi
 
 
+class LaunchPlan(NamedTuple):
+    """Kernel A's launch for one field: a cluster of ``ctas`` CTAs, each
+    owning ``cols`` x columns (the last one possibly fewer) and the whole
+    z extent, with ``smem`` bytes of shared memory."""
+    ctas: int
+    cols: int
+    smem: int
+
+
+def launch_plan(nx, nz, fct, max_cluster=MAX_CLUSTER):
+    """Kernel A's plan for an nx x nz grid: at most ``max_cluster`` CTAs
+    and never more than nx, columns split by ceiling and the cluster cut to
+    the slabs that hold a column.  A CTA keeps its slab and a halo column a
+    side: psi before and after, G, the z courants twice, its x faces twice,
+    and with ``fct`` the two betas (csrc/mpdata.cu smem_bytes).  Raises if
+    that does not fit a CTA's shared memory."""
+    ctas = max(1, min(max_cluster, nx))
+    cols = -(-nx // ctas)
+    ctas = -(-nx // cols)
+    cells, x_faces, z_faces = (cols + 2) * nz, (cols + 1) * nz, \
+        (cols + 2) * (nz + 1)
+    smem = 4 * ((5 if fct else 3) * cells + 2 * x_faces + 2 * z_faces)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"mpdata: a {nx}x{nz} grid needs {smem} bytes of shared memory a "
+            f"CTA ({cols} columns of {nx} in each of {ctas} CTAs), a Hopper "
+            f"CTA takes at most {SMEM_LIMIT}")
+    return LaunchPlan(ctas, cols, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_plan(nx, nz, fct):
+    """launch_plan with a cluster of 16 CTAs where the card holds one, else
+    of 8 (the portable size)."""
+    plan = launch_plan(nx, nz, fct)
+    if plan.ctas > 8:
+        count = ctypes.c_int(0)
+        _ext.load().lcp_mpdata_clusters(nx, nz, int(fct), *plan,
+                                        ctypes.byref(count))
+        if count.value < 1:
+            plan = launch_plan(nx, nz, fct, max_cluster=8)
+    return plan
+
+
 def _mpdata_cuda(fields, gc_x, gc_z, G, n_iters, fct):
     """Kernel A on a (nfields, nx, nz) stack of fields."""
     nf, nx, nz = fields.shape
@@ -155,15 +206,11 @@ def _mpdata_cuda(fields, gc_x, gc_z, G, n_iters, fct):
             f"{tuple(G.shape)} do not fit a {nx}x{nz} grid")
     if n_iters < 1:
         raise ValueError(f"mpdata: n_iters must be >= 1, got {n_iters}")
-    smem = _ext.load().lcp_mpdata_smem_bytes(nx, nz, int(fct))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"mpdata: a {nx}x{nz} grid needs {smem} bytes of shared memory, "
-            f"a Hopper block takes at most {_SMEM_LIMIT}")
+    plan = _card_plan(nx, nz, bool(fct))
     out = torch.empty_like(fields)
     _ext.MPDATA.launch(fields.data_ptr(), out.data_ptr(), gc_x.data_ptr(),
                        gc_z.data_ptr(), G.data_ptr(), nf, nx, nz,
-                       int(n_iters), int(fct))
+                       int(n_iters), int(fct), *plan)
     return out
 
 

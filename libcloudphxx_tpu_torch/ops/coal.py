@@ -39,7 +39,7 @@ from ..lgrngn.enums import kernel_t
 from ..lgrngn.vterm import require_kernel_vt, vt_in_kernel
 from . import philox
 
-MAX_CAP = 512        # one thread per lane: kernel E's __launch_bounds__
+MAX_CAP = 512        # kernel E: 16 register slots a lane of a warp a row
 PAIRINGS = ("stride", "sort")
 
 

@@ -324,6 +324,46 @@ def test_coal_resident_plain_matches_jax_loop(name, pairing):
     assert tops.n_strides_of(64) == 5                  # two stride cycles
 
 
+def _emptying_rows(rows=8, cap=64, seed=60):
+    """Rows in which every pair collides at once and the big SD's
+    multiplicity is an exact multiple of the small one's, so a collision
+    leaves it at n == 0 in the middle of a stride cycle: equal
+    multiplicities (ratio 1) in the even rows, powers of two in the odd
+    ones, dead lanes among the droplets, and a tiny cell volume."""
+    rng = np.random.default_rng(seed)
+    n, rw2, rd3, kpa, _ = _population(rng, rows, cap, dead=0.2)
+    alive = n > 0
+    n[0::2] = np.where(alive[0::2], 1000.0, 0.0)
+    n[1::2] = np.where(alive[1::2],
+                       1000.0 * 2.0 ** rng.integers(0, 3, (rows // 2, cap)),
+                       0.0)
+    x = rng.uniform(0.0, 100.0, (rows, cap))
+    z = rng.uniform(0.0, 100.0, (rows, cap))
+    T, p, rhod, eta, dv = _cells(rng, rows)
+    return (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv * 1e-12)
+
+
+@pytest.mark.parametrize("pairing", ["stride", "sort"])
+def test_coal_plain_where_collisions_empty_an_sd(pairing):
+    """A collision that leaves the big SD at n == 0 before the next
+    shuffle: later strides of the cycle pair live SDs with the dead one,
+    so the live SDs no longer come first.  The plain loop against the
+    loop built from the JAX functions (pair_and_collide_partners through
+    pair_and_collide_stride), fed the same draws."""
+    cfg = _cfg(kernel_t.geometric)
+    planes, cells = _emptying_rows()
+    ref = jax_coal_loop(cfg, (), SSTP, DT_LOOP, SEED, STEP, planes, cells,
+                        pairing)
+    got = tops.coal_resident(
+        port_cfg(cfg), (), SSTP, DT_LOOP, SEED, STEP,
+        *(torch.tensor(a) for a in planes + cells), pairing=pairing)
+    _check_loop(got, ref)
+    n0 = planes[0]
+    emptied = (n0 > 0) & (got[0].numpy() == 0)
+    assert emptied.sum(1).min() > 0            # every row lost SDs to n == 0
+    assert bool(got[6].all())                  # every row asked for more
+
+
 def test_coal_standalone_plain_matches_jax_loop():
     """The loop of the TPU's standalone kernel (pallas_coal.py:122-143),
     and dense.coal around it: the puddle's overflow flag and the step

@@ -4,22 +4,28 @@ version on the same card.
 chip_smoke.py checks the kernels at the GMD case's shapes (76x76 cells,
 row capacity 128).  These tests take the shapes and options that case does
 not reach: row capacity 32 (fewer lanes than a block has threads) and 256
-(more), an MPDATA grid that is not square, one field and n_iters 1, the
-euler scheme, open side walls and periodic top/bottom walls, and rain that
-fills the puddle.  Kernel B (condensation) runs at row capacity 32, 128 and
-256 (one to eight chunks of 32 droplets a warp) on rows full, half empty,
-all dead or holding one droplet, with the dead lanes after the droplets or
-among them.  Kernel E (coalescence) runs at row capacity 32, 128 and 256 in
-its three forms (stride and sort pairing, standalone) with the golovin,
-geometric, long and hall kernels, on rows that are full, half empty, all
-dead or hold one droplet.  Kernel F (the flat engine's condensation
-substep loop) runs on cell-sorted segments with an empty cell, a cell
-of 700 droplets and a cell 0 holding 5,000 dead slots,
-under the th_dry, th_std and const_p closures and with rhod substepped,
-and the flat slice runs through the public API with the kernels and with
-the plain versions.  Kernels B and F give the same bits whatever order
-the cells go to the warps in.  They also check that the wrappers refuse what the kernels do not
-take, and count one launch per call.
+(more), one field and n_iters 1, the euler scheme, open side walls and
+periodic top/bottom walls, and rain that fills the puddle.  Kernel A
+(MPDATA, a thread-block cluster a field) runs on a grid that is not square,
+on grids narrower than a full cluster (3 and 5 columns), with a last slab
+shorter than the others (77 columns) and at the GMD case's 76x76, with FCT
+on and off and n_iters 1-3, bitwise equal to its plain version.  Kernel B
+(condensation) runs at row capacity 32, 128 and 256 (one to eight chunks
+of 32 droplets a warp) on rows full, half empty, all dead or holding one
+droplet, with the dead lanes after the droplets or among them.  Kernel E
+(coalescence, a warp a row) runs at row capacity 2 to 512 in its three
+forms (stride and sort pairing, standalone) with the golovin, geometric,
+long and hall kernels, on rows that are full, half empty, all dead or hold
+one droplet, and on rows where collisions leave SDs at n == 0 between
+shuffles, bitwise equal to its plain version lane by lane.  Kernel F (the
+flat engine's condensation substep loop) runs on cell-sorted segments with
+an empty cell, a cell of 700 droplets and a cell 0 holding 5,000 dead
+slots, under the th_dry, th_std and const_p closures and with rhod
+substepped, and the flat slice runs through the public API with the
+kernels and with the plain versions.  Kernels B and F give the same bits
+whatever order the cells go to the warps in.  They also check that the
+wrappers refuse what the kernels do not take, and count one launch per
+call.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -28,11 +34,12 @@ no JAX, so there run them without the JAX test configuration:
 
 Tolerances: the kernels follow their plain versions operation for
 operation (built with -fmad=false); the bounds are those chip_smoke.py
-states (MPDATA rtol 1e-5; condensation th 2e-6, rv 2e-5, rw2 1e-5, as the
-kernels' cell sums add in another order than the plain versions'; cells,
-multiplicities, targets and overflow exact, rw2/x/z 1e-6, puddle 1e-5;
-coalescence: per cell the multiset of (n, rd3, kpa) and the overflow flags
-exact, rw2 rel 1e-6; the condensation kernels copy dead slots through).
+states (MPDATA and coalescence bitwise, and for coalescence also per
+cell the multiset of (n, rd3, kpa) and the overflow flags exact, rw2 rel
+1e-6; condensation th 2e-6, rv 2e-5, rw2 1e-5, as the kernels' cell sums
+add in another order than the plain versions'; cells, multiplicities,
+targets and overflow exact, rw2/x/z 1e-6, puddle 1e-5; the condensation
+kernels copy dead slots through).
 """
 
 import dataclasses
@@ -86,27 +93,49 @@ def model(dev, request):
     return m
 
 
-@pytest.mark.parametrize("fct", [False, True])
-@pytest.mark.parametrize("n_iters", [1, 2, 3])
-def test_mpdata_kernel_matches_plain(dev, n_iters, fct):
-    nx, nz = 12, 10
+def _mpdata_case(dev, nx, nz, seed=3):
+    """The GMD-2015 courants of an nx x nz grid, a random G and th, rv
+    fields, as contiguous float32 tensors on the card."""
     s = Setup()
     gc_x, gc_z = make_gc(s, nx, nz, s.X / nx, s.Z / nz)
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     # make_gc's gc_z is a transposed view; the kernel takes contiguous
     # tensors only
     f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),
                                     dtype=torch.float32, device=dev)
-    gc_x, gc_z = f32(gc_x), f32(gc_z)
-    G = f32(rng.uniform(0.9, 1.1, (nx, nz)))
-    th = f32(rng.uniform(285.0, 300.0, (nx, nz)))
-    rv = f32(rng.uniform(5e-3, 9e-3, (nx, nz)))
+    return (f32(gc_x), f32(gc_z), f32(rng.uniform(0.9, 1.1, (nx, nz))),
+            f32(rng.uniform(285.0, 300.0, (nx, nz))),
+            f32(rng.uniform(5e-3, 9e-3, (nx, nz))))
+
+
+def _check_mpdata(gc_x, gc_z, G, th, rv, n_iters, fct):
+    """Kernel A on one field and on two, bitwise equal to the plain
+    version, one launch a call."""
     args = (gc_x, gc_z, G, n_iters, fct)
     one = _launches(_ext.MPDATA, lambda: mpdata.advect(th, *args))
-    assert _rel(one, mpdata.advect(th, *args, plain=True)) <= 1e-5
+    assert torch.equal(one, mpdata.advect(th, *args, plain=True))
     two = _launches(_ext.MPDATA, lambda: mpdata.advect2(th, rv, *args))
     for k, p in zip(two, mpdata.advect2(th, rv, *args, plain=True)):
-        assert _rel(k, p) <= 1e-5
+        assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("fct", [False, True])
+@pytest.mark.parametrize("n_iters", [1, 2, 3])
+def test_mpdata_kernel_matches_plain(dev, n_iters, fct):
+    _check_mpdata(*_mpdata_case(dev, 12, 10), n_iters, fct)
+
+
+@pytest.mark.parametrize("fct", [False, True])
+@pytest.mark.parametrize("n_iters", [1, 2, 3])
+@pytest.mark.parametrize("nx,nz", [(3, 10), (5, 7), (77, 76), (76, 76)],
+                         ids=["nx3", "nx5", "nx77", "gmd76"])
+def test_mpdata_kernel_on_cluster_grids(dev, nx, nz, n_iters, fct):
+    """Kernel A on grids narrower than a full cluster (3 and 5 CTAs of one
+    column), with a last slab shorter than the others (77 columns in 16
+    CTAs of 5), and the GMD case's 76x76 (15 slabs of 5, one of 1)."""
+    plan = mpdata.launch_plan(nx, nz, fct)
+    assert plan.ctas == min(nx, 16)
+    _check_mpdata(*_mpdata_case(dev, nx, nz), n_iters, fct)
 
 
 def _cond_args(m, RH_max):
@@ -359,26 +388,32 @@ COAL_KERNELS = {"golovin": (kernel_t.golovin, (1500.0,)),
                 "hall": (kernel_t.hall, ())}
 
 
-@pytest.mark.parametrize("name", list(COAL_KERNELS))
-@pytest.mark.parametrize("form", ["stride", "sort", "standalone"])
-@pytest.mark.parametrize("cap", [32, 128, 256])
-def test_coal_kernel_matches_plain(coal_model, cap, form, name):
-    model = coal_model
-    kernel, params = COAL_KERNELS[name]
-    cfg = _coal_cfg(model, kernel)
-    planes, cells = _coal_rows(model.device, cap)
-    args = (cfg, params, 10, 100.0, 44, 3) + planes + cells
+def _coal_run(form, args):
+    """Kernel E in ``form`` and its plain version on ``args``: (kernel
+    out, plain out, the order (n rd3 kpa rw2 x z [vt]) of their planes)."""
     if form == "standalone":
         run = lambda plain: coal.coal_standalone(*args, plain=plain)
         k = _launches(_ext.COAL_STANDALONE, lambda: run(False))
-        p = run(True)
-        order = (0, 2, 3, 1, 5, 6, 4)      # n rd3 kpa rw2 x z vt
-    else:
-        run = lambda plain: coal.coal_resident(*args, pairing=form,
-                                               plain=plain)
-        k = _launches(_ext.COAL, lambda: run(False))
-        p = run(True)
-        order = (0, 2, 3, 1, 4, 5)         # n rd3 kpa rw2 x z
+        return k, run(True), (0, 2, 3, 1, 5, 6, 4)   # n rd3 kpa rw2 x z vt
+    run = lambda plain: coal.coal_resident(*args, pairing=form, plain=plain)
+    k = _launches(_ext.COAL, lambda: run(False))
+    return k, run(True), (0, 2, 3, 1, 4, 5)          # n rd3 kpa rw2 x z
+
+
+@pytest.mark.parametrize("name", list(COAL_KERNELS))
+@pytest.mark.parametrize("form", ["stride", "sort", "standalone"])
+@pytest.mark.parametrize("cap", [2, 8, 32, 64, 128, 256, 512])
+def test_coal_kernel_matches_plain(coal_model, cap, form, name):
+    """Kernel E at row capacity 2 to 512 (one register slot a lane, some
+    lanes holding no slot, up to 16 register slots), bitwise equal to its
+    plain version lane by lane."""
+    model = coal_model
+    kernel, params = COAL_KERNELS[name]
+    cfg = _coal_cfg(model, kernel)
+    planes, cells = _coal_rows(model.device, cap, rows=max(48, 1024 // cap))
+    args = (cfg, params, 10, 100.0, 44, 3) + planes + cells
+    k, p, order = _coal_run(form, args)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
     cpu = lambda o: tuple(o[i].cpu() for i in order)
     mk, mp = multiset(k[0].cpu(), cpu(k)[1:]), multiset(p[0].cpu(), cpu(p)[1:])
     assert mk.shape == mp.shape
@@ -393,6 +428,29 @@ def test_coal_kernel_matches_plain(coal_model, cap, form, name):
         assert not bool(p[-1][r])
     if form == "sort":                # the unsort restores x and z
         assert torch.equal(k[4], planes[4]) and torch.equal(k[5], planes[5])
+
+
+@pytest.mark.parametrize("form", ["stride", "sort", "standalone"])
+@pytest.mark.parametrize("cap", [32, 128])
+def test_coal_kernel_where_collisions_empty_an_sd(coal_model, cap, form):
+    """Every pair collides at once, and the big SD's multiplicity is an
+    exact multiple of the small one's (equal in half the rows, powers of
+    two in the others), so collisions leave SDs at n == 0 between shuffles:
+    the kernel may not take the live SDs to come first.  Bitwise equal to
+    the plain version lane by lane."""
+    model = coal_model
+    planes, cells = _coal_rows(model.device, cap, rows=16, seed=5)
+    n = planes[0]
+    mult = torch.where(torch.arange(16, device=n.device)[:, None] % 2 == 0,
+                       1000.0, 1000.0 * 2.0 ** (torch.arange(
+                           cap, device=n.device) % 3).float())
+    n = torch.where(n > 0, mult, 0.0)
+    cells = cells[:4] + (cells[4] * 1e-12,)
+    args = (_coal_cfg(model, kernel_t.geometric), (), 6, 100.0, 44, 3, n) \
+        + planes[1:] + cells
+    k, p, _ = _coal_run(form, args)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert int(((n > 0) & (k[0] == 0)).sum()) > 0     # SDs were emptied
 
 
 def test_coal_wrappers_refuse_what_the_kernel_does_not_take(coal_model):

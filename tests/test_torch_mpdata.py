@@ -73,6 +73,39 @@ def test_advect_conserves_mass():
                                rtol=1e-12)
 
 
+@pytest.mark.parametrize("fct", [False, True])
+@pytest.mark.parametrize("nx,nz", [(1, 4), (3, 10), (5, 7), (12, 10), (16, 3),
+                                   (17, 5), (76, 76), (77, 76), (200, 40),
+                                   (1000, 8)])
+def test_launch_plan_covers_the_grid(nx, nz, fct):
+    """Kernel A's plan: every column owned by exactly one CTA, slabs
+    contiguous and none empty, at most 16 CTAs and never more than nx, and
+    the shared memory a CTA needs (its slab and a halo column a side)
+    under the limit."""
+    plan = tmp.launch_plan(nx, nz, fct)
+    assert 1 <= plan.ctas <= min(tmp.MAX_CLUSTER, nx)
+    slabs = [range(q * plan.cols, min(nx, (q + 1) * plan.cols))
+             for q in range(plan.ctas)]
+    assert all(len(s) > 0 for s in slabs)
+    owned = [i for s in slabs for i in s]
+    assert owned == list(range(nx))          # contiguous, each column once
+    assert all(len(s) == plan.cols for s in slabs[:-1])
+    cols = plan.cols + 2
+    words = (5 if fct else 3) * cols * nz + 2 * (plan.cols + 1) * nz \
+        + 2 * cols * (nz + 1)
+    assert plan.smem == 4 * words <= tmp.SMEM_LIMIT
+    small = tmp.launch_plan(nx, nz, fct, max_cluster=8)
+    assert small.ctas <= min(8, nx) and small.cols >= plan.cols
+
+
+def test_launch_plan_refuses_a_grid_that_does_not_fit():
+    """A z extent so deep that one column and its halo overflow a CTA's
+    shared memory: the error names what a CTA needs."""
+    with pytest.raises(ValueError, match=r"bytes of shared memory a CTA"):
+        tmp.launch_plan(64, 4000, True)
+    tmp.launch_plan(64, 1000, True)          # still fits
+
+
 def test_advect_refuses_other_devices():
     a, _, gc_x, gc_z, G = _fields()
     meta = lambda v: torch.empty(np.shape(v), device="meta")
