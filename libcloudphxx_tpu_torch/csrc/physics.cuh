@@ -1,6 +1,6 @@
 // Device functions shared by the step kernels (cond.cu, cond_flat.cu,
 // transport.cu, coal.cu): the per-cell closure, the beard77 terminal
-// velocity, the collision kernels, the Shima collision and the block sum
+// velocity, the collision kernels and the Shima collision
 // (the condensation's per-droplet growth and root find are in
 // cond_cell.cuh).  Each follows its plain PyTorch version operation for
 // operation:
@@ -285,26 +285,6 @@ __device__ __forceinline__ Collision collide(const Drop& a, const Drop& b,
                 / s.rd3_small_new
           : small.kpa;
   return s;
-}
-
-// Sum over the block, the same on every thread; a fixed shuffle tree and a
-// fixed order over the warps, so the result repeats run to run.
-// ``scratch`` holds one value per warp plus one.
-template <typename T>
-__device__ __forceinline__ T block_sum(T v, T* scratch) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
-  __syncthreads();  // scratch may still be read from a previous call
-  if ((threadIdx.x & 31) == 0) scratch[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T s = 0;
-    for (int w = 0; w < nwarp; ++w) s += scratch[w];
-    scratch[nwarp] = s;
-  }
-  __syncthreads();
-  return scratch[nwarp];
 }
 
 }  // namespace lcp

@@ -122,8 +122,11 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
     dead slots; a droplet that moved more than one cell on an axis keeps
     its row and sets the row's flag), ``rowinfo`` (n_cell, 8) the per-row
     puddle partials (liquid volume, dry volume, liquid number, particle
-    number) and far-mover flag."""
+    number) and far-mover flag.  A slot dead at load (n == 0) comes out
+    with n = x = z = vt = 0 and target -1, as kernel C writes it; the merge
+    reads only the slots it takes, so no droplet sees that."""
     n_cell, cap = n.shape
+    live0 = n > 0
     col = lambda a: a[:, None]
     # divisions by a tensor, not a Python number: on the card PyTorch
     # turns those into multiplications by the reciprocal, which would
@@ -182,6 +185,7 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
     far = (alive & ~near).any(dim=1).to(n.dtype)
     rowinfo = torch.stack([liq_vol, dry_vol, liq_num, prt_num, far,
                            zero, zero, zero], dim=1)
+    n, x, z, vt = (torch.where(live0, a, 0.0) for a in (n, x, z, vt))
     return n, x, z, vt, tgt, rowinfo
 
 

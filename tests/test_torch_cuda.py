@@ -25,7 +25,11 @@ substepped, and the flat slice runs through the public API with the
 kernels and with the plain versions.  Kernels B and F give the same bits
 whatever order the cells go to the warps in.  They also check that the
 wrappers refuse what the kernels do not take, and count one launch per
-call.
+call.  Kernels C (transport) and D (merge, a warp a row each) run at row
+capacity 2 to 512 in their scalar-slot and 16-byte forms, on a 3-column
+grid and an 8x6 one with all-dead rows, far movers, the puddle and rows
+that receive more droplets than they hold, bitwise equal to their plain
+versions in every slot.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -37,9 +41,10 @@ operation (built with -fmad=false); the bounds are those chip_smoke.py
 states (MPDATA and coalescence bitwise, and for coalescence also per
 cell the multiset of (n, rd3, kpa) and the overflow flags exact, rw2 rel
 1e-6; condensation th 2e-6, rv 2e-5, rw2 1e-5, as the kernels' cell sums
-add in another order than the plain versions'; cells, multiplicities,
-targets and overflow exact, rw2/x/z 1e-6, puddle 1e-5; the condensation
-kernels copy dead slots through).
+add in another order than the plain versions'; transport and merge
+bitwise in every slot, far flags and drops exact, the puddle partials
+1e-5 as they add in another order; the condensation kernels copy dead
+slots through).
 """
 
 import dataclasses
@@ -47,7 +52,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import flat_cond_case, multiset
+from torch_parity import flat_cond_case, multiset, transport_case
 
 from libcloudphxx_tpu_torch import Kinematic2D, _ext
 from libcloudphxx_tpu_torch.lgrngn import as_t, dense, kernel_t, vt_t
@@ -250,11 +255,35 @@ VARIANTS = {
 }
 
 
+def _check_transport_merge(cfg, n, rw2, rd3, kpa, x, z, cells):
+    """Kernel C, then kernel D on C's output, against the plain versions:
+    n, x, z, vt and the targets of every slot bitwise, the far-mover flag
+    of every row exact and its puddle partials rel 1e-5 (summed in another
+    order); then the seven merged planes lane by lane and the drops of
+    every row bitwise.  Returns the plain versions' (C, D) results."""
+    args = (cfg, 1.0, True, n, rw2, rd3, x, z) + tuple(cells)
+    kc = _launches(_ext.TRANSPORT, lambda: step.transport(*args))
+    pc = step.transport(*args, plain=True)
+    for a, b in zip(kc[:5], pc[:5]):         # n x z vt targets
+        assert torch.equal(a, b)
+    assert torch.equal(kc[5][:, 4], pc[5][:, 4])          # far-mover rows
+    assert torch.allclose(kc[5][:, :4], pc[5][:, :4], rtol=1e-5, atol=0.0)
+    planes = lambda c: (c[0], rw2, rd3, kpa, c[3], c[1], c[2], c[4])
+    kd = _launches(_ext.MERGE, lambda: step.rebin_x(cfg, *planes(kc)))
+    pd = step.rebin_x(cfg, *planes(pc), plain=True)
+    for a, b in zip(kd, pd):                 # seven planes, then the drops
+        assert torch.equal(a, b)
+    # lanes past each row's last droplet are zero in every plane
+    dead = kd[0] == 0
+    assert all(float(p[dead].abs().sum()) == 0.0 for p in kd[1:7])
+    return pc, pd
+
+
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_transport_and_merge_kernels_match_plain(model, variant):
-    """Kernel C, then kernel D on C's output, against the plain versions:
-    the same targets, far-mover flags and puddle partials, and per cell the
-    same multiset of droplets (lane order is free but fixed)."""
+    """Kernels C and D on the 8x8 GMD case at row capacity 32 and 256, with
+    the courants scaled up so that droplets cross cell faces, under each
+    scheme and wall option, bitwise equal to their plain versions."""
     over, rain = VARIANTS[variant]
     cfg = dataclasses.replace(model.cfg, **over)
     d = model.dense_state
@@ -264,34 +293,41 @@ def test_transport_and_merge_kernels_match_plain(model, variant):
         n = torch.where(alive, 2.0, 0.0)
         rw2 = torch.where(alive, 1e-6, 0.0)
         z = torch.where(alive, cfg.z0 + 20.0 * (z / cfg.z1), z)
-    # the courants scaled up so that droplets cross cell faces
     C = tuple(4.0 * c for c in dense._row_courants(cfg, d))
-    args = (cfg, 1.0, True, n, rw2, d.rd3, d.x, z, d.T, d.p, d.rhod,
-            d.eta) + C
-    kc = _launches(_ext.TRANSPORT, lambda: step.transport(*args))
-    pc = step.transport(*args, plain=True)
-    assert torch.equal(kc[0], pc[0])         # n after the walls
-    assert torch.equal(kc[4], pc[4])         # target rows
-    for a, b in zip(kc[1:4], pc[1:4]):       # x, z, vt
-        assert float(torch.abs(a - b).max()) <= 1e-6 * float(b.abs().max())
-    info_k, info_p = kc[5].sum(0), pc[5].sum(0)
-    assert float(info_k[4]) == float(info_p[4])       # far-mover rows
-    assert torch.allclose(info_k[:4], info_p[:4], rtol=1e-5, atol=0.0)
+    pc, pd = _check_transport_merge(cfg, n, rw2, d.rd3, d.kpa, d.x, z,
+                                    (d.T, d.p, d.rhod, d.eta) + C)
+    assert int((pd[0] > 0).sum()) > 0
     if rain and not cfg.periodic_topbot_walls:
-        assert float(info_p[3]) > 0                   # the puddle filled
+        assert float(pc[5][:, 3].sum()) > 0               # the puddle filled
 
-    planes = lambda c: (c[0], rw2, d.rd3, d.kpa, c[3], c[1], c[2], c[4])
-    kd = _launches(_ext.MERGE, lambda: step.rebin_x(cfg, *planes(kc)))
-    pd = step.rebin_x(cfg, *planes(pc), plain=True)
-    cpu = lambda o: tuple(t.cpu() for t in (o[2], o[3], o[1], o[5], o[6]))
-    mk, mp = multiset(kd[0].cpu(), cpu(kd)), multiset(pd[0].cpu(), cpu(pd))
-    assert mk.shape == mp.shape and mk.shape[0] > 0
-    np.testing.assert_array_equal(mk[:, :4], mp[:, :4])  # cell, n, rd3, kpa
-    np.testing.assert_allclose(mk[:, 4:], mp[:, 4:], rtol=1e-6)
-    assert torch.equal(kd[7], pd[7])         # drops per row
-    # lanes past each row's last droplet are zero in every plane
-    dead = kd[0] == 0
-    assert all(float(p[dead].abs().sum()) == 0.0 for p in kd[1:7])
+
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("nx,nz", [(3, 4), (8, 6)], ids=["nx3", "8x6"])
+@pytest.mark.parametrize("cap", [2, 32, 100, 128, 256, 512])
+def test_transport_and_merge_kernels_on_synthetic_rows(dev, cap, nx, nz,
+                                                      misaligned):
+    """Kernels C and D at row capacity 2 to 512 (the scalar-slot form below
+    128 and at 100, the 16-byte form at 128, 256 and 512, and the scalar
+    form again where a plane is not 16-byte aligned), on a 3-column grid
+    and an 8x6 one: rows all dead, full, half empty, with dead slots among
+    the droplets, far movers, droplets falling into the puddle, and rows
+    receiving more droplets than they hold (drops > 0); bitwise equal to
+    their plain versions."""
+    cfg, planes, cells = transport_case(nx, nz, cap, device=dev,
+                                        dtype=torch.float32)
+    if misaligned:  # the same values 4 bytes past a 16-byte boundary
+        buf = torch.empty(planes[1].numel() + 1, dtype=torch.float32,
+                          device=dev)
+        rw2 = buf[1:].view(planes[1].shape)
+        rw2.copy_(planes[1])
+        planes = planes[:1] + (rw2,) + planes[2:]
+    pc, pd = _check_transport_merge(cfg, *planes, cells)
+    assert not bool((planes[0][0] > 0).any())              # an all-dead row
+    assert float(pd[7].sum()) > 0                           # drops
+    assert float(pc[5][:, 3].sum()) > 0                     # the puddle
+    if nz >= 4 and cap >= 32:
+        assert float(pc[5][:, 4].sum()) > 0                 # far movers
 
 
 def test_slice_kernels_match_plain(dev):

@@ -25,14 +25,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import multiset, port_cfg, port_state, t
+from torch_parity import multiset, port_cfg, port_state, t, transport_case
 
 from libcloudphxx_tpu import lgrngn
 from libcloudphxx_tpu.lgrngn import dense as jdense
 from libcloudphxx_tpu.lgrngn import vterm as jvterm
 from libcloudphxx_tpu.lgrngn.state import OUT_PRTCL_NUM
 from libcloudphxx_tpu.models import Kinematic2D
+from libcloudphxx_tpu_torch import Kinematic2D as TKinematic2D
 from libcloudphxx_tpu_torch.lgrngn import dense as tdense
+from libcloudphxx_tpu_torch.lgrngn import vt_t as tvt_t
 from libcloudphxx_tpu_torch.ops import step as tstep
 
 
@@ -192,3 +194,104 @@ def test_rebin_x_plain_takes_neighbours_in_order():
     assert got[6].tolist() == [ids[0, 0].item(), 0.0]
     assert float(got.sum()) == float(got[4].sum() + got[6].sum())
     assert drops.tolist() == [0, 0, 0, 0, 1, 0, 0, 0, 0]
+
+
+# -------------------------------------------- kernel C's dead slots, kernel D
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("nx,nz", [(3, 4), (8, 6)], ids=["nx3", "8x6"])
+def test_transport_plain_zeroes_the_slots_dead_at_load(nx, nz, dtype):
+    """A slot dead at load (n == 0) comes out of transport_plain with n = x
+    = z = vt = 0 and target -1, as kernel C writes it, whatever it held;
+    what a dead slot holds reaches no other output."""
+    cfg, planes, cells = transport_case(nx, nz, 16, dtype=dtype)
+    n, rw2, rd3, kpa, x, z = planes
+    dead = n == 0
+    assert bool(dead.any()) and bool((~dead).any())
+    out = tstep.transport(cfg, 1.0, True, n, rw2, rd3, x, z, *cells)
+    for a in out[:4]:                                   # n, x, z, vt
+        assert a.dtype == dtype and bool((a[dead] == 0).all())
+    assert bool((out[4][dead] == -1).all())
+    assert bool((out[0][~dead] > 0).any())
+    rng = np.random.default_rng(1)
+    junk = lambda a: torch.where(dead, torch.as_tensor(
+        rng.uniform(1e-12, 1e3, a.shape), dtype=dtype), a)
+    again = tstep.transport(cfg, 1.0, True, n, junk(rw2), junk(rd3),
+                            junk(x), junk(z), *cells, plain=True)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rain", [False, True], ids=["cloud", "rain"])
+def test_dead_slot_contract_leaves_the_merge_unchanged(rain):
+    """The merge after transport_plain takes the same droplets to the same
+    lanes whether the slots dead at load carry zeros (kernel C's contract)
+    or, as before it, the x, z and vt computed from what they held: on the
+    8x8 GMD case with the courants scaled up so that droplets cross faces,
+    and with mm drops near the ground (the puddle fills)."""
+    m = TKinematic2D(nx=8, nz=8, sd_conc=24, sstp_cond=3,
+                     n_sd_max=24 * 64, terminal_velocity=tvt_t.beard77,
+                     device="cpu", dtype=torch.float64)
+    cfg, d = m.cfg, m.dense_state
+    n, rw2, z = d.n, d.rw2, d.z
+    if rain:
+        live = n > 0
+        n = torch.where(live, 2.0, 0.0)
+        rw2 = torch.where(live, 1e-6, 0.0)
+        z = torch.where(live, cfg.z0 + 20.0 * (z / cfg.z1), z)
+    C = tuple(4.0 * c for c in tdense._row_courants(cfg, d))
+    cells = (d.T, d.p, d.rhod, d.eta) + C
+    out = tstep.transport(cfg, 1.0, True, n, rw2, d.rd3, d.x, z, *cells)
+    # the x, z and vt of every slot as computed regardless of n
+    every = tstep.transport(cfg, 1.0, True, torch.ones_like(n), rw2, d.rd3,
+                            d.x, z, *cells)
+    dead = n == 0
+    assert bool(dead.any())
+    before = [torch.where(dead, b, a) for a, b in zip(out[1:4], every[1:4])]
+    merge = lambda x, z, vt: tstep.rebin_x(cfg, out[0], rw2, d.rd3, d.kpa,
+                                           vt, x, z, out[4])
+    now, then = merge(*out[1:4]), merge(*before)
+    for a, b in zip(now, then):
+        assert torch.equal(a, b)
+    ms = lambda o: multiset(o[0], (o[2], o[3], o[1], o[5], o[6]))
+    np.testing.assert_array_equal(ms(now), ms(then))
+    assert ms(now).shape[0] > 0
+    if rain:
+        assert float(out[5][:, 3].sum()) > 0
+
+
+@pytest.mark.parametrize("cap", [3, 5])
+def test_rebin_x_plain_order_with_drops(cap):
+    """At a row capacity that is not a multiple of 4, a crowded row takes
+    its own droplets first, then the MERGE_SOURCES order (below, above,
+    left, ...), slot order within each source, and counts the droplets
+    that do not fit; the rows that lost droplets are packed from lane 0."""
+    from libcloudphxx_tpu_torch.lgrngn.state import StaticConfig
+    cfg = StaticConfig(n_dims=2, nx=3, ny=1, nz=3, n_cell=9, n_sd_max=9 * cap,
+                       dx=1.0, dy=1.0, dz=1.0, x0=0.0, x1=3.0, y0=0.0, y1=1.0,
+                       z0=0.0, z1=3.0, dt=1.0, sstp_cond=1, sstp_coal=1,
+                       th_dry=True, const_p=False, RH_formula=0,
+                       adve_scheme=0, terminal_velocity=2, kernel=0,
+                       exact_sstp_cond=False, variable_dt=False,
+                       sedi_switch=True, coal_switch=False,
+                       turb_cond_switch=False, open_side_walls=False,
+                       periodic_topbot_walls=False)
+    tgt = torch.full((9, cap), -1, dtype=torch.int32)
+    # row 4 is cell (1, 1); its sources in order: 4 (own), 3 (below),
+    # 5 (above), 1 (left), 0, 2, 7 (right), 6, 8
+    sends = [(1, cap - 1), (7, 0), (5, 1), (3, 0), (3, cap - 1), (4, 1),
+             (4, 2)]
+    for row, lane in sends:
+        tgt[row, lane] = 4
+    tgt[0, 0] = 0                                   # stays: row 0 keeps it
+    ids = torch.arange(9 * cap, dtype=torch.float64).reshape(9, cap) + 1.0
+    n = torch.where(tgt >= 0, ids, 0.0)
+    out = tstep.rebin_x(cfg, *(n,) * 7, tgt)
+    order = [(4, 1), (4, 2), (3, 0), (3, cap - 1), (5, 1), (1, cap - 1),
+             (7, 0)]
+    want = [float(ids[r, l]) for r, l in order]
+    for plane in out[:7]:
+        assert plane[4].tolist() == want[:cap]
+        assert plane[0].tolist() == [1.0] + [0.0] * (cap - 1)
+        assert float(plane.sum()) == float(plane[4].sum() + plane[0].sum())
+    assert out[7].tolist() == [0.0] * 4 + [len(want) - cap] + [0.0] * 4

@@ -122,6 +122,61 @@ def port_flat_state(jax_state, dtype=torch.float64):
     return state_from_numpy(arrays, "cpu", dtype)
 
 
+def transport_case(nx, nz, cap, seed=0, device="cpu", dtype=torch.float64):
+    """The inputs of ops/step.transport and rebin_x on a synthetic grid of
+    nx x nz cells of 20 m at row capacity ``cap``: rows at random
+    occupancy, the first all dead, the second and that of cell (1, 0)
+    full, the dead slots of every other row scattered among its droplets.
+    Each droplet sits in its own cell or in a neighbour's (x-periodic); a
+    few sit two rows up or down (far movers) or, in the bottom row (slot 0
+    always), under the floor (the puddle); and the rows around cell (1, 1)
+    send nine in ten of their droplets there, more than a row holds.  Small
+    courants, droplets of 1-50 um.  Returns (cfg, planes (n, rw2, rd3, kpa,
+    x, z), cell fields (T, p, rhod, eta, C_l, C_r, C_b, C_a))."""
+    from libcloudphxx_tpu_torch.lgrngn import opts_init_t, vt_t
+    from libcloudphxx_tpu_torch.lgrngn.state import StaticConfig
+    rng = np.random.default_rng(seed + 1000 * cap + 10 * nx + nz)
+    oi = opts_init_t()
+    oi.nx, oi.nz, oi.dx, oi.dz = nx, nz, 20.0, 20.0
+    oi.x1, oi.z1, oi.dt = 20.0 * nx, 20.0 * nz, 1.0
+    oi.terminal_velocity = vt_t.beard77
+    cfg = StaticConfig.from_opts_init(oi)
+    n_cell = nx * nz
+    count = rng.integers(0, cap + 1, n_cell)
+    count[:2] = (0, cap)
+    count[nz] = cap       # cell (1, 0): a full bottom row
+    alive = np.arange(cap)[None, :] < count[:, None]
+    alive[1::2] = np.stack([rng.permutation(a) for a in alive[1::2]])
+    i = np.repeat(np.arange(n_cell) // nz, cap).reshape(n_cell, cap)
+    k = np.repeat(np.arange(n_cell) % nz, cap).reshape(n_cell, cap)
+    u = rng.random((n_cell, cap))
+    ti = np.where(u < 0.3, i + rng.integers(-1, 2, (n_cell, cap)), i) % nx
+    tk = np.clip(np.where(u < 0.3, k + rng.integers(-1, 2, (n_cell, cap)),
+                          k), 0, nz - 1)
+    far = (u > 0.97) & (nz >= 4)
+    tk = np.where(far, np.where(k + 2 < nz, k + 2, k - 2), tk)
+    hot = (np.abs(i - 1) <= 1) & (np.abs(k - 1) <= 1) & (u < 0.9)
+    ti, tk = np.where(hot, 1, ti), np.where(hot, min(1, nz - 1), tk)
+    x = (ti + rng.uniform(0.1, 0.9, (n_cell, cap))) * 20.0
+    z = (tk + rng.uniform(0.1, 0.9, (n_cell, cap))) * 20.0
+    lane = np.arange(cap)[None, :]
+    fall = (k == 0) & (((u > 0.9) & (u < 0.95)) | (lane == 0))
+    z = np.where(fall, -1.0 - 5.0 * u, z)
+    rw = np.exp(rng.uniform(np.log(1e-6), np.log(5e-5), (n_cell, cap)))
+    n = np.where(alive, np.floor(10.0 ** rng.uniform(5, 9, (n_cell, cap))),
+                 0.0)
+    planes = (n, rw ** 2, (rw * rng.uniform(0.01, 0.2, (n_cell, cap))) ** 3,
+              rng.uniform(0.1, 1.2, (n_cell, cap)), x, z)
+    T = rng.uniform(280.0, 295.0, n_cell)
+    cells = (T, rng.uniform(8.5e4, 1e5, n_cell),
+             rng.uniform(1.0, 1.2, n_cell),
+             1.72e-5 * (393.0 / (T + 120.0)) * (T / 273.16) ** 1.5) \
+        + tuple(rng.uniform(-0.02, 0.02, n_cell) for _ in range(4))
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                     device=device)
+    return cfg, tuple(map(as_t, planes)), tuple(map(as_t, cells))
+
+
 def flat_cond_case(sizes, dead0=0, seed=0, device="cpu", dtype=torch.float64,
                    th_dry=True, const_p=False, sstp=4):
     """The inputs of ops/cond.cond_flat (kernel F) for cells of ``sizes``
