@@ -4,7 +4,8 @@
 Drives the port's paths, the GMD-2015 kinematic lgrngn case at 76x76
 cells and 64 super-droplets a cell with sstp_cond = sstp_coal = 10 and the
 geometric kernel (bench.py's configuration), on the dense engine (kernels
-A-E) and on the flat engine behind the public API (kernels A and F), and
+A-E) through run_device_lgrngn and through the public API's dense front,
+and on the flat engine behind the public API (kernels A and F), and
 checks them:
 
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run
@@ -12,7 +13,8 @@ checks them:
   3. kernels against their plain PyTorch versions, on the card, at the main
      path's shapes: A-D from the initial population (A bitwise, n_iters
      1-3, FCT off and on; C and D bitwise in every slot, on the cloud and
-     on a rain population), E (coalescence) from the population after the
+     on a rain population, and C also in its subsidence, no-advection and
+     vt-only forms), E (coalescence) from the population after the
      spin-up, in stride, sort and standalone form, each with the geometric
      and the hall kernel, lane by lane; then E's Golovin box gate (Scott
      1967)
@@ -21,23 +23,38 @@ checks them:
   5. the slice with coalescence (the main path): the same, kernels A-E
      launched, and collisions happened
   6. the standalone coalescence path (dense.coal): its form of kernel E
-  7. the flat engine through the public API (factory -> init ->
-     Kinematic2D.run(): step_sync / step_async): spin-up and coalescing
+  7. the flat engine through the public API (factory(engine="flat") ->
+     init -> Kinematic2D.run(): step_sync / step_async): spin-up and
+     coalescing
      steps, bench.py's physics checks read through get_attr and
      diag_puddle, kernel F (the per-cell condensation substep loop) once a
      step and kernel A twice, kernel F against its plain version on the
      inputs a main step gives it (and with cell 0 holding 65,536 more dead
      slots), run_device_lgrngn(engine="flat") against the stepwise loop,
      the kernel path against the plain path
-  8. timing: best of 3 from-init reps through the kernels and through the
+  8. the dense front through the public API (factory on the card ->
+     particles_dense_t; Kinematic2D.run()): spin-up and coalescing steps
+     through kernels A (a field a call), B, C, D and E, bitwise equal to
+     run_device_lgrngn(engine="dense") from the same state (th, rv, every
+     plane as a per-cell multiset), bench.py's physics checks through the
+     public API
+  9. timing: best of 3 from-init reps through the kernels and through the
      plain versions, with and without coalescence, on the dense engine;
-     best of 3 from-init reps of the flat slice; each kernel against its
-     plain version, beside its bound (bytes or operations at the card's
-     peak rates)
+     best of 3 from-init reps of the flat slice and of the dense front;
+     each kernel against its plain version, beside its bound (bytes or
+     operations at the card's peak rates)
+ 10. the sustained run (SUSTAINED_r05.json's shape: 3600 steps, 2400 of
+     them spin-up, the repack policy every 50 steps with margin 1.25): the
+     chunk log, the last 1000 steps' ms/step beside the from-init one, the
+     global re-bins, conservation and the SDs alive at the end
+ 11. the repack policy forced to retarget at full width: 118 SDs a cell
+     started at capacity 128 (a grow) and at 512 (a shrink), every repack
+     conserving the population per cell, and kernel E's device time in the
+     step at capacities 512 and 256
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
-adds the device-time split of the coalescing steps on both engines
-(torch.profiler).  The last line is {"ok": true, "device": {...}}; the
+adds the device-time split of the coalescing steps on the dense engine,
+the flat engine and the dense front (torch.profiler).  The last line is {"ok": true, "device": {...}}; the
 line before it the card's name and power limit; before that one JSON
 object with a row per kernel.  Any failed check raises: the script then
 prints ``chip_smoke: FAILED: <reason>`` on stdout, and exits non-zero.
@@ -105,6 +122,13 @@ OPS_PHILOX, OPS_PAIR, OPS_COLLIDE = 98, 17, 25
 # antidiffusive velocities of a cell's x and z face
 OPS_DONOR, OPS_ANTIDIFF = 25, 46
 
+# the sustained run (SUSTAINED_r05.json's shape) and the forced retargets:
+# 118 SDs a cell fill 0.92 of capacity 128
+SUSTAINED_NT, SUSTAINED_SPINUP, SUSTAINED_TAIL = 3600, 2400, 1000
+REPACK_EVERY, REPACK_MARGIN = 50, 1.25
+FORCED_SD_CONC, FORCED_EVERY, FORCED_CHUNKS = 118, 10, 3
+PROFILE_STEPS = 5
+
 # the Golovin box of tests/test_pallas_coal_golovin.py
 GOLOVIN_SIM_TIME, GOLOVIN_SSTP = 800.0, 100
 GOLOVIN_R0, GOLOVIN_N0, GOLOVIN_B = 30.084e-6, 2.0 ** 23, 1500.0
@@ -163,11 +187,62 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def make_model(Kinematic2D, coal):
+def make_model(Kinematic2D, coal, engine="auto", sd_conc=SD_CONC):
     return Kinematic2D(
-        nx=NX, nz=NZ, micro="lgrngn", sd_conc=SD_CONC, sstp_cond=SSTP_COND,
-        sstp_coal=SSTP_COAL, n_sd_max=SD_CONC * NX * NZ,
-        opts_init_kw={"coal_switch": coal}, device=DEVICE)
+        nx=NX, nz=NZ, micro="lgrngn", sd_conc=sd_conc, sstp_cond=SSTP_COND,
+        sstp_coal=SSTP_COAL, n_sd_max=sd_conc * NX * NZ,
+        opts_init_kw={"coal_switch": coal}, engine=engine, device=DEVICE)
+
+
+def occupancy(d):
+    """SDs in the densest row of a DenseState."""
+    return int((d.n > 0).sum(1).max())
+
+
+def population(d):
+    """The per-cell multiset of a DenseState's SDs, every plane."""
+    return multiset(d.n, (d.rd3, d.rw2, d.kpa, d.vt, d.x, d.z))
+
+
+def checked_repacks(dense, log):
+    """dense.repack wrapped to check that every repack keeps each cell's
+    SDs (the per-cell multiset of every plane) and drops none; ``log``
+    gets (old capacity, new capacity) a call.  Returns the unwrap."""
+    real = dense.repack
+
+    def repack(cfg, d, new_cap):
+        out = real(cfg, d, new_cap)
+        check(int(out.overflow) == int(d.overflow),
+              f"repack {d.cap} -> {new_cap} dropped SDs")
+        check(np.array_equal(population(out), population(d)),
+              f"repack {d.cap} -> {new_cap} changed a cell's SDs")
+        log.append((d.cap, new_cap))
+        return out
+
+    dense.repack = repack
+    return lambda: setattr(dense, "repack", real)
+
+
+def device_ms(run, steps, names):
+    """Device time a step [ms] of the kernels whose name holds one of
+    ``names``, over run(steps) (torch.profiler): {name: ms}, empty where
+    the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+            for name in names:
+                if name in e.key:
+                    out[name] = out.get(name, 0.0) \
+                        + e.device_time_total / 1e3 / steps
+    return out
 
 
 def physics_checks(model, water0, dry0, dense):
@@ -450,8 +525,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also print the device-time split of coalescing "
-                         "steps on the dense and the flat engine "
-                         "(torch.profiler)")
+                         "steps on the dense engine, the flat engine and "
+                         "the dense front (torch.profiler)")
     opts = ap.parse_args()
     try:
         return smoke(opts)
@@ -596,6 +671,35 @@ def smoke(opts):
         check(rel_pud <= 1e-5, f"{label}: puddle rel {rel_pud:.2e} > 1e-5")
     check(float(pc[5].sum(0)[3]) > 0, "rain case: nothing reached the puddle")
 
+    # C's other forms on the same data: subsidence beside sedimentation (a
+    # w_LS profile rising to 5 cm/s at the top), no advection, and the vt
+    # refresh alone; bitwise in every slot they write
+    w_cells = torch.linspace(0.0, 0.05, NZ, device=DEVICE)[
+        torch.arange(cfg.n_cell, device=DEVICE) % NZ]
+    for label, (n, w2, z) in (("cloud", (d0.n, rw2, d0.z)), ("rain", rain)):
+        for form, sedi, kw in (("subsidence", True, dict(w_cells=w_cells)),
+                               ("no advection", True, dict(do_adve=False)),
+                               ("vt only", False, dict(do_adve=False))):
+            args = (cfg, 1.0, sedi, n, w2, d0.rd3, d0.x, z, T, p, d0.rhod,
+                    eta) + C
+            kc = step.transport(*args, **kw)
+            pc = step.transport(*args, **kw, plain=True)
+            pairs = [(a, b) for a, b in zip(kc[:5], pc[:5]) if a is not None]
+            same = all(torch.equal(a, b) for a, b in pairs)
+            err["transport"] = max(err["transport"],
+                                   *(max_abs(a, b) for a, b in pairs))
+            moved = kc[5] is not None
+            far = moved and bool(torch.equal(kc[5][:, 4], pc[5][:, 4]))
+            rel_pud = max_rel(kc[5].sum(0)[:4], pc[5].sum(0)[:4]) \
+                if moved and float(pc[5].sum(0)[3]) else 0.0
+            print(f"C {label}, {form}: {'n/x/z/vt/targets' if moved else 'vt'}"
+                  f" equal {same}" + (f", far flags equal {far}, puddle rel "
+                                      f"{rel_pud:.2e}" if moved else ""))
+            check(same and (far or not moved) and rel_pud <= 1e-5,
+                  f"{label}, {form}: kernel C differs from its plain version")
+            check(moved or (kc[0] is n and kc[1] is d0.x),
+                  f"{label}, vt only: kernel C moved droplets")
+
     # E: coalescence, from the population after the spin-up, with the same
     # draws (seed, step) on both sides; and a drizzle variant (radii x10),
     # in which droplets certainly collide
@@ -699,6 +803,7 @@ def smoke(opts):
     launches = {k.name: k.launches for k in _ext.KERNELS}
     dw, dd = physics_checks(model_c, water0, dry0, dense)
     d_end = model_c.dense_state
+    c_end = (d_end, model_c.th, model_c.rv)
     lost = collided(d_sp, d_end)
     print(f"slice, coalescence on: {SLICE_SPINUP} spin-up + {SLICE_MAIN} "
           f"main steps in {secs:.2f} s; water rel err {dw:.2e}, dry rel err "
@@ -730,8 +835,10 @@ def smoke(opts):
     # ---- 7. the flat engine through the public API
     from libcloudphxx_tpu_torch.ops import cond as cond_ops
     t0 = time.perf_counter()
-    model_f = make_model(Kinematic2D, coal=True)
+    model_f = make_model(Kinematic2D, coal=True, engine="flat")
     prt = model_f.prtcls
+    check(type(prt).__name__ == "particles_t",
+          f"factory(engine='flat') gave {type(prt).__name__}")
     torch.cuda.synchronize()
     f_init = (prt.state, model_f.th, model_f.rv)
     fw0, fd0 = flat_totals(prt, model_f.rv, c)
@@ -830,7 +937,52 @@ def smoke(opts):
     check(rel_th <= 1e-4 and rel_rv <= 1e-3,
           "flat: the kernel path drifted from the plain path")
 
-    # ---- 8. timing: from-init reps through the kernels and the plain path
+    # ---- 8. the dense front through the public API
+    from libcloudphxx_tpu_torch.lgrngn import backend_t, factory
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
+    probe = factory(backend_t.CUDA, model_c.opts_init, device=DEVICE)
+    check(isinstance(probe, particles_dense_t),
+          f"factory on the card gave {type(probe).__name__} for bench.py's "
+          f"configuration, not particles_dense_t")
+    model_d = make_model(Kinematic2D, coal=True)
+    prt_d = model_d.prtcls
+    check(isinstance(prt_d, particles_dense_t),
+          f"Kinematic2D's public API is {type(prt_d).__name__}")
+    fd_init = (model_d.dense_state, model_d.th, model_d.rv)
+    dw0, dd0 = flat_totals(prt_d, model_d.rv, c)
+    steps = SLICE_SPINUP + SLICE_MAIN
+    reset(_ext.KERNELS)
+    t0 = time.perf_counter()
+    model_d.run(steps, spinup=SLICE_SPINUP)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    front = {k.name: k.launches for k in _ext.KERNELS}
+    print(f"dense front, public API: {SLICE_SPINUP} spin-up + {SLICE_MAIN} "
+          f"main steps in {secs:.2f} s; capacity {prt_d._d.cap}; launches "
+          f"{front}", flush=True)
+    check(front == dict(mpdata=2 * steps, cond=steps, transport=steps,
+                        merge=steps, coal=SLICE_MAIN, coal_standalone=0,
+                        cond_flat=0),
+          f"dense front: kernel A twice, B, C and D once a step and E once "
+          f"a main step expected, got {front}")
+    # bitwise against run_device_lgrngn(engine="dense") from the same state
+    # (phase 5): the same kernels on the same inputs
+    d_f, (d_r, th_r, rv_r) = model_d.dense_state, c_end
+    eq = {"th": bool(torch.equal(model_d.th, th_r)),
+          "rv": bool(torch.equal(model_d.rv, rv_r))}
+    for k in dense.ATTRS:
+        eq[k] = bool(np.array_equal(multiset(d_f.n, (d_f.rd3, getattr(d_f, k))),
+                                    multiset(d_r.n, (d_r.rd3, getattr(d_r, k)))))
+    eq["all planes"] = bool(np.array_equal(population(d_f), population(d_r)))
+    print(f"dense front vs run_device_lgrngn(engine='dense'): bitwise equal "
+          f"{eq}", flush=True)
+    check(all(eq.values()), "the dense front differs from "
+          "run_device_lgrngn(engine='dense')")
+    dw, dd = flat_physics_checks(model_d, dw0, dd0, c)
+    print(f"dense front, physics through get_attr/diag_puddle: water rel err "
+          f"{dw:.2e}, dry rel err {dd:.2e}", flush=True)
+
+    # ---- 9. timing: from-init reps through the kernels and the plain path
     def run_reps(m, init, steps, plain):
         m.run_device_lgrngn(2, plain=plain, engine="dense")  # warm-up
         best = float("inf")
@@ -846,10 +998,12 @@ def smoke(opts):
         m.dense_state, m.th, m.rv = init
         return best, out
 
+    dense_ms = {}
     for label, m, init, steps in (
             ("coalescence on", model_c, (dc0, thc0, rvc0), TIME_STEPS),
             ("coalescence off", model, (d0, th0, rv0), TIME_STEPS_NO_COAL)):
         t_k, (th_k, rv_k, s_k) = run_reps(m, init, steps, False)
+        dense_ms[label] = t_k / steps * 1e3
         t_p, (th_p2, rv_p2, s_p) = run_reps(m, init, steps, True)
         rel_th, rel_rv = max_rel(th_k, th_p2), max_rel(rv_k, rv_p2)
         wk = dense.water_dry_totals(s_k, rv_k)[0]
@@ -877,12 +1031,35 @@ def smoke(opts):
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
         flat_physics_checks(model_f, fw0, fd0, c)
+    flat_ms = best / FLAT_TIME_STEPS * 1e3
     print(f"timing flat slice (public API, coalescence on), kernels: "
-          f"{best / FLAT_TIME_STEPS * 1e3:.3f} ms/step, "
+          f"{flat_ms:.3f} ms/step, "
           f"{n_flat * FLAT_TIME_STEPS / best:.4g} SD-updates/s "
           f"({FLAT_TIME_STEPS} steps, best of {TIME_REPS}; {card})",
           flush=True)
     restore_flat(f_init)
+
+    # the dense front: from-init reps of the stepwise public-API loop,
+    # bench.py's physics checks through the public API on every rep
+    model_d.dense_state, model_d.th, model_d.rv = fd_init
+    model_d.run(2)                                       # warm-up
+    best = float("inf")
+    for _ in range(TIME_REPS):
+        model_d.dense_state, model_d.th, model_d.rv = fd_init
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model_d.run(TIME_STEPS)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        flat_physics_checks(model_d, dw0, dd0, c)
+    front_ms = best / TIME_STEPS * 1e3
+    print(f"timing dense front (public API, coalescence on), kernels: "
+          f"{front_ms:.3f} ms/step, {n_sd * TIME_STEPS / best:.4g} "
+          f"SD-updates/s ({TIME_STEPS} steps, best of {TIME_REPS}; {card})")
+    print(f"timing, coalescence on, from init: dense front "
+          f"{front_ms:.3f} ms/step, dense run_device_lgrngn "
+          f"{dense_ms['coalescence on']:.3f}, flat public API "
+          f"{flat_ms:.3f} ({card})", flush=True)
 
     # per-kernel device time at the main path's shapes
     mp = (model.gc_x, model.gc_z, model.G)
@@ -944,14 +1121,147 @@ def smoke(opts):
     check(rel[0] <= 2e-6 and rel[1] <= 2e-5 and rel[2] <= 1e-5,
           "cond kernel disagrees with its plain version in a main step")
 
+    # ---- 10. the sustained run: SUSTAINED_r05.json's shape on the card
+    sustained(Kinematic2D, dense, _ext, card, dense_ms["coalescence on"])
+
+    # ---- 11. the repack policy forced to retarget at full width
+    forced_retargets(Kinematic2D, dense, _ext, card)
+
     if opts.profile:
-        profile_both(model_c, (dc0, thc0, rvc0), model_f, f_init, card)
+        model_f = make_model(Kinematic2D, coal=True, engine="flat")
+        profile_both(model_c, (dc0, thc0, rvc0), model_f,
+                     (model_f.prtcls.state, model_f.th, model_f.rv), card)
+        profile_front(model_d, fd_init, card)
 
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def sustained(Kinematic2D, dense, _ext, card, from_init_ms):
+    """nt 3600 steps, 2400 of them spin-up, on the dense engine with the
+    repack policy every 50 steps (margin 1.25), as SUSTAINED_r05.json: the
+    chunk log, the last 1000 steps' ms/step (timed as one call of
+    run_device_lgrngn) beside the from-init one, the global re-bins,
+    bench.py's physics checks at the end."""
+    m = make_model(Kinematic2D, coal=True)
+    d = m.dense_state
+    water0, dry0 = dense.water_dry_totals(d, m.rv)
+    n0 = int((d.n > 0).sum())
+    log, repacks = [], []
+    unwrap = checked_repacks(dense, repacks)
+    reset(_ext.KERNELS)
+    policy = dict(engine="dense", repack_every=REPACK_EVERY,
+                  repack_margin=REPACK_MARGIN, chunk_log=log)
+    t0 = time.perf_counter()
+    try:
+        m.run_device_lgrngn(SUSTAINED_NT - SUSTAINED_TAIL,
+                            spinup=SUSTAINED_SPINUP, **policy)
+        torch.cuda.synchronize()
+        t1, n_first = time.perf_counter(), len(log)
+        m.run_device_lgrngn(SUSTAINED_TAIL, **policy)
+        torch.cuda.synchronize()
+    finally:
+        unwrap()
+    t2 = time.perf_counter()
+    wall, tail_ms = t2 - t0, (t2 - t1) / SUSTAINED_TAIL * 1e3
+    launches = {k.name: k.launches for k in _ext.KERNELS}
+    rebins = m.dense_state.rebins - d.rebins
+    step0 = 0
+    for i, e in enumerate(log):
+        if i == n_first:   # the tail's call
+            step0 = SUSTAINED_NT - SUSTAINED_TAIL
+        e["step0"] = step0
+        step0 += e["steps"]
+        print(f"sustained chunk: steps {e['step0']:>4}+{e['steps']} "
+              f"{'spin-up' if e['spinup'] else 'main   '} occ {e['occ']:>3} "
+              f"cap {e['cap']:>3} {e['seconds']:.4f} s "
+              f"({e['seconds'] / e['steps'] * 1e3:.3f} ms/step)"
+              + (f" after {e['redo']} retargets" if e["redo"] else ""))
+    median_ms = float(np.median([e["seconds"] / e["steps"] * 1e3
+                                 for e in log[n_first:]]))
+    d = m.dense_state
+    alive = int((d.n > 0).sum())
+    dw, dd = physics_checks(m, water0, dry0, dense)
+    print(f"sustained run: {SUSTAINED_NT} steps ({SUSTAINED_SPINUP} spin-up) "
+          f"in {wall:.1f} s, repack every {REPACK_EVERY} (margin "
+          f"{REPACK_MARGIN}), capacities {sorted({e['cap'] for e in log})}, "
+          f"occupancy up to {max(e['occ'] for e in log)}, {len(repacks)} "
+          f"repacks {repacks}; launches {launches}; global re-bins {rebins}")
+    print(f"sustained: last {SUSTAINED_TAIL} steps {tail_ms:.3f} ms/step "
+          f"(median logged chunk {median_ms:.3f}), {alive * 1e3 / tail_ms:.4g} "
+          f"SD-updates/s; from init {from_init_ms:.3f} ms/step; sustained / "
+          f"from-init {tail_ms / from_init_ms:.3f} ({card})")
+    print(f"sustained, at the end: SDs alive {alive} of {n0}, water rel err "
+          f"{dw:.2e}, dry rel err {dd:.2e}", flush=True)
+    check(all(launches[k] > 0 for k in
+              ("mpdata", "cond", "transport", "merge", "coal")),
+          f"sustained: a kernel of the path was not launched: {launches}")
+    # every chunk but the last of each call is logged
+    check(len(log) == SUSTAINED_NT // REPACK_EVERY - 2,
+          f"sustained: {len(log)} chunks logged")
+
+
+def forced_retargets(Kinematic2D, dense, _ext, card):
+    """The repack policy at full width with retargets forced: 118 SDs a
+    cell (0.92 of capacity 128) started at 128, where it must grow (or
+    run a chunk again), and then at 512, where it must shrink; every repack
+    conserves the population per cell.  Kernel E's device time in the step
+    at 512 and 256 (torch.profiler), after the policy runs."""
+    m = make_model(Kinematic2D, coal=True, sd_conc=FORCED_SD_CONC)
+    d = m.dense_state
+    occ0 = occupancy(d)
+    print(f"forced retargets: {int((d.n > 0).sum())} SDs, densest cell "
+          f"{occ0} = {occ0 / 128:.3f} of capacity 128", flush=True)
+    check(0.85 <= occ0 / 128 < 1.0, f"forced: densest cell {occ0}")
+    repacks = []
+    unwrap = checked_repacks(dense, repacks)
+    try:
+        for label, cap in (("grow", 128), ("shrink", 512)):
+            m.dense_state = dense.repack(m.cfg, m.dense_state, cap)
+            start = m.dense_state
+            log = []
+            reset(_ext.KERNELS)
+            m.run_device_lgrngn(FORCED_EVERY * FORCED_CHUNKS, engine="dense",
+                                repack_every=FORCED_EVERY,
+                                repack_margin=REPACK_MARGIN, chunk_log=log)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in _ext.KERNELS}
+            caps = [start.cap] + [e["cap"] for e in log]
+            for e in log:
+                print(f"forced {label} chunk: {e['steps']} steps occ "
+                      f"{e['occ']} cap {e['cap']} {e['seconds']:.4f} s"
+                      + (f" after {e['redo']} retargets" if e["redo"]
+                         else ""))
+            print(f"forced {label}: capacities {caps}; launches {launches}",
+                  flush=True)
+            check(launches["coal"] == FORCED_EVERY * FORCED_CHUNKS
+                  + FORCED_EVERY * sum(e["redo"] for e in log),
+                  f"forced {label}: kernel E launches {launches}")
+            moved = caps[1] > caps[0] if label == "grow" else \
+                caps[1] < caps[0]
+            check(moved, f"forced {label}: the policy kept capacity "
+                  f"{caps[0]} ({caps})")
+            check(int(m.dense_state.overflow) == 0,
+                  f"forced {label}: SDs dropped")
+        # kernel E's device time in the step at the capacities reached
+        fields, e_ms = (m.th, m.rv), {}
+        for at in (512, 256):
+            m.dense_state = dense.repack(m.cfg, start, at)
+            e_ms[at] = device_ms(
+                lambda n: m.run_device_lgrngn(n, engine="dense"),
+                PROFILE_STEPS, ("coal_kernel",)).get("coal_kernel")
+            m.th, m.rv = fields
+        print(f"kernel E in the step, {FORCED_SD_CONC} SDs a cell: " + ", ".join(
+            f"capacity {at} " + (f"{ms:.4f} ms/step" if ms else
+                                 "not measured")
+            for at, ms in e_ms.items()) + f" ({card})")
+    finally:
+        unwrap()
+    print(f"forced retargets: repacks {repacks}, each conserving every "
+          f"cell's SDs", flush=True)
 
 
 def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw,
@@ -1083,6 +1393,21 @@ def profile_both(model_c, dense_init, model_f, flat_init, card, warm=5):
             lambda n: model_c.run_device_lgrngn(n, engine="dense"), card)
     model_c.dense_state, model_c.th, model_c.rv = dense_init
     profile_flat(model_f, flat_init, card, warm)
+
+
+def profile_front(model_d, front_init, card, warm=5):
+    """profile() of the dense front's coalescing steps through the public
+    API (Kinematic2D.run), after the spin-up and ``warm`` steps; the model
+    is put back at its initial state."""
+    model_d.dense_state, model_d.th, model_d.rv = front_init
+    model_d.run(SLICE_SPINUP + warm, spinup=SLICE_SPINUP)
+    d_warm = (model_d.dense_state, model_d.th, model_d.rv)
+
+    def front_start():
+        model_d.dense_state, model_d.th, model_d.rv = d_warm
+
+    profile("dense front, public API", front_start, model_d.run, card)
+    model_d.dense_state, model_d.th, model_d.rv = front_init
 
 
 def profile_flat(model_f, flat_init, card, warm=5):

@@ -76,9 +76,12 @@ COND = Kernel(
     "cond", "lcp_cond", [_P] * 10 + [_I, _I, _I, _D, _D] + [_I] * 4,
     "libcloudphxx_tpu_torch/csrc/cond.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, cond phase :191-231)")
+# planes in (5), cells, outputs (5), row info; n_cell, cap, nx, nz; dx, dz,
+# dt, x0, x1, z0, z1; implicit, do_adve, do_sedi, do_subs, open side
+# walls, periodic top/bottom walls
 TRANSPORT = Kernel(
     "transport", "lcp_transport",
-    [_P] * 12 + [_I, _I, _I, _I] + [_D] * 7 + [_I] * 4,
+    [_P] * 12 + [_I, _I, _I, _I] + [_D] * 7 + [_I] * 6,
     "libcloudphxx_tpu_torch/csrc/transport.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, transport and "
     "re-bin classification :338-487)")

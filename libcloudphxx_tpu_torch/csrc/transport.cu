@@ -2,10 +2,16 @@
 //
 // Replaces the transport phase of the TPU kernel
 // libcloudphxx_tpu/ops/pallas_step.py:_kernel (lines 338-403: vt refresh,
-// implicit/euler advection, sedimentation, periodic/open walls, puddle
-// partials) and the classification half of its re-binning epilogue
+// implicit/euler advection, sedimentation, subsidence, periodic/open walls,
+// puddle partials) and the classification half of its re-binning epilogue
 // (lines 414-487: target cell, far-mover flag).  Plain version: ops/step.py
 // transport_plain.
+//
+// The TPU kernel decides statically which of advection, sedimentation and
+// subsidence run (do_adve, do_sedi, do_subs); here they are flags of the
+// one kernel.  With none of them on (the async phase of the public API
+// with no transport) it refreshes vt alone: it reads n and rw2 and writes
+// vt, and the walls, targets and row info are not touched.
 //
 // What bounds it on the card: memory.  It reads n for every slot and rw2,
 // x and z for the live ones (rd3 only for a droplet that falls into the
@@ -36,7 +42,7 @@ struct Geometry {
   int nx, nz;
   float dx, dz, dt;
   float x0, z0, wx, wz, x1, z1;
-  int implicit_adve, do_sedi, open_side, periodic_topbot;
+  int implicit_adve, do_adve, do_sedi, do_subs, open_side, periodic_topbot;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -46,7 +52,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// cells: 8 rows of n_cell: T p rhod eta C_l C_r C_b C_a
+// cells: rows of n_cell: T p rhod eta C_l C_r C_b C_a, and w_LS after them
+// with do_subs (the courants are read with do_adve)
 // rowinfo: (n_cell, 8): liq_vol dry_vol liq_num prt_num far 0 0 0
 template <bool VEC>
 __global__ void __launch_bounds__(kWarpRows * 32)
@@ -65,12 +72,17 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
   const float p = __ldg(cells + 1 * n_cell + r);
   const float rhod = __ldg(cells + 2 * n_cell + r);
   const float eta = __ldg(cells + 3 * n_cell + r);
-  const float C_l = __ldg(cells + 4 * n_cell + r);
-  const float C_r = __ldg(cells + 5 * n_cell + r);
-  const float C_b = __ldg(cells + 6 * n_cell + r);
-  const float C_a = __ldg(cells + 7 * n_cell + r);
+  const bool moves = geo.do_adve || geo.do_sedi || geo.do_subs;
+  float C_l = 0.0f, C_r = 0.0f, C_b = 0.0f, C_a = 0.0f;
+  if (geo.do_adve) {
+    C_l = __ldg(cells + 4 * n_cell + r);
+    C_r = __ldg(cells + 5 * n_cell + r);
+    C_b = __ldg(cells + 6 * n_cell + r);
+    C_a = __ldg(cells + 7 * n_cell + r);
+  }
   const float dCx = C_r - C_l;
   const float dCz = C_a - C_b;
+  const float w_ls = geo.do_subs ? __ldg(cells + 8 * n_cell + r) : 0.0f;
 
   float liq_vol = 0.0f, dry_vol = 0.0f, liq_num = 0.0f, prt_num = 0.0f;
   bool fell = false, far = false;
@@ -81,26 +93,30 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
     int tgt[4] = {-1, -1, -1, -1};
     load4<VEC>(n, off, l0, cap, 0.0f, nn);
     if (nn[0] > 0.0f || nn[1] > 0.0f || nn[2] > 0.0f || nn[3] > 0.0f) {
-      float w2[4], xi[4], zi[4];
+      float w2[4], xi[4] = {}, zi[4] = {};
       load4<VEC>(rw2, off, l0, cap, 0.0f, w2);
-      load4<VEC>(x, off, l0, cap, 0.0f, xi);
-      load4<VEC>(z, off, l0, cap, 0.0f, zi);
+      if (moves) {
+        load4<VEC>(x, off, l0, cap, 0.0f, xi);
+        load4<VEC>(z, off, l0, cap, 0.0f, zi);
+      }
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         if (!(nn[q] > 0.0f)) {
           nn[q] = 0.0f;
           continue;
         }
-        float m = nn[q], xq = xi[q], zq = zi[q];
         vt[q] = vt_beard77(w2[q], p, rhod, eta);
-        if (geo.implicit_adve) {
+        if (!moves) continue;
+        float m = nn[q], xq = xi[q], zq = zi[q];
+        if (geo.do_adve && geo.implicit_adve) {
           xq = (xq + geo.dx * (C_l - i_row * dCx)) / (1.0f - dCx);
           zq = (zq + geo.dz * (C_b - k_row * dCz)) / (1.0f - dCz);
-        } else {  // euler
+        } else if (geo.do_adve) {  // euler
           xq = xq + dCx * (xq - geo.dx * i_row) + geo.dx * C_l;
           zq = zq + dCz * (zq - geo.dz * k_row) + geo.dz * C_b;
         }
         if (geo.do_sedi) zq = zq - geo.dt * vt[q];
+        if (geo.do_subs) zq = zq - geo.dt * w_ls;
 
         if (!geo.open_side) {
           const float s = xq - geo.x0;
@@ -151,12 +167,14 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
         zz[q] = zq;
       }
     }
+    store4<VEC>(vt_out, off, l0, cap, vt);
+    if (!moves) continue;
     store4<VEC>(n_out, off, l0, cap, nn);
     store4<VEC>(x_out, off, l0, cap, xx);
     store4<VEC>(z_out, off, l0, cap, zz);
-    store4<VEC>(vt_out, off, l0, cap, vt);
     store4<VEC>(tgt_out, off, l0, cap, tgt);
   }
+  if (!moves) return;  // the whole warp
 
   if (__any_sync(kAll, fell)) {
     liq_vol = warp_sum(liq_vol);
@@ -184,16 +202,18 @@ extern "C" int lcp_transport(const float* n, const float* rw2, const float* rd3,
                              float* rowinfo, int n_cell, int cap, int nx,
                              int nz, double dx, double dz, double dt,
                              double x0, double x1, double z0, double z1,
-                             int implicit_adve, int do_sedi, int open_side,
-                             int periodic_topbot,
+                             int implicit_adve, int do_adve, int do_sedi,
+                             int do_subs, int open_side, int periodic_topbot,
                              cudaStream_t stream) {
   lcp::Geometry geo{nx, nz,
                     static_cast<float>(dx), static_cast<float>(dz),
                     static_cast<float>(dt), static_cast<float>(x0),
                     static_cast<float>(z0), static_cast<float>(x1 - x0),
                     static_cast<float>(z1 - z0), static_cast<float>(x1),
-                    static_cast<float>(z1), implicit_adve, do_sedi,
-                    open_side, periodic_topbot};
+                    static_cast<float>(z1), implicit_adve, do_adve, do_sedi,
+                    do_subs, open_side, periodic_topbot};
+  // with no transport only n, rw2, the cell fields and vt are passed (the
+  // other pointers may be null)
   const bool vec = lcp::vector_ok(
       cap, {n, rw2, x, z, n_out, x_out, z_out, vt_out, tgt_out});
   const dim3 grid(lcp::row_blocks(n_cell)), block(lcp::kWarpRows * 32);

@@ -7,7 +7,7 @@ src/impl/coalescence/particles_impl_coal.ipp).
 The efficiency tables are the port's copies of the reference's data
 (kernel_data/*.npz beside this file, byte for byte the JAX package's).
 The turbulent (onishi) and vohl kernels are not ported (ROADMAP.md,
-Queue 1 item 10).
+Queue 1, "Dense-engine options that the port refuses").
 
 The flat loop (coal, coal_substep) draws its random numbers from Philox
 (ops/philox.py), keyed by the state's seed and with the counter (step
@@ -50,7 +50,8 @@ def require_ported(kern: kernel_t):
     if kernel_t(kern) in UNPORTED:
         raise NotImplementedError(
             f"coalescence: kernel {kernel_t(kern).name} is not ported "
-            "(ROADMAP.md, Queue 1 item 10)")
+            "(ROADMAP.md, Queue 1, \"Dense-engine options that the port "
+            "refuses\")")
 
 
 def load_efficiency_table(kern: kernel_t):

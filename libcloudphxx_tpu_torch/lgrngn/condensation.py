@@ -115,7 +115,8 @@ def cond_percell(cfg: StaticConfig, state: State, dt, RH_max, lam,
     if cfg.ice_switch or cfg.exact_sstp_cond:
         raise NotImplementedError(
             "cond_percell: ice and exact substepping are not ported "
-            "(ROADMAP.md, Queue 1 items 10 and 11)")
+            "(ROADMAP.md, Queue 1, \"The flat engine's remaining "
+            "features\")")
     sstp = cfg.sstp_cond
     delta_th = state.th - state.sstp_tmp_th
     delta_rv = state.rv - state.sstp_tmp_rv

@@ -22,11 +22,51 @@ from ..common import constants as c
 from ..ops import coal as coal_ops
 from ..ops.step import rebin_x, step_resident
 from . import coalescence as coal_mod
+from .enums import as_t, kernel_t, vt_t
 from .hskpng import hskpng_mfp, ijk_of_xyz
 from .state import (OUT_COAL_OVERFLOW, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL,
                     OUT_PRTCL_NUM, State, StaticConfig)
 
 ATTRS = ("n", "rw2", "rd3", "kpa", "vt", "x", "z")
+
+
+def supported(cfg: StaticConfig):
+    """The dense engine's capability matrix (libcloudphxx_tpu/lgrngn/
+    dense.py:116 _supported with :1209 resident_static_ok): raise
+    NotImplementedError, with the reason, for a configuration it does not
+    run.  The port has no XLA dense pipeline, so it covers exactly what
+    kernels B-E take: 2-D, warm, percell condensation substepping,
+    implicit or euler advection, the beard77 terminal velocities, and for
+    coalescence the formula kernels and the hall family on a population
+    that is not const-multi.  The JAX dense front runs the rest of its
+    dense configurations on its XLA pipeline; here they go to the flat
+    engine (lgrngn/dense_front.dense_capable)."""
+    if cfg.n_dims != 2:
+        raise NotImplementedError("dense engine: 2-D only")
+    if cfg.ice_switch or cfg.chem_switch or cfg.turb_cond_switch:
+        raise NotImplementedError("dense engine: ice/chem/SGS not supported")
+    if cfg.diag_incloud_time:
+        raise NotImplementedError("dense engine: diag_incloud_time off only")
+    if cfg.exact_sstp_cond or cfg.adaptive_sstp_cond:
+        raise NotImplementedError(
+            "dense engine: percell condensation substepping only")
+    if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
+        raise NotImplementedError(
+            "dense engine: implicit or euler SD advection only")
+    if vt_t(cfg.terminal_velocity) not in (vt_t.beard77, vt_t.beard77fast):
+        raise NotImplementedError(
+            "dense engine: the beard77 terminal velocities only")
+    kern = kernel_t(cfg.kernel)
+    if cfg.coal_switch and kern != kernel_t.undefined:
+        if kern in coal_mod.UNPORTED or (
+                kern in coal_mod.TABULATED
+                and coal_mod.clamped_efficiency_table(kern) is None):
+            raise NotImplementedError(
+                f"dense engine: collision kernel {kern.name} not supported")
+        if cfg.pure_const_multi:
+            raise NotImplementedError(
+                "dense engine: coalescence of a const-multi population not "
+                "supported")
 
 
 @dataclasses.dataclass
@@ -60,6 +100,9 @@ class DenseState:
     # counter, host integers advanced by every coalescence call
     rng_seed: int = 44
     rng_step: int = 0
+    # how many times the global re-bin (the far-mover repair) ran on this
+    # population
+    rebins: int = 0
 
     @property
     def cap(self):
@@ -104,6 +147,23 @@ def pack(cfg: StaticConfig, state: State, cap: int) -> DenseState:
             "sstp_tmp_rv", "courant_x", "courant_z", "puddle")},
         overflow=overflow, rng_seed=state.rng_seed,
         rng_step=state.rng_step)
+
+
+def repack(cfg: StaticConfig, d: DenseState, new_cap: int) -> DenseState:
+    """The population in a new row capacity (libcloudphxx_tpu/lgrngn/
+    dense.py:239; one stable sort by row and a scatter, as pack): each
+    row keeps its droplets in their lane order, and the droplets a row
+    cannot hold are added to ``overflow``.  The occupancy-aware repack
+    policy of Kinematic2D.run_device_lgrngn uses it so that the capacity
+    follows the population."""
+    n_cell, cap = d.n.shape
+    flat = [getattr(d, a).reshape(-1) for a in ATTRS]
+    rows = torch.arange(n_cell, device=d.n.device).repeat_interleave(cap)
+    planes, overflow = _distribute(n_cell, new_cap,
+                                   torch.where(flat[0] > 0, rows, n_cell),
+                                   flat)
+    return dataclasses.replace(d, overflow=d.overflow + overflow,
+                               **dict(zip(ATTRS, planes)))
 
 
 def unpack(cfg: StaticConfig, d: DenseState, state: State) -> State:
@@ -152,6 +212,7 @@ def _rebin_global(cfg: StaticConfig, d: DenseState) -> DenseState:
         cfg.n_cell, d.cap, tgt.reshape(-1),
         [getattr(d, a).reshape(-1) for a in ATTRS])
     return dataclasses.replace(d, overflow=d.overflow + overflow,
+                               rebins=d.rebins + 1,
                                **dict(zip(ATTRS, planes)))
 
 
@@ -286,37 +347,100 @@ def _fold_coal_overflow(puddle, flag):
 def step_fused(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params, dt,
                RH_max, sstp_coal: int, do_coal: bool, do_sedi: bool, *,
                coal_pairing="stride", plain=False):
-    """One whole microphysics step: condensation substeps, coalescence
-    substeps, transport and walls (step_resident), the re-binning merge
-    (rebin_x), the puddle fold and, when some SD moved more than one cell
-    on an axis, the global re-bin.  Same phase order as the reference
-    step_sync + step_async (particles_step.ipp:161-494).  ``params`` are
+    """One whole microphysics step (libcloudphxx_tpu/lgrngn/dense.py:1283):
+    condensation substeps, coalescence substeps, transport and walls
+    (step_resident), the re-binning merge (rebin_x), the puddle fold and,
+    when some SD moved more than one cell on an axis, the global re-bin.
+    Same phase order as the reference step_sync + step_async
+    (particles_step.ipp:161-494).  ``params`` are
     opts_init.kernel_parameters; ``coal_pairing`` "stride" (the default) or
     "sort" (ops/coal.coal_resident).  Returns (DenseState, th, rv)."""
+    return _resident_phases(
+        cfg, d, th_adv, rv_adv, params, dt, RH_max, sstp_coal,
+        do_cond=True, do_coal=do_coal, do_adve=True, do_sedi=do_sedi,
+        w_cells=None, coal_pairing=coal_pairing, plain=plain)
+
+
+def step_cond_resident(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, dt,
+                       RH_max, *, plain=False):
+    """The condensation phase alone (libcloudphxx_tpu/lgrngn/dense.py:1400),
+    the cond half of step_fused for the public API's step_cond
+    (lgrngn/dense_front): kernel B and the cell closure; positions, vt and
+    the multiplicities stay.  Returns (DenseState, th, rv) with the
+    post-condensation cell values, saved in sstp_tmp_th/rv for the async
+    phase."""
+    return _resident_phases(
+        cfg, d, th_adv, rv_adv, (), dt, RH_max, 1, do_cond=True,
+        do_coal=False, do_adve=False, do_sedi=False, w_cells=None,
+        plain=plain)
+
+
+def step_async_resident(cfg: StaticConfig, d: DenseState, params, dt,
+                        sstp_coal: int, do_coal: bool, do_sedi: bool,
+                        do_adve: bool = True, do_subs: bool = False,
+                        w_LS=None, *, coal_pairing="stride",
+                        plain=False) -> DenseState:
+    """The async phase alone (libcloudphxx_tpu/lgrngn/dense.py:1414), the
+    rest of step_fused for the public API's step_async: the closure of the
+    saved post-condensation th/rv, the coalescence substeps, then vt and
+    the advection, sedimentation and subsidence (``w_LS``, the
+    positive-downwards profile by level) with the walls, the puddle and the
+    re-binning; with none of the three only the vt refresh."""
+    w_cells = None
+    if do_subs and w_LS is not None:
+        k = torch.arange(cfg.n_cell, device=d.n.device) % cfg.nz
+        w_cells = torch.as_tensor(w_LS, dtype=d.n.dtype,
+                                  device=d.n.device)[k]
+    d, _, _ = _resident_phases(
+        cfg, d, d.sstp_tmp_th, d.sstp_tmp_rv, params, dt, 44.0, sstp_coal,
+        do_cond=False, do_coal=do_coal, do_adve=do_adve, do_sedi=do_sedi,
+        w_cells=w_cells, coal_pairing=coal_pairing, plain=plain)
+    return d
+
+
+def _resident_phases(cfg: StaticConfig, d: DenseState, th_adv, rv_adv,
+                     params, dt, RH_max, sstp_coal: int, *, do_cond: bool,
+                     do_coal: bool, do_adve: bool, do_sedi: bool, w_cells,
+                     coal_pairing="stride", plain=False):
+    """The dispatcher behind step_fused, step_cond_resident and
+    step_async_resident (libcloudphxx_tpu/lgrngn/dense.py:1444-1631): one
+    step_resident call with the phase flags, then, where anything moved,
+    the puddle fold, the merge (rebin_x) and the far-mover repair.
+    ``w_cells`` (n_cell,) is the subsidence velocity of each row, or None.
+    Returns (DenseState, th, rv)."""
     if do_coal and cfg.pure_const_multi:
         raise NotImplementedError(
             "step_fused: coalescence of a const-multi population (the "
-            "increase_sstp_coal path) is not ported (ROADMAP.md, Queue 1 "
-            "item 10)")
+            "increase_sstp_coal path) is not ported (ROADMAP.md, Queue 1, "
+            "\"Dense-engine options that the port refuses\")")
     # mean free paths from the previous step's T/p (dense.py:1519)
-    lam_D, lam_K = hskpng_mfp(d.T, d.p)
-    C_l, C_r, C_b, C_a = _row_courants(cfg, d)
+    lam_D, lam_K = hskpng_mfp(d.T, d.p) if do_cond else (None, None)
     (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta,
      rowinfo) = step_resident(
         cfg, cfg.sstp_cond, dt, RH_max, do_sedi, d.n, d.rw2, d.rd3, d.kpa,
         d.x, d.z, th_adv, rv_adv, d.sstp_tmp_th, d.sstp_tmp_rv, d.rhod, d.dv,
-        lam_D, lam_K, C_l, C_r, C_b, C_a, d.p, do_coal=do_coal,
-        params=params, sstp_coal=sstp_coal, rng=(d.rng_seed, d.rng_step),
+        lam_D, lam_K, *_row_courants(cfg, d), d.p, do_cond=do_cond,
+        do_coal=do_coal, do_adve=do_adve, w_cells=w_cells, params=params,
+        sstp_coal=sstp_coal, rng=(d.rng_seed, d.rng_step),
         coal_pairing=coal_pairing, plain=plain)
-    info = rowinfo.sum(dim=0).to(d.puddle.dtype)
-    fold = torch.zeros_like(d.puddle)
-    fold[[OUT_LIQ_VOL, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_PRTCL_NUM]] = info[:4]
-    puddle = d.puddle + fold
-    if do_coal:
-        puddle = _fold_coal_overflow(puddle, info[6] > 0)
+    puddle = d.puddle
+    if rowinfo is not None:
+        info = rowinfo.sum(dim=0).to(puddle.dtype)
+        fold = torch.zeros_like(puddle)
+        fold[[OUT_LIQ_VOL, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_PRTCL_NUM]] = \
+            info[:4]
+        puddle = puddle + fold
+        if do_coal:
+            puddle = _fold_coal_overflow(puddle, info[6] > 0)
     d = dataclasses.replace(
         d, rw2=rw2, T=T, p=p, RH=RH, eta=eta, sstp_tmp_th=th,
         sstp_tmp_rv=rv, puddle=puddle, rng_step=d.rng_step + int(do_coal))
+    if tgt is None:
+        # no transport: no walls, no re-bin; after condensation alone the
+        # stale vt plane stays (dense.py:1550-1558)
+        d = dataclasses.replace(d, n=n, rd3=rd3, kpa=kpa, x=x, z=z,
+                                vt=d.vt if vt is None else vt)
+        return d, th, rv
     if cfg.nx < 3:
         # the merge needs distinct left, own and right columns
         d = dataclasses.replace(d, n=n, rd3=rd3, kpa=kpa, vt=vt, x=x, z=z)

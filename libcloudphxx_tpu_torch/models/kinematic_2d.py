@@ -7,11 +7,13 @@ MPDATA advection of th/rv (models/mpdata.py) and the super-droplet
 microphysics through the public particles_t API (lgrngn/particles.py), on
 the cell-centred grid: the stepwise loop (step, run) calls step_sync and
 step_async, run_device_lgrngn runs the flat engine's step functions or
-the dense cell-major engine (lgrngn/dense.py).  The port runs the lgrngn
+the dense cell-major engine (lgrngn/dense.py), the latter with the
+occupancy-aware repack policy of long runs.  The port runs the lgrngn
 scheme only.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -19,9 +21,12 @@ from torch import nn
 
 from ..common import hydrostatic, theta_dry, theta_std
 from ..lgrngn import dense
+from ..lgrngn.dense_front import initial_capacity as dense_capacity
+from ..lgrngn.dense_front import particles_dense_t
 from ..lgrngn.enums import backend_t, kernel_t, vt_t
 from ..lgrngn.opts import opts_init_t, opts_t
 from ..lgrngn.particles import factory, step_async_body, step_cond_body
+from ..ops.coal import MAX_CAP
 from . import mpdata
 
 
@@ -98,16 +103,18 @@ class Kinematic2D(nn.Module):
     population (float32 on the card; the kernels take float32 only).  The
     courant and density fields are buffers; th and rv (nx, nz) are
     attributes that each step replaces.  The microphysics is the public
-    API's particles_t (``prtcls``, lgrngn/particles.py) on the flat
-    engine; run_device_lgrngn(engine="dense") runs the same population on
-    the dense cell-major engine and writes it back."""
+    API (``prtcls``) that lgrngn.factory gives for ``engine`` ("auto": the
+    dense front, lgrngn/dense_front.py, on a CUDA device, the flat
+    particles_t on the CPU; or "dense" or "flat"); run_device_lgrngn runs
+    the same population on the flat or the dense engine and hands it
+    back."""
 
     def __init__(self, nx=76, nz=76, setup: Setup = None, micro="lgrngn",
                  sd_conc=64, sstp_cond=1, sstp_coal=1, n_sd_max=None,
                  mpdata_iters=2, grid="cell", fct=False,
                  terminal_velocity=None,
                  rng_seed=None, opts_init_kw=None, coal_pairing="stride", *,
-                 device="cuda", dtype=torch.float32):
+                 engine="auto", device="cuda", dtype=torch.float32):
         super().__init__()
         if micro != "lgrngn":
             raise NotImplementedError(
@@ -162,7 +169,9 @@ class Kinematic2D(nn.Module):
                 "only (ROADMAP.md, Queue 1)")
         self.opts_init = oi
         self.prtcls = factory(backend_t.CUDA, oi, device=self.device,
-                              dtype=dtype)
+                              dtype=dtype, engine=engine)
+        if isinstance(self.prtcls, particles_dense_t):
+            self.prtcls.coal_pairing = coal_pairing
         self.cfg = self.prtcls.cfg
 
         dev = lambda a: torch.as_tensor(
@@ -206,7 +215,7 @@ class Kinematic2D(nn.Module):
                                        plain=plain)
         self.th = th.reshape(self.nx, self.nz)
         self.rv = rv.reshape(self.nx, self.nz)
-        self.prtcls.step_async(opts)
+        self.prtcls.step_async(opts, plain=plain)
 
     def step(self, spinup=False, *, plain=False):
         """One model step: MPDATA of th/rv, then step_sync and step_async
@@ -268,10 +277,14 @@ class Kinematic2D(nn.Module):
     @property
     def dense_state(self):
         """The population in the dense cell-major layout
-        (lgrngn/dense.DenseState): the one the last dense run left while
-        the flat state is still the one it wrote back, else packed from
+        (lgrngn/dense.DenseState): the dense front's own copy where that is
+        the authoritative one; else the one the last dense run left while
+        the flat state is still the one it wrote back; else packed from
         the flat state at the row capacity dense_capacity gives."""
-        st = self.prtcls.state
+        p = self.prtcls
+        if isinstance(p, particles_dense_t) and p._loc == "dense":
+            return p._d
+        st = p.state
         if self._dense is None or self._dense[1] is not st:
             counts = torch.bincount(st.ijk[st.n > 0],
                                     minlength=self.cfg.n_cell)
@@ -281,34 +294,49 @@ class Kinematic2D(nn.Module):
 
     @dense_state.setter
     def dense_state(self, d):
-        """Write a dense population back into the flat state (dense.unpack),
-        so that the public API's diagnostics read it."""
+        """Hand a dense population back to the public API: the dense front
+        adopts it, the flat engine gets it written back into its state
+        (dense.unpack), so that the diagnostics read it."""
         p = self.prtcls
+        if isinstance(p, particles_dense_t):
+            p.adopt(d)
+            return
         p.state = dense.unpack(self.cfg, d, p.state)
         self._dense = (d, p.state)
 
     def run_device_lgrngn(self, nt, spinup=0, engine="flat", repack_every=0,
-                          *, plain=False):
+                          repack_margin=1.25, chunk_log=None, *,
+                          plain=False):
         """``nt`` model steps, the first ``spinup`` of them spin-up steps,
         with the population on the device throughout
         (libcloudphxx_tpu/models/kinematic_2d.py:721).  engine="flat" runs
-        the public API's engine without its host-side bookkeeping;
-        engine="dense" packs the population into the dense layout, runs
-        the fused dense step, and writes it back at the end (raising if a
-        full row dropped SDs).  ``plain`` runs the plain PyTorch version of
+        the flat engine's step functions without the public API's
+        bookkeeping; engine="dense" runs the fused dense step on the
+        population in the dense layout (dense_state) and hands it back,
+        raising if a full row dropped SDs.
+
+        ``repack_every`` > 0 turns on the occupancy-aware repack policy of
+        long dense runs (the flat engine ignores it, as the JAX package's
+        does): the steps run in chunks of that many; after each the
+        densest row's occupancy is read, and the population moves to the
+        smallest admissible capacity of at least ``repack_margin`` times
+        it when the capacity has less than 10% headroom (grow), or when
+        that capacity holds 1.5 times the occupancy (shrink).  A chunk
+        that dropped SDs is run again from its start at the capacity for
+        its initial occupancy plus 16, at most 3 times.  Admissible
+        capacities are 8-lane aligned, and on a CUDA device powers of two
+        up to ops/coal.MAX_CAP (what kernel E takes); a population that
+        needs more raises.  ``chunk_log``, a list, gets a dict a chunk
+        (spinup, steps, occ, cap, seconds, redo: the chunk's runs before
+        it kept every SD).  ``plain`` runs the plain PyTorch version of
         every kernel (comparisons and timings)."""
         if engine not in ("flat", "dense"):
             raise ValueError(f"run_device_lgrngn: engine must be 'flat' or "
                              f"'dense', got {engine!r}")
-        if repack_every:
-            raise NotImplementedError(
-                "run_device_lgrngn: the repack policy is not ported "
-                "(ROADMAP.md, Open items)")
         p = self.prtcls
         if engine == "dense":
-            d = self.dense_state
-            for i in range(nt):
-                d = self._dense_step(d, i < spinup, plain)
+            d = self._run_dense(self.dense_state, nt, spinup, repack_every,
+                                repack_margin, chunk_log, plain)
             dropped = int(d.overflow)
             if dropped:
                 raise RuntimeError(
@@ -316,6 +344,8 @@ class Kinematic2D(nn.Module):
                     f"(capacity {d.cap}); raise cap")
             self.dense_state = d
         else:
+            if isinstance(p, particles_dense_t):
+                p._ensure_flat()
             state, th, rv = p.state, self.th, self.rv
             for i in range(nt):
                 state, th, rv = self._flat_step(state, th, rv, i < spinup,
@@ -325,9 +355,61 @@ class Kinematic2D(nn.Module):
         p._should_now_run_async = False
         self.t += nt * self.setup.dt
 
+    def _run_dense(self, d, nt, spinup, repack_every, margin, chunk_log,
+                   plain):
+        """The dense steps of run_device_lgrngn with its repack policy
+        (libcloudphxx_tpu/models/kinematic_2d.py:772-846).  Returns the
+        final DenseState."""
+        def occupancy(d):
+            return int((d.n > 0).sum(1).max())
 
-def dense_capacity(max_count):
-    """Row capacity: twice the densest initial cell, rounded up to 8 lanes
-    and then to a power of two (128 at the GMD case's 64 SDs a cell)."""
-    cap = max(8, int(-(-2 * int(max_count) // 8) * 8))
-    return 1 << (cap - 1).bit_length()
+        for n, sp in ((min(spinup, nt), True), (max(0, nt - spinup), False)):
+            done = redo = 0
+            while done < n:
+                t0 = time.perf_counter()
+                k = min(repack_every, n - done) if repack_every else n - done
+                prev = (d, self.th, self.rv)
+                for _ in range(k):
+                    d = self._dense_step(d, sp, plain)
+                if repack_every and int(d.overflow) > int(prev[0].overflow):
+                    # a row outgrew the capacity within the chunk: run it
+                    # again from its start at a larger one
+                    redo += 1
+                    if redo > 3:
+                        raise RuntimeError(
+                            f"dense engine: row overflow persists after "
+                            f"{redo} capacity retargets")
+                    d = dense.repack(self.cfg, prev[0], admissible_cap(
+                        occupancy(prev[0]) + 16, margin, d.n.device))
+                    self.th, self.rv = prev[1:]
+                    continue
+                done += k
+                ahead = (n - done) + (nt - spinup if sp else 0)
+                if repack_every and ahead > 0:
+                    occ = occupancy(d)
+                    new_cap = admissible_cap(occ, margin, d.n.device)
+                    if (occ * 1.10 > d.cap and new_cap > d.cap) or (
+                            new_cap < d.cap and occ * 1.5 <= new_cap):
+                        d = dense.repack(self.cfg, d, new_cap)
+                    if chunk_log is not None:
+                        chunk_log.append(dict(
+                            spinup=sp, steps=k, occ=occ, cap=d.cap,
+                            seconds=time.perf_counter() - t0, redo=redo))
+                redo = 0
+        return d
+
+
+def admissible_cap(occ, margin, device):
+    """The smallest row capacity the dense engine takes for a densest row
+    of ``occ`` SDs with ``margin`` applied (libcloudphxx_tpu/models/
+    kinematic_2d.py:772-782): 8-lane aligned, and on a CUDA device, where
+    the kernels run, a power of two up to ops/coal.MAX_CAP (what kernel E
+    takes); past that it raises, with the occupancy in the message."""
+    want = max(8, int(-(-int(occ * margin) // 8) * 8))
+    if torch.device(device).type == "cuda":
+        want = 1 << (want - 1).bit_length()
+        if want > MAX_CAP:
+            raise RuntimeError(
+                f"dense engine: a row holds {occ} SDs, which needs capacity "
+                f"{want}; kernel E takes at most {MAX_CAP}")
+    return want

@@ -9,8 +9,8 @@ hand-written kernels, each beside its plain PyTorch version:
   kernel B  csrc/cond.cu       cond / cond_plain: condensation substeps
   kernel E  csrc/coal.cu       ops/coal.coal_resident: coalescence substeps
   kernel C  csrc/transport.cu  transport / transport_plain: vt refresh,
-            advection, sedimentation, walls, puddle partials, and the
-            target cell of every droplet
+            advection, sedimentation, subsidence, walls, puddle partials,
+            and the target cell of every droplet (or the vt refresh alone)
   kernel D  csrc/merge.cu      rebin_x / rebin_x_plain: each row takes its
             droplets from itself and its eight neighbours (the z and the x
             pass of the re-binning at once)
@@ -115,16 +115,21 @@ def cond(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
 
 # ---------------------------------------------------------------- kernel C
 def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
-                    C_l, C_r, C_b, C_a):
-    """vt refresh, SD advection, sedimentation, walls and puddle, then each
-    droplet's target row (pallas_step.py:338-487).  Returns
-    (n, x, z, vt, tgt, rowinfo): ``tgt`` is the int32 target row (-1 for
-    dead slots; a droplet that moved more than one cell on an axis keeps
-    its row and sets the row's flag), ``rowinfo`` (n_cell, 8) the per-row
-    puddle partials (liquid volume, dry volume, liquid number, particle
-    number) and far-mover flag.  A slot dead at load (n == 0) comes out
-    with n = x = z = vt = 0 and target -1, as kernel C writes it; the merge
-    reads only the slots it takes, so no droplet sees that."""
+                    C_l, C_r, C_b, C_a, *, do_adve=True, w_cells=None):
+    """vt refresh, SD advection, sedimentation, subsidence, walls and
+    puddle, then each droplet's target row (pallas_step.py:338-487).
+    ``do_adve`` moves the droplets with the courants C_*, ``do_sedi`` by
+    their vt, and ``w_cells`` (n_cell,), when given, is the subsidence
+    velocity of each row (pallas_step.py:369-370).  Returns (n, x, z, vt,
+    tgt, rowinfo): ``tgt`` is the int32 target row (-1 for dead slots; a
+    droplet that moved more than one cell on an axis keeps its row and sets
+    the row's flag), ``rowinfo`` (n_cell, 8) the per-row puddle partials
+    (liquid volume, dry volume, liquid number, particle number) and
+    far-mover flag.  A slot dead at load (n == 0) comes out with n = x = z
+    = vt = 0 and target -1, as kernel C writes it; the merge reads only the
+    slots it takes, so no droplet sees that.  With no transport at all (no
+    advection, sedimentation or subsidence) only vt is refreshed: n, x and
+    z come back as they went in, and tgt and rowinfo are None."""
     n_cell, cap = n.shape
     live0 = n > 0
     col = lambda a: a[:, None]
@@ -134,17 +139,22 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
     full = lambda v: torch.full((), v, dtype=x.dtype, device=x.device)
     i_row, k_row = _rows(cfg, n_cell, x)
     vt = vt_in_kernel(cfg, rw2, col(T), col(p), col(rhod), col(eta))
+    if not (do_adve or do_sedi or w_cells is not None):
+        return n, x, z, torch.where(live0, vt, 0.0), None, None
 
-    dCx = col(C_r - C_l)
-    dCz = col(C_a - C_b)
-    if as_t(cfg.adve_scheme) == as_t.implicit:
-        x = (x + cfg.dx * (col(C_l) - i_row * dCx)) / (1.0 - dCx)
-        z = (z + cfg.dz * (col(C_b) - k_row * dCz)) / (1.0 - dCz)
-    else:  # euler
-        x = x + dCx * (x - cfg.dx * i_row) + cfg.dx * col(C_l)
-        z = z + dCz * (z - cfg.dz * k_row) + cfg.dz * col(C_b)
+    if do_adve:
+        dCx = col(C_r - C_l)
+        dCz = col(C_a - C_b)
+        if as_t(cfg.adve_scheme) == as_t.implicit:
+            x = (x + cfg.dx * (col(C_l) - i_row * dCx)) / (1.0 - dCx)
+            z = (z + cfg.dz * (col(C_b) - k_row * dCz)) / (1.0 - dCz)
+        else:  # euler
+            x = x + dCx * (x - cfg.dx * i_row) + cfg.dx * col(C_l)
+            z = z + dCz * (z - cfg.dz * k_row) + cfg.dz * col(C_b)
     if do_sedi:
         z = z - dt * vt
+    if w_cells is not None:
+        z = z - dt * col(w_cells)
 
     if not cfg.open_side_walls:
         w = cfg.x1 - cfg.x0
@@ -190,59 +200,89 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
 
 
 def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
-              C_r, C_b, C_a, *, plain=False):
+              C_r, C_b, C_a, *, do_adve=True, w_cells=None, plain=False):
     """Kernel C, or its plain version transport_plain (same arguments and
     results)."""
+    kw = dict(do_adve=do_adve, w_cells=w_cells)
     args = (n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r, C_b, C_a)
     if _ext.use_plain("transport", n, plain):
-        return transport_plain(cfg, dt, do_sedi, *args)
+        return transport_plain(cfg, dt, do_sedi, *args, **kw)
     n_cell, cap = n.shape
-    _ext.check_planes("transport", cap, n, rw2, rd3, x, z)
+    moves = do_adve or do_sedi or w_cells is not None
+    _ext.check_planes("transport", cap, n, rw2, *((rd3, x, z) if moves
+                                                   else ()))
     require_kernel_vt(cfg)
     if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
         raise NotImplementedError(
             f"transport: advection scheme {as_t(cfg.adve_scheme).name} is not "
             "ported (ROADMAP.md, Queue 1)")
-    cells = torch.stack([T, p, rhod, eta, C_l, C_r, C_b, C_a])
-    if cells.shape != (8, n_cell):
+    # the subsidence row only where there is subsidence: the kernel reads
+    # it with do_subs alone
+    cells = torch.stack([T, p, rhod, eta, C_l, C_r, C_b, C_a]
+                        + ([w_cells] if w_cells is not None else []))
+    if cells.shape[1:] != (n_cell,):
         raise ValueError(f"transport: cell fields must be ({n_cell},)")
-    _ext.check("transport", n, rw2, rd3, x, z, cells)
-    n_out, x_out, z_out, vt_out = (torch.empty_like(n) for _ in range(4))
-    tgt = torch.empty((n_cell, cap), dtype=torch.int32, device=n.device)
-    rowinfo = torch.empty((n_cell, 8), dtype=n.dtype, device=n.device)
+    _ext.check("transport", n, rw2, *((rd3, x, z) if moves else ()), cells)
+    vt_out = torch.empty_like(n)
+    if moves:
+        n_out, x_out, z_out = (torch.empty_like(n) for _ in range(3))
+        tgt = torch.empty((n_cell, cap), dtype=torch.int32, device=n.device)
+        rowinfo = torch.empty((n_cell, 8), dtype=n.dtype, device=n.device)
+        ptr = lambda a: a.data_ptr()
+    else:
+        n_out, x_out, z_out, tgt, rowinfo = n, x, z, None, None
+        ptr = lambda a: None
     _ext.TRANSPORT.launch(
-        n.data_ptr(), rw2.data_ptr(), rd3.data_ptr(), x.data_ptr(),
-        z.data_ptr(), cells.data_ptr(), n_out.data_ptr(), x_out.data_ptr(),
-        z_out.data_ptr(), vt_out.data_ptr(), tgt.data_ptr(),
-        rowinfo.data_ptr(), n_cell, cap, cfg.nx, cfg.nz, cfg.dx, cfg.dz,
-        float(dt), cfg.x0, cfg.x1, cfg.z0, cfg.z1,
-        int(as_t(cfg.adve_scheme) == as_t.implicit), int(do_sedi),
-        int(cfg.open_side_walls),
+        n.data_ptr(), rw2.data_ptr(), ptr(rd3), ptr(x), ptr(z),
+        cells.data_ptr(), ptr(n_out), ptr(x_out), ptr(z_out),
+        vt_out.data_ptr(), ptr(tgt), ptr(rowinfo), n_cell, cap, cfg.nx,
+        cfg.nz, cfg.dx, cfg.dz, float(dt), cfg.x0, cfg.x1, cfg.z0, cfg.z1,
+        int(as_t(cfg.adve_scheme) == as_t.implicit), int(do_adve),
+        int(do_sedi), int(w_cells is not None), int(cfg.open_side_walls),
         int(cfg.periodic_topbot_walls))
     return n_out, x_out, z_out, vt_out, tgt, rowinfo
 
 
 def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
                   z, thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, C_l, C_r,
-                  C_b, C_a, p0, *, do_coal=False, params=(), sstp_coal=1,
-                  rng=(0, 0), coal_pairing="stride", plain=False):
-    """One microphysics step: condensation (kernel B), with ``do_coal``
-    coalescence (kernel E, sstp_coal substeps of the draws ``rng`` =
-    (seed, step)), then transport and classification (kernel C); the
-    merge (rebin_x) follows.  Returns (n, rw2, rd3, kpa, vt, x, z, tgt,
-    th, rv, T, p, RH, eta, rowinfo), rowinfo's lane 6 the coalescence
-    overflow flag of each row."""
-    rw2, th, rv, T, p, RH, eta = cond(
-        cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0, rv0,
-        rhod, dv, lam_D, lam_K, p0, plain=plain)
+                  C_b, C_a, p0, *, do_cond=True, do_coal=False, do_adve=True,
+                  w_cells=None, params=(), sstp_coal=1, rng=(0, 0),
+                  coal_pairing="stride", plain=False):
+    """One microphysics step or a phase of one (pallas_step.step_resident
+    with its phase flags): condensation (kernel B) with ``do_cond``, else
+    the cell closure of th0/rv0 (the post-condensation values of the async
+    phase, pallas_step.py:229-231); with ``do_coal`` coalescence (kernel E,
+    sstp_coal substeps of the draws ``rng`` = (seed, step)); then, where any
+    of advection (``do_adve``), sedimentation (``do_sedi``) or subsidence
+    (``w_cells``, the velocity of each row) runs, transport and
+    classification (kernel C), and the merge (rebin_x) follows.  With no
+    transport kernel C refreshes vt alone where condensation did not run;
+    after condensation alone vt is None: the phase keeps the stale plane,
+    as the TPU kernel's cond-only phase does (pallas_step.py:338-342).
+    Returns (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta,
+    rowinfo), rowinfo's lane 6 the coalescence overflow flag of each row;
+    with no transport tgt is None, and so is rowinfo unless coalescence
+    ran (then it holds that flag alone)."""
+    if do_cond:
+        rw2, th, rv, T, p, RH, eta = cond(
+            cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
+            rv0, rhod, dv, lam_D, lam_K, p0, plain=plain)
+    else:
+        th, rv = th0, rv0
+        T, p, RH, eta = hskpng_Tpr(cfg, th, rv, rhod, p0)
     if do_coal:
         n, rw2, rd3, kpa, x, z, coal_ovf = coal_ops.coal_resident(
             cfg, params, sstp_coal, dt, *rng, n, rw2, rd3, kpa, x, z, T, p,
             rhod, eta, dv, pairing=coal_pairing, plain=plain)
-    n, x, z, vt, tgt, rowinfo = transport(
-        cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r, C_b,
-        C_a, plain=plain)
+    vt = tgt = rowinfo = None
+    if do_adve or do_sedi or w_cells is not None or not do_cond:
+        n, x, z, vt, tgt, rowinfo = transport(
+            cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r,
+            C_b, C_a, do_adve=do_adve, w_cells=w_cells, plain=plain)
     if do_coal:
+        if rowinfo is None:
+            rowinfo = torch.zeros((n.shape[0], 8), dtype=n.dtype,
+                                  device=n.device)
         rowinfo[:, 6] = coal_ovf.to(rowinfo.dtype)
     return (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta, rowinfo)
 

@@ -29,7 +29,11 @@ call.  Kernels C (transport) and D (merge, a warp a row each) run at row
 capacity 2 to 512 in their scalar-slot and 16-byte forms, on a 3-column
 grid and an 8x6 one with all-dead rows, far movers, the puddle and rows
 that receive more droplets than they hold, bitwise equal to their plain
-versions in every slot.
+versions in every slot, and C also in its subsidence, no-advection and
+vt-only forms.  The dense front (particles_dense_t) steps through the
+kernels and equals the fused dense run bitwise; dense.repack and the
+repack policy run on the card as on the CPU, and the policy refuses a
+row that needs more than kernel E's 512 slots.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -330,6 +334,133 @@ def test_transport_and_merge_kernels_on_synthetic_rows(dev, cap, nx, nz,
         assert float(pc[5][:, 4].sum()) > 0                 # far movers
 
 
+# kernel C's forms: subsidence (here beside sedimentation), no advection,
+# and the vt refresh alone (nothing moves)
+C_FORMS = {"subsidence": dict(do_sedi=True, do_adve=True, subs=True),
+           "no_advection": dict(do_sedi=True, do_adve=False, subs=False),
+           "subsidence_no_advection": dict(do_sedi=False, do_adve=False,
+                                           subs=True),
+           "vt_only": dict(do_sedi=False, do_adve=False, subs=False)}
+
+
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("form", list(C_FORMS))
+@pytest.mark.parametrize("cap", [2, 32, 100, 128, 512])
+def test_transport_kernel_forms_match_plain(dev, cap, form, misaligned):
+    """Kernel C's subsidence, no-advection and vt-only forms at row
+    capacity 2 to 512, in the scalar-slot and the 16-byte layout, bitwise
+    equal to transport_plain in every slot (the far flags exact, the
+    puddle partials rel 1e-5); the vt-only form writes vt alone."""
+    cfg, planes, cells = transport_case(8, 6, cap, device=dev,
+                                        dtype=torch.float32)
+    if misaligned:  # the same values 4 bytes past a 16-byte boundary
+        buf = torch.empty(planes[1].numel() + 1, dtype=torch.float32,
+                          device=dev)
+        rw2 = buf[1:].view(planes[1].shape)
+        rw2.copy_(planes[1])
+        planes = planes[:1] + (rw2,) + planes[2:]
+    n, rw2, rd3, kpa, x, z = planes
+    f = C_FORMS[form]
+    k_row = torch.arange(cfg.n_cell, device=dev) % cfg.nz
+    w = torch.linspace(30.0, -5.0, cfg.nz, device=dev)[k_row] \
+        if f["subs"] else None
+    args = (cfg, 1.0, f["do_sedi"], n, rw2, rd3, x, z) + tuple(cells)
+    kw = dict(do_adve=f["do_adve"], w_cells=w)
+    kc = _launches(_ext.TRANSPORT, lambda: step.transport(*args, **kw))
+    pc = step.transport(*args, **kw, plain=True)
+    assert torch.equal(kc[3], pc[3])                      # vt
+    if form == "vt_only":
+        assert kc[4] is None and kc[5] is None
+        assert kc[0] is n and kc[1] is x and kc[2] is z
+        assert bool((kc[3][n > 0] > 0).all()) and bool((kc[3][n == 0] == 0)
+                                                       .all())
+        return
+    for a, b in zip(kc[:5], pc[:5]):                      # n x z vt targets
+        assert torch.equal(a, b)
+    assert torch.equal(kc[5][:, 4], pc[5][:, 4])
+    assert torch.allclose(kc[5][:, :4], pc[5][:, :4], rtol=1e-5, atol=0.0)
+    assert float(pc[5][:, 3].sum()) > 0                   # the puddle
+    live = n > 0
+    if not f["do_adve"]:   # only the walls move x
+        assert torch.equal(kc[1][live], x[live])
+
+
+def test_dense_front_on_the_card(dev):
+    """Kinematic2D over the dense front (the factory's choice on the card):
+    its stepwise run launches kernels A (a field a call), B, C, D and E
+    and equals run_device_lgrngn(engine="dense") bitwise; against its plain
+    run th rel 2e-6, rv 2e-5, the same SDs in every row."""
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
+    kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=3, sstp_coal=3,
+              n_sd_max=24 * 64, opts_init_kw={"kernel_parameters": [100.0]},
+              device=dev)
+    front, fused, plain = (Kinematic2D(**kw) for _ in range(3))
+    assert isinstance(front.prtcls, particles_dense_t)
+    before = {k.name: k.launches for k in _ext.KERNELS}
+    front.run(4, spinup=2)
+    torch.cuda.synchronize()
+    got = {k.name: k.launches - before[k.name] for k in _ext.KERNELS}
+    assert got == dict(mpdata=8, cond=4, transport=4, merge=4, coal=2,
+                       coal_standalone=0, cond_flat=0)
+    fused.run_device_lgrngn(4, spinup=2, engine="dense")
+    plain.run(4, spinup=2, plain=True)
+    assert torch.equal(front.th, fused.th) and torch.equal(front.rv, fused.rv)
+    a, b, p = front.dense_state, fused.dense_state, plain.dense_state
+    for k in dense.ATTRS:
+        ma = multiset(a.n.cpu(), (getattr(a, k).cpu(),))
+        mb = multiset(b.n.cpu(), (getattr(b, k).cpu(),))
+        assert np.array_equal(ma, mb), k
+    assert _rel(front.th, plain.th) <= 2e-6
+    assert _rel(front.rv, plain.rv) <= 2e-5
+    assert torch.equal((a.n > 0).sum(1), (p.n > 0).sum(1))
+    assert int(a.overflow) == 0
+
+
+def test_repack_and_policy_on_the_card(dev):
+    """dense.repack on the card equals its run on the CPU lane by lane; the
+    repack policy on the card (powers of two) with the kernels against its
+    plain run: the same chunk log, th rel 2e-6, rv 2e-5."""
+    kw = dict(nx=8, nz=8, sd_conc=30, sstp_cond=3, n_sd_max=30 * 64,
+              opts_init_kw={"coal_switch": False}, device=dev)
+    m = Kinematic2D(**kw)
+    d = m.dense_state
+    cpu = dataclasses.replace(d, **{a: getattr(d, a).cpu()
+                                    for a in dense.ATTRS},
+                              overflow=d.overflow.cpu())
+    for cap in (32, 128, 16):
+        g, c = dense.repack(m.cfg, d, cap), dense.repack(m.cfg, cpu, cap)
+        for a in dense.ATTRS:
+            assert torch.equal(getattr(g, a).cpu(), getattr(c, a)), a
+        assert int(g.overflow) == int(c.overflow)
+    assert int(dense.repack(m.cfg, d, 16).overflow) > 0
+    logs = [], []
+    mk, mp = Kinematic2D(**kw), Kinematic2D(**kw)
+    mk.dense_state = dense.repack(mk.cfg, mk.dense_state, 32)
+    mp.dense_state = dense.repack(mp.cfg, mp.dense_state, 32)
+    mk.run_device_lgrngn(8, spinup=2, engine="dense", repack_every=2,
+                         chunk_log=logs[0])
+    mp.run_device_lgrngn(8, spinup=2, engine="dense", repack_every=2,
+                         chunk_log=logs[1], plain=True)
+    key = lambda log: [(e["occ"], e["cap"], e["redo"]) for e in log]
+    assert key(logs[0]) == key(logs[1])
+    # ~30 SDs at capacity 32: less than 10% headroom (or a row
+    # overflowed and the chunk ran again), so the policy grows to 64
+    assert logs[0][0]["cap"] == 64
+    assert _rel(mk.th, mp.th) <= 2e-6
+    assert _rel(mk.rv, mp.rv) <= 2e-5
+
+
+def test_repack_policy_refuses_past_512_on_the_card(dev):
+    """A densest row that needs more than kernel E's 512 slots raises, with
+    the occupancy in the message, and drops no SD."""
+    m = Kinematic2D(nx=8, nz=8, sd_conc=420, sstp_cond=2, n_sd_max=420 * 64,
+                    opts_init_kw={"coal_switch": False}, device=dev)
+    m.dense_state = dense.repack(m.cfg, m.dense_state, 512)
+    with pytest.raises(RuntimeError, match="SDs, which needs capacity 1024"):
+        m.run_device_lgrngn(4, spinup=4, engine="dense", repack_every=2)
+
+
 def test_slice_kernels_match_plain(dev):
     """Two spin-up and two sedimenting steps of the 8x8 case through the
     kernels and through the plain versions, on the card: every kernel runs
@@ -609,7 +740,7 @@ def test_flat_slice_kernels_match_plain(dev):
     and the draws agree."""
     kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=3, sstp_coal=3,
               n_sd_max=24 * 64, opts_init_kw={"kernel_parameters": [100.0]},
-              device=dev)
+              engine="flat", device=dev)
     mk, mp = Kinematic2D(**kw), Kinematic2D(**kw)
     before = {k.name: k.launches for k in _ext.KERNELS}
     mk.run(4, spinup=2)

@@ -296,13 +296,14 @@ def test_convert_roundtrip(jax_init, jax_model):
         static_config_from_numpy({"nx": 8})
 
 
-@pytest.mark.parametrize("what", ["coalescence", "engine", "repack",
+@pytest.mark.parametrize("what", ["coalescence", "engine", "multi_device",
                                   "micro", "grid"])
 def test_unported_paths_raise(what, port):
     m, _, _ = port
     if what == "coalescence":
         # coalescence runs (test_coal_slice_*), but not with the turbulent
-        # kernels (ROADMAP.md, Queue 1 item 10)
+        # kernels (ROADMAP.md, Queue 1, "Dense-engine options that the port
+        # refuses")
         m2 = Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
                          dtype=torch.float64,
                          opts_init_kw={"kernel": kernel_t.onishi_hall})
@@ -312,11 +313,15 @@ def test_unported_paths_raise(what, port):
     with pytest.raises(NotImplementedError):
         if what == "engine":
             # the flat engine runs (test_torch_flat_*.py), but not with
-            # exact per-particle substepping (ROADMAP.md, Queue 1 item 10)
+            # exact per-particle substepping (ROADMAP.md, Queue 1, "The flat
+            # engine's remaining features")
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
                         opts_init_kw={"exact_sstp_cond": True})
-        elif what == "repack":
-            m.run_device_lgrngn(1, repack_every=10, engine="dense")
+        elif what == "multi_device":
+            # one device only (ROADMAP.md, Queue 1, "Multi-device
+            # (parallel/)"); the repack policy runs (test_torch_repack.py)
+            Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
+                        opts_init_kw={"dev_count": 2})
         else:
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
                         **{what: "blk_1m" if what == "micro" else "node"})

@@ -340,12 +340,13 @@ def test_defaults_and_refusals(monkeypatch):
     oi = Kinematic2D(nx=4, nz=4, sd_conc=2, **F64).opts_init
     with pytest.raises(RuntimeError, match="device='cpu'"):
         factory(tl.backend_t.CUDA, oi)
-    for over, match in (({"dev_count": 2}, "item 13"),
+    for over, match in (({"dev_count": 2}, "Multi-device"),
                         ({"ice_switch": True}, "ice_switch"),
                         ({"turb_cond_switch": True}, "turb_cond_switch"),
                         ({"chem_switch": True}, "chem_switch"),
                         ({"diag_incloud_time": True}, "diag_incloud_time"),
-                        ({"adaptive_sstp_cond": True}, "item 10")):
+                        ({"adaptive_sstp_cond": True},
+                         "remaining features")):
         o = _copy(oi, **over)
         with pytest.raises(NotImplementedError, match=match):
             factory(tl.backend_t.CUDA, o, **F64)
