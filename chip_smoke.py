@@ -5,8 +5,8 @@ Drives the port's paths, the GMD-2015 kinematic lgrngn case at 76x76
 cells and 64 super-droplets a cell with sstp_cond = sstp_coal = 10 and the
 geometric kernel (bench.py's configuration), on the dense engine (kernels
 A-E) through run_device_lgrngn and through the public API's dense front,
-and on the flat engine behind the public API (kernels A and F), and
-checks them:
+and on the flat engine behind the public API (kernels A and F, and with
+exact per-particle condensation kernels A and G), and checks them:
 
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run
   2. build: compile the kernels from csrc/, one nvcc per source in parallel
@@ -32,29 +32,40 @@ checks them:
      inputs a main step gives it (and with cell 0 holding 65,536 more dead
      slots), run_device_lgrngn(engine="flat") against the stepwise loop,
      the kernel path against the plain path
-  8. the dense front through the public API (factory on the card ->
+  8. the exact per-particle condensation (exact_sstp_cond) through the
+     public API, with in-cell mixing, without it, and adaptive
+     (sstp_cond_act 8): spin-up and coalescing steps with bench.py's
+     physics checks, kernel G (the per-droplet root find at each droplet's
+     own ambient conditions) 10 times a step (adaptive: 14) and kernel A
+     twice, run_device_lgrngn(engine="flat") against the stepwise loop,
+     the kernel path against the plain path; G against its plain version,
+     bitwise, on the full population's first substep, RH capped at 1.01
+     and 44, on 1 and 32,773 droplets, with 65,536 dead slots added, and
+     with a dt a droplet (the adaptive phase B)
+  9. the dense front through the public API (factory on the card ->
      particles_dense_t; Kinematic2D.run()): spin-up and coalescing steps
      through kernels A (a field a call), B, C, D and E, bitwise equal to
      run_device_lgrngn(engine="dense") from the same state (th, rv, every
      plane as a per-cell multiset), bench.py's physics checks through the
      public API
-  9. timing: best of 3 from-init reps through the kernels and through the
+ 10. timing: best of 3 from-init reps through the kernels and through the
      plain versions, with and without coalescence, on the dense engine;
-     best of 3 from-init reps of the flat slice and of the dense front;
-     each kernel against its plain version, beside its bound (bytes or
-     operations at the card's peak rates)
- 10. the sustained run (SUSTAINED_r05.json's shape: 3600 steps, 2400 of
+     best of 3 from-init reps of the flat slice, of the exact slice (with
+     mixing) and of the dense front; each kernel against its plain
+     version, beside its bound (bytes or operations at the card's peak
+     rates)
+ 11. the sustained run (SUSTAINED_r05.json's shape: 3600 steps, 2400 of
      them spin-up, the repack policy every 50 steps with margin 1.25): the
      chunk log, the last 1000 steps' ms/step beside the from-init one, the
      global re-bins, conservation and the SDs alive at the end
- 11. the repack policy forced to retarget at full width: 118 SDs a cell
+ 12. the repack policy forced to retarget at full width: 118 SDs a cell
      started at capacity 128 (a grow) and at 512 (a shrink), every repack
      conserving the population per cell, and kernel E's device time in the
      step at capacities 512 and 256
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
-the flat engine and the dense front (torch.profiler).  The last line is {"ok": true, "device": {...}}; the
+the flat engine, the dense front and the exact slice (torch.profiler).  The last line is {"ok": true, "device": {...}}; the
 line before it the card's name and power limit; before that one JSON
 object with a row per kernel.  Any failed check raises: the script then
 prints ``chip_smoke: FAILED: <reason>`` on stdout, and exits non-zero.
@@ -82,6 +93,17 @@ KERNEL_REPS = 20
 STANDALONE_CALLS = 3
 FLAT_TIME_STEPS = 20
 FLAT_DEAD_CELL0 = 65536     # dead slots added to cell 0 in F's second case
+# the exact per-particle slice (kernel G): its three variants, the
+# ragged lengths and dead slots of G's checks, and the steps of the
+# kernel path against the plain path (3 spin-up, 2 coalescing)
+EXACT_VARIANTS = {
+    "mixing": dict(exact_sstp_cond=True),
+    "no mixing": dict(exact_sstp_cond=True, sstp_cond_mix=False),
+    "adaptive": dict(exact_sstp_cond=True, adaptive_sstp_cond=True,
+                     sstp_cond_act=8),
+}
+EXACT_LENGTHS, EXACT_DEAD = (1, 32773), 65536
+EXACT_PLAIN_STEPS, EXACT_PLAIN_SPINUP = 5, 3
 
 # the card's peak rates (H100 SXM data sheet, at a 700 W power limit):
 # device memory bytes/s and float32 operations/s outside the tensor cores
@@ -101,6 +123,11 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # dry radius' cube root and square, rd3 * (1 - kappa))
 OPS_DRW2, OPS_ITER, OPS_BRACKET, OPS_ADVANCE = 65, 19, 12, 24
 OPS_CELL_SUBSTEP, OPS_CLOSURE, OPS_DROP = 71, 32, 6
+# kernel G (csrc/cond_sd.cu) evaluates drw2_dt's cell terms (cond_cell.cuh
+# cell_growth) for every droplet: the Schmidt and Prandtl numbers, the RH
+# cap, the surface tension and Kelvin coefficient, l_v, rho_v and the
+# latent-heat term
+OPS_GROWTH = 20
 # per live SD: vt_beard77; kernel C's advection, walls and classification
 # beside it; kernel D's nine-source merge
 OPS_VT, OPS_TRANSPORT, OPS_MERGE = 45, 60, 30
@@ -187,11 +214,12 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def make_model(Kinematic2D, coal, engine="auto", sd_conc=SD_CONC):
+def make_model(Kinematic2D, coal, engine="auto", sd_conc=SD_CONC, **oi_kw):
     return Kinematic2D(
         nx=NX, nz=NZ, micro="lgrngn", sd_conc=sd_conc, sstp_cond=SSTP_COND,
         sstp_coal=SSTP_COAL, n_sd_max=sd_conc * NX * NZ,
-        opts_init_kw={"coal_switch": coal}, engine=engine, device=DEVICE)
+        opts_init_kw={"coal_switch": coal, **oi_kw}, engine=engine,
+        device=DEVICE)
 
 
 def occupancy(d):
@@ -460,10 +488,10 @@ def flat_physics_checks(model, water0, dry0, c):
     return dw, dd
 
 
-def capture(module, name, step):
+def capture(module, name, step, which=-1):
     """The arguments, by name, that the wrapper ``module.name`` takes on a
     main path: ``step()`` runs a step with the wrapper wrapped to record
-    its last call."""
+    its calls; the call ``which`` (the last by default)."""
     import inspect
     real, seen = getattr(module, name), []
 
@@ -477,7 +505,7 @@ def capture(module, name, step):
     finally:
         setattr(module, name, real)
     check(len(seen) > 0, f"a step did not call {name}")
-    return {k: v for k, v in seen[-1].items() if k != "plain"}
+    return {k: v for k, v in seen[which].items() if k != "plain"}
 
 
 def with_dead_cell0(kw, n_dead):
@@ -525,8 +553,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also print the device-time split of coalescing "
-                         "steps on the dense engine, the flat engine and "
-                         "the dense front (torch.profiler)")
+                         "steps on the dense engine, the flat engine, the "
+                         "dense front and the exact slice (torch.profiler)")
     opts = ap.parse_args()
     try:
         return smoke(opts)
@@ -937,7 +965,10 @@ def smoke(opts):
     check(rel_th <= 1e-4 and rel_rv <= 1e-3,
           "flat: the kernel path drifted from the plain path")
 
-    # ---- 8. the dense front through the public API
+    # ---- 8. the exact per-particle slice through the public API
+    exact = exact_slice(Kinematic2D, _ext, c, err)
+
+    # ---- 9. the dense front through the public API
     from libcloudphxx_tpu_torch.lgrngn import backend_t, factory
     from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
     probe = factory(backend_t.CUDA, model_c.opts_init, device=DEVICE)
@@ -962,7 +993,7 @@ def smoke(opts):
           f"{front}", flush=True)
     check(front == dict(mpdata=2 * steps, cond=steps, transport=steps,
                         merge=steps, coal=SLICE_MAIN, coal_standalone=0,
-                        cond_flat=0),
+                        cond_flat=0, cond_sd=0),
           f"dense front: kernel A twice, B, C and D once a step and E once "
           f"a main step expected, got {front}")
     # bitwise against run_device_lgrngn(engine="dense") from the same state
@@ -982,7 +1013,7 @@ def smoke(opts):
     print(f"dense front, physics through get_attr/diag_puddle: water rel err "
           f"{dw:.2e}, dry rel err {dd:.2e}", flush=True)
 
-    # ---- 9. timing: from-init reps through the kernels and the plain path
+    # ---- 10. timing: from-init reps through the kernels and the plain path
     def run_reps(m, init, steps, plain):
         m.run_device_lgrngn(2, plain=plain, engine="dense")  # warm-up
         best = float("inf")
@@ -1039,6 +1070,26 @@ def smoke(opts):
           flush=True)
     restore_flat(f_init)
 
+    # the exact slice (mixing): from-init reps of the stepwise public-API
+    # loop, beside the per-cell flat slice
+    m_x, x_init = exact["model"], exact["init"]
+    best = float("inf")
+    for _ in range(TIME_REPS):
+        m_x.prtcls.state, m_x.th, m_x.rv = x_init
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_x.run(FLAT_TIME_STEPS)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        flat_physics_checks(m_x, *exact["totals"], c)
+    m_x.prtcls.state, m_x.th, m_x.rv = x_init
+    exact_ms = best / FLAT_TIME_STEPS * 1e3
+    print(f"timing exact slice (mixing, public API, coalescence on), "
+          f"kernels: {exact_ms:.3f} ms/step, "
+          f"{exact['n_sd'] * FLAT_TIME_STEPS / best:.4g} SD-updates/s "
+          f"({FLAT_TIME_STEPS} steps, best of {TIME_REPS}); the per-cell "
+          f"flat slice {flat_ms:.3f} ms/step ({card})", flush=True)
+
     # the dense front: from-init reps of the stepwise public-API loop,
     # bench.py's physics checks through the public API on every rep
     model_d.dense_state, model_d.th, model_d.rv = fd_init
@@ -1077,15 +1128,19 @@ def smoke(opts):
         "coal": lambda plain: coal_call("stride", plain),
         "coal_standalone": lambda plain: coal_call("standalone", plain),
         "cond_flat": lambda plain: cond_ops.cond_flat(**f_kw, plain=plain),
+        "cond_sd": lambda plain: cond_ops.advance_rw2(**exact["g_kw"],
+                                                      plain=plain),
     }
     launches = dict(main_launches, coal_standalone=standalone,
-                    cond_flat=flat_main["cond_flat"])
+                    cond_flat=flat_main["cond_flat"],
+                    cond_sd=exact["launches"])
     work_e = [coal_work(lambda: coal_call(form, True), ds.n)
               for form in ("stride", "standalone")]
     for form, w in zip(("stride", "standalone"), work_e):
         print(f"E {form} work on the cloud population: {w}")
     bounds = kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, (model.gc_x,
                            model.gc_z, model.G), kc, prt.cfg, f_kw, work_e)
+    bounds["cond_sd"] = cond_sd_bound(exact["g_kw"])
     rows = []
     for k in _ext.KERNELS:
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
@@ -1121,10 +1176,10 @@ def smoke(opts):
     check(rel[0] <= 2e-6 and rel[1] <= 2e-5 and rel[2] <= 1e-5,
           "cond kernel disagrees with its plain version in a main step")
 
-    # ---- 10. the sustained run: SUSTAINED_r05.json's shape on the card
+    # ---- 11. the sustained run: SUSTAINED_r05.json's shape on the card
     sustained(Kinematic2D, dense, _ext, card, dense_ms["coalescence on"])
 
-    # ---- 11. the repack policy forced to retarget at full width
+    # ---- 12. the repack policy forced to retarget at full width
     forced_retargets(Kinematic2D, dense, _ext, card)
 
     if opts.profile:
@@ -1132,6 +1187,8 @@ def smoke(opts):
         profile_both(model_c, (dc0, thc0, rvc0), model_f,
                      (model_f.prtcls.state, model_f.th, model_f.rv), card)
         profile_front(model_d, fd_init, card)
+        profile_flat(exact["model"], exact["init"], card,
+                     label="exact (mixing), public API")
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1262,6 +1319,164 @@ def forced_retargets(Kinematic2D, dense, _ext, card):
         unwrap()
     print(f"forced retargets: repacks {repacks}, each conserving every "
           f"cell's SDs", flush=True)
+
+
+def exact_slice(Kinematic2D, _ext, c, err):
+    """bench.py's configuration with exact per-particle condensation, in
+    each of EXACT_VARIANTS, through the public API (factory -> particles_t
+    -> Kinematic2D.run()): spin-up and coalescing steps with bench.py's
+    physics checks, kernel G sstp_cond times a step (adaptive: once a try
+    of phase A and max(sstp_cond, sstp_cond_act) times in phase B) and no
+    other condensation kernel, run_device_lgrngn(engine="flat") equal to
+    the stepwise loop, and the kernel path against the plain path.  Then G
+    against its plain version, bitwise, on the inputs of the mixing
+    variant's first main substep (the full population), RH capped at 1.01
+    and 44, on a ragged length or one droplet, with 65,536 dead slots
+    added, and on the adaptive variant's first phase-B call (a dt a
+    droplet).  Returns the mixing variant's model, initial state, totals,
+    SD count, G's launches in its run and G's first-substep inputs."""
+    from libcloudphxx_tpu_torch.lgrngn import condensation as cnd
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    steps = SLICE_SPINUP + SLICE_MAIN
+    out, g_cases = {}, {}
+    for label, oi in EXACT_VARIANTS.items():
+        t0 = time.perf_counter()
+        m = make_model(Kinematic2D, coal=True, **oi)
+        prt = m.prtcls
+        check(type(prt).__name__ == "particles_t",
+              f"exact {label}: the factory gave {type(prt).__name__}")
+        check(prt.state.sstp_tmp_th.shape == prt.state.n.shape
+              and prt.state.sstp_tmp_p.shape == prt.state.n.shape,
+              f"exact {label}: the substepping snapshot is not per SD")
+        torch.cuda.synchronize()
+        init = (prt.state, m.th, m.rv)
+        totals = flat_totals(prt, m.rv, c)
+        n_sd = int((prt.state.n > 0).sum())
+        per_step = SSTP_COND
+        if oi.get("adaptive_sstp_cond"):
+            per_step = len(cnd.adaptive_tries(SSTP_COND)) \
+                + max(SSTP_COND, oi["sstp_cond_act"])
+
+        def restore(s):
+            prt.state, m.th, m.rv = s
+
+        reset(_ext.KERNELS)
+        t1 = time.perf_counter()
+        m.run(SLICE_SPINUP, spinup=SLICE_SPINUP)
+        torch.cuda.synchronize()
+        sp = (prt.state, m.th, m.rv)
+        m.run(SLICE_MAIN)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches = {k.name: k.launches for k in _ext.KERNELS}
+        dw, dd = flat_physics_checks(m, *totals, c)
+        end = (prt.state, m.th, m.rv)
+        lost = collided(sp[0], end[0])
+        print(f"exact slice, {label}: init {t1 - t0:.1f} s, {n_sd} SDs; "
+              f"{SLICE_SPINUP} spin-up + {SLICE_MAIN} main steps in "
+              f"{secs:.2f} s; water rel err {dw:.2e}, dry rel err {dd:.2e}, "
+              f"multiplicity lost to collisions {lost:.3e}; G launches "
+              f"{launches['cond_sd'] / steps:g} a step ({per_step} "
+              f"expected); launches {launches}", flush=True)
+        want = {k.name: 0 for k in _ext.KERNELS}
+        want.update(mpdata=2 * steps, cond_sd=per_step * steps)
+        check(launches == want, f"exact {label}: kernel A twice and G "
+              f"{per_step} times a step expected, got {launches}")
+        check(lost > 0.0, f"exact {label}: no collision in the main steps")
+
+        # run_device_lgrngn(engine="flat") from the spin-up state against
+        # the stepwise public-API loop
+        restore(sp)
+        m.run_device_lgrngn(SLICE_MAIN)
+        torch.cuda.synchronize()
+        eq = {k: bool(torch.equal(getattr(prt.state, k), getattr(end[0], k)))
+              for k in ("n", "rw2", "sstp_tmp_th", "sstp_tmp_rv")}
+        eq.update(th=bool(torch.equal(m.th, end[1])),
+                  rv=bool(torch.equal(m.rv, end[2])))
+        print(f"exact {label}: run_device_lgrngn vs stepwise run(): equal "
+              f"{eq}", flush=True)
+        check(all(eq.values()),
+              f"exact {label}: run_device_lgrngn differs from run()")
+
+        # the kernel path against the plain path, from init
+        res = []
+        for plain in (False, True):
+            restore(init)
+            m.run(EXACT_PLAIN_STEPS, spinup=EXACT_PLAIN_SPINUP, plain=plain)
+            torch.cuda.synchronize()
+            res.append((prt.state, m.th, m.rv))
+        (sk, thk, rvk), (sp_, thp, rvp) = res
+        rel_th, rel_rv = max_rel(thk, thp), max_rel(rvk, rvp)
+        same = all(torch.equal(a, b) for a, b in (
+            (thk, thp), (rvk, rvp), (sk.rw2, sp_.rw2),
+            (sk.sstp_tmp_th, sp_.sstp_tmp_th)))
+        print(f"exact {label}, kernels vs plain after {EXACT_PLAIN_STEPS} "
+              f"steps: th rel {rel_th:.2e}, rv rel {rel_rv:.2e}, bitwise "
+              f"equal (th, rv, rw2, sstp_tmp_th) {same}", flush=True)
+        check(rel_th <= 1e-4 and rel_rv <= 1e-3,
+              f"exact {label}: the kernel path drifted from the plain path")
+
+        # G's inputs: the mixing variant's first main substep, the adaptive
+        # variant's first phase-B call
+        which = len(cnd.adaptive_tries(SSTP_COND)) \
+            if oi.get("adaptive_sstp_cond") else 0
+        g_cases[label] = capture(cond_ops, "advance_rw2",
+                                 lambda: (restore(sp), m.run(1)), which)
+        restore(init)
+        out[label] = dict(model=m, init=init, totals=totals, n_sd=n_sd,
+                          launches=launches["cond_sd"])
+
+    g_kw = g_cases["mixing"]
+    names = [k for k in g_kw if k not in ("dt", "RH_max")]
+    cut = lambda kw, n: dict(kw, **{k: kw[k][:n].contiguous()
+                                    for k in names})
+    dead = dict(g_kw, **{k: torch.cat([g_kw[k], torch.zeros_like(
+        g_kw[k][:EXACT_DEAD]) if k == "rw2" else g_kw[k][:EXACT_DEAD]])
+        for k in names})
+    cases = [("first substep", g_kw),
+             ("first substep, RH_max 1.01", dict(g_kw, RH_max=1.01))]
+    cases += [(f"length {n}", cut(g_kw, n)) for n in EXACT_LENGTHS]
+    cases += [(f"{EXACT_DEAD} dead slots added", dead),
+              ("adaptive phase B (a dt a droplet)", g_cases["adaptive"])]
+    err["cond_sd"] = 0.0
+    for label, kw in cases:
+        k = cond_ops.advance_rw2(**kw)
+        pl = cond_ops.advance_rw2(**kw, plain=True)
+        alive = kw["rw2"] > 0
+        same = bool(torch.equal(k, pl))
+        err["cond_sd"] = max(err["cond_sd"], max_abs(k, pl))
+        moved = float((k != kw["rw2"])[alive].double().mean()) \
+            if bool(alive.any()) else 0.0
+        print(f"G cond_sd {label}: {kw['rw2'].numel()} slots, "
+              f"{int(alive.sum())} with rw2 > 0, dt "
+              f"{'a droplet' if isinstance(kw['dt'], torch.Tensor) else kw['dt']}"
+              f", RH_max {kw['RH_max']}; bitwise equal {same}, max abs "
+              f"{max_abs(k, pl):.3e}; {moved:.4f} of the droplets changed; "
+              f"rw2 <= 0 kept {bool(torch.equal(k[~alive], kw['rw2'][~alive]))}",
+              flush=True)
+        check(same, f"G {label}: kernel and plain version differ")
+        check(bool(torch.equal(k[~alive], kw["rw2"][~alive])),
+              f"G {label}: a slot with rw2 <= 0 changed")
+    check(isinstance(g_cases["adaptive"]["dt"], torch.Tensor),
+          "G: the adaptive variant's phase B call has no dt a droplet")
+    mix = out["mixing"]
+    return dict(mix, g_kw=g_kw)
+
+
+def cond_sd_bound(kw):
+    """Kernel G's bound on its inputs ``kw`` (advance_rw2's arguments):
+    12 arrays in (13 with a dt a droplet) and rw2 out at the memory rate,
+    against the root find's operations (rootfind_ops) and each droplet's
+    growth terms and set-up at the float32 rate."""
+    arrays = [kw[k] for k in ("rw2", "rd3", "kpa", "vt", "rhod", "rv", "T",
+                              "p", "RH", "eta", "lam_D", "lam_K")]
+    live = arrays[0] > 0
+    ops, brk, n_live = rootfind_ops(kw["dt"], arrays, kw["RH_max"], live)
+    dt_bytes = nbytes(kw["dt"]) if isinstance(kw["dt"], torch.Tensor) else 0
+    print(f"G cond_sd: {brk / max(n_live, 1):.4f} of the {n_live} droplets "
+          f"with rw2 > 0 bracketed in the first main substep")
+    return bound(nbytes(*arrays, arrays[0]) + dt_bytes,
+                 ops + n_live * (OPS_GROWTH + OPS_DROP))
 
 
 def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw,
@@ -1410,7 +1625,7 @@ def profile_front(model_d, front_init, card, warm=5):
     model_d.dense_state, model_d.th, model_d.rv = front_init
 
 
-def profile_flat(model_f, flat_init, card, warm=5):
+def profile_flat(model_f, flat_init, card, warm=5, label="flat, public API"):
     """profile() of the flat engine's coalescing steps through the public
     API (Kinematic2D.run), after the spin-up and ``warm`` steps; the model
     is put back at its initial state."""
@@ -1422,7 +1637,7 @@ def profile_flat(model_f, flat_init, card, warm=5):
     def flat_start():
         prt.state, model_f.th, model_f.rv = f_warm
 
-    profile("flat, public API", flat_start, model_f.run, card)
+    profile(label, flat_start, model_f.run, card)
     prt.state, model_f.th, model_f.rv = flat_init
 
 

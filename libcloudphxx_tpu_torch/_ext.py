@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_L = ctypes.c_longlong
 _D = ctypes.c_double
 
 
@@ -110,8 +111,16 @@ COND_FLAT = Kernel(
     "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
     "libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
     ":46, with the host substep loop of lgrngn/condensation.py:312-388)")
+# SD arrays in (12: rw2 rd3 kpa vt rhod rv T p RH eta lam_D lam_K), the
+# per-droplet dt (or null), rw2 out; n; dt, RH_max; iterations
+COND_SD = Kernel(
+    "cond_sd", "lcp_cond_sd", [_P] * 14 + [_L, _D, _D, _I],
+    "libcloudphxx_tpu_torch/csrc/cond_sd.cu",
+    "libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
+    ":46, call :78), per-droplet ambient callers (lgrngn/condensation.py "
+    ":468 cond_perparticle, :684 perparticle_adaptive_core)")
 KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
-           COND_FLAT)
+           COND_FLAT, COND_SD)
 
 _lib = None
 

@@ -71,13 +71,14 @@ def dense_state_to_numpy(d: DenseState) -> dict:
 # empty or all zero (the JAX RNG key aside)
 _FLAT_ABSENT = ("y", "incloud_time", "up", "vp", "wp", "ssp", "dot_ssp",
                 "ice_a", "ice_c", "ice_rho", "T_freeze", "rd2_insol",
-                "courant_y", "diss_rate", "sstp_tmp_p", "chem",
-                "ambient_chem", "sstp_tmp_chem")
+                "courant_y", "diss_rate", "chem", "ambient_chem",
+                "sstp_tmp_chem")
 
 
 def state_from_numpy(arrays: dict, device, dtype, rng_seed=44) -> State:
-    """A port flat State from the JAX State's arrays as numpy.  The
-    coalescence draws are keyed by ``arrays["rng_seed"]`` where the arrays
+    """A port flat State from the JAX State's arrays as numpy, the
+    substepping snapshot (sstp_tmp_*) per cell, or per SD with sstp_tmp_p
+    in exact_sstp_cond mode, as the arrays hold it.  The coalescence draws are keyed by ``arrays["rng_seed"]`` where the arrays
     came from the port, else by ``rng_seed`` (opts_init.rng_seed), and
     continue from ``arrays["rng_step"]`` (else step 0)."""
     for k in _FLAT_ABSENT:

@@ -1,6 +1,8 @@
 // The condensation substep loop of one cell, run by one warp: the device
 // routine of kernel B (cond.cu, the dense (n_cell, cap) rows) and kernel F
-// (cond_flat.cu, the flat engine's cell-sorted segments).
+// (cond_flat.cu, the flat engine's cell-sorted segments).  Kernel G
+// (cond_sd.cu, one droplet a thread at its own ambient conditions) takes
+// its per-droplet parts: cell_growth, drw2_dt, make_drop and advance.
 //
 // Per substep the cell's th/rv (and rhod) take their increment, the
 // closure gives T, p, RH and eta, every live droplet of the cell takes one

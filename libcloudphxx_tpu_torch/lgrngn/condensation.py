@@ -1,12 +1,17 @@
 """Implicit per-droplet condensation/evaporation
 (libcloudphxx_tpu/lgrngn/condensation.py; reference
-src/impl/condensation/common/particles_impl_cond_common.ipp and the
-percell substepping, particles_impl_cond.ipp, sstp_percell_step.ipp).
+src/impl/condensation/common/particles_impl_cond_common.ipp, the percell
+substepping, particles_impl_cond.ipp, sstp_percell_step.ipp, and the exact
+per-particle substepping, src/impl/condensation/perparticle/).
 
 drw2_dt and _advance_rw2_core are the plain versions of the per-droplet
-math that kernels B and F run (csrc/cond_cell.cuh); ops/step.py loops them
-over the dense engine's substeps, ops/cond.py over the flat engine's
-(cond_percell; kernel F on the card)."""
+math that kernels B, F and G run (csrc/cond_cell.cuh); ops/step.py loops
+them over the dense engine's substeps, ops/cond.py over the flat engine's
+(cond_percell; kernel F on the card).  The exact and adaptive
+per-particle substepping (cond_perparticle, cond_perparticle_adaptive)
+call advance_rw2 once a substep: kernel G on the card.  Their cell sums
+are float64 cumulative sums in cell order (cell_sum), the same from run
+to run on either device."""
 
 import dataclasses
 from functools import partial
@@ -14,8 +19,9 @@ from functools import partial
 import torch
 
 from ..common import constants as c
-from ..common import kappa_koehler, kelvin, maxwell_mason
-from ..common import transition_regime, ventil
+from ..common import kappa_koehler, kelvin, maxwell_mason, theta_dry
+from ..common import theta_std, transition_regime, ventil
+from ..common import vterm as common_vterm
 from ..common.fastmath import cbrt_pos
 from ..ops import cond as cond_ops
 from ..ops.rootfind import solve_bracketed
@@ -112,23 +118,29 @@ def cond_percell(cfg: StaticConfig, state: State, dt, RH_max, lam,
     parts, each followed by the implicit droplet growth and the latent heat
     of the cell.  ``lam`` is stale_mfp's (lambda_D, lambda_K) of the
     state before the step's closure."""
-    if cfg.ice_switch or cfg.exact_sstp_cond:
+    if cfg.ice_switch:
         raise NotImplementedError(
-            "cond_percell: ice and exact substepping are not ported "
-            "(ROADMAP.md, Queue 1, \"The flat engine's remaining "
-            "features\")")
+            "cond_percell: ice is not ported (ROADMAP.md, Queue 1, \"The "
+            "flat engine's remaining features\")")
     sstp = cfg.sstp_cond
-    delta_th = state.th - state.sstp_tmp_th
-    delta_rv = state.rv - state.sstp_tmp_rv
-    upd = dict(th=state.sstp_tmp_th, rv=state.sstp_tmp_rv)
-    if var_rho and sstp > 1:
-        # rhod is substepped too (sstp_percell_step.ipp:17-20)
-        delta_rh = state.rhod - state.sstp_tmp_rh
-        upd["rhod"] = state.sstp_tmp_rh
-    else:
-        delta_rh = torch.zeros_like(state.th)
+    if cfg.exact_sstp_cond:
+        # the snapshot is per droplet; this path runs only at sstp_cond ==
+        # 1 (particles_step.ipp:199: the exact branch needs more), where
+        # one increment applies the whole change: no rewind
+        delta_th = delta_rv = delta_rh = torch.zeros_like(state.th)
         var_rho = False
-    state = dataclasses.replace(state, **upd)
+    else:
+        delta_th = state.th - state.sstp_tmp_th
+        delta_rv = state.rv - state.sstp_tmp_rv
+        upd = dict(th=state.sstp_tmp_th, rv=state.sstp_tmp_rv)
+        if var_rho and sstp > 1:
+            # rhod is substepped too (sstp_percell_step.ipp:17-20)
+            delta_rh = state.rhod - state.sstp_tmp_rh
+            upd["rhod"] = state.sstp_tmp_rh
+        else:
+            delta_rh = torch.zeros_like(state.th)
+            var_rho = False
+        state = dataclasses.replace(state, **upd)
     lambda_D, lambda_K = lam
     wgt_nom = state.n * (4.0 / 3) * c.pi * c.rho_w
     return _cond_percell_sorted(cfg, state, dt / sstp, sstp, RH_max, var_rho,
@@ -142,6 +154,23 @@ def cell_ends(sijk, n_cell):
     ends[c-1] + 1 to ends[c]."""
     return torch.searchsorted(
         sijk, torch.arange(1, n_cell + 1, device=sijk.device)) - 1
+
+
+def cell_sum(vals, ends):
+    """The float64 sum of the cell-sorted ``vals`` over each cell's run
+    (``ends`` from cell_ends): a cumulative sum differenced at the cell
+    ends, in one fixed order on every device and in every run."""
+    cs = torch.cumsum(vals, 0, dtype=torch.float64)
+    tot = torch.where(ends >= 0, cs[torch.clamp(ends, min=0)], 0.0)
+    return torch.diff(tot, prepend=tot.new_zeros(1))
+
+
+def cell_summer(ijk, n_cell):
+    """cell_sum for the SDs in slot order, by their cells ``ijk``: one
+    stable sort in, then ``sum(vals)`` gives the (n_cell,) float64 sums."""
+    sijk, order = torch.sort(ijk, stable=True)
+    ends = cell_ends(sijk, n_cell)
+    return lambda vals: cell_sum(vals[order], ends)
 
 
 def _cond_percell_sorted(cfg, state, dt_sub, sstp, RH_max, var_rho,
@@ -165,9 +194,291 @@ def _cond_percell_sorted(cfg, state, dt_sub, sstp, RH_max, var_rho,
     return hskpng.hskpng_Tpr_state(cfg, state)
 
 
-def sstp_save(state: State) -> State:
+def sstp_save(state: State, exact: bool = False) -> State:
     """Snapshot th/rv/rhod for the next substepping cycle
-    (reference sstp_save.ipp:7-35)."""
+    (reference sstp_save.ipp:7-35).  In exact (per-particle) mode each SD
+    keeps its own copy of its cell's values, p included."""
+    if exact:
+        g = lambda arr: arr[state.ijk]
+        return dataclasses.replace(
+            state, sstp_tmp_th=g(state.th), sstp_tmp_rv=g(state.rv),
+            sstp_tmp_rh=g(state.rhod), sstp_tmp_p=g(state.p))
     return dataclasses.replace(state, sstp_tmp_th=state.th,
                                sstp_tmp_rv=state.rv,
                                sstp_tmp_rh=state.rhod)
+
+
+
+def advance_rw2(dt, rw2, rd3, kpa, vt, rhod, rv, T, p, RH, eta, lambda_D,
+                lambda_K, RH_max, *, plain=False):
+    """The backward-Euler rw^2 advance of every droplet at its own ambient
+    conditions (libcloudphxx_tpu/lgrngn/condensation.py:144): kernel G on
+    CUDA tensors, its plain version _advance_rw2_core on CPU tensors or
+    with ``plain`` (ops/cond.py advance_rw2)."""
+    return cond_ops.advance_rw2(dt, rw2, rd3, kpa, vt, rhod, rv, T, p, RH,
+                                eta, lambda_D, lambda_K, RH_max, plain=plain)
+
+
+def _close_cells(cfg: StaticConfig, before: State, after: State, summer):
+    """The cell closure of the nomixing per-particle paths
+    (libcloudphxx_tpu/lgrngn/condensation.py:531-566): the vapour the
+    cells' droplets took between ``before`` and ``after`` (the change of
+    the cells' specific third moment, particles_impl_cond.ipp:105-135,
+    times 4/3 pi rho_w, summed by ``summer`` in float64) leaves rv, and
+    theta follows along the drv path (dtheta/drv = d_th_d_rv(T(theta),
+    theta), one RK4 stage per cell; the reference's update_th_rv takes one
+    linear step).  Returns ``after`` with the new th and rv."""
+    def mom3(st):
+        rw3 = st.rw2 * torch.sqrt(torch.clamp(st.rw2, min=0.0))
+        return summer(st.n * torch.where(st.n > 0, rw3, 1.0)) / st.dv \
+            / st.rhod
+
+    drv = ((mom3(after) - mom3(before)) * (4.0 / 3) * c.pi * c.rho_w).to(
+        after.th.dtype)
+    if cfg.th_dry:
+        rhod = torch.clamp(after.rhod, min=1e-10)
+        f = lambda th: theta_dry.d_th_d_rv(theta_dry.T(th, rhod), th)
+    else:
+        ex = theta_std.exner(torch.clamp(after.p, min=1.0))
+        f = lambda th: theta_dry.d_th_d_rv(th * ex, th)
+    th, h = after.th, -drv
+    k1 = f(th)
+    k2 = f(th + 0.5 * h * k1)
+    k3 = f(th + 0.5 * h * k2)
+    k4 = f(th + h * k3)
+    return dataclasses.replace(
+        after, th=th + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4),
+        rv=after.rv - drv)
+
+
+def _perparticle_thermo(cfg: StaticConfig, tmp_th, tmp_rv, tmp_rh, tmp_p):
+    """Each SD's closure from its private ambient state (reference
+    perparticle_nomixing_adaptive_sstp_cond.ipp:93-120): T, p, RH and
+    eta.  The mean free paths are the stale cell values (stale_mfp)."""
+    if cfg.th_dry:
+        Tp = theta_dry.T(tmp_th, torch.clamp(tmp_rh, min=1e-10))
+    else:
+        Tp = tmp_th * theta_std.exner(torch.clamp(tmp_p, min=1.0))
+    pp = tmp_p if cfg.const_p else theta_dry.p(tmp_rh, tmp_rv, Tp)
+    RHp = hskpng.RH_of(cfg, torch.clamp(pp, min=1.0), tmp_rv, Tp)
+    return Tp, pp, RHp, common_vterm.visc(Tp)
+
+
+def cond_perparticle(cfg: StaticConfig, state: State, dt, RH_max, lam, *,
+                     plain=False) -> State:
+    """Exact per-particle condensation substepping
+    (libcloudphxx_tpu/lgrngn/condensation.py:412-528; reference
+    particles_step.ipp:219-232 and src/impl/condensation/perparticle/):
+    each SD carries its own th/rv/rhod/p, takes the host model's change in
+    sstp_cond equal parts, grows (advance_rw2: kernel G on the card) and
+    feeds its latent heat to its own th/rv.  With sstp_cond_mix the SDs of
+    a cell share their vapour and heat each substep (the cell sums of drv
+    and dth) and the cell takes their common state at the end; without
+    it the cell closes on the change of its liquid water.  ``lam`` is
+    stale_mfp's (lambda_D, lambda_K).
+
+    The cell sums are float64 cumulative sums in cell order, and the copy
+    back to a cell takes the largest value among its live SDs: values
+    that agree to rounding (the JAX package's scatter keeps one writer it
+    does not specify), the same in every run."""
+    sstp = cfg.sstp_cond
+    dt_sub = dt / sstp
+    mix = bool(cfg.sstp_cond_mix)
+    g = lambda arr: arr[state.ijk]
+    lam_D, lam_K = (g(a) for a in lam)
+    # per-SD ambient deltas (calculate_noncond_perparticle_sstp_delta.ipp)
+    dlt_rv = g(state.rv) - state.sstp_tmp_rv
+    dlt_th = g(state.th) - state.sstp_tmp_th
+    dlt_rh = g(state.rhod) - state.sstp_tmp_rh
+    dlt_p = g(state.p) - state.sstp_tmp_p
+    live = state.n > 0
+    dv_sd = g(state.dv)
+    summer = cell_summer(state.ijk, cfg.n_cell)
+    spread = lambda vals: summer(vals).to(vals.dtype)[state.ijk]
+    mlt = -(4.0 / 3) * c.pi * c.rho_w
+
+    rw2 = state.rw2
+    tmp_rv, tmp_th = state.sstp_tmp_rv, state.sstp_tmp_th
+    tmp_rh, tmp_p = state.sstp_tmp_rh, state.sstp_tmp_p
+    for _ in range(sstp):
+        base_rv = tmp_rv + dlt_rv / sstp
+        base_th = tmp_th + dlt_th / sstp
+        tmp_rh = tmp_rh + dlt_rh / sstp
+        if cfg.const_p:
+            tmp_p = tmp_p + dlt_p / sstp
+        Tp, pp, RHp, eta_p = _perparticle_thermo(cfg, base_th, base_rv,
+                                                 tmp_rh, tmp_p)
+        rw3_old = rw2 * torch.sqrt(torch.clamp(rw2, min=0.0))
+        rw2_new = advance_rw2(dt_sub, rw2, state.rd3, state.kpa, state.vt,
+                              tmp_rh, base_rv, Tp, pp, RHp, eta_p, lam_D,
+                              lam_K, RH_max, plain=plain)
+        rw3_new = rw2_new * torch.sqrt(torch.clamp(rw2_new, min=0.0))
+        drw3 = torch.where(live, rw3_new - rw3_old, 0.0)
+        # drv from the SD's own third-moment change
+        # (apply_perparticle_drw3_to_perparticle_rv_and_th.ipp)
+        drv = mlt * drw3 * state.n / tmp_rh / dv_sd
+        if mix:
+            # the cell's SDs share drv, and the sum of their own dth
+            # (update_pstate)
+            dth_own = drv * theta_dry.d_th_d_rv(Tp, base_th)
+            tmp_th = base_th + spread(dth_own)
+            tmp_rv = base_rv + spread(drv)
+        else:
+            tmp_rv = base_rv + drv
+            tmp_th = base_th + drv * theta_dry.d_th_d_rv(Tp, base_th)
+        rw2 = rw2_new
+
+    new = dataclasses.replace(state, rw2=rw2, sstp_tmp_rv=tmp_rv,
+                              sstp_tmp_th=tmp_th, sstp_tmp_rh=tmp_rh,
+                              sstp_tmp_p=tmp_p)
+    if mix:
+        # the cell takes its SDs' (common) private state
+        # (update_state, particles_impl_update_th_rv.ipp:283-297)
+        tgt = state.ijk[live]
+        pick = lambda cells, vals: cells.scatter_reduce(
+            0, tgt, vals[live], "amax", include_self=False)
+        return dataclasses.replace(new, rv=pick(state.rv, tmp_rv),
+                                   th=pick(state.th, tmp_th))
+    return _close_cells(cfg, state, new, summer)
+
+
+def cond_perparticle_adaptive(cfg: StaticConfig, state: State, dt, RH_max,
+                              lam, *, plain=False) -> State:
+    """Adaptive per-SD condensation substepping, no in-cell mixing
+    (libcloudphxx_tpu/lgrngn/condensation.py:589-652; reference
+    perparticle_nomixing_adaptive_sstp_cond.ipp:8-335): each SD picks its
+    own substep count (perparticle_adaptive_core), and the cell closes on
+    the change of its liquid water."""
+    g = lambda arr: arr[state.ijk]
+    tmp_p0 = state.sstp_tmp_p if cfg.const_p \
+        else torch.zeros_like(state.sstp_tmp_rv)
+    rw2, tmp_rv, tmp_th, tmp_rh, tmp_p = perparticle_adaptive_core(
+        cfg, dt, RH_max, n=state.n, rw2=state.rw2, rd3=state.rd3,
+        kpa=state.kpa, vt=state.vt, dv_sd=g(state.dv),
+        lam_D_sd=g(lam[0]), lam_K_sd=g(lam[1]),
+        dlt_rv=g(state.rv) - state.sstp_tmp_rv,
+        dlt_th=g(state.th) - state.sstp_tmp_th,
+        dlt_rh=g(state.rhod) - state.sstp_tmp_rh,
+        dlt_p=(g(state.p) - state.sstp_tmp_p) if cfg.const_p else 0.0,
+        tmp_rv0=state.sstp_tmp_rv, tmp_th0=state.sstp_tmp_th,
+        tmp_rh0=state.sstp_tmp_rh, tmp_p0=tmp_p0, T_sd=g(state.T),
+        plain=plain)
+    upd = dict(rw2=rw2, sstp_tmp_rv=tmp_rv, sstp_tmp_th=tmp_th,
+               sstp_tmp_rh=tmp_rh)
+    if cfg.const_p:
+        upd["sstp_tmp_p"] = tmp_p
+    return _close_cells(cfg, state, dataclasses.replace(state, **upd),
+                       cell_summer(state.ijk, cfg.n_cell))
+
+
+def adaptive_tries(sstp_cond):
+    """The substep counts phase A tries: 1, 2, 4, ... up to sstp_cond."""
+    tries = [1]
+    while tries[-1] * 2 <= max(int(sstp_cond), 1):
+        tries.append(tries[-1] * 2)
+    return tries
+
+
+def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
+                              kpa, vt, dv_sd, lam_D_sd, lam_K_sd, dlt_rv,
+                              dlt_th, dlt_rh, dlt_p, tmp_rv0, tmp_th0,
+                              tmp_rh0, tmp_p0, T_sd, plain=False):
+    """The per-SD body of cond_perparticle_adaptive
+    (libcloudphxx_tpu/lgrngn/condensation.py:655-795), elementwise over
+    the SD arrays.  Phase A tries 1, 2, 4, ... <= sstp_cond substeps and
+    takes, for each SD, the first count whose d(rw^2) agrees with the
+    half-size estimate (one advance_rw2 a try); SDs that cross their
+    critical radius this step take sstp_cond_act instead.  Phase B runs
+    max(sstp_cond, sstp_cond_act) masked substeps (one advance_rw2 each,
+    a dt a droplet), the SDs past their own count idle.  Where the
+    adaptation is abandoned the pre-adaptation ambient state is restored.
+    SGS turbulence (turb_cond) is not ported.  Returns (rw2, tmp_rv, tmp_th,
+    tmp_rh, tmp_p)."""
+    sstp_max = max(int(cfg.sstp_cond), 1)
+    sstp_act = max(int(cfg.sstp_cond_act), 1)
+    eps = cfg.sstp_cond_adapt_drw2_eps
+    dmax = cfg.sstp_cond_adapt_drw2_max
+    live = n > 0
+
+    def grow(tmp_rv, tmp_th, tmp_rh, tmp_p, rw2_in, dt_sub):
+        Tp, pp, RHp, eta_p = _perparticle_thermo(cfg, tmp_th, tmp_rv, tmp_rh,
+                                                 tmp_p)
+        rw2_new = advance_rw2(dt_sub, rw2_in, rd3, kpa, vt, tmp_rh, tmp_rv,
+                              Tp, pp, RHp, eta_p, lam_D_sd, lam_K_sd, RH_max,
+                              plain=plain)
+        return rw2_new, Tp
+
+    # ---- phase A: pick per-SD substep counts (reference :130-201)
+    tmp_rv, tmp_th, tmp_rh, tmp_p = tmp_rv0, tmp_th0, tmp_rh0, tmp_p0
+    sstp = torch.full(n.shape, sstp_max, dtype=torch.int32, device=n.device)
+    done = torch.zeros_like(live)
+    first_done = torch.full_like(done, sstp_max == 1)
+    drw2 = torch.zeros_like(tmp_rv)
+    for t in adaptive_tries(sstp_max):
+        mult = 1.0 if t == 1 else -1.0 / t
+        upd = ~done
+        tmp_rv = torch.where(upd, tmp_rv + dlt_rv * mult, tmp_rv)
+        tmp_th = torch.where(upd, tmp_th + dlt_th * mult, tmp_th)
+        tmp_rh = torch.where(upd, tmp_rh + dlt_rh * mult, tmp_rh)
+        if cfg.const_p:
+            tmp_p = torch.where(upd, tmp_p + dlt_p * mult, tmp_p)
+        rw2_t, _ = grow(tmp_rv, tmp_th, tmp_rh, tmp_p, rw2, dt / t)
+        drw2_t = rw2_t - rw2
+        if t == 1:
+            drw2 = drw2_t
+            continue
+        conv = (torch.abs(drw2_t * 2 - drw2) <= eps * rw2) \
+            & (torch.abs(drw2) < dmax * rw2)
+        newly = conv & ~done
+        sstp = torch.where(newly, t // 2, sstp)
+        # revert the last increment: the state after one converged substep
+        tmp_rv = torch.where(newly, tmp_rv - dlt_rv * mult, tmp_rv)
+        tmp_th = torch.where(newly, tmp_th - dlt_th * mult, tmp_th)
+        tmp_rh = torch.where(newly, tmp_rh - dlt_rh * mult, tmp_rh)
+        if cfg.const_p:
+            tmp_p = torch.where(newly, tmp_p - dlt_p * mult, tmp_p)
+        first_done = first_done | newly
+        done = done | newly
+        drw2 = torch.where(done, drw2, drw2_t)
+
+    # activation/deactivation override (reference :184-195)
+    if sstp_act > 1:
+        rc2 = kappa_koehler.rw3_cr(
+            torch.clamp(rd3, min=1e-300), torch.clamp(kpa, min=1e-10),
+            T_sd) ** (2.0 / 3)
+        proj = rw2 + sstp * drw2
+        crossing = ((rw2 < rc2) & (proj > rc2)) | ((rw2 > rc2) & (proj < rc2))
+        sstp = torch.where(crossing, sstp_act, sstp)
+        first_done = first_done & ~crossing
+
+    # abandonment: restore the pristine pre-adaptation ambient state
+    tmp_rv = torch.where(first_done, tmp_rv, tmp_rv0)
+    tmp_th = torch.where(first_done, tmp_th, tmp_th0)
+    tmp_rh = torch.where(first_done, tmp_rh, tmp_rh0)
+    tmp_p = torch.where(first_done, tmp_p, tmp_p0)
+
+    # ---- phase B: masked substepping (reference :206-263)
+    mlt = -(4.0 / 3) * c.pi * c.rho_w
+    frac = 1.0 / sstp.to(rw2.dtype)
+    dt_sd = dt * frac
+    for step in range(max(sstp_max, sstp_act)):
+        active = (step < sstp) & live
+        reuse = first_done & (step == 0)
+        app = active & ~reuse
+        tmp_rv_n = torch.where(app, tmp_rv + dlt_rv * frac, tmp_rv)
+        tmp_th_n = torch.where(app, tmp_th + dlt_th * frac, tmp_th)
+        tmp_rh_n = torch.where(app, tmp_rh + dlt_rh * frac, tmp_rh)
+        tmp_p_n = torch.where(app, tmp_p + dlt_p * frac, tmp_p) \
+            if cfg.const_p else tmp_p
+        rw2_solve, Tp = grow(tmp_rv_n, tmp_th_n, tmp_rh_n, tmp_p_n, rw2,
+                             dt_sd)
+        rw2_new = torch.where(reuse, rw2 + drw2, rw2_solve)
+        rw2_new = torch.where(active, rw2_new, rw2)
+        rw3_old = rw2 * torch.sqrt(torch.clamp(rw2, min=0.0))
+        rw3_new = rw2_new * torch.sqrt(torch.clamp(rw2_new, min=0.0))
+        drw3 = torch.where(active, rw3_new - rw3_old, 0.0)
+        drv = mlt * drw3 * n / tmp_rh_n / dv_sd
+        tmp_rv = tmp_rv_n + drv
+        tmp_th = tmp_th_n + drv * theta_dry.d_th_d_rv(Tp, tmp_th_n)
+        tmp_rh, tmp_p, rw2 = tmp_rh_n, tmp_p_n, rw2_new
+    return rw2, tmp_rv, tmp_th, tmp_rh, tmp_p

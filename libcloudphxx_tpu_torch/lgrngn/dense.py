@@ -49,7 +49,10 @@ def supported(cfg: StaticConfig):
         raise NotImplementedError("dense engine: diag_incloud_time off only")
     if cfg.exact_sstp_cond or cfg.adaptive_sstp_cond:
         raise NotImplementedError(
-            "dense engine: percell condensation substepping only")
+            "dense engine: exact and adaptive per-particle condensation "
+            "substepping are not ported to the dense engine (ROADMAP.md, "
+            "Queue 1, \"Dense-engine options that the port refuses\"); the "
+            "flat engine runs them (engine=\"flat\")")
     if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
         raise NotImplementedError(
             "dense engine: implicit or euler SD advection only")
@@ -136,7 +139,10 @@ def _distribute(n_cell, cap, cell, vals):
 def pack(cfg: StaticConfig, state: State, cap: int) -> DenseState:
     """Flat State -> DenseState (one stable sort by cell + scatter; dead
     slots are dropped).  The cell fields, the puddle and the random stream
-    carry over."""
+    carry over.  A State in exact_sstp_cond mode (a substepping snapshot
+    per SD) has no dense form in the port: it raises."""
+    if cfg.exact_sstp_cond:
+        supported(cfg)
     cell = torch.where(state.n > 0, state.ijk, cfg.n_cell)
     planes, overflow = _distribute(cfg.n_cell, cap, cell,
                                    [getattr(state, a) for a in ATTRS])

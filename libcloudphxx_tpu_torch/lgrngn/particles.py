@@ -16,11 +16,12 @@ arrinfo_t, arrinfo.hpp:10-49); torch tensors are handles, so no copy is
 made and ``step_cond`` returns the new (th, rv) as flat tensors on the
 engine's device.
 
-The port runs the warm 2-D engine: ice, chemistry, SGS turbulence,
-diag_incloud_time, exact and adaptive per-particle condensation, sources,
-relaxation, recycling and the multi-device front-end raise
-NotImplementedError (ROADMAP.md, Queue 1).  On a CUDA device the
-condensation runs kernel F (ops/cond.py); nothing falls back to the CPU.
+The port runs the warm 2-D engine, with the per-cell and the exact and
+adaptive per-particle condensation substepping: ice, chemistry, SGS
+turbulence, diag_incloud_time, sources, relaxation, recycling and the
+multi-device front-end raise NotImplementedError (ROADMAP.md, Queue 1).
+On a CUDA device the condensation runs kernel F (per cell) or kernel G
+(per particle; ops/cond.py); nothing falls back to the CPU.
 The factory hands out this flat engine or, on a CUDA device, the dense
 front (lgrngn/dense_front.py), which overrides the _step_cond_impl and
 _step_async_impl hooks.
@@ -43,15 +44,23 @@ from .vterm import hskpng_vterm_all
 
 def step_cond_body(cfg: StaticConfig, state: State, dt, RH_max,
                    var_rho: bool = False, *, plain=False) -> State:
-    """The condensation phase (libcloudphxx_tpu/lgrngn/particles.py:70-120,
-    the percell branch): mean free paths from the previous step's T/p,
-    the cell closure, the substepped condensation and sstp_save.
-    ``plain`` runs kernel F's plain version on any device."""
+    """The condensation phase (libcloudphxx_tpu/lgrngn/particles.py:70-120):
+    mean free paths from the previous step's T/p, the cell closure, then
+    the exact per-particle substepping (adaptive or fixed; kernel G on the
+    card) where exact_sstp_cond asks for more than one substep, else the
+    per-cell substepping (kernel F on the card), and sstp_save.  ``plain``
+    runs the kernels' plain versions on any device."""
     lam = condensation.stale_mfp(state)
     state = hskpng.hskpng_Tpr_state(cfg, state)
+    if cfg.exact_sstp_cond and (cfg.sstp_cond > 1 or cfg.sstp_cond_act > 1):
+        # exact per-particle substepping (particles_step.ipp:199-236)
+        cond = condensation.cond_perparticle_adaptive \
+            if cfg.adaptive_sstp_cond else condensation.cond_perparticle
+        state = cond(cfg, state, dt, RH_max, lam, plain=plain)
+        return condensation.sstp_save(state, exact=True)
     state = condensation.cond_percell(cfg, state, dt, RH_max, lam,
                                       var_rho=var_rho, plain=plain)
-    return condensation.sstp_save(state)
+    return condensation.sstp_save(state, exact=cfg.exact_sstp_cond)
 
 
 def step_async_body(cfg: StaticConfig, sstp_coal: int, switches, state: State,
@@ -85,11 +94,6 @@ def _require_ported(oi: opts_init_t):
         raise NotImplementedError(
             f"particles_t: {', '.join(off)} is not ported (ROADMAP.md, "
             "Queue 1, \"The flat engine's remaining features\")")
-    if oi.exact_sstp_cond or oi.adaptive_sstp_cond:
-        raise NotImplementedError(
-            "particles_t: exact and adaptive per-particle condensation "
-            "substepping are not ported (ROADMAP.md, Queue 1, \"The flat "
-            "engine's remaining features\")")
     if oi.n_dims != 2 or oi.ny > 0:
         raise NotImplementedError(
             "particles_t: only the 2-D (x, z) grid is ported (ROADMAP.md, "
@@ -100,7 +104,7 @@ class particles_t:
     """The reference's particles_proto_t (particles.hpp:16-134) over the
     flat engine.  ``device`` is where the state lives (the card unless the
     caller asks for the CPU) and ``dtype`` its working precision (float32
-    on the card: kernel F takes float32 only)."""
+    on the card: kernels F and G take float32 only)."""
 
     def __init__(self, backend: backend_t, opts_init: opts_init_t, *,
                  device="cuda", dtype=torch.float32):
@@ -239,7 +243,7 @@ class particles_t:
                 cfg, oi, st, np.random.default_rng(seed),
                 rhod_t.double().cpu().numpy())
             st = init_mod.init_wet_state(st, oi.RH_max)
-        self.state = condensation.sstp_save(st)
+        self.state = condensation.sstp_save(st, exact=cfg.exact_sstp_cond)
         self._should_now_run_cond = False
         self._should_now_run_async = False
 
@@ -288,7 +292,7 @@ class particles_t:
         """(reference particles_step.ipp:161-336).  Writes the new th/rv
         back into numpy arrays; for tensor callers (th/rv passed as
         tensors) returns them instead, as flat tensors.  ``plain`` runs
-        the plain version of kernel F, for comparisons and timings."""
+        the plain version of kernel F or G, for comparisons and timings."""
         if not self._should_now_run_cond:
             raise RuntimeError(
                 "libcloudphxx: please call sync_in() before calling "

@@ -140,10 +140,13 @@ class State:
     RH: torch.Tensor
     eta: torch.Tensor
     dv: torch.Tensor      # cell volume [m3]
-    # condensation substepping snapshot (sstp_save)
+    # condensation substepping snapshot (sstp_save): per cell (n_cell,),
+    # or per SD (n_sd_max,) in exact_sstp_cond mode, where sstp_tmp_p is
+    # per SD too (and empty otherwise; sstp_save.ipp:13-34)
     sstp_tmp_th: torch.Tensor
     sstp_tmp_rv: torch.Tensor
     sstp_tmp_rh: torch.Tensor
+    sstp_tmp_p: torch.Tensor
     puddle: torch.Tensor  # (N_PUDDLE,), slots as PUDDLE_KEYS
     # the coalescence draws: Philox key (opts_init.rng_seed) and the step
     # counter, advanced by every coalescence call
@@ -165,10 +168,12 @@ TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(State)
 
 
 def empty_state(cfg: StaticConfig, dtype, device, rng_seed=44) -> State:
-    """An all-dead-slot state for a 2-D config."""
+    """An all-dead-slot state for a 2-D config; the substepping snapshot
+    per SD in exact_sstp_cond mode."""
     zsd = torch.zeros(cfg.n_sd_max, dtype=dtype, device=device)
     zc = torch.zeros(cfg.n_cell, dtype=dtype, device=device)
     z = lambda m: torch.zeros(m, dtype=dtype, device=device)
+    tmp = zsd if cfg.exact_sstp_cond else zc
     return State(
         n=zsd, rd3=zsd, rw2=zsd, kpa=zsd, x=zsd, z=zsd, vt=zsd,
         ijk=torch.zeros(cfg.n_sd_max, dtype=torch.int64, device=device),
@@ -176,7 +181,8 @@ def empty_state(cfg: StaticConfig, dtype, device, rng_seed=44) -> State:
         courant_x=z((cfg.nx + 1) * cfg.nz), courant_z=z(cfg.nx * (cfg.nz + 1)),
         T=zc, RH=zc, eta=zc,
         dv=torch.ones(cfg.n_cell, dtype=dtype, device=device),
-        sstp_tmp_th=zc, sstp_tmp_rv=zc, sstp_tmp_rh=zc,
+        sstp_tmp_th=tmp, sstp_tmp_rv=tmp, sstp_tmp_rh=tmp,
+        sstp_tmp_p=zsd if cfg.exact_sstp_cond else z(0),
         puddle=z(N_PUDDLE), rng_seed=int(rng_seed))
 
 

@@ -1,17 +1,30 @@
-"""The flat engine's per-cell condensation substep loop, in place of the TPU
-kernel libcloudphxx_tpu/ops/pallas_cond.py:_kernel (advance_rw2_pallas) and
-the host loop around it (libcloudphxx_tpu/lgrngn/condensation.py:312-388).
+"""The flat engine's condensation on the card, in place of the TPU kernel
+libcloudphxx_tpu/ops/pallas_cond.py:_kernel (advance_rw2_pallas) at both
+kinds of its callers.
 
-On the card it runs as kernel F (csrc/cond_flat.cu), one launch for all
+Kernel F (csrc/cond_flat.cu, cond_flat) runs the per-cell substep loop of
+cond_percell, in place of that kernel and the host loop around it
+(libcloudphxx_tpu/lgrngn/condensation.py:312-388): one launch for all
 sstp_cond substeps, beside its plain PyTorch version cond_flat_plain, that
-host loop.  Dispatch is by device, as in ops/step.py: CPU tensors run the
-plain version, CUDA tensors launch the kernel (float32, contiguous, or the
-wrapper raises), and ``plain=True`` runs the plain version on any device,
-for comparisons and timings.  Both take the SD arrays sorted by cell
-(lgrngn/condensation.py _cond_percell_sorted) and the cell fields (n_cell,).
+host loop.  Both take the SD arrays sorted by cell
+(lgrngn/condensation.py _cond_percell_sorted) and the cell fields
+(n_cell,).
 
-On the card the kernel leaves the rw2 of a dead slot (n == 0) as it is,
-where the plain version advances any slot whose rw2 > 0 (as kernel B and
+Kernel G (csrc/cond_sd.cu, advance_rw2) runs one backward-Euler root find
+a droplet at each droplet's own ambient conditions, the TPU kernel's
+per-droplet-ambient callers (the exact and adaptive per-particle
+substepping, lgrngn/condensation.py cond_perparticle and
+perparticle_adaptive_core), beside its plain version advance_rw2_plain
+(lgrngn/condensation.py _advance_rw2_core).  It advances every slot whose
+rw2 > 0, as the TPU kernel does, and keeps the others.
+
+Dispatch is by device, as in ops/step.py: CPU tensors run the plain
+version, CUDA tensors launch the kernel (float32, contiguous, or the
+wrapper raises), and ``plain=True`` runs the plain version on any device,
+for comparisons and timings.
+
+On the card kernel F leaves the rw2 of a dead slot (n == 0) as it is,
+where its plain version advances any slot whose rw2 > 0 (as kernel B and
 its plain version do with the dense rows).  A dead slot's weight is zero,
 so the cells do not differ, and every other reader of rw2 weighs or masks
 it by n: the diagnostics, coalescence (which parks dead slots past the
@@ -38,11 +51,6 @@ def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
     if not var_rho:
         wgt = wgt / (dv * rhod)[sijk]
 
-    def cell_sum(vals):
-        cs = torch.cumsum(vals, 0, dtype=torch.float64)
-        tot = torch.where(ends >= 0, cs[torch.clamp(ends, min=0)], 0.0)
-        return torch.diff(tot, prepend=tot.new_zeros(1)).to(vals.dtype)
-
     g = lambda a: a[sijk]
     for _ in range(sstp):
         th = th + delta_th / sstp
@@ -56,7 +64,7 @@ def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
         drw3 = rw2_new * torch.sqrt(rw2_new) \
             - rw2 * torch.sqrt(torch.clamp(rw2, min=0.0))
         wsub = wgt / g(dv * rhod) if var_rho else wgt
-        drv = -cell_sum(wsub * drw3)
+        drv = -condensation.cell_sum(wsub * drw3, ends).to(rw2.dtype)
         th = th + drv * theta_dry.d_th_d_rv(T, th)
         rv = rv + drv
         rw2 = rw2_new
@@ -111,3 +119,41 @@ def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
         int(cfg.RH_formula), int(var_rho),
         condensation._root_iters(rw2.dtype))
     return (rw2_out,) + tuple(cells_out.unbind(0))
+
+
+def advance_rw2_plain(dt, rw2, rd3, kpa, vt, rhod, rv, T, p, RH, eta, lam_D,
+                      lam_K, RH_max):
+    """One backward-Euler step of rw2 for every droplet at its own ambient
+    conditions: lgrngn/condensation.py _advance_rw2_core."""
+    return condensation._advance_rw2_core(dt, rw2, rd3, kpa, vt, rhod, rv, T,
+                                          p, RH, eta, lam_D, lam_K, RH_max)
+
+
+def advance_rw2(dt, rw2, rd3, kpa, vt, rhod, rv, T, p, RH, eta, lam_D, lam_K,
+                RH_max, *, plain=False):
+    """Kernel G, or its plain version advance_rw2_plain (same arguments and
+    result): the new rw2 of each droplet after one backward-Euler step of
+    ``dt`` (a number, or a tensor of one dt a droplet) at the droplet's own
+    rhod, rv, T, p, RH, eta and mean free paths, RH capped at ``RH_max``.
+    The 12 droplet arrays are 1-D and of one length."""
+    arrays = (rw2, rd3, kpa, vt, rhod, rv, T, p, RH, eta, lam_D, lam_K)
+    n = rw2.shape[0] if rw2.dim() == 1 else -1
+    dt_sd = dt if isinstance(dt, torch.Tensor) else None
+    if any(a.dim() != 1 or a.shape[0] != n
+           for a in arrays + ((dt_sd,) if dt_sd is not None else ())):
+        raise ValueError("advance_rw2: the droplet arrays (and a per-droplet "
+                         "dt) must be 1-D and of one length, got "
+                         f"{[tuple(a.shape) for a in arrays]}")
+    if _ext.use_plain("advance_rw2", rw2, plain):
+        return advance_rw2_plain(dt, *arrays, RH_max)
+    _ext.check("advance_rw2", *arrays,
+               *((dt_sd,) if dt_sd is not None else ()))
+    out = torch.empty_like(rw2)
+    if n == 0:
+        return out
+    _ext.COND_SD.launch(
+        *(a.data_ptr() for a in arrays),
+        dt_sd.data_ptr() if dt_sd is not None else None, out.data_ptr(), n,
+        0.0 if dt_sd is not None else float(dt), float(RH_max),
+        condensation._root_iters(rw2.dtype))
+    return out

@@ -30,8 +30,14 @@ capacity 2 to 512 in their scalar-slot and 16-byte forms, on a 3-column
 grid and an 8x6 one with all-dead rows, far movers, the puddle and rows
 that receive more droplets than they hold, bitwise equal to their plain
 versions in every slot, and C also in its subsidence, no-advection and
-vt-only forms.  The dense front (particles_dense_t) steps through the
-kernels and equals the fused dense run bitwise; dense.repack and the
+vt-only forms.  Kernel G (the per-droplet root find at each droplet's own
+ambient conditions) runs on 1 to 369,664 droplets (ragged warps), on
+haze, activating and evaporating droplets, dead and rw2 <= 0 slots, for
+a scalar dt and a dt a droplet, bitwise equal to its plain version, and
+the exact and adaptive per-particle slices run through the public API
+with it, bitwise equal to their plain paths.  The dense front
+(particles_dense_t) steps through the kernels and equals the fused dense
+run bitwise; dense.repack and the
 repack policy run on the card as on the CPU, and the policy refuses a
 row that needs more than kernel E's 512 slots.
 
@@ -45,7 +51,8 @@ operation (built with -fmad=false); the bounds are those chip_smoke.py
 states (MPDATA and coalescence bitwise, and for coalescence also per
 cell the multiset of (n, rd3, kpa) and the overflow flags exact, rw2 rel
 1e-6; condensation th 2e-6, rv 2e-5, rw2 1e-5, as the kernels' cell sums
-add in another order than the plain versions'; transport and merge
+add in another order than the plain versions'; kernel G bitwise;
+transport and merge
 bitwise in every slot, far flags and drops exact, the puddle partials
 1e-5 as they add in another order; the condensation kernels copy dead
 slots through).
@@ -56,7 +63,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import flat_cond_case, multiset, transport_case
+from torch_parity import (ambient_population, flat_cond_case, multiset,
+                          transport_case)
 
 from libcloudphxx_tpu_torch import Kinematic2D, _ext
 from libcloudphxx_tpu_torch.lgrngn import as_t, dense, kernel_t, vt_t
@@ -402,7 +410,7 @@ def test_dense_front_on_the_card(dev):
     torch.cuda.synchronize()
     got = {k.name: k.launches - before[k.name] for k in _ext.KERNELS}
     assert got == dict(mpdata=8, cond=4, transport=4, merge=4, coal=2,
-                       coal_standalone=0, cond_flat=0)
+                       coal_standalone=0, cond_flat=0, cond_sd=0)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run(4, spinup=2, plain=True)
     assert torch.equal(front.th, fused.th) and torch.equal(front.rv, fused.rv)
@@ -753,3 +761,123 @@ def test_flat_slice_kernels_match_plain(dev):
     sk, sp = mk.prtcls.state, mp.prtcls.state
     assert torch.equal(sk.n, sp.n) and torch.equal(sk.ijk, sp.ijk)
     assert _rel(sk.rw2[sk.n > 0], sp.rw2[sp.n > 0]) <= 1e-5
+
+
+# ---------------------------------------------------------------- kernel G
+def _g_args(pop):
+    return [pop[k] for k in ("rw2", "rd3", "kpa", "vt", "rhod", "rv", "T",
+                             "p", "RH", "eta", "lam_D", "lam_K")]
+
+
+def _check_g(args, dt, RH_max):
+    """Kernel G against its plain version on ``args``: bitwise in every
+    slot; slots with rw2 <= 0 keep it.  Returns the kernel's rw2."""
+    k = _launches(_ext.COND_SD,
+                  lambda: cond_ops.advance_rw2(dt, *args, RH_max))
+    p = cond_ops.advance_rw2(dt, *args, RH_max, plain=True)
+    assert torch.equal(k, p)
+    kept = args[0] <= 0
+    assert torch.equal(k[kept], args[0][kept])
+    return k
+
+
+@pytest.mark.parametrize("RH_max", [1.01, 44.0], ids=["spinup", "main"])
+@pytest.mark.parametrize("kind", ["mixed", "activating", "evaporating"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 32773, 369664])
+def test_cond_sd_kernel_matches_plain(dev, n, kind, RH_max):
+    """Kernel G (one thread a droplet, grid-stride, whole warps) bitwise
+    equal to its plain version on lengths up to the GMD case's 369,664
+    droplets, ragged warps included, for a scalar dt and a dt a droplet
+    (the adaptive phase B's form), on haze in sub- and supersaturated air,
+    activating and evaporating droplets; the droplets change."""
+    pop = ambient_population(n, kind, seed=n, device=dev)
+    args = _g_args(pop)
+    k = _check_g(args, 0.1, RH_max)
+    dt = torch.full((n,), 0.1, device=dev)
+    dt[::3] = 1.0 / 7
+    _check_g(args, dt, RH_max)
+    live = args[0] > 0
+    if n > 32:
+        d = k[live] - args[0][live]
+        if kind == "evaporating":
+            assert bool((d < 0).all())
+        elif kind == "activating":
+            assert bool((d > 0).any())
+        else:
+            assert bool((d > 0).any()) and bool((d < 0).any())
+
+
+def test_cond_sd_kernel_on_dead_and_nonpositive_slots(dev):
+    """All slots dead (rw2 = 0), rw2 < 0, and dead slots with zeroed
+    ambient fields beside live droplets: kept as they are, bitwise equal
+    to the plain version; n = 0 launches nothing."""
+    n = 65536
+    pop = ambient_population(n, "mixed", seed=4, device=dev)
+    args = _g_args(pop)
+    _check_g([torch.zeros_like(args[0])] + args[1:], 0.1, 44.0)
+    _check_g([torch.full_like(args[0], -1e-14)] + args[1:], 0.1, 44.0)
+    dead = torch.arange(n, device=dev) % 3 == 0
+    zeroed = [torch.where(dead, 0.0, a) for a in args]
+    k = _check_g(zeroed, 0.1, 1.01)
+    assert bool(torch.isfinite(k).all())
+    empty = [a[:0] for a in args]
+    before = _ext.COND_SD.launches
+    out = cond_ops.advance_rw2(0.1, *empty, 44.0)
+    assert out.shape == (0,) and _ext.COND_SD.launches == before
+
+
+def test_cond_sd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    args = _g_args(ambient_population(64, device=dev))
+    call = lambda i, v, dt=0.1: cond_ops.advance_rw2(
+        dt, *(v if j == i else a for j, a in enumerate(args)), 44.0)
+    with pytest.raises(TypeError, match="float32"):
+        call(0, args[0].double())
+    with pytest.raises(TypeError, match="float32"):
+        call(-1, None, dt=torch.full((64,), 0.1, device=dev,
+                                     dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        call(3, torch.stack([args[3], args[3]], 1)[:, 0])
+    with pytest.raises(ValueError, match="one length"):
+        call(5, args[5][:-1])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        call(6, args[6].cpu())
+
+
+EXACT_MODES = {
+    "mix": (3, dict(exact_sstp_cond=True)),
+    "nomix": (3, dict(exact_sstp_cond=True, sstp_cond_mix=False)),
+    "adaptive": (4, dict(exact_sstp_cond=True, adaptive_sstp_cond=True,
+                         sstp_cond_act=8)),
+}
+
+
+@pytest.mark.parametrize("mode", list(EXACT_MODES))
+def test_exact_slice_kernels_match_plain(dev, mode):
+    """Two spin-up and two coalescence-free steps of the 8x8 case with
+    exact per-particle substepping, through the public API on the card:
+    kernel G runs sstp_cond times a step (adaptive: once a try of phase A
+    and max(sstp_cond, sstp_cond_act) times in phase B), kernels F and B
+    never, and the kernel path equals the plain path bitwise (G is
+    bitwise its plain version; the cell sums are the same float64
+    cumulative sums on both paths)."""
+    sstp, oi = EXACT_MODES[mode]
+    kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=sstp, sstp_coal=3,
+              n_sd_max=24 * 64 + 100,
+              opts_init_kw=dict(oi, coal_switch=False), device=dev)
+    mk, mp = Kinematic2D(**kw), Kinematic2D(**kw)
+    assert type(mk.prtcls).__name__ == "particles_t"
+    rw0 = mk.prtcls.state.rw2
+    before = {k.name: k.launches for k in _ext.KERNELS}
+    mk.run(4, spinup=2)
+    torch.cuda.synchronize()
+    per_step = sstp if mode != "adaptive" else 3 + 8   # tries 1, 2, 4
+    assert _ext.COND_SD.launches == before["cond_sd"] + 4 * per_step
+    assert _ext.COND_FLAT.launches == before["cond_flat"]
+    assert _ext.COND.launches == before["cond"]
+    mp.run(4, spinup=2, plain=True)
+    assert torch.equal(mk.th, mp.th) and torch.equal(mk.rv, mp.rv)
+    sk, sp = mk.prtcls.state, mp.prtcls.state
+    for k in ("n", "rw2", "ijk", "sstp_tmp_th", "sstp_tmp_rv",
+              "sstp_tmp_rh", "sstp_tmp_p"):
+        assert torch.equal(getattr(sk, k), getattr(sp, k)), k
+    assert _rel(sk.rw2[sk.n > 0], rw0[sk.n > 0]) > 1e-3   # droplets grew

@@ -291,7 +291,7 @@ def test_flat_golovin_box_gate():
                th=ones * 300.0, rv=ones * 0.01, rhod=ones, p=ones * 1e5,
                courant_x=zsd[:0], courant_z=zsd[:0], T=ones * 300.0,
                RH=ones, eta=ones * 1.8e-5, dv=ones, sstp_tmp_th=ones,
-               sstp_tmp_rv=ones, sstp_tmp_rh=ones,
+               sstp_tmp_rv=ones, sstp_tmp_rh=ones, sstp_tmp_p=zsd[:0],
                puddle=torch.zeros(16, dtype=torch.float64), rng_seed=1234)
     out = tcoal.coal(pcfg, st, [B_GOLOVIN], SIM_TIME, 100)
     n1 = out.n.numpy().reshape(N_BOX, CAP)

@@ -312,10 +312,10 @@ def test_unported_paths_raise(what, port):
         return
     with pytest.raises(NotImplementedError):
         if what == "engine":
-            # the flat engine runs (test_torch_flat_*.py), but not with
-            # exact per-particle substepping (ROADMAP.md, Queue 1, "The flat
-            # engine's remaining features")
-            Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
+            # exact per-particle substepping runs on the flat engine
+            # (test_torch_perparticle.py), not on the dense one (ROADMAP.md,
+            # Queue 1, "Dense-engine options that the port refuses")
+            Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu", engine="dense",
                         opts_init_kw={"exact_sstp_cond": True})
         elif what == "multi_device":
             # one device only (ROADMAP.md, Queue 1, "Multi-device

@@ -345,8 +345,8 @@ def test_defaults_and_refusals(monkeypatch):
                         ({"turb_cond_switch": True}, "turb_cond_switch"),
                         ({"chem_switch": True}, "chem_switch"),
                         ({"diag_incloud_time": True}, "diag_incloud_time"),
-                        ({"adaptive_sstp_cond": True},
-                         "remaining features")):
+                        ({"turb_adve_switch": True},
+                         "turb_adve_switch.*remaining features")):
         o = _copy(oi, **over)
         with pytest.raises(NotImplementedError, match=match):
             factory(tl.backend_t.CUDA, o, **F64)

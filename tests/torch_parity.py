@@ -228,3 +228,36 @@ def flat_cond_case(sizes, dead0=0, seed=0, device="cpu", dtype=torch.float64,
     kw["sijk"] = torch.as_tensor(sijk, device=device)
     kw["ends"] = cell_ends(kw["sijk"], n_cell)
     return cfg, dict(kw, sstp=sstp, dt_sub=1.0 / sstp)
+
+
+def ambient_population(n, kind="mixed", seed=0, device="cpu",
+                       dtype=torch.float32):
+    """``n`` droplets at their own ambient conditions, as kernel G
+    (ops/cond.advance_rw2) takes them: {name: tensor} of rw2, rd3, kpa,
+    vt, rhod, rv, T, p, RH, eta, lam_D, lam_K.  ``kind`` "mixed": haze to
+    cloud droplets in air from 70% RH to 5% supersaturation, every seventh
+    slot dead (rw2 = 0); "activating": haze droplets of 1.5-6 dry radii in
+    air 0.3-2% supersaturated; "evaporating": cloud and drizzle droplets
+    of 5-50 um in air at 85-97% RH."""
+    from libcloudphxx_tpu_torch.common import vterm
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi: rng.uniform(lo, hi, n)
+    if kind == "activating":
+        rd = u(0.02e-6, 0.1e-6)
+        rw, RH = rd * u(1.5, 6.0), u(1.003, 1.02)
+    elif kind == "evaporating":
+        rd = u(0.02e-6, 0.5e-6)
+        rw, RH = u(5e-6, 50e-6), u(0.85, 0.97)
+    else:
+        rd = u(0.01e-6, 0.5e-6)
+        rw, RH = rd * u(1.1, 30.0), u(0.7, 1.05)
+    rw2 = rw ** 2
+    if kind == "mixed":
+        rw2[::7] = 0.0
+    T, p = u(270.0, 300.0), u(7e4, 1.02e5)
+    arrays = dict(rw2=rw2, rd3=rd ** 3, kpa=u(0.1, 1.2), vt=u(0.0, 2.0),
+                  rhod=p / (287.0 * T), rv=u(5e-3, 1.5e-2), T=T, p=p, RH=RH,
+                  eta=vterm.visc(torch.tensor(T)).numpy(),
+                  lam_D=u(5e-8, 2e-7), lam_K=u(5e-8, 2e-7))
+    return {k: torch.tensor(v, dtype=dtype, device=device)
+            for k, v in arrays.items()}
