@@ -62,6 +62,19 @@ exact per-particle condensation kernels A and G), and checks them:
      started at capacity 128 (a grow) and at 512 (a shrink), every repack
      conserving the population per cell, and kernel E's device time in the
      step at capacities 512 and 256
+ 13. the terminal velocity formulas the main path does not use (beard76,
+     khvorostyanov_spherical, khvorostyanov_nonspherical): kernels B, C
+     (full and vt-only forms, cloud and rain) and E (stride, sort,
+     standalone) against their plain versions at the main path's shapes
+     (B within its cell-sum gates, C and E bitwise); the smallest live wet
+     radius and the NaN vt of the port and of the float32 evaluation; the
+     dense slice from init with bench.py's physics checks, kernels A-E
+     launched and collisions, the kernel path against the plain path after
+     5 steps, best-of-3 timing (beard77fast's too, for the comparison in
+     one call) and each kernel's device time in the step beside its bound;
+     under khvorostyanov_nonspherical the dense front bitwise equal to
+     run_device_lgrngn(engine="dense") and 5 steps of the flat engine
+     through the public API with the physics checks
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
@@ -106,8 +119,9 @@ EXACT_LENGTHS, EXACT_DEAD = (1, 32773), 65536
 EXACT_PLAIN_STEPS, EXACT_PLAIN_SPINUP = 5, 3
 
 # the card's peak rates (H100 SXM data sheet, at a 700 W power limit):
-# device memory bytes/s and float32 operations/s outside the tensor cores
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# device memory bytes/s, float32 and float64 operations/s outside the
+# tensor cores
+PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
 # operations per element, counted from the device code: one per add,
 # multiply, min/max, division, square root, exp or log (the library is
 # built with -fmad=false, so there is no multiply-add; the 67e12 rate
@@ -131,6 +145,13 @@ OPS_GROWTH = 20
 # per live SD: vt_beard77; kernel C's advection, walls and classification
 # beside it; kernel D's nine-source merge
 OPS_VT, OPS_TRANSPORT, OPS_MERGE = 45, 60, 30
+# vt under the other formulas (csrc/physics.cuh vt_formula), a pow counted
+# as three (log, multiply, exp): beard76 by the regime a droplet is in (to
+# 9.5 um, to 503.5 um, above), in float32; Khvorostyanov in float64, beside
+# two float32 operations of the radius
+OPS_VT_BEARD76 = ((9.5e-6, 20), (5.035e-4, 42), (float("inf"), 44))
+OPS_VT_KHV = {"khvorostyanov_spherical": 49,
+              "khvorostyanov_nonspherical": 57}
 # kernel E (csrc/coal.cu), counted on the work its data needs (coal_work):
 # a Philox 4x32-10 word, 10 rounds of 2 multiply-highs, 2 multiply-lows
 # and 4 xors, and 2 key additions in rounds 2-10, each 32-bit integer
@@ -155,6 +176,13 @@ SUSTAINED_NT, SUSTAINED_SPINUP, SUSTAINED_TAIL = 3600, 2400, 1000
 REPACK_EVERY, REPACK_MARGIN = 50, 1.25
 FORCED_SD_CONC, FORCED_EVERY, FORCED_CHUNKS = 118, 10, 3
 PROFILE_STEPS = 5
+
+# the terminal velocity formulas off the main path (formulas()): the
+# steps of their kernel path against their plain path (2 spin-up), and of
+# the flat engine through the public API
+FORMULAS = ("beard76", "khvorostyanov_spherical",
+            "khvorostyanov_nonspherical")
+FORMULA_PLAIN_STEPS, FORMULA_PLAIN_SPINUP, FORMULA_FLAT_STEPS = 5, 2, 5
 
 # the Golovin box of tests/test_pallas_coal_golovin.py
 GOLOVIN_SIM_TIME, GOLOVIN_SSTP = 800.0, 100
@@ -214,12 +242,15 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def make_model(Kinematic2D, coal, engine="auto", sd_conc=SD_CONC, **oi_kw):
+def make_model(Kinematic2D, coal, engine="auto", sd_conc=SD_CONC, vt=None,
+               **oi_kw):
+    """bench.py's model; ``vt`` the terminal velocity formula (None:
+    Kinematic2D's beard77fast)."""
     return Kinematic2D(
         nx=NX, nz=NZ, micro="lgrngn", sd_conc=sd_conc, sstp_cond=SSTP_COND,
         sstp_coal=SSTP_COAL, n_sd_max=sd_conc * NX * NZ,
         opts_init_kw={"coal_switch": coal, **oi_kw}, engine=engine,
-        device=DEVICE)
+        terminal_velocity=vt, device=DEVICE)
 
 
 def occupancy(d):
@@ -271,6 +302,26 @@ def device_ms(run, steps, names):
                     out[name] = out.get(name, 0.0) \
                         + e.device_time_total / 1e3 / steps
     return out
+
+
+def time_reps(m, init, steps, plain, totals, dense):
+    """Best of TIME_REPS from-init reps of ``steps`` dense steps of model
+    ``m`` (after a 2-step warm-up), bench.py's physics checks against
+    ``totals`` (water, dry) on every rep: (seconds, (th, rv, state) of the
+    last rep); the model is put back at ``init``."""
+    m.run_device_lgrngn(2, plain=plain, engine="dense")  # warm-up
+    best = float("inf")
+    for _ in range(TIME_REPS):
+        m.dense_state, m.th, m.rv = init
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run_device_lgrngn(steps, plain=plain, engine="dense")
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        physics_checks(m, *totals, dense)
+    out = (m.th, m.rv, m.dense_state)
+    m.dense_state, m.th, m.rv = init
+    return best, out
 
 
 def physics_checks(model, water0, dry0, dense):
@@ -394,10 +445,9 @@ def coal_work(run, n):
 
 
 def coal_ops(work):
-    """The operations of coal_work's ``work``."""
+    """The operations of coal_work's ``work`` but vt's."""
     return (work["draws"] * OPS_PHILOX
             + work["pairs"] * (OPS_PHILOX + OPS_PAIR)
-            + (work["live"] + work["changed"]) * OPS_VT
             + work["changed"] * OPS_COLLIDE)
 
 
@@ -410,11 +460,12 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes, ops):
+def bound(n_bytes, ops, ops_f64=0):
     """The least time the card could take [ms], and what sets it: the
-    bytes moved at the memory rate or the operations at the float32
-    rate."""
-    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    bytes moved at the memory rate or the operations at the float32 (and
+    float64) rate."""
+    t_b = n_bytes / PEAK_BYTES * 1e3
+    t_o = (ops / PEAK_F32 + ops_f64 / PEAK_F64) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -1015,19 +1066,7 @@ def smoke(opts):
 
     # ---- 10. timing: from-init reps through the kernels and the plain path
     def run_reps(m, init, steps, plain):
-        m.run_device_lgrngn(2, plain=plain, engine="dense")  # warm-up
-        best = float("inf")
-        for _ in range(TIME_REPS):
-            m.dense_state, m.th, m.rv = init
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            m.run_device_lgrngn(steps, plain=plain, engine="dense")
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
-            physics_checks(m, water0, dry0, dense)
-        out = (m.th, m.rv, m.dense_state)
-        m.dense_state, m.th, m.rv = init
-        return best, out
+        return time_reps(m, init, steps, plain, (water0, dry0), dense)
 
     dense_ms = {}
     for label, m, init, steps in (
@@ -1182,6 +1221,13 @@ def smoke(opts):
     # ---- 12. the repack policy forced to retarget at full width
     forced_retargets(Kinematic2D, dense, _ext, card)
 
+    # ---- 13. the terminal velocity formulas off the main path
+    vt_rows = formulas(Kinematic2D, dense, _ext, c, card, err)
+    print("timing, dense, coalescence on, by formula: " + ", ".join(
+        f"{k} {v['ms']:.3f} ms/step" for k, v in vt_rows.items())
+        + f"; the flat public API (beard77fast) {flat_ms:.3f} ({card})",
+        flush=True)
+
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
         profile_both(model_c, (dc0, thc0, rvc0), model_f,
@@ -1195,6 +1241,277 @@ def smoke(opts):
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def khv_float32_nan(rw2, rhod, eta):
+    """The droplets whose vt the reference's float32 Khvorostyanov
+    (common/vterm.py's operation order in float32, as the JAX package's
+    TPU kernel evaluates it) gives as NaN: root rounds to 1, and
+    b = 0 / 0."""
+    r = torch.sqrt(rw2)
+    X = (32.0 / 3) * (1e3 - rhod) / rhod * 9.81 * r ** 3 / eta ** 2 \
+        * rhod ** 2
+    return torch.sqrt(1.0 + 0.0902 * torch.sqrt(X)) == 1.0
+
+
+def formula_kernels(cfg, m, ds, err, label):
+    """Kernels B, C (full form on the cloud and on rain, and the vt-only
+    form) and E (stride, sort, standalone) under ``cfg``'s formula at the
+    main path's shapes, against their plain versions: B within its
+    cell-sum gates, C and E bitwise; ``m`` the model at init, ``ds`` its
+    population after the spin-up.  Returns the event time of each kernel's
+    call [ms]."""
+    from libcloudphxx_tpu_torch.lgrngn import dense
+    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp
+    from libcloudphxx_tpu_torch.models import mpdata
+    from libcloudphxx_tpu_torch.ops import coal, step
+    d0 = m.dense_state
+    tha, rva = mpdata.advect2(m.th, m.rv, m.gc_x, m.gc_z, m.G)
+    lam_D, lam_K = hskpng_mfp(d0.T, d0.p)
+    cond_args = (cfg, SSTP_COND, 1.0, 44.0, d0.n, d0.rw2, d0.rd3, d0.kpa,
+                 tha.reshape(-1), rva.reshape(-1), d0.sstp_tmp_th,
+                 d0.sstp_tmp_rv, d0.rhod, d0.dv, lam_D, lam_K, d0.p)
+    kb, pb = step.cond(*cond_args), step.cond(*cond_args, plain=True)
+    live = d0.n > 0
+    rel = (max_rel(kb[1], pb[1]), max_rel(kb[2], pb[2]),
+           max_rel(kb[0][live], pb[0][live]))
+    err["cond"] = max(err["cond"], max_abs(kb[0][live], pb[0][live]),
+                      max_abs(kb[1], pb[1]), max_abs(kb[2], pb[2]))
+    print(f"{label}: B cond th rel {rel[0]:.2e}, rv rel {rel[1]:.2e}, rw2 "
+          f"rel {rel[2]:.2e}; finite {bool(torch.isfinite(kb[0]).all())}")
+    check(rel[0] <= 2e-6 and rel[1] <= 2e-5 and rel[2] <= 1e-5
+          and bool(torch.isfinite(kb[0]).all()),
+          f"{label}: cond kernel disagrees with its plain version")
+    rw2, T, p, eta = kb[0], kb[3], kb[4], kb[6]
+    C = dense._row_courants(cfg, d0)
+    rain = (torch.where(live, 2.0, 0.0), torch.where(live, 1e-6, 0.0),
+            torch.where(live, cfg.z0 + 20.0 * (d0.z / cfg.z1), d0.z))
+    c_args = {}
+    for pop, (n, w2, z) in (("cloud", (d0.n, rw2, d0.z)), ("rain", rain)):
+        for form, sedi, adve in (("full", True, True),
+                                 ("vt only", False, False)):
+            args = (cfg, 1.0, sedi, n, w2, d0.rd3, d0.x, z, T, p, d0.rhod,
+                    eta) + C
+            kc = step.transport(*args, do_adve=adve)
+            pc = step.transport(*args, do_adve=adve, plain=True)
+            pairs = [(a, b) for a, b in zip(kc[:5], pc[:5])
+                     if a is not None]
+            same = all(torch.equal(a, b) for a, b in pairs)
+            err["transport"] = max(err["transport"],
+                                   *(max_abs(a, b) for a, b in pairs))
+            print(f"{label}: C {pop}, {form}: bitwise equal {same}, vt "
+                  f"finite {bool(torch.isfinite(kc[3]).all())}")
+            check(same and bool(torch.isfinite(kc[3]).all()),
+                  f"{label}: kernel C ({pop}, {form}) differs from its "
+                  f"plain version")
+            c_args.setdefault(form, args)
+    params = m.opts_init.kernel_parameters
+    e_args = (cfg, params, SSTP_COAL, 1.0, ds.rng_seed, ds.rng_step, ds.n,
+              ds.rw2, ds.rd3, ds.kpa, ds.x, ds.z, ds.T, ds.p, ds.rhod,
+              ds.eta, ds.dv)
+    calls = {"cond": lambda: step.cond(*cond_args),
+             "transport": lambda: step.transport(*c_args["full"]),
+             "transport vt only": lambda: step.transport(
+                 *c_args["vt only"], do_adve=False)}
+    for form in ("stride", "sort", "standalone"):
+        if form == "standalone":
+            run = lambda plain: coal.coal_standalone(*e_args, plain=plain)
+        else:
+            run = lambda plain, form=form: coal.coal_resident(
+                *e_args, pairing=form, plain=plain)
+        ko, po = run(False), run(True)
+        lanes = all(torch.equal(a, b) for a, b in zip(ko, po))
+        key = "coal_standalone" if form == "standalone" else "coal"
+        err[key] = max(err[key], max(max_abs(a, b) for a, b in zip(ko, po)))
+        lost = float(ds.n.double().sum() - ko[0].double().sum())
+        print(f"{label}: E coal {form}: lanes equal {lanes}, multiplicity "
+              f"lost {lost:.6g}")
+        check(lanes, f"{label}: E {form} differs from its plain version")
+        calls["coal " + form] = lambda run=run: run(False)
+    return {k: time_cuda(fn, KERNEL_REPS) for k, fn in calls.items()}
+
+
+def formulas(Kinematic2D, dense, _ext, c, card, err):
+    """The terminal velocity formulas the main path does not use, on
+    bench.py's case at full width: for each of FORMULAS kernels B, C and E
+    against their plain versions at the main path's shapes
+    (formula_kernels); the smallest live wet radius and the NaN vt under
+    float32; the dense slice from init with bench.py's physics checks and
+    kernels A-E launched, collisions, the kernel path against the plain
+    path after FORMULA_PLAIN_STEPS steps, best-of-3 timing and each
+    kernel's device time in the step beside its bound.  beard77fast (the
+    main path) runs the slice's timing and device times too, for the
+    comparison within this call.  Under khvorostyanov_nonspherical the
+    dense front's stepwise run equals run_device_lgrngn(engine="dense")
+    bitwise, and the flat engine runs FORMULA_FLAT_STEPS steps through the
+    public API with the physics checks."""
+    from libcloudphxx_tpu_torch.lgrngn import backend_t, factory, vt_t
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
+    from libcloudphxx_tpu_torch.models import mpdata
+    from libcloudphxx_tpu_torch.ops import coal, step
+    steps = SLICE_SPINUP + SLICE_MAIN
+    path = ("mpdata", "cond", "transport", "merge", "coal")
+    rows = {}
+    for name in ("beard77fast",) + FORMULAS:
+        f, label = vt_t[name], f"vt {name}"
+        t0 = time.perf_counter()
+        m = make_model(Kinematic2D, coal=True, vt=f)
+        cfg, init = m.cfg, (m.dense_state, m.th, m.rv)
+        check(vt_t(cfg.terminal_velocity) == f, f"{label}: the model runs "
+              f"{vt_t(cfg.terminal_velocity).name}")
+        d0 = init[0]
+        live = d0.n > 0
+        totals = dense.water_dry_totals(d0, m.rv)
+        print(f"{label}: init {time.perf_counter() - t0:.1f} s, "
+              f"{int(live.sum())} SDs; " + nan_report(cfg, d0), flush=True)
+        # the slice from init: spin-up and coalescing steps
+        reset(_ext.KERNELS)
+        m.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP,
+                            engine="dense")
+        sp = (m.dense_state, m.th, m.rv)
+        ds = sp[0]
+        m.run_device_lgrngn(SLICE_MAIN, engine="dense")
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in _ext.KERNELS}
+        dw, dd = physics_checks(m, *totals, dense)
+        end = (m.dense_state, m.th, m.rv)
+        lost = collided(ds, end[0])
+        print(f"{label}: after the slice, " + nan_report(cfg, end[0]))
+        print(f"{label}: slice {SLICE_SPINUP} spin-up + {SLICE_MAIN} main "
+              f"steps, water rel err {dw:.2e}, dry rel err {dd:.2e}, "
+              f"multiplicity lost to collisions {lost:.3e}; launches "
+              f"{launches}", flush=True)
+        check(all(launches[k] > 0 for k in path),
+              f"{label}: a kernel of the path was not launched: {launches}")
+        check(lost > 0.0, f"{label}: no collision in the main steps")
+        ev = {} if name == "beard77fast" else \
+            formula_kernels(cfg, m, ds, err, label)
+        # the kernel path against the plain path from init
+        outs = []
+        for plain in (False, True):
+            m.dense_state, m.th, m.rv = init
+            m.run_device_lgrngn(FORMULA_PLAIN_STEPS,
+                                spinup=FORMULA_PLAIN_SPINUP, plain=plain,
+                                engine="dense")
+            outs.append((m.th, m.rv))
+        rel_th = max_rel(outs[0][0], outs[1][0])
+        rel_rv = max_rel(outs[0][1], outs[1][1])
+        print(f"{label}: kernels vs plain after {FORMULA_PLAIN_STEPS} steps: "
+              f"th rel {rel_th:.2e}, rv rel {rel_rv:.2e}")
+        check(rel_th <= 1e-4 and rel_rv <= 1e-3,
+              f"{label}: the kernel path drifted from the plain path")
+        # timing, and each kernel's device time in the coalescing steps
+        t, _ = time_reps(m, init, TIME_STEPS, False, totals, dense)
+        ms = t / TIME_STEPS * 1e3
+        m.dense_state, m.th, m.rv = sp
+        dev = device_ms(lambda n: m.run_device_lgrngn(n, engine="dense"),
+                        PROFILE_STEPS, ("cond_kernel", "coal_kernel",
+                                        "transport_kernel"))
+        m.dense_state, m.th, m.rv = init
+        # each kernel's bound on the inputs of this run
+        kc = step.transport(cfg, 1.0, True, d0.n, d0.rw2, d0.rd3, d0.x,
+                            d0.z, d0.T, d0.p, d0.rhod, d0.eta,
+                            *dense._row_courants(cfg, d0))
+        tha, rva = mpdata.advect2(m.th, m.rv, m.gc_x, m.gc_z, m.G)
+        e_args = (cfg, m.opts_init.kernel_parameters, SSTP_COAL, 1.0,
+                  ds.rng_seed, ds.rng_step, ds.n, ds.rw2, ds.rd3, ds.kpa,
+                  ds.x, ds.z, ds.T, ds.p, ds.rhod, ds.eta, ds.dv)
+        work = [coal_work(lambda: coal.coal_resident(*e_args, plain=True),
+                          ds.n),
+                coal_work(lambda: coal.coal_standalone(*e_args, plain=True),
+                          ds.n)]
+        bounds = dict(cond=cond_bound(cfg, d0, tha, rva),
+                      transport=transport_bound(cfg, d0, kc),
+                      **coal_bounds(cfg, ds, work))
+        print(f"timing {label}, dense, coalescence on: {ms:.3f} ms/step, "
+              f"{int(live.sum()) * TIME_STEPS / t:.4g} SD-updates/s "
+              f"({TIME_STEPS} steps, best of {TIME_REPS}; {card})")
+        in_step = {"cond": "cond_kernel", "transport": "transport_kernel",
+                   "coal": "coal_kernel"}
+        a_call = {"cond": "cond", "transport": "transport",
+                  "coal": "coal stride", "coal_standalone": "coal standalone"}
+        for k, (b_ms, b_by) in bounds.items():
+            dms = dev.get(in_step.get(k))
+            call = ev.get(a_call[k])
+            print(f"{label}: kernel {k}: in the step "
+                  + (f"{dms:.4f} ms/step" if dms else "not measured")
+                  + (f", a call {call:.4f} ms" if call else "")
+                  + f", bound {b_ms:.4f} ms ({b_by}) ({card})")
+        if "transport vt only" in ev:
+            print(f"{label}: kernel transport, vt-only form, a call "
+                  f"{ev['transport vt only']:.4f} ms ({card})")
+        rows[name] = dict(ms=ms)
+        if name != "khvorostyanov_nonspherical":
+            continue
+        # the dense front through the public API, bitwise against the
+        # slice's run_device_lgrngn(engine="dense") from the same init
+        probe = factory(backend_t.CUDA, m.opts_init, device=DEVICE)
+        check(isinstance(probe, particles_dense_t),
+              f"{label}: factory on the card gave {type(probe).__name__}")
+        md = make_model(Kinematic2D, coal=True, vt=f)
+        check(isinstance(md.prtcls, particles_dense_t),
+              f"{label}: Kinematic2D's public API is "
+              f"{type(md.prtcls).__name__}")
+        fw0 = flat_totals(md.prtcls, md.rv, c)
+        reset(_ext.KERNELS)
+        md.run(steps, spinup=SLICE_SPINUP)
+        torch.cuda.synchronize()
+        front = {k.name: k.launches for k in _ext.KERNELS}
+        d_f, (d_r, th_r, rv_r) = md.dense_state, end
+        eq = {"th": bool(torch.equal(md.th, th_r)),
+              "rv": bool(torch.equal(md.rv, rv_r)),
+              "all planes": bool(np.array_equal(population(d_f),
+                                                population(d_r)))}
+        dw, dd = flat_physics_checks(md, *fw0, c)
+        print(f"{label}: dense front, public API: launches {front}; vs "
+              f"run_device_lgrngn(engine='dense') bitwise equal {eq}; water "
+              f"rel err {dw:.2e}, dry rel err {dd:.2e}", flush=True)
+        check(all(front[k] > 0 for k in path), f"{label}: dense front: a "
+              f"kernel of the path was not launched: {front}")
+        check(all(eq.values()), f"{label}: the dense front differs from "
+              "run_device_lgrngn(engine='dense')")
+        # the flat engine through the public API
+        mf = make_model(Kinematic2D, coal=True, engine="flat", vt=f)
+        check(type(mf.prtcls).__name__ == "particles_t",
+              f"{label}: factory(engine='flat') gave "
+              f"{type(mf.prtcls).__name__}")
+        fw0 = flat_totals(mf.prtcls, mf.rv, c)
+        reset(_ext.KERNELS)
+        mf.run(FORMULA_FLAT_STEPS, spinup=FORMULA_PLAIN_SPINUP)
+        torch.cuda.synchronize()
+        flat = {k.name: k.launches for k in (_ext.MPDATA, _ext.COND_FLAT)}
+        dw, dd = flat_physics_checks(mf, *fw0, c)
+        vt_f = torch.as_tensor(mf.prtcls.get_attr("vt"))
+        print(f"{label}: flat engine, public API, {FORMULA_FLAT_STEPS} steps: "
+              f"launches {flat}, water rel err {dw:.2e}, dry rel err "
+              f"{dd:.2e}, vt finite {bool(torch.isfinite(vt_f).all())}",
+              flush=True)
+        check(flat == {"mpdata": 2 * FORMULA_FLAT_STEPS,
+                       "cond_flat": FORMULA_FLAT_STEPS},
+              f"{label}: flat: kernel A twice and F once a step expected, "
+              f"got {flat}")
+        check(bool(torch.isfinite(vt_f).all()), f"{label}: flat: NaN vt")
+    return rows
+
+
+def nan_report(cfg, d):
+    """The smallest live wet radius of a DenseState and its NaN vt: the
+    port's (kernel C's vt-only form; none, or the check fails) and, under
+    Khvorostyanov, the float32 evaluation's (khv_float32_nan)."""
+    from libcloudphxx_tpu_torch.lgrngn import dense
+    from libcloudphxx_tpu_torch.ops import step
+    live = d.n > 0
+    vt = step.transport(cfg, 1.0, False, d.n, d.rw2, d.rd3, d.x, d.z, d.T,
+                        d.p, d.rhod, d.eta, *dense._row_courants(cfg, d),
+                        do_adve=False)[3]
+    nan_port = int(torch.isnan(vt[live]).sum())
+    check(nan_port == 0, f"{nan_port} NaN vt")
+    col = lambda a: a[:, None].expand_as(d.n)[live]
+    nan_f32 = int(khv_float32_nan(d.rw2[live], col(d.rhod),
+                                  col(d.eta)).sum())
+    return (f"smallest live wet radius {float(d.rw2[live].min().sqrt()):.4g}"
+            f" m; NaN vt: port {nan_port}, the float32 evaluation of "
+            f"Khvorostyanov {nan_f32}")
 
 
 def sustained(Kinematic2D, dense, _ext, card, from_init_ms):
@@ -1484,65 +1801,24 @@ def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw,
     """{kernel: (bound_ms, bound_by)} from the inputs each kernel takes in
     this run: every input read once and every output written once at the
     memory rate, against the operations these inputs need at the float32
-    rate.  B's and F's growth work is counted on their first substep's data
-    and taken sstp_cond times, beside each cell's substeps and each live
-    droplet's set-up."""
-    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp, hskpng_Tpr
-    from libcloudphxx_tpu_torch.lgrngn.vterm import vt_in_kernel
+    (and float64) rate.  B's and F's growth work is counted on their first
+    substep's data and taken sstp_cond times, beside each cell's substeps
+    and each live droplet's set-up."""
     n_cell = d0.n.shape[0]
-    plane = nbytes(d0.n)
-    cell = nbytes(d0.rhod)
-    live0, live_s = int((d0.n > 0).sum()), int((ds.n > 0).sum())
     out = {}
     # A: two fields in, two out, the courants and G
     out["mpdata"] = bound(
         nbytes(th0, rv0, *mp) + nbytes(th0, rv0),
         2 * n_cell * (OPS_DONOR + OPS_ANTIDIFF + OPS_DONOR))
-    # B: four planes, nine cell fields and the row order in, one plane and
-    # six cell fields out
-    col = lambda a: a[:, None].expand(-1, d0.cap).reshape(-1)
-    T0, p0, _, eta0 = hskpng_Tpr(cfg, d0.sstp_tmp_th, d0.sstp_tmp_rv,
-                                 d0.rhod, d0.p)
-    vt = vt_in_kernel(cfg, d0.rw2, T0[:, None], p0[:, None],
-                      d0.rhod[:, None], eta0[:, None])
-    th1 = d0.sstp_tmp_th + (tha.reshape(-1) - d0.sstp_tmp_th) / SSTP_COND
-    rv1 = d0.sstp_tmp_rv + (rva.reshape(-1) - d0.sstp_tmp_rv) / SSTP_COND
-    T1, p1, RH1, eta1 = hskpng_Tpr(cfg, th1, rv1, d0.rhod, d0.p)
-    lam_D, lam_K = hskpng_mfp(d0.T, d0.p)
-    arrays = (d0.rw2.reshape(-1), d0.rd3.reshape(-1), d0.kpa.reshape(-1),
-              vt.reshape(-1), col(d0.rhod), col(rv1), col(T1), col(p1),
-              col(RH1), col(eta1), col(lam_D), col(lam_K))
-    ops_b, brk, live = rootfind_ops(1.0 / SSTP_COND, arrays, 44.0,
-                                    (d0.n > 0).reshape(-1))
-    print(f"B cond: {brk / live:.4f} of the {live} live droplets bracketed "
-          f"in the first substep")
-    out["cond"] = bound(
-        5 * plane + 16 * cell,
-        SSTP_COND * ops_b + live0 * (OPS_DROP + OPS_VT) + d0.n.numel()
-        + n_cell * (SSTP_COND * OPS_CELL_SUBSTEP + 2 * OPS_CLOSURE))
-    # C: n of every slot, rw2, x and z of the live ones, rd3 of those that
-    # fell into the puddle, and seven cell fields (p, rhod, eta, the four
-    # courants) in; n, x, z, vt, the targets and the (n_cell, 8) row info
-    # out
-    slot = d0.n.element_size()
-    fell = int(((d0.n > 0) & (kc[0] == 0) & (kc[2] < cfg.z0)).sum())
-    out["transport"] = bound(
-        plane + 3 * slot * live0 + slot * fell + 7 * cell
-        + 4 * plane + nbytes(kc[4], kc[5]),
-        live0 * (OPS_VT + OPS_TRANSPORT))
+    out["cond"] = cond_bound(cfg, d0, tha, rva)
+    out["transport"] = transport_bound(cfg, d0, kc)
     # D: the targets of every slot and the seven planes of the droplets it
     # takes (those alive after C) in, seven planes and the drops out
-    live_c = int((kc[0] > 0).sum())
+    slot, live_c = d0.n.element_size(), int((kc[0] > 0).sum())
     out["merge"] = bound(
-        nbytes(kc[4]) + 7 * slot * live_c + 7 * plane + cell,
-        live_c * OPS_MERGE)
-    # E: six planes and five cell fields in, six (standalone: seven)
-    # planes and the row flags out; the work its data needs (coal_work),
-    # and for the standalone form vt of the slots dead at load
-    out["coal"] = bound(12 * plane + 5 * cell + n_cell, coal_ops(work_e[0]))
-    out["coal_standalone"] = bound(
-        13 * plane + 5 * cell + n_cell,
-        coal_ops(work_e[1]) + (ds.n.numel() - live_s) * OPS_VT)
+        nbytes(kc[4]) + 7 * slot * live_c + 7 * nbytes(d0.n)
+        + nbytes(d0.rhod), live_c * OPS_MERGE)
+    out.update(coal_bounds(cfg, ds, work_e))
     # F: five SD arrays, the cell ends, ten cell fields and the cell order
     # in; rw2 and three cell fields out
     ops_f, brk, live = rootfind_ops(
@@ -1557,6 +1833,97 @@ def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw,
         f_kw["sstp"] * ops_f + live * OPS_DROP
         + n_f * (f_kw["sstp"] * OPS_CELL_SUBSTEP + OPS_CLOSURE))
     return out
+
+
+def cond_bound(cfg, d0, tha, rva):
+    """Kernel B's bound on the population ``d0`` and the advected fields:
+    four planes, nine cell fields and the row order in, one plane and six
+    cell fields out; the first substep's growth work sstp_cond times, each
+    live droplet's set-up and rebuilt vt, each cell's substeps."""
+    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp, hskpng_Tpr
+    from libcloudphxx_tpu_torch.lgrngn.vterm import vt_in_kernel
+    n_cell, live = d0.n.shape[0], d0.n > 0
+    live0 = int(live.sum())
+    col = lambda a: a[:, None].expand(-1, d0.cap).reshape(-1)
+    T0, p0, _, eta0 = hskpng_Tpr(cfg, d0.sstp_tmp_th, d0.sstp_tmp_rv,
+                                 d0.rhod, d0.p)
+    vt = vt_in_kernel(cfg, d0.rw2, T0[:, None], p0[:, None],
+                      d0.rhod[:, None], eta0[:, None])
+    th1 = d0.sstp_tmp_th + (tha.reshape(-1) - d0.sstp_tmp_th) / SSTP_COND
+    rv1 = d0.sstp_tmp_rv + (rva.reshape(-1) - d0.sstp_tmp_rv) / SSTP_COND
+    T1, p1, RH1, eta1 = hskpng_Tpr(cfg, th1, rv1, d0.rhod, d0.p)
+    lam_D, lam_K = hskpng_mfp(d0.T, d0.p)
+    arrays = (d0.rw2.reshape(-1), d0.rd3.reshape(-1), d0.kpa.reshape(-1),
+              vt.reshape(-1), col(d0.rhod), col(rv1), col(T1), col(p1),
+              col(RH1), col(eta1), col(lam_D), col(lam_K))
+    ops_b, brk, n_live = rootfind_ops(1.0 / SSTP_COND, arrays, 44.0,
+                                      live.reshape(-1))
+    print(f"B cond: {brk / n_live:.4f} of the {n_live} live droplets "
+          f"bracketed in the first substep")
+    vt32, vt64 = vt_ops(cfg, d0.rw2[live])
+    return bound(
+        5 * nbytes(d0.n) + 16 * nbytes(d0.rhod),
+        SSTP_COND * ops_b + live0 * OPS_DROP + vt32 + d0.n.numel()
+        + n_cell * (SSTP_COND * OPS_CELL_SUBSTEP + 2 * OPS_CLOSURE), vt64)
+
+
+def transport_bound(cfg, d0, kc):
+    """Kernel C's bound on the population ``d0`` and its outputs ``kc``: n
+    of every slot, rw2, x and z of the live ones, rd3 of those that fell
+    into the puddle, and seven cell fields (p, rhod, eta, the four
+    courants; T too under beard76) in; n, x, z, vt, the targets and the
+    (n_cell, 8) row info out; each live droplet's vt and transport."""
+    from libcloudphxx_tpu_torch.lgrngn import vt_t
+    live = d0.n > 0
+    live0, slot = int(live.sum()), d0.n.element_size()
+    fell = int((live & (kc[0] == 0) & (kc[2] < cfg.z0)).sum())
+    cells = 8 if vt_t(cfg.terminal_velocity) == vt_t.beard76 else 7
+    vt32, vt64 = vt_ops(cfg, d0.rw2[live])
+    return bound(
+        nbytes(d0.n) + 3 * slot * live0 + slot * fell
+        + cells * nbytes(d0.rhod) + 4 * nbytes(d0.n) + nbytes(kc[4], kc[5]),
+        vt32 + live0 * OPS_TRANSPORT, vt64)
+
+
+def coal_bounds(cfg, ds, work_e):
+    """Kernel E's bounds on the population ``ds`` and the work its data
+    needs (coal_work, stride and standalone form): six planes and five
+    cell fields in, six (standalone: seven) planes and the row flags out;
+    vt of each live SD at load and of each droplet a collision changed
+    (at the population's mean cost a droplet), and for the standalone form
+    of the slots dead at load."""
+    live = ds.n > 0
+    plane, cell, n_cell = nbytes(ds.n), nbytes(ds.rhod), ds.n.shape[0]
+    vt32, vt64 = vt_ops(cfg, ds.rw2[live])
+    per32, per64 = vt32 / max(int(live.sum()), 1), \
+        vt64 / max(int(live.sum()), 1)
+    dead = ds.n.numel() - int(live.sum())
+
+    def ops(work, extra=0):
+        vts = work["live"] + work["changed"] + extra
+        return coal_ops(work) + vts * per32, vts * per64
+
+    return {"coal": bound(12 * plane + 5 * cell + n_cell, *ops(work_e[0])),
+            "coal_standalone": bound(13 * plane + 5 * cell + n_cell,
+                                     *ops(work_e[1], dead))}
+
+
+def vt_ops(cfg, rw2):
+    """(float32, float64) operations of the vt of the live droplets
+    ``rw2`` under cfg's formula (csrc/physics.cuh vt_formula)."""
+    from libcloudphxx_tpu_torch.lgrngn import vt_t
+    f, n = vt_t(cfg.terminal_velocity), rw2.numel()
+    if f in (vt_t.beard77, vt_t.beard77fast):
+        return n * OPS_VT, 0
+    if f == vt_t.beard76:
+        r, lo, ops = torch.sqrt(rw2), 0.0, 0
+        for hi, k in OPS_VT_BEARD76:
+            ops += k * int(((r > lo) & (r <= hi)).sum())
+            lo = hi
+        return ops, 0
+    if f == vt_t.undefined:
+        return 0, 0
+    return 2 * n, OPS_VT_KHV[f.name] * n
 
 
 def profile(label, start, run, card, steps=20):

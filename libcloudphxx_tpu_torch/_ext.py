@@ -72,17 +72,17 @@ MPDATA = Kernel(
     "libcloudphxx_tpu/models/mpdata.py:256 (advect2; advect :226)")
 # planes in (4), cells, rw2 out, cells out, scratch (positions, floats),
 # row order; n_cell, cap, sstp; dt_sub, RH_max; th_dry, const_p, RH
-# formula, iterations
+# formula, iterations, vt formula
 COND = Kernel(
-    "cond", "lcp_cond", [_P] * 10 + [_I, _I, _I, _D, _D] + [_I] * 4,
+    "cond", "lcp_cond", [_P] * 10 + [_I, _I, _I, _D, _D] + [_I] * 5,
     "libcloudphxx_tpu_torch/csrc/cond.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, cond phase :191-231)")
 # planes in (5), cells, outputs (5), row info; n_cell, cap, nx, nz; dx, dz,
 # dt, x0, x1, z0, z1; implicit, do_adve, do_sedi, do_subs, open side
-# walls, periodic top/bottom walls
+# walls, periodic top/bottom walls, vt formula
 TRANSPORT = Kernel(
     "transport", "lcp_transport",
-    [_P] * 12 + [_I, _I, _I, _I] + [_D] * 7 + [_I] * 6,
+    [_P] * 12 + [_I, _I, _I, _I] + [_D] * 7 + [_I] * 7,
     "libcloudphxx_tpu_torch/csrc/transport.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, transport and "
     "re-bin classification :338-487)")
@@ -92,8 +92,8 @@ MERGE = Kernel(
     "libcloudphxx_tpu/ops/pallas_step.py:716 (_xmerge_kernel) and :405 "
     "(_kernel z-merge epilogue)")
 # planes in (6), cells, table; the outputs; the flags, n_cell, cap, sstp;
-# dt_sub, kernel, coef, r_max - 1e-6, clamp, seed, step
-_COAL_TAIL = [_P, _I, _I, _I, _D, _I, _D, _D, _I, _U, _U]
+# dt_sub, kernel, coef, r_max - 1e-6, clamp, seed, step, vt formula
+_COAL_TAIL = [_P, _I, _I, _I, _D, _I, _D, _D, _I, _U, _U, _I]
 COAL = Kernel(
     "coal", "lcp_coal", [_P] * 8 + [_P] * 6 + _COAL_TAIL + [_I],
     "libcloudphxx_tpu_torch/csrc/coal.cu",

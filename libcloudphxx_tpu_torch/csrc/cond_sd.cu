@@ -37,9 +37,6 @@ namespace lcp {
 
 constexpr int kSdThreads = 256;
 
-// rw2 at which a masked lane evaluates the growth rate: 1 um^2
-constexpr float kMaskedRw2 = 1e-12f;
-
 __global__ void __launch_bounds__(kSdThreads)
 cond_sd_kernel(const float* __restrict__ rw2, const float* __restrict__ rd3,
                const float* __restrict__ kpa, const float* __restrict__ vt,

@@ -1,22 +1,27 @@
 // Device functions shared by the step kernels (cond.cu, cond_flat.cu,
-// transport.cu, coal.cu): the per-cell closure, the beard77 terminal
-// velocity, the collision kernels and the Shima collision
+// transport.cu, coal.cu): the per-cell closure, the terminal velocity
+// formulas, the collision kernels and the Shima collision
 // (the condensation's per-droplet growth and root find are in
 // cond_cell.cuh).  Each follows its plain PyTorch version operation for
 // operation:
 //   closure        lgrngn/hskpng.py hskpng_Tpr
-//   vt_beard77     lgrngn/vterm.py vt_in_kernel
+//   vt_formula     lgrngn/vterm.py vt_in_kernel (vt_beard77, vt_beard76,
+//                  vt_khvorostyanov: common/vterm.py)
 //   kernel_value   lgrngn/coalescence.py kernel_value
 //   collision_count, collide   lgrngn/coalescence.py shima
 // The library is built with -fmad=false, so no multiply-add is contracted
 // that the plain version rounds twice.  Where PyTorch on the card divides a
 // tensor by a Python number it multiplies by the float reciprocal, and it
-// computes number / tensor as reciprocal(tensor) * number; vt_beard77, which
-// feeds the sedimentation and hence the cell classification, copies both so
-// that kernel and plain version classify every droplet alike.
+// computes number / tensor as reciprocal(tensor) * number; it raises a
+// tensor to the power 2 or 3 by multiplying (x * x, x * x * x) and to any
+// other number or tensor by powf.  The vt formulas, which feed the
+// sedimentation and hence the cell classification, copy all of it so that
+// kernel and plain version classify every droplet alike.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace lcp {
 
@@ -41,19 +46,22 @@ constexpr double T_stp = 273.15 + 15;
 constexpr double rho_stp = p_stp / T_stp / R_d;
 constexpr double p_1000 = 100000.0;
 constexpr double pi = 3.141592653589793;
+constexpr double grav = 9.81;  // constants.py g
 constexpr double COND_MLT = 2.0;
 
 #define F(x) static_cast<float>(x)
 
 // a / s for a Python number s, as PyTorch computes it on the card: times
-// the reciprocal, taken in double and rounded to float (for s = 5.01 that
-// differs from 1.0f / 5.01f)
-__device__ __forceinline__ float div_s(float a, double s) {
-  return a * F(1.0 / s);
+// the reciprocal, taken in double and rounded to a's type (for s = 5.01
+// and float that differs from 1.0f / 5.01f)
+template <class T>
+__device__ __forceinline__ T div_s(T a, double s) {
+  return a * static_cast<T>(1.0 / s);
 }
 // s / a for a Python number s: reciprocal(a) * s
-__device__ __forceinline__ float rdiv_s(double s, float a) {
-  return (1.0f / a) * F(s);
+template <class T>
+__device__ __forceinline__ T rdiv_s(double s, T a) {
+  return (T(1) / a) * static_cast<T>(s);
 }
 
 struct Closure {
@@ -158,6 +166,140 @@ __device__ __forceinline__ float vt_beard77(float rw2, float p, float rhoa,
   float y = (r <= F(20e-6)) ? polyval(small, lx) : polyval(large, lx);
   float v = fact * div_s(expf(y), 100.0);
   return rw2 > 0.0f ? v : 0.0f;
+}
+
+// lgrngn/enums.py vt_t: the terminal velocity formula, a template
+// parameter of every kernel that computes vt (one instantiation each, so
+// that no formula's registers set another's allocation)
+enum VtFormula {
+  kVtUndefined = 0,
+  kVtBeard76 = 1,
+  kVtBeard77 = 2,
+  kVtBeard77fast = 3,
+  kVtKhvorostyanovSpherical = 4,
+  kVtKhvorostyanovNonspherical = 5,
+};
+
+// The cell's fields a vt formula reads
+struct Ambient {
+  float T, p, rhoa, eta;
+};
+
+// common/kelvin.py sg_surf
+__device__ __forceinline__ float sg_surf(float T) {
+  return F(0.07275) * (1.0f - F(0.002) * (T - 291.0f));
+}
+
+// common/vterm.py vt_beard76 at radius r: one of its three regimes (the
+// plain version computes all three and selects one; each regime's bits do
+// not depend on the others)
+__device__ __forceinline__ float vt_beard76(float r, const Ambient& a) {
+  const float mid[7] = {F(-0.318657e1), F(0.992696),    F(-0.153193e-2),
+                        F(-0.987059e-3), F(-0.578878e-3), F(0.855176e-4),
+                        F(-0.327815e-5)};
+  const float big[6] = {F(-0.500015e1), F(0.523778e1),  F(-0.204914e1),
+                        F(0.475294),    F(-0.542819e-1), F(0.238449e-2)};
+  const float drho = F(rho_w) - a.rhoa;
+  if (r > F(5.035e-4)) {  // Bond and physical-property numbers
+    const float sg = sg_surf(a.T);
+    const float Bo = F(16.0 / 3.0) * r * r * drho * F(grav) / sg;
+    const float N_p = div_s(sg * sg * sg * (a.rhoa * a.rhoa)
+                                / powf(a.eta, 4.0f), grav) / drho;
+    const float N_p6 = powf(N_p, F(1.0 / 6.0));
+    const float X = logf(fmaxf(Bo * N_p6, 1e-30f));
+    const float N_Re = N_p6 * expf(polyval(big, X));
+    return div_s(a.eta * N_Re / a.rhoa, 2.0) / r;
+  }
+  // the slip correction of the small and middle regimes
+  const float l = F(6.62e-8) * div_s(a.eta, 1.818e-5) * rdiv_s(p_stp, a.p)
+                  * sqrtf(div_s(a.T, 293.15));
+  const float C_ac = 1.0f + F(1.255) * l / r;
+  if (r <= F(9.5e-6))  // Stokes
+    return drho * F(grav) / (F(4.5) * a.eta) * C_ac * r * r;
+  // the Davies number
+  const float N_Da = F(32.0 / 3.0) * (r * r * r) * a.rhoa * drho * F(grav)
+                     / (a.eta * a.eta);
+  const float N_Re = C_ac * expf(polyval(mid, logf(fmaxf(N_Da, 1e-30f))));
+  return div_s(a.eta * N_Re / a.rhoa, 2.0) / r;
+}
+
+// common/vterm.py vt_khvorostyanov at radius r (T enters through eta), in
+// float64 as the plain version evaluates it: root - 1 cancels, and in
+// float32 it gives 0 / 0 under ~2.5 nm
+template <bool SPHERICAL>
+__device__ __forceinline__ float vt_khvorostyanov(float r_f,
+                                                  const Ambient& amb) {
+  const double r = r_f, rhoa = amb.rhoa, eta = amb.eta;
+  // Best number, eq 2.7
+  const double X = (32.0 / 3) * (rho_w - rhoa) / rhoa * grav * (r * r * r)
+                   / (eta * eta) * (rhoa * rhoa);
+  const double sqX = sqrt(X);
+  const double root = sqrt(1.0 + 0.0902 * sqX);
+  const double rm1 = root - 1.0;
+  const double b = (0.0902 / 2) * sqX / (rm1 * root);
+  const double a = (9.06 * 9.06 / 4) * (rm1 * rm1) / pow(X, b);
+  double B;  // the base that b raises
+  if (SPHERICAL) {  // eq 3.1
+    B = rdiv_s(4.0 / 3 * rho_w, rhoa);
+  } else {  // aspect ratio eq 3.4, lambda_half 2.35 mm
+    const double e = exp(div_s(-r, 2.35e-3));
+    const double ksi = e + (1.0 - e) / (1.0 + div_s(r, 2.35e-3));
+    B = 2.546479 * (ksi * (pi / 6.0 * rho_w)) / rhoa;
+  }
+  const double Av = a * pow(eta / rhoa * 1e4, 1.0 - 2.0 * b)
+                    * pow(B * grav * 1e2, b);
+  return static_cast<float>(div_s(Av * pow(2e2 * r, 3.0 * b - 1.0), 1e2));
+}
+
+// rw2 at which a masked lane evaluates what a droplet of rw2 <= 0 would
+// take (and then discards): 1 um^2, so that no lane takes the IEEE
+// division's slow path (kernel G's growth rate) or carries Khvorostyanov's
+// 0 / 0 through its powers
+constexpr float kMaskedRw2 = 1e-12f;
+
+// lgrngn/vterm.py vt_in_kernel: the formula VT of a droplet of rw2 in a
+// cell; beard77 and beard77fast both by the direct polynomial, as on the
+// TPU (pallas_coal.py _vt_in_kernel)
+template <int VT>
+__device__ __forceinline__ float vt_formula(float rw2, const Ambient& a) {
+  if (VT == kVtBeard77 || VT == kVtBeard77fast)
+    return vt_beard77(rw2, a.p, a.rhoa, a.eta);
+  if (VT == kVtUndefined) return 0.0f;
+  const bool live = rw2 > 0.0f;
+  const float r = sqrtf(fmaxf(live ? rw2 : kMaskedRw2, 1e-30f));
+  float v;
+  if (VT == kVtBeard76)
+    v = vt_beard76(r, a);
+  else
+    v = vt_khvorostyanov<VT == kVtKhvorostyanovSpherical>(r, a);
+  return live ? v : 0.0f;
+}
+
+// Whether formula VT reads the cell's temperature
+template <int VT>
+__host__ __device__ constexpr bool vt_reads_T() {
+  return VT == kVtBeard76;
+}
+
+template <int VT>
+using VtConst = std::integral_constant<int, VT>;
+
+// fn(VtConst<VT>()) for the formula ``vt`` (a vt_t value; beard77fast
+// runs as beard77), or cudaErrorInvalidValue for any other number: the
+// one place a kernel's entry point picks its instantiation
+template <class Fn>
+int with_vt(int vt, Fn&& fn) {
+  switch (vt) {
+    case kVtUndefined: return fn(VtConst<kVtUndefined>());
+    case kVtBeard76: return fn(VtConst<kVtBeard76>());
+    case kVtBeard77:
+    case kVtBeard77fast: return fn(VtConst<kVtBeard77>());
+    case kVtKhvorostyanovSpherical:
+      return fn(VtConst<kVtKhvorostyanovSpherical>());
+    case kVtKhvorostyanovNonspherical:
+      return fn(VtConst<kVtKhvorostyanovNonspherical>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The collision kernel of kernel E: lgrngn/coalescence.py kernel_value for

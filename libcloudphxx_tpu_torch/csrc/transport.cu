@@ -1,9 +1,10 @@
 // Kernel C: transport, walls/puddle and the re-binning classification.
 //
 // Replaces the transport phase of the TPU kernel
-// libcloudphxx_tpu/ops/pallas_step.py:_kernel (lines 338-403: vt refresh,
-// implicit/euler advection, sedimentation, subsidence, periodic/open walls,
-// puddle partials) and the classification half of its re-binning epilogue
+// libcloudphxx_tpu/ops/pallas_step.py:_kernel (lines 338-403: vt refresh
+// by any formula of pallas_coal._vt_in_kernel, implicit/euler advection,
+// sedimentation, subsidence, periodic/open walls, puddle partials) and
+// the classification half of its re-binning epilogue
 // (lines 414-487: target cell, far-mover flag).  Plain version: ops/step.py
 // transport_plain.
 //
@@ -16,8 +17,11 @@
 // What bounds it on the card: memory.  It reads n for every slot and rw2,
 // x and z for the live ones (rd3 only for a droplet that falls into the
 // puddle), and writes n, x, z, vt and the target of every slot, with some
-// 100 operations of arithmetic a live droplet (vt_beard77's log, exp and
-// divisions under -fmad=false).
+// 60 operations of arithmetic a live droplet beside its vt (under
+// -fmad=false): vt_beard77's 45 (a log, an exp, divisions), beard76's
+// 20-44 (by the droplet's regime), Khvorostyanov's 49-57 in float64 (four
+// pow).  The vt formula is a template parameter; T is read only for
+// beard76.
 // What the design does about it: a warp a row in the layout of
 // warp_rows.cuh (four consecutive slots a lane, 16-byte loads and stores
 // at capacities that are multiples of 128), no __syncthreads() and no
@@ -55,7 +59,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // cells: rows of n_cell: T p rhod eta C_l C_r C_b C_a, and w_LS after them
 // with do_subs (the courants are read with do_adve)
 // rowinfo: (n_cell, 8): liq_vol dry_vol liq_num prt_num far 0 0 0
-template <bool VEC>
+template <bool VEC, int VT>
 __global__ void __launch_bounds__(kWarpRows * 32)
 transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
                  const float* __restrict__ rd3, const float* __restrict__ x,
@@ -69,9 +73,11 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
   if (r >= n_cell) return;  // the whole warp
   const float i_row = static_cast<float>(r / geo.nz);
   const float k_row = static_cast<float>(r % geo.nz);
-  const float p = __ldg(cells + 1 * n_cell + r);
-  const float rhod = __ldg(cells + 2 * n_cell + r);
-  const float eta = __ldg(cells + 3 * n_cell + r);
+  // the cell's fields, T only for a formula that reads it
+  const Ambient amb{vt_reads_T<VT>() ? __ldg(cells + r) : 0.0f,
+                    __ldg(cells + 1 * n_cell + r),
+                    __ldg(cells + 2 * n_cell + r),
+                    __ldg(cells + 3 * n_cell + r)};
   const bool moves = geo.do_adve || geo.do_sedi || geo.do_subs;
   float C_l = 0.0f, C_r = 0.0f, C_b = 0.0f, C_a = 0.0f;
   if (geo.do_adve) {
@@ -105,7 +111,7 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
           nn[q] = 0.0f;
           continue;
         }
-        vt[q] = vt_beard77(w2[q], p, rhod, eta);
+        vt[q] = vt_formula<VT>(w2[q], amb);
         if (!moves) continue;
         float m = nn[q], xq = xi[q], zq = zi[q];
         if (geo.do_adve && geo.implicit_adve) {
@@ -204,7 +210,7 @@ extern "C" int lcp_transport(const float* n, const float* rw2, const float* rd3,
                              double x0, double x1, double z0, double z1,
                              int implicit_adve, int do_adve, int do_sedi,
                              int do_subs, int open_side, int periodic_topbot,
-                             cudaStream_t stream) {
+                             int vt, cudaStream_t stream) {
   lcp::Geometry geo{nx, nz,
                     static_cast<float>(dx), static_cast<float>(dz),
                     static_cast<float>(dt), static_cast<float>(x0),
@@ -217,13 +223,16 @@ extern "C" int lcp_transport(const float* n, const float* rw2, const float* rd3,
   const bool vec = lcp::vector_ok(
       cap, {n, rw2, x, z, n_out, x_out, z_out, vt_out, tgt_out});
   const dim3 grid(lcp::row_blocks(n_cell)), block(lcp::kWarpRows * 32);
-  if (vec)
-    lcp::transport_kernel<true><<<grid, block, 0, stream>>>(
-        n, rw2, rd3, x, z, cells, n_out, x_out, z_out, vt_out, tgt_out,
-        rowinfo, n_cell, cap, geo);
-  else
-    lcp::transport_kernel<false><<<grid, block, 0, stream>>>(
-        n, rw2, rd3, x, z, cells, n_out, x_out, z_out, vt_out, tgt_out,
-        rowinfo, n_cell, cap, geo);
-  return static_cast<int>(cudaGetLastError());
+  return lcp::with_vt(vt, [&](auto f) {
+    constexpr int VT = decltype(f)::value;
+    if (vec)
+      lcp::transport_kernel<true, VT><<<grid, block, 0, stream>>>(
+          n, rw2, rd3, x, z, cells, n_out, x_out, z_out, vt_out, tgt_out,
+          rowinfo, n_cell, cap, geo);
+    else
+      lcp::transport_kernel<false, VT><<<grid, block, 0, stream>>>(
+          n, rw2, rd3, x, z, cells, n_out, x_out, z_out, vt_out, tgt_out,
+          rowinfo, n_cell, cap, geo);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -22,7 +22,7 @@ from ..common import constants as c
 from ..ops import coal as coal_ops
 from ..ops.step import rebin_x, step_resident
 from . import coalescence as coal_mod
-from .enums import as_t, kernel_t, vt_t
+from .enums import as_t, kernel_t
 from .hskpng import hskpng_mfp, ijk_of_xyz
 from .state import (OUT_COAL_OVERFLOW, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL,
                     OUT_PRTCL_NUM, State, StaticConfig)
@@ -36,7 +36,7 @@ def supported(cfg: StaticConfig):
     NotImplementedError, with the reason, for a configuration it does not
     run.  The port has no XLA dense pipeline, so it covers exactly what
     kernels B-E take: 2-D, warm, percell condensation substepping,
-    implicit or euler advection, the beard77 terminal velocities, and for
+    implicit or euler advection, every terminal velocity formula, and for
     coalescence the formula kernels and the hall family on a population
     that is not const-multi.  The JAX dense front runs the rest of its
     dense configurations on its XLA pipeline; here they go to the flat
@@ -56,9 +56,6 @@ def supported(cfg: StaticConfig):
     if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
         raise NotImplementedError(
             "dense engine: implicit or euler SD advection only")
-    if vt_t(cfg.terminal_velocity) not in (vt_t.beard77, vt_t.beard77fast):
-        raise NotImplementedError(
-            "dense engine: the beard77 terminal velocities only")
     kern = kernel_t(cfg.kernel)
     if cfg.coal_switch and kern != kernel_t.undefined:
         if kern in coal_mod.UNPORTED or (

@@ -31,26 +31,37 @@ def _vt0_table(dtype, device):
     return _VT0[key]
 
 
+def _formula(cfg: StaticConfig, rw, T, p, rhod, eta):
+    """The formulas both vt_of and vt_in_kernel compute alike: beard76,
+    Khvorostyanov's two, and zeros for ``undefined``; None for beard77
+    and beard77fast, where the two differ."""
+    formula = vt_t(cfg.terminal_velocity)
+    if formula == vt_t.beard76:
+        return cv.vt_beard76(rw, T, p, rhod, eta)
+    if formula in (vt_t.khvorostyanov_spherical,
+                   vt_t.khvorostyanov_nonspherical):
+        return cv.vt_khvorostyanov(
+            rw, T, rhod, eta,
+            spherical=formula == vt_t.khvorostyanov_spherical)
+    if formula == vt_t.undefined:
+        return torch.zeros_like(rw)
+    return None
+
+
 def vt_of(cfg: StaticConfig, rw2, T, p, rhod, eta):
     """Population terminal velocity by the selected formula, beard77fast
     through the binned sea-level table (reference hskpng_vterm.ipp:37-100).
     Cell fields broadcast against the (n_cell, cap) planes."""
     rw = torch.sqrt(torch.clamp(rw2, min=1e-300))
-    formula = vt_t(cfg.terminal_velocity)
-    if formula == vt_t.beard76:
-        v = cv.vt_beard76(rw, T, p, rhod, eta)
-    elif formula == vt_t.beard77:
+    v = _formula(cfg, rw, T, p, rhod, eta)
+    if v is None and vt_t(cfg.terminal_velocity) == vt_t.beard77:
         v = cv.vt_beard77_fact(rw, p, rhod, eta) * cv.vt_beard77_v0(rw)
-    elif formula == vt_t.beard77fast:
+    elif v is None:  # beard77fast
         lnr = 0.5 * torch.log(torch.clamp(rw2, min=1e-300))
         pos = (lnr - VT0_LN_R_MIN) / (VT0_LN_R_MAX - VT0_LN_R_MIN)
         idx = torch.clamp((pos * VT0_BINS).to(torch.int64), 0, VT0_BINS - 1)
         vt0 = _vt0_table(rw.dtype, rw.device)[idx]
         v = cv.vt_beard77_fact(rw, p, rhod, eta) * vt0
-    else:
-        raise NotImplementedError(
-            f"vt_of: terminal velocity {formula.name} is not ported "
-            "(ROADMAP.md, Queue 1)")
     return torch.where(rw2 > 0, v, 0.0)
 
 
@@ -62,21 +73,13 @@ def hskpng_vterm_all(cfg: StaticConfig, state):
         cfg, state.rw2, g(state.T), g(state.p), g(state.rhod), g(state.eta)))
 
 
-def require_kernel_vt(cfg: StaticConfig):
-    """Raise unless the step kernels compute this config's terminal
-    velocity (beard77 or beard77fast)."""
-    formula = vt_t(cfg.terminal_velocity)
-    if formula not in (vt_t.beard77, vt_t.beard77fast):
-        raise NotImplementedError(
-            f"step kernels: terminal velocity {formula.name} is not ported "
-            "(ROADMAP.md, Queue 1)")
-
-
 def vt_in_kernel(cfg: StaticConfig, rw2, T, p, rhod, eta):
-    """The terminal velocity the step kernels compute: beard77 and
-    beard77fast both by the direct beard77 polynomial (pallas_coal.py:80-96;
-    csrc/physics.cuh vt_beard77).  Other formulas are not ported."""
-    require_kernel_vt(cfg)
+    """The terminal velocity the step kernels compute (pallas_coal.py:80-96;
+    csrc/physics.cuh vt_formula): beard77 and beard77fast both by the
+    direct beard77 polynomial, the other formulas as vt_of computes them,
+    on the radius of rw2 clamped at 1e-30."""
     rw = torch.sqrt(torch.clamp(rw2, min=1e-30))
-    v = cv.vt_beard77_fact(rw, p, rhod, eta) * cv.vt_beard77_v0(rw)
+    v = _formula(cfg, rw, T, p, rhod, eta)
+    if v is None:
+        v = cv.vt_beard77_fact(rw, p, rhod, eta) * cv.vt_beard77_v0(rw)
     return torch.where(rw2 > 0, v, 0.0)

@@ -157,7 +157,9 @@ class Kinematic2D(nn.Module):
         if rng_seed is not None:
             oi.rng_seed = rng_seed
         oi.kernel = kernel_t.geometric
-        oi.terminal_velocity = terminal_velocity or vt_t.beard77fast
+        oi.terminal_velocity = (terminal_velocity
+                                if terminal_velocity is not None
+                                else vt_t.beard77fast)
         for k, v in (opts_init_kw or {}).items():
             if not hasattr(oi, k):
                 raise ValueError(

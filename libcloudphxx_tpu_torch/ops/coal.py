@@ -35,8 +35,8 @@ from .. import _ext
 from ..common import constants as c
 from ..lgrngn import coalescence as coal_mod
 from ..lgrngn import dense
-from ..lgrngn.enums import kernel_t
-from ..lgrngn.vterm import require_kernel_vt, vt_in_kernel
+from ..lgrngn.enums import kernel_t, vt_t
+from ..lgrngn.vterm import vt_in_kernel
 from . import philox
 
 MAX_CAP = 512        # kernel E: 16 register slots a lane of a warp a row
@@ -151,7 +151,6 @@ def _launch(kernel, cfg, params, sstp_coal, dt, seed, step, planes, cells,
     if cap & (cap - 1) or cap > MAX_CAP:
         raise ValueError(f"{kernel.name}: the row capacity must be a power of "
                          f"two up to {MAX_CAP}, got {cap}")
-    require_kernel_vt(cfg)
     kern = kernel_t(cfg.kernel)
     eff = coal_mod.efficiency(kern, torch.float32, planes[0].device)
     cells = torch.stack(cells)
@@ -171,7 +170,8 @@ def _launch(kernel, cfg, params, sstp_coal, dt, seed, step, planes, cells,
         *(o.data_ptr() for o in outs), ovf.data_ptr(), n_cell, cap,
         int(sstp_coal), dt / sstp_coal, kern.value, coef,
         eff.r_max_um - 1e-6 if eff else 0.0, eff.clamp if eff else 0,
-        int(seed) & philox.MASK, int(step) & philox.MASK, *mode)
+        int(seed) & philox.MASK, int(step) & philox.MASK,
+        vt_t(cfg.terminal_velocity).value, *mode)
     return outs + (ovf,)
 
 

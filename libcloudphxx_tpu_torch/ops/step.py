@@ -28,9 +28,9 @@ from .. import _ext
 from ..common import constants as c
 from ..common import theta_dry
 from ..lgrngn.condensation import _advance_rw2_core, _root_iters
-from ..lgrngn.enums import as_t
+from ..lgrngn.enums import as_t, vt_t
 from ..lgrngn.hskpng import hskpng_Tpr
-from ..lgrngn.vterm import require_kernel_vt, vt_in_kernel
+from ..lgrngn.vterm import vt_in_kernel
 from . import coal as coal_ops
 from .compact import stable_partition_rows
 
@@ -92,7 +92,6 @@ def cond(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
         return cond_plain(cfg, sstp_cond, dt, RH_max, *args)
     n_cell, cap = n.shape
     _ext.check_planes("cond", cap, n, rw2, rd3, kpa)
-    require_kernel_vt(cfg)
     fields = (thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, p0)
     if any(a.shape != (n_cell,) for a in fields):
         raise ValueError(f"cond: cell fields must be ({n_cell},)")
@@ -109,7 +108,8 @@ def cond(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
         cells.data_ptr(), rw2_out.data_ptr(), cells_out.data_ptr(),
         pos.data_ptr(), buf.data_ptr(), order.data_ptr(), n_cell, cap,
         int(sstp_cond), dt / sstp_cond, float(RH_max), int(cfg.th_dry),
-        int(cfg.const_p), int(cfg.RH_formula), _root_iters(n.dtype))
+        int(cfg.const_p), int(cfg.RH_formula), _root_iters(n.dtype),
+        vt_t(cfg.terminal_velocity).value)
     return (rw2_out,) + tuple(cells_out.unbind(0))
 
 
@@ -211,7 +211,6 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
     moves = do_adve or do_sedi or w_cells is not None
     _ext.check_planes("transport", cap, n, rw2, *((rd3, x, z) if moves
                                                    else ()))
-    require_kernel_vt(cfg)
     if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
         raise NotImplementedError(
             f"transport: advection scheme {as_t(cfg.adve_scheme).name} is not "
@@ -239,7 +238,7 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
         cfg.nz, cfg.dx, cfg.dz, float(dt), cfg.x0, cfg.x1, cfg.z0, cfg.z1,
         int(as_t(cfg.adve_scheme) == as_t.implicit), int(do_adve),
         int(do_sedi), int(w_cells is not None), int(cfg.open_side_walls),
-        int(cfg.periodic_topbot_walls))
+        int(cfg.periodic_topbot_walls), vt_t(cfg.terminal_velocity).value)
     return n_out, x_out, z_out, vt_out, tgt, rowinfo
 
 

@@ -16,7 +16,8 @@ draws (ops/philox.py) and the plain versions of kernel E (ops/coal.py).
 (d) the whole loops, coal_resident_plain (stride and sort) and
     coal_standalone_plain, against loops built from the JAX functions that
     are fed the port's shuffle permutations and Bernoulli planes: the same
-    tolerances as (b), x and z exact.
+    tolerances as (b), x and z exact; and each under beard76,
+    Khvorostyanov's two formulas and undefined (the vt refresh).
 (e) the Golovin box gate of tests/test_pallas_coal_golovin.py on the plain
     version at float32, stride and sort: spectrum RMSD < 3.5e-5, third
     moment rel < 5e-5, total multiplicity < 0.6 x initial.
@@ -364,11 +365,10 @@ def test_coal_plain_where_collisions_empty_an_sd(pairing):
     assert bool(got[6].all())                  # every row asked for more
 
 
-def test_coal_standalone_plain_matches_jax_loop():
-    """The loop of the TPU's standalone kernel (pallas_coal.py:122-143),
-    and dense.coal around it: the puddle's overflow flag and the step
-    counter."""
-    cfg, params, planes, cells = _loop_inputs("geometric", 50)
+def _jax_standalone_loop(cfg, planes, cells):
+    """The loop of the TPU's standalone kernel (pallas_coal.py:122-143)
+    built from the JAX functions, fed the port's shuffles and Bernoulli
+    planes: (n, rw2, rd3, kpa, x, z) and the final vt."""
     jp = jnp.zeros((0,))
     T, p, rhod, eta, dv = (jnp.asarray(a)[:, None] for a in cells)
     vt_of = lambda rw2: np.asarray(_vt_in_kernel(cfg, jnp.asarray(rw2), T,
@@ -385,11 +385,20 @@ def test_coal_standalone_plain_matches_jax_loop():
         n, rw2, rd3, kpa, _ = jdense.pair_and_collide(
             cfg, jp, (n, rw2, rd3, kpa, vt), count, dv, rhod, eta, dt_sub,
             port_u01(SEED, STEP, s, n.shape))
+    return (n, rw2, rd3, kpa, x, z), vt_of(rw2)
+
+
+def test_coal_standalone_plain_matches_jax_loop():
+    """The loop of the TPU's standalone kernel (pallas_coal.py:122-143),
+    and dense.coal around it: the puddle's overflow flag and the step
+    counter."""
+    cfg, params, planes, cells = _loop_inputs("geometric", 50)
+    (n, rw2, rd3, kpa, x, z), vt = _jax_standalone_loop(cfg, planes, cells)
     got = tops.coal_standalone(
         port_cfg(cfg), params, SSTP, DT_LOOP, SEED, STEP,
         *(torch.tensor(a) for a in planes + cells))
     _check_loop(got[:4] + got[5:7], (n, rw2, rd3, kpa, x, z))
-    np.testing.assert_allclose(got[4].numpy(), vt_of(rw2), rtol=1e-12)
+    np.testing.assert_allclose(got[4].numpy(), vt, rtol=1e-12)
 
     # dense.coal: the same loop on a DenseState at its step counter
     t = lambda a: torch.tensor(a)
@@ -404,6 +413,39 @@ def test_coal_standalone_plain_matches_jax_loop():
     d = tdense.coal(port_cfg(cfg), state, params, DT_LOOP, SSTP)
     assert torch.equal(d.n, got[0]) and d.rng_step == STEP + 1
     assert float(d.puddle[OUT_COAL_OVERFLOW]) == float(got[7].any())
+
+
+# the formulas the main path does not use (it runs beard77fast, which the
+# kernels compute as beard77, as in the tests above)
+OTHER_VT = [lgrngn.vt_t.beard76, lgrngn.vt_t.khvorostyanov_spherical,
+            lgrngn.vt_t.khvorostyanov_nonspherical, lgrngn.vt_t.undefined]
+
+
+@pytest.mark.parametrize("form", ["stride", "sort", "standalone"])
+@pytest.mark.parametrize("formula", OTHER_VT, ids=lambda f: f.name)
+def test_coal_loops_refresh_vt_by_each_formula(formula, form):
+    """The coalescence substeps' vt refresh under each formula
+    (pallas_step.py:276, :317; pallas_coal.py:125, :144): the plain loops
+    against the loops built from the JAX functions (pair_and_collide_stride
+    and pair_and_collide with _vt_in_kernel), fed the port's draws, with
+    the geometric kernel, whose value is vt's difference; the tolerances
+    of (b).  Under undefined vt is 0 and nothing collides."""
+    cfg, params, planes, cells = _loop_inputs("geometric", 70)
+    cfg = dataclasses.replace(cfg, terminal_velocity=formula.value)
+    run = tops.coal_standalone if form == "standalone" else \
+        lambda *a: tops.coal_resident(*a, pairing=form)
+    got = run(port_cfg(cfg), params, SSTP, DT_LOOP, SEED, STEP,
+              *(torch.tensor(a) for a in planes + cells))
+    if form == "standalone":
+        ref, vt = _jax_standalone_loop(cfg, planes, cells)
+        np.testing.assert_allclose(got[4].numpy(), vt, rtol=1e-12)
+        got = got[:4] + got[5:7]
+    else:
+        ref = jax_coal_loop(cfg, params, SSTP, DT_LOOP, SEED, STEP, planes,
+                            cells, form)
+    _check_loop(got, ref)
+    lost = planes[0].sum() - float(got[0].sum())
+    assert (lost > 0) == (formula != lgrngn.vt_t.undefined)
 
 
 # ------------------------------------------------------------------ (e)

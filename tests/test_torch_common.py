@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import port_cfg, t
+from torch_parity import khvorostyanov_rtol, port_cfg, t
 
 from libcloudphxx_tpu import common as jc
 from libcloudphxx_tpu.lgrngn import hskpng as jhskpng
@@ -91,7 +91,22 @@ CASES = [
      tc.vterm.vt_beard77_fact, "r p rhod eta"),
     ("vterm.vt_beard76", jc.vterm.vt_beard76, tc.vterm.vt_beard76,
      "r T p rhod eta"),
+    ("vterm.vt_khvorostyanov_spherical",
+     lambda *a: jc.vterm.vt_khvorostyanov(*a, spherical=True),
+     lambda *a: tc.vterm.vt_khvorostyanov(*a, spherical=True),
+     "r T rhod eta"),
+    ("vterm.vt_khvorostyanov_nonspherical",
+     lambda *a: jc.vterm.vt_khvorostyanov(*a, spherical=False),
+     lambda *a: tc.vterm.vt_khvorostyanov(*a, spherical=False),
+     "r T rhod eta"),
 ]
+
+
+def _close(got, want, rtol):
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    bad = np.abs(got - want)[ok] > (rtol * np.abs(want))[ok]
+    assert not bad.any(), (np.abs(got - want) / np.abs(want))[ok][bad]
 
 
 @pytest.mark.parametrize("name,jf,tf,args", CASES, ids=[c[0] for c in CASES])
@@ -104,7 +119,9 @@ def test_common_matches_jax(name, jf, tf, args):
     # cbrt/pow: the exp/log forms of the port against JAX's own cbrt/power
     # differ by the ~|log x| ulps of the composition
     rtol = 1e-13 * 64 if name.startswith("fastmath") else 1e-12
-    np.testing.assert_allclose(got, want, rtol=rtol)
+    if name.startswith("vterm.vt_khvorostyanov"):
+        rtol = khvorostyanov_rtol(inp["r"], inp["rhod"], inp["eta"], 1e-12)
+    _close(got, want, np.broadcast_to(rtol, want.shape))
 
 
 def test_rootfind_matches_jax():
@@ -163,10 +180,17 @@ def _vt_cfg(formula):
     return StaticConfig.from_opts_init(oi)
 
 
-@pytest.mark.parametrize("formula", [vt_t.beard76, vt_t.beard77,
-                                     vt_t.beard77fast], ids=lambda f: f.name)
+def _vt_rtol(formula, inp):
+    """rtol 1e-12, with khvorostyanov_rtol for Khvorostyanov's formulas."""
+    if "khvorostyanov" in formula.name:
+        return khvorostyanov_rtol(inp["r"], inp["rhod"], inp["eta"], 1e-12)
+    return np.full(N, 1e-12)
+
+
+@pytest.mark.parametrize("formula", list(vt_t), ids=lambda f: f.name)
 def test_vt_of_matches_jax(formula):
-    """The population vt: beard77fast through the binned sea-level table."""
+    """The population vt under each formula: beard77fast through the
+    binned sea-level table, undefined zeros."""
     cfg = _vt_cfg(formula)
     inp = _inputs()
     rw2 = inp["r"] ** 2
@@ -174,14 +198,14 @@ def test_vt_of_matches_jax(formula):
     args = (rw2, inp["T"], inp["p"], inp["rhod"], inp["eta"])
     want = jvterm.vt_of(cfg, *map(jnp.asarray, args))
     got = tvterm.vt_of(port_cfg(cfg), *map(t, args))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12)
+    _close(got.numpy(), np.asarray(want), _vt_rtol(formula, inp))
+    assert (float(got.abs().max()) > 0) == (formula != vt_t.undefined)
 
 
-@pytest.mark.parametrize("formula", [vt_t.beard77, vt_t.beard77fast],
-                         ids=lambda f: f.name)
+@pytest.mark.parametrize("formula", list(vt_t), ids=lambda f: f.name)
 def test_vt_in_kernel_matches_jax(formula):
-    """The kernels' vt: beard77fast by the direct polynomial, like the TPU
-    kernel (pallas_coal._vt_in_kernel)."""
+    """The kernels' vt under each formula: beard77fast by the direct
+    polynomial, like the TPU kernel (pallas_coal._vt_in_kernel)."""
     cfg = _vt_cfg(formula)
     inp = _inputs()
     rw2 = inp["r"] ** 2
@@ -189,13 +213,103 @@ def test_vt_in_kernel_matches_jax(formula):
     args = (rw2, inp["T"], inp["p"], inp["rhod"], inp["eta"])
     want = pallas_coal._vt_in_kernel(cfg, *map(jnp.asarray, args))
     got = tvterm.vt_in_kernel(port_cfg(cfg), *map(t, args))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12)
+    _close(got.numpy(), np.asarray(want), _vt_rtol(formula, inp))
+    assert bool((got[torch.from_numpy(rw2 == 0.0)] == 0.0).all())
 
 
-def test_vt_in_kernel_refuses_unported_formula():
-    with pytest.raises(NotImplementedError):
-        tvterm.vt_in_kernel(port_cfg(_vt_cfg(vt_t.beard76)),
-                            *(torch.ones(3) for _ in range(5)))
+# float32 vt_in_kernel against pallas_coal._vt_in_kernel, by radius band:
+# the rtol of each band of VT_F32_EDGES [m], the largest difference over
+# five seeds times 2-4.  Beard: against _vt_in_kernel at float32; the two
+# libraries' float32 exp, log and pow differ in their last ulps.  beard77:
+# exp of the sea-level polynomial in log(r), whose value reaches ~7
+# (2.3e-5 between 10 and 100 um, the large-drop polynomial's 8 terms).
+# beard76: powf(eta, 4) and powf(N_p, 1/6) of the large-drop regime
+# (1.8e-5 above 1 mm), a few ulps elsewhere.  Khvorostyanov: the port
+# evaluates it in float64 (common/vterm.py), so against _vt_in_kernel at
+# float64 on the same float32 inputs: the float32 rounding of the result
+# (6e-8) and PyTorch's CPU float64 sqrt (an ulp off for some arguments)
+# over root - 1 (2e-9 at 3 nm); the band test below shows what float32
+# evaluation does to it.
+VT_F32_EDGES = (1e-7, 1e-6, 1e-5, 1e-4, 1e-3, np.inf)
+VT_F32_RTOL = {
+    vt_t.beard76: (2e-6, 2e-6, 2e-6, 2e-6, 1e-5, 5e-5),
+    vt_t.beard77: (1e-5, 1e-5, 1e-5, 5e-5, 2e-5, 2e-6),
+    vt_t.beard77fast: (1e-5, 1e-5, 1e-5, 5e-5, 2e-5, 2e-6),
+    vt_t.khvorostyanov_spherical: (2e-7,) * 6,
+    vt_t.khvorostyanov_nonspherical: (2e-7,) * 6,
+}
+
+
+def _f32_vt_case(formula, seed=11, n=20000):
+    """Seeded float32 (rw2, T, p, rhod, eta) over r 1 nm-5 mm, every ninth
+    slot dead, and the radii."""
+    rng = np.random.default_rng(seed)
+    r = np.exp(rng.uniform(np.log(1e-9), np.log(5e-3), n))
+    T = rng.uniform(250.0, 310.0, n)
+    args = [a.astype(np.float32) for a in (
+        r ** 2, T, rng.uniform(7e4, 1.02e5, n), rng.uniform(0.8, 1.25, n),
+        1.72e-5 * (393.0 / (T + 120.0)) * (T / 273.16) ** 1.5)]
+    args[0][::9] = 0.0
+    return args, r
+
+
+@pytest.mark.parametrize("formula", list(vt_t), ids=lambda f: f.name)
+def test_vt_in_kernel_float32_matches_jax_by_radius_band(formula):
+    cfg = _vt_cfg(formula)
+    args, r = _f32_vt_case(formula)
+    khv = "khvorostyanov" in formula.name
+    ref = [jnp.asarray(a, jnp.float64 if khv else jnp.float32) for a in args]
+    want = np.asarray(pallas_coal._vt_in_kernel(cfg, *ref))
+    got = tvterm.vt_in_kernel(port_cfg(cfg), *map(torch.from_numpy,
+                                                  args)).numpy()
+    assert got.dtype == np.float32
+    assert not np.isnan(got).any() and not np.isnan(want).any()
+    assert (got[args[0] == 0.0] == 0.0).all()
+    if formula == vt_t.undefined:
+        assert not got.any()
+        return
+    lo = 0.0
+    for hi, rtol in zip(VT_F32_EDGES, VT_F32_RTOL[formula]):
+        band = (r >= lo) & (r < hi) & (args[0] > 0)
+        assert band.sum() > 100
+        np.testing.assert_allclose(got[band], want[band], rtol=rtol,
+                                   err_msg=f"r in [{lo:.0e}, {hi:.0e})")
+        lo = hi
+
+
+# float32 evaluation of Khvorostyanov (the JAX package's _vt_in_kernel at
+# float32, as its TPU kernel runs it) against the port's float32 result:
+# (upper radius [m], the least and the largest error the band shows);
+# root - 1 cancels, and under 1.9-2.5 nm it is 0 and b = 0 / 0
+KHV_F32_ERROR_BANDS = ((1e-8, 0.1, np.inf), (3e-8, 0.02, 0.5),
+                       (1e-7, 2e-3, 0.1), (1e-6, 1e-4, 0.02),
+                       (1e-5, 1e-6, 1e-3), (np.inf, 0.0, 2e-5))
+
+
+@pytest.mark.parametrize("formula", [vt_t.khvorostyanov_spherical,
+                                     vt_t.khvorostyanov_nonspherical],
+                         ids=lambda f: f.name)
+def test_khvorostyanov_float32_evaluation_loses_small_radii(formula):
+    """What the port's float64 evaluation avoids: the reference's float32
+    evaluation gives NaN for every live droplet under 1.9 nm and for none
+    over 2.5 nm (where in between depends on rhod and eta), and its error
+    against the port grows as r shrinks."""
+    cfg = _vt_cfg(formula)
+    args, r = _f32_vt_case(formula)
+    ref32 = np.asarray(pallas_coal._vt_in_kernel(cfg, *map(jnp.asarray,
+                                                           args)))
+    got = tvterm.vt_in_kernel(port_cfg(cfg), *map(torch.from_numpy,
+                                                  args)).numpy()
+    live = args[0] > 0
+    nan = np.isnan(ref32)
+    assert nan[live & (r < 1.9e-9)].all() and not nan[r > 2.5e-9].any()
+    assert not np.isnan(got).any()
+    err = np.abs(ref32 - got) / np.where(live, got, 1.0)
+    lo = 0.0
+    for hi, least, most in KHV_F32_ERROR_BANDS:
+        band = live & (r >= lo) & (r < hi) & ~nan
+        assert least <= err[band].max() <= most, (lo, hi, err[band].max())
+        lo = hi
 
 
 def test_Tpr_and_mfp_match_jax():

@@ -17,7 +17,10 @@ droplet, with the dead lanes after the droplets or among them.  Kernel E
 forms (stride and sort pairing, standalone) with the golovin, geometric,
 long and hall kernels, on rows that are full, half empty, all dead or hold
 one droplet, and on rows where collisions leave SDs at n == 0 between
-shuffles, bitwise equal to its plain version lane by lane.  Kernel F (the
+shuffles, bitwise equal to its plain version lane by lane.  Kernels B, C
+and E also run under the terminal velocity formulas the main path does
+not use (beard76, Khvorostyanov's two, undefined; C's vt also on radii of
+1 nm to 5 mm), against their plain versions.  Kernel F (the
 flat engine's condensation substep loop) runs on cell-sorted segments with
 an empty cell, a cell of 700 droplets and a cell 0 holding 5,000 dead
 slots, under the th_dry, th_std and const_p closures and with rhod
@@ -646,12 +649,112 @@ def test_coal_wrappers_refuse_what_the_kernel_does_not_take(coal_model):
     for kern in (kernel_t.onishi_hall, kernel_t.vohl_davis_no_waals):
         with pytest.raises(NotImplementedError, match=kern.name):
             call(_coal_cfg(model, kern), planes, fn=coal.coal_standalone)
-    with pytest.raises(NotImplementedError, match="beard76"):
-        call(dataclasses.replace(cfg, terminal_velocity=vt_t.beard76.value),
-             planes)
     with pytest.raises(ValueError, match="pairing"):
         coal.coal_resident(cfg, (), 2, 1.0, 44, 0, *planes, *cells,
                            pairing="xor")
+
+
+# ------------------------------------------- the formulas off the main path
+# (the main path runs beard77fast, which the kernels compute as beard77)
+OTHER_VT = [vt_t.beard76, vt_t.khvorostyanov_spherical,
+            vt_t.khvorostyanov_nonspherical, vt_t.undefined]
+
+
+def _with_vt(cfg, formula):
+    return dataclasses.replace(cfg, terminal_velocity=formula.value)
+
+
+@pytest.mark.parametrize("formula", OTHER_VT, ids=lambda f: f.name)
+def test_vt_kernel_matches_plain_at_every_radius(dev, formula):
+    """Kernel C's vt-only form on radii of 1 nm to 5 mm (every regime of
+    beard76, Khvorostyanov's float64 evaluation where float32 cancels)
+    and dead slots, in four cells of different T, p, rhod and eta: bitwise
+    equal to vt_in_kernel, finite, positive where alive."""
+    cfg, planes, cells = transport_case(8, 6, 128, device=dev,
+                                        dtype=torch.float32)
+    n, rw2 = planes[0], planes[1]
+    rng = np.random.default_rng(5)
+    rw = np.exp(rng.uniform(np.log(1e-9), np.log(5e-3), tuple(rw2.shape)))
+    rw2 = torch.as_tensor(rw ** 2, dtype=torch.float32, device=dev)
+    args = (_with_vt(cfg, formula), 1.0, False, n, rw2, planes[2],
+            planes[4], planes[5]) + tuple(cells)
+    kc = _launches(_ext.TRANSPORT,
+                   lambda: step.transport(*args, do_adve=False))
+    pc = step.transport(*args, do_adve=False, plain=True)
+    assert torch.equal(kc[3], pc[3])
+    assert bool(torch.isfinite(kc[3]).all())
+    live = n > 0
+    if formula == vt_t.undefined:
+        assert not bool(kc[3].any())
+    else:
+        assert bool((kc[3][live] > 0).all())
+    assert not bool(kc[3][~live].any())
+
+
+@pytest.mark.parametrize("RH_max", [1.01, 44.0], ids=["spinup", "main"])
+@pytest.mark.parametrize("formula", OTHER_VT, ids=lambda f: f.name)
+def test_cond_kernel_under_formula_matches_plain(model, formula, RH_max):
+    """Kernel B with the stale vt rebuilt by each formula: the gates of
+    test_cond_kernel_matches_plain."""
+    args = list(_cond_args(model, RH_max))
+    args[0] = _with_vt(args[0], formula)
+    k = _launches(_ext.COND, lambda: step.cond(*args))
+    p = step.cond(*args, plain=True)
+    alive = model.dense_state.n > 0
+    assert _rel(k[1], p[1]) <= 2e-6
+    assert _rel(k[2], p[2]) <= 2e-5
+    assert _rel(k[0][alive], p[0][alive]) <= 1e-5
+    assert torch.equal(k[0][~alive], p[0][~alive])
+    assert bool(torch.isfinite(k[0]).all())
+
+
+@pytest.mark.parametrize("form", ["full", "subsidence", "vt_only"])
+@pytest.mark.parametrize("formula", OTHER_VT, ids=lambda f: f.name)
+def test_transport_kernel_under_formula_matches_plain(dev, formula, form):
+    """Kernel C under each formula, with the walls, the puddle and far
+    movers of transport_case, and in its subsidence and vt-only forms:
+    bitwise equal to transport_plain in every slot, far flags exact, the
+    puddle partials rel 1e-5; kernel D after the full form, lane by
+    lane."""
+    cfg, planes, cells = transport_case(8, 6, 128, device=dev,
+                                        dtype=torch.float32)
+    cfg = _with_vt(cfg, formula)
+    if form == "full":
+        _check_transport_merge(cfg, *planes, cells)
+        return
+    n, rw2, rd3, kpa, x, z = planes
+    w = torch.linspace(30.0, -5.0, cfg.nz, device=dev)[
+        torch.arange(cfg.n_cell, device=dev) % cfg.nz]
+    f = dict(do_adve=True, w_cells=w) if form == "subsidence" else \
+        dict(do_adve=False)
+    args = (cfg, 1.0, form == "subsidence", n, rw2, rd3, x, z) + tuple(cells)
+    kc = _launches(_ext.TRANSPORT, lambda: step.transport(*args, **f))
+    pc = step.transport(*args, **f, plain=True)
+    for a, b in zip(kc[:5], pc[:5]):
+        assert (a is None and b is None) or torch.equal(a, b)
+    if form == "subsidence":
+        assert torch.equal(kc[5][:, 4], pc[5][:, 4])
+        assert torch.allclose(kc[5][:, :4], pc[5][:, :4], rtol=1e-5,
+                              atol=0.0)
+
+
+@pytest.mark.parametrize("form", ["stride", "sort", "standalone"])
+@pytest.mark.parametrize("cap", [32, 128, 512])
+@pytest.mark.parametrize("formula", OTHER_VT, ids=lambda f: f.name)
+def test_coal_kernel_under_formula_matches_plain(coal_model, formula, cap,
+                                                 form):
+    """Kernel E under each formula (vt at load, after each collision, and
+    the standalone form's output), geometric kernel: bitwise equal to its
+    plain version lane by lane, the overflow flags exact; collisions
+    happen but under undefined, where every vt is 0."""
+    model = coal_model
+    cfg = _with_vt(_coal_cfg(model, kernel_t.geometric), formula)
+    planes, cells = _coal_rows(model.device, cap, rows=max(48, 1024 // cap))
+    args = (cfg, (2.0,), 10, 100.0, 44, 3) + planes + cells
+    k, p, _ = _coal_run(form, args)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    lost = float(planes[0].double().sum() - p[0].double().sum())
+    assert (lost > 0) == (formula != vt_t.undefined)
 
 
 def test_coal_slice_kernels_match_plain(dev):

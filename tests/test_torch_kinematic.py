@@ -21,7 +21,9 @@ Two references:
   rebuilt from the saved cell state before each condensation): th/rv rtol
   1e-10, moments 0 and 3 rtol 1e-9, puddle rtol 1e-9.
 
-Per-cell SD counts are exact against both.
+Per-cell SD counts are exact against both.  Under beard76 and
+Khvorostyanov's two formulas the same run is held against the second
+reference at its tolerances.
 
 With coalescence (sstp_coal 3, stride and sort pairing) the reference is
 the second one with the coalescence phase inserted between condensation and
@@ -190,6 +192,34 @@ def _bench_checks(m, water0, dry0):
 def test_slice_passes_bench_physics_checks(port):
     m, _, (water0, dry0) = port
     _bench_checks(m, water0, dry0)
+
+
+# ---- the slice under the formulas the main path does not use: the same
+# run, against the XLA loop with the kernel's vt convention, tolerances as
+# test_slice_matches_jax_with_kernel_vt
+@pytest.fixture(scope="module", params=[
+    vt_t.beard76, vt_t.khvorostyanov_spherical,
+    vt_t.khvorostyanov_nonspherical], ids=lambda f: f.name)
+def formula_runs(request):
+    formula = request.param
+    m = Kinematic2D(terminal_velocity=formula, device="cpu",
+                    dtype=torch.float64, **KW)
+    assert m.cfg.terminal_velocity == formula.value
+    water0 = tdense.water_dry_totals(m.dense_state, m.rv)
+    m.run_device_lgrngn(NT, spinup=SPINUP, engine="dense")
+    jm = JaxKinematic2D(micro="lgrngn",
+                        terminal_velocity=lgrngn.vt_t[formula.name], **KW)
+    d0 = jax.jit(jdense.pack, static_argnums=(0, 2))(jm.prtcls.cfg,
+                                                      jm.prtcls.state, 48)
+    return m, water0, _xla_loop(jm, d0)
+
+
+def test_slice_under_formula_matches_jax_with_kernel_vt(formula_runs):
+    m, (water0, dry0), ref = formula_runs
+    _compare(m, *ref, rtol_th=1e-10, rtol_rv=1e-10, rtol_m3=1e-9)
+    _bench_checks(m, water0, dry0)
+    d = m.dense_state
+    assert float(d.vt[d.n > 0].min()) > 0
 
 
 # ---- the slice with coalescence: sstp_coal 3 and the geometric kernel

@@ -98,6 +98,20 @@ def jax_coal_loop(cfg, params, sstp, dt, seed, step, planes, cells,
     return tuple(np.asarray(a) for a in (n, rw2, rd3, kpa, x, z))
 
 
+def khvorostyanov_rtol(rw, rhod, eta, floor):
+    """The float64 rtol of a Khvorostyanov vt of radius ``rw`` in a cell of
+    ``rhod`` and ``eta``: ``floor``, or 8 ulps of root = sqrt(1 + 0.0902
+    sqrt(X)) over root - 1 where the formula's cancellation amplifies
+    more.  PyTorch's CPU float64 sqrt rounds some arguments an ulp away
+    from the correctly rounded root that JAX's gives (1.0003293317117516
+    against ...519 for 1.0006587718828799); root - 1 is 3e-4 at 0.5 um
+    (1.35e-12 measured) and 1e-6 at 20 nm (6e-9)."""
+    X = (32.0 / 3) * (1e3 - rhod) / rhod * 9.81 * rw**3 / eta**2 * rhod**2
+    root = np.sqrt(1.0 + 0.0902 * np.sqrt(X))
+    with np.errstate(divide="ignore"):
+        return np.maximum(floor, 8 * np.finfo(np.float64).eps / (root - 1.0))
+
+
 def multiset(n, planes):
     """Alive SDs of an (n_cell, cap) layout as sorted rows
     (cell, n, *planes): the per-cell multiset, whatever the lane order.
