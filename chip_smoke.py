@@ -75,6 +75,22 @@ exact per-particle condensation kernels A and G), and checks them:
      under khvorostyanov_nonspherical the dense front bitwise equal to
      run_device_lgrngn(engine="dense") and 5 steps of the flat engine
      through the public API with the physics checks
+ 14. the dense x-slab mesh (libcloudphxx_tpu_torch/parallel) over 8 shards
+     of 10,10,10,10,9,9,9,9 columns and over 1 shard, all on this card:
+     kernel C's unwrapped form (the TPU kernel's x_wrap=False) bitwise
+     equal to its plain version on every shard's rows in a spin-up and a
+     coalescing step; coalescence off, 10 steps of the mesh against the
+     serial dense engine (per cell: cell, n, rd3, kappa and x exact; z,
+     rw2 and vt rel 1e-5, th 2e-6, rv 2e-5, kernel B's gates); coalescence
+     on, the first step after the spin-up the same against the serial step
+     (and from that state with radii x10, where droplets collide: there
+     each shard's B, E (keyed by its global rows) and D against their plain
+     versions, E and D bitwise, B within its gates), then
+     spin-up and coalescing steps from init through kernels A, B, C's
+     unwrapped form, D and E with bench.py's physics checks, no overflow
+     and SDs that crossed slab edges; best-of-3 timing of 50 coalescing
+     steps from init at 8 and 1 shards beside the serial engine, and C's
+     unwrapped form per launch beside its bound
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
@@ -176,6 +192,12 @@ SUSTAINED_NT, SUSTAINED_SPINUP, SUSTAINED_TAIL = 3600, 2400, 1000
 REPACK_EVERY, REPACK_MARGIN = 50, 1.25
 FORCED_SD_CONC, FORCED_EVERY, FORCED_CHUNKS = 118, 10, 3
 PROFILE_STEPS = 5
+# phase 14: the dense x-slab mesh on this card, its slabs (uneven, as
+# slab_widths makes them) and the steps of its comparison with the serial
+# engine without coalescence
+MESH_SHARDS = 8
+MESH_WIDTHS = [10, 10, 10, 10, 9, 9, 9, 9]
+MESH_STEPS = 10
 
 # the terminal velocity formulas off the main path (formulas()): the
 # steps of their kernel path against their plain path (2 spin-up), and of
@@ -542,21 +564,37 @@ def flat_physics_checks(model, water0, dry0, c):
 def capture(module, name, step, which=-1):
     """The arguments, by name, that the wrapper ``module.name`` takes on a
     main path: ``step()`` runs a step with the wrapper wrapped to record
-    its calls; the call ``which`` (the last by default)."""
+    its calls; the call ``which`` (the last by default; None: all of
+    them, in order)."""
+    calls = capture_all({name: (module, name)}, step)[name]
+    return calls if which is None else calls[which]
+
+
+def capture_all(targets, step):
+    """capture() of several wrappers in one run of ``step()``: ``targets``
+    is {key: (module, name)}; returns {key: all its calls, in order}."""
     import inspect
-    real, seen = getattr(module, name), []
+    real = {key: getattr(mod, name) for key, (mod, name) in targets.items()}
+    seen = {key: [] for key in targets}
 
-    def spy(*args, **kw):
-        seen.append(inspect.signature(real).bind(*args, **kw).arguments)
-        return real(*args, **kw)
+    def spy(key):
+        def call(*args, **kw):
+            seen[key].append(
+                inspect.signature(real[key]).bind(*args, **kw).arguments)
+            return real[key](*args, **kw)
+        return call
 
-    setattr(module, name, spy)
+    for key, (mod, name) in targets.items():
+        setattr(mod, name, spy(key))
     try:
         step()
     finally:
-        setattr(module, name, real)
-    check(len(seen) > 0, f"a step did not call {name}")
-    return {k: v for k, v in seen[which].items() if k != "plain"}
+        for key, (mod, name) in targets.items():
+            setattr(mod, name, real[key])
+    for key, (_, name) in targets.items():
+        check(len(seen[key]) > 0, f"a step did not call {name}")
+    return {key: [{k: v for k, v in c.items() if k != "plain"} for c in calls]
+            for key, calls in seen.items()}
 
 
 def with_dead_cell0(kw, n_dead):
@@ -1044,7 +1082,7 @@ def smoke(opts):
           f"{front}", flush=True)
     check(front == dict(mpdata=2 * steps, cond=steps, transport=steps,
                         merge=steps, coal=SLICE_MAIN, coal_standalone=0,
-                        cond_flat=0, cond_sd=0),
+                        cond_flat=0, cond_sd=0, transport_unwrapped=0),
           f"dense front: kernel A twice, B, C and D once a step and E once "
           f"a main step expected, got {front}")
     # bitwise against run_device_lgrngn(engine="dense") from the same state
@@ -1182,6 +1220,8 @@ def smoke(opts):
     bounds["cond_sd"] = cond_sd_bound(exact["g_kw"])
     rows = []
     for k in _ext.KERNELS:
+        if k is _ext.TRANSPORT_UNWRAPPED:     # phase 14's
+            continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
         bound_ms, bound_by = bounds[k.name]
@@ -1228,6 +1268,17 @@ def smoke(opts):
         + f"; the flat public API (beard77fast) {flat_ms:.3f} ({card})",
         flush=True)
 
+    # ---- 14. the dense x-slab mesh
+    row, shard_err = mesh_phase(Kinematic2D, dense, _ext, step, card,
+                                (model, (d0, th0, rv0)),
+                                (model_c, (dc0, thc0, rvc0), c_sp),
+                                (water0, dry0))
+    for kr in rows:                 # B, E and D on the shards' rows too
+        kr["max_abs_err"] = max(kr["max_abs_err"],
+                                shard_err.get(kr["name"], 0.0))
+    rows.append(row)
+    model_c.dense_state, model_c.th, model_c.rv = dc0, thc0, rvc0
+
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
         profile_both(model_c, (dc0, thc0, rvc0), model_f,
@@ -1241,6 +1292,235 @@ def smoke(opts):
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def mesh_population_check(label, d_m, th_m, rv_m, d_s, th_s, rv_s):
+    """The mesh's population against the serial engine's, per cell: cell,
+    n, rd3, kappa and x exact; z, rw2 and vt within kernel B's rw2 gate
+    (rel 1e-5), th and rv within its gates (2e-6, 2e-5)."""
+    cols = lambda d: multiset(d.n, (d.rd3, d.kpa, d.x, d.z, d.rw2, d.vt))
+    a, b = cols(d_m), cols(d_s)
+    check(a.shape == b.shape, f"mesh {label}: {a.shape[0]} SDs, serial "
+          f"{b.shape[0]}")
+    exact = np.array_equal(a[:, :5], b[:, :5])
+    rel = float(np.max(np.abs(a[:, 5:] - b[:, 5:])
+                       / np.maximum(np.abs(b[:, 5:]), 1e-300)))
+    same = float(np.all(a == b, axis=1).mean())
+    rel_th, rel_rv = max_rel(th_m, th_s), max_rel(rv_m, rv_s)
+    print(f"mesh {label}: {a.shape[0]} SDs; cell/n/rd3/kappa/x equal "
+          f"{exact}; z/rw2/vt rel {rel:.2e}; SDs bitwise equal in every plane "
+          f"{same:.6f}; th rel {rel_th:.2e}, rv rel {rel_rv:.2e}", flush=True)
+    check(exact, f"mesh {label}: cell, n, rd3, kappa or x differ from the "
+          f"serial engine's")
+    check(rel <= 1e-5 and rel_th <= 2e-6 and rel_rv <= 2e-5,
+          f"mesh {label}: beyond kernel B's gates")
+    check(int(d_m.overflow) == 0, f"mesh {label}: {int(d_m.overflow)} SDs "
+          f"dropped")
+
+
+def shard_kernels(step, coal, calls, label):
+    """B, E and D on each shard's rows, as a mesh step called them
+    (``calls``: capture_all's {"cond", "coal", "merge"}), against their
+    plain versions: E and D bitwise, B within its gates (th 2e-6, rv 2e-5,
+    rw2 1e-5 on live lanes).  Returns {kernel name: max abs error}."""
+    err = {"cond": 0.0, "coal": 0.0, "merge": 0.0}
+    rel = [0.0, 0.0, 0.0]
+    for kw in calls["cond"]:
+        k, pl = step.cond(**kw), step.cond(**kw, plain=True)
+        live = kw["n"] > 0
+        rel = [max(rel[0], max_rel(k[1], pl[1])),
+               max(rel[1], max_rel(k[2], pl[2])),
+               max(rel[2], max_rel(k[0][live], pl[0][live]))]
+        err["cond"] = max(err["cond"], max_abs(k[0][live], pl[0][live]),
+                          max_abs(k[1], pl[1]), max_abs(k[2], pl[2]))
+    same = {"coal": True, "merge": True}
+    for name, fn in (("coal", coal.coal_resident), ("merge", step.rebin_x)):
+        for kw in calls[name]:
+            k, pl = fn(**kw), fn(**kw, plain=True)
+            same[name] = same[name] and all(torch.equal(a, b)
+                                            for a, b in zip(k, pl))
+            err[name] = max(err[name], *(max_abs(a, b) for a, b in zip(k, pl)))
+    rows0 = [int(kw["row0"]) for kw in calls["coal"]]
+    print(f"B/E/D on the shards' rows, {label}: {len(calls['cond'])}/"
+          f"{len(calls['coal'])}/{len(calls['merge'])} calls, E's first rows "
+          f"{rows0}; B th rel {rel[0]:.2e}, rv rel {rel[1]:.2e}, rw2 rel "
+          f"{rel[2]:.2e}; E bitwise {same['coal']}, D bitwise "
+          f"{same['merge']}", flush=True)
+    check(rel[0] <= 2e-6 and rel[1] <= 2e-5 and rel[2] <= 1e-5,
+          f"mesh {label}: kernel B differs from its plain version on a shard")
+    check(same["coal"] and same["merge"], f"mesh {label}: kernel E or D "
+          f"differs from its plain version on a shard")
+    return err
+
+
+def mesh_phase(Kinematic2D, dense, _ext, step, card, off, on, totals):
+    """Phase 14: the dense x-slab mesh at full width, over MESH_SHARDS
+    shards on this card and over 1.  ``off`` is (the coalescence-off
+    model, its initial state), ``on`` (the coalescing model, its initial
+    state, its state after the spin-up), ``totals`` the initial water and
+    dry mass.  Returns (the JSON row of kernel C's unwrapped form, the max
+    abs errors of B, E and D against their plain versions on the shards'
+    rows)."""
+    from types import SimpleNamespace
+
+    from libcloudphxx_tpu_torch.ops import coal
+    from libcloudphxx_tpu_torch.parallel import MeshRunner, slab_widths
+    (m_off, init_off), (m_on, init_on, c_sp) = off, on
+    check(slab_widths(NX, MESH_SHARDS) == MESH_WIDTHS,
+          f"slabs {slab_widths(NX, MESH_SHARDS)}")
+    err, launches_main, kc_args = 0.0, None, None
+    shard_err = {"cond": 0.0, "coal": 0.0, "merge": 0.0}
+    for n_shards in (MESH_SHARDS, 1):
+        label = f"{n_shards} shard{'s' * (n_shards > 1)}"
+        # C's unwrapped form against its plain version on every shard's
+        # rows, in a spin-up step from init and a coalescing step after
+        # the spin-up
+        r = MeshRunner(m_on, n_shards)
+        calls = []
+        for st, spinup in ((init_on, True), (c_sp, False)):
+            r.load(*st)
+            calls += capture(step, "transport", lambda: r.step(spinup),
+                             which=None)
+        check(len(calls) == 2 * n_shards and all(
+            c["slab"] is not None for c in calls), f"mesh {label}: "
+            f"{len(calls)} transport calls")
+        same, moved = True, 0
+        for kw in calls:
+            kc, pc = step.transport(**kw), step.transport(**kw, plain=True)
+            same = same and all(torch.equal(a, b) for a, b in
+                                zip(kc[:5], pc[:5])) \
+                and torch.equal(kc[5][:, 4], pc[5][:, 4])
+            err = max(err, *(max_abs(a, b) for a, b in zip(kc[:4], pc[:4])))
+            moved += int(((kc[0] > 0) & (kc[4] < 0)).sum())
+        print(f"C unwrapped, {label}: {len(calls)} calls (a spin-up and a "
+              f"coalescing step), n/x/z/vt/targets and far flags bitwise "
+              f"equal {same}; {moved} droplets left their shard", flush=True)
+        check(same, f"mesh {label}: kernel C's unwrapped form differs from "
+              f"its plain version")
+        check(n_shards == 1 or moved > 0, f"mesh {label}: nobody left a "
+              f"shard")
+        if n_shards == MESH_SHARDS:
+            kc_args = calls[n_shards]     # shard 0 in the coalescing step
+
+        # coalescence off: MESH_STEPS steps against the serial engine
+        r_off = MeshRunner(m_off, n_shards)
+        r_off.load(*init_off)
+        r_off.run(MESH_STEPS)
+        d_m, th_m, rv_m = r_off.state(), m_off.th, m_off.rv
+        m_off.dense_state, m_off.th, m_off.rv = init_off
+        m_off.run_device_lgrngn(MESH_STEPS, engine="dense")
+        mesh_population_check(
+            f"{label}, coalescence off, {MESH_STEPS} steps", d_m, th_m, rv_m,
+            m_off.dense_state, m_off.th, m_off.rv)
+        check(int(r_off.crossed) > 0, f"mesh {label}: no SD crossed")
+        m_off.dense_state, m_off.th, m_off.rv = init_off
+
+        # coalescence on: the first step after the spin-up, the same; and
+        # from the same state with radii x10 (drizzle), where droplets
+        # certainly collide: there B, E and D on each shard's rows against
+        # their plain versions
+        drizzle = (dataclasses.replace(c_sp[0], rw2=c_sp[0].rw2 * 100.0),) \
+            + tuple(c_sp[1:])
+        for what, st in (("after the spin-up", c_sp),
+                         ("after the spin-up, radii x10", drizzle)):
+            r.load(*st)
+            if st is drizzle:
+                calls = capture_all({"cond": (step, "cond"),
+                                     "coal": (coal, "coal_resident"),
+                                     "merge": (dense, "rebin_x")}, r.step)
+                check(all(len(v) == n_shards for v in calls.values()),
+                      f"mesh {label}: B/E/D calls "
+                      f"{ {k: len(v) for k, v in calls.items()} }")
+                for k, e in shard_kernels(step, coal, calls, label).items():
+                    shard_err[k] = max(shard_err[k], e)
+            else:
+                r.step()
+            d_m, th_m, rv_m = r.state(), m_on.th, m_on.rv
+            m_on.dense_state, m_on.th, m_on.rv = st
+            m_on.run_device_lgrngn(1, engine="dense")
+            lost = collided(st[0], m_on.dense_state)
+            print(f"mesh {label}, coalescence on, the first step {what}: "
+                  f"multiplicity lost to collisions {lost:.3e} (serial)")
+            mesh_population_check(
+                f"{label}, coalescence on, the first step {what}", d_m,
+                th_m, rv_m, m_on.dense_state, m_on.th, m_on.rv)
+        check(lost > 0, f"mesh {label}: no collision in the serial drizzle "
+              f"step")
+
+        # the main path: spin-up and coalescing steps from init
+        r.load(*init_on)
+        reset(_ext.KERNELS)
+        r.run(SLICE_SPINUP, spinup=SLICE_SPINUP)
+        d_sp = r.state()
+        r.run(SLICE_MAIN)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in _ext.KERNELS}
+        d_end = r.state()
+        m_on.dense_state = d_end
+        dw, dd = physics_checks(m_on, *totals, dense)
+        lost = collided(d_sp, d_end)
+        print(f"mesh {label}, coalescence on: {SLICE_SPINUP} spin-up + "
+              f"{SLICE_MAIN} main steps; water rel err {dw:.2e}, dry rel err "
+              f"{dd:.2e}, SDs {int((d_end.n > 0).sum())}, overflow "
+              f"{int(d_end.overflow)}, crossed slab edges {int(r.crossed)}, "
+              f"global re-bins {d_end.rebins}, multiplicity lost to "
+              f"collisions {lost:.3e}; launches {launches}", flush=True)
+        steps = SLICE_SPINUP + SLICE_MAIN
+        want = dict(mpdata=steps, cond=n_shards * steps,
+                    transport_unwrapped=n_shards * steps,
+                    merge=n_shards * steps, coal=n_shards * SLICE_MAIN,
+                    transport=0)
+        check({k: launches[k] for k in want} == want,
+              f"mesh {label}: launches {launches}, expected {want}")
+        check(int(r.crossed) > 0 and lost > 0,
+              f"mesh {label}: no SD crossed a slab edge or no collision")
+        if n_shards == MESH_SHARDS:
+            launches_main = launches
+
+    # timing: best of TIME_REPS from-init reps of TIME_STEPS coalescing
+    # steps, the mesh at MESH_SHARDS and 1 shards and the serial engine
+    ms = {}
+    for n_shards in (MESH_SHARDS, 1):
+        r = MeshRunner(m_on, n_shards)
+        r.load(*init_on)
+        r.run(2)                                              # warm-up
+        best = float("inf")
+        for _ in range(TIME_REPS):
+            r.load(*init_on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.run(TIME_STEPS)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+            m_on.dense_state = r.state()
+            physics_checks(m_on, *totals, dense)
+        ms[n_shards] = best / TIME_STEPS * 1e3
+    t_s, _ = time_reps(m_on, init_on, TIME_STEPS, False, totals, dense)
+    ms["serial"] = t_s / TIME_STEPS * 1e3
+    print(f"timing mesh, coalescence on, from init ({TIME_STEPS} steps, best "
+          f"of {TIME_REPS}): {MESH_SHARDS} shards {ms[MESH_SHARDS]:.3f} "
+          f"ms/step, 1 shard {ms[1]:.3f} ms/step, the serial dense engine "
+          f"{ms['serial']:.3f} ms/step ({card})", flush=True)
+
+    # C's unwrapped form per launch on shard 0's rows in a coalescing step
+    k_ms = time_cuda(lambda: step.transport(**kc_args), KERNEL_REPS)
+    p_ms = time_cuda(lambda: step.transport(**kc_args, plain=True),
+                     KERNEL_REPS)
+    kc = step.transport(**kc_args)
+    shard = SimpleNamespace(n=kc_args["n"], rw2=kc_args["rw2"],
+                            rhod=kc_args["rhod"])
+    cfg = kc_args["cfg"]
+    bound_ms, bound_by = transport_bound(cfg, shard, kc)
+    print(f"kernel transport_unwrapped: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), on {kc_args['n'].shape[0]} "
+          f"rows x {kc_args['n'].shape[1]} ({card})", flush=True)
+    k = _ext.TRANSPORT_UNWRAPPED
+    return {"name": k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces,
+            "launches": launches_main["transport_unwrapped"],
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}, shard_err
 
 
 def khv_float32_nan(rw2, rhod, eta):

@@ -86,16 +86,25 @@ TRANSPORT = Kernel(
     "libcloudphxx_tpu_torch/csrc/transport.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, transport and "
     "re-bin classification :338-487)")
+# kernel C's unwrapped form on a shard of the x-slab mesh: TRANSPORT's
+# arguments, then the shard's first column and its width
+TRANSPORT_UNWRAPPED = Kernel(
+    "transport_unwrapped", "lcp_transport_unwrapped",
+    TRANSPORT.argtypes[:-1] + [_I, _I],
+    "libcloudphxx_tpu_torch/csrc/transport.cu",
+    "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel with x_wrap=False, "
+    ":378-382; lgrngn/dense.py:1373 _shard_phase)")
 MERGE = Kernel(
     "merge", "lcp_merge", [_P] * 16 + [_I, _I, _I, _I],
     "libcloudphxx_tpu_torch/csrc/merge.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:716 (_xmerge_kernel) and :405 "
     "(_kernel z-merge epilogue)")
 # planes in (6), cells, table; the outputs; the flags, n_cell, cap, sstp;
-# dt_sub, kernel, coef, r_max - 1e-6, clamp, seed, step, vt formula
+# dt_sub, kernel, coef, r_max - 1e-6, clamp, seed, step, vt formula; the
+# resident form also the pairing and the global index of the first row
 _COAL_TAIL = [_P, _I, _I, _I, _D, _I, _D, _D, _I, _U, _U, _I]
 COAL = Kernel(
-    "coal", "lcp_coal", [_P] * 8 + [_P] * 6 + _COAL_TAIL + [_I],
+    "coal", "lcp_coal", [_P] * 8 + [_P] * 6 + _COAL_TAIL + [_I, _U],
     "libcloudphxx_tpu_torch/csrc/coal.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, coal phase :233-336)")
 COAL_STANDALONE = Kernel(
@@ -120,7 +129,7 @@ COND_SD = Kernel(
     ":46, call :78), per-droplet ambient callers (lgrngn/condensation.py "
     ":468 cond_perparticle, :684 perparticle_adaptive_core)")
 KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
-           COND_FLAT, COND_SD)
+           COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED)
 
 _lib = None
 

@@ -16,13 +16,13 @@ lcp::CoalArgs coal_args(const float* n, const float* rw2, const float* rd3,
                         unsigned char* ovf, int n_cell, int cap, int sstp,
                         double dt_sub, int kern, double coef,
                         double r_max_m1, int clamp, unsigned seed,
-                        unsigned step) {
+                        unsigned step, unsigned row0) {
   return lcp::CoalArgs{
       n, rw2, rd3, kpa, x, z, cells, n_out, rw2_out, rd3_out, kpa_out,
       x_out, z_out, vt_out, ovf, n_cell, cap, sstp, dt_sub,
       lcp::CollisionKernel{kern, static_cast<float>(coef), eff,
                            static_cast<float>(r_max_m1), clamp},
-      seed, step};
+      seed, step, row0};
 }
 
 int coal_formula(int vt, int mode, const lcp::CoalArgs& a,
@@ -35,7 +35,7 @@ int coal_formula(int vt, int mode, const lcp::CoalArgs& a,
 }  // namespace
 
 // The resident step's form: stride (sort = 0) or sort (sort = 1) pairing;
-// ``vt`` the formula (vt_t).
+// ``vt`` the formula (vt_t); row r draws as row row0 + r.
 extern "C" int lcp_coal(const float* n, const float* rw2, const float* rd3,
                         const float* kpa, const float* x, const float* z,
                         const float* cells, const float* eff, float* n_out,
@@ -44,12 +44,12 @@ extern "C" int lcp_coal(const float* n, const float* rw2, const float* rd3,
                         int n_cell, int cap, int sstp, double dt_sub,
                         int kern, double coef, double r_max_m1, int clamp,
                         unsigned seed, unsigned step, int vt, int sort,
-                        cudaStream_t stream) {
+                        unsigned row0, cudaStream_t stream) {
   return coal_formula(
       vt, sort ? lcp::kSort : lcp::kStride,
       coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out, rd3_out,
                 kpa_out, x_out, z_out, nullptr, ovf, n_cell, cap, sstp,
-                dt_sub, kern, coef, r_max_m1, clamp, seed, step),
+                dt_sub, kern, coef, r_max_m1, clamp, seed, step, row0),
       stream);
 }
 
@@ -65,6 +65,6 @@ extern "C" int lcp_coal_standalone(
       vt, lcp::kStandalone,
       coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out, rd3_out,
                 kpa_out, x_out, z_out, vt_out, ovf, n_cell, cap, sstp, dt_sub,
-                kern, coef, r_max_m1, clamp, seed, step),
+                kern, coef, r_max_m1, clamp, seed, step, 0),
       stream);
 }

@@ -44,11 +44,13 @@
 //     again only for the small droplet of a collision (every formula
 //     depends only on rw2 and the row's T, p, rhod and eta, so these are
 //     the bits the plain version's recomputation at every substep gives).
-// The vt formula is a template parameter beside the mode and the register
-// slots: 15 instantiations a formula.  coal.cu instantiates beard77's, and
-// each other formula's come from a source of their own (coal_beard76.cu,
-// coal_khvorostyanov_spherical.cu, coal_khvorostyanov_nonspherical.cu,
-// coal_undefined.cu), so that nvcc compiles them in parallel.
+// The vt formula is a template parameter beside the mode, the register
+// slots and the rows' type (GridRows, or ShardRows for the resident forms
+// on a mesh shard): 25 instantiations a formula.  coal.cu instantiates
+// beard77's, and each other formula's come from a source of their own
+// (coal_beard76.cu, coal_khvorostyanov_spherical.cu,
+// coal_khvorostyanov_nonspherical.cu, coal_undefined.cu), so that nvcc
+// compiles them in parallel.
 // The hall-family efficiencies are read from the 128x128 table in global
 // memory through the read-only cache.
 
@@ -91,6 +93,25 @@ template <int S>
 struct Row {
   float n[S], rw2[S], rd3[S], kpa[S], vt[S];
   int org[S];  // the slot the SD started the call in
+};
+
+// Whose rows a launch holds: the grid's own (row r draws as row r), or a
+// shard's of the x-slab mesh, whose row r draws as the global row row0 + r
+// (parallel/dense_mesh.py).  The type is a template parameter of the
+// kernel, so that the grid's instantiations, GridRows an empty type, keep
+// the code they had before the mesh.
+struct GridRows {
+  __host__ static GridRows of(uint32_t) { return {}; }
+  __device__ __forceinline__ uint32_t global(int r) const {
+    return static_cast<uint32_t>(r);
+  }
+};
+struct ShardRows {
+  uint32_t row0;
+  __host__ static ShardRows of(uint32_t row0) { return {row0}; }
+  __device__ __forceinline__ uint32_t global(int r) const {
+    return row0 + static_cast<uint32_t>(r);
+  }
 };
 
 // Where a row's random draws come from: key (seed, row), counter (step,
@@ -352,7 +373,7 @@ __device__ __forceinline__ void adjacent_substep(
 }
 
 // planes: n rw2 rd3 kpa x z; cells: 5 rows of n_cell: T p rhod eta dv
-template <int MODE, int S, int VT>
+template <int MODE, int S, int VT, class R>
 __global__ void __launch_bounds__(32 * rows_per_block<S>(), min_blocks<S>())
 coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
             const float* __restrict__ rd3_in, const float* __restrict__ kpa_in,
@@ -363,7 +384,7 @@ coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
             float* __restrict__ z_out, float* __restrict__ vt_out,
             unsigned char* __restrict__ ovf_out, int n_cell, int cap,
             int sstp, double dt_sub, CollisionKernel kern, uint32_t seed,
-            uint32_t step) {
+            uint32_t step, R rows) {
   constexpr int kRows = rows_per_block<S>();
   __shared__ float tiles[kRows][kTilePlanes][32 * S];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -375,7 +396,7 @@ coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
   const Ambient amb{vt_reads_T<VT>() ? cells[r] : 0.0f, cells[n_cell + r],
                     cells[2 * n_cell + r], cells[3 * n_cell + r]};
   const float dt_dv = rdiv_s(dt_sub, cells[4 * n_cell + r]);
-  const Draws dr{seed, static_cast<uint32_t>(r), step};
+  const Draws dr{seed, rows.global(r), step};
   const size_t row = static_cast<size_t>(r) * cap;
 
   Row<S> v;
@@ -448,7 +469,9 @@ coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
 // What an entry point hands kernel E: the planes in (n rw2 rd3 kpa x z),
 // the five cell rows and the efficiency table; the planes out (vt_out
 // only in the standalone form) and the row flags; the sizes, the substeps
-// and the collision kernel; the draws' seed and step.
+// and the collision kernel; the draws' seed and step, and the global index
+// of the first row (a shard's of the x-slab mesh, resident forms only; 0
+// otherwise).
 struct CoalArgs {
   const float *n, *rw2, *rd3, *kpa, *x, *z, *cells;
   float *n_out, *rw2_out, *rd3_out, *kpa_out, *x_out, *z_out, *vt_out;
@@ -456,28 +479,28 @@ struct CoalArgs {
   int n_cell, cap, sstp;
   double dt_sub;
   CollisionKernel kern;
-  unsigned seed, step;
+  unsigned seed, step, row0;
 };
 
-template <int MODE, int S, int VT>
+template <int MODE, int S, int VT, class R>
 cudaError_t launch_rows(const CoalArgs& a, cudaStream_t stream) {
   constexpr int kRows = rows_per_block<S>();
-  coal_kernel<MODE, S, VT><<<(a.n_cell + kRows - 1) / kRows, 32 * kRows, 0,
-                             stream>>>(
+  coal_kernel<MODE, S, VT, R><<<(a.n_cell + kRows - 1) / kRows, 32 * kRows,
+                                0, stream>>>(
       a.n, a.rw2, a.rd3, a.kpa, a.x, a.z, a.cells, a.n_out, a.rw2_out,
       a.rd3_out, a.kpa_out, a.x_out, a.z_out, a.vt_out, a.ovf, a.n_cell,
-      a.cap, a.sstp, a.dt_sub, a.kern, a.seed, a.step);
+      a.cap, a.sstp, a.dt_sub, a.kern, a.seed, a.step, R::of(a.row0));
   return cudaGetLastError();
 }
 
-template <int MODE, int VT>
+template <int MODE, int VT, class R>
 int launch_mode(const CoalArgs& a, cudaStream_t stream) {
   // register slots a lane: what cap forces
-  auto go = a.cap <= 32    ? &launch_rows<MODE, 1, VT>
-            : a.cap == 64  ? &launch_rows<MODE, 2, VT>
-            : a.cap == 128 ? &launch_rows<MODE, 4, VT>
-            : a.cap == 256 ? &launch_rows<MODE, 8, VT>
-                           : &launch_rows<MODE, 16, VT>;
+  auto go = a.cap <= 32    ? &launch_rows<MODE, 1, VT, R>
+            : a.cap == 64  ? &launch_rows<MODE, 2, VT, R>
+            : a.cap == 128 ? &launch_rows<MODE, 4, VT, R>
+            : a.cap == 256 ? &launch_rows<MODE, 8, VT, R>
+                           : &launch_rows<MODE, 16, VT, R>;
   return static_cast<int>(go(a, stream));
 }
 
@@ -487,9 +510,15 @@ int coal_launch(int mode, const CoalArgs& a, cudaStream_t stream) {
   if (a.cap < 1 || a.cap > kMaxCap || (a.cap & (a.cap - 1)) || a.n_cell < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_cell == 0) return 0;
-  auto go = mode == kSort     ? &launch_mode<kSort, VT>
-            : mode == kStride ? &launch_mode<kStride, VT>
-                              : &launch_mode<kStandalone, VT>;
+  // a shard's rows past the first take ShardRows (shard 0's draw as the
+  // grid's)
+  const bool shard = a.row0 != 0;
+  auto go = mode == kSort
+                ? (shard ? &launch_mode<kSort, VT, ShardRows>
+                         : &launch_mode<kSort, VT, GridRows>)
+            : mode == kStride ? (shard ? &launch_mode<kStride, VT, ShardRows>
+                                       : &launch_mode<kStride, VT, GridRows>)
+                              : &launch_mode<kStandalone, VT, GridRows>;
   return go(a, stream);
 }
 

@@ -14,6 +14,17 @@
 // with no transport) it refreshes vt alone: it reads n and rw2 and writes
 // vt, and the walls, targets and row info are not touched.
 //
+// The unwrapped form (entry lcp_transport_unwrapped, the geometry a
+// SlabGeometry) is the TPU kernel's x_wrap=False form (pallas_step.py:
+// 378-382), which each shard of the dense x-slab mesh runs
+// (parallel/dense_mesh.py): the rows are the global columns col0, col0 + 1,
+// ... of the grid, x is left unwrapped and the open side walls do not
+// kill; a droplet outside the shard's columns [col0, col0 + ncol) or
+// outside the domain [x0, x1) gets target -1 and no far flag (the mesh
+// moves it), the others a local target by the near test without its x-wrap
+// clause.  The x-periodic form's instantiations take the Geometry of
+// before, and their source is unchanged.
+//
 // What bounds it on the card: memory.  It reads n for every slot and rw2,
 // x and z for the live ones (rd3 only for a droplet that falls into the
 // puddle), and writes n, x, z, vt and the target of every slot, with some
@@ -37,6 +48,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "physics.cuh"
 #include "warp_rows.cuh"
 
@@ -49,6 +62,14 @@ struct Geometry {
   int implicit_adve, do_adve, do_sedi, do_subs, open_side, periodic_topbot;
 };
 
+// the unwrapped form's: the shard's first column and its width
+struct SlabGeometry : Geometry {
+  int col0, ncol;
+};
+
+template <class G>
+constexpr bool kUnwrapped = std::is_same_v<G, SlabGeometry>;
+
 __device__ __forceinline__ float warp_sum(float v) {
   // a fixed butterfly: every lane ends with the same bits, run to run
 #pragma unroll
@@ -59,7 +80,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // cells: rows of n_cell: T p rhod eta C_l C_r C_b C_a, and w_LS after them
 // with do_subs (the courants are read with do_adve)
 // rowinfo: (n_cell, 8): liq_vol dry_vol liq_num prt_num far 0 0 0
-template <bool VEC, int VT>
+template <bool VEC, int VT, class G>
 __global__ void __launch_bounds__(kWarpRows * 32)
 transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
                  const float* __restrict__ rd3, const float* __restrict__ x,
@@ -67,11 +88,15 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
                  float* __restrict__ n_out, float* __restrict__ x_out,
                  float* __restrict__ z_out, float* __restrict__ vt_out,
                  int* __restrict__ tgt_out, float* __restrict__ rowinfo,
-                 int n_cell, int cap, Geometry geo) {
+                 int n_cell, int cap, G geo) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
   if (r >= n_cell) return;  // the whole warp
-  const float i_row = static_cast<float>(r / geo.nz);
+  float i_row;
+  if constexpr (kUnwrapped<G>)
+    i_row = static_cast<float>(geo.col0 + r / geo.nz);
+  else
+    i_row = static_cast<float>(r / geo.nz);
   const float k_row = static_cast<float>(r % geo.nz);
   // the cell's fields, T only for a formula that reads it
   const Ambient amb{vt_reads_T<VT>() ? __ldg(cells + r) : 0.0f,
@@ -124,11 +149,13 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
         if (geo.do_sedi) zq = zq - geo.dt * vt[q];
         if (geo.do_subs) zq = zq - geo.dt * w_ls;
 
-        if (!geo.open_side) {
-          const float s = xq - geo.x0;
-          xq = geo.x0 + (s - floorf(s / geo.wx) * geo.wx);
-        } else if (xq >= geo.x1 || xq < geo.x0) {
-          m = 0.0f;
+        if constexpr (!kUnwrapped<G>) {  // else the mesh wraps or kills
+          if (!geo.open_side) {
+            const float s = xq - geo.x0;
+            xq = geo.x0 + (s - floorf(s / geo.wx) * geo.wx);
+          } else if (xq >= geo.x1 || xq < geo.x0) {
+            m = 0.0f;
+          }
         }
         if (geo.periodic_topbot) {
           const float s = zq - geo.z0;
@@ -157,15 +184,28 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
                                   static_cast<float>(geo.nx - 1));
           const float dk = k_t - k_row;
           const float di = i_t - i_row;
-          const float wrap = static_cast<float>(geo.nx - 1);
-          const bool near_z = fabsf(dk) <= 1.0f;
-          const bool near_x = di == 0.0f || di == 1.0f || di == -1.0f
-                              || di == wrap || di == -wrap;
-          if (near_z && near_x) {
-            tgt[q] = static_cast<int>(i_t) * geo.nz + static_cast<int>(k_t);
-          } else {
-            tgt[q] = r;
-            far = true;
+          if constexpr (!kUnwrapped<G>) {
+            const float wrap = static_cast<float>(geo.nx - 1);
+            const bool near_z = fabsf(dk) <= 1.0f;
+            const bool near_x = di == 0.0f || di == 1.0f || di == -1.0f
+                                || di == wrap || di == -wrap;
+            if (near_z && near_x) {
+              tgt[q] = static_cast<int>(i_t) * geo.nz + static_cast<int>(k_t);
+            } else {
+              tgt[q] = r;
+              far = true;
+            }
+          } else if (!(xq < geo.x0 || xq >= geo.x1
+                       || i_t < static_cast<float>(geo.col0)
+                       || i_t >= static_cast<float>(geo.col0 + geo.ncol))) {
+            // a droplet that stays in the shard; one that leaves keeps -1
+            if (fabsf(dk) <= 1.0f && fabsf(di) <= 1.0f) {
+              tgt[q] = (static_cast<int>(i_t) - geo.col0) * geo.nz
+                       + static_cast<int>(k_t);
+            } else {
+              tgt[q] = r;
+              far = true;
+            }
           }
         }
         nn[q] = m;
@@ -201,6 +241,48 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
 
 }  // namespace lcp
 
+namespace {
+
+template <class G>
+int transport_launch(const float* n, const float* rw2, const float* rd3,
+                     const float* x, const float* z, const float* cells,
+                     float* n_out, float* x_out, float* z_out, float* vt_out,
+                     int* tgt_out, float* rowinfo, int n_cell, int cap,
+                     const G& geo, int vt, cudaStream_t stream) {
+  // with no transport only n, rw2, the cell fields and vt are passed (the
+  // other pointers may be null)
+  const bool vec = lcp::vector_ok(
+      cap, {n, rw2, x, z, n_out, x_out, z_out, vt_out, tgt_out});
+  const dim3 grid(lcp::row_blocks(n_cell)), block(lcp::kWarpRows * 32);
+  return lcp::with_vt(vt, [&](auto f) {
+    constexpr int VT = decltype(f)::value;
+    if (vec)
+      lcp::transport_kernel<true, VT, G><<<grid, block, 0, stream>>>(
+          n, rw2, rd3, x, z, cells, n_out, x_out, z_out, vt_out, tgt_out,
+          rowinfo, n_cell, cap, geo);
+    else
+      lcp::transport_kernel<false, VT, G><<<grid, block, 0, stream>>>(
+          n, rw2, rd3, x, z, cells, n_out, x_out, z_out, vt_out, tgt_out,
+          rowinfo, n_cell, cap, geo);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+lcp::Geometry geometry(int nx, int nz, double dx, double dz, double dt,
+                       double x0, double x1, double z0, double z1,
+                       int implicit_adve, int do_adve, int do_sedi,
+                       int do_subs, int open_side, int periodic_topbot) {
+  return lcp::Geometry{nx, nz,
+                       static_cast<float>(dx), static_cast<float>(dz),
+                       static_cast<float>(dt), static_cast<float>(x0),
+                       static_cast<float>(z0), static_cast<float>(x1 - x0),
+                       static_cast<float>(z1 - z0), static_cast<float>(x1),
+                       static_cast<float>(z1), implicit_adve, do_adve,
+                       do_sedi, do_subs, open_side, periodic_topbot};
+}
+
+}  // namespace
+
 extern "C" int lcp_transport(const float* n, const float* rw2, const float* rd3,
                              const float* x, const float* z,
                              const float* cells, float* n_out, float* x_out,
@@ -211,28 +293,33 @@ extern "C" int lcp_transport(const float* n, const float* rw2, const float* rd3,
                              int implicit_adve, int do_adve, int do_sedi,
                              int do_subs, int open_side, int periodic_topbot,
                              int vt, cudaStream_t stream) {
-  lcp::Geometry geo{nx, nz,
-                    static_cast<float>(dx), static_cast<float>(dz),
-                    static_cast<float>(dt), static_cast<float>(x0),
-                    static_cast<float>(z0), static_cast<float>(x1 - x0),
-                    static_cast<float>(z1 - z0), static_cast<float>(x1),
-                    static_cast<float>(z1), implicit_adve, do_adve, do_sedi,
-                    do_subs, open_side, periodic_topbot};
-  // with no transport only n, rw2, the cell fields and vt are passed (the
-  // other pointers may be null)
-  const bool vec = lcp::vector_ok(
-      cap, {n, rw2, x, z, n_out, x_out, z_out, vt_out, tgt_out});
-  const dim3 grid(lcp::row_blocks(n_cell)), block(lcp::kWarpRows * 32);
-  return lcp::with_vt(vt, [&](auto f) {
-    constexpr int VT = decltype(f)::value;
-    if (vec)
-      lcp::transport_kernel<true, VT><<<grid, block, 0, stream>>>(
-          n, rw2, rd3, x, z, cells, n_out, x_out, z_out, vt_out, tgt_out,
-          rowinfo, n_cell, cap, geo);
-    else
-      lcp::transport_kernel<false, VT><<<grid, block, 0, stream>>>(
-          n, rw2, rd3, x, z, cells, n_out, x_out, z_out, vt_out, tgt_out,
-          rowinfo, n_cell, cap, geo);
-    return static_cast<int>(cudaGetLastError());
-  });
+  return transport_launch(
+      n, rw2, rd3, x, z, cells, n_out, x_out, z_out, vt_out, tgt_out,
+      rowinfo, n_cell, cap,
+      geometry(nx, nz, dx, dz, dt, x0, x1, z0, z1, implicit_adve, do_adve,
+               do_sedi, do_subs, open_side, periodic_topbot),
+      vt, stream);
+}
+
+// The unwrapped form on a shard of the x-slab mesh: the n_cell rows are
+// columns col0 .. col0 + n_cell / nz - 1 of the global nx x nz grid, the
+// first ncol of them the shard's own; some transport must run.
+extern "C" int lcp_transport_unwrapped(
+    const float* n, const float* rw2, const float* rd3, const float* x,
+    const float* z, const float* cells, float* n_out, float* x_out,
+    float* z_out, float* vt_out, int* tgt_out, float* rowinfo, int n_cell,
+    int cap, int nx, int nz, double dx, double dz, double dt, double x0,
+    double x1, double z0, double z1, int implicit_adve, int do_adve,
+    int do_sedi, int do_subs, int open_side, int periodic_topbot, int vt,
+    int col0, int ncol, cudaStream_t stream) {
+  if (!(do_adve || do_sedi || do_subs) || n_cell % nz || col0 < 0
+      || ncol < 1 || ncol > n_cell / nz)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const lcp::SlabGeometry geo{
+      geometry(nx, nz, dx, dz, dt, x0, x1, z0, z1, implicit_adve, do_adve,
+               do_sedi, do_subs, open_side, periodic_topbot),
+      col0, ncol};
+  return transport_launch(n, rw2, rd3, x, z, cells, n_out, x_out, z_out,
+                          vt_out, tgt_out, rowinfo, n_cell, cap, geo, vt,
+                          stream);
 }

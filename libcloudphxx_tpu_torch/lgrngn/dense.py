@@ -199,20 +199,25 @@ def unpack(cfg: StaticConfig, d: DenseState, state: State) -> State:
 
 def _row_courants(cfg: StaticConfig, d: DenseState):
     """Per-cell left/right/below/above courants (n_cell,) sliced from the
-    staggered fields (reference init_grid.ipp:94-155)."""
-    cx = d.courant_x.reshape(cfg.nx + 1, cfg.nz)
-    cz = d.courant_z.reshape(cfg.nx, cfg.nz + 1)
+    staggered fields (reference init_grid.ipp:94-155); the columns are
+    d's rows (a mesh shard holds fewer than cfg.nx)."""
+    nx = d.n_cell // cfg.nz
+    cx = d.courant_x.reshape(nx + 1, cfg.nz)
+    cz = d.courant_z.reshape(nx, cfg.nz + 1)
     return (cx[:-1].reshape(-1), cx[1:].reshape(-1),
             cz[:, :-1].reshape(-1), cz[:, 1:].reshape(-1))
 
 
-def _rebin_global(cfg: StaticConfig, d: DenseState) -> DenseState:
+def _rebin_global(cfg: StaticConfig, d: DenseState, tgt=None) -> DenseState:
     """Exact re-bin of every SD to the cell of its position (one global
-    sort): the repair after SDs moved more than one cell on an axis."""
-    alive = d.n > 0
-    tgt = torch.where(alive, ijk_of_xyz(cfg, d.x, d.z), cfg.n_cell)
+    sort): the repair after SDs moved more than one cell on an axis.
+    ``tgt``, the row of every slot (d.n_cell where dead), is computed from
+    the positions unless given (a shard of the x-slab mesh gives its
+    own)."""
+    if tgt is None:
+        tgt = torch.where(d.n > 0, ijk_of_xyz(cfg, d.x, d.z), d.n_cell)
     planes, overflow = _distribute(
-        cfg.n_cell, d.cap, tgt.reshape(-1),
+        d.n_cell, d.cap, tgt.reshape(-1),
         [getattr(d, a).reshape(-1) for a in ATTRS])
     return dataclasses.replace(d, overflow=d.overflow + overflow,
                                rebins=d.rebins + 1,
@@ -364,6 +369,28 @@ def step_fused(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params, dt,
         w_cells=None, coal_pairing=coal_pairing, plain=plain)
 
 
+def step_fused_shard(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
+                     dt, RH_max, sstp_coal: int, do_coal: bool, do_sedi: bool,
+                     slab, *, coal_pairing="stride", plain=False):
+    """step_fused less the re-binning, with x left unwrapped: the body of a
+    shard of the dense x-slab mesh (libcloudphxx_tpu/lgrngn/dense.py:1303
+    step_fused_shard and :1337 _shard_phase; parallel/dense_mesh.py).
+    ``cfg`` is the global configuration; ``d`` holds the shard's rows, the
+    global columns col0, col0 + 1, ... with ``slab`` = (col0, ncol) the
+    first ncol of them its own, and x in global coordinates.  Condensation,
+    coalescence (its draws keyed by the global row) and kernel C's
+    unwrapped form, which gives the droplets that leave the slab target -1,
+    and the puddle fold; no merge and no far-mover repair: the mesh's
+    re-binning (parallel/dense_mesh.rebin_sharded) does both.  Returns (d,
+    th, rv, tgt, far): d with the positions after transport, tgt the local
+    target row of every slot and far the number of rows with a far mover
+    (a 0-d tensor, for the caller to read with the other shards')."""
+    return _resident_step(
+        cfg, d, th_adv, rv_adv, params, dt, RH_max, sstp_coal, do_cond=True,
+        do_coal=do_coal, do_adve=True, do_sedi=do_sedi, w_cells=None,
+        coal_pairing=coal_pairing, plain=plain, slab=slab)
+
+
 def step_cond_resident(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, dt,
                        RH_max, *, plain=False):
     """The condensation phase alone (libcloudphxx_tpu/lgrngn/dense.py:1400),
@@ -411,6 +438,41 @@ def _resident_phases(cfg: StaticConfig, d: DenseState, th_adv, rv_adv,
     the puddle fold, the merge (rebin_x) and the far-mover repair.
     ``w_cells`` (n_cell,) is the subsidence velocity of each row, or None.
     Returns (DenseState, th, rv)."""
+    d, th, rv, tgt, far = _resident_step(
+        cfg, d, th_adv, rv_adv, params, dt, RH_max, sstp_coal,
+        do_cond=do_cond, do_coal=do_coal, do_adve=do_adve, do_sedi=do_sedi,
+        w_cells=w_cells, coal_pairing=coal_pairing, plain=plain)
+    if tgt is None:
+        return d, th, rv
+    if cfg.nx < 3:
+        # the merge needs distinct left, own and right columns
+        return _rebin_global(cfg, d), th, rv
+    d = merge(cfg, d, tgt, plain=plain)
+    if bool(far > 0):  # one host sync a step: far movers are rare
+        d = _rebin_global(cfg, d)
+    return d, th, rv
+
+
+def merge(cfg: StaticConfig, d: DenseState, tgt, *, plain=False):
+    """Each row takes the droplets whose target ``tgt`` it is (rebin_x,
+    kernel D); the droplets a full row cannot hold are added to
+    ``overflow``."""
+    *planes, drops = rebin_x(cfg, *(getattr(d, a) for a in ATTRS), tgt,
+                             plain=plain)
+    return dataclasses.replace(
+        d, overflow=d.overflow + drops.sum().to(d.overflow.dtype),
+        **dict(zip(ATTRS, planes)))
+
+
+def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
+                   dt, RH_max, sstp_coal: int, *, do_cond: bool,
+                   do_coal: bool, do_adve: bool, do_sedi: bool, w_cells,
+                   coal_pairing, plain, slab=None):
+    """_resident_phases up to the re-binning: the step_resident call and
+    the puddle fold.  Returns (d, th, rv, tgt, far): with transport d holds
+    the positions after it, tgt the target row of every slot and far the
+    number of rows with a far mover (a 0-d tensor); with none tgt and far
+    are None.  ``slab`` is a mesh shard's (step_fused_shard)."""
     if do_coal and cfg.pure_const_multi:
         raise NotImplementedError(
             "step_fused: coalescence of a const-multi population (the "
@@ -425,7 +487,7 @@ def _resident_phases(cfg: StaticConfig, d: DenseState, th_adv, rv_adv,
         lam_D, lam_K, *_row_courants(cfg, d), d.p, do_cond=do_cond,
         do_coal=do_coal, do_adve=do_adve, w_cells=w_cells, params=params,
         sstp_coal=sstp_coal, rng=(d.rng_seed, d.rng_step),
-        coal_pairing=coal_pairing, plain=plain)
+        coal_pairing=coal_pairing, slab=slab, plain=plain)
     puddle = d.puddle
     if rowinfo is not None:
         info = rowinfo.sum(dim=0).to(puddle.dtype)
@@ -435,27 +497,13 @@ def _resident_phases(cfg: StaticConfig, d: DenseState, th_adv, rv_adv,
         puddle = puddle + fold
         if do_coal:
             puddle = _fold_coal_overflow(puddle, info[6] > 0)
+    # no transport: no walls, no re-bin; after condensation alone the stale
+    # vt plane stays (dense.py:1550-1558)
     d = dataclasses.replace(
-        d, rw2=rw2, T=T, p=p, RH=RH, eta=eta, sstp_tmp_th=th,
-        sstp_tmp_rv=rv, puddle=puddle, rng_step=d.rng_step + int(do_coal))
-    if tgt is None:
-        # no transport: no walls, no re-bin; after condensation alone the
-        # stale vt plane stays (dense.py:1550-1558)
-        d = dataclasses.replace(d, n=n, rd3=rd3, kpa=kpa, x=x, z=z,
-                                vt=d.vt if vt is None else vt)
-        return d, th, rv
-    if cfg.nx < 3:
-        # the merge needs distinct left, own and right columns
-        d = dataclasses.replace(d, n=n, rd3=rd3, kpa=kpa, vt=vt, x=x, z=z)
-        return _rebin_global(cfg, d), th, rv
-    *planes, drops = rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt,
-                             plain=plain)
-    d = dataclasses.replace(
-        d, overflow=d.overflow + drops.sum().to(d.overflow.dtype),
-        **dict(zip(ATTRS, planes)))
-    if bool(info[4] > 0):  # one host sync a step: far movers are rare
-        d = _rebin_global(cfg, d)
-    return d, th, rv
+        d, n=n, rw2=rw2, rd3=rd3, kpa=kpa, vt=d.vt if vt is None else vt,
+        x=x, z=z, T=T, p=p, RH=RH, eta=eta, sstp_tmp_th=th, sstp_tmp_rv=rv,
+        puddle=puddle, rng_step=d.rng_step + int(do_coal))
+    return d, th, rv, tgt, None if tgt is None else info[4]
 
 
 def moment(d: DenseState, rng_lo2, rng_hi2, power, specific=True):

@@ -569,7 +569,8 @@ def factory(backend: backend_t, opts_init: opts_init_t, *, device="cuda",
             backend == backend_t.multi_CUDA and torch.cuda.device_count() > 1):
         raise NotImplementedError(
             "factory: the multi-device front-end is not ported (ROADMAP.md, "
-            "Queue 1, \"Multi-device (parallel/)\")")
+            "Queue 1, \"Multi-device: the flat front\"); the dense engine "
+            "runs on an x-slab mesh through libcloudphxx_tpu_torch.parallel")
     from . import dense
     from .dense_front import dense_capable, particles_dense_t
     cfg = StaticConfig.from_opts_init(opts_init)

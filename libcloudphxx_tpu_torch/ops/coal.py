@@ -16,7 +16,9 @@ version:
       unsort.
 
 The random numbers are Philox draws (ops/philox.py) keyed by (seed, row)
-with the counter (step, substep, kind, lane).  The shuffle sorts each row
+with the counter (step, substep, kind, lane); on a shard of the x-slab
+mesh the resident form's ``row0`` makes the row the global one, so that
+the shards draw what the serial step draws.  The shuffle sorts each row
 on a key that cannot tie, (bits << 16 | lane) with dead lanes keyed above
 every live one, so that any correct sort (torch.sort here, a bitonic
 network in the kernel) gives the same permutation.
@@ -67,23 +69,25 @@ def shuffle_rows(key, planes):
     return key, tuple(torch.gather(p, 1, order) for p in planes)
 
 
-def _draws(seed, step, like):
+def _draws(seed, step, like, row0=0):
     n_cell, cap = like.shape
     return lambda s, kind: philox.draw(seed, step, s, kind, n_cell, cap,
-                                       like.device)
+                                       like.device, row0)
 
 
 def coal_resident_plain(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3,
-                        kpa, x, z, T, p, rhod, eta, dv, pairing="stride"):
+                        kpa, x, z, T, p, rhod, eta, dv, pairing="stride",
+                        row0=0):
     """The coalescence phase of the resident step (pallas_step.py:233-336):
     ``sstp_coal`` substeps of dt/sstp_coal on the (n_cell, cap) planes,
     with the cell fields (n_cell,) after condensation, in ``pairing``
-    "stride" or "sort".  Returns (n, rw2, rd3, kpa, x, z, overflow)."""
+    "stride" or "sort"; row r draws as row ``row0`` + r.  Returns (n, rw2,
+    rd3, kpa, x, z, overflow)."""
     col = lambda a: a[:, None]
     T, p, rhod, eta, dv = (col(a) for a in (T, p, rhod, eta, dv))
     dt_sub = dt / sstp_coal
     eff = coal_mod.efficiency(cfg.kernel, n.dtype, n.device)
-    draw = _draws(seed, step, n)
+    draw = _draws(seed, step, n, row0)
     ovf = torch.zeros(n.shape[0], dtype=torch.bool, device=n.device)
     if pairing == "stride":
         n_strides = n_strides_of(n.shape[1])
@@ -176,7 +180,7 @@ def _launch(kernel, cfg, params, sstp_coal, dt, seed, step, planes, cells,
 
 
 def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
-                  x, z, T, p, rhod, eta, dv, *, pairing="stride",
+                  x, z, T, p, rhod, eta, dv, *, pairing="stride", row0=0,
                   plain=False):
     """Kernel E in the resident step's form, or coal_resident_plain (same
     arguments and results)."""
@@ -185,11 +189,13 @@ def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
                          f"{pairing!r}")
     args = (cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa, x, z,
             T, p, rhod, eta, dv)
+    if not 0 <= int(row0) <= philox.MASK - n.shape[0]:
+        raise ValueError(f"coal: row0 {row0} out of range")
     if _ext.use_plain("coal", n, plain):
-        return coal_resident_plain(*args, pairing=pairing)
+        return coal_resident_plain(*args, pairing=pairing, row0=row0)
     return _launch(_ext.COAL, cfg, params, sstp_coal, dt, seed, step,
                    (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
-                   int(pairing == "sort"))
+                   int(pairing == "sort"), int(row0))
 
 
 def coal_standalone(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,

@@ -51,10 +51,13 @@ def philox4x32(ctr, key):
     return c0, c1, c2, c3
 
 
-def draw(seed, step, substep, kind, n_rows, cap, device="cpu"):
+def draw(seed, step, substep, kind, n_rows, cap, device="cpu", row0=0):
     """(n_rows, cap) int64 tensor of 32-bit random words: row r, lane l
-    holds word 0 of Philox(key=(seed, r), ctr=(step, substep, kind, l))."""
-    rows = torch.arange(n_rows, dtype=torch.int64, device=device)[:, None]
+    holds word 0 of Philox(key=(seed, row0 + r), ctr=(step, substep, kind,
+    l)).  ``row0`` is the first row's index in the whole grid, where the
+    rows are a shard's of the x-slab mesh."""
+    rows = torch.arange(row0, row0 + n_rows, dtype=torch.int64,
+                        device=device)[:, None]
     lanes = torch.arange(cap, dtype=torch.int64, device=device)[None, :]
     ctr = (int(step) & MASK, int(substep) & MASK, int(kind) & MASK, lanes)
     return philox4x32(ctr, (int(seed) & MASK, rows))[0]

@@ -10,7 +10,9 @@ hand-written kernels, each beside its plain PyTorch version:
   kernel E  csrc/coal.cu       ops/coal.coal_resident: coalescence substeps
   kernel C  csrc/transport.cu  transport / transport_plain: vt refresh,
             advection, sedimentation, subsidence, walls, puddle partials,
-            and the target cell of every droplet (or the vt refresh alone)
+            and the target cell of every droplet (or the vt refresh alone);
+            with a ``slab`` the unwrapped form a shard of the x-slab mesh
+            runs
   kernel D  csrc/merge.cu      rebin_x / rebin_x_plain: each row takes its
             droplets from itself and its eight neighbours (the z and the x
             pass of the re-binning at once)
@@ -40,10 +42,47 @@ MERGE_SOURCES = ((0, 0), (0, -1), (0, 1), (-1, 0), (-1, -1), (-1, 1),
                  (1, 0), (1, -1), (1, 1))
 
 
-def _rows(cfg, n_cell, like):
+def _rows(cfg, n_cell, like, col0=0):
+    """Each row's column (from ``col0``) and level, as (n_cell, 1) planes of
+    ``like``'s dtype."""
     r = torch.arange(n_cell, device=like.device)
-    return (r // cfg.nz).to(like.dtype)[:, None], \
+    return (r // cfg.nz + col0).to(like.dtype)[:, None], \
         (r % cfg.nz).to(like.dtype)[:, None]
+
+
+def wrap_x(cfg, x):
+    """x wrapped into [x0, x1) by the periodic side walls, in kernel C's
+    float operations."""
+    w = cfg.x1 - cfg.x0
+    q = x - cfg.x0
+    return cfg.x0 + (q - torch.floor(q / torch.full((), w, dtype=x.dtype,
+                                                   device=x.device)) * w)
+
+
+def column_of(cfg, x):
+    """The grid column of each position, clamped to [0, nx), in kernel
+    C's float operations (the grid starts at 0, not at x0)."""
+    dx = torch.full((), cfg.dx, dtype=x.dtype, device=x.device)
+    return torch.clamp(torch.floor(x / dx), 0, cfg.nx - 1)
+
+
+def level_of(cfg, z):
+    """The grid level of each position, clamped to [0, nz), as
+    column_of."""
+    dz = torch.full((), cfg.dz, dtype=z.dtype, device=z.device)
+    return torch.clamp(torch.floor(z / dz), 0, cfg.nz - 1)
+
+
+def _slab(cfg, n_cell, slab):
+    """(col0, ncol) of a mesh shard's ``slab``, checked; (0, nx) for
+    None."""
+    if slab is None:
+        return 0, cfg.nx
+    col0, ncol = (int(v) for v in slab)
+    if n_cell % cfg.nz or col0 < 0 or not 1 <= ncol <= n_cell // cfg.nz:
+        raise ValueError(f"transport: slab ({col0}, {ncol}) does not fit "
+                         f"{n_cell} rows of {cfg.nz} levels")
+    return col0, ncol
 
 
 # ---------------------------------------------------------------- kernel B
@@ -115,7 +154,8 @@ def cond(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
 
 # ---------------------------------------------------------------- kernel C
 def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
-                    C_l, C_r, C_b, C_a, *, do_adve=True, w_cells=None):
+                    C_l, C_r, C_b, C_a, *, do_adve=True, w_cells=None,
+                    slab=None):
     """vt refresh, SD advection, sedimentation, subsidence, walls and
     puddle, then each droplet's target row (pallas_step.py:338-487).
     ``do_adve`` moves the droplets with the courants C_*, ``do_sedi`` by
@@ -129,17 +169,30 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
     = vt = 0 and target -1, as kernel C writes it; the merge reads only the
     slots it takes, so no droplet sees that.  With no transport at all (no
     advection, sedimentation or subsidence) only vt is refreshed: n, x and
-    z come back as they went in, and tgt and rowinfo are None."""
+    z come back as they went in, and tgt and rowinfo are None.
+
+    With a ``slab`` = (col0, ncol) it is the unwrapped form a shard of the
+    x-slab mesh runs (the TPU kernel's x_wrap=False, pallas_step.py:378-382;
+    parallel/dense_mesh.py): the rows are the global columns col0 .. col0 +
+    n_cell / nz - 1 of ``cfg``'s grid, the first ncol of them the shard's
+    own; x stays unwrapped,
+    the open side walls do not kill, and a droplet outside the shard's
+    columns or outside [x0, x1) gets target -1 and no far flag (the mesh
+    moves it).  The targets are local rows; the near test has no x-wrap
+    clause."""
     n_cell, cap = n.shape
+    col0, ncol = _slab(cfg, n_cell, slab)
     live0 = n > 0
     col = lambda a: a[:, None]
     # divisions by a tensor, not a Python number: on the card PyTorch
     # turns those into multiplications by the reciprocal, which would
     # classify a droplet on a cell face differently from the kernel
     full = lambda v: torch.full((), v, dtype=x.dtype, device=x.device)
-    i_row, k_row = _rows(cfg, n_cell, x)
+    i_row, k_row = _rows(cfg, n_cell, x, col0)
     vt = vt_in_kernel(cfg, rw2, col(T), col(p), col(rhod), col(eta))
     if not (do_adve or do_sedi or w_cells is not None):
+        if slab is not None:
+            raise ValueError("transport: a slab needs some transport")
         return n, x, z, torch.where(live0, vt, 0.0), None, None
 
     if do_adve:
@@ -156,12 +209,11 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
     if w_cells is not None:
         z = z - dt * col(w_cells)
 
-    if not cfg.open_side_walls:
-        w = cfg.x1 - cfg.x0
-        q = x - cfg.x0
-        x = cfg.x0 + (q - torch.floor(q / full(w)) * w)
-    else:
-        n = torch.where((x >= cfg.x1) | (x < cfg.x0), 0.0, n)
+    if slab is None:      # else the mesh's re-binning wraps or kills
+        if cfg.open_side_walls:
+            n = torch.where((x >= cfg.x1) | (x < cfg.x0), 0.0, n)
+        else:
+            x = wrap_x(cfg, x)
     zero = torch.zeros(n_cell, dtype=n.dtype, device=n.device)
     liq_vol = dry_vol = liq_num = prt_num = zero
     if cfg.periodic_topbot_walls:
@@ -181,16 +233,21 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
         n = torch.where(fell, 0.0, n)
 
     alive = n > 0
-    k_t = torch.clamp(torch.floor(z / full(cfg.dz)), 0, cfg.nz - 1)
-    i_t = torch.clamp(torch.floor(x / full(cfg.dx)), 0, cfg.nx - 1)
+    k_t = level_of(cfg, z)
+    i_t = column_of(cfg, x)
     dk = k_t - k_row
     di = i_t - i_row
-    wrap = float(cfg.nx - 1)
-    near = (torch.abs(dk) <= 1.0) & (
-        (di == 0.0) | (di == 1.0) | (di == -1.0) | (di == wrap)
-        | (di == -wrap))
+    near_x = (di == 0.0) | (di == 1.0) | (di == -1.0)
+    if slab is None:
+        wrap = float(cfg.nx - 1)
+        near_x = near_x | (di == wrap) | (di == -wrap)
+    else:
+        alive = alive & ~((x < cfg.x0) | (x >= cfg.x1) | (i_t < col0)
+                          | (i_t >= col0 + ncol))
+    near = (torch.abs(dk) <= 1.0) & near_x
     rows = torch.arange(n_cell, device=n.device, dtype=torch.int32)[:, None]
-    tgt = torch.where(near, (i_t * cfg.nz + k_t).to(torch.int32), rows)
+    tgt = torch.where(near, ((i_t - col0) * cfg.nz + k_t).to(torch.int32),
+                      rows)
     tgt = torch.where(alive, tgt, -1)
     far = (alive & ~near).any(dim=1).to(n.dtype)
     rowinfo = torch.stack([liq_vol, dry_vol, liq_num, prt_num, far,
@@ -200,15 +257,20 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
 
 
 def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
-              C_r, C_b, C_a, *, do_adve=True, w_cells=None, plain=False):
+              C_r, C_b, C_a, *, do_adve=True, w_cells=None, slab=None,
+              plain=False):
     """Kernel C, or its plain version transport_plain (same arguments and
-    results)."""
-    kw = dict(do_adve=do_adve, w_cells=w_cells)
+    results); with a ``slab`` kernel C's unwrapped form, counted as
+    _ext.TRANSPORT_UNWRAPPED."""
+    kw = dict(do_adve=do_adve, w_cells=w_cells, slab=slab)
     args = (n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r, C_b, C_a)
     if _ext.use_plain("transport", n, plain):
         return transport_plain(cfg, dt, do_sedi, *args, **kw)
     n_cell, cap = n.shape
     moves = do_adve or do_sedi or w_cells is not None
+    col0, ncol = _slab(cfg, n_cell, slab)
+    if not moves and slab is not None:
+        raise ValueError("transport: a slab needs some transport")
     _ext.check_planes("transport", cap, n, rw2, *((rd3, x, z) if moves
                                                    else ()))
     if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
@@ -231,14 +293,17 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
     else:
         n_out, x_out, z_out, tgt, rowinfo = n, x, z, None, None
         ptr = lambda a: None
-    _ext.TRANSPORT.launch(
+    kernel, extra = (_ext.TRANSPORT, ()) if slab is None else \
+        (_ext.TRANSPORT_UNWRAPPED, (col0, ncol))
+    kernel.launch(
         n.data_ptr(), rw2.data_ptr(), ptr(rd3), ptr(x), ptr(z),
         cells.data_ptr(), ptr(n_out), ptr(x_out), ptr(z_out),
         vt_out.data_ptr(), ptr(tgt), ptr(rowinfo), n_cell, cap, cfg.nx,
         cfg.nz, cfg.dx, cfg.dz, float(dt), cfg.x0, cfg.x1, cfg.z0, cfg.z1,
         int(as_t(cfg.adve_scheme) == as_t.implicit), int(do_adve),
         int(do_sedi), int(w_cells is not None), int(cfg.open_side_walls),
-        int(cfg.periodic_topbot_walls), vt_t(cfg.terminal_velocity).value)
+        int(cfg.periodic_topbot_walls), vt_t(cfg.terminal_velocity).value,
+        *extra)
     return n_out, x_out, z_out, vt_out, tgt, rowinfo
 
 
@@ -246,7 +311,7 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
                   z, thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, C_l, C_r,
                   C_b, C_a, p0, *, do_cond=True, do_coal=False, do_adve=True,
                   w_cells=None, params=(), sstp_coal=1, rng=(0, 0),
-                  coal_pairing="stride", plain=False):
+                  coal_pairing="stride", slab=None, plain=False):
     """One microphysics step or a phase of one (pallas_step.step_resident
     with its phase flags): condensation (kernel B) with ``do_cond``, else
     the cell closure of th0/rv0 (the post-condensation values of the async
@@ -261,7 +326,9 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
     Returns (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta,
     rowinfo), rowinfo's lane 6 the coalescence overflow flag of each row;
     with no transport tgt is None, and so is rowinfo unless coalescence
-    ran (then it holds that flag alone)."""
+    ran (then it holds that flag alone).  A shard of the x-slab mesh passes
+    its ``slab`` = (col0, ncol): transport is kernel C's unwrapped form and
+    the coalescence draws are keyed by the global rows, from col0 * nz."""
     if do_cond:
         rw2, th, rv, T, p, RH, eta = cond(
             cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
@@ -272,12 +339,14 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
     if do_coal:
         n, rw2, rd3, kpa, x, z, coal_ovf = coal_ops.coal_resident(
             cfg, params, sstp_coal, dt, *rng, n, rw2, rd3, kpa, x, z, T, p,
-            rhod, eta, dv, pairing=coal_pairing, plain=plain)
+            rhod, eta, dv, pairing=coal_pairing,
+            row0=0 if slab is None else int(slab[0]) * cfg.nz, plain=plain)
     vt = tgt = rowinfo = None
     if do_adve or do_sedi or w_cells is not None or not do_cond:
         n, x, z, vt, tgt, rowinfo = transport(
             cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r,
-            C_b, C_a, do_adve=do_adve, w_cells=w_cells, plain=plain)
+            C_b, C_a, do_adve=do_adve, w_cells=w_cells, slab=slab,
+            plain=plain)
     if do_coal:
         if rowinfo is None:
             rowinfo = torch.zeros((n.shape[0], 8), dtype=n.dtype,

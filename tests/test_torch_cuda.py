@@ -38,7 +38,12 @@ ambient conditions) runs on 1 to 369,664 droplets (ragged warps), on
 haze, activating and evaporating droplets, dead and rw2 <= 0 slots, for
 a scalar dt and a dt a droplet, bitwise equal to its plain version, and
 the exact and adaptive per-particle slices run through the public API
-with it, bitwise equal to their plain paths.  The dense front
+with it, bitwise equal to their plain paths.  Kernel C's unwrapped form
+(a shard of the x-slab mesh) runs at row capacity 2 to 512 in both
+layouts on the first, an inner and the last slab, with droplets leaving
+on both sides, and kernel E keyed by a shard's global rows (row0), both
+bitwise equal to their plain versions; the 8-shard mesh matches the
+serial dense engine on the card.  The dense front
 (particles_dense_t) steps through the kernels and equals the fused dense
 run bitwise; dense.repack and the
 repack policy run on the card as on the CPU, and the policy refuses a
@@ -413,7 +418,8 @@ def test_dense_front_on_the_card(dev):
     torch.cuda.synchronize()
     got = {k.name: k.launches - before[k.name] for k in _ext.KERNELS}
     assert got == dict(mpdata=8, cond=4, transport=4, merge=4, coal=2,
-                       coal_standalone=0, cond_flat=0, cond_sd=0)
+                       coal_standalone=0, cond_flat=0, cond_sd=0,
+                       transport_unwrapped=0)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run(4, spinup=2, plain=True)
     assert torch.equal(front.th, fused.th) and torch.equal(front.rv, fused.rv)
@@ -984,3 +990,115 @@ def test_exact_slice_kernels_match_plain(dev, mode):
               "sstp_tmp_rh", "sstp_tmp_p"):
         assert torch.equal(getattr(sk, k), getattr(sp, k)), k
     assert _rel(sk.rw2[sk.n > 0], rw0[sk.n > 0]) > 1e-3   # droplets grew
+
+
+# ------------------------------------------------------- the x-slab mesh
+# (col0, ncol) of a shard's three columns on transport_case's 8-column grid:
+# the first slab (movers past x = 0), an inner one, and the last (x1)
+MESH_SLABS = {"first": (0, 2), "inner": (3, 2), "last": (5, 3)}
+
+
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("slab", list(MESH_SLABS))
+@pytest.mark.parametrize("cap", [2, 32, 100, 128, 256, 512])
+def test_transport_unwrapped_kernel_matches_plain(dev, cap, slab, misaligned):
+    """Kernel C's unwrapped form (a shard of the x-slab mesh) at row
+    capacity 2 to 512, in the 16-byte and the scalar-slot layout, on the
+    rows of a slab of three columns with the courants times 8, so that
+    droplets leave the slab on both sides and the domain at x = 0 and x1:
+    n, x, z, vt and the targets bitwise equal to transport_plain in every
+    slot, the far flags exact, the puddle partials rel 1e-5, one launch
+    counted as TRANSPORT_UNWRAPPED."""
+    col0, ncol = MESH_SLABS[slab]
+    cfg, planes, cells = transport_case(8, 6, cap, device=dev,
+                                        dtype=torch.float32)
+    rows = slice(col0 * 6, (col0 + 3) * 6)
+    n, rw2, rd3, kpa, x, z = (p[rows].contiguous() for p in planes)
+    # a droplet 5 m past each side of the slab in its edge column's rows
+    n[:6, 0], x[:6, 0] = 1e6, col0 * 20.0 - 5.0
+    n[(ncol - 1) * 6:ncol * 6, 0] = 1e6
+    x[(ncol - 1) * 6:ncol * 6, 0] = (col0 + ncol) * 20.0 + 5.0
+    if misaligned:  # the same values 4 bytes past a 16-byte boundary
+        buf = torch.empty(rw2.numel() + 1, dtype=torch.float32, device=dev)
+        buf[1:].view(rw2.shape).copy_(rw2)
+        rw2 = buf[1:].view(rw2.shape)
+    cc = tuple(c[rows].contiguous() for c in cells[:4]) \
+        + tuple(8.0 * c[rows] for c in cells[4:])
+    args = (cfg, 1.0, True, n, rw2, rd3, x, z) + cc
+    kw = dict(slab=(col0, ncol))
+    before = _ext.TRANSPORT.launches
+    kc = _launches(_ext.TRANSPORT_UNWRAPPED,
+                   lambda: step.transport(*args, **kw))
+    assert _ext.TRANSPORT.launches == before
+    pc = step.transport(*args, **kw, plain=True)
+    for a, b in zip(kc[:5], pc[:5]):         # n x z vt targets
+        assert torch.equal(a, b)
+    assert torch.equal(kc[5][:, 4], pc[5][:, 4])
+    assert torch.allclose(kc[5][:, :4], pc[5][:, :4], rtol=1e-5, atol=0.0)
+    live, x_out = pc[0] > 0, pc[1]
+    col = step.column_of(cfg, x_out)
+    left = live & ((col < col0) | (x_out < cfg.x0))
+    right = live & ((col >= col0 + ncol) | (x_out >= cfg.x1))
+    assert bool((pc[4][left | right] == -1).all())
+    assert bool(left.any()) and bool(right.any())
+
+
+@pytest.mark.parametrize("form", ["stride", "sort"])
+@pytest.mark.parametrize("cap", [32, 128, 512])
+def test_coal_kernel_with_row0_matches_plain(coal_model, cap, form):
+    """Kernel E keyed by the global row (row0 of a mesh shard) bitwise
+    equal to its plain version lane by lane, and equal to the same rows of
+    a call on the grid they are part of."""
+    cfg = _coal_cfg(coal_model, kernel_t.geometric)
+    planes, cells = _coal_rows(coal_model.device, cap, rows=48, seed=2)
+    base = (cfg, (2.0,), 10, 100.0, 44, 3)
+    part = lambda plain: coal.coal_resident(
+        *base, *(p[16:40] for p in planes), *(c[16:40] for c in cells),
+        pairing=form, row0=16, plain=plain)
+    k = _launches(_ext.COAL, lambda: part(False))
+    p = part(True)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    whole = coal.coal_resident(*base, *planes, *cells, pairing=form)
+    assert all(torch.equal(a[16:40], b) for a, b in zip(whole, k))
+    assert float(k[0].sum()) < float(planes[0][16:40].sum())   # collided
+
+
+@pytest.mark.parametrize("coal_on", [False, True], ids=["no_coal", "coal"])
+def test_mesh_matches_serial_on_the_card(dev, coal_on):
+    """The 8-shard mesh (slabs of 3,3,3,2,2,2,2,2 columns) on the card
+    against the serial dense engine from the same state, 19x10 cells:
+    without coalescence over 6 steps, with it the first step; per cell the
+    SDs' cell, n, rd3, kappa and x exact, z, rw2 and vt within kernel B's
+    gates (rel 1e-5), th and rv within them (2e-6, 2e-5); kernels B, E (on
+    coalescence), C's unwrapped form and D launched on every shard and
+    kernel A on the global fields; SDs crossed slab edges."""
+    from libcloudphxx_tpu_torch.parallel import MeshRunner
+    kw = dict(nx=19, nz=10, sd_conc=24, sstp_cond=3, sstp_coal=2,
+              n_sd_max=24 * 190, device=dev,
+              opts_init_kw={"coal_switch": coal_on,
+                            "kernel_parameters": [100.0]})
+    nt = 1 if coal_on else 6
+    serial = Kinematic2D(**kw)
+    mesh = Kinematic2D(**kw)
+    r = MeshRunner(mesh, 8)
+    for k in _ext.KERNELS:
+        k.launches = 0
+    r.run(nt)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _ext.KERNELS}
+    serial.run_device_lgrngn(nt, engine="dense")
+    assert launches["transport"] == 0
+    want = dict(mpdata=nt, cond=8 * nt, transport_unwrapped=8 * nt,
+                merge=8 * nt, coal=8 * nt if coal_on else 0)
+    assert {k: launches[k] for k in want} == want
+    assert int(r.crossed) > 0
+    pop = lambda d: multiset(d.n.cpu(), tuple(
+        getattr(d, f).cpu() for f in ("rd3", "kpa", "x", "z", "rw2", "vt")))
+    a, b = pop(r.state()), pop(serial.dense_state)
+    assert a.shape == b.shape
+    np.testing.assert_array_equal(a[:, :5], b[:, :5])   # cell n rd3 kpa x
+    np.testing.assert_allclose(a[:, 5:], b[:, 5:], rtol=1e-5)
+    assert _rel(mesh.th, serial.th) <= 2e-6
+    assert _rel(mesh.rv, serial.rv) <= 2e-5
+    assert int(r.state().overflow) == 0
