@@ -4,9 +4,10 @@
 Drives the port's paths, the GMD-2015 kinematic lgrngn case at 76x76
 cells and 64 super-droplets a cell with sstp_cond = sstp_coal = 10 and the
 geometric kernel (bench.py's configuration), on the dense engine (kernels
-A-E) through run_device_lgrngn and through the public API's dense front,
-and on the flat engine behind the public API (kernels A and F, and with
-exact per-particle condensation kernels A and G), and checks them:
+A-E; with exact per-particle condensation A, C, D, E and G) through
+run_device_lgrngn and through the public API's dense front, and on the
+flat engine behind the public API (kernels A and F, and with exact
+per-particle condensation kernels A and G), and checks them:
 
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run
   2. build: compile the kernels from csrc/, one nvcc per source in parallel
@@ -33,7 +34,8 @@ exact per-particle condensation kernels A and G), and checks them:
      slots), run_device_lgrngn(engine="flat") against the stepwise loop,
      the kernel path against the plain path
   8. the exact per-particle condensation (exact_sstp_cond) through the
-     public API, with in-cell mixing, without it, and adaptive
+     public API on the flat engine (engine="flat"), with in-cell mixing,
+     without it, and adaptive
      (sstp_cond_act 8): spin-up and coalescing steps with bench.py's
      physics checks, kernel G (the per-droplet root find at each droplet's
      own ambient conditions) 10 times a step (adaptive: 14) and kernel A
@@ -91,10 +93,22 @@ exact per-particle condensation kernels A and G), and checks them:
      and SDs that crossed slab edges; best-of-3 timing of 50 coalescing
      steps from init at 8 and 1 shards beside the serial engine, and C's
      unwrapped form per launch beside its bound
+ 15. exact and adaptive condensation on the dense engine, in phase 8's
+     three variants: the factory on the card gives the dense front;
+     spin-up and coalescing steps through run_device_lgrngn(engine=
+     "dense") with bench.py's physics checks, kernel G 10 times a step
+     (adaptive: 14) on the ravelled (n_cell, cap) planes, D's 11-plane
+     form (the four private ambient planes riding) once a step, B and D's
+     7-plane form never; the dense front bitwise equal to it; G on the
+     dense planes (dead slots included) and the 11-plane D bitwise equal
+     to their plain versions; the kernel path against the plain path;
+     best-of-3 timing from init beside the flat exact slice's, and G's
+     and D's rows with their bounds
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
-the flat engine, the dense front and the exact slice (torch.profiler).  The last line is {"ok": true, "device": {...}}; the
+the flat engine, the dense front, the exact slice and the dense exact
+slice (torch.profiler).  The last line is {"ok": true, "device": {...}}; the
 line before it the card's name and power limit; before that one JSON
 object with a row per kernel.  Any failed check raises: the script then
 prints ``chip_smoke: FAILED: <reason>`` on stdout, and exits non-zero.
@@ -643,7 +657,8 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also print the device-time split of coalescing "
                          "steps on the dense engine, the flat engine, the "
-                         "dense front and the exact slice (torch.profiler)")
+                         "dense front, the exact slice and the dense exact "
+                         "slice (torch.profiler)")
     opts = ap.parse_args()
     try:
         return smoke(opts)
@@ -1082,7 +1097,8 @@ def smoke(opts):
           f"{front}", flush=True)
     check(front == dict(mpdata=2 * steps, cond=steps, transport=steps,
                         merge=steps, coal=SLICE_MAIN, coal_standalone=0,
-                        cond_flat=0, cond_sd=0, transport_unwrapped=0),
+                        cond_flat=0, cond_sd=0, transport_unwrapped=0,
+                        merge_exact=0),
           f"dense front: kernel A twice, B, C and D once a step and E once "
           f"a main step expected, got {front}")
     # bitwise against run_device_lgrngn(engine="dense") from the same state
@@ -1220,7 +1236,7 @@ def smoke(opts):
     bounds["cond_sd"] = cond_sd_bound(exact["g_kw"])
     rows = []
     for k in _ext.KERNELS:
-        if k is _ext.TRANSPORT_UNWRAPPED:     # phase 14's
+        if k in (_ext.TRANSPORT_UNWRAPPED, _ext.MERGE_EXACT):  # 14's, 15's
             continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
@@ -1279,6 +1295,11 @@ def smoke(opts):
     rows.append(row)
     model_c.dense_state, model_c.th, model_c.rv = dc0, thc0, rvc0
 
+    # ---- 15. exact and adaptive condensation on the dense engine
+    dx_rows, dx = dense_exact(Kinematic2D, dense, _ext, step, card, exact_ms,
+                              dense_ms["coalescence on"])
+    rows += dx_rows
+
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
         profile_both(model_c, (dc0, thc0, rvc0), model_f,
@@ -1286,6 +1307,9 @@ def smoke(opts):
         profile_front(model_d, fd_init, card)
         profile_flat(exact["model"], exact["init"], card,
                      label="exact (mixing), public API")
+        for label in ("mixing", "adaptive"):
+            profile_dense(*dx[label], card,
+                          label=f"dense exact ({label}), run_device_lgrngn")
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1920,8 +1944,10 @@ def forced_retargets(Kinematic2D, dense, _ext, card):
 
 def exact_slice(Kinematic2D, _ext, c, err):
     """bench.py's configuration with exact per-particle condensation, in
-    each of EXACT_VARIANTS, through the public API (factory -> particles_t
-    -> Kinematic2D.run()): spin-up and coalescing steps with bench.py's
+    each of EXACT_VARIANTS, through the public API on the flat engine
+    (factory(engine="flat") -> particles_t -> Kinematic2D.run(); the
+    factory's own pick on the card is the dense front, phase 15): spin-up
+    and coalescing steps with bench.py's
     physics checks, kernel G sstp_cond times a step (adaptive: once a try
     of phase A and max(sstp_cond, sstp_cond_act) times in phase B) and no
     other condensation kernel, run_device_lgrngn(engine="flat") equal to
@@ -1938,10 +1964,10 @@ def exact_slice(Kinematic2D, _ext, c, err):
     out, g_cases = {}, {}
     for label, oi in EXACT_VARIANTS.items():
         t0 = time.perf_counter()
-        m = make_model(Kinematic2D, coal=True, **oi)
+        m = make_model(Kinematic2D, coal=True, engine="flat", **oi)
         prt = m.prtcls
         check(type(prt).__name__ == "particles_t",
-              f"exact {label}: the factory gave {type(prt).__name__}")
+              f"exact {label}: engine='flat' gave {type(prt).__name__}")
         check(prt.state.sstp_tmp_th.shape == prt.state.n.shape
               and prt.state.sstp_tmp_p.shape == prt.state.n.shape,
               f"exact {label}: the substepping snapshot is not per SD")
@@ -2010,8 +2036,8 @@ def exact_slice(Kinematic2D, _ext, c, err):
         print(f"exact {label}, kernels vs plain after {EXACT_PLAIN_STEPS} "
               f"steps: th rel {rel_th:.2e}, rv rel {rel_rv:.2e}, bitwise "
               f"equal (th, rv, rw2, sstp_tmp_th) {same}", flush=True)
-        check(rel_th <= 1e-4 and rel_rv <= 1e-3,
-              f"exact {label}: the kernel path drifted from the plain path")
+        check(same, f"exact {label}: the kernel path differs from the plain "
+              f"path")
 
         # G's inputs: the mixing variant's first main substep, the adaptive
         # variant's first phase-B call
@@ -2060,20 +2086,236 @@ def exact_slice(Kinematic2D, _ext, c, err):
     return dict(mix, g_kw=g_kw)
 
 
-def cond_sd_bound(kw):
-    """Kernel G's bound on its inputs ``kw`` (advance_rw2's arguments):
-    12 arrays in (13 with a dt a droplet) and rw2 out at the memory rate,
-    against the root find's operations (rootfind_ops) and each droplet's
-    growth terms and set-up at the float32 rate."""
-    arrays = [kw[k] for k in ("rw2", "rd3", "kpa", "vt", "rhod", "rv", "T",
-                              "p", "RH", "eta", "lam_D", "lam_K")]
+def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
+                dense_ms):
+    """Phase 15: bench.py's configuration with exact per-particle
+    condensation on the dense engine, in each of EXACT_VARIANTS: the
+    factory on the card gives the dense front; spin-up and coalescing
+    steps through run_device_lgrngn(engine="dense") with bench.py's
+    physics checks, kernel G sstp_cond times a step (adaptive: once a try
+    of phase A and max(sstp_cond, sstp_cond_act) times in phase B) on the
+    ravelled (n_cell, cap) planes, D's 11-plane form once a step, B and
+    D's 7-plane form never; the dense front's stepwise run bitwise equal
+    to it; G on the dense planes of the first main substep (adaptive: the
+    first phase-B call, a dt a droplet) and the 11-plane D of a main step
+    bitwise equal to their plain versions; the kernel path against the
+    plain path from init; best-of-TIME_REPS timing from init beside the
+    flat exact slice's and the dense main path's.  Returns (kernel rows
+    for G on the dense planes and the 11-plane D, {variant: (model,
+    initial state)})."""
+    from libcloudphxx_tpu_torch.lgrngn import condensation as cnd
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    steps = SLICE_SPINUP + SLICE_MAIN
+    err = {"cond_sd": 0.0, "merge_exact": 0.0}
+    out, timing = {}, {}
+    for label, oi in EXACT_VARIANTS.items():
+        t0 = time.perf_counter()
+        m = make_model(Kinematic2D, coal=True, **oi)
+        check(isinstance(m.prtcls, particles_dense_t),
+              f"dense exact {label}: the factory on the card gave "
+              f"{type(m.prtcls).__name__}, not particles_dense_t")
+        init = (m.dense_state, m.th, m.rv)
+        d0 = init[0]
+        check(d0.sd_th.shape == d0.n.shape,
+              f"dense exact {label}: no private ambient planes")
+        totals = dense.water_dry_totals(d0, m.rv)
+        adaptive = bool(oi.get("adaptive_sstp_cond"))
+        tries = len(cnd.adaptive_tries(SSTP_COND))
+        per_step = tries + max(SSTP_COND, oi["sstp_cond_act"]) \
+            if adaptive else SSTP_COND
+
+        def restore(s):
+            m.dense_state, m.th, m.rv = s
+
+        reset(_ext.KERNELS)
+        t1 = time.perf_counter()
+        m.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP,
+                            engine="dense")
+        sp = (m.dense_state, m.th, m.rv)
+        m.run_device_lgrngn(SLICE_MAIN, engine="dense")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches = {k.name: k.launches for k in _ext.KERNELS}
+        dw, dd = physics_checks(m, *totals, dense)
+        end = (m.dense_state, m.th, m.rv)
+        lost = collided(sp[0], end[0])
+        print(f"dense exact, {label}: init {t1 - t0:.1f} s, "
+              f"{int((d0.n > 0).sum())} SDs at capacity {d0.cap}; "
+              f"{SLICE_SPINUP} spin-up + {SLICE_MAIN} main steps in "
+              f"{secs:.2f} s; water rel err {dw:.2e}, dry rel err {dd:.2e}, "
+              f"multiplicity lost to collisions {lost:.3e}, global re-bins "
+              f"{end[0].rebins}; G launches {launches['cond_sd'] / steps:g} a "
+              f"step ({per_step} expected); launches {launches}", flush=True)
+        want = {k.name: 0 for k in _ext.KERNELS}
+        want.update(mpdata=steps, transport=steps, merge_exact=steps,
+                    coal=SLICE_MAIN, cond_sd=per_step * steps)
+        check(launches == want, f"dense exact {label}: launches {launches}, "
+              f"expected {want}")
+        check(lost > 0.0, f"dense exact {label}: no collision in the main "
+              f"steps")
+
+        # the dense front's stepwise run from the same state, bitwise
+        restore(init)
+        reset(_ext.KERNELS)
+        m.run(steps, spinup=SLICE_SPINUP)
+        torch.cuda.synchronize()
+        front = {k.name: k.launches for k in _ext.KERNELS}
+        d_f, d_r = m.dense_state, end[0]
+        eq = {"th": bool(torch.equal(m.th, end[1])),
+              "rv": bool(torch.equal(m.rv, end[2]))}
+        for a in dense.attrs_of(m.cfg):
+            eq[a] = bool(np.array_equal(
+                multiset(d_f.n, (d_f.rd3, getattr(d_f, a))),
+                multiset(d_r.n, (d_r.rd3, getattr(d_r, a)))))
+        physics_checks(m, *totals, dense)
+        print(f"dense exact {label}: dense front, public API: launches "
+              f"{front}; vs run_device_lgrngn(engine='dense') bitwise equal "
+              f"{eq}", flush=True)
+        check(front == dict(want, mpdata=2 * steps), f"dense exact {label}: "
+              f"dense front launches {front}")
+        check(all(eq.values()), f"dense exact {label}: the dense front "
+              f"differs from run_device_lgrngn(engine='dense')")
+
+        # G and the 11-plane D on what a main step gives them
+        calls = capture_all({"g": (cond_ops, "advance_rw2"),
+                             "d": (dense, "rebin_x")},
+                            lambda: (restore(sp),
+                                     m.run_device_lgrngn(1, engine="dense")))
+        g_kw = calls["g"][tries if adaptive else 0]
+        d_kw = calls["d"][-1]
+        check(len(d_kw["extra"]) == 4, f"dense exact {label}: the merge "
+              f"took {len(d_kw['extra'])} extra planes")
+        check(isinstance(g_kw["dt"], torch.Tensor) == adaptive,
+              f"dense exact {label}: G's dt")
+        k, pl = cond_ops.advance_rw2(**g_kw), cond_ops.advance_rw2(
+            **g_kw, plain=True)
+        alive = g_kw["rw2"] > 0
+        same = bool(torch.equal(k, pl))
+        err["cond_sd"] = max(err["cond_sd"], max_abs(k, pl))
+        kept = bool(torch.equal(k[~alive], g_kw["rw2"][~alive]))
+        print(f"G cond_sd on the dense planes, {label}: {k.numel()} slots, "
+              f"{int(alive.sum())} with rw2 > 0; bitwise equal {same}, rw2 "
+              f"<= 0 kept {kept}", flush=True)
+        check(same and kept, f"G on the dense planes, {label}: kernel and "
+              f"plain version differ")
+        kd = step.rebin_x(**d_kw)
+        pd = step.rebin_x(**d_kw, plain=True)
+        same = all(torch.equal(a, b) for a, b in zip(kd, pd))
+        err["merge_exact"] = max(err["merge_exact"],
+                                 *(max_abs(a, b) for a, b in zip(kd, pd)))
+        taken = int((d_kw["tgt"] >= 0).sum())
+        print(f"D merge_exact, {label}: 11 planes, {taken} droplets taken; "
+              f"bitwise equal {same}", flush=True)
+        check(same, f"D's 11-plane form, {label}: kernel and plain version "
+              f"differ")
+
+        # the kernel path against the plain path, from init
+        res = []
+        for plain in (False, True):
+            restore(init)
+            m.run_device_lgrngn(EXACT_PLAIN_STEPS, spinup=EXACT_PLAIN_SPINUP,
+                                engine="dense", plain=plain)
+            torch.cuda.synchronize()
+            res.append((m.dense_state, m.th, m.rv))
+        (sk, thk, rvk), (sp_, thp, rvp) = res
+        rel_th, rel_rv = max_rel(thk, thp), max_rel(rvk, rvp)
+        planes = lambda d: multiset(d.n, (d.rd3, d.rw2, d.kpa, d.vt, d.x,
+                                          d.z, d.sd_th, d.sd_rv, d.sd_rh,
+                                          d.sd_p))
+        same = bool(torch.equal(thk, thp) and torch.equal(rvk, rvp)
+                    and np.array_equal(planes(sk), planes(sp_)))
+        print(f"dense exact {label}, kernels vs plain after "
+              f"{EXACT_PLAIN_STEPS} steps: th rel {rel_th:.2e}, rv rel "
+              f"{rel_rv:.2e}, bitwise equal (th, rv, every plane) {same}",
+              flush=True)
+        check(same, f"dense exact {label}: the kernel path differs from the "
+              f"plain path")
+
+        # timing: best of TIME_REPS from-init reps, physics checks on each
+        restore(init)
+        best, _ = time_reps(m, init, TIME_STEPS, False, totals, dense)
+        timing[label] = best / TIME_STEPS * 1e3
+        print(f"timing dense exact ({label}, run_device_lgrngn, coalescence "
+              f"on), kernels: {timing[label]:.3f} ms/step, "
+              f"{int((d0.n > 0).sum()) * TIME_STEPS / best:.4g} SD-updates/s "
+              f"({TIME_STEPS} steps, best of {TIME_REPS}; {card})",
+              flush=True)
+        restore(init)
+        out[label] = dict(model=m, init=init, g_kw=g_kw, d_kw=d_kw,
+                          launches=launches)
+    print(f"timing, exact condensation, coalescence on, from init: dense "
+          f"engine " + ", ".join(f"{k} {v:.3f}" for k, v in timing.items())
+          + f" ms/step; the flat exact slice (mixing, public API) "
+          f"{flat_exact_ms:.3f}; the dense main path (per-cell) "
+          f"{dense_ms:.3f} ({card})", flush=True)
+
+    mix = out["mixing"]
+    g_kw, d_kw = mix["g_kw"], mix["d_kw"]
+    rows = []
+    for name, kernel, fn, bnd in (
+            ("cond_sd_dense", _ext.COND_SD,
+             lambda plain: cond_ops.advance_rw2(**g_kw, plain=plain),
+             cond_sd_bound(g_kw, cap=mix["init"][0].cap)),
+            ("merge_exact", _ext.MERGE_EXACT,
+             lambda plain: step.rebin_x(**d_kw, plain=plain),
+             merge_exact_bound(d_kw))):
+        ms = time_cuda(lambda: fn(False), KERNEL_REPS)
+        plain_ms = time_cuda(lambda: fn(True), KERNEL_REPS)
+        bound_ms, bound_by = bnd
+        launches = mix["launches"][kernel.name]
+        print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); {launches} launches in the "
+              f"mixing variant's {steps} steps ({card})")
+        check(launches > 0, f"kernel {name} was not launched")
+        rows.append({"name": name, "route": "cuda", "source": kernel.source,
+                     "replaces": kernel.replaces, "launches": launches,
+                     "max_abs_err": err["cond_sd" if kernel is _ext.COND_SD
+                                        else "merge_exact"],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    return rows, {k: (v["model"], v["init"]) for k, v in out.items()}
+
+
+def merge_exact_bound(kw):
+    """D's 11-plane bound on its arguments ``kw`` (rebin_x's): the targets
+    of every slot and the eleven planes of the droplets it takes (those
+    alive after C) in, eleven planes and the drops out, at the memory
+    rate, against the nine-source merge of each taken droplet."""
+    n, tgt = kw["n"], kw["tgt"]
+    live = int((tgt >= 0).sum())
+    slot = n.element_size()
+    return bound(nbytes(tgt) + 11 * slot * live + 11 * nbytes(n)
+                 + slot * n.shape[0], live * OPS_MERGE)
+
+
+def cond_sd_bound(kw, cap=None):
+    """Kernel G's bound on its inputs ``kw`` (advance_rw2's arguments): for
+    each droplet with rw2 > 0, 12 arrays in (13 with a dt a droplet) and
+    rw2 out, and for each slot with rw2 <= 0, which the function returns as
+    it was given, rw2 in and out, at the memory rate; against the root
+    find's operations (rootfind_ops) and each droplet's growth terms and
+    set-up at the float32 rate.  With ``cap`` the arrays are ravelled
+    (n_cell, cap) planes whose lam_D and lam_K are their rows' values,
+    counted once a row."""
+    names = ("rw2", "rd3", "kpa", "vt", "rhod", "rv", "T", "p", "RH", "eta",
+             "lam_D", "lam_K")
+    arrays = [kw[k] for k in names]
     live = arrays[0] > 0
     ops, brk, n_live = rootfind_ops(kw["dt"], arrays, kw["RH_max"], live)
-    dt_bytes = nbytes(kw["dt"]) if isinstance(kw["dt"], torch.Tensor) else 0
+    per_sd = arrays[:10] if cap else arrays
+    if isinstance(kw["dt"], torch.Tensor):
+        per_sd = per_sd + [kw["dt"]]
+    rw2_b = arrays[0].element_size()
+    n = arrays[0].numel()
+    moved = (n_live * (sum(a.element_size() for a in per_sd) + rw2_b)
+             + (n - n_live) * 2 * rw2_b)
+    if cap:
+        moved += n // cap * sum(a.element_size() for a in arrays[10:])
     print(f"G cond_sd: {brk / max(n_live, 1):.4f} of the {n_live} droplets "
-          f"with rw2 > 0 bracketed in the first main substep")
-    return bound(nbytes(*arrays, arrays[0]) + dt_bytes,
-                 ops + n_live * (OPS_GROWTH + OPS_DROP))
+          f"with rw2 > 0 bracketed in the first main substep; "
+          f"{n - n_live} slots with rw2 <= 0")
+    return bound(moved, ops + n_live * (OPS_GROWTH + OPS_DROP))
 
 
 def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw,
@@ -2270,6 +2512,23 @@ def profile_front(model_d, front_init, card, warm=5):
 
     profile("dense front, public API", front_start, model_d.run, card)
     model_d.dense_state, model_d.th, model_d.rv = front_init
+
+
+def profile_dense(model, init, card, label, warm=5):
+    """profile() of a dense model's coalescing steps through
+    run_device_lgrngn(engine="dense"), after the spin-up and ``warm``
+    steps; the model is put back at its initial state."""
+    model.dense_state, model.th, model.rv = init
+    model.run_device_lgrngn(SLICE_SPINUP + warm, spinup=SLICE_SPINUP,
+                            engine="dense")
+    d_warm = (model.dense_state, model.th, model.rv)
+
+    def start():
+        model.dense_state, model.th, model.rv = d_warm
+
+    profile(label, start, lambda n: model.run_device_lgrngn(n, engine="dense"),
+            card)
+    model.dense_state, model.th, model.rv = init
 
 
 def profile_flat(model_f, flat_init, card, warm=5, label="flat, public API"):

@@ -94,11 +94,20 @@ TRANSPORT_UNWRAPPED = Kernel(
     "libcloudphxx_tpu_torch/csrc/transport.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel with x_wrap=False, "
     ":378-382; lgrngn/dense.py:1373 _shard_phase)")
+# planes in (7), targets, planes out (7), drops; n_cell, cap, nx, nz
 MERGE = Kernel(
     "merge", "lcp_merge", [_P] * 16 + [_I, _I, _I, _I],
     "libcloudphxx_tpu_torch/csrc/merge.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:716 (_xmerge_kernel) and :405 "
     "(_kernel z-merge epilogue)")
+# kernel D's 11-plane form (exact mode: the private ambient planes ride):
+# planes in (11), targets, planes out (11), drops; n_cell, cap, nx, nz
+MERGE_EXACT = Kernel(
+    "merge_exact", "lcp_merge_exact", [_P] * 24 + [_I, _I, _I, _I],
+    "libcloudphxx_tpu_torch/csrc/merge_exact.cu",
+    "libcloudphxx_tpu/ops/pallas_step.py:716 (_xmerge_kernel) and :405 "
+    "(_kernel z-merge epilogue), with the exact mode's per-SD ambient "
+    "planes (lgrngn/dense.py:1088-1180 rebin over attrs_of)")
 # planes in (6), cells, table; the outputs; the flags, n_cell, cap, sstp;
 # dt_sub, kernel, coef, r_max - 1e-6, clamp, seed, step, vt formula; the
 # resident form also the pairing and the global index of the first row
@@ -127,9 +136,11 @@ COND_SD = Kernel(
     "libcloudphxx_tpu_torch/csrc/cond_sd.cu",
     "libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
     ":46, call :78), per-droplet ambient callers (lgrngn/condensation.py "
-    ":468 cond_perparticle, :684 perparticle_adaptive_core)")
+    ":468 cond_perparticle, :684 perparticle_adaptive_core; lgrngn/"
+    "dense.py:359 step_cond_exact, :456 step_cond_adaptive, :523 "
+    "_step_cond_percell)")
 KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
-           COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED)
+           COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED, MERGE_EXACT)
 
 _lib = None
 

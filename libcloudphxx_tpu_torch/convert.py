@@ -17,12 +17,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from .lgrngn.dense import ATTRS, DenseState
+from .lgrngn.dense import ATTRS, EXACT_ATTRS, DenseState
 from .lgrngn.state import TENSOR_FIELDS, State, StaticConfig
 
 # JAX DenseState fields the port does not hold: they must be empty (2-D,
-# no deferred x pass, no per-SD ambient copies) or are the JAX RNG key
-_EMPTY = ("y", "courant_y", "xkey", "sd_th", "sd_rv", "sd_rh", "sd_p")
+# no deferred x pass) or are the JAX RNG key
+_EMPTY = ("y", "courant_y", "xkey")
 _CELLS = ("rhod", "p", "T", "RH", "eta", "dv", "sstp_tmp_th", "sstp_tmp_rv",
           "courant_x", "courant_z", "puddle")
 
@@ -39,10 +39,12 @@ def static_config_from_numpy(fields: dict) -> StaticConfig:
 
 def dense_state_from_numpy(arrays: dict, device, dtype,
                            rng_seed=44) -> DenseState:
-    """A port DenseState from the JAX DenseState's arrays as numpy.  The
-    coalescence draws are keyed by ``arrays["rng_seed"]`` where the arrays
-    came from the port, else by ``rng_seed`` (opts_init.rng_seed), and
-    continue from ``arrays["rng_step"]`` (else step 0)."""
+    """A port DenseState from the JAX DenseState's arrays as numpy, the
+    exact mode's private planes (sd_th, sd_rv, sd_rh, sd_p) where the
+    arrays hold them, else empty.  The coalescence draws are keyed by
+    ``arrays["rng_seed"]`` where the arrays came from the port, else by
+    ``rng_seed`` (opts_init.rng_seed), and continue from
+    ``arrays["rng_step"]`` (else step 0)."""
     for k in _EMPTY:
         if k in arrays and np.asarray(arrays[k]).size:
             raise NotImplementedError(
@@ -51,6 +53,8 @@ def dense_state_from_numpy(arrays: dict, device, dtype,
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
     return DenseState(
         **{k: t(arrays[k]) for k in ATTRS + _CELLS},
+        **{k: t(arrays[k]) for k in EXACT_ATTRS
+           if k in arrays and np.asarray(arrays[k]).size},
         overflow=torch.as_tensor(int(np.asarray(arrays["overflow"])),
                                  dtype=torch.int64, device=device),
         rng_seed=int(arrays.get("rng_seed", rng_seed)),
@@ -58,9 +62,11 @@ def dense_state_from_numpy(arrays: dict, device, dtype,
 
 
 def dense_state_to_numpy(d: DenseState) -> dict:
-    """The DenseState's arrays as numpy, under the JAX DenseState's names,
-    and its random stream as ``rng_seed`` and ``rng_step``."""
-    out = {k: getattr(d, k).detach().cpu().numpy() for k in ATTRS + _CELLS}
+    """The DenseState's arrays as numpy, under the JAX DenseState's names
+    (the private planes (0, 0) outside exact mode, as JAX's), and its
+    random stream as ``rng_seed`` and ``rng_step``."""
+    out = {k: getattr(d, k).detach().cpu().numpy()
+           for k in ATTRS + _CELLS + EXACT_ATTRS}
     out["overflow"] = np.asarray(int(d.overflow))
     out["rng_seed"] = np.asarray(d.rng_seed)
     out["rng_step"] = np.asarray(d.rng_step)

@@ -32,33 +32,17 @@
 // order.  The planes are read only for the slots taken, and a lane whose
 // four slots are all taken to a 16-byte aligned position (most of a row's
 // own droplets) stores them as 16 bytes a plane.
+//
+// The row code is merge.cuh's merge_rows; merge_exact.cu is the exact
+// mode's form, with four more planes.
 
 #include <cuda_runtime.h>
 
-#include "warp_rows.cuh"
+#include "merge.cuh"
 
 namespace lcp {
 
 constexpr int kPlanes = 7;  // n rw2 rd3 kpa vt x z
-constexpr int kGroup = 9;   // (source, tile) units whose loads go first
-
-// MERGE_SOURCES (ops/step.py), the source rows of the merge in order: own
-// row, the z neighbours, then the columns to the left and to the right
-// (each: same level, below, above)
-__device__ __forceinline__ int source_di(int s) {
-  return s < 3 ? 0 : (s < 6 ? -1 : 1);
-}
-__device__ __forceinline__ int source_dk(int s) {
-  const int m = s % 3;
-  return m == 0 ? 0 : (m == 1 ? -1 : 1);
-}
-// row i * nz + k's neighbour MERGE_SOURCES[s] (x-periodic), or -2 beyond
-// the z walls
-__device__ __forceinline__ int neighbour(int i, int k, int s, int nx,
-                                         int nz) {
-  const int ks = k + source_dk(s);
-  return ks < 0 || ks >= nz ? -2 : ((i + source_di(s) + nx) % nx) * nz + ks;
-}
 
 template <bool VEC>
 __global__ void __launch_bounds__(kWarpRows * 32)
@@ -74,98 +58,10 @@ merge_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
   // the planes as kernel parameters marked __restrict__, not a struct of
   // pointers: the compiler may then move a unit's plane loads ahead of the
   // previous unit's stores
-  const float* in[kPlanes] = {n, rw2, rd3, kpa, vt, x, z};
-  float* out[kPlanes] = {n_out, rw2_out, rd3_out, kpa_out, vt_out, x_out,
-                         z_out};
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
-  if (r >= n_cell) return;  // the whole warp
-  const int i = r / nz, k = r % nz;
-  const unsigned below = (1u << lane) - 1u;
-  const int tiles = (cap + kTile - 1) / kTile;
-  const size_t dst = static_cast<size_t>(r) * cap;
-  int count = 0;  // droplets taken so far, the same on every lane
-  // units u = source * tiles + tile, kGroup at a time (9 * tiles in all)
-  for (int u0 = 0; u0 < 9 * tiles; u0 += kGroup) {
-    unsigned take[kGroup];  // bit q: slot lo + q goes to row r
-    size_t src[kGroup];
-    int lo[kGroup];
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      const int u = u0 + g;
-      const int row = neighbour(i, k, u / tiles, nx, nz);
-      lo[g] = (u % tiles) * kTile + 4 * lane;
-      take[g] = 0u;
-      src[g] = 0;
-      if (row < 0 || lo[g] >= cap) continue;
-      src[g] = static_cast<size_t>(row) * cap + lo[g];
-      int t[4];
-      load4<VEC>(tgt, src[g], lo[g], cap, -1, t);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) take[g] |= (t[q] == r ? 1u : 0u) << q;
-    }
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      int before = 0, total = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const unsigned b = __ballot_sync(kAll, (take[g] >> q) & 1u);
-        before += __popc(b & below);
-        total += __popc(b);
-      }
-      if (take[g]) {
-        float v[kPlanes][4];
-#pragma unroll
-        for (int p = 0; p < kPlanes; ++p) {
-          if constexpr (VEC) {
-            load4<true>(in[p], src[g], lo[g], cap, 0.0f, v[p]);
-          } else {
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              v[p][q] = (take[g] >> q) & 1u ? __ldg(in[p] + src[g] + q)
-                                            : 0.0f;
-          }
-        }
-        int pos = count + before;
-        if (VEC && take[g] == 0xfu && pos % 4 == 0 && pos + 4 <= cap) {
-#pragma unroll
-          for (int p = 0; p < kPlanes; ++p)
-            store4<VEC>(out[p], dst + pos, pos, cap, v[p]);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if ((take[g] >> q) & 1u) {
-              if (pos < cap) {
-#pragma unroll
-                for (int p = 0; p < kPlanes; ++p) out[p][dst + pos] = v[p][q];
-              }
-              ++pos;
-            }
-          }
-        }
-      }
-      count += total;
-    }
-  }
-  // the lanes past the last droplet
-  for (int l0 = 4 * lane; l0 < cap; l0 += kTile) {
-    if (VEC && l0 >= count) {  // all four slots of the lane
-      const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int p = 0; p < kPlanes; ++p)
-        store4<VEC>(out[p], dst + l0, l0, cap, zero);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int l = l0 + q;
-        if (l < cap && l >= count) {
-#pragma unroll
-          for (int p = 0; p < kPlanes; ++p) out[p][dst + l] = 0.0f;
-        }
-      }
-    }
-  }
-  if (lane == 0) drops[r] = count > cap ? float(count - cap) : 0.0f;
+  const float* const in[kPlanes] = {n, rw2, rd3, kpa, vt, x, z};
+  float* const out[kPlanes] = {n_out, rw2_out, rd3_out, kpa_out, vt_out,
+                               x_out, z_out};
+  merge_rows<kPlanes, VEC>(in, out, tgt, drops, n_cell, cap, nx, nz);
 }
 
 }  // namespace lcp

@@ -102,6 +102,15 @@ def _advance_rw2_core(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH, eta,
     return torch.where(alive & (drw2 != 0), rw2_new, rw2_old)
 
 
+def exact_route(cfg: StaticConfig):
+    """Whether condensation runs the per-particle substepping (fixed or
+    adaptive) rather than the per-cell one: exact mode with more than one
+    substep (reference particles_step.ipp:199; libcloudphxx_tpu/lgrngn/
+    dense.py:310).  Both engines dispatch on it."""
+    return bool(cfg.exact_sstp_cond) and (cfg.sstp_cond > 1
+                                          or cfg.sstp_cond_act > 1)
+
+
 def stale_mfp(state: State):
     """Mean free paths from the cell T/p as they stand before the step's
     thermodynamic refresh: the reference computes hskpng_mfp from the
@@ -219,36 +228,52 @@ def advance_rw2(dt, rw2, rd3, kpa, vt, rhod, rv, T, p, RH, eta, lambda_D,
                                 eta, lambda_D, lambda_K, RH_max, plain=plain)
 
 
-def _close_cells(cfg: StaticConfig, before: State, after: State, summer):
+def apply_drv_to_th_rv(cfg: StaticConfig, th, rv, rhod, p, drv):
     """The cell closure of the nomixing per-particle paths
-    (libcloudphxx_tpu/lgrngn/condensation.py:531-566): the vapour the
-    cells' droplets took between ``before`` and ``after`` (the change of
-    the cells' specific third moment, particles_impl_cond.ipp:105-135,
-    times 4/3 pi rho_w, summed by ``summer`` in float64) leaves rv, and
-    theta follows along the drv path (dtheta/drv = d_th_d_rv(T(theta),
-    theta), one RK4 stage per cell; the reference's update_th_rv takes one
-    linear step).  Returns ``after`` with the new th and rv."""
-    def mom3(st):
-        rw3 = st.rw2 * torch.sqrt(torch.clamp(st.rw2, min=0.0))
-        return summer(st.n * torch.where(st.n > 0, rw3, 1.0)) / st.dv \
-            / st.rhod
-
-    drv = ((mom3(after) - mom3(before)) * (4.0 / 3) * c.pi * c.rho_w).to(
-        after.th.dtype)
+    (libcloudphxx_tpu/lgrngn/condensation.py:547): the vapour ``drv`` the
+    cells' droplets took leaves rv, and theta follows along the drv path
+    (dtheta/drv = d_th_d_rv(T(theta), theta), one RK4 stage per cell; the
+    reference's update_th_rv takes one linear step).  Returns (th, rv)."""
     if cfg.th_dry:
-        rhod = torch.clamp(after.rhod, min=1e-10)
+        rhod = torch.clamp(rhod, min=1e-10)
         f = lambda th: theta_dry.d_th_d_rv(theta_dry.T(th, rhod), th)
     else:
-        ex = theta_std.exner(torch.clamp(after.p, min=1.0))
+        ex = theta_std.exner(torch.clamp(p, min=1.0))
         f = lambda th: theta_dry.d_th_d_rv(th * ex, th)
-    th, h = after.th, -drv
+    h = -drv
     k1 = f(th)
     k2 = f(th + 0.5 * h * k1)
     k3 = f(th + 0.5 * h * k2)
     k4 = f(th + h * k3)
-    return dataclasses.replace(
-        after, th=th + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4),
-        rv=after.rv - drv)
+    return th + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4), rv - drv
+
+
+def rw3_of(rw2):
+    """rw^3 of each droplet's rw^2, 0 where rw2 <= 0."""
+    return rw2 * torch.sqrt(torch.clamp(rw2, min=0.0))
+
+
+def third_moment(wgt, rw2, live, summer):
+    """The float64 sums by ``summer`` of wgt rw^3 over the ``live`` SDs:
+    the third moment whose change a nomixing cell closure turns into
+    vapour (particles_impl_cond.ipp:105-135)."""
+    return summer(torch.where(live, wgt * rw3_of(rw2), 0.0))
+
+
+def _close_cells(cfg: StaticConfig, before: State, after: State, summer):
+    """apply_drv_to_th_rv on the flat State (libcloudphxx_tpu/lgrngn/
+    condensation.py:531-566): the vapour the cells' droplets took between
+    ``before`` and ``after`` (the change of the cells' specific third
+    moment times 4/3 pi rho_w, summed by ``summer`` in float64).  Returns
+    ``after`` with the new th and rv."""
+    def mom3(st):
+        return third_moment(st.n, st.rw2, st.n > 0, summer) / st.dv / st.rhod
+
+    drv = ((mom3(after) - mom3(before)) * (4.0 / 3) * c.pi * c.rho_w).to(
+        after.th.dtype)
+    th, rv = apply_drv_to_th_rv(cfg, after.th, after.rv, after.rhod,
+                                after.p, drv)
+    return dataclasses.replace(after, th=th, rv=rv)
 
 
 def _perparticle_thermo(cfg: StaticConfig, tmp_th, tmp_rv, tmp_rh, tmp_p):
@@ -269,37 +294,64 @@ def cond_perparticle(cfg: StaticConfig, state: State, dt, RH_max, lam, *,
     """Exact per-particle condensation substepping
     (libcloudphxx_tpu/lgrngn/condensation.py:412-528; reference
     particles_step.ipp:219-232 and src/impl/condensation/perparticle/):
-    each SD carries its own th/rv/rhod/p, takes the host model's change in
-    sstp_cond equal parts, grows (advance_rw2: kernel G on the card) and
-    feeds its latent heat to its own th/rv.  With sstp_cond_mix the SDs of
-    a cell share their vapour and heat each substep (the cell sums of drv
-    and dth) and the cell takes their common state at the end; without
+    perparticle_fixed_core over the SD arrays, with sstp_cond_mix the cell
+    sums in float64 cumulative sums in cell order.  With mixing the cell
+    then takes its SDs' common private state, the largest value among its
+    live SDs: values that agree to rounding (the JAX package's scatter
+    keeps one writer it does not specify), the same in every run; without
     it the cell closes on the change of its liquid water.  ``lam`` is
-    stale_mfp's (lambda_D, lambda_K).
+    stale_mfp's (lambda_D, lambda_K)."""
+    g = lambda arr: arr[state.ijk]
+    summer = cell_summer(state.ijk, cfg.n_cell)
+    rw2, tmp_rv, tmp_th, tmp_rh, tmp_p = perparticle_fixed_core(
+        cfg, dt, RH_max, n=state.n, rw2=state.rw2, rd3=state.rd3,
+        kpa=state.kpa, vt=state.vt, dv_sd=g(state.dv), lam_D_sd=g(lam[0]),
+        lam_K_sd=g(lam[1]), dlt_rv=g(state.rv) - state.sstp_tmp_rv,
+        dlt_th=g(state.th) - state.sstp_tmp_th,
+        dlt_rh=g(state.rhod) - state.sstp_tmp_rh,
+        dlt_p=g(state.p) - state.sstp_tmp_p, tmp_rv0=state.sstp_tmp_rv,
+        tmp_th0=state.sstp_tmp_th, tmp_rh0=state.sstp_tmp_rh,
+        tmp_p0=state.sstp_tmp_p,
+        spread=lambda vals: summer(vals).to(vals.dtype)[state.ijk],
+        plain=plain)
+    new = dataclasses.replace(state, rw2=rw2, sstp_tmp_rv=tmp_rv,
+                              sstp_tmp_th=tmp_th, sstp_tmp_rh=tmp_rh,
+                              sstp_tmp_p=tmp_p)
+    if cfg.sstp_cond_mix:
+        # the cell takes its SDs' (common) private state
+        # (update_state, particles_impl_update_th_rv.ipp:283-297)
+        live = state.n > 0
+        tgt = state.ijk[live]
+        pick = lambda cells, vals: cells.scatter_reduce(
+            0, tgt, vals[live], "amax", include_self=False)
+        return dataclasses.replace(new, rv=pick(state.rv, tmp_rv),
+                                   th=pick(state.th, tmp_th))
+    return _close_cells(cfg, state, new, summer)
 
-    The cell sums are float64 cumulative sums in cell order, and the copy
-    back to a cell takes the largest value among its live SDs: values
-    that agree to rounding (the JAX package's scatter keeps one writer it
-    does not specify), the same in every run."""
+
+def perparticle_fixed_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
+                           kpa, vt, dv_sd, lam_D_sd, lam_K_sd, dlt_rv,
+                           dlt_th, dlt_rh, dlt_p, tmp_rv0, tmp_th0, tmp_rh0,
+                           tmp_p0, spread, plain=False):
+    """The per-SD body of the fixed-count exact substepping
+    (libcloudphxx_tpu/lgrngn/condensation.py:446-510, dense.py:348-392),
+    elementwise over SD arrays of one shape (the flat engine's SD arrays,
+    the dense engine's (n_cell, cap) planes): each of sstp_cond substeps
+    adds a share of the deltas to each SD's private th/rv/rhod/p
+    (calculate_noncond_perparticle_sstp_delta.ipp), grows the SD there
+    (advance_rw2 over the ravelled arrays: kernel G on the card) and
+    feeds the vapour of its own third-moment change and the heat that
+    goes with it back (apply_perparticle_drw3_to_perparticle_rv_and_th.
+    ipp): with sstp_cond_mix to every SD of its cell, ``spread`` giving
+    each SD its cell's sum of a per-SD array (update_pstate), without it
+    to itself.  Dead SDs feed nothing back.  Returns (rw2, tmp_rv, tmp_th,
+    tmp_rh, tmp_p)."""
     sstp = cfg.sstp_cond
     dt_sub = dt / sstp
-    mix = bool(cfg.sstp_cond_mix)
-    g = lambda arr: arr[state.ijk]
-    lam_D, lam_K = (g(a) for a in lam)
-    # per-SD ambient deltas (calculate_noncond_perparticle_sstp_delta.ipp)
-    dlt_rv = g(state.rv) - state.sstp_tmp_rv
-    dlt_th = g(state.th) - state.sstp_tmp_th
-    dlt_rh = g(state.rhod) - state.sstp_tmp_rh
-    dlt_p = g(state.p) - state.sstp_tmp_p
-    live = state.n > 0
-    dv_sd = g(state.dv)
-    summer = cell_summer(state.ijk, cfg.n_cell)
-    spread = lambda vals: summer(vals).to(vals.dtype)[state.ijk]
+    live = n > 0
+    flat = lambda a: a.reshape(-1)
     mlt = -(4.0 / 3) * c.pi * c.rho_w
-
-    rw2 = state.rw2
-    tmp_rv, tmp_th = state.sstp_tmp_rv, state.sstp_tmp_th
-    tmp_rh, tmp_p = state.sstp_tmp_rh, state.sstp_tmp_p
+    tmp_rv, tmp_th, tmp_rh, tmp_p = tmp_rv0, tmp_th0, tmp_rh0, tmp_p0
     for _ in range(sstp):
         base_rv = tmp_rv + dlt_rv / sstp
         base_th = tmp_th + dlt_th / sstp
@@ -308,38 +360,20 @@ def cond_perparticle(cfg: StaticConfig, state: State, dt, RH_max, lam, *,
             tmp_p = tmp_p + dlt_p / sstp
         Tp, pp, RHp, eta_p = _perparticle_thermo(cfg, base_th, base_rv,
                                                  tmp_rh, tmp_p)
-        rw3_old = rw2 * torch.sqrt(torch.clamp(rw2, min=0.0))
-        rw2_new = advance_rw2(dt_sub, rw2, state.rd3, state.kpa, state.vt,
-                              tmp_rh, base_rv, Tp, pp, RHp, eta_p, lam_D,
-                              lam_K, RH_max, plain=plain)
-        rw3_new = rw2_new * torch.sqrt(torch.clamp(rw2_new, min=0.0))
-        drw3 = torch.where(live, rw3_new - rw3_old, 0.0)
-        # drv from the SD's own third-moment change
-        # (apply_perparticle_drw3_to_perparticle_rv_and_th.ipp)
-        drv = mlt * drw3 * state.n / tmp_rh / dv_sd
-        if mix:
-            # the cell's SDs share drv, and the sum of their own dth
-            # (update_pstate)
-            dth_own = drv * theta_dry.d_th_d_rv(Tp, base_th)
-            tmp_th = base_th + spread(dth_own)
-            tmp_rv = base_rv + spread(drv)
+        rw2_new = advance_rw2(
+            dt_sub, flat(rw2), flat(rd3), flat(kpa), flat(vt), flat(tmp_rh),
+            flat(base_rv), flat(Tp), flat(pp), flat(RHp), flat(eta_p),
+            flat(lam_D_sd), flat(lam_K_sd), RH_max,
+            plain=plain).reshape(rw2.shape)
+        drw3 = torch.where(live, rw3_of(rw2_new) - rw3_of(rw2), 0.0)
+        drv = mlt * drw3 * n / tmp_rh / dv_sd
+        dth = torch.where(live, drv * theta_dry.d_th_d_rv(Tp, base_th), 0.0)
+        if cfg.sstp_cond_mix:
+            tmp_rv, tmp_th = base_rv + spread(drv), base_th + spread(dth)
         else:
-            tmp_rv = base_rv + drv
-            tmp_th = base_th + drv * theta_dry.d_th_d_rv(Tp, base_th)
+            tmp_rv, tmp_th = base_rv + drv, base_th + dth
         rw2 = rw2_new
-
-    new = dataclasses.replace(state, rw2=rw2, sstp_tmp_rv=tmp_rv,
-                              sstp_tmp_th=tmp_th, sstp_tmp_rh=tmp_rh,
-                              sstp_tmp_p=tmp_p)
-    if mix:
-        # the cell takes its SDs' (common) private state
-        # (update_state, particles_impl_update_th_rv.ipp:283-297)
-        tgt = state.ijk[live]
-        pick = lambda cells, vals: cells.scatter_reduce(
-            0, tgt, vals[live], "amax", include_self=False)
-        return dataclasses.replace(new, rv=pick(state.rv, tmp_rv),
-                                   th=pick(state.th, tmp_th))
-    return _close_cells(cfg, state, new, summer)
+    return rw2, tmp_rv, tmp_th, tmp_rh, tmp_p
 
 
 def cond_perparticle_adaptive(cfg: StaticConfig, state: State, dt, RH_max,
@@ -474,9 +508,7 @@ def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
                              dt_sd)
         rw2_new = torch.where(reuse, rw2 + drw2, rw2_solve)
         rw2_new = torch.where(active, rw2_new, rw2)
-        rw3_old = rw2 * torch.sqrt(torch.clamp(rw2, min=0.0))
-        rw3_new = rw2_new * torch.sqrt(torch.clamp(rw2_new, min=0.0))
-        drw3 = torch.where(active, rw3_new - rw3_old, 0.0)
+        drw3 = torch.where(active, rw3_of(rw2_new) - rw3_of(rw2), 0.0)
         drv = mlt * drw3 * n / tmp_rh_n / dv_sd
         tmp_rv = tmp_rv_n + drv
         tmp_th = tmp_th_n + drv * theta_dry.d_th_d_rv(Tp, tmp_th_n)

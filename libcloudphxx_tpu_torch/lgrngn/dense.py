@@ -12,6 +12,13 @@ Its random stream goes with it: the coalescence draws are Philox numbers
 keyed by the state's seed and step counter (ops/philox.py), so restoring a
 state restores the draws that follow it.
 The per-cell closure (the JAX package's dense._Tpr) is hskpng.hskpng_Tpr.
+
+With exact_sstp_cond the population also carries each SD's private
+ambient state (its th, rv, rhod and p at the last sstp_save) as four more
+planes, sd_th, sd_rv, sd_rh and sd_p (attrs_of): the per-particle
+substepping reads them (step_cond_exact, step_cond_adaptive: kernel G once
+a substep on the card), and they ride every re-binning, so that an SD that
+moved keeps its old cell's snapshot.
 """
 
 import dataclasses
@@ -22,20 +29,35 @@ from ..common import constants as c
 from ..ops import coal as coal_ops
 from ..ops.step import rebin_x, step_resident
 from . import coalescence as coal_mod
+from .condensation import (apply_drv_to_th_rv, exact_route,
+                           perparticle_adaptive_core, perparticle_fixed_core,
+                           third_moment)
 from .enums import as_t, kernel_t
-from .hskpng import hskpng_mfp, ijk_of_xyz
+from .hskpng import hskpng_mfp, hskpng_Tpr, ijk_of_xyz
 from .state import (OUT_COAL_OVERFLOW, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL,
                     OUT_PRTCL_NUM, State, StaticConfig)
 
 ATTRS = ("n", "rw2", "rd3", "kpa", "vt", "x", "z")
+# the exact mode's private ambient planes, and the flat State's names for
+# them (libcloudphxx_tpu/lgrngn/dense.py:205-216)
+EXACT_ATTRS = ("sd_th", "sd_rv", "sd_rh", "sd_p")
+_FLAT_NAME = {"sd_th": "sstp_tmp_th", "sd_rv": "sstp_tmp_rv",
+              "sd_rh": "sstp_tmp_rh", "sd_p": "sstp_tmp_p"}
+
+
+def attrs_of(cfg: StaticConfig):
+    """The per-SD planes of the dense layout for ``cfg``: ATTRS, and in
+    exact_sstp_cond mode the four private ambient planes."""
+    return ATTRS + (EXACT_ATTRS if cfg.exact_sstp_cond else ())
 
 
 def supported(cfg: StaticConfig):
     """The dense engine's capability matrix (libcloudphxx_tpu/lgrngn/
     dense.py:116 _supported with :1209 resident_static_ok): raise
     NotImplementedError, with the reason, for a configuration it does not
-    run.  The port has no XLA dense pipeline, so it covers exactly what
-    kernels B-E take: 2-D, warm, percell condensation substepping,
+    run.  The port has no XLA dense pipeline, so it covers what kernels
+    B-E and G take: 2-D, warm, every condensation substepping mode
+    (percell, exact fixed-count with or without in-cell mixing, adaptive),
     implicit or euler advection, every terminal velocity formula, and for
     coalescence the formula kernels and the hall family on a population
     that is not const-multi.  The JAX dense front runs the rest of its
@@ -47,12 +69,6 @@ def supported(cfg: StaticConfig):
         raise NotImplementedError("dense engine: ice/chem/SGS not supported")
     if cfg.diag_incloud_time:
         raise NotImplementedError("dense engine: diag_incloud_time off only")
-    if cfg.exact_sstp_cond or cfg.adaptive_sstp_cond:
-        raise NotImplementedError(
-            "dense engine: exact and adaptive per-particle condensation "
-            "substepping are not ported to the dense engine (ROADMAP.md, "
-            "Queue 1, \"Dense-engine options that the port refuses\"); the "
-            "flat engine runs them (engine=\"flat\")")
     if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
         raise NotImplementedError(
             "dense engine: implicit or euler SD advection only")
@@ -69,13 +85,19 @@ def supported(cfg: StaticConfig):
                 "supported")
 
 
+def _no_plane():
+    return torch.zeros((0, 0))
+
+
 @dataclasses.dataclass
 class DenseState:
     """Cell-major SD population and per-cell thermodynamics.
 
     SD planes (n_cell, cap); cell fields (n_cell,); courants in the
     flattened staggered layout ((nx+1)*nz and nx*(nz+1)).  Slot order
-    within a row carries no meaning."""
+    within a row carries no meaning.  The private ambient planes sd_th,
+    sd_rv, sd_rh and sd_p are (n_cell, cap) in exact_sstp_cond mode and
+    empty (0, 0) otherwise."""
 
     n: torch.Tensor
     rw2: torch.Tensor
@@ -96,6 +118,10 @@ class DenseState:
     courant_z: torch.Tensor
     puddle: torch.Tensor      # (N_PUDDLE,), slots as state.PUDDLE_KEYS
     overflow: torch.Tensor    # 0-d int64: SDs dropped because a row was full
+    sd_th: torch.Tensor = dataclasses.field(default_factory=_no_plane)
+    sd_rv: torch.Tensor = dataclasses.field(default_factory=_no_plane)
+    sd_rh: torch.Tensor = dataclasses.field(default_factory=_no_plane)
+    sd_p: torch.Tensor = dataclasses.field(default_factory=_no_plane)
     # the coalescence draws: Philox key (opts_init.rng_seed) and the step
     # counter, host integers advanced by every coalescence call
     rng_seed: int = 44
@@ -136,20 +162,23 @@ def _distribute(n_cell, cap, cell, vals):
 def pack(cfg: StaticConfig, state: State, cap: int) -> DenseState:
     """Flat State -> DenseState (one stable sort by cell + scatter; dead
     slots are dropped).  The cell fields, the puddle and the random stream
-    carry over.  A State in exact_sstp_cond mode (a substepping snapshot
-    per SD) has no dense form in the port: it raises."""
-    if cfg.exact_sstp_cond:
-        supported(cfg)
+    carry over.  In exact_sstp_cond mode the flat State's snapshot is per
+    SD and becomes the sd_* planes; the cell fields sstp_tmp_th/rv then
+    take the State's th and rv (the JAX package carries the per-SD arrays
+    there, dense.py:219-236, which no dense phase reads)."""
+    attrs = attrs_of(cfg)
     cell = torch.where(state.n > 0, state.ijk, cfg.n_cell)
-    planes, overflow = _distribute(cfg.n_cell, cap, cell,
-                                   [getattr(state, a) for a in ATTRS])
+    planes, overflow = _distribute(
+        cfg.n_cell, cap, cell,
+        [getattr(state, _FLAT_NAME.get(a, a)) for a in attrs])
+    cells = {k: getattr(state, k) for k in (
+        "rhod", "p", "T", "RH", "eta", "dv", "sstp_tmp_th", "sstp_tmp_rv",
+        "courant_x", "courant_z", "puddle")}
+    if cfg.exact_sstp_cond:
+        cells.update(sstp_tmp_th=state.th, sstp_tmp_rv=state.rv)
     return DenseState(
-        **dict(zip(ATTRS, planes)),
-        **{k: getattr(state, k) for k in (
-            "rhod", "p", "T", "RH", "eta", "dv", "sstp_tmp_th",
-            "sstp_tmp_rv", "courant_x", "courant_z", "puddle")},
-        overflow=overflow, rng_seed=state.rng_seed,
-        rng_step=state.rng_step)
+        **dict(zip(attrs, planes)), **cells, overflow=overflow,
+        rng_seed=state.rng_seed, rng_step=state.rng_step)
 
 
 def repack(cfg: StaticConfig, d: DenseState, new_cap: int) -> DenseState:
@@ -160,23 +189,26 @@ def repack(cfg: StaticConfig, d: DenseState, new_cap: int) -> DenseState:
     policy of Kinematic2D.run_device_lgrngn uses it so that the capacity
     follows the population."""
     n_cell, cap = d.n.shape
-    flat = [getattr(d, a).reshape(-1) for a in ATTRS]
+    attrs = attrs_of(cfg)
+    flat = [getattr(d, a).reshape(-1) for a in attrs]
     rows = torch.arange(n_cell, device=d.n.device).repeat_interleave(cap)
     planes, overflow = _distribute(n_cell, new_cap,
                                    torch.where(flat[0] > 0, rows, n_cell),
                                    flat)
     return dataclasses.replace(d, overflow=d.overflow + overflow,
-                               **dict(zip(ATTRS, planes)))
+                               **dict(zip(attrs, planes)))
 
 
 def unpack(cfg: StaticConfig, d: DenseState, state: State) -> State:
     """DenseState -> flat State (libcloudphxx_tpu/lgrngn/dense.py:262): the
     live SDs first, in row order, then dead slots, n_sd_max of them; th/rv
     are the values saved at the end of the last step, and the random
-    stream carries over.  Stepping never creates SDs, so the live ones
-    fit."""
+    stream carries over.  In exact_sstp_cond mode the sd_* planes become
+    the State's per-SD snapshot; otherwise the snapshot is the saved cell
+    values.  Stepping never creates SDs, so the live ones fit."""
     n_cell, cap = d.n.shape
-    flat = {a: getattr(d, a).reshape(-1) for a in ATTRS}
+    attrs = attrs_of(cfg)
+    flat = {a: getattr(d, a).reshape(-1) for a in attrs}
     alive = flat["n"] > 0
     rows = torch.arange(n_cell, device=d.n.device).repeat_interleave(cap)
     _, order = torch.sort((~alive).to(torch.int8), stable=True)
@@ -188,12 +220,14 @@ def unpack(cfg: StaticConfig, d: DenseState, state: State) -> State:
         out = a[keep]
         return torch.cat([out, out.new_zeros(pad)]) if pad > 0 else out
 
-    upd = {a: take(flat[a]) for a in ATTRS}
+    upd = {_FLAT_NAME.get(a, a): take(flat[a]) for a in attrs}
     upd["ijk"] = take(torch.where(alive, rows, 0))
+    if not cfg.exact_sstp_cond:
+        upd.update(sstp_tmp_th=d.sstp_tmp_th, sstp_tmp_rv=d.sstp_tmp_rv,
+                   sstp_tmp_rh=d.rhod)
     return dataclasses.replace(
         state, **upd, th=d.sstp_tmp_th, rv=d.sstp_tmp_rv, p=d.p, T=d.T,
-        RH=d.RH, eta=d.eta, puddle=d.puddle, sstp_tmp_th=d.sstp_tmp_th,
-        sstp_tmp_rv=d.sstp_tmp_rv, sstp_tmp_rh=d.rhod, rng_seed=d.rng_seed,
+        RH=d.RH, eta=d.eta, puddle=d.puddle, rng_seed=d.rng_seed,
         rng_step=d.rng_step)
 
 
@@ -216,12 +250,132 @@ def _rebin_global(cfg: StaticConfig, d: DenseState, tgt=None) -> DenseState:
     own)."""
     if tgt is None:
         tgt = torch.where(d.n > 0, ijk_of_xyz(cfg, d.x, d.z), d.n_cell)
+    attrs = attrs_of(cfg)
     planes, overflow = _distribute(
         d.n_cell, d.cap, tgt.reshape(-1),
-        [getattr(d, a).reshape(-1) for a in ATTRS])
+        [getattr(d, a).reshape(-1) for a in attrs])
     return dataclasses.replace(d, overflow=d.overflow + overflow,
                                rebins=d.rebins + 1,
-                               **dict(zip(ATTRS, planes)))
+                               **dict(zip(attrs, planes)))
+
+
+# --------------------------------------------------------------- cond ----
+def _row(a, shape):
+    """The (n_cell,) cell field ``a`` as a contiguous (n_cell, cap) plane."""
+    return a[:, None].expand(shape).contiguous()
+
+
+def _close_rows(cfg: StaticConfig, d: DenseState, rw2, th, rv, p, live):
+    """The nomixing cell closure (condensation.apply_drv_to_th_rv): the
+    change of each row's specific third moment between d.rw2 and ``rw2``
+    over its live SDs, the row sums in float64
+    (libcloudphxx_tpu/lgrngn/dense.py:386-388), leaves rv, and theta
+    follows."""
+    wgt = d.n / (d.dv * d.rhod)[:, None]
+    rowsum = lambda a: torch.sum(a, dim=1, dtype=torch.float64)
+    mom3 = lambda r: third_moment(wgt, r, live, rowsum)
+    drv = ((mom3(rw2) - mom3(d.rw2)) * (4.0 / 3) * c.pi * c.rho_w).to(
+        th.dtype)
+    return apply_drv_to_th_rv(cfg, th, rv, d.rhod, p, drv)
+
+
+def _sstp_save(cfg: StaticConfig, d: DenseState, rw2, th, rv, p):
+    """The exact mode's sstp_save (libcloudphxx_tpu/lgrngn/dense.py:
+    409-423): the private planes take the updated cell th/rv and rhod,
+    sd_p the pre-condensation ``p``; the cell T/p/RH/eta the
+    post-condensation closure."""
+    T2, p2, RH2, eta2 = hskpng_Tpr(cfg, th, rv, d.rhod, d.p)
+    shape = d.n.shape
+    return dataclasses.replace(
+        d, rw2=rw2, T=T2, p=p2, RH=RH2, eta=eta2, sstp_tmp_th=th,
+        sstp_tmp_rv=rv, sd_th=_row(th, shape), sd_rv=_row(rv, shape),
+        sd_rh=_row(d.rhod, shape), sd_p=_row(p, shape))
+
+
+def step_cond(cfg: StaticConfig, d: DenseState, th, rv, dt, RH_max, *,
+              plain=False):
+    """The per-particle condensation phase on the dense layout
+    (libcloudphxx_tpu/lgrngn/dense.py:305-314 in exact mode with more
+    than one substep, exact_route): step_cond_adaptive with
+    adaptive_sstp_cond, else step_cond_exact.  ``th``/``rv`` are the
+    advected cell fields; returns (DenseState, th, rv), th/rv the
+    post-condensation cell values.  The per-cell modes run in kernel B
+    (_resident_step)."""
+    if not exact_route(cfg):
+        raise ValueError("dense.step_cond: per-particle substepping needs "
+                         "exact_sstp_cond and sstp_cond (or sstp_cond_act) "
+                         "> 1; the per-cell modes run in step_resident")
+    f = step_cond_adaptive if cfg.adaptive_sstp_cond else step_cond_exact
+    return f(cfg, d, th, rv, dt, RH_max, plain=plain)
+
+
+def step_cond_exact(cfg: StaticConfig, d: DenseState, th, rv, dt, RH_max, *,
+                    plain=False):
+    """Exact per-particle condensation substepping, cell-major
+    (libcloudphxx_tpu/lgrngn/dense.py:317-424): the flat engine's
+    condensation.perparticle_fixed_core over the (n_cell, cap) planes,
+    kernel G a substep over the ravelled planes with lam_D/lam_K
+    materialised as planes, sstp_cond_mix's row sums of drv and dth in
+    float64.  The cell then takes, with mixing, the largest private value
+    among its live SDs (values that agree to rounding), without it the
+    change of its liquid water.  Dead slots are masked out of every row
+    sum.  Ends with the exact-mode sstp_save."""
+    shape = d.n.shape
+    col = lambda a: a[:, None]
+    # stale mean free paths (the previous step's T/p), then the closure of
+    # the advected fields, as the flat step_cond_body
+    lam_D, lam_K = (_row(a, shape) for a in hskpng_mfp(d.T, d.p))
+    _, p, _, _ = hskpng_Tpr(cfg, th, rv, d.rhod, d.p)
+    live = d.n > 0
+    rw2, tmp_rv, tmp_th, _, _ = perparticle_fixed_core(
+        cfg, dt, RH_max, n=d.n, rw2=d.rw2, rd3=d.rd3, kpa=d.kpa, vt=d.vt,
+        dv_sd=col(d.dv), lam_D_sd=lam_D, lam_K_sd=lam_K,
+        dlt_rv=col(rv) - d.sd_rv, dlt_th=col(th) - d.sd_th,
+        dlt_rh=col(d.rhod) - d.sd_rh, dlt_p=col(p) - d.sd_p,
+        tmp_rv0=d.sd_rv, tmp_th0=d.sd_th, tmp_rh0=d.sd_rh, tmp_p0=d.sd_p,
+        spread=lambda a: torch.sum(a, dim=1, keepdim=True,
+                                   dtype=torch.float64).to(a.dtype),
+        plain=plain)
+    if cfg.sstp_cond_mix:
+        # the cell takes its SDs' common private state (update_state,
+        # particles_impl_update_th_rv.ipp:283-297)
+        neg = torch.tensor(-float("inf"), dtype=th.dtype, device=th.device)
+        pick = lambda v, cell: torch.where(
+            live.any(1), torch.where(live, v, neg).amax(1), cell)
+        th_c, rv_c = pick(tmp_th, th), pick(tmp_rv, rv)
+    else:
+        th_c, rv_c = _close_rows(cfg, d, rw2, th, rv, p, live)
+    return _sstp_save(cfg, d, rw2, th_c, rv_c, p), th_c, rv_c
+
+
+def step_cond_adaptive(cfg: StaticConfig, d: DenseState, th, rv, dt, RH_max,
+                       *, plain=False):
+    """Adaptive per-SD condensation substepping on the dense layout
+    (libcloudphxx_tpu/lgrngn/dense.py:427-488): the ravelled planes go
+    through the flat engine's condensation.perparticle_adaptive_core
+    (kernel G once a try of its phase A and once a substep of its phase
+    B), the cell closes on the change of its liquid water, and the
+    exact-mode sstp_save follows."""
+    shape = d.n.shape
+    flat = lambda a: a.reshape(-1)
+    col = lambda a: a[:, None]
+    rows = lambda a: flat(_row(a, shape))
+    lam_D, lam_K = hskpng_mfp(d.T, d.p)
+    T, p, _, _ = hskpng_Tpr(cfg, th, rv, d.rhod, d.p)
+    zero = torch.zeros_like(flat(d.sd_p))
+    rw2, *_ = perparticle_adaptive_core(
+        cfg, dt, RH_max, n=flat(d.n), rw2=flat(d.rw2), rd3=flat(d.rd3),
+        kpa=flat(d.kpa), vt=flat(d.vt), dv_sd=rows(d.dv),
+        lam_D_sd=rows(lam_D), lam_K_sd=rows(lam_K),
+        dlt_rv=flat(col(rv) - d.sd_rv), dlt_th=flat(col(th) - d.sd_th),
+        dlt_rh=flat(col(d.rhod) - d.sd_rh),
+        dlt_p=flat(col(p) - d.sd_p) if cfg.const_p else 0.0,
+        tmp_rv0=flat(d.sd_rv), tmp_th0=flat(d.sd_th), tmp_rh0=flat(d.sd_rh),
+        tmp_p0=flat(d.sd_p) if cfg.const_p else zero, T_sd=rows(T),
+        plain=plain)
+    rw2 = rw2.reshape(shape)
+    th_c, rv_c = _close_rows(cfg, d, rw2, th, rv, p, d.n > 0)
+    return _sstp_save(cfg, d, rw2, th_c, rv_c, p), th_c, rv_c
 
 
 # --------------------------------------------------------------- coal ----
@@ -359,6 +513,9 @@ def step_fused(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params, dt,
     condensation substeps, coalescence substeps, transport and walls
     (step_resident), the re-binning merge (rebin_x), the puddle fold and,
     when some SD moved more than one cell on an axis, the global re-bin.
+    In exact mode with more than one substep the condensation is
+    step_cond's per-particle substepping, where the JAX package runs its
+    XLA step_cond and step_async (dense.py:1232, :1650).
     Same phase order as the reference step_sync + step_async
     (particles_step.ipp:161-494).  ``params`` are
     opts_init.kernel_parameters; ``coal_pairing`` "stride" (the default) or
@@ -395,8 +552,9 @@ def step_cond_resident(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, dt,
                        RH_max, *, plain=False):
     """The condensation phase alone (libcloudphxx_tpu/lgrngn/dense.py:1400),
     the cond half of step_fused for the public API's step_cond
-    (lgrngn/dense_front): kernel B and the cell closure; positions, vt and
-    the multiplicities stay.  Returns (DenseState, th, rv) with the
+    (lgrngn/dense_front): kernel B and the cell closure, or in exact mode
+    step_cond's per-particle substepping; positions, vt and the
+    multiplicities stay.  Returns (DenseState, th, rv) with the
     post-condensation cell values, saved in sstp_tmp_th/rv for the async
     phase."""
     return _resident_phases(
@@ -455,13 +613,16 @@ def _resident_phases(cfg: StaticConfig, d: DenseState, th_adv, rv_adv,
 
 def merge(cfg: StaticConfig, d: DenseState, tgt, *, plain=False):
     """Each row takes the droplets whose target ``tgt`` it is (rebin_x,
-    kernel D); the droplets a full row cannot hold are added to
+    kernel D; in exact mode its 11-plane form, the private planes
+    riding); the droplets a full row cannot hold are added to
     ``overflow``."""
-    *planes, drops = rebin_x(cfg, *(getattr(d, a) for a in ATTRS), tgt,
-                             plain=plain)
+    attrs = attrs_of(cfg)
+    *planes, drops = rebin_x(
+        cfg, *(getattr(d, a) for a in ATTRS), tgt,
+        extra=tuple(getattr(d, a) for a in attrs[len(ATTRS):]), plain=plain)
     return dataclasses.replace(
         d, overflow=d.overflow + drops.sum().to(d.overflow.dtype),
-        **dict(zip(ATTRS, planes)))
+        **dict(zip(attrs, planes)))
 
 
 def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
@@ -469,7 +630,9 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
                    do_coal: bool, do_adve: bool, do_sedi: bool, w_cells,
                    coal_pairing, plain, slab=None):
     """_resident_phases up to the re-binning: the step_resident call and
-    the puddle fold.  Returns (d, th, rv, tgt, far): with transport d holds
+    the puddle fold; in exact mode with more than one substep step_cond
+    first and step_resident without its condensation.  Returns (d, th,
+    rv, tgt, far): with transport d holds
     the positions after it, tgt the target row of every slot and far the
     number of rows with a far mover (a 0-d tensor); with none tgt and far
     are None.  ``slab`` is a mesh shard's (step_fused_shard)."""
@@ -478,6 +641,16 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
             "step_fused: coalescence of a const-multi population (the "
             "increase_sstp_coal path) is not ported (ROADMAP.md, Queue 1, "
             "\"Dense-engine options that the port refuses\")")
+    if do_cond and exact_route(cfg):
+        # the per-particle substepping (kernel G a substep), then the rest
+        # of the step as the async phase: the closure of the saved
+        # post-condensation th/rv, E and C (the JAX package runs its XLA
+        # step_cond and step_async here, dense.py:1650)
+        d, th, rv = step_cond(cfg, d, th_adv, rv_adv, dt, RH_max,
+                              plain=plain)
+        if not (do_coal or do_adve or do_sedi or w_cells is not None):
+            return d, th, rv, None, None
+        do_cond = False
     # mean free paths from the previous step's T/p (dense.py:1519)
     lam_D, lam_K = hskpng_mfp(d.T, d.p) if do_cond else (None, None)
     (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta,
@@ -497,12 +670,19 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
         puddle = puddle + fold
         if do_coal:
             puddle = _fold_coal_overflow(puddle, info[6] > 0)
+    exact = {}
+    if do_cond and cfg.exact_sstp_cond:
+        # exact mode at one substep ran the per-cell kernel B: the private
+        # planes take the new cell values (dense.py:540-548)
+        shape = n.shape
+        exact = dict(sd_th=_row(th, shape), sd_rv=_row(rv, shape),
+                     sd_rh=_row(d.rhod, shape), sd_p=_row(p, shape))
     # no transport: no walls, no re-bin; after condensation alone the stale
     # vt plane stays (dense.py:1550-1558)
     d = dataclasses.replace(
         d, n=n, rw2=rw2, rd3=rd3, kpa=kpa, vt=d.vt if vt is None else vt,
         x=x, z=z, T=T, p=p, RH=RH, eta=eta, sstp_tmp_th=th, sstp_tmp_rv=rv,
-        puddle=puddle, rng_step=d.rng_step + int(do_coal))
+        puddle=puddle, rng_step=d.rng_step + int(do_coal), **exact)
     return d, th, rv, tgt, None if tgt is None else info[4]
 
 

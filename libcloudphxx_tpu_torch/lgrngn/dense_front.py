@@ -3,7 +3,8 @@
 
 ``particles_dense_t`` is a particles_t whose stepping hooks run on the
 (n_cell, cap) occupancy matrix of lgrngn/dense.py: step_cond runs the
-condensation phase of the resident step (kernel B on the card) and
+condensation phase of the resident step (kernel B on the card; with
+exact_sstp_cond the per-particle substepping, kernel G a substep) and
 step_async the rest of it (kernels E, C and D), the same kernels
 Kinematic2D.run_device_lgrngn(engine="dense") runs, while every
 diagnostic, get_attr and checkpoint reads the flat layout.  The factory
@@ -15,7 +16,9 @@ Residency protocol:
                        "dense";
   - ``_ensure_dense``  packs the flat state (one global sort) before dense
                        stepping;
-  - ``_ensure_flat``   unpacks before any reader of the flat layout: it is
+  - ``_ensure_flat``   unpacks (in exact mode the private planes become the
+                       flat State's per-SD snapshot) before any reader of
+                       the flat layout: it is
                        hooked into ``_require_init``, where every diagnostic
                        starts, and raises if rows overflowed meanwhile (the
                        deferred overflow check: the stepping loop does not
@@ -161,9 +164,12 @@ class particles_dense_t(particles_t):
             self._cfg_for_dt(dt), d, state.th, state.rv, dt, RH_max,
             plain=plain)
         self._d, self._dense_stepped = d, True
-        return dataclasses.replace(
-            state, th=th, rv=rv, T=d.T, p=d.p, RH=d.RH, eta=d.eta,
+        # in exact mode the flat snapshot is per SD: the private planes
+        # hold it until the next unpack
+        saved = {} if self.cfg.exact_sstp_cond else dict(
             sstp_tmp_th=d.sstp_tmp_th, sstp_tmp_rv=d.sstp_tmp_rv)
+        return dataclasses.replace(state, th=th, rv=rv, T=d.T, p=d.p,
+                                   RH=d.RH, eta=d.eta, **saved)
 
     def _step_async_impl(self, sstp, switches, state, params, w_LS, dt,
                          plain):

@@ -52,7 +52,7 @@ def step_cond_body(cfg: StaticConfig, state: State, dt, RH_max,
     runs the kernels' plain versions on any device."""
     lam = condensation.stale_mfp(state)
     state = hskpng.hskpng_Tpr_state(cfg, state)
-    if cfg.exact_sstp_cond and (cfg.sstp_cond > 1 or cfg.sstp_cond_act > 1):
+    if condensation.exact_route(cfg):
         # exact per-particle substepping (particles_step.ipp:199-236)
         cond = condensation.cond_perparticle_adaptive \
             if cfg.adaptive_sstp_cond else condensation.cond_perparticle

@@ -260,8 +260,10 @@ class Kinematic2D(nn.Module):
 
     def _dense_step(self, d, spinup, plain):
         """One step of the dense engine: MPDATA of th/rv, then the fused
-        microphysics step (lgrngn/dense.step_fused).  During spin-up
-        coalescence and sedimentation are off and RH is capped at 1.01."""
+        microphysics step (lgrngn/dense.step_fused; in exact mode the
+        per-particle substepping first, its private planes riding the
+        re-binning).  During spin-up coalescence and sedimentation are off
+        and RH is capped at 1.01."""
         cfg = self.cfg
         th, rv = mpdata.advect2(self.th, self.rv, self.gc_x, self.gc_z,
                                 self.G, n_iters=self.mpdata_iters,
@@ -327,8 +329,10 @@ class Kinematic2D(nn.Module):
         that dropped SDs is run again from its start at the capacity for
         its initial occupancy plus 16, at most 3 times.  Admissible
         capacities are 8-lane aligned, and on a CUDA device powers of two
-        up to ops/coal.MAX_CAP (what kernel E takes); a population that
-        needs more raises.  ``chunk_log``, a list, gets a dict a chunk
+        up to ops/coal.MAX_CAP (what kernel E takes; exact mode too, where
+        the JAX package's XLA coalescence takes any capacity); a
+        population that needs more raises.  The repacks carry the exact
+        mode's private planes (dense.repack).  ``chunk_log``, a list, gets a dict a chunk
         (spinup, steps, occ, cap, seconds, redo: the chunk's runs before
         it kept every SD).  ``plain`` runs the plain PyTorch version of
         every kernel (comparisons and timings)."""

@@ -15,7 +15,8 @@ hand-written kernels, each beside its plain PyTorch version:
             runs
   kernel D  csrc/merge.cu      rebin_x / rebin_x_plain: each row takes its
             droplets from itself and its eight neighbours (the z and the x
-            pass of the re-binning at once)
+            pass of the re-binning at once); seven planes, or eleven with
+            the exact mode's private ambient planes
 
 Dispatch is by device: CPU tensors run the plain version, CUDA tensors
 launch the kernel (float32, contiguous, or the wrapper raises), and
@@ -370,42 +371,51 @@ def _merge_sources(cfg, n_cell, device):
     return torch.stack(src, 1), torch.stack(ok, 1)
 
 
-def rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt):
+def rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=()):
     """Row r takes, in MERGE_SOURCES order and lane order within each
     source, every droplet of its own and its eight neighbouring rows whose
     target is r, packed alive-first; lanes past the last droplet are zero.
-    Returns (n, rw2, rd3, kpa, vt, x, z, drops) with ``drops`` (n_cell,)
-    the droplets each row could not hold."""
+    The planes ``extra`` (the exact mode's four private ambient planes, or
+    none) ride with the seven.  Returns (n, rw2, rd3, kpa, vt, x, z,
+    *extra, drops) with ``drops`` (n_cell,) the droplets each row could
+    not hold."""
     n_cell, cap = n.shape
     src, ok = _merge_sources(cfg, n_cell, n.device)
     rows = torch.arange(n_cell, device=n.device)[:, None, None]
     take = ok[:, :, None] & (tgt[src] == rows)
     flat = lambda a: a.reshape(n_cell, -1)
     outs, count = stable_partition_rows(
-        flat(take), tuple(flat(p[src]) for p in (n, rw2, rd3, kpa, vt, x, z)))
+        flat(take), tuple(flat(p[src]) for p in (n, rw2, rd3, kpa, vt, x, z)
+                          + tuple(extra)))
     keep = torch.arange(cap, device=n.device)[None, :] < count
     outs = tuple(torch.where(keep, o[:, :cap], 0.0) for o in outs)
     drops = torch.clamp(count[:, 0] - cap, min=0).to(n.dtype)
     return outs + (drops,)
 
 
-def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, plain=False):
+def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=(), plain=False):
     """Kernel D, or its plain version rebin_x_plain (same arguments and
     results).  It does the work of the z-merge epilogue of
-    pallas_step._kernel and of pallas_step._xmerge_kernel together."""
+    pallas_step._kernel and of pallas_step._xmerge_kernel together.  With
+    four ``extra`` planes (the exact mode's sd_th, sd_rv, sd_rh and sd_p)
+    it is D's 11-plane form, counted as _ext.MERGE_EXACT."""
     if cfg.nx < 3:
         raise ValueError("rebin_x: the merge needs nx >= 3 (left, own and "
                          "right columns must differ)")
-    planes = (n, rw2, rd3, kpa, vt, x, z)
+    if len(extra) not in (0, 4):
+        raise ValueError(f"rebin_x: 0 or 4 extra planes, got {len(extra)}")
+    planes = (n, rw2, rd3, kpa, vt, x, z) + tuple(extra)
     if _ext.use_plain("rebin_x", n, plain):
-        return rebin_x_plain(cfg, *planes, tgt)
+        return rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt,
+                             extra=extra)
     n_cell, cap = n.shape
     _ext.check_planes("rebin_x", cap, *planes, tgt)
     _ext.check("rebin_x", *planes)
     _ext.check("rebin_x", tgt, dtype=torch.int32)
     outs = tuple(torch.empty_like(p) for p in planes)
     drops = torch.empty(n_cell, dtype=n.dtype, device=n.device)
-    _ext.MERGE.launch(*(p.data_ptr() for p in planes), tgt.data_ptr(),
-                      *(o.data_ptr() for o in outs), drops.data_ptr(),
-                      n_cell, cap, cfg.nx, cfg.nz)
+    kernel = _ext.MERGE_EXACT if extra else _ext.MERGE
+    kernel.launch(*(p.data_ptr() for p in planes), tgt.data_ptr(),
+                  *(o.data_ptr() for o in outs), drops.data_ptr(), n_cell,
+                  cap, cfg.nx, cfg.nz)
     return outs + (drops,)

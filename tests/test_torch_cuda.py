@@ -38,7 +38,10 @@ ambient conditions) runs on 1 to 369,664 droplets (ragged warps), on
 haze, activating and evaporating droplets, dead and rw2 <= 0 slots, for
 a scalar dt and a dt a droplet, bitwise equal to its plain version, and
 the exact and adaptive per-particle slices run through the public API
-with it, bitwise equal to their plain paths.  Kernel C's unwrapped form
+with it, bitwise equal to their plain paths, on the flat engine and on
+the dense front; there G runs on the ravelled dense planes (dead slots
+included) and D in its 11-plane form (the exact mode's private planes),
+both bitwise equal to their plain versions.  Kernel C's unwrapped form
 (a shard of the x-slab mesh) runs at row capacity 2 to 512 in both
 layouts on the first, an inner and the last slab, with droplets leaving
 on both sides, and kernel E keyed by a shard's global rows (row0), both
@@ -419,7 +422,7 @@ def test_dense_front_on_the_card(dev):
     got = {k.name: k.launches - before[k.name] for k in _ext.KERNELS}
     assert got == dict(mpdata=8, cond=4, transport=4, merge=4, coal=2,
                        coal_standalone=0, cond_flat=0, cond_sd=0,
-                       transport_unwrapped=0)
+                       transport_unwrapped=0, merge_exact=0)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run(4, spinup=2, plain=True)
     assert torch.equal(front.th, fused.th) and torch.equal(front.rv, fused.rv)
@@ -963,7 +966,9 @@ EXACT_MODES = {
 @pytest.mark.parametrize("mode", list(EXACT_MODES))
 def test_exact_slice_kernels_match_plain(dev, mode):
     """Two spin-up and two coalescence-free steps of the 8x8 case with
-    exact per-particle substepping, through the public API on the card:
+    exact per-particle substepping, through the public API on the card's
+    flat engine (engine="flat"; the factory's own pick there is the dense
+    front, test_dense_exact_kernels_match_plain):
     kernel G runs sstp_cond times a step (adaptive: once a try of phase A
     and max(sstp_cond, sstp_cond_act) times in phase B), kernels F and B
     never, and the kernel path equals the plain path bitwise (G is
@@ -972,7 +977,8 @@ def test_exact_slice_kernels_match_plain(dev, mode):
     sstp, oi = EXACT_MODES[mode]
     kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=sstp, sstp_coal=3,
               n_sd_max=24 * 64 + 100,
-              opts_init_kw=dict(oi, coal_switch=False), device=dev)
+              opts_init_kw=dict(oi, coal_switch=False), engine="flat",
+              device=dev)
     mk, mp = Kinematic2D(**kw), Kinematic2D(**kw)
     assert type(mk.prtcls).__name__ == "particles_t"
     rw0 = mk.prtcls.state.rw2
@@ -990,6 +996,113 @@ def test_exact_slice_kernels_match_plain(dev, mode):
               "sstp_tmp_rh", "sstp_tmp_p"):
         assert torch.equal(getattr(sk, k), getattr(sp, k)), k
     assert _rel(sk.rw2[sk.n > 0], rw0[sk.n > 0]) > 1e-3   # droplets grew
+
+
+@pytest.mark.parametrize("mode", list(EXACT_MODES))
+def test_dense_exact_kernels_match_plain(dev, mode):
+    """The same case on the dense engine, the factory's pick on the card:
+    the dense front's stepwise run launches G sstp_cond times a step
+    (adaptive: once a try and max(sstp_cond, sstp_cond_act) times), D's
+    11-plane form once a step and B, F and D's 7-plane form never; it
+    equals run_device_lgrngn(engine="dense") bitwise, and that equals its
+    plain path bitwise (G and D bitwise, the row sums the same float64
+    sums on both paths)."""
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
+    sstp, oi = EXACT_MODES[mode]
+    kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=sstp, sstp_coal=3,
+              n_sd_max=24 * 64, opts_init_kw=dict(oi, coal_switch=False),
+              device=dev)
+    front, fused, plain = (Kinematic2D(**kw) for _ in range(3))
+    assert isinstance(front.prtcls, particles_dense_t)
+    rw0 = front.dense_state.rw2
+    before = {k.name: k.launches for k in _ext.KERNELS}
+    front.run(4, spinup=2)
+    torch.cuda.synchronize()
+    got = {k.name: k.launches - before[k.name] for k in _ext.KERNELS}
+    per_step = sstp if mode != "adaptive" else 3 + 8   # tries 1, 2, 4
+    assert got == dict(mpdata=8, cond=0, transport=4, merge=0, coal=0,
+                       coal_standalone=0, cond_flat=0, cond_sd=4 * per_step,
+                       transport_unwrapped=0, merge_exact=4)
+    fused.run_device_lgrngn(4, spinup=2, engine="dense")
+    plain.run_device_lgrngn(4, spinup=2, engine="dense", plain=True)
+    for m in (fused, plain):
+        assert torch.equal(front.th, m.th) and torch.equal(front.rv, m.rv)
+    a, b, p = front.dense_state, fused.dense_state, plain.dense_state
+    for k in dense.attrs_of(front.cfg):
+        ma = multiset(a.n.cpu(), (a.rd3.cpu(), getattr(a, k).cpu()))
+        assert np.array_equal(ma, multiset(b.n.cpu(), (
+            b.rd3.cpu(), getattr(b, k).cpu()))), k
+        assert np.array_equal(ma, multiset(p.n.cpu(), (
+            p.rd3.cpu(), getattr(p, k).cpu()))), k
+    assert _rel(a.rw2[a.n > 0], rw0[a.n > 0]) > 1e-3     # droplets grew
+    assert int(a.overflow) == 0
+
+
+def test_cond_sd_kernel_on_dense_planes(dev):
+    """G on the ravelled planes of a dense exact state's first substep (the
+    dead slots of every row included, rw2 == 0), bitwise equal to its
+    plain version; the dead slots keep their rw2."""
+    m = Kinematic2D(nx=8, nz=8, sd_conc=24, sstp_cond=3, n_sd_max=24 * 64,
+                    opts_init_kw={"exact_sstp_cond": True,
+                                  "coal_switch": False}, device=dev)
+    seen = []
+    real = cond_ops.advance_rw2
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    cond_ops.advance_rw2 = spy
+    try:
+        m.run_device_lgrngn(1, engine="dense")
+    finally:
+        cond_ops.advance_rw2 = real
+    args, kw = seen[0]
+    kw = {k: v for k, v in kw.items() if k != "plain"}
+    assert args[1].numel() == m.dense_state.n.numel()
+    out = _launches(_ext.COND_SD, lambda: cond_ops.advance_rw2(*args, **kw))
+    assert torch.equal(out, cond_ops.advance_rw2(*args, **kw, plain=True))
+    dead = args[1] <= 0
+    assert bool(dead.any()) and torch.equal(out[dead], args[1][dead])
+
+
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("cap", [2, 32, 100, 128, 256, 512])
+def test_merge_kernel_with_eleven_planes(dev, cap, misaligned):
+    """D's 11-plane form (the exact mode's private planes riding) on
+    transport_case's rows at capacity 2 to 512 in both layouts, bitwise
+    equal to its plain version, and its first seven planes bitwise equal
+    to the 7-plane form's."""
+    cfg, planes, cells = transport_case(8, 6, cap, device=dev,
+                                        dtype=torch.float32)
+    pc = step.transport(cfg, 1.0, True, *planes[:3], *planes[4:], *cells,
+                        plain=True)
+    rng = np.random.default_rng(cap)
+    extra = tuple(torch.as_tensor(rng.uniform(lo, hi, planes[0].shape),
+                                  dtype=torch.float32, device=dev)
+                  for lo, hi in ((285.0, 300.0), (5e-3, 9e-3), (0.9, 1.2),
+                                 (8.5e4, 1e5)))
+    if misaligned:  # sd_rv 4 bytes past a 16-byte boundary
+        buf = torch.empty(extra[1].numel() + 1, dtype=torch.float32,
+                          device=dev)
+        rv = buf[1:].view(extra[1].shape)
+        rv.copy_(extra[1])
+        extra = (extra[0], rv) + extra[2:]
+    seven = (pc[0], planes[1], planes[2], planes[3], pc[3], pc[1], pc[2],
+             pc[4])
+    kd = _launches(_ext.MERGE_EXACT, lambda: step.rebin_x(cfg, *seven,
+                                                          extra=extra))
+    pd = step.rebin_x(cfg, *seven, extra=extra, plain=True)
+    assert len(kd) == 12
+    for a, b in zip(kd, pd):                 # eleven planes, the drops
+        assert torch.equal(a, b)
+    k7 = _launches(_ext.MERGE, lambda: step.rebin_x(cfg, *seven))
+    for a, b in zip(k7, kd[:7] + kd[11:]):
+        assert torch.equal(a, b)
+    assert float(pd[11].sum()) > 0                          # drops
+    with pytest.raises(ValueError, match="0 or 4 extra planes"):
+        step.rebin_x(cfg, *seven, extra=extra[:2])
 
 
 # ------------------------------------------------------- the x-slab mesh

@@ -53,7 +53,7 @@ from libcloudphxx_tpu_torch import Kinematic2D
 from libcloudphxx_tpu_torch.convert import (dense_state_to_numpy,
                                             static_config_from_numpy)
 from libcloudphxx_tpu_torch.lgrngn import dense as tdense
-from libcloudphxx_tpu_torch.lgrngn import kernel_t, vt_t
+from libcloudphxx_tpu_torch.lgrngn import as_t, kernel_t, vt_t
 from libcloudphxx_tpu_torch.lgrngn.state import OUT_PRTCL_NUM
 from libcloudphxx_tpu_torch.models.kinematic_2d import dense_capacity
 
@@ -342,11 +342,11 @@ def test_unported_paths_raise(what, port):
         return
     with pytest.raises(NotImplementedError):
         if what == "engine":
-            # exact per-particle substepping runs on the flat engine
-            # (test_torch_perparticle.py), not on the dense one (ROADMAP.md,
-            # Queue 1, "Dense-engine options that the port refuses")
+            # the dense engine moves SDs by the implicit or euler scheme
+            # only; pred_corr runs on the flat engine (exact per-particle
+            # substepping runs on both: test_torch_dense_exact.py)
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu", engine="dense",
-                        opts_init_kw={"exact_sstp_cond": True})
+                        opts_init_kw={"adve_scheme": as_t.pred_corr})
         elif what == "multi_device":
             # one device only (ROADMAP.md, Queue 1, "Multi-device
             # (parallel/)"); the repack policy runs (test_torch_repack.py)

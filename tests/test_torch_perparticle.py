@@ -345,26 +345,27 @@ def test_save_load_keeps_the_private_state(tmp_path):
 
 
 def test_exact_modes_construct_and_refusals():
-    """exact and adaptive substepping construct on the flat engine (the
-    factory's pick, even on the card); the dense engine and SGS turbulence
-    still refuse them, citing ROADMAP.md by title."""
+    """exact and adaptive substepping construct on both engines: the
+    factory gives the flat particles_t on the CPU and, as the dense engine
+    runs them (dense_capable), the dense front on the card or when asked
+    for; the dense x-slab mesh and SGS turbulence still refuse them."""
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import (dense_capable,
+                                                           particles_dense_t)
+    from libcloudphxx_tpu_torch.parallel import MeshRunner
     oi = Kinematic2D(**_kw("adaptive_act8"), **F64).opts_init
     cfg = tl.StaticConfig.from_opts_init(oi)
-    from libcloudphxx_tpu_torch.lgrngn.dense_front import dense_capable
-    assert not dense_capable(cfg)
+    assert dense_capable(cfg)
     for engine in ("auto", "flat"):
         prt = factory(tl.backend_t.CUDA, oi, engine=engine, **F64)
         assert type(prt) is tparticles.particles_t
-    title = "Dense-engine options that the port refuses"
-    with pytest.raises(NotImplementedError, match=title):
-        factory(tl.backend_t.CUDA, oi, engine="dense", **F64)
-    with pytest.raises(NotImplementedError, match=title):
-        Kinematic2D(**_kw("mix"), engine="dense", **F64)
-    m = Kinematic2D(**_kw("mix"), **F64)
-    with pytest.raises(NotImplementedError, match=title):
-        tdense.pack(m.cfg, m.prtcls.state, 16)
-    with pytest.raises(NotImplementedError, match=title):
-        m.run_device_lgrngn(1, engine="dense")
+    assert isinstance(factory(tl.backend_t.CUDA, oi, engine="dense", **F64),
+                      particles_dense_t)
+    m = Kinematic2D(**_kw("mix"), engine="dense", **F64)
+    assert isinstance(m.prtcls, particles_dense_t)
+    d = tdense.pack(m.cfg, m.prtcls.state, 16)
+    assert d.sd_th.shape == d.n.shape
+    with pytest.raises(NotImplementedError, match="exact substepping"):
+        MeshRunner(m, 2).run(1)
     with pytest.raises(NotImplementedError,
                        match="turb_cond_switch.*remaining features"):
         Kinematic2D(**_kw("mix", turb_cond_switch=True), **F64)
