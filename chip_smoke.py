@@ -4,10 +4,11 @@
 Drives the port's paths, the GMD-2015 kinematic lgrngn case at 76x76
 cells and 64 super-droplets a cell with sstp_cond = sstp_coal = 10 and the
 geometric kernel (bench.py's configuration), on the dense engine (kernels
-A-E; with exact per-particle condensation A, C, D, E and G) through
-run_device_lgrngn and through the public API's dense front, and on the
-flat engine behind the public API (kernels A and F, and with exact
-per-particle condensation kernels A and G), and checks them:
+A-E; with exact per-particle condensation A, C, D, E and G's fixed-count
+or adaptive form) through run_device_lgrngn and through the public API's
+dense front, and on the flat engine behind the public API (kernels A and
+F, and with exact per-particle condensation kernels A and G's forms), and
+checks them:
 
   1. device: the card's name and power limit (nvidia-smi); no CUDA, no run
   2. build: compile the kernels from csrc/, one nvcc per source in parallel
@@ -35,15 +36,19 @@ per-particle condensation kernels A and G), and checks them:
      the kernel path against the plain path
   8. the exact per-particle condensation (exact_sstp_cond) through the
      public API on the flat engine (engine="flat"), with in-cell mixing,
-     without it, and adaptive
-     (sstp_cond_act 8): spin-up and coalescing steps with bench.py's
-     physics checks, kernel G (the per-droplet root find at each droplet's
-     own ambient conditions) 10 times a step (adaptive: 14) and kernel A
-     twice, run_device_lgrngn(engine="flat") against the stepwise loop,
-     the kernel path against the plain path; G against its plain version,
-     bitwise, on the full population's first substep, RH capped at 1.01
-     and 44, on 1 and 32,773 droplets, with 65,536 dead slots added, and
-     with a dt a droplet (the adaptive phase B)
+     without it, and adaptive (sstp_cond_act 8 and 16): spin-up and
+     coalescing steps with bench.py's physics checks, kernel G's
+     fixed-count or adaptive form (a whole condensation phase over the
+     cell-sorted segments) once a step, its one-substep entry never, and
+     kernel A twice, run_device_lgrngn(engine="flat") against the
+     stepwise loop, the kernel path against the plain path (bitwise);
+     each form against its plain version on what a main step gives it
+     (rw2 and the live SDs' private state bitwise; with mixing B's gates
+     on rw2, th and rv), timed beside its bound; the one-substep entry
+     against its plain version, bitwise, on the full population's first
+     substep as the plain path calls it, RH
+     capped at 1.01 and 44, on 1 and 32,773 droplets, with 65,536 dead
+     slots added, and with a dt a droplet (the adaptive phase B)
   9. the dense front through the public API (factory on the card ->
      particles_dense_t; Kinematic2D.run()): spin-up and coalescing steps
      through kernels A (a field a call), B, C, D and E, bitwise equal to
@@ -94,16 +99,17 @@ per-particle condensation kernels A and G), and checks them:
      steps from init at 8 and 1 shards beside the serial engine, and C's
      unwrapped form per launch beside its bound
  15. exact and adaptive condensation on the dense engine, in phase 8's
-     three variants: the factory on the card gives the dense front;
+     four variants: the factory on the card gives the dense front;
      spin-up and coalescing steps through run_device_lgrngn(engine=
-     "dense") with bench.py's physics checks, kernel G 10 times a step
-     (adaptive: 14) on the ravelled (n_cell, cap) planes, D's 11-plane
-     form (the four private ambient planes riding) once a step, B and D's
-     7-plane form never; the dense front bitwise equal to it; G on the
-     dense planes (dead slots included) and the 11-plane D bitwise equal
-     to their plain versions; the kernel path against the plain path;
-     best-of-3 timing from init beside the flat exact slice's, and G's
-     and D's rows with their bounds
+     "dense") with bench.py's physics checks, kernel G's fixed-count or
+     adaptive form on the (n_cell, cap) rows and D's 11-plane form (the
+     four private ambient planes riding) once a step, B, D's 7-plane form
+     and G's one-substep entry never; the dense front bitwise equal to it;
+     G's form (as in phase 8) and the 11-plane D (bitwise) against their
+     plain versions on what a main step gives them; the kernel path
+     against the plain path; best-of-3 timing from init beside the flat
+     exact slice's, and the rows of G's two forms and of D with their
+     bounds
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
@@ -136,17 +142,22 @@ KERNEL_REPS = 20
 STANDALONE_CALLS = 3
 FLAT_TIME_STEPS = 20
 FLAT_DEAD_CELL0 = 65536     # dead slots added to cell 0 in F's second case
-# the exact per-particle slice (kernel G): its three variants, the
-# ragged lengths and dead slots of G's checks, and the steps of the
-# kernel path against the plain path (3 spin-up, 2 coalescing)
+# the exact per-particle slices (kernel G): their four variants (the
+# adaptive mode with sstp_cond_act below and above sstp_cond), the ragged
+# lengths and dead slots of the one-substep entry's checks, the steps of
+# the kernel path against the plain path (3 spin-up, 2 coalescing), and
+# the calls a plain version of G's two forms is timed over
 EXACT_VARIANTS = {
     "mixing": dict(exact_sstp_cond=True),
     "no mixing": dict(exact_sstp_cond=True, sstp_cond_mix=False),
     "adaptive": dict(exact_sstp_cond=True, adaptive_sstp_cond=True,
                      sstp_cond_act=8),
+    "adaptive, act 16": dict(exact_sstp_cond=True, adaptive_sstp_cond=True,
+                             sstp_cond_act=16),
 }
 EXACT_LENGTHS, EXACT_DEAD = (1, 32773), 65536
 EXACT_PLAIN_STEPS, EXACT_PLAIN_SPINUP = 5, 3
+FORM_PLAIN_REPS = 3
 
 # the card's peak rates (H100 SXM data sheet, at a 700 W power limit):
 # device memory bytes/s, float32 and float64 operations/s outside the
@@ -172,6 +183,12 @@ OPS_CELL_SUBSTEP, OPS_CLOSURE, OPS_DROP = 71, 32, 6
 # cap, the surface tension and Kelvin coefficient, l_v, rho_v and the
 # latent-heat term
 OPS_GROWTH = 20
+# kernel G's two forms (csrc/cond_sd_fixed.cu, cond_sd_adaptive.cu), per
+# SD and substep beside the closure and the growth terms: the increments
+# of the private state, d(rw^3), the vapour and the heat fed back; the
+# adaptive form's Koehler function of the critical radius (a powf counted
+# as three); a cell's butterfly of two float64 sums a substep
+OPS_FEEDBACK, OPS_KOEHLER, OPS_BUTTERFLY = 32, 14, 20
 # per live SD: vt_beard77; kernel C's advection, walls and classification
 # beside it; kernel D's nine-source merge
 OPS_VT, OPS_TRANSPORT, OPS_MERGE = 45, 60, 30
@@ -1098,7 +1115,7 @@ def smoke(opts):
     check(front == dict(mpdata=2 * steps, cond=steps, transport=steps,
                         merge=steps, coal=SLICE_MAIN, coal_standalone=0,
                         cond_flat=0, cond_sd=0, transport_unwrapped=0,
-                        merge_exact=0),
+                        merge_exact=0, cond_sd_fixed=0, cond_sd_adaptive=0),
           f"dense front: kernel A twice, B, C and D once a step and E once "
           f"a main step expected, got {front}")
     # bitwise against run_device_lgrngn(engine="dense") from the same state
@@ -1236,19 +1253,24 @@ def smoke(opts):
     bounds["cond_sd"] = cond_sd_bound(exact["g_kw"])
     rows = []
     for k in _ext.KERNELS:
-        if k in (_ext.TRANSPORT_UNWRAPPED, _ext.MERGE_EXACT):  # 14's, 15's
+        if k in (_ext.TRANSPORT_UNWRAPPED, _ext.MERGE_EXACT,  # 14's, 15's
+                 _ext.COND_SD_FIXED, _ext.COND_SD_ADAPTIVE):  # 8's, 15's
             continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
         bound_ms, bound_by = bounds[k.name]
         print(f"kernel {k.name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}) ({card})")
-        check(launches[k.name] > 0, f"kernel {k.name} was not launched")
+        # G's one-substep entry is on no path: its two forms run the
+        # per-particle phases (phase 8 checks it launched 0 times there)
+        check(launches[k.name] > 0 or k is _ext.COND_SD,
+              f"kernel {k.name} was not launched")
         rows.append({"name": k.name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": launches[k.name],
                      "max_abs_err": err[k.name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
+    rows += exact["rows"]
     ms_dead = time_cuda(lambda: cond_ops.cond_flat(**f_dead), KERNEL_REPS)
     print(f"kernel cond_flat with {FLAT_DEAD_CELL0} more dead slots in cell "
           f"0: {ms_dead:.4f} ms ({card})")
@@ -1942,26 +1964,80 @@ def forced_retargets(Kinematic2D, dense, _ext, card):
           f"cell's SDs", flush=True)
 
 
+def form_of(cfg, _ext):
+    """Kernel G's form for an exact configuration: (its wrapper's name in
+    ops/cond.py, its Kernel)."""
+    if cfg.adaptive_sstp_cond:
+        return "perparticle_adaptive", _ext.COND_SD_ADAPTIVE
+    return "perparticle_fixed", _ext.COND_SD_FIXED
+
+
+def check_form(label, kw, err):
+    """One of G's forms against its plain version on its captured
+    arguments ``kw``: rw2 in every slot and the live SDs' private state
+    bitwise; with in-cell mixing (the kernel's butterfly sums add in
+    another order) B's and F's gates on rw2 1e-5, th 2e-6 and rv 2e-5, the
+    live SDs' private rhod and p and the slots it does not advance
+    bitwise.  A dead slot's private values
+    are not compared (the kernel keeps them; the plain version may leave
+    0 * 0 / 0 there).  Records the largest difference in err[key]."""
+    from libcloudphxx_tpu_torch import _ext
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    cfg = kw["cfg"]
+    fname, kernel = form_of(cfg, _ext)
+    f = getattr(cond_ops, fname)
+    k, pl = f(**kw), f(**kw, plain=True)
+    torch.cuda.synchronize()
+    n, rw2 = kw["sd"][0], kw["sd"][1]
+    live = n > 0
+    key = kernel.name
+    err[key] = max(err.get(key, 0.0), max_abs(k[0], pl[0]),
+                   *(max_abs(a[live], b[live]) for a, b in zip(k[1:], pl[1:])))
+    mix = not cfg.adaptive_sstp_cond and cfg.sstp_cond_mix
+    if mix:
+        kept = ~live & (rw2 <= 0)
+        rel = (max_rel(k[0][live], pl[0][live]), max_rel(k[2][live],
+               pl[2][live]), max_rel(k[1][live], pl[1][live]))
+        same = bool(torch.equal(k[0][kept], pl[0][kept])) and all(
+            torch.equal(a[live], b[live]) for a, b in zip(k[3:], pl[3:]))
+        ok = same and rel[0] <= 1e-5 and rel[1] <= 2e-6 and rel[2] <= 2e-5
+        what = (f"rw2 rel {rel[0]:.2e}, th rel {rel[1]:.2e}, rv rel "
+                f"{rel[2]:.2e} (live), slots not advanced and private rhod, "
+                f"p bitwise {same}")
+    else:
+        ok = bool(torch.equal(k[0], pl[0])) and all(
+            torch.equal(a[live], b[live]) for a, b in zip(k[1:], pl[1:]))
+        what = f"bitwise equal (rw2 every slot, private state live) {ok}"
+    moved = float((k[0] != rw2)[live].double().mean())
+    print(f"G {key} {label}: {n.numel()} slots, {int(live.sum())} live; "
+          f"{what}; {moved:.4f} of the live SDs changed", flush=True)
+    check(ok, f"G's {key} form, {label}: kernel and plain version differ")
+
+
 def exact_slice(Kinematic2D, _ext, c, err):
     """bench.py's configuration with exact per-particle condensation, in
     each of EXACT_VARIANTS, through the public API on the flat engine
     (factory(engine="flat") -> particles_t -> Kinematic2D.run(); the
     factory's own pick on the card is the dense front, phase 15): spin-up
-    and coalescing steps with bench.py's
-    physics checks, kernel G sstp_cond times a step (adaptive: once a try
-    of phase A and max(sstp_cond, sstp_cond_act) times in phase B) and no
-    other condensation kernel, run_device_lgrngn(engine="flat") equal to
-    the stepwise loop, and the kernel path against the plain path.  Then G
-    against its plain version, bitwise, on the inputs of the mixing
+    and coalescing steps with bench.py's physics checks, kernel G's
+    fixed-count or adaptive form once a step and no other condensation
+    kernel (G's one-substep entry never), run_device_lgrngn(engine="flat")
+    equal to the stepwise loop, and the kernel path against the plain
+    path (bitwise).  Then each form against its plain version on what a
+    main step gives it (check_form), timed beside its bound, and G's
+    one-substep entry against its plain version, bitwise, on the inputs
+    of the mixing
     variant's first main substep (the full population), RH capped at 1.01
     and 44, on a ragged length or one droplet, with 65,536 dead slots
     added, and on the adaptive variant's first phase-B call (a dt a
-    droplet).  Returns the mixing variant's model, initial state, totals,
-    SD count, G's launches in its run and G's first-substep inputs."""
+    droplet), each as the plain path calls it.  Returns the mixing
+    variant's model, initial state, totals, SD count, the one-substep
+    entry's first-substep inputs, and the kernel rows of the two forms on
+    the flat segments."""
     from libcloudphxx_tpu_torch.lgrngn import condensation as cnd
     from libcloudphxx_tpu_torch.ops import cond as cond_ops
     steps = SLICE_SPINUP + SLICE_MAIN
-    out, g_cases = {}, {}
+    out, g_cases, form_kw = {}, {}, {}
     for label, oi in EXACT_VARIANTS.items():
         t0 = time.perf_counter()
         m = make_model(Kinematic2D, coal=True, engine="flat", **oi)
@@ -1975,10 +2051,7 @@ def exact_slice(Kinematic2D, _ext, c, err):
         init = (prt.state, m.th, m.rv)
         totals = flat_totals(prt, m.rv, c)
         n_sd = int((prt.state.n > 0).sum())
-        per_step = SSTP_COND
-        if oi.get("adaptive_sstp_cond"):
-            per_step = len(cnd.adaptive_tries(SSTP_COND)) \
-                + max(SSTP_COND, oi["sstp_cond_act"])
+        fname, form = form_of(prt.cfg, _ext)
 
         def restore(s):
             prt.state, m.th, m.rv = s
@@ -1998,13 +2071,13 @@ def exact_slice(Kinematic2D, _ext, c, err):
         print(f"exact slice, {label}: init {t1 - t0:.1f} s, {n_sd} SDs; "
               f"{SLICE_SPINUP} spin-up + {SLICE_MAIN} main steps in "
               f"{secs:.2f} s; water rel err {dw:.2e}, dry rel err {dd:.2e}, "
-              f"multiplicity lost to collisions {lost:.3e}; G launches "
-              f"{launches['cond_sd'] / steps:g} a step ({per_step} "
-              f"expected); launches {launches}", flush=True)
+              f"multiplicity lost to collisions {lost:.3e}; launches "
+              f"{launches}", flush=True)
         want = {k.name: 0 for k in _ext.KERNELS}
-        want.update(mpdata=2 * steps, cond_sd=per_step * steps)
-        check(launches == want, f"exact {label}: kernel A twice and G "
-              f"{per_step} times a step expected, got {launches}")
+        want.update({"mpdata": 2 * steps, form.name: steps})
+        check(launches == want, f"exact {label}: kernel A twice and G's "
+              f"{form.name} form once a step expected (the one-substep "
+              f"entry never), got {launches}")
         check(lost > 0.0, f"exact {label}: no collision in the main steps")
 
         # run_device_lgrngn(engine="flat") from the spin-up state against
@@ -2021,7 +2094,9 @@ def exact_slice(Kinematic2D, _ext, c, err):
         check(all(eq.values()),
               f"exact {label}: run_device_lgrngn differs from run()")
 
-        # the kernel path against the plain path, from init
+        # the kernel path against the plain path, from init: bitwise (with
+        # mixing too: on the H100 the butterfly's float64 sums round to
+        # the float32 bits of the plain float64 sums; PERF.md section 6)
         res = []
         for plain in (False, True):
             restore(init)
@@ -2036,18 +2111,23 @@ def exact_slice(Kinematic2D, _ext, c, err):
         print(f"exact {label}, kernels vs plain after {EXACT_PLAIN_STEPS} "
               f"steps: th rel {rel_th:.2e}, rv rel {rel_rv:.2e}, bitwise "
               f"equal (th, rv, rw2, sstp_tmp_th) {same}", flush=True)
-        check(same, f"exact {label}: the kernel path differs from the plain "
-              f"path")
+        check(same, f"exact {label}: the kernel path differs from the "
+              f"plain path")
 
-        # G's inputs: the mixing variant's first main substep, the adaptive
-        # variant's first phase-B call
+        # G's form on what a main step gives it; the one-substep entry's
+        # inputs as the plain path calls it (the mixing variant's first
+        # main substep, the adaptive variant's first phase-B call)
+        form_kw[label] = capture(cond_ops, fname,
+                                 lambda: (restore(sp), m.run(1)))
+        check_form(f"on the flat segments, {label}", form_kw[label], err)
         which = len(cnd.adaptive_tries(SSTP_COND)) \
             if oi.get("adaptive_sstp_cond") else 0
         g_cases[label] = capture(cond_ops, "advance_rw2",
-                                 lambda: (restore(sp), m.run(1)), which)
+                                 lambda: (restore(sp), m.run(1, plain=True)),
+                                 which)
         restore(init)
         out[label] = dict(model=m, init=init, totals=totals, n_sd=n_sd,
-                          launches=launches["cond_sd"])
+                          launches=launches)
 
     g_kw = g_cases["mixing"]
     names = [k for k in g_kw if k not in ("dt", "RH_max")]
@@ -2082,8 +2162,43 @@ def exact_slice(Kinematic2D, _ext, c, err):
               f"G {label}: a slot with rw2 <= 0 changed")
     check(isinstance(g_cases["adaptive"]["dt"], torch.Tensor),
           "G: the adaptive variant's phase B call has no dt a droplet")
+    rows = form_rows(_ext, form_kw, out, "flat", err)
     mix = out["mixing"]
-    return dict(mix, g_kw=g_kw)
+    return dict(mix, launches=mix["launches"]["cond_sd"], g_kw=g_kw,
+                rows=rows)
+
+
+def form_rows(_ext, form_kw, out, where, err):
+    """The kernel rows of G's two forms on ``where``'s layout (the
+    captured arguments ``form_kw`` of the mixing and the adaptive
+    variants, their launches in ``out``): time a launch beside the plain
+    version's and the bound."""
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    card = card_line()
+    rows = []
+    for label, fname, kernel, bnd in (
+            ("mixing", "perparticle_fixed", _ext.COND_SD_FIXED,
+             cond_sd_fixed_bound),
+            ("adaptive", "perparticle_adaptive", _ext.COND_SD_ADAPTIVE,
+             cond_sd_adaptive_bound)):
+        kw = form_kw[label]
+        f = getattr(cond_ops, fname)
+        ms = time_cuda(lambda: f(**kw), KERNEL_REPS)
+        plain_ms = time_cuda(lambda: f(**kw, plain=True), FORM_PLAIN_REPS)
+        bound_ms, bound_by = bnd(kw)
+        launches = out[label]["launches"][kernel.name]
+        name = kernel.name + ("_flat" if where == "flat" else "")
+        print(f"kernel {name}: {ms:.4f} ms a launch (a phase), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"{launches} launches in the {label} variant's "
+              f"{SLICE_SPINUP + SLICE_MAIN} steps ({card})", flush=True)
+        check(launches > 0, f"kernel {name} was not launched")
+        rows.append({"name": name, "route": "cuda", "source": kernel.source,
+                     "replaces": kernel.replaces, "launches": launches,
+                     "max_abs_err": err[kernel.name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    return rows
 
 
 def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
@@ -2092,23 +2207,21 @@ def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
     condensation on the dense engine, in each of EXACT_VARIANTS: the
     factory on the card gives the dense front; spin-up and coalescing
     steps through run_device_lgrngn(engine="dense") with bench.py's
-    physics checks, kernel G sstp_cond times a step (adaptive: once a try
-    of phase A and max(sstp_cond, sstp_cond_act) times in phase B) on the
-    ravelled (n_cell, cap) planes, D's 11-plane form once a step, B and
-    D's 7-plane form never; the dense front's stepwise run bitwise equal
-    to it; G on the dense planes of the first main substep (adaptive: the
-    first phase-B call, a dt a droplet) and the 11-plane D of a main step
-    bitwise equal to their plain versions; the kernel path against the
-    plain path from init; best-of-TIME_REPS timing from init beside the
-    flat exact slice's and the dense main path's.  Returns (kernel rows
-    for G on the dense planes and the 11-plane D, {variant: (model,
-    initial state)})."""
-    from libcloudphxx_tpu_torch.lgrngn import condensation as cnd
+    physics checks, kernel G's fixed-count or adaptive form on the
+    (n_cell, cap) rows and D's 11-plane form once a step, B, D's 7-plane
+    form and G's one-substep entry never; the dense front's stepwise run
+    bitwise equal to it; G's form (check_form) and the 11-plane D (bitwise)
+    against their plain versions on what a main step gives them; the
+    kernel path against the plain path from init (bitwise without in-cell
+    mixing); best-of-TIME_REPS timing from init beside the flat exact
+    slice's and the dense main path's.  Returns (kernel rows for G's two
+    forms on the dense rows and the 11-plane D, {variant: (model, initial
+    state)})."""
     from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
     from libcloudphxx_tpu_torch.ops import cond as cond_ops
     steps = SLICE_SPINUP + SLICE_MAIN
-    err = {"cond_sd": 0.0, "merge_exact": 0.0}
-    out, timing = {}, {}
+    err = {"merge_exact": 0.0}
+    out, timing, form_kw = {}, {}, {}
     for label, oi in EXACT_VARIANTS.items():
         t0 = time.perf_counter()
         m = make_model(Kinematic2D, coal=True, **oi)
@@ -2120,10 +2233,7 @@ def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
         check(d0.sd_th.shape == d0.n.shape,
               f"dense exact {label}: no private ambient planes")
         totals = dense.water_dry_totals(d0, m.rv)
-        adaptive = bool(oi.get("adaptive_sstp_cond"))
-        tries = len(cnd.adaptive_tries(SSTP_COND))
-        per_step = tries + max(SSTP_COND, oi["sstp_cond_act"]) \
-            if adaptive else SSTP_COND
+        fname, form = form_of(m.cfg, _ext)
 
         def restore(s):
             m.dense_state, m.th, m.rv = s
@@ -2145,11 +2255,11 @@ def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
               f"{SLICE_SPINUP} spin-up + {SLICE_MAIN} main steps in "
               f"{secs:.2f} s; water rel err {dw:.2e}, dry rel err {dd:.2e}, "
               f"multiplicity lost to collisions {lost:.3e}, global re-bins "
-              f"{end[0].rebins}; G launches {launches['cond_sd'] / steps:g} a "
-              f"step ({per_step} expected); launches {launches}", flush=True)
+              f"{end[0].rebins}; launches {launches}", flush=True)
         want = {k.name: 0 for k in _ext.KERNELS}
-        want.update(mpdata=steps, transport=steps, merge_exact=steps,
-                    coal=SLICE_MAIN, cond_sd=per_step * steps)
+        want.update({"mpdata": steps, "transport": steps,
+                     "merge_exact": steps, "coal": SLICE_MAIN,
+                     form.name: steps})
         check(launches == want, f"dense exact {label}: launches {launches}, "
               f"expected {want}")
         check(lost > 0.0, f"dense exact {label}: no collision in the main "
@@ -2177,28 +2287,18 @@ def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
         check(all(eq.values()), f"dense exact {label}: the dense front "
               f"differs from run_device_lgrngn(engine='dense')")
 
-        # G and the 11-plane D on what a main step gives them
-        calls = capture_all({"g": (cond_ops, "advance_rw2"),
+        # G's form and the 11-plane D on what a main step gives them
+        calls = capture_all({"g": (cond_ops, fname),
                              "d": (dense, "rebin_x")},
                             lambda: (restore(sp),
                                      m.run_device_lgrngn(1, engine="dense")))
-        g_kw = calls["g"][tries if adaptive else 0]
+        form_kw[label] = calls["g"][0]
+        check(form_kw[label].get("seg") is None,
+              f"dense exact {label}: G's form took a flat layout")
+        check_form(f"on the dense rows, {label}", form_kw[label], err)
         d_kw = calls["d"][-1]
         check(len(d_kw["extra"]) == 4, f"dense exact {label}: the merge "
               f"took {len(d_kw['extra'])} extra planes")
-        check(isinstance(g_kw["dt"], torch.Tensor) == adaptive,
-              f"dense exact {label}: G's dt")
-        k, pl = cond_ops.advance_rw2(**g_kw), cond_ops.advance_rw2(
-            **g_kw, plain=True)
-        alive = g_kw["rw2"] > 0
-        same = bool(torch.equal(k, pl))
-        err["cond_sd"] = max(err["cond_sd"], max_abs(k, pl))
-        kept = bool(torch.equal(k[~alive], g_kw["rw2"][~alive]))
-        print(f"G cond_sd on the dense planes, {label}: {k.numel()} slots, "
-              f"{int(alive.sum())} with rw2 > 0; bitwise equal {same}, rw2 "
-              f"<= 0 kept {kept}", flush=True)
-        check(same and kept, f"G on the dense planes, {label}: kernel and "
-              f"plain version differ")
         kd = step.rebin_x(**d_kw)
         pd = step.rebin_x(**d_kw, plain=True)
         same = all(torch.equal(a, b) for a, b in zip(kd, pd))
@@ -2210,7 +2310,8 @@ def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
         check(same, f"D's 11-plane form, {label}: kernel and plain version "
               f"differ")
 
-        # the kernel path against the plain path, from init
+        # the kernel path against the plain path, from init: bitwise (with
+        # mixing too, as on the flat engine)
         res = []
         for plain in (False, True):
             restore(init)
@@ -2229,8 +2330,8 @@ def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
               f"{EXACT_PLAIN_STEPS} steps: th rel {rel_th:.2e}, rv rel "
               f"{rel_rv:.2e}, bitwise equal (th, rv, every plane) {same}",
               flush=True)
-        check(same, f"dense exact {label}: the kernel path differs from the "
-              f"plain path")
+        check(same, f"dense exact {label}: the kernel path differs from "
+              f"the plain path")
 
         # timing: best of TIME_REPS from-init reps, physics checks on each
         restore(init)
@@ -2242,38 +2343,31 @@ def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
               f"({TIME_STEPS} steps, best of {TIME_REPS}; {card})",
               flush=True)
         restore(init)
-        out[label] = dict(model=m, init=init, g_kw=g_kw, d_kw=d_kw,
-                          launches=launches)
+        out[label] = dict(model=m, init=init, d_kw=d_kw, launches=launches)
     print(f"timing, exact condensation, coalescence on, from init: dense "
           f"engine " + ", ".join(f"{k} {v:.3f}" for k, v in timing.items())
           + f" ms/step; the flat exact slice (mixing, public API) "
           f"{flat_exact_ms:.3f}; the dense main path (per-cell) "
           f"{dense_ms:.3f} ({card})", flush=True)
 
+    rows = form_rows(_ext, form_kw, out, "dense", err)
     mix = out["mixing"]
-    g_kw, d_kw = mix["g_kw"], mix["d_kw"]
-    rows = []
-    for name, kernel, fn, bnd in (
-            ("cond_sd_dense", _ext.COND_SD,
-             lambda plain: cond_ops.advance_rw2(**g_kw, plain=plain),
-             cond_sd_bound(g_kw, cap=mix["init"][0].cap)),
-            ("merge_exact", _ext.MERGE_EXACT,
-             lambda plain: step.rebin_x(**d_kw, plain=plain),
-             merge_exact_bound(d_kw))):
-        ms = time_cuda(lambda: fn(False), KERNEL_REPS)
-        plain_ms = time_cuda(lambda: fn(True), KERNEL_REPS)
-        bound_ms, bound_by = bnd
-        launches = mix["launches"][kernel.name]
-        print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); {launches} launches in the "
-              f"mixing variant's {steps} steps ({card})")
-        check(launches > 0, f"kernel {name} was not launched")
-        rows.append({"name": name, "route": "cuda", "source": kernel.source,
-                     "replaces": kernel.replaces, "launches": launches,
-                     "max_abs_err": err["cond_sd" if kernel is _ext.COND_SD
-                                        else "merge_exact"],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None})
+    d_kw = mix["d_kw"]
+    ms = time_cuda(lambda: step.rebin_x(**d_kw), KERNEL_REPS)
+    plain_ms = time_cuda(lambda: step.rebin_x(**d_kw, plain=True),
+                         KERNEL_REPS)
+    bound_ms, bound_by = merge_exact_bound(d_kw)
+    launches = mix["launches"]["merge_exact"]
+    print(f"kernel merge_exact: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); {launches} launches in the "
+          f"mixing variant's {steps} steps ({card})")
+    check(launches > 0, "kernel merge_exact was not launched")
+    rows.append({"name": "merge_exact", "route": "cuda",
+                 "source": _ext.MERGE_EXACT.source,
+                 "replaces": _ext.MERGE_EXACT.replaces, "launches": launches,
+                 "max_abs_err": err["merge_exact"], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None})
     return rows, {k: (v["model"], v["init"]) for k, v in out.items()}
 
 
@@ -2289,33 +2383,143 @@ def merge_exact_bound(kw):
                  + slot * n.shape[0], live * OPS_MERGE)
 
 
-def cond_sd_bound(kw, cap=None):
-    """Kernel G's bound on its inputs ``kw`` (advance_rw2's arguments): for
-    each droplet with rw2 > 0, 12 arrays in (13 with a dt a droplet) and
-    rw2 out, and for each slot with rw2 <= 0, which the function returns as
-    it was given, rw2 in and out, at the memory rate; against the root
-    find's operations (rootfind_ops) and each droplet's growth terms and
-    set-up at the float32 rate.  With ``cap`` the arrays are ravelled
-    (n_cell, cap) planes whose lam_D and lam_K are their rows' values,
-    counted once a row."""
-    names = ("rw2", "rd3", "kpa", "vt", "rhod", "rv", "T", "p", "RH", "eta",
-             "lam_D", "lam_K")
-    arrays = [kw[k] for k in names]
+G_ARRAYS = ("rw2", "rd3", "kpa", "vt", "rhod", "rv", "T", "p", "RH", "eta",
+            "lam_D", "lam_K")
+
+
+def cond_sd_bound(kw):
+    """Kernel G's one-substep bound on its inputs ``kw`` (advance_rw2's
+    arguments): for each droplet with rw2 > 0, 12 arrays in (13 with a dt
+    a droplet) and rw2 out, and for each slot with rw2 <= 0, which the
+    function returns as it was given, rw2 in and out, at the memory rate;
+    against the root find's operations (rootfind_ops) and each droplet's
+    growth terms and set-up at the float32 rate."""
+    arrays = [kw[k] for k in G_ARRAYS]
     live = arrays[0] > 0
     ops, brk, n_live = rootfind_ops(kw["dt"], arrays, kw["RH_max"], live)
-    per_sd = arrays[:10] if cap else arrays
-    if isinstance(kw["dt"], torch.Tensor):
-        per_sd = per_sd + [kw["dt"]]
+    per_sd = arrays + ([kw["dt"]] if isinstance(kw["dt"], torch.Tensor)
+                       else [])
     rw2_b = arrays[0].element_size()
     n = arrays[0].numel()
     moved = (n_live * (sum(a.element_size() for a in per_sd) + rw2_b)
              + (n - n_live) * 2 * rw2_b)
-    if cap:
-        moved += n // cap * sum(a.element_size() for a in arrays[10:])
     print(f"G cond_sd: {brk / max(n_live, 1):.4f} of the {n_live} droplets "
           f"with rw2 > 0 bracketed in the first main substep; "
           f"{n - n_live} slots with rw2 <= 0")
     return bound(moved, ops + n_live * (OPS_GROWTH + OPS_DROP))
+
+
+def _form_bytes(kw):
+    """What G's two forms must move: a live SD's nine arrays in and five
+    out, a dead slot's n, and its rw2 in and out, each cell's arrays once,
+    and the flat layout's order and ends, at the memory rate."""
+    sd, cells, seg = kw["sd"], kw["cells"], kw.get("seg")
+    n = sd[0]
+    live, b = int((n > 0).sum()), n.element_size()
+    moved = live * 14 * b + (n.numel() - live) * 3 * b \
+        + sum(nbytes(a) for a in cells)
+    if seg is not None:
+        moved += nbytes(seg[1], seg[2])
+    return moved
+
+
+def _plain_order(kw, a):
+    """An SD array in the order the forms' plain versions take it (the
+    flat SDs sorted by cell; the dense rows ravelled)."""
+    seg = kw.get("seg")
+    return (a[seg[1]] if seg is not None else a).reshape(-1)
+
+
+def cond_sd_fixed_bound(kw):
+    """G's fixed-count form's bound on its arguments ``kw``
+    (perparticle_fixed's): _form_bytes, against sstp_cond times the root
+    finds of the first substep's data (rootfind_ops on what its plain
+    version hands the one-substep entry, over the SDs it advances), each
+    advanced SD's closure, growth terms and feedback, and its set-up, at
+    the float32 rate; the butterfly's float64 sums at the float64 rate."""
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    cfg = kw["cfg"]
+    g1 = capture(cond_ops, "advance_rw2",
+                 lambda: cond_ops.perparticle_fixed(**kw, plain=True), 0)
+    n, rw2 = (_plain_order(kw, a) for a in kw["sd"][:2])
+    advanced = (n > 0) | (rw2 > 0)
+    ops1, brk, n_adv = rootfind_ops(g1["dt"], [g1[k] for k in G_ARRAYS],
+                                    g1["RH_max"], advanced)
+    sstp = cfg.sstp_cond
+    n_cell = kw["cells"][0].numel()
+    ops = sstp * (ops1 + n_adv * (OPS_CLOSURE + OPS_GROWTH + OPS_FEEDBACK)) \
+        + n_adv * OPS_DROP
+    ops_f64 = sstp * n_cell * OPS_BUTTERFLY if cfg.sstp_cond_mix else 0
+    print(f"G cond_sd_fixed: {brk / max(n_adv, 1):.4f} of the {n_adv} SDs it "
+          f"advances bracketed in the first substep; {n.numel() - n_adv} "
+          f"slots copied through")
+    return bound(_form_bytes(kw), ops, ops_f64)
+
+
+def cond_sd_adaptive_bound(kw):
+    """G's adaptive form's bound on its arguments ``kw``
+    (perparticle_adaptive's): _form_bytes, against the work this data
+    needs, read off what its plain version hands the one-substep entry:
+    each try's root finds over the live SDs not yet converged, the
+    critical radius' solve (50 evaluations of its Koehler function, 48
+    iterations) for every live SD where sstp_cond_act > 1, and each phase-B
+    substep's root finds over the SDs within their own count (not the
+    first of one that reuses its converged try), with each such SD's
+    closure, growth terms and (in phase B) feedback, at the float32 rate.
+    Prints how many SDs take each substep count."""
+    from libcloudphxx_tpu_torch.common import kappa_koehler
+    from libcloudphxx_tpu_torch.lgrngn import condensation as cnd
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    cfg = kw["cfg"]
+    calls = capture(cond_ops, "advance_rw2", lambda:
+                    cond_ops.perparticle_adaptive(**kw, plain=True),
+                    None)
+    tries = cnd.adaptive_tries(cfg.sstp_cond)
+    sstp_max, act = max(cfg.sstp_cond, 1), max(cfg.sstp_cond_act, 1)
+    sd, cells, seg = kw["sd"], kw["cells"], kw.get("seg")
+    n, rw2, rd3, kpa = (_plain_order(kw, a) for a in sd[:4])
+    T = cells[7][seg[0]] if seg is not None \
+        else cells[7][:, None].expand(sd[0].shape).reshape(-1)
+    live = n > 0
+    grow = lambda call, need: rootfind_ops(
+        call["dt"], [call[k] for k in G_ARRAYS], call["RH_max"], need)[0]
+    per_sd = OPS_CLOSURE + OPS_GROWTH
+    done = torch.zeros_like(live)
+    sstp = torch.full(n.shape, sstp_max, dtype=torch.int32, device=n.device)
+    drw2 = torch.zeros_like(rw2)
+    ops = 0
+    for t, call in zip(tries, calls):
+        need = live & ~done
+        ops += grow(call, need) + int(need.sum()) * per_sd
+        drw2_t = cond_ops.advance_rw2(**call, plain=True) - rw2
+        if t == 1:
+            drw2 = drw2_t
+            continue
+        conv = (torch.abs(drw2_t * 2 - drw2)
+                <= cfg.sstp_cond_adapt_drw2_eps * rw2) \
+            & (torch.abs(drw2) < cfg.sstp_cond_adapt_drw2_max * rw2)
+        newly = conv & ~done
+        sstp = torch.where(newly, t // 2, sstp)
+        done = done | newly
+        drw2 = torch.where(done, drw2, drw2_t)
+    first = done | (sstp_max == 1)
+    if act > 1:
+        rc2 = kappa_koehler.rw3_cr(torch.clamp(rd3, min=1e-300),
+                                   torch.clamp(kpa, min=1e-10),
+                                   T) ** (2.0 / 3)
+        proj = rw2 + sstp * drw2
+        cross = ((rw2 < rc2) & (proj > rc2)) | ((rw2 > rc2) & (proj < rc2))
+        sstp = torch.where(cross, act, sstp)
+        first = first & ~cross
+        ops += int(live.sum()) * (50 * OPS_KOEHLER + 48 * OPS_ITER)
+    for s, call in enumerate(calls[len(tries):]):
+        active = live & (s < sstp)
+        need = active & ~(first & (s == 0))
+        ops += grow(call, need) + int(active.sum()) * (per_sd + OPS_FEEDBACK)
+    counts = torch.bincount(sstp[live].long()).tolist()
+    print(f"G cond_sd_adaptive: {int(live.sum())} live SDs by substep count "
+          f"{ {c: k for c, k in enumerate(counts) if k} }")
+    return bound(_form_bytes(kw), ops)
 
 
 def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw,

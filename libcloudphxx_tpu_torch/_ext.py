@@ -137,10 +137,35 @@ COND_SD = Kernel(
     "libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
     ":46, call :78), per-droplet ambient callers (lgrngn/condensation.py "
     ":468 cond_perparticle, :684 perparticle_adaptive_core; lgrngn/"
-    "dense.py:359 step_cond_exact, :456 step_cond_adaptive, :523 "
-    "_step_cond_percell)")
+    "dense.py:359 step_cond_exact, :456 step_cond_adaptive; off every path "
+    "of the port, where COND_SD_FIXED and COND_SD_ADAPTIVE run them)")
+# kernel G's fixed-count form: SD arrays in (9: n rw2 rd3 kpa vt and the
+# private th rv rhod p), cells (7: th rv rhod p dv lam_D lam_K), the
+# layout (order, ends, sijk; null for dense rows), outputs (5: rw2 th rv
+# rhod p), scratch positions; n_cell, cap, sstp; dt, RH_max; th_dry,
+# const_p, RH formula, mixing, iterations
+COND_SD_FIXED = Kernel(
+    "cond_sd_fixed", "lcp_cond_sd_fixed", [_P] * 25 + [_I] * 3 + [_D] * 2
+    + [_I] * 5,
+    "libcloudphxx_tpu_torch/csrc/cond_sd_fixed.cu",
+    "libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
+    ":46, call :78) with the substep loop around it: lgrngn/"
+    "condensation.py:468 cond_perparticle, lgrngn/dense.py:359 "
+    "step_cond_exact")
+# kernel G's adaptive form: the fixed form's pointers with the cells' T
+# after lam_K and without the scratch positions; n_cell, cap, n_slots,
+# sstp, sstp_act; dt, RH_max, the drw2 criteria (eps, max); th_dry,
+# const_p, RH formula, iterations
+COND_SD_ADAPTIVE = Kernel(
+    "cond_sd_adaptive", "lcp_cond_sd_adaptive", [_P] * 25 + [_I, _I, _L]
+    + [_I] * 2 + [_D] * 4 + [_I] * 4,
+    "libcloudphxx_tpu_torch/csrc/cond_sd_adaptive.cu",
+    "libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
+    ":46, call :78) with the loops around it: lgrngn/condensation.py:684 "
+    "perparticle_adaptive_core, lgrngn/dense.py:456 step_cond_adaptive")
 KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
-           COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED, MERGE_EXACT)
+           COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED, MERGE_EXACT,
+           COND_SD_FIXED, COND_SD_ADAPTIVE)
 
 _lib = None
 

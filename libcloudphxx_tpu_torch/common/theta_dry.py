@@ -8,9 +8,19 @@ from . import constants as c
 def T(th, rhod):
     """Temperature from dry potential temperature and dry-air density
     (reference theta_dry.hpp:22-43)."""
-    return (th * (rhod * c.R_d / c.p_1000) ** (c.R_d / c.c_pd)) ** (
-        c.c_pd / (c.c_pd - c.R_d)
-    )
+    return T_of_factor(th, rhod_factor(rhod))
+
+
+def rhod_factor(rhod):
+    """T's dry-air density factor (rhod R_d / p_1000)^(R_d / c_pd)."""
+    return (rhod * c.R_d / c.p_1000) ** (c.R_d / c.c_pd)
+
+
+def T_of_factor(th, q):
+    """T from th and its density factor ``q`` (rhod_factor): the same
+    operations as T, for a caller that evaluates T at one density many
+    times."""
+    return (th * q) ** (c.c_pd / (c.c_pd - c.R_d))
 
 
 def p(rhod, r, T):

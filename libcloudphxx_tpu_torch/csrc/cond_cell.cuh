@@ -354,4 +354,122 @@ __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
   return out;
 }
 
+// ---- kernel G's fixed-count and adaptive forms (cond_sd_fixed.cu,
+// cond_sd_adaptive.cu): the per-particle substepping, where every
+// super-droplet carries its own th, rv, rhod and p between substeps.
+
+// Where a cell's SDs lie.  The flat engine's cell-sorted segments (kernel
+// F's layout): cell c holds the sorted positions ends[c-1] + 1 to ends[c],
+// sorted position q is slot order[q] of the SD arrays and lies in cell
+// sijk[q].  Without ``order``, the dense engine's (n_cell, cap) planes:
+// cell c is row c, position q slot q.
+struct SdLayout {
+  const long long* order;
+  const long long* ends;
+  const long long* sijk;
+  int cap;
+  __device__ __forceinline__ void segment(int c, long long& begin,
+                                          long long& end) const {
+    if (order != nullptr) {
+      begin = c == 0 ? 0 : ends[c - 1] + 1;
+      end = ends[c] + 1;
+    } else {
+      begin = static_cast<long long>(c) * cap;
+      end = begin + cap;
+    }
+  }
+  __device__ __forceinline__ long long slot(long long q) const {
+    return order != nullptr ? order[q] : q;
+  }
+  __device__ __forceinline__ int cell(long long q) const {
+    return static_cast<int>(order != nullptr ? sijk[q] : q / cap);
+  }
+};
+
+// The SD arrays in slot order: the SD, and its private ambient state at
+// the last sstp_save (the inputs), and the outputs
+struct SdIn {
+  const float *n, *rw2, *rd3, *kpa, *vt, *th, *rv, *rh, *p;
+};
+struct SdOut {
+  float *rw2, *th, *rv, *rh, *p;
+  // a slot the loop does not advance keeps its rw2 and private state
+  __device__ __forceinline__ void keep(const SdIn& in, long long j) const {
+    rw2[j] = in.rw2[j];
+    th[j] = in.th[j];
+    rv[j] = in.rv[j];
+    rh[j] = in.rh[j];
+    p[j] = in.p[j];
+  }
+};
+
+// The cells: th, rv, rhod and p (the step's increment of an SD's private
+// value is the cell's value minus it), dv, T and p at the start of the
+// step (the stale mean free paths come from them, hskpng_mfp), and T
+// after the step's closure (the adaptive form's activation test)
+struct SdCells {
+  const float *th, *rv, *rhod, *p, *dv, *T_mfp, *p_mfp, *T;
+};
+struct SdCell {
+  float th, rv, rhod, p, dv, lam_D, lam_K, T;
+  static __device__ __forceinline__ SdCell of(const SdCells& a, int c) {
+    const float T_mfp = a.T_mfp[c];
+    return SdCell{a.th[c], a.rv[c], a.rhod[c], a.p[c], a.dv[c],
+                  mfp_D(T_mfp), mfp_K(T_mfp, a.p_mfp[c]),
+                  a.T != nullptr ? a.T[c] : 0.0f};
+  }
+};
+
+// lgrngn/condensation.py rw3_of
+__device__ __forceinline__ float rw3_of(float rw2) {
+  return rw2 * sqrtf(fmaxf(rw2, 0.0f));
+}
+
+// -(4/3) pi rho_w: the vapour a unit of d(rw^3) takes
+constexpr double kDrvMlt = -(4.0 / 3) * pi * rho_w;
+
+// The warp ranks the SDs of positions [begin, end) that ``take(slot)``
+// selects: their slots go to pos[begin], pos[begin + 1], ... in segment
+// order, and ``skip(slot)`` gets every other slot.  Returns the count
+// (the same in every lane).
+template <class Take, class Skip>
+__device__ __forceinline__ int rank_sds(const SdLayout& L, long long begin,
+                                        long long end, int* __restrict__ pos,
+                                        Take take, Skip skip) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int count = 0;
+  for (long long w = begin; w < end; w += 32) {
+    const long long q = w + lane;
+    const bool in = q < end;
+    const long long j = in ? L.slot(q) : 0;
+    const bool t = in && take(j);
+    const unsigned m = __ballot_sync(kFullMask, t);
+    if (t)
+      pos[begin + count + __popc(m & below)] = static_cast<int>(j);
+    else if (in)
+      skip(j);
+    count += __popc(m);
+  }
+  __syncwarp();
+  return count;
+}
+
+// One backward-Euler step of an SD's rw2 at its own ambient state
+// (lgrngn/condensation.py _perparticle_thermo, then _advance_rw2_core at
+// those conditions): ``c`` its closure; the warp's lanes call it together
+// (advance's ballot), ``on`` where the lane's result is used.  An SD with
+// rw2 <= 0 keeps it, evaluated at kMaskedRw2 meanwhile.
+__device__ __forceinline__ float sd_advance(bool on, float w, float rd3,
+                                            float kpa, float vt,
+                                            const Closure& c, float rhod,
+                                            float rv, float lam_D,
+                                            float lam_K, const CondOpts& o) {
+  const CellGrowth g = cell_growth(c, rhod, rv, lam_D, lam_K, o.RH_max);
+  const bool grows = w > 0.0f;
+  CondDrop d = make_drop(0, grows ? w : kMaskedRw2, rd3, kpa, vt, 0.0f);
+  advance(d, on && grows, g, o, 1.0f);
+  return grows ? d.rw2 : w;
+}
+
 }  // namespace lcp

@@ -124,6 +124,34 @@ __device__ __forceinline__ Closure closure(bool th_dry, bool const_p,
   return c;
 }
 
+// lgrngn/condensation.py _perparticle_thermo: a super-droplet's closure
+// from its private th, rv, rhod and p, with that function's clamps (rhod
+// to 1e-10 under th_dry, p to 1 Pa under th_std and for RH)
+__device__ __forceinline__ Closure sd_closure(bool th_dry, bool const_p,
+                                              int rh_formula, float th,
+                                              float rv, float rhod, float p) {
+  Closure c;
+  if (th_dry) {
+    float q = powf(div_s(fmaxf(rhod, F(1e-10)) * F(R_d), p_1000),
+                   F(R_d / c_pd));
+    c.T = powf(th * q, F(c_pd / (c_pd - R_d)));
+  } else {
+    c.T = th * powf(div_s(fmaxf(p, 1.0f), p_1000), F(R_d / c_pd));
+  }
+  c.p = const_p ? p : rhod * (rv * F(R_v) + F(R_d)) * c.T;
+  c.RH = rh_of(rh_formula, fmaxf(c.p, 1.0f), rv, c.T);
+  c.eta = visc(c.T);
+  return c;
+}
+
+// common/mean_free_path.py lambda_D and lambda_K
+__device__ __forceinline__ float mfp_D(float T) {
+  return rdiv_s(2.0 * D_0, sqrtf(T * F(2.0 * R_v)));
+}
+__device__ __forceinline__ float mfp_K(float T, float p) {
+  return T * F(K_0) / p * F(0.8) / sqrtf(T * F(2.0 * R_d));
+}
+
 // d(theta)/d(rv), common/theta_dry.py d_th_d_rv
 __device__ __forceinline__ float d_th_d_rv(float T, float th) {
   float l_v = F(c_pv - c_pw) * (T - F(T_tri)) + F(l_tri);

@@ -9,9 +9,12 @@ math that kernels B, F and G run (csrc/cond_cell.cuh); ops/step.py loops
 them over the dense engine's substeps, ops/cond.py over the flat engine's
 (cond_percell; kernel F on the card).  The exact and adaptive
 per-particle substepping (cond_perparticle, cond_perparticle_adaptive)
-call advance_rw2 once a substep: kernel G on the card.  Their cell sums
-are float64 cumulative sums in cell order (cell_sum), the same from run
-to run on either device."""
+run a whole phase in kernel G's fixed-count or adaptive form on the card
+(ops/cond.py perparticle_fixed, perparticle_adaptive, over the SDs in
+cell-sorted segments); their plain versions are perparticle_fixed_core
+and perparticle_adaptive_core, which call advance_rw2 once a substep.
+The cell sums are float64 cumulative sums in cell order (cell_sum), the
+same from run to run on either device."""
 
 import dataclasses
 from functools import partial
@@ -19,8 +22,8 @@ from functools import partial
 import torch
 
 from ..common import constants as c
-from ..common import kappa_koehler, kelvin, maxwell_mason, theta_dry
-from ..common import theta_std, transition_regime, ventil
+from ..common import const_cp, kappa_koehler, kelvin, maxwell_mason
+from ..common import theta_dry, theta_std, transition_regime, ventil
 from ..common import vterm as common_vterm
 from ..common.fastmath import cbrt_pos
 from ..ops import cond as cond_ops
@@ -114,7 +117,9 @@ def exact_route(cfg: StaticConfig):
 def stale_mfp(state: State):
     """Mean free paths from the cell T/p as they stand before the step's
     thermodynamic refresh: the reference computes hskpng_mfp from the
-    previous step's Tpr (particles_step.ipp:190-196)."""
+    previous step's Tpr (particles_step.ipp:190-196).  The per-particle
+    substepping takes that T and p instead (kernel G computes the mean
+    free paths from them)."""
     return hskpng.hskpng_mfp(state.T, state.p)
 
 
@@ -174,14 +179,6 @@ def cell_sum(vals, ends):
     return torch.diff(tot, prepend=tot.new_zeros(1))
 
 
-def cell_summer(ijk, n_cell):
-    """cell_sum for the SDs in slot order, by their cells ``ijk``: one
-    stable sort in, then ``sum(vals)`` gives the (n_cell,) float64 sums."""
-    sijk, order = torch.sort(ijk, stable=True)
-    ends = cell_ends(sijk, n_cell)
-    return lambda vals: cell_sum(vals[order], ends)
-
-
 def _cond_percell_sorted(cfg, state, dt_sub, sstp, RH_max, var_rho,
                          delta_th, delta_rv, delta_rh, lambda_D, lambda_K,
                          wgt_nom, plain):
@@ -235,17 +232,26 @@ def apply_drv_to_th_rv(cfg: StaticConfig, th, rv, rhod, p, drv):
     (dtheta/drv = d_th_d_rv(T(theta), theta), one RK4 stage per cell; the
     reference's update_th_rv takes one linear step).  Returns (th, rv)."""
     if cfg.th_dry:
-        rhod = torch.clamp(rhod, min=1e-10)
-        f = lambda th: theta_dry.d_th_d_rv(theta_dry.T(th, rhod), th)
+        q = theta_dry.rhod_factor(torch.clamp(rhod, min=1e-10))
+        T = lambda th: theta_dry.T_of_factor(th, q)
     else:
         ex = theta_std.exner(torch.clamp(p, min=1.0))
-        f = lambda th: theta_dry.d_th_d_rv(th * ex, th)
-    h = -drv
-    k1 = f(th)
-    k2 = f(th + 0.5 * h * k1)
-    k3 = f(th + 0.5 * h * k2)
-    k4 = f(th + h * k3)
-    return th + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4), rv - drv
+        T = lambda th: th * ex
+
+    def g(th):
+        # -d_th_d_rv(T(th), th).  The RK4 stages with h = -drv and k = -g
+        # take h k = drv g, and IEEE arithmetic rounds -x as it rounds x:
+        # these are the bits of h = -drv, k = d_th_d_rv, without the
+        # negations
+        t = T(th)
+        return th / t * const_cp.l_v(t) / c.c_pd
+
+    half = 0.5 * drv
+    g1 = g(th)
+    g2 = g(th + half * g1)
+    g3 = g(th + half * g2)
+    g4 = g(th + drv * g3)
+    return th + (drv / 6.0) * (g1 + 2 * g2 + 2 * g3 + g4), rv - drv
 
 
 def rw3_of(rw2):
@@ -289,30 +295,43 @@ def _perparticle_thermo(cfg: StaticConfig, tmp_th, tmp_rv, tmp_rh, tmp_p):
     return Tp, pp, RHp, common_vterm.visc(Tp)
 
 
-def cond_perparticle(cfg: StaticConfig, state: State, dt, RH_max, lam, *,
+def _segments(cfg: StaticConfig, state: State):
+    """The flat SDs' cell-sorted segments, as kernel G's two forms take
+    them (ops/cond.py): (sijk, order, ends), the stable sort of the SDs'
+    cells, and the function that sums SD arrays in slot order over each
+    cell (cell_sum over the segments, float64)."""
+    sijk, order = torch.sort(state.ijk, stable=True)
+    ends = cell_ends(sijk, cfg.n_cell)
+    return (sijk, order, ends), lambda vals: cell_sum(vals[order], ends)
+
+
+def _private(state: State):
+    """The flat SDs as kernel G's two forms take them (ops/cond.py
+    SD_NAMES)."""
+    return (state.n, state.rw2, state.rd3, state.kpa, state.vt,
+            state.sstp_tmp_th, state.sstp_tmp_rv, state.sstp_tmp_rh,
+            state.sstp_tmp_p)
+
+
+def cond_perparticle(cfg: StaticConfig, state: State, dt, RH_max, stale, *,
                      plain=False) -> State:
     """Exact per-particle condensation substepping
     (libcloudphxx_tpu/lgrngn/condensation.py:412-528; reference
     particles_step.ipp:219-232 and src/impl/condensation/perparticle/):
-    perparticle_fixed_core over the SD arrays, with sstp_cond_mix the cell
-    sums in float64 cumulative sums in cell order.  With mixing the cell
-    then takes its SDs' common private state, the largest value among its
-    live SDs: values that agree to rounding (the JAX package's scatter
-    keeps one writer it does not specify), the same in every run; without
-    it the cell closes on the change of its liquid water.  ``lam`` is
-    stale_mfp's (lambda_D, lambda_K)."""
-    g = lambda arr: arr[state.ijk]
-    summer = cell_summer(state.ijk, cfg.n_cell)
-    rw2, tmp_rv, tmp_th, tmp_rh, tmp_p = perparticle_fixed_core(
-        cfg, dt, RH_max, n=state.n, rw2=state.rw2, rd3=state.rd3,
-        kpa=state.kpa, vt=state.vt, dv_sd=g(state.dv), lam_D_sd=g(lam[0]),
-        lam_K_sd=g(lam[1]), dlt_rv=g(state.rv) - state.sstp_tmp_rv,
-        dlt_th=g(state.th) - state.sstp_tmp_th,
-        dlt_rh=g(state.rhod) - state.sstp_tmp_rh,
-        dlt_p=g(state.p) - state.sstp_tmp_p, tmp_rv0=state.sstp_tmp_rv,
-        tmp_th0=state.sstp_tmp_th, tmp_rh0=state.sstp_tmp_rh,
-        tmp_p0=state.sstp_tmp_p,
-        spread=lambda vals: summer(vals).to(vals.dtype)[state.ijk],
+    kernel G's fixed-count form over the SDs in cell-sorted segments
+    (ops/cond.py perparticle_fixed; its plain version
+    perparticle_fixed_core, with sstp_cond_mix the cell sums in float64
+    cumulative sums in cell order).  With mixing the cell then takes its
+    SDs' common private state, the largest value among its live SDs:
+    values that agree to rounding (the JAX package's scatter keeps one
+    writer it does not specify), the same in every run; without it the
+    cell closes on the change of its liquid water.  ``stale`` is the (T,
+    p) of the cells before the step's closure, whose mean free paths the
+    growth takes (stale_mfp)."""
+    seg, summer = _segments(cfg, state)
+    rw2, tmp_rv, tmp_th, tmp_rh, tmp_p = cond_ops.perparticle_fixed(
+        cfg, dt, RH_max, _private(state),
+        (state.th, state.rv, state.rhod, state.p, state.dv, *stale), seg,
         plain=plain)
     new = dataclasses.replace(state, rw2=rw2, sstp_tmp_rv=tmp_rv,
                               sstp_tmp_th=tmp_th, sstp_tmp_rh=tmp_rh,
@@ -334,12 +353,14 @@ def perparticle_fixed_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
                            dlt_th, dlt_rh, dlt_p, tmp_rv0, tmp_th0, tmp_rh0,
                            tmp_p0, spread, plain=False):
     """The per-SD body of the fixed-count exact substepping
-    (libcloudphxx_tpu/lgrngn/condensation.py:446-510, dense.py:348-392),
-    elementwise over SD arrays of one shape (the flat engine's SD arrays,
-    the dense engine's (n_cell, cap) planes): each of sstp_cond substeps
+    (libcloudphxx_tpu/lgrngn/condensation.py:446-510, dense.py:348-392):
+    the plain version of kernel G's fixed-count form (ops/cond.py
+    perparticle_fixed_plain), elementwise over SD arrays of one shape (the
+    flat engine's SDs in cell order, the dense engine's (n_cell, cap)
+    planes): each of sstp_cond substeps
     adds a share of the deltas to each SD's private th/rv/rhod/p
     (calculate_noncond_perparticle_sstp_delta.ipp), grows the SD there
-    (advance_rw2 over the ravelled arrays: kernel G on the card) and
+    (advance_rw2 over the ravelled arrays, G's one-substep entry) and
     feeds the vapour of its own third-moment change and the heat that
     goes with it back (apply_perparticle_drw3_to_perparticle_rv_and_th.
     ipp): with sstp_cond_mix to every SD of its cell, ``spread`` giving
@@ -377,32 +398,25 @@ def perparticle_fixed_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
 
 
 def cond_perparticle_adaptive(cfg: StaticConfig, state: State, dt, RH_max,
-                              lam, *, plain=False) -> State:
+                              stale, *, plain=False) -> State:
     """Adaptive per-SD condensation substepping, no in-cell mixing
     (libcloudphxx_tpu/lgrngn/condensation.py:589-652; reference
     perparticle_nomixing_adaptive_sstp_cond.ipp:8-335): each SD picks its
-    own substep count (perparticle_adaptive_core), and the cell closes on
-    the change of its liquid water."""
-    g = lambda arr: arr[state.ijk]
-    tmp_p0 = state.sstp_tmp_p if cfg.const_p \
-        else torch.zeros_like(state.sstp_tmp_rv)
-    rw2, tmp_rv, tmp_th, tmp_rh, tmp_p = perparticle_adaptive_core(
-        cfg, dt, RH_max, n=state.n, rw2=state.rw2, rd3=state.rd3,
-        kpa=state.kpa, vt=state.vt, dv_sd=g(state.dv),
-        lam_D_sd=g(lam[0]), lam_K_sd=g(lam[1]),
-        dlt_rv=g(state.rv) - state.sstp_tmp_rv,
-        dlt_th=g(state.th) - state.sstp_tmp_th,
-        dlt_rh=g(state.rhod) - state.sstp_tmp_rh,
-        dlt_p=(g(state.p) - state.sstp_tmp_p) if cfg.const_p else 0.0,
-        tmp_rv0=state.sstp_tmp_rv, tmp_th0=state.sstp_tmp_th,
-        tmp_rh0=state.sstp_tmp_rh, tmp_p0=tmp_p0, T_sd=g(state.T),
-        plain=plain)
+    own substep count (kernel G's adaptive form over the SDs in
+    cell-sorted segments, ops/cond.py perparticle_adaptive; its plain
+    version perparticle_adaptive_core), and the cell closes on the change
+    of its liquid water.  ``stale`` as cond_perparticle's."""
+    seg, summer = _segments(cfg, state)
+    rw2, tmp_rv, tmp_th, tmp_rh, tmp_p = cond_ops.perparticle_adaptive(
+        cfg, dt, RH_max, _private(state),
+        (state.th, state.rv, state.rhod, state.p, state.dv, *stale,
+         state.T), seg, plain=plain)
     upd = dict(rw2=rw2, sstp_tmp_rv=tmp_rv, sstp_tmp_th=tmp_th,
                sstp_tmp_rh=tmp_rh)
     if cfg.const_p:
         upd["sstp_tmp_p"] = tmp_p
     return _close_cells(cfg, state, dataclasses.replace(state, **upd),
-                       cell_summer(state.ijk, cfg.n_cell))
+                       summer)
 
 
 def adaptive_tries(sstp_cond):
@@ -419,15 +433,16 @@ def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
                               tmp_rh0, tmp_p0, T_sd, plain=False):
     """The per-SD body of cond_perparticle_adaptive
     (libcloudphxx_tpu/lgrngn/condensation.py:655-795), elementwise over
-    the SD arrays.  Phase A tries 1, 2, 4, ... <= sstp_cond substeps and
-    takes, for each SD, the first count whose d(rw^2) agrees with the
-    half-size estimate (one advance_rw2 a try); SDs that cross their
-    critical radius this step take sstp_cond_act instead.  Phase B runs
-    max(sstp_cond, sstp_cond_act) masked substeps (one advance_rw2 each,
-    a dt a droplet), the SDs past their own count idle.  Where the
-    adaptation is abandoned the pre-adaptation ambient state is restored.
-    SGS turbulence (turb_cond) is not ported.  Returns (rw2, tmp_rv, tmp_th,
-    tmp_rh, tmp_p)."""
+    the SD arrays: the plain version of kernel G's adaptive form
+    (ops/cond.py perparticle_adaptive_plain).  Phase A tries 1, 2, 4, ...
+    <= sstp_cond substeps and takes, for each SD, the first count whose
+    d(rw^2) agrees with the half-size estimate (one advance_rw2 a try);
+    SDs that cross their critical radius this step take sstp_cond_act
+    instead.  Phase B runs max(sstp_cond, sstp_cond_act) masked substeps
+    (one advance_rw2 each, a dt a droplet), the SDs past their own count
+    idle.  Where the adaptation is abandoned the pre-adaptation ambient
+    state is restored.  SGS turbulence (turb_cond) is not ported.
+    Returns (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p)."""
     sstp_max = max(int(cfg.sstp_cond), 1)
     sstp_act = max(int(cfg.sstp_cond_act), 1)
     eps = cfg.sstp_cond_adapt_drw2_eps

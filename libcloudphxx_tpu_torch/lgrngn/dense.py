@@ -16,9 +16,10 @@ The per-cell closure (the JAX package's dense._Tpr) is hskpng.hskpng_Tpr.
 With exact_sstp_cond the population also carries each SD's private
 ambient state (its th, rv, rhod and p at the last sstp_save) as four more
 planes, sd_th, sd_rv, sd_rh and sd_p (attrs_of): the per-particle
-substepping reads them (step_cond_exact, step_cond_adaptive: kernel G once
-a substep on the card), and they ride every re-binning, so that an SD that
-moved keeps its old cell's snapshot.
+substepping reads them (step_cond_exact, step_cond_adaptive: kernel G's
+fixed-count or adaptive form on the card, one launch a phase over the
+rows), and they ride every re-binning, so that an SD that moved keeps its
+old cell's snapshot.
 """
 
 import dataclasses
@@ -27,13 +28,12 @@ import torch
 
 from ..common import constants as c
 from ..ops import coal as coal_ops
+from ..ops import cond as cond_ops
 from ..ops.step import rebin_x, step_resident
 from . import coalescence as coal_mod
-from .condensation import (apply_drv_to_th_rv, exact_route,
-                           perparticle_adaptive_core, perparticle_fixed_core,
-                           third_moment)
+from .condensation import apply_drv_to_th_rv, exact_route, third_moment
 from .enums import as_t, kernel_t
-from .hskpng import hskpng_mfp, hskpng_Tpr, ijk_of_xyz
+from .hskpng import T_p, hskpng_mfp, hskpng_Tpr, ijk_of_xyz
 from .state import (OUT_COAL_OVERFLOW, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL,
                     OUT_PRTCL_NUM, State, StaticConfig)
 
@@ -260,9 +260,11 @@ def _rebin_global(cfg: StaticConfig, d: DenseState, tgt=None) -> DenseState:
 
 
 # --------------------------------------------------------------- cond ----
-def _row(a, shape):
-    """The (n_cell,) cell field ``a`` as a contiguous (n_cell, cap) plane."""
-    return a[:, None].expand(shape).contiguous()
+def _rows(shape, *cells):
+    """The (n_cell,) cell fields ``cells`` as contiguous (n_cell, cap)
+    planes, made in one copy."""
+    planes = torch.stack(cells)[:, :, None].expand(len(cells), *shape)
+    return planes.contiguous().unbind(0)
 
 
 def _close_rows(cfg: StaticConfig, d: DenseState, rw2, th, rv, p, live):
@@ -285,11 +287,16 @@ def _sstp_save(cfg: StaticConfig, d: DenseState, rw2, th, rv, p):
     sd_p the pre-condensation ``p``; the cell T/p/RH/eta the
     post-condensation closure."""
     T2, p2, RH2, eta2 = hskpng_Tpr(cfg, th, rv, d.rhod, d.p)
-    shape = d.n.shape
+    sd_th, sd_rv, sd_rh, sd_p = _rows(d.n.shape, th, rv, d.rhod, p)
     return dataclasses.replace(
         d, rw2=rw2, T=T2, p=p2, RH=RH2, eta=eta2, sstp_tmp_th=th,
-        sstp_tmp_rv=rv, sd_th=_row(th, shape), sd_rv=_row(rv, shape),
-        sd_rh=_row(d.rhod, shape), sd_p=_row(p, shape))
+        sstp_tmp_rv=rv, sd_th=sd_th, sd_rv=sd_rv, sd_rh=sd_rh, sd_p=sd_p)
+
+
+def _private(d: DenseState):
+    """The planes kernel G's two forms take (ops/cond.py SD_NAMES)."""
+    return (d.n, d.rw2, d.rd3, d.kpa, d.vt, d.sd_th, d.sd_rv, d.sd_rh,
+            d.sd_p)
 
 
 def step_cond(cfg: StaticConfig, d: DenseState, th, rv, dt, RH_max, *,
@@ -312,36 +319,28 @@ def step_cond(cfg: StaticConfig, d: DenseState, th, rv, dt, RH_max, *,
 def step_cond_exact(cfg: StaticConfig, d: DenseState, th, rv, dt, RH_max, *,
                     plain=False):
     """Exact per-particle condensation substepping, cell-major
-    (libcloudphxx_tpu/lgrngn/dense.py:317-424): the flat engine's
-    condensation.perparticle_fixed_core over the (n_cell, cap) planes,
-    kernel G a substep over the ravelled planes with lam_D/lam_K
-    materialised as planes, sstp_cond_mix's row sums of drv and dth in
-    float64.  The cell then takes, with mixing, the largest private value
-    among its live SDs (values that agree to rounding), without it the
-    change of its liquid water.  Dead slots are masked out of every row
-    sum.  Ends with the exact-mode sstp_save."""
-    shape = d.n.shape
-    col = lambda a: a[:, None]
-    # stale mean free paths (the previous step's T/p), then the closure of
-    # the advected fields, as the flat step_cond_body
-    lam_D, lam_K = (_row(a, shape) for a in hskpng_mfp(d.T, d.p))
-    _, p, _, _ = hskpng_Tpr(cfg, th, rv, d.rhod, d.p)
+    (libcloudphxx_tpu/lgrngn/dense.py:317-424): kernel G's fixed-count
+    form over the (n_cell, cap) rows, one launch (ops/cond.py
+    perparticle_fixed; its plain version the flat engine's
+    condensation.perparticle_fixed_core over the planes, sstp_cond_mix's
+    row sums of drv and dth in float64).  The cell then takes, with
+    mixing, the largest private value among its live SDs (values that
+    agree to rounding), without it the change of its liquid water.  Dead
+    slots are masked out of every row sum.  Ends with the exact-mode
+    sstp_save."""
+    # the closure of the advected fields; the mean free paths come from
+    # the previous step's T/p, as the flat step_cond_body's
+    _, p = T_p(cfg, th, rv, d.rhod, d.p)
     live = d.n > 0
-    rw2, tmp_rv, tmp_th, _, _ = perparticle_fixed_core(
-        cfg, dt, RH_max, n=d.n, rw2=d.rw2, rd3=d.rd3, kpa=d.kpa, vt=d.vt,
-        dv_sd=col(d.dv), lam_D_sd=lam_D, lam_K_sd=lam_K,
-        dlt_rv=col(rv) - d.sd_rv, dlt_th=col(th) - d.sd_th,
-        dlt_rh=col(d.rhod) - d.sd_rh, dlt_p=col(p) - d.sd_p,
-        tmp_rv0=d.sd_rv, tmp_th0=d.sd_th, tmp_rh0=d.sd_rh, tmp_p0=d.sd_p,
-        spread=lambda a: torch.sum(a, dim=1, keepdim=True,
-                                   dtype=torch.float64).to(a.dtype),
+    rw2, tmp_rv, tmp_th, _, _ = cond_ops.perparticle_fixed(
+        cfg, dt, RH_max, _private(d), (th, rv, d.rhod, p, d.dv, d.T, d.p),
         plain=plain)
     if cfg.sstp_cond_mix:
         # the cell takes its SDs' common private state (update_state,
         # particles_impl_update_th_rv.ipp:283-297)
-        neg = torch.tensor(-float("inf"), dtype=th.dtype, device=th.device)
+        any_live = live.any(1)
         pick = lambda v, cell: torch.where(
-            live.any(1), torch.where(live, v, neg).amax(1), cell)
+            any_live, torch.where(live, v, -float("inf")).amax(1), cell)
         th_c, rv_c = pick(tmp_th, th), pick(tmp_rv, rv)
     else:
         th_c, rv_c = _close_rows(cfg, d, rw2, th, rv, p, live)
@@ -351,29 +350,16 @@ def step_cond_exact(cfg: StaticConfig, d: DenseState, th, rv, dt, RH_max, *,
 def step_cond_adaptive(cfg: StaticConfig, d: DenseState, th, rv, dt, RH_max,
                        *, plain=False):
     """Adaptive per-SD condensation substepping on the dense layout
-    (libcloudphxx_tpu/lgrngn/dense.py:427-488): the ravelled planes go
-    through the flat engine's condensation.perparticle_adaptive_core
-    (kernel G once a try of its phase A and once a substep of its phase
-    B), the cell closes on the change of its liquid water, and the
-    exact-mode sstp_save follows."""
-    shape = d.n.shape
-    flat = lambda a: a.reshape(-1)
-    col = lambda a: a[:, None]
-    rows = lambda a: flat(_row(a, shape))
-    lam_D, lam_K = hskpng_mfp(d.T, d.p)
-    T, p, _, _ = hskpng_Tpr(cfg, th, rv, d.rhod, d.p)
-    zero = torch.zeros_like(flat(d.sd_p))
-    rw2, *_ = perparticle_adaptive_core(
-        cfg, dt, RH_max, n=flat(d.n), rw2=flat(d.rw2), rd3=flat(d.rd3),
-        kpa=flat(d.kpa), vt=flat(d.vt), dv_sd=rows(d.dv),
-        lam_D_sd=rows(lam_D), lam_K_sd=rows(lam_K),
-        dlt_rv=flat(col(rv) - d.sd_rv), dlt_th=flat(col(th) - d.sd_th),
-        dlt_rh=flat(col(d.rhod) - d.sd_rh),
-        dlt_p=flat(col(p) - d.sd_p) if cfg.const_p else 0.0,
-        tmp_rv0=flat(d.sd_rv), tmp_th0=flat(d.sd_th), tmp_rh0=flat(d.sd_rh),
-        tmp_p0=flat(d.sd_p) if cfg.const_p else zero, T_sd=rows(T),
+    (libcloudphxx_tpu/lgrngn/dense.py:427-488): kernel G's adaptive form
+    over the (n_cell, cap) rows, one launch (ops/cond.py
+    perparticle_adaptive; its plain version the flat engine's
+    condensation.perparticle_adaptive_core over the ravelled planes), the
+    cell closes on the change of its liquid water, and the exact-mode
+    sstp_save follows."""
+    T, p = T_p(cfg, th, rv, d.rhod, d.p)
+    rw2, *_ = cond_ops.perparticle_adaptive(
+        cfg, dt, RH_max, _private(d), (th, rv, d.rhod, p, d.dv, d.T, d.p, T),
         plain=plain)
-    rw2 = rw2.reshape(shape)
     th_c, rv_c = _close_rows(cfg, d, rw2, th, rv, p, d.n > 0)
     return _sstp_save(cfg, d, rw2, th_c, rv_c, p), th_c, rv_c
 
@@ -641,6 +627,7 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
             "step_fused: coalescence of a const-multi population (the "
             "increase_sstp_coal path) is not ported (ROADMAP.md, Queue 1, "
             "\"Dense-engine options that the port refuses\")")
+    closure = None
     if do_cond and exact_route(cfg):
         # the per-particle substepping (kernel G a substep), then the rest
         # of the step as the async phase: the closure of the saved
@@ -651,6 +638,11 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
         if not (do_coal or do_adve or do_sedi or w_cells is not None):
             return d, th, rv, None, None
         do_cond = False
+        # the async phase's closure of the saved th/rv is the one the
+        # sstp_save just computed, but under th_std with a variable
+        # pressure (there it starts from the new p)
+        if cfg.th_dry or cfg.const_p:
+            closure = (d.T, d.p, d.RH, d.eta)
     # mean free paths from the previous step's T/p (dense.py:1519)
     lam_D, lam_K = hskpng_mfp(d.T, d.p) if do_cond else (None, None)
     (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta,
@@ -660,7 +652,7 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
         lam_D, lam_K, *_row_courants(cfg, d), d.p, do_cond=do_cond,
         do_coal=do_coal, do_adve=do_adve, w_cells=w_cells, params=params,
         sstp_coal=sstp_coal, rng=(d.rng_seed, d.rng_step),
-        coal_pairing=coal_pairing, slab=slab, plain=plain)
+        coal_pairing=coal_pairing, slab=slab, closure=closure, plain=plain)
     puddle = d.puddle
     if rowinfo is not None:
         info = rowinfo.sum(dim=0).to(puddle.dtype)
@@ -674,9 +666,7 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
     if do_cond and cfg.exact_sstp_cond:
         # exact mode at one substep ran the per-cell kernel B: the private
         # planes take the new cell values (dense.py:540-548)
-        shape = n.shape
-        exact = dict(sd_th=_row(th, shape), sd_rv=_row(rv, shape),
-                     sd_rh=_row(d.rhod, shape), sd_p=_row(p, shape))
+        exact = dict(zip(EXACT_ATTRS, _rows(n.shape, th, rv, d.rhod, p)))
     # no transport: no walls, no re-bin; after condensation alone the stale
     # vt plane stays (dense.py:1550-1558)
     d = dataclasses.replace(

@@ -25,15 +25,20 @@ def RH_of(cfg: StaticConfig, p, rv, T):
     return rv / tetens.r_vs(T, p)
 
 
-def hskpng_Tpr(cfg: StaticConfig, th, rv, rhod, p0):
-    """Per-cell T, p, RH, eta from th, rv, rhod (reference
-    hskpng_Tpr.ipp:219-305): th_dry or th_std, variable pressure or the
-    prescribed profile ``p0``.  Returns (T, p, RH, eta)."""
+def T_p(cfg: StaticConfig, th, rv, rhod, p0):
+    """hskpng_Tpr's T and p alone, for the callers that need no more."""
     if cfg.th_dry:
         T = theta_dry.T(th, rhod)
     else:
         T = th * theta_std.exner(p0)
-    p = p0 if cfg.const_p else theta_dry.p(rhod, rv, T)
+    return T, p0 if cfg.const_p else theta_dry.p(rhod, rv, T)
+
+
+def hskpng_Tpr(cfg: StaticConfig, th, rv, rhod, p0):
+    """Per-cell T, p, RH, eta from th, rv, rhod (reference
+    hskpng_Tpr.ipp:219-305): th_dry or th_std, variable pressure or the
+    prescribed profile ``p0``.  Returns (T, p, RH, eta)."""
+    T, p = T_p(cfg, th, rv, rhod, p0)
     return T, p, RH_of(cfg, p, rv, T), common_vterm.visc(T)
 
 

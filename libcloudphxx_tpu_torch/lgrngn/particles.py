@@ -50,14 +50,17 @@ def step_cond_body(cfg: StaticConfig, state: State, dt, RH_max,
     card) where exact_sstp_cond asks for more than one substep, else the
     per-cell substepping (kernel F on the card), and sstp_save.  ``plain``
     runs the kernels' plain versions on any device."""
-    lam = condensation.stale_mfp(state)
-    state = hskpng.hskpng_Tpr_state(cfg, state)
     if condensation.exact_route(cfg):
-        # exact per-particle substepping (particles_step.ipp:199-236)
+        # exact per-particle substepping (particles_step.ipp:199-236);
+        # the mean free paths from the T/p before the closure
+        stale = (state.T, state.p)
+        state = hskpng.hskpng_Tpr_state(cfg, state)
         cond = condensation.cond_perparticle_adaptive \
             if cfg.adaptive_sstp_cond else condensation.cond_perparticle
-        state = cond(cfg, state, dt, RH_max, lam, plain=plain)
+        state = cond(cfg, state, dt, RH_max, stale, plain=plain)
         return condensation.sstp_save(state, exact=True)
+    lam = condensation.stale_mfp(state)
+    state = hskpng.hskpng_Tpr_state(cfg, state)
     state = condensation.cond_percell(cfg, state, dt, RH_max, lam,
                                       var_rho=var_rho, plain=plain)
     return condensation.sstp_save(state, exact=cfg.exact_sstp_cond)

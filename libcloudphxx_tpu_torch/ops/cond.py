@@ -10,13 +10,22 @@ host loop.  Both take the SD arrays sorted by cell
 (lgrngn/condensation.py _cond_percell_sorted) and the cell fields
 (n_cell,).
 
-Kernel G (csrc/cond_sd.cu, advance_rw2) runs one backward-Euler root find
-a droplet at each droplet's own ambient conditions, the TPU kernel's
-per-droplet-ambient callers (the exact and adaptive per-particle
-substepping, lgrngn/condensation.py cond_perparticle and
-perparticle_adaptive_core), beside its plain version advance_rw2_plain
-(lgrngn/condensation.py _advance_rw2_core).  It advances every slot whose
-rw2 > 0, as the TPU kernel does, and keeps the others.
+Kernel G runs the TPU kernel's per-droplet-ambient callers, the exact and
+adaptive per-particle substepping, where every super-droplet carries its
+own th, rv, rhod and p between substeps.  Its two forms each run a whole
+condensation phase in one launch, on either engine's layout (the dense
+(n_cell, cap) rows, or the flat engine's cell-sorted segments):
+perparticle_fixed (csrc/cond_sd_fixed.cu; cond_perparticle and
+dense.step_cond_exact), beside its plain version perparticle_fixed_plain
+(lgrngn/condensation.py perparticle_fixed_core), and perparticle_adaptive
+(csrc/cond_sd_adaptive.cu; cond_perparticle_adaptive and
+dense.step_cond_adaptive), beside perparticle_adaptive_plain
+(perparticle_adaptive_core).  Its one-substep entry (csrc/cond_sd.cu,
+advance_rw2), the direct counterpart of advance_rw2_pallas, runs one
+backward-Euler root find a droplet, beside advance_rw2_plain
+(_advance_rw2_core); it advances every slot whose rw2 > 0, as the TPU
+kernel does, and keeps the others.  The plain versions of the two forms
+call it once a substep (a try), so it is on no path of the card.
 
 Dispatch is by device, as in ops/step.py: CPU tensors run the plain
 version, CUDA tensors launch the kernel (float32, contiguous, or the
@@ -157,3 +166,195 @@ def advance_rw2(dt, rw2, rd3, kpa, vt, rhod, rv, T, p, RH, eta, lam_D, lam_K,
         0.0 if dt_sd is not None else float(dt), float(RH_max),
         condensation._root_iters(rw2.dtype))
     return out
+
+
+# ---------------------------------------------------- kernel G, two forms
+# The SD arrays the two forms take, in this order (``sd``): n, rw2, rd3,
+# kappa, vt, and the private th, rv, rhod and p at the last sstp_save;
+# the cells' (``cells``): th, rv, rhod and p (an SD's increment of a step
+# is its cell's value minus its private one), dv, T and p at the start of
+# the step (the stale mean free paths', hskpng_mfp: the kernels compute
+# them once a cell), and for the adaptive form T after the step's
+# closure (its activation test's).
+SD_NAMES = ("n", "rw2", "rd3", "kpa", "vt", "tmp_th", "tmp_rv", "tmp_rh",
+            "tmp_p")
+CELL_NAMES = ("th", "rv", "rhod", "p", "dv", "T_mfp", "p_mfp", "T")
+
+
+def _sd_layout(name, sd, cells, seg):
+    """Check the SD arrays ``sd``, the cell arrays ``cells`` and the flat
+    layout ``seg`` (None: dense rows) against each other: the dense rows
+    are (n_cell, cap) planes; the flat SDs are 1-D in slot order, and
+    ``seg`` is (sijk, order, ends): the cell of each sorted position, the
+    slot of each (the stable sort of the SDs' cells) and each cell's last
+    sorted position (condensation.cell_ends), int64.  Raise on anything
+    else."""
+    n_cell = cells[0].shape[0] if cells[0].dim() == 1 else -1
+    if any(a.shape != (n_cell,) for a in cells):
+        raise ValueError(f"{name}: the cell arrays must be 1-D and of one "
+                         f"length, got {[tuple(a.shape) for a in cells]}")
+    shape = sd[0].shape
+    if any(a.shape != shape for a in sd):
+        raise ValueError(f"{name}: the SD arrays must be of one shape, got "
+                         f"{[tuple(a.shape) for a in sd]}")
+    if seg is None:
+        if len(shape) != 2 or shape[0] != n_cell:
+            raise ValueError(f"{name}: dense rows must be ({n_cell}, cap) "
+                             f"planes, got {tuple(shape)}")
+        return
+    sijk, order, ends = seg
+    if len(shape) != 1 or sijk.shape != shape or order.shape != shape \
+            or ends.shape != (n_cell,):
+        raise ValueError(f"{name}: flat SDs must be 1-D, with sijk and order "
+                         f"of their length and ends of the cells' "
+                         f"({n_cell},), got {tuple(shape)}, "
+                         f"{tuple(sijk.shape)}, {tuple(order.shape)}, "
+                         f"{tuple(ends.shape)}")
+    if any(a.dtype != torch.int64 for a in seg):
+        raise TypeError(f"{name}: sijk, order and ends must be int64")
+
+
+def _plain_layout(sd, cells, seg):
+    """What the plain versions run on: (the SD arrays, a function that
+    spreads a cell array over them, a function that puts results back in
+    the SDs' layout, the cell-sum spread of sstp_cond_mix).  Dense rows
+    broadcast the cell arrays as columns and sum over a row; the flat
+    segments sort the SDs (``order``), gather the cells by ``sijk`` and
+    sum in float64 cumulative sums differenced at ``ends``."""
+    if seg is None:
+        def spread(a):
+            return torch.sum(a, dim=1, keepdim=True,
+                             dtype=torch.float64).to(a.dtype)
+        return sd, (lambda a: a[:, None]), (lambda a: a), spread
+    sijk, order, ends = seg
+
+    def put(a):
+        out = torch.empty_like(a)
+        out[order] = a
+        return out
+
+    return (tuple(a[order] for a in sd), (lambda a: a[sijk]), put,
+            lambda a: condensation.cell_sum(a, ends).to(a.dtype)[sijk])
+
+
+def perparticle_fixed_plain(cfg, dt, RH_max, sd, cells, seg=None):
+    """Kernel G's fixed-count form as plain PyTorch:
+    lgrngn/condensation.py perparticle_fixed_core over the SDs in the
+    kernel's layout (the flat SDs sorted by cell and put back), the
+    one-substep entry advance_rw2 once a substep.  Returns (rw2, tmp_rv,
+    tmp_th, tmp_rh, tmp_p) in the SDs' layout."""
+    (n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0), g, put, spread = \
+        _plain_layout(sd, cells, seg)
+    th, rv, rhod, p, dv = cells[:5]
+    lam_D, lam_K = hskpng.hskpng_mfp(*cells[5:7])
+    # the one-substep entry takes one mean free path an SD
+    full = lambda a: g(a).expand(rw2.shape).contiguous()
+    out = condensation.perparticle_fixed_core(
+        cfg, dt, RH_max, n=n, rw2=rw2, rd3=rd3, kpa=kpa, vt=vt, dv_sd=g(dv),
+        lam_D_sd=full(lam_D), lam_K_sd=full(lam_K), dlt_rv=g(rv) - rv0,
+        dlt_th=g(th) - th0, dlt_rh=g(rhod) - rh0, dlt_p=g(p) - p0,
+        tmp_rv0=rv0, tmp_th0=th0, tmp_rh0=rh0, tmp_p0=p0, spread=spread,
+        plain=True)
+    return tuple(put(a) for a in out)
+
+
+def perparticle_adaptive_plain(cfg, dt, RH_max, sd, cells, seg=None):
+    """Kernel G's adaptive form as plain PyTorch:
+    lgrngn/condensation.py perparticle_adaptive_core over the SDs in the
+    kernel's layout, ravelled (the flat SDs sorted by cell and put back),
+    the one-substep entry advance_rw2 once a try and a substep.  Returns
+    (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p) in the SDs' layout."""
+    (n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0), g, put, _ = \
+        _plain_layout(sd, cells, seg)
+    th, rv, rhod, p, dv, T_mfp, p_mfp, T = cells
+    lam_D, lam_K = hskpng.hskpng_mfp(T_mfp, p_mfp)
+    if not cfg.const_p:
+        p0 = torch.zeros_like(p0)
+    shape = rw2.shape
+    flat = lambda a: a.reshape(-1)
+    full = lambda a: flat(g(a).expand(shape).contiguous())
+    out = condensation.perparticle_adaptive_core(
+        cfg, dt, RH_max, n=flat(n), rw2=flat(rw2), rd3=flat(rd3),
+        kpa=flat(kpa), vt=flat(vt), dv_sd=full(dv), lam_D_sd=full(lam_D),
+        lam_K_sd=full(lam_K), dlt_rv=flat(g(rv) - rv0),
+        dlt_th=flat(g(th) - th0), dlt_rh=flat(g(rhod) - rh0),
+        dlt_p=flat(g(p) - p0) if cfg.const_p else 0.0, tmp_rv0=flat(rv0),
+        tmp_th0=flat(th0), tmp_rh0=flat(rh0), tmp_p0=flat(p0), T_sd=full(T),
+        plain=True)
+    return tuple(put(a.reshape(shape)) for a in out)
+
+
+def _launch_sd(name, kernel, sd, cells, seg, *scalars):
+    """Launch one of G's two forms on its checked inputs: the outputs
+    (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p) in the SDs' layout."""
+    _ext.check(name, *sd, *cells)
+    n_slots = sd[1].numel()
+    if n_slots >= 2 ** 31:
+        raise ValueError(f"{name}: more than 2**31 - 1 SD slots")
+    if seg is not None:
+        _ext.check(name, *seg, dtype=torch.int64)
+    out = torch.empty((5,) + tuple(sd[1].shape), dtype=sd[1].dtype,
+                      device=sd[1].device)
+    rw2, th, rv, rh, p = out.unbind(0)
+    outs = (rw2, th, rv, rh, p)
+    if kernel is _ext.COND_SD_FIXED:    # its scratch: the ranked positions
+        outs += (torch.empty(n_slots, dtype=torch.int32,
+                             device=sd[1].device),)
+    lay = seg if seg is not None else (None, None, None)
+    sijk, order, ends = (a.data_ptr() if a is not None else None
+                         for a in lay)
+    cap = sd[1].shape[1] if seg is None else 0
+    kernel.launch(*(a.data_ptr() for a in sd + cells), order, ends, sijk,
+                  *(a.data_ptr() for a in outs), cells[0].shape[0], cap,
+                  *scalars)
+    return rw2, rv, th, rh, p
+
+
+def perparticle_fixed(cfg, dt, RH_max, sd, cells, seg=None, *, plain=False):
+    """Kernel G's fixed-count form, or its plain version
+    perparticle_fixed_plain (same arguments and results): the whole exact
+    per-particle condensation phase (sstp_cond substeps; with
+    sstp_cond_mix the cells' vapour and heat shared among their SDs), one
+    launch.  ``sd`` the SD arrays (SD_NAMES), ``cells`` the cell arrays
+    (CELL_NAMES but T), ``seg`` None for the dense rows or the flat
+    layout (sijk, order, ends).  Returns (rw2, tmp_rv, tmp_th, tmp_rh,
+    tmp_p)."""
+    sd, cells = tuple(sd), tuple(cells)
+    if len(sd) != len(SD_NAMES) or len(cells) != len(CELL_NAMES) - 1:
+        raise ValueError("perparticle_fixed: expected the SD arrays "
+                         f"{SD_NAMES} and the cell arrays {CELL_NAMES[:-1]}")
+    _sd_layout("perparticle_fixed", sd, cells, seg)
+    if _ext.use_plain("perparticle_fixed", sd[1], plain):
+        return perparticle_fixed_plain(cfg, dt, RH_max, sd, cells, seg)
+    return _launch_sd(
+        "perparticle_fixed", _ext.COND_SD_FIXED, sd, cells, seg,
+        int(cfg.sstp_cond), float(dt), float(RH_max), int(cfg.th_dry),
+        int(cfg.const_p), int(cfg.RH_formula), int(cfg.sstp_cond_mix),
+        condensation._root_iters(sd[1].dtype))
+
+
+def perparticle_adaptive(cfg, dt, RH_max, sd, cells, seg=None, *,
+                         plain=False):
+    """Kernel G's adaptive form, or its plain version
+    perparticle_adaptive_plain (same arguments and results): the whole
+    adaptive per-particle condensation phase (each SD's tries, its
+    activation override and its own count of substeps), one launch.  The
+    arguments are perparticle_fixed's, ``cells`` with T (the activation
+    test's); without const_p the phase starts every SD's private p at 0
+    (perparticle_adaptive_core's convention), whatever ``sd``'s private
+    p holds.  Returns (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p)."""
+    sd, cells = tuple(sd), tuple(cells)
+    if len(sd) != len(SD_NAMES) or len(cells) != len(CELL_NAMES):
+        raise ValueError("perparticle_adaptive: expected the SD arrays "
+                         f"{SD_NAMES} and the cell arrays {CELL_NAMES}")
+    _sd_layout("perparticle_adaptive", sd, cells, seg)
+    if _ext.use_plain("perparticle_adaptive", sd[1], plain):
+        return perparticle_adaptive_plain(cfg, dt, RH_max, sd, cells, seg)
+    return _launch_sd(
+        "perparticle_adaptive", _ext.COND_SD_ADAPTIVE, sd, cells, seg,
+        sd[1].numel(), max(int(cfg.sstp_cond), 1),
+        max(int(cfg.sstp_cond_act), 1), float(dt), float(RH_max),
+        float(cfg.sstp_cond_adapt_drw2_eps),
+        float(cfg.sstp_cond_adapt_drw2_max), int(cfg.th_dry),
+        int(cfg.const_p), int(cfg.RH_formula),
+        condensation._root_iters(sd[1].dtype))

@@ -312,11 +312,13 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
                   z, thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, C_l, C_r,
                   C_b, C_a, p0, *, do_cond=True, do_coal=False, do_adve=True,
                   w_cells=None, params=(), sstp_coal=1, rng=(0, 0),
-                  coal_pairing="stride", slab=None, plain=False):
+                  coal_pairing="stride", slab=None, closure=None,
+                  plain=False):
     """One microphysics step or a phase of one (pallas_step.step_resident
     with its phase flags): condensation (kernel B) with ``do_cond``, else
     the cell closure of th0/rv0 (the post-condensation values of the async
-    phase, pallas_step.py:229-231); with ``do_coal`` coalescence (kernel E,
+    phase, pallas_step.py:229-231; ``closure``, its (T, p, RH, eta) where
+    the caller has it); with ``do_coal`` coalescence (kernel E,
     sstp_coal substeps of the draws ``rng`` = (seed, step)); then, where any
     of advection (``do_adve``), sedimentation (``do_sedi``) or subsidence
     (``w_cells``, the velocity of each row) runs, transport and
@@ -336,7 +338,8 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
             rv0, rhod, dv, lam_D, lam_K, p0, plain=plain)
     else:
         th, rv = th0, rv0
-        T, p, RH, eta = hskpng_Tpr(cfg, th, rv, rhod, p0)
+        T, p, RH, eta = closure if closure is not None \
+            else hskpng_Tpr(cfg, th, rv, rhod, p0)
     if do_coal:
         n, rw2, rd3, kpa, x, z, coal_ovf = coal_ops.coal_resident(
             cfg, params, sstp_coal, dt, *rng, n, rw2, rd3, kpa, x, z, T, p,

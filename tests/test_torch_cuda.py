@@ -37,11 +37,18 @@ vt-only forms.  Kernel G (the per-droplet root find at each droplet's own
 ambient conditions) runs on 1 to 369,664 droplets (ragged warps), on
 haze, activating and evaporating droplets, dead and rw2 <= 0 slots, for
 a scalar dt and a dt a droplet, bitwise equal to its plain version, and
-the exact and adaptive per-particle slices run through the public API
-with it, bitwise equal to their plain paths, on the flat engine and on
-the dense front; there G runs on the ravelled dense planes (dead slots
-included) and D in its 11-plane form (the exact mode's private planes),
-both bitwise equal to their plain versions.  Kernel C's unwrapped form
+on the ravelled dense planes (dead slots included).  Its two forms, each
+a whole per-particle condensation phase a launch, run on dense rows of
+capacity 128 and 512 with dead tails and holes, and on flat cell-sorted
+segments of more than 32 live SDs, of 1 and of 0, with dead slots in
+cell 0: the fixed-count form with and without in-cell mixing and under
+const_p, the adaptive form with sstp_cond_act 1 and above sstp_cond;
+without mixing rw2 and the live SDs' private state are bitwise their
+plain versions', with mixing within B's gates.  The exact and adaptive
+per-particle slices run through the public API with them, bitwise equal
+to their plain paths, on the flat engine and on the dense front;
+there D runs in its 11-plane form (the exact mode's private planes),
+bitwise equal to its plain version.  Kernel C's unwrapped form
 (a shard of the x-slab mesh) runs at row capacity 2 to 512 in both
 layouts on the first, an inner and the last slab, with droplets leaving
 on both sides, and kernel E keyed by a shard's global rows (row0), both
@@ -75,7 +82,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import (ambient_population, flat_cond_case, multiset,
-                          transport_case)
+                          perparticle_case, transport_case)
 
 from libcloudphxx_tpu_torch import Kinematic2D, _ext
 from libcloudphxx_tpu_torch.lgrngn import as_t, dense, kernel_t, vt_t
@@ -422,7 +429,8 @@ def test_dense_front_on_the_card(dev):
     got = {k.name: k.launches - before[k.name] for k in _ext.KERNELS}
     assert got == dict(mpdata=8, cond=4, transport=4, merge=4, coal=2,
                        coal_standalone=0, cond_flat=0, cond_sd=0,
-                       transport_unwrapped=0, merge_exact=0)
+                       transport_unwrapped=0, merge_exact=0,
+                       cond_sd_fixed=0, cond_sd_adaptive=0)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run(4, spinup=2, plain=True)
     assert torch.equal(front.th, fused.th) and torch.equal(front.rv, fused.rv)
@@ -969,11 +977,12 @@ def test_exact_slice_kernels_match_plain(dev, mode):
     exact per-particle substepping, through the public API on the card's
     flat engine (engine="flat"; the factory's own pick there is the dense
     front, test_dense_exact_kernels_match_plain):
-    kernel G runs sstp_cond times a step (adaptive: once a try of phase A
-    and max(sstp_cond, sstp_cond_act) times in phase B), kernels F and B
-    never, and the kernel path equals the plain path bitwise (G is
-    bitwise its plain version; the cell sums are the same float64
-    cumulative sums on both paths)."""
+    kernel G's fixed-count or adaptive form runs once a step, its
+    one-substep entry and kernels F and B never, and the kernel path
+    equals the plain path bitwise (G's forms are bitwise their plain
+    versions; with in-cell mixing the kernel's float64 butterfly sums
+    round to the float32 bits of the plain path's float64 cumulative
+    sums)."""
     sstp, oi = EXACT_MODES[mode]
     kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=sstp, sstp_coal=3,
               n_sd_max=24 * 64 + 100,
@@ -985,13 +994,13 @@ def test_exact_slice_kernels_match_plain(dev, mode):
     before = {k.name: k.launches for k in _ext.KERNELS}
     mk.run(4, spinup=2)
     torch.cuda.synchronize()
-    per_step = sstp if mode != "adaptive" else 3 + 8   # tries 1, 2, 4
-    assert _ext.COND_SD.launches == before["cond_sd"] + 4 * per_step
-    assert _ext.COND_FLAT.launches == before["cond_flat"]
-    assert _ext.COND.launches == before["cond"]
+    form = _ext.COND_SD_ADAPTIVE if mode == "adaptive" else _ext.COND_SD_FIXED
+    assert form.launches == before[form.name] + 4
+    for k in (_ext.COND_SD, _ext.COND_FLAT, _ext.COND):
+        assert k.launches == before[k.name], k.name
     mp.run(4, spinup=2, plain=True)
-    assert torch.equal(mk.th, mp.th) and torch.equal(mk.rv, mp.rv)
     sk, sp = mk.prtcls.state, mp.prtcls.state
+    assert torch.equal(mk.th, mp.th) and torch.equal(mk.rv, mp.rv)
     for k in ("n", "rw2", "ijk", "sstp_tmp_th", "sstp_tmp_rv",
               "sstp_tmp_rh", "sstp_tmp_p"):
         assert torch.equal(getattr(sk, k), getattr(sp, k)), k
@@ -1001,12 +1010,13 @@ def test_exact_slice_kernels_match_plain(dev, mode):
 @pytest.mark.parametrize("mode", list(EXACT_MODES))
 def test_dense_exact_kernels_match_plain(dev, mode):
     """The same case on the dense engine, the factory's pick on the card:
-    the dense front's stepwise run launches G sstp_cond times a step
-    (adaptive: once a try and max(sstp_cond, sstp_cond_act) times), D's
-    11-plane form once a step and B, F and D's 7-plane form never; it
-    equals run_device_lgrngn(engine="dense") bitwise, and that equals its
-    plain path bitwise (G and D bitwise, the row sums the same float64
-    sums on both paths)."""
+    the dense front's stepwise run launches G's fixed-count or adaptive
+    form and D's 11-plane form once a step, and B, F, D's 7-plane form and
+    G's one-substep entry never; it equals run_device_lgrngn(engine=
+    "dense") bitwise, and that equals its plain path bitwise (G's forms
+    and D bitwise; with in-cell mixing the kernel's float64 butterfly
+    sums round to the float32 bits of the plain path's float64 row
+    sums)."""
     from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
     sstp, oi = EXACT_MODES[mode]
     kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=sstp, sstp_coal=3,
@@ -1019,10 +1029,12 @@ def test_dense_exact_kernels_match_plain(dev, mode):
     front.run(4, spinup=2)
     torch.cuda.synchronize()
     got = {k.name: k.launches - before[k.name] for k in _ext.KERNELS}
-    per_step = sstp if mode != "adaptive" else 3 + 8   # tries 1, 2, 4
+    adaptive = mode == "adaptive"
     assert got == dict(mpdata=8, cond=0, transport=4, merge=0, coal=0,
-                       coal_standalone=0, cond_flat=0, cond_sd=4 * per_step,
-                       transport_unwrapped=0, merge_exact=4)
+                       coal_standalone=0, cond_flat=0, cond_sd=0,
+                       transport_unwrapped=0, merge_exact=4,
+                       cond_sd_fixed=0 if adaptive else 4,
+                       cond_sd_adaptive=4 if adaptive else 0)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run_device_lgrngn(4, spinup=2, engine="dense", plain=True)
     for m in (fused, plain):
@@ -1039,9 +1051,10 @@ def test_dense_exact_kernels_match_plain(dev, mode):
 
 
 def test_cond_sd_kernel_on_dense_planes(dev):
-    """G on the ravelled planes of a dense exact state's first substep (the
-    dead slots of every row included, rw2 == 0), bitwise equal to its
-    plain version; the dead slots keep their rw2."""
+    """G's one-substep entry on the ravelled planes of a dense exact
+    state's first substep (the dead slots of every row included, rw2 ==
+    0), as the plain path's fixed-count form calls it, bitwise equal to
+    its plain version; the dead slots keep their rw2."""
     m = Kinematic2D(nx=8, nz=8, sd_conc=24, sstp_cond=3, n_sd_max=24 * 64,
                     opts_init_kw={"exact_sstp_cond": True,
                                   "coal_switch": False}, device=dev)
@@ -1054,7 +1067,7 @@ def test_cond_sd_kernel_on_dense_planes(dev):
 
     cond_ops.advance_rw2 = spy
     try:
-        m.run_device_lgrngn(1, engine="dense")
+        m.run_device_lgrngn(1, engine="dense", plain=True)
     finally:
         cond_ops.advance_rw2 = real
     args, kw = seen[0]
@@ -1064,6 +1077,124 @@ def test_cond_sd_kernel_on_dense_planes(dev):
     assert torch.equal(out, cond_ops.advance_rw2(*args, **kw, plain=True))
     dead = args[1] <= 0
     assert bool(dead.any()) and torch.equal(out[dead], args[1][dead])
+
+
+# ------------------------------------------------- kernel G's two forms
+# cells of more than 32, exactly 32, 1 and 0 live SDs, and full rows
+def _g_counts(cap, n_cell=96, seed=0):
+    rng = np.random.default_rng(seed)
+    base = [0, 1, 31, 32, 33, 64] + ([cap // 2, cap] if cap else [70, 140])
+    return base + list(rng.integers(0, cap or 100, n_cell - len(base)))
+
+
+def _check_form(kernel, f, cfg, sd, cells, seg, **kw):
+    """One of G's forms against its plain version on the card: rw2 in
+    every slot and the live SDs' private state bitwise, with in-cell
+    mixing (the butterfly sums add in another order) B's and F's gates:
+    th rel 2e-6, rv 2e-5, rw2 1e-5, and the slots it does not advance
+    (n <= 0 and rw2 <= 0) bitwise.  A dead slot's private values are
+    not compared: the kernel keeps them, where the plain version may
+    leave them non-finite (0 * 0 / 0).  Returns the kernel's results."""
+    k = _launches(kernel, lambda: f(cfg, 1.0, 44.0, sd, cells, seg, **kw))
+    p = f(cfg, 1.0, 44.0, sd, cells, seg, plain=True)
+    live = sd[0] > 0
+    if kernel is _ext.COND_SD_FIXED and cfg.sstp_cond_mix:
+        kept = ~live & (sd[1] <= 0)
+        assert torch.equal(k[0][kept], p[0][kept])
+        assert _rel(k[0][live], p[0][live]) <= 1e-5
+        assert _rel(k[2][live], p[2][live]) <= 2e-6     # th
+        assert _rel(k[1][live], p[1][live]) <= 2e-5     # rv
+        assert torch.equal(k[3][live], p[3][live])      # rhod
+        assert torch.equal(k[4][live], p[4][live])      # p
+    else:
+        assert torch.equal(k[0], p[0])
+        for a, b in zip(k[1:], p[1:]):
+            assert torch.equal(a[live], b[live])
+    assert bool(torch.isfinite(k[0]).all())
+    if bool(live.any()):
+        assert bool((k[0] != sd[1])[live].any())        # droplets grew
+    return k
+
+
+FIXED_MODES = {"mix": {}, "nomix": dict(sstp_cond_mix=False),
+               "mix_const_p": dict(const_p=True, th_dry=False),
+               "nomix_const_p": dict(sstp_cond_mix=False, const_p=True,
+                                     th_dry=False)}
+
+
+@pytest.mark.parametrize("mode", list(FIXED_MODES))
+@pytest.mark.parametrize("cap", [128, 512])
+def test_cond_sd_fixed_on_dense_rows(dev, cap, mode):
+    """G's fixed-count form on dense rows of capacity 128 and 512: rows of
+    0 to cap live SDs, a hole (n == 0, rw2 kept) in each, dead tails."""
+    cfg, sd, cells, seg = perparticle_case(
+        _g_counts(cap, seed=cap), cap=cap, seed=1, device=dev,
+        dtype=torch.float32, sstp_cond=10, **FIXED_MODES[mode])
+    _check_form(_ext.COND_SD_FIXED, cond_ops.perparticle_fixed, cfg, sd,
+                cells[:7], seg)
+
+
+@pytest.mark.parametrize("mode", list(FIXED_MODES))
+def test_cond_sd_fixed_on_flat_segments(dev, mode):
+    """G's fixed-count form on the flat engine's cell-sorted segments of 0
+    to 140 live SDs (in a shuffled slot order), cell 0 also holding 300
+    dead slots, half with the rw2 they died with."""
+    cfg, sd, cells, seg = perparticle_case(
+        _g_counts(None), dead0=300, seed=2, device=dev, dtype=torch.float32,
+        sstp_cond=10, **FIXED_MODES[mode])
+    _check_form(_ext.COND_SD_FIXED, cond_ops.perparticle_fixed, cfg, sd,
+                cells[:7], seg)
+
+
+ADAPTIVE_MODES = {"act1": dict(sstp_cond_act=1),
+                  "act16": dict(sstp_cond_act=16),
+                  "act16_const_p": dict(sstp_cond_act=16, const_p=True,
+                                        th_dry=False)}
+
+
+@pytest.mark.parametrize("mode", list(ADAPTIVE_MODES))
+@pytest.mark.parametrize("layout", ["cap128", "cap512", "flat"])
+def test_cond_sd_adaptive_matches_plain(dev, layout, mode):
+    """G's adaptive form on dense rows of capacity 128 and 512 and on
+    flat segments, with sstp_cond_act 1 and 16 (above sstp_cond 10):
+    bitwise equal to its plain version."""
+    cap = None if layout == "flat" else int(layout[3:])
+    cfg, sd, cells, seg = perparticle_case(
+        _g_counts(cap, seed=cap or 0), cap=cap, dead0=300, seed=3,
+        device=dev, dtype=torch.float32, sstp_cond=10,
+        adaptive_sstp_cond=True, **ADAPTIVE_MODES[mode])
+    _check_form(_ext.COND_SD_ADAPTIVE, cond_ops.perparticle_adaptive, cfg,
+                sd, cells, seg)
+
+
+def test_cond_sd_forms_refuse_what_the_kernels_do_not_take(dev):
+    cfg, sd, cells, _ = perparticle_case([3, 40], cap=64, seed=4,
+                                         device=dev, dtype=torch.float32)
+    _, sd_f, cells_f, seg = perparticle_case([3, 40], seed=4, device=dev,
+                                             dtype=torch.float32)
+
+    def fixed(sd=sd, cells=cells[:7], seg=None):
+        return cond_ops.perparticle_fixed(cfg, 1.0, 44.0, sd, cells, seg)
+
+    with pytest.raises(TypeError, match="float32"):
+        fixed(sd=(sd[0].double(),) + sd[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        fixed(sd=sd[:2] + (sd[2].t().contiguous().t(),) + sd[3:])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fixed(cells=(cells[0].cpu(),) + cells[1:7])
+    with pytest.raises(ValueError, match="dense rows must be"):
+        fixed(sd=tuple(a[:1] for a in sd))
+    with pytest.raises(TypeError, match="int64"):
+        fixed(sd=sd_f, cells=cells_f[:7],
+              seg=(seg[0], seg[1].int(), seg[2]))
+    with pytest.raises(ValueError, match="cell arrays"):
+        cond_ops.perparticle_adaptive(cfg, 1.0, 44.0, sd, cells[:7])
+    # a cell-sorted layout without SDs launches and returns empty arrays
+    empty = tuple(a[:0] for a in sd_f)
+    none = torch.full_like(seg[2], -1)
+    out = _launches(_ext.COND_SD_FIXED, lambda: cond_ops.perparticle_fixed(
+        cfg, 1.0, 44.0, empty, cells_f[:7], (seg[0][:0], seg[1][:0], none)))
+    assert all(a.shape == (0,) for a in out)
 
 
 @pytest.mark.parametrize("misaligned", [False, True],

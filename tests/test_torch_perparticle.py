@@ -213,10 +213,13 @@ def test_cond_perparticle_adaptive_matches_jax(monkeypatch, act):
         jcond.cond_perparticle_adaptive(cfg, jhskpng.hskpng_Tpr(cfg, js),
                                         1.0, 44.0, lam=jcond.stale_mfp(js))
     st = tcond.hskpng.hskpng_Tpr_state(pcfg, ps)
-    tcond.cond_perparticle_adaptive(pcfg, st, 1.0, 44.0,
-                                    tcond.stale_mfp(ps))
+    tcond.cond_perparticle_adaptive(pcfg, st, 1.0, 44.0, (ps.T, ps.p))
     assert len(j_dt) == len(p_dt) == max(4, act)
-    counts = np.rint(1.0 / p_dt[0]).astype(int)
+    # the port's phase B runs over the SDs sorted by cell (kernel G's
+    # layout, ops/cond.py perparticle_adaptive): back to slot order
+    order = torch.sort(ps.ijk, stable=True)[1].numpy()
+    counts = np.empty(order.size, dtype=int)
+    counts[order] = np.rint(1.0 / p_dt[0]).astype(int)
     np.testing.assert_array_equal(counts, np.rint(1.0 / j_dt[0]))
     live = ps.n.numpy() > 0
     # the adaptation picks several counts; the override takes act

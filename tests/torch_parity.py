@@ -275,3 +275,88 @@ def ambient_population(n, kind="mixed", seed=0, device="cpu",
                   lam_D=u(5e-8, 2e-7), lam_K=u(5e-8, 2e-7))
     return {k: torch.tensor(v, dtype=dtype, device=device)
             for k, v in arrays.items()}
+
+
+def perparticle_case(counts, cap=None, dead0=0, seed=0, device="cpu",
+                     dtype=torch.float64, **opts):
+    """The inputs of kernel G's two forms (ops/cond.perparticle_fixed,
+    perparticle_adaptive) for cells of ``counts`` live SDs: haze to cloud
+    droplets in cells from sub- to supersaturated, each SD with a private
+    th, rv, rhod and p a host-model increment behind its cell's (a third
+    of them a neighbouring cell's values, as after a move).  With ``cap``
+    the dense (n_cell, cap) rows: a row's live SDs first, with a hole that
+    keeps the rw2 it died with in every row of more than 4, then a dead
+    tail of zeros; without it the flat engine's SDs in a shuffled slot
+    order, cell 0 also holding ``dead0`` dead slots (half with the rw2
+    they died with), and their (sijk, order, ends).  ``opts`` go to
+    opts_init (sstp_cond, sstp_cond_mix, const_p, th_dry, adaptive ...).
+    Returns (cfg, sd, cells, seg); cells hold T (ops/cond CELL_NAMES)."""
+    from libcloudphxx_tpu_torch.common import const_cp, theta_dry
+    from libcloudphxx_tpu_torch.lgrngn import opts_init_t
+    from libcloudphxx_tpu_torch.lgrngn.condensation import cell_ends
+    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_Tpr
+    from libcloudphxx_tpu_torch.lgrngn.state import StaticConfig
+    rng = np.random.default_rng(seed)
+    n_cell = len(counts)
+    oi = opts_init_t()
+    oi.nx, oi.nz, oi.dx, oi.dz, oi.x1, oi.z1 = n_cell, 1, 20.0, 20.0, \
+        20.0 * n_cell, 20.0
+    oi.exact_sstp_cond = True
+    for k, v in dict(dict(sstp_cond=4), **opts).items():
+        setattr(oi, k, v)
+    cfg = StaticConfig.from_opts_init(oi)
+
+    th = rng.uniform(289.0, 300.0, n_cell)
+    rhod = rng.uniform(1.0, 1.15, n_cell)
+    T = theta_dry.T(torch.tensor(th), torch.tensor(rhod))
+    p = theta_dry.p(torch.tensor(rhod), torch.tensor(8e-3), T)
+    rv = rng.uniform(0.95, 1.02, n_cell) * const_cp.r_vs(T, p).numpy()
+    T, p, _, _ = hskpng_Tpr(cfg, torch.tensor(th), torch.tensor(rv),
+                            torch.tensor(rhod), p)
+    # the cells' T and p at the start of the step (the mean free paths')
+    T_mfp = T.numpy() - rng.normal(0.1, 0.05, n_cell)
+    p_mfp = p.numpy() * (1 + rng.uniform(0.0, 1e-3, n_cell))
+    cell_vals = dict(th=th, rv=rv, rhod=rhod, p=p.numpy(),
+                     dv=np.full(n_cell, 400.0), T_mfp=T_mfp, p_mfp=p_mfp,
+                     T=T.numpy())
+
+    sizes = np.array(counts)
+    if cap is None:
+        sizes[0] += dead0
+    ijk = np.repeat(np.arange(n_cell), sizes)
+    n_sd = ijk.size
+    live = np.ones(n_sd, bool)
+    if cap is None:
+        live[rng.permutation(sizes[0])[:dead0]] = False
+    rw = np.exp(rng.uniform(np.log(2e-8), np.log(3e-5), n_sd))
+    rd3 = (rw * rng.uniform(0.05, 0.9, n_sd)) ** 3
+    rw2 = np.where(live | (rng.random(n_sd) < 0.5), rw ** 2, 0.0)
+    n = np.where(live, np.floor(10.0 ** rng.uniform(6, 8, n_sd)), 0.0)
+    # the private state: a neighbouring cell's for a third of the SDs,
+    # and the host model's increment (warmer, moister, denser) behind it
+    src = np.where(rng.random(n_sd) < 1 / 3, (ijk + 1) % n_cell, ijk)
+    private = dict(
+        tmp_th=th[src] - rng.normal(0.2, 0.1, n_sd),
+        tmp_rv=rv[src] * (1 - rng.uniform(0.0, 0.03, n_sd)),
+        tmp_rh=rhod[src] * (1 - rng.uniform(0.0, 2e-3, n_sd)),
+        tmp_p=cell_vals["p"][src] * (1 - rng.uniform(0.0, 1e-3, n_sd)))
+    sd = dict(n=n, rw2=rw2, rd3=rd3, kpa=rng.uniform(0.1, 1.2, n_sd),
+              vt=rng.uniform(0.0, 0.05, n_sd), **private)
+    if cap is None:
+        perm = rng.permutation(n_sd)
+        sd = {k: v[perm] for k, v in sd.items()}
+        ijk = torch.as_tensor(ijk[perm], device=device)
+        sijk, order = torch.sort(ijk, stable=True)
+        seg = (sijk, order, cell_ends(sijk, n_cell))
+    else:
+        rows = {k: np.zeros((n_cell, cap)) for k in sd}
+        at = np.concatenate([[0], np.cumsum(sizes)])
+        for c in range(n_cell):
+            for k, v in sd.items():
+                rows[k][c, :sizes[c]] = v[at[c]:at[c + 1]]
+            if sizes[c] > 4:      # a hole: n == 0, rw2 kept
+                rows["n"][c, sizes[c] // 2] = 0.0
+        sd, seg = rows, None
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    return (cfg, tuple(as_t(v) for v in sd.values()),
+            tuple(as_t(v) for v in cell_vals.values()), seg)
