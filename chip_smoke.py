@@ -110,11 +110,28 @@ checks them:
      against the plain path; best-of-3 timing from init beside the flat
      exact slice's, and the rows of G's two forms and of D with their
      bounds
+ 16. the bulk schemes blk_1m and blk_2m in the kinematic model, the
+     reference's fig_a bulk case (76x76 cells on the node grid, FCT on):
+     kernel A's advect_n on each scheme's 4 and 6 fields, FCT off and on,
+     n_iters 1-3, bitwise equal to its plain version and to one advect a
+     field; ante_loop (blk_1m) and run_device over 3000 steps (1200 of
+     them spin-up; the reference runs 9000 and 7200) through the kernels
+     in float32, kernel A
+     once a step, with the physics checks (finite fields, mixing ratios
+     and concentrations >= -1e-10, the total water with the surface
+     puddle conserved to 1e-4, rain formed); the kernel path against the
+     plain path over 400 steps across a spin-up boundary, run() against
+     run_device() (both bitwise); the float64 plain run against the
+     float32 kernel run at the end, within the fig_a tolerances (blk_2m's
+     rc within 1e-5: BLK_GATES); best of 3 reps of 500 steps from the run's
+     end (ms/step, cell-updates/s), kernel A's device time in the step
+     beside its bound, and with --profile the launches a step and the
+     busy share
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
 the flat engine, the dense front, the exact slice and the dense exact
-slice (torch.profiler).  The last line is {"ok": true, "device": {...}}; the
+slice, and of the bulk schemes' steps (torch.profiler).  The last line is {"ok": true, "device": {...}}; the
 line before it the card's name and power limit; before that one JSON
 object with a row per kernel.  Any failed check raises: the script then
 prints ``chip_smoke: FAILED: <reason>`` on stdout, and exits non-zero.
@@ -216,6 +233,10 @@ OPS_PHILOX, OPS_PAIR, OPS_COLLIDE = 98, 17, 25
 # fluxes, their divergence over G), and each corrective iteration's
 # antidiffusive velocities of a cell's x and z face
 OPS_DONOR, OPS_ANTIDIFF = 25, 46
+# with FCT, each corrective iteration's limiter a cell (fct_betas: the
+# extrema of the field before and after the donor pass, four donor fluxes,
+# the in- and outflows, the two betas; fct_limit: two faces)
+OPS_FCT = 64
 
 # the sustained run (SUSTAINED_r05.json's shape) and the forced retargets:
 # 118 SDs a cell fill 0.92 of capacity 128
@@ -229,6 +250,35 @@ PROFILE_STEPS = 5
 MESH_SHARDS = 8
 MESH_WIDTHS = [10, 10, 10, 10, 9, 9, 9, 9]
 MESH_STEPS = 10
+
+# phase 16: the bulk schemes' fig_a case (tools/golden_parity_blk.py:1-10,
+# the reference's travis_2D_kin_cloud_diff_blk_{1m,2m} runs): its steps and
+# spin-up, cut from the reference's 9000 and 7200 (at those the phase took
+# 560 s on an H100, most of it the float64 plain runs' ~2,000 launches a
+# step), the steps of the kernel path against the plain path (the spin-up
+# moved to half of them), of run() against run_device() and of a timing rep
+BLK_SCHEMES = ("blk_1m", "blk_2m")
+BLK_NT, BLK_SPINUP = 3000, 1200
+BLK_PLAIN_STEPS, BLK_PLAIN_SPINUP = 400, 200
+BLK_RUN_STEPS = 20
+BLK_TIME_STEPS = 500
+# the fig_a h5diff tolerances at t = 9000 (tools/golden_parity_blk.py:
+# 64-77), here float32 against float64 at the run's end: (field, "abs" or
+# "rel", bound).  blk_2m's rc bound is 1e-5, not fig_a's 4.5e-6 (a gate
+# between two float32 runs of the reference): float32 fields put blk_2m's
+# rc 5.8e-6 (t = 9000) to 7.0e-6 (t = 3000) from the float64 run's on an
+# H100, and scripts/blk_precision.py finds it as far with the
+# microphysics in float64 on float32 fields: the fields' float32 storage
+# and advection, which kernel A takes, set it
+BLK_GATES = {
+    "blk_1m": (("rv", "abs", 2e-5), ("rc", "abs", 2e-5), ("rr", "abs", 2e-5),
+               ("th", "abs", 0.1)),
+    "blk_2m": (("rv", "rel", 0.02), ("rr", "abs", 12e-6),
+               ("rc", "abs", 1e-5), ("th", "abs", 0.4)),
+}
+# the typical magnitudes of the bulk fields past th and rv (rc, rr or rc,
+# nc, rr, nr), for kernel A's inputs in phase 16
+BLK_SCALES = {"blk_1m": (1e-3, 1e-4), "blk_2m": (1e-3, 1e8, 1e-4, 1e5)}
 
 # the terminal velocity formulas off the main path (formulas()): the
 # steps of their kernel path against their plain path (2 spin-up), and of
@@ -1321,6 +1371,16 @@ def smoke(opts):
     dx_rows, dx = dense_exact(Kinematic2D, dense, _ext, step, card, exact_ms,
                               dense_ms["coalescence on"])
     rows += dx_rows
+
+    # ---- 16. the bulk schemes (kernel A's FCT form on 4 and 6 fields)
+    blk = bulk_phase(Kinematic2D, mpdata, _ext, card, opts.profile)
+    for kr in rows:
+        if kr["name"] == "mpdata":
+            kr["max_abs_err"] = max(kr["max_abs_err"], *(
+                v["max_abs_err"] for v in blk.values()))
+            kr["blk"] = {micro: {k: v[k] for k in (
+                "launches", "ms", "in_step_ms", "plain_ms", "bound_ms",
+                "bound_by")} for micro, v in blk.items()}
 
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
@@ -2652,6 +2712,205 @@ def vt_ops(cfg, rw2):
     return 2 * n, OPS_VT_KHV[f.name] * n
 
 
+def blk_fields(m):
+    """A bulk model's fields, in BULK_FIELDS order."""
+    from libcloudphxx_tpu_torch.models.kinematic_2d import BULK_FIELDS
+    return tuple(getattr(m, k) for k in BULK_FIELDS[m.micro])
+
+
+def blk_set(m, state):
+    """Put a bulk model at ``state`` = (fields, puddle_flux, t)."""
+    from libcloudphxx_tpu_torch.models.kinematic_2d import BULK_FIELDS
+    fields, m.puddle_flux, m.t = state
+    for k, v in zip(BULK_FIELDS[m.micro], fields):
+        setattr(m, k, v)
+
+
+def blk_state(m):
+    return blk_fields(m), m.puddle_flux, m.t
+
+
+def blk_water(m):
+    """The water a bulk run conserves, per unit of cell volume: the sum of
+    G (rv + rc + rr) over the cells less the surface flux that left
+    (puddle_flux, negative), in float64."""
+    G = m.G.double()
+    return float((G * (m.rv.double() + m.rc.double() + m.rr.double()))
+                 .sum()) - m.puddle_flux
+
+
+def mpdata_bound(fields, mp, n_iters, fct):
+    """Kernel A's bound on ``fields``: each field in and out, the courants
+    and G, against the donor passes, the corrective iterations and their
+    limiter (with ``fct``) of every cell and field."""
+    n_cell = fields[0].numel()
+    return bound(2 * nbytes(*fields) + nbytes(*mp),
+                 len(fields) * n_cell * (
+                     n_iters * OPS_DONOR
+                     + (n_iters - 1) * (OPS_ANTIDIFF + (OPS_FCT if fct
+                                                        else 0))))
+
+
+def bulk_phase(Kinematic2D, mpdata, _ext, card, profile_on):
+    """Phase 16 (the module docstring): the bulk schemes in the kinematic
+    model.  Returns {scheme: kernel A's figures at its shapes}."""
+    t_phase = time.perf_counter()
+    out = {}
+    for micro in BLK_SCHEMES:
+        m = Kinematic2D(nx=NX, nz=NZ, micro=micro, grid="node", fct=True,
+                        device=DEVICE)
+        m.ante_loop()
+        init = blk_state(m)
+        mp = (m.gc_x, m.gc_z, m.G)
+
+        # (a) kernel A on the scheme's stack of fields: th and rv
+        # perturbed, the other fields random with exact zeros (clear air)
+        rng = np.random.default_rng(16)
+        like = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                         device=DEVICE)
+        th0, rv0 = init[0][:2]
+        fields = (th0 + like(rng.normal(0.0, 0.5, (NX, NZ))),
+                  rv0 * (1.0 + like(rng.uniform(-0.05, 0.05, (NX, NZ))))) \
+            + tuple(like(np.where(rng.uniform(size=(NX, NZ)) < 0.5, 0.0,
+                                  rng.uniform(0.0, sc, (NX, NZ))))
+                    for sc in BLK_SCALES[micro])
+        err = 0.0
+        for fct in (False, True):
+            for n_iters in (1, 2, 3):
+                args = mp + (n_iters, fct)
+                k = mpdata.advect_n(fields, *args)
+                p = mpdata.advect_n(fields, *args, plain=True)
+                same = all(torch.equal(a, b) for a, b in zip(k, p))
+                alone = all(torch.equal(a, mpdata.advect(f, *args))
+                            for a, f in zip(k, fields))
+                err = max(err, *(max_abs(a, b) for a, b in zip(k, p)))
+                print(f"A advect_n {micro}, {len(fields)} fields, fct={fct} "
+                      f"n_iters={n_iters}: bitwise equal to the plain "
+                      f"version {same}, to one advect a field {alone}")
+                check(same and alone, f"{micro}: advect_n fct={fct} "
+                      f"n_iters={n_iters} differs from its plain version "
+                      f"or from one advect a field")
+
+        # (b) the fig_a run through the kernels, float32
+        water0 = blk_water(m)
+        reset(_ext.KERNELS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run_device(BLK_NT, spinup=BLK_SPINUP)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _ext.KERNELS}
+        end = blk_state(m)
+        dw = abs(blk_water(m) - water0) / water0
+        lows = {k: float(getattr(m, k).min()) for k in ("rv", "rc", "rr",
+                                                        "nc", "nr")
+                if hasattr(m, k)}
+        rr_max = float(m.rr.max())
+        print(f"{micro} fig_a run through the kernels: ante_loop, "
+              f"{BLK_SPINUP} spin-up + {BLK_NT - BLK_SPINUP} steps in "
+              f"{secs:.2f} s ({secs / BLK_NT * 1e3:.3f} ms/step); launches "
+              f"{launches}; water rel err {dw:.2e}; minima {lows}; max rc "
+              f"{float(m.rc.max()):.4e}, max rr {rr_max:.4e}, puddle_flux "
+              f"{m.puddle_flux:.6e}", flush=True)
+        check(launches == dict({k.name: 0 for k in _ext.KERNELS},
+                               mpdata=BLK_NT),
+              f"{micro}: kernel A once a step and no other kernel "
+              f"expected, got {launches}")
+        check(all(bool(torch.isfinite(f).all()) for f in end[0]),
+              f"{micro}: non-finite fields")
+        check(min(lows.values()) >= -1e-10,
+              f"{micro}: a mixing ratio or concentration below -1e-10: "
+              f"{lows}")
+        check(dw <= 1e-4, f"{micro}: total water off by {dw:.2e}")
+        check(rr_max > 0.0, f"{micro}: no rain after the spin-up")
+
+        # (c) the kernel path against the plain path, across a spin-up
+        # boundary
+        runs = []
+        for plain in (False, True):
+            blk_set(m, init)
+            m.run_device(BLK_PLAIN_STEPS, spinup=BLK_PLAIN_SPINUP,
+                         plain=plain)
+            runs.append(blk_fields(m))
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"{micro}, kernels vs plain after {BLK_PLAIN_STEPS} steps "
+              f"({BLK_PLAIN_SPINUP} spin-up): bitwise equal {same}")
+        check(same, f"{micro}: the kernel path differs from the plain path")
+
+        # (d) the stepwise loop against run_device
+        runs = []
+        for how in ("run", "run_device"):
+            blk_set(m, init)
+            getattr(m, how)(BLK_RUN_STEPS, spinup=BLK_RUN_STEPS // 2)
+            runs.append(blk_fields(m))
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"{micro}, run() vs run_device() over {BLK_RUN_STEPS} steps: "
+              f"bitwise equal {same}")
+        check(same, f"{micro}: run() differs from run_device()")
+
+        # (e) float32 against float64 (the plain path) at the run's end
+        m64 = Kinematic2D(nx=NX, nz=NZ, micro=micro, grid="node", fct=True,
+                          device=DEVICE, dtype=torch.float64)
+        m64.ante_loop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m64.run_device(BLK_NT, spinup=BLK_SPINUP, plain=True)
+        torch.cuda.synchronize()
+        secs64 = time.perf_counter() - t0
+        blk_set(m, end)
+        diffs = {}
+        for field, kind, lim in BLK_GATES[micro]:
+            a, b = getattr(m, field), getattr(m64, field)
+            diffs[field] = (kind, max_abs(a, b) if kind == "abs"
+                            else max_rel(a, b), lim)
+        print(f"{micro} at t = {BLK_NT}, float32 kernels vs float64 plain "
+              f"({secs64:.2f} s): " + ", ".join(
+                  f"{k} max {kind} {v:.3e} (<= {lim:g})"
+                  for k, (kind, v, lim) in diffs.items())
+              + f"; puddle_flux {m.puddle_flux:.6e} / "
+              f"{m64.puddle_flux:.6e}", flush=True)
+        check(all(v <= lim for _, v, lim in diffs.values()),
+              f"{micro}: float32 outside the fig_a tolerances of float64")
+
+        # (f) timing from the run's end: best of 3 reps, kernel A alone
+        # and in the step beside its bound
+        best = float("inf")
+        for _ in range(TIME_REPS):
+            blk_set(m, end)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.run_device(BLK_TIME_STEPS)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        step_ms = best / BLK_TIME_STEPS * 1e3
+        call = lambda plain: mpdata.advect_n(end[0], *mp, m.mpdata_iters,
+                                             True, plain=plain)
+        a_ms, a_plain = time_cuda(lambda: call(False), KERNEL_REPS), \
+            time_cuda(lambda: call(True), KERNEL_REPS)
+        blk_set(m, end)
+        # None where the profiler saw no device time
+        in_step = device_ms(lambda n: m.run_device(n), PROFILE_STEPS,
+                            ("mpdata_kernel",)).get("mpdata_kernel")
+        bound_ms, bound_by = mpdata_bound(end[0], mp, m.mpdata_iters, True)
+        print(f"timing {micro}, run_device: {step_ms:.3f} ms/step, "
+              f"{NX * NZ * BLK_TIME_STEPS / best:.4g} cell-updates/s "
+              f"({BLK_TIME_STEPS} steps, best of {TIME_REPS}); kernel A on "
+              f"{len(end[0])} fields with FCT {a_ms:.4f} ms a call, in the "
+              f"step " + ("not measured" if in_step is None else
+                          f"{in_step:.4f}")
+              + f", plain {a_plain:.4f}, bound {bound_ms:.6f} ({bound_by}) "
+              f"({card})", flush=True)
+        if profile_on:
+            profile(f"{micro}, run_device", lambda: blk_set(m, end),
+                    lambda n: m.run_device(n), card)
+        out[micro] = dict(launches=launches["mpdata"], ms=a_ms,
+                          in_step_ms=in_step, plain_ms=a_plain,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          step_ms=step_ms, max_abs_err=err)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def profile(label, start, run, card, steps=20):
     """Device time by kernel over ``steps`` steps (torch.profiler) beside
     their unprofiled wall time: ``start()`` puts the model at the window's
@@ -2675,7 +2934,7 @@ def profile(label, start, run, card, steps=20):
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"profile {label}: {steps} coalescing steps, wall {wall:.3f} "
+    print(f"profile {label}: {steps} steps, wall {wall:.3f} "
           f"ms/step unprofiled, device busy {busy:.3f} ms/step, busy share "
           f"{busy / wall:.3f}, device launches {sum(r[2] for r in rows):.1f}"
           f"/step ({card})")

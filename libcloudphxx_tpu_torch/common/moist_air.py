@@ -14,6 +14,11 @@ def R(r):
     return mix(c.R_d, c.R_v, r)
 
 
+def c_p(r):
+    """Specific heat capacity of moist air [J/K/kg] (moist_air.hpp:72-78)."""
+    return mix(c.c_pd, c.c_pv, r)
+
+
 def p_v(p, r):
     """Water-vapour partial pressure [Pa] (moist_air.hpp:80-88)."""
     return p * r / (r + c.eps)

@@ -34,6 +34,21 @@ def d_th_d_rv(T, th):
     return -th / T * const_cp.l_v(T) / c.c_pd
 
 
+def d_th_d_rv_dep(T, th):
+    """Heat of deposition (theta_dry.hpp:67-75)."""
+    return -th / T * const_cp.l_s(T) / c.c_pd
+
+
+def d_th_d_rw_freeze(T, th):
+    """Heat of freezing (theta_dry.hpp:77-85)."""
+    return -th / T * const_cp.l_f(T) / c.c_pd
+
+
 def std2dry(th_std, r):
     """Standard -> dry potential temperature (theta_dry.hpp:87-100)."""
     return th_std * (1 + r * c.R_v / c.R_d) ** (c.R_d / c.c_pd)
+
+
+def dry2std(th_dry, r):
+    """Dry -> standard potential temperature (theta_dry.hpp:102-115)."""
+    return th_dry / (1 + r * c.R_v / c.R_d) ** (c.R_d / c.c_pd)

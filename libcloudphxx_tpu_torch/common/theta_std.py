@@ -16,3 +16,8 @@ def rhod(p, th_std, rv):
 def exner(p):
     """Exner pressure (theta_std.hpp:34-41)."""
     return (p / c.p_1000) ** (c.R_d / c.c_pd)
+
+
+def T(th_std, p):
+    """Temperature from standard potential temperature and pressure."""
+    return th_std * exner(p)

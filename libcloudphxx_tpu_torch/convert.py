@@ -5,6 +5,10 @@ StaticConfig fields and its flat State or DenseState arrays as plain
 Python values and numpy arrays (``dataclasses.asdict`` +
 ``numpy.asarray``), so this module imports nothing of JAX.
 
+The bulk schemes' state is the model's fields (bulk_fields_from_numpy,
+bulk_fields_to_numpy): th, rv, rc, rr (and blk_2m's nc, nr) and the
+accumulated surface flux puddle_flux.
+
 The random streams do not carry over: the JAX state's ``key`` is a JAX
 PRNG key, while the port draws Philox numbers from a seed and a step
 counter (ops/philox.py).  A state converted from JAX is seeded from the
@@ -19,6 +23,7 @@ import torch
 
 from .lgrngn.dense import ATTRS, EXACT_ATTRS, DenseState
 from .lgrngn.state import TENSOR_FIELDS, State, StaticConfig
+from .models.kinematic_2d import BULK_FIELDS
 
 # JAX DenseState fields the port does not hold: they must be empty (2-D,
 # no deferred x pass) or are the JAX RNG key
@@ -106,4 +111,27 @@ def state_to_numpy(st: State) -> dict:
     out = {k: getattr(st, k).detach().cpu().numpy() for k in TENSOR_FIELDS}
     out["rng_seed"] = np.asarray(st.rng_seed)
     out["rng_step"] = np.asarray(st.rng_step)
+    return out
+
+
+def bulk_fields_from_numpy(arrays: dict, device, dtype) -> dict:
+    """The bulk fields of a kinematic model (a JAX Kinematic2D's
+    attributes as numpy) as {name: tensor} for each of th, rv, rc, rr, nc,
+    nr the arrays hold, and ``puddle_flux`` as a float where they hold it:
+    set each on the port's Kinematic2D (``setattr``) to start it from that
+    state."""
+    out = {k: torch.tensor(np.asarray(arrays[k]), dtype=dtype,
+                           device=device)
+           for k in BULK_FIELDS["blk_2m"] if k in arrays}
+    if "puddle_flux" in arrays:
+        out["puddle_flux"] = float(arrays["puddle_flux"])
+    return out
+
+
+def bulk_fields_to_numpy(model) -> dict:
+    """A bulk-scheme Kinematic2D's fields (th, rv, rc, rr, and for blk_2m
+    nc, nr) as numpy, and its ``puddle_flux``."""
+    out = {k: getattr(model, k).detach().cpu().numpy()
+           for k in BULK_FIELDS[model.micro]}
+    out["puddle_flux"] = model.puddle_flux
     return out

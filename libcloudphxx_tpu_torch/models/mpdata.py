@@ -12,9 +12,10 @@ donor pass.
 Fields: psi (nx, nz) cell-centred; gc_x (nx+1, nz) and gc_z (nx, nz+1)
 G-weighted Courant numbers on the staggered faces; G (nx, nz).
 
-On the card ``advect``/``advect2`` launch kernel A (csrc/mpdata.cu), one
-thread-block cluster a field as ``launch_plan`` lays it out; on the CPU
-they run ``_advect_body``, its plain version.
+On the card ``advect``/``advect2``/``advect_n`` launch kernel A
+(csrc/mpdata.cu) once for all their fields, one thread-block cluster a
+field as ``launch_plan`` lays it out; on the CPU they run
+``_advect_body``, its plain version, a field at a time.
 """
 
 import ctypes
@@ -239,3 +240,12 @@ def advect2(psi_a, psi_b, gc_x, gc_z, G, n_iters=2, fct=False, *,
     """Advect two scalars sharing the same courants (th and rv of the
     kinematic step) in one kernel launch."""
     return _dispatch((psi_a, psi_b), gc_x, gc_z, G, n_iters, fct, plain)
+
+
+def advect_n(fields, gc_x, gc_z, G, n_iters=2, fct=False, *, plain=False):
+    """Advect a tuple of scalars sharing the same courants (the bulk
+    schemes' th, rv, rc, rr and for blk_2m nc, nr) in one kernel launch;
+    returns a tuple.  Each field is advected on its own (its own cluster on
+    the card), so each comes out bitwise equal to a lone ``advect`` of
+    it."""
+    return _dispatch(tuple(fields), gc_x, gc_z, G, n_iters, fct, plain)

@@ -57,7 +57,10 @@ serial dense engine on the card.  The dense front
 (particles_dense_t) steps through the kernels and equals the fused dense
 run bitwise; dense.repack and the
 repack policy run on the card as on the CPU, and the policy refuses a
-row that needs more than kernel E's 512 slots.
+row that needs more than kernel E's 512 slots.  Kernel A advects the bulk
+schemes' 4 and 6 fields in one launch on the 76x76 node grid, each field
+bitwise one advect of it, and a short blk_1m and blk_2m run through it
+equals the plain path and run() bitwise.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -88,7 +91,8 @@ from libcloudphxx_tpu_torch import Kinematic2D, _ext
 from libcloudphxx_tpu_torch.lgrngn import as_t, dense, kernel_t, vt_t
 from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp
 from libcloudphxx_tpu_torch.models import mpdata
-from libcloudphxx_tpu_torch.models.kinematic_2d import Setup, make_gc
+from libcloudphxx_tpu_torch.models.kinematic_2d import (BULK_FIELDS, Setup,
+                                                        make_gc, make_gc_node)
 from libcloudphxx_tpu_torch.ops import coal, step
 from libcloudphxx_tpu_torch.ops import cond as cond_ops
 
@@ -171,6 +175,55 @@ def test_mpdata_kernel_on_cluster_grids(dev, nx, nz, n_iters, fct):
     plan = mpdata.launch_plan(nx, nz, fct)
     assert plan.ctas == min(nx, 16)
     _check_mpdata(*_mpdata_case(dev, nx, nz), n_iters, fct)
+
+
+@pytest.mark.parametrize("nfields", [4, 6])
+@pytest.mark.parametrize("fct", [False, True])
+@pytest.mark.parametrize("n_iters", [1, 2, 3])
+def test_mpdata_advect_n_is_bitwise_one_advect_a_field(dev, nfields, fct,
+                                                       n_iters):
+    """Kernel A on the bulk schemes' 4 and 6 fields of the 76x76 node grid
+    in one launch: each field bitwise equal to the plain version and to a
+    lone advect of it; the mixing ratios hold exact zeros (clear air)."""
+    s, nx, nz = Setup(), 76, 76
+    gc_x, gc_z = make_gc_node(s, nx, nz, s.X / (nx - 1), s.Z / (nz - 1))
+    rng = np.random.default_rng(nfields)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    fields = (f32(rng.uniform(285.0, 300.0, (nx, nz))),
+              f32(rng.uniform(5e-3, 9e-3, (nx, nz)))) + tuple(
+        f32(np.where(rng.uniform(size=(nx, nz)) < 0.5, 0.0,
+                     rng.uniform(0.0, 1e-3, (nx, nz))) * 10.0 ** (3 * i))
+        for i in range(nfields - 2))
+    args = (f32(gc_x), f32(gc_z), f32(rng.uniform(0.9, 1.2, (nx, nz))),
+            n_iters, fct)
+    out = _launches(_ext.MPDATA, lambda: mpdata.advect_n(fields, *args))
+    plain = mpdata.advect_n(fields, *args, plain=True)
+    assert len(out) == nfields
+    for f, k, p in zip(fields, out, plain):
+        assert torch.equal(k, p)
+        assert torch.equal(k, mpdata.advect(f, *args))
+
+
+@pytest.mark.parametrize("micro", ["blk_1m", "blk_2m"])
+def test_bulk_run_kernel_path_matches_plain(dev, micro):
+    """A short bulk run on the 16x16 node grid with FCT across a spin-up
+    boundary: kernel A once a step, the kernel path bitwise equal to the
+    plain path, run() bitwise equal to run_device()."""
+    kw = dict(nx=16, nz=16, micro=micro, grid="node", fct=True, device=dev)
+    a, b, c = (Kinematic2D(**kw) for _ in range(3))
+    for m in (a, b, c):
+        m.ante_loop()
+    before = _ext.MPDATA.launches
+    a.run_device(20, spinup=10)
+    torch.cuda.synchronize()
+    assert _ext.MPDATA.launches == before + 20
+    b.run_device(20, spinup=10, plain=True)
+    c.run(20, spinup=10)
+    for k in BULK_FIELDS[micro]:
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+        assert torch.equal(getattr(a, k), getattr(c, k)), k
+        assert bool(torch.isfinite(getattr(a, k)).all()), k
+    assert float(a.rc.max()) > 0
 
 
 def _cond_args(m, RH_max):

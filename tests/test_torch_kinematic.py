@@ -340,6 +340,13 @@ def test_unported_paths_raise(what, port):
         with pytest.raises(NotImplementedError, match="onishi_hall"):
             m2.run_device_lgrngn(2, spinup=1, engine="dense")
         return
+    if what == "grid":
+        # the cell and node grids run (test_torch_kinematic_blk.py); an
+        # unknown grid is refused
+        with pytest.raises(ValueError, match="unknown grid"):
+            Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
+                        grid="staggered")
+        return
     with pytest.raises(NotImplementedError):
         if what == "engine":
             # the dense engine moves SDs by the implicit or euler scheme
@@ -353,8 +360,11 @@ def test_unported_paths_raise(what, port):
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
                         opts_init_kw={"dev_count": 2})
         else:
+            # the bulk schemes run (test_torch_kinematic_blk.py);
+            # lgrngn_chem does not (ROADMAP.md, Queue 1, "The flat
+            # engine's remaining features")
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
-                        **{what: "blk_1m" if what == "micro" else "node"})
+                        micro="lgrngn_chem")
 
 
 @pytest.mark.parametrize("max_count,cap", [(24, 64), (64, 128), (3, 8)])
