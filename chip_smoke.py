@@ -127,6 +127,23 @@ checks them:
      end (ms/step, cell-updates/s), kernel A's device time in the step
      beside its bound, and with --profile the launches a step and the
      busy share
+ 17. the dense engine's other populations and options at full width: (a)
+     a const-multi population (sd_const_multi 5.6e8, sd_conc 0), (b)
+     sd_conc 64 with the large tail, the vohl_davis_no_waals kernel and
+     pred_corr SD advection, (c) bench.py's configuration from the
+     reference's mt19937 init (timed); for each: the factory on the card
+     gives the dense front; spin-up and coalescing steps through
+     run_device_lgrngn(engine="dense") with bench.py's physics checks,
+     kernels A, B, D, E (its wide-table form under vohl) and C (its
+     pred_corr form under pred_corr) launched, collisions, and in (a)
+     whether the sstp_coal growth fired; the dense front bitwise equal to
+     it; the kernel path bitwise equal to the plain path from init;
+     kernel E's form (lane by lane and the overflow flags row by row) and
+     C's form (every slot; on the cloud and on a rain population) bitwise
+     equal to their plain versions on what a main step gives them, timed
+     beside their bounds (E's counting the table and its lookups, C's the
+     staggered courants and the corrector); best-of-3 timing of 50 steps
+     from init, and the new forms' device time in the step
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
@@ -286,6 +303,24 @@ BLK_SCALES = {"blk_1m": (1e-3, 1e-4), "blk_2m": (1e-3, 1e8, 1e-4, 1e5)}
 FORMULAS = ("beard76", "khvorostyanov_spherical",
             "khvorostyanov_nonspherical")
 FORMULA_PLAIN_STEPS, FORMULA_PLAIN_SPINUP, FORMULA_FLAT_STEPS = 5, 2, 5
+
+# phase 17: the dense engine's other populations and options at full
+# width.  (a) a const-multi population: the 8x8 CPU tests' 1e11 scaled to
+# the 76x76 cells' volume, about bench.py's 64 SDs a cell on average; (b)
+# sd_conc 64 with the large tail, the vohl kernel and pred_corr advection;
+# (c) bench.py's configuration with the reference's mt19937 init.  Each
+# case's kernel path against its plain path, and the dense front against
+# run_device_lgrngn(engine="dense"), over OPTION_SPINUP spin-up and
+# OPTION_MAIN coalescing steps from init
+CONST_MULTI = 5.6e8
+OPTION_SPINUP, OPTION_MAIN = 10, 10
+# kernel E's wide-table lookup a pair (physics.cuh efficiency: two
+# eff_node, the bilinear combination of the four corners); kernel C's
+# pred_corr form a live SD beside OPS_TRANSPORT (the z clamp, the x wrap
+# and the old position's shift, the corrector's two displacements, the two
+# means), and its float64 operations (the corrector cell's two divisions
+# and floors)
+OPS_EFF, OPS_PRED_CORR, OPS_PRED_CORR_F64 = 41, 25, 4
 
 # the Golovin box of tests/test_pallas_coal_golovin.py
 GOLOVIN_SIM_TIME, GOLOVIN_SSTP = 800.0, 100
@@ -1165,7 +1200,8 @@ def smoke(opts):
     check(front == dict(mpdata=2 * steps, cond=steps, transport=steps,
                         merge=steps, coal=SLICE_MAIN, coal_standalone=0,
                         cond_flat=0, cond_sd=0, transport_unwrapped=0,
-                        merge_exact=0, cond_sd_fixed=0, cond_sd_adaptive=0),
+                        merge_exact=0, cond_sd_fixed=0, cond_sd_adaptive=0,
+                        coal_vohl=0, transport_pred_corr=0),
           f"dense front: kernel A twice, B, C and D once a step and E once "
           f"a main step expected, got {front}")
     # bitwise against run_device_lgrngn(engine="dense") from the same state
@@ -1304,7 +1340,8 @@ def smoke(opts):
     rows = []
     for k in _ext.KERNELS:
         if k in (_ext.TRANSPORT_UNWRAPPED, _ext.MERGE_EXACT,  # 14's, 15's
-                 _ext.COND_SD_FIXED, _ext.COND_SD_ADAPTIVE):  # 8's, 15's
+                 _ext.COND_SD_FIXED, _ext.COND_SD_ADAPTIVE,   # 8's, 15's
+                 _ext.COAL_VOHL, _ext.TRANSPORT_PRED_CORR):   # 17's
             continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
@@ -1381,6 +1418,16 @@ def smoke(opts):
             kr["blk"] = {micro: {k: v[k] for k in (
                 "launches", "ms", "in_step_ms", "plain_ms", "bound_ms",
                 "bound_by")} for micro, v in blk.items()}
+
+    # ---- 17. const-multi, vohl with pred_corr, the reference init
+    t17 = time.perf_counter()
+    opt_rows, opt_err = dense_options(Kinematic2D, dense, _ext, step, coal,
+                                      card)
+    for kr in rows:                 # E and C on phase 17's populations too
+        kr["max_abs_err"] = max(kr["max_abs_err"],
+                                opt_err.get(kr["name"], 0.0))
+    rows += opt_rows
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
 
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
@@ -2429,6 +2476,306 @@ def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": None})
     return rows, {k: (v["model"], v["init"]) for k, v in out.items()}
+
+
+def option_model(Kinematic2D, case):
+    """Phase 17's model of ``case``: bench.py's grid and substeps, the
+    geometric kernel, coalescence on."""
+    from libcloudphxx_tpu_torch.lgrngn import as_t, kernel_t
+    kw, oi = dict(sd_conc=SD_CONC), {}
+    if case == "const_multi":
+        kw["sd_conc"] = 0
+        oi.update(sd_const_multi=CONST_MULTI)
+    elif case == "vohl_pred_corr":
+        oi.update(kernel=kernel_t.vohl_davis_no_waals,
+                  adve_scheme=as_t.pred_corr, sd_conc_large_tail=True)
+    else:
+        kw["reference_rng"] = True
+    return Kinematic2D(
+        nx=NX, nz=NZ, micro="lgrngn", sstp_cond=SSTP_COND,
+        sstp_coal=SSTP_COAL, n_sd_max=2 * SD_CONC * NX * NZ,
+        opts_init_kw=oi, device=DEVICE, **kw)
+
+
+def dense_options(Kinematic2D, dense, _ext, step, coal, card):
+    """Phase 17: a const-multi population, sd_conc 64 with the large tail,
+    vohl and pred_corr, and the reference's mt19937 init, at full width
+    (see the module docstring).  Returns (the kernel rows of E's wide-table
+    form and C's pred_corr form, the max abs errors of every form of E and
+    C against its plain version here)."""
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
+    steps = OPTION_SPINUP + OPTION_MAIN
+    err, forms, timing = {}, {}, {}
+    for case in ("const_multi", "vohl_pred_corr", "reference_rng"):
+        t0 = time.perf_counter()
+        m = option_model(Kinematic2D, case)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        check(isinstance(m.prtcls, particles_dense_t),
+              f"{case}: the factory on the card gave "
+              f"{type(m.prtcls).__name__}, not particles_dense_t")
+        init = (m.dense_state, m.th, m.rv)
+        d0 = init[0]
+        per_cell = (d0.n > 0).sum(1)
+        n_sd = int(per_cell.sum())
+        totals = dense.water_dry_totals(d0, m.rv)
+        e_form = _ext.COAL_VOHL if case == "vohl_pred_corr" else _ext.COAL
+        c_form = _ext.TRANSPORT_PRED_CORR if case == "vohl_pred_corr" \
+            else _ext.TRANSPORT
+        print(f"{case}: init (factory -> init, then pack) {t_init:.2f} s; "
+              f"{n_sd} SDs, {n_sd / NX / NZ:.2f} a cell, fullest cell "
+              f"{int(per_cell.max())}, emptiest {int(per_cell.min())}, "
+              f"capacity {d0.cap}; multiplicities "
+              f"{float(d0.n[d0.n > 0].min()):.6g}-"
+              f"{float(d0.n.max()):.6g}", flush=True)
+
+        def restore(s):
+            m.dense_state, m.th, m.rv = s
+            m.prtcls._sstp_coal_extra = 0
+
+        reset(_ext.KERNELS)
+        t1 = time.perf_counter()
+        m.run_device_lgrngn(OPTION_SPINUP, spinup=OPTION_SPINUP,
+                            engine="dense")
+        sp = (m.dense_state, m.th, m.rv)
+        m.run_device_lgrngn(OPTION_MAIN, engine="dense")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches = {k.name: k.launches for k in _ext.KERNELS}
+        grew = m.prtcls._sstp_coal_extra
+        dw, dd = physics_checks(m, *totals, dense)
+        end = (m.dense_state, m.th, m.rv)
+        lost = collided(sp[0], end[0])
+        print(f"{case}: {OPTION_SPINUP} spin-up + {OPTION_MAIN} main steps "
+              f"in {secs:.2f} s; water rel err {dw:.2e}, dry rel err "
+              f"{dd:.2e}, multiplicity lost to collisions {lost:.3e}, SDs "
+              f"{int((end[0].n > 0).sum())}, sstp_coal growth "
+              f"{grew} (sstp_coal {m.cfg.sstp_coal + grew} at the end), "
+              f"global re-bins {end[0].rebins}; launches {launches}; "
+              f"launches a step {sum(launches.values()) / steps:.1f}",
+              flush=True)
+        want = {k.name: 0 for k in _ext.KERNELS}
+        want.update({"mpdata": steps, "cond": steps, c_form.name: steps,
+                     "merge": steps, e_form.name: OPTION_MAIN})
+        check(launches == want, f"{case}: launches {launches}, expected "
+              f"{want}")
+        check(lost > 0.0, f"{case}: no collision in the main steps")
+        if case == "vohl_pred_corr":
+            big = float(end[0].rw2.max()) ** 0.5
+            print(f"{case}: largest droplet {big * 1e6:.1f} um")
+
+        # the dense front's stepwise run from init, bitwise
+        restore(init)
+        reset(_ext.KERNELS)
+        m.run(steps, spinup=OPTION_SPINUP)
+        torch.cuda.synchronize()
+        front = {k.name: k.launches for k in _ext.KERNELS}
+        eq = {"th": bool(torch.equal(m.th, end[1])),
+              "rv": bool(torch.equal(m.rv, end[2])),
+              "all planes": bool(np.array_equal(population(m.dense_state),
+                                                population(end[0]))),
+              "sstp_coal growth": m.prtcls._sstp_coal_extra == grew}
+        print(f"{case}: dense front, public API: launches {front}; vs "
+              f"run_device_lgrngn(engine='dense') bitwise equal {eq}",
+              flush=True)
+        check(front == dict(want, mpdata=2 * steps),
+              f"{case}: dense front launches {front}")
+        check(all(eq.values()), f"{case}: the dense front differs from "
+              "run_device_lgrngn(engine='dense')")
+
+        # the kernel path against the plain path, from init, bitwise
+        res = []
+        for plain in (False, True):
+            restore(init)
+            m.run_device_lgrngn(steps, spinup=OPTION_SPINUP, engine="dense",
+                                plain=plain)
+            torch.cuda.synchronize()
+            res.append((m.dense_state, m.th, m.rv,
+                        m.prtcls._sstp_coal_extra))
+        (sk, thk, rvk, gk), (sq, thq, rvq, gq) = res
+        same = bool(torch.equal(thk, thq) and torch.equal(rvk, rvq)
+                    and np.array_equal(population(sk), population(sq))
+                    and gk == gq)
+        print(f"{case}, kernels vs plain after {steps} steps: th rel "
+              f"{max_rel(thk, thq):.2e}, rv rel {max_rel(rvk, rvq):.2e}, "
+              f"bitwise equal (th, rv, every plane, growth) {same}",
+              flush=True)
+        check(same, f"{case}: the kernel path differs from the plain path")
+
+        # E's and C's forms against their plain versions on what a main
+        # step gives them
+        calls = capture_all({"e": (coal, "coal_resident"),
+                             "c": (step, "transport")},
+                            lambda: (restore(sp), m.run_device_lgrngn(
+                                1, engine="dense")))
+        e_kw, c_kw = calls["e"][-1], calls["c"][-1]
+        n_in = e_kw["n"]
+        if case == "const_multi":
+            check(bool(torch.all(n_in[n_in > 0] == CONST_MULTI)),
+                  "const_multi: multiplicities are not the constant")
+        # the captured population, and with radii x10 (drizzle) and x50
+        # (rain, to 0.8 mm: vohl's table past index 126), where droplets
+        # collide, and const-multi SDs of equal multiplicity empty
+        for pop, scale in (("cloud", 1.0), ("drizzle", 100.0),
+                           ("rain", 2500.0)):
+            for form in ("stride", "sort"):
+                kw = dict(e_kw, pairing=form, rw2=e_kw["rw2"] * scale)
+                k_out = _counted(e_form, lambda: coal.coal_resident(**kw))
+                p_out = coal.coal_resident(**kw, plain=True)
+                lanes = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+                err[e_form.name] = max(err.get(e_form.name, 0.0), *(
+                    max_abs(a, b) for a, b in zip(k_out, p_out)))
+                lost = float(n_in.double().sum() - k_out[0].double().sum())
+                emptied = int(((n_in > 0) & (k_out[0] == 0)).sum())
+                print(f"E {e_form.name} {form}, {case}, {pop}: lanes equal "
+                      f"{lanes}, flags equal "
+                      f"{bool(torch.equal(k_out[-1], p_out[-1]))} "
+                      f"({int(k_out[-1].sum())} of {n_in.shape[0]} rows "
+                      f"flagged), multiplicity lost {lost:.6g}, SDs emptied "
+                      f"{emptied}, largest droplet "
+                      f"{float(kw['rw2'].max()) ** 0.5 * 1e6:.1f} um",
+                      flush=True)
+                check(lanes, f"E {e_form.name} {form}, {case}, {pop}: kernel "
+                      f"and plain version differ lane by lane (or in the "
+                      f"flags)")
+                check(lost > 0.0 or pop == "cloud",
+                      f"E {e_form.name} {form}, {case}, {pop}: no collision")
+                check(emptied > 0 or pop == "cloud" or case != "const_multi",
+                      f"E {form}, const_multi, {pop}: no SD emptied")
+        alive = c_kw["n"] > 0
+        rain = dict(c_kw, do_sedi=True, n=torch.where(alive, 2.0, 0.0),
+                    rw2=torch.where(alive, 1e-6, 0.0),
+                    z=torch.where(alive, m.cfg.z0 + 20.0 * (c_kw["z"]
+                                                              / m.cfg.z1),
+                                  c_kw["z"]))
+        for label, kw in (("cloud", c_kw), ("rain", rain)):
+            kc = _counted(c_form, lambda: step.transport(**kw))
+            pc = step.transport(**kw, plain=True)
+            same = all(torch.equal(a, b) for a, b in zip(kc[:5], pc[:5])) \
+                and bool(torch.equal(kc[5][:, 4], pc[5][:, 4]))
+            pud_k, pud_p = kc[5].sum(0)[:4], pc[5].sum(0)[:4]
+            rel_pud = max_rel(pud_k, pud_p) if float(pud_p[3]) else \
+                float(pud_k.abs().max())
+            err[c_form.name] = max(err.get(c_form.name, 0.0), *(
+                max_abs(a, b) for a, b in zip(kc[:4], pc[:4])))
+            print(f"C {c_form.name}, {case}, {label}: n/x/z/vt/targets and "
+                  f"far flags equal {same}, puddle rel {rel_pud:.2e}, "
+                  f"droplets that left their row "
+                  f"{int(((kc[4] >= 0) & (kc[4] != _rows_of(kc[4]))).sum())}",
+                  flush=True)
+            check(same and rel_pud <= 1e-5, f"C {c_form.name}, {case}, "
+                  f"{label}: kernel and plain version differ")
+        if case == "vohl_pred_corr":
+            forms = dict(e=e_kw, c=c_kw, launches=launches)
+
+        # timing: best of TIME_REPS from-init reps of TIME_STEPS steps,
+        # bench.py's physics checks on each, the growth reset each rep
+        restore(init)
+        m.run_device_lgrngn(2, engine="dense")             # warm-up
+        best, grown = float("inf"), []
+        for _ in range(TIME_REPS):
+            restore(init)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            m.run_device_lgrngn(TIME_STEPS, engine="dense")
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t2)
+            grown.append(m.prtcls._sstp_coal_extra)
+            physics_checks(m, *totals, dense)
+        timing[case] = best / TIME_STEPS * 1e3
+        restore(init)
+        in_step = device_ms(lambda k: m.run_device_lgrngn(k, engine="dense"),
+                            PROFILE_STEPS, ("coal_kernel", "transport_kernel",
+                                            "WideTable", "PredCorrGeometry"))
+        restore(init)
+        print(f"timing {case} (run_device_lgrngn, coalescence on), kernels: "
+              f"{timing[case]:.3f} ms/step, "
+              f"{n_sd * TIME_STEPS / best:.4g} SD-updates/s ({TIME_STEPS} "
+              f"steps, best of {TIME_REPS}; sstp_coal growth by rep "
+              f"{grown}); device time in the step [ms] "
+              + ", ".join(f"{k} {v:.4f}" for k, v in in_step.items())
+              + f" ({card})", flush=True)
+
+    rows = []
+    e_kw, c_kw = forms["e"], forms["c"]
+    work = coal_work(lambda: coal.coal_resident(**e_kw, plain=True),
+                     e_kw["n"])
+    print(f"E coal_vohl work on the vohl_pred_corr population: {work}")
+    for kernel, call, bnd in (
+            (_ext.COAL_VOHL,
+             lambda plain: coal.coal_resident(**e_kw, plain=plain),
+             coal_wide_bound(e_kw, work)),
+            (_ext.TRANSPORT_PRED_CORR,
+             lambda plain: step.transport(**c_kw, plain=plain),
+             transport_pred_corr_bound(c_kw, step.transport(**c_kw)))):
+        ms = time_cuda(lambda: call(False), KERNEL_REPS)
+        plain_ms = time_cuda(lambda: call(True), KERNEL_REPS)
+        bound_ms, bound_by = bnd
+        n_launch = forms["launches"][kernel.name]
+        print(f"kernel {kernel.name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}); {n_launch} launches in "
+              f"{steps} steps of vohl_pred_corr ({card})")
+        check(n_launch > 0, f"kernel {kernel.name} was not launched")
+        rows.append({"name": kernel.name, "route": "cuda",
+                     "source": kernel.source, "replaces": kernel.replaces,
+                     "launches": n_launch, "max_abs_err": err[kernel.name],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    print(f"timing, phase 17 (run_device_lgrngn, coalescence on, from "
+          f"init): " + ", ".join(f"{k} {v:.3f}" for k, v in timing.items())
+          + f" ms/step ({card})", flush=True)
+    return rows, err
+
+
+def _counted(kernel, fn):
+    """fn()'s result, after checking that it launched ``kernel`` once."""
+    before = kernel.launches
+    out = fn()
+    torch.cuda.synchronize()
+    check(kernel.launches == before + 1, f"{kernel.name} was not launched")
+    return out
+
+
+def _rows_of(tgt):
+    """Each slot's own row, as an int32 plane like ``tgt``."""
+    return torch.arange(tgt.shape[0], device=tgt.device,
+                        dtype=tgt.dtype)[:, None].expand(tgt.shape)
+
+
+def coal_wide_bound(kw, work):
+    """Kernel E's wide-table form's bound on its arguments ``kw``
+    (coal_resident's) and the work its data needs (coal_work): six planes,
+    five cell fields and the (K+2)-square table in, six planes and the row
+    flags out; coal_bounds' operations and each pair's table lookup."""
+    from libcloudphxx_tpu_torch.lgrngn import coalescence as coal_mod
+    n = kw["n"]
+    live = n > 0
+    plane, cell = nbytes(n), nbytes(kw["rhod"])
+    table = coal_mod.clamped_efficiency_table(kw["cfg"].kernel)[0]
+    vt32, vt64 = vt_ops(kw["cfg"], kw["rw2"][live])
+    per32 = vt32 / max(int(live.sum()), 1)
+    per64 = vt64 / max(int(live.sum()), 1)
+    vts = work["live"] + work["changed"]
+    return bound(12 * plane + 5 * cell + n.shape[0] + table.nbytes,
+                 coal_ops(work) + work["pairs"] * OPS_EFF + vts * per32,
+                 vts * per64)
+
+
+def transport_pred_corr_bound(kw, kc):
+    """Kernel C's pred_corr form's bound on its arguments ``kw``
+    (transport's) and its outputs ``kc``: transport_bound's bytes with the
+    staggered courants, and its operations with each live droplet's
+    corrector."""
+    cfg, n = kw["cfg"], kw["n"]
+    live = n > 0
+    live0, slot = int(live.sum()), n.element_size()
+    fell = int((live & (kc[0] == 0) & (kc[2] < cfg.z0)).sum())
+    vt32, vt64 = vt_ops(cfg, kw["rw2"][live])
+    return bound(
+        nbytes(n) + 3 * slot * live0 + slot * fell + 7 * nbytes(kw["rhod"])
+        + 4 * nbytes(n) + nbytes(kc[4], kc[5]) + nbytes(*kw["courants"]),
+        vt32 + live0 * (OPS_TRANSPORT + OPS_PRED_CORR),
+        vt64 + live0 * OPS_PRED_CORR_F64)
 
 
 def merge_exact_bound(kw):

@@ -94,6 +94,15 @@ TRANSPORT_UNWRAPPED = Kernel(
     "libcloudphxx_tpu_torch/csrc/transport.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel with x_wrap=False, "
     ":378-382; lgrngn/dense.py:1373 _shard_phase)")
+# kernel C's pred_corr form (predictor-corrector SD advection): TRANSPORT's
+# arguments, then the staggered courant_x and courant_z
+TRANSPORT_PRED_CORR = Kernel(
+    "transport_pred_corr", "lcp_transport_pred_corr",
+    TRANSPORT.argtypes[:-1] + [_P, _P],
+    "libcloudphxx_tpu_torch/csrc/transport.cu",
+    "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, transport :338-487) "
+    "with the pred_corr advection that the JAX package runs in XLA "
+    "(lgrngn/dense.py:962-1005)")
 # planes in (7), targets, planes out (7), drops; n_cell, cap, nx, nz
 MERGE = Kernel(
     "merge", "lcp_merge", [_P] * 16 + [_I, _I, _I, _I],
@@ -116,6 +125,15 @@ COAL = Kernel(
     "coal", "lcp_coal", [_P] * 8 + [_P] * 6 + _COAL_TAIL + [_I, _U],
     "libcloudphxx_tpu_torch/csrc/coal.cu",
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, coal phase :233-336)")
+# kernel E's wide-table form (vohl_davis_no_waals: a (K+2)-square table,
+# K = 150), the resident step's form: COAL's arguments
+COAL_VOHL = Kernel(
+    "coal_vohl", "lcp_coal_vohl", COAL.argtypes[:-1],
+    "libcloudphxx_tpu_torch/csrc/coal.cu",
+    "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, coal phase :233-336) "
+    "with vohl's efficiencies, which the JAX package reads in XLA "
+    "(lgrngn/coalescence.py:374-376; the TPU kernel refuses vohl, "
+    "lgrngn/dense.py:1219-1229)")
 COAL_STANDALONE = Kernel(
     "coal_standalone", "lcp_coal_standalone",
     [_P] * 8 + [_P] * 7 + _COAL_TAIL,
@@ -165,7 +183,7 @@ COND_SD_ADAPTIVE = Kernel(
     "perparticle_adaptive_core, lgrngn/dense.py:456 step_cond_adaptive")
 KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
            COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED, MERGE_EXACT,
-           COND_SD_FIXED, COND_SD_ADAPTIVE)
+           COND_SD_FIXED, COND_SD_ADAPTIVE, COAL_VOHL, TRANSPORT_PRED_CORR)
 
 _lib = None
 

@@ -10,6 +10,7 @@ from . import (
     hydrostatic,
     kappa_koehler,
     kelvin,
+    lognormal,
     maxwell_mason,
     mean_free_path,
     moist_air,
@@ -28,6 +29,7 @@ __all__ = [
     "hydrostatic",
     "kappa_koehler",
     "kelvin",
+    "lognormal",
     "maxwell_mason",
     "mean_free_path",
     "moist_air",

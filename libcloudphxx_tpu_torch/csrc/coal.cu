@@ -1,5 +1,6 @@
 // Kernel E's entry points, and its instantiation for the beard77 formulas
-// (the main path's); the kernels are in coal.cuh.
+// (the main path's); the kernels are in coal.cuh, the wide-table form's
+// instantiations in coal_vohl*.cu.
 
 #include "coal.cuh"
 
@@ -16,13 +17,13 @@ lcp::CoalArgs coal_args(const float* n, const float* rw2, const float* rd3,
                         unsigned char* ovf, int n_cell, int cap, int sstp,
                         double dt_sub, int kern, double coef,
                         double r_max_m1, int clamp, unsigned seed,
-                        unsigned step, unsigned row0) {
+                        unsigned step, unsigned row0, bool wide = false) {
   return lcp::CoalArgs{
       n, rw2, rd3, kpa, x, z, cells, n_out, rw2_out, rd3_out, kpa_out,
       x_out, z_out, vt_out, ovf, n_cell, cap, sstp, dt_sub,
       lcp::CollisionKernel{kern, static_cast<float>(coef), eff,
                            static_cast<float>(r_max_m1), clamp},
-      seed, step, row0};
+      seed, step, row0, wide};
 }
 
 int coal_formula(int vt, int mode, const lcp::CoalArgs& a,
@@ -50,6 +51,29 @@ extern "C" int lcp_coal(const float* n, const float* rw2, const float* rd3,
       coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out, rd3_out,
                 kpa_out, x_out, z_out, nullptr, ovf, n_cell, cap, sstp,
                 dt_sub, kern, coef, r_max_m1, clamp, seed, step, row0),
+      stream);
+}
+
+// The resident step's form with the wide table (vohl_davis_no_waals; its
+// row stride clamp + 2): lcp_coal's arguments.
+extern "C" int lcp_coal_vohl(const float* n, const float* rw2,
+                             const float* rd3, const float* kpa,
+                             const float* x, const float* z,
+                             const float* cells, const float* eff,
+                             float* n_out, float* rw2_out, float* rd3_out,
+                             float* kpa_out, float* x_out, float* z_out,
+                             unsigned char* ovf, int n_cell, int cap,
+                             int sstp, double dt_sub, int kern, double coef,
+                             double r_max_m1, int clamp, unsigned seed,
+                             unsigned step, int vt, int sort, unsigned row0,
+                             cudaStream_t stream) {
+  if (eff == nullptr || clamp < 127)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return coal_formula(
+      vt, sort ? lcp::kSort : lcp::kStride,
+      coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out, rd3_out,
+                kpa_out, x_out, z_out, nullptr, ovf, n_cell, cap, sstp,
+                dt_sub, kern, coef, r_max_m1, clamp, seed, step, row0, true),
       stream);
 }
 

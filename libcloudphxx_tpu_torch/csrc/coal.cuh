@@ -52,7 +52,14 @@
 // coal_khvorostyanov_nonspherical.cu, coal_undefined.cu), so that nvcc
 // compiles them in parallel.
 // The hall-family efficiencies are read from the 128x128 table in global
-// memory through the read-only cache.
+// memory through the read-only cache.  The wide-table form (the rows' type
+// WideTable<GridRows> or WideTable<ShardRows>; the resident forms only, 20
+// instantiations a formula, each formula's in a source coal_vohl*.cu of
+// its own) reads a table wider than 128 at row stride clamp + 2:
+// vohl_davis_no_waals's, whose saturation index is 150.  Nothing in the
+// TPU kernel does this (the JAX package reads vohl's efficiencies in XLA,
+// lgrngn/coalescence.py:374-376); its plain version is the same
+// coal_resident_plain.
 
 #pragma once
 
@@ -97,20 +104,31 @@ struct Row {
 
 // Whose rows a launch holds: the grid's own (row r draws as row r), or a
 // shard's of the x-slab mesh, whose row r draws as the global row row0 + r
-// (parallel/dense_mesh.py).  The type is a template parameter of the
-// kernel, so that the grid's instantiations, GridRows an empty type, keep
-// the code they had before the mesh.
+// (parallel/dense_mesh.py); and how the efficiency table's rows lie
+// (kTable, physics.cuh).  The type is a template parameter of the kernel,
+// so that the grid's instantiations, GridRows an empty type, keep the code
+// (and the names) they had before the mesh and the wide table.
 struct GridRows {
+  static constexpr int kTable = kTableNarrow;
   __host__ static GridRows of(uint32_t) { return {}; }
   __device__ __forceinline__ uint32_t global(int r) const {
     return static_cast<uint32_t>(r);
   }
 };
 struct ShardRows {
+  static constexpr int kTable = kTableNarrow;
   uint32_t row0;
   __host__ static ShardRows of(uint32_t row0) { return {row0}; }
   __device__ __forceinline__ uint32_t global(int r) const {
     return row0 + static_cast<uint32_t>(r);
+  }
+};
+// R's rows with the wide table (vohl's)
+template <class R>
+struct WideTable : R {
+  static constexpr int kTable = kTableWide;
+  __host__ static WideTable of(uint32_t row0) {
+    return WideTable{R::of(row0)};
   }
 };
 
@@ -248,7 +266,7 @@ __device__ __forceinline__ void apply(Row<S>& v, int c, const Collision& o,
 // dense.py pair_and_collide_partners: slot j pairs with j ^ stride; each
 // lane computes its own SD's outcome from both SDs, the pair's draw is the
 // a-slot's (stride bit clear).
-template <int VT, int S>
+template <int VT, int S, int TW>
 __device__ __forceinline__ void stride_substep(
     Row<S>& v, int lane, int stride, const Draws& dr, int s,
     const CollisionKernel& kern, float dt_dv, const Ambient& amb,
@@ -306,7 +324,7 @@ __device__ __forceinline__ void stride_substep(
         const bool is_a = (((c << 5) | lane) & stride) == 0;
         bool over;
         const float col =
-            collision_count(kern, me, pa, u[c], dt_dv, scale, over);
+            collision_count<TW>(kern, me, pa, u[c], dt_dv, scale, over);
         ovf |= over;
         if (col > 0.0f) {
           big = me.n > pa.n || (me.n == pa.n && is_a);
@@ -331,7 +349,7 @@ __device__ __forceinline__ void stride_substep(
 // slots 2i and 2i+1 pair while both are live, both lanes compute the
 // pair's outcome from the same inputs and the even slot's draw, and each
 // keeps its own part.
-template <int VT, int S>
+template <int VT, int S, int TW>
 __device__ __forceinline__ void adjacent_substep(
     Row<S>& v, int lane, const Draws& dr, int s, const CollisionKernel& kern,
     float dt_dv, const Ambient& amb, bool& ovf) {
@@ -361,7 +379,8 @@ __device__ __forceinline__ void adjacent_substep(
       const Drop a = odd ? nb : me;
       const Drop b = odd ? me : nb;
       bool over;
-      const float col = collision_count(kern, a, b, u[c], dt_dv, scale, over);
+      const float col =
+          collision_count<TW>(kern, a, b, u[c], dt_dv, scale, over);
       ovf |= over && !odd;
       if (col > 0.0f) {
         const bool a_big = a.n >= b.n;
@@ -420,10 +439,11 @@ coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
     const int sidx = s % n_strides;
     if (MODE != kStride || sidx == 0) shuffle<S>(v, tile, lane, dr, s);
     if (MODE == kStride)
-      stride_substep<VT, S>(v, lane, 1 << sidx, dr, s, kern, dt_dv, amb,
-                            ovf);
+      stride_substep<VT, S, R::kTable>(v, lane, 1 << sidx, dr, s, kern,
+                                       dt_dv, amb, ovf);
     else
-      adjacent_substep<VT, S>(v, lane, dr, s, kern, dt_dv, amb, ovf);
+      adjacent_substep<VT, S, R::kTable>(v, lane, dr, s, kern, dt_dv, amb,
+                                         ovf);
   }
 
   if (MODE == kSort) {  // one unsort by the slot of origin
@@ -471,7 +491,7 @@ coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
 // only in the standalone form) and the row flags; the sizes, the substeps
 // and the collision kernel; the draws' seed and step, and the global index
 // of the first row (a shard's of the x-slab mesh, resident forms only; 0
-// otherwise).
+// otherwise); whether the table is the wide one (resident forms only).
 struct CoalArgs {
   const float *n, *rw2, *rd3, *kpa, *x, *z, *cells;
   float *n_out, *rw2_out, *rd3_out, *kpa_out, *x_out, *z_out, *vt_out;
@@ -480,6 +500,7 @@ struct CoalArgs {
   double dt_sub;
   CollisionKernel kern;
   unsigned seed, step, row0;
+  bool wide;
 };
 
 template <int MODE, int S, int VT, class R>
@@ -504,12 +525,39 @@ int launch_mode(const CoalArgs& a, cudaStream_t stream) {
   return static_cast<int>(go(a, stream));
 }
 
+// The wide-table form in a resident ``mode`` (stride or sort) for formula
+// VT; instantiated in the sources coal_vohl*.cu
+template <int VT>
+int coal_launch_wide(int mode, const CoalArgs& a, cudaStream_t stream) {
+  if (mode != kStride && mode != kSort)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool shard = a.row0 != 0;
+  auto go = mode == kSort
+                ? (shard ? &launch_mode<kSort, VT, WideTable<ShardRows>>
+                         : &launch_mode<kSort, VT, WideTable<GridRows>>)
+                : (shard ? &launch_mode<kStride, VT, WideTable<ShardRows>>
+                         : &launch_mode<kStride, VT, WideTable<GridRows>>);
+  return go(a, stream);
+}
+
+extern template int coal_launch_wide<kVtUndefined>(int, const CoalArgs&,
+                                                   cudaStream_t);
+extern template int coal_launch_wide<kVtBeard76>(int, const CoalArgs&,
+                                                 cudaStream_t);
+extern template int coal_launch_wide<kVtBeard77>(int, const CoalArgs&,
+                                                 cudaStream_t);
+extern template int coal_launch_wide<kVtKhvorostyanovSpherical>(
+    int, const CoalArgs&, cudaStream_t);
+extern template int coal_launch_wide<kVtKhvorostyanovNonspherical>(
+    int, const CoalArgs&, cudaStream_t);
+
 // Kernel E in ``mode`` for formula VT, after the checks every form shares
 template <int VT>
 int coal_launch(int mode, const CoalArgs& a, cudaStream_t stream) {
   if (a.cap < 1 || a.cap > kMaxCap || (a.cap & (a.cap - 1)) || a.n_cell < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_cell == 0) return 0;
+  if (a.wide) return coal_launch_wide<VT>(mode, a, stream);
   // a shard's rows past the first take ShardRows (shard 0's draw as the
   // grid's)
   const bool shard = a.row0 != 0;

@@ -1,0 +1,8 @@
+// Kernel E's wide-table form (vohl_davis_no_waals) under the beard76 terminal
+// velocity: coal.cuh's kernels, instantiated in a source of their own so that
+// nvcc compiles them beside the other forms (coal.cu holds the entry points).
+
+#include "coal.cuh"
+
+template int lcp::coal_launch_wide<lcp::kVtBeard76>(
+    int, const lcp::CoalArgs&, cudaStream_t);

@@ -331,15 +331,22 @@ int with_vt(int vt, Fn&& fn) {
 }
 
 // The collision kernel of kernel E: lgrngn/coalescence.py kernel_value for
-// golovin, geometric, long and the hall family.  ``coef`` is golovin's
-// pi * 4/3 * b, or geometric's multiplier (1 without kernel_parameters).
+// golovin, geometric, long, the hall family and vohl.  ``coef`` is
+// golovin's pi * 4/3 * b, or geometric's multiplier (1 without
+// kernel_parameters).
 struct CollisionKernel {
   int kern;         // kernel_t value
   float coef;
-  const float* eff;  // hall family: the clamped 128x128 efficiency table
+  const float* eff;  // the clamped efficiency table (hall family, vohl)
   float r_max_m1;    // the table's largest radius [um] - 1e-6
   int clamp;         // the table's saturation index
 };
+// How a table's rows lie (a template parameter of the lookups and of
+// kernel E): the hall family's clamped table is 128 wide (its saturation
+// index is 120); a wider one (vohl's, index 150) is clamp + 2 wide
+// (coalescence.py clamped_efficiency_table), its row stride read from
+// ``clamp``.
+constexpr int kTableNarrow = 128, kTableWide = 0;
 constexpr int kGeometric = 1, kGolovin = 2, kLong = 5;
 
 // coalescence.py _kernel_index
@@ -371,18 +378,21 @@ __device__ __forceinline__ EffNode eff_node(float r_m,
 
 // coalescence.py interpolated_efficiency: four corners read through the
 // read-only cache, combined in the plain version's order
+template <int TW>
 __device__ __forceinline__ float efficiency(const CollisionKernel& k,
                                             float rw_a, float rw_b) {
+  const int w = TW == kTableWide ? k.clamp + 2 : TW;
   const EffNode a = eff_node(rw_a, k), b = eff_node(rw_b, k);
-  const float t00 = __ldg(k.eff + a.i0 * 128 + b.i0);
-  const float t10 = __ldg(k.eff + a.i1 * 128 + b.i0);
-  const float t01 = __ldg(k.eff + a.i0 * 128 + b.i1);
-  const float t11 = __ldg(k.eff + a.i1 * 128 + b.i1);
+  const float t00 = __ldg(k.eff + a.i0 * w + b.i0);
+  const float t10 = __ldg(k.eff + a.i1 * w + b.i0);
+  const float t01 = __ldg(k.eff + a.i0 * w + b.i1);
+  const float t11 = __ldg(k.eff + a.i1 * w + b.i1);
   return (t00 * a.w_lo * b.w_lo + t10 * a.w_hi * b.w_lo
           + t01 * a.w_lo * b.w_hi + t11 * a.w_hi * b.w_hi) / a.d / b.d;
 }
 
 // coalescence.py kernel_value
+template <int TW>
 __device__ __forceinline__ float kernel_value(const CollisionKernel& k,
                                               float n_a, float n_b,
                                               float rw2_a, float rw2_b,
@@ -400,7 +410,7 @@ __device__ __forceinline__ float kernel_value(const CollisionKernel& k,
                       : F(4.5e8) * r_L * r_L * (1.0f - rdiv_s(3e-6, r_s));
     return r_L < F(50e-6) ? geo * eff : geo;
   }
-  return geo * efficiency(k, rw_a, rw_b);
+  return geo * efficiency<TW>(k, rw_a, rw_b);
 }
 
 struct Drop {
@@ -417,12 +427,13 @@ struct Collision {
 // first: the pair's collision count before the multiplicity cap, and
 // whether it asked for more than one (``overflow``); ``u`` the pair's
 // draw, ``dt_dv`` dt / dv, ``scale`` the Shima scale factor.
+template <int TW>
 __device__ __forceinline__ float collision_count(const CollisionKernel& k,
                                                  const Drop& a, const Drop& b,
                                                  float u, float dt_dv,
                                                  float scale,
                                                  bool& overflow) {
-  const float K = kernel_value(k, a.n, b.n, a.rw2, b.rw2, a.vt, b.vt);
+  const float K = kernel_value<TW>(k, a.n, b.n, a.rw2, b.rw2, a.vt, b.vt);
   const float prob = dt_dv * scale * K;
   const float col_no = floorf(prob);
   overflow = col_no >= 1.0f;

@@ -25,6 +25,18 @@
 // clause.  The x-periodic form's instantiations take the Geometry of
 // before, and their source is unchanged.
 //
+// The pred_corr form (entry lcp_transport_pred_corr, the geometry a
+// PredCorrGeometry) advects by the predictor-corrector scheme, which the
+// JAX package runs in XLA (lgrngn/dense.py:962-1005; plain version
+// ops/step.py pred_corr): the euler predictor with the row's courants, z
+// clamped inside the domain, x wrapped with its old position shifted
+// alike, then the corrector's displacement with the courants of the cell
+// the predictor reached, four loads from the staggered courant_x
+// ((nx+1)*nz) and courant_z (nx*(nz+1)) through the read-only cache (the
+// cell by a float64 division, as hskpng.ijk_of_xyz), and the mean of the
+// two.  Sedimentation, subsidence, walls and targets follow as in the
+// other forms.
+//
 // What bounds it on the card: memory.  It reads n for every slot and rw2,
 // x and z for the live ones (rd3 only for a droplet that falls into the
 // puddle), and writes n, x, z, vt and the target of every slot, with some
@@ -69,6 +81,25 @@ struct SlabGeometry : Geometry {
 
 template <class G>
 constexpr bool kUnwrapped = std::is_same_v<G, SlabGeometry>;
+
+// the pred_corr form's: the staggered courants, the grid steps in double
+// (for the corrector's cell) and the predictor's z bounds
+struct PredCorrGeometry : Geometry {
+  const float* cx;
+  const float* cz;
+  double dx_d, dz_d;
+  float z_lo, z_hi;
+};
+
+template <class G>
+constexpr bool kPredCorr = std::is_same_v<G, PredCorrGeometry>;
+
+// hskpng.ijk_of_xyz's cell along one axis: a float64 division, the floor
+// clamped to [0, n)
+__device__ __forceinline__ int cell_of(float pos, double d, int n) {
+  const double q = floor(static_cast<double>(pos) / d);
+  return q < 0.0 ? 0 : q > n - 1 ? n - 1 : static_cast<int>(q);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   // a fixed butterfly: every lane ends with the same bits, run to run
@@ -139,7 +170,31 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
         vt[q] = vt_formula<VT>(w2[q], amb);
         if (!moves) continue;
         float m = nn[q], xq = xi[q], zq = zi[q];
-        if (geo.do_adve && geo.implicit_adve) {
+        if constexpr (kPredCorr<G>) {  // do_adve: the wrapper's pick
+          float xo = xq, zo = zq;
+          xq = xq + dCx * (xq - geo.dx * i_row) + geo.dx * C_l;
+          zq = zq + dCz * (zq - geo.dz * k_row) + geo.dz * C_b;
+          zq = fminf(fmaxf(zq, geo.z_lo), geo.z_hi);
+          if (!geo.open_side) {
+            const float s = xq - geo.x0;
+            const float xw = geo.x0 + (s - floorf(s / geo.wx) * geo.wx);
+            xo = xo + (xw - xq);
+            xq = xw;
+          }
+          const int im = cell_of(xq, geo.dx_d, geo.nx);
+          const int km = cell_of(zq, geo.dz_d, geo.nz);
+          const int lft = im * geo.nz + km, blw = lft + im;
+          const float cl = __ldg(geo.cx + lft);
+          const float cr = __ldg(geo.cx + lft + geo.nz);
+          const float cb = __ldg(geo.cz + blw);
+          const float ca = __ldg(geo.cz + blw + 1);
+          const float dxm = (cr - cl) * (xq - geo.dx * static_cast<float>(im))
+                            + geo.dx * cl;
+          const float dzm = (ca - cb) * (zq - geo.dz * static_cast<float>(km))
+                            + geo.dz * cb;
+          xq = (xq + xo + dxm) / 2.0f;
+          zq = (zq + zo + dzm) / 2.0f;
+        } else if (geo.do_adve && geo.implicit_adve) {
           xq = (xq + geo.dx * (C_l - i_row * dCx)) / (1.0f - dCx);
           zq = (zq + geo.dz * (C_b - k_row * dCz)) / (1.0f - dCz);
         } else if (geo.do_adve) {  // euler
@@ -299,6 +354,30 @@ extern "C" int lcp_transport(const float* n, const float* rw2, const float* rd3,
       geometry(nx, nz, dx, dz, dt, x0, x1, z0, z1, implicit_adve, do_adve,
                do_sedi, do_subs, open_side, periodic_topbot),
       vt, stream);
+}
+
+// The pred_corr form: lcp_transport's arguments (do_adve set, implicit_adve
+// clear), then the staggered courant_x ((nx+1)*nz) and courant_z
+// (nx*(nz+1)).
+extern "C" int lcp_transport_pred_corr(
+    const float* n, const float* rw2, const float* rd3, const float* x,
+    const float* z, const float* cells, float* n_out, float* x_out,
+    float* z_out, float* vt_out, int* tgt_out, float* rowinfo, int n_cell,
+    int cap, int nx, int nz, double dx, double dz, double dt, double x0,
+    double x1, double z0, double z1, int implicit_adve, int do_adve,
+    int do_sedi, int do_subs, int open_side, int periodic_topbot, int vt,
+    const float* cx, const float* cz, cudaStream_t stream) {
+  if (!do_adve || implicit_adve || cx == nullptr || cz == nullptr
+      || n_cell != nx * nz)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const lcp::PredCorrGeometry geo{
+      geometry(nx, nz, dx, dz, dt, x0, x1, z0, z1, implicit_adve, do_adve,
+               do_sedi, do_subs, open_side, periodic_topbot),
+      cx, cz, dx, dz, static_cast<float>(z0 + 1e-8 * dz),
+      static_cast<float>(z1 - 1e-8 * dz)};
+  return transport_launch(n, rw2, rd3, x, z, cells, n_out, x_out, z_out,
+                          vt_out, tgt_out, rowinfo, n_cell, cap, geo, vt,
+                          stream);
 }
 
 // The unwrapped form on a shard of the x-slab mesh: the n_cell rows are

@@ -6,8 +6,8 @@ src/impl/coalescence/particles_impl_coal.ipp).
 
 The efficiency tables are the port's copies of the reference's data
 (kernel_data/*.npz beside this file, byte for byte the JAX package's).
-The turbulent (onishi) and vohl kernels are not ported (ROADMAP.md,
-Queue 1, "Dense-engine options that the port refuses").
+The turbulent (onishi) kernels are not ported (ROADMAP.md, Queue 1, "The
+LES slice").
 
 The flat loop (coal, coal_substep) draws its random numbers from Philox
 (ops/philox.py), keyed by the state's seed and with the counter (step
@@ -40,8 +40,10 @@ TABULATED = {
     kernel_t.hall_pinsky_stratocumulus: "hall_pinsky_stratocumulus",
     kernel_t.vohl_davis_no_waals: "vohl_davis_no_waals",
 }
-UNPORTED = (kernel_t.vohl_davis_no_waals, kernel_t.onishi_hall,
-            kernel_t.onishi_hall_davis_no_waals, kernel_t.undefined)
+UNPORTED = (kernel_t.onishi_hall, kernel_t.onishi_hall_davis_no_waals,
+            kernel_t.undefined)
+# the widest table kernel E reads at the hall family's fixed row stride
+NARROW = 128
 _CACHE = {}
 
 
@@ -50,8 +52,7 @@ def require_ported(kern: kernel_t):
     if kernel_t(kern) in UNPORTED:
         raise NotImplementedError(
             f"coalescence: kernel {kernel_t(kern).name} is not ported "
-            "(ROADMAP.md, Queue 1, \"Dense-engine options that the port "
-            "refuses\")")
+            "(ROADMAP.md, Queue 1, \"The LES slice\")")
 
 
 def load_efficiency_table(kern: kernel_t):
@@ -69,44 +70,45 @@ def load_efficiency_table(kern: kernel_t):
 
 
 def clamped_efficiency_table(kern: kernel_t):
-    """The table as a (128, 128) float32 block with its saturation index K:
-    rows and columns past K repeat row/column K, so clamping the indices to
-    K reads the same values (the form kernel E reads, one 64 KB table in
-    global memory).  Returns (table128, r_max_um, K), or None where K > 126
-    (vohl) or the kernel has no table."""
+    """The table as a square float32 block with its saturation index K:
+    rows and columns past K repeat row/column K, so clamping the indices
+    to K reads the same values (the form kernel E reads from global
+    memory).  The block is 128 wide where K <= 126 (the hall family's K is
+    120: one 64 KB table at E's fixed row stride) and K + 2 wide otherwise
+    (vohl_davis_no_waals, K = 150: E's wide form, whose row stride is
+    K + 2).  Returns (table, r_max_um, K), or None for a kernel without a
+    table."""
     name = TABULATED.get(kernel_t(kern))
     if name is None:
         return None
-    key = ("clamp128", name)
+    key = ("clamp", name)
     if key not in _CACHE:
         table, r_max = load_efficiency_table(kern)
         K = table.shape[0] - 1
         while K > 0 and np.array_equal(table[K - 1], table[-1]) \
                 and np.array_equal(table[:, K - 1], table[:, -1]):
             K -= 1
-        if K > 126:
-            _CACHE[key] = None
-        else:
-            t128 = np.zeros((128, 128), np.float32)
-            t128[:K + 1, :K + 1] = table[:K + 1, :K + 1].astype(np.float32)
-            _CACHE[key] = (t128, r_max, K)
+        width = NARROW if K <= NARROW - 2 else K + 2
+        block = np.zeros((width, width), np.float32)
+        block[:K + 1, :K + 1] = table[:K + 1, :K + 1].astype(np.float32)
+        _CACHE[key] = (block, r_max, K)
     return _CACHE[key]
 
 
 class Efficiency(NamedTuple):
-    """A hall-family efficiency table in the form the port reads it: the
-    clamped (128, 128) block as a tensor, its largest radius [um] and its
-    saturation index."""
+    """An efficiency table in the form the port reads it: the clamped
+    square block as a tensor (128 wide, or K + 2 for the wide form), its
+    largest radius [um] and its saturation index K."""
     table: torch.Tensor
     r_max_um: float
     clamp: int
 
 
 def efficiency(kern: kernel_t, dtype, device):
-    """The Efficiency of a tabulated kernel, cached per dtype and device;
-    None for the formula kernels.  The clamped block holds the float32
-    values of the data files, so at any dtype it reads what the full
-    table reads."""
+    """The Efficiency of a tabulated kernel (the hall family and vohl),
+    cached per dtype and device; None for the formula kernels.  The
+    clamped block holds the float32 values of the data files, so at any
+    dtype it reads what the full table reads."""
     require_ported(kern)
     if kernel_t(kern) not in TABULATED:
         return None
@@ -130,7 +132,8 @@ def interpolated_efficiency(eff: Efficiency, rw_a, rw_b):
     (reference kernel_interpolation.hpp:9-67) in the clamped table: the
     indices stop at its saturation index, past which the full table
     repeats itself (the TPU kernel's interpolated_efficiency_sweep reads
-    it the same way)."""
+    it the same way), so it reads what the JAX package's
+    interpolated_efficiency reads from the full table."""
     table, r_max_um, clamp = eff
 
     def prep(r_m):
@@ -179,7 +182,7 @@ def kernel_value(cfg, params, n_a, n_b, rw2_a, rw2_b, vt_a, vt_b, rd3_a,
         eff = torch.where(r_s <= 3e-6, 0.0,
                           4.5e8 * r_L * r_L * (1.0 - 3e-6 / r_s))
         return torch.where(r_L < 50e-6, geo * eff, geo)
-    # the hall family (kernels.hpp:179-207)
+    # the hall family and vohl (kernels.hpp:179-207)
     return geo * interpolated_efficiency(eff, rw_a, rw_b)
 
 

@@ -134,8 +134,8 @@ def cond_percell(cfg: StaticConfig, state: State, dt, RH_max, lam,
     state before the step's closure."""
     if cfg.ice_switch:
         raise NotImplementedError(
-            "cond_percell: ice is not ported (ROADMAP.md, Queue 1, \"The "
-            "flat engine's remaining features\")")
+            "cond_percell: ice is not ported (ROADMAP.md, Queue 1, "
+            "\"Ice\")")
     sstp = cfg.sstp_cond
     if cfg.exact_sstp_cond:
         # the snapshot is per droplet; this path runs only at sstp_cond ==

@@ -32,7 +32,7 @@ from ..ops import cond as cond_ops
 from ..ops.step import rebin_x, step_resident
 from . import coalescence as coal_mod
 from .condensation import apply_drv_to_th_rv, exact_route, third_moment
-from .enums import as_t, kernel_t
+from .enums import kernel_t
 from .hskpng import T_p, hskpng_mfp, hskpng_Tpr, ijk_of_xyz
 from .state import (OUT_COAL_OVERFLOW, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL,
                     OUT_PRTCL_NUM, State, StaticConfig)
@@ -58,31 +58,24 @@ def supported(cfg: StaticConfig):
     run.  The port has no XLA dense pipeline, so it covers what kernels
     B-E and G take: 2-D, warm, every condensation substepping mode
     (percell, exact fixed-count with or without in-cell mixing, adaptive),
-    implicit or euler advection, every terminal velocity formula, and for
-    coalescence the formula kernels and the hall family on a population
-    that is not const-multi.  The JAX dense front runs the rest of its
-    dense configurations on its XLA pipeline; here they go to the flat
-    engine (lgrngn/dense_front.dense_capable)."""
+    every SD advection scheme (implicit, euler, pred_corr: kernel C's
+    forms), every terminal velocity formula, and for coalescence the
+    formula kernels, the hall family and vohl (kernel E's wide-table
+    form), on any population, const-multi included.  The turbulent
+    (onishi) kernels go to the flat engine, which refuses them too
+    (lgrngn/dense_front.dense_capable)."""
     if cfg.n_dims != 2:
         raise NotImplementedError("dense engine: 2-D only")
     if cfg.ice_switch or cfg.chem_switch or cfg.turb_cond_switch:
         raise NotImplementedError("dense engine: ice/chem/SGS not supported")
     if cfg.diag_incloud_time:
         raise NotImplementedError("dense engine: diag_incloud_time off only")
-    if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
-        raise NotImplementedError(
-            "dense engine: implicit or euler SD advection only")
     kern = kernel_t(cfg.kernel)
-    if cfg.coal_switch and kern != kernel_t.undefined:
-        if kern in coal_mod.UNPORTED or (
-                kern in coal_mod.TABULATED
-                and coal_mod.clamped_efficiency_table(kern) is None):
-            raise NotImplementedError(
-                f"dense engine: collision kernel {kern.name} not supported")
-        if cfg.pure_const_multi:
-            raise NotImplementedError(
-                "dense engine: coalescence of a const-multi population not "
-                "supported")
+    if cfg.coal_switch and kern in coal_mod.UNPORTED \
+            and kern != kernel_t.undefined:
+        raise NotImplementedError(
+            f"dense engine: collision kernel {kern.name} not supported "
+            "(ROADMAP.md, Queue 1, \"The LES slice\")")
 
 
 def _no_plane():
@@ -622,11 +615,6 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
     the positions after it, tgt the target row of every slot and far the
     number of rows with a far mover (a 0-d tensor); with none tgt and far
     are None.  ``slab`` is a mesh shard's (step_fused_shard)."""
-    if do_coal and cfg.pure_const_multi:
-        raise NotImplementedError(
-            "step_fused: coalescence of a const-multi population (the "
-            "increase_sstp_coal path) is not ported (ROADMAP.md, Queue 1, "
-            "\"Dense-engine options that the port refuses\")")
     closure = None
     if do_cond and exact_route(cfg):
         # the per-particle substepping (kernel G a substep), then the rest
@@ -652,7 +640,8 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
         lam_D, lam_K, *_row_courants(cfg, d), d.p, do_cond=do_cond,
         do_coal=do_coal, do_adve=do_adve, w_cells=w_cells, params=params,
         sstp_coal=sstp_coal, rng=(d.rng_seed, d.rng_step),
-        coal_pairing=coal_pairing, slab=slab, closure=closure, plain=plain)
+        coal_pairing=coal_pairing, slab=slab, closure=closure,
+        courants=(d.courant_x, d.courant_z), plain=plain)
     puddle = d.puddle
     if rowinfo is not None:
         info = rowinfo.sum(dim=0).to(puddle.dtype)

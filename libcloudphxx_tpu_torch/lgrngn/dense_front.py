@@ -144,6 +144,16 @@ class particles_dense_t(particles_t):
         self._rhod_handle = rhod if isinstance(rhod, torch.Tensor) else None
         self._last_rhod = self.state.rhod
 
+    def consume_coal_overflow(self):
+        """particles_t's, with the flag cleared in the dense copy too,
+        whose puddle the next async phase starts from (the JAX dense front
+        clears it in the flat state only, so there the request, once made,
+        grows sstp_coal every later step)."""
+        grew = self._sstp_coal_extra
+        super().consume_coal_overflow()
+        if self._sstp_coal_extra != grew and self._loc == "dense":
+            self._d = dataclasses.replace(self._d, puddle=self.state.puddle)
+
     # --------------------------------------------------------- step hooks
     def _step_cond_impl(self, state, dt, RH_max, var_rho, plain):
         if var_rho and self._rhod_changed:

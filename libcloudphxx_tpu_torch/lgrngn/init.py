@@ -1,11 +1,18 @@
-"""Super-droplet initialisation, sd_conc mode
-(libcloudphxx_tpu/lgrngn/init.py; reference src/impl/initialization/).
+"""Super-droplet initialisation (libcloudphxx_tpu/lgrngn/init.py;
+reference src/impl/initialization/).
 
 The distribution analysis and the sampling run in numpy with the caller's
 ``numpy.random.Generator`` and the JAX package's draw order, so one seed
 gives the JAX package's population draw for draw; the equilibrium wet
 radius is solved on the tensors' device.  particles_t.init runs the
 sequence on the flat State (init_SD_state, init_wet_state).
+
+Modes: ``sd_conc`` (stratified ln-radius sampling, the same SD count in
+every cell; with ``sd_conc_large_tail`` also multiplicity-1 SDs from the
+distribution's tail), ``sd_const_multi`` (inverse-CDF ln-radius sampling at
+one multiplicity) and ``dry_sizes`` (fixed radius and concentration pairs),
+each scaled by ``aerosol_conc_factor`` per level where given.  The
+reference's bit-exact mt19937 init is lgrngn/refinit.py.
 """
 
 import dataclasses
@@ -21,6 +28,9 @@ from .state import State, StaticConfig
 # reference src/detail/config.hpp:21-24
 RD_MIN_INIT = 1e-14
 RD_MAX_INIT = 1e-3
+CONST_MULTI_THRESHOLD = 1e20
+# numpy 2 renamed trapz
+_trapezoid = getattr(np, "trapezoid", None) or np.trapz
 
 
 def cell_dv(cfg: StaticConfig) -> np.ndarray:
@@ -35,6 +45,29 @@ def cell_dv(cfg: StaticConfig) -> np.ndarray:
     wy = axis(cfg.ny, cfg.dy, cfg.y0, cfg.y1)
     wz = axis(cfg.nz, cfg.dz, cfg.z0, cfg.z1)
     return (wx[:, None, None] * wy[None, :, None] * wz[None, None, :]).ravel()
+
+
+def conc_factor_cells(cfg: StaticConfig, oi):
+    """The per-cell aerosol concentration factor from the per-level
+    profile ``opts_init.aerosol_conc_factor`` (reference opts_init.hpp:140,
+    applied by k = cell % nz in particles_impl_init_count_num.ipp:65-70 and
+    init_n.ipp:100-110), with the sanity checks of
+    init_sanity_check.ipp:119-127.  Returns (n_cell,) or None."""
+    factor = np.asarray(oi.aerosol_conc_factor or [], dtype=float)
+    if factor.size == 0:
+        return None
+    if cfg.n_dims < 2:
+        raise RuntimeError(
+            "libcloudph++: aerosol_conc_factor can only be used in 2D and 3D")
+    if factor.size != cfg.nz:
+        raise RuntimeError(
+            "libcloudph++: aerosol_conc_factor size needs to be either 0 "
+            "or nz")
+    if not oi.aerosol_independent_of_rhod:
+        raise RuntimeError(
+            "libcloudph++: aerosol_conc_factor can only be used if "
+            "aerosol_independent_of_rhod==true")
+    return factor[np.arange(cfg.n_cell) % cfg.nz]
 
 
 def _eval_distro(fun, lnrd):
@@ -81,80 +114,170 @@ def _dist_analysis_sd_conc(fun, sd_conc, cell_vol, rd_min=-1.0, rd_max=-1.0):
             return math.log(lo), math.log(hi), mult
 
 
+def _dist_analysis_const_multi(fun):
+    """The support of n(ln rd) in const-multi mode: where the
+    distribution lies above its peak over CONST_MULTI_THRESHOLD
+    (reference init_dist_analysis.ipp:83-122).  Returns (log_rd_min,
+    log_rd_max)."""
+    lnr = np.linspace(math.log(RD_MIN_INIT), math.log(RD_MAX_INIT), 20001)
+    vals = _eval_distro(fun, lnr)
+    above = np.nonzero(vals > vals.max() / CONST_MULTI_THRESHOLD)[0]
+    if len(above) == 0:
+        raise RuntimeError("const-multi distribution analysis: empty support")
+    return float(lnr[above[0]]), float(lnr[above[-1]])
+
+
+def _sample_const_multi(fun, log_lo, log_hi, multi, oi, cfg, dv_host,
+                        rhod_host, rng):
+    """Constant-multiplicity sampling over [log_lo, log_hi] in every cell
+    (reference init_count_num_const_multi + init_dry_const_multi): a cell
+    holds round(concentration * dv * rhod / rho_stp / multi) SDs, their
+    ln(rd) drawn by inverse-CDF sampling.  Returns (lnrd, multiplicity,
+    ijk)."""
+    lnr = np.linspace(log_lo, log_hi, 10001)
+    vals = _eval_distro(fun, lnr)
+    conc = _trapezoid(vals, lnr)  # [1/m3] @ STP
+    n_in_cell = conc * np.asarray(dv_host, float)
+    if not oi.aerosol_independent_of_rhod:
+        n_in_cell = n_in_cell * np.asarray(rhod_host) / c.rho_stp
+    factor = conc_factor_cells(cfg, oi)
+    if factor is not None:
+        n_in_cell = n_in_cell * factor
+    counts = np.floor(n_in_cell / multi + 0.5).astype(np.int64)
+    total = int(counts.sum())
+    if total == 0:
+        return np.zeros(0), np.zeros(0), np.zeros(0, np.int64)
+    ijk = np.repeat(np.arange(cfg.n_cell, dtype=np.int64), counts)
+    cdf = np.concatenate([[0.0], np.cumsum(
+        0.5 * (vals[1:] + vals[:-1]) * np.diff(lnr))])
+    cdf /= cdf[-1]
+    lnrd = np.interp(rng.random(total), cdf, lnr)
+    return lnrd, np.full(total, float(multi)), ijk
+
+
+def _kappa_of(key):
+    """The kappa of a distribution key: (kappa, rd_insol) or kappa
+    (reference distro_t.hpp:9-57); the port runs no ice, so rd_insol is
+    not kept."""
+    return key[0] if isinstance(key, tuple) else key
+
+
 def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
             rhod_host: np.ndarray) -> dict:
-    """The initial super-droplets of a 2-D grid in sd_conc mode
-    (reference init_SD_with_distros_sd_conc.ipp:14-45, init_dry_sd_conc.ipp,
-    init_n.ipp, init_xyz.ipp).  Returns flat float64 numpy arrays
-    {n, rd3, kpa, x, z} and the int64 cell index ``ijk``, sorted by cell
-    within each distribution, as the JAX package lays them out."""
-    unported = [name for name, on in (
-        ("sd_const_multi", oi.sd_const_multi > 0),
-        ("dry_sizes", bool(oi.dry_sizes)),
-        ("sd_conc_large_tail", oi.sd_conc_large_tail),
-        ("aerosol_conc_factor", len(oi.aerosol_conc_factor) > 0),
-        ("reference_rng_init", oi.reference_rng_init),
-        ("no_ccn_at_init", oi.no_ccn_at_init)) if on]
-    if unported or cfg.n_dims != 2 or not (oi.dry_distros and oi.sd_conc > 0):
+    """The initial super-droplets of a 2-D grid (reference
+    init_SD_with_distros.ipp and init_SD_with_sizes.ipp; the JAX package's
+    init_SD, the same draws from ``rng`` in the same order).  Returns flat
+    float64 numpy arrays {n, rd3, kpa, x, z} and the int64 cell index
+    ``ijk``, laid out as the JAX package lays them: by mode and
+    distribution, sorted by cell within each."""
+    if cfg.n_dims != 2:
         raise NotImplementedError(
-            f"init_SD: only 2-D sd_conc init is ported (got {unported or 'no sd_conc distros'}, "
-            f"n_dims={cfg.n_dims}; ROADMAP.md, Queue 1)")
+            f"init_SD: only the 2-D grid is ported (n_dims={cfg.n_dims}; "
+            "ROADMAP.md, Queue 1, \"The parcel (0-D), 1-D and 3-D\")")
     n_cell = cfg.n_cell
     cell_vol = cfg.dx * cfg.dy * cfg.dz
     dv_host = cell_dv(cfg)
-
-    analyses = {key: _dist_analysis_sd_conc(
-        fun, oi.sd_conc, cell_vol, oi.rd_min, oi.rd_max)
-        for key, fun in oi.dry_distros.items()}
-    tot_rng = sum(a[1] - a[0] for a in analyses.values())
-
     lnrd_l, n_l, kpa_l, ijk_l = [], [], [], []
-    for key, fun in oi.dry_distros.items():
-        kappa = key[0] if isinstance(key, tuple) else key
-        log_lo, log_hi, mult = analyses[key]
-        count = int((log_hi - log_lo) / tot_rng * oi.sd_conc + 0.5)
-        if count == 0:
-            continue
-        # rounding correction (init_SD_with_distros_sd_conc.ipp:27-29)
-        mult *= oi.sd_conc / count
-        # stratified ln(rd) sampling within each cell (init_dry_sd_conc.ipp)
-        u01 = rng.random((n_cell, count))
-        strata = (np.arange(count)[None, :] + u01) / count
-        lnrd = log_lo + strata * (log_hi - log_lo)
-        # multiplicity: STP-corrected by rhod, volume-adjusted (init_n.ipp)
-        n_of = _eval_distro(fun, lnrd) * mult
-        if not oi.aerosol_independent_of_rhod:
-            n_of *= np.asarray(rhod_host)[:, None] / c.rho_stp
-        n_of *= dv_host[:, None] / (cfg.dx * cfg.dy * cfg.dz)
-        lnrd_l.append(lnrd.ravel())
-        n_l.append(np.floor(n_of + 0.5).ravel())
-        kpa_l.append(np.full(n_cell * count, kappa))
-        ijk_l.append(np.repeat(np.arange(n_cell), count))
 
+    def add(lnrd, mult, kappa, ijk):
+        lnrd_l.append(lnrd)
+        n_l.append(mult)
+        kpa_l.append(np.full(lnrd.size, kappa))
+        ijk_l.append(ijk)
+
+    if oi.dry_distros and oi.sd_conc > 0:
+        # sd_conc mode (init_SD_with_distros_sd_conc.ipp:14-45)
+        analyses = {key: _dist_analysis_sd_conc(
+            fun, oi.sd_conc, cell_vol, oi.rd_min, oi.rd_max)
+            for key, fun in oi.dry_distros.items()}
+        tot_rng = sum(a[1] - a[0] for a in analyses.values())
+        for key, fun in oi.dry_distros.items():
+            log_lo, log_hi, mult = analyses[key]
+            count = int((log_hi - log_lo) / tot_rng * oi.sd_conc + 0.5)
+            if count == 0:
+                continue
+            # rounding correction (init_SD_with_distros_sd_conc.ipp:27-29)
+            mult *= oi.sd_conc / count
+            # stratified ln(rd) sampling within each cell
+            # (init_dry_sd_conc.ipp)
+            u01 = rng.random((n_cell, count))
+            strata = (np.arange(count)[None, :] + u01) / count
+            lnrd = log_lo + strata * (log_hi - log_lo)
+            # multiplicity: STP-corrected by rhod, scaled by the level's
+            # concentration factor, volume-adjusted (init_n.ipp:80-135)
+            n_of = _eval_distro(fun, lnrd) * mult
+            if not oi.aerosol_independent_of_rhod:
+                n_of *= np.asarray(rhod_host)[:, None] / c.rho_stp
+            factor = conc_factor_cells(cfg, oi)
+            if factor is not None:
+                n_of = n_of * factor[:, None]
+            n_of *= dv_host[:, None] / cell_vol
+            add(lnrd.ravel(), np.floor(n_of + 0.5).ravel(), _kappa_of(key),
+                np.repeat(np.arange(n_cell), count))
+            if oi.sd_conc_large_tail:
+                # multiplicity-1 SDs from the tail above the sd_conc range
+                # (init_SD_with_distros_tail.ipp)
+                _, tail_hi = _dist_analysis_const_multi(fun)
+                if tail_hi > log_hi:
+                    t_lnrd, t_n, t_ijk = _sample_const_multi(
+                        fun, log_hi, tail_hi, 1, oi, cfg, dv_host, rhod_host,
+                        rng)
+                    add(t_lnrd, t_n, _kappa_of(key), t_ijk)
+    elif oi.dry_distros and oi.sd_const_multi > 0:
+        # const-multi mode (init_SD_with_distros_const_multi.ipp)
+        for key, fun in oi.dry_distros.items():
+            lnrd, mlt, ijk = _sample_const_multi(
+                fun, *_dist_analysis_const_multi(fun), oi.sd_const_multi, oi,
+                cfg, dv_host, rhod_host, rng)
+            add(lnrd, mlt, _kappa_of(key), ijk)
+
+    if oi.dry_sizes:
+        # dry_sizes mode (init_SD_with_sizes.ipp)
+        for key, sizes in oi.dry_sizes.items():
+            for radius, (conc, sd_count) in sizes.items():
+                sd_count = int(sd_count)
+                number = conc * dv_host
+                if not oi.aerosol_independent_of_rhod:
+                    number = number * np.asarray(rhod_host) / c.rho_stp
+                factor = conc_factor_cells(cfg, oi)
+                if factor is not None:
+                    number = number * factor
+                total = n_cell * sd_count
+                add(np.full(total, math.log(radius)),
+                    np.repeat(np.floor(number / sd_count + 0.5), sd_count),
+                    _kappa_of(key), np.repeat(np.arange(n_cell), sd_count))
+
+    if not lnrd_l:
+        raise ValueError(
+            "lgrngn init: no SD init mode selected "
+            "(set sd_conc, sd_const_multi or dry_sizes)")
     lnrd = np.concatenate(lnrd_l)
-    ijk = np.concatenate(ijk_l)
+    ijk = np.concatenate(ijk_l).astype(np.int64)
     n_part = lnrd.size
     if n_part > cfg.n_sd_max:
-        raise RuntimeError(
-            f"lgrngn init: n_part ({n_part}) exceeds n_sd_max ({cfg.n_sd_max})")
+        raise RuntimeError(f"lgrngn init: n_part ({n_part}) exceeds "
+                           f"n_sd_max ({cfg.n_sd_max})")
+    return dict(n=np.concatenate(n_l), rd3=np.exp(3.0 * lnrd),
+                kpa=np.concatenate(kpa_l), **positions(cfg, ijk, rng),
+                ijk=ijk)
 
-    # uniform positions in the cell crossed with the Lagrangian domain
-    # (init_xyz.ipp:17-35), z drawn before x as in the JAX package
+
+def positions(cfg: StaticConfig, ijk, rng):
+    """Uniform positions in each SD's cell crossed with the Lagrangian
+    domain (init_xyz.ipp:17-35), z drawn before x as in the JAX package.
+    Returns {x, z}."""
     coords = {}
-    idx = ijk.copy()
+    idx = np.array(ijk)
     for name, n_axis, a0, a1, da in (
             ("z", cfg.nz, cfg.z0, cfg.z1, cfg.dz),
             ("x", cfg.nx, cfg.x0, cfg.x1, cfg.dx)):
         axis_idx = idx % n_axis
         idx //= n_axis
-        u01 = rng.random(n_part)
+        u01 = rng.random(idx.size)
         lo = np.maximum(a0, axis_idx * da)
         hi = np.minimum(a1, (axis_idx + 1) * da)
         coords[name] = u01 * hi + (1.0 - u01) * lo
-
-    return dict(n=np.concatenate(n_l), rd3=np.exp(3.0 * lnrd),
-                kpa=np.concatenate(kpa_l), x=coords["x"], z=coords["z"],
-                ijk=ijk)
+    return coords
 
 
 def init_wet(rd3, kpa, RH_sd, T_sd, RH_max):
@@ -164,12 +287,11 @@ def init_wet(rd3, kpa, RH_sd, T_sd, RH_max):
     return rw3 ** (2.0 / 3)
 
 
-def init_SD_state(cfg: StaticConfig, oi, state: State,
-                  rng: np.random.Generator, rhod_host: np.ndarray) -> State:
-    """init_SD into the flat State's n_sd_max slots, the dead slots after
-    the live ones (n 0, rd3 1e-30, cell 0), as the JAX package fills
-    them; vt starts at zero."""
-    pop = init_SD(cfg, oi, rng, rhod_host)
+def init_SD_state(cfg: StaticConfig, state: State, pop: dict) -> State:
+    """The population ``pop`` (what init_SD or refinit.init_SD_reference
+    returns) in the flat State's n_sd_max slots, the dead slots after the
+    live ones (n 0, rd3 1e-30, cell 0), as the JAX package fills them; vt
+    starts at zero."""
     pad = cfg.n_sd_max - pop["n"].size
     like = state.rd3
 

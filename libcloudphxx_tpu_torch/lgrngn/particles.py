@@ -17,9 +17,10 @@ made and ``step_cond`` returns the new (th, rv) as flat tensors on the
 engine's device.
 
 The port runs the warm 2-D engine, with the per-cell and the exact and
-adaptive per-particle condensation substepping: ice, chemistry, SGS
-turbulence, diag_incloud_time, sources, relaxation, recycling and the
-multi-device front-end raise NotImplementedError (ROADMAP.md, Queue 1).
+adaptive per-particle condensation substepping and every SD init mode:
+ice, chemistry, SGS turbulence, diag_incloud_time, sources, relaxation,
+recycling and the multi-device front-end raise NotImplementedError
+(ROADMAP.md, Queue 1).
 On a CUDA device the condensation runs kernel F (per cell) or kernel G
 (per particle; ops/cond.py); nothing falls back to the CPU.
 The factory hands out this flat engine or, on a CUDA device, the dense
@@ -33,6 +34,8 @@ import math
 import numpy as np
 import torch
 
+from ..common import constants as c
+from ..common import kappa_koehler
 from . import coalescence, condensation, hskpng, transport
 from . import init as init_mod
 from .enums import backend_t, kernel_t
@@ -87,20 +90,40 @@ def step_async_body(cfg: StaticConfig, sstp_coal: int, switches, state: State,
     return transport.post_step(cfg, state)
 
 
+# what the port does not run yet, by the ROADMAP.md Queue 1 item that
+# ports it
+_UNPORTED_SWITCHES = (
+    ("The LES slice", ("turb_cond_switch", "turb_adve_switch",
+                       "turb_coal_switch", "diag_incloud_time")),
+    ("Ice", ("ice_switch",)),
+    ("Chemistry", ("chem_switch",)))
+
+
 def _require_ported(oi: opts_init_t):
     """Raise NotImplementedError for what the port's flat engine does not
     run."""
-    off = [name for name in (
-        "ice_switch", "chem_switch", "turb_cond_switch", "turb_adve_switch",
-        "turb_coal_switch", "diag_incloud_time") if getattr(oi, name)]
-    if off:
-        raise NotImplementedError(
-            f"particles_t: {', '.join(off)} is not ported (ROADMAP.md, "
-            "Queue 1, \"The flat engine's remaining features\")")
+    for title, names in _UNPORTED_SWITCHES:
+        off = [name for name in names if getattr(oi, name)]
+        if off:
+            raise NotImplementedError(
+                f"particles_t: {', '.join(off)} is not ported (ROADMAP.md, "
+                f"Queue 1, \"{title}\")")
     if oi.n_dims != 2 or oi.ny > 0:
         raise NotImplementedError(
             "particles_t: only the 2-D (x, z) grid is ported (ROADMAP.md, "
-            "Queue 1, \"The flat engine's remaining features\")")
+            "Queue 1, \"The parcel (0-D), 1-D and 3-D\")")
+
+
+def take_coal_overflow(puddle):
+    """The const-multi coalescence's request for one more substep (where
+    a pair asked for more than one collision; particles_step.ipp:394-400):
+    (whether the puddle's flag is set, the puddle with it cleared).  One
+    host read."""
+    if float(puddle[OUT_COAL_OVERFLOW]) > 0:
+        pud = puddle.clone()
+        pud[OUT_COAL_OVERFLOW] = 0.0
+        return True, pud
+    return False, puddle
 
 
 class particles_t:
@@ -195,7 +218,7 @@ class particles_t:
         if courant_y is not None:
             raise NotImplementedError(
                 "particles_t: courant_y (3-D) is not ported (ROADMAP.md, "
-                "Queue 1, \"The flat engine's remaining features\")")
+                "Queue 1, \"The parcel (0-D), 1-D and 3-D\")")
         cfg = self.cfg
         upd = {}
         for name, arr, size in (
@@ -242,10 +265,16 @@ class particles_t:
         if not oi.no_ccn_at_init:
             seed = oi.rng_seed_init if oi.rng_seed_init_switch \
                 else oi.rng_seed
-            st = init_mod.init_SD_state(
-                cfg, oi, st, np.random.default_rng(seed),
-                rhod_t.double().cpu().numpy())
-            st = init_mod.init_wet_state(st, oi.RH_max)
+            rhod_host = rhod_t.double().cpu().numpy()
+            if oi.reference_rng_init:
+                from .refinit import init_SD_reference
+                pop = init_SD_reference(cfg, oi, seed, rhod_host,
+                                        init_mod.cell_dv(cfg))
+            else:
+                pop = init_mod.init_SD(cfg, oi, np.random.default_rng(seed),
+                                       rhod_host)
+            st = init_mod.init_wet_state(init_mod.init_SD_state(cfg, st, pop),
+                                         oi.RH_max)
         self.state = condensation.sstp_save(st, exact=cfg.exact_sstp_cond)
         self._should_now_run_cond = False
         self._should_now_run_async = False
@@ -266,8 +295,7 @@ class particles_t:
         if diss_rate is not None:
             raise NotImplementedError(
                 "particles_t: diss_rate (SGS turbulence) is not ported "
-                "(ROADMAP.md, Queue 1, \"The flat engine's remaining "
-                "features\")")
+                "(ROADMAP.md, Queue 1, \"The LES slice\")")
         n_cell = self.cfg.n_cell
         upd = {}
         for name, arr in (("th", th), ("rv", rv), ("rhod", rhod)):
@@ -373,7 +401,7 @@ class particles_t:
             raise NotImplementedError(
                 f"particles_t: opts.{', opts.'.join(unported)} (recycling, "
                 "sources, relaxation) is not ported (ROADMAP.md, Queue 1, "
-                "\"The flat engine's remaining features\")")
+                "\"The LES slice\")")
         # the substep count follows a variable dt (adjust_timesteps.ipp:
         # 14-24), plus any growth from const-multi collision overflow
         sstp = self.opts_init.sstp_coal
@@ -387,14 +415,15 @@ class particles_t:
                                                self.state, params, w_LS, dt,
                                                plain)
         if do_coal and cfg.pure_const_multi:
-            # consume the adaptive-substep request (particles_step.ipp:
-            # 394-400)
-            pud = self.state.puddle
-            if float(pud[OUT_COAL_OVERFLOW]) > 0:
-                self._sstp_coal_extra += 1
-                pud = pud.clone()
-                pud[OUT_COAL_OVERFLOW] = 0.0
-                self.state = dataclasses.replace(self.state, puddle=pud)
+            self.consume_coal_overflow()
+
+    def consume_coal_overflow(self):
+        """Consume the const-multi coalescence's request (take_coal_overflow):
+        sstp_coal grows by one for every later step."""
+        grew, pud = take_coal_overflow(self.state.puddle)
+        if grew:
+            self._sstp_coal_extra += 1
+            self.state = dataclasses.replace(self.state, puddle=pud)
 
     # ----------------------------------------------------------- diagnostics
     def _require_init(self):
@@ -436,6 +465,55 @@ class particles_t:
         sel = (rw2 >= r_min ** 2) & (rw2 < r_max ** 2)
         self._n_filtered = torch.where(sel, self.state.n, 0.0)
 
+    def diag_kappa_rng(self, k_min, k_max):
+        self._require_init()
+        kpa = self.state.kpa
+        sel = (kpa >= k_min) & (kpa < k_max)
+        self._n_filtered = torch.where(sel, self.state.n, 0.0)
+
+    def _cons(self, sel):
+        """Narrow the current selection by ``sel`` (the reference's
+        consecutive filters, particles_diag.ipp:254-340)."""
+        if self._n_filtered is None:
+            raise RuntimeError("libcloudphxx: consecutive filter without "
+                               "a previous selection")
+        self._n_filtered = torch.where(sel, self._n_filtered, 0.0)
+
+    def diag_dry_rng_cons(self, r_min, r_max):
+        self._require_init()
+        rd3 = self.state.rd3
+        self._cons((rd3 >= r_min ** 3) & (rd3 < r_max ** 3))
+
+    def diag_wet_rng_cons(self, r_min, r_max):
+        self._require_init()
+        rw2 = self.state.rw2
+        self._cons((rw2 >= r_min ** 2) & (rw2 < r_max ** 2))
+
+    def diag_kappa_rng_cons(self, k_min, k_max):
+        self._require_init()
+        kpa = self.state.kpa
+        self._cons((kpa >= k_min) & (kpa < k_max))
+
+    def diag_rw_ge_rc(self):
+        """Select the activated SDs: rw at or above the critical radius
+        (reference particles_diag.ipp:384-409)."""
+        self._require_init()
+        st = self._tpr()
+        rc2 = kappa_koehler.rw3_cr(torch.clamp(st.rd3, min=1e-300),
+                                   torch.clamp(st.kpa, min=1e-10),
+                                   st.T[st.ijk]) ** (2.0 / 3)
+        self._n_filtered = torch.where(st.rw2 >= rc2, st.n, 0.0)
+
+    def diag_RH_ge_Sc(self):
+        """Select the SDs whose cell's RH reaches their critical
+        saturation (reference particles_diag.ipp:353-381)."""
+        self._require_init()
+        st = self._tpr()
+        S_cr = kappa_koehler.S_cr(torch.clamp(st.rd3, min=1e-300),
+                                  torch.clamp(st.kpa, min=1e-10),
+                                  st.T[st.ijk])
+        self._n_filtered = torch.where(st.RH[st.ijk] >= S_cr, st.n, 0.0)
+
     def _check_selected(self):
         if self._n_filtered is None:
             raise RuntimeError(
@@ -461,6 +539,38 @@ class particles_t:
     def diag_wet_mom(self, n):
         self._check_selected()
         self._set_outbuf(self._moms(n / 2.0, self.state.rw2))
+
+    def diag_kappa_mom(self, n):
+        self._check_selected()
+        self._set_outbuf(self._moms(float(n), self.state.kpa))
+
+    def diag_wet_mass_dens(self, rad, sig0):
+        """Kernel-density estimate of the selected SDs' mass density at wet
+        radius ``rad``, bandwidth ``sig0`` over the fifth root of the
+        cell's SD count (reference particles_diag.ipp:494-499,
+        particles_impl_mass_dens.ipp:8-113)."""
+        self._check_selected()
+        st, cfg = self.state, self.cfg
+        seg = lambda v: torch.zeros(cfg.n_cell, dtype=v.dtype,
+                                    device=v.device).index_add_(0, st.ijk, v)
+        count = seg((st.n > 0).to(st.rw2.dtype))
+        sig = (sig0 / torch.clamp(count, min=1.0) ** 0.2)[st.ijk]
+        x = torch.clamp(st.rw2, min=1e-300)
+        vals = self._n_filtered / sig * x ** 1.5 * torch.exp(
+            -((0.5 * torch.log(x) - math.log(rad)) / sig) ** 2 / 2.0)
+        pre = 4.0 / 3.0 * c.rho_w * math.sqrt(c.pi / 2.0)
+        self._set_outbuf(pre * seg(vals) / st.dv)
+
+    def diag_vel_div(self):
+        """Divergence of the flow of each cell [1/s] from the courants
+        (reference particles_diag.ipp:501-556)."""
+        self._require_init()
+        st, cfg = self.state, self.cfg
+        ijk = torch.arange(cfg.n_cell, device=st.courant_x.device)
+        (lft, rgt), (blw, abv) = transport.courant_indices(cfg, ijk)
+        div = st.courant_x[rgt] - st.courant_x[lft] \
+            + st.courant_z[abv] - st.courant_z[blw]
+        self._set_outbuf(div / cfg.dt)
 
     def diag_precip_rate(self):
         """1st non-specific moment of rw^3 * vt of the selected SDs

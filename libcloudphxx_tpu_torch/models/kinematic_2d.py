@@ -34,7 +34,8 @@ from ..lgrngn.dense_front import initial_capacity as dense_capacity
 from ..lgrngn.dense_front import particles_dense_t
 from ..lgrngn.enums import backend_t, kernel_t, vt_t
 from ..lgrngn.opts import opts_init_t, opts_t
-from ..lgrngn.particles import factory, step_async_body, step_cond_body
+from ..lgrngn.particles import (factory, step_async_body, step_cond_body,
+                                take_coal_overflow)
 from ..ops.coal import MAX_CAP
 from . import mpdata
 
@@ -74,6 +75,29 @@ class Setup:
                 * np.exp(-((lnr - np.log(mean)) ** 2) / (2 * np.log(sdev) ** 2))
                 / np.log(sdev) / np.sqrt(2 * np.pi)
             )
+        return out
+
+    def lognormal_lnrd_f32(self, lnr):
+        """The reference's log_dry_radii functor in float32
+        (icmw8_case1.hpp:63-78 with real_t=float; lognormal::n_e computes
+        the exponent in double, as C++ pow(float, int) promotes), with
+        glibc's logf: the distribution of reference_rng_init, whose
+        multiplicities it gives bit for bit."""
+        from ..lgrngn.refinit import logf
+        f32 = np.float32
+        lnr = np.asarray(lnr, f32)
+        out = np.zeros_like(lnr)
+        for mean, sdev, n_tot in (
+            (self.mean_rd1, self.sdev_rd1, self.n1_stp),
+            (self.mean_rd2, self.sdev_rd2, self.n2_stp),
+        ):
+            lm = logf(f32(mean))[()]
+            ls = logf(f32(sdev))[()]
+            d = (lnr - lm).astype(np.float64)
+            e = f32(np.exp(-(d ** 2) / np.float64(f32(2))
+                           / np.float64(ls) ** 2))
+            out = f32(out + f32(n_tot) * e / ls
+                      / f32(np.sqrt(f32(2) * f32(np.pi))))
         return out
 
 
@@ -162,6 +186,13 @@ class Kinematic2D(nn.Module):
     rv toward their horizontal means after the spin-up, in the stepwise
     loop only (kin_cloud_2d_common.hpp:52-117).
 
+    ``reference_rng`` initialises the SDs with the reference's mt19937
+    draws and float32 arithmetic (lgrngn/refinit.py; th then takes the
+    reference's float32 value); ``kernel_parameters`` are
+    opts_init.kernel_parameters (the geometric kernel's multiplier);
+    ``opts_init_kw`` sets any other opts_init field last (a const-multi
+    population: sd_conc=0 and {"sd_const_multi": ...}).
+
     For lgrngn the microphysics is the public API (``prtcls``) that
     lgrngn.factory gives for ``engine`` ("auto": the dense front,
     lgrngn/dense_front.py, on a CUDA device, the flat particles_t on the
@@ -172,8 +203,8 @@ class Kinematic2D(nn.Module):
 
     def __init__(self, nx=76, nz=76, setup: Setup = None, micro="lgrngn",
                  sd_conc=64, sstp_cond=1, sstp_coal=1, n_sd_max=None,
-                 mpdata_iters=2, grid="cell", fct=False,
-                 terminal_velocity=None,
+                 mpdata_iters=2, grid="cell", fct=False, reference_rng=False,
+                 kernel_parameters=None, terminal_velocity=None,
                  rng_seed=None, opts_init_kw=None, coal_pairing="stride", *,
                  relax_th_rv=False, engine="auto", device="cuda",
                  dtype=torch.float32):
@@ -181,7 +212,7 @@ class Kinematic2D(nn.Module):
         if micro == "lgrngn_chem":
             raise NotImplementedError(
                 "Kinematic2D: micro='lgrngn_chem' is not ported (ROADMAP.md, "
-                "Queue 1, \"The flat engine's remaining features\")")
+                "Queue 1, \"Chemistry\")")
         if micro not in ("lgrngn", "blk_1m", "blk_2m"):
             raise ValueError(f"Kinematic2D: unknown micro {micro!r}")
         if grid not in ("cell", "node"):
@@ -235,7 +266,16 @@ class Kinematic2D(nn.Module):
         self.register_buffer("C_x", dev(C_x))
         self.register_buffer("C_z", dev(C_z))
         # uniform dry-theta / vapour initial state (icmw8_case1.hpp:166-168)
-        th = np.full((nx, nz), float(theta_dry.std2dry(s.th_0, s.rv_0)))
+        if reference_rng:
+            # the reference's real_t=float value (289.99197 in the fig_a
+            # refdata)
+            f = np.float32
+            th_d = float(f(s.th_0) * np.power(
+                f(1) + f(s.rv_0) * f(c.R_v) / f(c.R_d), f(c.R_d) / f(c.c_pd),
+                dtype=f))
+        else:
+            th_d = float(theta_dry.std2dry(s.th_0, s.rv_0))
+        th = np.full((nx, nz), th_d)
         rv = np.full((nx, nz), s.rv_0)
         self.th, self.rv = dev(th), dev(rv)
         self.t = 0.0
@@ -259,7 +299,8 @@ class Kinematic2D(nn.Module):
             return
 
         oi = opts_init_t()
-        oi.dry_distros = {(s.kappa, 0.0): s.lognormal_lnrd}
+        oi.dry_distros = {(s.kappa, 0.0): s.lognormal_lnrd_f32
+                          if reference_rng else s.lognormal_lnrd}
         oi.nx, oi.nz = nx, nz
         oi.dx, oi.dz = self.dx, self.dz
         if grid == "node":
@@ -274,9 +315,11 @@ class Kinematic2D(nn.Module):
         oi.n_sd_max = n_sd_max or 2 * sd_conc * nx * nz
         oi.sstp_cond = sstp_cond
         oi.sstp_coal = sstp_coal
+        oi.reference_rng_init = reference_rng
         if rng_seed is not None:
             oi.rng_seed = rng_seed
         oi.kernel = kernel_t.geometric
+        oi.kernel_parameters = list(kernel_parameters or [])
         oi.terminal_velocity = (terminal_velocity
                                 if terminal_velocity is not None
                                 else vt_t.beard77fast)
@@ -286,9 +329,14 @@ class Kinematic2D(nn.Module):
                     f"kinematic_2d: unknown opts_init field {k!r}")
             setattr(oi, k, v)
         if oi.const_p or not oi.th_dry:
+            # the JAX model cannot run it either: its init passes no
+            # pressure profile, and particles_t.init raises "lgrngn: const_p
+            # requires a pressure profile" (the public API takes th_std and
+            # const_p on both engines)
             raise NotImplementedError(
-                "Kinematic2D: the port drives th_dry with variable pressure "
-                "only (ROADMAP.md, Queue 1)")
+                "Kinematic2D: the model drives th_dry with variable pressure "
+                "only, as the JAX package's (ROADMAP.md, \"Known behaviours "
+                "of the reference\")")
         self.opts_init = oi
         self.prtcls = factory(backend_t.CUDA, oi, device=self.device,
                               dtype=dtype, engine=engine)
@@ -483,9 +531,28 @@ class Kinematic2D(nn.Module):
         switches = (self._does_coal(spinup), True,
                     (not spinup) and cfg.sedi_switch, False)
         params, w_LS = self.prtcls.async_consts()
-        state = step_async_body(cfg, cfg.sstp_coal, switches, state, params,
-                                w_LS, dt)
+        state = step_async_body(cfg, self._sstp_coal(), switches, state,
+                                params, w_LS, dt)
+        state = dataclasses.replace(
+            state, puddle=self._consume_overflow(state.puddle, spinup))
         return state, th, rv
+
+    def _sstp_coal(self):
+        """The coalescence substeps of a step: opts_init's and the growth
+        that a const-multi population's collisions asked for."""
+        return self.cfg.sstp_coal + self.prtcls._sstp_coal_extra
+
+    def _consume_overflow(self, puddle, spinup):
+        """After a coalescing step of a const-multi population, its request
+        for one more substep (take_coal_overflow, one host read) grows
+        sstp_coal for the steps after it, as the public API's step_async
+        does; the JAX package's run_device_lgrngn keeps sstp_coal fixed.
+        Returns the puddle, the flag cleared."""
+        if not (self._does_coal(spinup) and self.cfg.pure_const_multi):
+            return puddle
+        grew, puddle = take_coal_overflow(puddle)
+        self.prtcls._sstp_coal_extra += int(grew)
+        return puddle
 
     def _dense_step(self, d, spinup, plain):
         """One step of the dense engine: MPDATA of th/rv, then the fused
@@ -500,9 +567,11 @@ class Kinematic2D(nn.Module):
         d, th, rv = dense.step_fused(
             cfg, d, th.reshape(-1), rv.reshape(-1),
             self.opts_init.kernel_parameters, self.setup.dt,
-            1.01 if spinup else 44.0, cfg.sstp_coal, self._does_coal(spinup),
-            (not spinup) and cfg.sedi_switch,
+            1.01 if spinup else 44.0, self._sstp_coal(),
+            self._does_coal(spinup), (not spinup) and cfg.sedi_switch,
             coal_pairing=self.coal_pairing, plain=plain)
+        d = dataclasses.replace(d, puddle=self._consume_overflow(d.puddle,
+                                                                 spinup))
         self.th, self.rv = th.reshape(self.nx, self.nz), \
             rv.reshape(self.nx, self.nz)
         return d
@@ -564,7 +633,12 @@ class Kinematic2D(nn.Module):
         mode's private planes (dense.repack).  ``chunk_log``, a list, gets a dict a chunk
         (spinup, steps, occ, cap, seconds, redo: the chunk's runs before
         it kept every SD).  ``plain`` runs the plain PyTorch version of
-        every kernel (comparisons and timings)."""
+        every kernel (comparisons and timings).  On a const-multi
+        population a step whose coalescence asked for more than one
+        collision in a pair grows sstp_coal by one for the steps after it,
+        on either engine, as the public API's step_async does (one host
+        read a coalescing step; the count is the public API's, so run()
+        and run_device_lgrngn share it)."""
         if engine not in ("flat", "dense"):
             raise ValueError(f"run_device_lgrngn: engine must be 'flat' or "
                              f"'dense', got {engine!r}")

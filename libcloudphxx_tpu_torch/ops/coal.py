@@ -26,9 +26,12 @@ network in the kernel) gives the same permutation.
 Dispatch is by device, as in ops/step.py: CPU tensors run the plain
 version, CUDA tensors launch the kernel (float32, contiguous, a power-of-
 two row capacity up to MAX_CAP, or the wrapper raises), and ``plain=True``
-runs the plain version on any device.  Every form returns a per-row
-overflow flag: some pair of the row asked for more than one collision in a
-substep (lane 6 of the TPU kernel's per-block flags, pallas_step.py:527).
+runs the plain version on any device.  Under vohl_davis_no_waals, whose
+efficiency table is wider than the hall family's 128 (wide_table), the
+resident form launches E's wide-table form (_ext.COAL_VOHL).  Every form
+returns a per-row overflow flag: some pair of the row asked for more than
+one collision in a substep (lane 6 of the TPU kernel's per-block flags,
+pallas_step.py:527).
 """
 
 import torch
@@ -146,6 +149,14 @@ def coal_standalone_plain(cfg, params, sstp_coal, dt, seed, step, n, rw2,
     return n, rw2, rd3, kpa, vt, x, z, ovf
 
 
+def wide_table(cfg):
+    """Whether kernel E reads the collision kernel's efficiencies in its
+    wide-table form (vohl_davis_no_waals: a table wider than the hall
+    family's 128, at row stride K + 2)."""
+    t = coal_mod.clamped_efficiency_table(kernel_t(cfg.kernel))
+    return t is not None and t[0].shape[1] != coal_mod.NARROW
+
+
 def _launch(kernel, cfg, params, sstp_coal, dt, seed, step, planes, cells,
             n_outs, *mode):
     """Check what kernel E takes, launch it and return its n_outs planes
@@ -193,7 +204,8 @@ def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
         raise ValueError(f"coal: row0 {row0} out of range")
     if _ext.use_plain("coal", n, plain):
         return coal_resident_plain(*args, pairing=pairing, row0=row0)
-    return _launch(_ext.COAL, cfg, params, sstp_coal, dt, seed, step,
+    kernel = _ext.COAL_VOHL if wide_table(cfg) else _ext.COAL
+    return _launch(kernel, cfg, params, sstp_coal, dt, seed, step,
                    (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
                    int(pairing == "sort"), int(row0))
 
@@ -206,6 +218,12 @@ def coal_standalone(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
             T, p, rhod, eta, dv)
     if _ext.use_plain("coal_standalone", n, plain):
         return coal_standalone_plain(*args)
+    if wide_table(cfg):
+        raise NotImplementedError(
+            f"coal_standalone: the standalone form of kernel E reads the "
+            f"hall family's 128-wide tables only, not "
+            f"{kernel_t(cfg.kernel).name}'s (the resident step's form, "
+            f"coal_resident, reads it)")
     *outs, ovf = _launch(_ext.COAL_STANDALONE, cfg, params, sstp_coal, dt,
                          seed, step, (n, rw2, rd3, kpa, x, z),
                          (T, p, rhod, eta, dv), 7)

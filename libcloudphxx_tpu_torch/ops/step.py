@@ -154,15 +154,55 @@ def cond(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
 
 
 # ---------------------------------------------------------------- kernel C
+def _cell_of(pos, d, n):
+    """The cell index along an axis of each position, as
+    lgrngn/hskpng.ijk_of_xyz computes it (a float64 division, the floor
+    clamped to [0, n)), dividing by a tensor (see transport_plain)."""
+    q = pos.to(torch.float64) / torch.full((), d, dtype=torch.float64,
+                                           device=pos.device)
+    return torch.clamp(torch.floor(q).to(torch.int64), 0, n - 1)
+
+
+def pred_corr(cfg, x, z, i_row, k_row, C_l, C_r, C_b, C_a, courants):
+    """The predictor-corrector SD advection of a row's droplets
+    (libcloudphxx_tpu/lgrngn/dense.py:962-1005, the port's flat
+    transport.adve; reference adve.ipp:184-304): the euler predictor with
+    the row's courants, z kept inside the domain, x wrapped with its old
+    position shifted alike (unless the side walls are open), then the mean
+    of the two displacements, the corrector's taken with the courants of
+    the predictor's cell, gathered from the staggered ``courants`` =
+    (courant_x (nx+1)*nz, courant_z nx*(nz+1)) with
+    transport.courant_indices' index math.  Returns (x, z)."""
+    dCx, dCz = (C_r - C_l)[:, None], (C_a - C_b)[:, None]
+    x_old, z_old = x, z
+    x = x + dCx * (x - cfg.dx * i_row) + cfg.dx * C_l[:, None]
+    z = z + dCz * (z - cfg.dz * k_row) + cfg.dz * C_b[:, None]
+    z = torch.clamp(z, cfg.z0 + 1e-8 * cfg.dz, cfg.z1 - 1e-8 * cfg.dz)
+    if not cfg.open_side_walls:
+        x_wr = wrap_x(cfg, x)
+        x_old = x_old + (x_wr - x)
+        x = x_wr
+    cx, cz = courants
+    i_m, k_m = _cell_of(x, cfg.dx, cfg.nx), _cell_of(z, cfg.dz, cfg.nz)
+    lft = i_m * cfg.nz + k_m
+    blw = lft + i_m
+    dx_ = (cx[lft + cfg.nz] - cx[lft]) * (x - cfg.dx * i_m.to(x.dtype)) \
+        + cfg.dx * cx[lft]
+    dz_ = (cz[blw + 1] - cz[blw]) * (z - cfg.dz * k_m.to(z.dtype)) \
+        + cfg.dz * cz[blw]
+    return (x + x_old + dx_) / 2.0, (z + z_old + dz_) / 2.0
+
+
 def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
                     C_l, C_r, C_b, C_a, *, do_adve=True, w_cells=None,
-                    slab=None):
+                    slab=None, courants=None):
     """vt refresh, SD advection, sedimentation, subsidence, walls and
     puddle, then each droplet's target row (pallas_step.py:338-487).
-    ``do_adve`` moves the droplets with the courants C_*, ``do_sedi`` by
-    their vt, and ``w_cells`` (n_cell,), when given, is the subsidence
-    velocity of each row (pallas_step.py:369-370).  Returns (n, x, z, vt,
-    tgt, rowinfo): ``tgt`` is the int32 target row (-1 for dead slots; a
+    ``do_adve`` moves the droplets with the courants C_* (under pred_corr
+    also with the staggered ``courants`` = (courant_x, courant_z): see
+    pred_corr), ``do_sedi`` by their vt, and ``w_cells`` (n_cell,), when
+    given, is the subsidence velocity of each row (pallas_step.py:369-370).
+    Returns (n, x, z, vt, tgt, rowinfo): ``tgt`` is the int32 target row (-1 for dead slots; a
     droplet that moved more than one cell on an axis keeps its row and sets
     the row's flag), ``rowinfo`` (n_cell, 8) the per-row puddle partials
     (liquid volume, dry volume, liquid number, particle number) and
@@ -196,10 +236,14 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
             raise ValueError("transport: a slab needs some transport")
         return n, x, z, torch.where(live0, vt, 0.0), None, None
 
-    if do_adve:
+    scheme = as_t(cfg.adve_scheme)
+    if do_adve and scheme == as_t.pred_corr:
+        x, z = pred_corr(cfg, x, z, i_row, k_row, C_l, C_r, C_b, C_a,
+                         courants)
+    elif do_adve:
         dCx = col(C_r - C_l)
         dCz = col(C_a - C_b)
-        if as_t(cfg.adve_scheme) == as_t.implicit:
+        if scheme == as_t.implicit:
             x = (x + cfg.dx * (col(C_l) - i_row * dCx)) / (1.0 - dCx)
             z = (z + cfg.dz * (col(C_b) - k_row * dCz)) / (1.0 - dCz)
         else:  # euler
@@ -259,11 +303,17 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
 
 def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
               C_r, C_b, C_a, *, do_adve=True, w_cells=None, slab=None,
-              plain=False):
+              courants=None, plain=False):
     """Kernel C, or its plain version transport_plain (same arguments and
     results); with a ``slab`` kernel C's unwrapped form, counted as
-    _ext.TRANSPORT_UNWRAPPED."""
-    kw = dict(do_adve=do_adve, w_cells=w_cells, slab=slab)
+    _ext.TRANSPORT_UNWRAPPED; advecting under pred_corr its pred_corr
+    form, counted as _ext.TRANSPORT_PRED_CORR, which reads ``courants``."""
+    pc = do_adve and as_t(cfg.adve_scheme) == as_t.pred_corr
+    if pc and (courants is None or slab is not None):
+        raise ValueError("transport: pred_corr needs the staggered courants "
+                         "and has no unwrapped form")
+    kw = dict(do_adve=do_adve, w_cells=w_cells, slab=slab,
+              courants=courants)
     args = (n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r, C_b, C_a)
     if _ext.use_plain("transport", n, plain):
         return transport_plain(cfg, dt, do_sedi, *args, **kw)
@@ -274,10 +324,6 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
         raise ValueError("transport: a slab needs some transport")
     _ext.check_planes("transport", cap, n, rw2, *((rd3, x, z) if moves
                                                    else ()))
-    if as_t(cfg.adve_scheme) not in (as_t.implicit, as_t.euler):
-        raise NotImplementedError(
-            f"transport: advection scheme {as_t(cfg.adve_scheme).name} is not "
-            "ported (ROADMAP.md, Queue 1)")
     # the subsidence row only where there is subsidence: the kernel reads
     # it with do_subs alone
     cells = torch.stack([T, p, rhod, eta, C_l, C_r, C_b, C_a]
@@ -296,6 +342,15 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
         ptr = lambda a: None
     kernel, extra = (_ext.TRANSPORT, ()) if slab is None else \
         (_ext.TRANSPORT_UNWRAPPED, (col0, ncol))
+    if pc:
+        cx, cz = courants
+        if cx.shape != ((cfg.nx + 1) * cfg.nz,) \
+                or cz.shape != (cfg.nx * (cfg.nz + 1),):
+            raise ValueError("transport: courants must be the staggered "
+                             "(nx+1)*nz and nx*(nz+1) fields")
+        _ext.check("transport", n, cx, cz)
+        kernel, extra = _ext.TRANSPORT_PRED_CORR, (cx.data_ptr(),
+                                                   cz.data_ptr())
     kernel.launch(
         n.data_ptr(), rw2.data_ptr(), ptr(rd3), ptr(x), ptr(z),
         cells.data_ptr(), ptr(n_out), ptr(x_out), ptr(z_out),
@@ -313,7 +368,7 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
                   C_b, C_a, p0, *, do_cond=True, do_coal=False, do_adve=True,
                   w_cells=None, params=(), sstp_coal=1, rng=(0, 0),
                   coal_pairing="stride", slab=None, closure=None,
-                  plain=False):
+                  courants=None, plain=False):
     """One microphysics step or a phase of one (pallas_step.step_resident
     with its phase flags): condensation (kernel B) with ``do_cond``, else
     the cell closure of th0/rv0 (the post-condensation values of the async
@@ -331,7 +386,9 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
     with no transport tgt is None, and so is rowinfo unless coalescence
     ran (then it holds that flag alone).  A shard of the x-slab mesh passes
     its ``slab`` = (col0, ncol): transport is kernel C's unwrapped form and
-    the coalescence draws are keyed by the global rows, from col0 * nz."""
+    the coalescence draws are keyed by the global rows, from col0 * nz.
+    ``courants``, the staggered (courant_x, courant_z), are what pred_corr
+    advection reads."""
     if do_cond:
         rw2, th, rv, T, p, RH, eta = cond(
             cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
@@ -350,7 +407,7 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
         n, x, z, vt, tgt, rowinfo = transport(
             cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r,
             C_b, C_a, do_adve=do_adve, w_cells=w_cells, slab=slab,
-            plain=plain)
+            courants=courants, plain=plain)
     if do_coal:
         if rowinfo is None:
             rowinfo = torch.zeros((n.shape[0], 8), dtype=n.dtype,

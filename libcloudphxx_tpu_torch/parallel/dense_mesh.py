@@ -40,6 +40,7 @@ import torch
 
 from ..lgrngn import dense
 from ..lgrngn.dense import ATTRS, DenseState
+from ..lgrngn.enums import as_t
 from ..lgrngn.hskpng import ijk_of_xyz
 from ..models import mpdata
 from ..ops.step import column_of, level_of, wrap_x
@@ -321,6 +322,19 @@ def dense_step_sharded(cfg, doms, sstp_coal: int, buf: int, do_coal: bool,
         raise NotImplementedError(
             "dense mesh: exact substepping is not supported (the JAX mesh "
             "refuses it too, dense_mesh.py:303-309)")
+    if as_t(cfg.adve_scheme) == as_t.pred_corr:
+        # the corrector reads the courants of any cell a droplet reaches,
+        # which a shard does not hold
+        raise NotImplementedError(
+            "dense mesh: pred_corr SD advection is not supported (the flat "
+            "mesh's halo-2 courant exchange goes with ROADMAP.md, Queue 1, "
+            "\"Multi-device: the flat front\")")
+    if cfg.pure_const_multi and cfg.coal_switch:
+        # a const-multi population grows sstp_coal from a flag of each
+        # step's coalescence, which the mesh's step does not read
+        raise NotImplementedError(
+            "dense mesh: coalescence of a const-multi population is not "
+            "supported (its sstp_coal growth runs on one device)")
     dense.supported(cfg)
     local_config(cfg, len(doms))      # n_sd_max split evenly, as JAX's
     if buf < 1:

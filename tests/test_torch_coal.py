@@ -149,7 +149,7 @@ def test_hall_efficiency_float32_is_bitwise():
 
 
 def test_unported_kernels_raise():
-    for kern in (kernel_t.vohl_davis_no_waals, kernel_t.onishi_hall):
+    for kern in (kernel_t.onishi_hall_davis_no_waals, kernel_t.onishi_hall):
         cfg = dataclasses.replace(port_cfg(_cfg(kernel_t.geometric)),
                                   kernel=kern.value)
         one = torch.ones(2, 2, dtype=f64)

@@ -483,7 +483,8 @@ def test_dense_front_on_the_card(dev):
     assert got == dict(mpdata=8, cond=4, transport=4, merge=4, coal=2,
                        coal_standalone=0, cond_flat=0, cond_sd=0,
                        transport_unwrapped=0, merge_exact=0,
-                       cond_sd_fixed=0, cond_sd_adaptive=0)
+                       cond_sd_fixed=0, cond_sd_adaptive=0, coal_vohl=0,
+                       transport_pred_corr=0)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run(4, spinup=2, plain=True)
     assert torch.equal(front.th, fused.th) and torch.equal(front.rv, fused.rv)
@@ -1087,7 +1088,8 @@ def test_dense_exact_kernels_match_plain(dev, mode):
                        coal_standalone=0, cond_flat=0, cond_sd=0,
                        transport_unwrapped=0, merge_exact=4,
                        cond_sd_fixed=0 if adaptive else 4,
-                       cond_sd_adaptive=4 if adaptive else 0)
+                       cond_sd_adaptive=4 if adaptive else 0, coal_vohl=0,
+                       transport_pred_corr=0)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run_device_lgrngn(4, spinup=2, engine="dense", plain=True)
     for m in (fused, plain):
@@ -1399,3 +1401,157 @@ def test_mesh_matches_serial_on_the_card(dev, coal_on):
     assert _rel(mesh.th, serial.th) <= 2e-6
     assert _rel(mesh.rv, serial.rv) <= 2e-5
     assert int(r.state().overflow) == 0
+
+
+# ------------------------------------------- E's vohl form, C's pred_corr
+@pytest.mark.parametrize("form", ["stride", "sort"])
+@pytest.mark.parametrize("cap", [2, 32, 128, 256, 512])
+def test_coal_vohl_kernel_matches_plain(coal_model, cap, form):
+    """Kernel E's wide-table form (vohl_davis_no_waals, its table K + 2 =
+    152 wide) on droplets of 10 um to 1.5 mm (table indices past 126),
+    bitwise equal to its plain version lane by lane, and launched as
+    _ext.COAL_VOHL; keyed by a mesh shard's global rows too."""
+    cfg = _coal_cfg(coal_model, kernel_t.vohl_davis_no_waals)
+    planes, cells = _coal_rows(coal_model.device, cap,
+                               rows=max(48, 1024 // cap), seed=4)
+    planes = (planes[0], planes[1] * 25.0) + planes[2:]
+    assert float(planes[1].max()) > (1.1e-3) ** 2
+    args = (cfg, (), 10, 100.0, 44, 3) + planes + cells
+    run = lambda plain, **kw: coal.coal_resident(*args, pairing=form,
+                                                 plain=plain, **kw)
+    before = _ext.COAL.launches
+    k = _launches(_ext.COAL_VOHL, lambda: run(False))
+    assert _ext.COAL.launches == before
+    p = run(True)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert float(p[0].sum()) < float(planes[0].sum())     # collisions
+    rows = slice(8, 24)
+    part = lambda plain: coal.coal_resident(
+        cfg, (), 10, 100.0, 44, 3, *(a[rows] for a in planes),
+        *(c[rows] for c in cells), pairing=form, row0=8, plain=plain)
+    ks = _launches(_ext.COAL_VOHL, lambda: part(False))
+    assert all(torch.equal(a, b) for a, b in zip(ks, part(True)))
+    assert all(torch.equal(a[rows], b) for a, b in zip(k, ks))
+
+
+@pytest.mark.parametrize("form", ["stride", "sort"])
+@pytest.mark.parametrize("cap", [32, 128])
+def test_coal_const_multi_flag_matches_plain(coal_model, cap, form):
+    """A const-multi population (every multiplicity 1e9): kernel E's
+    overflow flag row by row equal to its plain version's, some rows
+    flagged and some not, and the SDs emptied by collisions of equal
+    multiplicities equal lane by lane."""
+    cfg = dataclasses.replace(_coal_cfg(coal_model, kernel_t.geometric),
+                              pure_const_multi=True)
+    planes, cells = _coal_rows(coal_model.device, cap, rows=64, seed=6)
+    n = torch.where(planes[0] > 0, 1e9, 0.0)
+    dv = cells[4] * torch.logspace(-6, 2, 64, device=n.device)
+    args = (cfg, (1.0,), 10, 100.0, 44, 3, n) + planes[1:] + cells[:4] \
+        + (dv,)
+    k, p, _ = _coal_run(form, args)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    flags = k[-1]
+    assert 0 < int(flags.sum()) < int((n > 0).any(1).sum())
+    assert int(((n > 0) & (k[0] == 0)).sum()) > 0
+
+
+def _pred_corr_case(dev, cap, nx=8, nz=6, seed=0):
+    """transport_case's rows under pred_corr with staggered courants to
+    match (courant_x (nx+1)*nz, courant_z nx*(nz+1), up to 0.6 so that
+    predictors leave their cells), a quarter of the first and the last
+    column's droplets within 0.5 m of the periodic side walls."""
+    cfg, planes, cells = transport_case(nx, nz, cap, seed=seed, device=dev,
+                                        dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, adve_scheme=as_t.pred_corr.value)
+    rng = np.random.default_rng(seed + 77)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    cx = f32(rng.uniform(-0.6, 0.6, (nx + 1) * nz))
+    cz = f32(rng.uniform(-0.6, 0.6, nx * (nz + 1)))
+    cxx, czz = cx.view(nx + 1, nz), cz.view(nx, nz + 1)
+    rows = (cxx[:-1].reshape(-1), cxx[1:].reshape(-1),
+            czz[:, :-1].reshape(-1), czz[:, 1:].reshape(-1))
+    n, rw2, rd3, kpa, x, z = planes
+    col = (torch.arange(cfg.n_cell, device=dev) // nz)[:, None].expand(
+        n.shape)
+    u = f32(rng.uniform(1e-3, 0.5, n.shape))
+    edge = f32(rng.random(n.shape)) < 0.25
+    x = torch.where(edge & (col == 0), u, x)
+    x = torch.where(edge & (col == nx - 1), cfg.x1 - u, x)
+    return cfg, (n, rw2, rd3, kpa, x.contiguous(), z), \
+        tuple(cells[:4]) + rows, (cx, cz)
+
+
+@pytest.mark.parametrize("rain", [False, True], ids=["cloud", "rain"])
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("cap", [2, 32, 100, 128, 512])
+def test_transport_pred_corr_kernel_matches_plain(dev, cap, misaligned,
+                                                  rain):
+    """Kernel C's pred_corr form at row capacity 2 to 512, in the
+    scalar-slot and the 16-byte layout, on cloud droplets and on drizzle
+    (radii x20, sedimenting), bitwise equal to transport_plain in every
+    slot (the far flags exact, the puddle partials rel 1e-5); droplets
+    crossed the periodic side walls and left their cells."""
+    cfg, planes, cells, courants = _pred_corr_case(dev, cap)
+    n, rw2, rd3, kpa, x, z = planes
+    if rain:
+        rw2 = rw2 * 400.0
+    if misaligned:
+        buf = torch.empty(rw2.numel() + 1, dtype=torch.float32, device=dev)
+        rw2 = buf[1:].view(rw2.shape)
+        rw2.copy_(planes[1] * (400.0 if rain else 1.0))
+    args = (cfg, 1.0, rain, n, rw2, rd3, x, z) + cells
+    kc = _launches(_ext.TRANSPORT_PRED_CORR,
+                   lambda: step.transport(*args, courants=courants))
+    pc = step.transport(*args, courants=courants, plain=True)
+    for a, b in zip(kc[:5], pc[:5]):                      # n x z vt targets
+        assert torch.equal(a, b)
+    assert torch.equal(kc[5][:, 4], pc[5][:, 4])
+    assert torch.allclose(kc[5][:, :4], pc[5][:, :4], rtol=1e-5, atol=0.0)
+    live = (n > 0) & (kc[0] > 0)
+    if cap >= 32:
+        assert bool((torch.abs(kc[1] - x)[live] > 0.5 * cfg.x1).any())
+        own = (torch.arange(cfg.n_cell, device=dev, dtype=torch.int32)
+               [:, None].expand(n.shape))
+        assert bool((kc[4][live] != own[live]).any())
+
+
+def test_transport_pred_corr_refusals(dev):
+    cfg, planes, cells, courants = _pred_corr_case(dev, 32)
+    args = (cfg, 1.0, False) + planes[:3] + planes[4:] + cells
+    with pytest.raises(ValueError, match="courants"):
+        step.transport(*args)
+    with pytest.raises(ValueError, match="courants"):
+        step.transport(*args, courants=(courants[0][:-1], courants[1]))
+
+
+@pytest.mark.parametrize("case", ["const_multi", "vohl", "pred_corr"])
+def test_dense_option_slices_match_plain(dev, case):
+    """Two spin-up and two coalescing steps of the 8x8 case of each
+    option through the kernels and the plain versions: E's forms and C's
+    launched once a step (E's vohl form under vohl, C's pred_corr form
+    under pred_corr), the fields within kernel B's gates and the
+    population's counts equal."""
+    oi = {"const_multi": dict(sd_const_multi=1e11,
+                              kernel_parameters=[3000.0]),
+          "vohl": dict(kernel=kernel_t.vohl_davis_no_waals),
+          "pred_corr": dict(adve_scheme=as_t.pred_corr,
+                            kernel_parameters=[100.0])}[case]
+    kw = dict(nx=8, nz=8, sd_conc=0 if case == "const_multi" else 24,
+              sstp_cond=3, sstp_coal=3, n_sd_max=8192, opts_init_kw=oi,
+              device=dev)
+    mk, mp = Kinematic2D(**kw), Kinematic2D(**kw)
+    coal_k = _ext.COAL_VOHL if case == "vohl" else _ext.COAL
+    trans_k = _ext.TRANSPORT_PRED_CORR if case == "pred_corr" \
+        else _ext.TRANSPORT
+    before = {k.name: k.launches for k in _ext.KERNELS}
+    mk.run_device_lgrngn(4, spinup=2, engine="dense")
+    torch.cuda.synchronize()
+    assert coal_k.launches == before[coal_k.name] + 2
+    assert trans_k.launches == before[trans_k.name] + 4
+    mp.run_device_lgrngn(4, spinup=2, engine="dense", plain=True)
+    assert _rel(mk.th, mp.th) <= 2e-6
+    assert _rel(mk.rv, mp.rv) <= 2e-5
+    dk, dp = mk.dense_state, mp.dense_state
+    assert torch.equal((dk.n > 0).sum(1), (dp.n > 0).sum(1))
+    assert mk.prtcls._sstp_coal_extra == mp.prtcls._sstp_coal_extra

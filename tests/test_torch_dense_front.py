@@ -228,10 +228,10 @@ def test_factory_engine_choice_on_the_cpu(engine, cls):
 def test_factory_refusals_and_capability():
     oi, _ = _setup(tl, True)
     assert dense_capable(tl.particles_t(tl.backend_t.serial, oi, **F64).cfg)
-    oi.kernel = tl.kernel_t.vohl_davis_no_waals
+    oi.kernel = tl.kernel_t.onishi_hall
     cfg = tl.particles_t(tl.backend_t.serial, oi, **F64).cfg
     assert not dense_capable(cfg)
-    with pytest.raises(NotImplementedError, match="vohl_davis_no_waals"):
+    with pytest.raises(NotImplementedError, match="onishi_hall"):
         tl.factory(tl.backend_t.serial, oi, engine="dense", **F64)
     with pytest.raises(ValueError, match="engine"):
         tl.factory(tl.backend_t.serial, oi, engine="xla", **F64)

@@ -53,7 +53,7 @@ from libcloudphxx_tpu_torch import Kinematic2D
 from libcloudphxx_tpu_torch.convert import (dense_state_to_numpy,
                                             static_config_from_numpy)
 from libcloudphxx_tpu_torch.lgrngn import dense as tdense
-from libcloudphxx_tpu_torch.lgrngn import as_t, kernel_t, vt_t
+from libcloudphxx_tpu_torch.lgrngn import kernel_t, vt_t
 from libcloudphxx_tpu_torch.lgrngn.state import OUT_PRTCL_NUM
 from libcloudphxx_tpu_torch.models.kinematic_2d import dense_capacity
 
@@ -332,8 +332,7 @@ def test_unported_paths_raise(what, port):
     m, _, _ = port
     if what == "coalescence":
         # coalescence runs (test_coal_slice_*), but not with the turbulent
-        # kernels (ROADMAP.md, Queue 1, "Dense-engine options that the port
-        # refuses")
+        # kernels (ROADMAP.md, Queue 1, "The LES slice")
         m2 = Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
                          dtype=torch.float64,
                          opts_init_kw={"kernel": kernel_t.onishi_hall})
@@ -349,11 +348,12 @@ def test_unported_paths_raise(what, port):
         return
     with pytest.raises(NotImplementedError):
         if what == "engine":
-            # the dense engine moves SDs by the implicit or euler scheme
-            # only; pred_corr runs on the flat engine (exact per-particle
-            # substepping runs on both: test_torch_dense_exact.py)
+            # the dense engine runs every advection scheme, const-multi
+            # and vohl (test_torch_dense_options.py), but not the
+            # turbulent kernels, which the factory then refuses
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu", engine="dense",
-                        opts_init_kw={"adve_scheme": as_t.pred_corr})
+                        opts_init_kw={
+                            "kernel": kernel_t.onishi_hall_davis_no_waals})
         elif what == "multi_device":
             # one device only (ROADMAP.md, Queue 1, "Multi-device
             # (parallel/)"); the repack policy runs (test_torch_repack.py)
@@ -361,8 +361,7 @@ def test_unported_paths_raise(what, port):
                         opts_init_kw={"dev_count": 2})
         else:
             # the bulk schemes run (test_torch_kinematic_blk.py);
-            # lgrngn_chem does not (ROADMAP.md, Queue 1, "The flat
-            # engine's remaining features")
+            # lgrngn_chem does not (ROADMAP.md, Queue 1, "Chemistry")
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
                         micro="lgrngn_chem")
 

@@ -233,7 +233,7 @@ def test_lgrngn_node_dense_engine_matches_jax(lgrngn_pair):
 
 def test_refusals():
     with pytest.raises(NotImplementedError,
-                       match="The flat engine's remaining features"):
+                       match="Chemistry"):
         Kinematic2D(nx=4, nz=4, micro="lgrngn_chem", **F64)
     with pytest.raises(ValueError, match="unknown micro"):
         Kinematic2D(nx=4, nz=4, micro="blk_3m", **F64)

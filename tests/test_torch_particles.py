@@ -380,7 +380,7 @@ def test_defaults_and_refusals(monkeypatch):
                         ({"chem_switch": True}, "chem_switch"),
                         ({"diag_incloud_time": True}, "diag_incloud_time"),
                         ({"turb_adve_switch": True},
-                         "turb_adve_switch.*remaining features")):
+                         "turb_adve_switch.*The LES slice")):
         o = _copy(oi, **over)
         with pytest.raises(NotImplementedError, match=match):
             factory(tl.backend_t.CUDA, o, **F64)

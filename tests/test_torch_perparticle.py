@@ -370,5 +370,5 @@ def test_exact_modes_construct_and_refusals():
     with pytest.raises(NotImplementedError, match="exact substepping"):
         MeshRunner(m, 2).run(1)
     with pytest.raises(NotImplementedError,
-                       match="turb_cond_switch.*remaining features"):
+                       match="turb_cond_switch.*The LES slice"):
         Kinematic2D(**_kw("mix", turb_cond_switch=True), **F64)

@@ -153,17 +153,22 @@ def test_step_fused_th_std_const_p_matches_jax_xla():
 
 
 def test_step_fused_refuses_coalescence():
-    """Coalescence runs, except where it is not ported: a const-multi
-    population (the increase_sstp_coal path) and the turbulent kernels."""
+    """Coalescence runs, a const-multi population's too (the
+    increase_sstp_coal flag in the puddle), except where it is not ported:
+    the turbulent kernels."""
     m, cfg, d = _setup(False)
     th, rv = t(m.th).reshape(-1), t(m.rv).reshape(-1)
-    for over, match in (({"pure_const_multi": True}, "const-multi"),
-                        ({"kernel": lgrngn.kernel_t.onishi_hall.value},
-                         "onishi_hall")):
-        with pytest.raises(NotImplementedError, match=match):
-            tdense.step_fused(dataclasses.replace(port_cfg(cfg), **over),
+    for kern in (lgrngn.kernel_t.onishi_hall,
+                 lgrngn.kernel_t.onishi_hall_davis_no_waals):
+        with pytest.raises(NotImplementedError, match=kern.name):
+            tdense.step_fused(dataclasses.replace(port_cfg(cfg),
+                                                  kernel=kern.value),
                               port_state(d), th, rv, (), 1.0, 44.0, 2, True,
                               True)
+    out, _, _ = tdense.step_fused(
+        dataclasses.replace(port_cfg(cfg), pure_const_multi=True),
+        port_state(d), th, rv, (), 1.0, 44.0, 2, True, True)
+    assert out.rng_step == 1
 
 
 def test_rebin_x_plain_takes_neighbours_in_order():
