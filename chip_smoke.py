@@ -144,6 +144,26 @@ checks them:
      beside their bounds (E's counting the table and its lookups, C's the
      staggered courants and the corrector); best-of-3 timing of 50 steps
      from init, and the new forms' device time in the step
+ 18. the LES slice (an LES host's coupling) through the public API at
+     76x76 and sd_conc 64, each step step_sync(opts, th, rv, rhod, Cx, Cz,
+     diss_rate=1e-3 everywhere) then step_async(opts) after kernel A's
+     MPDATA of th and rv: (a) turb_adve, turb_cond and turb_coal with the
+     onishi_hall kernel, diag_incloud_time, sedimentation and recycling
+     (kernel F's turb_cond form); (b) the same with exact substepping and
+     in-cell mixing (G's fixed-count turb_cond form); (c) with adaptive
+     substepping, sstp_cond_act 8 (G's adaptive turb_cond form); (d) (a)
+     with the simple aerosol source and the CCN relaxation and without
+     recycling (which would fill the slots the sources need); (e)
+     turb_adve alone with the hall kernel on the factory's dense front
+     (kernel B condenses, the flat engine runs each async phase).  Each:
+     the counted run (its form once a step), then best-of-3 timing from
+     init (50 steps for (e)), with on every rep finite fields, water
+     conserved with the puddle and what the sources added, |up| of the
+     order of sqrt(2/3 TKE), ssp finite and not all zero, the in-cloud
+     time >= 0 and 0 far below activation, no SD dropped; each new form
+     against its plain version on what a step gives it (F within its cell
+     sums' gates with ssp bitwise, G-fixed within B's gates, G-adaptive
+     bitwise), timed beside its bound
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
@@ -321,6 +341,19 @@ OPTION_SPINUP, OPTION_MAIN = 10, 10
 # means), and its float64 operations (the corrector cell's two divisions
 # and floors)
 OPS_EFF, OPS_PRED_CORR, OPS_PRED_CORR_F64 = 41, 25, 4
+# phase 18: the LES slice at 76x76 and sd_conc 64 through the public API:
+# the dissipation rate every cell gets (tests/test_lgrngn_transport.py:181)
+# and the onishi kernel's Re_lambda (coalescence_onishi_hall.py); each
+# configuration's steps from init (best of TIME_REPS reps after the
+# counted run; (e) LES_STEPS_E); (d)'s source: SRC_SD_CONC SDs a cell of
+# the lowest SRC_LEVELS levels every SRC_SUPSTP steps, from the GMD
+# distribution scaled by SRC_SCALE a second; its n_sd_max holds the
+# sources' and the relaxation's SDs: at most 2 calls of 76 x 10 x 4 and 10
+# of 64 bins x 76 levels, 54,720, beside the 369,664 of init
+LES_DISS, LES_RE_LAMBDA = 1e-3, 100.0
+LES_STEPS, LES_STEPS_E = 20, 50
+SRC_SD_CONC, SRC_LEVELS, SRC_SUPSTP, SRC_SCALE = 4, 10, 10, 0.01
+LES_SD_HEADROOM = 65_536
 
 # the Golovin box of tests/test_pallas_coal_golovin.py
 GOLOVIN_SIM_TIME, GOLOVIN_SSTP = 800.0, 100
@@ -740,8 +773,11 @@ def flat_first_substep(cfg, kw):
         else kw["rhod"]
     T, p, RH, eta = hskpng_Tpr(cfg, th, rv, rhod, kw["p"])
     g = lambda a: a[kw["sijk"]]
+    RH_sd = g(RH)
+    if kw.get("ssp") is not None:    # turb_cond: RH plus the first ssp
+        RH_sd = RH_sd + (kw["ssp"] + kw["dt_sub"] * kw["dot_ssp"])
     return (kw["rw2"], kw["rd3"], kw["kpa"], kw["vt"], g(rhod), g(rv), g(T),
-            g(p), g(RH), g(eta), g(kw["lambda_D"]), g(kw["lambda_K"]))
+            g(p), RH_sd, g(eta), g(kw["lambda_D"]), g(kw["lambda_K"]))
 
 
 def segments(kw):
@@ -1201,7 +1237,8 @@ def smoke(opts):
                         merge=steps, coal=SLICE_MAIN, coal_standalone=0,
                         cond_flat=0, cond_sd=0, transport_unwrapped=0,
                         merge_exact=0, cond_sd_fixed=0, cond_sd_adaptive=0,
-                        coal_vohl=0, transport_pred_corr=0),
+                        coal_vohl=0, transport_pred_corr=0, cond_flat_turb=0,
+                        cond_sd_fixed_turb=0, cond_sd_adaptive_turb=0),
           f"dense front: kernel A twice, B, C and D once a step and E once "
           f"a main step expected, got {front}")
     # bitwise against run_device_lgrngn(engine="dense") from the same state
@@ -1341,7 +1378,9 @@ def smoke(opts):
     for k in _ext.KERNELS:
         if k in (_ext.TRANSPORT_UNWRAPPED, _ext.MERGE_EXACT,  # 14's, 15's
                  _ext.COND_SD_FIXED, _ext.COND_SD_ADAPTIVE,   # 8's, 15's
-                 _ext.COAL_VOHL, _ext.TRANSPORT_PRED_CORR):   # 17's
+                 _ext.COAL_VOHL, _ext.TRANSPORT_PRED_CORR,    # 17's
+                 _ext.COND_FLAT_TURB, _ext.COND_SD_FIXED_TURB,
+                 _ext.COND_SD_ADAPTIVE_TURB):                 # 18's
             continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
@@ -1428,6 +1467,12 @@ def smoke(opts):
                                 opt_err.get(kr["name"], 0.0))
     rows += opt_rows
     print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+
+    # ---- 18. the LES slice: SGS turbulence, sources, relaxation
+    t18 = time.perf_counter()
+    les_rows, les = les_phase(Kinematic2D, _ext, c, card, opts.profile)
+    rows += les_rows
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
 
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
@@ -2818,12 +2863,16 @@ def cond_sd_bound(kw):
 
 def _form_bytes(kw):
     """What G's two forms must move: a live SD's nine arrays in and five
-    out, a dead slot's n, and its rw2 in and out, each cell's arrays once,
-    and the flat layout's order and ends, at the memory rate."""
+    out (under turb_cond also its ssp in, and the adaptive form's dot_ssp
+    in and ssp out), a dead slot's n, and its rw2 in and out, each cell's
+    arrays once, and the flat layout's order and ends, at the memory
+    rate."""
     sd, cells, seg = kw["sd"], kw["cells"], kw.get("seg")
     n = sd[0]
     live, b = int((n > 0).sum()), n.element_size()
-    moved = live * 14 * b + (n.numel() - live) * 3 * b \
+    per_live = 14 + (kw.get("ssp") is not None) \
+        + 2 * (kw.get("dot_ssp") is not None)
+    moved = live * per_live * b + (n.numel() - live) * 3 * b \
         + sum(nbytes(a) for a in cells)
     if seg is not None:
         moved += nbytes(seg[1], seg[2])
@@ -2952,20 +3001,32 @@ def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw,
         nbytes(kc[4]) + 7 * slot * live_c + 7 * nbytes(d0.n)
         + nbytes(d0.rhod), live_c * OPS_MERGE)
     out.update(coal_bounds(cfg, ds, work_e))
-    # F: five SD arrays, the cell ends, ten cell fields and the cell order
-    # in; rw2 and three cell fields out
+    out["cond_flat"] = cond_flat_bound(f_cfg, f_kw)
+    return out
+
+
+def cond_flat_bound(f_cfg, f_kw):
+    """Kernel F's bound on its arguments ``f_kw`` (cond_flat's): five SD
+    arrays, the cell ends, ten cell fields and the cell order in, rw2 and
+    three cell fields out (under turb_cond also ssp and dot_ssp in and ssp
+    out); the first substep's growth work (at each droplet's RH plus its
+    ssp under turb_cond) sstp_cond times, each live droplet's set-up, each
+    cell's substeps."""
     ops_f, brk, live = rootfind_ops(
         f_kw["dt_sub"], flat_first_substep(f_cfg, f_kw), f_kw["RH_max"],
         f_kw["wgt"] > 0)
-    print(f"F cond_flat: {brk / live:.4f} of the {live} live droplets "
+    turb = f_kw.get("ssp") is not None
+    name = "cond_flat_turb" if turb else "cond_flat"
+    print(f"F {name}: {brk / live:.4f} of the {live} live droplets "
           f"bracketed in the first substep")
     sd = [f_kw[k] for k in ("rw2", "rd3", "kpa", "vt", "wgt")]
+    if turb:
+        sd += [f_kw["ssp"], f_kw["dot_ssp"], f_kw["ssp"]]
     n_f = f_kw["th"].numel()
-    out["cond_flat"] = bound(
+    return bound(
         nbytes(*sd, f_kw["ends"], f_kw["rw2"]) + 14 * nbytes(f_kw["th"]),
         f_kw["sstp"] * ops_f + live * OPS_DROP
         + n_f * (f_kw["sstp"] * OPS_CELL_SUBSTEP + OPS_CLOSURE))
-    return out
 
 
 def cond_bound(cfg, d0, tha, rva):
@@ -3256,6 +3317,368 @@ def bulk_phase(Kinematic2D, mpdata, _ext, card, profile_on):
                           step_ms=step_ms, max_abs_err=err)
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+def les_model(Kinematic2D, case):
+    """Phase 18's model of configuration ``case`` (a)-(e) and its opts
+    (the public API's per-step switches)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.models.kinematic_2d import Setup
+    setup = Setup()
+    oi = dict(turb_adve_switch=True)
+    if case == "e":
+        oi.update(kernel=tl.kernel_t.hall)
+    else:
+        oi.update(turb_cond_switch=True, turb_coal_switch=True,
+                  diag_incloud_time=True, kernel=tl.kernel_t.onishi_hall,
+                  kernel_parameters=[LES_RE_LAMBDA])
+    if case == "b":
+        oi.update(exact_sstp_cond=True)
+    if case == "c":
+        oi.update(exact_sstp_cond=True, adaptive_sstp_cond=True,
+                  sstp_cond_act=8)
+    n_sd = SD_CONC * NX * NZ
+    if case == "d":
+        dz = setup.Z / NZ
+        oi.update(src_type=tl.src_t.simple, src_x0=0.0, src_x1=setup.X,
+                  src_z0=0.0, src_z1=SRC_LEVELS * dz, rlx_switch=True,
+                  supstp_rlx=2, rlx_bins=64,
+                  rlx_dry_distros={setup.kappa: (
+                      setup.lognormal_lnrd, (0.0, 2.0), (0.0, setup.Z))})
+        n_sd += LES_SD_HEADROOM
+    m = Kinematic2D(nx=NX, nz=NZ, micro="lgrngn", sd_conc=SD_CONC,
+                    sstp_cond=SSTP_COND, sstp_coal=SSTP_COAL,
+                    n_sd_max=n_sd,
+                    opts_init_kw=oi, device=DEVICE)
+    opts = tl.opts_t()
+    opts.turb_adve = True
+    opts.turb_cond = opts.turb_coal = case != "e"
+    opts.rcyc = case in ("a", "b", "c")
+    if case == "d":
+        opts.src = opts.rlx = True
+        scaled = lambda lnr: SRC_SCALE * setup.lognormal_lnrd(lnr)
+        opts.src_dry_distros = {(setup.kappa, 0.0): (scaled, SRC_SD_CONC,
+                                                     SRC_SUPSTP)}
+    return m, opts
+
+
+def les_step(m, opts, diss, plain=False):
+    """One step of the LES host loop: MPDATA of th and rv (kernel A), then
+    step_sync(opts, th, rv, rhod, Cx, Cz, diss_rate) and step_async(opts)."""
+    m.advect_scalars(plain=plain)
+    th, rv = m.prtcls.step_sync(opts, m.th, m.rv, m.rhod,
+                                courant_x=m.C_x, courant_z=m.C_z,
+                                diss_rate=diss, plain=plain)
+    m.th, m.rv = th.reshape(NX, NZ), rv.reshape(NX, NZ)
+    m.prtcls.step_async(opts, plain=plain)
+
+
+def les_init(m):
+    """What les_reset puts back: the flat state and the fields at init."""
+    return m.prtcls.state, m.th, m.rv
+
+
+def les_reset(m, init):
+    """Put a phase-18 model back at ``init``: its state, fields, source
+    and relaxation counters and their generator, and (the dense front) its
+    layout."""
+    p = m.prtcls
+    p.state, m.th, m.rv = init
+    p._src_ctr = p._rlx_ctr = p._sstp_coal_extra = 0
+    p._src_rng = np.random.default_rng(p.opts_init.rng_seed + 1)
+    if hasattr(p, "_loc"):
+        p._loc, p._d, p._riders = "flat", None, {}
+
+
+def les_water(m, c):
+    """(water, dry volume sum, live SDs) through the public API."""
+    water, dry = flat_totals(m.prtcls, m.rv, c)
+    return water, dry, int((m.prtcls.get_attr("n") > 0).sum())
+
+
+def les_checks(label, m, opts, totals0, added, made, flow, c):
+    """Phase 18's checks on a model after a run: finite fields, water
+    conserved with the puddle and what the sources added (``added``: its
+    kg), the velocity perturbations of the order of sqrt(2/3 TKE), ssp
+    finite and not all zero (turb_cond), the in-cloud time >= 0 and 0 on
+    the SDs far below their critical radius, no SD dropped: each of the
+    ``made`` SDs the sources made is live after its injection, the live
+    count at the end is the count at the start plus ``flow``'s changes
+    (the injection, recycling) less its losses (coalescence, the walls),
+    recycling fills every slot, and the dense front overflows no row."""
+    from libcloudphxx_tpu_torch.common import kappa_koehler
+    from libcloudphxx_tpu_torch.lgrngn import condensation
+    p = m.prtcls
+    water, dry, n_live = les_water(m, c)
+    st = p.state
+    live = st.n > 0
+    check(bool(torch.isfinite(m.th).all() and torch.isfinite(m.rv).all()),
+          f"LES {label}: non-finite th/rv")
+    check(bool(torch.isfinite(st.rw2[live]).all()
+               and (st.rw2[live] > 0).all()), f"LES {label}: bad rw2")
+    dw = abs(water - totals0[0] - added) / totals0[0]
+    check(dw < 1e-3, f"LES {label}: water conservation off by {dw:.2e}")
+    urms = max(np.sqrt(2.0 / 3 * float(st.diss_rate.max())), 1e-30)
+    ratio = [float(getattr(st, k)[live].abs().mean()) / urms
+             for k in ("up", "wp")]
+    check(all(0.1 < r < 2.0 for r in ratio),
+          f"LES {label}: mean |up|, |wp| / sqrt(2/3 TKE) {ratio}")
+    out = {"water_rel_err": dw, "up_wp_over_urms": ratio, "sds": n_live}
+    if opts.turb_cond:
+        # the exact fixed-count mode holds ssp, which nothing else advances
+        # (the JAX package's cond_perparticle): zero there from init
+        ssp = st.ssp[live]
+        moves = not (p.cfg.exact_sstp_cond and not p.cfg.adaptive_sstp_cond)
+        check(bool(torch.isfinite(ssp).all())
+              and bool((ssp != 0).any()) == moves,
+              f"LES {label}: ssp non-finite, or zero where it moves")
+        out["ssp_abs_max"] = float(ssp.abs().max())
+    if p.opts_init.diag_incloud_time:
+        T = p._tpr().T[st.ijk]
+        rc2 = kappa_koehler.rw3_cr(torch.clamp(st.rd3, min=1e-30),
+                                   torch.clamp(st.kpa, min=1e-10),
+                                   T) ** (2.0 / 3)
+        far = live & (st.rw2 < 0.25 * rc2)
+        ict = st.incloud_time
+        # the exact modes do not update it (the JAX package's step_cond)
+        counts = not condensation.exact_route(p.cfg)
+        check(bool((ict >= 0).all()) and bool((ict[far] == 0).all())
+              and bool((ict[live] > 0).any()) == counts,
+              f"LES {label}: in-cloud time negative, non-zero far below "
+              f"activation, or positive where it is not counted")
+        out["incloud_share"] = float((ict[live] > 0).double().mean())
+    if hasattr(p, "_d") and p._d is not None:
+        check(int(p._d.overflow) == 0, f"LES {label}: SDs dropped")
+    check(flow["src"] == made and flow["coal"] <= 0 and flow["walls"] <= 0
+          and flow["rcyc"] >= 0 and n_live == totals0[2] + sum(flow.values()),
+          f"LES {label}: SDs dropped: {totals0[2]} live at the start, "
+          f"{n_live} at the end, {made} made by the sources, changes {flow}")
+    if opts.rcyc:
+        check(n_live == p.cfg.n_sd_max, f"LES {label}: {n_live} SDs live "
+              f"after recycling, {p.cfg.n_sd_max} slots")
+    out.update(sds_made=made, sds_flow=flow)
+    return out
+
+
+def les_run(m, opts, diss, steps, c, label):
+    """``steps`` LES steps from the model's state with the checks; the
+    water the sources and the relaxation added is summed from what they
+    inject, and each phase that can revive or kill SDs (the injection, the
+    coalescence, the walls, recycling) has its change of the live count
+    summed on the device.  Returns (seconds, checks)."""
+    from libcloudphxx_tpu_torch.lgrngn import coalescence, recycle
+    from libcloudphxx_tpu_torch.lgrngn import source as source_mod
+    from libcloudphxx_tpu_torch.lgrngn import transport
+    totals0 = les_water(m, c)
+    added, made = [0.0], [0]
+    flow = {k: torch.zeros((), dtype=torch.int64, device=DEVICE)
+            for k in ("src", "coal", "walls", "rcyc")}
+
+    def tally(key, before, after):
+        flow[key] += (after.n > 0).sum() - (before.n > 0).sum()
+
+    real = {(source_mod.StateEngine, "inject"): source_mod.StateEngine.inject,
+            (coalescence, "coal"): coalescence.coal,
+            (transport, "bcnd"): transport.bcnd,
+            (recycle, "rcyc"): recycle.rcyc}
+
+    def inject(eng, new):
+        added[0] += 4.0 / 3 * c.pi * c.rho_w * float(
+            np.sum(new["n"] * np.asarray(new["rw2"], np.float64) ** 1.5))
+        made[0] += int(np.count_nonzero(np.asarray(new["n"]) > 0))
+        before = eng.state
+        count = real[source_mod.StateEngine, "inject"](eng, new)
+        tally("src", before, eng.state)
+        return count
+
+    def counted(key, fn):
+        def run(cfg, state, *args, **kw):
+            out = fn(cfg, state, *args, **kw)
+            tally(key, state, out)
+            return out
+        return run
+
+    source_mod.StateEngine.inject = inject
+    coalescence.coal = counted("coal", real[coalescence, "coal"])
+    transport.bcnd = counted("walls", real[transport, "bcnd"])
+    recycle.rcyc = counted("rcyc", real[recycle, "rcyc"])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            les_step(m, opts, diss)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for (owner, name), fn in real.items():
+            setattr(owner, name, fn)
+    flow = {k: int(v) for k, v in flow.items()}
+    return secs, les_checks(label, m, opts, totals0, added[0], made[0],
+                            flow, c)
+
+
+LES_FORMS = {"a": ("cond_flat", "COND_FLAT_TURB"),
+             "b": ("perparticle_fixed", "COND_SD_FIXED_TURB"),
+             "c": ("perparticle_adaptive", "COND_SD_ADAPTIVE_TURB"),
+             "d": ("cond_flat", "COND_FLAT_TURB"),
+             "e": (None, "COND")}
+
+
+def les_form_check(case, kw, err):
+    """A turb_cond form against its plain version on its captured
+    arguments: F (a) with the live droplets' rw2 within the cell sums'
+    gates (rel 1e-5, th 2e-6, rv 2e-5) and ssp bitwise, the dead slots
+    copied through; G's fixed form (b, with mixing) as check_form; G's
+    adaptive form (c) bitwise, ssp too."""
+    from libcloudphxx_tpu_torch import _ext
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    fname, kname = LES_FORMS[case]
+    kernel = getattr(_ext, kname)
+    f = getattr(cond_ops, fname)
+    k, pl = f(**kw), f(**kw, plain=True)
+    torch.cuda.synchronize()
+    if fname == "cond_flat":
+        live = kw["wgt"] > 0
+        rel = (max_rel(k[0][live], pl[0][live]), max_rel(k[1], pl[1]),
+               max_rel(k[2], pl[2]))
+        same = bool(torch.equal(k[4][live], pl[4][live])) \
+            and bool(torch.equal(k[0][~live], kw["rw2"][~live])) \
+            and bool(torch.equal(k[4][~live], kw["ssp"][~live]))
+        ok = same and rel[0] <= 1e-5 and rel[1] <= 2e-6 and rel[2] <= 2e-5
+        err[kernel.name] = max(err.get(kernel.name, 0.0),
+                               max_abs(k[0][live], pl[0][live]),
+                               max_abs(k[1], pl[1]), max_abs(k[2], pl[2]),
+                               max_abs(k[4][live], pl[4][live]))
+        print(f"F {kernel.name} ({case}): {int(live.sum())} live of "
+              f"{live.numel()}; rw2 rel {rel[0]:.2e}, th rel {rel[1]:.2e}, "
+              f"rv rel {rel[2]:.2e}; ssp (live) and dead slots bitwise "
+              f"{same}", flush=True)
+        check(ok, f"{kernel.name}: kernel and plain version differ")
+        return
+    n, rw2 = kw["sd"][0], kw["sd"][1]
+    live = n > 0
+    n_slots, n_live = n.numel(), int(live.sum())
+    err[kernel.name] = max(err.get(kernel.name, 0.0), max_abs(k[0], pl[0]),
+                           *(max_abs(a[live], b[live])
+                             for a, b in zip(k[1:], pl[1:])))
+    if fname == "perparticle_fixed":
+        # (b)'s ssp is zero (nothing advances it in the fixed-count exact
+        # mode): hold the form with a seeded ssp too
+        gen = np.random.default_rng(18)
+        ssp = torch.tensor(gen.normal(0.0, 2e-3, n.numel()),
+                           dtype=n.dtype, device=n.device).reshape(n.shape)
+        k2, pl2 = f(**dict(kw, ssp=ssp)), f(**dict(kw, ssp=ssp), plain=True)
+        k, pl = tuple(torch.cat([a.reshape(-1), b.reshape(-1)])
+                      for a, b in zip(k, k2)), \
+            tuple(torch.cat([a.reshape(-1), b.reshape(-1)])
+                  for a, b in zip(pl, pl2))
+        live, rw2 = torch.cat([live.reshape(-1)] * 2), \
+            torch.cat([rw2.reshape(-1)] * 2)
+        err[kernel.name] = max(err[kernel.name], max_abs(k[0], pl[0]),
+                               *(max_abs(a[live], b[live])
+                                 for a, b in zip(k[1:], pl[1:])))
+        kept = ~live & (rw2 <= 0)
+        rel = (max_rel(k[0][live], pl[0][live]),
+               max_rel(k[2][live], pl[2][live]),
+               max_rel(k[1][live], pl[1][live]))
+        same = bool(torch.equal(k[0][kept], pl[0][kept])) and all(
+            torch.equal(a[live], b[live]) for a, b in zip(k[3:], pl[3:]))
+        ok = same and rel[0] <= 1e-5 and rel[1] <= 2e-6 and rel[2] <= 2e-5
+        what = (f"with its ssp and a seeded one, rw2 rel {rel[0]:.2e}, th "
+                f"rel {rel[1]:.2e}, rv rel {rel[2]:.2e} (live), the rest "
+                f"bitwise {same}")
+    else:
+        ok = bool(torch.equal(k[0], pl[0])) and all(
+            torch.equal(a[live], b[live]) for a, b in zip(k[1:], pl[1:]))
+        what = f"bitwise equal (ssp too) {ok}"
+    print(f"G {kernel.name} ({case}): {n_slots} slots, {n_live} live; "
+          f"{what}", flush=True)
+    check(ok, f"{kernel.name}: kernel and plain version differ")
+
+
+def les_phase(Kinematic2D, _ext, c, card, profile_on):
+    """Phase 18 (the module docstring): the LES slice's five
+    configurations and its three turb_cond forms.  Returns (the forms'
+    kernel rows, {case: numbers})."""
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    diss = torch.full((NX, NZ), LES_DISS, device=DEVICE)
+    out, err, form_kw, rows = {}, {}, {}, []
+    for case in "abcde":
+        t_case = time.perf_counter()
+        m, opts = les_model(Kinematic2D, case)
+        p = m.prtcls
+        check(isinstance(p, particles_dense_t) == (case == "e"),
+              f"LES ({case}): the factory's pick is {type(p).__name__}")
+        init = les_init(m)
+        steps = LES_STEPS_E if case == "e" else LES_STEPS
+        fname, kname = LES_FORMS[case]
+        kernel = getattr(_ext, kname)
+        # the counted run: its form (B for (e)) once a step
+        reset(_ext.KERNELS)
+        secs, chk = les_run(m, opts, diss, steps, c, case)
+        launches = {k.name: k.launches for k in _ext.KERNELS}
+        want = dict({k.name: 0 for k in _ext.KERNELS}, mpdata=2 * steps)
+        want[kernel.name] = steps
+        print(f"LES ({case}): {steps} steps from init in {secs:.2f} s; "
+              f"{chk}; launches {launches} ({card})", flush=True)
+        check(launches == want, f"LES ({case}): kernel A twice and "
+              f"{kernel.name} once a step expected, got {launches}")
+        out[case] = dict(chk, launches=launches[kernel.name],
+                         form=kernel.name)
+        if fname is not None:
+            # the form against its plain version on what a step gives it
+            form_kw[case] = capture(cond_ops, fname,
+                                    lambda: les_step(m, opts, diss))
+            les_form_check(case, form_kw[case], err)
+        # best of TIME_REPS reps from init
+        best = float("inf")
+        for _ in range(TIME_REPS):
+            les_reset(m, init)
+            secs, _ = les_run(m, opts, diss, steps, c, case)
+            best = min(best, secs)
+        n_sd = int((init[0].n > 0).sum())
+        out[case].update(ms_per_step=best / steps * 1e3,
+                         sd_updates_per_s=n_sd * steps / best)
+        print(f"timing, LES ({case}): {best / steps * 1e3:.3f} ms/step, "
+              f"{n_sd * steps / best:.4e} SD-updates/s (best of {TIME_REPS} "
+              f"reps of {steps} steps from init, {n_sd} SDs at init) "
+              f"({card})", flush=True)
+        if profile_on:
+            les_reset(m, init)
+            profile(f"LES ({case})", lambda: les_reset(m, init),
+                    lambda n: [les_step(m, opts, diss) for _ in range(n)],
+                    card)
+        if case in ("a", "b", "c"):
+            kw = form_kw[case]
+            f = getattr(cond_ops, fname)
+            ms = time_cuda(lambda: f(**kw), KERNEL_REPS)
+            plain_ms = time_cuda(lambda: f(**kw, plain=True),
+                                 FORM_PLAIN_REPS)
+            if fname == "cond_flat":
+                bound_ms, bound_by = cond_flat_bound(p.cfg, kw)
+            elif fname == "perparticle_fixed":
+                bound_ms, bound_by = cond_sd_fixed_bound(kw)
+            else:
+                bound_ms, bound_by = cond_sd_adaptive_bound(kw)
+            print(f"kernel {kernel.name}: {ms:.4f} ms a launch (a phase), "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}); {out[case]['launches']} launches in the "
+                  f"{steps} steps of ({case}) ({card})", flush=True)
+            rows.append({"name": kernel.name, "route": "cuda",
+                         "source": kernel.source, "replaces": kernel.replaces,
+                         "launches": out[case]["launches"],
+                         "max_abs_err": err[kernel.name], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None})
+        del m, p, init
+        torch.cuda.empty_cache()
+        print(f"LES ({case}): {time.perf_counter() - t_case:.1f} s",
+              flush=True)
+    print("timing, LES: " + ", ".join(
+        f"({k}) {v['ms_per_step']:.3f} ms/step" for k, v in out.items())
+        + f" ({card})", flush=True)
+    return rows, out
 
 
 def profile(label, start, run, card, steps=20):

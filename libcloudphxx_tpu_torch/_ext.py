@@ -181,9 +181,35 @@ COND_SD_ADAPTIVE = Kernel(
     "libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
     ":46, call :78) with the loops around it: lgrngn/condensation.py:684 "
     "perparticle_adaptive_core, lgrngn/dense.py:456 step_cond_adaptive")
+# the turb_cond forms of kernels F and G (the SGS supersaturation
+# perturbation ssp at each SD's RH): each form's arguments, then F's
+# sorted ssp and dot_ssp in and ssp out (its scratch 8 rows), G-fixed's
+# ssp, G-adaptive's ssp and dot_ssp in and ssp out
+_TURB = ("libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
+         ":46, call :78) at each SD's RH plus its SGS supersaturation "
+         "perturbation ssp, with ")
+COND_FLAT_TURB = Kernel(
+    "cond_flat_turb", "lcp_cond_flat_turb", COND_FLAT.argtypes[:-1] + [_P] * 3,
+    "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
+    _TURB + "the host substep loop of lgrngn/condensation.py:312-388 "
+    "(ssp += dt_sub dot_ssp a substep, :353-358)")
+COND_SD_FIXED_TURB = Kernel(
+    "cond_sd_fixed_turb", "lcp_cond_sd_fixed_turb",
+    COND_SD_FIXED.argtypes[:-1] + [_P],
+    "libcloudphxx_tpu_torch/csrc/cond_sd_fixed.cu",
+    _TURB + "the substep loop of lgrngn/condensation.py:412-528 "
+    "cond_perparticle (RHp + ssp, :462-463)")
+COND_SD_ADAPTIVE_TURB = Kernel(
+    "cond_sd_adaptive_turb", "lcp_cond_sd_adaptive_turb",
+    COND_SD_ADAPTIVE.argtypes[:-1] + [_P] * 3,
+    "libcloudphxx_tpu_torch/csrc/cond_sd_adaptive.cu",
+    _TURB + "the loops of lgrngn/condensation.py:655-790 "
+    "perparticle_adaptive_core (ssp on the tries and substeps, rewound, "
+    ":711-734, :757-758, :776)")
 KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
            COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED, MERGE_EXACT,
-           COND_SD_FIXED, COND_SD_ADAPTIVE, COAL_VOHL, TRANSPORT_PRED_CORR)
+           COND_SD_FIXED, COND_SD_ADAPTIVE, COAL_VOHL, TRANSPORT_PRED_CORR,
+           COND_FLAT_TURB, COND_SD_FIXED_TURB, COND_SD_ADAPTIVE_TURB)
 
 _lib = None
 
@@ -281,13 +307,13 @@ def longest_first(counts):
     return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
 
 
-def cond_scratch(n_slots, device):
+def cond_scratch(n_slots, device, rows=6):
     """The per-slot scratch of the condensation kernels (B, F): each
-    cell's live droplets, compacted, as int32 positions and six float32
-    rows (rw2, rd3, rd3 * (1 - kappa), rd^2, vt, the weight's
-    numerator)."""
+    cell's live droplets, compacted, as int32 positions and ``rows``
+    float32 rows: six (rw2, rd3, rd3 * (1 - kappa), rd^2, vt, the weight's
+    numerator), and F's turb_cond form's eight (ssp and dot_ssp too)."""
     return (torch.empty(n_slots, dtype=torch.int32, device=device),
-            torch.empty((6, n_slots), dtype=torch.float32, device=device))
+            torch.empty((rows, n_slots), dtype=torch.float32, device=device))
 
 
 def check_planes(name, cap, *planes):

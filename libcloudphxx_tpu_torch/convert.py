@@ -80,10 +80,8 @@ def dense_state_to_numpy(d: DenseState) -> dict:
 
 # JAX State fields the port's warm 2-D State does not hold: each must be
 # empty or all zero (the JAX RNG key aside)
-_FLAT_ABSENT = ("y", "incloud_time", "up", "vp", "wp", "ssp", "dot_ssp",
-                "ice_a", "ice_c", "ice_rho", "T_freeze", "rd2_insol",
-                "courant_y", "diss_rate", "chem", "ambient_chem",
-                "sstp_tmp_chem")
+_FLAT_ABSENT = ("y", "ice_a", "ice_c", "ice_rho", "T_freeze", "rd2_insol",
+                "courant_y", "chem", "ambient_chem", "sstp_tmp_chem")
 
 
 def state_from_numpy(arrays: dict, device, dtype, rng_seed=44) -> State:

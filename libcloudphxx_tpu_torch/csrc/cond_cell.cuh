@@ -270,19 +270,39 @@ struct CellOut {
   Closure c;
 };
 
+// The SGS supersaturation perturbation of kernel F's turb_cond form: each
+// droplet's ssp advances by dt * dot_ssp at the start of every substep
+// and adds to its cell's RH (lgrngn/condensation.py cond_percell with
+// turb_cond; libcloudphxx_tpu/lgrngn/condensation.py:353-358).  NoSgs is
+// every other form's: its code compiles away.
+struct NoSgs {
+  static constexpr bool on = false;
+};
+struct Sgs {
+  static constexpr bool on = true;
+  const float* __restrict__ ssp;   // per slot: in, its tendency, out
+  const float* __restrict__ dssp;
+  float* __restrict__ ssp_out;
+  float* cs_ssp;                   // two more rows of the per-slot scratch
+  float* cs_dssp;
+};
+
 // The substep loop of the cell whose droplets sit at positions [begin,
 // end) of the SD arrays.  ``Src`` reads a droplet: wnum(pos), the
 // numerator of its weight (n * 4/3 pi rho_w; it is live where wnum > 0),
 // and drop(pos, rw2, wnum), the CondDrop of a live one; its weight in the
-// cell sum is wnum / (dv * rhod).  ``cs`` is the per-slot scratch.  Every lane
-// returns the cell's end state.
-template <class Src>
+// cell sum is wnum / (dv * rhod).  ``cs`` is the per-slot scratch; ``sg``
+// the SGS supersaturation (Sgs, kernel F's turb_cond form: ssp rides the
+// scratch beside rw2, and a dead slot keeps its ssp as its rw2).  Every
+// lane returns the cell's end state.
+template <class Src, class S = NoSgs>
 __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
                                              long long end, const CellIn& in,
                                              const CondOpts& o,
                                              const float* __restrict__ rw2,
                                              float* __restrict__ rw2_out,
-                                             const Compact& cs) {
+                                             const Compact& cs,
+                                             const S& sg = S{}) {
   constexpr int kScan = 8;  // windows of 32 slots a scan step reads at once
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -301,10 +321,12 @@ __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
       const long long pos = w + u * 32 + lane;
       const bool live = wn[u] > 0.0f;
       const unsigned m = __ballot_sync(kFullMask, live);
-      if (live)
+      if (live) {
         cs.pos[begin + nlive + __popc(m & below)] = static_cast<int>(pos);
-      else if (pos < end)
+      } else if (pos < end) {
         rw2_out[pos] = r2[u];
+        if constexpr (S::on) sg.ssp_out[pos] = sg.ssp[pos];
+      }
       nlive += __popc(m);
     }
   }
@@ -314,12 +336,17 @@ __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
   for (int i = lane; i < nlive; i += 32) {
     const int pos = cs.pos[begin + i];
     cs.put(begin + i, src.drop(pos, rw2[pos], src.wnum(pos)));
+    if constexpr (S::on) {
+      sg.cs_ssp[begin + i] = sg.ssp[pos];
+      sg.cs_dssp[begin + i] = sg.dssp[pos];
+    }
   }
   __syncwarp();
 
   const int n_chunk = (nlive + 31) >> 5;
   const bool resident = n_chunk <= 1;
   CondDrop d;
+  float ssp = 0.0f, dssp = 0.0f;  // the turb_cond form's
   float th = in.th, rv = in.rv, rhod = in.rhod;
   for (int s = 0; s < o.sstp; ++s) {
     th = th + in.dth;
@@ -336,8 +363,25 @@ __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
       // lane computes on garbage
       const int i = ch * 32 + lane;
       const bool on = i < nlive;
-      if (!resident || s == 0) d = cs.get(begin + min(i, nlive - 1));
-      part += advance(d, on, g, o, wden);
+      if (!resident || s == 0) {
+        d = cs.get(begin + min(i, nlive - 1));
+        if constexpr (S::on) {
+          ssp = sg.cs_ssp[begin + min(i, nlive - 1)];
+          dssp = sg.cs_dssp[begin + min(i, nlive - 1)];
+        }
+      }
+      if constexpr (S::on) {
+        // ssp advances before the closure that reads it, and the droplet
+        // grows at its cell's RH plus its ssp
+        ssp = ssp + o.dt * dssp;
+        CellGrowth gd = g;
+        gd.RH = fminf(c.RH + ssp, o.RH_max);
+        part += advance(d, on, gd, o, wden);
+        if (on && last) sg.ssp_out[d.pos] = ssp;
+        else if (on && !resident) sg.cs_ssp[begin + i] = ssp;
+      } else {
+        part += advance(d, on, g, o, wden);
+      }
       if (on && last) rw2_out[d.pos] = d.rw2;
       else if (on && !resident) cs.rw2[begin + i] = d.rw2;
     }

@@ -25,6 +25,13 @@
 // that of the first design's sstp_cond launches (a cell's 48-80 droplets
 // take 2-3 chunks of 32 lanes, the last partly idle; PERF.md section 6);
 // what it saves is the host loop around them.
+//
+// The turb_cond form (cond_flat_turb_kernel) is the same loop with the SGS
+// supersaturation: each droplet's ssp advances by dt_sub * dot_ssp each
+// substep and adds to its cell's RH (the JAX package's
+// lgrngn/condensation.py:353-358, at each droplet's RH the TPU kernel
+// takes), ssp and dot_ssp riding the compaction in two more scratch rows;
+// its plain version is cond_flat_plain with ssp and dot_ssp.
 
 #include <cuda_runtime.h>
 
@@ -48,15 +55,15 @@ struct FlatSeg {
 // cells_in: 10 rows of n_cell: dth drv drh (the step's increments) th rv
 // rhod (at the last sstp_save) p dv lamD lamK
 // cells_out: 3 rows of n_cell: th rv rhod
-__global__ void __launch_bounds__(32 * kCondWarps, 1)
-cond_flat_kernel(const float* __restrict__ wgt, const float* __restrict__ rw2,
-                 const float* __restrict__ rd3, const float* __restrict__ kpa,
-                 const float* __restrict__ vt,
-                 const long long* __restrict__ ends,
-                 const float* __restrict__ cells_in,
-                 float* __restrict__ rw2_out, float* __restrict__ cells_out,
-                 Compact cs, const int* __restrict__ order, int n_cell,
-                 CondOpts o) {
+template <class S>
+__device__ __forceinline__ void cond_flat_body(
+    const float* __restrict__ wgt, const float* __restrict__ rw2,
+    const float* __restrict__ rd3, const float* __restrict__ kpa,
+    const float* __restrict__ vt, const long long* __restrict__ ends,
+    const float* __restrict__ cells_in, float* __restrict__ rw2_out,
+    float* __restrict__ cells_out, const Compact& cs,
+    const int* __restrict__ order, int n_cell, const CondOpts& o,
+    const S& sg) {
   const int w = blockIdx.x * kCondWarps + (threadIdx.x >> 5);
   if (w >= n_cell) return;
   const int c = order[w];
@@ -75,12 +82,43 @@ cond_flat_kernel(const float* __restrict__ wgt, const float* __restrict__ rw2,
   const long long begin = c == 0 ? 0 : ends[c - 1] + 1;
   const long long end = ends[c] + 1;
   const FlatSeg src{wgt, rd3, kpa, vt};
-  const CellOut out = cond_cell(src, begin, end, in, o, rw2, rw2_out, cs);
+  const CellOut out = cond_cell(src, begin, end, in, o, rw2, rw2_out, cs, sg);
   if ((threadIdx.x & 31) == 0) {
     cells_out[0 * n_cell + c] = out.th;
     cells_out[1 * n_cell + c] = out.rv;
     cells_out[2 * n_cell + c] = out.rhod;
   }
+}
+
+__global__ void __launch_bounds__(32 * kCondWarps, 1)
+cond_flat_kernel(const float* __restrict__ wgt, const float* __restrict__ rw2,
+                 const float* __restrict__ rd3, const float* __restrict__ kpa,
+                 const float* __restrict__ vt,
+                 const long long* __restrict__ ends,
+                 const float* __restrict__ cells_in,
+                 float* __restrict__ rw2_out, float* __restrict__ cells_out,
+                 Compact cs, const int* __restrict__ order, int n_cell,
+                 CondOpts o) {
+  cond_flat_body(wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out,
+                 cs, order, n_cell, o, NoSgs{});
+}
+
+// the turb_cond form: each droplet's ssp and dot_ssp ride the compaction
+// (two more scratch rows) and its ssp comes back to its slot
+__global__ void __launch_bounds__(32 * kCondWarps, 1)
+cond_flat_turb_kernel(const float* __restrict__ wgt,
+                      const float* __restrict__ rw2,
+                      const float* __restrict__ rd3,
+                      const float* __restrict__ kpa,
+                      const float* __restrict__ vt,
+                      const long long* __restrict__ ends,
+                      const float* __restrict__ cells_in,
+                      float* __restrict__ rw2_out,
+                      float* __restrict__ cells_out, Compact cs,
+                      const int* __restrict__ order, int n_cell, CondOpts o,
+                      Sgs sg) {
+  cond_flat_body(wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out,
+                 cs, order, n_cell, o, sg);
 }
 
 }  // namespace lcp
@@ -108,5 +146,29 @@ extern "C" int lcp_cond_flat(const float* wgt, const float* rw2,
   lcp::cond_flat_kernel<<<blocks, 32 * lcp::kCondWarps, 0, stream>>>(
       wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out, cs, order,
       n_cell, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lcp_cond_flat's arguments, ``buf`` of 8 * n_sd floats, and the sorted
+// ssp and dot_ssp in, ssp out (n_sd each)
+extern "C" int lcp_cond_flat_turb(
+    const float* wgt, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const long long* ends, const float* cells_in,
+    float* rw2_out, float* cells_out, int* pos, float* buf, const int* order,
+    int n_cell, int n_sd, int sstp, double dt_sub, double RH_max, int th_dry,
+    int const_p, int rh_formula, int var_rho, int iters, const float* ssp,
+    const float* dssp, float* ssp_out, cudaStream_t stream) {
+  if (n_cell <= 0) return 0;
+  const long long m = n_sd;
+  const lcp::Compact cs{pos,         buf,         buf + m,    buf + 2 * m,
+                        buf + 3 * m, buf + 4 * m, buf + 5 * m};
+  const lcp::Sgs sg{ssp, dssp, ssp_out, buf + 6 * m, buf + 7 * m};
+  const lcp::CondOpts o{sstp, static_cast<float>(dt_sub),
+                        static_cast<float>(RH_max), th_dry, const_p,
+                        rh_formula, var_rho, iters};
+  const int blocks = (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
+  lcp::cond_flat_turb_kernel<<<blocks, 32 * lcp::kCondWarps, 0, stream>>>(
+      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out, cs, order,
+      n_cell, o, sg);
   return static_cast<int>(cudaGetLastError());
 }

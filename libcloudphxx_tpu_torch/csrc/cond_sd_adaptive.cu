@@ -42,6 +42,13 @@
 // order, in float32 with that version's clamps as they act there (rd3
 // clamped to 1e-300, which is 0 in float32), so rw2 and the private
 // state of every live SD are bitwise the plain version's.
+//
+// The turb_cond form (cond_sd_adaptive_turb_kernel) carries each SD's SGS
+// supersaturation perturbation ssp: it advances by dot_ssp dt / count on
+// each try and each substep, goes back with the rest of the state where a
+// count converges or the adaptation is abandoned, and adds to the SD's RH
+// (the JAX package's lgrngn/condensation.py:711-734, 757-758, 776); its
+// plain version is perparticle_adaptive_plain with ssp and dot_ssp.
 
 #include <cuda_runtime.h>
 
@@ -58,6 +65,20 @@ struct AdaptOpts {
 
 struct SdResult {
   float rw2, th, rv, rh, p;
+};
+
+// The SGS supersaturation of the turb_cond form: each SD's ssp and its
+// tendency in, ssp out.  ssp advances by dot_ssp dt / count on each try and
+// each of the SD's substeps, and goes back where the state does
+// (libcloudphxx_tpu/lgrngn/condensation.py:711-734, 757-758, 776).
+struct NoSsp {
+  static constexpr bool on = false;
+};
+struct AdaptSsp {
+  static constexpr bool on = true;
+  const float* __restrict__ ssp;  // per slot: in, its tendency, out
+  const float* __restrict__ dssp;
+  float* __restrict__ ssp_out;
 };
 
 // common/kappa_koehler.py rw3_cr: the critical wet radius cubed, by
@@ -95,10 +116,14 @@ __device__ __forceinline__ float rw3_cr(float rd3, float kappa, float T,
 // lgrngn/condensation.py perparticle_adaptive_core for the SD in slot j of
 // cell ``a`` (``on``: the lane's SD is live and its result used; a lane
 // without one computes on a live SD's data, masked).  Every lane of the
-// warp calls it together.
+// warp calls it together.  Under the turb_cond form (S::on) ``ssp_res``
+// gets the SD's ssp at the end of the phase.
+template <class S>
 __device__ __forceinline__ SdResult adaptive_sd(bool on, const SdIn& in,
                                                 long long j, const SdCell& a,
-                                                const AdaptOpts& ao) {
+                                                const AdaptOpts& ao,
+                                                const S& sg,
+                                                float& ssp_res) {
   const CondOpts& o = ao.o;
   const int sstp_max = o.sstp;
   const float n = in.n[j], rw2 = in.rw2[j], rd3 = in.rd3[j];
@@ -109,11 +134,19 @@ __device__ __forceinline__ SdResult adaptive_sd(bool on, const SdIn& in,
   const float p0 = o.const_p ? in.p[j] : 0.0f;
   const float dlt_rv = a.rv - rv0, dlt_th = a.th - th0;
   const float dlt_rh = a.rhod - rh0, dlt_p = a.p - p0;
-  // the closure at an ambient state, and rw2 after a step of dt there
-  // where ``use`` says (w elsewhere; no growth rate where no lane uses it)
+  float ssp0 = 0.0f, dssp = 0.0f;
+  if constexpr (S::on) {
+    ssp0 = sg.ssp[j];
+    dssp = sg.dssp[j];
+  }
+  const float dtf = static_cast<float>(ao.dt);
+  // the closure at an ambient state (the turb_cond form's RH plus the
+  // SD's ssp), and rw2 after a step of dt there where ``use`` says (w
+  // elsewhere; no growth rate where no lane uses it)
   const auto grow = [&](bool use, float w, float th, float rv, float rh,
-                        float p, float dt, Closure& c) {
+                        float p, float ssp, float dt, Closure& c) {
     c = sd_closure(o.th_dry, o.const_p, o.rh_formula, th, rv, rh, p);
+    if constexpr (S::on) c.RH = c.RH + ssp;
     if (!__any_sync(kFullMask, use)) return w;
     CondOpts od = o;
     od.dt = dt;
@@ -121,7 +154,7 @@ __device__ __forceinline__ SdResult adaptive_sd(bool on, const SdIn& in,
   };
 
   // phase A: the counts 1, 2, 4, ... <= sstp_cond
-  float tmp_rv = rv0, tmp_th = th0, tmp_rh = rh0, tmp_p = p0;
+  float tmp_rv = rv0, tmp_th = th0, tmp_rh = rh0, tmp_p = p0, ssp = ssp0;
   int sstp = sstp_max;
   bool done = false, first_done = sstp_max == 1;
   float drw2 = 0.0f;
@@ -134,9 +167,10 @@ __device__ __forceinline__ SdResult adaptive_sd(bool on, const SdIn& in,
       tmp_th = tmp_th + dlt_th * mult;
       tmp_rh = tmp_rh + dlt_rh * mult;
       if (o.const_p) tmp_p = tmp_p + dlt_p * mult;
+      if constexpr (S::on) ssp = ssp + dssp * dtf * mult;
     }
     const float rw2_t = grow(on && !done, rw2, tmp_th, tmp_rv, tmp_rh, tmp_p,
-                             static_cast<float>(ao.dt / t), c);
+                             ssp, static_cast<float>(ao.dt / t), c);
     const float drw2_t = rw2_t - rw2;
     if (t == 1) {
       drw2 = drw2_t;
@@ -151,6 +185,7 @@ __device__ __forceinline__ SdResult adaptive_sd(bool on, const SdIn& in,
       tmp_th = tmp_th - dlt_th * mult;
       tmp_rh = tmp_rh - dlt_rh * mult;
       if (o.const_p) tmp_p = tmp_p - dlt_p * mult;
+      if constexpr (S::on) ssp = ssp - dssp * dtf * mult;
       first_done = true;
       done = true;
     }
@@ -175,6 +210,7 @@ __device__ __forceinline__ SdResult adaptive_sd(bool on, const SdIn& in,
     tmp_th = th0;
     tmp_rh = rh0;
     tmp_p = p0;
+    ssp = ssp0;
   }
 
   // phase B: the SD's own count of substeps
@@ -191,7 +227,9 @@ __device__ __forceinline__ SdResult adaptive_sd(bool on, const SdIn& in,
     const float th_n = app ? tmp_th + dlt_th * frac : tmp_th;
     const float rh_n = app ? tmp_rh + dlt_rh * frac : tmp_rh;
     const float p_n = o.const_p && app ? tmp_p + dlt_p * frac : tmp_p;
-    float w_new = grow(app, w, th_n, rv_n, rh_n, p_n, dt_sd, c);
+    float ssp_n = ssp;
+    if constexpr (S::on) ssp_n = app ? ssp + dssp * dtf * frac : ssp;
+    float w_new = grow(app, w, th_n, rv_n, rh_n, p_n, ssp_n, dt_sd, c);
     w_new = reuse ? w + drw2 : w_new;
     w_new = active ? w_new : w;
     const float drw3 = active ? rw3_of(w_new) - rw3_of(w) : 0.0f;
@@ -215,9 +253,11 @@ __device__ __forceinline__ SdResult adaptive_sd(bool on, const SdIn& in,
     tmp_th = th_next;
     tmp_rh = rh_n;
     tmp_p = p_n;
+    ssp = ssp_n;
     w = w_new;
     if (__all_sync(kFullMask, settled)) break;
   }
+  ssp_res = ssp;
   return SdResult{w, tmp_th, tmp_rv, tmp_rh, tmp_p};
 }
 
@@ -231,9 +271,10 @@ __device__ __forceinline__ void put(const SdOut& out, long long j,
 }
 
 // a thread a slot, 32 consecutive sorted positions a warp
-__global__ void __launch_bounds__(32 * kCondWarps)
-cond_sd_adaptive_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
-                        long long n_slots, AdaptOpts ao) {
+template <class S>
+__device__ __forceinline__ void cond_sd_adaptive_body(
+    const SdIn& in, const SdCells& cells, const SdLayout& L,
+    const SdOut& out, long long n_slots, const AdaptOpts& ao, const S& sg) {
   const int lane = threadIdx.x & 31;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long w = static_cast<long long>(blockIdx.x) * blockDim.x
@@ -245,22 +286,76 @@ cond_sd_adaptive_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
     const bool live = in_range && in.n[j] > 0.0f;
     const unsigned m = __ballot_sync(kFullMask, live);
     if (m == 0u) {
-      if (in_range) out.keep(in, j);
+      if (in_range) {
+        out.keep(in, j);
+        if constexpr (S::on) sg.ssp_out[j] = sg.ssp[j];
+      }
       continue;
     }
     const int src = __ffs(m) - 1;
     const long long q_src = __shfl_sync(kFullMask, q, src);
     const long long j_src = __shfl_sync(kFullMask, j, src);
     const SdCell a = SdCell::of(cells, L.cell(live ? q : q_src));
-    const SdResult r = adaptive_sd(live, in, live ? j : j_src, a, ao);
-    if (live)
+    float ssp = 0.0f;
+    const SdResult r = adaptive_sd(live, in, live ? j : j_src, a, ao, sg,
+                                   ssp);
+    if (live) {
       put(out, j, r);
-    else if (in_range)
+      if constexpr (S::on) sg.ssp_out[j] = ssp;
+    } else if (in_range) {
       out.keep(in, j);
+      if constexpr (S::on) sg.ssp_out[j] = sg.ssp[j];
+    }
   }
 }
 
+__global__ void __launch_bounds__(32 * kCondWarps)
+cond_sd_adaptive_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
+                        long long n_slots, AdaptOpts ao) {
+  cond_sd_adaptive_body(in, cells, L, out, n_slots, ao, NoSsp{});
+}
+
+__global__ void __launch_bounds__(32 * kCondWarps)
+cond_sd_adaptive_turb_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
+                             long long n_slots, AdaptOpts ao, AdaptSsp sg) {
+  cond_sd_adaptive_body(in, cells, L, out, n_slots, ao, sg);
+}
+
 }  // namespace lcp
+
+namespace {
+
+template <class Launch>
+int launch_adaptive(const float* n, const float* rw2, const float* rd3,
+                    const float* kpa, const float* vt, const float* th0,
+                    const float* rv0, const float* rh0, const float* p0,
+                    const float* th, const float* rv, const float* rhod,
+                    const float* p, const float* dv, const float* T_mfp,
+                    const float* p_mfp, const float* T,
+                    const long long* order, const long long* ends,
+                    const long long* sijk, float* rw2_out, float* th_out,
+                    float* rv_out, float* rh_out, float* p_out, int n_cell,
+                    int cap, long long n_slots, int sstp, int sstp_act,
+                    double dt, double RH_max, double eps, double dmax,
+                    int th_dry, int const_p, int rh_formula, int iters,
+                    Launch launch) {
+  if (n_cell <= 0 || n_slots <= 0) return 0;
+  const lcp::SdIn in{n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0};
+  const lcp::SdCells cells{th, rv, rhod, p, dv, T_mfp, p_mfp, T};
+  const lcp::SdLayout L{order, ends, sijk, cap};
+  const lcp::SdOut out{rw2_out, th_out, rv_out, rh_out, p_out};
+  const lcp::AdaptOpts ao{
+      lcp::CondOpts{sstp, 0.0f, static_cast<float>(RH_max), th_dry, const_p,
+                    rh_formula, 0, iters},
+      sstp_act, 48, dt, static_cast<float>(eps), static_cast<float>(dmax)};
+  const int threads = 32 * lcp::kCondWarps;
+  const long long want = (n_slots + threads - 1) / threads;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  launch(blocks, threads, in, cells, L, out, ao);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 // lcp_cond_sd_fixed's arguments (without its scratch positions), with the
 // cells' T after p_mfp, and sstp_cond_act and the drw2 criteria
@@ -275,19 +370,43 @@ extern "C" int lcp_cond_sd_adaptive(
     long long n_slots, int sstp, int sstp_act, double dt, double RH_max,
     double eps, double dmax, int th_dry, int const_p, int rh_formula,
     int iters, cudaStream_t stream) {
-  if (n_cell <= 0 || n_slots <= 0) return 0;
-  const lcp::SdIn in{n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0};
-  const lcp::SdCells cells{th, rv, rhod, p, dv, T_mfp, p_mfp, T};
-  const lcp::SdLayout L{order, ends, sijk, cap};
-  const lcp::SdOut out{rw2_out, th_out, rv_out, rh_out, p_out};
-  const lcp::AdaptOpts ao{
-      lcp::CondOpts{sstp, 0.0f, static_cast<float>(RH_max), th_dry, const_p,
-                    rh_formula, 0, iters},
-      sstp_act, 48, dt, static_cast<float>(eps), static_cast<float>(dmax)};
-  const int threads = 32 * lcp::kCondWarps;
-  const long long want = (n_slots + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  lcp::cond_sd_adaptive_kernel<<<blocks, threads, 0, stream>>>(
-      in, cells, L, out, n_slots, ao);
-  return static_cast<int>(cudaGetLastError());
+  return launch_adaptive(
+      n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, th, rv, rhod, p, dv, T_mfp,
+      p_mfp, T, order, ends, sijk, rw2_out, th_out, rv_out, rh_out, p_out,
+      n_cell, cap, n_slots, sstp, sstp_act, dt, RH_max, eps, dmax, th_dry,
+      const_p, rh_formula, iters,
+      [&](int blocks, int threads, const lcp::SdIn& in,
+          const lcp::SdCells& cells, const lcp::SdLayout& L,
+          const lcp::SdOut& out, const lcp::AdaptOpts& ao) {
+        lcp::cond_sd_adaptive_kernel<<<blocks, threads, 0, stream>>>(
+            in, cells, L, out, n_slots, ao);
+      });
+}
+
+// the turb_cond form: lcp_cond_sd_adaptive's arguments, and each slot's
+// ssp and dot_ssp in and ssp out
+extern "C" int lcp_cond_sd_adaptive_turb(
+    const float* n, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const float* th0, const float* rv0, const float* rh0,
+    const float* p0, const float* th, const float* rv, const float* rhod,
+    const float* p, const float* dv, const float* T_mfp, const float* p_mfp,
+    const float* T, const long long* order, const long long* ends,
+    const long long* sijk, float* rw2_out, float* th_out, float* rv_out,
+    float* rh_out, float* p_out, int n_cell, int cap,
+    long long n_slots, int sstp, int sstp_act, double dt, double RH_max,
+    double eps, double dmax, int th_dry, int const_p, int rh_formula,
+    int iters, const float* ssp, const float* dssp, float* ssp_out,
+    cudaStream_t stream) {
+  const lcp::AdaptSsp sg{ssp, dssp, ssp_out};
+  return launch_adaptive(
+      n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, th, rv, rhod, p, dv, T_mfp,
+      p_mfp, T, order, ends, sijk, rw2_out, th_out, rv_out, rh_out, p_out,
+      n_cell, cap, n_slots, sstp, sstp_act, dt, RH_max, eps, dmax, th_dry,
+      const_p, rh_formula, iters,
+      [&](int blocks, int threads, const lcp::SdIn& in,
+          const lcp::SdCells& cells, const lcp::SdLayout& L,
+          const lcp::SdOut& out, const lcp::AdaptOpts& ao) {
+        lcp::cond_sd_adaptive_turb_kernel<<<blocks, threads, 0, stream>>>(
+            in, cells, L, out, n_slots, ao, sg);
+      });
 }

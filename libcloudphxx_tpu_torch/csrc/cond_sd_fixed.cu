@@ -41,6 +41,11 @@
 // every advanced SD are bitwise the plain version's; with mixing the sums
 // add in another order than the plain version's (a float64 cumulative
 // sum differenced at the cell ends; torch.sum over a row).
+//
+// The turb_cond form (cond_sd_fixed_turb_kernel) adds each SD's SGS
+// supersaturation perturbation ssp, held for the whole phase, to its RH
+// (the JAX package's lgrngn/condensation.py:462-463); its plain version is
+// perparticle_fixed_plain with ssp.
 
 #include <cuda_runtime.h>
 
@@ -48,9 +53,21 @@
 
 namespace lcp {
 
-__global__ void __launch_bounds__(32 * kCondWarps)
-cond_sd_fixed_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
-                     int* __restrict__ pos, int n_cell, CondOpts o, int mix) {
+// The SGS supersaturation of the turb_cond form: each SD's ssp, held for
+// the whole phase (libcloudphxx_tpu/lgrngn/condensation.py:462-463)
+struct NoSsp {
+  static constexpr bool on = false;
+};
+struct FixedSsp {
+  static constexpr bool on = true;
+  const float* __restrict__ ssp;  // per slot
+};
+
+template <class S>
+__device__ __forceinline__ void cond_sd_fixed_body(
+    const SdIn& in, const SdCells& cells, const SdLayout& L, const SdOut& out,
+    int* __restrict__ pos, int n_cell, const CondOpts& o, int mix,
+    const S& sg) {
   const int c = blockIdx.x * kCondWarps + (threadIdx.x >> 5);
   if (c >= n_cell) return;
   const int lane = threadIdx.x & 31;
@@ -86,8 +103,10 @@ cond_sd_fixed_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
       const float base_th = th + div_s(a.th - in.th[j], o.sstp);
       rh = rh + div_s(a.rhod - in.rh[j], o.sstp);
       if (o.const_p) p = p + div_s(a.p - in.p[j], o.sstp);
-      const Closure cl = sd_closure(o.th_dry, o.const_p, o.rh_formula,
-                                    base_th, base_rv, rh, p);
+      Closure cl = sd_closure(o.th_dry, o.const_p, o.rh_formula, base_th,
+                              base_rv, rh, p);
+      // the turb_cond form: the SD grows at its RH plus its ssp
+      if constexpr (S::on) cl.RH = cl.RH + sg.ssp[j];
       const float w_new = sd_advance(on, w, in.rd3[j], in.kpa[j], in.vt[j],
                                      cl, rh, base_rv, a.lam_D, a.lam_K, o);
       const bool live = n > 0.0f;
@@ -120,6 +139,19 @@ cond_sd_fixed_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
   }
 }
 
+__global__ void __launch_bounds__(32 * kCondWarps)
+cond_sd_fixed_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
+                     int* __restrict__ pos, int n_cell, CondOpts o, int mix) {
+  cond_sd_fixed_body(in, cells, L, out, pos, n_cell, o, mix, NoSsp{});
+}
+
+__global__ void __launch_bounds__(32 * kCondWarps)
+cond_sd_fixed_turb_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
+                          int* __restrict__ pos, int n_cell, CondOpts o,
+                          int mix, FixedSsp sg) {
+  cond_sd_fixed_body(in, cells, L, out, pos, n_cell, o, mix, sg);
+}
+
 }  // namespace lcp
 
 // SD arrays (n_slots each, slot order): n rw2 rd3 kpa vt, the private th
@@ -149,5 +181,31 @@ extern "C" int lcp_cond_sd_fixed(
   const int blocks = (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
   lcp::cond_sd_fixed_kernel<<<blocks, 32 * lcp::kCondWarps, 0, stream>>>(
       in, cells, L, out, pos, n_cell, o, mix);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the turb_cond form: lcp_cond_sd_fixed's arguments and each slot's ssp
+extern "C" int lcp_cond_sd_fixed_turb(
+    const float* n, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const float* th0, const float* rv0, const float* rh0,
+    const float* p0, const float* th, const float* rv, const float* rhod,
+    const float* p, const float* dv, const float* T_mfp, const float* p_mfp,
+    const long long* order, const long long* ends, const long long* sijk,
+    float* rw2_out, float* th_out, float* rv_out, float* rh_out,
+    float* p_out, int* pos, int n_cell, int cap, int sstp, double dt,
+    double RH_max, int th_dry, int const_p, int rh_formula, int mix,
+    int iters, const float* ssp, cudaStream_t stream) {
+  if (n_cell <= 0) return 0;
+  const lcp::SdIn in{n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0};
+  const lcp::SdCells cells{th, rv, rhod, p, dv, T_mfp, p_mfp, nullptr};
+  const lcp::SdLayout L{order, ends, sijk, cap};
+  const lcp::SdOut out{rw2_out, th_out, rv_out, rh_out, p_out};
+  const lcp::CondOpts o{sstp, static_cast<float>(dt / sstp),
+                        static_cast<float>(RH_max), th_dry, const_p,
+                        rh_formula, 0, iters};
+  const int blocks = (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
+  lcp::cond_sd_fixed_turb_kernel<<<blocks, 32 * lcp::kCondWarps, 0,
+                                   stream>>>(in, cells, L, out, pos, n_cell,
+                                             o, mix, lcp::FixedSsp{ssp});
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,8 @@ run a whole phase in kernel G's fixed-count or adaptive form on the card
 (ops/cond.py perparticle_fixed, perparticle_adaptive, over the SDs in
 cell-sorted segments); their plain versions are perparticle_fixed_core
 and perparticle_adaptive_core, which call advance_rw2 once a substep.
+With turb_cond each SD grows at its RH plus its SGS supersaturation
+perturbation ssp, in the turb_cond forms of kernels F and G.
 The cell sums are float64 cumulative sums in cell order (cell_sum), the
 same from run to run on either device."""
 
@@ -124,14 +126,17 @@ def stale_mfp(state: State):
 
 
 def cond_percell(cfg: StaticConfig, state: State, dt, RH_max, lam,
-                 var_rho: bool = False, *, plain=False) -> State:
+                 var_rho: bool = False, turb_cond: bool = False, *,
+                 plain=False) -> State:
     """The per-cell substepped condensation of step_cond, warm
     (reference particles_step.ipp:237-256).  th/rv (and rhod, when the host
     passes it each step: ``var_rho``) rewind to their values at the last
     sstp_save and take the host model's increment back in sstp_cond equal
     parts, each followed by the implicit droplet growth and the latent heat
     of the cell.  ``lam`` is stale_mfp's (lambda_D, lambda_K) of the
-    state before the step's closure."""
+    state before the step's closure.  ``turb_cond``: each SD's ssp advances
+    by dt/sstp_cond * dot_ssp a substep and adds to its cell's RH (kernel
+    F's turb_cond form on the card)."""
     if cfg.ice_switch:
         raise NotImplementedError(
             "cond_percell: ice is not ported (ROADMAP.md, Queue 1, "
@@ -159,7 +164,7 @@ def cond_percell(cfg: StaticConfig, state: State, dt, RH_max, lam,
     wgt_nom = state.n * (4.0 / 3) * c.pi * c.rho_w
     return _cond_percell_sorted(cfg, state, dt / sstp, sstp, RH_max, var_rho,
                                 delta_th, delta_rv, delta_rh, lambda_D,
-                                lambda_K, wgt_nom, plain)
+                                lambda_K, wgt_nom, turb_cond, plain)
 
 
 def cell_ends(sijk, n_cell):
@@ -181,23 +186,31 @@ def cell_sum(vals, ends):
 
 def _cond_percell_sorted(cfg, state, dt_sub, sstp, RH_max, var_rho,
                          delta_th, delta_rv, delta_rh, lambda_D, lambda_K,
-                         wgt_nom, plain):
+                         wgt_nom, turb_cond, plain):
     """cond_percell's substep loop in cell-sorted SD order
     (libcloudphxx_tpu/lgrngn/condensation.py:312-388): one stable sort by
     cell in, the loop (ops/cond.py cond_flat: kernel F on the card, the
     host loop with float64 cumulative-sum cell sums as its plain version),
-    and the new rw2 put back in slot order."""
+    and the new rw2 (and ssp, which rides the sort under turb_cond) put
+    back in slot order."""
     sijk, order = torch.sort(state.ijk, stable=True)
     sd = tuple(a[order] for a in (state.rw2, state.rd3, state.kpa, state.vt,
                                   wgt_nom))
-    rw2_s, th, rv, rhod = cond_ops.cond_flat(
+    sgs = (state.ssp[order], state.dot_ssp[order]) if turb_cond else ()
+    out = cond_ops.cond_flat(
         cfg, sstp, dt_sub, RH_max, var_rho, sijk, cell_ends(sijk, cfg.n_cell),
         *sd, state.th, state.rv, state.rhod, delta_th, delta_rv, delta_rh,
-        state.p, state.dv, lambda_D, lambda_K, plain=plain)
-    rw2 = torch.empty_like(rw2_s)
-    rw2[order] = rw2_s
-    state = dataclasses.replace(state, rw2=rw2, th=th, rv=rv, rhod=rhod)
-    return hskpng.hskpng_Tpr_state(cfg, state)
+        state.p, state.dv, lambda_D, lambda_K, *sgs, plain=plain)
+
+    def put(a):
+        back = torch.empty_like(a)
+        back[order] = a
+        return back
+
+    upd = dict(rw2=put(out[0]), th=out[1], rv=out[2], rhod=out[3])
+    if turb_cond:
+        upd["ssp"] = put(out[4])
+    return hskpng.hskpng_Tpr_state(cfg, dataclasses.replace(state, **upd))
 
 
 def sstp_save(state: State, exact: bool = False) -> State:
@@ -282,16 +295,20 @@ def _close_cells(cfg: StaticConfig, before: State, after: State, summer):
     return dataclasses.replace(after, th=th, rv=rv)
 
 
-def _perparticle_thermo(cfg: StaticConfig, tmp_th, tmp_rv, tmp_rh, tmp_p):
+def _perparticle_thermo(cfg: StaticConfig, tmp_th, tmp_rv, tmp_rh, tmp_p,
+                        ssp=None):
     """Each SD's closure from its private ambient state (reference
-    perparticle_nomixing_adaptive_sstp_cond.ipp:93-120): T, p, RH and
-    eta.  The mean free paths are the stale cell values (stale_mfp)."""
+    perparticle_nomixing_adaptive_sstp_cond.ipp:93-120): T, p, RH (plus
+    the SD's SGS supersaturation ``ssp`` under turb_cond) and eta.  The
+    mean free paths are the stale cell values (stale_mfp)."""
     if cfg.th_dry:
         Tp = theta_dry.T(tmp_th, torch.clamp(tmp_rh, min=1e-10))
     else:
         Tp = tmp_th * theta_std.exner(torch.clamp(tmp_p, min=1.0))
     pp = tmp_p if cfg.const_p else theta_dry.p(tmp_rh, tmp_rv, Tp)
     RHp = hskpng.RH_of(cfg, torch.clamp(pp, min=1.0), tmp_rv, Tp)
+    if ssp is not None:
+        RHp = RHp + ssp
     return Tp, pp, RHp, common_vterm.visc(Tp)
 
 
@@ -313,8 +330,8 @@ def _private(state: State):
             state.sstp_tmp_p)
 
 
-def cond_perparticle(cfg: StaticConfig, state: State, dt, RH_max, stale, *,
-                     plain=False) -> State:
+def cond_perparticle(cfg: StaticConfig, state: State, dt, RH_max, stale,
+                     turb_cond: bool = False, *, plain=False) -> State:
     """Exact per-particle condensation substepping
     (libcloudphxx_tpu/lgrngn/condensation.py:412-528; reference
     particles_step.ipp:219-232 and src/impl/condensation/perparticle/):
@@ -327,12 +344,13 @@ def cond_perparticle(cfg: StaticConfig, state: State, dt, RH_max, stale, *,
     writer it does not specify), the same in every run; without it the
     cell closes on the change of its liquid water.  ``stale`` is the (T,
     p) of the cells before the step's closure, whose mean free paths the
-    growth takes (stale_mfp)."""
+    growth takes (stale_mfp).  ``turb_cond``: each SD grows at its RH plus
+    its ssp, held for the phase (G's fixed-count turb_cond form)."""
     seg, summer = _segments(cfg, state)
     rw2, tmp_rv, tmp_th, tmp_rh, tmp_p = cond_ops.perparticle_fixed(
         cfg, dt, RH_max, _private(state),
         (state.th, state.rv, state.rhod, state.p, state.dv, *stale), seg,
-        plain=plain)
+        state.ssp if turb_cond else None, plain=plain)
     new = dataclasses.replace(state, rw2=rw2, sstp_tmp_rv=tmp_rv,
                               sstp_tmp_th=tmp_th, sstp_tmp_rh=tmp_rh,
                               sstp_tmp_p=tmp_p)
@@ -351,7 +369,7 @@ def cond_perparticle(cfg: StaticConfig, state: State, dt, RH_max, stale, *,
 def perparticle_fixed_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
                            kpa, vt, dv_sd, lam_D_sd, lam_K_sd, dlt_rv,
                            dlt_th, dlt_rh, dlt_p, tmp_rv0, tmp_th0, tmp_rh0,
-                           tmp_p0, spread, plain=False):
+                           tmp_p0, spread, ssp=None, plain=False):
     """The per-SD body of the fixed-count exact substepping
     (libcloudphxx_tpu/lgrngn/condensation.py:446-510, dense.py:348-392):
     the plain version of kernel G's fixed-count form (ops/cond.py
@@ -365,8 +383,9 @@ def perparticle_fixed_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
     goes with it back (apply_perparticle_drw3_to_perparticle_rv_and_th.
     ipp): with sstp_cond_mix to every SD of its cell, ``spread`` giving
     each SD its cell's sum of a per-SD array (update_pstate), without it
-    to itself.  Dead SDs feed nothing back.  Returns (rw2, tmp_rv, tmp_th,
-    tmp_rh, tmp_p)."""
+    to itself.  Dead SDs feed nothing back.  ``ssp`` (turb_cond) adds to
+    each SD's RH in every substep.  Returns (rw2, tmp_rv, tmp_th, tmp_rh,
+    tmp_p)."""
     sstp = cfg.sstp_cond
     dt_sub = dt / sstp
     live = n > 0
@@ -380,7 +399,7 @@ def perparticle_fixed_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
         if cfg.const_p:
             tmp_p = tmp_p + dlt_p / sstp
         Tp, pp, RHp, eta_p = _perparticle_thermo(cfg, base_th, base_rv,
-                                                 tmp_rh, tmp_p)
+                                                 tmp_rh, tmp_p, ssp)
         rw2_new = advance_rw2(
             dt_sub, flat(rw2), flat(rd3), flat(kpa), flat(vt), flat(tmp_rh),
             flat(base_rv), flat(Tp), flat(pp), flat(RHp), flat(eta_p),
@@ -398,21 +417,28 @@ def perparticle_fixed_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
 
 
 def cond_perparticle_adaptive(cfg: StaticConfig, state: State, dt, RH_max,
-                              stale, *, plain=False) -> State:
+                              stale, turb_cond: bool = False, *,
+                              plain=False) -> State:
     """Adaptive per-SD condensation substepping, no in-cell mixing
     (libcloudphxx_tpu/lgrngn/condensation.py:589-652; reference
     perparticle_nomixing_adaptive_sstp_cond.ipp:8-335): each SD picks its
     own substep count (kernel G's adaptive form over the SDs in
     cell-sorted segments, ops/cond.py perparticle_adaptive; its plain
     version perparticle_adaptive_core), and the cell closes on the change
-    of its liquid water.  ``stale`` as cond_perparticle's."""
+    of its liquid water.  ``stale`` as cond_perparticle's.  ``turb_cond``:
+    each SD's ssp rides its tries and substeps (G's adaptive turb_cond
+    form)."""
     seg, summer = _segments(cfg, state)
-    rw2, tmp_rv, tmp_th, tmp_rh, tmp_p = cond_ops.perparticle_adaptive(
+    sgs = (state.ssp, state.dot_ssp) if turb_cond else ()
+    out = cond_ops.perparticle_adaptive(
         cfg, dt, RH_max, _private(state),
         (state.th, state.rv, state.rhod, state.p, state.dv, *stale,
-         state.T), seg, plain=plain)
+         state.T), seg, *sgs, plain=plain)
+    rw2, tmp_rv, tmp_th, tmp_rh, tmp_p = out[:5]
     upd = dict(rw2=rw2, sstp_tmp_rv=tmp_rv, sstp_tmp_th=tmp_th,
                sstp_tmp_rh=tmp_rh)
+    if turb_cond:
+        upd["ssp"] = out[5]
     if cfg.const_p:
         upd["sstp_tmp_p"] = tmp_p
     return _close_cells(cfg, state, dataclasses.replace(state, **upd),
@@ -430,7 +456,8 @@ def adaptive_tries(sstp_cond):
 def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
                               kpa, vt, dv_sd, lam_D_sd, lam_K_sd, dlt_rv,
                               dlt_th, dlt_rh, dlt_p, tmp_rv0, tmp_th0,
-                              tmp_rh0, tmp_p0, T_sd, plain=False):
+                              tmp_rh0, tmp_p0, T_sd, ssp0=None, dot_ssp=None,
+                              plain=False):
     """The per-SD body of cond_perparticle_adaptive
     (libcloudphxx_tpu/lgrngn/condensation.py:655-795), elementwise over
     the SD arrays: the plain version of kernel G's adaptive form
@@ -441,24 +468,29 @@ def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
     instead.  Phase B runs max(sstp_cond, sstp_cond_act) masked substeps
     (one advance_rw2 each, a dt a droplet), the SDs past their own count
     idle.  Where the adaptation is abandoned the pre-adaptation ambient
-    state is restored.  SGS turbulence (turb_cond) is not ported.
-    Returns (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p)."""
+    state is restored.  With ``ssp0`` and ``dot_ssp`` (turb_cond) each SD's
+    SGS supersaturation advances by dot_ssp dt / count on each try and
+    substep, goes back with the ambient state, and adds to its RH
+    (libcloudphxx_tpu/lgrngn/condensation.py:711-734, 757-758, 776).
+    Returns (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p[, ssp])."""
     sstp_max = max(int(cfg.sstp_cond), 1)
     sstp_act = max(int(cfg.sstp_cond_act), 1)
     eps = cfg.sstp_cond_adapt_drw2_eps
     dmax = cfg.sstp_cond_adapt_drw2_max
     live = n > 0
+    turb = ssp0 is not None
 
-    def grow(tmp_rv, tmp_th, tmp_rh, tmp_p, rw2_in, dt_sub):
+    def grow(tmp_rv, tmp_th, tmp_rh, tmp_p, ssp, rw2_in, dt_sub):
         Tp, pp, RHp, eta_p = _perparticle_thermo(cfg, tmp_th, tmp_rv, tmp_rh,
-                                                 tmp_p)
+                                                 tmp_p, ssp)
         rw2_new = advance_rw2(dt_sub, rw2_in, rd3, kpa, vt, tmp_rh, tmp_rv,
                               Tp, pp, RHp, eta_p, lam_D_sd, lam_K_sd, RH_max,
                               plain=plain)
         return rw2_new, Tp
 
     # ---- phase A: pick per-SD substep counts (reference :130-201)
-    tmp_rv, tmp_th, tmp_rh, tmp_p = tmp_rv0, tmp_th0, tmp_rh0, tmp_p0
+    tmp_rv, tmp_th, tmp_rh, tmp_p, ssp = tmp_rv0, tmp_th0, tmp_rh0, tmp_p0, \
+        ssp0
     sstp = torch.full(n.shape, sstp_max, dtype=torch.int32, device=n.device)
     done = torch.zeros_like(live)
     first_done = torch.full_like(done, sstp_max == 1)
@@ -471,7 +503,9 @@ def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
         tmp_rh = torch.where(upd, tmp_rh + dlt_rh * mult, tmp_rh)
         if cfg.const_p:
             tmp_p = torch.where(upd, tmp_p + dlt_p * mult, tmp_p)
-        rw2_t, _ = grow(tmp_rv, tmp_th, tmp_rh, tmp_p, rw2, dt / t)
+        if turb:
+            ssp = torch.where(upd, ssp + dot_ssp * dt * mult, ssp)
+        rw2_t, _ = grow(tmp_rv, tmp_th, tmp_rh, tmp_p, ssp, rw2, dt / t)
         drw2_t = rw2_t - rw2
         if t == 1:
             drw2 = drw2_t
@@ -486,6 +520,8 @@ def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
         tmp_rh = torch.where(newly, tmp_rh - dlt_rh * mult, tmp_rh)
         if cfg.const_p:
             tmp_p = torch.where(newly, tmp_p - dlt_p * mult, tmp_p)
+        if turb:
+            ssp = torch.where(newly, ssp - dot_ssp * dt * mult, ssp)
         first_done = first_done | newly
         done = done | newly
         drw2 = torch.where(done, drw2, drw2_t)
@@ -505,6 +541,8 @@ def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
     tmp_th = torch.where(first_done, tmp_th, tmp_th0)
     tmp_rh = torch.where(first_done, tmp_rh, tmp_rh0)
     tmp_p = torch.where(first_done, tmp_p, tmp_p0)
+    if turb:
+        ssp = torch.where(first_done, ssp, ssp0)
 
     # ---- phase B: masked substepping (reference :206-263)
     mlt = -(4.0 / 3) * c.pi * c.rho_w
@@ -519,7 +557,9 @@ def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
         tmp_rh_n = torch.where(app, tmp_rh + dlt_rh * frac, tmp_rh)
         tmp_p_n = torch.where(app, tmp_p + dlt_p * frac, tmp_p) \
             if cfg.const_p else tmp_p
-        rw2_solve, Tp = grow(tmp_rv_n, tmp_th_n, tmp_rh_n, tmp_p_n, rw2,
+        if turb:
+            ssp = torch.where(app, ssp + dot_ssp * dt * frac, ssp)
+        rw2_solve, Tp = grow(tmp_rv_n, tmp_th_n, tmp_rh_n, tmp_p_n, ssp, rw2,
                              dt_sd)
         rw2_new = torch.where(reuse, rw2 + drw2, rw2_solve)
         rw2_new = torch.where(active, rw2_new, rw2)
@@ -528,4 +568,16 @@ def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
         tmp_rv = tmp_rv_n + drv
         tmp_th = tmp_th_n + drv * theta_dry.d_th_d_rv(Tp, tmp_th_n)
         tmp_rh, tmp_p, rw2 = tmp_rh_n, tmp_p_n, rw2_new
-    return rw2, tmp_rv, tmp_th, tmp_rh, tmp_p
+    return (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p) + ((ssp,) if turb else ())
+
+
+def update_incloud_time(cfg: StaticConfig, state: State, dt) -> State:
+    """Each SD's time spent activated: dt more where its rw2 is above its
+    critical radius' square at its cell's T, else 0 (reference
+    particles_impl_update_incloud_time.ipp:38-66; libcloudphxx_tpu/lgrngn/
+    particles.py:59-67, 106-115)."""
+    rc2 = kappa_koehler.rw3_cr(
+        torch.clamp(state.rd3, min=1e-300), torch.clamp(state.kpa, min=1e-10),
+        state.T[state.ijk]) ** (2.0 / 3)
+    return dataclasses.replace(state, incloud_time=torch.where(
+        state.rw2 > rc2, state.incloud_time + dt, 0.0))

@@ -61,9 +61,11 @@ def supported(cfg: StaticConfig):
     every SD advection scheme (implicit, euler, pred_corr: kernel C's
     forms), every terminal velocity formula, and for coalescence the
     formula kernels, the hall family and vohl (kernel E's wide-table
-    form), on any population, const-multi included.  The turbulent
-    (onishi) kernels go to the flat engine, which refuses them too
-    (lgrngn/dense_front.dense_capable)."""
+    form), on any population, const-multi included.  SGS supersaturation
+    (turb_cond_switch), diag_incloud_time and the turbulent (onishi)
+    kernels go to the flat engine, as in the JAX package
+    (lgrngn/dense_front.dense_capable); the front hands the other SGS
+    switches' async phases to it step by step."""
     if cfg.n_dims != 2:
         raise NotImplementedError("dense engine: 2-D only")
     if cfg.ice_switch or cfg.chem_switch or cfg.turb_cond_switch:
@@ -71,11 +73,10 @@ def supported(cfg: StaticConfig):
     if cfg.diag_incloud_time:
         raise NotImplementedError("dense engine: diag_incloud_time off only")
     kern = kernel_t(cfg.kernel)
-    if cfg.coal_switch and kern in coal_mod.UNPORTED \
-            and kern != kernel_t.undefined:
+    if cfg.coal_switch and kern in coal_mod.TURBULENT:
         raise NotImplementedError(
             f"dense engine: collision kernel {kern.name} not supported "
-            "(ROADMAP.md, Queue 1, \"The LES slice\")")
+            "(the turbulent kernels run on the flat engine)")
 
 
 def _no_plane():

@@ -25,6 +25,16 @@ Residency protocol:
                        read the device counter).
 A switch costs one global sort each way, paid only where the caller
 interleaves stepping with diagnostics.
+
+The SGS switches an LES host turns on go to the flat engine call by call,
+as in the JAX package (libcloudphxx_tpu/lgrngn/dense_front.py:176-240):
+turb_cond runs its condensation there, and turb_adve, turb_cond, turb_coal
+and recycling their async phases; the sources and the relaxation read and
+write the flat layout.  Under turb_adve_switch (the dense engine runs the
+configuration: kernel B condenses) the SDs' velocity perturbations ride
+each pack and unpack beside the planes (``_riders``), and every async
+phase runs on the flat engine, so that no dense phase moves an SD away
+from them; the JAX front leaves them in the pre-pack order.
 """
 
 import dataclasses
@@ -71,6 +81,7 @@ class particles_dense_t(particles_t):
         self._cap = initial_capacity(int(counts.max()))
         self._loc = "flat"
         self._d = None
+        self._riders = {}
         self._dense_stepped = False
         # the density the engine last saw, and the caller's tensor it came
         # from (see sync_in)
@@ -79,8 +90,24 @@ class particles_dense_t(particles_t):
         self._rhod_changed = False
 
     # ------------------------------------------------ residency switching
+    def _rider_names(self):
+        """The per-SD attributes the dense layout does not carry that
+        ride a pack and unpack: the velocity perturbations under
+        turb_adve_switch."""
+        return ("up", "wp") if self.opts_init.turb_adve_switch else ()
+
     def _ensure_dense(self):
         if self._loc != "dense":
+            st = self.state
+            if self._rider_names():
+                # unpack puts the live SDs first in pack's order: the
+                # stable sort of their cells
+                live = st.n > 0
+                order = torch.argsort(torch.where(live, st.ijk,
+                                                  self.cfg.n_cell),
+                                      stable=True)[:int(live.sum())]
+                self._riders = {k: getattr(st, k)[order]
+                                for k in self._rider_names()}
             d = dense.pack(self.cfg, self.state, self._cap)
             if int(d.overflow):
                 raise RuntimeError(
@@ -101,21 +128,35 @@ class particles_dense_t(particles_t):
     def _ensure_flat(self):
         if self._loc == "dense":
             self._check_overflow()
-            self.state = dense.unpack(self.cfg, self._d, self.state)
+            st = dense.unpack(self.cfg, self._d, self.state)
+            if self._riders:
+                back = {}
+                for k, v in self._riders.items():
+                    a = torch.zeros_like(getattr(st, k))
+                    a[:v.shape[0]] = v
+                    back[k] = a
+                st = dataclasses.replace(st, **back)
+                self._riders = {}
+            self.state = st
             self._loc = "flat"
 
     def adopt(self, d):
         """Make the DenseState ``d`` the authoritative population (a dense
         run of the model hands its result back here)."""
         self._d, self._loc, self._cap = d, "dense", d.cap
-        self._dense_stepped = True
+        self._dense_stepped, self._riders = True, {}
 
     def _require_init(self):
         super()._require_init()
         self._ensure_flat()
 
+    def _src_engine(self):
+        self._ensure_flat()
+        return super()._src_engine()
+
     def get_attr(self, name):
-        if self._dense_stepped and name not in _CARRIED:
+        if self._dense_stepped and name not in _CARRIED \
+                and name not in self._rider_names():
             raise RuntimeError(
                 f"lgrngn dense engine: attribute {name!r} is not carried "
                 f"through the dense layout (carried: {sorted(_CARRIED)})")
@@ -124,7 +165,7 @@ class particles_dense_t(particles_t):
     def load(self, path):
         super().load(path)
         # the restored flat state is authoritative; drop any dense copy
-        self._loc, self._d = "flat", None
+        self._loc, self._d, self._riders = "flat", None, {}
 
     # ------------------------------------------------------ sync tracking
     def sync_in(self, th=None, rv=None, rhod=None, **kwargs):
@@ -155,17 +196,18 @@ class particles_dense_t(particles_t):
             self._d = dataclasses.replace(self._d, puddle=self.state.puddle)
 
     # --------------------------------------------------------- step hooks
-    def _step_cond_impl(self, state, dt, RH_max, var_rho, plain):
-        if var_rho and self._rhod_changed:
-            # the density changed: the substepped density of the flat
-            # engine's condensation (sstp_percell_step.ipp:17-20), for this
-            # step (the async phase follows it there)
+    def _step_cond_impl(self, state, dt, RH_max, var_rho, turb_cond, plain):
+        if turb_cond or (var_rho and self._rhod_changed):
+            # the SGS supersaturation, or the density changed (the
+            # substepped density of sstp_percell_step.ipp:17-20): the flat
+            # engine's condensation for this step (the async phase follows
+            # it there)
             synced = {k: getattr(state, k) for k in (
-                "th", "rv", "rhod", "courant_x", "courant_z")}
+                "th", "rv", "rhod", "courant_x", "courant_z", "diss_rate")}
             self._ensure_flat()
             return super()._step_cond_impl(
                 dataclasses.replace(self.state, **synced), dt, RH_max,
-                var_rho, plain)
+                var_rho, turb_cond, plain)
         self._ensure_dense()
         d = dataclasses.replace(self._d, rhod=state.rhod,
                                 courant_x=state.courant_x,
@@ -183,12 +225,16 @@ class particles_dense_t(particles_t):
 
     def _step_async_impl(self, sstp, switches, state, params, w_LS, dt,
                          plain):
-        if self._loc != "dense":
-            # condensation ran on the flat engine this step: the layouts
-            # do not interleave within a step
-            return super()._step_async_impl(sstp, switches, state, params,
-                                            w_LS, dt, plain)
-        do_coal, do_adve, do_sedi, do_subs = switches
+        if self._loc != "dense" or any(switches[4:]) \
+                or self._rider_names():
+            # condensation ran on the flat engine this step (the layouts do
+            # not interleave within a step), or an SGS switch or recycling
+            # is on: the flat engine's async phase, on the population
+            # unpacked with the step's synced fields
+            self._ensure_flat()
+            return super()._step_async_impl(sstp, switches, self.state,
+                                            params, w_LS, dt, plain)
+        do_coal, do_adve, do_sedi, do_subs = switches[:4]
         d = dense.step_async_resident(
             self.cfg, self._d, params, dt, sstp, do_coal, do_sedi, do_adve,
             do_subs, w_LS, coal_pairing=self.coal_pairing, plain=plain)

@@ -17,12 +17,15 @@ made and ``step_cond`` returns the new (th, rv) as flat tensors on the
 engine's device.
 
 The port runs the warm 2-D engine, with the per-cell and the exact and
-adaptive per-particle condensation substepping and every SD init mode:
-ice, chemistry, SGS turbulence, diag_incloud_time, sources, relaxation,
-recycling and the multi-device front-end raise NotImplementedError
-(ROADMAP.md, Queue 1).
+adaptive per-particle condensation substepping, every SD init mode, and
+what an LES host couples through: the SGS turbulence (turb_adve,
+turb_cond, turb_coal with the onishi kernels; diss_rate through sync_in),
+diag_incloud_time, the aerosol sources, the CCN relaxation and the
+recycling.  Ice, chemistry and the multi-device front-end raise
+NotImplementedError (ROADMAP.md, Queue 1).
 On a CUDA device the condensation runs kernel F (per cell) or kernel G
-(per particle; ops/cond.py); nothing falls back to the CPU.
+(per particle; ops/cond.py), under turb_cond their turb_cond forms;
+nothing falls back to the CPU.
 The factory hands out this flat engine or, on a CUDA device, the dense
 front (lgrngn/dense_front.py), which overrides the _step_cond_impl and
 _step_async_impl hooks.
@@ -36,9 +39,12 @@ import torch
 
 from ..common import constants as c
 from ..common import kappa_koehler
-from . import coalescence, condensation, hskpng, transport
+from ..common import turbulence as ga17
+from . import coalescence, condensation, hskpng, recycle, relax
+from . import source as source_mod
+from . import transport, turbulence
 from . import init as init_mod
-from .enums import backend_t, kernel_t
+from .enums import backend_t, kernel_t, src_t
 from .opts import opts_init_t, opts_t
 from .state import (OUT_COAL_OVERFLOW, PUDDLE_KEYS, TENSOR_FIELDS, State,
                     StaticConfig, empty_state)
@@ -46,13 +52,16 @@ from .vterm import hskpng_vterm_all
 
 
 def step_cond_body(cfg: StaticConfig, state: State, dt, RH_max,
-                   var_rho: bool = False, *, plain=False) -> State:
+                   var_rho: bool = False, turb_cond: bool = False, *,
+                   plain=False) -> State:
     """The condensation phase (libcloudphxx_tpu/lgrngn/particles.py:70-120):
     mean free paths from the previous step's T/p, the cell closure, then
     the exact per-particle substepping (adaptive or fixed; kernel G on the
     card) where exact_sstp_cond asks for more than one substep, else the
-    per-cell substepping (kernel F on the card), and sstp_save.  ``plain``
-    runs the kernels' plain versions on any device."""
+    in-cloud time (diag_incloud_time) and the per-cell substepping (kernel
+    F on the card), and sstp_save.  ``turb_cond`` adds each SD's SGS
+    supersaturation perturbation to its RH (the kernels' turb_cond forms).
+    ``plain`` runs the kernels' plain versions on any device."""
     if condensation.exact_route(cfg):
         # exact per-particle substepping (particles_step.ipp:199-236);
         # the mean free paths from the T/p before the closure
@@ -60,41 +69,61 @@ def step_cond_body(cfg: StaticConfig, state: State, dt, RH_max,
         state = hskpng.hskpng_Tpr_state(cfg, state)
         cond = condensation.cond_perparticle_adaptive \
             if cfg.adaptive_sstp_cond else condensation.cond_perparticle
-        state = cond(cfg, state, dt, RH_max, stale, plain=plain)
+        state = cond(cfg, state, dt, RH_max, stale, turb_cond, plain=plain)
         return condensation.sstp_save(state, exact=True)
     lam = condensation.stale_mfp(state)
     state = hskpng.hskpng_Tpr_state(cfg, state)
+    if cfg.diag_incloud_time:
+        # (particles_impl_update_incloud_time.ipp:38-66)
+        state = condensation.update_incloud_time(cfg, state, dt)
     state = condensation.cond_percell(cfg, state, dt, RH_max, lam,
-                                      var_rho=var_rho, plain=plain)
+                                      var_rho=var_rho, turb_cond=turb_cond,
+                                      plain=plain)
     return condensation.sstp_save(state, exact=cfg.exact_sstp_cond)
 
 
 def step_async_body(cfg: StaticConfig, sstp_coal: int, switches, state: State,
-                    params, w_LS, dt) -> State:
+                    params, w_LS, dt, sgs_mix_len=None) -> State:
     """The transport phase (libcloudphxx_tpu/lgrngn/particles.py:144-179;
     reference particles_step.ipp:339-494), warm: closure, vt, the
-    coalescence substeps, advection, sedimentation, subsidence, the walls
-    and the re-bin.  ``switches`` = (do_coal, do_adve, do_sedi, do_subs)."""
-    do_coal, do_adve, do_sedi, do_subs = switches
+    coalescence substeps, the SGS block (the TKE, the velocity
+    perturbations, the supersaturation perturbation's tendency),
+    advection, the turbulent displacement, sedimentation, subsidence, the
+    walls, recycling and the re-bin.  ``switches`` = (do_coal, do_adve,
+    do_sedi, do_subs[, do_turb_adve, do_turb_cond, do_rcyc,
+    do_turb_coal]), the last four False where left out; ``sgs_mix_len``
+    the per-level SGS mixing length (a tensor) the SGS block takes."""
+    (do_coal, do_adve, do_sedi, do_subs, do_turb_adve, do_turb_cond,
+     do_rcyc, do_turb_coal) = tuple(switches) + (False,) * (8 - len(switches))
     state = hskpng.hskpng_Tpr_state(cfg, state)
     state = hskpng_vterm_all(cfg, state)
     if do_coal:
-        state = coalescence.coal(cfg, state, params, dt, sstp_coal)
+        state = coalescence.coal(cfg, state, params, dt, sstp_coal,
+                                 turb_coal=do_turb_coal)
+    if do_turb_adve or do_turb_cond:
+        # the SGS block (particles_step.ipp:406-426)
+        state = turbulence.hskpng_tke(cfg, state, sgs_mix_len)
+        state = turbulence.hskpng_turb_vel(cfg, state, sgs_mix_len, dt,
+                                           only_vertical=not do_turb_adve)
+        if do_turb_cond:
+            state = turbulence.hskpng_turb_dot_ss(cfg, state)
     if do_adve:
         state = transport.adve(cfg, state)
+    if do_turb_adve:
+        state = turbulence.turb_adve(cfg, state, dt)
     if do_sedi:
         state = transport.sedi(state, dt)
     if do_subs:
         state = transport.subs(cfg, state, w_LS, dt)
     state = transport.bcnd(cfg, state)
+    if do_rcyc:
+        state = recycle.rcyc(cfg, state)
     return transport.post_step(cfg, state)
 
 
 # what the port does not run yet, by the ROADMAP.md Queue 1 item that
 # ports it
 _UNPORTED_SWITCHES = (
-    ("The LES slice", ("turb_cond_switch", "turb_adve_switch",
-                       "turb_coal_switch", "diag_incloud_time")),
     ("Ice", ("ice_switch",)),
     ("Chemistry", ("chem_switch",)))
 
@@ -166,6 +195,13 @@ class particles_t:
         # overflow (reference coal.ipp:224-227 + particles_step.ipp:394-400)
         self._sstp_coal_extra = 0
         self._async_consts = None
+        self._sgs_mix_len = None
+        # the source and relaxation super-step counters, and their host
+        # generator (particles_step.ipp:451-479; the JAX package's, so that
+        # both draw the same numbers)
+        self._src_ctr = 0
+        self._rlx_ctr = 0
+        self._src_rng = np.random.default_rng(opts_init.rng_seed + 1)
 
     def _cfg_for_dt(self, dt):
         """Variable-dt substep rescale (reference
@@ -181,10 +217,10 @@ class particles_t:
 
     # ---- the engine's hooks: the dense front (lgrngn/dense_front.py)
     # overrides them (libcloudphxx_tpu/lgrngn/particles.py:255-264)
-    def _step_cond_impl(self, state, dt, RH_max, var_rho, plain):
+    def _step_cond_impl(self, state, dt, RH_max, var_rho, turb_cond, plain):
         """The condensation phase on ``state``; returns the new State."""
         return step_cond_body(self._cfg_for_dt(dt), state, dt, RH_max,
-                              var_rho, plain=plain)
+                              var_rho, turb_cond, plain=plain)
 
     def _step_async_impl(self, sstp, switches, state, params, w_LS, dt,
                          plain):
@@ -192,7 +228,7 @@ class particles_t:
         flat engine's async phase runs no kernel, so ``plain`` changes
         nothing here)."""
         return step_async_body(self.cfg, sstp, switches, state, params, w_LS,
-                               dt)
+                               dt, self.sgs_mix_len())
 
     def _tensor(self, a):
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)
@@ -292,13 +328,10 @@ class particles_t:
                 "libcloudphxx: please call step_async() before calling "
                 "step_sync() again")
         self._no_chem(ambient_chem)
-        if diss_rate is not None:
-            raise NotImplementedError(
-                "particles_t: diss_rate (SGS turbulence) is not ported "
-                "(ROADMAP.md, Queue 1, \"The LES slice\")")
         n_cell = self.cfg.n_cell
         upd = {}
-        for name, arr in (("th", th), ("rv", rv), ("rhod", rhod)):
+        for name, arr in (("th", th), ("rv", rv), ("rhod", rhod),
+                          ("diss_rate", diss_rate)):
             a = self._as_flat(arr, n_cell, name)
             if a is not None:
                 upd[name] = a
@@ -341,7 +374,8 @@ class particles_t:
             or isinstance(rv, torch.Tensor)
         if opts.cond:
             self.state = self._step_cond_impl(
-                self.state, dt, float(opts.RH_max), self._var_rho, plain)
+                self.state, dt, float(opts.RH_max), self._var_rho,
+                bool(opts.turb_cond), plain)
             if not device_io:
                 for arr, new in ((th, self.state.th), (rv, self.state.rv)):
                     if arr is not None:
@@ -373,6 +407,17 @@ class particles_t:
                                   self._tensor(np.asarray(w_LS, float)))
         return self._async_consts
 
+    def sgs_mix_len(self):
+        """The per-level SGS mixing length (a tensor, made once):
+        opts_init.SGS_mix_len, or dz at every level (SGS_length_scale.hpp's
+        vertical choice, the reference's default)."""
+        if self._sgs_mix_len is None:
+            oi, cfg = self.opts_init, self.cfg
+            mix = oi.SGS_mix_len if len(oi.SGS_mix_len) \
+                else np.full(cfg.nz, ga17.length_vertical(cfg.dx, cfg.dz))
+            self._sgs_mix_len = self._tensor(np.asarray(mix, float))
+        return self._sgs_mix_len
+
     def step_async(self, opts: opts_t, *, plain=False):
         """The transport phase (reference particles_step.ipp:339-494), with
         the reference's call-order bookkeeping.  ``plain`` runs the plain
@@ -395,27 +440,62 @@ class particles_t:
         if do_sedi and cfg.terminal_velocity == 0:
             raise RuntimeError(
                 "libcloudphxx: opts.sedi requires opts_init.terminal_velocity")
-        unported = [name for name in ("rcyc", "src", "rlx")
-                    if getattr(opts, name)]
-        if unported:
-            raise NotImplementedError(
-                f"particles_t: opts.{', opts.'.join(unported)} (recycling, "
-                "sources, relaxation) is not ported (ROADMAP.md, Queue 1, "
-                "\"The LES slice\")")
+        oi = self.opts_init
         # the substep count follows a variable dt (adjust_timesteps.ipp:
         # 14-24), plus any growth from const-multi collision overflow
-        sstp = self.opts_init.sstp_coal
+        sstp = oi.sstp_coal
         if opts.dt > 0 and sstp > 1:
             sstp = math.ceil(sstp * dt / cfg.dt)
         sstp += self._sstp_coal_extra
         params, w_LS = self.async_consts()
-        switches = (do_coal, bool(opts.adve), do_sedi, bool(opts.subs))
-        if any(switches):
+        # the aerosol source every supstp steps, then the CCN relaxation
+        # every supstp_rlx steps (particles_step.ipp:451-479), on the host
+        if opts.src and (opts.src_dry_distros or opts.src_dry_sizes):
+            self._src_ctr += 1
+            self._apply_sources(opts, dt)
+        if opts.rlx and oi.rlx_switch and oi.rlx_dry_distros:
+            self._rlx_ctr += 1
+            if self._rlx_ctr % int(oi.supstp_rlx) == 0:
+                eng = self._src_engine()
+                relax.rlx_dry_distros(cfg, oi, eng, dt, self._src_rng)
+                self.state = eng.state
+        switches = (do_coal, bool(opts.adve), do_sedi, bool(opts.subs),
+                    bool(opts.turb_adve and oi.turb_adve_switch),
+                    bool(opts.turb_cond and cfg.turb_cond_switch),
+                    bool(opts.rcyc), bool(opts.turb_coal))
+        if any(switches[:7]):
             self.state = self._step_async_impl(int(sstp), switches,
                                                self.state, params, w_LS, dt,
                                                plain)
         if do_coal and cfg.pure_const_multi:
             self.consume_coal_overflow()
+
+    def _src_engine(self):
+        """The sources' and the relaxation's access to the State
+        (source.StateEngine), its T and RH refreshed first: they read the
+        current closure."""
+        return source_mod.StateEngine(self.cfg, self._tpr())
+
+    def _apply_sources(self, opts, dt):
+        """The aerosol sources due this step (each distribution and size
+        every its own supstp steps; particles_step.ipp:451-462)."""
+        eng = self._src_engine()
+        oi = self.opts_init
+        due = {k: v for k, v in opts.src_dry_distros.items()
+               if self._src_ctr % int(v[2]) == 0}
+        if due:
+            src = source_mod.src_matching_distros \
+                if oi.src_type == src_t.matching \
+                else source_mod.src_simple_distros
+            src(self.cfg, oi, eng, due, dt, self._src_rng, oi.RH_max)
+        sizes = {k: {r: spec for r, spec in v.items()
+                     if self._src_ctr % int(spec[2]) == 0}
+                 for k, v in opts.src_dry_sizes.items()}
+        sizes = {k: v for k, v in sizes.items() if v}
+        if sizes:
+            source_mod.src_dry_sizes(self.cfg, oi, eng, sizes, dt,
+                                     self._src_rng, oi.RH_max)
+        self.state = eng.state
 
     def consume_coal_overflow(self):
         """Consume the const-multi coalescence's request (take_coal_overflow):
@@ -592,6 +672,32 @@ class particles_t:
         out = torch.zeros(self.cfg.n_cell, dtype=rw.dtype, device=rw.device)
         self._set_outbuf(out.scatter_reduce_(0, st.ijk, rw, "amax"))
 
+    def diag_incloud_time_mom(self, n):
+        """The selected SDs' moment of their in-cloud time (reference
+        particles_diag.ipp:484-492)."""
+        if not self.opts_init.diag_incloud_time:
+            raise RuntimeError(
+                "libcloudphxx: diag_incloud_time_mom called, but "
+                "opts_init.diag_incloud_time == false")
+        self._check_selected()
+        self._set_outbuf(self._moms(float(n), self.state.incloud_time))
+
+    def diag_up_mom(self, n):
+        """The selected SDs' moment of their SGS x-velocity perturbation
+        (reference particles.hpp:117)."""
+        self._check_selected()
+        self._set_outbuf(self._moms(float(n), self.state.up))
+
+    def diag_vp_mom(self, n):
+        """(reference particles.hpp:118; zero on the 2-D grid)"""
+        self._check_selected()
+        self._set_outbuf(self._moms(float(n), self.state.vp))
+
+    def diag_wp_mom(self, n):
+        """(reference particles.hpp:119)"""
+        self._check_selected()
+        self._set_outbuf(self._moms(float(n), self.state.wp))
+
     def diag_puddle(self):
         """(reference particles_impl_bcnd.ipp puddle accumulators)"""
         self._require_init()
@@ -611,7 +717,8 @@ class particles_t:
         st = self.state
         held = {"rd3": st.rd3, "rw2": st.rw2, "kpa": st.kpa,
                 "kappa": st.kpa, "n": st.n, "x": st.x, "z": st.z,
-                "vt": st.vt}
+                "vt": st.vt, "incloud_time": st.incloud_time, "up": st.up,
+                "vp": st.vp, "wp": st.wp}
         if name in ("ice_a", "ice_c", "ice_rho", "rd2_insol", "T_freeze"):
             raise RuntimeError(
                 "libcloudphxx: ice attribute requested with ice_switch off")
@@ -634,7 +741,8 @@ class particles_t:
         leaves["__flags__"] = np.array([
             self._init_called, self._should_now_run_cond,
             self._should_now_run_async], dtype=bool)
-        leaves["__counters__"] = np.array([self._sstp_coal_extra])
+        leaves["__counters__"] = np.array([self._sstp_coal_extra,
+                                           self._src_ctr, self._rlx_ctr])
         np.savez_compressed(path, **leaves)
 
     def load(self, path):
@@ -655,7 +763,9 @@ class particles_t:
                                             device=ref.device)
             seed, step = (int(v) for v in d["__rng__"])
             flags = d["__flags__"]
-            self._sstp_coal_extra = int(d["__counters__"][0])
+            ctrs = d["__counters__"]
+            self._sstp_coal_extra = int(ctrs[0])
+            self._src_ctr, self._rlx_ctr = (int(v) for v in ctrs[1:3])
         self.state = State(**leaves, rng_seed=seed, rng_step=step)
         self._init_called = bool(flags[0])
         self._should_now_run_cond = bool(flags[1])

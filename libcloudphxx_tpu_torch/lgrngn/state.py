@@ -3,8 +3,10 @@ slots (libcloudphxx_tpu/lgrngn/state.py: StaticConfig, State, empty_state,
 PUDDLE_KEYS, OUT_*).
 
 The flat ``State`` holds the warm 2-D engine: per-SD arrays of length
-n_sd_max, where multiplicity n == 0 marks a dead slot, and the per-cell
-Eulerian mirrors.  Its random stream is the run's seed and a step counter
+n_sd_max, where multiplicity n == 0 marks a dead slot (the SGS
+turbulence's velocity and supersaturation perturbations and the in-cloud
+time among them, zero unless their switches are on), and the per-cell
+Eulerian mirrors with the dissipation rate.  Its random stream is the run's seed and a step counter
 (the coalescence draws are Philox numbers, ops/philox.py), so restoring a
 state restores its draws.  The dense engine keeps the same population in
 its cell-major layout (lgrngn/dense.DenseState).
@@ -112,6 +114,10 @@ class StaticConfig:
         )
 
 
+def _empty():
+    return torch.zeros(0)
+
+
 @dataclass
 class State:
     """The flat engine's state (reference src/impl/particles_impl.ipp:
@@ -148,6 +154,19 @@ class State:
     sstp_tmp_rh: torch.Tensor
     sstp_tmp_p: torch.Tensor
     puddle: torch.Tensor  # (N_PUDDLE,), slots as PUDDLE_KEYS
+    # the LES slice's per-SD attributes: the time spent activated [s], the
+    # SGS velocity perturbations, the supersaturation perturbation and its
+    # tendency (particles_impl.ipp:80-84); and per cell the TKE
+    # dissipation rate [m2/s3] the host syncs in, overwritten by the TKE in
+    # the async phase's SGS block (hskpng_tke).  empty_state sizes them;
+    # a State made by hand without them holds empty tensors
+    incloud_time: torch.Tensor = dataclasses.field(default_factory=_empty)
+    up: torch.Tensor = dataclasses.field(default_factory=_empty)
+    vp: torch.Tensor = dataclasses.field(default_factory=_empty)
+    wp: torch.Tensor = dataclasses.field(default_factory=_empty)
+    ssp: torch.Tensor = dataclasses.field(default_factory=_empty)
+    dot_ssp: torch.Tensor = dataclasses.field(default_factory=_empty)
+    diss_rate: torch.Tensor = dataclasses.field(default_factory=_empty)
     # the coalescence draws: Philox key (opts_init.rng_seed) and the step
     # counter, advanced by every coalescence call
     rng_seed: int = 44
@@ -177,10 +196,11 @@ def empty_state(cfg: StaticConfig, dtype, device, rng_seed=44) -> State:
     return State(
         n=zsd, rd3=zsd, rw2=zsd, kpa=zsd, x=zsd, z=zsd, vt=zsd,
         ijk=torch.zeros(cfg.n_sd_max, dtype=torch.int64, device=device),
+        incloud_time=zsd, up=zsd, vp=zsd, wp=zsd, ssp=zsd, dot_ssp=zsd,
         th=zc, rv=zc, rhod=zc, p=zc,
         courant_x=z((cfg.nx + 1) * cfg.nz), courant_z=z(cfg.nx * (cfg.nz + 1)),
         T=zc, RH=zc, eta=zc,
-        dv=torch.ones(cfg.n_cell, dtype=dtype, device=device),
+        dv=torch.ones(cfg.n_cell, dtype=dtype, device=device), diss_rate=zc,
         sstp_tmp_th=tmp, sstp_tmp_rv=tmp, sstp_tmp_rh=tmp,
         sstp_tmp_p=zsd if cfg.exact_sstp_cond else z(0),
         puddle=z(N_PUDDLE), rng_seed=int(rng_seed))

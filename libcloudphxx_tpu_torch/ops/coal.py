@@ -89,6 +89,7 @@ def coal_resident_plain(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3,
     col = lambda a: a[:, None]
     T, p, rhod, eta, dv = (col(a) for a in (T, p, rhod, eta, dv))
     dt_sub = dt / sstp_coal
+    coal_mod.require_resident(cfg.kernel)
     eff = coal_mod.efficiency(cfg.kernel, n.dtype, n.device)
     draw = _draws(seed, step, n, row0)
     ovf = torch.zeros(n.shape[0], dtype=torch.bool, device=n.device)
@@ -131,6 +132,7 @@ def coal_standalone_plain(cfg, params, sstp_coal, dt, seed, step, n, rw2,
     col = lambda a: a[:, None]
     T, p, rhod, eta, dv = (col(a) for a in (T, p, rhod, eta, dv))
     dt_sub = dt / sstp_coal
+    coal_mod.require_resident(cfg.kernel)
     eff = coal_mod.efficiency(cfg.kernel, n.dtype, n.device)
     draw = _draws(seed, step, n)
     ovf = torch.zeros(n.shape[0], dtype=torch.bool, device=n.device)
@@ -167,6 +169,7 @@ def _launch(kernel, cfg, params, sstp_coal, dt, seed, step, planes, cells,
         raise ValueError(f"{kernel.name}: the row capacity must be a power of "
                          f"two up to {MAX_CAP}, got {cap}")
     kern = kernel_t(cfg.kernel)
+    coal_mod.require_resident(kern)
     eff = coal_mod.efficiency(kern, torch.float32, planes[0].device)
     cells = torch.stack(cells)
     if cells.shape != (5, n_cell):

@@ -27,6 +27,13 @@ backward-Euler root find a droplet, beside advance_rw2_plain
 kernel does, and keeps the others.  The plain versions of the two forms
 call it once a substep (a try), so it is on no path of the card.
 
+Under turb_cond (the SGS supersaturation perturbation ssp added to each
+SD's RH) F and G's two forms run their turb_cond forms (csrc/cond_flat.cu
+lcp_cond_flat_turb, cond_sd_fixed.cu lcp_cond_sd_fixed_turb,
+cond_sd_adaptive.cu lcp_cond_sd_adaptive_turb), which take ssp (and
+dot_ssp where it advances) and return it where it changes; their plain
+versions are the same plain functions with ssp.
+
 Dispatch is by device, as in ops/step.py: CPU tensors run the plain
 version, CUDA tensors launch the kernel (float32, contiguous, or the
 wrapper raises), and ``plain=True`` runs the plain version on any device,
@@ -46,16 +53,19 @@ import torch
 
 from .. import _ext
 from ..common import theta_dry
-from ..lgrngn import condensation, hskpng
+from ..lgrngn import condensation, hskpng, turbulence
 
 
 def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
                     rd3, kpa, vt, wgt, th, rv, rhod, delta_th, delta_rv,
-                    delta_rh, p, dv, lambda_D, lambda_K):
+                    delta_rh, p, dv, lambda_D, lambda_K, ssp=None,
+                    dot_ssp=None):
     """sstp substeps of the cell-sorted droplets' growth, each closed by the
     cells' latent heat (libcloudphxx_tpu/lgrngn/condensation.py:312-388):
     cell sums as a float64 cumulative sum differenced at the cell ends.
-    Returns (rw2, th, rv, rhod)."""
+    With ``ssp`` (turb_cond) each droplet's SGS supersaturation advances by
+    dt_sub * dot_ssp at the start of every substep and adds to its cell's
+    RH (:353-358).  Returns (rw2, th, rv, rhod), and ssp with it."""
     lamD_s, lamK_s = lambda_D[sijk], lambda_K[sijk]
     if not var_rho:
         wgt = wgt / (dv * rhod)[sijk]
@@ -66,9 +76,12 @@ def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
         rv = rv + delta_rv / sstp
         if var_rho:
             rhod = rhod + delta_rh / sstp
+        if ssp is not None:
+            ssp = turbulence.apply_sgs_supersat(ssp, dot_ssp, dt_sub)
         T, p_, RH, eta = hskpng.hskpng_Tpr(cfg, th, rv, rhod, p)
+        RH_sd = g(RH) if ssp is None else g(RH) + ssp
         rw2_new = condensation._advance_rw2_core(
-            dt_sub, rw2, rd3, kpa, vt, g(rhod), g(rv), g(T), g(p_), g(RH),
+            dt_sub, rw2, rd3, kpa, vt, g(rhod), g(rv), g(T), g(p_), RH_sd,
             g(eta), lamD_s, lamK_s, RH_max)
         drw3 = rw2_new * torch.sqrt(rw2_new) \
             - rw2 * torch.sqrt(torch.clamp(rw2, min=0.0))
@@ -77,21 +90,23 @@ def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
         th = th + drv * theta_dry.d_th_d_rv(T, th)
         rv = rv + drv
         rw2 = rw2_new
-    return rw2, th, rv, rhod
+    return (rw2, th, rv, rhod) + (() if ssp is None else (ssp,))
 
 
 def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
               vt, wgt, th, rv, rhod, delta_th, delta_rv, delta_rh, p, dv,
-              lambda_D, lambda_K, *, plain=False):
+              lambda_D, lambda_K, ssp=None, dot_ssp=None, *, plain=False):
     """Kernel F, or its plain version cond_flat_plain (same arguments and
     results).  ``sijk`` the sorted cells of the SDs, ``ends`` the last
     sorted position of each cell (condensation.cell_ends); ``rw2`` ...
     ``wgt`` the sorted SD arrays (``wgt`` = n * 4/3 pi rho_w); th, rv and
     rhod the cells at the last sstp_save, the deltas the step's increments,
     ``p`` the pressure the closure takes, ``dv`` the cell volumes.
-    ``var_rho`` substeps rhod and the weights with it.  Returns (rw2, th,
-    rv, rhod)."""
-    sd = (sijk, rw2, rd3, kpa, vt, wgt)
+    ``var_rho`` substeps rhod and the weights with it.  With the sorted
+    ``ssp`` and ``dot_ssp`` (turb_cond) it runs F's turb_cond form and
+    returns ssp too.  Returns (rw2, th, rv, rhod[, ssp])."""
+    turb = ssp is not None
+    sd = (sijk, rw2, rd3, kpa, vt, wgt) + ((ssp, dot_ssp) if turb else ())
     cells = (th, rv, rhod, delta_th, delta_rv, delta_rh, p, dv, lambda_D,
              lambda_K)
     n_sd, n_cell = rw2.shape[0], th.shape[0]
@@ -102,11 +117,12 @@ def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
         raise ValueError("cond_flat: the cell fields and ends must be "
                          f"({n_cell},), got "
                          f"{[tuple(a.shape) for a in cells + (ends,)]}")
-    if _ext.use_plain("cond_flat", rw2, plain):
+    name = "cond_flat_turb" if turb else "cond_flat"
+    if _ext.use_plain(name, rw2, plain):
         return cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk,
                                ends, rw2, rd3, kpa, vt, wgt, th, rv, rhod,
                                delta_th, delta_rv, delta_rh, p, dv, lambda_D,
-                               lambda_K)
+                               lambda_K, ssp, dot_ssp)
     if n_sd >= 2 ** 31:
         raise ValueError("cond_flat: more than 2**31 - 1 SDs")
     sd = sd[1:]
@@ -117,17 +133,23 @@ def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
     _ext.check("cond_flat", cells_in)
     rw2_out = torch.empty_like(rw2)
     cells_out = torch.empty((3, n_cell), dtype=rw2.dtype, device=rw2.device)
-    pos, buf = _ext.cond_scratch(n_sd, rw2.device)
+    pos, buf = _ext.cond_scratch(n_sd, rw2.device, rows=8 if turb else 6)
     sizes = torch.diff(ends, prepend=ends.new_full((1,), -1))
     order = _ext.longest_first(sizes)
-    _ext.COND_FLAT.launch(
-        *(a.data_ptr() for a in (wgt, rw2, rd3, kpa, vt, ends, cells_in)),
-        rw2_out.data_ptr(), cells_out.data_ptr(), pos.data_ptr(),
-        buf.data_ptr(), order.data_ptr(), n_cell, n_sd, int(sstp),
-        float(dt_sub), float(RH_max), int(cfg.th_dry), int(cfg.const_p),
-        int(cfg.RH_formula), int(var_rho),
-        condensation._root_iters(rw2.dtype))
-    return (rw2_out,) + tuple(cells_out.unbind(0))
+    args = (*(a.data_ptr() for a in (wgt, rw2, rd3, kpa, vt, ends,
+                                      cells_in)),
+            rw2_out.data_ptr(), cells_out.data_ptr(), pos.data_ptr(),
+            buf.data_ptr(), order.data_ptr(), n_cell, n_sd, int(sstp),
+            float(dt_sub), float(RH_max), int(cfg.th_dry), int(cfg.const_p),
+            int(cfg.RH_formula), int(var_rho),
+            condensation._root_iters(rw2.dtype))
+    if not turb:
+        _ext.COND_FLAT.launch(*args)
+        return (rw2_out,) + tuple(cells_out.unbind(0))
+    ssp_out = torch.empty_like(ssp)
+    _ext.COND_FLAT_TURB.launch(*args, ssp.data_ptr(), dot_ssp.data_ptr(),
+                               ssp_out.data_ptr())
+    return (rw2_out,) + tuple(cells_out.unbind(0)) + (ssp_out,)
 
 
 def advance_rw2_plain(dt, rw2, rd3, kpa, vt, rhod, rv, T, p, RH, eta, lam_D,
@@ -237,14 +259,16 @@ def _plain_layout(sd, cells, seg):
             lambda a: condensation.cell_sum(a, ends).to(a.dtype)[sijk])
 
 
-def perparticle_fixed_plain(cfg, dt, RH_max, sd, cells, seg=None):
+def perparticle_fixed_plain(cfg, dt, RH_max, sd, cells, seg=None, ssp=None):
     """Kernel G's fixed-count form as plain PyTorch:
     lgrngn/condensation.py perparticle_fixed_core over the SDs in the
     kernel's layout (the flat SDs sorted by cell and put back), the
-    one-substep entry advance_rw2 once a substep.  Returns (rw2, tmp_rv,
+    one-substep entry advance_rw2 once a substep; ``ssp`` (turb_cond) each
+    SD's SGS supersaturation, added to its RH.  Returns (rw2, tmp_rv,
     tmp_th, tmp_rh, tmp_p) in the SDs' layout."""
-    (n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0), g, put, spread = \
-        _plain_layout(sd, cells, seg)
+    extra = () if ssp is None else (ssp,)
+    (n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, *extra), g, put, spread = \
+        _plain_layout(tuple(sd) + extra, cells, seg)
     th, rv, rhod, p, dv = cells[:5]
     lam_D, lam_K = hskpng.hskpng_mfp(*cells[5:7])
     # the one-substep entry takes one mean free path an SD
@@ -254,18 +278,22 @@ def perparticle_fixed_plain(cfg, dt, RH_max, sd, cells, seg=None):
         lam_D_sd=full(lam_D), lam_K_sd=full(lam_K), dlt_rv=g(rv) - rv0,
         dlt_th=g(th) - th0, dlt_rh=g(rhod) - rh0, dlt_p=g(p) - p0,
         tmp_rv0=rv0, tmp_th0=th0, tmp_rh0=rh0, tmp_p0=p0, spread=spread,
-        plain=True)
+        ssp=extra[0] if extra else None, plain=True)
     return tuple(put(a) for a in out)
 
 
-def perparticle_adaptive_plain(cfg, dt, RH_max, sd, cells, seg=None):
+def perparticle_adaptive_plain(cfg, dt, RH_max, sd, cells, seg=None,
+                               ssp=None, dot_ssp=None):
     """Kernel G's adaptive form as plain PyTorch:
     lgrngn/condensation.py perparticle_adaptive_core over the SDs in the
     kernel's layout, ravelled (the flat SDs sorted by cell and put back),
-    the one-substep entry advance_rw2 once a try and a substep.  Returns
-    (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p) in the SDs' layout."""
-    (n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0), g, put, _ = \
-        _plain_layout(sd, cells, seg)
+    the one-substep entry advance_rw2 once a try and a substep; ``ssp`` and
+    ``dot_ssp`` (turb_cond) each SD's SGS supersaturation and its
+    tendency.  Returns (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p[, ssp]) in the
+    SDs' layout."""
+    extra = () if ssp is None else (ssp, dot_ssp)
+    (n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, *extra), g, put, _ = \
+        _plain_layout(tuple(sd) + extra, cells, seg)
     th, rv, rhod, p, dv, T_mfp, p_mfp, T = cells
     lam_D, lam_K = hskpng.hskpng_mfp(T_mfp, p_mfp)
     if not cfg.const_p:
@@ -280,14 +308,17 @@ def perparticle_adaptive_plain(cfg, dt, RH_max, sd, cells, seg=None):
         dlt_th=flat(g(th) - th0), dlt_rh=flat(g(rhod) - rh0),
         dlt_p=flat(g(p) - p0) if cfg.const_p else 0.0, tmp_rv0=flat(rv0),
         tmp_th0=flat(th0), tmp_rh0=flat(rh0), tmp_p0=flat(p0), T_sd=full(T),
-        plain=True)
+        ssp0=flat(extra[0]) if extra else None,
+        dot_ssp=flat(extra[1]) if extra else None, plain=True)
     return tuple(put(a.reshape(shape)) for a in out)
 
 
-def _launch_sd(name, kernel, sd, cells, seg, *scalars):
-    """Launch one of G's two forms on its checked inputs: the outputs
-    (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p) in the SDs' layout."""
-    _ext.check(name, *sd, *cells)
+def _launch_sd(name, kernel, sd, cells, seg, *scalars, sgs=()):
+    """Launch one of G's forms on its checked inputs: the outputs (rw2,
+    tmp_rv, tmp_th, tmp_rh, tmp_p) in the SDs' layout.  ``sgs`` the
+    turb_cond forms' SD arrays (ssp; or ssp and dot_ssp, and then the
+    adaptive form's ssp comes out too, after the five)."""
+    _ext.check(name, *sd, *cells, *sgs)
     n_slots = sd[1].numel()
     if n_slots >= 2 ** 31:
         raise ValueError(f"{name}: more than 2**31 - 1 SD slots")
@@ -297,44 +328,53 @@ def _launch_sd(name, kernel, sd, cells, seg, *scalars):
                       device=sd[1].device)
     rw2, th, rv, rh, p = out.unbind(0)
     outs = (rw2, th, rv, rh, p)
-    if kernel is _ext.COND_SD_FIXED:    # its scratch: the ranked positions
+    if kernel in (_ext.COND_SD_FIXED, _ext.COND_SD_FIXED_TURB):
+        # its scratch: the ranked positions
         outs += (torch.empty(n_slots, dtype=torch.int32,
                              device=sd[1].device),)
     lay = seg if seg is not None else (None, None, None)
     sijk, order, ends = (a.data_ptr() if a is not None else None
                          for a in lay)
     cap = sd[1].shape[1] if seg is None else 0
+    ssp_out = torch.empty_like(sgs[0]) if len(sgs) == 2 else None
     kernel.launch(*(a.data_ptr() for a in sd + cells), order, ends, sijk,
                   *(a.data_ptr() for a in outs), cells[0].shape[0], cap,
-                  *scalars)
-    return rw2, rv, th, rh, p
+                  *scalars, *(a.data_ptr() for a in sgs),
+                  *((ssp_out.data_ptr(),) if ssp_out is not None else ()))
+    return (rw2, rv, th, rh, p) + ((ssp_out,) if ssp_out is not None else ())
 
 
-def perparticle_fixed(cfg, dt, RH_max, sd, cells, seg=None, *, plain=False):
+def perparticle_fixed(cfg, dt, RH_max, sd, cells, seg=None, ssp=None, *,
+                      plain=False):
     """Kernel G's fixed-count form, or its plain version
     perparticle_fixed_plain (same arguments and results): the whole exact
     per-particle condensation phase (sstp_cond substeps; with
     sstp_cond_mix the cells' vapour and heat shared among their SDs), one
     launch.  ``sd`` the SD arrays (SD_NAMES), ``cells`` the cell arrays
     (CELL_NAMES but T), ``seg`` None for the dense rows or the flat
-    layout (sijk, order, ends).  Returns (rw2, tmp_rv, tmp_th, tmp_rh,
+    layout (sijk, order, ends).  With ``ssp`` (turb_cond: each SD's SGS
+    supersaturation, in the SDs' layout, held for the phase) it runs G's
+    fixed-count turb_cond form.  Returns (rw2, tmp_rv, tmp_th, tmp_rh,
     tmp_p)."""
     sd, cells = tuple(sd), tuple(cells)
     if len(sd) != len(SD_NAMES) or len(cells) != len(CELL_NAMES) - 1:
         raise ValueError("perparticle_fixed: expected the SD arrays "
                          f"{SD_NAMES} and the cell arrays {CELL_NAMES[:-1]}")
-    _sd_layout("perparticle_fixed", sd, cells, seg)
-    if _ext.use_plain("perparticle_fixed", sd[1], plain):
-        return perparticle_fixed_plain(cfg, dt, RH_max, sd, cells, seg)
+    sgs = () if ssp is None else (ssp,)
+    _sd_layout("perparticle_fixed", sd + sgs, cells, seg)
+    name = "perparticle_fixed_turb" if sgs else "perparticle_fixed"
+    if _ext.use_plain(name, sd[1], plain):
+        return perparticle_fixed_plain(cfg, dt, RH_max, sd, cells, seg, ssp)
     return _launch_sd(
-        "perparticle_fixed", _ext.COND_SD_FIXED, sd, cells, seg,
-        int(cfg.sstp_cond), float(dt), float(RH_max), int(cfg.th_dry),
-        int(cfg.const_p), int(cfg.RH_formula), int(cfg.sstp_cond_mix),
-        condensation._root_iters(sd[1].dtype))
+        name, _ext.COND_SD_FIXED_TURB if sgs else _ext.COND_SD_FIXED, sd,
+        cells, seg, int(cfg.sstp_cond), float(dt), float(RH_max),
+        int(cfg.th_dry), int(cfg.const_p), int(cfg.RH_formula),
+        int(cfg.sstp_cond_mix), condensation._root_iters(sd[1].dtype),
+        sgs=sgs)
 
 
-def perparticle_adaptive(cfg, dt, RH_max, sd, cells, seg=None, *,
-                         plain=False):
+def perparticle_adaptive(cfg, dt, RH_max, sd, cells, seg=None, ssp=None,
+                         dot_ssp=None, *, plain=False):
     """Kernel G's adaptive form, or its plain version
     perparticle_adaptive_plain (same arguments and results): the whole
     adaptive per-particle condensation phase (each SD's tries, its
@@ -342,19 +382,24 @@ def perparticle_adaptive(cfg, dt, RH_max, sd, cells, seg=None, *,
     arguments are perparticle_fixed's, ``cells`` with T (the activation
     test's); without const_p the phase starts every SD's private p at 0
     (perparticle_adaptive_core's convention), whatever ``sd``'s private
-    p holds.  Returns (rw2, tmp_rv, tmp_th, tmp_rh, tmp_p)."""
+    p holds.  With ``ssp`` and ``dot_ssp`` (turb_cond, in the SDs' layout)
+    it runs G's adaptive turb_cond form and returns ssp too.  Returns (rw2,
+    tmp_rv, tmp_th, tmp_rh, tmp_p[, ssp])."""
     sd, cells = tuple(sd), tuple(cells)
     if len(sd) != len(SD_NAMES) or len(cells) != len(CELL_NAMES):
         raise ValueError("perparticle_adaptive: expected the SD arrays "
                          f"{SD_NAMES} and the cell arrays {CELL_NAMES}")
-    _sd_layout("perparticle_adaptive", sd, cells, seg)
-    if _ext.use_plain("perparticle_adaptive", sd[1], plain):
-        return perparticle_adaptive_plain(cfg, dt, RH_max, sd, cells, seg)
+    sgs = () if ssp is None else (ssp, dot_ssp)
+    _sd_layout("perparticle_adaptive", sd + sgs, cells, seg)
+    name = "perparticle_adaptive_turb" if sgs else "perparticle_adaptive"
+    if _ext.use_plain(name, sd[1], plain):
+        return perparticle_adaptive_plain(cfg, dt, RH_max, sd, cells, seg,
+                                          ssp, dot_ssp)
     return _launch_sd(
-        "perparticle_adaptive", _ext.COND_SD_ADAPTIVE, sd, cells, seg,
-        sd[1].numel(), max(int(cfg.sstp_cond), 1),
+        name, _ext.COND_SD_ADAPTIVE_TURB if sgs else _ext.COND_SD_ADAPTIVE,
+        sd, cells, seg, sd[1].numel(), max(int(cfg.sstp_cond), 1),
         max(int(cfg.sstp_cond_act), 1), float(dt), float(RH_max),
         float(cfg.sstp_cond_adapt_drw2_eps),
         float(cfg.sstp_cond_adapt_drw2_max), int(cfg.th_dry),
         int(cfg.const_p), int(cfg.RH_formula),
-        condensation._root_iters(sd[1].dtype))
+        condensation._root_iters(sd[1].dtype), sgs=sgs)

@@ -1,11 +1,14 @@
 """Philox 4x32-10 counter-based random numbers for the coalescence loop
-(in place of the TPU kernel's on-core generator, pallas_coal._u01).
+(in place of the TPU kernel's on-core generator, pallas_coal._u01) and
+the SGS turbulence's velocity draws (in place of the JAX package's
+jax.random normals, lgrngn/turbulence.py:34-53).
 
 A draw is a pure function of (seed, row; step, substep, kind, lane): the
 key is (seed, row) and the counter (step, substep, kind, lane), where
 ``kind`` says what the number is for (SHUFFLE, the pairing shuffle's key,
-or BERNOULLI, the collision draw).  Of the four output words the first is
-used.  There is no global generator: the same arguments give the same bits
+BERNOULLI, the collision draw, or NORMAL, a turbulent velocity's draw,
+whose "substep" is the velocity's axis).  Of the four output words the
+first is used, and for NORMAL the first two (Box-Muller).  There is no global generator: the same arguments give the same bits
 on the CPU, on the card in plain PyTorch, and in kernel E
 (csrc/philox.cuh, the same rounds in uint32 arithmetic).
 
@@ -16,9 +19,11 @@ numbers: as easy as 1, 2, 3" (SC11), and the Random123 known-answer
 vectors.
 """
 
+import math
+
 import torch
 
-SHUFFLE, BERNOULLI = 0, 1
+SHUFFLE, BERNOULLI, NORMAL = 0, 1, 2
 
 M0, M1 = 0xD2511F53, 0xCD9E8D57      # round multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85      # key increments (golden ratio, sqrt 3)
@@ -79,3 +84,17 @@ def u01(bits, dtype):
     pallas_coal._u01 builds them: the top 23 bits as the mantissa of a
     float in [1, 2), minus 1.  Exact in float32 and float64."""
     return (bits >> 9).to(dtype) * 2.0 ** -23
+
+
+def normal(seed, step, axis, n, dtype, device="cpu"):
+    """(n,) standard normal numbers of ``dtype`` for slots 0 .. n-1: slot l
+    takes words 0 and 1 of Philox(key=(seed, 0), ctr=(step, axis, NORMAL,
+    l)) as u1 = (w0 + 1) 2**-32 in (0, 1] and u2 = w1 2**-32 in [0, 1),
+    and Box-Muller's sqrt(-2 ln u1) cos(2 pi u2), in float64."""
+    slots = torch.arange(n, dtype=torch.int64, device=device)
+    ctr = (int(step) & MASK, int(axis) & MASK, NORMAL, slots)
+    w0, w1, _, _ = philox4x32(ctr, (int(seed) & MASK, 0))
+    u1 = (w0.to(torch.float64) + 1.0) * 2.0 ** -32
+    u2 = w1.to(torch.float64) * 2.0 ** -32
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    return z.to(dtype)

@@ -149,12 +149,20 @@ def test_hall_efficiency_float32_is_bitwise():
 
 
 def test_unported_kernels_raise():
+    """undefined is no collision kernel; the turbulent (onishi) kernels run
+    on the flat engine only (tests/test_torch_turbulence.py): their value
+    needs the pairs' cells, and the dense engine's kernel E refuses them."""
+    one = torch.ones(2, 2, dtype=f64)
+    cfg = dataclasses.replace(port_cfg(_cfg(kernel_t.geometric)),
+                              kernel=kernel_t.undefined.value)
+    with pytest.raises(NotImplementedError, match="undefined"):
+        tcoal.kernel_value(cfg, (), *(one,) * 8)
     for kern in (kernel_t.onishi_hall_davis_no_waals, kernel_t.onishi_hall):
-        cfg = dataclasses.replace(port_cfg(_cfg(kernel_t.geometric)),
-                                  kernel=kern.value)
-        one = torch.ones(2, 2, dtype=f64)
+        cfg = dataclasses.replace(cfg, kernel=kern.value)
+        with pytest.raises(ValueError, match="turb"):
+            tcoal.kernel_value(cfg, (100.0,), *(one,) * 8)
         with pytest.raises(NotImplementedError, match=kern.name):
-            tcoal.kernel_value(cfg, (), *(one,) * 8)
+            tcoal.require_resident(kern)
 
 
 # ------------------------------------------------------------------ (b)

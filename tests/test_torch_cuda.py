@@ -60,7 +60,12 @@ repack policy run on the card as on the CPU, and the policy refuses a
 row that needs more than kernel E's 512 slots.  Kernel A advects the bulk
 schemes' 4 and 6 fields in one launch on the 76x76 node grid, each field
 bitwise one advect of it, and a short blk_1m and blk_2m run through it
-equals the plain path and run() bitwise.
+equals the plain path and run() bitwise.  The turb_cond forms of F and of
+G's two forms (each SD at its RH plus its SGS supersaturation ssp) run
+on the same inputs with ssp and dot_ssp from a seed, bitwise equal to
+their plain versions as their forms without turb_cond are, and with ssp
+and dot_ssp zero bitwise equal to those forms; the flat LES slice runs
+through the public API with them.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -484,7 +489,8 @@ def test_dense_front_on_the_card(dev):
                        coal_standalone=0, cond_flat=0, cond_sd=0,
                        transport_unwrapped=0, merge_exact=0,
                        cond_sd_fixed=0, cond_sd_adaptive=0, coal_vohl=0,
-                       transport_pred_corr=0)
+                       transport_pred_corr=0, cond_flat_turb=0,
+                       cond_sd_fixed_turb=0, cond_sd_adaptive_turb=0)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run(4, spinup=2, plain=True)
     assert torch.equal(front.th, fused.th) and torch.equal(front.rv, fused.rv)
@@ -1089,7 +1095,8 @@ def test_dense_exact_kernels_match_plain(dev, mode):
                        transport_unwrapped=0, merge_exact=4,
                        cond_sd_fixed=0 if adaptive else 4,
                        cond_sd_adaptive=4 if adaptive else 0, coal_vohl=0,
-                       transport_pred_corr=0)
+                       transport_pred_corr=0, cond_flat_turb=0,
+                       cond_sd_fixed_turb=0, cond_sd_adaptive_turb=0)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run_device_lgrngn(4, spinup=2, engine="dense", plain=True)
     for m in (fused, plain):
@@ -1151,9 +1158,10 @@ def _check_form(kernel, f, cfg, sd, cells, seg, **kw):
     not compared: the kernel keeps them, where the plain version may
     leave them non-finite (0 * 0 / 0).  Returns the kernel's results."""
     k = _launches(kernel, lambda: f(cfg, 1.0, 44.0, sd, cells, seg, **kw))
-    p = f(cfg, 1.0, 44.0, sd, cells, seg, plain=True)
+    p = f(cfg, 1.0, 44.0, sd, cells, seg, plain=True, **kw)
     live = sd[0] > 0
-    if kernel is _ext.COND_SD_FIXED and cfg.sstp_cond_mix:
+    if kernel in (_ext.COND_SD_FIXED, _ext.COND_SD_FIXED_TURB) \
+            and cfg.sstp_cond_mix:
         kept = ~live & (sd[1] <= 0)
         assert torch.equal(k[0][kept], p[0][kept])
         assert _rel(k[0][live], p[0][live]) <= 1e-5
@@ -1555,3 +1563,117 @@ def test_dense_option_slices_match_plain(dev, case):
     dk, dp = mk.dense_state, mp.dense_state
     assert torch.equal((dk.n > 0).sum(1), (dp.n > 0).sum(1))
     assert mk.prtcls._sstp_coal_extra == mp.prtcls._sstp_coal_extra
+
+
+# ------------------------------------------------ the turb_cond forms
+def _sgs(n, seed, dev, zero=False):
+    """ssp and dot_ssp of ``n`` SDs (float32): N(0, 2e-3) and N(0, 1e-3)."""
+    rng = np.random.default_rng(seed)
+    a = [rng.normal(0.0, 2e-3, n), rng.normal(0.0, 1e-3, n)]
+    return tuple(torch.tensor(v * (not zero), dtype=torch.float32,
+                              device=dev) for v in a)
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["ssp", "ssp0"])
+@pytest.mark.parametrize("config", ["th_dry", "var_rho"])
+@pytest.mark.parametrize("case", list(FLAT_CASES))
+def test_cond_flat_turb_kernel_matches_plain(dev, case, config, zero):
+    """Kernel F's turb_cond form against its plain version: the live
+    droplets' rw2 and ssp within F's gates (rw2 rel 1e-5, th 2e-6, rv
+    2e-5: the cell sums add in another order), dead slots' rw2 and ssp
+    copied through; with ssp and dot_ssp zero, bitwise F's form without
+    turb_cond."""
+    cfg, kw = _flat_case(dev, case, config)
+    ssp, dssp = _sgs(kw["rw2"].shape[0], 7, dev, zero)
+    k = _launches(_ext.COND_FLAT_TURB, lambda: cond_ops.cond_flat(
+        cfg, RH_max=44.0, ssp=ssp, dot_ssp=dssp, **kw))
+    p = cond_ops.cond_flat(cfg, RH_max=44.0, ssp=ssp, dot_ssp=dssp,
+                           plain=True, **kw)
+    live = kw["wgt"] > 0
+    assert _rel(k[0][live], p[0][live]) <= 1e-5
+    assert _rel(k[1], p[1]) <= 2e-6 and _rel(k[2], p[2]) <= 2e-5
+    assert torch.equal(k[4][live], p[4][live])
+    assert torch.equal(k[0][~live], kw["rw2"][~live])
+    assert torch.equal(k[4][~live], ssp[~live])
+    if zero:
+        base = cond_ops.cond_flat(cfg, RH_max=44.0, **kw)
+        for a, b in zip(k[:4], base):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["ssp", "ssp0"])
+@pytest.mark.parametrize("mode", ["mix", "nomix"])
+@pytest.mark.parametrize("layout", ["cap128", "flat"])
+def test_cond_sd_fixed_turb_matches_plain(dev, layout, mode, zero):
+    """G's fixed-count turb_cond form (ssp held for the phase) against its
+    plain version, as _check_form holds the form without it; with ssp zero
+    bitwise that form."""
+    cap = None if layout == "flat" else 128
+    cfg, sd, cells, seg = perparticle_case(
+        _g_counts(cap, seed=5), cap=cap, dead0=300, seed=6, device=dev,
+        dtype=torch.float32, sstp_cond=10, **FIXED_MODES[mode])
+    ssp, _ = _sgs(sd[0].numel(), 8, dev, zero)
+    ssp = ssp.reshape(sd[0].shape)
+    k = _check_form(_ext.COND_SD_FIXED_TURB, cond_ops.perparticle_fixed,
+                    cfg, sd, cells[:7], seg, ssp=ssp)
+    if zero:
+        base = cond_ops.perparticle_fixed(cfg, 1.0, 44.0, sd, cells[:7], seg)
+        for a, b in zip(k, base):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["ssp", "ssp0"])
+@pytest.mark.parametrize("mode", list(ADAPTIVE_MODES))
+@pytest.mark.parametrize("layout", ["cap128", "flat"])
+def test_cond_sd_adaptive_turb_matches_plain(dev, layout, mode, zero):
+    """G's adaptive turb_cond form (ssp on the tries and the substeps,
+    rewound with the state) against its plain version, bitwise, ssp
+    included for the live SDs and copied through for the others; with ssp
+    and dot_ssp zero bitwise the form without turb_cond."""
+    cap = None if layout == "flat" else 128
+    cfg, sd, cells, seg = perparticle_case(
+        _g_counts(cap, seed=9), cap=cap, dead0=300, seed=10, device=dev,
+        dtype=torch.float32, sstp_cond=10, adaptive_sstp_cond=True,
+        **ADAPTIVE_MODES[mode])
+    ssp, dssp = (a.reshape(sd[0].shape)
+                 for a in _sgs(sd[0].numel(), 11, dev, zero))
+    k = _check_form(_ext.COND_SD_ADAPTIVE_TURB, cond_ops.perparticle_adaptive,
+                    cfg, sd, cells, seg, ssp=ssp, dot_ssp=dssp)
+    live = sd[0] > 0
+    assert torch.equal(k[5][~live], ssp[~live])
+    if zero:
+        base = cond_ops.perparticle_adaptive(cfg, 1.0, 44.0, sd, cells, seg)
+        for a, b in zip(k[:5], base):
+            assert torch.equal(a, b)
+    else:
+        assert bool((k[5] != ssp)[live].any())
+
+
+def test_les_slice_kernels_match_plain(dev):
+    """The flat LES slice (turb_adve, turb_cond, turb_coal with onishi_hall,
+    diag_incloud_time, rcyc) through the public API at 8x8: F's turb_cond
+    form once a step, the kernel path bitwise its plain path's th and rv
+    within F's gates."""
+    kw = dict(nx=8, nz=8, sd_conc=16, sstp_cond=3, sstp_coal=3,
+              opts_init_kw=dict(turb_adve_switch=True, turb_cond_switch=True,
+                                turb_coal_switch=True, diag_incloud_time=True,
+                                kernel=kernel_t.onishi_hall,
+                                kernel_parameters=[100.0]), device=dev)
+    ms = [Kinematic2D(**kw) for _ in range(2)]
+    opts = ms[0].opts
+    opts.turb_adve = opts.turb_cond = opts.turb_coal = opts.rcyc = True
+    diss = torch.full((8, 8), 1e-3, device=dev)
+    before = _ext.COND_FLAT_TURB.launches
+    for m, plain in zip(ms, (False, True)):
+        for _ in range(3):
+            m.advect_scalars()
+            th, rv = m.prtcls.step_sync(opts, m.th, m.rv, diss_rate=diss,
+                                        plain=plain)
+            m.th, m.rv = th.reshape(8, 8), rv.reshape(8, 8)
+            m.prtcls.step_async(opts, plain=plain)
+    torch.cuda.synchronize()
+    assert _ext.COND_FLAT_TURB.launches == before + 3
+    assert _rel(ms[0].th, ms[1].th) <= 2e-6
+    assert _rel(ms[0].rv, ms[1].rv) <= 2e-5
+    st = ms[0].prtcls.state
+    assert bool(torch.isfinite(st.ssp).all()) and bool((st.ssp != 0).any())

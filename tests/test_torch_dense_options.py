@@ -386,15 +386,22 @@ def test_sstp_coal_growth_counts_as_jax(engine):
 
 
 def test_onishi_stays_refused():
+    """The dense engine refuses the turbulent kernels, as the JAX
+    package's; the flat engine runs them (tests/test_torch_les.py)."""
     for kern in (tl.kernel_t.onishi_hall,
                  tl.kernel_t.onishi_hall_davis_no_waals):
-        with pytest.raises(NotImplementedError, match="The LES slice"):
+        with pytest.raises(NotImplementedError,
+                           match=f"{kern.name}.*flat engine"):
             Kinematic2D(nx=4, nz=4, sd_conc=2, engine="dense",
-                        opts_init_kw={"kernel": kern}, **F64)
+                        opts_init_kw={"kernel": kern,
+                                      "kernel_parameters": [100.0]}, **F64)
         m = Kinematic2D(nx=4, nz=4, sd_conc=2, engine="flat",
-                        opts_init_kw={"kernel": kern}, **F64)
+                        opts_init_kw={"kernel": kern,
+                                      "kernel_parameters": [100.0]}, **F64)
+        m.run_device_lgrngn(2, spinup=1)
+        assert torch.isfinite(m.th).all()
         with pytest.raises(NotImplementedError, match=kern.name):
-            m.run_device_lgrngn(2, spinup=1)
+            m.run_device_lgrngn(1, engine="dense")
 
 
 def test_mesh_refuses_pred_corr_and_const_multi():

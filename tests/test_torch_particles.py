@@ -26,6 +26,7 @@ from libcloudphxx_tpu.models import Kinematic2D as JaxKinematic2D
 from libcloudphxx_tpu_torch import Kinematic2D
 from libcloudphxx_tpu_torch import lgrngn as tl
 from libcloudphxx_tpu_torch.common import constants as c
+from libcloudphxx_tpu_torch.lgrngn import particles as tparticles
 from libcloudphxx_tpu_torch.lgrngn.particles import factory
 
 KW = dict(nx=8, nz=8, sd_conc=16, sstp_cond=3, sstp_coal=3,
@@ -376,21 +377,22 @@ def test_defaults_and_refusals(monkeypatch):
         factory(tl.backend_t.CUDA, oi)
     for over, match in (({"dev_count": 2}, "Multi-device"),
                         ({"ice_switch": True}, "ice_switch"),
-                        ({"turb_cond_switch": True}, "turb_cond_switch"),
-                        ({"chem_switch": True}, "chem_switch"),
-                        ({"diag_incloud_time": True}, "diag_incloud_time"),
-                        ({"turb_adve_switch": True},
-                         "turb_adve_switch.*The LES slice")):
+                        ({"chem_switch": True}, "chem_switch")):
         o = _copy(oi, **over)
         with pytest.raises(NotImplementedError, match=match):
             factory(tl.backend_t.CUDA, o, **F64)
+    # the LES slice runs (tests/test_torch_les.py, test_torch_source.py)
+    for over in ({"turb_cond_switch": True}, {"diag_incloud_time": True},
+                 {"turb_adve_switch": True}):
+        assert type(factory(tl.backend_t.CUDA, _copy(oi, **over), **F64)) \
+            is tparticles.particles_t
     m = Kinematic2D(nx=4, nz=4, sd_conc=2, **F64)
     for name in ("src", "rlx", "rcyc"):
         opts = tl.opts_t()
         setattr(opts, name, True)
         m.prtcls.step_sync(opts, m.th, m.rv)
-        with pytest.raises(NotImplementedError, match=f"opts.{name}"):
-            m.prtcls.step_async(opts)
+        m.prtcls.step_async(opts)
+    assert (m.prtcls._src_ctr, m.prtcls._rlx_ctr) == (0, 0)
     with pytest.raises(ValueError, match="engine"):
         m.run_device_lgrngn(1, engine="multi")
 

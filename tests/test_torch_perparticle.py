@@ -351,7 +351,8 @@ def test_exact_modes_construct_and_refusals():
     """exact and adaptive substepping construct on both engines: the
     factory gives the flat particles_t on the CPU and, as the dense engine
     runs them (dense_capable), the dense front on the card or when asked
-    for; the dense x-slab mesh and SGS turbulence still refuse them."""
+    for; the dense x-slab mesh refuses them, and the dense engine the SGS
+    supersaturation (turb_cond runs on the flat engine)."""
     from libcloudphxx_tpu_torch.lgrngn.dense_front import (dense_capable,
                                                            particles_dense_t)
     from libcloudphxx_tpu_torch.parallel import MeshRunner
@@ -369,6 +370,8 @@ def test_exact_modes_construct_and_refusals():
     assert d.sd_th.shape == d.n.shape
     with pytest.raises(NotImplementedError, match="exact substepping"):
         MeshRunner(m, 2).run(1)
-    with pytest.raises(NotImplementedError,
-                       match="turb_cond_switch.*The LES slice"):
-        Kinematic2D(**_kw("mix", turb_cond_switch=True), **F64)
+    with pytest.raises(NotImplementedError, match="SGS"):
+        Kinematic2D(**_kw("mix", turb_cond_switch=True), engine="dense",
+                    **F64)
+    assert type(Kinematic2D(**_kw("mix", turb_cond_switch=True),
+                            **F64).prtcls) is tparticles.particles_t
