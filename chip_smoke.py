@@ -164,6 +164,30 @@ checks them:
      against its plain version on what a step gives it (F within its cell
      sums' gates with ssp bitwise, G-fixed within B's gates, G-adaptive
      bitwise), timed beside its bound
+ 19. the parcel (0-D), 1-D and 3-D grids on the flat engine through the
+     public API, the factory's pick on the card (particles_t): (a) the
+     GMD case extruded in y, 76x76x76 cells of 20 m, 28,094,464 SDs
+     (sd_conc 64), the Setup's profiles on every column, phase 18's
+     courants on every y slab and a courant_y of 0.1, sstp_cond =
+     sstp_coal = 10, the geometric kernel, sedimentation, each step
+     step_sync(opts, th, rv, rhod, Cx, Cy, Cz) and step_async(opts):
+     diag_vel_div on every y slab the 2-D field's, 10 counted steps (F
+     once a step, no other kernel), F against its plain version on what a
+     step gives it (F's gates), the best of 3 reps of 10 steps from init,
+     on every rep finite fields, water and dry mass conserved with the
+     puddle (1e-3, 1e-4), the live count balanced against coalescence and
+     the walls and SDs across the y walls; F timed at this shape beside
+     its plain version and bound; (b) a rising adiabatic parcel (4096
+     SDs, sstp_cond 10, a dry-adiabatic hydrostatic ascent at 1 m/s for
+     300 steps, rhod passed every step) per cell, exactly with mixing and
+     adaptively (sstp_cond_act 8), and with turb_cond (120 steps): its
+     parcel form of F or G once a step, water a kg conserved to 1e-5, RH
+     peaking above 1 and relaxing, the form against its plain version (F
+     and G-fixed within B's gates, G-adaptive bitwise) and timed beside
+     its bound; the reference's lgrngn_cond parcel in float32 through F's
+     parcel form with its th and rv gates and the evaporation leg's rv
+     return within its float32 bound; (c) 1-D, 76 cells, a courant_x of
+     0.2, 20 steps through F with the conservation checks and SDs wrapping
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
@@ -354,6 +378,22 @@ LES_DISS, LES_RE_LAMBDA = 1e-3, 100.0
 LES_STEPS, LES_STEPS_E = 20, 50
 SRC_SD_CONC, SRC_LEVELS, SRC_SUPSTP, SRC_SCALE = 4, 10, 10, 0.01
 LES_SD_HEADROOM = 65_536
+
+# phase 19: (a) the GMD case extruded in y, GRID_N cubed cells of GRID_D
+# metres, a uniform courant_y of GRID_CY, GRID_STEPS counted steps then
+# the best of GRID_REPS reps of GRID_STEPS from init, F timed over
+# GRID_KERNEL_REPS calls; (b) the rising parcel: PARCEL_SD SDs,
+# PARCEL_STEPS steps of a dry-adiabatic ascent at PARCEL_W m/s from
+# PARCEL_P0 Pa at dry potential temperature PARCEL_TH and vapour PARCEL_RV
+# (RH ~0.95 at the start), PARCEL_TURB_STEPS with the SGS supersaturation,
+# and the lgrngn_cond parcel's rv-return gate (lgrngn_cond_case); (c) 1-D:
+# GRID_N cells, a courant_x of GRID1D_CX, GRID1D_STEPS steps
+GRID_N, GRID_D, GRID_CY = 76, 20.0, 0.1
+GRID_STEPS, GRID_REPS, GRID_KERNEL_REPS = 10, 3, 5
+PARCEL_SD, PARCEL_STEPS, PARCEL_TURB_STEPS = 4096, 300, 120
+PARCEL_W, PARCEL_P0, PARCEL_TH, PARCEL_RV = 1.0, 100000.0, 289.0, 1.1e-2
+PARCEL_RV_RETURN = 7.5e-7
+GRID1D_CX, GRID1D_STEPS = 0.2, 20
 
 # the Golovin box of tests/test_pallas_coal_golovin.py
 GOLOVIN_SIM_TIME, GOLOVIN_SSTP = 800.0, 100
@@ -1233,12 +1273,9 @@ def smoke(opts):
     print(f"dense front, public API: {SLICE_SPINUP} spin-up + {SLICE_MAIN} "
           f"main steps in {secs:.2f} s; capacity {prt_d._d.cap}; launches "
           f"{front}", flush=True)
-    check(front == dict(mpdata=2 * steps, cond=steps, transport=steps,
-                        merge=steps, coal=SLICE_MAIN, coal_standalone=0,
-                        cond_flat=0, cond_sd=0, transport_unwrapped=0,
-                        merge_exact=0, cond_sd_fixed=0, cond_sd_adaptive=0,
-                        coal_vohl=0, transport_pred_corr=0, cond_flat_turb=0,
-                        cond_sd_fixed_turb=0, cond_sd_adaptive_turb=0),
+    check(front == dict({k.name: 0 for k in _ext.KERNELS}, mpdata=2 * steps,
+                        cond=steps, transport=steps, merge=steps,
+                        coal=SLICE_MAIN),
           f"dense front: kernel A twice, B, C and D once a step and E once "
           f"a main step expected, got {front}")
     # bitwise against run_device_lgrngn(engine="dense") from the same state
@@ -1380,7 +1417,11 @@ def smoke(opts):
                  _ext.COND_SD_FIXED, _ext.COND_SD_ADAPTIVE,   # 8's, 15's
                  _ext.COAL_VOHL, _ext.TRANSPORT_PRED_CORR,    # 17's
                  _ext.COND_FLAT_TURB, _ext.COND_SD_FIXED_TURB,
-                 _ext.COND_SD_ADAPTIVE_TURB):                 # 18's
+                 _ext.COND_SD_ADAPTIVE_TURB,                  # 18's
+                 _ext.COND_FLAT_PARCEL, _ext.COND_FLAT_PARCEL_TURB,
+                 _ext.COND_SD_FIXED_PARCEL, _ext.COND_SD_FIXED_PARCEL_TURB,
+                 _ext.COND_SD_ADAPTIVE_PARCEL,
+                 _ext.COND_SD_ADAPTIVE_PARCEL_TURB):          # 19's
             continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
@@ -1473,6 +1514,20 @@ def smoke(opts):
     les_rows, les = les_phase(Kinematic2D, _ext, c, card, opts.profile)
     rows += les_rows
     print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
+
+    # ---- 19. the parcel, 1-D and 3-D grids on the flat engine
+    t19 = time.perf_counter()
+    grid_rows, grid, err_3d = grid_phase(Kinematic2D, _ext, c, card,
+                                         opts.profile)
+    for kr in rows:                 # F on the 3-D shape too
+        if kr["name"] == "cond_flat":
+            kr["max_abs_err"] = max(kr["max_abs_err"], err_3d)
+            kr["grid3d"] = {k: grid["3-D"][k] for k in (
+                "launches", "cond_flat_ms", "cond_flat_plain_ms",
+                "cond_flat_bound_ms", "cond_flat_bound_by", "ms_per_step",
+                "sd_updates_per_s")}
+    rows += grid_rows
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
 
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
@@ -2116,27 +2171,73 @@ def forced_retargets(Kinematic2D, dense, _ext, card):
           f"cell's SDs", flush=True)
 
 
-def form_of(cfg, _ext):
-    """Kernel G's form for an exact configuration: (its wrapper's name in
-    ops/cond.py, its Kernel)."""
-    if cfg.adaptive_sstp_cond:
-        return "perparticle_adaptive", _ext.COND_SD_ADAPTIVE
-    return "perparticle_fixed", _ext.COND_SD_FIXED
+def form_of(cfg, turb=False):
+    """The condensation wrapper in ops/cond.py that a phase of ``cfg``
+    calls and the kernel it launches (ops/cond.form_kernel's pick): F
+    (cond_flat) per cell, G's fixed-count or adaptive form in exact mode;
+    the parcel form where cfg.n_dims == 0, the turb_cond form with
+    ``turb``."""
+    from libcloudphxx_tpu_torch.lgrngn import condensation
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    if not condensation.exact_route(cfg):
+        fname = "cond_flat"
+    elif cfg.adaptive_sstp_cond:
+        fname = "perparticle_adaptive"
+    else:
+        fname = "perparticle_fixed"
+    return fname, cond_ops.form_kernel(fname, cfg.n_dims == 0, turb)
+
+
+def kw_form(kw):
+    """form_of for a wrapper's captured arguments ``kw``."""
+    return form_of(kw["cfg"], kw.get("ssp") is not None)
+
+
+def check_flat_form(label, kernel, kw, err):
+    """Kernel F's form ``kernel`` against its plain version on its
+    captured arguments ``kw``: the live droplets' rw2, th and rv within
+    the cell sums' gates (rel 1e-5, 2e-6, 2e-5), rhod bitwise, the dead
+    slots' rw2 copied through; under turb_cond the live droplets' ssp
+    bitwise and the dead slots' copied through."""
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    k = cond_ops.cond_flat(**kw)
+    pl = cond_ops.cond_flat(**kw, plain=True)
+    torch.cuda.synchronize()
+    live = kw["wgt"] > 0
+    rel = (max_rel(k[0][live], pl[0][live]), max_rel(k[1], pl[1]),
+           max_rel(k[2], pl[2]))
+    same = bool(torch.equal(k[3], pl[3])) \
+        and bool(torch.equal(k[0][~live], kw["rw2"][~live]))
+    errs = [max_abs(k[0][live], pl[0][live]), max_abs(k[1], pl[1]),
+            max_abs(k[2], pl[2])]
+    if kw.get("ssp") is not None:
+        same = same and bool(torch.equal(k[4][live], pl[4][live])) \
+            and bool(torch.equal(k[4][~live], kw["ssp"][~live]))
+        errs.append(max_abs(k[4][live], pl[4][live]))
+    err[kernel.name] = max(err.get(kernel.name, 0.0), *errs)
+    print(f"F {kernel.name} {label}: {kw['rw2'].numel()} slots, "
+          f"{int(live.sum())} live in {kw['th'].numel()} cells; rw2 rel "
+          f"{rel[0]:.2e}, th rel {rel[1]:.2e}, rv rel {rel[2]:.2e}; rhod, "
+          f"dead slots (and ssp) bitwise {same}", flush=True)
+    check(same and rel[0] <= 1e-5 and rel[1] <= 2e-6 and rel[2] <= 2e-5,
+          f"{kernel.name} {label}: kernel and plain version differ")
 
 
 def check_form(label, kw, err):
-    """One of G's forms against its plain version on its captured
-    arguments ``kw``: rw2 in every slot and the live SDs' private state
-    bitwise; with in-cell mixing (the kernel's butterfly sums add in
-    another order) B's and F's gates on rw2 1e-5, th 2e-6 and rv 2e-5, the
-    live SDs' private rhod and p and the slots it does not advance
-    bitwise.  A dead slot's private values
-    are not compared (the kernel keeps them; the plain version may leave
-    0 * 0 / 0 there).  Records the largest difference in err[key]."""
-    from libcloudphxx_tpu_torch import _ext
+    """The form that a condensation wrapper's captured arguments ``kw``
+    run (kw_form) against its plain version on them: F's as
+    check_flat_form; G's with rw2 in every slot and the live SDs' private
+    state (and ssp) bitwise; with in-cell mixing (the kernel's butterfly
+    sums add in another order) B's and F's gates on rw2 1e-5, th 2e-6 and
+    rv 2e-5, the live SDs' private rhod and p and the slots it does not
+    advance bitwise.  A dead slot's private values are not compared (the
+    kernel keeps them; the plain version may leave 0 * 0 / 0 there).
+    Records the largest difference in err[the kernel's name]."""
     from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    fname, kernel = kw_form(kw)
+    if fname == "cond_flat":
+        return check_flat_form(label, kernel, kw, err)
     cfg = kw["cfg"]
-    fname, kernel = form_of(cfg, _ext)
     f = getattr(cond_ops, fname)
     k, pl = f(**kw), f(**kw, plain=True)
     torch.cuda.synchronize()
@@ -2145,8 +2246,7 @@ def check_form(label, kw, err):
     key = kernel.name
     err[key] = max(err.get(key, 0.0), max_abs(k[0], pl[0]),
                    *(max_abs(a[live], b[live]) for a, b in zip(k[1:], pl[1:])))
-    mix = not cfg.adaptive_sstp_cond and cfg.sstp_cond_mix
-    if mix:
+    if fname == "perparticle_fixed" and cfg.sstp_cond_mix:
         kept = ~live & (rw2 <= 0)
         rel = (max_rel(k[0][live], pl[0][live]), max_rel(k[2][live],
                pl[2][live]), max_rel(k[1][live], pl[1][live]))
@@ -2159,11 +2259,42 @@ def check_form(label, kw, err):
     else:
         ok = bool(torch.equal(k[0], pl[0])) and all(
             torch.equal(a[live], b[live]) for a, b in zip(k[1:], pl[1:]))
-        what = f"bitwise equal (rw2 every slot, private state live) {ok}"
+        what = (f"bitwise equal (rw2 every slot, private state "
+                f"{'and ssp ' if len(k) > 5 else ''}live) {ok}")
     moved = float((k[0] != rw2)[live].double().mean())
     print(f"G {key} {label}: {n.numel()} slots, {int(live.sum())} live; "
           f"{what}; {moved:.4f} of the live SDs changed", flush=True)
     check(ok, f"G's {key} form, {label}: kernel and plain version differ")
+
+
+FORM_BOUNDS = {"cond_flat": lambda kw: cond_flat_bound(kw["cfg"], kw),
+               "perparticle_fixed": lambda kw: cond_sd_fixed_bound(kw),
+               "perparticle_adaptive": lambda kw: cond_sd_adaptive_bound(kw)}
+
+
+def form_row(kw, launches, where, err, name=None, reps=None,
+             plain_reps=None):
+    """The kernel row of the form that ``kw`` (a condensation wrapper's
+    captured arguments) runs: a launch timed on them (the mean of
+    ``reps``, KERNEL_REPS by default) beside its plain version's (of
+    ``plain_reps``, FORM_PLAIN_REPS) and its bound; ``launches`` its
+    count in ``where``, ``name`` the row's (the kernel's by default)."""
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    fname, kernel = kw_form(kw)
+    f = getattr(cond_ops, fname)
+    ms = time_cuda(lambda: f(**kw), reps or KERNEL_REPS)
+    plain_ms = time_cuda(lambda: f(**kw, plain=True),
+                         plain_reps or FORM_PLAIN_REPS)
+    bound_ms, bound_by = FORM_BOUNDS[fname](kw)
+    name = name or kernel.name
+    print(f"kernel {name}: {ms:.4f} ms a launch (a phase), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
+          f"{launches} launches in {where} ({card_line()})", flush=True)
+    check(launches > 0, f"kernel {name} was not launched")
+    return {"name": name, "route": "cuda", "source": kernel.source,
+            "replaces": kernel.replaces, "launches": launches,
+            "max_abs_err": err[kernel.name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def exact_slice(Kinematic2D, _ext, c, err):
@@ -2203,7 +2334,7 @@ def exact_slice(Kinematic2D, _ext, c, err):
         init = (prt.state, m.th, m.rv)
         totals = flat_totals(prt, m.rv, c)
         n_sd = int((prt.state.n > 0).sum())
-        fname, form = form_of(prt.cfg, _ext)
+        fname, form = form_of(prt.cfg)
 
         def restore(s):
             prt.state, m.th, m.rv = s
@@ -2323,33 +2454,14 @@ def exact_slice(Kinematic2D, _ext, c, err):
 def form_rows(_ext, form_kw, out, where, err):
     """The kernel rows of G's two forms on ``where``'s layout (the
     captured arguments ``form_kw`` of the mixing and the adaptive
-    variants, their launches in ``out``): time a launch beside the plain
-    version's and the bound."""
-    from libcloudphxx_tpu_torch.ops import cond as cond_ops
-    card = card_line()
+    variants, their launches in ``out``): form_row."""
     rows = []
-    for label, fname, kernel, bnd in (
-            ("mixing", "perparticle_fixed", _ext.COND_SD_FIXED,
-             cond_sd_fixed_bound),
-            ("adaptive", "perparticle_adaptive", _ext.COND_SD_ADAPTIVE,
-             cond_sd_adaptive_bound)):
-        kw = form_kw[label]
-        f = getattr(cond_ops, fname)
-        ms = time_cuda(lambda: f(**kw), KERNEL_REPS)
-        plain_ms = time_cuda(lambda: f(**kw, plain=True), FORM_PLAIN_REPS)
-        bound_ms, bound_by = bnd(kw)
-        launches = out[label]["launches"][kernel.name]
-        name = kernel.name + ("_flat" if where == "flat" else "")
-        print(f"kernel {name}: {ms:.4f} ms a launch (a phase), plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-              f"{launches} launches in the {label} variant's "
-              f"{SLICE_SPINUP + SLICE_MAIN} steps ({card})", flush=True)
-        check(launches > 0, f"kernel {name} was not launched")
-        rows.append({"name": name, "route": "cuda", "source": kernel.source,
-                     "replaces": kernel.replaces, "launches": launches,
-                     "max_abs_err": err[kernel.name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None})
+    for label in ("mixing", "adaptive"):
+        kernel = kw_form(form_kw[label])[1]
+        rows.append(form_row(
+            form_kw[label], out[label]["launches"][kernel.name],
+            f"the {label} variant's {SLICE_SPINUP + SLICE_MAIN} steps", err,
+            name=kernel.name + ("_flat" if where == "flat" else "")))
     return rows
 
 
@@ -2385,7 +2497,7 @@ def dense_exact(Kinematic2D, dense, _ext, step, card, flat_exact_ms,
         check(d0.sd_th.shape == d0.n.shape,
               f"dense exact {label}: no private ambient planes")
         totals = dense.water_dry_totals(d0, m.rv)
-        fname, form = form_of(m.cfg, _ext)
+        fname, form = form_of(m.cfg)
 
         def restore(s):
             m.dense_state, m.th, m.rv = s
@@ -3016,9 +3128,8 @@ def cond_flat_bound(f_cfg, f_kw):
         f_kw["dt_sub"], flat_first_substep(f_cfg, f_kw), f_kw["RH_max"],
         f_kw["wgt"] > 0)
     turb = f_kw.get("ssp") is not None
-    name = "cond_flat_turb" if turb else "cond_flat"
-    print(f"F {name}: {brk / live:.4f} of the {live} live droplets "
-          f"bracketed in the first substep")
+    print(f"F {kw_form(f_kw)[1].name}: {brk / live:.4f} of the {live} live "
+          f"droplets bracketed in the first substep")
     sd = [f_kw[k] for k in ("rw2", "rd3", "kpa", "vt", "wgt")]
     if turb:
         sd += [f_kw["ssp"], f_kw["dot_ssp"], f_kw["ssp"]]
@@ -3517,83 +3628,17 @@ def les_run(m, opts, diss, steps, c, label):
                             flow, c)
 
 
-LES_FORMS = {"a": ("cond_flat", "COND_FLAT_TURB"),
-             "b": ("perparticle_fixed", "COND_SD_FIXED_TURB"),
-             "c": ("perparticle_adaptive", "COND_SD_ADAPTIVE_TURB"),
-             "d": ("cond_flat", "COND_FLAT_TURB"),
-             "e": (None, "COND")}
-
-
 def les_form_check(case, kw, err):
     """A turb_cond form against its plain version on its captured
-    arguments: F (a) with the live droplets' rw2 within the cell sums'
-    gates (rel 1e-5, th 2e-6, rv 2e-5) and ssp bitwise, the dead slots
-    copied through; G's fixed form (b, with mixing) as check_form; G's
-    adaptive form (c) bitwise, ssp too."""
-    from libcloudphxx_tpu_torch import _ext
-    from libcloudphxx_tpu_torch.ops import cond as cond_ops
-    fname, kname = LES_FORMS[case]
-    kernel = getattr(_ext, kname)
-    f = getattr(cond_ops, fname)
-    k, pl = f(**kw), f(**kw, plain=True)
-    torch.cuda.synchronize()
-    if fname == "cond_flat":
-        live = kw["wgt"] > 0
-        rel = (max_rel(k[0][live], pl[0][live]), max_rel(k[1], pl[1]),
-               max_rel(k[2], pl[2]))
-        same = bool(torch.equal(k[4][live], pl[4][live])) \
-            and bool(torch.equal(k[0][~live], kw["rw2"][~live])) \
-            and bool(torch.equal(k[4][~live], kw["ssp"][~live]))
-        ok = same and rel[0] <= 1e-5 and rel[1] <= 2e-6 and rel[2] <= 2e-5
-        err[kernel.name] = max(err.get(kernel.name, 0.0),
-                               max_abs(k[0][live], pl[0][live]),
-                               max_abs(k[1], pl[1]), max_abs(k[2], pl[2]),
-                               max_abs(k[4][live], pl[4][live]))
-        print(f"F {kernel.name} ({case}): {int(live.sum())} live of "
-              f"{live.numel()}; rw2 rel {rel[0]:.2e}, th rel {rel[1]:.2e}, "
-              f"rv rel {rel[2]:.2e}; ssp (live) and dead slots bitwise "
-              f"{same}", flush=True)
-        check(ok, f"{kernel.name}: kernel and plain version differ")
-        return
-    n, rw2 = kw["sd"][0], kw["sd"][1]
-    live = n > 0
-    n_slots, n_live = n.numel(), int(live.sum())
-    err[kernel.name] = max(err.get(kernel.name, 0.0), max_abs(k[0], pl[0]),
-                           *(max_abs(a[live], b[live])
-                             for a, b in zip(k[1:], pl[1:])))
-    if fname == "perparticle_fixed":
-        # (b)'s ssp is zero (nothing advances it in the fixed-count exact
-        # mode): hold the form with a seeded ssp too
+    arguments (check_form); G's fixed form (b) also with a seeded ssp
+    (nothing advances ssp in the fixed-count exact mode: it is zero)."""
+    check_form(f"({case})", kw, err)
+    if kw_form(kw)[0] == "perparticle_fixed":
+        n = kw["sd"][0]
         gen = np.random.default_rng(18)
         ssp = torch.tensor(gen.normal(0.0, 2e-3, n.numel()),
                            dtype=n.dtype, device=n.device).reshape(n.shape)
-        k2, pl2 = f(**dict(kw, ssp=ssp)), f(**dict(kw, ssp=ssp), plain=True)
-        k, pl = tuple(torch.cat([a.reshape(-1), b.reshape(-1)])
-                      for a, b in zip(k, k2)), \
-            tuple(torch.cat([a.reshape(-1), b.reshape(-1)])
-                  for a, b in zip(pl, pl2))
-        live, rw2 = torch.cat([live.reshape(-1)] * 2), \
-            torch.cat([rw2.reshape(-1)] * 2)
-        err[kernel.name] = max(err[kernel.name], max_abs(k[0], pl[0]),
-                               *(max_abs(a[live], b[live])
-                                 for a, b in zip(k[1:], pl[1:])))
-        kept = ~live & (rw2 <= 0)
-        rel = (max_rel(k[0][live], pl[0][live]),
-               max_rel(k[2][live], pl[2][live]),
-               max_rel(k[1][live], pl[1][live]))
-        same = bool(torch.equal(k[0][kept], pl[0][kept])) and all(
-            torch.equal(a[live], b[live]) for a, b in zip(k[3:], pl[3:]))
-        ok = same and rel[0] <= 1e-5 and rel[1] <= 2e-6 and rel[2] <= 2e-5
-        what = (f"with its ssp and a seeded one, rw2 rel {rel[0]:.2e}, th "
-                f"rel {rel[1]:.2e}, rv rel {rel[2]:.2e} (live), the rest "
-                f"bitwise {same}")
-    else:
-        ok = bool(torch.equal(k[0], pl[0])) and all(
-            torch.equal(a[live], b[live]) for a, b in zip(k[1:], pl[1:]))
-        what = f"bitwise equal (ssp too) {ok}"
-    print(f"G {kernel.name} ({case}): {n_slots} slots, {n_live} live; "
-          f"{what}", flush=True)
-    check(ok, f"{kernel.name}: kernel and plain version differ")
+        check_form(f"({case}), a seeded ssp", dict(kw, ssp=ssp), err)
 
 
 def les_phase(Kinematic2D, _ext, c, card, profile_on):
@@ -3612,8 +3657,8 @@ def les_phase(Kinematic2D, _ext, c, card, profile_on):
               f"LES ({case}): the factory's pick is {type(p).__name__}")
         init = les_init(m)
         steps = LES_STEPS_E if case == "e" else LES_STEPS
-        fname, kname = LES_FORMS[case]
-        kernel = getattr(_ext, kname)
+        fname, kernel = (None, _ext.COND) if case == "e" \
+            else form_of(p.cfg, turb=True)
         # the counted run: its form (B for (e)) once a step
         reset(_ext.KERNELS)
         secs, chk = les_run(m, opts, diss, steps, c, case)
@@ -3650,27 +3695,8 @@ def les_phase(Kinematic2D, _ext, c, card, profile_on):
                     lambda n: [les_step(m, opts, diss) for _ in range(n)],
                     card)
         if case in ("a", "b", "c"):
-            kw = form_kw[case]
-            f = getattr(cond_ops, fname)
-            ms = time_cuda(lambda: f(**kw), KERNEL_REPS)
-            plain_ms = time_cuda(lambda: f(**kw, plain=True),
-                                 FORM_PLAIN_REPS)
-            if fname == "cond_flat":
-                bound_ms, bound_by = cond_flat_bound(p.cfg, kw)
-            elif fname == "perparticle_fixed":
-                bound_ms, bound_by = cond_sd_fixed_bound(kw)
-            else:
-                bound_ms, bound_by = cond_sd_adaptive_bound(kw)
-            print(f"kernel {kernel.name}: {ms:.4f} ms a launch (a phase), "
-                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}); {out[case]['launches']} launches in the "
-                  f"{steps} steps of ({case}) ({card})", flush=True)
-            rows.append({"name": kernel.name, "route": "cuda",
-                         "source": kernel.source, "replaces": kernel.replaces,
-                         "launches": out[case]["launches"],
-                         "max_abs_err": err[kernel.name], "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": None})
+            rows.append(form_row(form_kw[case], out[case]["launches"],
+                                 f"the {steps} steps of ({case})", err))
         del m, p, init
         torch.cuda.empty_cache()
         print(f"LES ({case}): {time.perf_counter() - t_case:.1f} s",
@@ -3679,6 +3705,454 @@ def les_phase(Kinematic2D, _ext, c, card, profile_on):
         f"({k}) {v['ms_per_step']:.3f} ms/step" for k, v in out.items())
         + f" ({card})", flush=True)
     return rows, out
+
+
+# ------------------------------------------------------------------ phase 19
+def grid3d_fields(Kinematic2D):
+    """Phase 19 (a)'s fields: the GMD-2015 case at 76x76 cells of 20 m (a
+    1520 m square, the Setup's profiles and stream function on it),
+    extruded over GRID_N y slabs: th, rv, rhod (nx, ny, nz), the courants
+    of the 2-D field on every slab, a uniform courant_y of GRID_CY (the
+    flow stays non-divergent: rhod does not vary in y), and the 2-D model
+    that made them."""
+    from libcloudphxx_tpu_torch.models.kinematic_2d import Setup
+    n = GRID_N
+    setup = Setup(X=n * GRID_D, Z=n * GRID_D)
+    m2 = Kinematic2D(nx=n, nz=n, setup=setup, sd_conc=1, n_sd_max=n * n,
+                     device=DEVICE)
+    ext = lambda a: a[:, None, :].expand(a.shape[0], n, a.shape[1]) \
+        .contiguous()
+    return dict(th=ext(m2.th), rv=ext(m2.rv), rhod=ext(m2.rhod),
+                Cx=ext(m2.C_x), Cz=ext(m2.C_z),
+                Cy=torch.full((n, n + 1, n), GRID_CY, device=DEVICE)), m2
+
+
+def grid_oi(m2, n_dims, **over):
+    """The opts_init of a phase-19 run: the 2-D model's (its aerosol, vt
+    formula, geometric kernel, sstp_cond = sstp_coal = 10), on the grid of
+    ``n_dims`` (3: GRID_N cubed cells of GRID_D; 1: GRID_N cells along x;
+    0: the parcel), sedimentation as the grid has z."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    oi = tl.opts_init_t()
+    oi.__dict__.update(m2.opts_init.__dict__)
+    for a in "xyz":
+        setattr(oi, "n" + a, 0)
+        setattr(oi, "d" + a, 1.0)
+        setattr(oi, a + "0", 0.0)
+        setattr(oi, a + "1", 1.0)
+    axes = {0: "", 1: "x", 3: "xyz"}[n_dims]
+    for a in axes:
+        setattr(oi, "n" + a, GRID_N)
+        setattr(oi, "d" + a, GRID_D)
+        setattr(oi, a + "1", GRID_N * GRID_D)
+    oi.sd_conc = SD_CONC
+    oi.n_sd_max = SD_CONC * GRID_N ** len(axes)
+    oi.sstp_cond, oi.sstp_coal = SSTP_COND, SSTP_COAL
+    oi.coal_switch = n_dims == 3
+    oi.sedi_switch = n_dims == 3
+    for k, v in over.items():
+        setattr(oi, k, v)
+    return oi
+
+
+def grid_factory(oi, label):
+    """The factory's pick on the card for a phase-19 configuration: the
+    flat particles_t (the dense engine runs the 2-D grid alone)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.lgrngn.particles import particles_t
+    prt = tl.factory(tl.backend_t.CUDA, oi, device=DEVICE)
+    check(type(prt) is particles_t,
+          f"{label}: the factory gave {type(prt).__name__}, not particles_t")
+    return prt
+
+
+def grid_run(prt, opts, steps, fields, c):
+    """``steps`` steps of step_sync(opts, th, rv, rhod, Cx, Cy, Cz) and
+    step_async(opts) from the particles' state, the live count's changes in
+    coalescence and at the walls summed on the device, and the SDs that
+    cross the y walls.  Returns (seconds, {"coal", "walls", "y_wrap"},
+    th, rv)."""
+    from libcloudphxx_tpu_torch.lgrngn import coalescence, transport
+    th, rv = fields["th"], fields["rv"]
+    cfg = prt.cfg
+    flow = {k: torch.zeros((), dtype=torch.int64, device=DEVICE)
+            for k in ("coal", "walls", "y_wrap")}
+    real = {(coalescence, "coal"): coalescence.coal,
+            (transport, "bcnd"): transport.bcnd}
+
+    def coal(cfg_, state, *args, **kw):
+        out = real[coalescence, "coal"](cfg_, state, *args, **kw)
+        flow["coal"] += (out.n > 0).sum() - (state.n > 0).sum()
+        return out
+
+    def bcnd(cfg_, state):
+        if cfg_.n_dims == 3:
+            flow["y_wrap"] += ((state.n > 0) & ((state.y >= cfg_.y1)
+                                                | (state.y < cfg_.y0))).sum()
+        out = real[transport, "bcnd"](cfg_, state)
+        flow["walls"] += (out.n > 0).sum() - (state.n > 0).sum()
+        return out
+
+    coalescence.coal, transport.bcnd = coal, bcnd
+    kw = {"courant_" + k[1]: fields[k] for k in ("Cx", "Cy", "Cz")
+          if k in fields}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            th, rv = prt.step_sync(opts, th, rv, fields["rhod"], **kw)
+            prt.step_async(opts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        coalescence.coal, transport.bcnd = real[coalescence, "coal"], \
+            real[transport, "bcnd"]
+    return secs, {k: int(v) for k, v in flow.items()}, th, rv
+
+
+def grid_checks(label, prt, th, rv, totals0, flow, c):
+    """Phase 19 (a) and (c)'s checks after a run: finite fields, water and
+    dry mass conserved with the puddle (1e-3, 1e-4), the live count at
+    the end the count at the start plus the changes in coalescence and at
+    the walls."""
+    check(bool(torch.isfinite(th).all() and torch.isfinite(rv).all()),
+          f"{label}: non-finite th/rv")
+    st = prt.state
+    live = st.n > 0
+    check(bool(torch.isfinite(st.rw2[live]).all()
+               and (st.rw2[live] > 0).all()), f"{label}: bad rw2")
+    water, dry = flat_totals(prt, rv, c)
+    n_live = int(live.sum())
+    dw = abs(water - totals0[0]) / totals0[0]
+    dd = abs(dry - totals0[1]) / totals0[1]
+    check(dw < 1e-3, f"{label}: water conservation off by {dw:.2e}")
+    check(dd < 1e-4, f"{label}: dry-mass conservation off by {dd:.2e}")
+    check(flow["coal"] <= 0 and flow["walls"] <= 0
+          and n_live == totals0[2] + flow["coal"] + flow["walls"],
+          f"{label}: SDs dropped: {totals0[2]} live at the start, {n_live} "
+          f"at the end, changes {flow}")
+    return {"water_rel_err": dw, "dry_rel_err": dd, "sds": n_live, **flow}
+
+
+def grid_totals(prt, rv, c):
+    water, dry = flat_totals(prt, rv, c)
+    return water, dry, int((prt.state.n > 0).sum())
+
+
+def grid3d_case(fields, m2, _ext, c, card, profile_on, err):
+    """Phase 19 (a): the GMD case extruded to GRID_N cubed cells
+    (grid3d_fields' ``fields`` and 2-D model ``m2``) at full width through
+    the public API.  Returns its numbers, kernel F's at this shape among
+    them."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    oi = grid_oi(m2, 3)
+    t0 = time.perf_counter()
+    prt = grid_factory(oi, "3-D")
+    prt.init(fields["th"], fields["rv"], fields["rhod"], Cx=fields["Cx"],
+             Cy=fields["Cy"], Cz=fields["Cz"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init = prt.state
+    n_sd = int((init.n > 0).sum())
+    print(f"3-D init: {n_sd} SDs in {prt.cfg.n_sd_max} slots on "
+          f"{prt.cfg.n_cell} cells in {init_s:.1f} s (factory -> "
+          f"particles_t.init) ({card})", flush=True)
+    check(n_sd == SD_CONC * GRID_N ** 3, f"3-D: {n_sd} SDs at init")
+    opts = tl.opts_t()
+    opts.adve = opts.cond = opts.coal = opts.sedi = True
+    totals0 = grid_totals(prt, fields["rv"], c)
+    # the divergence on every y slab is the 2-D field's (courant_y adds
+    # +0.1 - 0.1 in float32: a few ulps)
+    prt.diag_vel_div()
+    div3 = torch.as_tensor(prt.outbuf()).reshape(GRID_N, GRID_N, GRID_N)
+    m2.prtcls.diag_vel_div()
+    div2 = torch.as_tensor(m2.prtcls.outbuf()).reshape(GRID_N, 1, GRID_N)
+    ddiv = float((div3 - div2).abs().max())
+    check(ddiv <= 4 * 2.0 ** -23 * GRID_CY / prt.cfg.dt,
+          f"3-D: diag_vel_div differs from the 2-D field's by {ddiv:.2e}")
+    # the counted run: F once a step, no other kernel
+    reset(_ext.KERNELS)
+    secs, flow, th, rv = grid_run(prt, opts, GRID_STEPS, fields, c)
+    launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+    chk = grid_checks("3-D", prt, th, rv, totals0, flow, c)
+    lost = collided(init, prt.state)
+    print(f"3-D: {GRID_STEPS} steps from init in {secs:.2f} s; {chk}; "
+          f"multiplicity lost to collisions {lost:.3e}; launches {launches} "
+          f"({card})", flush=True)
+    check(launches == {"cond_flat": GRID_STEPS},
+          f"3-D: kernel F once a step expected, got {launches}")
+    check(flow["y_wrap"] > 0, "3-D: no SD crossed the y walls")
+    out = dict(chk, launches=launches["cond_flat"], init_s=init_s,
+               vel_div_max_abs_diff=ddiv, collided=lost)
+    # F against its plain version on what a full-width step gives it
+    f_kw = capture(cond_ops, "cond_flat", lambda: grid_run(
+        prt, opts, 1, dict(fields, th=th, rv=rv), c))
+    t1 = time.perf_counter()
+    check_form("(3-D)", f_kw, err)
+    out["check_s"] = time.perf_counter() - t1
+    # best of GRID_REPS reps of GRID_STEPS steps from init
+    best = float("inf")
+    for _ in range(GRID_REPS):
+        prt.state = init
+        totals = grid_totals(prt, fields["rv"], c)
+        secs, flow, th, rv = grid_run(prt, opts, GRID_STEPS, fields, c)
+        grid_checks("3-D", prt, th, rv, totals, flow, c)
+        check(flow["y_wrap"] > 0, "3-D: no SD crossed the y walls")
+        best = min(best, secs)
+    out.update(ms_per_step=best / GRID_STEPS * 1e3,
+               sd_updates_per_s=n_sd * GRID_STEPS / best)
+    print(f"timing, 3-D: {out['ms_per_step']:.3f} ms/step, "
+          f"{out['sd_updates_per_s']:.4e} SD-updates/s (best of {GRID_REPS} "
+          f"reps of {GRID_STEPS} steps from init, {n_sd} SDs); init "
+          f"{init_s:.1f} s ({card})", flush=True)
+    row = form_row(f_kw, out["launches"], f"the 3-D run's {GRID_STEPS} "
+                   "steps", err, name="cond_flat_3d", reps=GRID_KERNEL_REPS,
+                   plain_reps=1)
+    out.update(cond_flat_ms=row["ms"], cond_flat_plain_ms=row["plain_ms"],
+               cond_flat_bound_ms=row["bound_ms"],
+               cond_flat_bound_by=row["bound_by"])
+    if profile_on:
+        prt.state = init
+        profile("3-D (a)", lambda: setattr(prt, "state", init),
+                lambda k: grid_run(prt, opts, k, fields, c), card, steps=3)
+    prt.state = None
+    del prt, init, f_kw
+    torch.cuda.empty_cache()
+    return out
+
+
+def parcel_rhod(steps):
+    """The rising parcel's rhod at the start and after each of ``steps``
+    steps: a dry-adiabatic hydrostatic ascent at PARCEL_W m/s from
+    PARCEL_P0 (p^kappa = p0^kappa - g p1000^kappa z / (c_pd theta), T =
+    theta (p / p1000)^kappa, rhod = p / (R_d T); the vapour's weight left
+    out), float64 on the host."""
+    from libcloudphxx_tpu_torch.common import constants as c
+    kap = c.R_d / c.c_pd
+    z = PARCEL_W * np.arange(steps + 1, dtype=np.float64)
+    pk = PARCEL_P0 ** kap - c.g * c.p_1000 ** kap * z / (c.c_pd
+                                                         * PARCEL_TH)
+    p = pk ** (1.0 / kap)
+    return p / (c.R_d * PARCEL_TH * (p / c.p_1000) ** kap)
+
+
+PARCEL_FORMS = {
+    "per cell": {},
+    "exact, mixing": dict(exact_sstp_cond=True),
+    "adaptive": dict(exact_sstp_cond=True, adaptive_sstp_cond=True,
+                     sstp_cond_act=8),
+}
+
+
+def parcel_run(prt, opts, rhods, th0, rv0, diss=None):
+    """The rising parcel's host loop: each step lowers rhod to the next of
+    ``rhods`` and passes it to step_sync (var_rho).  Returns (seconds, RH
+    after each step, total water a kg after each step, th, rv)."""
+    from libcloudphxx_tpu_torch.common import constants as c
+    th, rv = th0.clone(), rv0.clone()
+    rh, water = [], []
+    kw = {} if diss is None else {"diss_rate": diss}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in rhods:
+        rhod = torch.full((1,), float(r), device=DEVICE)
+        th, rv = prt.step_sync(opts, th, rv, rhod, **kw)
+        prt.step_async(opts)
+        st = prt.state
+        rh.append(st.RH[0])
+        water.append(rv[0].double() + 4.0 / 3 * c.pi * c.rho_w * (
+            st.n.double() * st.rw2.double() ** 1.5).sum())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return secs, torch.stack(rh).double().cpu().numpy(), \
+        torch.stack(water).cpu().numpy(), th, rv
+
+
+def parcel_case(m2, _ext, c, card, err, turb):
+    """Phase 19 (b): the rising adiabatic parcel, PARCEL_SD SDs, sstp_cond
+    10, PARCEL_STEPS steps of 1 s at PARCEL_W m/s, in each of
+    PARCEL_FORMS' modes (with ``turb`` the SGS supersaturation on: opts.
+    turb_cond and a dissipation rate, PARCEL_TURB_STEPS steps).  Returns
+    (the forms' kernel rows, {mode: numbers})."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    steps = PARCEL_TURB_STEPS if turb else PARCEL_STEPS
+    rhod0, *rhods = parcel_rhod(steps)
+    rows, out = [], {}
+    for mode, kw in PARCEL_FORMS.items():
+        over = dict(sd_conc=PARCEL_SD, n_sd_max=PARCEL_SD, **kw)
+        if turb:
+            over.update(turb_cond_switch=True)
+        prt = grid_factory(grid_oi(m2, 0, **over), f"parcel ({mode})")
+        fname, kernel = form_of(prt.cfg, turb)
+        th0 = torch.full((1,), PARCEL_TH, device=DEVICE)
+        rv0 = torch.full((1,), PARCEL_RV, device=DEVICE)
+        prt.init(th0, rv0, torch.full((1,), rhod0, device=DEVICE))
+        init = prt.state
+        opts = tl.opts_t()
+        opts.cond = True
+        opts.turb_cond = turb
+        diss = torch.full((1,), LES_DISS, device=DEVICE) if turb else None
+        reset(_ext.KERNELS)
+        secs, rh, water, th, rv = parcel_run(prt, opts, rhods, th0, rv0,
+                                             diss)
+        launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+        dwat = float(np.abs(water / water[0] - 1.0).max())
+        label = f"parcel ({mode}{', turb_cond' if turb else ''})"
+        ms = secs / steps * 1e3
+        print(f"{label}: {steps} steps in {secs:.2f} s ({ms:.3f} ms/step); "
+              f"RH peak {rh.max():.5f} at step "
+              f"{int(rh.argmax()) + 1}, last {rh[-1]:.5f}; total water a kg "
+              f"{water[0]:.6e}, max rel change {dwat:.2e}; th "
+              f"{float(th[0]):.4f}, rv {float(rv[0]):.6e}; launches "
+              f"{launches} ({card})", flush=True)
+        check(bool(torch.isfinite(th).all() and torch.isfinite(rv).all()),
+              f"{label}: non-finite th/rv")
+        check(launches == {kernel.name: steps},
+              f"{label}: {kernel.name} once a step expected, got {launches}")
+        check(dwat < 1e-5, f"{label}: water a kg not conserved ({dwat:.2e})")
+        if not turb:
+            # the supersaturation peaks above cloud base and relaxes
+            check(rh.max() > 1.0 and rh[-1] - 1.0 < 0.8 * (rh.max() - 1.0),
+                  f"{label}: RH peak {rh.max()}, last {rh[-1]}")
+        # the form against its plain version on what a step gives it
+        prt.state = init
+        kw_f = capture(cond_ops, fname, lambda: parcel_run(
+            prt, opts, rhods[:2], th0, rv0, diss))
+        check_form(f"({label})", kw_f, err)
+        rows.append(form_row(kw_f, launches[kernel.name],
+                             f"the {steps} steps of {label}", err))
+        out[label] = dict(ms_per_step=secs / steps * 1e3,
+                          rh_peak=float(rh.max()), rh_last=float(rh[-1]),
+                          water_rel_change=dwat, launches=steps)
+    return rows, out
+
+
+def lgrngn_cond_case(m2, _ext, card):
+    """Phase 19 (b): the reference's lgrngn_cond.py parcel
+    (tests/test_lgrngn_parcel.py:54-95) in float32 through kernel F's
+    parcel form, sstp_cond 10, var-p and const-p: 40 steps at 2% vapour
+    with its th and rv end-state gates (its supersaturation gate, |ss| <
+    4.5e-3 %, is printed: float32's residual supersaturation is not
+    held to it), then 40 at 0.2%.  The evaporation
+    leg returns the condensed vapour within PARCEL_RV_RETURN: each of its
+    80 x 10 substeps rounds rv (~0.02) once in float32, half an ulp
+    (9.3e-10) each, so at most 800 x 9.3e-10 = 7.5e-7 (the reference's
+    1e-9 is a float64 gate)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.common import theta_dry
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+    out = {}
+    for constp in (False, True):
+        oi = grid_oi(m2, 0, sd_conc=100, n_sd_max=100, RH_max=0.999,
+                     sstp_cond=10)
+        oi.dry_distros = {(0.61, 0.0): lambda lnr: 60e6 * np.exp(
+            -(np.asarray(lnr) - np.log(0.02e-6)) ** 2 / 2 / np.log(1.4) ** 2)
+            / np.log(1.4) / np.sqrt(2 * np.pi)}
+        rhod, th, rv = 1.0, 300.0, 0.02
+        p = None
+        if constp:
+            T0 = theta_dry.T(f64(th), f64(rhod))
+            p = torch.full((1,), float(theta_dry.p(f64(rhod), f64(rv), T0)),
+                           device=DEVICE)
+            th = float(theta_dry.dry2std(f64(th), f64(rv)))
+            oi.const_p, oi.th_dry = True, False
+        prt = grid_factory(oi, "lgrngn_cond parcel")
+        full = lambda v: torch.full((1,), v, device=DEVICE)
+        th_t, rv_t, rhod_t = full(th), full(rv), full(rhod)
+        prt.init(th_t, rv_t, rhod_t, p)
+        opts = tl.opts_t()
+        opts.cond = True
+        reset(_ext.KERNELS)
+        for _ in range(40):
+            th_t, rv_t = prt.step_sync(opts, th_t, rv_t)
+            prt.step_async(opts)
+        prt.diag_RH()
+        ss = (prt.outbuf()[0] - 1) * 100
+        th_c, rv_c = float(th_t[0]), float(rv_t[0])
+        condensed = rv - rv_c
+        rv_t = full(0.002)
+        start = float(rv_t[0])
+        for _ in range(40):
+            th_t, rv_t = prt.step_sync(opts, th_t, rv_t)
+            prt.step_async(opts)
+        ret = abs(float(rv_t[0]) - start - condensed)
+        exp_th, exp_rv = (306.9, 1.628e-2) if constp else (307.78, 1.7e-2)
+        launches = _ext.COND_FLAT_PARCEL.launches
+        label = f"lgrngn_cond parcel ({'const' if constp else 'var'}-p)"
+        print(f"{label}, float32: ss {ss:.2e} %, th {th_c:.4f} (expected "
+              f"{exp_th}), rv {rv_c:.6e} (expected {exp_rv}), the "
+              f"evaporation leg's rv return off by {ret:.2e} (gate "
+              f"{PARCEL_RV_RETURN:.1e}); {launches} launches of "
+              f"cond_flat_parcel ({card})", flush=True)
+        check(abs(th_c - exp_th) < 1e-4 * exp_th
+              and abs(rv_c - exp_rv) < 1e-3 * exp_rv,
+              f"{label}: the reference's th and rv end-state gates")
+        check(ret < PARCEL_RV_RETURN, f"{label}: rv return off by {ret:.2e}")
+        check(launches == 80, f"{label}: {launches} launches of F's parcel "
+              "form, 80 expected")
+        out[label] = dict(ss=ss, th=th_c, rv=rv_c, rv_return=ret)
+    return out
+
+
+def grid1d_case(m2, _ext, c, card, err):
+    """Phase 19 (c): x alone, GRID_N cells of GRID_D, the GMD surface air,
+    a uniform courant_x of GRID1D_CX, periodic, GRID1D_STEPS steps of
+    condensation and advection through kernel F, with the conservation
+    checks and the SDs wrapping."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    prt = grid_factory(grid_oi(m2, 1), "1-D")
+    n = GRID_N
+    fields = dict(th=m2.th[:, 0].contiguous(), rv=m2.rv[:, 0].contiguous(),
+                  rhod=m2.rhod[:, 0].contiguous(),
+                  Cx=torch.full((n + 1,), GRID1D_CX, device=DEVICE))
+    prt.init(fields["th"], fields["rv"], fields["rhod"], Cx=fields["Cx"])
+    x0 = prt.state.x
+    opts = tl.opts_t()
+    opts.adve = opts.cond = True
+    totals0 = grid_totals(prt, fields["rv"], c)
+    reset(_ext.KERNELS)
+    secs, flow, th, rv = grid_run(prt, opts, GRID1D_STEPS, fields, c)
+    launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+    chk = grid_checks("1-D", prt, th, rv, totals0, flow, c)
+    st = prt.state
+    live = st.n > 0
+    wrapped = int((live & (st.x < x0)).sum())
+    print(f"1-D: {GRID1D_STEPS} steps in {secs:.2f} s; {chk}; {wrapped} SDs "
+          f"wrapped across x; launches {launches} ({card})", flush=True)
+    check(launches == {"cond_flat": GRID1D_STEPS},
+          f"1-D: kernel F once a step expected, got {launches}")
+    check(wrapped > 0 and chk["sds"] == totals0[2],
+          "1-D: no SD wrapped, or SDs lost")
+    return dict(chk, launches=GRID1D_STEPS, wrapped=wrapped,
+                ms_per_step=secs / GRID1D_STEPS * 1e3)
+
+
+def grid_phase(Kinematic2D, _ext, c, card, profile_on):
+    """Phase 19 (the module docstring): the 3-D grid at full width, the
+    rising parcel in F's and G's parcel forms (and their turb_cond forms),
+    the reference's lgrngn_cond parcel in float32, the 1-D grid.  Returns
+    (the parcel forms' kernel rows, {case: numbers}, kernel F's error on
+    the 3-D shape)."""
+    err = {}
+    out = {}
+    t = time.perf_counter()
+    fields, m2 = grid3d_fields(Kinematic2D)
+    out["3-D"] = grid3d_case(fields, m2, _ext, c, card, profile_on, err)
+    del fields
+    print(f"phase 19 (a): {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    rows, out["parcel"] = parcel_case(m2, _ext, c, card, err, turb=False)
+    turb_rows, out["parcel, turb_cond"] = parcel_case(m2, _ext, c, card, err,
+                                                      turb=True)
+    rows += turb_rows
+    out["lgrngn_cond"] = lgrngn_cond_case(m2, _ext, card)
+    print(f"phase 19 (b): {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out["1-D"] = grid1d_case(m2, _ext, c, card, err)
+    print(f"phase 19 (c): {time.perf_counter() - t:.1f} s", flush=True)
+    return rows, out, err.get("cond_flat", 0.0)
 
 
 def profile(label, start, run, card, steps=20):

@@ -206,10 +206,56 @@ COND_SD_ADAPTIVE_TURB = Kernel(
     _TURB + "the loops of lgrngn/condensation.py:655-790 "
     "perparticle_adaptive_core (ssp on the tries and substeps, rewound, "
     ":711-734, :757-758, :776)")
+# the parcel forms of kernels F and G (a parcel's cell is 1 kg of dry
+# air: F weighs a droplet by 1 / (dv rhod) with dv = 1 / rhod at each
+# substep, G feeds an SD's private air its vapour undivided), without and
+# with turb_cond: each the arguments of its grid form
+_PARCEL = ("libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; "
+           "advance_rw2_pallas :46, call :78) in a parcel (n_dims 0: dv = "
+           "1/rhod, libcloudphxx_tpu/lgrngn/hskpng.py:50), with ")
+COND_FLAT_PARCEL = Kernel(
+    "cond_flat_parcel", "lcp_cond_flat_parcel", COND_FLAT.argtypes[:-1],
+    "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
+    _PARCEL + "the host substep loop of lgrngn/condensation.py:312-388 "
+    "(the weight's dv * rhod at each substep, :366)")
+COND_FLAT_PARCEL_TURB = Kernel(
+    "cond_flat_parcel_turb", "lcp_cond_flat_parcel_turb",
+    COND_FLAT_TURB.argtypes[:-1],
+    "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
+    _PARCEL + "the host substep loop of lgrngn/condensation.py:312-388 at "
+    "each SD's RH plus its ssp (:353-358)")
+COND_SD_FIXED_PARCEL = Kernel(
+    "cond_sd_fixed_parcel", "lcp_cond_sd_fixed_parcel",
+    COND_SD_FIXED.argtypes[:-1],
+    "libcloudphxx_tpu_torch/csrc/cond_sd_fixed.cu",
+    _PARCEL + "the substep loop of lgrngn/condensation.py:412-528 "
+    "cond_perparticle (drv per kg of air, :478-481)")
+COND_SD_FIXED_PARCEL_TURB = Kernel(
+    "cond_sd_fixed_parcel_turb", "lcp_cond_sd_fixed_parcel_turb",
+    COND_SD_FIXED_TURB.argtypes[:-1],
+    "libcloudphxx_tpu_torch/csrc/cond_sd_fixed.cu",
+    _PARCEL + "the substep loop of lgrngn/condensation.py:412-528 "
+    "cond_perparticle (drv per kg of air, :478-481; RHp + ssp, :462-463)")
+COND_SD_ADAPTIVE_PARCEL = Kernel(
+    "cond_sd_adaptive_parcel", "lcp_cond_sd_adaptive_parcel",
+    COND_SD_ADAPTIVE.argtypes[:-1],
+    "libcloudphxx_tpu_torch/csrc/cond_sd_adaptive.cu",
+    _PARCEL + "the loops of lgrngn/condensation.py:655-795 "
+    "perparticle_adaptive_core (drv per kg of air, :787-790)")
+COND_SD_ADAPTIVE_PARCEL_TURB = Kernel(
+    "cond_sd_adaptive_parcel_turb", "lcp_cond_sd_adaptive_parcel_turb",
+    COND_SD_ADAPTIVE_TURB.argtypes[:-1],
+    "libcloudphxx_tpu_torch/csrc/cond_sd_adaptive.cu",
+    _PARCEL + "the loops of lgrngn/condensation.py:655-795 "
+    "perparticle_adaptive_core (drv per kg of air, :787-790; ssp on the "
+    "tries and substeps, :711-734, :757-758, :776)")
 KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
            COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED, MERGE_EXACT,
            COND_SD_FIXED, COND_SD_ADAPTIVE, COAL_VOHL, TRANSPORT_PRED_CORR,
-           COND_FLAT_TURB, COND_SD_FIXED_TURB, COND_SD_ADAPTIVE_TURB)
+           COND_FLAT_TURB, COND_SD_FIXED_TURB, COND_SD_ADAPTIVE_TURB,
+           COND_FLAT_PARCEL, COND_FLAT_PARCEL_TURB, COND_SD_FIXED_PARCEL,
+           COND_SD_FIXED_PARCEL_TURB, COND_SD_ADAPTIVE_PARCEL,
+           COND_SD_ADAPTIVE_PARCEL_TURB)
 
 _lib = None
 

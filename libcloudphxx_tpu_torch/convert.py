@@ -25,8 +25,9 @@ from .lgrngn.dense import ATTRS, EXACT_ATTRS, DenseState
 from .lgrngn.state import TENSOR_FIELDS, State, StaticConfig
 from .models.kinematic_2d import BULK_FIELDS
 
-# JAX DenseState fields the port does not hold: they must be empty (2-D,
-# no deferred x pass) or are the JAX RNG key
+# JAX DenseState fields the port's dense engine does not hold: they must be
+# empty (it runs the 2-D grid, with no deferred x pass) or are the JAX RNG
+# key
 _EMPTY = ("y", "courant_y", "xkey")
 _CELLS = ("rhod", "p", "T", "RH", "eta", "dv", "sstp_tmp_th", "sstp_tmp_rv",
           "courant_x", "courant_z", "puddle")
@@ -78,10 +79,10 @@ def dense_state_to_numpy(d: DenseState) -> dict:
     return out
 
 
-# JAX State fields the port's warm 2-D State does not hold: each must be
+# JAX State fields the port's warm State does not hold: each must be
 # empty or all zero (the JAX RNG key aside)
-_FLAT_ABSENT = ("y", "ice_a", "ice_c", "ice_rho", "T_freeze", "rd2_insol",
-                "courant_y", "chem", "ambient_chem", "sstp_tmp_chem")
+_FLAT_ABSENT = ("ice_a", "ice_c", "ice_rho", "T_freeze", "rd2_insol", "chem",
+                "ambient_chem", "sstp_tmp_chem")
 
 
 def state_from_numpy(arrays: dict, device, dtype, rng_seed=44) -> State:

@@ -287,15 +287,31 @@ struct Sgs {
   float* cs_dssp;
 };
 
+// The air a cell's droplets exchange vapour with (the template parameter
+// ``A`` of cond_cell, kernel G's forms): CellAir is a grid cell's, rhod dv
+// of dry air, dv its volume (every form of a grid); ParcelAir a parcel's,
+// 1 kg of dry air (the JAX package's n_dims == 0; libcloudphxx_tpu/lgrngn/
+// hskpng.py:50, condensation.py:478-481, 787-790): kernel F weighs a
+// droplet by wnum / (dv rhod) with dv = 1 / rhod at each substep's rhod,
+// and G feeds an SD's private air the vapour itself.  CellAir's code is
+// what it was before ParcelAir.
+struct CellAir {
+  static constexpr bool parcel = false;
+};
+struct ParcelAir {
+  static constexpr bool parcel = true;
+};
+
 // The substep loop of the cell whose droplets sit at positions [begin,
 // end) of the SD arrays.  ``Src`` reads a droplet: wnum(pos), the
 // numerator of its weight (n * 4/3 pi rho_w; it is live where wnum > 0),
 // and drop(pos, rw2, wnum), the CondDrop of a live one; its weight in the
 // cell sum is wnum / (dv * rhod).  ``cs`` is the per-slot scratch; ``sg``
 // the SGS supersaturation (Sgs, kernel F's turb_cond form: ssp rides the
-// scratch beside rw2, and a dead slot keeps its ssp as its rw2).  Every
-// lane returns the cell's end state.
-template <class Src, class S = NoSgs>
+// scratch beside rw2, and a dead slot keeps its ssp as its rw2); ``A``
+// the air (CellAir; ParcelAir, F's parcel forms).  Every lane returns the
+// cell's end state.
+template <class Src, class S = NoSgs, class A = CellAir>
 __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
                                              long long end, const CellIn& in,
                                              const CondOpts& o,
@@ -355,7 +371,11 @@ __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
     const Closure c =
         closure(o.th_dry, o.const_p, o.rh_formula, th, rv, rhod, in.p0);
     const CellGrowth g = cell_growth(c, rhod, rv, in.lam_D, in.lam_K, o.RH_max);
-    const float wden = in.dv * rhod;
+    float wden;
+    if constexpr (A::parcel)
+      wden = (1.0f / rhod) * rhod;
+    else
+      wden = in.dv * rhod;
     const bool last = s == o.sstp - 1;
     double part = 0.0;
     for (int ch = 0; ch < n_chunk; ++ch) {

@@ -32,6 +32,16 @@
 // lgrngn/condensation.py:353-358, at each droplet's RH the TPU kernel
 // takes), ssp and dot_ssp riding the compaction in two more scratch rows;
 // its plain version is cond_flat_plain with ssp and dot_ssp.
+//
+// The parcel forms (cond_flat_parcel_kernel, and with the SGS
+// supersaturation cond_flat_parcel_turb_kernel) run the loop of a parcel,
+// whose one cell is 1 kg of dry air (cond_cell.cuh ParcelAir): a droplet
+// weighs wnum / (dv rhod) in the cell sum with dv = 1 / rhod at each
+// substep's rhod, where the grid forms take the cell volume dv.  Under
+// var_rho, when a rising parcel's host passes a new rhod every step, the
+// two differ; the JAX package's parcel diagnoses dv at every substep
+// (libcloudphxx_tpu/lgrngn/hskpng.py:50, condensation.py:366).  Their
+// plain version is cond_flat_plain on a parcel's configuration.
 
 #include <cuda_runtime.h>
 
@@ -55,7 +65,7 @@ struct FlatSeg {
 // cells_in: 10 rows of n_cell: dth drv drh (the step's increments) th rv
 // rhod (at the last sstp_save) p dv lamD lamK
 // cells_out: 3 rows of n_cell: th rv rhod
-template <class S>
+template <class S, class A>
 __device__ __forceinline__ void cond_flat_body(
     const float* __restrict__ wgt, const float* __restrict__ rw2,
     const float* __restrict__ rd3, const float* __restrict__ kpa,
@@ -82,7 +92,8 @@ __device__ __forceinline__ void cond_flat_body(
   const long long begin = c == 0 ? 0 : ends[c - 1] + 1;
   const long long end = ends[c] + 1;
   const FlatSeg src{wgt, rd3, kpa, vt};
-  const CellOut out = cond_cell(src, begin, end, in, o, rw2, rw2_out, cs, sg);
+  const CellOut out =
+      cond_cell<FlatSeg, S, A>(src, begin, end, in, o, rw2, rw2_out, cs, sg);
   if ((threadIdx.x & 31) == 0) {
     cells_out[0 * n_cell + c] = out.th;
     cells_out[1 * n_cell + c] = out.rv;
@@ -99,8 +110,9 @@ cond_flat_kernel(const float* __restrict__ wgt, const float* __restrict__ rw2,
                  float* __restrict__ rw2_out, float* __restrict__ cells_out,
                  Compact cs, const int* __restrict__ order, int n_cell,
                  CondOpts o) {
-  cond_flat_body(wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out,
-                 cs, order, n_cell, o, NoSgs{});
+  cond_flat_body<NoSgs, CellAir>(wgt, rw2, rd3, kpa, vt, ends, cells_in,
+                                 rw2_out, cells_out, cs, order, n_cell, o,
+                                 NoSgs{});
 }
 
 // the turb_cond form: each droplet's ssp and dot_ssp ride the compaction
@@ -117,11 +129,71 @@ cond_flat_turb_kernel(const float* __restrict__ wgt,
                       float* __restrict__ cells_out, Compact cs,
                       const int* __restrict__ order, int n_cell, CondOpts o,
                       Sgs sg) {
-  cond_flat_body(wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out,
-                 cs, order, n_cell, o, sg);
+  cond_flat_body<Sgs, CellAir>(wgt, rw2, rd3, kpa, vt, ends, cells_in,
+                               rw2_out, cells_out, cs, order, n_cell, o, sg);
+}
+
+// the parcel forms: the cell is 1 kg of dry air (ParcelAir), without and
+// with the SGS supersaturation
+__global__ void __launch_bounds__(32 * kCondWarps, 1)
+cond_flat_parcel_kernel(const float* __restrict__ wgt,
+                        const float* __restrict__ rw2,
+                        const float* __restrict__ rd3,
+                        const float* __restrict__ kpa,
+                        const float* __restrict__ vt,
+                        const long long* __restrict__ ends,
+                        const float* __restrict__ cells_in,
+                        float* __restrict__ rw2_out,
+                        float* __restrict__ cells_out, Compact cs,
+                        const int* __restrict__ order, int n_cell,
+                        CondOpts o) {
+  cond_flat_body<NoSgs, ParcelAir>(wgt, rw2, rd3, kpa, vt, ends, cells_in,
+                                   rw2_out, cells_out, cs, order, n_cell, o,
+                                   NoSgs{});
+}
+
+__global__ void __launch_bounds__(32 * kCondWarps, 1)
+cond_flat_parcel_turb_kernel(const float* __restrict__ wgt,
+                             const float* __restrict__ rw2,
+                             const float* __restrict__ rd3,
+                             const float* __restrict__ kpa,
+                             const float* __restrict__ vt,
+                             const long long* __restrict__ ends,
+                             const float* __restrict__ cells_in,
+                             float* __restrict__ rw2_out,
+                             float* __restrict__ cells_out, Compact cs,
+                             const int* __restrict__ order, int n_cell,
+                             CondOpts o, Sgs sg) {
+  cond_flat_body<Sgs, ParcelAir>(wgt, rw2, rd3, kpa, vt, ends, cells_in,
+                                 rw2_out, cells_out, cs, order, n_cell, o,
+                                 sg);
 }
 
 }  // namespace lcp
+
+namespace {
+
+// the per-slot scratch and the options of a launch; warp w takes cell
+// order[w]
+lcp::Compact compact(int* pos, float* buf, int n_sd) {
+  const long long m = n_sd;
+  return lcp::Compact{pos,         buf,         buf + m,    buf + 2 * m,
+                      buf + 3 * m, buf + 4 * m, buf + 5 * m};
+}
+
+lcp::CondOpts cond_opts(int sstp, double dt_sub, double RH_max, int th_dry,
+                        int const_p, int rh_formula, int var_rho,
+                        int iters) {
+  return lcp::CondOpts{sstp,       static_cast<float>(dt_sub),
+                       static_cast<float>(RH_max), th_dry, const_p,
+                       rh_formula, var_rho,        iters};
+}
+
+int blocks_of(int n_cell) {
+  return (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
+}
+
+}  // namespace
 
 // SD arrays (cell-sorted, n_sd each): weight numerators, rw2, rd3, kappa,
 // vt; ends (n_cell int64); ``pos`` and ``buf`` scratch of n_sd ints and
@@ -136,16 +208,12 @@ extern "C" int lcp_cond_flat(const float* wgt, const float* rw2,
                              int th_dry, int const_p, int rh_formula,
                              int var_rho, int iters, cudaStream_t stream) {
   if (n_cell <= 0) return 0;
-  const long long m = n_sd;
-  const lcp::Compact cs{pos,         buf,         buf + m,    buf + 2 * m,
-                        buf + 3 * m, buf + 4 * m, buf + 5 * m};
-  const lcp::CondOpts o{sstp, static_cast<float>(dt_sub),
-                        static_cast<float>(RH_max), th_dry, const_p,
-                        rh_formula, var_rho, iters};
-  const int blocks = (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
-  lcp::cond_flat_kernel<<<blocks, 32 * lcp::kCondWarps, 0, stream>>>(
-      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out, cs, order,
-      n_cell, o);
+  lcp::cond_flat_kernel<<<blocks_of(n_cell), 32 * lcp::kCondWarps, 0,
+                          stream>>>(
+      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out,
+      compact(pos, buf, n_sd), order, n_cell,
+      cond_opts(sstp, dt_sub, RH_max, th_dry, const_p, rh_formula, var_rho,
+                iters));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -160,15 +228,52 @@ extern "C" int lcp_cond_flat_turb(
     const float* dssp, float* ssp_out, cudaStream_t stream) {
   if (n_cell <= 0) return 0;
   const long long m = n_sd;
-  const lcp::Compact cs{pos,         buf,         buf + m,    buf + 2 * m,
-                        buf + 3 * m, buf + 4 * m, buf + 5 * m};
   const lcp::Sgs sg{ssp, dssp, ssp_out, buf + 6 * m, buf + 7 * m};
-  const lcp::CondOpts o{sstp, static_cast<float>(dt_sub),
-                        static_cast<float>(RH_max), th_dry, const_p,
-                        rh_formula, var_rho, iters};
-  const int blocks = (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
-  lcp::cond_flat_turb_kernel<<<blocks, 32 * lcp::kCondWarps, 0, stream>>>(
-      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out, cs, order,
-      n_cell, o, sg);
+  lcp::cond_flat_turb_kernel<<<blocks_of(n_cell), 32 * lcp::kCondWarps, 0,
+                               stream>>>(
+      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out,
+      compact(pos, buf, n_sd), order, n_cell,
+      cond_opts(sstp, dt_sub, RH_max, th_dry, const_p, rh_formula, var_rho,
+                iters),
+      sg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the parcel forms: lcp_cond_flat's and lcp_cond_flat_turb's arguments
+// (the cells' dv is not read: a parcel's is 1 / rhod at each substep)
+extern "C" int lcp_cond_flat_parcel(
+    const float* wgt, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const long long* ends, const float* cells_in,
+    float* rw2_out, float* cells_out, int* pos, float* buf, const int* order,
+    int n_cell, int n_sd, int sstp, double dt_sub, double RH_max, int th_dry,
+    int const_p, int rh_formula, int var_rho, int iters,
+    cudaStream_t stream) {
+  if (n_cell <= 0) return 0;
+  lcp::cond_flat_parcel_kernel<<<blocks_of(n_cell), 32 * lcp::kCondWarps, 0,
+                                 stream>>>(
+      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out,
+      compact(pos, buf, n_sd), order, n_cell,
+      cond_opts(sstp, dt_sub, RH_max, th_dry, const_p, rh_formula, var_rho,
+                iters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lcp_cond_flat_parcel_turb(
+    const float* wgt, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const long long* ends, const float* cells_in,
+    float* rw2_out, float* cells_out, int* pos, float* buf, const int* order,
+    int n_cell, int n_sd, int sstp, double dt_sub, double RH_max, int th_dry,
+    int const_p, int rh_formula, int var_rho, int iters, const float* ssp,
+    const float* dssp, float* ssp_out, cudaStream_t stream) {
+  if (n_cell <= 0) return 0;
+  const long long m = n_sd;
+  const lcp::Sgs sg{ssp, dssp, ssp_out, buf + 6 * m, buf + 7 * m};
+  lcp::cond_flat_parcel_turb_kernel<<<blocks_of(n_cell),
+                                      32 * lcp::kCondWarps, 0, stream>>>(
+      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out,
+      compact(pos, buf, n_sd), order, n_cell,
+      cond_opts(sstp, dt_sub, RH_max, th_dry, const_p, rh_formula, var_rho,
+                iters),
+      sg);
   return static_cast<int>(cudaGetLastError());
 }

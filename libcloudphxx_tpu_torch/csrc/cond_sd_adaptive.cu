@@ -49,6 +49,13 @@
 // count converges or the adaptation is abandoned, and adds to the SD's RH
 // (the JAX package's lgrngn/condensation.py:711-734, 757-758, 776); its
 // plain version is perparticle_adaptive_plain with ssp and dot_ssp.
+//
+// The parcel forms (cond_sd_adaptive_parcel_kernel, _parcel_turb_kernel)
+// feed an SD's private air the vapour of its d(rw^3) as it is, 1 kg of dry
+// air (cond_cell.cuh ParcelAir), where a grid's forms divide it by the
+// air of the cell, rhod dv (libcloudphxx_tpu/lgrngn/condensation.py:
+// 787-790); their plain version is perparticle_adaptive_plain on a
+// parcel's configuration.
 
 #include <cuda_runtime.h>
 
@@ -118,7 +125,7 @@ __device__ __forceinline__ float rw3_cr(float rd3, float kappa, float T,
 // without one computes on a live SD's data, masked).  Every lane of the
 // warp calls it together.  Under the turb_cond form (S::on) ``ssp_res``
 // gets the SD's ssp at the end of the phase.
-template <class S>
+template <class S, class A>
 __device__ __forceinline__ SdResult adaptive_sd(bool on, const SdIn& in,
                                                 long long j, const SdCell& a,
                                                 const AdaptOpts& ao,
@@ -233,7 +240,12 @@ __device__ __forceinline__ SdResult adaptive_sd(bool on, const SdIn& in,
     w_new = reuse ? w + drw2 : w_new;
     w_new = active ? w_new : w;
     const float drw3 = active ? rw3_of(w_new) - rw3_of(w) : 0.0f;
-    const float drv = drw3 * F(kDrvMlt) * n / rh_n / a.dv;
+    // the SD's private air: rhod dv of a grid cell, a parcel's 1 kg
+    float drv;
+    if constexpr (A::parcel)
+      drv = drw3 * F(kDrvMlt) * n;
+    else
+      drv = drw3 * F(kDrvMlt) * n / rh_n / a.dv;
     const float rv_next = rv_n + drv;
     const float th_next = th_n + drv * d_th_d_rv(c.T, th_n);
     // past its count an SD's substep changes nothing once one such
@@ -271,7 +283,7 @@ __device__ __forceinline__ void put(const SdOut& out, long long j,
 }
 
 // a thread a slot, 32 consecutive sorted positions a warp
-template <class S>
+template <class S, class A>
 __device__ __forceinline__ void cond_sd_adaptive_body(
     const SdIn& in, const SdCells& cells, const SdLayout& L,
     const SdOut& out, long long n_slots, const AdaptOpts& ao, const S& sg) {
@@ -297,8 +309,8 @@ __device__ __forceinline__ void cond_sd_adaptive_body(
     const long long j_src = __shfl_sync(kFullMask, j, src);
     const SdCell a = SdCell::of(cells, L.cell(live ? q : q_src));
     float ssp = 0.0f;
-    const SdResult r = adaptive_sd(live, in, live ? j : j_src, a, ao, sg,
-                                   ssp);
+    const SdResult r = adaptive_sd<S, A>(live, in, live ? j : j_src, a, ao,
+                                         sg, ssp);
     if (live) {
       put(out, j, r);
       if constexpr (S::on) sg.ssp_out[j] = ssp;
@@ -312,13 +324,32 @@ __device__ __forceinline__ void cond_sd_adaptive_body(
 __global__ void __launch_bounds__(32 * kCondWarps)
 cond_sd_adaptive_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
                         long long n_slots, AdaptOpts ao) {
-  cond_sd_adaptive_body(in, cells, L, out, n_slots, ao, NoSsp{});
+  cond_sd_adaptive_body<NoSsp, CellAir>(in, cells, L, out, n_slots, ao,
+                                        NoSsp{});
 }
 
 __global__ void __launch_bounds__(32 * kCondWarps)
 cond_sd_adaptive_turb_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
                              long long n_slots, AdaptOpts ao, AdaptSsp sg) {
-  cond_sd_adaptive_body(in, cells, L, out, n_slots, ao, sg);
+  cond_sd_adaptive_body<AdaptSsp, CellAir>(in, cells, L, out, n_slots, ao,
+                                           sg);
+}
+
+// the parcel forms: each SD's private air is 1 kg of dry air (ParcelAir),
+// without and with the SGS supersaturation
+__global__ void __launch_bounds__(32 * kCondWarps)
+cond_sd_adaptive_parcel_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
+                               long long n_slots, AdaptOpts ao) {
+  cond_sd_adaptive_body<NoSsp, ParcelAir>(in, cells, L, out, n_slots, ao,
+                                          NoSsp{});
+}
+
+__global__ void __launch_bounds__(32 * kCondWarps)
+cond_sd_adaptive_parcel_turb_kernel(SdIn in, SdCells cells, SdLayout L,
+                                    SdOut out, long long n_slots,
+                                    AdaptOpts ao, AdaptSsp sg) {
+  cond_sd_adaptive_body<AdaptSsp, ParcelAir>(in, cells, L, out, n_slots, ao,
+                                             sg);
 }
 
 }  // namespace lcp
@@ -407,6 +438,59 @@ extern "C" int lcp_cond_sd_adaptive_turb(
           const lcp::SdCells& cells, const lcp::SdLayout& L,
           const lcp::SdOut& out, const lcp::AdaptOpts& ao) {
         lcp::cond_sd_adaptive_turb_kernel<<<blocks, threads, 0, stream>>>(
+            in, cells, L, out, n_slots, ao, sg);
+      });
+}
+
+// the parcel forms: lcp_cond_sd_adaptive's and lcp_cond_sd_adaptive_turb's
+// arguments (the cells' dv is not read)
+extern "C" int lcp_cond_sd_adaptive_parcel(
+    const float* n, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const float* th0, const float* rv0, const float* rh0,
+    const float* p0, const float* th, const float* rv, const float* rhod,
+    const float* p, const float* dv, const float* T_mfp, const float* p_mfp,
+    const float* T, const long long* order, const long long* ends,
+    const long long* sijk, float* rw2_out, float* th_out, float* rv_out,
+    float* rh_out, float* p_out, int n_cell, int cap,
+    long long n_slots, int sstp, int sstp_act, double dt, double RH_max,
+    double eps, double dmax, int th_dry, int const_p, int rh_formula,
+    int iters, cudaStream_t stream) {
+  return launch_adaptive(
+      n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, th, rv, rhod, p, dv, T_mfp,
+      p_mfp, T, order, ends, sijk, rw2_out, th_out, rv_out, rh_out, p_out,
+      n_cell, cap, n_slots, sstp, sstp_act, dt, RH_max, eps, dmax, th_dry,
+      const_p, rh_formula, iters,
+      [&](int blocks, int threads, const lcp::SdIn& in,
+          const lcp::SdCells& cells, const lcp::SdLayout& L,
+          const lcp::SdOut& out, const lcp::AdaptOpts& ao) {
+        lcp::cond_sd_adaptive_parcel_kernel<<<blocks, threads, 0, stream>>>(
+            in, cells, L, out, n_slots, ao);
+      });
+}
+
+extern "C" int lcp_cond_sd_adaptive_parcel_turb(
+    const float* n, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const float* th0, const float* rv0, const float* rh0,
+    const float* p0, const float* th, const float* rv, const float* rhod,
+    const float* p, const float* dv, const float* T_mfp, const float* p_mfp,
+    const float* T, const long long* order, const long long* ends,
+    const long long* sijk, float* rw2_out, float* th_out, float* rv_out,
+    float* rh_out, float* p_out, int n_cell, int cap,
+    long long n_slots, int sstp, int sstp_act, double dt, double RH_max,
+    double eps, double dmax, int th_dry, int const_p, int rh_formula,
+    int iters, const float* ssp, const float* dssp, float* ssp_out,
+    cudaStream_t stream) {
+  const lcp::AdaptSsp sg{ssp, dssp, ssp_out};
+  return launch_adaptive(
+      n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, th, rv, rhod, p, dv, T_mfp,
+      p_mfp, T, order, ends, sijk, rw2_out, th_out, rv_out, rh_out, p_out,
+      n_cell, cap, n_slots, sstp, sstp_act, dt, RH_max, eps, dmax, th_dry,
+      const_p, rh_formula, iters,
+      [&](int blocks, int threads, const lcp::SdIn& in,
+          const lcp::SdCells& cells, const lcp::SdLayout& L,
+          const lcp::SdOut& out, const lcp::AdaptOpts& ao) {
+        lcp::cond_sd_adaptive_parcel_turb_kernel<<<blocks, threads, 0,
+                                                   stream>>>(
             in, cells, L, out, n_slots, ao, sg);
       });
 }

@@ -46,6 +46,13 @@
 // supersaturation perturbation ssp, held for the whole phase, to its RH
 // (the JAX package's lgrngn/condensation.py:462-463); its plain version is
 // perparticle_fixed_plain with ssp.
+//
+// The parcel forms (cond_sd_fixed_parcel_kernel, _parcel_turb_kernel)
+// feed an SD's private air the vapour of its d(rw^3) as it is, 1 kg of dry
+// air (cond_cell.cuh ParcelAir), where a grid's forms divide it by the
+// air of the cell, rhod dv (libcloudphxx_tpu/lgrngn/condensation.py:
+// 478-481); their plain version is perparticle_fixed_plain on a parcel's
+// configuration.
 
 #include <cuda_runtime.h>
 
@@ -63,7 +70,7 @@ struct FixedSsp {
   const float* __restrict__ ssp;  // per slot
 };
 
-template <class S>
+template <class S, class A>
 __device__ __forceinline__ void cond_sd_fixed_body(
     const SdIn& in, const SdCells& cells, const SdLayout& L, const SdOut& out,
     int* __restrict__ pos, int n_cell, const CondOpts& o, int mix,
@@ -111,7 +118,12 @@ __device__ __forceinline__ void cond_sd_fixed_body(
                                      cl, rh, base_rv, a.lam_D, a.lam_K, o);
       const bool live = n > 0.0f;
       const float drw3 = live ? rw3_of(w_new) - rw3_of(w) : 0.0f;
-      const float drv = drw3 * F(kDrvMlt) * n / rh / a.dv;
+      // the SD's private air: rhod dv of a grid cell, a parcel's 1 kg
+      float drv;
+      if constexpr (A::parcel)
+        drv = drw3 * F(kDrvMlt) * n;
+      else
+        drv = drw3 * F(kDrvMlt) * n / rh / a.dv;
       const float dth = live ? drv * d_th_d_rv(cl.T, base_th) : 0.0f;
       if (mix) {
         part_rv += on ? static_cast<double>(drv) : 0.0;
@@ -142,24 +154,73 @@ __device__ __forceinline__ void cond_sd_fixed_body(
 __global__ void __launch_bounds__(32 * kCondWarps)
 cond_sd_fixed_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
                      int* __restrict__ pos, int n_cell, CondOpts o, int mix) {
-  cond_sd_fixed_body(in, cells, L, out, pos, n_cell, o, mix, NoSsp{});
+  cond_sd_fixed_body<NoSsp, CellAir>(in, cells, L, out, pos, n_cell, o, mix,
+                                     NoSsp{});
 }
 
 __global__ void __launch_bounds__(32 * kCondWarps)
 cond_sd_fixed_turb_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
                           int* __restrict__ pos, int n_cell, CondOpts o,
                           int mix, FixedSsp sg) {
-  cond_sd_fixed_body(in, cells, L, out, pos, n_cell, o, mix, sg);
+  cond_sd_fixed_body<FixedSsp, CellAir>(in, cells, L, out, pos, n_cell, o,
+                                        mix, sg);
+}
+
+// the parcel forms: each SD's private air is 1 kg of dry air (ParcelAir),
+// without and with the SGS supersaturation
+__global__ void __launch_bounds__(32 * kCondWarps)
+cond_sd_fixed_parcel_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
+                            int* __restrict__ pos, int n_cell, CondOpts o,
+                            int mix) {
+  cond_sd_fixed_body<NoSsp, ParcelAir>(in, cells, L, out, pos, n_cell, o,
+                                       mix, NoSsp{});
+}
+
+__global__ void __launch_bounds__(32 * kCondWarps)
+cond_sd_fixed_parcel_turb_kernel(SdIn in, SdCells cells, SdLayout L,
+                                 SdOut out, int* __restrict__ pos, int n_cell,
+                                 CondOpts o, int mix, FixedSsp sg) {
+  cond_sd_fixed_body<FixedSsp, ParcelAir>(in, cells, L, out, pos, n_cell, o,
+                                          mix, sg);
 }
 
 }  // namespace lcp
 
+namespace {
+
+// the set-up every entry shares; ``launch`` starts its kernel
+template <class Launch>
+int launch_fixed(const float* n, const float* rw2, const float* rd3,
+                 const float* kpa, const float* vt, const float* th0,
+                 const float* rv0, const float* rh0, const float* p0,
+                 const float* th, const float* rv, const float* rhod,
+                 const float* p, const float* dv, const float* T_mfp,
+                 const float* p_mfp, const long long* order,
+                 const long long* ends, const long long* sijk,
+                 float* rw2_out, float* th_out, float* rv_out,
+                 float* rh_out, float* p_out, int n_cell, int cap, int sstp,
+                 double dt, double RH_max, int th_dry, int const_p,
+                 int rh_formula, int iters, Launch launch) {
+  if (n_cell <= 0) return 0;
+  const lcp::SdIn in{n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0};
+  const lcp::SdCells cells{th, rv, rhod, p, dv, T_mfp, p_mfp, nullptr};
+  const lcp::SdLayout L{order, ends, sijk, cap};
+  const lcp::SdOut out{rw2_out, th_out, rv_out, rh_out, p_out};
+  const lcp::CondOpts o{sstp, static_cast<float>(dt / sstp),
+                        static_cast<float>(RH_max), th_dry, const_p,
+                        rh_formula, 0, iters};
+  const int blocks = (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
+  launch(blocks, 32 * lcp::kCondWarps, in, cells, L, out, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // SD arrays (n_slots each, slot order): n rw2 rd3 kpa vt, the private th
 // rv rhod p; cells (n_cell each): th rv rhod p dv, and T and p at the
-// start of the step (the stale mean free paths'); the layout
-// (order, ends and sijk, int64, or null for the dense (n_cell, cap)
-// rows); outputs (n_slots each): rw2 th rv rhod p; ``pos`` scratch of
-// n_slots ints
+// start of the step (the stale mean free paths'); the layout (order, ends
+// and sijk, int64, or null for the dense (n_cell, cap) rows); outputs
+// (n_slots each): rw2 th rv rhod p; ``pos`` scratch of n_slots ints
 extern "C" int lcp_cond_sd_fixed(
     const float* n, const float* rw2, const float* rd3, const float* kpa,
     const float* vt, const float* th0, const float* rv0, const float* rh0,
@@ -170,18 +231,16 @@ extern "C" int lcp_cond_sd_fixed(
     float* p_out, int* pos, int n_cell, int cap, int sstp, double dt,
     double RH_max, int th_dry, int const_p, int rh_formula, int mix,
     int iters, cudaStream_t stream) {
-  if (n_cell <= 0) return 0;
-  const lcp::SdIn in{n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0};
-  const lcp::SdCells cells{th, rv, rhod, p, dv, T_mfp, p_mfp, nullptr};
-  const lcp::SdLayout L{order, ends, sijk, cap};
-  const lcp::SdOut out{rw2_out, th_out, rv_out, rh_out, p_out};
-  const lcp::CondOpts o{sstp, static_cast<float>(dt / sstp),
-                        static_cast<float>(RH_max), th_dry, const_p,
-                        rh_formula, 0, iters};
-  const int blocks = (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
-  lcp::cond_sd_fixed_kernel<<<blocks, 32 * lcp::kCondWarps, 0, stream>>>(
-      in, cells, L, out, pos, n_cell, o, mix);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fixed(
+      n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, th, rv, rhod, p, dv, T_mfp,
+      p_mfp, order, ends, sijk, rw2_out, th_out, rv_out, rh_out, p_out,
+      n_cell, cap, sstp, dt, RH_max, th_dry, const_p, rh_formula, iters,
+      [&](int blocks, int threads, const lcp::SdIn& in,
+          const lcp::SdCells& cells, const lcp::SdLayout& L,
+          const lcp::SdOut& out, const lcp::CondOpts& o) {
+        lcp::cond_sd_fixed_kernel<<<blocks, threads, 0, stream>>>(
+            in, cells, L, out, pos, n_cell, o, mix);
+      });
 }
 
 // the turb_cond form: lcp_cond_sd_fixed's arguments and each slot's ssp
@@ -195,17 +254,59 @@ extern "C" int lcp_cond_sd_fixed_turb(
     float* p_out, int* pos, int n_cell, int cap, int sstp, double dt,
     double RH_max, int th_dry, int const_p, int rh_formula, int mix,
     int iters, const float* ssp, cudaStream_t stream) {
-  if (n_cell <= 0) return 0;
-  const lcp::SdIn in{n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0};
-  const lcp::SdCells cells{th, rv, rhod, p, dv, T_mfp, p_mfp, nullptr};
-  const lcp::SdLayout L{order, ends, sijk, cap};
-  const lcp::SdOut out{rw2_out, th_out, rv_out, rh_out, p_out};
-  const lcp::CondOpts o{sstp, static_cast<float>(dt / sstp),
-                        static_cast<float>(RH_max), th_dry, const_p,
-                        rh_formula, 0, iters};
-  const int blocks = (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
-  lcp::cond_sd_fixed_turb_kernel<<<blocks, 32 * lcp::kCondWarps, 0,
-                                   stream>>>(in, cells, L, out, pos, n_cell,
-                                             o, mix, lcp::FixedSsp{ssp});
-  return static_cast<int>(cudaGetLastError());
+  return launch_fixed(
+      n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, th, rv, rhod, p, dv, T_mfp,
+      p_mfp, order, ends, sijk, rw2_out, th_out, rv_out, rh_out, p_out,
+      n_cell, cap, sstp, dt, RH_max, th_dry, const_p, rh_formula, iters,
+      [&](int blocks, int threads, const lcp::SdIn& in,
+          const lcp::SdCells& cells, const lcp::SdLayout& L,
+          const lcp::SdOut& out, const lcp::CondOpts& o) {
+        lcp::cond_sd_fixed_turb_kernel<<<blocks, threads, 0, stream>>>(
+            in, cells, L, out, pos, n_cell, o, mix, lcp::FixedSsp{ssp});
+      });
+}
+
+// the parcel forms: the same arguments (the cells' dv is not read)
+extern "C" int lcp_cond_sd_fixed_parcel(
+    const float* n, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const float* th0, const float* rv0, const float* rh0,
+    const float* p0, const float* th, const float* rv, const float* rhod,
+    const float* p, const float* dv, const float* T_mfp, const float* p_mfp,
+    const long long* order, const long long* ends, const long long* sijk,
+    float* rw2_out, float* th_out, float* rv_out, float* rh_out,
+    float* p_out, int* pos, int n_cell, int cap, int sstp, double dt,
+    double RH_max, int th_dry, int const_p, int rh_formula, int mix,
+    int iters, cudaStream_t stream) {
+  return launch_fixed(
+      n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, th, rv, rhod, p, dv, T_mfp,
+      p_mfp, order, ends, sijk, rw2_out, th_out, rv_out, rh_out, p_out,
+      n_cell, cap, sstp, dt, RH_max, th_dry, const_p, rh_formula, iters,
+      [&](int blocks, int threads, const lcp::SdIn& in,
+          const lcp::SdCells& cells, const lcp::SdLayout& L,
+          const lcp::SdOut& out, const lcp::CondOpts& o) {
+        lcp::cond_sd_fixed_parcel_kernel<<<blocks, threads, 0, stream>>>(
+            in, cells, L, out, pos, n_cell, o, mix);
+      });
+}
+
+extern "C" int lcp_cond_sd_fixed_parcel_turb(
+    const float* n, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const float* th0, const float* rv0, const float* rh0,
+    const float* p0, const float* th, const float* rv, const float* rhod,
+    const float* p, const float* dv, const float* T_mfp, const float* p_mfp,
+    const long long* order, const long long* ends, const long long* sijk,
+    float* rw2_out, float* th_out, float* rv_out, float* rh_out,
+    float* p_out, int* pos, int n_cell, int cap, int sstp, double dt,
+    double RH_max, int th_dry, int const_p, int rh_formula, int mix,
+    int iters, const float* ssp, cudaStream_t stream) {
+  return launch_fixed(
+      n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, th, rv, rhod, p, dv, T_mfp,
+      p_mfp, order, ends, sijk, rw2_out, th_out, rv_out, rh_out, p_out,
+      n_cell, cap, sstp, dt, RH_max, th_dry, const_p, rh_formula, iters,
+      [&](int blocks, int threads, const lcp::SdIn& in,
+          const lcp::SdCells& cells, const lcp::SdLayout& L,
+          const lcp::SdOut& out, const lcp::CondOpts& o) {
+        lcp::cond_sd_fixed_parcel_turb_kernel<<<blocks, threads, 0, stream>>>(
+            in, cells, L, out, pos, n_cell, o, mix, lcp::FixedSsp{ssp});
+      });
 }

@@ -283,10 +283,12 @@ def _close_cells(cfg: StaticConfig, before: State, after: State, summer):
     """apply_drv_to_th_rv on the flat State (libcloudphxx_tpu/lgrngn/
     condensation.py:531-566): the vapour the cells' droplets took between
     ``before`` and ``after`` (the change of the cells' specific third
-    moment times 4/3 pi rho_w, summed by ``summer`` in float64).  Returns
+    moment times 4/3 pi rho_w, summed by ``summer`` in float64; a parcel's
+    cell holds 1 kg of dry air, so there the sum is the moment).  Returns
     ``after`` with the new th and rv."""
     def mom3(st):
-        return third_moment(st.n, st.rw2, st.n > 0, summer) / st.dv / st.rhod
+        m3 = third_moment(st.n, st.rw2, st.n > 0, summer)
+        return m3 if cfg.n_dims == 0 else m3 / st.dv / st.rhod
 
     drv = ((mom3(after) - mom3(before)) * (4.0 / 3) * c.pi * c.rho_w).to(
         after.th.dtype)
@@ -366,6 +368,14 @@ def cond_perparticle(cfg: StaticConfig, state: State, dt, RH_max, stale,
     return _close_cells(cfg, state, new, summer)
 
 
+def _sd_drv(cfg: StaticConfig, vap, rhod, dv):
+    """The vapour mixing ratio an SD's private air gains from ``vap``, the
+    mass its droplets gave up (-4/3 pi rho_w n d(rw^3)): a cell's air is
+    rhod dv, a parcel's 1 kg (libcloudphxx_tpu/lgrngn/condensation.py:
+    478-481, 787-790)."""
+    return vap if cfg.n_dims == 0 else vap / rhod / dv
+
+
 def perparticle_fixed_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
                            kpa, vt, dv_sd, lam_D_sd, lam_K_sd, dlt_rv,
                            dlt_th, dlt_rh, dlt_p, tmp_rv0, tmp_th0, tmp_rh0,
@@ -406,7 +416,7 @@ def perparticle_fixed_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
             flat(lam_D_sd), flat(lam_K_sd), RH_max,
             plain=plain).reshape(rw2.shape)
         drw3 = torch.where(live, rw3_of(rw2_new) - rw3_of(rw2), 0.0)
-        drv = mlt * drw3 * n / tmp_rh / dv_sd
+        drv = _sd_drv(cfg, mlt * drw3 * n, tmp_rh, dv_sd)
         dth = torch.where(live, drv * theta_dry.d_th_d_rv(Tp, base_th), 0.0)
         if cfg.sstp_cond_mix:
             tmp_rv, tmp_th = base_rv + spread(drv), base_th + spread(dth)
@@ -564,7 +574,7 @@ def perparticle_adaptive_core(cfg: StaticConfig, dt, RH_max, *, n, rw2, rd3,
         rw2_new = torch.where(reuse, rw2 + drw2, rw2_solve)
         rw2_new = torch.where(active, rw2_new, rw2)
         drw3 = torch.where(active, rw3_of(rw2_new) - rw3_of(rw2), 0.0)
-        drv = mlt * drw3 * n / tmp_rh_n / dv_sd
+        drv = _sd_drv(cfg, mlt * drw3 * n, tmp_rh_n, dv_sd)
         tmp_rv = tmp_rv_n + drv
         tmp_th = tmp_th_n + drv * theta_dry.d_th_d_rv(Tp, tmp_th_n)
         tmp_rh, tmp_p, rw2 = tmp_rh_n, tmp_p_n, rw2_new

@@ -52,22 +52,35 @@ def attrs_of(cfg: StaticConfig):
 
 
 def supported(cfg: StaticConfig):
-    """The dense engine's capability matrix (libcloudphxx_tpu/lgrngn/
-    dense.py:116 _supported with :1209 resident_static_ok): raise
-    NotImplementedError, with the reason, for a configuration it does not
-    run.  The port has no XLA dense pipeline, so it covers what kernels
-    B-E and G take: 2-D, warm, every condensation substepping mode
-    (percell, exact fixed-count with or without in-cell mixing, adaptive),
-    every SD advection scheme (implicit, euler, pred_corr: kernel C's
-    forms), every terminal velocity formula, and for coalescence the
-    formula kernels, the hall family and vohl (kernel E's wide-table
-    form), on any population, const-multi included.  SGS supersaturation
-    (turb_cond_switch), diag_incloud_time and the turbulent (onishi)
-    kernels go to the flat engine, as in the JAX package
-    (lgrngn/dense_front.dense_capable); the front hands the other SGS
-    switches' async phases to it step by step."""
+    """The dense engine's capability matrix: raise NotImplementedError,
+    with the reason, for a configuration it does not run.  The port has
+    no XLA dense pipeline, so it covers what kernels B-E and G take: the
+    2-D grid, warm, every condensation substepping mode (percell, exact
+    fixed-count with or without in-cell mixing, adaptive), every SD
+    advection scheme (implicit, euler, pred_corr: kernel C's forms), every
+    terminal velocity formula, and for coalescence the formula kernels,
+    the hall family and vohl (kernel E's wide-table form), on any
+    population, const-multi included.  SGS supersaturation
+    (turb_cond_switch) and diag_incloud_time go to the flat engine, as in
+    the JAX package (lgrngn/dense_front.dense_capable); the front hands the
+    other SGS switches' async phases to it step by step.  The JAX dense
+    engine (libcloudphxx_tpu/lgrngn/dense.py:116 _supported) also runs the
+    3-D grid and the turbulent (onishi) kernels, at diss_rate 0, in XLA
+    (its TPU kernel refuses both, :1209 resident_static_ok); this engine
+    refuses them until ROADMAP.md Queue 1's "The dense engine's remaining
+    JAX configurations: 3-D and the onishi kernels", so the port's
+    factory gives the flat engine for them where the JAX factory gives
+    the dense front.  The parcel and the 1-D grid run on the flat engine
+    in both packages."""
+    if cfg.n_dims == 3:
+        raise NotImplementedError(
+            "dense engine: the 3-D grid is not ported (ROADMAP.md, Queue 1, "
+            "\"The dense engine's remaining JAX configurations: 3-D and the "
+            "onishi kernels\"); the flat engine (engine=\"flat\") runs it")
     if cfg.n_dims != 2:
-        raise NotImplementedError("dense engine: 2-D only")
+        raise NotImplementedError(
+            "dense engine: 2-D only (the parcel and the 1-D grid run on the "
+            "flat engine, as in the JAX package)")
     if cfg.ice_switch or cfg.chem_switch or cfg.turb_cond_switch:
         raise NotImplementedError("dense engine: ice/chem/SGS not supported")
     if cfg.diag_incloud_time:
@@ -76,7 +89,10 @@ def supported(cfg: StaticConfig):
     if cfg.coal_switch and kern in coal_mod.TURBULENT:
         raise NotImplementedError(
             f"dense engine: collision kernel {kern.name} not supported "
-            "(the turbulent kernels run on the flat engine)")
+            "(the turbulent kernels are not ported to the dense engine: "
+            "ROADMAP.md, Queue 1, \"The dense engine's remaining JAX "
+            "configurations: 3-D and the onishi kernels\"; the flat engine "
+            "runs them)")
 
 
 def _no_plane():
@@ -243,7 +259,7 @@ def _rebin_global(cfg: StaticConfig, d: DenseState, tgt=None) -> DenseState:
     the positions unless given (a shard of the x-slab mesh gives its
     own)."""
     if tgt is None:
-        tgt = torch.where(d.n > 0, ijk_of_xyz(cfg, d.x, d.z), d.n_cell)
+        tgt = torch.where(d.n > 0, ijk_of_xyz(cfg, d.x, None, d.z), d.n_cell)
     attrs = attrs_of(cfg)
     planes, overflow = _distribute(
         d.n_cell, d.cap, tgt.reshape(-1),

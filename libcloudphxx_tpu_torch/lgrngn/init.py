@@ -164,19 +164,20 @@ def _kappa_of(key):
 
 def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
             rhod_host: np.ndarray) -> dict:
-    """The initial super-droplets of a 2-D grid (reference
+    """The initial super-droplets of any grid (reference
     init_SD_with_distros.ipp and init_SD_with_sizes.ipp; the JAX package's
-    init_SD, the same draws from ``rng`` in the same order).  Returns flat
-    float64 numpy arrays {n, rd3, kpa, x, z} and the int64 cell index
+    init_SD, the same draws from ``rng`` in the same order).  In a parcel
+    the one cell holds 1 kg of dry air (its volume 1/rhod).  Returns flat
+    float64 numpy arrays {n, rd3, kpa, x, y, z} and the int64 cell index
     ``ijk``, laid out as the JAX package lays them: by mode and
     distribution, sorted by cell within each."""
-    if cfg.n_dims != 2:
-        raise NotImplementedError(
-            f"init_SD: only the 2-D grid is ported (n_dims={cfg.n_dims}; "
-            "ROADMAP.md, Queue 1, \"The parcel (0-D), 1-D and 3-D\")")
     n_cell = cfg.n_cell
-    cell_vol = cfg.dx * cfg.dy * cfg.dz
-    dv_host = cell_dv(cfg)
+    if cfg.n_dims == 0:
+        dv_host = 1.0 / np.asarray(rhod_host, float)
+        cell_vol = float(dv_host[0])
+    else:
+        dv_host = cell_dv(cfg)
+        cell_vol = cfg.dx * cfg.dy * cfg.dz
     lnrd_l, n_l, kpa_l, ijk_l = [], [], [], []
 
     def add(lnrd, mult, kappa, ijk):
@@ -204,14 +205,16 @@ def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
             strata = (np.arange(count)[None, :] + u01) / count
             lnrd = log_lo + strata * (log_hi - log_lo)
             # multiplicity: STP-corrected by rhod, scaled by the level's
-            # concentration factor, volume-adjusted (init_n.ipp:80-135)
+            # concentration factor, volume-adjusted on a grid
+            # (init_n.ipp:80-135)
             n_of = _eval_distro(fun, lnrd) * mult
             if not oi.aerosol_independent_of_rhod:
                 n_of *= np.asarray(rhod_host)[:, None] / c.rho_stp
             factor = conc_factor_cells(cfg, oi)
             if factor is not None:
                 n_of = n_of * factor[:, None]
-            n_of *= dv_host[:, None] / cell_vol
+            if cfg.n_dims > 0:
+                n_of *= dv_host[:, None] / cell_vol
             add(lnrd.ravel(), np.floor(n_of + 0.5).ravel(), _kappa_of(key),
                 np.repeat(np.arange(n_cell), count))
             if oi.sd_conc_large_tail:
@@ -264,13 +267,20 @@ def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
 
 def positions(cfg: StaticConfig, ijk, rng):
     """Uniform positions in each SD's cell crossed with the Lagrangian
-    domain (init_xyz.ipp:17-35), z drawn before x as in the JAX package.
-    Returns {x, z}."""
-    coords = {}
+    domain (init_xyz.ipp:17-35) on the grid's axes (the JAX package's
+    rules, hskpng.ijk_of_xyz's: x where the grid has an axis, y where ny >
+    1, z where nz > 1 or the grid has two), drawn innermost first (z, y,
+    then x) as in the JAX package; an axis the grid lacks stays at 0 and
+    draws nothing.  Returns {x, y, z}."""
+    axes = (("z", cfg.nz > 1 or cfg.n_dims >= 2, cfg.nz, cfg.z0, cfg.z1,
+             cfg.dz),
+            ("y", cfg.ny > 1, cfg.ny, cfg.y0, cfg.y1, cfg.dy),
+            ("x", cfg.n_dims >= 1, cfg.nx, cfg.x0, cfg.x1, cfg.dx))
+    coords = {k: np.zeros(len(ijk)) for k in "xyz"}
     idx = np.array(ijk)
-    for name, n_axis, a0, a1, da in (
-            ("z", cfg.nz, cfg.z0, cfg.z1, cfg.dz),
-            ("x", cfg.nx, cfg.x0, cfg.x1, cfg.dx)):
+    for name, on, n_axis, a0, a1, da in axes:
+        if not on:
+            continue
         axis_idx = idx % n_axis
         idx //= n_axis
         u01 = rng.random(idx.size)
@@ -301,7 +311,8 @@ def init_SD_state(cfg: StaticConfig, state: State, pop: dict) -> State:
 
     return dataclasses.replace(
         state, n=padded(pop["n"]), rd3=padded(pop["rd3"], fill=1e-30),
-        kpa=padded(pop["kpa"]), x=padded(pop["x"]), z=padded(pop["z"]),
+        kpa=padded(pop["kpa"]), x=padded(pop["x"]), y=padded(pop["y"]),
+        z=padded(pop["z"]),
         ijk=padded(pop["ijk"], fill=0, dtype=torch.int64),
         vt=torch.zeros_like(like))
 

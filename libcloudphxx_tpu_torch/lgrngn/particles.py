@@ -16,16 +16,19 @@ arrinfo_t, arrinfo.hpp:10-49); torch tensors are handles, so no copy is
 made and ``step_cond`` returns the new (th, rv) as flat tensors on the
 engine's device.
 
-The port runs the warm 2-D engine, with the per-cell and the exact and
+The port runs the warm engine on every grid the JAX flat engine runs:
+the parcel (0-D: one cell of 1 kg of dry air, no transport), 1-D (x),
+2-D (x, z) and 3-D (x, y, z), with the per-cell and the exact and
 adaptive per-particle condensation substepping, every SD init mode, and
 what an LES host couples through: the SGS turbulence (turb_adve,
 turb_cond, turb_coal with the onishi kernels; diss_rate through sync_in),
 diag_incloud_time, the aerosol sources, the CCN relaxation and the
 recycling.  Ice, chemistry and the multi-device front-end raise
-NotImplementedError (ROADMAP.md, Queue 1).
+NotImplementedError (ROADMAP.md, Queue 1).  Fields a host passes as (nx,
+ny, nz) arrays are ravelled C-order, i outermost.
 On a CUDA device the condensation runs kernel F (per cell) or kernel G
-(per particle; ops/cond.py), under turb_cond their turb_cond forms;
-nothing falls back to the CPU.
+(per particle; ops/cond.py), under turb_cond their turb_cond forms, in a
+parcel their parcel forms; nothing falls back to the CPU.
 The factory hands out this flat engine or, on a CUDA device, the dense
 front (lgrngn/dense_front.py), which overrides the _step_cond_impl and
 _step_async_impl hooks.
@@ -137,10 +140,6 @@ def _require_ported(oi: opts_init_t):
             raise NotImplementedError(
                 f"particles_t: {', '.join(off)} is not ported (ROADMAP.md, "
                 f"Queue 1, \"{title}\")")
-    if oi.n_dims != 2 or oi.ny > 0:
-        raise NotImplementedError(
-            "particles_t: only the 2-D (x, z) grid is ported (ROADMAP.md, "
-            "Queue 1, \"The parcel (0-D), 1-D and 3-D\")")
 
 
 def take_coal_overflow(puddle):
@@ -250,16 +249,15 @@ class particles_t:
         return self._tensor(a)
 
     def _courant_updates(self, courant_x, courant_y, courant_z):
-        """Validate and flatten the Arakawa-C staggered courant fields."""
-        if courant_y is not None:
-            raise NotImplementedError(
-                "particles_t: courant_y (3-D) is not ported (ROADMAP.md, "
-                "Queue 1, \"The parcel (0-D), 1-D and 3-D\")")
+        """Validate and flatten the Arakawa-C staggered courant fields
+        ((nx+1, ny, nz), (nx, ny+1, nz), (nx, ny, nz+1), C order)."""
         cfg = self.cfg
+        nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
         upd = {}
         for name, arr, size in (
-                ("courant_x", courant_x, (cfg.nx + 1) * cfg.nz),
-                ("courant_z", courant_z, cfg.nx * (cfg.nz + 1))):
+                ("courant_x", courant_x, (nx + 1) * ny * nz),
+                ("courant_y", courant_y, nx * (ny + 1) * nz),
+                ("courant_z", courant_z, nx * ny * (nz + 1))):
             a = self._as_flat(arr, size, name)
             if a is not None:
                 upd[name] = a
@@ -289,12 +287,15 @@ class particles_t:
         p_t = self._as_flat(p, n_cell, "p")
         if cfg.const_p and p_t is None:
             raise ValueError("lgrngn: const_p requires a pressure profile")
+        # the cropped cell volumes (init_grid.ipp dv_eval:33-52); a
+        # parcel's, 1 kg of dry air, comes from the closure
+        dv = self._tensor(init_mod.cell_dv(cfg)) if cfg.n_dims > 0 \
+            else self.state.dv
         st = dataclasses.replace(
             self.state, th=self._as_flat(th, n_cell, "th"),
             rv=self._as_flat(rv, n_cell, "rv"), rhod=rhod_t,
             p=p_t if p_t is not None else torch.zeros_like(rhod_t),
-            dv=self._tensor(init_mod.cell_dv(cfg)), rng_seed=oi.rng_seed,
-            rng_step=0,
+            dv=dv, rng_seed=oi.rng_seed, rng_step=0,
             **self._courant_updates(courant_x, courant_y, courant_z))
         st = hskpng.hskpng_Tpr_state(cfg, st)
         # SD creation with the init seed (particles_init.ipp:30-32, :130)
@@ -304,8 +305,9 @@ class particles_t:
             rhod_host = rhod_t.double().cpu().numpy()
             if oi.reference_rng_init:
                 from .refinit import init_SD_reference
-                pop = init_SD_reference(cfg, oi, seed, rhod_host,
-                                        init_mod.cell_dv(cfg))
+                pop = init_SD_reference(
+                    cfg, oi, seed, rhod_host, 1.0 / rhod_host
+                    if cfg.n_dims == 0 else init_mod.cell_dv(cfg))
             else:
                 pop = init_mod.init_SD(cfg, oi, np.random.default_rng(seed),
                                        rhod_host)
@@ -436,7 +438,8 @@ class particles_t:
         if opts.turb_coal and not self.opts_init.turb_coal_switch:
             raise RuntimeError(
                 "libcloudphxx: turb_coal_switch=False, but turb_coal==True")
-        do_sedi = bool(opts.sedi and cfg.sedi_switch)
+        # a parcel has no transport (particles_step.ipp:339-494)
+        do_sedi = bool(opts.sedi and cfg.sedi_switch and cfg.n_dims > 0)
         if do_sedi and cfg.terminal_velocity == 0:
             raise RuntimeError(
                 "libcloudphxx: opts.sedi requires opts_init.terminal_velocity")
@@ -459,7 +462,9 @@ class particles_t:
                 eng = self._src_engine()
                 relax.rlx_dry_distros(cfg, oi, eng, dt, self._src_rng)
                 self.state = eng.state
-        switches = (do_coal, bool(opts.adve), do_sedi, bool(opts.subs),
+        grid = cfg.n_dims > 0
+        switches = (do_coal, bool(opts.adve and grid), do_sedi,
+                    bool(opts.subs and grid),
                     bool(opts.turb_adve and oi.turb_adve_switch),
                     bool(opts.turb_cond and cfg.turb_cond_switch),
                     bool(opts.rcyc), bool(opts.turb_coal))
@@ -646,10 +651,16 @@ class particles_t:
         (reference particles_diag.ipp:501-556)."""
         self._require_init()
         st, cfg = self.state, self.cfg
-        ijk = torch.arange(cfg.n_cell, device=st.courant_x.device)
-        (lft, rgt), (blw, abv) = transport.courant_indices(cfg, ijk)
-        div = st.courant_x[rgt] - st.courant_x[lft] \
-            + st.courant_z[abv] - st.courant_z[blw]
+        ijk = torch.arange(cfg.n_cell, device=st.th.device)
+        (lft, rgt), (fre, hnd), (blw, abv) = transport.courant_indices(cfg,
+                                                                      ijk)
+        div = torch.zeros(cfg.n_cell, dtype=st.th.dtype, device=st.th.device)
+        if cfg.n_dims >= 1:
+            div = div + st.courant_x[rgt] - st.courant_x[lft]
+        if cfg.n_dims == 3:
+            div = div + st.courant_y[hnd] - st.courant_y[fre]
+        if cfg.n_dims > 1:
+            div = div + st.courant_z[abv] - st.courant_z[blw]
         self._set_outbuf(div / cfg.dt)
 
     def diag_precip_rate(self):
@@ -689,7 +700,7 @@ class particles_t:
         self._set_outbuf(self._moms(float(n), self.state.up))
 
     def diag_vp_mom(self, n):
-        """(reference particles.hpp:118; zero on the 2-D grid)"""
+        """(reference particles.hpp:118; zero off the 3-D grid)"""
         self._check_selected()
         self._set_outbuf(self._moms(float(n), self.state.vp))
 
@@ -711,20 +722,17 @@ class particles_t:
 
     def get_attr(self, name):
         """Raw per-SD attribute dump (reference fill_outbuf.ipp:39-100),
-        as numpy; y reads zero on the 2-D grid, as the JAX package's
-        does."""
+        as numpy; a position the grid lacks reads zero, as the JAX
+        package's does."""
         self._require_init()
         st = self.state
         held = {"rd3": st.rd3, "rw2": st.rw2, "kpa": st.kpa,
-                "kappa": st.kpa, "n": st.n, "x": st.x, "z": st.z,
+                "kappa": st.kpa, "n": st.n, "x": st.x, "y": st.y, "z": st.z,
                 "vt": st.vt, "incloud_time": st.incloud_time, "up": st.up,
                 "vp": st.vp, "wp": st.wp}
         if name in ("ice_a", "ice_c", "ice_rho", "rd2_insol", "T_freeze"):
             raise RuntimeError(
                 "libcloudphxx: ice attribute requested with ice_switch off")
-        if name == "y":
-            return np.zeros(self.cfg.n_sd_max, dtype=np.float64
-                            if self.dtype == torch.float64 else np.float32)
         if name not in held:
             raise ValueError(f"lgrngn: unknown attribute {name!r}")
         return held[name].cpu().numpy()

@@ -17,8 +17,8 @@ from .state import State, StaticConfig
 
 # what the donor hands the slot (the reference copies every distmem
 # vector, rcyc.ipp:90-96): the warm attributes the port holds
-RECYCLED_ATTRS = ("rd3", "rw2", "kpa", "x", "z", "vt", "incloud_time", "up",
-                  "vp", "wp", "ssp", "dot_ssp")
+RECYCLED_ATTRS = ("rd3", "rw2", "kpa", "x", "y", "z", "vt", "incloud_time",
+                  "up", "vp", "wp", "ssp", "dot_ssp")
 
 
 def rcyc(cfg: StaticConfig, state: State) -> State:

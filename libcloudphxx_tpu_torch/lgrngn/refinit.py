@@ -81,22 +81,21 @@ def _dist_analysis_sd_conc_f32(fun, sd_conc, cell_vol, rd_min=-1.0,
 def init_SD_reference(cfg: StaticConfig, oi, seed: int,
                       rhod_host: np.ndarray, dv_host: np.ndarray) -> dict:
     """sd_conc-mode init with the reference's mt19937 draw order and
-    float32 arithmetic (libcloudphxx_tpu/lgrngn/refinit.py:135).
-    ``rhod_host`` and ``dv_host`` are per-cell arrays, taken in float32 as
-    the reference's device vectors.  Returns what init.init_SD returns:
-    flat float64 numpy arrays {n, rd3, kpa, x, z} and the int64 ``ijk``."""
+    float32 arithmetic (libcloudphxx_tpu/lgrngn/refinit.py:135), on any
+    grid.  ``rhod_host`` and ``dv_host`` are per-cell arrays, taken in
+    float32 as the reference's device vectors (a parcel's dv is 1/rhod).
+    Returns what init.init_SD returns: flat float64 numpy arrays {n, rd3,
+    kpa, x, y, z} and the int64 ``ijk``."""
     if not (oi.dry_distros and oi.sd_conc > 0):
         raise ValueError("reference init replica supports sd_conc mode only")
-    if cfg.n_dims != 2:
-        raise NotImplementedError(
-            f"init_SD_reference: only the 2-D grid is ported "
-            f"(n_dims={cfg.n_dims}; ROADMAP.md, Queue 1, \"The parcel "
-            f"(0-D), 1-D and 3-D\")")
     n_cell = cfg.n_cell
     rng = native.MT19937State(int(seed))
     rhod32 = np.asarray(rhod_host, f32)
     dv32 = np.asarray(dv_host, f32)
-    cell_vol = cfg.dx * cfg.dy * cfg.dz
+    # a parcel: the distribution analysis' multiplier takes dv[0], the
+    # volume of 1 kg of dry air (init_dist_analysis.ipp:27-33)
+    cell_vol = (float(dv32[0]) if cfg.n_dims == 0
+                else cfg.dx * cfg.dy * cfg.dz)
     rho_stp32 = f32(c.rho_stp)
 
     # the total ln(rd) range over all distributions
@@ -108,7 +107,8 @@ def init_SD_reference(cfg: StaticConfig, oi, seed: int,
             fun, oi.sd_conc, cell_vol, oi.rd_min, oi.rd_max)
         tot_rng = f32(tot_rng + f32(analyses[key][1] - analyses[key][0]))
 
-    rd3_l, n_l, kpa_l, ijk_l, x_l, z_l = [], [], [], [], [], []
+    rd3_l, n_l, kpa_l, ijk_l = [], [], [], []
+    pos_l = {k: [] for k in "xyz"}
     for key, fun in oi.dry_distros.items():
         kappa = init_host._kappa_of(key)
         log_lo, log_hi, mult = analyses[key]
@@ -144,13 +144,22 @@ def init_SD_reference(cfg: StaticConfig, oi, seed: int,
             # between the STP correction and the volume adjustment
             # (particles_impl_init_n.ipp:100-110)
             val = f32(val * factor.astype(f32)[ijk])
-        val = f32(val * dv32[ijk] / f32(f32(cfg.dx) * f32(cfg.dy)
-                                        * f32(cfg.dz)))
+        if cfg.n_dims > 0:
+            val = f32(val * dv32[ijk] / f32(f32(cfg.dx) * f32(cfg.dy)
+                                            * f32(cfg.dz)))
         n_l.append(np.floor(val + f32(0.5)).astype(np.float64))
 
-        # positions (init_xyz.ipp), drawn x before z
-        for ii, p0, p1, dp, acc in ((ijk // cfg.nz, oi.x0, oi.x1, oi.dx, x_l),
-                                    (ijk % cfg.nz, oi.z0, oi.z1, oi.dz, z_l)):
+        # positions (init_xyz.ipp), drawn x, y, z over the axes the grid
+        # has; the others stay at 0
+        idx = dict(zip("xyz", (ijk // (cfg.nz * cfg.ny),
+                               (ijk // cfg.nz) % cfg.ny, ijk % cfg.nz)))
+        for name, n_axis in (("x", oi.nx), ("y", oi.ny), ("z", oi.nz)):
+            if n_axis == 0:
+                pos_l[name].append(np.zeros(n_to_init))
+                continue
+            ii = idx[name]
+            p0, p1 = getattr(oi, name + "0"), getattr(oi, name + "1")
+            dp = getattr(oi, "d" + name)
             u = rng.u01(n_to_init)
             hi_b = np.minimum(f32(p1), (ii + 1).astype(f32) * f32(dp))
             lo_b = np.maximum(f32(p0), ii.astype(f32) * f32(dp))
@@ -158,7 +167,7 @@ def init_SD_reference(cfg: StaticConfig, oi, seed: int,
             # and the sum is cast back to real_t (init_xyz.ipp:33)
             pos = f32((u * hi_b).astype(np.float64)
                       + (1.0 - u.astype(np.float64)) * lo_b.astype(np.float64))
-            acc.append(pos.astype(np.float64))
+            pos_l[name].append(pos.astype(np.float64))
         # the reference keeps rd3 in float32 (expf)
         rd3_l.append(rd3.astype(np.float64))
         kpa_l.append(np.full(n_to_init, kappa))
@@ -169,5 +178,5 @@ def init_SD_reference(cfg: StaticConfig, oi, seed: int,
         raise RuntimeError(f"lgrngn init: n_part ({n_part}) exceeds "
                            f"n_sd_max ({cfg.n_sd_max})")
     cat = np.concatenate
-    return dict(n=cat(n_l), rd3=cat(rd3_l), kpa=cat(kpa_l), x=cat(x_l),
-                z=cat(z_l), ijk=cat(ijk_l))
+    return dict(n=cat(n_l), rd3=cat(rd3_l), kpa=cat(kpa_l),
+                **{k: cat(v) for k, v in pos_l.items()}, ijk=cat(ijk_l))

@@ -26,8 +26,8 @@ from .state import State, StaticConfig
 # the per-SD attributes a revived slot starts afresh (a copy of the JAX
 # package's parallel/decomp.py:44-62 migrating_attrs, the warm attributes
 # the port holds); exact substepping's private copies too
-MIGRATING_ATTRS = ("n", "rd3", "rw2", "kpa", "x", "z", "vt", "incloud_time",
-                   "up", "vp", "wp", "ssp", "dot_ssp")
+MIGRATING_ATTRS = ("n", "rd3", "rw2", "kpa", "x", "y", "z", "vt",
+                   "incloud_time", "up", "vp", "wp", "ssp", "dot_ssp")
 EXACT_ATTRS = ("sstp_tmp_th", "sstp_tmp_rv", "sstp_tmp_rh", "sstp_tmp_p")
 
 
@@ -39,13 +39,20 @@ def migrating_attrs(cfg: StaticConfig):
 
 def _box_cells(cfg: StaticConfig, oi):
     """The cells inside the source box, rounded to cell boundaries
-    (reference opts_init.hpp:156-158)."""
-    i0 = int(np.floor(oi.src_x0 / cfg.dx))
-    i1 = max(i0 + 1, int(np.ceil(oi.src_x1 / cfg.dx)))
-    k0 = int(np.floor(oi.src_z0 / cfg.dz))
-    k1 = max(k0 + 1, int(np.ceil(oi.src_z1 / cfg.dz)))
-    return np.asarray([i * cfg.nz + k for i in range(i0, min(i1, cfg.nx))
-                       for k in range(k0, min(k1, cfg.nz))], dtype=np.int64)
+    (reference opts_init.hpp:156-158): x always, y where ny > 1, z on the
+    2-D and 3-D grids (libcloudphxx_tpu/lgrngn/source.py:25-47)."""
+    def span(a0, a1, d, n, on):
+        if not on:
+            return range(1)
+        lo = int(np.floor(a0 / d))
+        return range(lo, min(max(lo + 1, int(np.ceil(a1 / d))), n))
+
+    return np.asarray(
+        [(i * cfg.ny + j) * cfg.nz + k
+         for i in span(oi.src_x0, oi.src_x1, cfg.dx, cfg.nx, True)
+         for j in span(oi.src_y0, oi.src_y1, cfg.dy, cfg.ny, cfg.ny > 1)
+         for k in span(oi.src_z0, oi.src_z1, cfg.dz, cfg.nz, cfg.n_dims > 1)],
+        dtype=np.int64)
 
 
 def _fresh_attr_names(cfg: StaticConfig):
@@ -142,12 +149,17 @@ class StateEngine:
 
 
 def _positions_in_cells(cfg: StaticConfig, cells, rng):
-    """Uniform x and z in each cell (x drawn first, as in the JAX
-    package; y is 0 on the 2-D grid)."""
-    i, k = cells // cfg.nz, cells % cfg.nz
+    """Uniform positions in each cell, drawn x, then y where ny > 1, then z
+    on the 2-D and 3-D grids, as in the JAX package; the axes not drawn
+    are 0."""
+    i, j, k = cells // (cfg.ny * cfg.nz), (cells // cfg.nz) % cfg.ny, \
+        cells % cfg.nz
     x = (i + rng.random(cells.size)) * cfg.dx
-    z = (k + rng.random(cells.size)) * cfg.dz
-    return x, z
+    y = (j + rng.random(cells.size)) * cfg.dy if cfg.ny > 1 \
+        else np.zeros(cells.size)
+    z = (k + rng.random(cells.size)) * cfg.dz if cfg.n_dims > 1 \
+        else np.zeros(cells.size)
+    return x, y, z
 
 
 def _equilibrium_rw2(eng, cells, rd3, kappa, RH_max):
@@ -165,11 +177,20 @@ def _equilibrium_rw2(eng, cells, rd3, kappa, RH_max):
 def _new_sds(cfg, eng, cells, n, rd3, kappa, rng, RH_max):
     """The dict of new SDs in ``cells`` that _inject takes: positions drawn
     in their cells, the wet radius in equilibrium."""
-    x, z = _positions_in_cells(cfg, cells, rng)
+    x, y, z = _positions_in_cells(cfg, cells, rng)
     return dict(n=n, rd3=rd3, rw2=_equilibrium_rw2(eng, cells, rd3, kappa,
                                                    RH_max),
-                kpa=np.full(n.size, kappa), x=x, z=z, vt=np.zeros(n.size),
-                ijk=cells)
+                kpa=np.full(n.size, kappa), x=x, y=y, z=z,
+                vt=np.zeros(n.size), ijk=cells)
+
+
+def _src_volume(cfg: StaticConfig, rhod_host, cell):
+    """The volume a source fills in ``cell``: a grid cell's dx dy dz, a
+    parcel's 1 kg of dry air (libcloudphxx_tpu/lgrngn/source.py:194, 247,
+    320)."""
+    if cfg.n_dims > 0:
+        return cfg.dx * cfg.dy * cfg.dz
+    return 1.0 / float(rhod_host[cell])
 
 
 def src_simple_distros(cfg: StaticConfig, oi, eng, src_dry_distros, dt, rng,
@@ -183,7 +204,7 @@ def src_simple_distros(cfg: StaticConfig, oi, eng, src_dry_distros, dt, rng,
     for key, (fun, src_sd_conc, supstp) in src_dry_distros.items():
         kappa = key[0] if isinstance(key, tuple) else key
         log_lo, log_hi, mult = init_mod._dist_analysis_sd_conc(
-            fun, src_sd_conc, cfg.dx * cfg.dy * cfg.dz * (supstp * dt))
+            fun, src_sd_conc, _src_volume(cfg, rhod_host, 0) * (supstp * dt))
         count = int(src_sd_conc)
         u01 = rng.random((cells.size, count))
         strata = (np.arange(count)[None, :] + u01) / count
@@ -220,7 +241,7 @@ def src_matching_distros(cfg: StaticConfig, oi, eng, src_dry_distros, dt,
     for key, (fun, src_sd_conc, supstp) in src_dry_distros.items():
         kappa = key[0] if isinstance(key, tuple) else key
         log_lo, log_hi, mult = init_mod._dist_analysis_sd_conc(
-            fun, src_sd_conc, cfg.dx * cfg.dy * cfg.dz * (supstp * dt))
+            fun, src_sd_conc, _src_volume(cfg, rhod_host, 0) * (supstp * dt))
         nbins = int(src_sd_conc)
         edges = np.linspace(log_lo, log_hi, nbins + 1)
         mids = 0.5 * (edges[:-1] + edges[1:])
@@ -274,8 +295,8 @@ def src_dry_sizes(cfg: StaticConfig, oi, eng, src_sizes, dt, rng, RH_max):
         for radius, (conc_per_s, sd_count, supstp) in sizes.items():
             sd_count = int(sd_count)
             for cell in cells:
-                number = conc_per_s * (supstp * dt) * (cfg.dx * cfg.dy
-                                                       * cfg.dz)
+                number = conc_per_s * (supstp * dt) * _src_volume(
+                    cfg, rhod_host, cell)
                 if not oi.aerosol_independent_of_rhod:
                     number *= rhod_host[cell] / c.rho_stp
                 if conc_fac is not None:

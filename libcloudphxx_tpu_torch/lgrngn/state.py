@@ -2,8 +2,9 @@
 slots (libcloudphxx_tpu/lgrngn/state.py: StaticConfig, State, empty_state,
 PUDDLE_KEYS, OUT_*).
 
-The flat ``State`` holds the warm 2-D engine: per-SD arrays of length
-n_sd_max, where multiplicity n == 0 marks a dead slot (the SGS
+The flat ``State`` holds the warm engine on any grid (the parcel, 1-D, 2-D
+and 3-D): per-SD arrays of length n_sd_max, where multiplicity n == 0
+marks a dead slot (the SGS
 turbulence's velocity and supersaturation perturbations and the in-cloud
 time among them, zero unless their switches are on), and the per-cell
 Eulerian mirrors with the dissipation rate.  Its random stream is the run's seed and a step counter
@@ -121,9 +122,12 @@ def _empty():
 @dataclass
 class State:
     """The flat engine's state (reference src/impl/particles_impl.ipp:
-    66-146), warm and 2-D: per-SD arrays (n_sd_max,), cell arrays
-    (n_cell,), the staggered courants ((nx+1)*nz and nx*(nz+1)).  Every
-    step returns a new State; none is updated in place."""
+    66-146), warm: per-SD arrays (n_sd_max,), cell arrays (n_cell,)
+    ravelled i outermost and k innermost ((i*ny + j)*nz + k), the
+    staggered courants of the grid's axes ((nx+1)*ny*nz, nx*(ny+1)*nz,
+    nx*ny*(nz+1); empty for an axis the grid lacks).  In a parcel (no
+    axis) the one cell holds 1 kg of dry air: dv is 1/rhod.  Every step
+    returns a new State; none is updated in place."""
 
     # per-SD attributes
     n: torch.Tensor       # multiplicity; 0 == dead slot
@@ -133,7 +137,7 @@ class State:
     x: torch.Tensor
     z: torch.Tensor
     vt: torch.Tensor      # terminal velocity [m/s]
-    ijk: torch.Tensor     # int64 cell index i*nz + k; dead slots cell 0
+    ijk: torch.Tensor     # int64 cell index (i*ny + j)*nz + k; dead: 0
     # Eulerian mirrors
     th: torch.Tensor
     rv: torch.Tensor
@@ -167,6 +171,10 @@ class State:
     ssp: torch.Tensor = dataclasses.field(default_factory=_empty)
     dot_ssp: torch.Tensor = dataclasses.field(default_factory=_empty)
     diss_rate: torch.Tensor = dataclasses.field(default_factory=_empty)
+    # the y position of each SD (zero off the 3-D grid) and the staggered
+    # y courants (nx*(ny+1)*nz on the 3-D grid, empty on any other)
+    y: torch.Tensor = dataclasses.field(default_factory=_empty)
+    courant_y: torch.Tensor = dataclasses.field(default_factory=_empty)
     # the coalescence draws: Philox key (opts_init.rng_seed) and the step
     # counter, advanced by every coalescence call
     rng_seed: int = 44
@@ -187,18 +195,22 @@ TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(State)
 
 
 def empty_state(cfg: StaticConfig, dtype, device, rng_seed=44) -> State:
-    """An all-dead-slot state for a 2-D config; the substepping snapshot
-    per SD in exact_sstp_cond mode."""
+    """An all-dead-slot state for a config of any grid (the staggered
+    courants of its axes sized as the JAX package's empty_state sizes
+    them); the substepping snapshot per SD in exact_sstp_cond mode."""
     zsd = torch.zeros(cfg.n_sd_max, dtype=dtype, device=device)
     zc = torch.zeros(cfg.n_cell, dtype=dtype, device=device)
     z = lambda m: torch.zeros(m, dtype=dtype, device=device)
     tmp = zsd if cfg.exact_sstp_cond else zc
+    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     return State(
-        n=zsd, rd3=zsd, rw2=zsd, kpa=zsd, x=zsd, z=zsd, vt=zsd,
+        n=zsd, rd3=zsd, rw2=zsd, kpa=zsd, x=zsd, y=zsd, z=zsd, vt=zsd,
         ijk=torch.zeros(cfg.n_sd_max, dtype=torch.int64, device=device),
         incloud_time=zsd, up=zsd, vp=zsd, wp=zsd, ssp=zsd, dot_ssp=zsd,
         th=zc, rv=zc, rhod=zc, p=zc,
-        courant_x=z((cfg.nx + 1) * cfg.nz), courant_z=z(cfg.nx * (cfg.nz + 1)),
+        courant_x=z((nx + 1) * ny * nz if cfg.n_dims >= 1 else 0),
+        courant_y=z(nx * (ny + 1) * nz if cfg.n_dims == 3 else 0),
+        courant_z=z(nx * ny * (nz + 1) if cfg.n_dims >= 2 else 0),
         T=zc, RH=zc, eta=zc,
         dv=torch.ones(cfg.n_cell, dtype=dtype, device=device), diss_rate=zc,
         sstp_tmp_th=tmp, sstp_tmp_rv=tmp, sstp_tmp_rh=tmp,

@@ -1,13 +1,17 @@
-"""Super-droplet transport on the flat engine, 2-D: advection,
-sedimentation, subsidence, the walls with the puddle, the re-bin
+"""Super-droplet transport on the flat engine: advection, sedimentation,
+subsidence, the walls with the puddle, the re-bin
 (libcloudphxx_tpu/lgrngn/transport.py; reference
 src/impl/advection/particles_impl_adve.ipp, sedimentation/, subsidence/,
-boundary_conditions/particles_impl_bcnd.ipp).
+boundary_conditions/particles_impl_bcnd.ipp), on the grid's axes: x on
+the 1-D grid, x and z on the 2-D, x, y and z on the 3-D; a parcel has
+none, and there advection, the walls and the re-bin leave the State as
+it is.
 
 Courant fields are Arakawa-C staggered and C-order flattened: courant_x
-(nx+1, nz), courant_z (nx, nz+1); the gather indices reproduce the
-reference's lft/rgt/blw/abv neighbour vectors (init_grid.ipp:94-155).
-Each function returns a new State.
+(nx+1, ny, nz), courant_y (nx, ny+1, nz), courant_z (nx, ny, nz+1); the
+gather indices reproduce the reference's lft/rgt/fre/hnd/blw/abv
+neighbour vectors (init_grid.ipp:94-155).  Each function returns a new
+State.
 """
 
 import dataclasses
@@ -21,11 +25,20 @@ from .state import (OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL, OUT_PRTCL_NUM,
                     State, StaticConfig)
 
 
+def _decompose(cfg: StaticConfig, ijk):
+    """(i, j, k) of the cells ``ijk``, ravelled i outermost
+    (init_grid.ipp:41-44)."""
+    return ijk // (cfg.ny * cfg.nz), (ijk // cfg.nz) % cfg.ny, ijk % cfg.nz
+
+
 def courant_indices(cfg: StaticConfig, ijk):
-    """Indices into courant_x (left, right faces) and courant_z (below,
-    above) of the cells ``ijk``."""
-    i = ijk // cfg.nz
-    return (ijk, ijk + cfg.nz), (ijk + i, ijk + i + 1)
+    """Indices of the cells ``ijk``'s faces in courant_x (left, right),
+    courant_y (front, hind) and courant_z (below, above)."""
+    i, j, _ = _decompose(cfg, ijk)
+    fre = ijk + i * cfg.nz
+    blw = ijk + i * cfg.ny + j
+    return ((ijk, ijk + cfg.ny * cfg.nz), (fre, fre + cfg.nz),
+            (blw, blw + 1))
 
 
 def _axis_implicit(x, dx, idx, C_l, C_r):
@@ -45,13 +58,21 @@ def _axis_euler(x, dx, idx, C_l, C_r):
     return x + _euler_disp(x, dx, idx, C_l, C_r)
 
 
-def _advance(cfg, state, ijk, x, z, scheme_fn):
-    (lft, rgt), (blw, abv) = courant_indices(cfg, ijk)
-    i = (ijk // cfg.nz).to(x.dtype)
-    k = (ijk % cfg.nz).to(x.dtype)
-    cx, cz = state.courant_x, state.courant_z
-    return (scheme_fn(x, cfg.dx, i, cx[lft], cx[rgt]),
-            scheme_fn(z, cfg.dz, k, cz[blw], cz[abv]))
+def _advance(cfg, state, ijk, x, y, z, scheme_fn):
+    """``scheme_fn`` along each axis of the grid at the positions (x, y,
+    z) of SDs in the cells ``ijk``: x always, y on the 3-D grid, z on the
+    2-D and 3-D; the other positions come back as they are."""
+    i, j, k = _decompose(cfg, ijk)
+    (lft, rgt), (fre, hnd), (blw, abv) = courant_indices(cfg, ijk)
+    x = scheme_fn(x, cfg.dx, i.to(x.dtype), state.courant_x[lft],
+                  state.courant_x[rgt])
+    if cfg.n_dims == 3:
+        y = scheme_fn(y, cfg.dy, j.to(y.dtype), state.courant_y[fre],
+                      state.courant_y[hnd])
+    if cfg.n_dims > 1:
+        z = scheme_fn(z, cfg.dz, k.to(z.dtype), state.courant_z[blw],
+                      state.courant_z[abv])
+    return x, y, z
 
 
 def _wrap(x, a, b):
@@ -64,27 +85,37 @@ def _wrap(x, a, b):
 
 def adve(cfg: StaticConfig, state: State) -> State:
     """SD advection by the implicit, euler or pred_corr scheme
-    (reference adve.ipp:169-304)."""
+    (reference adve.ipp:169-304); none in a parcel."""
+    if cfg.n_dims == 0:
+        return state
     scheme = as_t(cfg.adve_scheme)
-    if scheme == as_t.implicit:
-        x, z = _advance(cfg, state, state.ijk, state.x, state.z,
-                        _axis_implicit)
-        return dataclasses.replace(state, x=x, z=z)
-    if scheme == as_t.euler:
-        x, z = _advance(cfg, state, state.ijk, state.x, state.z, _axis_euler)
-        return dataclasses.replace(state, x=x, z=z)
+    pos = (state.x, state.y, state.z)
+    if scheme in (as_t.implicit, as_t.euler):
+        fn = _axis_implicit if scheme == as_t.implicit else _axis_euler
+        x, y, z = _advance(cfg, state, state.ijk, *pos, fn)
+        return dataclasses.replace(state, x=x, y=y, z=z)
     # predictor-corrector (adve.ipp:184-304): a forward-Euler predictor,
-    # z kept inside the domain, x wrapped with its old position shifted
-    # alike, then the mean of the two displacements
-    x_old, z_old = state.x, state.z
-    x, z = _advance(cfg, state, state.ijk, x_old, z_old, _axis_euler)
-    z = torch.clamp(z, cfg.z0 + 1e-8 * cfg.dz, cfg.z1 - 1e-8 * cfg.dz)
+    # z kept inside the domain, x (and y) wrapped with the old position
+    # shifted alike, then the mean of the two displacements
+    x_old, y_old, z_old = pos
+    x, y, z = _advance(cfg, state, state.ijk, *pos, _axis_euler)
+    if cfg.n_dims > 1:
+        z = torch.clamp(z, cfg.z0 + 1e-8 * cfg.dz, cfg.z1 - 1e-8 * cfg.dz)
     x_wr = _wrap(x, cfg.x0, cfg.x1)
     x_old = x_old + (x_wr - x)
     x = x_wr
-    dx_, dz_ = _advance(cfg, state, ijk_of_xyz(cfg, x, z), x, z, _euler_disp)
-    return dataclasses.replace(state, x=(x + x_old + dx_) / 2.0,
-                               z=(z + z_old + dz_) / 2.0)
+    if cfg.n_dims == 3:
+        y_wr = _wrap(y, cfg.y0, cfg.y1)
+        y_old = y_old + (y_wr - y)
+        y = y_wr
+    dx_, dy_, dz_ = _advance(cfg, state, ijk_of_xyz(cfg, x, y, z), x, y, z,
+                             _euler_disp)
+    upd = dict(x=(x + x_old + dx_) / 2.0)
+    if cfg.n_dims == 3:
+        upd["y"] = (y + y_old + dy_) / 2.0
+    if cfg.n_dims > 1:
+        upd["z"] = (z + z_old + dz_) / 2.0
+    return dataclasses.replace(state, **upd)
 
 
 def sedi(state: State, dt) -> State:
@@ -101,17 +132,25 @@ def subs(cfg: StaticConfig, state: State, w_LS, dt) -> State:
 
 def bcnd(cfg: StaticConfig, state: State) -> State:
     """The walls and the puddle (reference bcnd.ipp:214-365): periodic or
-    open side walls; periodic top and bottom, or droplets above the top
-    removed and those below the bottom added to the puddle and removed."""
-    x, z, n = state.x, state.z, state.n
+    open side walls (x, and y on the 3-D grid); on the 2-D and 3-D grids
+    periodic top and bottom, or droplets above the top removed and those
+    below the bottom added to the puddle and removed.  None in a
+    parcel."""
+    if cfg.n_dims == 0:
+        return state
+    x, y, z, n = state.x, state.y, state.z, state.n
     if not cfg.open_side_walls:
         x = _wrap(x, cfg.x0, cfg.x1)
+        if cfg.n_dims == 3:
+            y = _wrap(y, cfg.y0, cfg.y1)
     else:
         n = torch.where((x >= cfg.x1) | (x < cfg.x0), 0.0, n)
+        if cfg.n_dims == 3:
+            n = torch.where((y >= cfg.y1) | (y < cfg.y0), 0.0, n)
     puddle = state.puddle
-    if cfg.periodic_topbot_walls:
+    if cfg.n_dims > 1 and cfg.periodic_topbot_walls:
         z = _wrap(z, cfg.z0, cfg.z1)
-    else:
+    elif cfg.n_dims > 1:
         n = torch.where(z >= cfg.z1, 0.0, n)
         fell = (z < cfg.z0) & (n > 0)
         nf = torch.where(fell, n, 0.0)
@@ -124,12 +163,15 @@ def bcnd(cfg: StaticConfig, state: State) -> State:
         fold[OUT_PRTCL_NUM] = torch.sum(nf)
         puddle = puddle + fold
         n = torch.where(fell, 0.0, n)
-    return dataclasses.replace(state, x=x, z=z, n=n, puddle=puddle)
+    return dataclasses.replace(state, x=x, y=y, z=z, n=n, puddle=puddle)
 
 
 def post_step(cfg: StaticConfig, state: State) -> State:
     """Re-bin every SD into the cell of its position (the reference's
-    post_copy hskpng_ijk, post_copy.ipp:18-36); dead slots go to cell 0."""
-    ijk = ijk_of_xyz(cfg, state.x, state.z)
+    post_copy hskpng_ijk, post_copy.ipp:18-36); dead slots go to cell 0.
+    None in a parcel."""
+    if cfg.n_dims == 0:
+        return state
+    ijk = ijk_of_xyz(cfg, state.x, state.y, state.z)
     return dataclasses.replace(state,
                                ijk=torch.where(state.n > 0, ijk, 0))

@@ -3,8 +3,8 @@
 particles_impl_hskpng_{tke,turb_vel,turb_ss}.ipp and src/impl/advection/
 particles_impl_turb_adve.ipp): the TKE of each cell from its dissipation
 rate, an Ornstein-Uhlenbeck update of each SD's velocity perturbations
-(up, wp), the tendency of its supersaturation perturbation (ssp) and the
-turbulent displacement.  Plain PyTorch, as the JAX package runs them in
+(up, and wp and vp on the grids that have z and y), the tendency of its
+supersaturation perturbation (ssp) and the turbulent displacement.  Plain PyTorch, as the JAX package runs them in
 XLA.
 
 The velocity draws are Philox normals (ops/philox.normal) keyed by the
@@ -40,10 +40,12 @@ def hskpng_tke(cfg: StaticConfig, state: State, sgs_mix_len) -> State:
                                                          lam))
 
 
-def turb_vel_names(only_vertical: bool):
-    """The velocity perturbations an update draws for on the 2-D grid: wp
-    alone where only turb_cond asks for them (hskpng_turb_vel.ipp:51-97)."""
-    return ("wp",) if only_vertical else ("up", "wp")
+def turb_vel_names(only_vertical: bool, n_dims: int = 2):
+    """The velocity perturbations an update draws for, in draw order: up,
+    then wp and vp as the grid has them (up alone in a parcel), or wp
+    alone where only turb_cond asks for them (hskpng_turb_vel.ipp:51-97;
+    libcloudphxx_tpu/lgrngn/turbulence.py:46)."""
+    return ("wp",) if only_vertical else ("up", "wp", "vp")[:max(1, n_dims)]
 
 
 def hskpng_turb_vel(cfg: StaticConfig, state: State, sgs_mix_len, dt,
@@ -55,7 +57,7 @@ def hskpng_turb_vel(cfg: StaticConfig, state: State, sgs_mix_len, dt,
     tau = ga17.tau(torch.clamp(tke, min=1e-30), lam)
     tau_sd, tke_sd = tau[state.ijk], tke[state.ijk]
     upd = {}
-    for name in turb_vel_names(only_vertical):
+    for name in turb_vel_names(only_vertical, cfg.n_dims):
         r = philox.normal(state.rng_seed, state.rng_step, AXES[name],
                           cfg.n_sd_max, state.rw2.dtype, state.rw2.device)
         upd[name] = ga17.update_turb_vel(getattr(state, name), tau_sd, dt,
@@ -83,6 +85,10 @@ def apply_sgs_supersat(ssp, dot_ssp, dt_sub):
 
 def turb_adve(cfg: StaticConfig, state: State, dt) -> State:
     """The displacement by the turbulent velocity perturbations
-    (turb_adve.ipp:20-36), x and z on the 2-D grid."""
-    return dataclasses.replace(state, x=state.x + state.up * dt,
-                               z=state.z + state.wp * dt)
+    (turb_adve.ipp:20-36): x, and z and y on the grids that have them."""
+    upd = dict(x=state.x + state.up * dt)
+    if cfg.n_dims > 1:
+        upd["z"] = state.z + state.wp * dt
+    if cfg.n_dims == 3:
+        upd["y"] = state.y + state.vp * dt
+    return dataclasses.replace(state, **upd)

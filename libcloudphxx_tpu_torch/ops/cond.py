@@ -34,6 +34,16 @@ cond_sd_adaptive.cu lcp_cond_sd_adaptive_turb), which take ssp (and
 dot_ssp where it advances) and return it where it changes; their plain
 versions are the same plain functions with ssp.
 
+In a parcel (cfg.n_dims == 0: one cell of 1 kg of dry air) F and G's two
+forms run their parcel forms (csrc/cond_flat.cu lcp_cond_flat_parcel,
+cond_sd_fixed.cu lcp_cond_sd_fixed_parcel, cond_sd_adaptive.cu
+lcp_cond_sd_adaptive_parcel, and with turb_cond their _parcel_turb
+forms): F weighs a droplet by wgt / (dv rhod) with dv = 1 / rhod at each
+substep's rhod, and G feeds an SD's private air the vapour of its
+d(rw^3) undivided, where the grid forms take the cell volume dv and
+divide by the private air's rhod dv.  Their plain versions are the same
+plain functions on a parcel's configuration.
+
 Dispatch is by device, as in ops/step.py: CPU tensors run the plain
 version, CUDA tensors launch the kernel (float32, contiguous, or the
 wrapper raises), and ``plain=True`` runs the plain version on any device,
@@ -56,6 +66,19 @@ from ..common import theta_dry
 from ..lgrngn import condensation, hskpng, turbulence
 
 
+_FORM_KERNELS = {"cond_flat": "COND_FLAT",
+                 "perparticle_fixed": "COND_SD_FIXED",
+                 "perparticle_adaptive": "COND_SD_ADAPTIVE"}
+
+
+def form_kernel(form, parcel, turb):
+    """The kernel that the wrapper ``form`` (cond_flat, perparticle_fixed
+    or perparticle_adaptive) launches: its parcel form where ``parcel``
+    (cfg.n_dims == 0), its turb_cond form where ``turb``."""
+    return getattr(_ext, _FORM_KERNELS[form] + ("_PARCEL" if parcel else "")
+                   + ("_TURB" if turb else ""))
+
+
 def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
                     rd3, kpa, vt, wgt, th, rv, rhod, delta_th, delta_rv,
                     delta_rh, p, dv, lambda_D, lambda_K, ssp=None,
@@ -63,10 +86,17 @@ def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
     """sstp substeps of the cell-sorted droplets' growth, each closed by the
     cells' latent heat (libcloudphxx_tpu/lgrngn/condensation.py:312-388):
     cell sums as a float64 cumulative sum differenced at the cell ends.
+    A droplet weighs wgt / (dv rhod) in its cell's sum; in a parcel
+    (cfg.n_dims == 0) dv is the volume of 1 kg of dry air at each
+    substep's rhod (:366, through hskpng_Tpr), and ``dv`` is not read.
     With ``ssp`` (turb_cond) each droplet's SGS supersaturation advances by
     dt_sub * dot_ssp at the start of every substep and adds to its cell's
     RH (:353-358).  Returns (rw2, th, rv, rhod), and ssp with it."""
     lamD_s, lamK_s = lambda_D[sijk], lambda_K[sijk]
+    parcel = cfg.n_dims == 0
+    if parcel:
+        # a parcel's cell is 1 kg of dry air, whatever ``dv`` holds
+        dv = hskpng.parcel_dv(rhod)
     if not var_rho:
         wgt = wgt / (dv * rhod)[sijk]
 
@@ -85,7 +115,12 @@ def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
             g(eta), lamD_s, lamK_s, RH_max)
         drw3 = rw2_new * torch.sqrt(rw2_new) \
             - rw2 * torch.sqrt(torch.clamp(rw2, min=0.0))
-        wsub = wgt / g(dv * rhod) if var_rho else wgt
+        if var_rho:
+            # a parcel's dv follows rhod: its cell is 1 kg of dry air
+            dv_sub = hskpng.parcel_dv(rhod) if parcel else dv
+            wsub = wgt / g(dv_sub * rhod)
+        else:
+            wsub = wgt
         drv = -condensation.cell_sum(wsub * drw3, ends).to(rw2.dtype)
         th = th + drv * theta_dry.d_th_d_rv(T, th)
         rv = rv + drv
@@ -117,7 +152,9 @@ def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
         raise ValueError("cond_flat: the cell fields and ends must be "
                          f"({n_cell},), got "
                          f"{[tuple(a.shape) for a in cells + (ends,)]}")
-    name = "cond_flat_turb" if turb else "cond_flat"
+    parcel = cfg.n_dims == 0
+    name = "cond_flat" + ("_parcel" if parcel else "") \
+        + ("_turb" if turb else "")
     if _ext.use_plain(name, rw2, plain):
         return cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk,
                                ends, rw2, rd3, kpa, vt, wgt, th, rv, rhod,
@@ -143,12 +180,13 @@ def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
             float(dt_sub), float(RH_max), int(cfg.th_dry), int(cfg.const_p),
             int(cfg.RH_formula), int(var_rho),
             condensation._root_iters(rw2.dtype))
+    kernel = form_kernel("cond_flat", parcel, turb)
     if not turb:
-        _ext.COND_FLAT.launch(*args)
+        kernel.launch(*args)
         return (rw2_out,) + tuple(cells_out.unbind(0))
     ssp_out = torch.empty_like(ssp)
-    _ext.COND_FLAT_TURB.launch(*args, ssp.data_ptr(), dot_ssp.data_ptr(),
-                               ssp_out.data_ptr())
+    kernel.launch(*args, ssp.data_ptr(), dot_ssp.data_ptr(),
+                  ssp_out.data_ptr())
     return (rw2_out,) + tuple(cells_out.unbind(0)) + (ssp_out,)
 
 
@@ -328,7 +366,8 @@ def _launch_sd(name, kernel, sd, cells, seg, *scalars, sgs=()):
                       device=sd[1].device)
     rw2, th, rv, rh, p = out.unbind(0)
     outs = (rw2, th, rv, rh, p)
-    if kernel in (_ext.COND_SD_FIXED, _ext.COND_SD_FIXED_TURB):
+    if kernel in (_ext.COND_SD_FIXED, _ext.COND_SD_FIXED_TURB,
+                  _ext.COND_SD_FIXED_PARCEL, _ext.COND_SD_FIXED_PARCEL_TURB):
         # its scratch: the ranked positions
         outs += (torch.empty(n_slots, dtype=torch.int32,
                              device=sd[1].device),)
@@ -362,11 +401,13 @@ def perparticle_fixed(cfg, dt, RH_max, sd, cells, seg=None, ssp=None, *,
                          f"{SD_NAMES} and the cell arrays {CELL_NAMES[:-1]}")
     sgs = () if ssp is None else (ssp,)
     _sd_layout("perparticle_fixed", sd + sgs, cells, seg)
-    name = "perparticle_fixed_turb" if sgs else "perparticle_fixed"
+    parcel = cfg.n_dims == 0
+    name = "perparticle_fixed" + ("_parcel" if parcel else "") \
+        + ("_turb" if sgs else "")
     if _ext.use_plain(name, sd[1], plain):
         return perparticle_fixed_plain(cfg, dt, RH_max, sd, cells, seg, ssp)
     return _launch_sd(
-        name, _ext.COND_SD_FIXED_TURB if sgs else _ext.COND_SD_FIXED, sd,
+        name, form_kernel("perparticle_fixed", parcel, bool(sgs)), sd,
         cells, seg, int(cfg.sstp_cond), float(dt), float(RH_max),
         int(cfg.th_dry), int(cfg.const_p), int(cfg.RH_formula),
         int(cfg.sstp_cond_mix), condensation._root_iters(sd[1].dtype),
@@ -391,13 +432,15 @@ def perparticle_adaptive(cfg, dt, RH_max, sd, cells, seg=None, ssp=None,
                          f"{SD_NAMES} and the cell arrays {CELL_NAMES}")
     sgs = () if ssp is None else (ssp, dot_ssp)
     _sd_layout("perparticle_adaptive", sd + sgs, cells, seg)
-    name = "perparticle_adaptive_turb" if sgs else "perparticle_adaptive"
+    parcel = cfg.n_dims == 0
+    name = "perparticle_adaptive" + ("_parcel" if parcel else "") \
+        + ("_turb" if sgs else "")
     if _ext.use_plain(name, sd[1], plain):
         return perparticle_adaptive_plain(cfg, dt, RH_max, sd, cells, seg,
                                           ssp, dot_ssp)
     return _launch_sd(
-        name, _ext.COND_SD_ADAPTIVE_TURB if sgs else _ext.COND_SD_ADAPTIVE,
-        sd, cells, seg, sd[1].numel(), max(int(cfg.sstp_cond), 1),
+        name, form_kernel("perparticle_adaptive", parcel, bool(sgs)), sd,
+        cells, seg, sd[1].numel(), max(int(cfg.sstp_cond), 1),
         max(int(cfg.sstp_cond_act), 1), float(dt), float(RH_max),
         float(cfg.sstp_cond_adapt_drw2_eps),
         float(cfg.sstp_cond_adapt_drw2_max), int(cfg.th_dry),

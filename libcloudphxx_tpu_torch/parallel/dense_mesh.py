@@ -199,7 +199,7 @@ def _pack(blk, mask, buf):
 def _local_rows(cfg, d, dom):
     """The local row of each live SD from its position (ijk_of_xyz on the
     global grid, clamped to the shard's columns); d.n_cell where dead."""
-    g = ijk_of_xyz(cfg, d.x, d.z)
+    g = ijk_of_xyz(cfg, d.x, None, d.z)
     i = torch.clamp(g // cfg.nz, dom.col0, dom.col0 + dom.nxl - 1)
     return torch.where(d.n > 0, (i - dom.col0) * cfg.nz + g % cfg.nz,
                        d.n_cell)

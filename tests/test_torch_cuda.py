@@ -65,7 +65,11 @@ G's two forms (each SD at its RH plus its SGS supersaturation ssp) run
 on the same inputs with ssp and dot_ssp from a seed, bitwise equal to
 their plain versions as their forms without turb_cond are, and with ssp
 and dot_ssp zero bitwise equal to those forms; the flat LES slice runs
-through the public API with them.
+through the public API with them.  The parcel forms of F and G's two
+forms (and their turb_cond forms) run on the same inputs with the cells
+taken for parcels of 1 kg of dry air, within the same bounds of their
+plain versions; a rising parcel through the public API in each mode, and
+the 3-D grid at 6x6x6, run the kernel path against the plain path.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -485,12 +489,8 @@ def test_dense_front_on_the_card(dev):
     front.run(4, spinup=2)
     torch.cuda.synchronize()
     got = {k.name: k.launches - before[k.name] for k in _ext.KERNELS}
-    assert got == dict(mpdata=8, cond=4, transport=4, merge=4, coal=2,
-                       coal_standalone=0, cond_flat=0, cond_sd=0,
-                       transport_unwrapped=0, merge_exact=0,
-                       cond_sd_fixed=0, cond_sd_adaptive=0, coal_vohl=0,
-                       transport_pred_corr=0, cond_flat_turb=0,
-                       cond_sd_fixed_turb=0, cond_sd_adaptive_turb=0)
+    none = {k.name: 0 for k in _ext.KERNELS}
+    assert got == dict(none, mpdata=8, cond=4, transport=4, merge=4, coal=2)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run(4, spinup=2, plain=True)
     assert torch.equal(front.th, fused.th) and torch.equal(front.rv, fused.rv)
@@ -1090,13 +1090,10 @@ def test_dense_exact_kernels_match_plain(dev, mode):
     torch.cuda.synchronize()
     got = {k.name: k.launches - before[k.name] for k in _ext.KERNELS}
     adaptive = mode == "adaptive"
-    assert got == dict(mpdata=8, cond=0, transport=4, merge=0, coal=0,
-                       coal_standalone=0, cond_flat=0, cond_sd=0,
-                       transport_unwrapped=0, merge_exact=4,
+    none = {k.name: 0 for k in _ext.KERNELS}
+    assert got == dict(none, mpdata=8, transport=4, merge_exact=4,
                        cond_sd_fixed=0 if adaptive else 4,
-                       cond_sd_adaptive=4 if adaptive else 0, coal_vohl=0,
-                       transport_pred_corr=0, cond_flat_turb=0,
-                       cond_sd_fixed_turb=0, cond_sd_adaptive_turb=0)
+                       cond_sd_adaptive=4 if adaptive else 0)
     fused.run_device_lgrngn(4, spinup=2, engine="dense")
     plain.run_device_lgrngn(4, spinup=2, engine="dense", plain=True)
     for m in (fused, plain):
@@ -1160,7 +1157,8 @@ def _check_form(kernel, f, cfg, sd, cells, seg, **kw):
     k = _launches(kernel, lambda: f(cfg, 1.0, 44.0, sd, cells, seg, **kw))
     p = f(cfg, 1.0, 44.0, sd, cells, seg, plain=True, **kw)
     live = sd[0] > 0
-    if kernel in (_ext.COND_SD_FIXED, _ext.COND_SD_FIXED_TURB) \
+    if kernel in (_ext.COND_SD_FIXED, _ext.COND_SD_FIXED_TURB,
+                  _ext.COND_SD_FIXED_PARCEL, _ext.COND_SD_FIXED_PARCEL_TURB) \
             and cfg.sstp_cond_mix:
         kept = ~live & (sd[1] <= 0)
         assert torch.equal(k[0][kept], p[0][kept])
@@ -1677,3 +1675,176 @@ def test_les_slice_kernels_match_plain(dev):
     assert _rel(ms[0].rv, ms[1].rv) <= 2e-5
     st = ms[0].prtcls.state
     assert bool(torch.isfinite(st.ssp).all()) and bool((st.ssp != 0).any())
+
+
+# ----------------------------------------- the parcel forms, the 3-D grid
+def _parcel(cfg):
+    """``cfg`` with its cells taken for parcels, 1 kg of dry air each
+    (n_dims 0): what selects the parcel forms."""
+    return dataclasses.replace(cfg, n_dims=0)
+
+
+@pytest.mark.parametrize("turb", [False, True], ids=["", "turb"])
+@pytest.mark.parametrize("config", ["th_dry", "var_rho", "const_p"])
+@pytest.mark.parametrize("case", list(FLAT_CASES))
+def test_cond_flat_parcel_kernel_matches_plain(dev, case, config, turb):
+    """Kernel F's parcel forms (a droplet weighs wgt / (dv rhod) with dv =
+    1 / rhod at each substep) against their plain version within F's
+    gates, dead slots (and their ssp) copied through; they differ from
+    the grid form, whose dv is the cell volume.  The weights are per kg
+    of air, as a parcel holds them: read per kg, the cell-volume weights
+    of _flat_case put ~0.08 kg of liquid in a kg of air, where a substep
+    moves T by 10-100 K and rv drops below 0, and there the plain version
+    parts from itself at float64 (tests/test_torch_parcel.py
+    test_cond_flat_parcel_weights_per_kg_of_air)."""
+    cfg, kw = _flat_case(dev, case, config)
+    pcfg = _parcel(cfg)
+    kw["wgt"] = kw["wgt"] / (kw["dv"] * kw["rhod"])[kw["sijk"]]
+    sgs = dict(zip(("ssp", "dot_ssp"), _sgs(kw["rw2"].shape[0], 7, dev))) \
+        if turb else {}
+    kernel = _ext.COND_FLAT_PARCEL_TURB if turb else _ext.COND_FLAT_PARCEL
+    k = _launches(kernel, lambda: cond_ops.cond_flat(pcfg, RH_max=44.0,
+                                                     **kw, **sgs))
+    p = cond_ops.cond_flat(pcfg, RH_max=44.0, plain=True, **kw, **sgs)
+    live = kw["wgt"] > 0
+    assert _rel(k[0][live], p[0][live]) <= 1e-5
+    assert _rel(k[1], p[1]) <= 2e-6 and _rel(k[2], p[2]) <= 2e-5
+    assert torch.equal(k[3], p[3])
+    assert torch.equal(k[0][~live], kw["rw2"][~live])
+    if turb:
+        assert torch.equal(k[4][live], p[4][live])
+        assert torch.equal(k[4][~live], sgs["ssp"][~live])
+    grid = cond_ops.cond_flat(cfg, RH_max=44.0, **kw, **sgs)
+    assert _rel(k[1], grid[1]) > 1e-6
+
+
+@pytest.mark.parametrize("turb", [False, True], ids=["", "turb"])
+@pytest.mark.parametrize("mode", list(FIXED_MODES))
+@pytest.mark.parametrize("layout", ["cap128", "flat"])
+def test_cond_sd_fixed_parcel_matches_plain(dev, layout, mode, turb):
+    """G's fixed-count parcel forms (an SD's private air 1 kg: its vapour
+    undivided) against their plain version, as _check_form holds the grid
+    forms."""
+    cap = None if layout == "flat" else 128
+    cfg, sd, cells, seg = perparticle_case(
+        _g_counts(cap, seed=5), cap=cap, dead0=300, seed=6, device=dev,
+        dtype=torch.float32, sstp_cond=10, **FIXED_MODES[mode])
+    kw = {"ssp": _sgs(sd[0].numel(), 8, dev)[0].reshape(sd[0].shape)} \
+        if turb else {}
+    kernel = _ext.COND_SD_FIXED_PARCEL_TURB if turb \
+        else _ext.COND_SD_FIXED_PARCEL
+    k = _check_form(kernel, cond_ops.perparticle_fixed, _parcel(cfg), sd,
+                    cells[:7], seg, **kw)
+    grid = cond_ops.perparticle_fixed(cfg, 1.0, 44.0, sd, cells[:7], seg,
+                                      **kw)
+    live = sd[0] > 0
+    assert not torch.equal(k[1][live], grid[1][live])
+
+
+@pytest.mark.parametrize("turb", [False, True], ids=["", "turb"])
+@pytest.mark.parametrize("mode", list(ADAPTIVE_MODES))
+@pytest.mark.parametrize("layout", ["cap128", "flat"])
+def test_cond_sd_adaptive_parcel_matches_plain(dev, layout, mode, turb):
+    """G's adaptive parcel forms against their plain version, bitwise."""
+    cap = None if layout == "flat" else 128
+    cfg, sd, cells, seg = perparticle_case(
+        _g_counts(cap, seed=9), cap=cap, dead0=300, seed=10, device=dev,
+        dtype=torch.float32, sstp_cond=10, adaptive_sstp_cond=True,
+        **ADAPTIVE_MODES[mode])
+    kw = dict(zip(("ssp", "dot_ssp"), (
+        a.reshape(sd[0].shape) for a in _sgs(sd[0].numel(), 11, dev)))) \
+        if turb else {}
+    kernel = _ext.COND_SD_ADAPTIVE_PARCEL_TURB if turb \
+        else _ext.COND_SD_ADAPTIVE_PARCEL
+    k = _check_form(kernel, cond_ops.perparticle_adaptive, _parcel(cfg), sd,
+                    cells, seg, **kw)
+    grid = cond_ops.perparticle_adaptive(cfg, 1.0, 44.0, sd, cells, seg,
+                                         **kw)
+    live = sd[0] > 0
+    assert not torch.equal(k[1][live], grid[1][live])
+
+
+PARCEL_MODES = {
+    "percell": ({}, "COND_FLAT_PARCEL"),
+    "mix": (dict(exact_sstp_cond=True), "COND_SD_FIXED_PARCEL"),
+    "nomix": (dict(exact_sstp_cond=True, sstp_cond_mix=False),
+              "COND_SD_FIXED_PARCEL"),
+    "adaptive": (dict(exact_sstp_cond=True, adaptive_sstp_cond=True,
+                      sstp_cond_act=8), "COND_SD_ADAPTIVE_PARCEL"),
+}
+
+
+@pytest.mark.parametrize("mode", list(PARCEL_MODES))
+def test_rising_parcel_kernels_match_plain(dev, mode):
+    """A rising parcel through the public API (rhod lowered and passed
+    every step: var_rho), 30 steps from RH 0.999 at sstp_cond 10: its
+    parcel form once a step, the kernel path against the plain path
+    within F's gates (th 2e-6, rv 2e-5), rw2 1e-4."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    over, kname = PARCEL_MODES[mode]
+    out = []
+    for plain in (False, True):
+        oi = tl.opts_init_t()
+        oi.dry_distros = {(0.61, 0.0): Setup().lognormal_lnrd}
+        oi.dt, oi.sd_conc, oi.n_sd_max, oi.sstp_cond = 1.0, 256, 256, 10
+        for k, v in over.items():
+            setattr(oi, k, v)
+        prt = tl.factory(tl.backend_t.CUDA, oi, device=dev)
+        full = lambda v: torch.full((1,), v, device=dev)
+        th, rv = full(289.0), full(0.0101)
+        prt.init(th, rv, full(1.15))
+        opts = tl.opts_t()
+        opts.coal = False
+        before = getattr(_ext, kname).launches
+        for s in range(30):
+            th, rv = prt.step_sync(opts, th, rv, full(1.15 - 1e-4 * (s + 1)),
+                                   plain=plain)
+            prt.step_async(opts)
+        torch.cuda.synchronize()
+        out.append((th, rv, prt.state.rw2,
+                    getattr(_ext, kname).launches - before))
+    (tk, rk, wk, nk), (tp, rp, wp, npl) = out
+    assert (nk, npl) == (30, 0)
+    assert _rel(tk, tp) <= 2e-6 and _rel(rk, rp) <= 2e-5
+    assert _rel(wk, wp) <= 1e-4
+
+
+def test_3d_grid_kernels_match_plain(dev):
+    """The 3-D grid at 6x6x6 cells through the public API (the factory's
+    pick: the flat engine), 4 steps with coalescence, sedimentation and the
+    courants of all three axes: kernel F once a step, the kernel path's
+    th and rv within F's gates of the plain path's, the population the
+    same."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.lgrngn.particles import particles_t
+    n, out = 6, []
+    for plain in (False, True):
+        oi = tl.opts_init_t()
+        oi.dry_distros = {(0.61, 0.0): Setup().lognormal_lnrd}
+        oi.nx = oi.ny = oi.nz = n
+        oi.dx = oi.dy = oi.dz = 20.0
+        oi.x1 = oi.y1 = oi.z1 = n * 20.0
+        oi.dt, oi.sd_conc, oi.n_sd_max = 1.0, 16, 16 * n ** 3
+        oi.sstp_cond = oi.sstp_coal = 3
+        oi.kernel, oi.kernel_parameters = kernel_t.geometric, [1e4]
+        oi.terminal_velocity = vt_t.beard77fast
+        prt = tl.factory(tl.backend_t.CUDA, oi, device=dev)
+        assert type(prt) is particles_t
+        full = lambda v, *s: torch.full(s or (n, n, n), v, device=dev)
+        th, rv, rhod = full(289.0), full(7.5e-3), full(1.15)
+        C = dict(courant_x=full(0.2, n + 1, n, n),
+                 courant_y=full(0.1, n, n + 1, n),
+                 courant_z=full(-0.05, n, n, n + 1))
+        prt.init(th, rv, rhod, **C)
+        opts = tl.opts_t()
+        before = _ext.COND_FLAT.launches
+        for _ in range(4):
+            th, rv = prt.step_sync(opts, th, rv, rhod, plain=plain, **C)
+            prt.step_async(opts)
+        torch.cuda.synchronize()
+        out.append((th, rv, prt.state, _ext.COND_FLAT.launches - before))
+    (tk, rk, sk, nk), (tp, rp, sp, npl) = out
+    assert (nk, npl) == (4, 0)
+    assert _rel(tk, tp) <= 2e-6 and _rel(rk, rp) <= 2e-5
+    assert torch.equal(sk.n, sp.n) and torch.equal(sk.ijk, sp.ijk)
+    assert bool((sk.y != 0).any())

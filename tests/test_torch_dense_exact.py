@@ -163,7 +163,7 @@ def test_merge_with_eleven_planes_keeps_the_old_snapshot(mix_case):
     along."""
     cfg, _, pcfg, ps, _, _, jd = mix_case
     mv = _moved(pcfg, tdense.pack(pcfg, ps, CAP), 2)
-    tgt = torch.where(mv.n > 0, ijk_of_xyz(pcfg, mv.x, mv.z), -1).to(
+    tgt = torch.where(mv.n > 0, ijk_of_xyz(pcfg, mv.x, None, mv.z), -1).to(
         torch.int32)
     rows = torch.arange(pcfg.n_cell)[:, None]
     assert bool(((tgt != rows) & (mv.n > 0)).any())
