@@ -114,7 +114,7 @@ checks them:
      reference's fig_a bulk case (76x76 cells on the node grid, FCT on):
      kernel A's advect_n on each scheme's 4 and 6 fields, FCT off and on,
      n_iters 1-3, bitwise equal to its plain version and to one advect a
-     field; ante_loop (blk_1m) and run_device over 3000 steps (1200 of
+     field; ante_loop (blk_1m) and run_device over 2000 steps (800 of
      them spin-up; the reference runs 9000 and 7200) through the kernels
      in float32, kernel A
      once a step, with the physics checks (finite fields, mixing ratios
@@ -189,10 +189,50 @@ checks them:
      return within its float32 bound; (c) 1-D, 76 cells, a courant_x of
      0.2, 20 steps through F with the conservation checks and SDs wrapping
 
+ 20. ice through the public API on the flat engine (the factory's pick on
+     the card): (a) 76x76 cells of the GMD geometry, sd_conc 64 (369,664
+     SDs) of the GMD aerosol with an insoluble core of 1e-7 m, sstp_cond
+     = sstp_coal = 10, the geometric kernel, sedimentation, rows from 250
+     K at the bottom to 232 K at the top, p hydrostatic from 800 hPa, rv
+     saturated over water, phase 18's flow (kernel A's MPDATA of th and
+     rv), singular freezing, each step step_sync(opts, th, rv, rhod, Cx,
+     Cz) with ice_nucl and step_async(opts): 50 counted steps (kernel A
+     twice and F's ice form once a step, no other kernel), finite fields,
+     SDs frozen with rw2 0 and ice_a ice_c > 0, the total water (vapour,
+     liquid, ice, the puddle's liquid and ice) within 1e-5, the ice form
+     against its plain version on what a step gives it (F's gates, the
+     axes rel 1e-5), every cell warmed by 50 K for one step (all the ice
+     melts, rho_i V_i = rho_w V_w per SD to 1e-5), the best of 3 reps
+     from init (timed without the checks' coalescence watch, each rep
+     checked after it); (b) (a) with time-dependent freezing (the Philox
+     uniforms), its checks; (d) (a) with turb_cond (diss_rate 1e-3), 20
+     steps through F's ice turb_cond form, its checks; (c) the parcel of
+     tests/test_lgrngn_ice.py (243 K, 800 hPa, 100 SDs, dt 0.1, RH_max
+     0.95, 500 steps), singular and time-dependent, and 120 steps with
+     turb_cond, with the reference's gates (no NaN, rv >= 0, the ice
+     mixing ratio >= 0) through F's parcel ice forms once a step (nothing
+     freezes there at 243 K), and the aspect-ratio run (hand-frozen
+     prolate spheroids at RH_i > 1 for 20 steps: both axes grow, c/a
+     relaxes toward 1, rv falls, th rises) and its turb_cond copy (every
+     other SD left liquid).  F's four ice forms each against its plain
+     version, timed beside its bound (operations, with the deposition's
+     rdrdt_i evaluations): the grid forms on what (a) and (d) give them,
+     the parcel forms on the aspect-ratio runs' frozen, growing SDs
+ 21. aqueous chemistry: Kinematic2D(micro="lgrngn_chem") at 76x76 and
+     sd_conc 64 (FCT on) through run(): 10 spin-up and 20 chemistry
+     steps, kernel A for th, rv and the six trace gases (8 a step) and F
+     once a step; th, rv, the gases and the dissolved masses finite and
+     >= 0, the sulfur (SO2 gas, dissolved S(IV) and S(VI), the puddle's)
+     conserved in moles within 1e-6, S(VI) made; the kernel path against
+     the plain path after 3 steps within F's gates, the gases within 2e-4
+     beside a second kernel-path run's (the witness of their own spread);
+     the best of 3 reps of the 20 chemistry steps from the spin-up
+
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
 the flat engine, the dense front, the exact slice and the dense exact
-slice, and of the bulk schemes' steps (torch.profiler).  The last line is {"ok": true, "device": {...}}; the
+slice, and of the bulk schemes', the LES slice's, the grids', the ice's
+and the chemistry's steps (torch.profiler).  The last line is {"ok": true, "device": {...}}; the
 line before it the card's name and power limit; before that one JSON
 object with a row per kernel.  Any failed check raises: the script then
 prints ``chip_smoke: FAILED: <reason>`` on stdout, and exits non-zero.
@@ -261,6 +301,14 @@ OPS_CELL_SUBSTEP, OPS_CLOSURE, OPS_DROP = 71, 32, 6
 # cap, the surface tension and Kelvin coefficient, l_v, rho_v and the
 # latent-heat term
 OPS_GROWTH = 20
+# kernel F's ice forms (csrc/cond_cell.cuh IceDep), per frozen live SD and
+# substep: two deposition rates (dep_rate: the radius, Re, the two
+# transition-regime factors and Nusselt numbers with their shared power,
+# rdrdt_i, over 2a), the two forward-Euler updates and clamps, the volume
+# change and its weight; per cell and substep: the ice terms (ice_growth:
+# the mean free paths, Sc, Pr, p_vsi, RH_i, l_s) and the feedback to rv
+# and th
+OPS_DEP, OPS_ICE_CELL = 144, 46
 # kernel G's two forms (csrc/cond_sd_fixed.cu, cond_sd_adaptive.cu), per
 # SD and substep beside the closure and the growth terms: the increments
 # of the private state, d(rw^3), the vapour and the heat fed back; the
@@ -316,10 +364,12 @@ MESH_STEPS = 10
 # the reference's travis_2D_kin_cloud_diff_blk_{1m,2m} runs): its steps and
 # spin-up, cut from the reference's 9000 and 7200 (at those the phase took
 # 560 s on an H100, most of it the float64 plain runs' ~2,000 launches a
-# step), the steps of the kernel path against the plain path (the spin-up
-# moved to half of them), of run() against run_device() and of a timing rep
+# step; at 3000 and 1200 239 s, and cut again to keep the whole script
+# inside its time limit as phases are added), the steps of the kernel path
+# against the plain path (the spin-up moved to half of them), of run()
+# against run_device() and of a timing rep
 BLK_SCHEMES = ("blk_1m", "blk_2m")
-BLK_NT, BLK_SPINUP = 3000, 1200
+BLK_NT, BLK_SPINUP = 2000, 800
 BLK_PLAIN_STEPS, BLK_PLAIN_SPINUP = 400, 200
 BLK_RUN_STEPS = 20
 BLK_TIME_STEPS = 500
@@ -394,6 +444,30 @@ PARCEL_SD, PARCEL_STEPS, PARCEL_TURB_STEPS = 4096, 300, 120
 PARCEL_W, PARCEL_P0, PARCEL_TH, PARCEL_RV = 1.0, 100000.0, 289.0, 1.1e-2
 PARCEL_RV_RETURN = 7.5e-7
 GRID1D_CX, GRID1D_STEPS = 0.2, 20
+
+# phase 20: ice at NX x NZ: rows from ICE_T_BOTTOM K at the bottom to
+# ICE_T_TOP at the top, p hydrostatic from ICE_P0 Pa, the aerosol's
+# insoluble core ICE_RD_INSOL m; ICE_STEPS counted steps ((d), with
+# turb_cond, ICE_TURB_STEPS), the total water to ICE_WATER_GATE (the
+# float32 runs read 2.5e-8 to 5.3e-7; 1e-5 of (a)'s 930 kg of water is
+# 0.02% of its 51 kg of ice, so a deposition or melt that loses or
+# counts twice that much of the ice fails it), the melt at ICE_WARM K
+# more; (c) the parcel's ICE_PARCEL_STEPS (the reference's 500),
+# ICE_PARCEL_TURB_STEPS with turb_cond, ICE_ASPECT_STEPS of the
+# aspect-ratio runs.  Phase 21: the lgrngn_chem model's CHEM_SPINUP
+# spin-up and CHEM_STEPS chemistry steps, the sulfur to CHEM_SULFUR_GATE
+# (float32 reads 1.0e-7: 10x that, so that a lost 1e-6 of the sulfur, in
+# the gas, the drops or the puddle, fails it), CHEM_CHECK_STEPS of the
+# kernel path against the plain path, their gases to CHEM_GAS_GATE (two
+# runs of the kernel path part by 4.2e-5, the chemistry's index_add_
+# cell sums adding in no fixed order on the card; the two paths by
+# 5.3e-5: about 4x that)
+ICE_T_BOTTOM, ICE_T_TOP, ICE_P0, ICE_RD_INSOL = 250.0, 232.0, 80000.0, 1e-7
+ICE_STEPS, ICE_TURB_STEPS, ICE_WATER_GATE, ICE_WARM = 50, 20, 1e-5, 50.0
+ICE_PARCEL_STEPS, ICE_PARCEL_TURB_STEPS, ICE_ASPECT_STEPS = 500, 120, 20
+CHEM_SPINUP, CHEM_STEPS, CHEM_SULFUR_GATE, CHEM_CHECK_STEPS = \
+    10, 20, 1e-6, 3
+CHEM_GAS_GATE = 2e-4
 
 # the Golovin box of tests/test_pallas_coal_golovin.py
 GOLOVIN_SIM_TIME, GOLOVIN_SSTP = 800.0, 100
@@ -1421,7 +1495,10 @@ def smoke(opts):
                  _ext.COND_FLAT_PARCEL, _ext.COND_FLAT_PARCEL_TURB,
                  _ext.COND_SD_FIXED_PARCEL, _ext.COND_SD_FIXED_PARCEL_TURB,
                  _ext.COND_SD_ADAPTIVE_PARCEL,
-                 _ext.COND_SD_ADAPTIVE_PARCEL_TURB):          # 19's
+                 _ext.COND_SD_ADAPTIVE_PARCEL_TURB,           # 19's
+                 _ext.COND_FLAT_ICE, _ext.COND_FLAT_ICE_TURB,
+                 _ext.COND_FLAT_PARCEL_ICE,
+                 _ext.COND_FLAT_PARCEL_ICE_TURB):             # 20's
             continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
@@ -1528,6 +1605,17 @@ def smoke(opts):
                 "sd_updates_per_s")}
     rows += grid_rows
     print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
+
+    # ---- 20. ice: freezing, melting, deposition (F's ice forms)
+    t20 = time.perf_counter()
+    ice_rows, ice = ice_phase(Kinematic2D, _ext, c, card, opts.profile)
+    rows += ice_rows
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
+
+    # ---- 21. aqueous chemistry: Kinematic2D(micro="lgrngn_chem")
+    t21 = time.perf_counter()
+    chem = chem_phase(Kinematic2D, _ext, card, opts.profile)
+    print(f"phase 21: {time.perf_counter() - t21:.1f} s", flush=True)
 
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
@@ -2176,7 +2264,7 @@ def form_of(cfg, turb=False):
     calls and the kernel it launches (ops/cond.form_kernel's pick): F
     (cond_flat) per cell, G's fixed-count or adaptive form in exact mode;
     the parcel form where cfg.n_dims == 0, the turb_cond form with
-    ``turb``."""
+    ``turb``, F's ice form with cfg.ice_switch."""
     from libcloudphxx_tpu_torch.lgrngn import condensation
     from libcloudphxx_tpu_torch.ops import cond as cond_ops
     if not condensation.exact_route(cfg):
@@ -2185,7 +2273,9 @@ def form_of(cfg, turb=False):
         fname = "perparticle_adaptive"
     else:
         fname = "perparticle_fixed"
-    return fname, cond_ops.form_kernel(fname, cfg.n_dims == 0, turb)
+    return fname, cond_ops.form_kernel(
+        fname, cfg.n_dims == 0, turb,
+        ice=fname == "cond_flat" and cfg.ice_switch)
 
 
 def kw_form(kw):
@@ -2198,7 +2288,10 @@ def check_flat_form(label, kernel, kw, err):
     captured arguments ``kw``: the live droplets' rw2, th and rv within
     the cell sums' gates (rel 1e-5, 2e-6, 2e-5), rhod bitwise, the dead
     slots' rw2 copied through; under turb_cond the live droplets' ssp
-    bitwise and the dead slots' copied through."""
+    bitwise and the dead slots' copied through; with ice (its ice forms)
+    the frozen SDs' axes rel 1e-5, the last closure's th and rv within
+    the th and rv gates, the frozen SDs without liquid kept at rw2 0 and
+    every other slot's axes copied through."""
     from libcloudphxx_tpu_torch.ops import cond as cond_ops
     k = cond_ops.cond_flat(**kw)
     pl = cond_ops.cond_flat(**kw, plain=True)
@@ -2214,12 +2307,33 @@ def check_flat_form(label, kernel, kw, err):
         same = same and bool(torch.equal(k[4][live], pl[4][live])) \
             and bool(torch.equal(k[4][~live], kw["ssp"][~live]))
         errs.append(max_abs(k[4][live], pl[4][live]))
+    ice = ""
+    ok_ice = True
+    if kw.get("ice") is not None:
+        ia, ic, _ = kw["ice"]
+        frz = live & (ia > 0) & (ic > 0)
+        axes = [(a[frz], b[frz]) for a, b in zip(k[-4:-2], pl[-4:-2])]
+        rel_ice = max((max_rel(a, b) for a, b in axes if a.numel()),
+                      default=0.0)
+        rel_c = (max_rel(k[-2], pl[-2]), max_rel(k[-1], pl[-1]))
+        # a frozen SD without liquid takes none (one that collected drops
+        # in a coalescence holds both, as in the JAX package, and grows)
+        dry = frz & (kw["rw2"] <= 0)
+        same = same and bool(torch.equal(k[0][dry], kw["rw2"][dry])) \
+            and bool(torch.equal(k[-4][~frz], ia[~frz])) \
+            and bool(torch.equal(k[-3][~frz], ic[~frz]))
+        errs += [max_abs(a, b) for a, b in axes if a.numel()]
+        ok_ice = rel_ice <= 1e-5 and rel_c[0] <= 2e-6 and rel_c[1] <= 2e-5
+        ice = (f"; {int(frz.sum())} frozen, their axes rel {rel_ice:.2e}, "
+               f"the last closure's th rel {rel_c[0]:.2e}, rv rel "
+               f"{rel_c[1]:.2e}")
     err[kernel.name] = max(err.get(kernel.name, 0.0), *errs)
     print(f"F {kernel.name} {label}: {kw['rw2'].numel()} slots, "
           f"{int(live.sum())} live in {kw['th'].numel()} cells; rw2 rel "
-          f"{rel[0]:.2e}, th rel {rel[1]:.2e}, rv rel {rel[2]:.2e}; rhod, "
-          f"dead slots (and ssp) bitwise {same}", flush=True)
-    check(same and rel[0] <= 1e-5 and rel[1] <= 2e-6 and rel[2] <= 2e-5,
+          f"{rel[0]:.2e}, th rel {rel[1]:.2e}, rv rel {rel[2]:.2e}{ice}; "
+          f"rhod, dead slots (and ssp, axes) bitwise {same}", flush=True)
+    check(same and ok_ice and rel[0] <= 1e-5 and rel[1] <= 2e-6
+          and rel[2] <= 2e-5,
           f"{kernel.name} {label}: kernel and plain version differ")
 
 
@@ -3121,9 +3235,11 @@ def cond_flat_bound(f_cfg, f_kw):
     """Kernel F's bound on its arguments ``f_kw`` (cond_flat's): five SD
     arrays, the cell ends, ten cell fields and the cell order in, rw2 and
     three cell fields out (under turb_cond also ssp and dot_ssp in and ssp
-    out); the first substep's growth work (at each droplet's RH plus its
-    ssp under turb_cond) sstp_cond times, each live droplet's set-up, each
-    cell's substeps."""
+    out; with the ice the axes and ice_rho in, the axes and two more cell
+    fields out); the first substep's growth work (at each droplet's RH
+    plus its ssp under turb_cond) sstp_cond times, each live droplet's
+    set-up, each cell's substeps, and with the ice each frozen SD's
+    deposition and each cell's ice terms every substep."""
     ops_f, brk, live = rootfind_ops(
         f_kw["dt_sub"], flat_first_substep(f_cfg, f_kw), f_kw["RH_max"],
         f_kw["wgt"] > 0)
@@ -3134,9 +3250,20 @@ def cond_flat_bound(f_cfg, f_kw):
     if turb:
         sd += [f_kw["ssp"], f_kw["dot_ssp"], f_kw["ssp"]]
     n_f = f_kw["th"].numel()
+    ice_ops, cell_rows = 0, 14
+    if f_kw.get("ice") is not None:
+        # the ice forms: the axes and ice_rho in, the axes out, two more
+        # cell rows; each frozen live SD's deposition and each cell's
+        # ice terms every substep
+        ia, ic, rho = f_kw["ice"]
+        sd += [ia, ic, rho, ia, ic]
+        frozen = int(((f_kw["wgt"] > 0) & (ia > 0) & (ic > 0)).sum())
+        ice_ops = f_kw["sstp"] * (frozen * OPS_DEP + n_f * OPS_ICE_CELL)
+        cell_rows = 16
     return bound(
-        nbytes(*sd, f_kw["ends"], f_kw["rw2"]) + 14 * nbytes(f_kw["th"]),
-        f_kw["sstp"] * ops_f + live * OPS_DROP
+        nbytes(*sd, f_kw["ends"], f_kw["rw2"])
+        + cell_rows * nbytes(f_kw["th"]),
+        f_kw["sstp"] * ops_f + live * OPS_DROP + ice_ops
         + n_f * (f_kw["sstp"] * OPS_CELL_SUBSTEP + OPS_CLOSURE))
 
 
@@ -4153,6 +4280,626 @@ def grid_phase(Kinematic2D, _ext, c, card, profile_on):
     out["1-D"] = grid1d_case(m2, _ext, c, card, err)
     print(f"phase 19 (c): {time.perf_counter() - t:.1f} s", flush=True)
     return rows, out, err.get("cond_flat", 0.0)
+
+
+# ------------------------------------------------------------------ phase 20
+def ice_fields(Kinematic2D):
+    """Phase 20's air at NX x NZ cells of the GMD geometry: rows from
+    ICE_T_BOTTOM at the bottom to ICE_T_TOP at the top, p hydrostatic from
+    ICE_P0, rv = r_vs(T, p) (saturated over water), th = T / exner(p) and
+    rhod = theta_std.rhod(p, th, rv), as tests/test_lgrngn_ice.py:101-115
+    builds them; the GMD stream function's G-weighted courants (phase 18's
+    flow) for kernel A's MPDATA with G = rhod, and divided by rhod at the
+    cell centres and z faces for the SDs (the model's rule, kinematic_2d.py
+    make_gc).  Returns the fields (nx, nz) and the 2-D model whose
+    opts_init the runs copy."""
+    from libcloudphxx_tpu_torch.common import const_cp, theta_std
+    from libcloudphxx_tpu_torch.common import constants as c
+    from libcloudphxx_tpu_torch.models.kinematic_2d import Setup, make_gc
+    s = Setup()
+    dx, dz = s.X / NX, s.Z / NZ
+    lapse = (ICE_T_BOTTOM - ICE_T_TOP) / s.Z
+
+    def air(z):
+        T = torch.tensor(ICE_T_BOTTOM - lapse * z, dtype=torch.float64)
+        p = ICE_P0 * (T / ICE_T_BOTTOM) ** (c.g / (c.R_d * lapse))
+        rv = const_cp.r_vs(T, p)
+        th = T / theta_std.exner(p)
+        return th, rv, theta_std.rhod(p, th, rv)
+
+    th, rv, rhod = air((np.arange(NZ) + 0.5) * dz)
+    rhod_z = air(np.arange(NZ + 1) * dz)[2]
+    gc_x, gc_z = make_gc(s, NX, NZ, dx, dz)
+    dev = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                    dtype=torch.float32, device=DEVICE)
+    col = lambda a: dev(np.broadcast_to(a.numpy(), (NX, NZ)))
+    m2 = Kinematic2D(nx=NX, nz=NZ, sd_conc=1, n_sd_max=NX * NZ,
+                     device=DEVICE)
+    return dict(th=col(th), rv=col(rv), rhod=col(rhod), G=col(rhod),
+                gc_x=dev(gc_x), gc_z=dev(gc_z),
+                Cx=dev(gc_x / rhod.numpy()[None, :]),
+                Cz=dev(gc_z / rhod_z.numpy()[None, :])), m2
+
+
+def ice_oi(m2, **over):
+    """A phase-20 opts_init: the GMD model's (bench.py's: vt formula,
+    geometric kernel, sstp_cond = sstp_coal = 10) with its aerosol keyed
+    (kappa, ICE_RD_INSOL), an insoluble core as in tests/test_lgrngn_ice.
+    py:27, and ice on."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    oi = tl.opts_init_t()
+    oi.__dict__.update(m2.opts_init.__dict__)
+    oi.dry_distros = {(m2.setup.kappa, ICE_RD_INSOL):
+                      m2.setup.lognormal_lnrd}
+    oi.sd_conc, oi.n_sd_max = SD_CONC, SD_CONC * NX * NZ
+    oi.sstp_cond, oi.sstp_coal = SSTP_COND, SSTP_COAL
+    oi.coal_switch = oi.sedi_switch = oi.ice_switch = True
+    for k, v in over.items():
+        setattr(oi, k, v)
+    return oi
+
+
+def ice_step(prt, opts, f, th, rv, diss=None):
+    """One step of phase 20's host loop: kernel A's MPDATA of th and rv,
+    then step_sync(opts, th, rv, rhod, Cx, Cz[, diss_rate]) and
+    step_async(opts)."""
+    from libcloudphxx_tpu_torch.models import mpdata
+    th = mpdata.advect(th, f["gc_x"], f["gc_z"], f["G"], 2, False)
+    rv = mpdata.advect(rv, f["gc_x"], f["gc_z"], f["G"], 2, False)
+    kw = {} if diss is None else {"diss_rate": diss}
+    th, rv = prt.step_sync(opts, th, rv, f["rhod"], courant_x=f["Cx"],
+                           courant_z=f["Cz"], **kw)
+    prt.step_async(opts)
+    return th.reshape(NX, NZ), rv.reshape(NX, NZ)
+
+
+def sd_ice(state):
+    """The SDs' ice [kg] (lgrngn/ice.ice_mass), float64, a device scalar."""
+    from libcloudphxx_tpu_torch.lgrngn import ice
+    return (state.n.double() * ice.ice_mass(
+        state.ice_a.double(), state.ice_c.double(),
+        state.ice_rho.double())).sum()
+
+
+def sd_water(state):
+    """The SDs' liquid and ice [kg], float64, a device scalar."""
+    from libcloudphxx_tpu_torch.common import constants as c
+    return 4.0 / 3 * c.pi * c.rho_w * (state.n.double()
+                                       * state.rw2.double() ** 1.5).sum() \
+        + sd_ice(state)
+
+
+def ice_run(prt, opts, f, th, rv, steps, diss=None, watch=False):
+    """``steps`` of ice_step; with ``watch`` also marking the SDs whose
+    rw2 a coalescence call changed (a collector of droplets) and summing
+    the water the calls changed: the coalescence ignores the ice, as the
+    JAX package's does (a frozen SD that loses multiplicity loses its ice;
+    one that collects drops holds liquid and ice).  The watch adds two
+    float64 sums over the slots and a compare a step, so the timed runs
+    go without it.  Returns (seconds, th, rv, the marks or None, the water
+    [kg] coalescence changed or None)."""
+    from libcloudphxx_tpu_torch.lgrngn import coalescence
+    real = coalescence.coal
+    collected = coal_dw = None
+    if watch:
+        collected = torch.zeros(prt.cfg.n_sd_max, dtype=torch.bool,
+                                device=DEVICE)
+        coal_dw = torch.zeros((), dtype=torch.float64, device=DEVICE)
+
+        def coal(cfg_, state, *args, **kw):
+            out = real(cfg_, state, *args, **kw)
+            collected.logical_or_(out.rw2 != state.rw2)
+            coal_dw.add_(sd_water(out) - sd_water(state))
+            return out
+
+        coalescence.coal = coal
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            th, rv = ice_step(prt, opts, f, th, rv, diss)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        coalescence.coal = real
+    return (secs, th, rv, collected,
+            None if coal_dw is None else float(coal_dw))
+
+
+def ice_water(prt, rv, c):
+    """Total water [kg] through the public API: vapour, liquid and the
+    puddle's liquid (flat_totals), the ice and the puddle's ice."""
+    from libcloudphxx_tpu_torch.lgrngn import ice
+    water, _ = flat_totals(prt, rv, c)
+    n, a, cc, rho = (prt.get_attr(k).astype(np.float64)
+                     for k in ("n", "ice_a", "ice_c", "ice_rho"))
+    return (water + float(np.sum(n * ice.ice_mass(a, cc, rho)))
+            + prt.diag_puddle()["ice_mass"])
+
+
+def ice_checks(label, prt, th, rv, water0, c, collected, coal_dw):
+    """Phase 20's checks after a run: finite fields, SDs frozen, frozen SDs
+    with ice_a * ice_c > 0 and, unless a coalescence made them collect
+    liquid (``collected``: the JAX package's coalescence moves no ice, so
+    such an SD holds both; ROADMAP.md, "Known behaviours"), rw2 0, the
+    total water (ice_water) conserved within ICE_WATER_GATE, beside the
+    ``coal_dw`` kg the coalescence changed.  After an unwatched run
+    (``collected`` None: ice_run) the rw2 check is left out, and the
+    coalescence's change, 4.5e-10 of the water in the watched run, is
+    inside the gate."""
+    st = prt.state
+    live = st.n > 0
+    frozen = live & (st.ice_a > 0)
+    check(bool(torch.isfinite(th).all() and torch.isfinite(rv).all()),
+          f"ice {label}: non-finite th/rv")
+    check(bool(torch.isfinite(st.rw2[live]).all()
+               and torch.isfinite(st.ice_a[live]).all()
+               and torch.isfinite(st.ice_c[live]).all()),
+          f"ice {label}: non-finite rw2 or axes")
+    n_frozen = int(frozen.sum())
+    check(n_frozen > 0, f"ice {label}: no SD froze")
+    check(bool((st.ice_a[frozen] * st.ice_c[frozen] > 0).all()),
+          f"ice {label}: a flat spheroid")
+    out = {"frozen": n_frozen, "live": int(live.sum()),
+           "ice_kg": float(sd_ice(st)), "water_kg": water0}
+    if collected is not None:
+        check(bool((st.rw2[frozen & ~collected] == 0).all()),
+              f"ice {label}: a frozen SD with liquid it did not collect")
+        out.update(frozen_collectors=int((frozen & collected).sum()),
+                   coal_water_rel=coal_dw / water0)
+    dw = abs(ice_water(prt, rv, c) - water0 - (coal_dw or 0.0)) / water0
+    check(dw < ICE_WATER_GATE,
+          f"ice {label}: water conservation off by {dw:.2e}")
+    out["water_rel_err"] = dw
+    return out
+
+
+def ice_melt(label, prt, f, th, rv, c):
+    """Every cell warmed by ICE_WARM K (th scaled so that the th_dry
+    closure's T rises by it) for one step of ice_nucl alone: all the ice
+    melts, each SD's liquid the mass of its ice, rho_i V_i = rho_w V_w to
+    1e-5."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.lgrngn import ice
+    st = prt._tpr()
+    frozen = (st.n > 0) & (st.ice_a > 0)
+    m_ice = ice.ice_mass(st.ice_a.double(), st.ice_c.double(),
+                         st.ice_rho.double())[frozen]
+    T = st.T.reshape(NX, NZ)
+    th_w = th * ((T + ICE_WARM) / T) ** (1.0 - c.R_d / c.c_pd)
+    opts = tl.opts_t()
+    opts.cond = opts.coal = opts.sedi = opts.adve = False
+    opts.ice_nucl = True
+    prt.step_sync(opts, th_w, rv, f["rhod"])
+    prt.step_async(opts)
+    st = prt.state
+    m_liq = (4.0 / 3 * c.pi * c.rho_w * st.rw2.double() ** 1.5)[frozen]
+    rel = float(((m_liq - m_ice).abs() / m_ice).max())
+    left = int((st.ice_a > 0).sum())
+    print(f"ice {label}, warmed by {ICE_WARM} K: {int(frozen.sum())} frozen "
+          f"SDs melted, {left} left; rho_w V_w against rho_i V_i rel "
+          f"{rel:.2e}", flush=True)
+    check(left == 0 and rel <= 1e-5, f"ice {label}: melting left ice or "
+          f"changed the mass (rel {rel:.2e})")
+    return rel
+
+
+def ice_grid_case(label, m2, _ext, c, card, f, err, profile_on, timed,
+                  **over):
+    """Phase 20 (a), (b), (d): the public API at full width with the ice
+    (``over``: opts_init's time_dep_ice_nucl, turb_cond_switch), kernel A
+    twice and F's ice form once a step (its turb_cond form under
+    turb_cond); its checks, the form against its plain version on what a
+    step gives it, the melt; with ``timed`` the best of TIME_REPS reps of
+    ICE_STEPS steps from init.  Returns (numbers, the form's captured
+    arguments, its launches)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.lgrngn.particles import particles_t
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    turb = bool(over.get("turb_cond_switch"))
+    prt = tl.factory(tl.backend_t.CUDA, ice_oi(m2, **over), device=DEVICE)
+    check(type(prt) is particles_t, f"ice {label}: the factory gave "
+          f"{type(prt).__name__}, not particles_t")
+    fname, kernel = form_of(prt.cfg, turb)
+    t0 = time.perf_counter()
+    prt.init(f["th"], f["rv"], f["rhod"], Cx=f["Cx"], Cz=f["Cz"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init = prt.state
+    opts = tl.opts_t()
+    opts.adve = opts.cond = opts.coal = opts.sedi = opts.ice_nucl = True
+    opts.turb_cond = turb
+    diss = torch.full((NX, NZ), LES_DISS, device=DEVICE) if turb else None
+    steps = ICE_TURB_STEPS if turb else ICE_STEPS
+    water0 = ice_water(prt, f["rv"], c)
+    reset(_ext.KERNELS)
+    secs, th, rv, coll, cdw = ice_run(prt, opts, f, f["th"], f["rv"],
+                                      steps, diss, watch=True)
+    launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+    chk = ice_checks(label, prt, th, rv, water0, c, coll, cdw)
+    n_sd = int((init.n > 0).sum())
+    print(f"ice {label}: {n_sd} SDs, init {init_s:.1f} s; {steps} steps "
+          f"from init in {secs:.2f} s ({secs / steps * 1e3:.3f} ms/step); "
+          f"{chk}; launches {launches} ({card})", flush=True)
+    check(launches == {"mpdata": 2 * steps, kernel.name: steps},
+          f"ice {label}: kernel A twice and {kernel.name} once a step "
+          f"expected, got {launches}")
+    out = dict(chk, launches=steps, init_s=init_s, sds=n_sd,
+               counted_ms_per_step=secs / steps * 1e3)
+    # the form against its plain version on what a step gives it
+    f_kw = capture(cond_ops, fname,
+                   lambda: ice_step(prt, opts, f, th, rv, diss))
+    check_form(f"(ice {label})", f_kw, err)
+    st = prt.state
+    out["melt_rel_err"] = ice_melt(label, prt, f, st.th.reshape(NX, NZ),
+                                   st.rv.reshape(NX, NZ), c)
+    if timed:
+        best, dws = float("inf"), []
+        for _ in range(TIME_REPS):
+            prt.state = init
+            w0 = ice_water(prt, f["rv"], c)
+            secs, th, rv, _, _ = ice_run(prt, opts, f, f["th"], f["rv"],
+                                         steps, diss)
+            dws.append(ice_checks(label, prt, th, rv, w0, c, None,
+                                  None)["water_rel_err"])
+            best = min(best, secs)
+        out.update(ms_per_step=best / steps * 1e3,
+                   sd_updates_per_s=n_sd * steps / best, rep_water_rel=dws)
+        print(f"timing, ice {label}: {out['ms_per_step']:.3f} ms/step, "
+              f"{out['sd_updates_per_s']:.4e} SD-updates/s (best of "
+              f"{TIME_REPS} reps of {steps} steps from init; water rel err "
+              f"by rep {', '.join(f'{d:.2e}' for d in dws)}) ({card})",
+              flush=True)
+        if profile_on:
+            profile(f"ice {label}", lambda: setattr(prt, "state", init),
+                    lambda k: ice_run(prt, opts, f, f["th"], f["rv"], k,
+                                      diss), card, steps=10)
+    prt.state = None
+    del prt, init
+    torch.cuda.empty_cache()
+    return out, f_kw, steps
+
+
+def ice_parcel_fields(T0, p0, rv_scale=1.0):
+    """A parcel at T0 and p0: rv = rv_scale r_vs, th = T0 / exner(p0),
+    rhod = theta_std.rhod(p0, th, rv) (tests/test_lgrngn_ice.py:101-115),
+    as (1,) tensors."""
+    from libcloudphxx_tpu_torch.common import const_cp, theta_std
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+    rv = rv_scale * float(const_cp.r_vs(f64(T0), f64(p0)))
+    th = T0 / float(theta_std.exner(f64(p0)))
+    rhod = float(theta_std.rhod(f64(p0), f64(th), f64(rv)))
+    full = lambda v: torch.full((1,), v, device=DEVICE)
+    return full(th), full(rv), full(rhod)
+
+
+def ice_parcel_oi(**over):
+    """tests/test_lgrngn_ice.py's opts_init: 0.61 with an insoluble core
+    of 1e-7 m, no coalescence or sedimentation, with ice."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    oi = tl.opts_init_t()
+    oi.dry_distros = {(0.61, ICE_RD_INSOL): lambda lnr: 60e6 * np.exp(
+        -(np.asarray(lnr) - np.log(0.02e-6)) ** 2 / 2 / np.log(1.4) ** 2)
+        / np.log(1.4) / np.sqrt(2 * np.pi)}
+    oi.coal_switch = oi.sedi_switch = False
+    oi.RH_max, oi.dt, oi.sd_conc, oi.n_sd_max = 0.999, 1.0, 64, 64
+    oi.ice_switch = True
+    for k, v in over.items():
+        setattr(oi, k, v)
+    return oi
+
+
+def ice_parcel_case(_ext, c, card, err):
+    """Phase 20 (c): tests/test_lgrngn_ice.py's reference setup (243 K,
+    800 hPa, 100 SDs, dt 0.1, RH_max 0.95, ICE_PARCEL_STEPS steps),
+    singular and time-dependent, with its gates (no NaN, rv >= 0, the ice
+    mixing ratio >= 0), F's parcel ice form once a step; the same with
+    turb_cond over ICE_PARCEL_TURB_STEPS (the parcel ice form's turb_cond
+    form).  Nothing freezes there: at 243 K no SD's T_freeze is reached,
+    so these runs hold the forms on liquid alone.  The frozen SDs' runs
+    are ice_aspect_case's, and the forms' rows come from them.  Returns
+    ({form: (its captured arguments, launches, label)}, numbers)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    forms, out = {}, {}
+    for label, over, steps in (
+            ("singular", {}, ICE_PARCEL_STEPS),
+            ("time-dependent", dict(time_dep_ice_nucl=True),
+             ICE_PARCEL_STEPS),
+            ("singular, turb_cond", dict(turb_cond_switch=True),
+             ICE_PARCEL_TURB_STEPS)):
+        turb = "turb_cond" in label
+        prt = tl.factory(tl.backend_t.CUDA, ice_parcel_oi(
+            dt=0.1, sd_conc=100, n_sd_max=100, RH_max=0.95, **over),
+            device=DEVICE)
+        fname, kernel = form_of(prt.cfg, turb)
+        th, rv, rhod = ice_parcel_fields(243.0, 80000.0)
+        prt.init(th, rv, rhod)
+        opts = tl.opts_t()
+        opts.cond = opts.ice_nucl = True
+        opts.turb_cond = turb
+        kw = {"diss_rate": torch.full((1,), LES_DISS, device=DEVICE)} \
+            if turb else {}
+        reset(_ext.KERNELS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            th, rv = prt.step_sync(opts, th, rv, rhod, **kw)
+            prt.step_async(opts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+        prt.diag_all()
+        prt.diag_ice_mix_ratio()
+        ri = float(prt.outbuf()[0])
+        n_frozen = int((prt.get_attr("ice_a") > 0).sum())
+        name = f"parcel ({label})"
+        print(f"ice {name}: {steps} steps in {secs:.2f} s "
+              f"({secs / steps * 1e3:.3f} ms/step); ice mixing ratio "
+              f"{ri:.4e}, {n_frozen} frozen, rv {float(rv[0]):.6e}, th "
+              f"{float(th[0]):.4f}; launches {launches} ({card})",
+              flush=True)
+        check(np.isfinite(ri) and ri >= 0 and bool(torch.isfinite(rv).all())
+              and float(rv[0]) >= 0, f"ice {name}: the reference's gates")
+        check(launches == {kernel.name: steps},
+              f"ice {name}: {kernel.name} once a step expected, got "
+              f"{launches}")
+        kw_f = capture(cond_ops, fname, lambda: (
+            prt.step_sync(opts, th, rv, rhod, **kw), prt.step_async(opts)))
+        check_form(f"(ice {name})", kw_f, err)
+        out[name] = dict(ms_per_step=secs / steps * 1e3, ice_mix_ratio=ri,
+                         frozen=n_frozen, launches=steps)
+    for turb in (False, True):
+        name, res, kw_f = ice_aspect_case(_ext, card, err, turb)
+        out[f"aspect{', turb_cond' if turb else ''}"] = res
+        forms[kw_form(kw_f)[1].name] = (
+            kw_f, ICE_ASPECT_STEPS, f"the {ICE_ASPECT_STEPS} steps of {name}")
+    return forms, out
+
+
+def ice_aspect_case(_ext, card, err, turb):
+    """tests/test_lgrngn_ice.py:165-216's aspect-ratio run: prolate
+    spheroids (a 2 um, c 6 um) frozen by hand in a parcel at 250 K and
+    RH 1.05, ICE_ASPECT_STEPS steps: both axes grow, c/a relaxes toward
+    1, rv falls, th rises.  With ``turb`` its turb_cond copy (diss_rate
+    LES_DISS), where every other SD stays liquid, so that the droplets'
+    growth at RH plus ssp and the deposition share the cell.  F's parcel
+    ice form (its turb_cond form) counted once a step, and held against
+    its plain version on a step where the ice grows.  Returns (the run's
+    name, its numbers, the form's captured arguments)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    name = f"parcel (aspect ratio{', turb_cond' if turb else ''})"
+    prt = tl.factory(tl.backend_t.CUDA, ice_parcel_oi(
+        sstp_cond=2, turb_cond_switch=turb), device=DEVICE)
+    fname, kernel = form_of(prt.cfg, turb)
+    th0, rv0, rhod = ice_parcel_fields(250.0, 80000.0, rv_scale=1.05)
+    prt.init(th0, rv0, rhod)
+    st = prt.state
+    hand = st.n > 0
+    if turb:
+        hand &= torch.arange(hand.numel(), device=DEVICE) % 2 == 0
+    prt.state = dataclasses.replace(
+        st, ice_a=torch.where(hand, 2e-6, st.ice_a),
+        ice_c=torch.where(hand, 6e-6, st.ice_c),
+        ice_rho=torch.where(hand, 916.8, st.ice_rho),
+        rw2=torch.where(hand, 0.0, st.rw2))
+    opts = tl.opts_t()
+    opts.cond = opts.ice_nucl = True
+    opts.turb_cond = turb
+    kw = {"diss_rate": torch.full((1,), LES_DISS, device=DEVICE)} \
+        if turb else {}
+    th, rv = th0, rv0
+    reset(_ext.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ICE_ASPECT_STEPS):
+        th, rv = prt.step_sync(opts, th, rv, **kw)
+        prt.step_async(opts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+    st = prt.state
+    a1, c1 = st.ice_a[hand], st.ice_c[hand]
+    ratio = c1 / a1
+    liquid = (st.n > 0) & ~hand
+    rw = f"; liquid SDs' rw {float(st.rw2[liquid].sqrt().min()):.3e}-" \
+        f"{float(st.rw2[liquid].sqrt().max()):.3e}" if turb else ""
+    print(f"ice {name}: {ICE_ASPECT_STEPS} steps in {secs:.2f} s "
+          f"({secs / ICE_ASPECT_STEPS * 1e3:.3f} ms/step), "
+          f"{int(hand.sum())} frozen by hand; a {float(a1.min()):.3e}-"
+          f"{float(a1.max()):.3e}, c/a {float(ratio.min()):.4f}-"
+          f"{float(ratio.max()):.4f} (from 3){rw}; rv {float(rv0[0]):.6e} "
+          f"-> {float(rv[0]):.6e}, th {float(th0[0]):.4f} -> "
+          f"{float(th[0]):.4f}; launches {launches} ({card})", flush=True)
+    check(bool((a1 > 2e-6).all() and (c1 > 6e-6).all()
+               and (ratio < 3.0).all() and (ratio > 1.0).all())
+          and float(rv[0]) < float(rv0[0]) and float(th[0]) > float(th0[0]),
+          f"ice {name}: the axes' growth, c/a, rv or th")
+    check(launches == {kernel.name: ICE_ASPECT_STEPS},
+          f"ice {name}: {kernel.name} once a step expected, got {launches}")
+    # the form where the ice grows, against its plain version
+    kw_f = capture(cond_ops, fname, lambda: (
+        prt.step_sync(opts, th, rv, **kw), prt.step_async(opts)))
+    check(int(((kw_f["ice"][0] > 0) & (kw_f["wgt"] > 0)).sum())
+          == int(hand.sum()), f"ice {name}: the captured step's frozen SDs")
+    check_form(f"(ice {name})", kw_f, err)
+    return name, dict(ms_per_step=secs / ICE_ASPECT_STEPS * 1e3,
+                      frozen=int(hand.sum()), c_over_a_max=float(ratio.max()),
+                      a_max=float(a1.max()), launches=ICE_ASPECT_STEPS), kw_f
+
+
+def ice_phase(Kinematic2D, _ext, c, card, profile_on):
+    """Phase 20 (the module docstring): ice through the public API on the
+    flat engine.  Returns (F's four ice forms' kernel rows, {case:
+    numbers})."""
+    f, m2 = ice_fields(Kinematic2D)
+    err, out, rows = {}, {}, []
+    forms = {}
+    for label, over, timed in (("(a)", {}, True),
+                               ("(b) time-dependent",
+                                dict(time_dep_ice_nucl=True), False),
+                               ("(d) turb_cond",
+                                dict(turb_cond_switch=True), False)):
+        t_case = time.perf_counter()
+        res, f_kw, launches = ice_grid_case(label, m2, _ext, c, card, f, err,
+                                            profile_on, timed, **over)
+        out[label] = res
+        name = kw_form(f_kw)[1].name
+        if name not in forms:
+            forms[name] = (f_kw, launches, f"the {launches} steps of "
+                           f"{label}")
+        print(f"phase 20 {label}: {time.perf_counter() - t_case:.1f} s",
+              flush=True)
+    t_case = time.perf_counter()
+    parcel_forms, out["parcel"] = ice_parcel_case(_ext, c, card, err)
+    forms.update(parcel_forms)
+    print(f"phase 20 (c): {time.perf_counter() - t_case:.1f} s", flush=True)
+    for name in ("cond_flat_ice", "cond_flat_ice_turb",
+                 "cond_flat_parcel_ice", "cond_flat_parcel_ice_turb"):
+        check(name in forms, f"phase 20: {name} was not on a path")
+        f_kw, launches, where = forms[name]
+        rows.append(form_row(f_kw, launches, where, err))
+    return rows, out
+
+
+# ------------------------------------------------------------------ phase 21
+def sulfur(m):
+    """The model's sulfur [mol]: SO2 gas (its mixing ratio times each
+    cell's dry air), dissolved S(IV) and S(VI) (n times each SD's mass),
+    and the puddle's, in float64."""
+    from libcloudphxx_tpu_torch.common import chem as cc
+    from libcloudphxx_tpu_torch.lgrngn.chemistry import S_VI, SO2
+    st = m.prtcls.state
+    air = (st.rhod.double() * st.dv.double())
+    gas = float((air * m.chem_gases[cc.chem_species_t.SO2].reshape(-1)
+                 .double()).sum()) / cc.M_SO2
+    n = st.n.double()
+    aq = float((n * st.chem[SO2].double()).sum()) / cc.M_SO2_H2O \
+        + float((n * st.chem[S_VI].double()).sum()) / cc.M_H2SO4
+    pud = float(st.puddle[SO2]) / cc.M_SO2_H2O \
+        + float(st.puddle[S_VI]) / cc.M_H2SO4
+    return gas + aq + pud
+
+
+def chem_model(Kinematic2D):
+    return Kinematic2D(nx=NX, nz=NZ, micro="lgrngn_chem", sd_conc=SD_CONC,
+                       sstp_cond=SSTP_COND, sstp_coal=SSTP_COAL,
+                       n_sd_max=SD_CONC * NX * NZ, fct=True, device=DEVICE)
+
+
+def chem_state(m):
+    return (m.prtcls.state, m.th, m.rv, dict(m.chem_gases))
+
+
+def chem_set(m, state):
+    m.prtcls.state, m.th, m.rv, gases = state
+    m.chem_gases = dict(gases)
+
+
+def chem_checks(m, s0):
+    """Phase 21's checks: th, rv and the gases finite, the gases and the
+    live SDs' dissolved masses finite and >= 0, the sulfur conserved
+    within CHEM_SULFUR_GATE."""
+    st = m.prtcls.state
+    live = st.n > 0
+    gases = torch.stack(list(m.chem_gases.values()))
+    check(bool(torch.isfinite(m.th).all() and torch.isfinite(m.rv).all()
+               and torch.isfinite(gases).all() and (gases >= 0).all()),
+          "chem: non-finite th/rv, or a gas non-finite or negative")
+    chem = st.chem[:, live]
+    check(bool(torch.isfinite(chem).all() and (chem >= 0).all()),
+          "chem: a dissolved mass non-finite or negative")
+    ds = abs(sulfur(m) - s0) / s0
+    check(ds < CHEM_SULFUR_GATE, f"chem: sulfur not conserved ({ds:.2e})")
+    return ds
+
+
+def chem_phase(Kinematic2D, _ext, card, profile_on):
+    """Phase 21 (the module docstring): Kinematic2D(micro="lgrngn_chem")
+    at full width through run().  Returns its numbers."""
+    from libcloudphxx_tpu_torch.common import chem as cc
+    from libcloudphxx_tpu_torch.lgrngn.particles import particles_t
+    m = chem_model(Kinematic2D)
+    check(type(m.prtcls) is particles_t,
+          f"chem: the factory gave {type(m.prtcls).__name__}")
+    init = chem_state(m)
+    s0 = sulfur(m)
+    steps = CHEM_SPINUP + CHEM_STEPS
+    reset(_ext.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run(CHEM_SPINUP, spinup=CHEM_SPINUP)
+    warm = chem_state(m)
+    m.run(CHEM_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+    ds = chem_checks(m, s0)
+    st = m.prtcls.state
+    so2 = m.chem_gases[cc.chem_species_t.SO2]
+    s6 = float((st.n.double() * st.chem[6].double()).sum())
+    s6_0 = float((init[0].n.double() * init[0].chem[6].double()).sum())
+    print(f"chem: {steps} steps ({CHEM_SPINUP} spin-up) from init in "
+          f"{secs:.2f} s; sulfur rel change {ds:.2e} (gate "
+          f"{CHEM_SULFUR_GATE:.0e}); SO2 gas {float(init[3][cc.chem_species_t.SO2].min()):.4e}-"
+          f"{float(init[3][cc.chem_species_t.SO2].max()):.4e} -> "
+          f"{float(so2.min()):.4e}-{float(so2.max()):.4e}; S(VI) "
+          f"{s6_0:.4e} -> {s6:.4e} kg; launches {launches} ({card})",
+          flush=True)
+    check(launches == {"mpdata": 8 * steps, "cond_flat": steps},
+          f"chem: kernel A 8 times and F once a step expected, got "
+          f"{launches}")
+    check(s6 > s6_0, "chem: no S(VI) made")
+    out = dict(sulfur_rel_err=ds, launches=steps,
+               counted_ms_per_step=secs / steps * 1e3)
+    # the kernel path against the plain path, and a second run of the
+    # kernel path: the witness of the gases' own spread on the card (the
+    # chemistry's index_add_ cell sums add in no fixed order there)
+    paths = []
+    for plain in (False, False, True):
+        chem_set(m, init)
+        m.run(CHEM_CHECK_STEPS, spinup=1, plain=plain)
+        paths.append((m.th, m.rv, dict(m.chem_gases)))
+    k1, k2, pl = paths
+    gas_rel = lambda a, b: max(max_rel(a[2][k], b[2][k]) for k in b[2])
+    rel = (max_rel(k1[0], pl[0]), max_rel(k1[1], pl[1]), gas_rel(k1, pl))
+    witness = gas_rel(k1, k2)
+    print(f"chem: kernel path against plain path after {CHEM_CHECK_STEPS} "
+          f"steps: th rel {rel[0]:.2e}, rv rel {rel[1]:.2e}, gases rel "
+          f"{rel[2]:.2e} (gate {CHEM_GAS_GATE:.0e}); two kernel-path runs' "
+          f"gases rel {witness:.2e}, th and rv bitwise "
+          f"{torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1])}",
+          flush=True)
+    check(rel[0] <= 2e-6 and rel[1] <= 2e-5 and rel[2] <= CHEM_GAS_GATE
+          and witness <= CHEM_GAS_GATE,
+          "chem: the kernel path and the plain path differ")
+    out.update(path_th_rel=rel[0], path_rv_rel=rel[1], path_gas_rel=rel[2],
+               gas_witness_rel=witness)
+    # best of TIME_REPS reps of CHEM_STEPS chemistry steps from the spin-up
+    best = float("inf")
+    for _ in range(TIME_REPS):
+        chem_set(m, warm)
+        s_w = sulfur(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run(CHEM_STEPS)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        chem_checks(m, s_w)
+    n_sd = int((init[0].n > 0).sum())
+    out.update(ms_per_step=best / CHEM_STEPS * 1e3,
+               sd_updates_per_s=n_sd * CHEM_STEPS / best)
+    print(f"timing, chem: {out['ms_per_step']:.3f} ms/step, "
+          f"{out['sd_updates_per_s']:.4e} SD-updates/s (best of {TIME_REPS} "
+          f"reps of {CHEM_STEPS} steps after the spin-up) ({card})",
+          flush=True)
+    if profile_on:
+        profile("chem", lambda: chem_set(m, warm), m.run, card, steps=10)
+    chem_set(m, (None, None, None, {}))
+    del m, init, warm
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile(label, start, run, card, steps=20):

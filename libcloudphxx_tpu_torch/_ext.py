@@ -249,13 +249,41 @@ COND_SD_ADAPTIVE_PARCEL_TURB = Kernel(
     _PARCEL + "the loops of lgrngn/condensation.py:655-795 "
     "perparticle_adaptive_core (drv per kg of air, :787-790; ssp on the "
     "tries and substeps, :711-734, :757-758, :776)")
+# the ice forms of kernel F (ice_switch: the deposition after each
+# substep's liquid growth): each warm form's arguments, then the sorted
+# ice_a, ice_c and ice_rho in and ice_a and ice_c out (the scratch 3 rows
+# more, the cells out 5 rows: th, rv, rhod and the th and rv of the last
+# substep's closure)
+_ICE = ("libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; advance_rw2_pallas "
+        ":46, call :78) at its ice caller, the unsorted substep loop of "
+        "lgrngn/condensation.py:248-305 with lgrngn/ice.py:106 "
+        "ice_dep_substep after each call")
+COND_FLAT_ICE = Kernel(
+    "cond_flat_ice", "lcp_cond_flat_ice", COND_FLAT.argtypes[:-1] + [_P] * 5,
+    "libcloudphxx_tpu_torch/csrc/cond_flat.cu", _ICE)
+COND_FLAT_ICE_TURB = Kernel(
+    "cond_flat_ice_turb", "lcp_cond_flat_ice_turb",
+    COND_FLAT_TURB.argtypes[:-1] + [_P] * 5,
+    "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
+    _ICE + ", at each SD's RH plus its ssp (:254-263)")
+COND_FLAT_PARCEL_ICE = Kernel(
+    "cond_flat_parcel_ice", "lcp_cond_flat_parcel_ice",
+    COND_FLAT_ICE.argtypes[:-1], "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
+    _ICE + ", in a parcel (dv = 1/rhod, lgrngn/hskpng.py:50)")
+COND_FLAT_PARCEL_ICE_TURB = Kernel(
+    "cond_flat_parcel_ice_turb", "lcp_cond_flat_parcel_ice_turb",
+    COND_FLAT_ICE_TURB.argtypes[:-1],
+    "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
+    _ICE + ", in a parcel (dv = 1/rhod, lgrngn/hskpng.py:50), at each SD's "
+    "RH plus its ssp (:254-263)")
 KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
            COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED, MERGE_EXACT,
            COND_SD_FIXED, COND_SD_ADAPTIVE, COAL_VOHL, TRANSPORT_PRED_CORR,
            COND_FLAT_TURB, COND_SD_FIXED_TURB, COND_SD_ADAPTIVE_TURB,
            COND_FLAT_PARCEL, COND_FLAT_PARCEL_TURB, COND_SD_FIXED_PARCEL,
            COND_SD_FIXED_PARCEL_TURB, COND_SD_ADAPTIVE_PARCEL,
-           COND_SD_ADAPTIVE_PARCEL_TURB)
+           COND_SD_ADAPTIVE_PARCEL_TURB, COND_FLAT_ICE, COND_FLAT_ICE_TURB,
+           COND_FLAT_PARCEL_ICE, COND_FLAT_PARCEL_ICE_TURB)
 
 _lib = None
 
@@ -357,7 +385,8 @@ def cond_scratch(n_slots, device, rows=6):
     """The per-slot scratch of the condensation kernels (B, F): each
     cell's live droplets, compacted, as int32 positions and ``rows``
     float32 rows: six (rw2, rd3, rd3 * (1 - kappa), rd^2, vt, the weight's
-    numerator), and F's turb_cond form's eight (ssp and dot_ssp too)."""
+    numerator), F's turb_cond form's eight (ssp and dot_ssp too), and its
+    ice forms' three more (ice_a, ice_c, ice_rho)."""
     return (torch.empty(n_slots, dtype=torch.int32, device=device),
             torch.empty((rows, n_slots), dtype=torch.float32, device=device))
 

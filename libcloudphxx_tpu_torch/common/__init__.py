@@ -1,13 +1,15 @@
 """Common physics shared by the port's schemes: the functions of
-libcloudphxx_tpu/common/ that the kinematic lgrngn path calls, written on
+libcloudphxx_tpu/common/ that the port's schemes call, written on
 torch tensors.  Every function is elementwise and keeps the dtype of its
 tensor arguments (float64 for the parity tests, float32 on the card)."""
 
 from . import (
+    chem,
     const_cp,
     constants,
     fastmath,
     hydrostatic,
+    ice_nucleation,
     kappa_koehler,
     kelvin,
     lognormal,
@@ -23,10 +25,12 @@ from . import (
 )
 
 __all__ = [
+    "chem",
     "const_cp",
     "constants",
     "fastmath",
     "hydrostatic",
+    "ice_nucleation",
     "kappa_koehler",
     "kelvin",
     "lognormal",

@@ -79,22 +79,14 @@ def dense_state_to_numpy(d: DenseState) -> dict:
     return out
 
 
-# JAX State fields the port's warm State does not hold: each must be
-# empty or all zero (the JAX RNG key aside)
-_FLAT_ABSENT = ("ice_a", "ice_c", "ice_rho", "T_freeze", "rd2_insol", "chem",
-                "ambient_chem", "sstp_tmp_chem")
-
-
 def state_from_numpy(arrays: dict, device, dtype, rng_seed=44) -> State:
     """A port flat State from the JAX State's arrays as numpy, the
     substepping snapshot (sstp_tmp_*) per cell, or per SD with sstp_tmp_p
-    in exact_sstp_cond mode, as the arrays hold it.  The coalescence draws are keyed by ``arrays["rng_seed"]`` where the arrays
+    in exact_sstp_cond mode, as the arrays hold it, with the ice attributes
+    and the chemistry's rows (zero-width when chem_switch is off).  The
+    coalescence draws are keyed by ``arrays["rng_seed"]`` where the arrays
     came from the port, else by ``rng_seed`` (opts_init.rng_seed), and
     continue from ``arrays["rng_step"]`` (else step 0)."""
-    for k in _FLAT_ABSENT:
-        if k in arrays and np.any(np.asarray(arrays[k])):
-            raise NotImplementedError(
-                f"state_from_numpy: {k} is not held by the port")
     t = lambda a, dt=dtype: torch.tensor(np.asarray(a), dtype=dt,
                                          device=device)
     return State(

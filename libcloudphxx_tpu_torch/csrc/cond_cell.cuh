@@ -268,6 +268,8 @@ __device__ __forceinline__ double warp_sum(double v) {
 struct CellOut {
   float th, rv, rhod;
   Closure c;
+  // the th and rv that the last substep's closure took (IceDep's only)
+  float th_c, rv_c;
 };
 
 // The SGS supersaturation perturbation of kernel F's turb_cond form: each
@@ -302,6 +304,118 @@ struct ParcelAir {
   static constexpr bool parcel = true;
 };
 
+// The ice of kernel F's ice forms (the template parameter ``I`` of
+// cond_cell; NoIce is every other form's, whose code compiles away): after
+// each substep's liquid growth and latent heat, the frozen live SDs'
+// semi-axes grow by deposition, and the cell's rv and th take the ice mass
+// and the heat of deposition (lgrngn/ice.py dep_axes, ops/cond.py
+// cond_flat_plain; libcloudphxx_tpu/lgrngn/condensation.py:284-288,
+// lgrngn/ice.py:106-148).  ice_a, ice_c and ice_rho ride the compaction in
+// three more scratch rows, and a dead slot keeps its axes.
+struct NoIce {
+  static constexpr bool on = false;
+};
+struct IceDep {
+  static constexpr bool on = true;
+  const float* __restrict__ a;    // per slot in: ice_a, ice_c, ice_rho
+  const float* __restrict__ c;
+  const float* __restrict__ rho;
+  float* __restrict__ a_out;      // per slot out: ice_a, ice_c
+  float* __restrict__ c_out;
+  float* cs_a;                    // three more rows of the per-slot scratch
+  float* cs_c;
+  float* cs_rho;
+};
+
+// What the deposition takes from the cell in a substep: the closure's T, p
+// and eta (from before the liquid's latent heat), rhod, the rv after it,
+// and the fresh mean free paths from that T and p (lgrngn/ice.py dep_axes)
+struct IceGrowth {
+  float rhod, eta, T, p, lam_D, lam_K, Sc, Pr, RH_i, l_s, rho_v, ls_term;
+};
+
+__device__ __forceinline__ IceGrowth ice_growth(const Closure& c, float rhod,
+                                                float rv, float RH_max) {
+  IceGrowth g;
+  g.rhod = rhod;
+  g.eta = c.eta;
+  g.T = c.T;
+  g.p = c.p;
+  g.lam_D = mfp_D(c.T);
+  g.lam_K = mfp_K(c.T, c.p);
+  g.Sc = div_s(c.eta / rhod, D_0);
+  g.Pr = div_s(F(c_pd) * c.eta, K_0);
+  // p_v / p_vsi, common/moist_air.py p_v over common/const_cp.py p_vsi
+  constexpr double a = (ls_tri + (c_pi - c_pv) * T_tri) / R_v;
+  constexpr double b = (c_pi - c_pv) / R_v;
+  const float pvsi = F(p_tri) * expf(F(a) * (F(1.0 / T_tri) - rdiv_s(1.0, c.T))
+                                     - F(b) * logf(div_s(c.T, T_tri)));
+  g.RH_i = fminf(c.p * rv / (rv + F(eps)) / pvsi, RH_max);
+  g.l_s = F(c_pv - c_pi) * (c.T - F(T_tri)) + F(ls_tri);
+  g.rho_v = rhod * rv;
+  g.ls_term = div_s(g.l_s, R_v) / c.T - 1.0f;
+  return g;
+}
+
+// lgrngn/ice.py dep_rate: d(x)/dt of a semi-axis x, 2 rdrdt_i at the
+// sphere of radius x over 2 x
+__device__ __forceinline__ float dep_rate(float x, float vt,
+                                          const IceGrowth& g) {
+  const float r = sqrtf(fmaxf(x * x, 0.0f));
+  const float Re = vt * (2.0f * r) * g.rhod / g.eta;
+  const float D = F(D_0) * fs_beta(g.lam_D / r) * (nusselt(g.Sc, Re) * 0.5f);
+  const float K = F(K_0) * fs_beta(g.lam_K / r) * (nusselt(g.Pr, Re) * 0.5f);
+  const float num = div_s(1.0f - rdiv_s(1.0, g.RH_i), rho_i);
+  const float den = rdiv_s(1.0, D) / g.rho_v
+                    + g.l_s / K / g.RH_i / g.T * g.ls_term;
+  return 2.0f * (num / den) / (2.0f * x);
+}
+
+// One forward-Euler substep of an SD's axes (a, c) where ``is_ice``; the
+// placeholders of the others keep every lane's arithmetic finite.  Returns
+// the SD's part of the cell sum of the ice mass gained, its weight wt (=
+// n 4/3 pi rho_w / (dv rhod)) times ice_rho / rho_w d(a^2 c), the
+// difference taken as da (2a + da) c' + a^2 dc (lgrngn/ice.py dep_volume).
+__device__ __forceinline__ double deposit(float& a, float& c, float rho,
+                                          float vt, float wt, bool is_ice,
+                                          const IceGrowth& g, float dt) {
+  const float a0 = is_ice ? a : F(1e-6);
+  const float c0 = is_ice ? c : F(1e-6);
+  const float a1 = fmaxf(a0 + dt * dep_rate(a0, vt, g), F(1e-9));
+  const float c1 = fmaxf(c0 + dt * dep_rate(c0, vt, g), F(1e-9));
+  const float da = a1 - a0, dc = c1 - c0;
+  const float dvol = da * (2.0f * a0 + da) * c1 + a0 * a0 * dc;
+  if (!is_ice) return 0.0;
+  a = a1;
+  c = c1;
+  return static_cast<double>(wt * (div_s(rho, rho_w) * dvol));
+}
+
+// d(theta)/d(rv) of deposition, common/theta_dry.py d_th_d_rv_dep
+__device__ __forceinline__ float d_th_d_rv_dep(float T, float th) {
+  const float l_s = F(c_pv - c_pi) * (T - F(T_tri)) + F(ls_tri);
+  return div_s(-th / T * l_s, c_pd);
+}
+
+// The liquid growth of a live droplet; under IceDep a frozen SD (rw2 ==
+// 0) takes none, and evaluates at kMaskedRw2 meanwhile, so that no lane
+// feeds a zero to an IEEE division or square root
+template <class I>
+__device__ __forceinline__ double advance_live(CondDrop& d, bool on,
+                                              const CellGrowth& g,
+                                              const CondOpts& o, float wden) {
+  if constexpr (I::on) {
+    const float w = d.rw2;
+    const bool frozen = !(w > 0.0f);
+    if (frozen) d.rw2 = kMaskedRw2;
+    const double part = advance(d, on && !frozen, g, o, wden);
+    if (frozen) d.rw2 = w;
+    return part;
+  } else {
+    return advance(d, on, g, o, wden);
+  }
+}
+
 // The substep loop of the cell whose droplets sit at positions [begin,
 // end) of the SD arrays.  ``Src`` reads a droplet: wnum(pos), the
 // numerator of its weight (n * 4/3 pi rho_w; it is live where wnum > 0),
@@ -309,16 +423,17 @@ struct ParcelAir {
 // cell sum is wnum / (dv * rhod).  ``cs`` is the per-slot scratch; ``sg``
 // the SGS supersaturation (Sgs, kernel F's turb_cond form: ssp rides the
 // scratch beside rw2, and a dead slot keeps its ssp as its rw2); ``A``
-// the air (CellAir; ParcelAir, F's parcel forms).  Every lane returns the
-// cell's end state.
-template <class Src, class S = NoSgs, class A = CellAir>
+// the air (CellAir; ParcelAir, F's parcel forms); ``ice`` the ice
+// (IceDep, F's ice forms).  Every lane returns the cell's end state.
+template <class Src, class S = NoSgs, class A = CellAir, class I = NoIce>
 __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
                                              long long end, const CellIn& in,
                                              const CondOpts& o,
                                              const float* __restrict__ rw2,
                                              float* __restrict__ rw2_out,
                                              const Compact& cs,
-                                             const S& sg = S{}) {
+                                             const S& sg = S{},
+                                             const I& ice = I{}) {
   constexpr int kScan = 8;  // windows of 32 slots a scan step reads at once
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -342,6 +457,10 @@ __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
       } else if (pos < end) {
         rw2_out[pos] = r2[u];
         if constexpr (S::on) sg.ssp_out[pos] = sg.ssp[pos];
+        if constexpr (I::on) {
+          ice.a_out[pos] = ice.a[pos];
+          ice.c_out[pos] = ice.c[pos];
+        }
       }
       nlive += __popc(m);
     }
@@ -356,6 +475,11 @@ __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
       sg.cs_ssp[begin + i] = sg.ssp[pos];
       sg.cs_dssp[begin + i] = sg.dssp[pos];
     }
+    if constexpr (I::on) {
+      ice.cs_a[begin + i] = ice.a[pos];
+      ice.cs_c[begin + i] = ice.c[pos];
+      ice.cs_rho[begin + i] = ice.rho[pos];
+    }
   }
   __syncwarp();
 
@@ -363,11 +487,17 @@ __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
   const bool resident = n_chunk <= 1;
   CondDrop d;
   float ssp = 0.0f, dssp = 0.0f;  // the turb_cond form's
+  float ia = 0.0f, ic = 0.0f, irho = 0.0f;  // the ice forms', resident
   float th = in.th, rv = in.rv, rhod = in.rhod;
+  float th_c = 0.0f, rv_c = 0.0f;
   for (int s = 0; s < o.sstp; ++s) {
     th = th + in.dth;
     rv = rv + in.drv;
     if (o.var_rho) rhod = rhod + in.drh;
+    if constexpr (I::on) {
+      th_c = th;
+      rv_c = rv;
+    }
     const Closure c =
         closure(o.th_dry, o.const_p, o.rh_formula, th, rv, rhod, in.p0);
     const CellGrowth g = cell_growth(c, rhod, rv, in.lam_D, in.lam_K, o.RH_max);
@@ -396,11 +526,11 @@ __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
         ssp = ssp + o.dt * dssp;
         CellGrowth gd = g;
         gd.RH = fminf(c.RH + ssp, o.RH_max);
-        part += advance(d, on, gd, o, wden);
+        part += advance_live<I>(d, on, gd, o, wden);
         if (on && last) sg.ssp_out[d.pos] = ssp;
         else if (on && !resident) sg.cs_ssp[begin + i] = ssp;
       } else {
-        part += advance(d, on, g, o, wden);
+        part += advance_live<I>(d, on, g, o, wden);
       }
       if (on && last) rw2_out[d.pos] = d.rw2;
       else if (on && !resident) cs.rw2[begin + i] = d.rw2;
@@ -409,11 +539,43 @@ __device__ __forceinline__ CellOut cond_cell(const Src& src, long long begin,
     const float th_new = th + dcell * d_th_d_rv(c.T, th);
     rv = rv + dcell;
     th = th_new;
+    if constexpr (I::on) {
+      // the deposition, at the closure and the rv after the latent heat
+      const IceGrowth gi = ice_growth(c, rhod, rv, o.RH_max);
+      double ipart = 0.0;
+      for (int ch = 0; ch < n_chunk; ++ch) {
+        const int i = ch * 32 + lane;
+        const bool on = i < nlive;
+        const long long j = begin + min(i, nlive - 1);
+        if (!resident) d = cs.get(j);
+        if (!resident || s == 0) {
+          ia = ice.cs_a[j];
+          ic = ice.cs_c[j];
+          irho = ice.cs_rho[j];
+        }
+        const bool is_ice = on && ia > 0.0f && ic > 0.0f;
+        ipart += deposit(ia, ic, irho, d.vt, d.wnum / wden, is_ice, gi, o.dt);
+        if (on && last) {
+          ice.a_out[d.pos] = ia;
+          ice.c_out[d.pos] = ic;
+        } else if (on && !resident) {
+          ice.cs_a[j] = ia;
+          ice.cs_c[j] = ic;
+        }
+      }
+      const float dice = static_cast<float>(warp_sum(ipart));
+      rv = rv - dice;
+      th = th - dice * d_th_d_rv_dep(c.T, th);
+    }
   }
   CellOut out;
   out.th = th;
   out.rv = rv;
   out.rhod = rhod;
+  if constexpr (I::on) {
+    out.th_c = th_c;
+    out.rv_c = rv_c;
+  }
   out.c = closure(o.th_dry, o.const_p, o.rh_formula, th, rv, rhod, in.p0);
   return out;
 }

@@ -42,6 +42,22 @@
 // two differ; the JAX package's parcel diagnoses dv at every substep
 // (libcloudphxx_tpu/lgrngn/hskpng.py:50, condensation.py:366).  Their
 // plain version is cond_flat_plain on a parcel's configuration.
+//
+// The ice forms (cond_flat_ice_kernel<S, A>: on a grid or in a parcel,
+// without and with the SGS supersaturation) replace the TPU kernel at its
+// ice caller, the unsorted substep loop of the JAX package's
+// lgrngn/condensation.py:248-305, which runs the root find and then
+// lgrngn/ice.py:106 ice_dep_substep each substep.  After each substep's
+// liquid growth and latent heat the frozen live SDs' semi-axes grow by
+// forward Euler at the substep's closure (T, p, eta from before the
+// latent heat) and the rv after it, with fresh mean free paths, and the
+// cell's rv and th take the ice mass gained and the heat of deposition
+// (cond_cell.cuh IceDep).  ice_a, ice_c and ice_rho ride the compaction in
+// three more scratch rows (9, or 11 with the SGS supersaturation); a
+// frozen SD (rw2 0) takes no liquid growth.  The cells out gain two rows:
+// the th and rv of the last substep's closure, which the JAX loop leaves
+// as the cells' closure.  Their plain version is cond_flat_plain with the
+// ice.
 
 #include <cuda_runtime.h>
 
@@ -64,8 +80,9 @@ struct FlatSeg {
 
 // cells_in: 10 rows of n_cell: dth drv drh (the step's increments) th rv
 // rhod (at the last sstp_save) p dv lamD lamK
-// cells_out: 3 rows of n_cell: th rv rhod
-template <class S, class A>
+// cells_out: 3 rows of n_cell: th rv rhod, and for the ice forms 2 more:
+// the th and rv that the last substep's closure took
+template <class S, class A, class I = NoIce>
 __device__ __forceinline__ void cond_flat_body(
     const float* __restrict__ wgt, const float* __restrict__ rw2,
     const float* __restrict__ rd3, const float* __restrict__ kpa,
@@ -73,7 +90,7 @@ __device__ __forceinline__ void cond_flat_body(
     const float* __restrict__ cells_in, float* __restrict__ rw2_out,
     float* __restrict__ cells_out, const Compact& cs,
     const int* __restrict__ order, int n_cell, const CondOpts& o,
-    const S& sg) {
+    const S& sg, const I& ice = I{}) {
   const int w = blockIdx.x * kCondWarps + (threadIdx.x >> 5);
   if (w >= n_cell) return;
   const int c = order[w];
@@ -92,12 +109,16 @@ __device__ __forceinline__ void cond_flat_body(
   const long long begin = c == 0 ? 0 : ends[c - 1] + 1;
   const long long end = ends[c] + 1;
   const FlatSeg src{wgt, rd3, kpa, vt};
-  const CellOut out =
-      cond_cell<FlatSeg, S, A>(src, begin, end, in, o, rw2, rw2_out, cs, sg);
+  const CellOut out = cond_cell<FlatSeg, S, A, I>(src, begin, end, in, o,
+                                                  rw2, rw2_out, cs, sg, ice);
   if ((threadIdx.x & 31) == 0) {
     cells_out[0 * n_cell + c] = out.th;
     cells_out[1 * n_cell + c] = out.rv;
     cells_out[2 * n_cell + c] = out.rhod;
+    if constexpr (I::on) {
+      cells_out[3 * n_cell + c] = out.th_c;
+      cells_out[4 * n_cell + c] = out.rv_c;
+    }
   }
 }
 
@@ -169,6 +190,27 @@ cond_flat_parcel_turb_kernel(const float* __restrict__ wgt,
                                  sg);
 }
 
+// the ice forms: the loop with the deposition after each substep's liquid
+// growth (IceDep), on a grid or in a parcel, without and with the SGS
+// supersaturation
+template <class S, class A>
+__global__ void __launch_bounds__(32 * kCondWarps, 1)
+cond_flat_ice_kernel(const float* __restrict__ wgt,
+                     const float* __restrict__ rw2,
+                     const float* __restrict__ rd3,
+                     const float* __restrict__ kpa,
+                     const float* __restrict__ vt,
+                     const long long* __restrict__ ends,
+                     const float* __restrict__ cells_in,
+                     float* __restrict__ rw2_out,
+                     float* __restrict__ cells_out, Compact cs,
+                     const int* __restrict__ order, int n_cell, CondOpts o,
+                     S sg, IceDep ice) {
+  cond_flat_body<S, A, IceDep>(wgt, rw2, rd3, kpa, vt, ends, cells_in,
+                               rw2_out, cells_out, cs, order, n_cell, o, sg,
+                               ice);
+}
+
 }  // namespace lcp
 
 namespace {
@@ -191,6 +233,29 @@ lcp::CondOpts cond_opts(int sstp, double dt_sub, double RH_max, int th_dry,
 
 int blocks_of(int n_cell) {
   return (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
+}
+
+// an ice form's launch: ``rows`` the scratch rows before the ice's three
+// (6, or 8 with the SGS supersaturation)
+template <class S, class A>
+int launch_ice(const float* wgt, const float* rw2, const float* rd3,
+               const float* kpa, const float* vt, const long long* ends,
+               const float* cells_in, float* rw2_out, float* cells_out,
+               int* pos, float* buf, const int* order, int n_cell, int n_sd,
+               const lcp::CondOpts& o, const S& sg, int rows,
+               const float* ice_a, const float* ice_c, const float* ice_rho,
+               float* ice_a_out, float* ice_c_out, cudaStream_t stream) {
+  if (n_cell <= 0) return 0;
+  const long long m = n_sd;
+  const lcp::IceDep ice{ice_a,        ice_c,
+                        ice_rho,      ice_a_out,
+                        ice_c_out,    buf + rows * m,
+                        buf + (rows + 1) * m, buf + (rows + 2) * m};
+  lcp::cond_flat_ice_kernel<S, A><<<blocks_of(n_cell), 32 * lcp::kCondWarps,
+                                    0, stream>>>(
+      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out,
+      compact(pos, buf, n_sd), order, n_cell, o, sg, ice);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -276,4 +341,77 @@ extern "C" int lcp_cond_flat_parcel_turb(
                 iters),
       sg);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the ice forms: lcp_cond_flat's (and lcp_cond_flat_turb's) arguments,
+// ``buf`` of 9 (11) * n_sd floats and ``cells_out`` of 5 rows, then the
+// sorted ice_a, ice_c and ice_rho in and ice_a and ice_c out (n_sd each)
+extern "C" int lcp_cond_flat_ice(
+    const float* wgt, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const long long* ends, const float* cells_in,
+    float* rw2_out, float* cells_out, int* pos, float* buf, const int* order,
+    int n_cell, int n_sd, int sstp, double dt_sub, double RH_max, int th_dry,
+    int const_p, int rh_formula, int var_rho, int iters, const float* ice_a,
+    const float* ice_c, const float* ice_rho, float* ice_a_out,
+    float* ice_c_out, cudaStream_t stream) {
+  return launch_ice<lcp::NoSgs, lcp::CellAir>(
+      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out, pos, buf,
+      order, n_cell, n_sd,
+      cond_opts(sstp, dt_sub, RH_max, th_dry, const_p, rh_formula, var_rho,
+                iters),
+      lcp::NoSgs{}, 6, ice_a, ice_c, ice_rho, ice_a_out, ice_c_out, stream);
+}
+
+extern "C" int lcp_cond_flat_ice_turb(
+    const float* wgt, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const long long* ends, const float* cells_in,
+    float* rw2_out, float* cells_out, int* pos, float* buf, const int* order,
+    int n_cell, int n_sd, int sstp, double dt_sub, double RH_max, int th_dry,
+    int const_p, int rh_formula, int var_rho, int iters, const float* ssp,
+    const float* dssp, float* ssp_out, const float* ice_a,
+    const float* ice_c, const float* ice_rho, float* ice_a_out,
+    float* ice_c_out, cudaStream_t stream) {
+  const long long m = n_sd;
+  return launch_ice<lcp::Sgs, lcp::CellAir>(
+      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out, pos, buf,
+      order, n_cell, n_sd,
+      cond_opts(sstp, dt_sub, RH_max, th_dry, const_p, rh_formula, var_rho,
+                iters),
+      lcp::Sgs{ssp, dssp, ssp_out, buf + 6 * m, buf + 7 * m}, 8, ice_a,
+      ice_c, ice_rho, ice_a_out, ice_c_out, stream);
+}
+
+extern "C" int lcp_cond_flat_parcel_ice(
+    const float* wgt, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const long long* ends, const float* cells_in,
+    float* rw2_out, float* cells_out, int* pos, float* buf, const int* order,
+    int n_cell, int n_sd, int sstp, double dt_sub, double RH_max, int th_dry,
+    int const_p, int rh_formula, int var_rho, int iters, const float* ice_a,
+    const float* ice_c, const float* ice_rho, float* ice_a_out,
+    float* ice_c_out, cudaStream_t stream) {
+  return launch_ice<lcp::NoSgs, lcp::ParcelAir>(
+      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out, pos, buf,
+      order, n_cell, n_sd,
+      cond_opts(sstp, dt_sub, RH_max, th_dry, const_p, rh_formula, var_rho,
+                iters),
+      lcp::NoSgs{}, 6, ice_a, ice_c, ice_rho, ice_a_out, ice_c_out, stream);
+}
+
+extern "C" int lcp_cond_flat_parcel_ice_turb(
+    const float* wgt, const float* rw2, const float* rd3, const float* kpa,
+    const float* vt, const long long* ends, const float* cells_in,
+    float* rw2_out, float* cells_out, int* pos, float* buf, const int* order,
+    int n_cell, int n_sd, int sstp, double dt_sub, double RH_max, int th_dry,
+    int const_p, int rh_formula, int var_rho, int iters, const float* ssp,
+    const float* dssp, float* ssp_out, const float* ice_a,
+    const float* ice_c, const float* ice_rho, float* ice_a_out,
+    float* ice_c_out, cudaStream_t stream) {
+  const long long m = n_sd;
+  return launch_ice<lcp::Sgs, lcp::ParcelAir>(
+      wgt, rw2, rd3, kpa, vt, ends, cells_in, rw2_out, cells_out, pos, buf,
+      order, n_cell, n_sd,
+      cond_opts(sstp, dt_sub, RH_max, th_dry, const_p, rh_formula, var_rho,
+                iters),
+      lcp::Sgs{ssp, dssp, ssp_out, buf + 6 * m, buf + 7 * m}, 8, ice_a,
+      ice_c, ice_rho, ice_a_out, ice_c_out, stream);
 }

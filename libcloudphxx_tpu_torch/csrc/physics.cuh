@@ -35,12 +35,15 @@ constexpr double R_v = kaBoNA / M_v;
 constexpr double c_pd = 1005.0;
 constexpr double c_pv = 1850.0;
 constexpr double c_pw = 4218.0;
+constexpr double c_pi = 2114.0;
 constexpr double rho_w = 1e3;
+constexpr double rho_i = 910.0;
 constexpr double D_0 = 2.26e-5;
 constexpr double K_0 = 2.4e-2;
 constexpr double p_tri = 611.73;
 constexpr double T_tri = 273.16;
 constexpr double l_tri = 2.5e6;
+constexpr double ls_tri = 2.834e6;
 constexpr double p_stp = 101325.0;
 constexpr double T_stp = 273.15 + 15;
 constexpr double rho_stp = p_stp / T_stp / R_d;

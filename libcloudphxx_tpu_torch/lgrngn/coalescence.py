@@ -365,11 +365,12 @@ def _cbrt(v):
 
 
 def shima(cfg, params, a, b, a_big, ok, u, dt, dv_row, scale, eff,
-          turb=None):
+          turb=None, with_col=False):
     """The Shima collision of every pair (a, b) that ``ok`` marks, with
     ``a_big`` saying which SD has the larger multiplicity (coal.ipp:98-236,
     Shima 2009 eqs. 12-13).  Returns (happened, n_big_new, rw2_small_new,
-    rd3_small_new, kpa_small_new, overflow per row)."""
+    rd3_small_new, kpa_small_new, overflow per row), and with ``with_col``
+    the pairs' collision counts after them."""
     n_a, rw2_a, rd3_a, kpa_a, vt_a = a
     n_b, rw2_b, rd3_b, kpa_b, vt_b = b
     K = kernel_value(cfg, params, n_a, n_b, rw2_a, rw2_b, vt_a,
@@ -400,7 +401,7 @@ def shima(cfg, params, a, b, a_big, ok, u, dt, dv_row, scale, eff,
         / torch.clamp(rd3_small_new, min=1e-300),
         kpa_small)
     return (happened, n_big_new, r_new * r_new, rd3_small_new,
-            kpa_small_new, overflow)
+            kpa_small_new, overflow) + ((col_no,) if with_col else ())
 
 
 # ---------------------------------------------------------- flat engine
@@ -432,7 +433,9 @@ def coal_substep(cfg: StaticConfig, state: State, params, dt, shuffle_bits,
     kernels take each pair's cell density and viscosity, and its
     dissipation rate under ``turb_coal`` (0 otherwise; coal.ipp:439-450).
     With diag_incloud_time the merged droplet keeps the longer in-cloud
-    time of the two (coal.ipp's max post-summator)."""
+    time of the two (coal.ipp's max post-summator); with chem_switch it
+    takes col_no times the big SD's dissolved masses (coal.ipp:459-468;
+    libcloudphxx_tpu/lgrngn/coalescence.py:555-566)."""
     n_sd = state.n.shape[0]
     cellkey = torch.where(state.n <= 0, cfg.n_cell, state.ijk)
     skey, orig = torch.sort((cellkey << 32) | shuffle_bits, stable=True)
@@ -460,15 +463,22 @@ def coal_substep(cfg: StaticConfig, state: State, params, dt, shuffle_bits,
     if kernel_t(cfg.kernel) in TURBULENT:
         turb = (state.rhod[cell], state.eta[cell],
                 state.diss_rate[cell] if turb_coal else 0.0)
-    happened, n_big_new, rw2_new, rd3_new, kpa_new, overflow = shima(
-        cfg, params, a, b, a_is_big, is_pair, u01, dt, state.dv[cell],
-        scale[cell], eff, turb)
+    happened, n_big_new, rw2_new, rd3_new, kpa_new, overflow, col_no = \
+        shima(cfg, params, a, b, a_is_big, is_pair, u01, dt, state.dv[cell],
+              scale[cell], eff, turb, with_col=True)
     # position p holds the pair's outcome, p+1 reads it shifted
     hp, bigp = _shift_down_mask(happened), _shift_down(a_is_big)
     n_s = torch.where(happened & a_is_big, n_big_new, n_a)
     n_s = torch.where(hp & ~bigp, _shift_down(n_big_new), n_s)
     out = [n_s]
     pairs = [(rw2_a, rw2_new), (rd3_a, rd3_new), (kpa_a, kpa_new)]
+    if cfg.chem_switch:
+        # the dissolved masses add up (coal.ipp:459-468's post-summator)
+        for row in state.chem:
+            ch_a = row[orig]
+            ch_b = _shift_up(ch_a)
+            pairs.append((ch_a, torch.where(a_is_big, ch_b, ch_a)
+                          + col_no * torch.where(a_is_big, ch_a, ch_b)))
     if cfg.diag_incloud_time:
         ict_a = state.incloud_time[orig]
         pairs.append((ict_a, torch.maximum(ict_a, _shift_up(ict_a))))
@@ -487,7 +497,11 @@ def coal_substep(cfg: StaticConfig, state: State, params, dt, shuffle_bits,
         flag = torch.zeros_like(puddle)
         flag[OUT_COAL_OVERFLOW] = overflow.to(puddle.dtype)
         puddle = torch.maximum(puddle, flag)
-    upd = dict(incloud_time=back[4]) if cfg.diag_incloud_time else {}
+    upd = {}
+    if cfg.chem_switch:
+        upd["chem"] = torch.stack(back[4:12])
+    if cfg.diag_incloud_time:
+        upd["incloud_time"] = back[-1]
     return dataclasses.replace(state, n=back[0], rw2=back[1], rd3=back[2],
                                kpa=back[3], puddle=puddle, **upd)
 

@@ -136,11 +136,11 @@ def cond_percell(cfg: StaticConfig, state: State, dt, RH_max, lam,
     of the cell.  ``lam`` is stale_mfp's (lambda_D, lambda_K) of the
     state before the step's closure.  ``turb_cond``: each SD's ssp advances
     by dt/sstp_cond * dot_ssp a substep and adds to its cell's RH (kernel
-    F's turb_cond form on the card)."""
-    if cfg.ice_switch:
-        raise NotImplementedError(
-            "cond_percell: ice is not ported (ROADMAP.md, Queue 1, "
-            "\"Ice\")")
+    F's turb_cond form on the card).  With ice_switch each substep then
+    grows the ice by deposition (libcloudphxx_tpu/lgrngn/condensation.py:
+    248-305, the loop the JAX package runs unsorted; F's ice form on the
+    card), and the cells' T, p, RH and eta are the last substep's
+    closure, from before its latent heat, as there."""
     sstp = cfg.sstp_cond
     if cfg.exact_sstp_cond:
         # the snapshot is per droplet; this path runs only at sstp_cond ==
@@ -188,19 +188,22 @@ def _cond_percell_sorted(cfg, state, dt_sub, sstp, RH_max, var_rho,
                          delta_th, delta_rv, delta_rh, lambda_D, lambda_K,
                          wgt_nom, turb_cond, plain):
     """cond_percell's substep loop in cell-sorted SD order
-    (libcloudphxx_tpu/lgrngn/condensation.py:312-388): one stable sort by
-    cell in, the loop (ops/cond.py cond_flat: kernel F on the card, the
-    host loop with float64 cumulative-sum cell sums as its plain version),
-    and the new rw2 (and ssp, which rides the sort under turb_cond) put
-    back in slot order."""
+    (libcloudphxx_tpu/lgrngn/condensation.py:312-388, and with ice_switch
+    :248-305): one stable sort by cell in, the loop (ops/cond.py
+    cond_flat: kernel F on the card, the host loop with float64
+    cumulative-sum cell sums as its plain version), and the new rw2 (and
+    ssp, which rides the sort under turb_cond, and the ice axes) put back
+    in slot order."""
     sijk, order = torch.sort(state.ijk, stable=True)
     sd = tuple(a[order] for a in (state.rw2, state.rd3, state.kpa, state.vt,
                                   wgt_nom))
     sgs = (state.ssp[order], state.dot_ssp[order]) if turb_cond else ()
+    ice = tuple(a[order] for a in (state.ice_a, state.ice_c, state.ice_rho)) \
+        if cfg.ice_switch else None
     out = cond_ops.cond_flat(
         cfg, sstp, dt_sub, RH_max, var_rho, sijk, cell_ends(sijk, cfg.n_cell),
         *sd, state.th, state.rv, state.rhod, delta_th, delta_rv, delta_rh,
-        state.p, state.dv, lambda_D, lambda_K, *sgs, plain=plain)
+        state.p, state.dv, lambda_D, lambda_K, *sgs, ice=ice, plain=plain)
 
     def put(a):
         back = torch.empty_like(a)
@@ -210,7 +213,20 @@ def _cond_percell_sorted(cfg, state, dt_sub, sstp, RH_max, var_rho,
     upd = dict(rw2=put(out[0]), th=out[1], rv=out[2], rhod=out[3])
     if turb_cond:
         upd["ssp"] = put(out[4])
-    return hskpng.hskpng_Tpr_state(cfg, dataclasses.replace(state, **upd))
+    if not cfg.ice_switch:
+        return hskpng.hskpng_Tpr_state(cfg, dataclasses.replace(state,
+                                                                **upd))
+    # the cells keep the closure of the last substep, before its latent
+    # heat; rhod ends at the host's value (:300-305)
+    ice_a, ice_c, th_c, rv_c = out[-4:]
+    upd.update(ice_a=put(ice_a), ice_c=put(ice_c))
+    T, p, RH, eta = hskpng.hskpng_Tpr(cfg, th_c, rv_c, out[3], state.p)
+    upd.update(T=T, p=p, RH=RH, eta=eta)
+    if cfg.n_dims == 0:
+        upd["dv"] = hskpng.parcel_dv(out[3])
+    if var_rho:
+        upd["rhod"] = state.rhod + delta_rh
+    return dataclasses.replace(state, **upd)
 
 
 def sstp_save(state: State, exact: bool = False) -> State:

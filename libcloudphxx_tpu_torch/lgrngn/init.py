@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..common import constants as c
-from ..common import kappa_koehler
+from ..common import ice_nucleation, kappa_koehler
 from .state import State, StaticConfig
 
 # reference src/detail/config.hpp:21-24
@@ -155,11 +155,13 @@ def _sample_const_multi(fun, log_lo, log_hi, multi, oi, cfg, dv_host,
     return lnrd, np.full(total, float(multi)), ijk
 
 
-def _kappa_of(key):
-    """The kappa of a distribution key: (kappa, rd_insol) or kappa
-    (reference distro_t.hpp:9-57); the port runs no ice, so rd_insol is
-    not kept."""
-    return key[0] if isinstance(key, tuple) else key
+def key_parts(key):
+    """(kappa, rd_insol) of a distribution key: (kappa, rd_insol), (kappa,)
+    or kappa, rd_insol 0 where the key gives none (reference
+    distro_t.hpp:9-57)."""
+    if isinstance(key, tuple):
+        return key[0], (key[1] if len(key) > 1 else 0.0)
+    return key, 0.0
 
 
 def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
@@ -168,9 +170,12 @@ def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
     init_SD_with_distros.ipp and init_SD_with_sizes.ipp; the JAX package's
     init_SD, the same draws from ``rng`` in the same order).  In a parcel
     the one cell holds 1 kg of dry air (its volume 1/rhod).  Returns flat
-    float64 numpy arrays {n, rd3, kpa, x, y, z} and the int64 cell index
-    ``ijk``, laid out as the JAX package lays them: by mode and
-    distribution, sorted by cell within each."""
+    float64 numpy arrays {n, rd3, kpa, x, y, z, rd2_insol} and the int64
+    cell index ``ijk``, laid out as the JAX package lays them: by mode and
+    distribution, sorted by cell within each; with singular freezing
+    (ice_switch without time_dep_ice_nucl) also ``T_freeze_u``, the
+    uniform draw of each SD's freezing temperature (init_T_freeze.ipp:
+    16-31), drawn after the positions as there."""
     n_cell = cfg.n_cell
     if cfg.n_dims == 0:
         dv_host = 1.0 / np.asarray(rhod_host, float)
@@ -178,12 +183,14 @@ def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
     else:
         dv_host = cell_dv(cfg)
         cell_vol = cfg.dx * cfg.dy * cfg.dz
-    lnrd_l, n_l, kpa_l, ijk_l = [], [], [], []
+    lnrd_l, n_l, kpa_l, ijk_l, insol_l = [], [], [], [], []
 
-    def add(lnrd, mult, kappa, ijk):
+    def add(lnrd, mult, key, ijk):
+        kappa, rd_insol = key_parts(key)
         lnrd_l.append(lnrd)
         n_l.append(mult)
         kpa_l.append(np.full(lnrd.size, kappa))
+        insol_l.append(np.full(lnrd.size, rd_insol))
         ijk_l.append(ijk)
 
     if oi.dry_distros and oi.sd_conc > 0:
@@ -215,7 +222,7 @@ def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
                 n_of = n_of * factor[:, None]
             if cfg.n_dims > 0:
                 n_of *= dv_host[:, None] / cell_vol
-            add(lnrd.ravel(), np.floor(n_of + 0.5).ravel(), _kappa_of(key),
+            add(lnrd.ravel(), np.floor(n_of + 0.5).ravel(), key,
                 np.repeat(np.arange(n_cell), count))
             if oi.sd_conc_large_tail:
                 # multiplicity-1 SDs from the tail above the sd_conc range
@@ -225,14 +232,14 @@ def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
                     t_lnrd, t_n, t_ijk = _sample_const_multi(
                         fun, log_hi, tail_hi, 1, oi, cfg, dv_host, rhod_host,
                         rng)
-                    add(t_lnrd, t_n, _kappa_of(key), t_ijk)
+                    add(t_lnrd, t_n, key, t_ijk)
     elif oi.dry_distros and oi.sd_const_multi > 0:
         # const-multi mode (init_SD_with_distros_const_multi.ipp)
         for key, fun in oi.dry_distros.items():
             lnrd, mlt, ijk = _sample_const_multi(
                 fun, *_dist_analysis_const_multi(fun), oi.sd_const_multi, oi,
                 cfg, dv_host, rhod_host, rng)
-            add(lnrd, mlt, _kappa_of(key), ijk)
+            add(lnrd, mlt, key, ijk)
 
     if oi.dry_sizes:
         # dry_sizes mode (init_SD_with_sizes.ipp)
@@ -248,7 +255,7 @@ def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
                 total = n_cell * sd_count
                 add(np.full(total, math.log(radius)),
                     np.repeat(np.floor(number / sd_count + 0.5), sd_count),
-                    _kappa_of(key), np.repeat(np.arange(n_cell), sd_count))
+                    key, np.repeat(np.arange(n_cell), sd_count))
 
     if not lnrd_l:
         raise ValueError(
@@ -260,9 +267,12 @@ def init_SD(cfg: StaticConfig, oi, rng: np.random.Generator,
     if n_part > cfg.n_sd_max:
         raise RuntimeError(f"lgrngn init: n_part ({n_part}) exceeds "
                            f"n_sd_max ({cfg.n_sd_max})")
-    return dict(n=np.concatenate(n_l), rd3=np.exp(3.0 * lnrd),
-                kpa=np.concatenate(kpa_l), **positions(cfg, ijk, rng),
-                ijk=ijk)
+    pop = dict(n=np.concatenate(n_l), rd3=np.exp(3.0 * lnrd),
+               kpa=np.concatenate(kpa_l), **positions(cfg, ijk, rng),
+               ijk=ijk, rd2_insol=np.concatenate(insol_l) ** 2)
+    if cfg.ice_switch and not cfg.time_dep_ice_nucl:
+        pop["T_freeze_u"] = rng.random(n_part)
+    return pop
 
 
 def positions(cfg: StaticConfig, ijk, rng):
@@ -301,7 +311,9 @@ def init_SD_state(cfg: StaticConfig, state: State, pop: dict) -> State:
     """The population ``pop`` (what init_SD or refinit.init_SD_reference
     returns) in the flat State's n_sd_max slots, the dead slots after the
     live ones (n 0, rd3 1e-30, cell 0), as the JAX package fills them; vt
-    starts at zero."""
+    starts at zero.  Where ``pop`` holds ``T_freeze_u``, each SD's singular
+    freezing temperature is the inverse CDF at it (a dead slot's at 0.5;
+    libcloudphxx_tpu/lgrngn/init.py:349-355)."""
     pad = cfg.n_sd_max - pop["n"].size
     like = state.rd3
 
@@ -309,12 +321,17 @@ def init_SD_state(cfg: StaticConfig, state: State, pop: dict) -> State:
         return torch.as_tensor(np.concatenate([a, np.full(pad, fill)]),
                                dtype=dtype, device=like.device)
 
+    upd = {}
+    rd2_insol = padded(pop["rd2_insol"])
+    if "T_freeze_u" in pop:
+        upd["T_freeze"] = ice_nucleation.T_freeze_CDF_inv(
+            rd2_insol, padded(pop["T_freeze_u"], fill=0.5))
     return dataclasses.replace(
         state, n=padded(pop["n"]), rd3=padded(pop["rd3"], fill=1e-30),
         kpa=padded(pop["kpa"]), x=padded(pop["x"]), y=padded(pop["y"]),
         z=padded(pop["z"]),
         ijk=padded(pop["ijk"], fill=0, dtype=torch.int64),
-        vt=torch.zeros_like(like))
+        vt=torch.zeros_like(like), rd2_insol=rd2_insol, **upd)
 
 
 def init_wet_state(state: State, RH_max) -> State:

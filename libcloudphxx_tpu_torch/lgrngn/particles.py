@@ -16,19 +16,24 @@ arrinfo_t, arrinfo.hpp:10-49); torch tensors are handles, so no copy is
 made and ``step_cond`` returns the new (th, rv) as flat tensors on the
 engine's device.
 
-The port runs the warm engine on every grid the JAX flat engine runs:
-the parcel (0-D: one cell of 1 kg of dry air, no transport), 1-D (x),
-2-D (x, z) and 3-D (x, y, z), with the per-cell and the exact and
-adaptive per-particle condensation substepping, every SD init mode, and
-what an LES host couples through: the SGS turbulence (turb_adve,
-turb_cond, turb_coal with the onishi kernels; diss_rate through sync_in),
+The port runs the engine on every grid the JAX flat engine runs: the
+parcel (0-D: one cell of 1 kg of dry air, no transport), 1-D (x), 2-D
+(x, z) and 3-D (x, y, z), with the per-cell and the exact and adaptive
+per-particle condensation substepping, every SD init mode, what an LES
+host couples through: the SGS turbulence (turb_adve, turb_cond,
+turb_coal with the onishi kernels; diss_rate through sync_in),
 diag_incloud_time, the aerosol sources, the CCN relaxation and the
-recycling.  Ice, chemistry and the multi-device front-end raise
-NotImplementedError (ROADMAP.md, Queue 1).  Fields a host passes as (nx,
-ny, nz) arrays are ravelled C-order, i outermost.
+recycling; the ice (ice_switch: singular or time-dependent freezing,
+melting, and deposition in the per-cell condensation; lgrngn/ice.py) and
+the aqueous chemistry (chem_switch: the trace gases through
+``ambient_chem``, opts.chem_dsl/dsc/rct; lgrngn/chemistry.py).  The
+multi-device front-end raises NotImplementedError (ROADMAP.md, Queue 1).
+Fields a host passes as (nx, ny, nz) arrays are ravelled C-order, i
+outermost.
 On a CUDA device the condensation runs kernel F (per cell) or kernel G
 (per particle; ops/cond.py), under turb_cond their turb_cond forms, in a
-parcel their parcel forms; nothing falls back to the CPU.
+parcel their parcel forms, with ice_switch F's ice forms; nothing falls
+back to the CPU.
 The factory hands out this flat engine or, on a CUDA device, the dense
 front (lgrngn/dense_front.py), which overrides the _step_cond_impl and
 _step_async_impl hooks.
@@ -43,7 +48,9 @@ import torch
 from ..common import constants as c
 from ..common import kappa_koehler
 from ..common import turbulence as ga17
-from . import coalescence, condensation, hskpng, recycle, relax
+from ..common.chem import chem_gas_n
+from . import chemistry, coalescence, condensation, hskpng, ice, recycle
+from . import relax
 from . import source as source_mod
 from . import transport, turbulence
 from . import init as init_mod
@@ -55,27 +62,36 @@ from .vterm import hskpng_vterm_all
 
 
 def step_cond_body(cfg: StaticConfig, state: State, dt, RH_max,
-                   var_rho: bool = False, turb_cond: bool = False, *,
+                   var_rho: bool = False, turb_cond: bool = False,
+                   ice_nucl: bool = False, do_cond: bool = True, *,
                    plain=False) -> State:
     """The condensation phase (libcloudphxx_tpu/lgrngn/particles.py:70-120):
-    mean free paths from the previous step's T/p, the cell closure, then
-    the exact per-particle substepping (adaptive or fixed; kernel G on the
-    card) where exact_sstp_cond asks for more than one substep, else the
-    in-cloud time (diag_incloud_time) and the per-cell substepping (kernel
-    F on the card), and sstp_save.  ``turb_cond`` adds each SD's SGS
+    mean free paths from the previous step's T/p, the cell closure, with
+    ``ice_nucl`` (ice_switch) the freezing and melting and the closure
+    again, then, with ``do_cond``, the exact per-particle substepping
+    (adaptive or fixed; kernel G on the card) where exact_sstp_cond asks
+    for more than one substep, else the in-cloud time (diag_incloud_time)
+    and the per-cell substepping (kernel F on the card, its ice form with
+    ice_switch), and sstp_save.  ``turb_cond`` adds each SD's SGS
     supersaturation perturbation to its RH (the kernels' turb_cond forms).
     ``plain`` runs the kernels' plain versions on any device."""
-    if condensation.exact_route(cfg):
-        # exact per-particle substepping (particles_step.ipp:199-236);
-        # the mean free paths from the T/p before the closure
-        stale = (state.T, state.p)
+    # the mean free paths come from the T/p before the closure
+    stale = (state.T, state.p)
+    state = hskpng.hskpng_Tpr_state(cfg, state)
+    if cfg.ice_switch and ice_nucl:
+        # freezing and melting (particles_step.ipp:183-185)
+        state = ice.ice_nucl_melt(cfg, state, dt, cfg.time_dep_ice_nucl)
         state = hskpng.hskpng_Tpr_state(cfg, state)
+    if not do_cond:
+        return state
+    if condensation.exact_route(cfg):
+        # exact per-particle substepping (particles_step.ipp:199-236),
+        # which deposits no ice, as in the JAX package
         cond = condensation.cond_perparticle_adaptive \
             if cfg.adaptive_sstp_cond else condensation.cond_perparticle
         state = cond(cfg, state, dt, RH_max, stale, turb_cond, plain=plain)
         return condensation.sstp_save(state, exact=True)
-    lam = condensation.stale_mfp(state)
-    state = hskpng.hskpng_Tpr_state(cfg, state)
+    lam = hskpng.hskpng_mfp(*stale)
     if cfg.diag_incloud_time:
         # (particles_impl_update_incloud_time.ipp:38-66)
         state = condensation.update_incloud_time(cfg, state, dt)
@@ -124,24 +140,6 @@ def step_async_body(cfg: StaticConfig, sstp_coal: int, switches, state: State,
     return transport.post_step(cfg, state)
 
 
-# what the port does not run yet, by the ROADMAP.md Queue 1 item that
-# ports it
-_UNPORTED_SWITCHES = (
-    ("Ice", ("ice_switch",)),
-    ("Chemistry", ("chem_switch",)))
-
-
-def _require_ported(oi: opts_init_t):
-    """Raise NotImplementedError for what the port's flat engine does not
-    run."""
-    for title, names in _UNPORTED_SWITCHES:
-        off = [name for name in names if getattr(oi, name)]
-        if off:
-            raise NotImplementedError(
-                f"particles_t: {', '.join(off)} is not ported (ROADMAP.md, "
-                f"Queue 1, \"{title}\")")
-
-
 def take_coal_overflow(puddle):
     """The const-multi coalescence's request for one more substep (where
     a pair asked for more than one collision; particles_step.ipp:394-400):
@@ -171,7 +169,6 @@ class particles_t:
         if opts_init.th_dry == opts_init.const_p:
             raise ValueError(
                 "lgrngn: exactly one of th_dry/const_p must be true")
-        _require_ported(opts_init)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -216,10 +213,13 @@ class particles_t:
 
     # ---- the engine's hooks: the dense front (lgrngn/dense_front.py)
     # overrides them (libcloudphxx_tpu/lgrngn/particles.py:255-264)
-    def _step_cond_impl(self, state, dt, RH_max, var_rho, turb_cond, plain):
-        """The condensation phase on ``state``; returns the new State."""
+    def _step_cond_impl(self, state, dt, RH_max, var_rho, turb_cond, plain,
+                        **ice_kw):
+        """The condensation phase on ``state``; returns the new State.
+        ``ice_kw``: step_cond_body's ice_nucl and do_cond, with
+        ice_switch."""
         return step_cond_body(self._cfg_for_dt(dt), state, dt, RH_max,
-                              var_rho, turb_cond, plain=plain)
+                              var_rho, turb_cond, plain=plain, **ice_kw)
 
     def _step_async_impl(self, sstp, switches, state, params, w_LS, dt,
                          plain):
@@ -263,11 +263,37 @@ class particles_t:
                 upd[name] = a
         return upd
 
-    def _no_chem(self, ambient_chem):
-        if ambient_chem:
+    def _chem_updates(self, ambient_chem):
+        """The {chem_species: array} trace-gas map as a (6, n_cell) tensor
+        (None where it is empty), checked against chem_switch as the
+        reference checks it (particles_step.ipp:68-72, :146-153)."""
+        if self.cfg.chem_switch:
+            if not ambient_chem or len(ambient_chem) != chem_gas_n:
+                raise RuntimeError(
+                    "libcloudphxx: chemistry was not switched off and "
+                    "ambient_chem is empty")
+        elif ambient_chem:
             raise RuntimeError(
                 "libcloudphxx: chemistry was switched off and ambient_chem "
                 "is not empty")
+        if not ambient_chem:
+            return None
+        rows = [None] * chem_gas_n
+        for key, arr in ambient_chem.items():
+            rows[int(key)] = self._as_flat(arr, self.cfg.n_cell,
+                                           f"ambient_chem[{int(key)}]")
+        return torch.stack(rows)
+
+    def _chem_sync_out(self, ambient_chem):
+        """Write the cells' trace gases back into the caller's numpy arrays
+        (particles_step.ipp:319-327); tensors are the caller's to read from
+        ``state.ambient_chem``."""
+        if not ambient_chem:
+            return
+        dev = self.state.ambient_chem.double().cpu().numpy()
+        for key, arr in ambient_chem.items():
+            if not isinstance(arr, torch.Tensor):
+                np.asarray(arr).reshape(-1)[:] = dev[int(key)]
 
     # ------------------------------------------------------------------ init
     def init(self, th, rv, rhod, p=None, courant_x=None, courant_y=None,
@@ -281,7 +307,7 @@ class particles_t:
             raise RuntimeError("libcloudphxx: init() may be called just once")
         self._init_called = True
         oi, cfg = self.opts_init, self.cfg
-        self._no_chem(ambient_chem)
+        gases = self._chem_updates(ambient_chem)
         n_cell = cfg.n_cell
         rhod_t = self._as_flat(rhod, n_cell, "rhod")
         p_t = self._as_flat(p, n_cell, "p")
@@ -313,6 +339,12 @@ class particles_t:
                                        rhod_host)
             st = init_mod.init_wet_state(init_mod.init_SD_state(cfg, st, pop),
                                          oi.RH_max)
+        if cfg.chem_switch:
+            # the initial NH4HSO4 aerosol (init_chem.ipp:178-225)
+            st = chemistry.sstp_save_chem(dataclasses.replace(
+                st, ambient_chem=gases, chem=torch.where(
+                    st.n > 0, chemistry.init_chem_aq(st.rd3, cfg.chem_rho),
+                    0.0)))
         self.state = condensation.sstp_save(st, exact=cfg.exact_sstp_cond)
         self._should_now_run_cond = False
         self._should_now_run_async = False
@@ -329,7 +361,6 @@ class particles_t:
             raise RuntimeError(
                 "libcloudphxx: please call step_async() before calling "
                 "step_sync() again")
-        self._no_chem(ambient_chem)
         n_cell = self.cfg.n_cell
         upd = {}
         for name, arr in (("th", th), ("rv", rv), ("rhod", rhod),
@@ -338,6 +369,10 @@ class particles_t:
             if a is not None:
                 upd[name] = a
         upd.update(self._courant_updates(courant_x, courant_y, courant_z))
+        if self.cfg.chem_switch or ambient_chem:
+            gases = self._chem_updates(ambient_chem)
+            if gases is not None:
+                upd["ambient_chem"] = gases
         if upd:
             self.state = dataclasses.replace(self.state, **upd)
         # var_rho: the host passed a (possibly changing) density this sync
@@ -368,20 +403,32 @@ class particles_t:
         if opts.turb_cond and not self.cfg.turb_cond_switch:
             raise RuntimeError(
                 "libcloudphxx: turb_cond_switch=False, but turb_cond==True")
-        if opts.chem_dsl or opts.chem_dsc or opts.chem_rct:
+        do_chem = opts.chem_dsl or opts.chem_dsc or opts.chem_rct
+        if do_chem and not self.cfg.chem_switch:
             raise RuntimeError(
                 "libcloudphxx: all chemistry was switched off in opts_init")
-        self._no_chem(ambient_chem)
         device_io = isinstance(th, torch.Tensor) \
             or isinstance(rv, torch.Tensor)
-        if opts.cond:
+        ice_nucl = bool(opts.ice_nucl and self.cfg.ice_switch)
+        if opts.cond or ice_nucl:
+            ice_kw = dict(ice_nucl=ice_nucl, do_cond=bool(opts.cond)) \
+                if self.cfg.ice_switch else {}
             self.state = self._step_cond_impl(
                 self.state, dt, float(opts.RH_max), self._var_rho,
-                bool(opts.turb_cond), plain)
+                bool(opts.turb_cond), plain, **ice_kw)
             if not device_io:
                 for arr, new in ((th, self.state.th), (rv, self.state.rv)):
                     if arr is not None:
                         np.asarray(arr).reshape(-1)[:] = new.cpu().numpy()
+        if do_chem:
+            # the chemistry substeps (particles_step.ipp:272-310)
+            cfg = self._cfg_for_dt(dt)
+            self.state = chemistry.sstp_chem_loop(
+                cfg, hskpng.hskpng_Tpr_state(cfg, self.state), dt,
+                bool(opts.chem_dsl), bool(opts.chem_dsc),
+                bool(opts.chem_rct))
+            if opts.chem_dsl:
+                self._chem_sync_out(ambient_chem)
         self._should_now_run_async = True
         if device_io:
             return self.state.th, self.state.rv
@@ -663,15 +710,110 @@ class particles_t:
             div = div + st.courant_z[abv] - st.courant_z[blw]
         self._set_outbuf(div / cfg.dt)
 
+    def _precip_rate(self, of_ice):
+        """1st non-specific moment of (rw^3 | the ice mass) * vt of the
+        selected SDs, vt refreshed (particles_diag.ipp:561-607)."""
+        st = hskpng_vterm_all(self.cfg, self._tpr())
+        vals = ice.ice_mass(st.ice_a, st.ice_c, st.ice_rho) if of_ice \
+            else st.rw2 ** 1.5
+        vals = self._n_filtered * vals * st.vt
+        out = torch.zeros(self.cfg.n_cell, dtype=vals.dtype,
+                          device=vals.device)
+        return out.index_add_(0, st.ijk, vals)
+
     def diag_precip_rate(self):
         """1st non-specific moment of rw^3 * vt of the selected SDs
         (reference particles_diag.ipp:561-588)."""
         self._check_selected()
-        st = hskpng_vterm_all(self.cfg, self._tpr())
-        vals = self._n_filtered * st.rw2 ** 1.5 * st.vt
-        out = torch.zeros(self.cfg.n_cell, dtype=vals.dtype,
-                          device=vals.device)
-        self._set_outbuf(out.index_add_(0, st.ijk, vals))
+        self._set_outbuf(self._precip_rate(False))
+
+    # the ice and liquid selections and the ice moments (reference
+    # particles_diag.ipp:276-607; libcloudphxx_tpu/lgrngn/particles.py:
+    # 766-846)
+    def _require_ice(self):
+        if not self.opts_init.ice_switch:
+            raise RuntimeError(
+                "libcloudphxx: ice is switched off in opts_init, but "
+                "diag_ice was called")
+
+    def diag_ice(self):
+        """Select the frozen SDs (particles_diag.ipp:276-283)."""
+        self._require_ice()
+        self._n_filtered = torch.where(self.state.ice_a > 0, self.state.n,
+                                       0.0)
+
+    def diag_water(self):
+        """Select the liquid SDs (particles_diag.ipp:285-290)."""
+        self._require_init()
+        self._n_filtered = torch.where(self.state.rw2 > 0, self.state.n,
+                                       0.0)
+
+    def diag_ice_cons(self):
+        self._require_ice()
+        self._cons(self.state.ice_a > 0)
+
+    def diag_water_cons(self):
+        self._require_init()
+        self._cons(self.state.rw2 > 0)
+
+    def diag_ice_a_rng(self, a_min, a_max):
+        self._require_ice()
+        a = self.state.ice_a
+        self._n_filtered = torch.where((a >= a_min) & (a < a_max),
+                                       self.state.n, 0.0)
+
+    def diag_ice_c_rng(self, c_min, c_max):
+        self._require_ice()
+        cc = self.state.ice_c
+        self._n_filtered = torch.where((cc >= c_min) & (cc < c_max),
+                                       self.state.n, 0.0)
+
+    def diag_ice_a_rng_cons(self, a_min, a_max):
+        self._require_ice()
+        a = self.state.ice_a
+        self._cons((a >= a_min) & (a < a_max))
+
+    def diag_ice_c_rng_cons(self, c_min, c_max):
+        self._require_ice()
+        cc = self.state.ice_c
+        self._cons((cc >= c_min) & (cc < c_max))
+
+    def diag_ice_a_mom(self, n):
+        self._require_ice()
+        self._check_selected()
+        self._set_outbuf(self._moms(float(n), self.state.ice_a))
+
+    def diag_ice_c_mom(self, n):
+        self._require_ice()
+        self._check_selected()
+        self._set_outbuf(self._moms(float(n), self.state.ice_c))
+
+    def diag_ice_mix_ratio(self):
+        """The selected SDs' specific ice mass per cell
+        (particles_diag.ipp:443-454)."""
+        self._require_ice()
+        self._check_selected()
+        st = self.state
+        self._set_outbuf(self._moms(1.0, ice.ice_mass(st.ice_a, st.ice_c,
+                                                      st.ice_rho)))
+
+    def diag_precip_rate_ice_mass(self):
+        """1st non-specific moment of the ice mass * vt of the selected SDs
+        (particles_diag.ipp:590-607)."""
+        self._require_ice()
+        self._check_selected()
+        self._set_outbuf(self._precip_rate(True))
+
+    def diag_chem(self, species):
+        """The selected SDs' specific mass of a dissolved species per cell
+        (reference particles_diag.ipp diag_chem, moms_calc over
+        chem_bgn)."""
+        self._require_init()
+        if not self.cfg.chem_switch:
+            raise RuntimeError(
+                "libcloudphxx: all chemistry was switched off in opts_init")
+        self._check_selected()
+        self._set_outbuf(self._moms(1.0, self.state.chem[int(species)]))
 
     def diag_max_rw(self):
         """Largest wet radius per cell (reference particles_diag.ipp:
@@ -729,8 +871,11 @@ class particles_t:
         held = {"rd3": st.rd3, "rw2": st.rw2, "kpa": st.kpa,
                 "kappa": st.kpa, "n": st.n, "x": st.x, "y": st.y, "z": st.z,
                 "vt": st.vt, "incloud_time": st.incloud_time, "up": st.up,
-                "vp": st.vp, "wp": st.wp}
-        if name in ("ice_a", "ice_c", "ice_rho", "rd2_insol", "T_freeze"):
+                "vp": st.vp, "wp": st.wp, "rd2_insol": st.rd2_insol,
+                "T_freeze": st.T_freeze, "ice_a": st.ice_a,
+                "ice_c": st.ice_c, "ice_rho": st.ice_rho}
+        if name in ("ice_a", "ice_c", "ice_rho", "rd2_insol", "T_freeze") \
+                and not self.opts_init.ice_switch:
             raise RuntimeError(
                 "libcloudphxx: ice attribute requested with ice_switch off")
         if name not in held:

@@ -16,9 +16,10 @@ import torch
 from .state import State, StaticConfig
 
 # what the donor hands the slot (the reference copies every distmem
-# vector, rcyc.ipp:90-96): the warm attributes the port holds
+# vector, rcyc.ipp:90-96; libcloudphxx_tpu/lgrngn/recycle.py:19-21)
 RECYCLED_ATTRS = ("rd3", "rw2", "kpa", "x", "y", "z", "vt", "incloud_time",
-                  "up", "vp", "wp", "ssp", "dot_ssp")
+                  "up", "vp", "wp", "ssp", "dot_ssp", "ice_a", "ice_c",
+                  "ice_rho", "T_freeze", "rd2_insol")
 
 
 def rcyc(cfg: StaticConfig, state: State) -> State:

@@ -107,10 +107,10 @@ def init_SD_reference(cfg: StaticConfig, oi, seed: int,
             fun, oi.sd_conc, cell_vol, oi.rd_min, oi.rd_max)
         tot_rng = f32(tot_rng + f32(analyses[key][1] - analyses[key][0]))
 
-    rd3_l, n_l, kpa_l, ijk_l = [], [], [], []
+    rd3_l, n_l, kpa_l, ijk_l, insol_l = [], [], [], [], []
     pos_l = {k: [] for k in "xyz"}
     for key, fun in oi.dry_distros.items():
-        kappa = init_host._kappa_of(key)
+        kappa, rd_insol = init_host.key_parts(key)
         log_lo, log_hi, mult = analyses[key]
         fraction = f32(f32(log_hi - log_lo) / tot_rng)
         # multiplier *= sd_conc / int(fraction * sd_conc + .5), an integer
@@ -171,6 +171,7 @@ def init_SD_reference(cfg: StaticConfig, oi, seed: int,
         # the reference keeps rd3 in float32 (expf)
         rd3_l.append(rd3.astype(np.float64))
         kpa_l.append(np.full(n_to_init, kappa))
+        insol_l.append(np.full(n_to_init, rd_insol))
         ijk_l.append(ijk)
 
     n_part = sum(a.size for a in n_l)
@@ -179,4 +180,5 @@ def init_SD_reference(cfg: StaticConfig, oi, seed: int,
                            f"n_sd_max ({cfg.n_sd_max})")
     cat = np.concatenate
     return dict(n=cat(n_l), rd3=cat(rd3_l), kpa=cat(kpa_l),
-                **{k: cat(v) for k, v in pos_l.items()}, ijk=cat(ijk_l))
+                **{k: cat(v) for k, v in pos_l.items()}, ijk=cat(ijk_l),
+                rd2_insol=cat(insol_l) ** 2)

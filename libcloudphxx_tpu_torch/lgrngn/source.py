@@ -24,10 +24,11 @@ from . import init as init_mod
 from .state import State, StaticConfig
 
 # the per-SD attributes a revived slot starts afresh (a copy of the JAX
-# package's parallel/decomp.py:44-62 migrating_attrs, the warm attributes
-# the port holds); exact substepping's private copies too
+# package's parallel/decomp.py:44-62 migrating_attrs); exact substepping's
+# private copies too
 MIGRATING_ATTRS = ("n", "rd3", "rw2", "kpa", "x", "y", "z", "vt",
-                   "incloud_time", "up", "vp", "wp", "ssp", "dot_ssp")
+                   "incloud_time", "up", "vp", "wp", "ssp", "dot_ssp",
+                   "ice_a", "ice_c", "ice_rho", "T_freeze", "rd2_insol")
 EXACT_ATTRS = ("sstp_tmp_th", "sstp_tmp_rv", "sstp_tmp_rh", "sstp_tmp_p")
 
 
@@ -82,6 +83,12 @@ def _inject(state: State, new, cfg: StaticConfig):
             vals if vals is not None else np.zeros(n_new), dtype=arr.dtype,
             device=arr.device)
         upd[name] = arr
+    if cfg.chem_switch:
+        # a new SD holds no dissolved mass (libcloudphxx_tpu/lgrngn/
+        # source.py:84-85)
+        chem = state.chem.clone()
+        chem[:, slots] = 0.0
+        upd["chem"] = chem
     return dataclasses.replace(state, **upd), n_new
 
 

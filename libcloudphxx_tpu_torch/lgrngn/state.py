@@ -2,12 +2,13 @@
 slots (libcloudphxx_tpu/lgrngn/state.py: StaticConfig, State, empty_state,
 PUDDLE_KEYS, OUT_*).
 
-The flat ``State`` holds the warm engine on any grid (the parcel, 1-D, 2-D
+The flat ``State`` holds the engine on any grid (the parcel, 1-D, 2-D
 and 3-D): per-SD arrays of length n_sd_max, where multiplicity n == 0
-marks a dead slot (the SGS
-turbulence's velocity and supersaturation perturbations and the in-cloud
-time among them, zero unless their switches are on), and the per-cell
-Eulerian mirrors with the dissipation rate.  Its random stream is the run's seed and a step counter
+marks a dead slot (the SGS turbulence's velocity and supersaturation
+perturbations, the in-cloud time and the ice attributes among them, zero
+unless their switches are on; the insoluble core's radius always), the
+per-cell Eulerian mirrors with the dissipation rate, and the aqueous
+chemistry's rows (zero-width when chem_switch is off).  Its random stream is the run's seed and a step counter
 (the coalescence draws are Philox numbers, ops/philox.py), so restoring a
 state restores its draws.  The dense engine keeps the same population in
 its cell-major layout (lgrngn/dense.DenseState).
@@ -122,7 +123,7 @@ def _empty():
 @dataclass
 class State:
     """The flat engine's state (reference src/impl/particles_impl.ipp:
-    66-146), warm: per-SD arrays (n_sd_max,), cell arrays (n_cell,)
+    66-146): per-SD arrays (n_sd_max,), cell arrays (n_cell,)
     ravelled i outermost and k innermost ((i*ny + j)*nz + k), the
     staggered courants of the grid's axes ((nx+1)*ny*nz, nx*(ny+1)*nz,
     nx*ny*(nz+1); empty for an axis the grid lacks).  In a parcel (no
@@ -175,6 +176,23 @@ class State:
     # y courants (nx*(ny+1)*nz on the 3-D grid, empty on any other)
     y: torch.Tensor = dataclasses.field(default_factory=_empty)
     courant_y: torch.Tensor = dataclasses.field(default_factory=_empty)
+    # the ice attributes (particles_impl.ipp:93-99): the spheroid's
+    # equatorial and polar semi-axes [m] and apparent density [kg/m3]
+    # (all zero for a liquid SD; a frozen one has rw2 == 0 and ice_a *
+    # ice_c > 0), the singular freezing temperature [K] and the squared
+    # radius of the insoluble core [m2]
+    ice_a: torch.Tensor = dataclasses.field(default_factory=_empty)
+    ice_c: torch.Tensor = dataclasses.field(default_factory=_empty)
+    ice_rho: torch.Tensor = dataclasses.field(default_factory=_empty)
+    T_freeze: torch.Tensor = dataclasses.field(default_factory=_empty)
+    rd2_insol: torch.Tensor = dataclasses.field(default_factory=_empty)
+    # the aqueous chemistry (particles_impl.ipp chem vectors): each SD's
+    # dissolved masses [kg] (8, n_sd_max) in common/chem.py's species
+    # order, the cells' trace-gas mixing ratios (6, n_cell) and their
+    # sstp_chem snapshot; (8, 0) and (6, 0) when chem_switch is off
+    chem: torch.Tensor = dataclasses.field(default_factory=_empty)
+    ambient_chem: torch.Tensor = dataclasses.field(default_factory=_empty)
+    sstp_tmp_chem: torch.Tensor = dataclasses.field(default_factory=_empty)
     # the coalescence draws: Philox key (opts_init.rng_seed) and the step
     # counter, advanced by every coalescence call
     rng_seed: int = 44
@@ -197,7 +215,8 @@ TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(State)
 def empty_state(cfg: StaticConfig, dtype, device, rng_seed=44) -> State:
     """An all-dead-slot state for a config of any grid (the staggered
     courants of its axes sized as the JAX package's empty_state sizes
-    them); the substepping snapshot per SD in exact_sstp_cond mode."""
+    them); the substepping snapshot per SD in exact_sstp_cond mode; the
+    chemistry's rows zero-width unless chem_switch is on."""
     zsd = torch.zeros(cfg.n_sd_max, dtype=dtype, device=device)
     zc = torch.zeros(cfg.n_cell, dtype=dtype, device=device)
     z = lambda m: torch.zeros(m, dtype=dtype, device=device)
@@ -207,6 +226,10 @@ def empty_state(cfg: StaticConfig, dtype, device, rng_seed=44) -> State:
         n=zsd, rd3=zsd, rw2=zsd, kpa=zsd, x=zsd, y=zsd, z=zsd, vt=zsd,
         ijk=torch.zeros(cfg.n_sd_max, dtype=torch.int64, device=device),
         incloud_time=zsd, up=zsd, vp=zsd, wp=zsd, ssp=zsd, dot_ssp=zsd,
+        ice_a=zsd, ice_c=zsd, ice_rho=zsd, T_freeze=zsd, rd2_insol=zsd,
+        chem=z((8, cfg.n_sd_max if cfg.chem_switch else 0)),
+        ambient_chem=z((6, cfg.n_cell if cfg.chem_switch else 0)),
+        sstp_tmp_chem=z((6, cfg.n_cell if cfg.chem_switch else 0)),
         th=zc, rv=zc, rhod=zc, p=zc,
         courant_x=z((nx + 1) * ny * nz if cfg.n_dims >= 1 else 0),
         courant_y=z(nx * (ny + 1) * nz if cfg.n_dims == 3 else 0),
@@ -229,7 +252,9 @@ PUDDLE_KEYS = (
 OUT_LIQ_VOL = PUDDLE_KEYS.index("liquid_volume")
 OUT_DRY_VOL = PUDDLE_KEYS.index("dry_volume")
 OUT_PRTCL_NUM = PUDDLE_KEYS.index("particle_number")
+OUT_ICE_MASS = PUDDLE_KEYS.index("ice_mass")
 OUT_LIQ_NUM = PUDDLE_KEYS.index("liquid_number")
+OUT_ICE_NUM = PUDDLE_KEYS.index("ice_number")
 # sticky flag: a coalescence pair asked for more than one collision in a
 # substep (the reference's increase_sstp_coal request)
 OUT_COAL_OVERFLOW = len(PUDDLE_KEYS) + 1

@@ -21,8 +21,9 @@ import torch
 from ..common import constants as c
 from .enums import as_t
 from .hskpng import ijk_of_xyz
-from .state import (OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL, OUT_PRTCL_NUM,
-                    State, StaticConfig)
+from .ice import ice_mass
+from .state import (OUT_DRY_VOL, OUT_ICE_MASS, OUT_ICE_NUM, OUT_LIQ_NUM,
+                    OUT_LIQ_VOL, OUT_PRTCL_NUM, State, StaticConfig)
 
 
 def _decompose(cfg: StaticConfig, ijk):
@@ -134,8 +135,9 @@ def bcnd(cfg: StaticConfig, state: State) -> State:
     """The walls and the puddle (reference bcnd.ipp:214-365): periodic or
     open side walls (x, and y on the 3-D grid); on the 2-D and 3-D grids
     periodic top and bottom, or droplets above the top removed and those
-    below the bottom added to the puddle and removed.  None in a
-    parcel."""
+    below the bottom added to the puddle (with ice_switch the frozen ones'
+    mass and number too, with chem_switch their dissolved masses) and
+    removed.  None in a parcel."""
     if cfg.n_dims == 0:
         return state
     x, y, z, n = state.x, state.y, state.z, state.n
@@ -161,6 +163,15 @@ def bcnd(cfg: StaticConfig, state: State) -> State:
         fold[OUT_DRY_VOL] = torch.sum(4.0 / 3 * c.pi * nf * state.rd3)
         fold[OUT_LIQ_NUM] = torch.sum(torch.where(rw2 > 0, nf, 0.0))
         fold[OUT_PRTCL_NUM] = torch.sum(nf)
+        if cfg.ice_switch:
+            # frozen SDs reaching the ground (bcnd.ipp:301-327)
+            nfi = torch.where(state.ice_a > 0, nf, 0.0)
+            fold[OUT_ICE_MASS] = torch.sum(nfi * ice_mass(
+                state.ice_a, state.ice_c, state.ice_rho))
+            fold[OUT_ICE_NUM] = torch.sum(nfi)
+        if cfg.chem_switch:
+            # the dissolved masses rain out too (bcnd.ipp:330-340)
+            fold[:8] = torch.sum(nf * state.chem, dim=1)
         puddle = puddle + fold
         n = torch.where(fell, 0.0, n)
     return dataclasses.replace(state, x=x, y=y, z=z, n=n, puddle=puddle)

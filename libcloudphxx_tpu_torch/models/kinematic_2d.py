@@ -13,6 +13,10 @@ reference icicle's, ``grid="node"``):
   engine's step functions or the dense cell-major engine
   (lgrngn/dense.py), the latter with the occupancy-aware repack policy of
   long runs;
+* ``micro="lgrngn_chem"``: the same with the aqueous chemistry
+  (kin_cloud_2d_lgrngn_chem.hpp): six trace gases (``chem_gases``)
+  advected beside th and rv and passed to step_sync, in the stepwise loop
+  on the flat engine;
 * ``micro="blk_1m"`` / ``"blk_2m"``: the bulk schemes (blk_1m/, blk_2m/)
   on the field tensors, all fields advected in one MPDATA launch a step:
   the stepwise loop (step, run) and the device-resident run_device.
@@ -27,6 +31,7 @@ from torch import nn
 
 from .. import blk_1m as blk_1m_mod
 from .. import blk_2m as blk_2m_mod
+from ..common import chem
 from ..common import constants as c
 from ..common import hydrostatic, theta_dry, theta_std
 from ..lgrngn import dense
@@ -59,6 +64,15 @@ class Setup:
     n2_stp: float = 40e6
     kappa: float = 0.61
     chem_b: float = 0.55       # blk_2m's aerosol solubility parameter
+    # the trace gases' volume mixing ratios and the aerosol's density of
+    # lgrngn_chem (reference opts_common.hpp:64-103)
+    SO2_g_0: float = 0.2e-9
+    O3_g_0: float = 50e-9
+    H2O2_g_0: float = 0.5e-9
+    CO2_g_0: float = 360e-6
+    NH3_g_0: float = 0.1e-9
+    HNO3_g_0: float = 0.1e-9
+    chem_rho: float = 1.8e3
     # th/rv relaxation (reference opts_common.hpp:65-66, 96-97)
     tau_rlx: float = 300.0
     z_rlx: float = 200.0
@@ -106,6 +120,16 @@ def rhod_profile(setup: Setup, z):
     (icmw8_case1.hpp:119-136)."""
     p = hydrostatic.p(z, setup.th_0, setup.rv_0, setup.z_0, setup.p_0)
     return theta_std.rhod(p, setup.th_0, setup.rv_0)
+
+
+def mixr_helper_profile(setup: Setup, z):
+    """Moles of air per kg of dry air at heights ``z`` (a float64 tensor):
+    what turns the trace gases' volume mixing ratios into mass mixing
+    ratios (icmw8_case1.hpp mixr_helper:139-163)."""
+    p = hydrostatic.p(z, setup.th_0, setup.rv_0, setup.z_0, setup.p_0)
+    rhod = theta_std.rhod(p, setup.th_0, setup.rv_0)
+    T = theta_dry.T(theta_dry.std2dry(setup.th_0, setup.rv_0), rhod)
+    return p / c.kaBoNA / T / rhod
 
 
 def make_gc(setup: Setup, nx, nz, dx, dz):
@@ -209,11 +233,7 @@ class Kinematic2D(nn.Module):
                  relax_th_rv=False, engine="auto", device="cuda",
                  dtype=torch.float32):
         super().__init__()
-        if micro == "lgrngn_chem":
-            raise NotImplementedError(
-                "Kinematic2D: micro='lgrngn_chem' is not ported (ROADMAP.md, "
-                "Queue 1, \"Chemistry\")")
-        if micro not in ("lgrngn", "blk_1m", "blk_2m"):
+        if micro not in ("lgrngn", "lgrngn_chem", "blk_1m", "blk_2m"):
             raise ValueError(f"Kinematic2D: unknown micro {micro!r}")
         if grid not in ("cell", "node"):
             raise ValueError(f"Kinematic2D: unknown grid {grid!r}; 'cell' "
@@ -280,6 +300,7 @@ class Kinematic2D(nn.Module):
         self.th, self.rv = dev(th), dev(rv)
         self.t = 0.0
         self.puddle_flux = 0.0
+        self.chem_gases = None
         # th/rv relaxation toward the post-spinup horizontal means
         # (kin_cloud_2d_common.hpp:61-77, update_rhs:90-117)
         self.relax_th_rv = relax_th_rv
@@ -293,7 +314,7 @@ class Kinematic2D(nn.Module):
                 blk_2m_mod.lognormal_mode_t(mean, sdev, n, s.chem_b)
                 for mean, sdev, n in ((s.mean_rd1, s.sdev_rd1, s.n1_stp),
                                       (s.mean_rd2, s.sdev_rd2, s.n2_stp))))
-        if micro != "lgrngn":
+        if micro in BULK_FIELDS:
             for k in BULK_FIELDS[micro][2:]:
                 setattr(self, k, torch.zeros_like(self.th))
             return
@@ -337,6 +358,22 @@ class Kinematic2D(nn.Module):
                 "Kinematic2D: the model drives th_dry with variable pressure "
                 "only, as the JAX package's (ROADMAP.md, \"Known behaviours "
                 "of the reference\")")
+        gases = None
+        if micro == "lgrngn_chem":
+            # the trace gases from their volume mixing ratios
+            # (kin_cloud_2d_lgrngn_chem.hpp hook_ante_loop:101-128)
+            oi.chem_switch = True
+            oi.chem_rho = s.chem_rho
+            mixr = mixr_helper_profile(s, f64(z_scalar)).numpy()
+            cs = chem.chem_species_t
+            gases = {sp: np.broadcast_to(mixr * v * m, (nx, nz)).copy()
+                     for sp, v, m in (
+                         (cs.SO2, s.SO2_g_0, chem.M_SO2),
+                         (cs.O3, s.O3_g_0, chem.M_O3),
+                         (cs.H2O2, s.H2O2_g_0, chem.M_H2O2),
+                         (cs.CO2, s.CO2_g_0, chem.M_CO2),
+                         (cs.NH3, s.NH3_g_0, chem.M_NH3),
+                         (cs.HNO3, s.HNO3_g_0, chem.M_HNO3))}
         self.opts_init = oi
         self.prtcls = factory(backend_t.CUDA, oi, device=self.device,
                               dtype=dtype, engine=engine)
@@ -345,32 +382,52 @@ class Kinematic2D(nn.Module):
         self.cfg = self.prtcls.cfg
         # the float64 host fields, as the JAX model passes them: init_SD
         # scales the multiplicities by this rhod
-        self.prtcls.init(th, rv, rhod, Cx=C_x, Cz=C_z)
+        self.prtcls.init(th, rv, rhod, Cx=C_x, Cz=C_z, ambient_chem=gases)
         self.opts = opts_t()
+        if gases is not None:
+            # the gases as the model's fields, (nx, nz) tensors in the
+            # species order of the JAX model's dict
+            self.chem_gases = {sp: dev(v) for sp, v in gases.items()}
+            self.opts.chem_dsl = self.opts.chem_dsc = True
+            self.opts.chem_rct = True
         # the population in the dense layout and the flat state it stands
         # for (see dense_state)
         self._dense = None
 
     # -------------------------------------------------- the stepwise loop
     def advect_scalars(self, *, plain=False):
-        """The Eulerian part of one step: MPDATA of th and rv, one field a
-        call (kernel A on the card; ``plain``, its plain version)."""
+        """The Eulerian part of one step: MPDATA of th and rv, and of the
+        six trace gases for lgrngn_chem, one field a call (kernel A on the
+        card; ``plain``, its plain version)."""
         mp = (self.gc_x, self.gc_z, self.G, self.mpdata_iters, self.fct)
         self.th = mpdata.advect(self.th, *mp, plain=plain)
         self.rv = mpdata.advect(self.rv, *mp, plain=plain)
+        if self.chem_gases is not None:
+            for sp, v in self.chem_gases.items():
+                self.chem_gases[sp] = mpdata.advect(v, *mp, plain=plain)
 
     def micro_step(self, spinup=False, *, plain=False):
         """The microphysics of one step through the public API, th/rv (and
-        rhod) passed as device tensors.  During spin-up coalescence and
-        sedimentation are off and RH is capped at 1.01 (set_rain,
-        kin_cloud_2d_lgrngn.hpp:121-126)."""
+        rhod, and for lgrngn_chem the trace gases) passed as device
+        tensors.  During spin-up coalescence and sedimentation are off and
+        RH is capped at 1.01 (set_rain, kin_cloud_2d_lgrngn.hpp:121-126),
+        and lgrngn_chem oxidises nothing."""
         opts = self.opts
         opts.sedi = opts.coal = not spinup
         opts.RH_max = 1.01 if spinup else 44.0
+        gases = self.chem_gases
+        if gases is not None:
+            # no oxidation in the spin-up (set_chem,
+            # kin_cloud_2d_lgrngn_chem.hpp:89-99)
+            opts.chem_rct = not spinup
         th, rv = self.prtcls.step_sync(opts, self.th, self.rv, self.rhod,
-                                       plain=plain)
+                                       ambient_chem=gases, plain=plain)
         self.th = th.reshape(self.nx, self.nz)
         self.rv = rv.reshape(self.nx, self.nz)
+        if gases is not None:
+            amb = self.prtcls.state.ambient_chem
+            for sp in gases:
+                gases[sp] = amb[int(sp)].reshape(self.nx, self.nz)
         self.prtcls.step_async(opts, plain=plain)
 
     def _relax_hooks(self, spinup):
@@ -398,7 +455,7 @@ class Kinematic2D(nn.Module):
         rain flux into ``puddle_flux`` on the host, as the JAX package's
         step does."""
         do_relax = self._relax_hooks(spinup)
-        if self.micro == "lgrngn":
+        if self.micro in ("lgrngn", "lgrngn_chem"):
             self.advect_scalars(plain=plain)
             if do_relax:
                 # reference order: mpdata_rhs applies the relaxation before
@@ -642,6 +699,10 @@ class Kinematic2D(nn.Module):
         if engine not in ("flat", "dense"):
             raise ValueError(f"run_device_lgrngn: engine must be 'flat' or "
                              f"'dense', got {engine!r}")
+        if self.micro == "lgrngn_chem":
+            raise NotImplementedError(
+                "run_device_lgrngn: lgrngn_chem runs in the stepwise loop "
+                "(run)")
         if self.micro != "lgrngn":
             raise ValueError(f"run_device_lgrngn: micro is {self.micro!r}; "
                              f"the bulk schemes run run_device")

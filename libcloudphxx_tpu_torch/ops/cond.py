@@ -44,6 +44,14 @@ d(rw^3) undivided, where the grid forms take the cell volume dv and
 divide by the private air's rhod dv.  Their plain versions are the same
 plain functions on a parcel's configuration.
 
+With ice_switch F runs its ice forms (csrc/cond_flat.cu
+lcp_cond_flat_ice, _ice_turb, _parcel_ice, _parcel_ice_turb): the TPU
+kernel's ice caller, the substep loop with ice deposition after each
+substep's root find (libcloudphxx_tpu/lgrngn/condensation.py:248-305);
+they take the sorted ice_a, ice_c and ice_rho and return the new axes and
+the last substep's closure th and rv.  Their plain version is
+cond_flat_plain with the ice.
+
 Dispatch is by device, as in ops/step.py: CPU tensors run the plain
 version, CUDA tensors launch the kernel (float32, contiguous, or the
 wrapper raises), and ``plain=True`` runs the plain version on any device,
@@ -62,8 +70,10 @@ kernel's or the plain version's.
 import torch
 
 from .. import _ext
+from ..common import constants as c
 from ..common import theta_dry
 from ..lgrngn import condensation, hskpng, turbulence
+from ..lgrngn import ice as ice_mod
 
 
 _FORM_KERNELS = {"cond_flat": "COND_FLAT",
@@ -71,18 +81,19 @@ _FORM_KERNELS = {"cond_flat": "COND_FLAT",
                  "perparticle_adaptive": "COND_SD_ADAPTIVE"}
 
 
-def form_kernel(form, parcel, turb):
+def form_kernel(form, parcel, turb, ice=False):
     """The kernel that the wrapper ``form`` (cond_flat, perparticle_fixed
     or perparticle_adaptive) launches: its parcel form where ``parcel``
-    (cfg.n_dims == 0), its turb_cond form where ``turb``."""
+    (cfg.n_dims == 0), its ice form where ``ice`` (cond_flat under
+    ice_switch), its turb_cond form where ``turb``."""
     return getattr(_ext, _FORM_KERNELS[form] + ("_PARCEL" if parcel else "")
-                   + ("_TURB" if turb else ""))
+                   + ("_ICE" if ice else "") + ("_TURB" if turb else ""))
 
 
 def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
                     rd3, kpa, vt, wgt, th, rv, rhod, delta_th, delta_rv,
                     delta_rh, p, dv, lambda_D, lambda_K, ssp=None,
-                    dot_ssp=None):
+                    dot_ssp=None, ice=None):
     """sstp substeps of the cell-sorted droplets' growth, each closed by the
     cells' latent heat (libcloudphxx_tpu/lgrngn/condensation.py:312-388):
     cell sums as a float64 cumulative sum differenced at the cell ends.
@@ -91,9 +102,22 @@ def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
     substep's rhod (:366, through hskpng_Tpr), and ``dv`` is not read.
     With ``ssp`` (turb_cond) each droplet's SGS supersaturation advances by
     dt_sub * dot_ssp at the start of every substep and adds to its cell's
-    RH (:353-358).  Returns (rw2, th, rv, rhod), and ssp with it."""
+    RH (:353-358).  With ``ice`` = (ice_a, ice_c, ice_rho), sorted, each
+    substep then grows the frozen live SDs' axes (lgrngn/ice.py dep_axes,
+    at the substep's closure and the rv after the liquid's latent heat)
+    and takes the ice mass a cell gains, n 4/3 pi ice_rho d(a^2 c) over dv
+    rhod (as wgt ice_rho / rho_w d(a^2 c)), from its rv, and the heat of
+    deposition into its th (:248-305, lgrngn/ice.py:106-148).  Returns
+    (rw2, th, rv, rhod), then ssp with turb_cond, then with ice the new
+    ice_a and ice_c and the th and rv that the last substep's closure took
+    (that closure is the cells' T, p, RH and eta after the ice loop,
+    :300-305)."""
     lamD_s, lamK_s = lambda_D[sijk], lambda_K[sijk]
     parcel = cfg.n_dims == 0
+    if ice is not None:
+        ice_a, ice_c, ice_rho = ice
+        is_ice = (ice_a > 0) & (ice_c > 0) & (wgt > 0)
+        rho_ratio = ice_rho / c.rho_w
     if parcel:
         # a parcel's cell is 1 kg of dry air, whatever ``dv`` holds
         dv = hskpng.parcel_dv(rhod)
@@ -122,15 +146,28 @@ def cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2,
         else:
             wsub = wgt
         drv = -condensation.cell_sum(wsub * drw3, ends).to(rw2.dtype)
+        th_c, rv_c = th, rv
         th = th + drv * theta_dry.d_th_d_rv(T, th)
         rv = rv + drv
         rw2 = rw2_new
-    return (rw2, th, rv, rhod) + (() if ssp is None else (ssp,))
+        if ice is not None:
+            a_new, c_new = ice_mod.dep_axes(is_ice, ice_a, ice_c, vt,
+                                            g(rhod), g(rv), g(T), g(p_),
+                                            g(eta), dt_sub, RH_max)
+            dm = torch.where(is_ice, wsub * (rho_ratio * ice_mod.dep_volume(
+                ice_a, ice_c, a_new, c_new)), 0.0)
+            d_ice = condensation.cell_sum(dm, ends).to(rw2.dtype)
+            rv = rv - d_ice
+            th = th - d_ice * theta_dry.d_th_d_rv_dep(T, th)
+            ice_a, ice_c = a_new, c_new
+    return (rw2, th, rv, rhod) + (() if ssp is None else (ssp,)) \
+        + (() if ice is None else (ice_a, ice_c, th_c, rv_c))
 
 
 def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
               vt, wgt, th, rv, rhod, delta_th, delta_rv, delta_rh, p, dv,
-              lambda_D, lambda_K, ssp=None, dot_ssp=None, *, plain=False):
+              lambda_D, lambda_K, ssp=None, dot_ssp=None, ice=None, *,
+              plain=False):
     """Kernel F, or its plain version cond_flat_plain (same arguments and
     results).  ``sijk`` the sorted cells of the SDs, ``ends`` the last
     sorted position of each cell (condensation.cell_ends); ``rw2`` ...
@@ -139,9 +176,14 @@ def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
     ``p`` the pressure the closure takes, ``dv`` the cell volumes.
     ``var_rho`` substeps rhod and the weights with it.  With the sorted
     ``ssp`` and ``dot_ssp`` (turb_cond) it runs F's turb_cond form and
-    returns ssp too.  Returns (rw2, th, rv, rhod[, ssp])."""
+    returns ssp too.  With the sorted ``ice`` = (ice_a, ice_c, ice_rho)
+    (ice_switch) it runs F's ice form, which deposits after each substep's
+    liquid growth, and returns the new ice_a and ice_c and the last
+    substep's closure th and rv too (cond_flat_plain).  Returns (rw2, th,
+    rv, rhod[, ssp][, ice_a, ice_c, th_c, rv_c])."""
     turb = ssp is not None
-    sd = (sijk, rw2, rd3, kpa, vt, wgt) + ((ssp, dot_ssp) if turb else ())
+    sd = (sijk, rw2, rd3, kpa, vt, wgt) + ((ssp, dot_ssp) if turb else ()) \
+        + (tuple(ice) if ice is not None else ())
     cells = (th, rv, rhod, delta_th, delta_rv, delta_rh, p, dv, lambda_D,
              lambda_K)
     n_sd, n_cell = rw2.shape[0], th.shape[0]
@@ -154,12 +196,12 @@ def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
                          f"{[tuple(a.shape) for a in cells + (ends,)]}")
     parcel = cfg.n_dims == 0
     name = "cond_flat" + ("_parcel" if parcel else "") \
-        + ("_turb" if turb else "")
+        + ("_ice" if ice is not None else "") + ("_turb" if turb else "")
     if _ext.use_plain(name, rw2, plain):
         return cond_flat_plain(cfg, sstp, dt_sub, RH_max, var_rho, sijk,
                                ends, rw2, rd3, kpa, vt, wgt, th, rv, rhod,
                                delta_th, delta_rv, delta_rh, p, dv, lambda_D,
-                               lambda_K, ssp, dot_ssp)
+                               lambda_K, ssp, dot_ssp, ice)
     if n_sd >= 2 ** 31:
         raise ValueError("cond_flat: more than 2**31 - 1 SDs")
     sd = sd[1:]
@@ -169,8 +211,11 @@ def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
                             dv, lambda_D, lambda_K])
     _ext.check("cond_flat", cells_in)
     rw2_out = torch.empty_like(rw2)
-    cells_out = torch.empty((3, n_cell), dtype=rw2.dtype, device=rw2.device)
-    pos, buf = _ext.cond_scratch(n_sd, rw2.device, rows=8 if turb else 6)
+    cells_out = torch.empty((3 if ice is None else 5, n_cell),
+                            dtype=rw2.dtype, device=rw2.device)
+    pos, buf = _ext.cond_scratch(
+        n_sd, rw2.device, rows=6 + (2 if turb else 0)
+        + (3 if ice is not None else 0))
     sizes = torch.diff(ends, prepend=ends.new_full((1,), -1))
     order = _ext.longest_first(sizes)
     args = (*(a.data_ptr() for a in (wgt, rw2, rd3, kpa, vt, ends,
@@ -180,14 +225,18 @@ def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
             float(dt_sub), float(RH_max), int(cfg.th_dry), int(cfg.const_p),
             int(cfg.RH_formula), int(var_rho),
             condensation._root_iters(rw2.dtype))
-    kernel = form_kernel("cond_flat", parcel, turb)
-    if not turb:
-        kernel.launch(*args)
-        return (rw2_out,) + tuple(cells_out.unbind(0))
-    ssp_out = torch.empty_like(ssp)
-    kernel.launch(*args, ssp.data_ptr(), dot_ssp.data_ptr(),
-                  ssp_out.data_ptr())
-    return (rw2_out,) + tuple(cells_out.unbind(0)) + (ssp_out,)
+    out = ()
+    if turb:
+        ssp_out = torch.empty_like(ssp)
+        args += (ssp.data_ptr(), dot_ssp.data_ptr(), ssp_out.data_ptr())
+        out += (ssp_out,)
+    if ice is not None:
+        ice_out = (torch.empty_like(rw2), torch.empty_like(rw2))
+        args += tuple(a.data_ptr() for a in tuple(ice) + ice_out)
+    form_kernel("cond_flat", parcel, turb, ice is not None).launch(*args)
+    cells = tuple(cells_out.unbind(0))
+    out = (rw2_out,) + cells[:3] + out
+    return out if ice is None else out + ice_out + cells[3:]
 
 
 def advance_rw2_plain(dt, rw2, rd3, kpa, vt, rhod, rv, T, p, RH, eta, lam_D,

@@ -1,16 +1,20 @@
 """Philox 4x32-10 counter-based random numbers for the coalescence loop
-(in place of the TPU kernel's on-core generator, pallas_coal._u01) and
-the SGS turbulence's velocity draws (in place of the JAX package's
-jax.random normals, lgrngn/turbulence.py:34-53).
+(in place of the TPU kernel's on-core generator, pallas_coal._u01), the
+SGS turbulence's velocity draws (in place of the JAX package's
+jax.random normals, lgrngn/turbulence.py:34-53) and the time-dependent
+freezing's uniforms.
 
 A draw is a pure function of (seed, row; step, substep, kind, lane): the
 key is (seed, row) and the counter (step, substep, kind, lane), where
 ``kind`` says what the number is for (SHUFFLE, the pairing shuffle's key,
 BERNOULLI, the collision draw, or NORMAL, a turbulent velocity's draw,
 whose "substep" is the velocity's axis).  Of the four output words the
-first is used, and for NORMAL the first two (Box-Muller).  There is no global generator: the same arguments give the same bits
-on the CPU, on the card in plain PyTorch, and in kernel E
-(csrc/philox.cuh, the same rounds in uint32 arithmetic).
+first is used, and for NORMAL the first two (Box-Muller); FREEZE is the
+time-dependent freezing's uniform (lgrngn/ice.py freeze_u01, in place of
+the JAX package's jax.random draw, lgrngn/ice.py:49-52).  There is no
+global generator: the same arguments give the same bits on the CPU, on
+the card in plain PyTorch, and in kernel E (csrc/philox.cuh, the same
+rounds in uint32 arithmetic).
 
 The plain version works in int64 tensors with explicit 32-bit masks; the
 32x32-bit products are split into 16-bit halves so that no intermediate
@@ -23,7 +27,7 @@ import math
 
 import torch
 
-SHUFFLE, BERNOULLI, NORMAL = 0, 1, 2
+SHUFFLE, BERNOULLI, NORMAL, FREEZE = 0, 1, 2, 3
 
 M0, M1 = 0xD2511F53, 0xCD9E8D57      # round multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85      # key increments (golden ratio, sqrt 3)

@@ -93,8 +93,9 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import (ambient_population, flat_cond_case, multiset,
-                          perparticle_case, transport_case)
+from torch_parity import (ambient_population, flat_cond_case,
+                          ice_cond_case, multiset, perparticle_case,
+                          transport_case)
 
 from libcloudphxx_tpu_torch import Kinematic2D, _ext
 from libcloudphxx_tpu_torch.lgrngn import as_t, dense, kernel_t, vt_t
@@ -1848,3 +1849,79 @@ def test_3d_grid_kernels_match_plain(dev):
     assert _rel(tk, tp) <= 2e-6 and _rel(rk, rp) <= 2e-5
     assert torch.equal(sk.n, sp.n) and torch.equal(sk.ijk, sp.ijk)
     assert bool((sk.y != 0).any())
+
+
+# ------------------------------------------------------ F's ice forms
+def _ice_case(dev, case, config, parcel):
+    """ice_cond_case on FLAT_CASES' cells under ``config``; in a parcel
+    with the weights per kg of air, as a parcel holds them."""
+    sizes, dead0 = FLAT_CASES[case]
+    over = dict(FLAT_CONFIGS[config])
+    var_rho = over.pop("var_rho", False)
+    cfg, kw = ice_cond_case(sizes, dead0, 3, dev, torch.float32, **over)
+    if parcel:
+        cfg = _parcel(cfg)
+        kw["wgt"] = kw["wgt"] / (kw["dv"] * kw["rhod"])[kw["sijk"]]
+    return cfg, dict(kw, var_rho=var_rho)
+
+
+@pytest.mark.parametrize("turb", [False, True], ids=["", "turb"])
+@pytest.mark.parametrize("parcel", [False, True], ids=["grid", "parcel"])
+@pytest.mark.parametrize("config", ["th_dry", "var_rho", "const_p"])
+@pytest.mark.parametrize("case", list(FLAT_CASES))
+def test_cond_flat_ice_kernel_matches_plain(dev, case, config, parcel,
+                                            turb):
+    """Kernel F's four ice forms (the deposition after each substep's
+    liquid growth) against their plain version on cold cells where half
+    the live SDs are frozen: the live droplets' rw2 rel 1e-5, th 2e-6 and
+    rv 2e-5 (F's gates: the cell sums add in another order), the frozen
+    SDs' axes rel 1e-5, the last closure's th and rv within the th and rv
+    gates; frozen SDs keep rw2 0, dead slots keep their rw2 and axes, and
+    the ice grew."""
+    cfg, kw = _ice_case(dev, case, config, parcel)
+    sgs = dict(zip(("ssp", "dot_ssp"), _sgs(kw["rw2"].shape[0], 7, dev))) \
+        if turb else {}
+    kernel = cond_ops.form_kernel("cond_flat", parcel, turb, ice=True)
+    k = _launches(kernel, lambda: cond_ops.cond_flat(cfg, RH_max=44.0, **kw,
+                                                     **sgs))
+    p = cond_ops.cond_flat(cfg, RH_max=44.0, plain=True, **kw, **sgs)
+    assert len(k) == len(p) == 8 + turb
+    live = kw["wgt"] > 0
+    ia, ic, _ = kw["ice"]
+    frozen = live & (ia > 0) & (ic > 0)
+    liquid = live & ~frozen
+    assert _rel(k[0][liquid], p[0][liquid]) <= 1e-5
+    assert torch.equal(k[0][frozen], kw["rw2"][frozen])
+    assert torch.equal(k[0][~live], kw["rw2"][~live])
+    assert _rel(k[1], p[1]) <= 2e-6 and _rel(k[2], p[2]) <= 2e-5
+    assert torch.equal(k[3], p[3])
+    a_k, c_k, th_c, rv_c = k[-4:]
+    a_p, c_p, th_cp, rv_cp = p[-4:]
+    assert _rel(a_k[frozen], a_p[frozen]) <= 1e-5
+    assert _rel(c_k[frozen], c_p[frozen]) <= 1e-5
+    assert torch.equal(a_k[~frozen], ia[~frozen])
+    assert torch.equal(c_k[~frozen], ic[~frozen])
+    assert _rel(th_c, th_cp) <= 2e-6 and _rel(rv_c, rv_cp) <= 2e-5
+    assert bool((a_k[frozen] > ia[frozen]).any())
+    if turb:
+        assert torch.equal(k[4][live], p[4][live])
+        assert torch.equal(k[4][~live], sgs["ssp"][~live])
+    # the deposition moved the cells: the warm form on the same SDs differs
+    warm = cond_ops.cond_flat(dataclasses.replace(cfg, ice_switch=False),
+                              RH_max=44.0, **{k_: v for k_, v in kw.items()
+                                              if k_ != "ice"}, **sgs)
+    assert _rel(k[2], warm[2]) > 1e-5
+
+
+def test_cond_flat_ice_without_frozen_sds_is_the_warm_form(dev):
+    """With no SD frozen, F's ice form gives the warm form's rw2, th and rv
+    bitwise: the deposition adds nothing, and the liquid growth is the
+    warm form's."""
+    cfg, kw = _ice_case(dev, "gmd", "th_dry", False)
+    kw["ice"] = tuple(torch.zeros_like(a) for a in kw["ice"])
+    k = cond_ops.cond_flat(cfg, RH_max=44.0, **kw)
+    warm = cond_ops.cond_flat(dataclasses.replace(cfg, ice_switch=False),
+                              RH_max=44.0, **{k_: v for k_, v in kw.items()
+                                              if k_ != "ice"})
+    for a, b in zip(k[:4], warm):
+        assert torch.equal(a, b)

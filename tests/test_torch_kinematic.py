@@ -360,10 +360,11 @@ def test_unported_paths_raise(what, port):
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
                         opts_init_kw={"dev_count": 2})
         else:
-            # the bulk schemes run (test_torch_kinematic_blk.py);
-            # lgrngn_chem does not (ROADMAP.md, Queue 1, "Chemistry")
+            # the bulk schemes run (test_torch_kinematic_blk.py), and
+            # lgrngn_chem in the stepwise loop (test_torch_chem.py), not
+            # through run_device_lgrngn
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
-                        micro="lgrngn_chem")
+                        micro="lgrngn_chem").run_device_lgrngn(1)
 
 
 @pytest.mark.parametrize("max_count,cap", [(24, 64), (64, 128), (3, 8)])

@@ -233,8 +233,9 @@ def test_lgrngn_node_dense_engine_matches_jax(lgrngn_pair):
 
 def test_refusals():
     with pytest.raises(NotImplementedError,
-                       match="Chemistry"):
-        Kinematic2D(nx=4, nz=4, micro="lgrngn_chem", **F64)
+                       match="lgrngn_chem runs in the stepwise loop"):
+        Kinematic2D(nx=4, nz=4, sd_conc=2, micro="lgrngn_chem",
+                    **F64).run_device_lgrngn(1)
     with pytest.raises(ValueError, match="unknown micro"):
         Kinematic2D(nx=4, nz=4, micro="blk_3m", **F64)
     with pytest.raises(ValueError, match="unknown grid"):

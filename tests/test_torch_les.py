@@ -357,10 +357,14 @@ def test_les_switches_and_refusals():
             tl.factory(tl.backend_t.CUDA, oi(**over), engine="dense", **F64)
     assert dense_capable(tl.factory(tl.backend_t.CUDA, oi(
         turb_adve_switch=True, turb_coal_switch=True), **F64).cfg)
-    for over, title in (({"ice_switch": True}, "Ice"),
-                        ({"chem_switch": True}, "Chemistry")):
-        with pytest.raises(NotImplementedError, match=title):
-            tl.factory(tl.backend_t.CUDA, oi(**over), **F64)
+    # ice and chemistry run on the flat engine, which the factory gives
+    # for them, and the dense engine refuses them, as the JAX package's
+    for over in ({"ice_switch": True}, {"chem_switch": True}):
+        prt = tl.factory(tl.backend_t.CUDA, oi(**over), **F64)
+        assert type(prt) is tparticles.particles_t
+        assert not dense_capable(prt.cfg)
+        with pytest.raises(NotImplementedError, match="ice/chem"):
+            tl.factory(tl.backend_t.CUDA, oi(**over), engine="dense", **F64)
     m = Kinematic2D(nx=4, nz=4, sd_conc=2, **F64)
     for name, switch in (("turb_cond", "turb_cond_switch"),
                          ("turb_coal", "turb_coal_switch")):

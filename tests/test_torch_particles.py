@@ -375,15 +375,15 @@ def test_defaults_and_refusals(monkeypatch):
     oi = Kinematic2D(nx=4, nz=4, sd_conc=2, **F64).opts_init
     with pytest.raises(RuntimeError, match="device='cpu'"):
         factory(tl.backend_t.CUDA, oi)
-    for over, match in (({"dev_count": 2}, "Multi-device"),
-                        ({"ice_switch": True}, "ice_switch"),
-                        ({"chem_switch": True}, "chem_switch")):
+    for over, match in (({"dev_count": 2}, "Multi-device"),):
         o = _copy(oi, **over)
         with pytest.raises(NotImplementedError, match=match):
             factory(tl.backend_t.CUDA, o, **F64)
-    # the LES slice runs (tests/test_torch_les.py, test_torch_source.py)
+    # the LES slice runs (tests/test_torch_les.py, test_torch_source.py),
+    # and so do ice and chemistry (test_torch_ice.py, test_torch_chem.py)
     for over in ({"turb_cond_switch": True}, {"diag_incloud_time": True},
-                 {"turb_adve_switch": True}):
+                 {"turb_adve_switch": True}, {"ice_switch": True},
+                 {"chem_switch": True}):
         assert type(factory(tl.backend_t.CUDA, _copy(oi, **over), **F64)) \
             is tparticles.particles_t
     m = Kinematic2D(nx=4, nz=4, sd_conc=2, **F64)

@@ -360,3 +360,51 @@ def perparticle_case(counts, cap=None, dead0=0, seed=0, device="cpu",
     as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return (cfg, tuple(as_t(v) for v in sd.values()),
             tuple(as_t(v) for v in cell_vals.values()), seg)
+
+
+def ice_cond_case(sizes, dead0=0, seed=0, device="cpu", dtype=torch.float64,
+                  th_dry=True, const_p=False, sstp=4, frozen=0.5):
+    """flat_cond_case's inputs in cold air, with ice: the cells at 235-255
+    K and 0.9-1.02 of saturation over water (supersaturated over ice), a
+    ``frozen`` share of the live SDs frozen (rw2 0, semi-axes of 1-50 um,
+    aspect ratios 0.3-3, ice_rho 910 or 916.8 kg/m3), and the dead slots
+    holding axes they died with.  Returns (cfg with ice_switch, kwargs of
+    cond_flat without RH_max, var_rho and plain, ``ice`` included)."""
+    from libcloudphxx_tpu_torch.common import const_cp, theta_dry, theta_std
+    from libcloudphxx_tpu_torch.common import constants as c
+    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp
+    cfg, kw = flat_cond_case(sizes, dead0, seed, "cpu", torch.float64,
+                             th_dry, const_p, sstp)
+    cfg = dataclasses.replace(cfg, ice_switch=True)
+    rng = np.random.default_rng(seed + 1000)
+    n_cell, n_sd = kw["th"].shape[0], kw["rw2"].shape[0]
+    T = torch.tensor(rng.uniform(235.0, 255.0, n_cell), dtype=torch.float64)
+    rhod = kw["rhod"]
+    if th_dry:
+        # th_dry: T = (th q)^(c_pd / (c_pd - R_d)), q of rhod
+        th = T ** (1.0 - c.R_d / c.c_pd) / theta_dry.rhod_factor(rhod)
+        p = theta_dry.p(rhod, torch.tensor(1e-3, dtype=torch.float64), T)
+    else:
+        p = kw["p"]
+        th = T / theta_std.exner(p)
+    rv = torch.tensor(rng.uniform(0.9, 1.02, n_cell)) * const_cp.r_vs(T, p)
+    lam_D, lam_K = hskpng_mfp(T, p)
+    live = kw["wgt"] > 0
+    ice = torch.tensor(rng.random(n_sd) < frozen) & live
+    a = torch.tensor(np.exp(rng.uniform(np.log(1e-6), np.log(5e-5), n_sd)))
+    cc = a * torch.tensor(np.exp(rng.uniform(np.log(0.3), np.log(3.0),
+                                             n_sd)))
+    held = ice | (~live & torch.tensor(rng.random(n_sd) < 0.5))
+    kw.update(
+        th=th, rv=rv, p=p if not th_dry else kw["p"], lambda_D=lam_D,
+        lambda_K=lam_K, delta_th=kw["delta_th"] * 0.2,
+        delta_rv=rv * torch.tensor(rng.uniform(-2e-3, 4e-3, n_cell)),
+        rw2=torch.where(ice, 0.0, kw["rw2"]),
+        ice=(torch.where(held, a, 0.0), torch.where(held, cc, 0.0),
+             torch.where(held, torch.tensor(
+                 np.where(rng.random(n_sd) < 0.5, 910.0, 916.8)), 0.0)))
+    out = {k: (tuple(a.to(device=device, dtype=dtype) for a in v)
+               if k == "ice" else v.to(device=device, dtype=dtype)
+               if v.is_floating_point() else v.to(device))
+           for k, v in kw.items() if isinstance(v, (torch.Tensor, tuple))}
+    return cfg, dict(kw, **out)
