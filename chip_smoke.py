@@ -114,16 +114,16 @@ checks them:
      reference's fig_a bulk case (76x76 cells on the node grid, FCT on):
      kernel A's advect_n on each scheme's 4 and 6 fields, FCT off and on,
      n_iters 1-3, bitwise equal to its plain version and to one advect a
-     field; ante_loop (blk_1m) and run_device over 2000 steps (800 of
+     field; ante_loop (blk_1m) and run_device over 1000 steps (400 of
      them spin-up; the reference runs 9000 and 7200) through the kernels
      in float32, kernel A
      once a step, with the physics checks (finite fields, mixing ratios
      and concentrations >= -1e-10, the total water with the surface
      puddle conserved to 1e-4, rain formed); the kernel path against the
-     plain path over 400 steps across a spin-up boundary, run() against
+     plain path over 200 steps across a spin-up boundary, run() against
      run_device() (both bitwise); the float64 plain run against the
      float32 kernel run at the end, within the fig_a tolerances (blk_2m's
-     rc within 1e-5: BLK_GATES); best of 3 reps of 500 steps from the run's
+     rc within 1e-5: BLK_GATES); best of 3 reps of 250 steps from the run's
      end (ms/step, cell-updates/s), kernel A's device time in the step
      beside its bound, and with --profile the launches a step and the
      busy share
@@ -156,8 +156,8 @@ checks them:
      recycling (which would fill the slots the sources need); (e)
      turb_adve alone with the hall kernel on the factory's dense front
      (kernel B condenses, the flat engine runs each async phase).  Each:
-     the counted run (its form once a step), then best-of-3 timing from
-     init (50 steps for (e)), with on every rep finite fields, water
+     the counted run (its form once a step), then best-of-2 timing from
+     init (10 steps, 25 for (e)), with on every rep finite fields, water
      conserved with the puddle and what the sources added, |up| of the
      order of sqrt(2/3 TKE), ssp finite and not all zero, the in-cloud
      time >= 0 and 0 far below activation, no SD dropped; each new form
@@ -165,15 +165,16 @@ checks them:
      sums' gates with ssp bitwise, G-fixed within B's gates, G-adaptive
      bitwise), timed beside its bound
  19. the parcel (0-D), 1-D and 3-D grids on the flat engine through the
-     public API, the factory's pick on the card (particles_t): (a) the
+     public API (factory(engine="flat"); on the card the factory's pick
+     for the 3-D grid is the dense front, phase 22): (a) the
      GMD case extruded in y, 76x76x76 cells of 20 m, 28,094,464 SDs
      (sd_conc 64), the Setup's profiles on every column, phase 18's
      courants on every y slab and a courant_y of 0.1, sstp_cond =
      sstp_coal = 10, the geometric kernel, sedimentation, each step
      step_sync(opts, th, rv, rhod, Cx, Cy, Cz) and step_async(opts):
-     diag_vel_div on every y slab the 2-D field's, 10 counted steps (F
+     diag_vel_div on every y slab the 2-D field's, 5 counted steps (F
      once a step, no other kernel), F against its plain version on what a
-     step gives it (F's gates), the best of 3 reps of 10 steps from init,
+     step gives it (F's gates), the best of 2 reps of 5 steps from init,
      on every rep finite fields, water and dry mass conserved with the
      puddle (1e-3, 1e-4), the live count balanced against coalescence and
      the walls and SDs across the y walls; F timed at this shape beside
@@ -227,6 +228,28 @@ checks them:
      the plain path after 3 steps within F's gates, the gases within 2e-4
      beside a second kernel-path run's (the witness of their own spread);
      the best of 3 reps of the 20 chemistry steps from the spin-up
+ 22. the dense engine on the 3-D grid and with the onishi kernels: (a)
+     phase 19 (a)'s configuration (76x76x76 cells, 28,094,464 SDs at row
+     capacity 128) on the factory's pick on the card, the dense front:
+     10 counted steps (B, E's y form, C's and D's 3-D forms once a step,
+     no other kernel), C's, D's and E's 3-D forms against their plain
+     versions on what a full-width step gives them (bitwise; E also with
+     radii x10, C also on 1 mm rain), the best of 3 reps of 10 steps from
+     init, on every rep finite fields, water and dry mass conserved with
+     the puddle, the live count balanced against coalescence and the
+     walls, no SD dropped and SDs wrapped in y, the device time of each
+     kernel in the step; the front against the flat engine after one step
+     from the same init without coalescence (th, rv, and the per-cell wet
+     moments 0 and 3 where both hold as many SDs a cell, DENSE3D_GATES);
+     (b) pred_corr with vohl and the large tail, and
+     the exact mode with mixing, 3 counted steps each through the front
+     (C's 3-D pred_corr form, E's vohl y form, G and D's 3-D exact form),
+     the forms against their plain versions; (c) bench.py's case with the
+     onishi_hall kernel (kernel_parameters [100], dissipation rate 0):
+     spin-up and coalescing steps through run_device_lgrngn(engine=
+     "dense") (E's onishi form) with bench.py's checks, the dense front
+     bitwise equal to it, E's onishi form against its plain version
+     (cloud, radii x10 and x30) and the best of 3 reps of 20 steps
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
@@ -365,14 +388,16 @@ MESH_STEPS = 10
 # spin-up, cut from the reference's 9000 and 7200 (at those the phase took
 # 560 s on an H100, most of it the float64 plain runs' ~2,000 launches a
 # step; at 3000 and 1200 239 s, and cut again to keep the whole script
-# inside its time limit as phases are added), the steps of the kernel path
-# against the plain path (the spin-up moved to half of them), of run()
-# against run_device() and of a timing rep
+# inside its time limit as phases are added: 2000 and 800, then 1000 and
+# 400 since the 3-D dense phase 22), the steps of the kernel path
+# against the plain path (the spin-up moved to half of them; 200, from 400,
+# and a timing rep's 250, from 500, since phase 22), of run() against
+# run_device() and of a timing rep
 BLK_SCHEMES = ("blk_1m", "blk_2m")
-BLK_NT, BLK_SPINUP = 2000, 800
-BLK_PLAIN_STEPS, BLK_PLAIN_SPINUP = 400, 200
+BLK_NT, BLK_SPINUP = 1000, 400
+BLK_PLAIN_STEPS, BLK_PLAIN_SPINUP = 200, 100
 BLK_RUN_STEPS = 20
-BLK_TIME_STEPS = 500
+BLK_TIME_STEPS = 250
 # the fig_a h5diff tolerances at t = 9000 (tools/golden_parity_blk.py:
 # 64-77), here float32 against float64 at the run's end: (field, "abs" or
 # "rel", bound).  blk_2m's rc bound is 1e-5, not fig_a's 4.5e-6 (a gate
@@ -418,14 +443,15 @@ OPS_EFF, OPS_PRED_CORR, OPS_PRED_CORR_F64 = 41, 25, 4
 # phase 18: the LES slice at 76x76 and sd_conc 64 through the public API:
 # the dissipation rate every cell gets (tests/test_lgrngn_transport.py:181)
 # and the onishi kernel's Re_lambda (coalescence_onishi_hall.py); each
-# configuration's steps from init (best of TIME_REPS reps after the
-# counted run; (e) LES_STEPS_E); (d)'s source: SRC_SD_CONC SDs a cell of
+# configuration's steps from init (best of LES_REPS reps after the
+# counted run; (e) LES_STEPS_E; 20, 50 and 3 reps before the 3-D dense
+# phase 22 needed the time); (d)'s source: SRC_SD_CONC SDs a cell of
 # the lowest SRC_LEVELS levels every SRC_SUPSTP steps, from the GMD
 # distribution scaled by SRC_SCALE a second; its n_sd_max holds the
 # sources' and the relaxation's SDs: at most 2 calls of 76 x 10 x 4 and 10
 # of 64 bins x 76 levels, 54,720, beside the 369,664 of init
 LES_DISS, LES_RE_LAMBDA = 1e-3, 100.0
-LES_STEPS, LES_STEPS_E = 20, 50
+LES_STEPS, LES_STEPS_E, LES_REPS = 10, 25, 2
 SRC_SD_CONC, SRC_LEVELS, SRC_SUPSTP, SRC_SCALE = 4, 10, 10, 0.01
 LES_SD_HEADROOM = 65_536
 
@@ -439,7 +465,7 @@ LES_SD_HEADROOM = 65_536
 # and the lgrngn_cond parcel's rv-return gate (lgrngn_cond_case); (c) 1-D:
 # GRID_N cells, a courant_x of GRID1D_CX, GRID1D_STEPS steps
 GRID_N, GRID_D, GRID_CY = 76, 20.0, 0.1
-GRID_STEPS, GRID_REPS, GRID_KERNEL_REPS = 10, 3, 5
+GRID_STEPS, GRID_REPS, GRID_KERNEL_REPS = 5, 2, 5
 PARCEL_SD, PARCEL_STEPS, PARCEL_TURB_STEPS = 4096, 300, 120
 PARCEL_W, PARCEL_P0, PARCEL_TH, PARCEL_RV = 1.0, 100000.0, 289.0, 1.1e-2
 PARCEL_RV_RETURN = 7.5e-7
@@ -468,6 +494,30 @@ ICE_PARCEL_STEPS, ICE_PARCEL_TURB_STEPS, ICE_ASPECT_STEPS = 500, 120, 20
 CHEM_SPINUP, CHEM_STEPS, CHEM_SULFUR_GATE, CHEM_CHECK_STEPS = \
     10, 20, 1e-6, 3
 CHEM_GAS_GATE = 2e-4
+
+# phase 22: the dense front on phase 19 (a)'s 3-D configuration: (a)
+# DENSE3D_STEPS counted steps, then the best of DENSE3D_REPS reps of
+# DENSE3D_STEPS from init, and the front against the flat engine after one
+# step from the same init without coalescence within DENSE3D_GATES, about
+# 4x what the H100 reads (th and rv: B's and F's float64 cell sums, read
+# 1.05e-7 and 3.15e-7; m0 and m3 on the cells where both engines hold as
+# many SDs, read 9.1e-7 and 4.7e-5: the order of the cell sums and B's and
+# F's rw2), with at most DENSE3D_MOVED_CELLS cells whose SD count differs
+# (read 57: a droplet within an ulp of a face lands on either side, where
+# m0 parts by up to 7.4e-2); (b)
+# pred_corr with vohl, and the exact mode,
+# DENSE3D_FORM_STEPS counted steps each; (c) bench.py's case with
+# onishi_hall, SLICE_SPINUP + SLICE_MAIN counted steps, the best of
+# TIME_REPS reps of ONISHI_TIME_STEPS
+DENSE3D_STEPS, DENSE3D_REPS, DENSE3D_FORM_STEPS = 10, 3, 3
+DENSE3D_GATES = {"th": 1e-6, "rv": 2e-6, "m0": 4e-6, "m3": 2e-4}
+DENSE3D_MOVED_CELLS = 220               # 5e-4 of the 438,976 cells
+ONISHI_TIME_STEPS = 20
+# kernel C's 3-D forms a live SD beside OPS_TRANSPORT: y's advection, wall
+# and classification; kernel E's onishi form a pair beside the table
+# lookup: Wang's enhancement (onishi.cuh wang_enhancement) and the square
+# root of the geometric kernel's square
+OPS_TRANSPORT_Y, OPS_WANG = 20, 25
 
 # the Golovin box of tests/test_pallas_coal_golovin.py
 GOLOVIN_SIM_TIME, GOLOVIN_SSTP = 800.0, 100
@@ -513,9 +563,11 @@ def multiset(n, planes):
     return np.stack([c[order] for c in cols], 1)
 
 
-def time_cuda(fn, reps):
-    """Mean device time of fn() in ms over ``reps`` calls after a warm-up."""
-    fn()
+def time_cuda(fn, reps, warm=True):
+    """Mean device time of fn() in ms over ``reps`` calls after a warm-up
+    (``warm``; a call of seconds needs none)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
@@ -1498,7 +1550,10 @@ def smoke(opts):
                  _ext.COND_SD_ADAPTIVE_PARCEL_TURB,           # 19's
                  _ext.COND_FLAT_ICE, _ext.COND_FLAT_ICE_TURB,
                  _ext.COND_FLAT_PARCEL_ICE,
-                 _ext.COND_FLAT_PARCEL_ICE_TURB):             # 20's
+                 _ext.COND_FLAT_PARCEL_ICE_TURB,              # 20's
+                 _ext.TRANSPORT_3D, _ext.TRANSPORT_3D_PRED_CORR,
+                 _ext.MERGE_3D, _ext.MERGE_3D_EXACT, _ext.COAL_3D,
+                 _ext.COAL_VOHL_3D, _ext.COAL_ONISHI):        # 22's
             continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
@@ -1616,6 +1671,16 @@ def smoke(opts):
     t21 = time.perf_counter()
     chem = chem_phase(Kinematic2D, _ext, card, opts.profile)
     print(f"phase 21: {time.perf_counter() - t21:.1f} s", flush=True)
+
+    # ---- 22. the dense engine on the 3-D grid and with the onishi kernels
+    t22 = time.perf_counter()
+    d3_rows, d3, _ = dense3d_phase(Kinematic2D, _ext, dense, c, card,
+                                        opts.profile)
+    rows += d3_rows
+    print(f"timing, 3-D: dense front {d3['3-D']['ms_per_step']:.3f} "
+          f"ms/step against the flat engine's "
+          f"{grid['3-D']['ms_per_step']:.3f} (phase 19 (a)) ({card})")
+    print(f"phase 22: {time.perf_counter() - t22:.1f} s", flush=True)
 
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
@@ -3803,9 +3868,9 @@ def les_phase(Kinematic2D, _ext, c, card, profile_on):
             form_kw[case] = capture(cond_ops, fname,
                                     lambda: les_step(m, opts, diss))
             les_form_check(case, form_kw[case], err)
-        # best of TIME_REPS reps from init
+        # best of LES_REPS reps from init
         best = float("inf")
-        for _ in range(TIME_REPS):
+        for _ in range(LES_REPS):
             les_reset(m, init)
             secs, _ = les_run(m, opts, diss, steps, c, case)
             best = min(best, secs)
@@ -3813,7 +3878,7 @@ def les_phase(Kinematic2D, _ext, c, card, profile_on):
         out[case].update(ms_per_step=best / steps * 1e3,
                          sd_updates_per_s=n_sd * steps / best)
         print(f"timing, LES ({case}): {best / steps * 1e3:.3f} ms/step, "
-              f"{n_sd * steps / best:.4e} SD-updates/s (best of {TIME_REPS} "
+              f"{n_sd * steps / best:.4e} SD-updates/s (best of {LES_REPS} "
               f"reps of {steps} steps from init, {n_sd} SDs at init) "
               f"({card})", flush=True)
         if profile_on:
@@ -3883,11 +3948,13 @@ def grid_oi(m2, n_dims, **over):
 
 
 def grid_factory(oi, label):
-    """The factory's pick on the card for a phase-19 configuration: the
-    flat particles_t (the dense engine runs the 2-D grid alone)."""
+    """The flat particles_t for a phase-19 configuration, pinned with
+    factory(engine="flat"), so that F's rows keep their meaning (on the
+    card the factory's pick for the 3-D grid is the dense front: phase
+    22)."""
     from libcloudphxx_tpu_torch import lgrngn as tl
     from libcloudphxx_tpu_torch.lgrngn.particles import particles_t
-    prt = tl.factory(tl.backend_t.CUDA, oi, device=DEVICE)
+    prt = tl.factory(tl.backend_t.CUDA, oi, device=DEVICE, engine="flat")
     check(type(prt) is particles_t,
           f"{label}: the factory gave {type(prt).__name__}, not particles_t")
     return prt
@@ -4900,6 +4967,585 @@ def chem_phase(Kinematic2D, _ext, card, profile_on):
     del m, init, warm
     torch.cuda.empty_cache()
     return out
+
+
+def dense3d_factory(oi, label):
+    """The factory's pick on the card for a phase-22 configuration: the
+    dense front (particles_dense_t), packed."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
+    prt = tl.factory(tl.backend_t.CUDA, oi, device=DEVICE)
+    check(type(prt) is particles_dense_t,
+          f"{label}: the factory gave {type(prt).__name__}, not "
+          "particles_dense_t")
+    return prt
+
+
+def dense3d_init(prt, fields, label, card):
+    """init (factory -> particles_dense_t.init, then the pack) on phase
+    19's fields; returns (the packed DenseState, seconds)."""
+    t0 = time.perf_counter()
+    prt.init(fields["th"], fields["rv"], fields["rhod"], Cx=fields["Cx"],
+             Cy=fields["Cy"], Cz=fields["Cz"])
+    prt._ensure_dense()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    d = prt._d
+    per_row = (d.n > 0).sum(1)
+    print(f"{label}: init {int(per_row.sum())} SDs on {d.n_cell} rows of "
+          f"capacity {d.cap} (fullest {int(per_row.max())}) in {secs:.1f} s "
+          f"(factory -> init -> pack) ({card})", flush=True)
+    return d, secs
+
+
+def dense3d_run(prt, opts, steps, fields):
+    """grid_run on the dense front: ``steps`` steps of step_sync(opts, th,
+    rv, rhod, Cx, Cy, Cz) and step_async(opts), the live count's changes
+    in coalescence (kernel E's wrapper) and at the walls (kernel C's), and
+    the SDs that wrapped in y, summed on the device.  Returns (seconds,
+    {"coal", "walls", "y_wrap"}, th, rv)."""
+    from libcloudphxx_tpu_torch.ops import coal, step
+    th, rv = fields["th"], fields["rv"]
+    cfg = prt.cfg
+    half = (cfg.y1 - cfg.y0) / 2.0
+    flow = {k: torch.zeros((), dtype=torch.int64, device=DEVICE)
+            for k in ("coal", "walls", "y_wrap")}
+    real_e, real_c = coal.coal_resident, step.transport
+
+    def e(*args, **kw):
+        out = real_e(*args, **kw)
+        flow["coal"] += (out[0] > 0).sum() - (args[6] > 0).sum()
+        return out
+
+    def c(*args, **kw):
+        out = real_c(*args, **kw)
+        if out[4] is not None:          # some transport ran
+            flow["walls"] += (out[0] > 0).sum() - (args[3] > 0).sum()
+            flow["y_wrap"] += ((out[0] > 0) & (
+                (out[6] - kw["y3"][0]).abs() > half)).sum()
+        return out
+
+    coal.coal_resident, step.transport = e, c
+    kw = {"courant_" + k[1]: fields[k] for k in ("Cx", "Cy", "Cz")}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            th, rv = prt.step_sync(opts, th, rv, fields["rhod"], **kw)
+            prt.step_async(opts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        coal.coal_resident, step.transport = real_e, real_c
+    return secs, {k: int(v) for k, v in flow.items()}, th, rv
+
+
+def wet_moments(prt):
+    """The per-cell SD count and wet moments 0 and 3 through the public
+    API, float64."""
+    out = []
+    for k in (None, 0, 3):
+        prt.diag_all()
+        if k is None:
+            prt.diag_sd_conc()
+        else:
+            prt.diag_wet_mom(k)
+        out.append(torch.as_tensor(prt.outbuf()).double().reshape(-1))
+    return out
+
+
+def dense3d_totals(prt, rv, dense):
+    water, dry = dense.water_dry_totals(prt._d, rv)
+    return water, dry, int((prt._d.n > 0).sum())
+
+
+def dense3d_checks(label, prt, th, rv, totals0, flow, dense):
+    """grid_checks on the dense front's population: finite fields, water
+    and dry mass with the puddle (1e-3, 1e-4), the live count at the end
+    the count at the start plus the changes in coalescence and at the
+    walls, no SD dropped on a full row."""
+    d = prt._d
+    check(bool(torch.isfinite(th).all() and torch.isfinite(rv).all()),
+          f"{label}: non-finite th/rv")
+    live = d.n > 0
+    check(bool(torch.isfinite(d.rw2[live]).all() and (d.rw2[live] > 0).all()),
+          f"{label}: bad rw2")
+    water, dry, n_live = dense3d_totals(prt, rv, dense)
+    dw = abs(water - totals0[0]) / totals0[0]
+    dd = abs(dry - totals0[1]) / totals0[1]
+    check(dw < 1e-3, f"{label}: water conservation off by {dw:.2e}")
+    check(dd < 1e-4, f"{label}: dry-mass conservation off by {dd:.2e}")
+    check(int(d.overflow) == 0, f"{label}: {int(d.overflow)} SDs dropped on "
+          "full rows")
+    check(flow["coal"] <= 0 and flow["walls"] <= 0
+          and n_live == totals0[2] + flow["coal"] + flow["walls"],
+          f"{label}: SDs lost: {totals0[2]} live at the start, {n_live} at "
+          f"the end, changes {flow}")
+    return {"water_rel_err": dw, "dry_rel_err": dd, "sds": n_live,
+            "global_rebins": d.rebins, **flow}
+
+
+def check_c3d(label, kernel, c_kw, err):
+    """Kernel C's 3-D form against its plain version on ``c_kw``
+    (transport's arguments), on them and with the droplets made 1 mm
+    rain: every slot, y and the far flags bitwise, the puddle partials rel
+    1e-5.  Returns the kernel's outputs on ``c_kw``."""
+    from libcloudphxx_tpu_torch.ops import step
+    alive = c_kw["n"] > 0
+    rain = dict(c_kw, do_sedi=True, rw2=torch.where(alive, 1e-6, 0.0))
+    first = None
+    for pop, kw in (("cloud", c_kw), ("rain", rain)):
+        kc = _counted(kernel, lambda: step.transport(**kw))
+        pc = step.transport(**kw, plain=True)
+        same = all(torch.equal(a, b) for a, b in zip(kc[:5] + kc[6:],
+                                                     pc[:5] + pc[6:])) \
+            and bool(torch.equal(kc[5][:, 4], pc[5][:, 4]))
+        pud_k, pud_p = kc[5].sum(0)[:4], pc[5].sum(0)[:4]
+        rel_pud = max_rel(pud_k, pud_p) if float(pud_p[3]) else \
+            float(pud_k.abs().max())
+        err[kernel.name] = max(err.get(kernel.name, 0.0), *(
+            max_abs(a, b) for a, b in zip(kc[:4] + kc[6:], pc[:4] + pc[6:])))
+        moved = int(((kc[4] >= 0) & (kc[4] != _rows_of(kc[4]))).sum())
+        print(f"C {kernel.name}, {label}, {pop}: n/x/z/vt/targets/y and far "
+              f"flags equal {same}, puddle rel {rel_pud:.2e}, droplets that "
+              f"left their row {moved}, far rows "
+              f"{int(kc[5][:, 4].sum())}", flush=True)
+        check(same and rel_pud <= 1e-5, f"C {kernel.name}, {label}, {pop}: "
+              "kernel and plain version differ")
+        first = first or kc
+    return first
+
+
+def check_d3d(label, kernel, d_kw, err):
+    """Kernel D's 3-D form against its plain version on ``d_kw``
+    (rebin_x's arguments): every plane and the drops bitwise."""
+    from libcloudphxx_tpu_torch.ops import step
+    kd = _counted(kernel, lambda: step.rebin_x(**d_kw))
+    pd = step.rebin_x(**d_kw, plain=True)
+    same = all(torch.equal(a, b) for a, b in zip(kd, pd))
+    err[kernel.name] = max(err.get(kernel.name, 0.0),
+                           *(max_abs(a, b) for a, b in zip(kd, pd)))
+    print(f"D {kernel.name}, {label}: {len(kd) - 1} planes and the drops "
+          f"equal {same}; droplets placed {int((kd[0] > 0).sum())}, dropped "
+          f"{float(kd[-1].sum()):.0f}", flush=True)
+    check(same, f"D {kernel.name}, {label}: kernel and plain version differ")
+
+
+def check_e(label, kernel, e_kw, err, cases):
+    """Kernel E's form ``kernel`` against its plain version on ``e_kw``
+    (coal_resident's arguments) in each of ``cases`` ((name, rw2 factor,
+    pairing)): every plane (y too) lane by lane and the overflow flags
+    row by row bitwise; the scaled populations collide."""
+    from libcloudphxx_tpu_torch.ops import coal
+    n_in = e_kw["n"]
+    for pop, scale, form in cases:
+        kw = dict(e_kw, pairing=form, rw2=e_kw["rw2"] * scale)
+        k_out = _counted(kernel, lambda: coal.coal_resident(**kw))
+        p_out = coal.coal_resident(**kw, plain=True)
+        lanes = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+        err[kernel.name] = max(err.get(kernel.name, 0.0), *(
+            max_abs(a, b) for a, b in zip(k_out, p_out)))
+        lost = float(n_in.double().sum() - k_out[0].double().sum())
+        print(f"E {kernel.name} {form}, {label}, {pop}: lanes equal "
+              f"{lanes} ({len(k_out) - 1} planes and the flags; "
+              f"{int(k_out[-1].sum())} of {n_in.shape[0]} rows flagged), "
+              f"multiplicity lost {lost:.6g}", flush=True)
+        check(lanes, f"E {kernel.name} {form}, {label}, {pop}: kernel "
+              "and plain version differ")
+        check(lost > 0.0 or scale == 1.0,
+              f"E {kernel.name} {form}, {label}, {pop}: no collision")
+
+
+def kernel_row(kernel, launches, err, call, bnd, card, reps=KERNEL_REPS,
+               plain_reps=1, where=""):
+    """A ``kernels`` row: ``call(plain)`` timed through the kernel (reps)
+    and its plain version (plain_reps), beside the bound ``bnd``."""
+    ms = time_cuda(lambda: call(False), reps)
+    plain_ms = time_cuda(lambda: call(True), plain_reps,
+                         warm=plain_reps > 1)
+    bound_ms, bound_by = bnd
+    print(f"kernel {kernel.name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); {launches} launches {where} "
+          f"({card})", flush=True)
+    check(launches > 0, f"kernel {kernel.name} was not launched")
+    return {"name": kernel.name, "route": "cuda", "source": kernel.source,
+            "replaces": kernel.replaces, "launches": launches,
+            "max_abs_err": err.get(kernel.name, 0.0), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def transport3d_bound(kw, kc):
+    """Kernel C's 3-D forms' bound on their arguments ``kw`` (transport's)
+    and outputs ``kc``: transport_bound's bytes with y read for the live
+    droplets and written for every slot, the two y courants a row (and
+    under pred_corr the staggered courants), and its operations with y's
+    advection and wall (OPS_TRANSPORT_Y a live droplet; under pred_corr
+    the corrector of three axes)."""
+    cfg, n = kw["cfg"], kw["n"]
+    live = n > 0
+    live0, slot = int(live.sum()), n.element_size()
+    fell = int((live & (kc[0] == 0) & (kc[2] < cfg.z0)).sum())
+    vt32, vt64 = vt_ops(cfg, kw["rw2"][live])
+    from libcloudphxx_tpu_torch.lgrngn import as_t
+    pc = kw["do_adve"] and as_t(cfg.adve_scheme) == as_t.pred_corr
+    extra = nbytes(*kw["courants"]) if pc else 0
+    ops = live0 * (OPS_TRANSPORT + OPS_TRANSPORT_Y
+                   + (3 * OPS_PRED_CORR // 2 if pc else 0))
+    return bound(
+        nbytes(n) + 4 * slot * live0 + slot * fell + 9 * nbytes(kw["rhod"])
+        + 5 * nbytes(n) + nbytes(kc[4], kc[5]) + extra,
+        vt32 + ops, vt64 + (live0 * 3 * OPS_PRED_CORR_F64 // 2 if pc else 0))
+
+
+def merge3d_bound(kw):
+    """Kernel D's 3-D forms' bound on their arguments ``kw`` (rebin_x's):
+    the targets of every slot and the planes of the droplets taken (those
+    alive after C) in, every plane and the drops out, against the
+    27-source merge of each taken droplet."""
+    n, tgt = kw["n"], kw["tgt"]
+    planes = 7 + len(kw["extra"])
+    live = int((tgt >= 0).sum())
+    slot = n.element_size()
+    return bound(nbytes(tgt) + planes * slot * live + planes * nbytes(n)
+                 + slot * n.shape[0], live * OPS_MERGE)
+
+
+def coal_y_bound(kw, work, table_ops=0):
+    """Kernel E's y and onishi forms' bound on their arguments ``kw``
+    (coal_resident's) and the work their data needs (coal_work): seven
+    planes (six without y) and five cell fields in, as many planes and the
+    row flags out, the efficiency table where the kernel reads one;
+    coal_bounds' operations, and ``table_ops`` a pair (a table lookup, and
+    the onishi value's Wang enhancement)."""
+    from libcloudphxx_tpu_torch.lgrngn import coalescence as coal_mod
+    n = kw["n"]
+    live = n > 0
+    planes = 6 + (kw.get("y") is not None)
+    table = coal_mod.clamped_efficiency_table(kw["cfg"].kernel)
+    vt32, vt64 = vt_ops(kw["cfg"], kw["rw2"][live])
+    per32 = vt32 / max(int(live.sum()), 1)
+    per64 = vt64 / max(int(live.sum()), 1)
+    vts = work["live"] + work["changed"]
+    return bound(2 * planes * nbytes(n) + 5 * nbytes(kw["rhod"])
+                 + n.shape[0] + (table[0].nbytes if table else 0),
+                 coal_ops(work) + work["pairs"] * table_ops + vts * per32,
+                 vts * per64)
+
+
+def dense3d_case(fields, m2, _ext, dense, c, card, profile_on, err):
+    """Phase 22 (a): phase 19 (a)'s configuration at full width on the
+    factory's pick on the card, the dense front.  Returns (its numbers,
+    the kernel rows of C's, D's and E's 3-D forms)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.ops import coal, step
+    oi = grid_oi(m2, 3)
+    prt = dense3d_factory(oi, "3-D dense")
+    init, init_s = dense3d_init(prt, fields, "3-D dense", card)
+    n_sd = int((init.n > 0).sum())
+    check(n_sd == SD_CONC * GRID_N ** 3, f"3-D dense: {n_sd} SDs at init")
+    opts = tl.opts_t()
+    opts.adve = opts.cond = opts.coal = opts.sedi = True
+    totals0 = dense3d_totals(prt, fields["rv"], dense)
+    # the counted run: B, E's y form, C's and D's 3-D forms once a step
+    reset(_ext.KERNELS)
+    secs, flow, th, rv = dense3d_run(prt, opts, DENSE3D_STEPS, fields)
+    launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+    chk = dense3d_checks("3-D dense", prt, th, rv, totals0, flow, dense)
+    lost = collided(init, prt._d)
+    print(f"3-D dense: {DENSE3D_STEPS} steps from init in {secs:.2f} s; "
+          f"{chk}; multiplicity lost to collisions {lost:.3e}; launches "
+          f"{launches} ({card})", flush=True)
+    want = dict.fromkeys(("cond", "coal_3d", "transport_3d", "merge_3d"),
+                         DENSE3D_STEPS)
+    check(launches == want, f"3-D dense: launches {launches}, expected "
+          f"{want}")
+    check(flow["y_wrap"] > 0, "3-D dense: no SD wrapped in y")
+    out = dict(chk, launches=launches, init_s=init_s, collided=lost)
+    # C's, D's and E's 3-D forms against their plain versions on what a
+    # full-width step gives them
+    calls = capture_all({"e": (coal, "coal_resident"),
+                         "c": (step, "transport"), "d": (dense, "rebin_x")},
+                        lambda: dense3d_run(prt, opts, 1, dict(
+                            fields, th=th, rv=rv)))
+    e_kw, c_kw, d_kw = calls["e"][-1], calls["c"][-1], calls["d"][-1]
+    t1 = time.perf_counter()
+    kc = check_c3d("3-D dense", _ext.TRANSPORT_3D, c_kw, err)
+    check_d3d("3-D dense", _ext.MERGE_3D, d_kw, err)
+    check_e("3-D dense", _ext.COAL_3D, e_kw, err,
+            (("cloud", 1.0, "stride"), ("drizzle", 100.0, "sort")))
+    out["check_s"] = time.perf_counter() - t1
+    work = coal_work(lambda: coal.coal_resident(**e_kw, plain=True),
+                     e_kw["n"])
+    rows = [kernel_row(
+        _ext.TRANSPORT_3D, launches["transport_3d"], err,
+        lambda plain: step.transport(**c_kw, plain=plain),
+        transport3d_bound(c_kw, kc), card, where="in (a)'s counted steps"),
+        kernel_row(_ext.MERGE_3D, launches["merge_3d"], err,
+                   lambda plain: step.rebin_x(**d_kw, plain=plain),
+                   merge3d_bound(d_kw), card,
+                   where="in (a)'s counted steps"),
+        kernel_row(_ext.COAL_3D, launches["coal_3d"], err,
+                   lambda plain: coal.coal_resident(**e_kw, plain=plain),
+                   coal_y_bound(e_kw, work), card, reps=5,
+                   where="in (a)'s counted steps")]
+    del calls, e_kw, c_kw, d_kw, kc
+    # best of DENSE3D_REPS reps of DENSE3D_STEPS steps from init
+    best = float("inf")
+    for _ in range(DENSE3D_REPS):
+        prt.adopt(init)
+        totals = dense3d_totals(prt, fields["rv"], dense)
+        secs, flow, th, rv = dense3d_run(prt, opts, DENSE3D_STEPS, fields)
+        dense3d_checks("3-D dense", prt, th, rv, totals, flow, dense)
+        check(flow["y_wrap"] > 0, "3-D dense: no SD wrapped in y")
+        best = min(best, secs)
+    out.update(ms_per_step=best / DENSE3D_STEPS * 1e3,
+               sd_updates_per_s=n_sd * DENSE3D_STEPS / best)
+    prt.adopt(init)
+    in_step = device_ms(lambda k: dense3d_run(prt, opts, k, fields),
+                        PROFILE_STEPS, ("cond_kernel", "coal_kernel",
+                                        "transport_kernel", "merge3d"))
+    out["in_step_ms"] = in_step
+    print(f"timing, 3-D dense: {out['ms_per_step']:.3f} ms/step, "
+          f"{out['sd_updates_per_s']:.4e} SD-updates/s (best of "
+          f"{DENSE3D_REPS} reps of {DENSE3D_STEPS} steps from init, {n_sd} "
+          f"SDs); device time in the step [ms] " + ", ".join(
+              f"{k} {v:.4f}" for k, v in in_step.items()) + f" ({card})",
+          flush=True)
+    for r in rows:
+        r["in_step_ms"] = in_step.get(
+            {"transport_3d": "transport_kernel", "merge_3d": "merge3d",
+             "coal_3d": "coal_kernel"}[r["name"]])
+    if profile_on:
+        profile("3-D dense (a)", lambda: prt.adopt(init),
+                lambda k: dense3d_run(prt, opts, k, fields), card, steps=3)
+    # the dense front against the flat engine after one step from the same
+    # init without coalescence: th, rv and the per-cell moments
+    opts.coal = False
+    prt.adopt(init)
+    _, _, th_d, rv_d = dense3d_run(prt, opts, 1, fields)
+    m_d = wet_moments(prt)
+    prt.state = None
+    del prt, init
+    torch.cuda.empty_cache()
+    flat = grid_factory(oi, "3-D flat")
+    flat.init(fields["th"], fields["rv"], fields["rhod"], Cx=fields["Cx"],
+              Cy=fields["Cy"], Cz=fields["Cz"])
+    _, _, th_f, rv_f, = grid_run(flat, opts, 1, fields, c)
+    m_f = wet_moments(flat)
+    flat.state = None
+    del flat
+    torch.cuda.empty_cache()
+    # a droplet within an ulp of a cell face may land on either side (C's
+    # row-broadcast courants against the flat engine's gathers): the
+    # moments are held where both hold the same SDs a cell
+    same = m_d[0] == m_f[0]
+    moved = int((~same).sum())
+    rel = {"th": max_rel(th_d, th_f), "rv": max_rel(rv_d, rv_f),
+           "m0": max_rel(m_d[1][same], m_f[1][same]),
+           "m3": max_rel(m_d[2][same], m_f[2][same])}
+    out["vs_flat"] = dict(rel, cells_other_count=moved,
+                          m0_all_cells=max_rel(m_d[1], m_f[1]))
+    print(f"3-D dense front against the flat engine after one step without "
+          f"coalescence: max rel " + ", ".join(
+              f"{k} {v:.3e}" for k, v in rel.items())
+          + f" (m0, m3 on the cells of equal SD counts); cells whose SD count "
+          f"differs {moved} of {same.numel()} (m0 there up to "
+          f"{out['vs_flat']['m0_all_cells']:.3e}); gates {DENSE3D_GATES}, "
+          f"at most {DENSE3D_MOVED_CELLS} cells", flush=True)
+    check(all(rel[k] <= DENSE3D_GATES[k] for k in rel)
+          and moved <= DENSE3D_MOVED_CELLS,
+          "3-D dense: the dense front and the flat engine part")
+    return out, rows
+
+
+def dense3d_forms(fields, m2, _ext, dense, c, card, err):
+    """Phase 22 (b): pred_corr with vohl and the large tail, and the exact
+    mode with mixing, on the 3-D grid at full width through the dense
+    front, DENSE3D_FORM_STEPS counted steps each.  Returns (numbers, the
+    kernel rows of C's 3-D pred_corr form, E's vohl y form and D's 3-D
+    exact form)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.ops import coal, step
+    cases = {
+        "pred_corr, vohl": (dict(
+            adve_scheme=tl.as_t.pred_corr,
+            kernel=tl.kernel_t.vohl_davis_no_waals,
+            sd_conc_large_tail=True), {
+            "cond": 1, "coal_vohl_3d": 1, "transport_3d_pred_corr": 1,
+            "merge_3d": 1}),
+        "exact": (dict(exact_sstp_cond=True), {
+            "cond_sd_fixed": 1, "coal_3d": 1, "transport_3d": 1,
+            "merge_3d_exact": 1})}
+    out, rows = {}, []
+    for label, (over, per_step) in cases.items():
+        t0 = time.perf_counter()
+        oi = grid_oi(m2, 3, n_sd_max=2 * SD_CONC * GRID_N ** 3, **over)
+        prt = dense3d_factory(oi, label)
+        init, init_s = dense3d_init(prt, fields, label, card)
+        opts = tl.opts_t()
+        opts.adve = opts.cond = opts.coal = opts.sedi = True
+        totals0 = dense3d_totals(prt, fields["rv"], dense)
+        reset(_ext.KERNELS)
+        secs, flow, th, rv = dense3d_run(prt, opts, DENSE3D_FORM_STEPS,
+                                         fields)
+        launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+        chk = dense3d_checks(label, prt, th, rv, totals0, flow, dense)
+        want = {k: v * DENSE3D_FORM_STEPS for k, v in per_step.items()}
+        print(f"3-D dense, {label}: {DENSE3D_FORM_STEPS} steps from init in "
+              f"{secs:.2f} s ({secs / DENSE3D_FORM_STEPS * 1e3:.3f} "
+              f"ms/step); {chk}; launches {launches} ({card})", flush=True)
+        check(launches == want, f"3-D dense, {label}: launches {launches}, "
+              f"expected {want}")
+        check(flow["y_wrap"] > 0, f"3-D dense, {label}: no SD wrapped in y")
+        calls = capture_all({"e": (coal, "coal_resident"),
+                             "c": (step, "transport"),
+                             "d": (dense, "rebin_x")},
+                            lambda: dense3d_run(prt, opts, 1, dict(
+                                fields, th=th, rv=rv)))
+        e_kw, c_kw, d_kw = calls["e"][-1], calls["c"][-1], calls["d"][-1]
+        if label == "exact":
+            check_d3d(label, _ext.MERGE_3D_EXACT, d_kw, err)
+            rows.append(kernel_row(
+                _ext.MERGE_3D_EXACT, launches["merge_3d_exact"], err,
+                lambda plain: step.rebin_x(**d_kw, plain=plain),
+                merge3d_bound(d_kw), card, reps=5,
+                where=f"in (b) {label}'s counted steps"))
+        else:
+            kc = check_c3d(label, _ext.TRANSPORT_3D_PRED_CORR, c_kw, err)
+            # rain to 0.8 mm: vohl's table past index 126
+            check_e(label, _ext.COAL_VOHL_3D, e_kw, err,
+                    (("rain", 2500.0, "stride"),))
+            work = coal_work(lambda: coal.coal_resident(**e_kw, plain=True),
+                             e_kw["n"])
+            rows += [kernel_row(
+                _ext.TRANSPORT_3D_PRED_CORR,
+                launches["transport_3d_pred_corr"], err,
+                lambda plain: step.transport(**c_kw, plain=plain),
+                transport3d_bound(c_kw, kc), card, reps=5,
+                where=f"in (b) {label}'s counted steps"),
+                kernel_row(_ext.COAL_VOHL_3D, launches["coal_vohl_3d"], err,
+                           lambda plain: coal.coal_resident(**e_kw,
+                                                            plain=plain),
+                           coal_y_bound(e_kw, work, OPS_EFF), card, reps=5,
+                           where=f"in (b) {label}'s counted steps")]
+        out[label] = dict(chk, launches=launches, init_s=init_s,
+                          ms_per_step=secs / DENSE3D_FORM_STEPS * 1e3,
+                          seconds=time.perf_counter() - t0)
+        prt.state = None
+        del prt, init, calls, e_kw, c_kw, d_kw
+        torch.cuda.empty_cache()
+    return out, rows
+
+
+def onishi_case(Kinematic2D, _ext, dense, c, card, err):
+    """Phase 22 (c): bench.py's case with onishi_hall at kernel_parameters
+    [LES_RE_LAMBDA] on the dense engine (dissipation rate 0), through
+    run_device_lgrngn(engine="dense") and the dense front.  Returns
+    (numbers, the kernel row of E's onishi form)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
+    from libcloudphxx_tpu_torch.ops import coal
+    m = make_model(Kinematic2D, coal=True, kernel=tl.kernel_t.onishi_hall,
+                   kernel_parameters=[LES_RE_LAMBDA])
+    check(isinstance(m.prtcls, particles_dense_t),
+          f"onishi: the factory on the card gave {type(m.prtcls).__name__}")
+    init = (m.dense_state, m.th, m.rv)
+    n_sd = int((init[0].n > 0).sum())
+    totals = dense.water_dry_totals(init[0], m.rv)
+    steps = SLICE_SPINUP + SLICE_MAIN
+
+    def restore(s):
+        m.dense_state, m.th, m.rv = s
+
+    reset(_ext.KERNELS)
+    m.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP, engine="dense")
+    sp = (m.dense_state, m.th, m.rv)
+    m.run_device_lgrngn(SLICE_MAIN, engine="dense")
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+    dw, dd = physics_checks(m, *totals, dense)
+    end = (m.dense_state, m.th, m.rv)
+    lost = collided(sp[0], end[0])
+    print(f"onishi: {SLICE_SPINUP} spin-up + {SLICE_MAIN} main steps; water "
+          f"rel err {dw:.2e}, dry rel err {dd:.2e}, multiplicity lost to "
+          f"collisions {lost:.3e}; launches {launches}", flush=True)
+    want = {"mpdata": steps, "cond": steps, "transport": steps,
+            "merge": steps, "coal_onishi": SLICE_MAIN}
+    check(launches == want, f"onishi: launches {launches}, expected {want}")
+    # the dense front's stepwise run from init, bitwise
+    restore(init)
+    m.run(steps, spinup=SLICE_SPINUP)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(m.th, end[1]) and torch.equal(m.rv, end[2])
+                and np.array_equal(population(m.dense_state),
+                                   population(end[0])))
+    print(f"onishi: dense front vs run_device_lgrngn bitwise equal {same}",
+          flush=True)
+    check(same, "onishi: the dense front differs from run_device_lgrngn")
+    # E's onishi form against its plain version on what a main step gives
+    # it, and with radii x10 and x30, where droplets collide
+    e_kw = capture(coal, "coal_resident", lambda: (restore(sp),
+                   m.run_device_lgrngn(1, engine="dense")))
+    check_e("onishi", _ext.COAL_ONISHI, e_kw, err, tuple(
+        (pop, scale, form) for pop, scale in (
+            ("cloud", 1.0), ("drizzle", 100.0), ("rain", 900.0))
+        for form in ("stride", "sort")))
+    work = coal_work(lambda: coal.coal_resident(**e_kw, plain=True),
+                     e_kw["n"])
+    row = kernel_row(_ext.COAL_ONISHI, launches["coal_onishi"], err,
+                     lambda plain: coal.coal_resident(**e_kw, plain=plain),
+                     coal_y_bound(e_kw, work, OPS_EFF + OPS_WANG), card,
+                     reps=KERNEL_REPS, plain_reps=3,
+                     where=f"in (c)'s {SLICE_MAIN} coalescing steps")
+    # best of TIME_REPS reps of ONISHI_TIME_STEPS steps from init
+    restore(init)
+    m.run_device_lgrngn(2, engine="dense")                 # warm-up
+    best = float("inf")
+    for _ in range(TIME_REPS):
+        restore(init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run_device_lgrngn(ONISHI_TIME_STEPS, engine="dense")
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        physics_checks(m, *totals, dense)
+    restore(init)
+    in_step = device_ms(lambda k: m.run_device_lgrngn(k, engine="dense"),
+                        PROFILE_STEPS, ("coal_kernel",))
+    row["in_step_ms"] = in_step.get("coal_kernel")
+    out = {"ms_per_step": best / ONISHI_TIME_STEPS * 1e3,
+           "sd_updates_per_s": n_sd * ONISHI_TIME_STEPS / best,
+           "collided": lost, "water_rel_err": dw, "dry_rel_err": dd}
+    print(f"timing, onishi (run_device_lgrngn, coalescence on): "
+          f"{out['ms_per_step']:.3f} ms/step, "
+          f"{out['sd_updates_per_s']:.4g} SD-updates/s ({ONISHI_TIME_STEPS} "
+          f"steps, best of {TIME_REPS}); E's onishi form in the step "
+          f"{row['in_step_ms']} ms ({card})", flush=True)
+    return out, row
+
+
+def dense3d_phase(Kinematic2D, _ext, dense, c, card, profile_on):
+    """Phase 22: the dense engine on the 3-D grid and with the onishi
+    kernels.  Returns (the kernel rows, the numbers, the max abs errors of
+    the forms against their plain versions)."""
+    err = {}
+    fields, m2 = grid3d_fields(Kinematic2D)
+    t0 = time.perf_counter()
+    a, rows = dense3d_case(fields, m2, _ext, dense, c, card, profile_on,
+                           err)
+    print(f"phase 22 (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    b, b_rows = dense3d_forms(fields, m2, _ext, dense, c, card, err)
+    print(f"phase 22 (b): {time.perf_counter() - t0:.1f} s", flush=True)
+    del fields, m2
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cc, c_row = onishi_case(Kinematic2D, _ext, dense, c, card, err)
+    print(f"phase 22 (c): {time.perf_counter() - t0:.1f} s", flush=True)
+    for r in rows + b_rows + [c_row]:
+        r["max_abs_err"] = err.get(r["name"], 0.0)
+    return rows + b_rows + [c_row], {"3-D": a, "forms": b, "onishi": cc}, err
 
 
 def profile(label, start, run, card, steps=20):

@@ -276,6 +276,59 @@ COND_FLAT_PARCEL_ICE_TURB = Kernel(
     "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
     _ICE + ", in a parcel (dv = 1/rhod, lgrngn/hskpng.py:50), at each SD's "
     "RH plus its ssp (:254-263)")
+# kernel C's 3-D forms: TRANSPORT's arguments, then the y plane in and out
+# and the y axis (ny; dy, y0, y1); the pred_corr form then the staggered
+# courant_x, courant_z and courant_y
+_3D = ("libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, transport and "
+       "re-bin classification :338-487) on the 3-D grid, which the TPU "
+       "kernel refuses (lgrngn/dense.py:1209-1241) and the JAX package runs "
+       "in XLA (lgrngn/dense.py:918-1030 adve_sedi_bcnd")
+TRANSPORT_3D = Kernel(
+    "transport_3d", "lcp_transport_3d",
+    TRANSPORT.argtypes[:-1] + [_P, _P, _I, _D, _D, _D],
+    "libcloudphxx_tpu_torch/csrc/transport3d.cu", _3D + ")")
+TRANSPORT_3D_PRED_CORR = Kernel(
+    "transport_3d_pred_corr", "lcp_transport_3d_pred_corr",
+    TRANSPORT_3D.argtypes[:-1] + [_P] * 3,
+    "libcloudphxx_tpu_torch/csrc/transport3d.cu",
+    _3D + ", its pred_corr branch :962-1005)")
+# kernel D's 3-D forms (27 source rows, x and y periodic): planes in (8:
+# n rw2 rd3 kpa vt x z y), targets, planes out (8), drops; n_cell, cap, nx,
+# ny, nz; the exact mode's with the four private planes after the eight
+_MERGE_3D = ("libcloudphxx_tpu/ops/pallas_step.py:716 (_xmerge_kernel) and "
+             ":405 (_kernel z-merge epilogue) on the 3-D grid, which the JAX "
+             "package re-bins in XLA (lgrngn/dense.py:1095-1180 "
+             "_rebin_neighbor, rebin")
+MERGE_3D = Kernel(
+    "merge_3d", "lcp_merge_3d", [_P] * 18 + [_I] * 5,
+    "libcloudphxx_tpu_torch/csrc/merge3d.cu", _MERGE_3D + ")")
+MERGE_3D_EXACT = Kernel(
+    "merge_3d_exact", "lcp_merge_3d_exact", [_P] * 26 + [_I] * 5,
+    "libcloudphxx_tpu_torch/csrc/merge3d_exact.cu",
+    _MERGE_3D + ", with the exact mode's per-SD ambient planes)")
+# kernel E's y forms (the 3-D grid's y plane riding) and its onishi form
+# (the turbulent kernels at dissipation rate 0): COAL's arguments up to the
+# pairing, then the y plane in and out (null twice for the onishi form off
+# the 3-D grid)
+_COAL_Y = ("libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, coal phase "
+           ":233-336) ")
+COAL_3D = Kernel(
+    "coal_3d", "lcp_coal_3d", COAL.argtypes[:-2] + [_P, _P],
+    "libcloudphxx_tpu_torch/csrc/coal.cu",
+    _COAL_Y + "on the 3-D grid, whose sort pairing carries y in the JAX "
+    "package's XLA coalescence (lgrngn/dense.py:801-804)")
+COAL_VOHL_3D = Kernel(
+    "coal_vohl_3d", "lcp_coal_vohl_3d", COAL_3D.argtypes[:-1],
+    "libcloudphxx_tpu_torch/csrc/coal.cu",
+    _COAL_Y + "on the 3-D grid with vohl's efficiencies (lgrngn/dense.py:"
+    "801-804; lgrngn/coalescence.py:374-376)")
+COAL_ONISHI = Kernel(
+    "coal_onishi", "lcp_coal_onishi", COAL_3D.argtypes[:-1],
+    "libcloudphxx_tpu_torch/csrc/coal.cu",
+    _COAL_Y + "with the onishi kernels at dissipation rate 0, which the JAX "
+    "package computes in XLA (lgrngn/dense.py:606, :738; "
+    "lgrngn/coalescence.py:377-388) and its TPU kernel refuses "
+    "(lgrngn/dense.py:1221-1225)")
 KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
            COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED, MERGE_EXACT,
            COND_SD_FIXED, COND_SD_ADAPTIVE, COAL_VOHL, TRANSPORT_PRED_CORR,
@@ -283,7 +336,9 @@ KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
            COND_FLAT_PARCEL, COND_FLAT_PARCEL_TURB, COND_SD_FIXED_PARCEL,
            COND_SD_FIXED_PARCEL_TURB, COND_SD_ADAPTIVE_PARCEL,
            COND_SD_ADAPTIVE_PARCEL_TURB, COND_FLAT_ICE, COND_FLAT_ICE_TURB,
-           COND_FLAT_PARCEL_ICE, COND_FLAT_PARCEL_ICE_TURB)
+           COND_FLAT_PARCEL_ICE, COND_FLAT_PARCEL_ICE_TURB, TRANSPORT_3D,
+           TRANSPORT_3D_PRED_CORR, MERGE_3D, MERGE_3D_EXACT, COAL_3D,
+           COAL_VOHL_3D, COAL_ONISHI)
 
 _lib = None
 

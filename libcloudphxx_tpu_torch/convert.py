@@ -21,14 +21,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from .lgrngn.dense import ATTRS, EXACT_ATTRS, DenseState
+from .lgrngn.dense import ATTRS, EXACT_ATTRS, Y_ATTRS, DenseState
 from .lgrngn.state import TENSOR_FIELDS, State, StaticConfig
 from .models.kinematic_2d import BULK_FIELDS
 
 # JAX DenseState fields the port's dense engine does not hold: they must be
-# empty (it runs the 2-D grid, with no deferred x pass) or are the JAX RNG
-# key
-_EMPTY = ("y", "courant_y", "xkey")
+# empty (it has no deferred x pass) or are the JAX RNG key
+_EMPTY = ("xkey",)
+# the planes and cell fields it holds where they are not empty: the exact
+# mode's private planes, and the 3-D grid's y plane and courant_y
+_OPTIONAL = EXACT_ATTRS + Y_ATTRS + ("courant_y",)
 _CELLS = ("rhod", "p", "T", "RH", "eta", "dv", "sstp_tmp_th", "sstp_tmp_rv",
           "courant_x", "courant_z", "puddle")
 
@@ -46,8 +48,8 @@ def static_config_from_numpy(fields: dict) -> StaticConfig:
 def dense_state_from_numpy(arrays: dict, device, dtype,
                            rng_seed=44) -> DenseState:
     """A port DenseState from the JAX DenseState's arrays as numpy, the
-    exact mode's private planes (sd_th, sd_rv, sd_rh, sd_p) where the
-    arrays hold them, else empty.  The coalescence draws are keyed by
+    exact mode's private planes (sd_th, sd_rv, sd_rh, sd_p) and the 3-D
+    grid's y plane and courant_y where the arrays hold them, else empty.  The coalescence draws are keyed by
     ``arrays["rng_seed"]`` where the arrays came from the port, else by
     ``rng_seed`` (opts_init.rng_seed), and continue from
     ``arrays["rng_step"]`` (else step 0)."""
@@ -59,7 +61,7 @@ def dense_state_from_numpy(arrays: dict, device, dtype,
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
     return DenseState(
         **{k: t(arrays[k]) for k in ATTRS + _CELLS},
-        **{k: t(arrays[k]) for k in EXACT_ATTRS
+        **{k: t(arrays[k]) for k in _OPTIONAL
            if k in arrays and np.asarray(arrays[k]).size},
         overflow=torch.as_tensor(int(np.asarray(arrays["overflow"])),
                                  dtype=torch.int64, device=device),
@@ -69,10 +71,10 @@ def dense_state_from_numpy(arrays: dict, device, dtype,
 
 def dense_state_to_numpy(d: DenseState) -> dict:
     """The DenseState's arrays as numpy, under the JAX DenseState's names
-    (the private planes (0, 0) outside exact mode, as JAX's), and its
-    random stream as ``rng_seed`` and ``rng_step``."""
+    (the private planes (0, 0) outside exact mode and y off the 3-D grid,
+    as JAX's), and its random stream as ``rng_seed`` and ``rng_step``."""
     out = {k: getattr(d, k).detach().cpu().numpy()
-           for k in ATTRS + _CELLS + EXACT_ATTRS}
+           for k in ATTRS + _CELLS + _OPTIONAL}
     out["overflow"] = np.asarray(int(d.overflow))
     out["rng_seed"] = np.asarray(d.rng_seed)
     out["rng_step"] = np.asarray(d.rng_step)

@@ -1,6 +1,6 @@
 // Kernel E's entry points, and its instantiation for the beard77 formulas
 // (the main path's); the kernels are in coal.cuh, the wide-table form's
-// instantiations in coal_vohl*.cu.
+// instantiations in coal_vohl*.cu, the y and onishi forms' in coal_y*.cu.
 
 #include "coal.cuh"
 
@@ -90,5 +90,92 @@ extern "C" int lcp_coal_standalone(
       coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out, rd3_out,
                 kpa_out, x_out, z_out, vt_out, ovf, n_cell, cap, sstp, dt_sub,
                 kern, coef, r_max_m1, clamp, seed, step, 0),
+      stream);
+}
+
+namespace {
+
+int coal_y_formula(int vt, int sort, const lcp::CoalArgs& a,
+                   cudaStream_t stream) {
+  return lcp::with_vt(vt, [&](auto f) {
+    return lcp::coal_launch_y<decltype(f)::value>(
+        sort ? lcp::kSort : lcp::kStride, a, stream);
+  });
+}
+
+lcp::CoalArgs with_y(lcp::CoalArgs a, const float* y, float* y_out) {
+  a.y = y;
+  a.y_out = y_out;
+  return a;
+}
+
+}  // namespace
+
+// The y forms, the resident step's on the 3-D grid (the y plane riding):
+// lcp_coal's arguments up to the pairing, then the y plane in and out;
+// the grid's own rows.  lcp_coal_3d reads the formula kernels and the
+// hall family's tables, lcp_coal_vohl_3d vohl's wide table.
+extern "C" int lcp_coal_3d(const float* n, const float* rw2, const float* rd3,
+                           const float* kpa, const float* x, const float* z,
+                           const float* cells, const float* eff,
+                           float* n_out, float* rw2_out, float* rd3_out,
+                           float* kpa_out, float* x_out, float* z_out,
+                           unsigned char* ovf, int n_cell, int cap, int sstp,
+                           double dt_sub, int kern, double coef,
+                           double r_max_m1, int clamp, unsigned seed,
+                           unsigned step, int vt, int sort, const float* y,
+                           float* y_out, cudaStream_t stream) {
+  if (y == nullptr || y_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return coal_y_formula(
+      vt, sort,
+      with_y(coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out,
+                       rd3_out, kpa_out, x_out, z_out, nullptr, ovf, n_cell,
+                       cap, sstp, dt_sub, kern, coef, r_max_m1, clamp, seed,
+                       step, 0),
+             y, y_out),
+      stream);
+}
+
+extern "C" int lcp_coal_vohl_3d(
+    const float* n, const float* rw2, const float* rd3, const float* kpa,
+    const float* x, const float* z, const float* cells, const float* eff,
+    float* n_out, float* rw2_out, float* rd3_out, float* kpa_out,
+    float* x_out, float* z_out, unsigned char* ovf, int n_cell, int cap,
+    int sstp, double dt_sub, int kern, double coef, double r_max_m1,
+    int clamp, unsigned seed, unsigned step, int vt, int sort,
+    const float* y, float* y_out, cudaStream_t stream) {
+  if (eff == nullptr || clamp < 127 || y == nullptr || y_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return coal_y_formula(
+      vt, sort,
+      with_y(coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out,
+                       rd3_out, kpa_out, x_out, z_out, nullptr, ovf, n_cell,
+                       cap, sstp, dt_sub, kern, coef, r_max_m1, clamp, seed,
+                       step, 0, true),
+             y, y_out),
+      stream);
+}
+
+// The onishi form (onishi_hall, onishi_hall_davis_no_waals at dissipation
+// rate 0; ``coef`` their kernel_parameters[0], the hall family's table):
+// lcp_coal_3d's arguments, the y plane null off the 3-D grid.
+extern "C" int lcp_coal_onishi(
+    const float* n, const float* rw2, const float* rd3, const float* kpa,
+    const float* x, const float* z, const float* cells, const float* eff,
+    float* n_out, float* rw2_out, float* rd3_out, float* kpa_out,
+    float* x_out, float* z_out, unsigned char* ovf, int n_cell, int cap,
+    int sstp, double dt_sub, int kern, double coef, double r_max_m1,
+    int clamp, unsigned seed, unsigned step, int vt, int sort,
+    const float* y, float* y_out, cudaStream_t stream) {
+  if (eff == nullptr || clamp > 126 || (y == nullptr) != (y_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return coal_y_formula(
+      vt, sort,
+      with_y(coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out,
+                       rd3_out, kpa_out, x_out, z_out, nullptr, ovf, n_cell,
+                       cap, sstp, dt_sub, kern, coef, r_max_m1, clamp, seed,
+                       step, 0),
+             y, y_out),
       stream);
 }

@@ -60,6 +60,19 @@
 // TPU kernel does this (the JAX package reads vohl's efficiencies in XLA,
 // lgrngn/coalescence.py:374-376); its plain version is the same
 // coal_resident_plain.
+// The y and onishi forms (the rows' type YRows; the resident forms on the
+// grid's own rows, 10 instantiations a formula, each formula's in a
+// source coal_y*.cu of its own) carry the 3-D grid's y plane: it is
+// written out by the slot of origin, as x and z are (the JAX package's
+// sort pairing carries y, libcloudphxx_tpu/lgrngn/dense.py:801-804),
+// where the rows' y pointer is set.  Their collision kernel is picked at
+// run time (physics.cuh kTableAny): the formula kernels, the hall
+// family's narrow table, vohl's wide one, and the turbulent (onishi)
+// kernels at dissipation rate 0 (onishi.cuh: the hall table's efficiency
+// times Wang's enhancement times the geometric kernel), which the JAX
+// package computes in XLA and its TPU kernel refuses (lgrngn/
+// dense.py:1221-1225).  Their plain version is coal_resident_plain with
+// ``y``.
 
 #pragma once
 
@@ -131,6 +144,19 @@ struct WideTable : R {
     return WideTable{R::of(row0)};
   }
 };
+// The grid's rows with the y plane in and out (null where there is none:
+// the onishi form off the 3-D grid), the collision kernel's table picked
+// at run time
+struct YRows {
+  static constexpr int kTable = kTableAny;
+  const float* y;
+  float* y_out;
+  __device__ __forceinline__ uint32_t global(int r) const {
+    return static_cast<uint32_t>(r);
+  }
+};
+template <class R>
+constexpr bool kYRows = std::is_same_v<R, YRows>;
 
 // Where a row's random draws come from: key (seed, row), counter (step,
 // substep, kind, slot).
@@ -476,6 +502,9 @@ coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
     kpa_out[row + j] = v.kpa[c];
     x_out[row + j] = x_in[row + v.org[c]];
     z_out[row + j] = z_in[row + v.org[c]];
+    if constexpr (kYRows<R>) {
+      if (rows.y_out) rows.y_out[row + j] = rows.y[row + v.org[c]];
+    }
     if (MODE == kStandalone) {  // a live SD's cached vt is vt_of(rw2)
       float vt = v.vt[c];
       if (v.n[c] <= 0.0f) vt = vt_formula<VT>(v.rw2[c], amb);
@@ -491,7 +520,8 @@ coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
 // only in the standalone form) and the row flags; the sizes, the substeps
 // and the collision kernel; the draws' seed and step, and the global index
 // of the first row (a shard's of the x-slab mesh, resident forms only; 0
-// otherwise); whether the table is the wide one (resident forms only).
+// otherwise); whether the table is the wide one (resident forms only); the
+// y plane in and out (the y and onishi forms; null otherwise).
 struct CoalArgs {
   const float *n, *rw2, *rd3, *kpa, *x, *z, *cells;
   float *n_out, *rw2_out, *rd3_out, *kpa_out, *x_out, *z_out, *vt_out;
@@ -501,7 +531,18 @@ struct CoalArgs {
   CollisionKernel kern;
   unsigned seed, step, row0;
   bool wide;
+  const float* y;
+  float* y_out;
 };
+
+// the kernel's rows argument for a launch
+template <class R>
+R rows_of(const CoalArgs& a) {
+  if constexpr (kYRows<R>)
+    return R{a.y, a.y_out};
+  else
+    return R::of(a.row0);
+}
 
 template <int MODE, int S, int VT, class R>
 cudaError_t launch_rows(const CoalArgs& a, cudaStream_t stream) {
@@ -510,7 +551,7 @@ cudaError_t launch_rows(const CoalArgs& a, cudaStream_t stream) {
                                 0, stream>>>(
       a.n, a.rw2, a.rd3, a.kpa, a.x, a.z, a.cells, a.n_out, a.rw2_out,
       a.rd3_out, a.kpa_out, a.x_out, a.z_out, a.vt_out, a.ovf, a.n_cell,
-      a.cap, a.sstp, a.dt_sub, a.kern, a.seed, a.step, R::of(a.row0));
+      a.cap, a.sstp, a.dt_sub, a.kern, a.seed, a.step, rows_of<R>(a));
   return cudaGetLastError();
 }
 
@@ -549,6 +590,29 @@ extern template int coal_launch_wide<kVtBeard77>(int, const CoalArgs&,
 extern template int coal_launch_wide<kVtKhvorostyanovSpherical>(
     int, const CoalArgs&, cudaStream_t);
 extern template int coal_launch_wide<kVtKhvorostyanovNonspherical>(
+    int, const CoalArgs&, cudaStream_t);
+
+// The y and onishi forms in a resident ``mode`` (stride or sort) for
+// formula VT; instantiated in the sources coal_y*.cu
+template <int VT>
+int coal_launch_y(int mode, const CoalArgs& a, cudaStream_t stream) {
+  if (a.cap < 1 || a.cap > kMaxCap || (a.cap & (a.cap - 1)) || a.n_cell < 0
+      || (mode != kStride && mode != kSort) || a.row0 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.n_cell == 0) return 0;
+  return mode == kSort ? launch_mode<kSort, VT, YRows>(a, stream)
+                       : launch_mode<kStride, VT, YRows>(a, stream);
+}
+
+extern template int coal_launch_y<kVtUndefined>(int, const CoalArgs&,
+                                                cudaStream_t);
+extern template int coal_launch_y<kVtBeard76>(int, const CoalArgs&,
+                                              cudaStream_t);
+extern template int coal_launch_y<kVtBeard77>(int, const CoalArgs&,
+                                              cudaStream_t);
+extern template int coal_launch_y<kVtKhvorostyanovSpherical>(
+    int, const CoalArgs&, cudaStream_t);
+extern template int coal_launch_y<kVtKhvorostyanovNonspherical>(
     int, const CoalArgs&, cudaStream_t);
 
 // Kernel E in ``mode`` for formula VT, after the checks every form shares

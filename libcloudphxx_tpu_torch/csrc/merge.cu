@@ -61,7 +61,7 @@ merge_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
   const float* const in[kPlanes] = {n, rw2, rd3, kpa, vt, x, z};
   float* const out[kPlanes] = {n_out, rw2_out, rd3_out, kpa_out, vt_out,
                                x_out, z_out};
-  merge_rows<kPlanes, VEC>(in, out, tgt, drops, n_cell, cap, nx, nz);
+  merge_rows<kPlanes, VEC, Grid2>(in, out, tgt, drops, n_cell, cap, nx, nz);
 }
 
 }  // namespace lcp

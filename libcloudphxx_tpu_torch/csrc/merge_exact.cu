@@ -42,7 +42,8 @@ merge_exact_kernel(
   float* const out[kExactPlanes] = {n_out, rw2_out, rd3_out, kpa_out,
                                     vt_out, x_out, z_out, sd_th_out,
                                     sd_rv_out, sd_rh_out, sd_p_out};
-  merge_rows<kExactPlanes, VEC>(in, out, tgt, drops, n_cell, cap, nx, nz);
+  merge_rows<kExactPlanes, VEC, Grid2>(in, out, tgt, drops, n_cell, cap, nx,
+                                         nz);
 }
 
 }  // namespace lcp

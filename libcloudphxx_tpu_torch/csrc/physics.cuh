@@ -334,9 +334,9 @@ int with_vt(int vt, Fn&& fn) {
 }
 
 // The collision kernel of kernel E: lgrngn/coalescence.py kernel_value for
-// golovin, geometric, long, the hall family and vohl.  ``coef`` is
-// golovin's pi * 4/3 * b, or geometric's multiplier (1 without
-// kernel_parameters).
+// golovin, geometric, long, the hall family, vohl and the onishi kernels.
+// ``coef`` is golovin's pi * 4/3 * b, geometric's multiplier (1 without
+// kernel_parameters), or the onishi kernels' kernel_parameters[0].
 struct CollisionKernel {
   int kern;         // kernel_t value
   float coef;
@@ -348,8 +348,12 @@ struct CollisionKernel {
 // kernel E): the hall family's clamped table is 128 wide (its saturation
 // index is 120); a wider one (vohl's, index 150) is clamp + 2 wide
 // (coalescence.py clamped_efficiency_table), its row stride read from
-// ``clamp``.
-constexpr int kTableNarrow = 128, kTableWide = 0;
+// ``clamp``.  kTableAny (kernel E's y and onishi forms) picks at run
+// time: the onishi kernels' value (onishi.cuh, over the hall family's
+// narrow table), the wide table where the saturation index is above 126,
+// the narrow one otherwise.
+constexpr int kTableNarrow = 128, kTableWide = 0, kTableAny = -1;
+constexpr int kOnishiHall = 6, kOnishiHallDavisNoWaals = 7;
 constexpr int kGeometric = 1, kGolovin = 2, kLong = 5;
 
 // coalescence.py _kernel_index
@@ -394,6 +398,14 @@ __device__ __forceinline__ float efficiency(const CollisionKernel& k,
           + t01 * a.w_lo * b.w_hi + t11 * a.w_hi * b.w_hi) / a.d / b.d;
 }
 
+// The onishi kernels' value from the pair's radii and geometric kernel,
+// defined in onishi.cuh, which the sources of kernel E's onishi form
+// include (kernel_value reads it for TW kTableAny only)
+template <int TW>
+__device__ __forceinline__ float onishi_value(const CollisionKernel& k,
+                                              float rw_a, float rw_b,
+                                              float geo);
+
 // coalescence.py kernel_value
 template <int TW>
 __device__ __forceinline__ float kernel_value(const CollisionKernel& k,
@@ -413,7 +425,15 @@ __device__ __forceinline__ float kernel_value(const CollisionKernel& k,
                       : F(4.5e8) * r_L * r_L * (1.0f - rdiv_s(3e-6, r_s));
     return r_L < F(50e-6) ? geo * eff : geo;
   }
-  return geo * efficiency<TW>(k, rw_a, rw_b);
+  if constexpr (TW == kTableAny) {
+    if (k.kern == kOnishiHall || k.kern == kOnishiHallDavisNoWaals)
+      return onishi_value<TW>(k, rw_a, rw_b, geo);
+    return geo * (k.clamp > kTableNarrow - 2
+                      ? efficiency<kTableWide>(k, rw_a, rw_b)
+                      : efficiency<kTableNarrow>(k, rw_a, rw_b));
+  } else {
+    return geo * efficiency<TW>(k, rw_a, rw_b);
+  }
 }
 
 struct Drop {

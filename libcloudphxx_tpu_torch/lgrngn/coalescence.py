@@ -9,9 +9,10 @@ The efficiency tables are the port's copies of the reference's data
 The turbulent (onishi) kernels take the hall tables times the Wang et al.
 2009 enhancement and the Onishi kernel without gravity (wang_enhancement,
 onishi_nograv); they need each pair's cell density, viscosity and
-dissipation rate, which the flat loop gives them, and run on the flat
-engine only, as in the JAX package (the dense engine and kernel E refuse
-them: dense.supported, ops/coal.py).
+dissipation rate, which the flat loop gives them (the cells' under
+turb_coal, else 0), and the dense engine gives them at dissipation rate
+0, as the JAX package's dense engine does (lgrngn/dense.py _turb; on the
+card kernel E's onishi form, ops/coal.py).
 
 The flat loop (coal, coal_substep) draws its random numbers from Philox
 (ops/philox.py), keyed by the state's seed and with the counter (step
@@ -49,7 +50,8 @@ TABULATED = {
     kernel_t.onishi_hall_davis_no_waals: "hall_davis_no_waals",
 }
 UNPORTED = (kernel_t.undefined,)
-# the turbulent kernels: the flat engine's only
+# the turbulent kernels: their value reads each pair's cell (kernel_value's
+# ``turb``)
 TURBULENT = (kernel_t.onishi_hall, kernel_t.onishi_hall_davis_no_waals)
 # the widest table kernel E reads at the hall family's fixed row stride
 NARROW = 128
@@ -66,14 +68,13 @@ def require_ported(kern: kernel_t):
 
 
 def require_resident(kern: kernel_t):
-    """Raise for a kernel the dense engine and kernel E do not run: the
-    turbulent kernels, which need each pair's dissipation rate (the JAX
-    package runs them on its flat engine too)."""
+    """Raise for a kernel the dense engine and kernel E do not run: only
+    undefined, which is no collision kernel.  The dense engine runs every
+    other kernel, the turbulent ones at dissipation rate 0, as the JAX
+    package's dense engine does (libcloudphxx_tpu/lgrngn/dense.py:606,
+    :738); its flat engine gives them the cells' dissipation rate under
+    turb_coal."""
     require_ported(kern)
-    if kernel_t(kern) in TURBULENT:
-        raise NotImplementedError(
-            f"coalescence: kernel {kernel_t(kern).name} runs on the flat "
-            "engine only (its dissipation-rate term), as in the JAX package")
 
 
 def load_efficiency_table(kern: kernel_t):

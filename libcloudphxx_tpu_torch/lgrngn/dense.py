@@ -2,9 +2,12 @@
 (libcloudphxx_tpu/lgrngn/dense.py).
 
 The population lives in a dense occupancy matrix of shape (n_cell, cap):
-row i*nz + k holds the super-droplets of cell (i, k), and multiplicity
+row (i*ny + j)*nz + k holds the super-droplets of cell (i, j, k) (ny = 1
+and j = 0 on the 2-D grid, whose row is i*nz + k), and multiplicity
 n == 0 marks an empty slot.  Per-cell reductions are row reductions; only
-the re-binning after transport moves droplets between rows.
+the re-binning after transport moves droplets between rows.  On the 3-D
+grid each SD also carries its y (the plane after z, as in the JAX
+package's attrs_of).
 
 The state is never updated in place: every step returns a new DenseState,
 so a caller may keep an old one (a benchmark restores its initial state).
@@ -38,6 +41,8 @@ from .state import (OUT_COAL_OVERFLOW, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL,
                     OUT_PRTCL_NUM, State, StaticConfig)
 
 ATTRS = ("n", "rw2", "rd3", "kpa", "vt", "x", "z")
+# the 3-D grid's plane (libcloudphxx_tpu/lgrngn/dense.py:211-216)
+Y_ATTRS = ("y",)
 # the exact mode's private ambient planes, and the flat State's names for
 # them (libcloudphxx_tpu/lgrngn/dense.py:205-216)
 EXACT_ATTRS = ("sd_th", "sd_rv", "sd_rh", "sd_p")
@@ -46,53 +51,39 @@ _FLAT_NAME = {"sd_th": "sstp_tmp_th", "sd_rv": "sstp_tmp_rv",
 
 
 def attrs_of(cfg: StaticConfig):
-    """The per-SD planes of the dense layout for ``cfg``: ATTRS, and in
-    exact_sstp_cond mode the four private ambient planes."""
-    return ATTRS + (EXACT_ATTRS if cfg.exact_sstp_cond else ())
+    """The per-SD planes of the dense layout for ``cfg``: ATTRS, y on the
+    3-D grid, and in exact_sstp_cond mode the four private ambient
+    planes."""
+    return ATTRS + (Y_ATTRS if cfg.n_dims == 3 else ()) \
+        + (EXACT_ATTRS if cfg.exact_sstp_cond else ())
 
 
 def supported(cfg: StaticConfig):
     """The dense engine's capability matrix: raise NotImplementedError,
-    with the reason, for a configuration it does not run.  The port has
-    no XLA dense pipeline, so it covers what kernels B-E and G take: the
-    2-D grid, warm, every condensation substepping mode (percell, exact
-    fixed-count with or without in-cell mixing, adaptive), every SD
-    advection scheme (implicit, euler, pred_corr: kernel C's forms), every
-    terminal velocity formula, and for coalescence the formula kernels,
-    the hall family and vohl (kernel E's wide-table form), on any
-    population, const-multi included.  SGS supersaturation
-    (turb_cond_switch) and diag_incloud_time go to the flat engine, as in
-    the JAX package (lgrngn/dense_front.dense_capable); the front hands the
-    other SGS switches' async phases to it step by step.  The JAX dense
-    engine (libcloudphxx_tpu/lgrngn/dense.py:116 _supported) also runs the
-    3-D grid and the turbulent (onishi) kernels, at diss_rate 0, in XLA
-    (its TPU kernel refuses both, :1209 resident_static_ok); this engine
-    refuses them until ROADMAP.md Queue 1's "The dense engine's remaining
-    JAX configurations: 3-D and the onishi kernels", so the port's
-    factory gives the flat engine for them where the JAX factory gives
-    the dense front.  The parcel and the 1-D grid run on the flat engine
-    in both packages."""
-    if cfg.n_dims == 3:
+    with the reason, for a configuration it does not run.  It is the JAX
+    package's (libcloudphxx_tpu/lgrngn/dense.py:116 _supported), on what
+    kernels B-E and G take: the 2-D and the 3-D grid, warm, every
+    condensation substepping mode (percell, exact fixed-count with or
+    without in-cell mixing, adaptive), every SD advection scheme
+    (implicit, euler, pred_corr: kernel C's forms, each in 2-D and 3-D),
+    every terminal velocity formula, and every collision kernel: the
+    formula kernels and the hall family, vohl (kernel E's wide-table
+    form) and the turbulent onishi kernels at dissipation rate 0, as the
+    JAX dense engine computes them (its XLA coalescence, dense.py:606,
+    :738; kernel E's onishi form), on any population, const-multi
+    included.  SGS supersaturation (turb_cond_switch) and
+    diag_incloud_time go to the flat engine, as in the JAX package
+    (lgrngn/dense_front.dense_capable); the front hands the other SGS
+    switches' async phases to it step by step.  The parcel and the 1-D
+    grid run on the flat engine in both packages."""
+    if cfg.n_dims not in (2, 3):
         raise NotImplementedError(
-            "dense engine: the 3-D grid is not ported (ROADMAP.md, Queue 1, "
-            "\"The dense engine's remaining JAX configurations: 3-D and the "
-            "onishi kernels\"); the flat engine (engine=\"flat\") runs it")
-    if cfg.n_dims != 2:
-        raise NotImplementedError(
-            "dense engine: 2-D only (the parcel and the 1-D grid run on the "
-            "flat engine, as in the JAX package)")
+            "dense engine: 2-D/3-D only (the parcel and the 1-D grid run on "
+            "the flat engine, as in the JAX package)")
     if cfg.ice_switch or cfg.chem_switch or cfg.turb_cond_switch:
         raise NotImplementedError("dense engine: ice/chem/SGS not supported")
     if cfg.diag_incloud_time:
         raise NotImplementedError("dense engine: diag_incloud_time off only")
-    kern = kernel_t(cfg.kernel)
-    if cfg.coal_switch and kern in coal_mod.TURBULENT:
-        raise NotImplementedError(
-            f"dense engine: collision kernel {kern.name} not supported "
-            "(the turbulent kernels are not ported to the dense engine: "
-            "ROADMAP.md, Queue 1, \"The dense engine's remaining JAX "
-            "configurations: 3-D and the onishi kernels\"; the flat engine "
-            "runs them)")
 
 
 def _no_plane():
@@ -104,10 +95,12 @@ class DenseState:
     """Cell-major SD population and per-cell thermodynamics.
 
     SD planes (n_cell, cap); cell fields (n_cell,); courants in the
-    flattened staggered layout ((nx+1)*nz and nx*(nz+1)).  Slot order
-    within a row carries no meaning.  The private ambient planes sd_th,
-    sd_rv, sd_rh and sd_p are (n_cell, cap) in exact_sstp_cond mode and
-    empty (0, 0) otherwise."""
+    flattened staggered layout ((nx+1)*ny*nz, nx*(ny+1)*nz and
+    nx*ny*(nz+1), with ny = 1 on the 2-D grid).  Slot order within a row
+    carries no meaning.  The y plane is (n_cell, cap) on the 3-D grid and
+    courant_y the y courants there; both are empty otherwise.  The
+    private ambient planes sd_th, sd_rv, sd_rh and sd_p are (n_cell, cap)
+    in exact_sstp_cond mode and empty (0, 0) otherwise."""
 
     n: torch.Tensor
     rw2: torch.Tensor
@@ -128,6 +121,9 @@ class DenseState:
     courant_z: torch.Tensor
     puddle: torch.Tensor      # (N_PUDDLE,), slots as state.PUDDLE_KEYS
     overflow: torch.Tensor    # 0-d int64: SDs dropped because a row was full
+    y: torch.Tensor = dataclasses.field(default_factory=_no_plane)
+    courant_y: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros(0))
     sd_th: torch.Tensor = dataclasses.field(default_factory=_no_plane)
     sd_rv: torch.Tensor = dataclasses.field(default_factory=_no_plane)
     sd_rh: torch.Tensor = dataclasses.field(default_factory=_no_plane)
@@ -184,6 +180,8 @@ def pack(cfg: StaticConfig, state: State, cap: int) -> DenseState:
     cells = {k: getattr(state, k) for k in (
         "rhod", "p", "T", "RH", "eta", "dv", "sstp_tmp_th", "sstp_tmp_rv",
         "courant_x", "courant_z", "puddle")}
+    if cfg.n_dims == 3:
+        cells["courant_y"] = state.courant_y
     if cfg.exact_sstp_cond:
         cells.update(sstp_tmp_th=state.th, sstp_tmp_rv=state.rv)
     return DenseState(
@@ -243,13 +241,26 @@ def unpack(cfg: StaticConfig, d: DenseState, state: State) -> State:
 
 def _row_courants(cfg: StaticConfig, d: DenseState):
     """Per-cell left/right/below/above courants (n_cell,) sliced from the
-    staggered fields (reference init_grid.ipp:94-155); the columns are
-    d's rows (a mesh shard holds fewer than cfg.nx)."""
-    nx = d.n_cell // cfg.nz
-    cx = d.courant_x.reshape(nx + 1, cfg.nz)
-    cz = d.courant_z.reshape(nx, cfg.nz + 1)
+    staggered fields (reference init_grid.ipp:94-155; libcloudphxx_tpu/
+    lgrngn/dense.py:894-906); the columns are d's rows (a mesh shard holds
+    fewer than cfg.nx)."""
+    ny, nz = cfg.ny, cfg.nz
+    nx = d.n_cell // (ny * nz)
+    cx = d.courant_x.reshape(nx + 1, ny * nz)
+    cz = d.courant_z.reshape(nx * ny, nz + 1)
     return (cx[:-1].reshape(-1), cx[1:].reshape(-1),
             cz[:, :-1].reshape(-1), cz[:, 1:].reshape(-1))
+
+
+def _y_axis(cfg: StaticConfig, d: DenseState):
+    """On the 3-D grid (y, C_f, C_h): the y plane and each row's
+    front/hind courants, sliced from the staggered courant_y (nx, ny+1,
+    nz), as kernel C's 3-D forms take them (ops/step.transport ``y3``);
+    None on the 2-D grid."""
+    if cfg.n_dims != 3:
+        return None
+    cy = d.courant_y.reshape(cfg.nx, cfg.ny + 1, cfg.nz)
+    return (d.y, cy[:, :-1].reshape(-1), cy[:, 1:].reshape(-1))
 
 
 def _rebin_global(cfg: StaticConfig, d: DenseState, tgt=None) -> DenseState:
@@ -259,7 +270,8 @@ def _rebin_global(cfg: StaticConfig, d: DenseState, tgt=None) -> DenseState:
     the positions unless given (a shard of the x-slab mesh gives its
     own)."""
     if tgt is None:
-        tgt = torch.where(d.n > 0, ijk_of_xyz(cfg, d.x, None, d.z), d.n_cell)
+        y = d.y if cfg.n_dims == 3 else None
+        tgt = torch.where(d.n > 0, ijk_of_xyz(cfg, d.x, y, d.z), d.n_cell)
     attrs = attrs_of(cfg)
     planes, overflow = _distribute(
         d.n_cell, d.cap, tgt.reshape(-1),
@@ -390,6 +402,16 @@ def _rshift_mask(m):
     return torch.cat([torch.zeros_like(m[:, :1]), m[:, :-1]], dim=1)
 
 
+def _turb(cfg, rhod_row, eta_row):
+    """What the turbulent (onishi) kernels read of a row: its density and
+    viscosity at dissipation rate 0, as the JAX dense engine gives them
+    (libcloudphxx_tpu/lgrngn/dense.py:606, :738); None for the other
+    kernels."""
+    if kernel_t(cfg.kernel) in coal_mod.TURBULENT:
+        return (rhod_row, eta_row, 0.0)
+    return None
+
+
 def pair_and_collide(cfg, params, sorted_vals, count, dv_row, rhod_row,
                      eta_row, dt, u01, eff=None):
     """Adjacent pairing after the shuffle and the Shima collision math on
@@ -399,9 +421,9 @@ def pair_and_collide(cfg, params, sorted_vals, count, dv_row, rhod_row,
     the live SDs of each row, ``u01`` the Bernoulli draws; lane 2j pairs
     with lane 2j+1 and takes the draw of lane 2j.  ``eff`` the hall
     family's efficiencies (coalescence.efficiency); ``rhod_row`` and
-    ``eta_row`` are taken for the JAX signature (no ported kernel reads
-    them).  Returns (n, rw2, rd3, kpa, overflow), overflow (rows,) True
-    where a pair asked for more than one collision."""
+    ``eta_row`` the rows' density and viscosity, which the turbulent
+    kernels read (_turb).  Returns (n, rw2, rd3, kpa, overflow), overflow
+    (rows,) True where a pair asked for more than one collision."""
     n_a, rw2_a, rd3_a, kpa_a, vt_a = sorted_vals
     # Shima 2009 sec 5.1.3 scale factor (coal.ipp:99-107)
     half = torch.floor(count / 2)
@@ -412,7 +434,7 @@ def pair_and_collide(cfg, params, sorted_vals, count, dv_row, rhod_row,
     a_is_big = n_a >= b[0]
     happened, n_big_new, rw2_new, rd3_new, kpa_new, overflow = \
         coal_mod.shima(cfg, params, sorted_vals, b, a_is_big, is_pair, u01,
-                       dt, dv_row, scale, eff)
+                       dt, dv_row, scale, eff, _turb(cfg, rhod_row, eta_row))
     # lane 2j holds the pair's outcome; lane 2j+1 reads it shifted
     hp, bigp = _rshift_mask(happened), _rshift(a_is_big)
     n_s = torch.where(happened & a_is_big, n_big_new, n_a)
@@ -471,7 +493,8 @@ def pair_and_collide_partners(cfg, params, vals, partners, is_a, dv_row,
     self_is_big = (n_a > n_b) | ((n_a == n_b) & is_a)
     happened, n_big_new, rw2_new, rd3_new, kpa_new, overflow = \
         coal_mod.shima(cfg, params, vals, partners, self_is_big, pair_ok,
-                       u_pair, dt, dv_row, scale, eff)
+                       u_pair, dt, dv_row, scale, eff,
+                       _turb(cfg, rhod_row, eta_row))
     small = happened & ~self_is_big
     return (torch.where(happened & self_is_big, n_big_new, n_a),
             torch.where(small, rw2_new, vals[1]),
@@ -484,7 +507,14 @@ def coal(cfg: StaticConfig, d: DenseState, params, dt, sstp_coal: int, *,
     """The sstp_coal coalescence loop with the terminal velocity refreshed
     every substep, on its own (libcloudphxx_tpu/lgrngn/dense.py:855): kernel
     E in its standalone form (ops/coal.coal_standalone; the TPU's
-    pallas_coal kernel).  The overflow flag is folded into the puddle."""
+    pallas_coal kernel), on the 2-D grid (no y plane rides it; the step's
+    coalescence, ops/coal.coal_resident, carries it).  The overflow flag
+    is folded into the puddle."""
+    if cfg.n_dims == 3:
+        raise NotImplementedError(
+            "dense.coal: the standalone coalescence loop carries no y plane "
+            "(the 3-D grid's coalescence runs in step_fused and "
+            "step_async_resident)")
     n, rw2, rd3, kpa, vt, x, z, ovf = coal_ops.coal_standalone(
         cfg, params, sstp_coal, dt, d.rng_seed, d.rng_step, d.n, d.rw2,
         d.rd3, d.kpa, d.x, d.z, d.T, d.p, d.rhod, d.eta, d.dv, plain=plain)
@@ -598,8 +628,10 @@ def _resident_phases(cfg: StaticConfig, d: DenseState, th_adv, rv_adv,
         w_cells=w_cells, coal_pairing=coal_pairing, plain=plain)
     if tgt is None:
         return d, th, rv
-    if cfg.nx < 3:
-        # the merge needs distinct left, own and right columns
+    if cfg.nx < 3 or (cfg.n_dims == 3 and cfg.ny < 3):
+        # the merge needs distinct left, own and right columns (and front,
+        # own and hind rows of columns); as in the JAX package's rebin,
+        # dense.py:1162-1165
         return _rebin_global(cfg, d), th, rv
     d = merge(cfg, d, tgt, plain=plain)
     if bool(far > 0):  # one host sync a step: far movers are rare
@@ -609,9 +641,9 @@ def _resident_phases(cfg: StaticConfig, d: DenseState, th_adv, rv_adv,
 
 def merge(cfg: StaticConfig, d: DenseState, tgt, *, plain=False):
     """Each row takes the droplets whose target ``tgt`` it is (rebin_x,
-    kernel D; in exact mode its 11-plane form, the private planes
-    riding); the droplets a full row cannot hold are added to
-    ``overflow``."""
+    kernel D: on the 3-D grid its 3-D form, from 27 rows with the y plane
+    riding; in exact mode the forms with the private planes riding); the
+    droplets a full row cannot hold are added to ``overflow``."""
     attrs = attrs_of(cfg)
     *planes, drops = rebin_x(
         cfg, *(getattr(d, a) for a in ATTRS), tgt,
@@ -650,15 +682,18 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
             closure = (d.T, d.p, d.RH, d.eta)
     # mean free paths from the previous step's T/p (dense.py:1519)
     lam_D, lam_K = hskpng_mfp(d.T, d.p) if do_cond else (None, None)
-    (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta,
-     rowinfo) = step_resident(
+    y3 = _y_axis(cfg, d)
+    (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta, rowinfo,
+     *y) = step_resident(
         cfg, cfg.sstp_cond, dt, RH_max, do_sedi, d.n, d.rw2, d.rd3, d.kpa,
         d.x, d.z, th_adv, rv_adv, d.sstp_tmp_th, d.sstp_tmp_rv, d.rhod, d.dv,
         lam_D, lam_K, *_row_courants(cfg, d), d.p, do_cond=do_cond,
         do_coal=do_coal, do_adve=do_adve, w_cells=w_cells, params=params,
         sstp_coal=sstp_coal, rng=(d.rng_seed, d.rng_step),
         coal_pairing=coal_pairing, slab=slab, closure=closure,
-        courants=(d.courant_x, d.courant_z), plain=plain)
+        courants=(d.courant_x, d.courant_z) + (
+            (d.courant_y,) if y3 is not None else ()),
+        y3=y3, plain=plain)
     puddle = d.puddle
     if rowinfo is not None:
         info = rowinfo.sum(dim=0).to(puddle.dtype)
@@ -678,7 +713,8 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
     d = dataclasses.replace(
         d, n=n, rw2=rw2, rd3=rd3, kpa=kpa, vt=d.vt if vt is None else vt,
         x=x, z=z, T=T, p=p, RH=RH, eta=eta, sstp_tmp_th=th, sstp_tmp_rv=rv,
-        puddle=puddle, rng_step=d.rng_step + int(do_coal), **exact)
+        puddle=puddle, rng_step=d.rng_step + int(do_coal), **exact,
+        **dict(zip(Y_ATTRS, y)))
     return d, th, rv, tgt, None if tgt is None else info[4]
 
 

@@ -9,7 +9,8 @@ step_async the rest of it (kernels E, C and D), the same kernels
 Kinematic2D.run_device_lgrngn(engine="dense") runs, while every
 diagnostic, get_attr and checkpoint reads the flat layout.  The factory
 hands it out on a CUDA device for every configuration the dense engine
-runs (dense_capable); the others run on the flat engine.
+runs (dense_capable: the 2-D and the 3-D grid, every collision kernel);
+the others run on the flat engine.
 
 Residency protocol:
   - ``_loc``           where the authoritative population lives, "flat" or
@@ -203,7 +204,8 @@ class particles_dense_t(particles_t):
             # engine's condensation for this step (the async phase follows
             # it there)
             synced = {k: getattr(state, k) for k in (
-                "th", "rv", "rhod", "courant_x", "courant_z", "diss_rate")}
+                "th", "rv", "rhod", "courant_x", "courant_y", "courant_z",
+                "diss_rate")}
             self._ensure_flat()
             return super()._step_cond_impl(
                 dataclasses.replace(self.state, **synced), dt, RH_max,
@@ -212,6 +214,8 @@ class particles_dense_t(particles_t):
         d = dataclasses.replace(self._d, rhod=state.rhod,
                                 courant_x=state.courant_x,
                                 courant_z=state.courant_z)
+        if self.cfg.n_dims == 3:
+            d = dataclasses.replace(d, courant_y=state.courant_y)
         d, th, rv = dense.step_cond_resident(
             self._cfg_for_dt(dt), d, state.th, state.rv, dt, RH_max,
             plain=plain)

@@ -28,9 +28,17 @@ version, CUDA tensors launch the kernel (float32, contiguous, a power-of-
 two row capacity up to MAX_CAP, or the wrapper raises), and ``plain=True``
 runs the plain version on any device.  Under vohl_davis_no_waals, whose
 efficiency table is wider than the hall family's 128 (wide_table), the
-resident form launches E's wide-table form (_ext.COAL_VOHL).  Every form
-returns a per-row overflow flag: some pair of the row asked for more than
-one collision in a substep (lane 6 of the TPU kernel's per-block flags,
+resident form launches E's wide-table form (_ext.COAL_VOHL).  On the 3-D
+grid the resident form carries the y plane (``y``), which rides as x and
+z do: E's y forms _ext.COAL_3D and _ext.COAL_VOHL_3D.  Under the
+turbulent kernels (onishi_hall, onishi_hall_davis_no_waals) it launches
+E's onishi form, _ext.COAL_ONISHI (the y plane riding on the 3-D grid):
+the hall table's efficiency times Wang's enhancement times the
+geometric kernel, at dissipation rate 0, as the JAX dense engine
+computes them in XLA (libcloudphxx_tpu/lgrngn/dense.py:606, :738; its
+TPU kernel refuses them, :1221-1225).  Every form returns a per-row
+overflow flag: some pair of the row asked for more than one collision
+in a substep (lane 6 of the TPU kernel's per-block flags,
 pallas_step.py:527).
 """
 
@@ -80,12 +88,14 @@ def _draws(seed, step, like, row0=0):
 
 def coal_resident_plain(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3,
                         kpa, x, z, T, p, rhod, eta, dv, pairing="stride",
-                        row0=0):
+                        row0=0, y=None):
     """The coalescence phase of the resident step (pallas_step.py:233-336):
     ``sstp_coal`` substeps of dt/sstp_coal on the (n_cell, cap) planes,
     with the cell fields (n_cell,) after condensation, in ``pairing``
-    "stride" or "sort"; row r draws as row ``row0`` + r.  Returns (n, rw2,
-    rd3, kpa, x, z, overflow)."""
+    "stride" or "sort"; row r draws as row ``row0`` + r.  On the 3-D grid
+    the y plane ``y`` rides with x and z (libcloudphxx_tpu/lgrngn/
+    dense.py:801-804).  Returns (n, rw2, rd3, kpa, x, z, overflow), with
+    ``y`` (n, rw2, rd3, kpa, x, z, y, overflow)."""
     col = lambda a: a[:, None]
     T, p, rhod, eta, dv = (col(a) for a in (T, p, rhod, eta, dv))
     dt_sub = dt / sstp_coal
@@ -93,20 +103,21 @@ def coal_resident_plain(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3,
     eff = coal_mod.efficiency(cfg.kernel, n.dtype, n.device)
     draw = _draws(seed, step, n, row0)
     ovf = torch.zeros(n.shape[0], dtype=torch.bool, device=n.device)
+    pos = (x, z) + (() if y is None else (y,))
     if pairing == "stride":
         n_strides = n_strides_of(n.shape[1])
         for s in range(sstp_coal):
             if s % n_strides == 0:
                 key = shuffle_key(draw(s, philox.SHUFFLE), n > 0)
-                _, (n, rw2, rd3, kpa, x, z) = shuffle_rows(
-                    key, (n, rw2, rd3, kpa, x, z))
+                _, (n, rw2, rd3, kpa, *pos) = shuffle_rows(
+                    key, (n, rw2, rd3, kpa, *pos))
             vt = vt_in_kernel(cfg, rw2, T, p, rhod, eta)
             u = philox.u01(draw(s, philox.BERNOULLI), n.dtype)
             n, rw2, rd3, kpa, o = dense.pair_and_collide_stride(
                 cfg, params, (n, rw2, rd3, kpa, vt), 1 << (s % n_strides),
                 dv, rhod, eta, dt_sub, u, eff)
             ovf = ovf | o
-        return n, rw2, rd3, kpa, x, z, ovf
+        return (n, rw2, rd3, kpa, *pos, ovf)
     lane_id = torch.arange(n.shape[1], device=n.device).expand(n.shape)
     for s in range(sstp_coal):
         key = shuffle_key(draw(s, philox.SHUFFLE), n > 0)
@@ -120,7 +131,7 @@ def coal_resident_plain(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3,
             dt_sub, u, eff)
         ovf = ovf | o
     _, (n, rw2, rd3, kpa) = shuffle_rows(lane_id, (n, rw2, rd3, kpa))
-    return n, rw2, rd3, kpa, x, z, ovf
+    return (n, rw2, rd3, kpa, *pos, ovf)
 
 
 def coal_standalone_plain(cfg, params, sstp_coal, dt, seed, step, n, rw2,
@@ -162,7 +173,8 @@ def wide_table(cfg):
 def _launch(kernel, cfg, params, sstp_coal, dt, seed, step, planes, cells,
             n_outs, *mode):
     """Check what kernel E takes, launch it and return its n_outs planes
-    and the overflow flags."""
+    and the overflow flags.  A y form's ``mode`` ends with the y plane in
+    and out (or None twice), which the wrapper checks."""
     n_cell, cap = planes[0].shape
     _ext.check_planes(kernel.name, cap, *planes)
     if cap & (cap - 1) or cap > MAX_CAP:
@@ -175,10 +187,15 @@ def _launch(kernel, cfg, params, sstp_coal, dt, seed, step, planes, cells,
     if cells.shape != (5, n_cell):
         raise ValueError(f"{kernel.name}: cell fields must be ({n_cell},)")
     _ext.check(kernel.name, *planes, cells)
-    coef = 1.0     # golovin's pi * 4/3 * b, geometric's multiplier
+    # golovin's pi * 4/3 * b, geometric's multiplier, the onishi kernels'
+    # params[0] (the dissipation rate of Wang's table, physics.cuh
+    # CollisionKernel)
+    coef = 1.0
     if kern == kernel_t.golovin:
         coef = c.pi * 4.0 / 3.0 * float(params[0])
     elif kern == kernel_t.geometric and len(params):
+        coef = float(params[0])
+    elif kern in coal_mod.TURBULENT:
         coef = float(params[0])
     outs = tuple(torch.empty_like(planes[0]) for _ in range(n_outs))
     ovf = torch.empty(n_cell, dtype=torch.bool, device=cells.device)
@@ -195,9 +212,10 @@ def _launch(kernel, cfg, params, sstp_coal, dt, seed, step, planes, cells,
 
 def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
                   x, z, T, p, rhod, eta, dv, *, pairing="stride", row0=0,
-                  plain=False):
+                  y=None, plain=False):
     """Kernel E in the resident step's form, or coal_resident_plain (same
-    arguments and results)."""
+    arguments and results): on the 3-D grid (``y``) its y forms, under the
+    turbulent kernels its onishi form."""
     if pairing not in PAIRINGS:
         raise ValueError(f"coal: pairing must be one of {PAIRINGS}, got "
                          f"{pairing!r}")
@@ -206,11 +224,28 @@ def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
     if not 0 <= int(row0) <= philox.MASK - n.shape[0]:
         raise ValueError(f"coal: row0 {row0} out of range")
     if _ext.use_plain("coal", n, plain):
-        return coal_resident_plain(*args, pairing=pairing, row0=row0)
-    kernel = _ext.COAL_VOHL if wide_table(cfg) else _ext.COAL
-    return _launch(kernel, cfg, params, sstp_coal, dt, seed, step,
-                   (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
-                   int(pairing == "sort"), int(row0))
+        return coal_resident_plain(*args, pairing=pairing, row0=row0, y=y)
+    onishi = kernel_t(cfg.kernel) in coal_mod.TURBULENT
+    if y is None and not onishi:
+        kernel = _ext.COAL_VOHL if wide_table(cfg) else _ext.COAL
+        return _launch(kernel, cfg, params, sstp_coal, dt, seed, step,
+                       (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
+                       int(pairing == "sort"), int(row0))
+    # the y and onishi forms: the grid's rows only (the mesh runs neither)
+    if row0:
+        raise ValueError("coal: the y and onishi forms take no row0")
+    if y is not None:
+        _ext.check_planes("coal", n.shape[1], n, y)
+        _ext.check("coal", n, y)
+    kernel = _ext.COAL_ONISHI if onishi else (
+        _ext.COAL_VOHL_3D if wide_table(cfg) else _ext.COAL_3D)
+    y_out = None if y is None else torch.empty_like(y)
+    *outs, ovf = _launch(kernel, cfg, params, sstp_coal, dt, seed, step,
+                         (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
+                         int(pairing == "sort"),
+                         None if y is None else y.data_ptr(),
+                         None if y is None else y_out.data_ptr())
+    return (*outs,) + (() if y is None else (y_out,)) + (ovf,)
 
 
 def coal_standalone(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
@@ -221,12 +256,12 @@ def coal_standalone(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
             T, p, rhod, eta, dv)
     if _ext.use_plain("coal_standalone", n, plain):
         return coal_standalone_plain(*args)
-    if wide_table(cfg):
+    if wide_table(cfg) or kernel_t(cfg.kernel) in coal_mod.TURBULENT:
         raise NotImplementedError(
-            f"coal_standalone: the standalone form of kernel E reads the "
-            f"hall family's 128-wide tables only, not "
-            f"{kernel_t(cfg.kernel).name}'s (the resident step's form, "
-            f"coal_resident, reads it)")
+            f"coal_standalone: the standalone form of kernel E computes the "
+            f"formula kernels and the hall family's 128-wide tables only, "
+            f"not {kernel_t(cfg.kernel).name} (the resident step's forms, "
+            f"coal_resident, compute it)")
     *outs, ovf = _launch(_ext.COAL_STANDALONE, cfg, params, sstp_coal, dt,
                          seed, step, (n, rw2, rd3, kpa, x, z),
                          (T, p, rhod, eta, dv), 7)

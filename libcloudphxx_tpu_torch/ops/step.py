@@ -12,17 +12,21 @@ hand-written kernels, each beside its plain PyTorch version:
             advection, sedimentation, subsidence, walls, puddle partials,
             and the target cell of every droplet (or the vt refresh alone);
             with a ``slab`` the unwrapped form a shard of the x-slab mesh
-            runs
+            runs; on the 3-D grid (``y3``) the 3-D forms, which also advect
+            and wrap y
   kernel D  csrc/merge.cu      rebin_x / rebin_x_plain: each row takes its
             droplets from itself and its eight neighbours (the z and the x
             pass of the re-binning at once); seven planes, or eleven with
-            the exact mode's private ambient planes
+            the exact mode's private ambient planes; on the 3-D grid
+            (csrc/merge3d.cu) from itself and its 26 neighbours, x and y
+            periodic, with the y plane riding: eight planes, or twelve
 
 Dispatch is by device: CPU tensors run the plain version, CUDA tensors
 launch the kernel (float32, contiguous, or the wrapper raises), and
 ``plain=True`` runs the plain version on any device, for comparisons and
 timings.  Layout: SD planes (n_cell, cap), row i*nz + k holding cell
-(i, k); cell fields (n_cell,).
+(i, k), or on the 3-D grid row (i*ny + j)*nz + k holding cell (i, j, k);
+cell fields (n_cell,).
 """
 
 import torch
@@ -41,6 +45,12 @@ from .compact import stable_partition_rows
 # the z neighbours, then the columns to the left and to the right
 MERGE_SOURCES = ((0, 0), (0, -1), (0, 1), (-1, 0), (-1, -1), (-1, 1),
                  (1, 0), (1, -1), (1, 1))
+# on the 3-D grid, (di, dj, dk) in this order: dk innermost, then dj, then
+# di, each 0, -1, 1 (the own row first)
+MERGE_SOURCES_3D = tuple((di, dj, dk) for di in (0, -1, 1)
+                         for dj in (0, -1, 1) for dk in (0, -1, 1))
+# rebin_x_plain's candidate slots a block of destination rows
+MERGE_BLOCK = 1 << 25
 
 
 def _rows(cfg, n_cell, like, col0=0):
@@ -51,13 +61,32 @@ def _rows(cfg, n_cell, like, col0=0):
         (r % cfg.nz).to(like.dtype)[:, None]
 
 
+def _rows3(cfg, n_cell, like):
+    """Each row's (i, j, k) on the 3-D grid, as (n_cell, 1) planes of
+    ``like``'s dtype."""
+    r = torch.arange(n_cell, device=like.device)
+    f = lambda a: a.to(like.dtype)[:, None]
+    return f(r // (cfg.ny * cfg.nz)), f((r // cfg.nz) % cfg.ny), \
+        f(r % cfg.nz)
+
+
+def _wrap(a0, a1, x):
+    w = a1 - a0
+    q = x - a0
+    return a0 + (q - torch.floor(q / torch.full((), w, dtype=x.dtype,
+                                               device=x.device)) * w)
+
+
 def wrap_x(cfg, x):
     """x wrapped into [x0, x1) by the periodic side walls, in kernel C's
     float operations."""
-    w = cfg.x1 - cfg.x0
-    q = x - cfg.x0
-    return cfg.x0 + (q - torch.floor(q / torch.full((), w, dtype=x.dtype,
-                                                   device=x.device)) * w)
+    return _wrap(cfg.x0, cfg.x1, x)
+
+
+def wrap_y(cfg, y):
+    """y wrapped into [y0, y1) by the periodic side walls (3-D), as
+    wrap_x."""
+    return _wrap(cfg.y0, cfg.y1, y)
 
 
 def column_of(cfg, x):
@@ -72,6 +101,13 @@ def level_of(cfg, z):
     column_of."""
     dz = torch.full((), cfg.dz, dtype=z.dtype, device=z.device)
     return torch.clamp(torch.floor(z / dz), 0, cfg.nz - 1)
+
+
+def row_of_y(cfg, y):
+    """The j index of each y on the 3-D grid, clamped to [0, ny), as
+    column_of."""
+    dy = torch.full((), cfg.dy, dtype=y.dtype, device=y.device)
+    return torch.clamp(torch.floor(y / dy), 0, cfg.ny - 1)
 
 
 def _slab(cfg, n_cell, slab):
@@ -163,45 +199,70 @@ def _cell_of(pos, d, n):
     return torch.clamp(torch.floor(q).to(torch.int64), 0, n - 1)
 
 
-def pred_corr(cfg, x, z, i_row, k_row, C_l, C_r, C_b, C_a, courants):
+def pred_corr(cfg, x, z, i_row, k_row, C_l, C_r, C_b, C_a, courants,
+              yax=None):
     """The predictor-corrector SD advection of a row's droplets
     (libcloudphxx_tpu/lgrngn/dense.py:962-1005, the port's flat
     transport.adve; reference adve.ipp:184-304): the euler predictor with
-    the row's courants, z kept inside the domain, x wrapped with its old
-    position shifted alike (unless the side walls are open), then the mean
-    of the two displacements, the corrector's taken with the courants of
-    the predictor's cell, gathered from the staggered ``courants`` =
-    (courant_x (nx+1)*nz, courant_z nx*(nz+1)) with
-    transport.courant_indices' index math.  Returns (x, z)."""
+    the row's courants, z kept inside the domain, x (and y) wrapped with
+    its old position shifted alike (unless the side walls are open), then
+    the mean of the two displacements, the corrector's taken with the
+    courants of the predictor's cell, gathered from the staggered
+    ``courants`` = (courant_x (nx+1)*ny*nz, courant_z nx*ny*(nz+1)[,
+    courant_y nx*(ny+1)*nz]) with transport.courant_indices' index math.
+    On the 3-D grid ``yax`` = (y, j_row, C_f, C_h).  Returns (x, z), or
+    (x, z, y) with ``yax``."""
     dCx, dCz = (C_r - C_l)[:, None], (C_a - C_b)[:, None]
     x_old, z_old = x, z
     x = x + dCx * (x - cfg.dx * i_row) + cfg.dx * C_l[:, None]
     z = z + dCz * (z - cfg.dz * k_row) + cfg.dz * C_b[:, None]
+    if yax is not None:
+        y, j_row, C_f, C_h = yax
+        y_old = y
+        y = y + (C_h - C_f)[:, None] * (y - cfg.dy * j_row) \
+            + cfg.dy * C_f[:, None]
     z = torch.clamp(z, cfg.z0 + 1e-8 * cfg.dz, cfg.z1 - 1e-8 * cfg.dz)
     if not cfg.open_side_walls:
         x_wr = wrap_x(cfg, x)
         x_old = x_old + (x_wr - x)
         x = x_wr
-    cx, cz = courants
+        if yax is not None:
+            y_wr = wrap_y(cfg, y)
+            y_old = y_old + (y_wr - y)
+            y = y_wr
+    cx, cz = courants[:2]
     i_m, k_m = _cell_of(x, cfg.dx, cfg.nx), _cell_of(z, cfg.dz, cfg.nz)
-    lft = i_m * cfg.nz + k_m
-    blw = lft + i_m
-    dx_ = (cx[lft + cfg.nz] - cx[lft]) * (x - cfg.dx * i_m.to(x.dtype)) \
+    if yax is None:
+        lft = i_m * cfg.nz + k_m
+        rgt, blw = lft + cfg.nz, lft + i_m
+    else:
+        j_m = _cell_of(y, cfg.dy, cfg.ny)
+        lft = (i_m * cfg.ny + j_m) * cfg.nz + k_m
+        rgt, blw = lft + cfg.ny * cfg.nz, lft + i_m * cfg.ny + j_m
+    dx_ = (cx[rgt] - cx[lft]) * (x - cfg.dx * i_m.to(x.dtype)) \
         + cfg.dx * cx[lft]
     dz_ = (cz[blw + 1] - cz[blw]) * (z - cfg.dz * k_m.to(z.dtype)) \
         + cfg.dz * cz[blw]
-    return (x + x_old + dx_) / 2.0, (z + z_old + dz_) / 2.0
+    x, z = (x + x_old + dx_) / 2.0, (z + z_old + dz_) / 2.0
+    if yax is None:
+        return x, z
+    cy = courants[2]
+    fre = lft + i_m * cfg.nz
+    dy_ = (cy[fre + cfg.nz] - cy[fre]) * (y - cfg.dy * j_m.to(y.dtype)) \
+        + cfg.dy * cy[fre]
+    return x, z, (y + y_old + dy_) / 2.0
 
 
 def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
                     C_l, C_r, C_b, C_a, *, do_adve=True, w_cells=None,
-                    slab=None, courants=None):
+                    slab=None, courants=None, y3=None):
     """vt refresh, SD advection, sedimentation, subsidence, walls and
     puddle, then each droplet's target row (pallas_step.py:338-487).
     ``do_adve`` moves the droplets with the courants C_* (under pred_corr
-    also with the staggered ``courants`` = (courant_x, courant_z): see
-    pred_corr), ``do_sedi`` by their vt, and ``w_cells`` (n_cell,), when
-    given, is the subsidence velocity of each row (pallas_step.py:369-370).
+    also with the staggered ``courants`` = (courant_x, courant_z[,
+    courant_y]): see pred_corr), ``do_sedi`` by their vt, and ``w_cells``
+    (n_cell,), when given, is the subsidence velocity of each row
+    (pallas_step.py:369-370).
     Returns (n, x, z, vt, tgt, rowinfo): ``tgt`` is the int32 target row (-1 for dead slots; a
     droplet that moved more than one cell on an axis keeps its row and sets
     the row's flag), ``rowinfo`` (n_cell, 8) the per-row puddle partials
@@ -211,6 +272,13 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
     slots it takes, so no droplet sees that.  With no transport at all (no
     advection, sedimentation or subsidence) only vt is refreshed: n, x and
     z come back as they went in, and tgt and rowinfo are None.
+
+    On the 3-D grid ``y3`` = (y, C_f, C_h), the y plane and each row's
+    front and hind courants (libcloudphxx_tpu/lgrngn/dense.py:918-1030):
+    y is advected by the scheme of x, wrapped by the periodic side walls
+    or killed beyond the open ones, the target row is (i*ny + j)*nz + k,
+    and a move by more than one cell in y (the wrap aside) is a far move;
+    the result has y after the six.
 
     With a ``slab`` = (col0, ncol) it is the unwrapped form a shard of the
     x-slab mesh runs (the TPU kernel's x_wrap=False, pallas_step.py:378-382;
@@ -223,32 +291,47 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
     clause."""
     n_cell, cap = n.shape
     col0, ncol = _slab(cfg, n_cell, slab)
+    three = y3 is not None
+    if three and slab is not None:
+        raise ValueError("transport: the 3-D grid has no unwrapped form")
     live0 = n > 0
     col = lambda a: a[:, None]
     # divisions by a tensor, not a Python number: on the card PyTorch
     # turns those into multiplications by the reciprocal, which would
     # classify a droplet on a cell face differently from the kernel
     full = lambda v: torch.full((), v, dtype=x.dtype, device=x.device)
-    i_row, k_row = _rows(cfg, n_cell, x, col0)
+    if three:
+        y, C_f, C_h = y3
+        i_row, j_row, k_row = _rows3(cfg, n_cell, x)
+    else:
+        i_row, k_row = _rows(cfg, n_cell, x, col0)
     vt = vt_in_kernel(cfg, rw2, col(T), col(p), col(rhod), col(eta))
     if not (do_adve or do_sedi or w_cells is not None):
         if slab is not None:
             raise ValueError("transport: a slab needs some transport")
-        return n, x, z, torch.where(live0, vt, 0.0), None, None
+        return (n, x, z, torch.where(live0, vt, 0.0), None, None) \
+            + ((y,) if three else ())
 
     scheme = as_t(cfg.adve_scheme)
     if do_adve and scheme == as_t.pred_corr:
-        x, z = pred_corr(cfg, x, z, i_row, k_row, C_l, C_r, C_b, C_a,
-                         courants)
+        x, z, *yy = pred_corr(cfg, x, z, i_row, k_row, C_l, C_r, C_b, C_a,
+                              courants,
+                              (y, j_row, C_f, C_h) if three else None)
+        y = yy[0] if three else None
     elif do_adve:
         dCx = col(C_r - C_l)
         dCz = col(C_a - C_b)
+        dCy = col(C_h - C_f) if three else None
         if scheme == as_t.implicit:
             x = (x + cfg.dx * (col(C_l) - i_row * dCx)) / (1.0 - dCx)
             z = (z + cfg.dz * (col(C_b) - k_row * dCz)) / (1.0 - dCz)
+            if three:
+                y = (y + cfg.dy * (col(C_f) - j_row * dCy)) / (1.0 - dCy)
         else:  # euler
             x = x + dCx * (x - cfg.dx * i_row) + cfg.dx * col(C_l)
             z = z + dCz * (z - cfg.dz * k_row) + cfg.dz * col(C_b)
+            if three:
+                y = y + dCy * (y - cfg.dy * j_row) + cfg.dy * col(C_f)
     if do_sedi:
         z = z - dt * vt
     if w_cells is not None:
@@ -259,6 +342,11 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
             n = torch.where((x >= cfg.x1) | (x < cfg.x0), 0.0, n)
         else:
             x = wrap_x(cfg, x)
+    if three:
+        if cfg.open_side_walls:
+            n = torch.where((y >= cfg.y1) | (y < cfg.y0), 0.0, n)
+        else:
+            y = wrap_y(cfg, y)
     zero = torch.zeros(n_cell, dtype=n.dtype, device=n.device)
     liq_vol = dry_vol = liq_num = prt_num = zero
     if cfg.periodic_topbot_walls:
@@ -290,30 +378,41 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
         alive = alive & ~((x < cfg.x0) | (x >= cfg.x1) | (i_t < col0)
                           | (i_t >= col0 + ncol))
     near = (torch.abs(dk) <= 1.0) & near_x
+    if three:
+        j_t = row_of_y(cfg, y)
+        dj = j_t - j_row
+        wrap_j = float(cfg.ny - 1)
+        near = near & ((dj == 0.0) | (dj == 1.0) | (dj == -1.0)
+                       | (dj == wrap_j) | (dj == -wrap_j))
+        cell = (i_t * cfg.ny + j_t) * cfg.nz + k_t
+    else:
+        cell = (i_t - col0) * cfg.nz + k_t
     rows = torch.arange(n_cell, device=n.device, dtype=torch.int32)[:, None]
-    tgt = torch.where(near, ((i_t - col0) * cfg.nz + k_t).to(torch.int32),
-                      rows)
+    tgt = torch.where(near, cell.to(torch.int32), rows)
     tgt = torch.where(alive, tgt, -1)
     far = (alive & ~near).any(dim=1).to(n.dtype)
     rowinfo = torch.stack([liq_vol, dry_vol, liq_num, prt_num, far,
                            zero, zero, zero], dim=1)
     n, x, z, vt = (torch.where(live0, a, 0.0) for a in (n, x, z, vt))
-    return n, x, z, vt, tgt, rowinfo
+    return (n, x, z, vt, tgt, rowinfo) + (
+        (torch.where(live0, y, 0.0),) if three else ())
 
 
 def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
               C_r, C_b, C_a, *, do_adve=True, w_cells=None, slab=None,
-              courants=None, plain=False):
+              courants=None, y3=None, plain=False):
     """Kernel C, or its plain version transport_plain (same arguments and
     results); with a ``slab`` kernel C's unwrapped form, counted as
     _ext.TRANSPORT_UNWRAPPED; advecting under pred_corr its pred_corr
-    form, counted as _ext.TRANSPORT_PRED_CORR, which reads ``courants``."""
+    form, counted as _ext.TRANSPORT_PRED_CORR, which reads ``courants``;
+    on the 3-D grid (``y3``) its 3-D forms, _ext.TRANSPORT_3D and
+    _ext.TRANSPORT_3D_PRED_CORR."""
     pc = do_adve and as_t(cfg.adve_scheme) == as_t.pred_corr
     if pc and (courants is None or slab is not None):
         raise ValueError("transport: pred_corr needs the staggered courants "
                          "and has no unwrapped form")
     kw = dict(do_adve=do_adve, w_cells=w_cells, slab=slab,
-              courants=courants)
+              courants=courants, y3=y3)
     args = (n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r, C_b, C_a)
     if _ext.use_plain("transport", n, plain):
         return transport_plain(cfg, dt, do_sedi, *args, **kw)
@@ -322,35 +421,54 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
     col0, ncol = _slab(cfg, n_cell, slab)
     if not moves and slab is not None:
         raise ValueError("transport: a slab needs some transport")
+    three = y3 is not None
+    if three and slab is not None:
+        raise ValueError("transport: the 3-D grid has no unwrapped form")
+    y, C_f, C_h = y3 if three else (None, None, None)
     _ext.check_planes("transport", cap, n, rw2, *((rd3, x, z) if moves
-                                                   else ()))
+                                                   else ()),
+                      *((y,) if three and moves else ()))
     # the subsidence row only where there is subsidence: the kernel reads
-    # it with do_subs alone
+    # it with do_subs alone; the 3-D forms read C_f and C_h after C_a
     cells = torch.stack([T, p, rhod, eta, C_l, C_r, C_b, C_a]
+                        + ([C_f, C_h] if three else [])
                         + ([w_cells] if w_cells is not None else []))
     if cells.shape[1:] != (n_cell,):
         raise ValueError(f"transport: cell fields must be ({n_cell},)")
-    _ext.check("transport", n, rw2, *((rd3, x, z) if moves else ()), cells)
+    _ext.check("transport", n, rw2, *((rd3, x, z) if moves else ()),
+               *((y,) if three and moves else ()), cells)
     vt_out = torch.empty_like(n)
     if moves:
         n_out, x_out, z_out = (torch.empty_like(n) for _ in range(3))
+        y_out = torch.empty_like(n) if three else None
         tgt = torch.empty((n_cell, cap), dtype=torch.int32, device=n.device)
         rowinfo = torch.empty((n_cell, 8), dtype=n.dtype, device=n.device)
         ptr = lambda a: a.data_ptr()
     else:
-        n_out, x_out, z_out, tgt, rowinfo = n, x, z, None, None
+        n_out, x_out, z_out, y_out, tgt, rowinfo = n, x, z, y, None, None
         ptr = lambda a: None
-    kernel, extra = (_ext.TRANSPORT, ()) if slab is None else \
-        (_ext.TRANSPORT_UNWRAPPED, (col0, ncol))
+    if three:
+        kernel = _ext.TRANSPORT_3D_PRED_CORR if pc else _ext.TRANSPORT_3D
+        extra = (ptr(y), ptr(y_out), cfg.ny, cfg.dy, cfg.y0, cfg.y1)
+    else:
+        kernel, extra = (_ext.TRANSPORT, ()) if slab is None else \
+            (_ext.TRANSPORT_UNWRAPPED, (col0, ncol))
+        if pc:
+            kernel = _ext.TRANSPORT_PRED_CORR
     if pc:
-        cx, cz = courants
-        if cx.shape != ((cfg.nx + 1) * cfg.nz,) \
-                or cz.shape != (cfg.nx * (cfg.nz + 1),):
+        cx, cz = courants[:2]
+        shapes = ((cfg.nx + 1) * cfg.ny * cfg.nz,
+                  cfg.nx * cfg.ny * (cfg.nz + 1))
+        if three:
+            cy = courants[2]
+            shapes += (cfg.nx * (cfg.ny + 1) * cfg.nz,)
+        if tuple(a.shape for a in courants) != tuple((k,) for k in shapes):
             raise ValueError("transport: courants must be the staggered "
-                             "(nx+1)*nz and nx*(nz+1) fields")
-        _ext.check("transport", n, cx, cz)
-        kernel, extra = _ext.TRANSPORT_PRED_CORR, (cx.data_ptr(),
-                                                   cz.data_ptr())
+                             "(nx+1)*ny*nz, nx*ny*(nz+1) (and 3-D "
+                             "nx*(ny+1)*nz) fields")
+        _ext.check("transport", n, *courants)
+        extra += (cx.data_ptr(), cz.data_ptr()) + (
+            (cy.data_ptr(),) if three else ())
     kernel.launch(
         n.data_ptr(), rw2.data_ptr(), ptr(rd3), ptr(x), ptr(z),
         cells.data_ptr(), ptr(n_out), ptr(x_out), ptr(z_out),
@@ -360,7 +478,8 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
         int(do_sedi), int(w_cells is not None), int(cfg.open_side_walls),
         int(cfg.periodic_topbot_walls), vt_t(cfg.terminal_velocity).value,
         *extra)
-    return n_out, x_out, z_out, vt_out, tgt, rowinfo
+    return (n_out, x_out, z_out, vt_out, tgt, rowinfo) + (
+        (y_out,) if three else ())
 
 
 def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
@@ -368,7 +487,7 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
                   C_b, C_a, p0, *, do_cond=True, do_coal=False, do_adve=True,
                   w_cells=None, params=(), sstp_coal=1, rng=(0, 0),
                   coal_pairing="stride", slab=None, closure=None,
-                  courants=None, plain=False):
+                  courants=None, y3=None, plain=False):
     """One microphysics step or a phase of one (pallas_step.step_resident
     with its phase flags): condensation (kernel B) with ``do_cond``, else
     the cell closure of th0/rv0 (the post-condensation values of the async
@@ -387,8 +506,10 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
     ran (then it holds that flag alone).  A shard of the x-slab mesh passes
     its ``slab`` = (col0, ncol): transport is kernel C's unwrapped form and
     the coalescence draws are keyed by the global rows, from col0 * nz.
-    ``courants``, the staggered (courant_x, courant_z), are what pred_corr
-    advection reads."""
+    ``courants``, the staggered (courant_x, courant_z[, courant_y]), are
+    what pred_corr advection reads.  On the 3-D grid ``y3`` = (y, C_f,
+    C_h) (transport): y rides coalescence and transport, and the result
+    has it after the fifteen."""
     if do_cond:
         rw2, th, rv, T, p, RH, eta = cond(
             cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
@@ -397,35 +518,46 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
         th, rv = th0, rv0
         T, p, RH, eta = closure if closure is not None \
             else hskpng_Tpr(cfg, th, rv, rhod, p0)
+    y = None if y3 is None else y3[0]
     if do_coal:
-        n, rw2, rd3, kpa, x, z, coal_ovf = coal_ops.coal_resident(
+        n, rw2, rd3, kpa, x, z, *yy, coal_ovf = coal_ops.coal_resident(
             cfg, params, sstp_coal, dt, *rng, n, rw2, rd3, kpa, x, z, T, p,
             rhod, eta, dv, pairing=coal_pairing,
-            row0=0 if slab is None else int(slab[0]) * cfg.nz, plain=plain)
+            row0=0 if slab is None else int(slab[0]) * cfg.nz, y=y,
+            plain=plain)
+        y = yy[0] if yy else None
     vt = tgt = rowinfo = None
     if do_adve or do_sedi or w_cells is not None or not do_cond:
-        n, x, z, vt, tgt, rowinfo = transport(
+        n, x, z, vt, tgt, rowinfo, *yy = transport(
             cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r,
             C_b, C_a, do_adve=do_adve, w_cells=w_cells, slab=slab,
-            courants=courants, plain=plain)
+            courants=courants, y3=None if y3 is None else (y,) + y3[1:],
+            plain=plain)
+        y = yy[0] if yy else None
     if do_coal:
         if rowinfo is None:
             rowinfo = torch.zeros((n.shape[0], 8), dtype=n.dtype,
                                   device=n.device)
         rowinfo[:, 6] = coal_ovf.to(rowinfo.dtype)
-    return (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta, rowinfo)
+    return (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta,
+            rowinfo) + (() if y3 is None else (y,))
 
 
 # ---------------------------------------------------------------- kernel D
-def _merge_sources(cfg, n_cell, device):
+def _merge_sources(cfg, n_cell, device, three=False):
     """(n_cell, 9) source rows of each destination row, in MERGE_SOURCES
-    order, and whether each exists (no z neighbour beyond the walls)."""
+    order, and whether each exists (no z neighbour beyond the walls); on
+    the 3-D grid (``three``) (n_cell, 27), in MERGE_SOURCES_3D order, x
+    and y periodic."""
     r = torch.arange(n_cell, device=device)
-    i, k = r // cfg.nz, r % cfg.nz
+    ny = cfg.ny if three else 1
+    i, j, k = r // (ny * cfg.nz), (r // cfg.nz) % ny, r % cfg.nz
     src, ok = [], []
-    for di, dk in MERGE_SOURCES:
+    for off in (MERGE_SOURCES_3D if three else MERGE_SOURCES):
+        di, dj, dk = off if three else (off[0], 0, off[1])
         ks = k + dk
-        src.append(torch.remainder(i + di, cfg.nx) * cfg.nz
+        src.append((torch.remainder(i + di, cfg.nx) * ny
+                    + torch.remainder(j + dj, ny)) * cfg.nz
                    + torch.clamp(ks, 0, cfg.nz - 1))
         ok.append((ks >= 0) & (ks < cfg.nz))
     return torch.stack(src, 1), torch.stack(ok, 1)
@@ -436,21 +568,30 @@ def rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=()):
     source, every droplet of its own and its eight neighbouring rows whose
     target is r, packed alive-first; lanes past the last droplet are zero.
     The planes ``extra`` (the exact mode's four private ambient planes, or
-    none) ride with the seven.  Returns (n, rw2, rd3, kpa, vt, x, z,
-    *extra, drops) with ``drops`` (n_cell,) the droplets each row could
-    not hold."""
+    none; on the 3-D grid the y plane first) ride with the seven.  On the
+    3-D grid the sources are the own row and its 26 neighbours, in
+    MERGE_SOURCES_3D order.  The destination rows go in blocks of at most
+    MERGE_BLOCK candidate slots (a row's sources times the capacity), so
+    that a full-width 3-D grid's candidates fit in memory.  Returns (n,
+    rw2, rd3, kpa, vt, x, z, *extra, drops) with ``drops`` (n_cell,) the
+    droplets each row could not hold."""
     n_cell, cap = n.shape
-    src, ok = _merge_sources(cfg, n_cell, n.device)
-    rows = torch.arange(n_cell, device=n.device)[:, None, None]
-    take = ok[:, :, None] & (tgt[src] == rows)
-    flat = lambda a: a.reshape(n_cell, -1)
-    outs, count = stable_partition_rows(
-        flat(take), tuple(flat(p[src]) for p in (n, rw2, rd3, kpa, vt, x, z)
-                          + tuple(extra)))
-    keep = torch.arange(cap, device=n.device)[None, :] < count
-    outs = tuple(torch.where(keep, o[:, :cap], 0.0) for o in outs)
-    drops = torch.clamp(count[:, 0] - cap, min=0).to(n.dtype)
-    return outs + (drops,)
+    src, ok = _merge_sources(cfg, n_cell, n.device, cfg.n_dims == 3)
+    planes = (n, rw2, rd3, kpa, vt, x, z) + tuple(extra)
+    block = max(1, MERGE_BLOCK // (src.shape[1] * cap))
+    keep_lanes = torch.arange(cap, device=n.device)[None, :]
+    outs, drops = [], []
+    for r0 in range(0, n_cell, block):
+        s = src[r0:r0 + block]
+        rows = torch.arange(r0, r0 + s.shape[0], device=n.device)
+        take = ok[r0:r0 + block, :, None] & (tgt[s] == rows[:, None, None])
+        flat = lambda a: a.reshape(s.shape[0], -1)
+        part, count = stable_partition_rows(
+            flat(take), tuple(flat(p[s]) for p in planes))
+        keep = keep_lanes < count
+        outs.append(tuple(torch.where(keep, o[:, :cap], 0.0) for o in part))
+        drops.append(torch.clamp(count[:, 0] - cap, min=0).to(n.dtype))
+    return tuple(torch.cat(c) for c in zip(*outs)) + (torch.cat(drops),)
 
 
 def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=(), plain=False):
@@ -458,12 +599,17 @@ def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=(), plain=False):
     results).  It does the work of the z-merge epilogue of
     pallas_step._kernel and of pallas_step._xmerge_kernel together.  With
     four ``extra`` planes (the exact mode's sd_th, sd_rv, sd_rh and sd_p)
-    it is D's 11-plane form, counted as _ext.MERGE_EXACT."""
-    if cfg.nx < 3:
+    it is D's 11-plane form, counted as _ext.MERGE_EXACT.  On the 3-D grid
+    ``extra`` is y, or y and the four private planes: D's 3-D forms,
+    _ext.MERGE_3D (eight planes) and _ext.MERGE_3D_EXACT (twelve)."""
+    three = cfg.n_dims == 3
+    if cfg.nx < 3 or (three and cfg.ny < 3):
         raise ValueError("rebin_x: the merge needs nx >= 3 (left, own and "
-                         "right columns must differ)")
-    if len(extra) not in (0, 4):
-        raise ValueError(f"rebin_x: 0 or 4 extra planes, got {len(extra)}")
+                         "right columns must differ), and ny >= 3 on the "
+                         "3-D grid")
+    if len(extra) not in ((1, 5) if three else (0, 4)):
+        raise ValueError(f"rebin_x: {'1 or 5' if three else '0 or 4'} "
+                         f"extra planes, got {len(extra)}")
     planes = (n, rw2, rd3, kpa, vt, x, z) + tuple(extra)
     if _ext.use_plain("rebin_x", n, plain):
         return rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt,
@@ -474,8 +620,13 @@ def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=(), plain=False):
     _ext.check("rebin_x", tgt, dtype=torch.int32)
     outs = tuple(torch.empty_like(p) for p in planes)
     drops = torch.empty(n_cell, dtype=n.dtype, device=n.device)
-    kernel = _ext.MERGE_EXACT if extra else _ext.MERGE
+    exact = len(extra) > int(three)
+    if three:
+        kernel = _ext.MERGE_3D_EXACT if exact else _ext.MERGE_3D
+        dims = (n_cell, cap, cfg.nx, cfg.ny, cfg.nz)
+    else:
+        kernel = _ext.MERGE_EXACT if exact else _ext.MERGE
+        dims = (n_cell, cap, cfg.nx, cfg.nz)
     kernel.launch(*(p.data_ptr() for p in planes), tgt.data_ptr(),
-                  *(o.data_ptr() for o in outs), drops.data_ptr(), n_cell,
-                  cap, cfg.nx, cfg.nz)
+                  *(o.data_ptr() for o in outs), drops.data_ptr(), *dims)
     return outs + (drops,)

@@ -38,9 +38,10 @@ import dataclasses
 
 import torch
 
+from ..lgrngn import coalescence as coal_mod
 from ..lgrngn import dense
 from ..lgrngn.dense import ATTRS, DenseState
-from ..lgrngn.enums import as_t
+from ..lgrngn.enums import as_t, kernel_t
 from ..lgrngn.hskpng import ijk_of_xyz
 from ..models import mpdata
 from ..ops.step import column_of, level_of, wrap_x
@@ -329,6 +330,18 @@ def dense_step_sharded(cfg, doms, sstp_coal: int, buf: int, do_coal: bool,
             "dense mesh: pred_corr SD advection is not supported (the flat "
             "mesh's halo-2 courant exchange goes with ROADMAP.md, Queue 1, "
             "\"Multi-device: the flat front\")")
+    if cfg.n_dims == 3:
+        # the slabs, the ring and kernel C's unwrapped form are 2-D
+        raise NotImplementedError(
+            "dense mesh: the 3-D grid is not supported (ROADMAP.md, Queue "
+            "1, \"The dense mesh in 3-D and with the onishi kernels\"); the "
+            "serial dense engine runs it")
+    if cfg.coal_switch and kernel_t(cfg.kernel) in coal_mod.TURBULENT:
+        # kernel E's onishi form has no shard rows (ShardRows)
+        raise NotImplementedError(
+            f"dense mesh: collision kernel {kernel_t(cfg.kernel).name} is "
+            "not supported (ROADMAP.md, Queue 1, \"The dense mesh in 3-D and "
+            "with the onishi kernels\"); the serial dense engine runs it")
     if cfg.pure_const_multi and cfg.coal_switch:
         # a const-multi population grows sstp_coal from a flag of each
         # step's coalescence, which the mesh's step does not read

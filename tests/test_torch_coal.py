@@ -149,9 +149,10 @@ def test_hall_efficiency_float32_is_bitwise():
 
 
 def test_unported_kernels_raise():
-    """undefined is no collision kernel; the turbulent (onishi) kernels run
-    on the flat engine only (tests/test_torch_turbulence.py): their value
-    needs the pairs' cells, and the dense engine's kernel E refuses them."""
+    """undefined is no collision kernel; the turbulent (onishi) kernels'
+    value needs the pairs' cells (``turb``: the flat engine's,
+    tests/test_torch_turbulence.py, or the dense engine's at dissipation
+    rate 0, tests/test_torch_dense_onishi.py), and kernel E runs them."""
     one = torch.ones(2, 2, dtype=f64)
     cfg = dataclasses.replace(port_cfg(_cfg(kernel_t.geometric)),
                               kernel=kernel_t.undefined.value)
@@ -161,8 +162,9 @@ def test_unported_kernels_raise():
         cfg = dataclasses.replace(cfg, kernel=kern.value)
         with pytest.raises(ValueError, match="turb"):
             tcoal.kernel_value(cfg, (100.0,), *(one,) * 8)
-        with pytest.raises(NotImplementedError, match=kern.name):
-            tcoal.require_resident(kern)
+        tcoal.require_resident(kern)
+    with pytest.raises(NotImplementedError, match="undefined"):
+        tcoal.require_resident(kernel_t.undefined)
 
 
 # ------------------------------------------------------------------ (b)

@@ -70,6 +70,16 @@ forms (and their turb_cond forms) run on the same inputs with the cells
 taken for parcels of 1 kg of dry air, within the same bounds of their
 plain versions; a rising parcel through the public API in each mode, and
 the 3-D grid at 6x6x6, run the kernel path against the plain path.
+Kernel C's 3-D forms (implicit, euler, pred_corr; periodic and open side
+walls) and D's (eight and twelve planes) run on a 6x5x4 grid at row
+capacity 2 to 512, both layouts, with movers across the x and y walls,
+far movers, the puddle and rows that receive more droplets than they
+hold; kernel E's y forms (the formula kernels, the hall family, vohl)
+and its onishi form (onishi_hall and onishi_hall_davis_no_waals on each
+side of Wang's 2.5e-2, with and without the y plane) at row capacity 2
+to 512; each bitwise equal to its plain version; and the dense front on
+the 3-D grid at 6x6x6 (the factory's pick on the card) and with the
+onishi kernel at 8x8 equals its plain path bitwise.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -93,7 +103,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import (ambient_population, flat_cond_case,
+from torch_parity import (ambient_population, dense3d_case, flat_cond_case,
                           ice_cond_case, multiset, perparticle_case,
                           transport_case)
 
@@ -1811,11 +1821,12 @@ def test_rising_parcel_kernels_match_plain(dev, mode):
 
 
 def test_3d_grid_kernels_match_plain(dev):
-    """The 3-D grid at 6x6x6 cells through the public API (the factory's
-    pick: the flat engine), 4 steps with coalescence, sedimentation and the
-    courants of all three axes: kernel F once a step, the kernel path's
-    th and rv within F's gates of the plain path's, the population the
-    same."""
+    """The 3-D grid at 6x6x6 cells through the public API on the flat
+    engine (engine="flat"; the factory's pick on the card is the dense
+    front, test_dense_front_3d_matches_plain), 4 steps with coalescence,
+    sedimentation and the courants of all three axes: kernel F once a
+    step, the kernel path's th and rv within F's gates of the plain
+    path's, the population the same."""
     from libcloudphxx_tpu_torch import lgrngn as tl
     from libcloudphxx_tpu_torch.lgrngn.particles import particles_t
     n, out = 6, []
@@ -1829,7 +1840,7 @@ def test_3d_grid_kernels_match_plain(dev):
         oi.sstp_cond = oi.sstp_coal = 3
         oi.kernel, oi.kernel_parameters = kernel_t.geometric, [1e4]
         oi.terminal_velocity = vt_t.beard77fast
-        prt = tl.factory(tl.backend_t.CUDA, oi, device=dev)
+        prt = tl.factory(tl.backend_t.CUDA, oi, device=dev, engine="flat")
         assert type(prt) is particles_t
         full = lambda v, *s: torch.full(s or (n, n, n), v, device=dev)
         th, rv, rhod = full(289.0), full(7.5e-3), full(1.15)
@@ -1925,3 +1936,199 @@ def test_cond_flat_ice_without_frozen_sds_is_the_warm_form(dev):
                                               if k_ != "ice"})
     for a, b in zip(k[:4], warm):
         assert torch.equal(a, b)
+
+
+# -------------------------------------- the 3-D forms and the onishi form
+SCHEMES_3D = {"implicit": as_t.implicit, "euler": as_t.euler,
+              "pred_corr": as_t.pred_corr}
+
+
+def _case3d(dev, cap, scheme="implicit", **oi_kw):
+    cfg, d = dense3d_case(6, 5, 4, cap, seed=cap, device=dev,
+                          dtype=torch.float32, **oi_kw)
+    return dataclasses.replace(
+        cfg, adve_scheme=SCHEMES_3D[scheme].value), d
+
+
+def _transport3d(cfg, d, rain, plain=False):
+    rw2 = d.rw2 * (400.0 if rain else 1.0)
+    return step.transport(
+        cfg, 1.0, rain, d.n, rw2, d.rd3, d.x, d.z, d.T, d.p, d.rhod, d.eta,
+        *dense._row_courants(cfg, d),
+        courants=(d.courant_x, d.courant_z, d.courant_y),
+        y3=dense._y_axis(cfg, d), plain=plain)
+
+
+@pytest.mark.parametrize("open_walls", [False, True], ids=["periodic",
+                                                           "open"])
+@pytest.mark.parametrize("scheme", list(SCHEMES_3D))
+@pytest.mark.parametrize("cap", [2, 32, 100, 128, 512])
+def test_transport_3d_kernel_matches_plain(dev, cap, scheme, open_walls):
+    """Kernel C's 3-D forms at row capacity 2 to 512 (the scalar-slot
+    layout at 2 and 100), on cloud droplets and drizzle, bitwise equal to
+    transport_plain in every slot and in y (the far flags exact, the
+    puddle partials rel 1e-5); droplets crossed the x and the y walls."""
+    cfg, d = _case3d(dev, cap, scheme, open_side_walls=open_walls)
+    kernel = _ext.TRANSPORT_3D_PRED_CORR if scheme == "pred_corr" \
+        else _ext.TRANSPORT_3D
+    for rain in (False, True):
+        kc = _launches(kernel, lambda: _transport3d(cfg, d, rain))
+        pc = _transport3d(cfg, d, rain, plain=True)
+        for a, b in zip(kc[:5] + kc[6:], pc[:5] + pc[6:]):
+            assert torch.equal(a, b)
+        assert torch.equal(kc[5][:, 4], pc[5][:, 4])
+        assert torch.allclose(kc[5][:, :4], pc[5][:, :4], rtol=1e-5,
+                              atol=0.0)
+        live = (d.n > 0) & (kc[0] > 0)
+        if cap >= 32 and not open_walls:
+            for new, old, w in ((kc[1], d.x, cfg.x1), (kc[6], d.y, cfg.y1)):
+                assert bool((torch.abs(new - old)[live] > 0.5 * w).any())
+        if cap >= 32:
+            assert int(kc[5][:, 4].sum()) > 0              # far movers
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["8", "12"])
+@pytest.mark.parametrize("cap", [2, 32, 100, 128, 512])
+def test_merge_3d_kernel_matches_plain(dev, cap, exact):
+    """Kernel D's 3-D forms (eight planes, twelve with the exact mode's
+    private planes) at row capacity 2 to 512 on kernel C's targets,
+    bitwise equal to rebin_x_plain in every slot, the drops exact; rows
+    received more droplets than they hold."""
+    cfg, d = _case3d(dev, cap, exact_sstp_cond=exact)
+    n, x, z, vt, tgt, _, y = _transport3d(cfg, d, False)
+    rng = np.random.default_rng(cap)
+    extra = (y,) + tuple(
+        torch.as_tensor(rng.uniform(0.5, 1.5, n.shape), dtype=torch.float32,
+                        device=dev) for _ in range(4 if exact else 0))
+    args = (cfg, n, d.rw2, d.rd3, d.kpa, vt, x, z, tgt)
+    kernel = _ext.MERGE_3D_EXACT if exact else _ext.MERGE_3D
+    k = _launches(kernel, lambda: step.rebin_x(*args, extra=extra))
+    p = step.rebin_x(*args, extra=extra, plain=True)
+    assert len(k) == len(p) == 8 + len(extra)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    if cap < 128:
+        assert float(k[-1].sum()) > 0
+
+
+COAL_Y_KERNELS = {"geometric": (kernel_t.geometric, (2.0,)),
+                  "hall": (kernel_t.hall, ()),
+                  "vohl": (kernel_t.vohl_davis_no_waals, ()),
+                  "onishi_hall-eps0.01": (kernel_t.onishi_hall, (1e-2,)),
+                  "onishi_hall-eps100": (kernel_t.onishi_hall, (100.0,)),
+                  "onishi_hall_davis_no_waals": (
+                      kernel_t.onishi_hall_davis_no_waals, (100.0,))}
+
+
+# (kernel, with the y plane): the 2-D forms of the others are
+# test_coal_kernel_matches_plain's
+COAL_Y_CASES = [(name, with_y) for name in COAL_Y_KERNELS
+                for with_y in (True, False)
+                if with_y or name.startswith("onishi")]
+
+
+@pytest.mark.parametrize("name,with_y", COAL_Y_CASES,
+                         ids=[f"{n}-{'3d' if y else '2d'}"
+                              for n, y in COAL_Y_CASES])
+@pytest.mark.parametrize("form", ["stride", "sort"])
+@pytest.mark.parametrize("cap", [2, 32, 128, 256, 512])
+def test_coal_y_and_onishi_kernels_match_plain(coal_model, cap, form, name,
+                                              with_y):
+    """Kernel E's y forms (3-D: the y plane rides) and its onishi form
+    (with and without the y plane) at row capacity 2 to 512, bitwise equal
+    to coal_resident_plain lane by lane, the y plane and the overflow
+    flags included; rows collide."""
+    kernel, params = COAL_Y_KERNELS[name]
+    onishi = name.startswith("onishi")
+    cfg = _coal_cfg(coal_model, kernel)
+    planes, cells = _coal_rows(coal_model.device, cap,
+                               rows=max(48, 1024 // cap), seed=9)
+    rng = np.random.default_rng(cap)
+    y = torch.as_tensor(rng.uniform(0.0, 1500.0, planes[0].shape),
+                        dtype=torch.float32, device=planes[0].device) \
+        if with_y else None
+    want = _ext.COAL_ONISHI if onishi else (
+        _ext.COAL_VOHL_3D if name == "vohl" else _ext.COAL_3D)
+    run = lambda plain: coal.coal_resident(
+        cfg, params, 10, 100.0, 44, 3, *planes, *cells, pairing=form, y=y,
+        plain=plain)
+    k = _launches(want, lambda: run(False))
+    p = run(True)
+    assert len(k) == len(p) == 7 + int(with_y)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert not torch.equal(k[0], planes[0])               # collisions
+
+
+def test_dense_front_3d_matches_plain(dev):
+    """The dense front on the 3-D grid at 6x6x6 (the factory's pick on the
+    card), 4 steps with coalescence and sedimentation: kernels B, E's y
+    form, C's 3-D form and D's 3-D form once a step, the kernel path
+    bitwise equal to the plain path (th, rv, every plane as a per-cell
+    multiset)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    from libcloudphxx_tpu_torch.lgrngn.dense_front import particles_dense_t
+    n, out = 6, []
+    names = ("cond", "coal_3d", "transport_3d", "merge_3d")
+    for plain in (False, True):
+        oi = tl.opts_init_t()
+        oi.dry_distros = {(0.61, 0.0): Setup().lognormal_lnrd}
+        oi.nx = oi.ny = oi.nz = n
+        oi.dx = oi.dy = oi.dz = 20.0
+        oi.x1 = oi.y1 = oi.z1 = n * 20.0
+        oi.dt, oi.sd_conc, oi.n_sd_max = 1.0, 16, 16 * n ** 3
+        oi.sstp_cond = oi.sstp_coal = 3
+        oi.kernel, oi.kernel_parameters = kernel_t.geometric, [1e4]
+        oi.terminal_velocity = vt_t.beard77fast
+        prt = tl.factory(tl.backend_t.CUDA, oi, device=dev)
+        assert type(prt) is particles_dense_t
+        full = lambda v, *s: torch.full(s or (n, n, n), v, device=dev)
+        th, rv, rhod = full(289.0), full(7.5e-3), full(1.15)
+        C = dict(courant_x=full(0.2, n + 1, n, n),
+                 courant_y=full(0.1, n, n + 1, n),
+                 courant_z=full(-0.05, n, n, n + 1))
+        prt.init(th, rv, rhod, **C)
+        opts = tl.opts_t()
+        before = {k: getattr(_ext, k.upper()).launches for k in names}
+        for _ in range(4):
+            th, rv = prt.step_sync(opts, th, rv, rhod, plain=plain, **C)
+            prt.step_async(opts, plain=plain)
+        torch.cuda.synchronize()
+        d = prt._d
+        out.append((th, rv, multiset(d.n.cpu(), tuple(
+            getattr(d, a).cpu() for a in ("rd3", "rw2", "kpa", "x", "y",
+                                          "z"))),
+            {k: getattr(_ext, k.upper()).launches - before[k]
+             for k in names}))
+    (tk, rk, mk, nk), (tp, rp, mp, npl) = out
+    assert nk == dict.fromkeys(names, 4) and npl == dict.fromkeys(names, 0)
+    assert torch.equal(tk, tp) and torch.equal(rk, rp)
+    np.testing.assert_array_equal(mk, mp)
+
+
+def test_onishi_run_matches_plain(dev):
+    """run_device_lgrngn(engine="dense") with onishi_hall at 8x8, radii
+    x30: E's onishi form once a coalescing step, the kernel path bitwise
+    equal to the plain path, and the dense front equal to it; droplets
+    collided."""
+    kw = dict(nx=8, nz=8, sd_conc=16, n_sd_max=16 * 64, sstp_cond=3,
+              sstp_coal=3, opts_init_kw=dict(kernel=kernel_t.onishi_hall,
+                                             kernel_parameters=[100.0]),
+              device=dev)
+    res = []
+    for plain in (False, True):
+        m = Kinematic2D(**kw)
+        m.prtcls.state = dataclasses.replace(
+            m.prtcls.state, rw2=m.prtcls.state.rw2 * 900.0)
+        n0 = float(m.prtcls.state.n.sum())
+        before = _ext.COAL_ONISHI.launches
+        m.run_device_lgrngn(5, spinup=2, engine="dense", plain=plain)
+        torch.cuda.synchronize()
+        res.append((m, _ext.COAL_ONISHI.launches - before, n0))
+    (mk, nk, n0), (mp, npl, _) = res
+    assert (nk, npl) == (3, 0)
+    assert torch.equal(mk.th, mp.th) and torch.equal(mk.rv, mp.rv)
+    for a in dense.ATTRS:
+        assert torch.equal(getattr(mk.dense_state, a),
+                           getattr(mp.dense_state, a)), a
+    from libcloudphxx_tpu_torch.lgrngn.state import OUT_PRTCL_NUM
+    d = mk.dense_state
+    assert n0 - float(d.n.sum()) - float(d.puddle[OUT_PRTCL_NUM]) > 0.0

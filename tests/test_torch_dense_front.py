@@ -228,10 +228,15 @@ def test_factory_engine_choice_on_the_cpu(engine, cls):
 def test_factory_refusals_and_capability():
     oi, _ = _setup(tl, True)
     assert dense_capable(tl.particles_t(tl.backend_t.serial, oi, **F64).cfg)
+    # the onishi kernels run on the dense engine (at dissipation rate 0,
+    # as JAX's); diag_incloud_time goes to the flat engine in both
     oi.kernel = tl.kernel_t.onishi_hall
+    oi.kernel_parameters = [100.0]
+    assert dense_capable(tl.particles_t(tl.backend_t.serial, oi, **F64).cfg)
+    oi.diag_incloud_time = True
     cfg = tl.particles_t(tl.backend_t.serial, oi, **F64).cfg
     assert not dense_capable(cfg)
-    with pytest.raises(NotImplementedError, match="onishi_hall"):
+    with pytest.raises(NotImplementedError, match="diag_incloud_time"):
         tl.factory(tl.backend_t.serial, oi, engine="dense", **F64)
     with pytest.raises(ValueError, match="engine"):
         tl.factory(tl.backend_t.serial, oi, engine="xla", **F64)

@@ -386,22 +386,23 @@ def test_sstp_coal_growth_counts_as_jax(engine):
 
 
 def test_onishi_stays_refused():
-    """The dense engine refuses the turbulent kernels, as the JAX
-    package's; the flat engine runs them (tests/test_torch_les.py)."""
+    """The x-slab mesh refuses the turbulent kernels (ROADMAP.md, Queue 1,
+    "The dense mesh in 3-D and with the onishi kernels"); the serial dense
+    engine runs them, as the JAX package's dense engine does
+    (tests/test_torch_dense_onishi.py), and so does the flat engine
+    (tests/test_torch_les.py)."""
+    from libcloudphxx_tpu_torch.parallel import MeshRunner
     for kern in (tl.kernel_t.onishi_hall,
                  tl.kernel_t.onishi_hall_davis_no_waals):
+        kw = dict(nx=8, nz=4, sd_conc=2, opts_init_kw={
+            "kernel": kern, "kernel_parameters": [100.0]}, **F64)
         with pytest.raises(NotImplementedError,
-                           match=f"{kern.name}.*flat engine"):
-            Kinematic2D(nx=4, nz=4, sd_conc=2, engine="dense",
-                        opts_init_kw={"kernel": kern,
-                                      "kernel_parameters": [100.0]}, **F64)
-        m = Kinematic2D(nx=4, nz=4, sd_conc=2, engine="flat",
-                        opts_init_kw={"kernel": kern,
-                                      "kernel_parameters": [100.0]}, **F64)
-        m.run_device_lgrngn(2, spinup=1)
-        assert torch.isfinite(m.th).all()
-        with pytest.raises(NotImplementedError, match=kern.name):
-            m.run_device_lgrngn(1, engine="dense")
+                           match=f"{kern.name}.*serial dense engine"):
+            MeshRunner(Kinematic2D(**kw), 2).run(1)
+        for engine in ("flat", "dense"):
+            m = Kinematic2D(engine=engine, **kw)
+            m.run_device_lgrngn(2, spinup=1, engine=engine)
+            assert torch.isfinite(m.th).all()
 
 
 def test_mesh_refuses_pred_corr_and_const_multi():

@@ -331,13 +331,17 @@ def test_convert_roundtrip(jax_init, jax_model):
 def test_unported_paths_raise(what, port):
     m, _, _ = port
     if what == "coalescence":
-        # coalescence runs (test_coal_slice_*), but not with the turbulent
-        # kernels (ROADMAP.md, Queue 1, "The LES slice")
-        m2 = Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
+        # coalescence runs (test_coal_slice_*), with the turbulent kernels
+        # too (tests/test_torch_dense_onishi.py), but not with them on the
+        # x-slab mesh (ROADMAP.md, Queue 1, "The dense mesh in 3-D and with
+        # the onishi kernels")
+        from libcloudphxx_tpu_torch.parallel import MeshRunner
+        m2 = Kinematic2D(nx=8, nz=4, sd_conc=2, device="cpu",
                          dtype=torch.float64,
-                         opts_init_kw={"kernel": kernel_t.onishi_hall})
+                         opts_init_kw={"kernel": kernel_t.onishi_hall,
+                                       "kernel_parameters": [100.0]})
         with pytest.raises(NotImplementedError, match="onishi_hall"):
-            m2.run_device_lgrngn(2, spinup=1, engine="dense")
+            MeshRunner(m2, 2).run(1)
         return
     if what == "grid":
         # the cell and node grids run (test_torch_kinematic_blk.py); an
@@ -348,12 +352,12 @@ def test_unported_paths_raise(what, port):
         return
     with pytest.raises(NotImplementedError):
         if what == "engine":
-            # the dense engine runs every advection scheme, const-multi
-            # and vohl (test_torch_dense_options.py), but not the
-            # turbulent kernels, which the factory then refuses
+            # the dense engine runs every advection scheme, const-multi,
+            # vohl (test_torch_dense_options.py) and the turbulent kernels
+            # (test_torch_dense_onishi.py), but not diag_incloud_time,
+            # which the factory then refuses
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu", engine="dense",
-                        opts_init_kw={
-                            "kernel": kernel_t.onishi_hall_davis_no_waals})
+                        opts_init_kw={"diag_incloud_time": True})
         elif what == "multi_device":
             # one device only (ROADMAP.md, Queue 1, "Multi-device
             # (parallel/)"); the repack policy runs (test_torch_repack.py)

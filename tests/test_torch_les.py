@@ -336,9 +336,11 @@ def test_velocity_perturbations_ride_the_dense_pack():
 
 def test_les_switches_and_refusals():
     """The LES switches construct on the flat engine; the dense engine
-    refuses turb_cond, diag_incloud_time and the turbulent kernels (the
-    JAX package's _supported), with the reason; ice and chemistry stay
-    refused; a turb switch an opts_init did not turn on raises."""
+    refuses turb_cond and diag_incloud_time (the JAX package's
+    _supported), with the reason, and runs the turbulent kernels (at
+    dissipation rate 0, as the JAX package's dense engine); ice and
+    chemistry stay refused; a turb switch an opts_init did not turn on
+    raises."""
     base = Kinematic2D(nx=4, nz=4, sd_conc=2, **F64).opts_init
 
     def oi(**over):
@@ -347,9 +349,7 @@ def test_les_switches_and_refusals():
         o.__dict__.update(over)
         return o
     for over, why in (({"turb_cond_switch": True}, "SGS"),
-                      ({"diag_incloud_time": True}, "diag_incloud_time"),
-                      ({"kernel": tl.kernel_t.onishi_hall},
-                       "onishi_hall.*flat engine")):
+                      ({"diag_incloud_time": True}, "diag_incloud_time")):
         prt = tl.factory(tl.backend_t.CUDA, oi(**over), **F64)
         assert type(prt) is tparticles.particles_t
         assert not dense_capable(prt.cfg)
@@ -357,6 +357,8 @@ def test_les_switches_and_refusals():
             tl.factory(tl.backend_t.CUDA, oi(**over), engine="dense", **F64)
     assert dense_capable(tl.factory(tl.backend_t.CUDA, oi(
         turb_adve_switch=True, turb_coal_switch=True), **F64).cfg)
+    assert dense_capable(tl.factory(tl.backend_t.CUDA, oi(
+        kernel=tl.kernel_t.onishi_hall), **F64).cfg)
     # ice and chemistry run on the flat engine, which the factory gives
     # for them, and the dense engine refuses them, as the JAX package's
     for over in ({"ice_switch": True}, {"chem_switch": True}):

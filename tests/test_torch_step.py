@@ -154,17 +154,21 @@ def test_step_fused_th_std_const_p_matches_jax_xla():
 
 def test_step_fused_refuses_coalescence():
     """Coalescence runs, a const-multi population's too (the
-    increase_sstp_coal flag in the puddle), except where it is not ported:
-    the turbulent kernels."""
+    increase_sstp_coal flag in the puddle), and the turbulent kernels' (at
+    dissipation rate 0, tests/test_torch_dense_onishi.py), except where
+    there is no collision kernel: undefined."""
     m, cfg, d = _setup(False)
     th, rv = t(m.th).reshape(-1), t(m.rv).reshape(-1)
     for kern in (lgrngn.kernel_t.onishi_hall,
                  lgrngn.kernel_t.onishi_hall_davis_no_waals):
-        with pytest.raises(NotImplementedError, match=kern.name):
-            tdense.step_fused(dataclasses.replace(port_cfg(cfg),
-                                                  kernel=kern.value),
-                              port_state(d), th, rv, (), 1.0, 44.0, 2, True,
-                              True)
+        out, _, _ = tdense.step_fused(
+            dataclasses.replace(port_cfg(cfg), kernel=kern.value),
+            port_state(d), th, rv, (100.0,), 1.0, 44.0, 2, True, True)
+        assert out.rng_step == 1
+    with pytest.raises(NotImplementedError, match="undefined"):
+        tdense.step_fused(dataclasses.replace(
+            port_cfg(cfg), kernel=lgrngn.kernel_t.undefined.value),
+            port_state(d), th, rv, (), 1.0, 44.0, 2, True, True)
     out, _, _ = tdense.step_fused(
         dataclasses.replace(port_cfg(cfg), pure_const_multi=True),
         port_state(d), th, rv, (), 1.0, 44.0, 2, True, True)

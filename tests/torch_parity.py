@@ -58,8 +58,9 @@ def jax_coal_loop(cfg, params, sstp, dt, seed, step, planes, cells,
                   pairing="stride", eff_table=None, r_max_um=0.0):
     """The coalescence phase of the resident step (pallas_step.py:233-336)
     built from the JAX package's functions, fed the port's shuffles and
-    Bernoulli planes.  ``planes`` (n, rw2, rd3, kpa, x, z) and ``cells``
-    (T, p, rhod, eta, dv) numpy; returns the planes."""
+    Bernoulli planes.  ``planes`` (n, rw2, rd3, kpa, x, z), or with the
+    3-D grid's y after z, and ``cells`` (T, p, rhod, eta, dv) numpy;
+    returns the planes."""
     import jax.numpy as jnp
 
     from libcloudphxx_tpu.lgrngn import dense as jdense
@@ -70,7 +71,7 @@ def jax_coal_loop(cfg, params, sstp, dt, seed, step, planes, cells,
     vt_of = lambda rw2: _vt_in_kernel(cfg, rw2, T, p, rhod, eta)
     take = lambda perm, *a: tuple(np.take_along_axis(np.asarray(v), perm, 1)
                                   for v in a)
-    n, rw2, rd3, kpa, x, z = planes
+    n, rw2, rd3, kpa, *pos = planes
     dt_sub = dt / sstp
     if pairing == "stride":
         n_strides = 1          # pallas_step.py:252-255
@@ -78,8 +79,8 @@ def jax_coal_loop(cfg, params, sstp, dt, seed, step, planes, cells,
             n_strides += 1
         for s in range(sstp):
             if s % n_strides == 0:
-                n, rw2, rd3, kpa, x, z = take(
-                    port_shuffle(seed, step, s, n), n, rw2, rd3, kpa, x, z)
+                n, rw2, rd3, kpa, *pos = take(
+                    port_shuffle(seed, step, s, n), n, rw2, rd3, kpa, *pos)
             n, rw2, rd3, kpa, _ = jdense.pair_and_collide_stride(
                 cfg, jp, (n, rw2, rd3, kpa, vt_of(jnp.asarray(rw2))),
                 1 << (s % n_strides), dv, rhod, eta, dt_sub,
@@ -95,7 +96,7 @@ def jax_coal_loop(cfg, params, sstp, dt, seed, step, planes, cells,
                 dv, rhod, eta, dt_sub, port_u01(seed, step, s, n.shape),
                 **kw)
         n, rw2, rd3, kpa = take(np.argsort(ids, axis=1), n, rw2, rd3, kpa)
-    return tuple(np.asarray(a) for a in (n, rw2, rd3, kpa, x, z))
+    return tuple(np.asarray(a) for a in (n, rw2, rd3, kpa, *pos))
 
 
 def khvorostyanov_rtol(rw, rhod, eta, floor):
@@ -408,3 +409,83 @@ def ice_cond_case(sizes, dead0=0, seed=0, device="cpu", dtype=torch.float64,
                if v.is_floating_point() else v.to(device))
            for k, v in kw.items() if isinstance(v, (torch.Tensor, tuple))}
     return cfg, dict(kw, **out)
+
+
+def dense3d_case(nx, ny, nz, cap, seed=0, device="cpu", dtype=torch.float64,
+                 courant=0.6, **oi_kw):
+    """A DenseState on a synthetic nx x ny x nz grid of 20 m cells at row
+    capacity ``cap`` (the 3-D form of transport_case): rows at random
+    occupancy, the first all dead, the second full, the dead slots of the
+    odd rows scattered among their droplets; each droplet in its own cell
+    or a neighbour's (x and y periodic), a few two levels up or down (far
+    movers) or, in the bottom level, under the floor (the puddle); the
+    rows around cell (1, 1, 1) send nine in ten of their droplets there,
+    more than a row holds; a quarter of the droplets of the edge columns
+    and rows of columns within 0.5 m of the side walls; staggered courants
+    of all three axes up to ``courant`` (so that pred_corr's predictors
+    leave their cells), droplets of 1-50 um.  ``oi_kw`` set opts_init
+    fields.  Returns (cfg, DenseState)."""
+    from libcloudphxx_tpu_torch.lgrngn import opts_init_t, vt_t
+    from libcloudphxx_tpu_torch.lgrngn.dense import DenseState
+    from libcloudphxx_tpu_torch.lgrngn.state import N_PUDDLE, StaticConfig
+    rng = np.random.default_rng(seed + 1000 * cap + 100 * nx + 10 * ny + nz)
+    oi = opts_init_t()
+    for a, n in zip("xyz", (nx, ny, nz)):
+        setattr(oi, "n" + a, n)
+        setattr(oi, "d" + a, 20.0)
+        setattr(oi, a + "1", 20.0 * n)
+    oi.dt = 1.0
+    oi.terminal_velocity = vt_t.beard77
+    for k, v in oi_kw.items():
+        setattr(oi, k, v)
+    cfg = StaticConfig.from_opts_init(oi)
+    n_cell = nx * ny * nz
+    shape = (n_cell, cap)
+    count = rng.integers(0, cap + 1, n_cell)
+    count[:2] = (0, cap)
+    alive = np.arange(cap)[None, :] < count[:, None]
+    alive[1::2] = np.stack([rng.permutation(a) for a in alive[1::2]])
+    r = np.repeat(np.arange(n_cell), cap).reshape(shape)
+    i, j, k = r // (ny * nz), (r // nz) % ny, r % nz
+    u = rng.random(shape)
+    step = lambda: rng.integers(-1, 2, shape)
+    ti = np.where(u < 0.3, i + step(), i) % nx
+    tj = np.where(u < 0.3, j + step(), j) % ny
+    tk = np.clip(np.where(u < 0.3, k + step(), k), 0, nz - 1)
+    far = (u > 0.97) & (nz >= 4)
+    tk = np.where(far, np.where(k + 2 < nz, k + 2, k - 2), tk)
+    hot = (np.abs(i - 1) <= 1) & (np.abs(j - 1) <= 1) & (np.abs(k - 1) <= 1) \
+        & (u < 0.9)
+    ti, tj, tk = (np.where(hot, 1, a) for a in (ti, tj, tk))
+    pos = lambda t: (t + rng.uniform(0.1, 0.9, shape)) * 20.0
+    x, y, z = pos(ti), pos(tj), pos(tk)
+    lane = np.arange(cap)[None, :]
+    fall = (k == 0) & (((u > 0.9) & (u < 0.95)) | (lane == 0))
+    z = np.where(fall, -1.0 - 5.0 * u, z)
+    for a, idx, n in ((x, ti, nx), (y, tj, ny)):
+        w = rng.uniform(1e-3, 0.5, shape)
+        edge = rng.random(shape) < 0.25
+        a[:] = np.where(edge & (idx == 0), w, a)
+        a[:] = np.where(edge & (idx == n - 1), 20.0 * n - w, a)
+    rw = np.exp(rng.uniform(np.log(1e-6), np.log(5e-5), shape))
+    n = np.where(alive, np.floor(10.0 ** rng.uniform(5, 9, shape)), 0.0)
+    T = rng.uniform(280.0, 295.0, n_cell)
+    c = lambda *s: rng.uniform(-courant, courant, s).reshape(-1)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                  device=device)
+    zero = t(np.zeros(shape))
+    d = DenseState(
+        n=t(n), rw2=t(rw ** 2), rd3=t((rw * rng.uniform(0.01, 0.2,
+                                                        shape)) ** 3),
+        kpa=t(rng.uniform(0.1, 1.2, shape)), vt=zero, x=t(x), z=t(z),
+        rhod=t(rng.uniform(1.0, 1.2, n_cell)),
+        p=t(rng.uniform(8.5e4, 1e5, n_cell)), T=t(T),
+        RH=t(np.full(n_cell, 0.99)),
+        eta=t(1.72e-5 * (393.0 / (T + 120.0)) * (T / 273.16) ** 1.5),
+        dv=t(np.full(n_cell, 8e3)), sstp_tmp_th=t(np.full(n_cell, 289.0)),
+        sstp_tmp_rv=t(np.full(n_cell, 8e-3)),
+        courant_x=t(c(nx + 1, ny, nz)), courant_z=t(c(nx, ny, nz + 1)),
+        puddle=t(np.zeros(N_PUDDLE)),
+        overflow=torch.zeros((), dtype=torch.int64, device=device),
+        y=t(y), courant_y=t(c(nx, ny + 1, nz)))
+    return cfg, d
