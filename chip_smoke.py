@@ -250,6 +250,24 @@ checks them:
      "dense") (E's onishi form) with bench.py's checks, the dense front
      bitwise equal to it, E's onishi form against its plain version
      (cloud, radii x10 and x30) and the best of 3 reps of 20 steps
+ 23. the flat engine's multi-device front (parallel/multi.
+     particles_multi_t): (a) bench.py's case through Kinematic2D(...,
+     opts_init_kw={"dev_count": 8}).run() on 8 shards of the card, slabs
+     10, 10, 10, 10, 9, 9, 9, 9 (the model's n_sd_max, twice the SDs),
+     kernel A twice a step and F once a shard a step, the best of 3 reps
+     of 10 coalescing steps from init, each with bench.py's physics
+     checks, no SD dropped on the ring; the serial flat engine at the same
+     n_sd_max timed beside it; (b) the front against the serial flat
+     engine from the same init, 5 steps without coalescence: th and rv
+     after every step within F's cell-sum gates and the SD count and wet
+     moments 0 and 3 a cell alike, outside the cells beside an SD that
+     lay within MULTI_NEAR_ULPS float32 ulps of a face after a step
+     (slab-local x rounds otherwise; their count at most
+     MULTI_NEAR_CELLS); (c) F on the last shard's step inputs, its
+     padded column included, bitwise against its plain version; (d)
+     pred_corr (the halo-2 courant exchange) and the exact mode (G's
+     fixed-count form a shard) on 8 shards, 3 coalescing steps each with
+     the physics checks, G bitwise against its plain version on a shard
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
@@ -513,6 +531,21 @@ DENSE3D_STEPS, DENSE3D_REPS, DENSE3D_FORM_STEPS = 10, 3, 3
 DENSE3D_GATES = {"th": 1e-6, "rv": 2e-6, "m0": 4e-6, "m3": 2e-4}
 DENSE3D_MOVED_CELLS = 220               # 5e-4 of the 438,976 cells
 ONISHI_TIME_STEPS = 20
+# phase 23: the multi-device front over MULTI_SHARDS slabs (MESH_WIDTHS);
+# (a) the best of TIME_REPS reps of MULTI_STEPS coalescing steps, (b) the
+# gate of MULTI_GATE_STEPS steps without coalescence against the serial
+# flat engine, outside the cells beside an SD that lay within
+# MULTI_NEAR_ULPS float32 ulps of the domain's size of a cell face after
+# any step (slab-local x rounds otherwise than global x, and the next
+# step may condense such an SD in either cell), of which there may be
+# MULTI_NEAR_CELLS (1.5x the 635 read on an H100): th and rv after every
+# step within F's cell-sum gates (read: bitwise), the SD count a cell
+# equal, the wet moments 0 and 3 within MULTI_MOM_GATE (4x the readings,
+# 6.2e-7 and 6.1e-7: their cell sums are atomic adds, in no fixed order);
+# (d) MULTI_FORM_STEPS steps each
+MULTI_SHARDS, MULTI_STEPS, MULTI_GATE_STEPS, MULTI_FORM_STEPS = 8, 10, 5, 3
+MULTI_NEAR_ULPS, MULTI_NEAR_CELLS = 4, 950
+MULTI_MOM_GATE = {0: 2.5e-6, 3: 2.5e-6}
 # kernel C's 3-D forms a live SD beside OPS_TRANSPORT: y's advection, wall
 # and classification; kernel E's onishi form a pair beside the table
 # lookup: Wang's enhancement (onishi.cuh wang_enhancement) and the square
@@ -844,8 +877,8 @@ def flat_totals(prtcls, rv, c):
     rw2 = prtcls.get_attr("rw2").astype(np.float64)
     rd3 = prtcls.get_attr("rd3").astype(np.float64)
     pud = prtcls.diag_puddle()
-    st = prtcls.state
-    vap = float((st.rhod.double() * st.dv.double()
+    vap = float((prtcls._cells("rhod").double()
+                 * prtcls._cells("dv").double()
                  * rv.double().reshape(-1)).sum())
     alive = n > 0
     liq = 4.0 / 3 * c.pi * c.rho_w * float(
@@ -1681,6 +1714,17 @@ def smoke(opts):
           f"ms/step against the flat engine's "
           f"{grid['3-D']['ms_per_step']:.3f} (phase 19 (a)) ({card})")
     print(f"phase 22: {time.perf_counter() - t22:.1f} s", flush=True)
+
+    # ---- 23. the flat engine's multi-device front on 8 shards
+    t23 = time.perf_counter()
+    multi = multi_phase(Kinematic2D, _ext, c, card, opts.profile)
+    for kr in rows:                 # A, F and G on the shards too
+        part = multi.get(kr["name"])
+        if part is not None:
+            kr["max_abs_err"] = max(kr["max_abs_err"], part["max_abs_err"])
+            kr["multi"] = {k: v for k, v in part.items()
+                           if k != "max_abs_err"}
+    print(f"phase 23: {time.perf_counter() - t23:.1f} s", flush=True)
 
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
@@ -3737,7 +3781,7 @@ def les_checks(label, m, opts, totals0, added, made, flow, c):
               f"LES {label}: ssp non-finite, or zero where it moves")
         out["ssp_abs_max"] = float(ssp.abs().max())
     if p.opts_init.diag_incloud_time:
-        T = p._tpr().T[st.ijk]
+        T = p._tpr_impl().T[st.ijk]
         rc2 = kappa_koehler.rw3_cr(torch.clamp(st.rd3, min=1e-30),
                                    torch.clamp(st.kpa, min=1e-10),
                                    T) ** (2.0 / 3)
@@ -3979,11 +4023,11 @@ def grid_run(prt, opts, steps, fields, c):
         flow["coal"] += (out.n > 0).sum() - (state.n > 0).sum()
         return out
 
-    def bcnd(cfg_, state):
+    def bcnd(cfg_, state, **kw):
         if cfg_.n_dims == 3:
             flow["y_wrap"] += ((state.n > 0) & ((state.y >= cfg_.y1)
                                                 | (state.y < cfg_.y0))).sum()
-        out = real[transport, "bcnd"](cfg_, state)
+        out = real[transport, "bcnd"](cfg_, state, **kw)
         flow["walls"] += (out.n > 0).sum() - (state.n > 0).sum()
         return out
 
@@ -4528,7 +4572,7 @@ def ice_melt(label, prt, f, th, rv, c):
     1e-5."""
     from libcloudphxx_tpu_torch import lgrngn as tl
     from libcloudphxx_tpu_torch.lgrngn import ice
-    st = prt._tpr()
+    st = prt._tpr_impl()
     frozen = (st.n > 0) & (st.ice_a > 0)
     m_ice = ice.ice_mass(st.ice_a.double(), st.ice_c.double(),
                          st.ice_rho.double())[frozen]
@@ -5546,6 +5590,267 @@ def dense3d_phase(Kinematic2D, _ext, dense, c, card, profile_on):
     for r in rows + b_rows + [c_row]:
         r["max_abs_err"] = err.get(r["name"], 0.0)
     return rows + b_rows + [c_row], {"3-D": a, "forms": b, "onishi": cc}, err
+
+
+# ------------------------------------------------------------------ phase 23
+def multi_model(Kinematic2D, coal, shards=MULTI_SHARDS, **oi_kw):
+    """bench.py's model at Kinematic2D's own n_sd_max (twice the SDs):
+    the multi-device front of ``shards`` slabs, or the serial flat engine
+    for ``shards`` 1."""
+    kw = {"coal_switch": coal, **oi_kw}
+    if shards > 1:
+        kw["dev_count"] = shards
+    return Kinematic2D(
+        nx=NX, nz=NZ, micro="lgrngn", sd_conc=SD_CONC, sstp_cond=SSTP_COND,
+        sstp_coal=SSTP_COAL, opts_init_kw=kw,
+        engine="auto" if shards > 1 else "flat", device=DEVICE)
+
+
+def multi_start(m):
+    """A model's state to restore: the population (a shard list for the
+    multi-device front), th and rv."""
+    return m.prtcls.state, m.th, m.rv
+
+
+def multi_restore(m, start):
+    m.prtcls.state, m.th, m.rv = start
+
+
+def multi_run(m, _ext, steps, c, totals, label):
+    """``steps`` of Kinematic2D.run() with the launches counted from 0 and
+    bench.py's physics checks after them, no SD sent past a full
+    migration buffer and the live count not grown.  Returns (seconds,
+    {kernel: launches})."""
+    n0 = int((m.prtcls.get_attr("n") > 0).sum())
+    reset(_ext.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run(steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+    flat_physics_checks(m, *totals, c)
+    n1 = int((m.prtcls.get_attr("n") > 0).sum())
+    ovf = m.prtcls.migration_overflow() \
+        if hasattr(m.prtcls, "migration_overflow") else 0.0
+    check(ovf == 0 and n1 <= n0, f"{label}: {ovf:.0f} SDs past a full "
+          f"migration buffer, live SDs {n0} -> {n1}")
+    return secs, launches
+
+
+def near_face_cells(prt):
+    """The (NX, NZ) cells on both sides of a face (x or z) that an SD of
+    ``prt`` lies within MULTI_NEAR_ULPS float32 ulps of the domain's size
+    of (the SDs' x and z through get_attr, in global coordinates)."""
+    n = prt.get_attr("n")
+    x, z = (prt.get_attr(k).astype(np.float64)[n > 0] for k in ("x", "z"))
+    dx, dz = prt.cfg.dx, prt.cfg.dz
+    eps = float(np.finfo(np.float32).eps) * MULTI_NEAR_ULPS
+    out = np.zeros((NX, NZ), bool)
+    rx, rz = x / dx, z / dz
+    ix, iz = np.rint(rx).astype(int), np.rint(rz).astype(int)
+    i = np.clip(np.floor(rx).astype(int), 0, NX - 1)
+    k = np.clip(np.floor(rz).astype(int), 0, NZ - 1)
+    near = np.abs(rx - ix) * dx <= eps * NX * dx
+    for side in (ix - 1, ix):
+        out[side[near] % NX, k[near]] = True
+    near = np.abs(rz - iz) * dz <= eps * NZ * dz
+    for side in (iz - 1, iz):
+        out[i[near], np.clip(side[near], 0, NZ - 1)] = True
+    return out
+
+
+def multi_gate(Kinematic2D, _ext, c, card):
+    """Phase 23 (b): the front against the serial flat engine from the
+    same init, MULTI_GATE_STEPS steps without coalescence.  Returns the
+    readings."""
+    ms, mf = (multi_model(Kinematic2D, False, shards=s)
+              for s in (MULTI_SHARDS, 1))
+    by_step, near = [], np.zeros((NX, NZ), bool)
+    for _ in range(MULTI_GATE_STEPS):
+        # the cells beside an SD near a face after a step: the next step
+        # may condense it in either
+        near |= near_face_cells(ms.prtcls) | near_face_cells(mf.prtcls)
+        for m in (ms, mf):
+            m.run(1)
+        far = torch.as_tensor(~near, device=DEVICE)
+        by_step.append((max_rel(ms.th[far], mf.th[far]),
+                        max_rel(ms.rv[far], mf.rv[far])))
+    torch.cuda.synchronize()
+    near |= near_face_cells(ms.prtcls) | near_face_cells(mf.prtcls)
+    counts = [m.diag_lgrngn("sd_conc") for m in (ms, mf)]
+    moved = counts[0] != counts[1]
+    far = torch.as_tensor(~near.reshape(-1), device=DEVICE)
+    rel = lambda a, b, sel: float(max_rel(
+        a.reshape(-1)[sel], b.reshape(-1)[sel])) if bool(sel.any()) else 0.0
+    th = (rel(ms.th, mf.th, far), rel(ms.th, mf.th, ~far))
+    rv = (rel(ms.rv, mf.rv, far), rel(ms.rv, mf.rv, ~far))
+    moms = {}
+    for k in (0, 3):
+        vals = []
+        for m in (ms, mf):
+            m.prtcls.diag_all()
+            m.prtcls.diag_wet_mom(k)
+            vals.append(m.prtcls.outbuf().reshape(NX, NZ))
+        same = (~near) & (counts[0] == counts[1]) & (vals[1] > 0)
+        moms[k] = float(np.max(np.abs(vals[0] - vals[1])[same]
+                               / vals[1][same]))
+    out = dict(th_rv_rel_by_step=by_step, th_rel=th[0], rv_rel=rv[0],
+               th_rel_near=th[1], rv_rel_near=rv[1],
+               near_cells=int(near.sum()),
+               moved_cells=int(moved.sum()),
+               moved_outside_near=int((moved & ~near).sum()),
+               m0_rel=moms[0], m3_rel=moms[3])
+    print(f"multi-device front vs serial flat, {MULTI_GATE_STEPS} steps "
+          f"without coalescence: {out} ({card})", flush=True)
+    check(max(b[0] for b in by_step) <= 2e-6
+          and max(b[1] for b in by_step) <= 2e-5,
+          "multi gate: th or rv beyond F's cell-sum gates")
+    check(out["moved_outside_near"] == 0
+          and out["near_cells"] <= MULTI_NEAR_CELLS,
+          "multi gate: SD counts differ away from the faces, or too many "
+          "cells beside one")
+    check(moms[0] <= MULTI_MOM_GATE[0] and moms[3] <= MULTI_MOM_GATE[3],
+          f"multi gate: wet moments beyond {MULTI_MOM_GATE}")
+    return out
+
+
+def multi_phase(Kinematic2D, _ext, c, card, profile_on):
+    """Phase 23 (the module docstring).  Returns {kernel row name: the
+    numbers for its "multi" entry, with max_abs_err}."""
+    from libcloudphxx_tpu_torch.lgrngn import as_t
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    from libcloudphxx_tpu_torch.parallel import particles_multi_t
+    err, out = {}, {}
+    t0 = time.perf_counter()
+    mm = multi_model(Kinematic2D, True)
+    prt = mm.prtcls
+    check(type(prt) is particles_multi_t and prt.widths == MESH_WIDTHS,
+          f"phase 23: the factory gave {type(prt).__name__}, slabs "
+          f"{getattr(prt, 'widths', None)}")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    start = multi_start(mm)
+    totals = flat_totals(prt, mm.rv, c)
+    n_sd = int((prt.get_attr("n") > 0).sum())
+    print(f"multi-device front: {n_sd} SDs on {prt.n_shards} shards of "
+          f"{prt._cap} slots, init {init_s:.1f} s", flush=True)
+    # (a) the timed reps, the launches of the first
+    best, launches = float("inf"), None
+    for _ in range(TIME_REPS):
+        multi_restore(mm, start)
+        secs, got = multi_run(mm, _ext, MULTI_STEPS, c, totals,
+                              "phase 23 (a)")
+        launches = launches or got
+        best = min(best, secs)
+    check(launches == {"mpdata": 2 * MULTI_STEPS,
+                       "cond_flat": MULTI_SHARDS * MULTI_STEPS},
+          f"phase 23 (a): kernel A twice a step and F once a shard a step "
+          f"expected, got {launches}")
+    ms_step = best / MULTI_STEPS * 1e3
+    mf = multi_model(Kinematic2D, True, shards=1)
+    f_start, f_tot = multi_start(mf), flat_totals(mf.prtcls, mf.rv, c)
+    f_best = float("inf")
+    for _ in range(TIME_REPS):
+        multi_restore(mf, f_start)
+        f_best = min(f_best, multi_run(mf, _ext, MULTI_STEPS, c, f_tot,
+                                       "serial flat")[0])
+    f_ms = f_best / MULTI_STEPS * 1e3
+    print(f"timing multi-device front (8 shards, public API, coalescence "
+          f"on): {ms_step:.3f} ms/step, {n_sd * MULTI_STEPS / best:.4g} "
+          f"SD-updates/s; the serial flat engine at the same n_sd_max "
+          f"{f_ms:.3f} ms/step, {n_sd * MULTI_STEPS / f_best:.4g} "
+          f"SD-updates/s ({MULTI_STEPS} steps, best of {TIME_REPS}; "
+          f"launches {launches}; {card})", flush=True)
+    if profile_on:
+        profile("multi-device front, 8 shards",
+                lambda: multi_restore(mm, start), mm.run, card, steps=3)
+        profile("serial flat at the same n_sd_max",
+                lambda: multi_restore(mf, f_start), mf.run, card, steps=5)
+    del mf
+    # (c) F on the last shard's inputs (a padded column) against its plain
+    multi_restore(mm, start)
+    f_kw = capture(cond_ops, "cond_flat", lambda: mm.run(1), which=None)
+    check(len(f_kw) == MULTI_SHARDS, f"phase 23 (c): {len(f_kw)} F calls "
+          f"in a step")
+    kw = f_kw[-1]
+    check_form("(a shard of the multi-device front)", kw, err)
+    k, pl = cond_ops.cond_flat(**kw), cond_ops.cond_flat(**kw, plain=True)
+    pad = torch.arange(kw["th"].numel(), device=DEVICE) \
+        >= prt.doms[-1].nxl * NZ
+    live_pad = int((kw["wgt"] > 0)[pad[kw["sijk"]]].sum())
+    same_pad = bool(torch.equal(k[1][pad], pl[1][pad])
+                    and torch.equal(k[2][pad], pl[2][pad]))
+    same = float(((k[1] == pl[1]) & (k[2] == pl[2])).double().mean())
+    live = kw["wgt"] > 0
+    same_sd = bool(torch.equal(k[0][live], pl[0][live]))
+    print(f"F on shard {MULTI_SHARDS - 1}: {int(pad.sum())} padded cells, "
+          f"{live_pad} live SDs there, their th and rv bitwise the plain "
+          f"version's {same_pad}; {same:.4f} of the cells bitwise, the live "
+          f"SDs' rw2 bitwise {same_sd}", flush=True)
+    check(live_pad == 0 and same_pad, "phase 23 (c): an SD in a padded "
+          "cell, or F's padded cells differ from its plain version's")
+    check(same == 1.0 and same_sd, "phase 23 (c): F on a shard is not "
+          "bitwise its plain version")
+    out["cond_flat"] = form_row(
+        kw, launches["cond_flat"], f"phase 23 (a)'s {MULTI_STEPS} steps "
+        f"({MULTI_SHARDS} shards)", err)
+    out["cond_flat"]["ms_per_step"] = ms_step
+    out["cond_flat"]["serial_flat_ms_per_step"] = f_ms
+    out["cond_flat"]["sd_updates_per_s"] = n_sd * MULTI_STEPS / best
+    out["mpdata"] = dict(launches=launches["mpdata"], max_abs_err=0.0)
+    del mm, prt, start
+    torch.cuda.empty_cache()
+    print(f"phase 23 (a), (c): {time.perf_counter() - t0:.1f} s", flush=True)
+    # (b) the gate against the serial flat engine
+    t0 = time.perf_counter()
+    out["cond_flat"]["gate"] = multi_gate(Kinematic2D, _ext, c, card)
+    torch.cuda.empty_cache()
+    print(f"phase 23 (b): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    # (d) pred_corr and the exact mode
+    for label, kw_oi, kernel in (
+            ("pred_corr", dict(adve_scheme=as_t.pred_corr), _ext.COND_FLAT),
+            ("exact", dict(exact_sstp_cond=True), _ext.COND_SD_FIXED)):
+        m = multi_model(Kinematic2D, True, **kw_oi)
+        tot = flat_totals(m.prtcls, m.rv, c)
+        secs, got = multi_run(m, _ext, MULTI_FORM_STEPS, c, tot,
+                              f"phase 23 (d) {label}")
+        print(f"multi-device front, {label}: {MULTI_FORM_STEPS} steps in "
+              f"{secs:.2f} s ({secs / MULTI_FORM_STEPS * 1e3:.3f} ms/step); "
+              f"launches {got} ({card})", flush=True)
+        check(got == {"mpdata": 2 * MULTI_FORM_STEPS,
+                      kernel.name: MULTI_SHARDS * MULTI_FORM_STEPS},
+              f"phase 23 (d) {label}: kernel A twice a step and "
+              f"{kernel.name} once a shard a step expected, got {got}")
+        if label == "exact":
+            g_kw = capture(cond_ops, "perparticle_fixed", lambda: m.run(1),
+                           which=None)
+            check(len(g_kw) == MULTI_SHARDS, "phase 23 (d): G not once a "
+                  "shard")
+            check_form("(a shard of the multi-device front, exact)",
+                       g_kw[-1], err)
+            k = cond_ops.perparticle_fixed(**g_kw[-1])
+            pl = cond_ops.perparticle_fixed(**g_kw[-1], plain=True)
+            live = g_kw[-1]["sd"][0] > 0
+            check(bool(torch.equal(k[0], pl[0])) and all(
+                torch.equal(a[live], b[live]) for a, b in zip(k[1:], pl[1:])),
+                "phase 23 (d): G on a shard is not bitwise its plain version")
+            out["cond_sd_fixed_flat"] = form_row(
+                g_kw[-1], got[kernel.name], f"phase 23 (d)'s "
+                f"{MULTI_FORM_STEPS} exact steps ({MULTI_SHARDS} shards)",
+                err, name="cond_sd_fixed_flat")
+        out["cond_flat"][f"{label}_ms_per_step"] = \
+            secs / MULTI_FORM_STEPS * 1e3
+        del m
+        torch.cuda.empty_cache()
+    print(f"phase 23 (d): {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, part in out.items():
+        part["max_abs_err"] = err.get(
+            "cond_sd_fixed" if name == "cond_sd_fixed_flat" else name, 0.0)
+        for k in ("name", "route", "source", "replaces"):
+            part.pop(k, None)
+    return out
 
 
 def profile(label, start, run, card, steps=20):

@@ -5,6 +5,10 @@ StaticConfig fields and its flat State or DenseState arrays as plain
 Python values and numpy arrays (``dataclasses.asdict`` +
 ``numpy.asarray``), so this module imports nothing of JAX.
 
+The multi-device front's shards come from the JAX particles_multi_t's
+State, whose leaves hold the shards one after another
+(shard_states_from_numpy).
+
 The bulk schemes' state is the model's fields (bulk_fields_from_numpy,
 bulk_fields_to_numpy): th, rv, rc, rr (and blk_2m's nc, nr) and the
 accumulated surface flux puddle_flux.
@@ -105,6 +109,31 @@ def state_to_numpy(st: State) -> dict:
     out["rng_seed"] = np.asarray(st.rng_seed)
     out["rng_step"] = np.asarray(st.rng_step)
     return out
+
+
+def shard_states_from_numpy(arrays: dict, n_shards: int, device, dtype,
+                            rng_seed=44) -> list:
+    """The port's shard States (parallel/multi.particles_multi_t.state)
+    from the JAX particles_multi_t State's arrays as numpy: each leaf holds
+    the shards one after another on its last axis (a per-SD leaf (n_shards
+    * cap,), a cell leaf the padded slabs, a courant leaf each slab's
+    faces, the chemistry's rows on axis 1, a puddle a shard), so it is
+    split into ``n_shards`` equal parts; an empty leaf stays empty.  The
+    JAX keys are not carried (see the module docstring): shard s is keyed
+    by ``rng_seed`` and its key word ops/philox.shard_key(s) at step 0.
+    ``device`` is one device or a list, one a shard."""
+    from .ops.philox import shard_key
+    devices = device if isinstance(device, (list, tuple)) \
+        else [device] * n_shards
+    parts = {}
+    for k, v in arrays.items():
+        v = np.asarray(v)
+        parts[k] = np.split(v, n_shards, axis=-1) if v.size \
+            else [v] * n_shards
+    return [dataclasses.replace(
+        state_from_numpy({k: v[s] for k, v in parts.items()}, devices[s],
+                         dtype, rng_seed), rng_key=shard_key(s))
+        for s in range(n_shards)]
 
 
 def bulk_fields_from_numpy(arrays: dict, device, dtype) -> dict:

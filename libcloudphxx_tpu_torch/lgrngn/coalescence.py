@@ -514,7 +514,8 @@ def coal(cfg: StaticConfig, state: State, params, dt, sstp_coal: int,
     particles_step.ipp:382-404), vt refreshed before every substep and
     after the last.  The draws of substep s are Philox words keyed by
     (state.rng_seed, 0), counter (state.rng_step, s, kind, slot); the step
-    counter advances by one.  ``turb_coal`` hands the turbulent kernels
+    counter advances by one (the key's second word is state.rng_key: 0,
+    or a shard's, ops/philox.shard_key).  ``turb_coal`` hands the turbulent kernels
     the cells' dissipation rate."""
     dt_sub = dt / sstp_coal
     eff = efficiency(cfg.kernel, state.n.dtype, state.n.device)
@@ -523,7 +524,7 @@ def coal(cfg: StaticConfig, state: State, params, dt, sstp_coal: int,
     n_sd = state.n.shape[0]
     draws = lambda kind: philox.draw_substeps(
         state.rng_seed, state.rng_step, sstp_coal, kind, n_sd,
-        state.n.device)
+        state.n.device, key1=state.rng_key)
     shuffle = draws(philox.SHUFFLE)
     u01 = philox.u01(draws(philox.BERNOULLI), state.n.dtype)
     for s in range(sstp_coal):

@@ -47,11 +47,11 @@ def _liquid_mom3(cfg: StaticConfig, state: State):
 
 def freeze_u01(state: State):
     """The time-dependent freezing's uniforms in [0, 1), float64, one a
-    slot: word 0 of Philox(key=(seed, 0), ctr=(rng_step, 0, FREEZE,
+    slot: word 0 of Philox(key=(seed, rng_key), ctr=(rng_step, 0, FREEZE,
     slot)) times 2**-32."""
     bits = philox.draw_substeps(state.rng_seed, state.rng_step, 1,
                                 philox.FREEZE, state.n.shape[0],
-                                state.n.device)[0]
+                                state.n.device, key1=state.rng_key)[0]
     return bits.to(torch.float64) * 2.0 ** -32
 
 

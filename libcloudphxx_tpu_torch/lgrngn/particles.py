@@ -26,17 +26,19 @@ diag_incloud_time, the aerosol sources, the CCN relaxation and the
 recycling; the ice (ice_switch: singular or time-dependent freezing,
 melting, and deposition in the per-cell condensation; lgrngn/ice.py) and
 the aqueous chemistry (chem_switch: the trace gases through
-``ambient_chem``, opts.chem_dsl/dsc/rct; lgrngn/chemistry.py).  The
-multi-device front-end raises NotImplementedError (ROADMAP.md, Queue 1).
+``ambient_chem``, opts.chem_dsl/dsc/rct; lgrngn/chemistry.py).
 Fields a host passes as (nx, ny, nz) arrays are ravelled C-order, i
 outermost.
 On a CUDA device the condensation runs kernel F (per cell) or kernel G
 (per particle; ops/cond.py), under turb_cond their turb_cond forms, in a
 parcel their parcel forms, with ice_switch F's ice forms; nothing falls
 back to the CPU.
-The factory hands out this flat engine or, on a CUDA device, the dense
-front (lgrngn/dense_front.py), which overrides the _step_cond_impl and
-_step_async_impl hooks.
+The factory hands out this flat engine, on a CUDA device the dense front
+(lgrngn/dense_front.py), which overrides the _step_cond_impl and
+_step_async_impl hooks, or for dev_count > 1 the multi-device front
+(parallel/multi.py), which holds a list of shard States and overrides the
+per-shard hooks (_map and the hooks over it, libcloudphxx_tpu/lgrngn/
+particles.py:255-300).
 """
 
 import dataclasses
@@ -55,6 +57,7 @@ from . import source as source_mod
 from . import transport, turbulence
 from . import init as init_mod
 from .enums import backend_t, kernel_t, src_t
+from .ice import ice_mass
 from .opts import opts_init_t, opts_t
 from .state import (OUT_COAL_OVERFLOW, PUDDLE_KEYS, TENSOR_FIELDS, State,
                     StaticConfig, empty_state)
@@ -102,7 +105,8 @@ def step_cond_body(cfg: StaticConfig, state: State, dt, RH_max,
 
 
 def step_async_body(cfg: StaticConfig, sstp_coal: int, switches, state: State,
-                    params, w_LS, dt, sgs_mix_len=None) -> State:
+                    params, w_LS, dt, sgs_mix_len=None, *,
+                    adve=transport.adve, x_walls=True) -> State:
     """The transport phase (libcloudphxx_tpu/lgrngn/particles.py:144-179;
     reference particles_step.ipp:339-494), warm: closure, vt, the
     coalescence substeps, the SGS block (the TKE, the velocity
@@ -111,7 +115,10 @@ def step_async_body(cfg: StaticConfig, sstp_coal: int, switches, state: State,
     walls, recycling and the re-bin.  ``switches`` = (do_coal, do_adve,
     do_sedi, do_subs[, do_turb_adve, do_turb_cond, do_rcyc,
     do_turb_coal]), the last four False where left out; ``sgs_mix_len``
-    the per-level SGS mixing length (a tensor) the SGS block takes."""
+    the per-level SGS mixing length (a tensor) the SGS block takes.  A
+    shard of the multi-device front (parallel/decomp.sharded_async_step)
+    passes its ``adve`` and ``x_walls`` False: its x walls and re-bin are
+    the ring migration's."""
     (do_coal, do_adve, do_sedi, do_subs, do_turb_adve, do_turb_cond,
      do_rcyc, do_turb_coal) = tuple(switches) + (False,) * (8 - len(switches))
     state = hskpng.hskpng_Tpr_state(cfg, state)
@@ -127,17 +134,17 @@ def step_async_body(cfg: StaticConfig, sstp_coal: int, switches, state: State,
         if do_turb_cond:
             state = turbulence.hskpng_turb_dot_ss(cfg, state)
     if do_adve:
-        state = transport.adve(cfg, state)
+        state = adve(cfg, state)
     if do_turb_adve:
         state = turbulence.turb_adve(cfg, state, dt)
     if do_sedi:
         state = transport.sedi(state, dt)
     if do_subs:
         state = transport.subs(cfg, state, w_LS, dt)
-    state = transport.bcnd(cfg, state)
+    state = transport.bcnd(cfg, state, x_walls=x_walls)
     if do_rcyc:
         state = recycle.rcyc(cfg, state)
-    return transport.post_step(cfg, state)
+    return transport.post_step(cfg, state) if x_walls else state
 
 
 def take_coal_overflow(puddle):
@@ -199,14 +206,15 @@ class particles_t:
         self._rlx_ctr = 0
         self._src_rng = np.random.default_rng(opts_init.rng_seed + 1)
 
-    def _cfg_for_dt(self, dt):
+    def _cfg_for_dt(self, dt, cfg=None):
         """Variable-dt substep rescale (reference
-        particles_impl_adjust_timesteps.ipp:17-21): substep counts > 1 scale
-        by ceil(sstp * dt / opts_init.dt)."""
-        cfg = self.cfg
-        if dt == cfg.dt:
+        particles_impl_adjust_timesteps.ipp:17-21) of ``cfg`` (the
+        engine's by default): substep counts > 1 scale by ceil(sstp * dt /
+        opts_init.dt)."""
+        cfg = cfg or self.cfg
+        if dt == self.cfg.dt:
             return cfg
-        adj = lambda s: int(math.ceil(s * dt / cfg.dt)) if s > 1 else s
+        adj = lambda s: int(math.ceil(s * dt / self.cfg.dt)) if s > 1 else s
         return dataclasses.replace(cfg, sstp_cond=adj(cfg.sstp_cond),
                                    sstp_cond_act=adj(cfg.sstp_cond_act),
                                    sstp_chem=adj(cfg.sstp_chem))
@@ -228,6 +236,102 @@ class particles_t:
         nothing here)."""
         return step_async_body(self.cfg, sstp, switches, state, params, w_LS,
                                dt, self.sgs_mix_len())
+
+    def _step_chem_impl(self, state, dt, dsl, dsc, rct):
+        """The chemistry substeps on ``state`` (particles_step.ipp:272-310);
+        returns the new State."""
+        def fn(cfg, st):
+            cfg = self._cfg_for_dt(dt, cfg)
+            return chemistry.sstp_chem_loop(
+                cfg, hskpng.hskpng_Tpr_state(cfg, st), dt, dsl, dsc, rct)
+
+        return self._map(fn, state)
+
+    # ---- the per-shard hooks (libcloudphxx_tpu/lgrngn/particles.py:
+    # 255-300): the multi-device front (parallel/multi.py) holds a list of
+    # shard States and runs each on every shard
+    def _map(self, fn, *args):
+        """fn(cfg, *args) on the engine: ``args`` are the engine's values (a
+        State, a tensor over its SDs or cells); the multi-device front
+        passes and gets back a list, one a shard."""
+        return fn(self.cfg, *args)
+
+    def _cell_to_host(self, arr):
+        """A cell field (a value of _map) as a (n_cell,) float64 numpy
+        array in the host's layout."""
+        return arr.double().cpu().numpy()
+
+    def _sd_to_host(self, arr):
+        """A per-SD attribute (a value of _map) as a numpy array."""
+        return arr.cpu().numpy()
+
+    def _cells(self, name):
+        """The State's cell field ``name`` as one global tensor."""
+        return getattr(self.state, name)
+
+    def _put_fields(self, state, upd):
+        """``state`` with the global fields ``upd`` (cell fields, courants,
+        the trace gases) synced in."""
+        return dataclasses.replace(state, **upd)
+
+    def _tpr_impl(self):
+        """The State with its closure (T, p, RH, eta) refreshed."""
+        return self._map(hskpng.hskpng_Tpr_state, self.state)
+
+    def _moms_calc_impl(self, power, n_filtered, attr):
+        """The specific moment of ``attr(state)`` over ``n_filtered``, a
+        cell."""
+        return self._map(lambda cfg, st, nf: hskpng.segment_moment(
+            cfg, nf, attr(st), power, st.ijk, st.dv, st.rhod), self.state,
+            n_filtered)
+
+    def _sd_count_impl(self, n_filtered):
+        return self._map(lambda cfg, st, nf: hskpng.sd_count_per_cell(
+            cfg, nf, st.ijk), self.state, n_filtered)
+
+    def _mass_dens_impl(self, n_filtered, rad, sig0):
+        """The kernel-density estimate of diag_wet_mass_dens
+        (particles_impl_mass_dens.ipp:8-113)."""
+        def fn(cfg, st, nf):
+            seg = lambda v: torch.zeros(cfg.n_cell, dtype=v.dtype,
+                                        device=v.device).index_add_(
+                0, st.ijk, v)
+            count = seg((st.n > 0).to(st.rw2.dtype))
+            sig = (sig0 / torch.clamp(count, min=1.0) ** 0.2)[st.ijk]
+            x = torch.clamp(st.rw2, min=1e-300)
+            vals = nf / sig * x ** 1.5 * torch.exp(
+                -((0.5 * torch.log(x) - math.log(rad)) / sig) ** 2 / 2.0)
+            pre = 4.0 / 3.0 * c.rho_w * math.sqrt(c.pi / 2.0)
+            return pre * seg(vals) / st.dv
+
+        return self._map(fn, self.state, n_filtered)
+
+    def _segment_max_impl(self, vals):
+        """The largest of ``vals`` (over the SDs) a cell, 0 where none."""
+        return self._map(lambda cfg, st, v: torch.zeros(
+            cfg.n_cell, dtype=v.dtype, device=v.device).scatter_reduce_(
+                0, st.ijk, v, "amax"), self.state, vals)
+
+    def _precip_rate_impl(self, ice: bool):
+        """1st non-specific moment of (rw^3 | the ice mass) * vt of the
+        selected SDs, vt refreshed (particles_diag.ipp:561-607)."""
+        def fn(cfg, st, nf):
+            st = hskpng_vterm_all(cfg, st)
+            vals = ice_mass(st.ice_a, st.ice_c, st.ice_rho) if ice \
+                else st.rw2 ** 1.5
+            vals = nf * vals * st.vt
+            return torch.zeros(cfg.n_cell, dtype=vals.dtype,
+                               device=vals.device).index_add_(0, st.ijk, vals)
+
+        return self._map(fn, self._tpr_impl(), self._n_filtered)
+
+    def _state_arrays(self):
+        """The State's arrays for a checkpoint (save)."""
+        return state_arrays(self.state)
+
+    def _put_state(self, arrays):
+        """The State from a checkpoint's ``arrays`` (load)."""
+        return state_from_arrays(arrays, self.state)
 
     def _tensor(self, a):
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)
@@ -290,7 +394,7 @@ class particles_t:
         ``state.ambient_chem``."""
         if not ambient_chem:
             return
-        dev = self.state.ambient_chem.double().cpu().numpy()
+        dev = self._cells("ambient_chem").double().cpu().numpy()
         for key, arr in ambient_chem.items():
             if not isinstance(arr, torch.Tensor):
                 np.asarray(arr).reshape(-1)[:] = dev[int(key)]
@@ -374,7 +478,7 @@ class particles_t:
             if gases is not None:
                 upd["ambient_chem"] = gases
         if upd:
-            self.state = dataclasses.replace(self.state, **upd)
+            self.state = self._put_fields(self.state, upd)
         # var_rho: the host passed a (possibly changing) density this sync
         # (reference particles_step.ipp:100)
         self._var_rho = rhod is not None
@@ -417,21 +521,20 @@ class particles_t:
                 self.state, dt, float(opts.RH_max), self._var_rho,
                 bool(opts.turb_cond), plain, **ice_kw)
             if not device_io:
-                for arr, new in ((th, self.state.th), (rv, self.state.rv)):
+                for arr, name in ((th, "th"), (rv, "rv")):
                     if arr is not None:
-                        np.asarray(arr).reshape(-1)[:] = new.cpu().numpy()
+                        np.asarray(arr).reshape(-1)[:] = \
+                            self._cells(name).cpu().numpy()
         if do_chem:
             # the chemistry substeps (particles_step.ipp:272-310)
-            cfg = self._cfg_for_dt(dt)
-            self.state = chemistry.sstp_chem_loop(
-                cfg, hskpng.hskpng_Tpr_state(cfg, self.state), dt,
-                bool(opts.chem_dsl), bool(opts.chem_dsc),
+            self.state = self._step_chem_impl(
+                self.state, dt, bool(opts.chem_dsl), bool(opts.chem_dsc),
                 bool(opts.chem_rct))
             if opts.chem_dsl:
                 self._chem_sync_out(ambient_chem)
         self._should_now_run_async = True
         if device_io:
-            return self.state.th, self.state.rv
+            return self._cells("th"), self._cells("rv")
         return None
 
     def step_sync(self, opts: opts_t, th, rv, rhod=None, courant_x=None,
@@ -526,7 +629,7 @@ class particles_t:
         """The sources' and the relaxation's access to the State
         (source.StateEngine), its T and RH refreshed first: they read the
         current closure."""
-        return source_mod.StateEngine(self.cfg, self._tpr())
+        return source_mod.StateEngine(self.cfg, self._tpr_impl())
 
     def _apply_sources(self, opts, dt):
         """The aerosol sources due this step (each distribution and size
@@ -563,88 +666,86 @@ class particles_t:
             raise RuntimeError("libcloudphxx: init() has not been called")
 
     def _set_outbuf(self, per_cell):
-        self._outbuf = per_cell.double().cpu().numpy()
+        self._outbuf = self._cell_to_host(per_cell)
 
-    def _tpr(self):
-        return hskpng.hskpng_Tpr_state(self.cfg, self.state)
+    def _cell_diag(self, name):
+        """Output a field of the refreshed closure."""
+        self._require_init()
+        self._set_outbuf(self._map(lambda cfg, st: getattr(st, name),
+                                   self._tpr_impl()))
 
     def diag_pressure(self):
-        self._require_init()
-        self._set_outbuf(self._tpr().p)
+        self._cell_diag("p")
 
     def diag_temperature(self):
-        self._require_init()
-        self._set_outbuf(self._tpr().T)
+        self._cell_diag("T")
 
     def diag_RH(self):
-        self._require_init()
-        self._set_outbuf(self._tpr().RH)
+        self._cell_diag("RH")
 
     # selection filters (reference particles_diag.ipp:224-340)
-    def diag_all(self):
-        self._require_init()
-        self._n_filtered = self.state.n
-
-    def diag_dry_rng(self, r_min, r_max):
-        self._require_init()
-        rd3 = self.state.rd3
-        sel = (rd3 >= r_min ** 3) & (rd3 < r_max ** 3)
-        self._n_filtered = torch.where(sel, self.state.n, 0.0)
-
-    def diag_wet_rng(self, r_min, r_max):
-        self._require_init()
-        rw2 = self.state.rw2
-        sel = (rw2 >= r_min ** 2) & (rw2 < r_max ** 2)
-        self._n_filtered = torch.where(sel, self.state.n, 0.0)
-
-    def diag_kappa_rng(self, k_min, k_max):
-        self._require_init()
-        kpa = self.state.kpa
-        sel = (kpa >= k_min) & (kpa < k_max)
-        self._n_filtered = torch.where(sel, self.state.n, 0.0)
+    def _select(self, sel, state=None):
+        """Select the SDs that ``sel(state)`` marks (the State's by
+        default): n_filtered is their multiplicity, 0 elsewhere."""
+        self._n_filtered = self._map(
+            lambda cfg, st: torch.where(sel(st), st.n, 0.0),
+            self.state if state is None else state)
 
     def _cons(self, sel):
-        """Narrow the current selection by ``sel`` (the reference's
+        """Narrow the current selection by ``sel(state)`` (the reference's
         consecutive filters, particles_diag.ipp:254-340)."""
         if self._n_filtered is None:
             raise RuntimeError("libcloudphxx: consecutive filter without "
                                "a previous selection")
-        self._n_filtered = torch.where(sel, self._n_filtered, 0.0)
+        self._n_filtered = self._map(
+            lambda cfg, st, nf: torch.where(sel(st), nf, 0.0), self.state,
+            self._n_filtered)
+
+    def diag_all(self):
+        self._require_init()
+        self._n_filtered = self._map(lambda cfg, st: st.n, self.state)
+
+    def diag_dry_rng(self, r_min, r_max):
+        self._require_init()
+        self._select(lambda st: (st.rd3 >= r_min ** 3)
+                     & (st.rd3 < r_max ** 3))
+
+    def diag_wet_rng(self, r_min, r_max):
+        self._require_init()
+        self._select(lambda st: (st.rw2 >= r_min ** 2)
+                     & (st.rw2 < r_max ** 2))
+
+    def diag_kappa_rng(self, k_min, k_max):
+        self._require_init()
+        self._select(lambda st: (st.kpa >= k_min) & (st.kpa < k_max))
 
     def diag_dry_rng_cons(self, r_min, r_max):
         self._require_init()
-        rd3 = self.state.rd3
-        self._cons((rd3 >= r_min ** 3) & (rd3 < r_max ** 3))
+        self._cons(lambda st: (st.rd3 >= r_min ** 3) & (st.rd3 < r_max ** 3))
 
     def diag_wet_rng_cons(self, r_min, r_max):
         self._require_init()
-        rw2 = self.state.rw2
-        self._cons((rw2 >= r_min ** 2) & (rw2 < r_max ** 2))
+        self._cons(lambda st: (st.rw2 >= r_min ** 2) & (st.rw2 < r_max ** 2))
 
     def diag_kappa_rng_cons(self, k_min, k_max):
         self._require_init()
-        kpa = self.state.kpa
-        self._cons((kpa >= k_min) & (kpa < k_max))
+        self._cons(lambda st: (st.kpa >= k_min) & (st.kpa < k_max))
 
     def diag_rw_ge_rc(self):
         """Select the activated SDs: rw at or above the critical radius
         (reference particles_diag.ipp:384-409)."""
         self._require_init()
-        st = self._tpr()
-        rc2 = kappa_koehler.rw3_cr(torch.clamp(st.rd3, min=1e-300),
-                                   torch.clamp(st.kpa, min=1e-10),
-                                   st.T[st.ijk]) ** (2.0 / 3)
-        self._n_filtered = torch.where(st.rw2 >= rc2, st.n, 0.0)
+        self._select(lambda st: st.rw2 >= kappa_koehler.rw3_cr(
+            torch.clamp(st.rd3, min=1e-300), torch.clamp(st.kpa, min=1e-10),
+            st.T[st.ijk]) ** (2.0 / 3), self._tpr_impl())
 
     def diag_RH_ge_Sc(self):
         """Select the SDs whose cell's RH reaches their critical
         saturation (reference particles_diag.ipp:353-381)."""
         self._require_init()
-        st = self._tpr()
-        S_cr = kappa_koehler.S_cr(torch.clamp(st.rd3, min=1e-300),
-                                  torch.clamp(st.kpa, min=1e-10),
-                                  st.T[st.ijk])
-        self._n_filtered = torch.where(st.RH[st.ijk] >= S_cr, st.n, 0.0)
+        self._select(lambda st: st.RH[st.ijk] >= kappa_koehler.S_cr(
+            torch.clamp(st.rd3, min=1e-300), torch.clamp(st.kpa, min=1e-10),
+            st.T[st.ijk]), self._tpr_impl())
 
     def _check_selected(self):
         if self._n_filtered is None:
@@ -653,28 +754,27 @@ class particles_t:
                 "diag")
 
     def _moms(self, power, attr):
-        st = self.state
-        return hskpng.segment_moment(self.cfg, self._n_filtered, attr, power,
-                                     st.ijk, st.dv, st.rhod)
+        """Output the moment ``power`` of ``attr(state)`` over the
+        selection."""
+        self._set_outbuf(self._moms_calc_impl(power, self._n_filtered, attr))
 
     def diag_sd_conc(self):
         """SD count (not multiplicity) per cell of the selected population
         (reference particles_diag.ipp:196-219)."""
         self._check_selected()
-        self._set_outbuf(hskpng.sd_count_per_cell(
-            self.cfg, self._n_filtered, self.state.ijk))
+        self._set_outbuf(self._sd_count_impl(self._n_filtered))
 
     def diag_dry_mom(self, n):
         self._check_selected()
-        self._set_outbuf(self._moms(n / 3.0, self.state.rd3))
+        self._moms(n / 3.0, lambda st: st.rd3)
 
     def diag_wet_mom(self, n):
         self._check_selected()
-        self._set_outbuf(self._moms(n / 2.0, self.state.rw2))
+        self._moms(n / 2.0, lambda st: st.rw2)
 
     def diag_kappa_mom(self, n):
         self._check_selected()
-        self._set_outbuf(self._moms(float(n), self.state.kpa))
+        self._moms(float(n), lambda st: st.kpa)
 
     def diag_wet_mass_dens(self, rad, sig0):
         """Kernel-density estimate of the selected SDs' mass density at wet
@@ -682,50 +782,35 @@ class particles_t:
         cell's SD count (reference particles_diag.ipp:494-499,
         particles_impl_mass_dens.ipp:8-113)."""
         self._check_selected()
-        st, cfg = self.state, self.cfg
-        seg = lambda v: torch.zeros(cfg.n_cell, dtype=v.dtype,
-                                    device=v.device).index_add_(0, st.ijk, v)
-        count = seg((st.n > 0).to(st.rw2.dtype))
-        sig = (sig0 / torch.clamp(count, min=1.0) ** 0.2)[st.ijk]
-        x = torch.clamp(st.rw2, min=1e-300)
-        vals = self._n_filtered / sig * x ** 1.5 * torch.exp(
-            -((0.5 * torch.log(x) - math.log(rad)) / sig) ** 2 / 2.0)
-        pre = 4.0 / 3.0 * c.rho_w * math.sqrt(c.pi / 2.0)
-        self._set_outbuf(pre * seg(vals) / st.dv)
+        self._set_outbuf(self._mass_dens_impl(self._n_filtered, float(rad),
+                                              float(sig0)))
 
     def diag_vel_div(self):
         """Divergence of the flow of each cell [1/s] from the courants
         (reference particles_diag.ipp:501-556)."""
         self._require_init()
-        st, cfg = self.state, self.cfg
-        ijk = torch.arange(cfg.n_cell, device=st.th.device)
-        (lft, rgt), (fre, hnd), (blw, abv) = transport.courant_indices(cfg,
-                                                                      ijk)
-        div = torch.zeros(cfg.n_cell, dtype=st.th.dtype, device=st.th.device)
-        if cfg.n_dims >= 1:
-            div = div + st.courant_x[rgt] - st.courant_x[lft]
-        if cfg.n_dims == 3:
-            div = div + st.courant_y[hnd] - st.courant_y[fre]
-        if cfg.n_dims > 1:
-            div = div + st.courant_z[abv] - st.courant_z[blw]
-        self._set_outbuf(div / cfg.dt)
 
-    def _precip_rate(self, of_ice):
-        """1st non-specific moment of (rw^3 | the ice mass) * vt of the
-        selected SDs, vt refreshed (particles_diag.ipp:561-607)."""
-        st = hskpng_vterm_all(self.cfg, self._tpr())
-        vals = ice.ice_mass(st.ice_a, st.ice_c, st.ice_rho) if of_ice \
-            else st.rw2 ** 1.5
-        vals = self._n_filtered * vals * st.vt
-        out = torch.zeros(self.cfg.n_cell, dtype=vals.dtype,
-                          device=vals.device)
-        return out.index_add_(0, st.ijk, vals)
+        def fn(cfg, st):
+            ijk = torch.arange(cfg.n_cell, device=st.th.device)
+            (lft, rgt), (fre, hnd), (blw, abv) = transport.courant_indices(
+                cfg, ijk)
+            div = torch.zeros(cfg.n_cell, dtype=st.th.dtype,
+                              device=st.th.device)
+            if cfg.n_dims >= 1:
+                div = div + st.courant_x[rgt] - st.courant_x[lft]
+            if cfg.n_dims == 3:
+                div = div + st.courant_y[hnd] - st.courant_y[fre]
+            if cfg.n_dims > 1:
+                div = div + st.courant_z[abv] - st.courant_z[blw]
+            return div / cfg.dt
+
+        self._set_outbuf(self._map(fn, self.state))
 
     def diag_precip_rate(self):
         """1st non-specific moment of rw^3 * vt of the selected SDs
         (reference particles_diag.ipp:561-588)."""
         self._check_selected()
-        self._set_outbuf(self._precip_rate(False))
+        self._set_outbuf(self._precip_rate_impl(False))
 
     # the ice and liquid selections and the ice moments (reference
     # particles_diag.ipp:276-607; libcloudphxx_tpu/lgrngn/particles.py:
@@ -739,70 +824,60 @@ class particles_t:
     def diag_ice(self):
         """Select the frozen SDs (particles_diag.ipp:276-283)."""
         self._require_ice()
-        self._n_filtered = torch.where(self.state.ice_a > 0, self.state.n,
-                                       0.0)
+        self._select(lambda st: st.ice_a > 0)
 
     def diag_water(self):
         """Select the liquid SDs (particles_diag.ipp:285-290)."""
         self._require_init()
-        self._n_filtered = torch.where(self.state.rw2 > 0, self.state.n,
-                                       0.0)
+        self._select(lambda st: st.rw2 > 0)
 
     def diag_ice_cons(self):
         self._require_ice()
-        self._cons(self.state.ice_a > 0)
+        self._cons(lambda st: st.ice_a > 0)
 
     def diag_water_cons(self):
         self._require_init()
-        self._cons(self.state.rw2 > 0)
+        self._cons(lambda st: st.rw2 > 0)
 
     def diag_ice_a_rng(self, a_min, a_max):
         self._require_ice()
-        a = self.state.ice_a
-        self._n_filtered = torch.where((a >= a_min) & (a < a_max),
-                                       self.state.n, 0.0)
+        self._select(lambda st: (st.ice_a >= a_min) & (st.ice_a < a_max))
 
     def diag_ice_c_rng(self, c_min, c_max):
         self._require_ice()
-        cc = self.state.ice_c
-        self._n_filtered = torch.where((cc >= c_min) & (cc < c_max),
-                                       self.state.n, 0.0)
+        self._select(lambda st: (st.ice_c >= c_min) & (st.ice_c < c_max))
 
     def diag_ice_a_rng_cons(self, a_min, a_max):
         self._require_ice()
-        a = self.state.ice_a
-        self._cons((a >= a_min) & (a < a_max))
+        self._cons(lambda st: (st.ice_a >= a_min) & (st.ice_a < a_max))
 
     def diag_ice_c_rng_cons(self, c_min, c_max):
         self._require_ice()
-        cc = self.state.ice_c
-        self._cons((cc >= c_min) & (cc < c_max))
+        self._cons(lambda st: (st.ice_c >= c_min) & (st.ice_c < c_max))
 
     def diag_ice_a_mom(self, n):
         self._require_ice()
         self._check_selected()
-        self._set_outbuf(self._moms(float(n), self.state.ice_a))
+        self._moms(float(n), lambda st: st.ice_a)
 
     def diag_ice_c_mom(self, n):
         self._require_ice()
         self._check_selected()
-        self._set_outbuf(self._moms(float(n), self.state.ice_c))
+        self._moms(float(n), lambda st: st.ice_c)
 
     def diag_ice_mix_ratio(self):
         """The selected SDs' specific ice mass per cell
         (particles_diag.ipp:443-454)."""
         self._require_ice()
         self._check_selected()
-        st = self.state
-        self._set_outbuf(self._moms(1.0, ice.ice_mass(st.ice_a, st.ice_c,
-                                                      st.ice_rho)))
+        self._moms(1.0, lambda st: ice_mass(st.ice_a, st.ice_c, st.ice_rho))
 
     def diag_precip_rate_ice_mass(self):
         """1st non-specific moment of the ice mass * vt of the selected SDs
         (particles_diag.ipp:590-607)."""
         self._require_ice()
         self._check_selected()
-        self._set_outbuf(self._precip_rate(True))
+        self._set_outbuf(self._precip_rate_impl(True))
 
     def diag_chem(self, species):
         """The selected SDs' specific mass of a dissolved species per cell
@@ -813,17 +888,16 @@ class particles_t:
             raise RuntimeError(
                 "libcloudphxx: all chemistry was switched off in opts_init")
         self._check_selected()
-        self._set_outbuf(self._moms(1.0, self.state.chem[int(species)]))
+        self._moms(1.0, lambda st: st.chem[int(species)])
 
     def diag_max_rw(self):
         """Largest wet radius per cell (reference particles_diag.ipp:
         609-643)."""
         self._require_init()
-        st = self.state
-        rw = torch.where(st.n > 0, torch.sqrt(torch.clamp(st.rw2, min=0.0)),
-                         0.0)
-        out = torch.zeros(self.cfg.n_cell, dtype=rw.dtype, device=rw.device)
-        self._set_outbuf(out.scatter_reduce_(0, st.ijk, rw, "amax"))
+        rw = self._map(lambda cfg, st: torch.where(
+            st.n > 0, torch.sqrt(torch.clamp(st.rw2, min=0.0)), 0.0),
+            self.state)
+        self._set_outbuf(self._segment_max_impl(rw))
 
     def diag_incloud_time_mom(self, n):
         """The selected SDs' moment of their in-cloud time (reference
@@ -833,23 +907,23 @@ class particles_t:
                 "libcloudphxx: diag_incloud_time_mom called, but "
                 "opts_init.diag_incloud_time == false")
         self._check_selected()
-        self._set_outbuf(self._moms(float(n), self.state.incloud_time))
+        self._moms(float(n), lambda st: st.incloud_time)
 
     def diag_up_mom(self, n):
         """The selected SDs' moment of their SGS x-velocity perturbation
         (reference particles.hpp:117)."""
         self._check_selected()
-        self._set_outbuf(self._moms(float(n), self.state.up))
+        self._moms(float(n), lambda st: st.up)
 
     def diag_vp_mom(self, n):
         """(reference particles.hpp:118; zero off the 3-D grid)"""
         self._check_selected()
-        self._set_outbuf(self._moms(float(n), self.state.vp))
+        self._moms(float(n), lambda st: st.vp)
 
     def diag_wp_mom(self, n):
         """(reference particles.hpp:119)"""
         self._check_selected()
-        self._set_outbuf(self._moms(float(n), self.state.wp))
+        self._moms(float(n), lambda st: st.wp)
 
     def diag_puddle(self):
         """(reference particles_impl_bcnd.ipp puddle accumulators)"""
@@ -867,30 +941,22 @@ class particles_t:
         as numpy; a position the grid lacks reads zero, as the JAX
         package's does."""
         self._require_init()
-        st = self.state
-        held = {"rd3": st.rd3, "rw2": st.rw2, "kpa": st.kpa,
-                "kappa": st.kpa, "n": st.n, "x": st.x, "y": st.y, "z": st.z,
-                "vt": st.vt, "incloud_time": st.incloud_time, "up": st.up,
-                "vp": st.vp, "wp": st.wp, "rd2_insol": st.rd2_insol,
-                "T_freeze": st.T_freeze, "ice_a": st.ice_a,
-                "ice_c": st.ice_c, "ice_rho": st.ice_rho}
         if name in ("ice_a", "ice_c", "ice_rho", "rd2_insol", "T_freeze") \
                 and not self.opts_init.ice_switch:
             raise RuntimeError(
                 "libcloudphxx: ice attribute requested with ice_switch off")
-        if name not in held:
+        if name not in ATTR_NAMES:
             raise ValueError(f"lgrngn: unknown attribute {name!r}")
-        return held[name].cpu().numpy()
+        field = "kpa" if name == "kappa" else name
+        return self._sd_to_host(self._map(lambda cfg, st: getattr(st, field),
+                                          self.state))
 
     # -------------------------------------------------- checkpoint/resume
     def save(self, path):
         """Full-state checkpoint: every State field, the random stream and
         the call-order machine, to one npz."""
         self._require_init()
-        st = self.state
-        leaves = {k: getattr(st, k).cpu().numpy() for k in TENSOR_FIELDS}
-        leaves["__rng__"] = np.array([st.rng_seed, st.rng_step],
-                                     dtype=np.int64)
+        leaves = self._state_arrays()
         leaves["__flags__"] = np.array([
             self._init_called, self._should_now_run_cond,
             self._should_now_run_async], dtype=bool)
@@ -901,28 +967,48 @@ class particles_t:
     def load(self, path):
         """Restore a checkpoint written by save() into this instance
         (opts_init must match the one used at save time)."""
-        cur = self.state
         with np.load(path) as d:
-            leaves = {}
-            for k in TENSOR_FIELDS:
-                ref = getattr(cur, k)
-                a = d[k]
-                if a.shape != tuple(ref.shape):
-                    raise ValueError(
-                        f"lgrngn load: shape mismatch for {k} ({a.shape} vs "
-                        f"{tuple(ref.shape)}): was the checkpoint written "
-                        "with other opts_init?")
-                leaves[k] = torch.as_tensor(a, dtype=ref.dtype,
-                                            device=ref.device)
-            seed, step = (int(v) for v in d["__rng__"])
-            flags = d["__flags__"]
-            ctrs = d["__counters__"]
-            self._sstp_coal_extra = int(ctrs[0])
-            self._src_ctr, self._rlx_ctr = (int(v) for v in ctrs[1:3])
-        self.state = State(**leaves, rng_seed=seed, rng_step=step)
+            arrays = dict(d)
+        self.state = self._put_state(arrays)
+        flags, ctrs = arrays["__flags__"], arrays["__counters__"]
+        self._sstp_coal_extra = int(ctrs[0])
+        self._src_ctr, self._rlx_ctr = (int(v) for v in ctrs[1:3])
         self._init_called = bool(flags[0])
         self._should_now_run_cond = bool(flags[1])
         self._should_now_run_async = bool(flags[2])
+
+
+# get_attr's names ("kappa" is kpa, the reference's spelling)
+ATTR_NAMES = ("rd3", "rw2", "kpa", "kappa", "n", "x", "y", "z", "vt",
+              "incloud_time", "up", "vp", "wp", "rd2_insol", "T_freeze",
+              "ice_a", "ice_c", "ice_rho")
+
+
+def state_arrays(st: State) -> dict:
+    """A State's tensors as numpy arrays, and its random stream (seed,
+    step, key word) as ``__rng__``: a checkpoint's leaves."""
+    leaves = {k: getattr(st, k).cpu().numpy() for k in TENSOR_FIELDS}
+    leaves["__rng__"] = np.array([st.rng_seed, st.rng_step, st.rng_key],
+                                 dtype=np.int64)
+    return leaves
+
+
+def state_from_arrays(arrays: dict, like: State) -> State:
+    """The inverse of state_arrays, each tensor of ``like``'s dtype and
+    device and checked against its shape; a checkpoint without a key word
+    (``__rng__`` of two) has the serial engine's, 0."""
+    leaves = {}
+    for k in TENSOR_FIELDS:
+        ref, a = getattr(like, k), arrays[k]
+        if a.shape != tuple(ref.shape):
+            raise ValueError(
+                f"lgrngn load: shape mismatch for {k} ({a.shape} vs "
+                f"{tuple(ref.shape)}): was the checkpoint written with "
+                "other opts_init?")
+        leaves[k] = torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
+    seed, step, *key = (int(v) for v in arrays["__rng__"])
+    return State(**leaves, rng_seed=seed, rng_step=step,
+                 rng_key=key[0] if key else 0)
 
 
 def factory(backend: backend_t, opts_init: opts_init_t, *, device="cuda",
@@ -936,17 +1022,22 @@ def factory(backend: backend_t, opts_init: opts_init_t, *, device="cuda",
     otherwise (on the CPU always); "dense" asks for the dense front (it
     raises for a configuration it does not run) and "flat" for
     particles_t.  The keyword takes the place of the JAX package's
-    LIBCLOUD_ENGINE: the port reads no environment variables.  The
-    multi-device front-end is not ported."""
+    LIBCLOUD_ENGINE: the port reads no environment variables.
+    ``opts_init.dev_count`` > 1, or multi_CUDA where more than one card is
+    visible, gives the multi-device front (parallel/multi.
+    particles_multi_t) of dev_count shards (every visible card where it
+    is 0) on ``device``, one device or a list, whatever ``engine`` says:
+    it runs the flat engine on each shard, as the JAX package's does."""
     if engine not in ("auto", "dense", "flat"):
         raise ValueError(f"factory: engine must be 'auto', 'dense' or "
                          f"'flat', got {engine!r}")
-    if int(opts_init.dev_count) > 1 or (
-            backend == backend_t.multi_CUDA and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "factory: the multi-device front-end is not ported (ROADMAP.md, "
-            "Queue 1, \"Multi-device: the flat front\"); the dense engine "
-            "runs on an x-slab mesh through libcloudphxx_tpu_torch.parallel")
+    dev_count = int(opts_init.dev_count)
+    if dev_count > 1 or (backend == backend_t.multi_CUDA
+                         and torch.cuda.device_count() > 1):
+        from ..parallel.multi import particles_multi_t
+        return particles_multi_t(backend, opts_init,
+                                 n_devices=dev_count or None, device=device,
+                                 dtype=dtype)
     from . import dense
     from .dense_front import dense_capable, particles_dense_t
     cfg = StaticConfig.from_opts_init(opts_init)

@@ -194,9 +194,12 @@ class State:
     ambient_chem: torch.Tensor = dataclasses.field(default_factory=_empty)
     sstp_tmp_chem: torch.Tensor = dataclasses.field(default_factory=_empty)
     # the coalescence draws: Philox key (opts_init.rng_seed) and the step
-    # counter, advanced by every coalescence call
+    # counter, advanced by every coalescence call; the key's second word,
+    # 0 on the serial engine and a shard's own on the multi-device front
+    # (ops/philox.shard_key)
     rng_seed: int = 44
     rng_step: int = 0
+    rng_key: int = 0
 
     @property
     def n_sd_max(self):
@@ -209,7 +212,7 @@ class State:
 
 # the State's tensor fields, in declaration order
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(State)
-                      if f.name not in ("rng_seed", "rng_step"))
+                      if f.name not in ("rng_seed", "rng_step", "rng_key"))
 
 
 def empty_state(cfg: StaticConfig, dtype, device, rng_seed=44) -> State:
@@ -255,6 +258,9 @@ OUT_PRTCL_NUM = PUDDLE_KEYS.index("particle_number")
 OUT_ICE_MASS = PUDDLE_KEYS.index("ice_mass")
 OUT_LIQ_NUM = PUDDLE_KEYS.index("liquid_number")
 OUT_ICE_NUM = PUDDLE_KEYS.index("ice_number")
+# the SDs a shard of the multi-device front could not send for want of
+# room in the migration buffer (parallel/decomp.migrate)
+OUT_MIGRATION_OVERFLOW = len(PUDDLE_KEYS)
 # sticky flag: a coalescence pair asked for more than one collision in a
 # substep (the reference's increase_sstp_coal request)
 OUT_COAL_OVERFLOW = len(PUDDLE_KEYS) + 1

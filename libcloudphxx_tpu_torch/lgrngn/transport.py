@@ -131,22 +131,25 @@ def subs(cfg: StaticConfig, state: State, w_LS, dt) -> State:
                                z=state.z - dt * w_LS[state.ijk % cfg.nz])
 
 
-def bcnd(cfg: StaticConfig, state: State) -> State:
+def bcnd(cfg: StaticConfig, state: State, x_walls=True) -> State:
     """The walls and the puddle (reference bcnd.ipp:214-365): periodic or
     open side walls (x, and y on the 3-D grid); on the 2-D and 3-D grids
     periodic top and bottom, or droplets above the top removed and those
     below the bottom added to the puddle (with ice_switch the frozen ones'
     mass and number too, with chem_switch their dissolved masses) and
-    removed.  None in a parcel."""
+    removed.  None in a parcel.  ``x_walls`` False leaves x to a shard's
+    ring migration (libcloudphxx_tpu/parallel/decomp.py:335-379)."""
     if cfg.n_dims == 0:
         return state
     x, y, z, n = state.x, state.y, state.z, state.n
     if not cfg.open_side_walls:
-        x = _wrap(x, cfg.x0, cfg.x1)
+        if x_walls:
+            x = _wrap(x, cfg.x0, cfg.x1)
         if cfg.n_dims == 3:
             y = _wrap(y, cfg.y0, cfg.y1)
     else:
-        n = torch.where((x >= cfg.x1) | (x < cfg.x0), 0.0, n)
+        if x_walls:
+            n = torch.where((x >= cfg.x1) | (x < cfg.x0), 0.0, n)
         if cfg.n_dims == 3:
             n = torch.where((y >= cfg.y1) | (y < cfg.y0), 0.0, n)
     puddle = state.puddle

@@ -59,7 +59,8 @@ def hskpng_turb_vel(cfg: StaticConfig, state: State, sgs_mix_len, dt,
     upd = {}
     for name in turb_vel_names(only_vertical, cfg.n_dims):
         r = philox.normal(state.rng_seed, state.rng_step, AXES[name],
-                          cfg.n_sd_max, state.rw2.dtype, state.rw2.device)
+                          cfg.n_sd_max, state.rw2.dtype, state.rw2.device,
+                          key1=state.rng_key)
         upd[name] = ga17.update_turb_vel(getattr(state, name), tau_sd, dt,
                                          tke_sd, r)
     return dataclasses.replace(state, rng_step=state.rng_step + 1, **upd)

@@ -425,7 +425,7 @@ class Kinematic2D(nn.Module):
         self.th = th.reshape(self.nx, self.nz)
         self.rv = rv.reshape(self.nx, self.nz)
         if gases is not None:
-            amb = self.prtcls.state.ambient_chem
+            amb = self.prtcls._cells("ambient_chem")
             for sp in gases:
                 gases[sp] = amb[int(sp)].reshape(self.nx, self.nz)
         self.prtcls.step_async(opts, plain=plain)
@@ -710,6 +710,14 @@ class Kinematic2D(nn.Module):
             raise NotImplementedError(
                 "relax_th_rv is only supported in the stepwise run() path")
         p = self.prtcls
+        if isinstance(p.state, list):
+            # the JAX package's run_device_lgrngn steps the multi-device
+            # front's sharded state with the global config, which does not
+            # reproduce its serial run (ROADMAP.md, "Known behaviours of
+            # the reference")
+            raise NotImplementedError(
+                "run_device_lgrngn: the multi-device front (dev_count > 1) "
+                "steps through run()")
         if engine == "dense":
             d = self._run_dense(self.dense_state, nt, spinup, repack_every,
                                 repack_margin, chunk_log, plain)

@@ -11,8 +11,12 @@ BERNOULLI, the collision draw, or NORMAL, a turbulent velocity's draw,
 whose "substep" is the velocity's axis).  Of the four output words the
 first is used, and for NORMAL the first two (Box-Muller); FREEZE is the
 time-dependent freezing's uniform (lgrngn/ice.py freeze_u01, in place of
-the JAX package's jax.random draw, lgrngn/ice.py:49-52).  There is no
-global generator: the same arguments give the same bits on the CPU, on
+the JAX package's jax.random draw, lgrngn/ice.py:49-52).  The flat
+engine's draws take the key's second word from the state (``rng_key``): 0
+on the serial engine, ``shard_key(s)`` on shard s of the multi-device
+front (in place of the JAX package's jax.random.fold_in(key, s),
+parallel/multi.py:268-271), so that no two shards, and no shard and the
+serial engine, share a stream.  There is no global generator: the same arguments give the same bits on the CPU, on
 the card in plain PyTorch, and in kernel E (csrc/philox.cuh, the same
 rounds in uint32 arithmetic).
 
@@ -33,6 +37,13 @@ M0, M1 = 0xD2511F53, 0xCD9E8D57      # round multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85      # key increments (golden ratio, sqrt 3)
 MASK = 0xFFFFFFFF
 ROUNDS = 10
+
+
+def shard_key(s):
+    """The second key word of shard ``s``'s flat draws: 2**32 - 1 - s, a
+    word that neither the serial flat engine (0) nor a dense row (at most
+    n_cell - 1) takes."""
+    return MASK - int(s)
 
 
 def _mulhilo(m, a):
@@ -72,15 +83,15 @@ def draw(seed, step, substep, kind, n_rows, cap, device="cpu", row0=0):
     return philox4x32(ctr, (int(seed) & MASK, rows))[0]
 
 
-def draw_substeps(seed, step, n_substeps, kind, n, device="cpu"):
+def draw_substeps(seed, step, n_substeps, kind, n, device="cpu", key1=0):
     """(n_substeps, n) int64 tensor of 32-bit random words for a flat
-    population: substep s, slot l holds word 0 of Philox(key=(seed, 0),
-    ctr=(step, s, kind, l)), what draw(seed, step, s, kind, 1, n)[0]
-    gives."""
+    population: substep s, slot l holds word 0 of Philox(key=(seed, key1),
+    ctr=(step, s, kind, l)), what draw(seed, step, s, kind, 1, n,
+    row0=key1)[0] gives."""
     subs = torch.arange(n_substeps, dtype=torch.int64, device=device)[:, None]
     slots = torch.arange(n, dtype=torch.int64, device=device)[None, :]
     ctr = (int(step) & MASK, subs, int(kind) & MASK, slots)
-    return philox4x32(ctr, (int(seed) & MASK, 0))[0]
+    return philox4x32(ctr, (int(seed) & MASK, int(key1) & MASK))[0]
 
 
 def u01(bits, dtype):
@@ -90,14 +101,14 @@ def u01(bits, dtype):
     return (bits >> 9).to(dtype) * 2.0 ** -23
 
 
-def normal(seed, step, axis, n, dtype, device="cpu"):
+def normal(seed, step, axis, n, dtype, device="cpu", key1=0):
     """(n,) standard normal numbers of ``dtype`` for slots 0 .. n-1: slot l
-    takes words 0 and 1 of Philox(key=(seed, 0), ctr=(step, axis, NORMAL,
-    l)) as u1 = (w0 + 1) 2**-32 in (0, 1] and u2 = w1 2**-32 in [0, 1),
+    takes words 0 and 1 of Philox(key=(seed, key1), ctr=(step, axis,
+    NORMAL, l)) as u1 = (w0 + 1) 2**-32 in (0, 1] and u2 = w1 2**-32 in [0, 1),
     and Box-Muller's sqrt(-2 ln u1) cos(2 pi u2), in float64."""
     slots = torch.arange(n, dtype=torch.int64, device=device)
     ctr = (int(step) & MASK, int(axis) & MASK, NORMAL, slots)
-    w0, w1, _, _ = philox4x32(ctr, (int(seed) & MASK, 0))
+    w0, w1, _, _ = philox4x32(ctr, (int(seed) & MASK, int(key1) & MASK))
     u1 = (w0.to(torch.float64) + 1.0) * 2.0 ** -32
     u2 = w1.to(torch.float64) * 2.0 ** -32
     z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)

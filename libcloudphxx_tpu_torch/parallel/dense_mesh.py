@@ -45,16 +45,10 @@ from ..lgrngn.enums import as_t, kernel_t
 from ..lgrngn.hskpng import ijk_of_xyz
 from ..models import mpdata
 from ..ops.step import column_of, level_of, wrap_x
-from .decomp import local_config, make_mesh, shard_domains
+from .decomp import (local_config, make_mesh, on_device, pad_cell_field,
+                     shard_domains, unpad_cell_field)
 
 _CELLS = ("rhod", "p", "T", "RH", "eta", "dv", "sstp_tmp_th", "sstp_tmp_rv")
-
-
-def _on(device):
-    """The context that makes ``device`` current where it is a card."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 def _nx_pad(doms):
@@ -72,23 +66,6 @@ def _edge_rows(mat, nz, nxl, n_edge, dim=0):
         return lo
     hi = mat.narrow(dim, start, min(n_edge * nz, mat.shape[dim] - start))
     return torch.cat([lo, hi], dim)
-
-
-def pad_cell_field(cfg, arr, doms):
-    """A global (n_cell,) cell field -> a padded slab a shard, on the
-    shard's device; padded columns copy the slab's last live column."""
-    g = arr.reshape(cfg.nx, cfg.nz)
-    cols = torch.arange(_nx_pad(doms), device=arr.device)
-    return [g[torch.clamp(cols + dom.col0, max=dom.col0 + dom.nxl - 1)]
-            .reshape(-1).to(dom.device) for dom in doms]
-
-
-def unpad_cell_field(cfg, fields, doms):
-    """The inverse of pad_cell_field: a global (n_cell,) field on the first
-    shard's device."""
-    dev = fields[0].device
-    return torch.cat([f.reshape(-1, cfg.nz)[:dom.nxl].to(dev)
-                      for f, dom in zip(fields, doms)]).reshape(-1)
 
 
 def scatter_dense(cfg, d: DenseState, doms):
@@ -255,7 +232,7 @@ def rebin_sharded(cfg, shards, doms, tgts, fars, buf, *, plain=False):
     n_edge = min(2, nx_pad // 2) or 1
     out, pay_l, pay_r, sent = [], [], [], []
     for d, dom, tgt in zip(shards, doms, tgts):
-        with _on(dom.device):
+        with on_device(dom.device):
             n, x = d.n, d.x
             mover = (n > 0) & (tgt < 0)
             out_lo, out_hi = x < cfg.x0, x >= cfg.x1
@@ -298,7 +275,7 @@ def rebin_sharded(cfg, shards, doms, tgts, fars, buf, *, plain=False):
         (torch.stack([f.to(dev0) for f in fars]) > 0).tolist()
     for s, (dom, fix) in enumerate(zip(doms, repair)):
         d = out[s]
-        with _on(dom.device):
+        with on_device(dom.device):
             if fix:
                 d = dense._rebin_global(cfg_l, d, _local_rows(cfg, d, dom))
             left, right = (s - 1) % n_shards, (s + 1) % n_shards
@@ -356,7 +333,7 @@ def dense_step_sharded(cfg, doms, sstp_coal: int, buf: int, do_coal: bool,
     def step(shards, th, rv, params, dt):
         res = []
         for d, th_s, rv_s, dom in zip(shards, th, rv, doms):
-            with _on(dom.device):
+            with on_device(dom.device):
                 res.append(dense.step_fused_shard(
                     cfg, d, th_s, rv_s, params, dt, RH_max, sstp_coal,
                     do_coal, do_sedi, (dom.col0, dom.nxl),

@@ -79,7 +79,11 @@ and its onishi form (onishi_hall and onishi_hall_davis_no_waals on each
 side of Wang's 2.5e-2, with and without the y plane) at row capacity 2
 to 512; each bitwise equal to its plain version; and the dense front on
 the 3-D grid at 6x6x6 (the factory's pick on the card) and with the
-onishi kernel at 8x8 equals its plain path bitwise.
+onishi kernel at 8x8 equals its plain path bitwise.  The flat engine's
+multi-device front (3 and 8 shards of a 19x10 grid on the card) matches
+the serial flat engine away from the cells where slab-local x rounds an
+SD across a face, and F and G's fixed-count form on a shard's padded
+slab match their plain versions.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -2132,3 +2136,127 @@ def test_onishi_run_matches_plain(dev):
     from libcloudphxx_tpu_torch.lgrngn.state import OUT_PRTCL_NUM
     d = mk.dense_state
     assert n0 - float(d.n.sum()) - float(d.puddle[OUT_PRTCL_NUM]) > 0.0
+
+
+# ---------------------------------------- the multi-device front (flat)
+def _near_face(prt, ulps=4):
+    """The (nx, nz) cells beside a face that an SD of ``prt`` lies within
+    ``ulps`` float32 ulps of the domain's size of: slab-local x rounds
+    otherwise than the serial engine's global x there."""
+    cfg = prt.cfg
+    n = prt.get_attr("n")
+    out = np.zeros((cfg.nx, cfg.nz), bool)
+    x, z = (prt.get_attr(k).astype(np.float64)[n > 0] for k in ("x", "z"))
+    eps = float(np.finfo(np.float32).eps) * ulps
+    for pos, d, m, other, od, om, axis in (
+            (x, cfg.dx, cfg.nx, z, cfg.dz, cfg.nz, 0),
+            (z, cfg.dz, cfg.nz, x, cfg.dx, cfg.nx, 1)):
+        r = pos / d
+        face = np.rint(r).astype(int)
+        near = np.abs(r - face) * d <= eps * m * d
+        o = np.clip(np.floor(other / od).astype(int), 0, om - 1)[near]
+        for side in (face[near] - 1, face[near]):
+            side = side % m if axis == 0 else np.clip(side, 0, m - 1)
+            if axis == 0:
+                out[side, o] = True
+            else:
+                out[o, side] = True
+    return out
+
+
+@pytest.mark.parametrize("shards", [3, 8])
+def test_multi_front_matches_serial_on_the_card(dev, shards):
+    """The flat multi-device front (slabs of 19 columns over 3 or 8
+    shards) against the serial flat engine from the same init, 4 steps
+    without coalescence through run(): F once a shard a step and A twice a
+    step; th and rv within F's cell-sum gates, the SD count and wet
+    moment 3 a cell alike away from the cells beside an SD that lay
+    within an ulp of a face after a step (slab-local x rounds
+    otherwise)."""
+    kw = dict(nx=19, nz=10, sd_conc=24, sstp_cond=3, sstp_coal=2,
+              device=dev)
+    serial = Kinematic2D(opts_init_kw={"coal_switch": False},
+                         engine="flat", **kw)
+    multi = Kinematic2D(opts_init_kw={"coal_switch": False,
+                                      "dev_count": shards}, **kw)
+    assert type(multi.prtcls).__name__ == "particles_multi_t"
+    near = np.zeros((19, 10), bool)
+    got = {}
+    for _ in range(4):
+        # an SD near a face after a step may condense in either cell
+        near |= _near_face(multi.prtcls) | _near_face(serial.prtcls)
+        for k in _ext.KERNELS:
+            k.launches = 0
+        multi.run(1)
+        torch.cuda.synchronize()
+        for k in _ext.KERNELS:
+            if k.launches:
+                got[k.name] = got.get(k.name, 0) + k.launches
+        serial.run(1)
+    assert got == {"mpdata": 8, "cond_flat": 4 * shards}
+    assert multi.prtcls.migration_overflow() == 0
+    near |= _near_face(multi.prtcls) | _near_face(serial.prtcls)
+    far = torch.as_tensor(~near, device=dev)
+    assert _rel(multi.th[far], serial.th[far]) <= 2e-6
+    assert _rel(multi.rv[far], serial.rv[far]) <= 2e-5
+    counts = [m.diag_lgrngn("sd_conc") for m in (multi, serial)]
+    np.testing.assert_array_equal(counts[0][~near], counts[1][~near])
+    m3 = []
+    for m in (multi, serial):
+        m.prtcls.diag_all()
+        m.prtcls.diag_wet_mom(3)
+        m3.append(m.prtcls.outbuf().reshape(19, 10))
+    ok = ~near & (m3[1] > 0)
+    np.testing.assert_allclose(m3[0][ok], m3[1][ok], rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["percell", "exact", "exact_no_mixing"])
+def test_multi_shard_forms_match_plain(dev, variant):
+    """F (per cell) and G's fixed-count form (exact, with and without
+    in-cell mixing) on what a step of the 8-shard front gives the last
+    shard (2 live columns of the 3 its slab is padded to) against their
+    plain versions: F within its cell-sum gates and bitwise in the padded
+    cells, where no SD lives; G bitwise without mixing, within B's rw2
+    gate with it."""
+    import inspect
+    oi = {"coal_switch": False, "dev_count": 8}
+    fname = "cond_flat"
+    if variant != "percell":
+        fname = "perparticle_fixed"
+        oi.update(exact_sstp_cond=True,
+                  sstp_cond_mix=variant == "exact")
+    m = Kinematic2D(nx=19, nz=10, sd_conc=24, sstp_cond=3, opts_init_kw=oi,
+                    device=dev)
+    real, seen = getattr(cond_ops, fname), []
+
+    def spy(*a, **k):
+        seen.append(inspect.signature(real).bind(*a, **k).arguments)
+        return real(*a, **k)
+
+    setattr(cond_ops, fname, spy)
+    try:
+        m.run(1)
+    finally:
+        setattr(cond_ops, fname, real)
+    assert len(seen) == 8
+    kw = dict(seen[-1])
+    kw.pop("plain", None)
+    k, pl = real(**kw), real(**kw, plain=True)
+    if fname == "cond_flat":
+        live = kw["wgt"] > 0
+        assert _rel(k[0][live], pl[0][live]) <= 1e-5
+        assert _rel(k[1], pl[1]) <= 2e-6 and _rel(k[2], pl[2]) <= 2e-5
+        pad = torch.arange(kw["th"].numel(), device=dev) \
+            >= m.prtcls.doms[-1].nxl * 10
+        assert int(pad.sum()) == 10
+        assert not bool(live[pad[kw["sijk"]]].any())
+        assert torch.equal(k[1][pad], pl[1][pad])
+        assert torch.equal(k[2][pad], pl[2][pad])
+    else:
+        live = kw["sd"][0] > 0
+        if variant == "exact":
+            assert _rel(k[0][live], pl[0][live]) <= 1e-5
+        else:
+            assert torch.equal(k[0], pl[0])
+            for a, b in zip(k[1:], pl[1:]):
+                assert torch.equal(a[live], b[live])

@@ -359,10 +359,13 @@ def test_unported_paths_raise(what, port):
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu", engine="dense",
                         opts_init_kw={"diag_incloud_time": True})
         elif what == "multi_device":
-            # one device only (ROADMAP.md, Queue 1, "Multi-device
-            # (parallel/)"); the repack policy runs (test_torch_repack.py)
+            # the multi-device front steps through run()
+            # (tests/test_torch_multi.py), not through run_device_lgrngn,
+            # which JAX's cannot step it with either (ROADMAP.md, "Known
+            # behaviours of the reference"); the repack policy runs
+            # (test_torch_repack.py)
             Kinematic2D(nx=4, nz=4, sd_conc=2, device="cpu",
-                        opts_init_kw={"dev_count": 2})
+                        opts_init_kw={"dev_count": 2}).run_device_lgrngn(1)
         else:
             # the bulk schemes run (test_torch_kinematic_blk.py), and
             # lgrngn_chem in the stepwise loop (test_torch_chem.py), not

@@ -368,17 +368,24 @@ def test_dense_run_writes_the_population_back():
 
 def test_defaults_and_refusals(monkeypatch):
     """The entry points run on the card unless asked for the CPU (and
-    raise without one); the unported paths raise NotImplementedError."""
+    raise without one); dev_count > 1 gives the multi-device front, whose
+    constructor refuses what JAX's does."""
+    from libcloudphxx_tpu_torch.parallel import particles_multi_t
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Kinematic2D(nx=4, nz=4, sd_conc=2)
     oi = Kinematic2D(nx=4, nz=4, sd_conc=2, **F64).opts_init
     with pytest.raises(RuntimeError, match="device='cpu'"):
         factory(tl.backend_t.CUDA, oi)
-    for over, match in (({"dev_count": 2}, "Multi-device"),):
-        o = _copy(oi, **over)
-        with pytest.raises(NotImplementedError, match=match):
-            factory(tl.backend_t.CUDA, o, **F64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        factory(tl.backend_t.multi_CUDA, _copy(oi, dev_count=2))
+    multi = factory(tl.backend_t.multi_CUDA, _copy(oi, dev_count=2), **F64)
+    assert type(multi) is particles_multi_t and multi.n_shards == 2
+    assert {d.device.type for d in multi.doms} == {"cpu"}
+    with pytest.raises(ValueError, match="at least 2 devices"):
+        particles_multi_t(tl.backend_t.multi_CUDA, oi, n_devices=1, **F64)
+    with pytest.raises(ValueError, match="nx smaller than the mesh"):
+        factory(tl.backend_t.CUDA, _copy(oi, dev_count=5), **F64)
     # the LES slice runs (tests/test_torch_les.py, test_torch_source.py),
     # and so do ice and chemistry (test_torch_ice.py, test_torch_chem.py)
     for over in ({"turb_cond_switch": True}, {"diag_incloud_time": True},
