@@ -268,6 +268,28 @@ checks them:
      pred_corr (the halo-2 courant exchange) and the exact mode (G's
      fixed-count form a shard) on 8 shards, 3 coalescing steps each with
      the physics checks, G bitwise against its plain version on a shard
+ 24. both multi-device fronts as one program in two processes
+     (parallel/twoproc.py's "gmd" case: two fresh interpreters in one gloo
+     group, 4 shards each, both on the one card, the ring's messages
+     staged through the host): (a) the flat front at bench.py's case (the
+     model's 739,328 slots over 8 shards), TWOPROC_STEPS steps of sync_in
+     + step_cond + step_async with coalescence, F once a shard a step on
+     each rank; (b) the dense mesh on the same population packed at row
+     capacity 128, TWOPROC_STEPS steps (B, E, C's unwrapped form and D
+     once a shard a step on each rank).  Every shard's tensors, th and rv
+     among them, bitwise equal to the same functions run in this process
+     on all 8 shards; the totals, the SDs crossed and no overflow alike;
+     ms/step of each (rank 0, between barriers) beside the one-process
+     run's
+ 25. the icicle CLI (models/cli.py, ``--micro=lgrngn``) at 76x76 and
+     sd_conc 64 on the card: CLI_NT steps (CLI_SPINUP of spin-up), output
+     every CLI_OUTFREQ: const, the snapshots and puddle.dat written, every
+     dataset finite and (76, 76), the kernels it launched counted (A
+     twice a step, B, C and D once, E once a coalescing step), its
+     ms/step beside Kinematic2D.run()'s at the same settings
+
+Every phase prints its seconds (``phase N: s``), and the script the
+seconds of phases 3-25 beside the build's.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
@@ -546,6 +568,13 @@ ONISHI_TIME_STEPS = 20
 MULTI_SHARDS, MULTI_STEPS, MULTI_GATE_STEPS, MULTI_FORM_STEPS = 8, 10, 5, 3
 MULTI_NEAR_ULPS, MULTI_NEAR_CELLS = 4, 950
 MULTI_MOM_GATE = {0: 2.5e-6, 3: 2.5e-6}
+# phase 24: the case of parallel/twoproc.py (bench.py's), the steps of
+# each front in two processes and in one, the ranks' time limit, the
+# kernels the mesh launches once a shard a step; phase 25: the CLI's
+# steps, spin-up steps and output interval
+TWOPROC_CASE, TWOPROC_STEPS, TWOPROC_TIMEOUT = "gmd", 5, 300.0
+TWOPROC_DENSE = ("cond", "coal", "transport_unwrapped", "merge")
+CLI_NT, CLI_SPINUP, CLI_OUTFREQ = 30, 10, 10
 # kernel C's 3-D forms a live SD beside OPS_TRANSPORT: y's advection, wall
 # and classification; kernel E's onishi form a pair beside the table
 # lookup: Wang's enhancement (onishi.cuh wang_enhancement) and the square
@@ -1023,12 +1052,20 @@ def smoke(opts):
           f"{torch.version.cuda})", flush=True)
 
     # ---- 2. build
-    path, secs, log = _ext.build(verbose=True)
-    print(f"build: {secs:.1f} s -> {path.name}", flush=True)
+    path, build_s, log = _ext.build(verbose=True)
+    print(f"build: {build_s:.1f} s -> {path.name}", flush=True)
     for line in log.splitlines():
         if "Used" in line or "Compiling entry" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     _ext.load()
+    t_start = time.perf_counter()
+    clock = [t_start]
+
+    def phase_done(label):
+        """Print the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        print(f"phase {label}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
 
     # ---- 3. kernels against plain versions
     t0 = time.perf_counter()
@@ -1245,6 +1282,8 @@ def smoke(opts):
         check(rmsd < 3.5e-5 and water < 5e-5 and frac < 0.6,
               f"Golovin gate failed in {form} mode")
 
+    phase_done(3)
+
     # ---- 4. the slice without coalescence
     water0, dry0 = dense.water_dry_totals(d0, rv0)
     reset(_ext.KERNELS)
@@ -1257,6 +1296,8 @@ def smoke(opts):
           f"{dd:.2e}; launches {launches}", flush=True)
     check(all(launches[k.name] > 0 for k in _ext.KERNELS[:4]),
           f"a kernel of the path was not launched: {launches}")
+
+    phase_done(4)
 
     # ---- 5. the slice with coalescence: the main path
     model_c.dense_state, model_c.th, model_c.rv = dc0, thc0, rvc0
@@ -1285,6 +1326,8 @@ def smoke(opts):
     check(lost > 0.0, "no collision in the main steps")
     main_launches = launches
 
+    phase_done(5)
+
     # ---- 6. the standalone coalescence path (dense.coal)
     reset(_ext.KERNELS)
     d = d_end
@@ -1300,6 +1343,8 @@ def smoke(opts):
     check(standalone == STANDALONE_CALLS and water_rel < 1e-5
           and float(d.n.sum()) <= float(d_end.n.sum()),
           "standalone coalescence path failed")
+
+    phase_done(6)
 
     # ---- 7. the flat engine through the public API
     from libcloudphxx_tpu_torch.ops import cond as cond_ops
@@ -1406,8 +1451,12 @@ def smoke(opts):
     check(rel_th <= 1e-4 and rel_rv <= 1e-3,
           "flat: the kernel path drifted from the plain path")
 
+    phase_done(7)
+
     # ---- 8. the exact per-particle slice through the public API
     exact = exact_slice(Kinematic2D, _ext, c, err)
+
+    phase_done(8)
 
     # ---- 9. the dense front through the public API
     from libcloudphxx_tpu_torch.lgrngn import backend_t, factory
@@ -1453,6 +1502,8 @@ def smoke(opts):
     dw, dd = flat_physics_checks(model_d, dw0, dd0, c)
     print(f"dense front, physics through get_attr/diag_puddle: water rel err "
           f"{dw:.2e}, dry rel err {dd:.2e}", flush=True)
+
+    phase_done(9)
 
     # ---- 10. timing: from-init reps through the kernels and the plain path
     def run_reps(m, init, steps, plain):
@@ -1625,11 +1676,17 @@ def smoke(opts):
     check(rel[0] <= 2e-6 and rel[1] <= 2e-5 and rel[2] <= 1e-5,
           "cond kernel disagrees with its plain version in a main step")
 
+    phase_done(10)
+
     # ---- 11. the sustained run: SUSTAINED_r05.json's shape on the card
     sustained(Kinematic2D, dense, _ext, card, dense_ms["coalescence on"])
 
+    phase_done(11)
+
     # ---- 12. the repack policy forced to retarget at full width
     forced_retargets(Kinematic2D, dense, _ext, card)
+
+    phase_done(12)
 
     # ---- 13. the terminal velocity formulas off the main path
     vt_rows = formulas(Kinematic2D, dense, _ext, c, card, err)
@@ -1637,6 +1694,8 @@ def smoke(opts):
         f"{k} {v['ms']:.3f} ms/step" for k, v in vt_rows.items())
         + f"; the flat public API (beard77fast) {flat_ms:.3f} ({card})",
         flush=True)
+
+    phase_done(13)
 
     # ---- 14. the dense x-slab mesh
     row, shard_err = mesh_phase(Kinematic2D, dense, _ext, step, card,
@@ -1649,10 +1708,14 @@ def smoke(opts):
     rows.append(row)
     model_c.dense_state, model_c.th, model_c.rv = dc0, thc0, rvc0
 
+    phase_done(14)
+
     # ---- 15. exact and adaptive condensation on the dense engine
     dx_rows, dx = dense_exact(Kinematic2D, dense, _ext, step, card, exact_ms,
                               dense_ms["coalescence on"])
     rows += dx_rows
+
+    phase_done(15)
 
     # ---- 16. the bulk schemes (kernel A's FCT form on 4 and 6 fields)
     blk = bulk_phase(Kinematic2D, mpdata, _ext, card, opts.profile)
@@ -1663,25 +1726,23 @@ def smoke(opts):
             kr["blk"] = {micro: {k: v[k] for k in (
                 "launches", "ms", "in_step_ms", "plain_ms", "bound_ms",
                 "bound_by")} for micro, v in blk.items()}
+    phase_done(16)
 
     # ---- 17. const-multi, vohl with pred_corr, the reference init
-    t17 = time.perf_counter()
     opt_rows, opt_err = dense_options(Kinematic2D, dense, _ext, step, coal,
                                       card)
     for kr in rows:                 # E and C on phase 17's populations too
         kr["max_abs_err"] = max(kr["max_abs_err"],
                                 opt_err.get(kr["name"], 0.0))
     rows += opt_rows
-    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+    phase_done(17)
 
     # ---- 18. the LES slice: SGS turbulence, sources, relaxation
-    t18 = time.perf_counter()
     les_rows, les = les_phase(Kinematic2D, _ext, c, card, opts.profile)
     rows += les_rows
-    print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
+    phase_done(18)
 
     # ---- 19. the parcel, 1-D and 3-D grids on the flat engine
-    t19 = time.perf_counter()
     grid_rows, grid, err_3d = grid_phase(Kinematic2D, _ext, c, card,
                                          opts.profile)
     for kr in rows:                 # F on the 3-D shape too
@@ -1692,31 +1753,27 @@ def smoke(opts):
                 "cond_flat_bound_ms", "cond_flat_bound_by", "ms_per_step",
                 "sd_updates_per_s")}
     rows += grid_rows
-    print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
+    phase_done(19)
 
     # ---- 20. ice: freezing, melting, deposition (F's ice forms)
-    t20 = time.perf_counter()
     ice_rows, ice = ice_phase(Kinematic2D, _ext, c, card, opts.profile)
     rows += ice_rows
-    print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
+    phase_done(20)
 
     # ---- 21. aqueous chemistry: Kinematic2D(micro="lgrngn_chem")
-    t21 = time.perf_counter()
     chem = chem_phase(Kinematic2D, _ext, card, opts.profile)
-    print(f"phase 21: {time.perf_counter() - t21:.1f} s", flush=True)
+    phase_done(21)
 
     # ---- 22. the dense engine on the 3-D grid and with the onishi kernels
-    t22 = time.perf_counter()
     d3_rows, d3, _ = dense3d_phase(Kinematic2D, _ext, dense, c, card,
                                         opts.profile)
     rows += d3_rows
     print(f"timing, 3-D: dense front {d3['3-D']['ms_per_step']:.3f} "
           f"ms/step against the flat engine's "
           f"{grid['3-D']['ms_per_step']:.3f} (phase 19 (a)) ({card})")
-    print(f"phase 22: {time.perf_counter() - t22:.1f} s", flush=True)
+    phase_done(22)
 
     # ---- 23. the flat engine's multi-device front on 8 shards
-    t23 = time.perf_counter()
     multi = multi_phase(Kinematic2D, _ext, c, card, opts.profile)
     for kr in rows:                 # A, F and G on the shards too
         part = multi.get(kr["name"])
@@ -1724,7 +1781,24 @@ def smoke(opts):
             kr["max_abs_err"] = max(kr["max_abs_err"], part["max_abs_err"])
             kr["multi"] = {k: v for k, v in part.items()
                            if k != "max_abs_err"}
-    print(f"phase 23: {time.perf_counter() - t23:.1f} s", flush=True)
+    phase_done(23)
+
+    # ---- 24. both fronts in two processes (gloo) on the one card
+    two = twoproc_phase(_ext, card)
+    for kr in rows:
+        part = two.get(kr["name"])
+        if part is not None:
+            kr["twoproc"] = part
+    phase_done(24)
+
+    # ---- 25. the icicle CLI (models/cli.py) at 76x76
+    cli_launches = cli_phase(Kinematic2D, _ext, card)
+    for kr in rows:
+        if kr["name"] in cli_launches:
+            kr["cli_launches"] = cli_launches[kr["name"]]
+    phase_done(25)
+    print(f"chip_smoke: phases 3-25 in {time.perf_counter() - t_start:.1f} s "
+          f"(the build before them {build_s:.1f} s)", flush=True)
 
     if opts.profile:
         model_f = make_model(Kinematic2D, coal=True, engine="flat")
@@ -3509,7 +3583,6 @@ def mpdata_bound(fields, mp, n_iters, fct):
 def bulk_phase(Kinematic2D, mpdata, _ext, card, profile_on):
     """Phase 16 (the module docstring): the bulk schemes in the kinematic
     model.  Returns {scheme: kernel A's figures at its shapes}."""
-    t_phase = time.perf_counter()
     out = {}
     for micro in BLK_SCHEMES:
         m = Kinematic2D(nx=NX, nz=NZ, micro=micro, grid="node", fct=True,
@@ -3662,7 +3735,6 @@ def bulk_phase(Kinematic2D, mpdata, _ext, card, profile_on):
                           in_step_ms=in_step, plain_ms=a_plain,
                           bound_ms=bound_ms, bound_by=bound_by,
                           step_ms=step_ms, max_abs_err=err)
-    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
 
@@ -5851,6 +5923,178 @@ def multi_phase(Kinematic2D, _ext, c, card, profile_on):
         for k in ("name", "route", "source", "replaces"):
             part.pop(k, None)
     return out
+
+
+# ------------------------------------------------------------------ phase 24
+def twoproc_phase(_ext, card):
+    """Phase 24 (the module docstring): parallel/twoproc.py's TWOPROC_CASE,
+    two gloo ranks of 4 shards each on the one card, against the same
+    functions run here on all 8.  Returns {kernel row name: its
+    "twoproc" entry}."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from libcloudphxx_tpu_torch.parallel import twoproc
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_twoproc_"))
+    try:
+        t0 = time.perf_counter()
+        ranks = twoproc.launch(
+            out / "two", case=TWOPROC_CASE, device=DEVICE, dtype="float32",
+            steps=TWOPROC_STEPS, dense_steps=TWOPROC_STEPS,
+            timeout=TWOPROC_TIMEOUT, group_timeout=TWOPROC_TIMEOUT / 2)
+        t_two = time.perf_counter() - t0
+        (out / "one").mkdir()
+        t0 = time.perf_counter()
+        _, flat = twoproc.run_flat(TWOPROC_CASE, device=DEVICE,
+                                   dtype=torch.float32, steps=TWOPROC_STEPS,
+                                   out=out / "one")
+        dense = twoproc.run_dense(TWOPROC_CASE, device=DEVICE,
+                                  dtype=torch.float32, steps=TWOPROC_STEPS,
+                                  out=out / "one")
+        t_one = time.perf_counter() - t0
+        names = [f"{k}_{s}.pt" for k in ("flat", "dense")
+                 for s in range(twoproc.N_SHARDS)]
+        diff = twoproc.same_files(out / "two", out / "one", names)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    f0, d0 = ranks[0]["flat"], ranks[0]["dense"]
+    for r in ranks:
+        print(f"twoproc rank {r['rank']} (shards {r['flat']['shards']}): "
+              f"flat {r['flat']}; dense {r['dense']}", flush=True)
+    print(f"twoproc one process (8 shards): flat {flat}; dense {dense}",
+          flush=True)
+    print(f"timing two processes x 4 shards on one card (gloo, rank 0 "
+          f"between barriers): flat front {f0['ms_per_step']:.3f} ms/step, "
+          f"dense mesh {d0['ms_per_step']:.3f} ms/step; one process x 8 "
+          f"shards: flat {flat['ms_per_step']:.3f}, dense "
+          f"{dense['ms_per_step']:.3f} ms/step ({TWOPROC_STEPS} steps each; "
+          f"SDs crossed {d0['crossed']}; the ranks' {t_two:.1f} s, "
+          f"interpreters and inits included, the one-process runs' "
+          f"{t_one:.1f} s; {card})", flush=True)
+    check(not diff, f"phase 24: the two-process shards differ from the "
+          f"one-process run's: {diff[:12]}")
+    for r in ranks:
+        f, d = r["flat"], r["dense"]
+        check(all(f[k] == flat[k] for k in ("total0", "total1", "finite"))
+              and f["finite"] and f["migration_overflow"] == 0.0
+              and 0 < f["total1"] <= f["total0"],
+              f"phase 24 (a): rank {r['rank']}'s totals {f} against the "
+              f"one-process {flat}")
+        check(all(d[k] == dense[k] for k in ("total0", "total1", "crossed"))
+              and d["finite"] and d["overflow"] == 0.0 and d["crossed"] > 0,
+              f"phase 24 (b): rank {r['rank']}'s readings {d} against the "
+              f"one-process {dense}")
+        half = TWOPROC_STEPS * twoproc.N_SHARDS // 2
+        check(f["launches"] == {"cond_flat": half},
+              f"phase 24 (a): F once a shard a step on rank {r['rank']} "
+              f"expected, got {f['launches']}")
+        check(all(d["launches"].get(k) == half for k in TWOPROC_DENSE),
+              f"phase 24 (b): {TWOPROC_DENSE} once a shard a step on rank "
+              f"{r['rank']} expected, got {d['launches']}")
+    out = {"cond_flat": dict(
+        launches_per_rank=[r["flat"]["launches"]["cond_flat"]
+                           for r in ranks],
+        ms_per_step=f0["ms_per_step"],
+        one_process_ms_per_step=flat["ms_per_step"], steps=TWOPROC_STEPS)}
+    for k in TWOPROC_DENSE:
+        out[k] = dict(launches_per_rank=[r["dense"]["launches"][k]
+                                         for r in ranks],
+                      mesh_ms_per_step=d0["ms_per_step"],
+                      one_process_mesh_ms_per_step=dense["ms_per_step"],
+                      steps=TWOPROC_STEPS)
+    return out
+
+
+# ------------------------------------------------------------------ phase 25
+def _snapshot(path):
+    if path.endswith(".h5"):
+        import h5py
+        with h5py.File(path) as f:
+            return {k: f[k][:] for k in f.keys()}
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files if not k.startswith("attr_")}
+
+
+def cli_phase(Kinematic2D, _ext, card):
+    """Phase 25 (the module docstring): the icicle CLI at 76x76 on the
+    card, its output checked; Kinematic2D.run() at the same settings timed
+    beside it.  Returns the CLI's launches by kernel."""
+    import os
+    import shutil
+    import tempfile
+
+    from libcloudphxx_tpu_torch.lgrngn import vt_t
+    from libcloudphxx_tpu_torch.models import cli
+    out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        reset(_ext.KERNELS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.main([
+            "--micro=lgrngn", f"--nx={NX}", f"--nz={NZ}",
+            f"--sd_conc={SD_CONC}", f"--nt={CLI_NT}",
+            f"--spinup={CLI_SPINUP}", f"--outfreq={CLI_OUTFREQ}",
+            f"--outdir={out}", f"--device={DEVICE}"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+        names = sorted(os.listdir(out))
+        want = [f"timestep{t:010d}" for t in range(0, CLI_NT + 1,
+                                                     CLI_OUTFREQ)]
+        snaps = [n for n in names if n.startswith("timestep")]
+        check([n.rsplit(".", 1)[0] for n in snaps] == want
+              and any(n.startswith("const.") for n in names)
+              and "puddle.dat" in names,
+              f"phase 25: the CLI wrote {names}, not const, {want} and "
+              f"puddle.dat")
+        with open(os.path.join(out, "puddle.dat")) as f:
+            puddle = f.read().split("\n\n")
+        check(len([b for b in puddle if b.strip()]) == len(want),
+              "phase 25: puddle.dat does not hold a block a snapshot")
+        bad = []
+        for n in snaps:
+            f = _snapshot(os.path.join(out, n))
+            need = {"th", "rv", "sd_conc", "rd_rng000_mom0",
+                    "rw3ofrd_rng000_mom3"} | {
+                f"rw_rng000_mom{k}" for k in range(4)} | {
+                f"rw_rng001_mom{k}" for k in (0, 3, 6)}
+            bad += [f"{n}: missing {sorted(need - set(f))}"] \
+                if not need <= set(f) else []
+            bad += [f"{n}:{k}" for k, v in f.items()
+                    if v.shape != (NX, NZ) or not np.isfinite(v).all()]
+        check(not bad, f"phase 25: snapshots malformed: {bad[:10]}")
+        last = _snapshot(os.path.join(out, snaps[-1]))
+        fmt = os.path.splitext(snaps[-1])[1]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    check(launches.get("mpdata") == 2 * CLI_NT
+          and launches.get("cond") == CLI_NT
+          and launches.get("coal") == CLI_NT - CLI_SPINUP
+          and set(launches) == {"mpdata", "cond", "coal", "transport",
+                                "merge"},
+          f"phase 25: kernels A twice a step, B once, E once a coalescing "
+          f"step, C and D expected, got {launches}")
+    m = Kinematic2D(nx=NX, nz=NZ, micro="lgrngn", grid="node", fct=True,
+                    sd_conc=SD_CONC, n_sd_max=NX * NZ * SD_CONC,
+                    kernel_parameters=[0.5],
+                    terminal_velocity=vt_t.khvorostyanov_spherical,
+                    rng_seed=44, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run(CLI_NT, spinup=CLI_SPINUP)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    print(f"CLI (icicle, --micro=lgrngn {NX}x{NZ}, sd_conc {SD_CONC}, nt "
+          f"{CLI_NT}, spinup {CLI_SPINUP}, outfreq {CLI_OUTFREQ}, {fmt} "
+          f"output): {secs:.2f} s in all, the time loop "
+          f"{res['loop_s'] / CLI_NT * 1e3:.3f} ms/step with its output; "
+          f"Kinematic2D.run() at the same settings "
+          f"{run_s / CLI_NT * 1e3:.3f} ms/step; launches {launches}; "
+          f"last snapshot sd_conc sum {float(last['sd_conc'].sum()):.0f}, "
+          f"rw_rng001_mom0 max {float(last['rw_rng001_mom0'].max()):.4g} "
+          f"({card})", flush=True)
+    return launches
 
 
 def profile(label, start, run, card, steps=20):

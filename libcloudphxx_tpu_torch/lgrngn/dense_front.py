@@ -42,6 +42,7 @@ import dataclasses
 
 import torch
 
+from ..utils.debug import nancheck_state
 from . import dense
 from .particles import particles_t
 
@@ -154,6 +155,13 @@ class particles_dense_t(particles_t):
     def _src_engine(self):
         self._ensure_flat()
         return super()._src_engine()
+
+    def _nancheck(self, phase):
+        """The debug sweep of the flat State's fields and, while the dense
+        layout holds the population, of its planes and cells."""
+        super()._nancheck(phase)
+        if self._loc == "dense":
+            nancheck_state(self._d, f"{phase} (dense layout)")
 
     def get_attr(self, name):
         if self._dense_stepped and name not in _CARRIED \

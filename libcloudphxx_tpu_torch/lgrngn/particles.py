@@ -51,6 +51,7 @@ from ..common import constants as c
 from ..common import kappa_koehler
 from ..common import turbulence as ga17
 from ..common.chem import chem_gas_n
+from ..utils import debug as debug_mod
 from . import chemistry, coalescence, condensation, hskpng, ice, recycle
 from . import relax
 from . import source as source_mod
@@ -163,10 +164,13 @@ class particles_t:
     """The reference's particles_proto_t (particles.hpp:16-134) over the
     flat engine.  ``device`` is where the state lives (the card unless the
     caller asks for the CPU) and ``dtype`` its working precision (float32
-    on the card: kernels F and G take float32 only)."""
+    on the card: kernels F and G take float32 only).  ``debug`` sweeps
+    the state for NaN and Inf after step_cond and after step_async and
+    raises FloatingPointError with the array and the phase named (the
+    JAX package's LIBCLOUD_DEBUG; utils/debug.py)."""
 
     def __init__(self, backend: backend_t, opts_init: opts_init_t, *,
-                 device="cuda", dtype=torch.float32):
+                 device="cuda", dtype=torch.float32, debug=False):
         self.backend = backend
         self.opts_init = opts_init
         if opts_init.n_sd_max == 0:
@@ -183,6 +187,7 @@ class particles_t:
                 "torch.cuda.is_available() is false; pass device='cpu' to "
                 "run on the CPU")
         self.dtype = dtype
+        self.debug = debug
         self.cfg = StaticConfig.from_opts_init(opts_init)
         self.state = empty_state(self.cfg, dtype, self.device,
                                  rng_seed=opts_init.rng_seed)
@@ -532,6 +537,8 @@ class particles_t:
                 bool(opts.chem_rct))
             if opts.chem_dsl:
                 self._chem_sync_out(ambient_chem)
+        if self.debug:
+            self._nancheck("step_cond")
         self._should_now_run_async = True
         if device_io:
             return self._cells("th"), self._cells("rv")
@@ -624,6 +631,13 @@ class particles_t:
                                                plain)
         if do_coal and cfg.pure_const_multi:
             self.consume_coal_overflow()
+        if self.debug:
+            self._nancheck("step_async")
+
+    def _nancheck(self, phase):
+        """The debug sweep after ``phase`` (utils/debug.nancheck_state;
+        libcloudphxx_tpu/lgrngn/particles.py:522-524, :639-641)."""
+        debug_mod.nancheck_state(self.state, phase)
 
     def _src_engine(self):
         """The sources' and the relaxation's access to the State
@@ -1012,7 +1026,8 @@ def state_from_arrays(arrays: dict, like: State) -> State:
 
 
 def factory(backend: backend_t, opts_init: opts_init_t, *, device="cuda",
-            dtype=torch.float32, engine="auto") -> particles_t:
+            dtype=torch.float32, engine="auto", group=None,
+            debug=False) -> particles_t:
     """Runtime backend dispatch (reference src/lib.cpp:12-44;
     libcloudphxx_tpu/lgrngn/particles.py:1028-1052): the public API on
     ``device``.  ``engine`` "auto" gives the dense front
@@ -1027,7 +1042,10 @@ def factory(backend: backend_t, opts_init: opts_init_t, *, device="cuda",
     visible, gives the multi-device front (parallel/multi.
     particles_multi_t) of dev_count shards (every visible card where it
     is 0) on ``device``, one device or a list, whatever ``engine`` says:
-    it runs the flat engine on each shard, as the JAX package's does."""
+    it runs the flat engine on each shard, as the JAX package's does;
+    ``group``, a torch.distributed process group, spreads its shards over
+    the group's processes (parallel/multi.py).  ``debug`` is particles_t's
+    NaN sweep."""
     if engine not in ("auto", "dense", "flat"):
         raise ValueError(f"factory: engine must be 'auto', 'dense' or "
                          f"'flat', got {engine!r}")
@@ -1037,14 +1055,19 @@ def factory(backend: backend_t, opts_init: opts_init_t, *, device="cuda",
         from ..parallel.multi import particles_multi_t
         return particles_multi_t(backend, opts_init,
                                  n_devices=dev_count or None, device=device,
-                                 dtype=dtype)
+                                 dtype=dtype, group=group, debug=debug)
     from . import dense
     from .dense_front import dense_capable, particles_dense_t
     cfg = StaticConfig.from_opts_init(opts_init)
     if engine == "auto" and (torch.device(device).type != "cuda"
                              or not dense_capable(cfg)):
         engine = "flat"
+    if group is not None:
+        raise ValueError("factory: a process group takes the multi-device "
+                         "front (opts_init.dev_count > 1)")
     if engine == "flat":
-        return particles_t(backend, opts_init, device=device, dtype=dtype)
+        return particles_t(backend, opts_init, device=device, dtype=dtype,
+                           debug=debug)
     dense.supported(cfg)
-    return particles_dense_t(backend, opts_init, device=device, dtype=dtype)
+    return particles_dense_t(backend, opts_init, device=device, dtype=dtype,
+                             debug=debug)

@@ -223,7 +223,10 @@ class Kinematic2D(nn.Module):
     CPU; or "dense" or "flat"); run_device_lgrngn runs the same population
     on the flat or the dense engine and hands it back.  The bulk schemes
     build no particles: ``opts`` is their opts_t, and ``puddle_flux`` the
-    accumulated surface rain flux (a float)."""
+    accumulated surface rain flux (a float).  ``backend`` is
+    lgrngn.factory's (multi_CUDA takes the multi-device front where more
+    than one card is visible; CUDA where it is None); ``debug`` is the
+    public API's NaN sweep after each step phase (particles_t)."""
 
     def __init__(self, nx=76, nz=76, setup: Setup = None, micro="lgrngn",
                  sd_conc=64, sstp_cond=1, sstp_coal=1, n_sd_max=None,
@@ -231,7 +234,7 @@ class Kinematic2D(nn.Module):
                  kernel_parameters=None, terminal_velocity=None,
                  rng_seed=None, opts_init_kw=None, coal_pairing="stride", *,
                  relax_th_rv=False, engine="auto", device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, backend=None, debug=False):
         super().__init__()
         if micro not in ("lgrngn", "lgrngn_chem", "blk_1m", "blk_2m"):
             raise ValueError(f"Kinematic2D: unknown micro {micro!r}")
@@ -375,8 +378,9 @@ class Kinematic2D(nn.Module):
                          (cs.NH3, s.NH3_g_0, chem.M_NH3),
                          (cs.HNO3, s.HNO3_g_0, chem.M_HNO3))}
         self.opts_init = oi
-        self.prtcls = factory(backend_t.CUDA, oi, device=self.device,
-                              dtype=dtype, engine=engine)
+        self.prtcls = factory(backend or backend_t.CUDA, oi,
+                              device=self.device, dtype=dtype,
+                              engine=engine, debug=debug)
         if isinstance(self.prtcls, particles_dense_t):
             self.prtcls.coal_pairing = coal_pairing
         self.cfg = self.prtcls.cfg

@@ -11,6 +11,18 @@ between those devices.  Slabs may be uneven, as the reference's
 distmem_opts.hpp makes them: every shard is padded to the widest, and its
 ShardDomain says which columns are its own.
 
+The layer also runs as one program in several processes (the JAX
+package's multi-controller run, tools/dryrun_2proc.py): given a
+torch.distributed process group of P ranks, rank r holds the contiguous
+shards [r S / P, (r + 1) S / P) of the S (owned_shards), every rank builds
+the same global host values and keeps its own slabs, and the ring's
+payloads cross a process boundary as point-to-point messages
+(ring_exchange); the sums over all shards are all-reduces (group_sum).
+The functions take ``doms``, every shard's ShardDomain (the global
+geometry, the same in every process), and ``shards``, the States of the
+shards this process owns, in order; ``group`` None is one process that
+owns them all.
+
 The flat front keeps the JAX package's slab-local coordinates: a shard is
 a flat-engine State of local_config's padded slab, x from 0, so that the
 flat engine's transport, cells and walls run on it unchanged; a migrating
@@ -23,6 +35,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..lgrngn import chemistry, hskpng, transport
 from ..lgrngn.enums import as_t
@@ -109,13 +122,151 @@ def on_device(device):
     return contextlib.nullcontext()
 
 
-def pad_cell_field(cfg, arr, doms):
-    """A global cell field (..., n_cell) -> a padded slab a shard, on the
-    shard's device; padded columns copy the slab's last live column (a
-    safe, finite value, multi.py:89-98)."""
+# ---------------------------------------------------------------- the ring
+NCCL_REFUSAL = (
+    "the multi-device layer's process ring runs over gloo only: NCCL "
+    "rejects two ranks on one device, and no machine with two cards has "
+    "run it (ROADMAP.md, Queue 1, \"NCCL, one process a card: waits for a "
+    "machine with two cards\")")
+
+# the tags of the two directions of a ring exchange (with two processes
+# each rank's left and right neighbour is the same rank)
+_LEFTWARD, _RIGHTWARD = 0, 1
+
+
+def rank_and_size(group):
+    """(rank, size) of this process in ``group``; (0, 1) for None."""
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def owned_shards(n_shards: int, group=None) -> range:
+    """The global indices of the shards this process holds: all of them
+    without a process group; in a group of P processes, rank r's
+    contiguous block [r S / P, (r + 1) S / P), as the JAX package's global
+    mesh puts process 0's devices first.  Refuses an NCCL group and a
+    shard count that does not split evenly."""
+    if group is None:
+        return range(n_shards)
+    if str(dist.get_backend(group)) == "nccl":
+        raise NotImplementedError(NCCL_REFUSAL)
+    rank, size = rank_and_size(group)
+    if n_shards % size:
+        raise ValueError(
+            f"multi-device layer: {n_shards} shards do not split evenly "
+            f"over {size} processes")
+    per = n_shards // size
+    return range(rank * per, (rank + 1) * per)
+
+
+def local_domains(doms, group=None):
+    """The ShardDomains of the shards this process owns (owned_shards)."""
+    return [doms[s] for s in owned_shards(len(doms), group)]
+
+
+def _to_bytes(tensors):
+    """A payload (a list of tensors on one device) as one uint8 tensor on
+    the host: gloo's point-to-point ops take CPU tensors (on a CUDA tensor
+    its TCP transport fails, "writev ...: Bad address", PyTorch 2.11 with
+    CUDA 12.8 on an H100), so a payload of a card is staged through the
+    host here."""
+    if not tensors:
+        return torch.empty(0, dtype=torch.uint8)
+    return torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors]).cpu()
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _from_bytes(buf, like, device):
+    """The inverse of _to_bytes: tensors shaped as ``like``'s, on
+    ``device``."""
+    out, at = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        # the clone starts a storage of its own, aligned for any dtype
+        out.append(buf[at:at + n].clone().view(t.dtype).reshape(t.shape)
+                   .to(device))
+        at += n
+    return out
+
+
+def ring_exchange(to_left, to_right, doms, group=None):
+    """One exchange around the ring of shards, the one step every
+    cross-shard operation takes (the reference's MPI exchange,
+    mpi_exchange.ipp:20-331).  ``doms`` are this process's shards'
+    ShardDomains, in ring order; ``to_left[i]`` and ``to_right[i]`` the
+    lists of tensors its shard i sends to the left and to the right
+    neighbour.  Returns (from_left, from_right): what each shard gets
+    from the left neighbour (its to_right) and from the right one (its
+    to_left), on the shard's device.
+
+    Between the shards of one process a payload is a copy to the
+    receiver's device.  Across a process boundary (a ``group`` of more
+    than one process: the first shard's left and the last shard's right
+    neighbour live on the ranks before and after this one) it is one
+    message a direction, sent and received in one dist.batch_isend_irecv,
+    so that no order of blocking sends can deadlock; gloo takes host
+    tensors, so the message is staged through the host (_to_bytes).
+    Every shard's payloads must have the same shapes: a receiver sizes
+    what comes in by what it sends the other way."""
+    n = len(doms)
+    rank, size = rank_and_size(group)
+    ring = size == 1
+    from_left, from_right = [None] * n, [None] * n
+    for i, dom in enumerate(doms):
+        if i > 0 or ring:
+            from_left[i] = [t.to(dom.device) for t in to_right[(i - 1) % n]]
+        if i < n - 1 or ring:
+            from_right[i] = [t.to(dom.device) for t in to_left[(i + 1) % n]]
+    if ring:
+        return from_left, from_right
+    if str(dist.get_backend(group)) == "nccl":
+        raise NotImplementedError(NCCL_REFUSAL)
+    peer = lambda r: dist.get_global_rank(group, r % size)
+    left, right = peer(rank - 1), peer(rank + 1)
+    send_l, send_r = _to_bytes(to_left[0]), _to_bytes(to_right[-1])
+    recv_l = torch.empty(_nbytes(to_right[-1]), dtype=torch.uint8)
+    recv_r = torch.empty(_nbytes(to_left[0]), dtype=torch.uint8)
+    ops = []
+    if send_l.numel():
+        ops += [dist.P2POp(dist.isend, send_l, left, group, _LEFTWARD),
+                dist.P2POp(dist.irecv, recv_r, right, group, _LEFTWARD)]
+    if send_r.numel():
+        ops += [dist.P2POp(dist.isend, send_r, right, group, _RIGHTWARD),
+                dist.P2POp(dist.irecv, recv_l, left, group, _RIGHTWARD)]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    from_left[0] = _from_bytes(recv_l, to_right[-1], doms[0].device)
+    from_right[-1] = _from_bytes(recv_r, to_left[0], doms[-1].device)
+    return from_left, from_right
+
+
+def group_sum(t, group=None):
+    """``t`` summed over the processes of ``group`` (an all-reduce, staged
+    through the host as ring_exchange's messages are); ``t`` itself
+    without one."""
+    if rank_and_size(group)[1] == 1:
+        return t
+    host = t.detach().to("cpu", copy=True)
+    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+    return host.to(t.device)
+
+
+def pad_cell_field(cfg, arr, doms, nx_pad=None):
+    """A global cell field (..., n_cell) -> a padded slab a shard of
+    ``doms``, on the shard's device; padded columns copy the slab's last
+    live column (a safe, finite value, multi.py:89-98).  ``nx_pad`` is
+    the padded width, the widest of ``doms`` by default (give it where
+    ``doms`` are some of the shards)."""
     lead, nyz = arr.shape[:-1], cfg.ny * cfg.nz
     g = arr.reshape(*lead, cfg.nx, nyz)
-    cols = torch.arange(max(dom.nxl for dom in doms), device=arr.device)
+    cols = torch.arange(nx_pad or max(dom.nxl for dom in doms),
+                        device=arr.device)
     return [g[..., torch.clamp(cols + dom.col0, max=dom.col0 + dom.nxl - 1),
               :].reshape(*lead, -1).to(dom.device) for dom in doms]
 
@@ -130,14 +281,14 @@ def unpad_cell_field(cfg, fields, doms):
                      dim=-2).reshape(*lead, -1)
 
 
-def pad_courants(cfg, cx, cy, cz, doms):
+def pad_courants(cfg, cx, cy, cz, doms, nx_pad=None):
     """The global staggered courants -> each shard's (courant_x,
     courant_y, courant_z) (multi.py:107-136): the slab's x faces and the
     one after its last live column (the right halo face, which
     xchng_courants refreshes from the neighbour), its columns' y and z
-    faces; zero past them."""
+    faces; zero past them.  ``nx_pad`` as pad_cell_field's."""
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
-    nx_pad = max(dom.nxl for dom in doms)
+    nx_pad = nx_pad or max(dom.nxl for dom in doms)
     out = []
     for dom in doms:
         c0, w = dom.col0, dom.nxl
@@ -174,7 +325,7 @@ def unpad_courants(cfg, shards, doms):
     return cat("courant_x", 1), cat("courant_y", 0), cat("courant_z", 0)
 
 
-def xchng_courants(cfg: StaticConfig, shards, doms):
+def xchng_courants(cfg: StaticConfig, shards, doms, group=None):
     """Refresh each shard's right courant halo from its right neighbour's
     first face (decomp.py:115-136; reference xchng_courants.ipp:207-320
     with halo_size 1, implicit or euler advection).  The halo face sits
@@ -184,17 +335,18 @@ def xchng_courants(cfg: StaticConfig, shards, doms):
     if cfg.n_dims == 0 or shards[0].courant_x.numel() == 0:
         return shards
     nyz = cfg.ny * cfg.nz
+    mine = local_domains(doms, group)
+    _, from_right = ring_exchange([[st.courant_x[:nyz]] for st in shards],
+                                  [[] for _ in shards], mine, group)
     out = []
-    for s, (st, dom) in enumerate(zip(shards, doms)):
-        right = shards[(s + 1) % len(shards)]
+    for st, dom, (face,) in zip(shards, mine, from_right):
         cx = st.courant_x.clone()
-        cx[dom.nxl * nyz:(dom.nxl + 1) * nyz] = \
-            right.courant_x[:nyz].to(cx.device)
+        cx[dom.nxl * nyz:(dom.nxl + 1) * nyz] = face
         out.append(dataclasses.replace(st, courant_x=cx))
     return out
 
 
-def xchng_courants_pc(cfg: StaticConfig, shards, doms):
+def xchng_courants_pc(cfg: StaticConfig, shards, doms, group=None):
     """The halo-2 courant exchange of pred_corr advection
     (decomp.py:139-180; reference xchng_courants.ipp:207-320 with
     halo_size 2, particles_impl.ipp:361-371): each shard's courants in a
@@ -207,33 +359,36 @@ def xchng_courants_pc(cfg: StaticConfig, shards, doms):
     after its live planes the right neighbour's first three (faces) or two
     (columns).  Only planes within [-2, nxl + 2] / [-2, nxl + 1] are
     meaningful.  Every slab must be at least 2 cells wide."""
-    S = len(shards)
     ny, nz = cfg.ny, cfg.nz
-
-    def extend(name, stride, n_send_r):
+    mine = local_domains(doms, group)
+    # (name, plane stride, planes sent to the left)
+    axes = [("courant_x", ny * nz, 3)]
+    if cfg.n_dims == 3:
+        axes.append(("courant_y", (ny + 1) * nz, 2))
+    if cfg.n_dims > 1:
+        axes.append(("courant_z", ny * (nz + 1), 2))
+    to_left = [[getattr(st, a)[:n * stride] for a, stride, n in axes]
+               for st in shards]
+    to_right = [[getattr(st, a)[(dom.nxl - 2) * stride:dom.nxl * stride]
+                 for a, stride, _ in axes]
+                for st, dom in zip(shards, mine)]
+    from_left, from_right = ring_exchange(to_left, to_right, mine, group)
+    ext = {}
+    for k, (name, stride, n_send_r) in enumerate(axes):
         out = []
-        for s, (st, dom) in enumerate(zip(shards, doms)):
+        for st, dom, fl, fr in zip(shards, mine, from_left, from_right):
             arr = getattr(st, name)
-            left, dl = shards[(s - 1) % S], doms[(s - 1) % S]
-            right = getattr(shards[(s + 1) % S], name)
-            from_l = getattr(left, name)[(dl.nxl - 2) * stride:
-                                         dl.nxl * stride]
-            ext = arr.new_zeros((arr.numel() // stride + 2 + n_send_r)
-                                * stride)
-            ext[:2 * stride] = from_l.to(arr.device)
-            ext[2 * stride:2 * stride + arr.numel()] = arr
+            e = arr.new_zeros((arr.numel() // stride + 2 + n_send_r)
+                              * stride)
+            e[:2 * stride] = fl[k]
+            e[2 * stride:2 * stride + arr.numel()] = arr
             at = (2 + dom.nxl) * stride
-            ext[at:at + n_send_r * stride] = \
-                right[:n_send_r * stride].to(arr.device)
-            out.append(ext)
-        return out
-
-    cx = extend("courant_x", ny * nz, 3)
-    cy = extend("courant_y", (ny + 1) * nz, 2) if cfg.n_dims == 3 \
-        else [None] * S
-    cz = extend("courant_z", ny * (nz + 1), 2) if cfg.n_dims > 1 \
-        else [None] * S
-    return list(zip(cx, cy, cz))
+            e[at:at + n_send_r * stride] = fr[k]
+            out.append(e)
+        ext[name] = out
+    none = [None] * len(shards)
+    return list(zip(ext["courant_x"], ext.get("courant_y", none),
+                    ext.get("courant_z", none)))
 
 
 def adve_pred_corr_sharded(cfg: StaticConfig, state: State, dom: ShardDomain,
@@ -317,7 +472,7 @@ def _unpack(mat, alive, pay, valid):
     return out[:, :n_sd], alive[:n_sd]
 
 
-def migrate(cfg: StaticConfig, shards, doms, buf: int):
+def migrate(cfg: StaticConfig, shards, doms, buf: int, group=None):
     """Exchange the SDs that left their slab with the two x neighbours
     (decomp.py:237-332; reference mpi_exchange.ipp:20-331,
     step_async_and_copy.ipp:28-206).  ``cfg`` is the local config, ``buf``
@@ -325,14 +480,17 @@ def migrate(cfg: StaticConfig, shards, doms, buf: int):
     (_pack), their x re-based (a right mover lands at x - hi(sender) +
     lo(receiver), and the ends wrap periodically) and killed locally;
     under open_side_walls those leaving the global domain die instead.
-    The payloads are copied to the neighbours' devices, the one from the
+    The payloads, each of fixed shape (the buffer's columns and their
+    valid lanes), go around the ring (ring_exchange), the one from the
     left first put into the receiver's dead slots, then the one from the
     right; the dissolved masses ride along.  What did not fit a buffer is
     counted in the sender's puddle slot OUT_MIGRATION_OVERFLOW.  Then
     transport.post_step re-bins every shard.  Returns the shards."""
-    S = len(shards)
+    S = len(doms)
+    mine = owned_shards(S, group)
     names, sent, kept = None, [], []
-    for s, (st, dom) in enumerate(zip(shards, doms)):
+    for s, st in zip(mine, shards):
+        dom = doms[s]
         with on_device(dom.device):
             n = st.n
             go_l, go_r = (n > 0) & (st.x < dom.lo), (n > 0) & (st.x >= dom.hi)
@@ -355,38 +513,43 @@ def migrate(cfg: StaticConfig, shards, doms, buf: int):
             mat[0] = torch.where(go_l | go_r, 0.0, mat[0])
             sent.append((left, right))
             kept.append(mat)
+    from_left, from_right = ring_exchange(
+        [list(left[:2]) for left, _ in sent],
+        [list(right[:2]) for _, right in sent],
+        [doms[s] for s in mine], group)
     out = []
-    for s, (st, dom, mat) in enumerate(zip(shards, doms, kept)):
-        with on_device(dom.device):
+    for s, st, mat, (l_out, r_out), fl, fr in zip(
+            mine, shards, kept, sent, from_left, from_right):
+        with on_device(doms[s].device):
             alive = mat[0] > 0
-            for pay, valid, _ in (sent[(s - 1) % S][1], sent[(s + 1) % S][0]):
-                mat, alive = _unpack(mat, alive, pay.to(dom.device),
-                                     valid.to(dom.device))
+            for pay, valid in (fl, fr):
+                mat, alive = _unpack(mat, alive, pay, valid)
             rows = dict(zip(names, mat.unbind(0)))
             if cfg.chem_switch:
                 rows["chem"] = mat[len(names):]
             puddle = st.puddle.clone()
-            puddle[OUT_MIGRATION_OVERFLOW] += (sent[s][0][2] + sent[s][1][2]
+            puddle[OUT_MIGRATION_OVERFLOW] += (l_out[2] + r_out[2]
                                                ).to(puddle.dtype)
             out.append(transport.post_step(cfg, dataclasses.replace(
                 st, puddle=puddle, **rows)))
     return out
 
 
-def sharded_sync_step(cfg: StaticConfig):
+def sharded_sync_step(cfg: StaticConfig, group=None):
     """The condensation phase of the shards (decomp.py:382-400): the
     courant-halo refresh, then the serial engine's condensation body
     (lgrngn/particles.step_cond_body: kernel F a cell, or G in exact mode,
     on each shard's padded slab) and, with chem_switch and ``chem``, the
-    chemistry substeps.  ``cfg`` is the local config; returns
+    chemistry substeps.  ``cfg`` is the local config, ``group`` the
+    processes the shards are spread over (module docstring); returns
     step(shards, doms, dt, RH_max, var_rho=False, turb_cond=False,
     plain=False, chem=True, **ice_kw)."""
 
     def step(shards, doms, dt, RH_max, var_rho=False, turb_cond=False,
              plain=False, chem=True, **ice_kw):
-        shards = xchng_courants(cfg, shards, doms)
+        shards = xchng_courants(cfg, shards, doms, group)
         out = []
-        for st, dom in zip(shards, doms):
+        for st, dom in zip(shards, local_domains(doms, group)):
             with on_device(dom.device):
                 st = step_cond_body(cfg, st, dt, RH_max, var_rho, turb_cond,
                                     plain=plain, **ice_kw)
@@ -401,7 +564,7 @@ def sharded_sync_step(cfg: StaticConfig):
 
 
 def sharded_async_step(cfg: StaticConfig, sstp_coal: int, buf: int,
-                       switches=(True, True, True, False)):
+                       switches=(True, True, True, False), group=None):
     """The transport phase of the shards with the ring migration
     (decomp.py:403-451): on each shard the serial engine's async process
     set (lgrngn/particles.step_async_body: coalescence, the SGS block,
@@ -410,15 +573,16 @@ def sharded_async_step(cfg: StaticConfig, sstp_coal: int, buf: int,
     _bcnd_z_only is transport.bcnd with x_walls False: the x wrap is the
     ring's) and pred_corr's corrector on the halo-2 courants, then
     migrate.
-    ``cfg`` is the local config, ``switches`` step_async_body's.  Returns
-    step(shards, doms, params, w_LS, sgs_mix_len, dt)."""
+    ``cfg`` is the local config, ``switches`` step_async_body's, ``group``
+    sharded_sync_step's.  Returns step(shards, doms, params, w_LS,
+    sgs_mix_len, dt)."""
     pred_corr = as_t(cfg.adve_scheme) == as_t.pred_corr
 
     def step(shards, doms, params, w_LS, sgs_mix_len, dt):
-        exts = xchng_courants_pc(cfg, shards, doms) if pred_corr \
+        exts = xchng_courants_pc(cfg, shards, doms, group) if pred_corr \
             else [None] * len(shards)
         out = []
-        for st, dom, ext in zip(shards, doms, exts):
+        for st, dom, ext in zip(shards, local_domains(doms, group), exts):
             adve = (lambda c, s, dom=dom, ext=ext:
                     adve_pred_corr_sharded(c, s, dom, ext)) if pred_corr \
                 else transport.adve
@@ -427,23 +591,23 @@ def sharded_async_step(cfg: StaticConfig, sstp_coal: int, buf: int,
                 out.append(step_async_body(
                     cfg, sstp_coal, switches, st, params, on(w_LS), dt,
                     on(sgs_mix_len), adve=adve, x_walls=False))
-        return migrate(cfg, out, doms, buf)
+        return migrate(cfg, out, doms, buf, group)
 
     return step
 
 
 def build_multichip_step(devices, cfg: StaticConfig, sstp_coal=1, buf=None,
-                         switches=None):
+                         switches=None, group=None):
     """The whole multi-device step (decomp.py:470-502): the courant halos
     and the shards' condensation, then their transport with the ring
-    migration.  Returns (step(shards, doms, params, w_LS, sgs_mix_len,
-    dt, RH_max), the local config)."""
+    migration.  ``devices`` are every shard's.  Returns (step(shards,
+    doms, params, w_LS, sgs_mix_len, dt, RH_max), the local config)."""
     cfg_l = local_config(cfg, len(devices))
     buf = buf or max(16, cfg_l.n_sd_max // 4)
     if switches is None:
         switches = (cfg.coal_switch, True, cfg.sedi_switch, False)
-    sync = sharded_sync_step(cfg_l)
-    async_ = sharded_async_step(cfg_l, sstp_coal, buf, switches)
+    sync = sharded_sync_step(cfg_l, group)
+    async_ = sharded_async_step(cfg_l, sstp_coal, buf, switches, group)
 
     def whole_step(shards, doms, params, w_LS, sgs_mix_len, dt, RH_max):
         return async_(sync(shards, doms, dt, RH_max), doms, params, w_LS,
@@ -453,13 +617,16 @@ def build_multichip_step(devices, cfg: StaticConfig, sstp_coal=1, buf=None,
 
 
 def replicate_state_for_mesh(cfg: StaticConfig, devices, state_builder,
-                             widths=None):
-    """Each shard's State from ``state_builder(shard_index, cfg_local)``,
-    on its device (decomp.py:505-525)."""
+                             widths=None, group=None):
+    """The States of the shards this process owns (owned_shards over
+    ``devices``, every shard's), each from ``state_builder(shard_index,
+    cfg_local)`` and on its device (decomp.py:505-525; with a group, the
+    counterpart of decomp.global_put, decomp.py:528-557: every process
+    builds from the same host values and keeps its own shards)."""
     cfg_l = local_config(cfg, len(devices), widths)
     out = []
-    for s, dev in enumerate(devices):
-        st = state_builder(s, cfg_l)
+    for s in owned_shards(len(devices), group):
+        st, dev = state_builder(s, cfg_l), devices[s]
         out.append(dataclasses.replace(st, **{
             f: getattr(st, f).to(dev) for f in
             (fld.name for fld in dataclasses.fields(State))
@@ -473,13 +640,16 @@ _CELL_FIELDS = ("th", "rv", "rhod", "p", "T", "RH", "eta", "dv",
                 "diss_rate", "ambient_chem", "sstp_tmp_chem")
 
 
-def shard_state(cfg: StaticConfig, g: State, doms, cap: int):
+def shard_state(cfg: StaticConfig, g: State, doms, cap: int, group=None):
     """A global State -> each shard's State of the padded slab in local
     coordinates (multi.py:223-295): a shard's live SDs in slot order at
     its first slots, x and ijk re-based (i is the outermost index of ijk,
     so the slab's shift is an offset), its cells padded
     (pad_cell_field), its courants sliced (pad_courants); the puddles
-    zero; shard s draws with the key word ops/philox.shard_key(s).
+    zero; shard s draws with the key word ops/philox.shard_key(s), s its
+    global index, whichever process holds it.  With a ``group``, the
+    shards this process owns (the counterpart of decomp.global_put,
+    decomp.py:528-557: every process shards the same global State).
     Raises where a slab holds more SDs than ``cap``."""
     nyz = cfg.ny * cfg.nz
     ends = torch.tensor(np.cumsum([d.nxl for d in doms]),
@@ -494,14 +664,19 @@ def shard_state(cfg: StaticConfig, g: State, doms, cap: int):
             f"capacity {cap}; raise n_sd_max")
     per_sd = {"ijk"} | set(migrating_attrs(cfg))
     chem = g.chem.numel() > 0
-    cells = {f: pad_cell_field(cfg, getattr(g, f), doms)
+    mine = owned_shards(len(doms), group)
+    own = [doms[s] for s in mine]
+    nx_pad = max(d.nxl for d in doms)
+    cells = {f: pad_cell_field(cfg, getattr(g, f), own, nx_pad)
              for f in _CELL_FIELDS if getattr(g, f).numel()}
     if not cfg.exact_sstp_cond:
         for f in ("sstp_tmp_th", "sstp_tmp_rv", "sstp_tmp_rh"):
-            cells[f] = pad_cell_field(cfg, getattr(g, f), doms)
-    cour = pad_courants(cfg, g.courant_x, g.courant_y, g.courant_z, doms)
+            cells[f] = pad_cell_field(cfg, getattr(g, f), own, nx_pad)
+    cour = pad_courants(cfg, g.courant_x, g.courant_y, g.courant_z, own,
+                        nx_pad)
     out = []
-    for s, (dom, sel) in enumerate(zip(doms, sels)):
+    for i, (s, dom) in enumerate(zip(mine, own)):
+        sel = sels[s]
         k = sel.numel()
         upd = {}
         for f in dataclasses.fields(State):
@@ -518,8 +693,8 @@ def shard_state(cfg: StaticConfig, g: State, doms, cap: int):
             o = g.chem.new_zeros((g.chem.shape[0], cap))
             o[:, :k] = g.chem[:, sel]
             upd["chem"] = o.to(dom.device)
-        upd.update({f: v[s] for f, v in cells.items()})
-        upd.update(zip(("courant_x", "courant_y", "courant_z"), cour[s]))
+        upd.update({f: v[i] for f, v in cells.items()})
+        upd.update(zip(("courant_x", "courant_y", "courant_z"), cour[i]))
         upd["puddle"] = torch.zeros_like(g.puddle)
         for f in dataclasses.fields(State):
             v = upd.get(f.name, getattr(g, f.name))

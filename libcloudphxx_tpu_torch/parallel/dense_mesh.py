@@ -14,18 +14,26 @@ droplets that leave the slab target -1), and rebin_sharded then
   2. packs the cross-shard movers of the edge columns into fixed buffers
      of ``buf`` a direction, counting what does not fit,
   3. re-bins the rest locally (kernel D, the global re-bin where a row has
-     a far mover: the far flags of all shards are read in one transfer),
-  4. sends the buffers around the ring, as copies to the neighbours'
-     devices (the reference's MPI exchange, mpi_exchange.ipp:20-331), and
+     a far mover: a process reads its shards' far flags in one transfer),
+  4. sends the buffers around the ring (decomp.ring_exchange: copies to
+     the neighbours' devices, messages between processes; the reference's
+     MPI exchange, mpi_exchange.ipp:20-331), and
   5. puts the arrivals into the free lanes of their rows, in the JAX
      package's stable order, counting what does not fit.
 
 Every SD that is dropped is added to the shard's ``overflow``.
 
+With a torch.distributed process ``group`` (decomp's module docstring)
+the functions take every shard's ShardDomain and this process's shards:
+scatter_dense keeps the slabs the process owns, the payloads cross
+between processes as messages, the far-mover flags stay each shard's own
+decision and the count of SDs sent across slab edges is summed over the
+processes.
+
 Unlike the JAX mesh, which re-bases x to slab-local coordinates (as the
 reference's MPI ranks do, pack.ipp:14-27), the port keeps x in global
-coordinates on every shard: one process holds all of them, and a shard's
-transport then does the same float operations as the serial engine's, so
+coordinates on every shard: a shard's transport then does the same float
+operations as the serial engine's, so
 the mesh reproduces the serial engine's positions bit for bit.  The ring's
 shift is then the periodic wrap alone.
 
@@ -45,7 +53,8 @@ from ..lgrngn.enums import as_t, kernel_t
 from ..lgrngn.hskpng import ijk_of_xyz
 from ..models import mpdata
 from ..ops.step import column_of, level_of, wrap_x
-from .decomp import (local_config, make_mesh, on_device, pad_cell_field,
+from .decomp import (group_sum, local_config, local_domains, make_mesh,
+                     on_device, owned_shards, pad_cell_field, ring_exchange,
                      shard_domains, unpad_cell_field)
 
 _CELLS = ("rhod", "p", "T", "RH", "eta", "dv", "sstp_tmp_th", "sstp_tmp_rv")
@@ -68,7 +77,7 @@ def _edge_rows(mat, nz, nxl, n_edge, dim=0):
     return torch.cat([lo, hi], dim)
 
 
-def scatter_dense(cfg, d: DenseState, doms):
+def scatter_dense(cfg, d: DenseState, doms, group=None):
     """A global DenseState -> a DenseState a shard (the layout
     dense_mesh.scatter_dense makes, dense_mesh.py:170-232, with x kept in
     global coordinates).  Padded rows hold no SDs, padded columns copy the
@@ -76,14 +85,19 @@ def scatter_dense(cfg, d: DenseState, doms):
     sliced as multi._pad_courant_{x,z} do.  Each shard draws from the
     state's own (rng_seed, rng_step), keyed by its global rows; shard 0
     takes the puddle and the overflow count, so that gather_state gives
-    them back."""
+    them back.  With a ``group``, the shards this process owns (every
+    process scatters the same global state: decomp.global_put's
+    counterpart)."""
     nz, cap = cfg.nz, d.cap
     nx_pad = _nx_pad(doms)
-    cells = {a: pad_cell_field(cfg, getattr(d, a), doms) for a in _CELLS}
+    mine = owned_shards(len(doms), group)
+    cells = {a: pad_cell_field(cfg, getattr(d, a), [doms[s] for s in mine],
+                               nx_pad) for a in _CELLS}
     cx = d.courant_x.reshape(cfg.nx + 1, nz)
     cz = d.courant_z.reshape(cfg.nx, nz + 1)
     shards = []
-    for s, dom in enumerate(doms):
+    for i, s in enumerate(mine):
+        dom = doms[s]
         c0, w, dev = dom.col0, dom.nxl, dom.device
         rows = slice(c0 * nz, (c0 + w) * nz)
 
@@ -99,7 +113,7 @@ def scatter_dense(cfg, d: DenseState, doms):
         own = lambda a: (a if s == 0 else torch.zeros_like(a)).to(dev)
         shards.append(DenseState(
             **{a: sd(getattr(d, a)) for a in ATTRS},
-            **{a: cells[a][s] for a in _CELLS},
+            **{a: cells[a][i] for a in _CELLS},
             courant_x=cx_s.reshape(-1).to(dev),
             courant_z=cz_s.reshape(-1).to(dev),
             puddle=own(d.puddle), overflow=own(d.overflow),
@@ -218,7 +232,8 @@ def _inject(cfg, d, dom, arr):
         **dict(zip(ATTRS, planes.unbind(0))))
 
 
-def rebin_sharded(cfg, shards, doms, tgts, fars, buf, *, plain=False):
+def rebin_sharded(cfg, shards, doms, tgts, fars, buf, *, plain=False,
+                  group=None):
     """The re-binning of the mesh after the shards' transport (see the
     module docstring; dense_mesh.py:50-152).  ``shards`` hold the positions
     after kernel C's unwrapped form, ``tgts`` its local target rows (-1
@@ -226,12 +241,13 @@ def rebin_sharded(cfg, shards, doms, tgts, fars, buf, *, plain=False):
     row counts; ``buf`` is the mover capacity a direction.  Returns (the
     shards, the number of SDs sent across slab edges, on the first shard's
     device)."""
-    n_shards, nz = len(shards), cfg.nz
+    n_shards, nz = len(doms), cfg.nz
     cfg_l = local_config(cfg, n_shards)
     nx_pad = cfg_l.nx
     n_edge = min(2, nx_pad // 2) or 1
+    own = local_domains(doms, group)
     out, pay_l, pay_r, sent = [], [], [], []
-    for d, dom, tgt in zip(shards, doms, tgts):
+    for d, dom, tgt in zip(shards, own, tgts):
         with on_device(dom.device):
             n, x = d.n, d.x
             mover = (n > 0) & (tgt < 0)
@@ -269,32 +285,35 @@ def rebin_sharded(cfg, shards, doms, tgts, fars, buf, *, plain=False):
         pay_r.append(p_r)
         sent.append(sent_l + sent_r)
     # the far-mover repair (and, on slabs narrower than the merge needs,
-    # the whole re-bin): one transfer reads every shard's flag
-    dev0 = doms[0].device
-    repair = [True] * n_shards if nx_pad < 3 else \
+    # the whole re-bin): one transfer reads the flags of every shard of
+    # this process
+    dev0 = own[0].device
+    repair = [True] * len(own) if nx_pad < 3 else \
         (torch.stack([f.to(dev0) for f in fars]) > 0).tolist()
-    for s, (dom, fix) in enumerate(zip(doms, repair)):
-        d = out[s]
+    from_left, from_right = ring_exchange([[p] for p in pay_l],
+                                          [[p] for p in pay_r], own, group)
+    for i, (dom, fix) in enumerate(zip(own, repair)):
+        d = out[i]
         with on_device(dom.device):
             if fix:
                 d = dense._rebin_global(cfg_l, d, _local_rows(cfg, d, dom))
-            left, right = (s - 1) % n_shards, (s + 1) % n_shards
-            arr = torch.cat([pay_r[left].to(dom.device),
-                             pay_l[right].to(dom.device)], 1)
-            out[s] = _inject(cfg, d, dom, arr)
-    return out, sum(c.to(dev0) for c in sent)
+            arr = torch.cat([from_left[i][0], from_right[i][0]], 1)
+            out[i] = _inject(cfg, d, dom, arr)
+    return out, group_sum(sum(c.to(dev0) for c in sent), group)
 
 
 def dense_step_sharded(cfg, doms, sstp_coal: int, buf: int, do_coal: bool,
                        do_sedi: bool, RH_max: float, *, coal_pairing="stride",
-                       plain=False):
+                       plain=False, group=None):
     """One microphysics step of the mesh (dense_mesh.py:298-332): on each
     shard condensation, coalescence and transport with x unwrapped
     (lgrngn/dense.step_fused_shard), then rebin_sharded.  ``cfg`` is the
-    global configuration, ``doms`` the shards (decomp.shard_domains).
-    Returns step(shards, th, rv, params, dt) -> (shards, th, rv, crossed)
-    with th and rv a padded slab field a shard (pad_cell_field) and
-    ``crossed`` the SDs sent across slab edges."""
+    global configuration, ``doms`` every shard's domain
+    (decomp.shard_domains), ``group`` the processes they are spread over
+    (the module docstring).  Returns step(shards, th, rv, params, dt) ->
+    (shards, th, rv, crossed) with ``shards`` this process's, th and rv a
+    padded slab field a shard of them (pad_cell_field) and ``crossed`` the
+    SDs sent across slab edges (of every process)."""
     if cfg.exact_sstp_cond:
         # the mesh's payload does not carry the per-SD ambient planes
         raise NotImplementedError(
@@ -310,15 +329,15 @@ def dense_step_sharded(cfg, doms, sstp_coal: int, buf: int, do_coal: bool,
     if cfg.n_dims == 3:
         # the slabs, the ring and kernel C's unwrapped form are 2-D
         raise NotImplementedError(
-            "dense mesh: the 3-D grid is not supported (ROADMAP.md, Queue "
-            "1, \"The dense mesh in 3-D and with the onishi kernels\"); the "
+            "dense mesh: the 3-D grid is not supported (the JAX package's "
+            "mesh runs the 2-D grid only; ROADMAP.md, Queue 1, item 8); the "
             "serial dense engine runs it")
     if cfg.coal_switch and kernel_t(cfg.kernel) in coal_mod.TURBULENT:
         # kernel E's onishi form has no shard rows (ShardRows)
         raise NotImplementedError(
             f"dense mesh: collision kernel {kernel_t(cfg.kernel).name} is "
-            "not supported (ROADMAP.md, Queue 1, \"The dense mesh in 3-D and "
-            "with the onishi kernels\"); the serial dense engine runs it")
+            "not supported (ROADMAP.md, Queue 1, \"The dense mesh with the "
+            "onishi kernels\"); the serial dense engine runs it")
     if cfg.pure_const_multi and cfg.coal_switch:
         # a const-multi population grows sstp_coal from a flag of each
         # step's coalescence, which the mesh's step does not read
@@ -329,10 +348,11 @@ def dense_step_sharded(cfg, doms, sstp_coal: int, buf: int, do_coal: bool,
     local_config(cfg, len(doms))      # n_sd_max split evenly, as JAX's
     if buf < 1:
         raise ValueError(f"dense mesh: buf must be >= 1, got {buf}")
+    own = local_domains(doms, group)
 
     def step(shards, th, rv, params, dt):
         res = []
-        for d, th_s, rv_s, dom in zip(shards, th, rv, doms):
+        for d, th_s, rv_s, dom in zip(shards, th, rv, own):
             with on_device(dom.device):
                 res.append(dense.step_fused_shard(
                     cfg, d, th_s, rv_s, params, dt, RH_max, sstp_coal,
@@ -340,7 +360,7 @@ def dense_step_sharded(cfg, doms, sstp_coal: int, buf: int, do_coal: bool,
                     coal_pairing=coal_pairing, plain=plain))
         shards, th, rv, tgts, fars = (list(v) for v in zip(*res))
         shards, crossed = rebin_sharded(cfg, shards, doms, tgts, fars, buf,
-                                        plain=plain)
+                                        plain=plain, group=group)
         return shards, th, rv, crossed
 
     return step

@@ -15,6 +15,19 @@ ring migration of the SDs that left their slab (decomp.migrate).  The
 diagnostics run per shard and are stitched; the sources and the
 relaxation keep the serial engine's global semantics (MeshSrcEngine).
 
+With a torch.distributed process ``group`` the front is one program in
+several processes, as the JAX package's multi-controller run
+(tools/dryrun_2proc.py): every rank initialises the whole domain (the
+init is deterministic) and keeps its own shards (decomp.owned_shards),
+the steps run on them over the process ring (decomp.ring_exchange), and
+the migration and coalescence overflow flags, the total multiplicity and
+the finiteness sweep are summed over the ranks (decomp.group_sum).  What
+would fetch the whole population to one process (get_attr, outbuf and
+the diagnostics, save and load, th and rv synced out by step_cond) raises
+NotImplementedError, as such fetches are not addressable in the JAX
+package's run either (tools/dryrun_2proc.py:84-85); so do the sources and
+the relaxation, which read and write the global population on the host.
+
 Shard s draws its coalescence, SGS and freezing numbers with its own key
 word (ops/philox.shard_key), as the JAX package folds the shard index into
 each shard's key: no two shards, and no shard and the serial engine,
@@ -33,6 +46,7 @@ from ..lgrngn.particles import particles_t, state_arrays, state_from_arrays
 from ..lgrngn.state import (N_PUDDLE, OUT_COAL_OVERFLOW,
                             OUT_MIGRATION_OVERFLOW, PUDDLE_KEYS,
                             TENSOR_FIELDS)
+from ..utils import debug
 from . import decomp
 
 
@@ -41,13 +55,17 @@ class particles_multi_t(particles_t):
     else every visible card).  ``device`` is one device or a list that
     the shards spread over (decomp.make_mesh); ``state`` is the list of
     the shards' States.  Unlike the JAX package, which needs a device a
-    shard, any number of shards may share a device."""
+    shard, any number of shards may share a device.  ``group`` is the
+    torch.distributed process group the shards are spread over (the
+    module docstring; None: one process holds them all); ``self.doms``
+    are every shard's domains, ``self.state`` this process's shards."""
 
     def __init__(self, backend, opts_init, n_devices=None, *, device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, group=None, debug=False):
         devices = [device] if isinstance(device, (str, torch.device)) \
             else list(device)
-        super().__init__(backend, opts_init, device=devices[0], dtype=dtype)
+        super().__init__(backend, opts_init, device=devices[0], dtype=dtype,
+                         debug=debug)
         n_dev = n_devices or int(opts_init.dev_count) \
             or torch.cuda.device_count()
         if n_dev < 2:
@@ -80,15 +98,29 @@ class particles_multi_t(particles_t):
         self.cfg_l = decomp.local_config(self.cfg_global, n_dev, self.widths)
         self.nx_pad = self.cfg_l.nx
         self.doms = decomp.shard_domains(self.cfg_global, mesh, self.widths)
+        self.group = group if decomp.rank_and_size(group)[1] > 1 else None
+        self._own = decomp.local_domains(self.doms, self.group)
 
     # --------------------------------------------------------- sharding
     def _shard_state(self, g):
-        """A global State -> the shards (decomp.shard_state)."""
-        return decomp.shard_state(self.cfg, g, self.doms, self._cap)
+        """A global State -> this process's shards (decomp.shard_state)."""
+        return decomp.shard_state(self.cfg, g, self.doms, self._cap,
+                                  self.group)
 
     def _gather_state(self):
         """The shards -> one global State (decomp.gather_flat)."""
+        self._refuse_fetch("gathering the shards")
         return decomp.gather_flat(self.cfg, self.state, self.doms)
+
+    def _refuse_fetch(self, what):
+        """Raise where ``what`` needs every shard in one process and the
+        shards are spread over a process group."""
+        if self.group is not None:
+            raise NotImplementedError(
+                f"particles_multi_t: {what} would fetch the whole "
+                "population to one process; the shards are spread over a "
+                "process group (sharded->host fetches are not addressable "
+                "in a multi-controller run, tools/dryrun_2proc.py:84-85)")
 
     def init(self, *args, **kwargs):
         """particles_t.init on the whole domain (the serial engine's
@@ -107,35 +139,39 @@ class particles_multi_t(particles_t):
             empty = shards[0].courant_x.new_zeros(0)
             cut = decomp.pad_courants(
                 self.cfg, *(upd.get(k, empty) for k in (
-                    "courant_x", "courant_y", "courant_z")), self.doms)
+                    "courant_x", "courant_y", "courant_z")), self._own,
+                self.nx_pad)
             for p, c in zip(per, cut):
                 p.update({k: v for k, v in zip(
                     ("courant_x", "courant_y", "courant_z"), c) if k in cour})
         for k, v in upd.items():
             if k not in cour:
-                for p, f in zip(per, decomp.pad_cell_field(self.cfg, v,
-                                                           self.doms)):
+                for p, f in zip(per, decomp.pad_cell_field(
+                        self.cfg, v, self._own, self.nx_pad)):
                     p[k] = f
         return [dataclasses.replace(st, **p) for st, p in zip(shards, per)]
 
     # ------------------------------------------------ the per-shard hooks
     def _map(self, fn, *args):
-        args = [a if isinstance(a, list) else [a] * self.n_shards
+        args = [a if isinstance(a, list) else [a] * len(self._own)
                 for a in args]
         out = []
-        for dom, a in zip(self.doms, zip(*args)):
+        for dom, a in zip(self._own, zip(*args)):
             with decomp.on_device(dom.device):
                 out.append(fn(self.cfg_l, *a))
         return out
 
     def _cell_to_host(self, arr):
+        self._refuse_fetch("a diagnostic")
         return decomp.unpad_cell_field(self.cfg, arr, self.doms) \
             .double().cpu().numpy()
 
     def _sd_to_host(self, arr):
+        self._refuse_fetch("an attribute dump")
         return np.concatenate([a.cpu().numpy() for a in arr])
 
     def _cells(self, name):
+        self._refuse_fetch(f"syncing {name} out")
         return decomp.unpad_cell_field(
             self.cfg, [getattr(st, name) for st in self.state], self.doms)
 
@@ -143,7 +179,8 @@ class particles_multi_t(particles_t):
                         **ice_kw):
         """The courant-halo refresh, then the serial condensation body on
         every shard (multi.py:322-344)."""
-        step = decomp.sharded_sync_step(self._cfg_for_dt(dt, self.cfg_l))
+        step = decomp.sharded_sync_step(self._cfg_for_dt(dt, self.cfg_l),
+                                        self.group)
         return step(state, self.doms, dt, RH_max, var_rho, turb_cond,
                     plain, chem=False, **ice_kw)
 
@@ -152,15 +189,32 @@ class particles_multi_t(particles_t):
         """The async process set on every shard, then the ring migration
         (multi.py:369-388), ``buf`` max(16, cap / 4) a direction."""
         step = decomp.sharded_async_step(self.cfg_l, sstp,
-                                         max(16, self._cap // 4), switches)
+                                         max(16, self._cap // 4), switches,
+                                         self.group)
         return step(state, self.doms, params, w_LS, self.sgs_mix_len(), dt)
+
+    def step_cond(self, opts, th=None, rv=None, ambient_chem=None, *,
+                  plain=False):
+        """particles_t.step_cond; a front spread over a process group
+        syncs no th or rv out (the dryrun's sync_in + step_cond)."""
+        if th is not None or rv is not None:
+            self._refuse_fetch("syncing th and rv out")
+        return super().step_cond(opts, th, rv, ambient_chem, plain=plain)
+
+    def _nancheck(self, phase):
+        """The debug sweep of every shard this process holds."""
+        for s, st in zip(decomp.owned_shards(self.n_shards, self.group),
+                         self.state):
+            debug.nancheck_state(st, f"{phase} (shard {s})")
 
     def _state_arrays(self):
         """Every shard's arrays, stacked on a leading shard axis."""
+        self._refuse_fetch("a checkpoint")
         per = [state_arrays(st) for st in self.state]
         return {k: np.stack([p[k] for p in per]) for k in per[0]}
 
     def _put_state(self, arrays):
+        self._refuse_fetch("restoring a checkpoint")
         return [state_from_arrays({k: arrays[k][s] for k in
                                    TENSOR_FIELDS + ("__rng__",)}, st)
                 for s, st in enumerate(self.state)]
@@ -170,19 +224,37 @@ class particles_multi_t(particles_t):
         """The puddles summed over the shards
         (particles_multi_gpu_diag.ipp:14-68)."""
         self._require_init()
-        vals = sum(st.puddle.double().cpu().numpy() for st in self.state)
+        vals = self._sum_shards(lambda st: st.puddle)
         return dict(zip(PUDDLE_KEYS, vals.tolist()))
 
     def migration_overflow(self):
         """The SDs the shards could not send for want of buffer room (the
         reference hard-asserts its buffer sizes)."""
-        return float(sum(float(st.puddle[OUT_MIGRATION_OVERFLOW])
-                         for st in self.state))
+        return float(self._sum_shards(
+            lambda st: st.puddle[OUT_MIGRATION_OVERFLOW]))
+
+    def _sum_shards(self, fn):
+        """fn(State) summed over every shard of every process, a float64
+        host tensor."""
+        return decomp.group_sum(sum(fn(st).double().cpu()
+                                    for st in self.state), self.group)
+
+    def total_multiplicity(self):
+        """The multiplicity summed over every shard (the dryrun's
+        conservation check)."""
+        return float(self._sum_shards(lambda st: st.n.double().sum()))
+
+    def all_finite(self):
+        """Whether th, rv and rw2 are finite on every shard."""
+        return float(self._sum_shards(lambda st: sum(
+            (~torch.isfinite(getattr(st, k))).sum()
+            for k in ("th", "rv", "rw2")))) == 0.0
 
     def get_attr(self, name):
         """particles_t.get_attr over the shards, slot by slot (n_sd_max
         rounded up to the shard count); x in global coordinates, 0 in a
         dead slot."""
+        self._refuse_fetch("get_attr")
         v = super().get_attr(name)
         if name == "x":
             n = self._sd_to_host([st.n for st in self.state])
@@ -191,19 +263,30 @@ class particles_multi_t(particles_t):
         return v
 
     def consume_coal_overflow(self):
-        """A request of any shard grows sstp_coal by one; every shard's
-        flag is cleared."""
-        pud = [st.puddle for st in self.state]
-        if any(float(p[OUT_COAL_OVERFLOW]) > 0 for p in pud):
+        """A request of any shard (of every process) grows sstp_coal by
+        one; every shard's flag is cleared."""
+        if float(self._sum_shards(
+                lambda st: (st.puddle[OUT_COAL_OVERFLOW] > 0).sum())) > 0:
             self._sstp_coal_extra += 1
-            clear = torch.ones(N_PUDDLE, dtype=pud[0].dtype)
+            clear = torch.ones(N_PUDDLE, dtype=self.state[0].puddle.dtype)
             clear[OUT_COAL_OVERFLOW] = 0.0
             self.state = [dataclasses.replace(
                 st, puddle=st.puddle * clear.to(st.puddle.device))
                 for st in self.state]
 
     # --------------------------------------- the sources and relaxation
+    def outbuf(self):
+        self._refuse_fetch("outbuf")
+        return super().outbuf()
+
     def _src_engine(self):
+        if self.group is not None:
+            raise NotImplementedError(
+                "particles_multi_t: the sources and the relaxation read and "
+                "write the global population on the host, which a front "
+                "spread over a process group does not hold (the JAX "
+                "package's multi-controller run, tools/dryrun_2proc.py, "
+                "runs neither)")
         self.state = self._tpr_impl()
         return MeshSrcEngine(self)
 

@@ -387,7 +387,7 @@ def test_sstp_coal_growth_counts_as_jax(engine):
 
 def test_onishi_stays_refused():
     """The x-slab mesh refuses the turbulent kernels (ROADMAP.md, Queue 1,
-    "The dense mesh in 3-D and with the onishi kernels"); the serial dense
+    "The dense mesh with the onishi kernels"); the serial dense
     engine runs them, as the JAX package's dense engine does
     (tests/test_torch_dense_onishi.py), and so does the flat engine
     (tests/test_torch_les.py)."""

@@ -333,8 +333,8 @@ def test_unported_paths_raise(what, port):
     if what == "coalescence":
         # coalescence runs (test_coal_slice_*), with the turbulent kernels
         # too (tests/test_torch_dense_onishi.py), but not with them on the
-        # x-slab mesh (ROADMAP.md, Queue 1, "The dense mesh in 3-D and with
-        # the onishi kernels")
+        # x-slab mesh (ROADMAP.md, Queue 1, "The dense mesh with the onishi
+        # kernels")
         from libcloudphxx_tpu_torch.parallel import MeshRunner
         m2 = Kinematic2D(nx=8, nz=4, sd_conc=2, device="cpu",
                          dtype=torch.float64,
