@@ -97,7 +97,17 @@ checks them:
      unwrapped form, D and E with bench.py's physics checks, no overflow
      and SDs that crossed slab edges; best-of-3 timing of 50 coalescing
      steps from init at 8 and 1 shards beside the serial engine, and C's
-     unwrapped form per launch beside its bound
+     unwrapped form per launch beside its bound; then the mesh under the
+     onishi kernel, pred_corr advection and a const-multi population's
+     coalescence (and onishi_hall_davis_no_waals at a depth of its own,
+     from radii x10):
+     from the serial spin-up, 10 coalescing steps on 8 shards and on 1
+     lane for lane bitwise the serial engine's (every plane, th, rv, the
+     sstp_coal growth), with C's pred_corr form on a slab (the halo-2
+     courants) and E's onishi form keyed by the shards' global rows
+     launched once a shard a step and each bitwise equal to its plain
+     version on the shards' rows; their ms/step beside the serial
+     engine's, and both forms' rows beside their bounds
  15. exact and adaptive condensation on the dense engine, in phase 8's
      four variants: the factory on the card gives the dense front;
      spin-up and coalescing steps through run_device_lgrngn(engine=
@@ -238,7 +248,9 @@ checks them:
      init, on every rep finite fields, water and dry mass conserved with
      the puddle, the live count balanced against coalescence and the
      walls, no SD dropped and SDs wrapped in y, the device time of each
-     kernel in the step; the front against the flat engine after one step
+     kernel in the step (and B at this shape timed with its plain version
+     beside its bound, the main path's B row's "dense3d"); the front
+     against the flat engine after one step
      from the same init without coalescence (th, rv, and the per-cell wet
      moments 0 and 3 where both hold as many SDs a cell, DENSE3D_GATES);
      (b) pred_corr with vohl and the large tail, and
@@ -422,6 +434,19 @@ PROFILE_STEPS = 5
 MESH_SHARDS = 8
 MESH_WIDTHS = [10, 10, 10, 10, 9, 9, 9, 9]
 MESH_STEPS = 10
+# phase 14's options (mesh_options): the onishi kernel (phase 22 (c)'s),
+# pred_corr advection with the geometric kernel and phase 17's const-multi
+# population, each from the serial spin-up over MESH_STEPS coalescing
+# steps on MESH_SHARDS shards and on 1 against the serial engine lane for
+# lane, onishi_hall_davis_no_waals over MESH_STEPS_DNW on MESH_SHARDS
+# shards from its spin-up with radii x10 (so that droplets collide in its
+# few steps); the ms/step of each, best of TIME_REPS reps of
+# MESH_TIME_STEPS; the new forms' device time over MESH_PROFILE_STEPS
+# mesh steps (the profiler takes ~3 s a mesh step: ~4,500 host ops)
+MESH_OPTIONS = ("onishi_hall", "pred_corr", "const_multi")
+MESH_STEPS_DNW = 3
+MESH_TIME_STEPS = 10
+MESH_PROFILE_STEPS = 1
 
 # phase 16: the bulk schemes' fig_a case (tools/golden_parity_blk.py:1-10,
 # the reference's travis_2D_kin_cloud_diff_blk_{1m,2m} runs): its steps and
@@ -1637,7 +1662,8 @@ def smoke(opts):
                  _ext.COND_FLAT_PARCEL_ICE_TURB,              # 20's
                  _ext.TRANSPORT_3D, _ext.TRANSPORT_3D_PRED_CORR,
                  _ext.MERGE_3D, _ext.MERGE_3D_EXACT, _ext.COAL_3D,
-                 _ext.COAL_VOHL_3D, _ext.COAL_ONISHI):        # 22's
+                 _ext.COAL_VOHL_3D, _ext.COAL_ONISHI,         # 22's
+                 _ext.TRANSPORT_PRED_CORR_UNWRAPPED):         # 14's
             continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
@@ -1707,6 +1733,14 @@ def smoke(opts):
                                 shard_err.get(kr["name"], 0.0))
     rows.append(row)
     model_c.dense_state, model_c.th, model_c.rv = dc0, thc0, rvc0
+    t14 = time.perf_counter()
+    opt_rows, opt_err = mesh_options(Kinematic2D, dense, _ext, step, card)
+    for kr in rows:                 # E and C on the options' shards too
+        kr["max_abs_err"] = max(kr["max_abs_err"],
+                                opt_err.get(kr["name"], 0.0))
+    rows += opt_rows
+    print(f"phase 14, the mesh's options: {time.perf_counter() - t14:.1f} s",
+          flush=True)
 
     phase_done(14)
 
@@ -1768,6 +1802,9 @@ def smoke(opts):
     d3_rows, d3, _ = dense3d_phase(Kinematic2D, _ext, dense, c, card,
                                         opts.profile)
     rows += d3_rows
+    for kr in rows:                 # B at 76³ (phase 22 (a))
+        if kr["name"] == "cond":
+            kr["dense3d"] = d3["3-D"]["b"]
     print(f"timing, 3-D: dense front {d3['3-D']['ms_per_step']:.3f} "
           f"ms/step against the flat engine's "
           f"{grid['3-D']['ms_per_step']:.3f} (phase 19 (a)) ({card})")
@@ -2045,6 +2082,224 @@ def mesh_phase(Kinematic2D, dense, _ext, step, card, off, on, totals):
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}, shard_err
+
+
+def mesh_option_model(Kinematic2D, name):
+    """Phase 14's model of option ``name`` (MESH_OPTIONS or
+    onishi_hall_davis_no_waals): bench.py's case with coalescence."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    if name == "const_multi":
+        return option_model(Kinematic2D, "const_multi")
+    if name == "pred_corr":
+        return make_model(Kinematic2D, coal=True,
+                          adve_scheme=tl.as_t.pred_corr)
+    return make_model(Kinematic2D, coal=True, kernel=tl.kernel_t[name],
+                      kernel_parameters=[LES_RE_LAMBDA])
+
+
+def mesh_lane_check(label, r, m, ref):
+    """The mesh's state against the serial engine's ``ref`` (state, th,
+    rv, sstp_coal growth), lane for lane: every plane, th, rv and the
+    growth bitwise (and mesh_population_check's per-cell gates)."""
+    from libcloudphxx_tpu_torch.lgrngn import dense
+    d_m, d_s = r.state(), ref[0]
+    mesh_population_check(label, d_m, m.th, m.rv, d_s, ref[1], ref[2])
+    same = {a: bool(torch.equal(getattr(d_m, a), getattr(d_s, a)))
+            for a in dense.attrs_of(m.cfg)}
+    same.update(th=bool(torch.equal(m.th, ref[1])),
+                rv=bool(torch.equal(m.rv, ref[2])),
+                growth=m.prtcls._sstp_coal_extra == ref[3])
+    print(f"mesh {label}: lane for lane bitwise {same}; sstp_coal growth "
+          f"{m.prtcls._sstp_coal_extra} (serial {ref[3]})", flush=True)
+    check(all(same.values()), f"mesh {label}: not the serial engine's "
+          f"lane for lane: {same}")
+
+
+def mesh_option_forms(label, step, coal, calls, pc, onishi):
+    """C's and E's calls of a mesh step (capture_all's "transport" and
+    "coal") against their plain versions, bitwise (C: n, x, z, vt, the
+    targets and the far flags).  Returns {kernel name: max abs error}."""
+    from libcloudphxx_tpu_torch import _ext
+    c_kernel = _ext.TRANSPORT_PRED_CORR_UNWRAPPED if pc \
+        else _ext.TRANSPORT_UNWRAPPED
+    e_kernel = _ext.COAL_ONISHI if onishi else _ext.COAL
+    err = {c_kernel.name: 0.0, e_kernel.name: 0.0}
+    same = {"C": True, "E": True}
+    for kw in calls["transport"]:
+        kc = _counted(c_kernel, lambda: step.transport(**kw))
+        pl = step.transport(**kw, plain=True)
+        same["C"] &= all(torch.equal(a, b) for a, b in zip(kc[:5], pl[:5])) \
+            and bool(torch.equal(kc[5][:, 4], pl[5][:, 4]))
+        err[c_kernel.name] = max(err[c_kernel.name], *(
+            max_abs(a, b) for a, b in zip(kc[:4], pl[:4])))
+    for kw in calls["coal"]:
+        ke = _counted(e_kernel, lambda: coal.coal_resident(**kw))
+        pl = coal.coal_resident(**kw, plain=True)
+        same["E"] &= all(torch.equal(a, b) for a, b in zip(ke, pl))
+        err[e_kernel.name] = max(err[e_kernel.name], *(
+            max_abs(a, b) for a, b in zip(ke, pl)))
+    rows0 = [int(kw["row0"]) for kw in calls["coal"]]
+    print(f"mesh {label}: {c_kernel.name} x{len(calls['transport'])} and "
+          f"{e_kernel.name} x{len(calls['coal'])} (first rows {rows0}) "
+          f"against their plain versions, bitwise {same}", flush=True)
+    check(all(same.values()), f"mesh {label}: a kernel differs from its "
+          f"plain version on a shard: {same}")
+    return err
+
+
+def mesh_options(Kinematic2D, dense, _ext, step, card):
+    """Phase 14's options: the mesh under MESH_OPTIONS (and
+    onishi_hall_davis_no_waals), each from its serial spin-up, against
+    the serial dense engine lane for lane on MESH_SHARDS shards and on 1;
+    C's pred_corr form on a slab and E's onishi form keyed by the shards'
+    global rows against their plain versions on the shards' rows (also
+    with radii x10, where droplets collide), their launches counted in the
+    MESH_SHARDS-shard run; the ms/step of each beside the serial engine's.
+    Returns (the kernel rows of E's onishi form on the shards and C's
+    pred_corr form on a slab, the max abs errors of C's and E's forms
+    against their plain versions)."""
+    from libcloudphxx_tpu_torch.ops import coal
+    from libcloudphxx_tpu_torch.parallel import MeshRunner
+    err, rows, timing = {}, [], {}
+    for name in MESH_OPTIONS + ("onishi_hall_davis_no_waals",):
+        t0 = time.perf_counter()
+        pc, onishi = name == "pred_corr", name.startswith("onishi")
+        steps = MESH_STEPS_DNW if name.endswith("waals") else MESH_STEPS
+        m = mesh_option_model(Kinematic2D, name)
+        m.run_device_lgrngn(SLICE_SPINUP, spinup=SLICE_SPINUP,
+                            engine="dense")
+        sp = (m.dense_state, m.th, m.rv)
+        if name.endswith("waals"):     # radii x10: droplets collide
+            sp = (dataclasses.replace(sp[0], rw2=sp[0].rw2 * 100.0),) \
+                + sp[1:]
+        totals = dense.water_dry_totals(sp[0], sp[2])
+
+        def restore(s):
+            m.dense_state, m.th, m.rv = s
+            m.prtcls._sstp_coal_extra = 0
+
+        restore(sp)
+        m.run_device_lgrngn(steps, engine="dense")
+        ref = (m.dense_state, m.th, m.rv, m.prtcls._sstp_coal_extra)
+        lost = collided(sp[0], ref[0])
+        c_kernel = _ext.TRANSPORT_PRED_CORR_UNWRAPPED if pc \
+            else _ext.TRANSPORT_UNWRAPPED
+        e_kernel = _ext.COAL_ONISHI if onishi else _ext.COAL
+        shard_counts = (MESH_SHARDS,) if name.endswith("waals") \
+            else (MESH_SHARDS, 1)
+        for n_shards in shard_counts:
+            label = f"{name}, {n_shards} shard{'s' * (n_shards > 1)}, " \
+                f"{steps} coalescing steps"
+            restore(sp)
+            r = MeshRunner(m, n_shards)
+            reset(_ext.KERNELS)
+            r.run(steps)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in _ext.KERNELS}
+            want = {"mpdata": steps, "cond": n_shards * steps,
+                    c_kernel.name: n_shards * steps,
+                    e_kernel.name: n_shards * steps,
+                    "merge": n_shards * steps, "transport": 0}
+            got = {k: launches[k] for k in want}
+            print(f"mesh {label}: launches {got}; crossed slab edges "
+                  f"{int(r.crossed)}; collisions took {lost:.3e} of the "
+                  f"multiplicity (serial)", flush=True)
+            check(got == want, f"mesh {label}: launches {got}, expected "
+                  f"{want}")
+            check(lost > 0 and (n_shards == 1 or int(r.crossed) > 0),
+                  f"mesh {label}: no collision or no SD crossed a slab edge")
+            m.dense_state = r.state()
+            physics_checks(m, *totals, dense)
+            mesh_lane_check(label, r, m, ref)
+            if n_shards == MESH_SHARDS and name in MESH_OPTIONS:
+                main = launches
+        if name.endswith("waals"):
+            print(f"phase 14, {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            continue
+
+        # C's and E's forms on the shards' rows against their plain
+        # versions, in a coalescing step and with radii x10
+        drizzle = (dataclasses.replace(sp[0], rw2=sp[0].rw2 * 100.0),) \
+            + sp[1:]
+        r = MeshRunner(m, MESH_SHARDS)
+        for st in (sp, drizzle):
+            restore(st)
+            r.load(*st)
+            calls = capture_all({"transport": (step, "transport"),
+                                 "coal": (coal, "coal_resident")}, r.step)
+            for k, e in mesh_option_forms(name, step, coal, calls, pc,
+                                          onishi).items():
+                err[k] = max(err.get(k, 0.0), e)
+            if st is sp:
+                kws = calls
+
+        # the ms/step from the spin-up: MESH_SHARDS and 1 shards and the
+        # serial engine, in turns
+        ms = {}
+        for n_shards in (MESH_SHARDS, 1, "serial"):
+            best = float("inf")
+            run = (lambda k: m.run_device_lgrngn(k, engine="dense")) \
+                if n_shards == "serial" else None
+            if run is None:
+                r = MeshRunner(m, n_shards)
+                run = r.run
+            for rep in range(TIME_REPS + 1):           # the first warms up
+                restore(sp)
+                if n_shards != "serial":
+                    r.load(*sp)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                run(MESH_TIME_STEPS if rep else 2)
+                torch.cuda.synchronize()
+                if rep:
+                    best = min(best, time.perf_counter() - t1)
+            ms[n_shards] = best / MESH_TIME_STEPS * 1e3
+        timing[name] = ms
+        print(f"timing mesh, {name}, from the spin-up ({MESH_TIME_STEPS} "
+              f"coalescing steps, best of {TIME_REPS}): {MESH_SHARDS} shards "
+              f"{ms[MESH_SHARDS]:.3f} ms/step, 1 shard {ms[1]:.3f} ms/step, "
+              f"the serial dense engine {ms['serial']:.3f} ms/step ({card})",
+              flush=True)
+
+        if name == "onishi_hall" or pc:
+            # the new form's row on shard 1's call (its rows from 10 x 76):
+            # the kernel and its plain version timed, its bound, its
+            # launches in the MESH_SHARDS-shard run, its device time a step
+            restore(sp)
+            r = MeshRunner(m, MESH_SHARDS)
+            if pc:
+                kw = kws["transport"][1]
+                kc = step.transport(**kw)
+                bnd = transport_pred_corr_bound(kw, kc)
+                call = lambda plain: step.transport(**kw, plain=plain)
+                kernel, sym, plain_reps = c_kernel, "transport_kernel", 3
+            else:
+                kw = kws["coal"][1]
+                work = coal_work(lambda: coal.coal_resident(
+                    **kw, plain=True), kw["n"])
+                bnd = coal_y_bound(kw, work, OPS_EFF + OPS_WANG)
+                call = lambda plain: coal.coal_resident(**kw, plain=plain)
+                kernel, sym, plain_reps = e_kernel, "coal_kernel", 1
+            row = kernel_row(kernel, main[kernel.name], err, call, bnd,
+                             card, plain_reps=plain_reps,
+                             where=f"in the {MESH_SHARDS}-shard mesh's "
+                                   f"{MESH_STEPS} steps ({name})")
+            if onishi:
+                row["name"] = "coal_onishi_row0"
+                row["row0"] = int(kw["row0"])
+            restore(sp)
+            r.load(*sp)
+            in_step = device_ms(r.run, MESH_PROFILE_STEPS, (sym,))
+            row["in_step_ms"] = in_step.get(sym)
+            row["launches_a_step"] = main[kernel.name] / MESH_STEPS
+            row["mesh_ms_per_step"] = ms
+            print(f"kernel {row['name']}: {row['in_step_ms']} ms a mesh "
+                  f"step in {MESH_SHARDS} launches ({card})", flush=True)
+            rows.append(row)
+        print(f"phase 14, {name}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return rows, err
 
 
 def khv_float32_nan(rw2, rhod, eta):
@@ -3451,35 +3706,48 @@ def cond_flat_bound(f_cfg, f_kw):
 
 
 def cond_bound(cfg, d0, tha, rva):
-    """Kernel B's bound on the population ``d0`` and the advected fields:
-    four planes, nine cell fields and the row order in, one plane and six
-    cell fields out; the first substep's growth work sstp_cond times, each
-    live droplet's set-up and rebuilt vt, each cell's substeps."""
-    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp, hskpng_Tpr
-    from libcloudphxx_tpu_torch.lgrngn.vterm import vt_in_kernel
-    n_cell, live = d0.n.shape[0], d0.n > 0
-    live0 = int(live.sum())
-    col = lambda a: a[:, None].expand(-1, d0.cap).reshape(-1)
-    T0, p0, _, eta0 = hskpng_Tpr(cfg, d0.sstp_tmp_th, d0.sstp_tmp_rv,
-                                 d0.rhod, d0.p)
-    vt = vt_in_kernel(cfg, d0.rw2, T0[:, None], p0[:, None],
-                      d0.rhod[:, None], eta0[:, None])
-    th1 = d0.sstp_tmp_th + (tha.reshape(-1) - d0.sstp_tmp_th) / SSTP_COND
-    rv1 = d0.sstp_tmp_rv + (rva.reshape(-1) - d0.sstp_tmp_rv) / SSTP_COND
-    T1, p1, RH1, eta1 = hskpng_Tpr(cfg, th1, rv1, d0.rhod, d0.p)
+    """Kernel B's bound on the population ``d0`` and the advected fields
+    (cond_kw_bound on the arguments the main path gives B)."""
+    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_mfp
     lam_D, lam_K = hskpng_mfp(d0.T, d0.p)
-    arrays = (d0.rw2.reshape(-1), d0.rd3.reshape(-1), d0.kpa.reshape(-1),
-              vt.reshape(-1), col(d0.rhod), col(rv1), col(T1), col(p1),
-              col(RH1), col(eta1), col(lam_D), col(lam_K))
-    ops_b, brk, n_live = rootfind_ops(1.0 / SSTP_COND, arrays, 44.0,
-                                      live.reshape(-1))
+    return cond_kw_bound(dict(
+        cfg=cfg, sstp_cond=SSTP_COND, dt=1.0, RH_max=44.0, n=d0.n,
+        rw2=d0.rw2, rd3=d0.rd3, kpa=d0.kpa, thadv=tha.reshape(-1),
+        rvadv=rva.reshape(-1), th0=d0.sstp_tmp_th, rv0=d0.sstp_tmp_rv,
+        rhod=d0.rhod, lam_D=lam_D, lam_K=lam_K, p0=d0.p))
+
+
+def cond_kw_bound(kw):
+    """Kernel B's bound on its arguments ``kw`` (step.cond's): four
+    planes, nine cell fields and the row order in, one plane and six cell
+    fields out; the first substep's growth work sstp_cond times, each live
+    droplet's set-up and rebuilt vt, each cell's substeps."""
+    from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_Tpr
+    from libcloudphxx_tpu_torch.lgrngn.vterm import vt_in_kernel
+    cfg, n, sstp = kw["cfg"], kw["n"], kw["sstp_cond"]
+    n_cell, cap, live = n.shape[0], n.shape[1], n > 0
+    live0 = int(live.sum())
+    col = lambda a: a[:, None].expand(-1, cap).reshape(-1)
+    rhod, p, th0, rv0 = kw["rhod"], kw["p0"], kw["th0"], kw["rv0"]
+    T0, p_0, _, eta0 = hskpng_Tpr(cfg, th0, rv0, rhod, p)
+    vt = vt_in_kernel(cfg, kw["rw2"], T0[:, None], p_0[:, None],
+                      rhod[:, None], eta0[:, None])
+    th1 = th0 + (kw["thadv"] - th0) / sstp
+    rv1 = rv0 + (kw["rvadv"] - rv0) / sstp
+    T1, p1, RH1, eta1 = hskpng_Tpr(cfg, th1, rv1, rhod, p)
+    arrays = (kw["rw2"].reshape(-1), kw["rd3"].reshape(-1),
+              kw["kpa"].reshape(-1), vt.reshape(-1), col(rhod), col(rv1),
+              col(T1), col(p1), col(RH1), col(eta1), col(kw["lam_D"]),
+              col(kw["lam_K"]))
+    ops_b, brk, n_live = rootfind_ops(kw["dt"] / sstp, arrays,
+                                      kw["RH_max"], live.reshape(-1))
     print(f"B cond: {brk / n_live:.4f} of the {n_live} live droplets "
           f"bracketed in the first substep")
-    vt32, vt64 = vt_ops(cfg, d0.rw2[live])
+    vt32, vt64 = vt_ops(cfg, kw["rw2"][live])
     return bound(
-        5 * nbytes(d0.n) + 16 * nbytes(d0.rhod),
-        SSTP_COND * ops_b + live0 * OPS_DROP + vt32 + d0.n.numel()
-        + n_cell * (SSTP_COND * OPS_CELL_SUBSTEP + 2 * OPS_CLOSURE), vt64)
+        5 * nbytes(n) + 16 * nbytes(rhod),
+        sstp * ops_b + live0 * OPS_DROP + vt32 + n.numel()
+        + n_cell * (sstp * OPS_CELL_SUBSTEP + 2 * OPS_CLOSURE), vt64)
 
 
 def transport_bound(cfg, d0, kc):
@@ -5381,10 +5649,19 @@ def dense3d_case(fields, m2, _ext, dense, c, card, profile_on, err):
     # C's, D's and E's 3-D forms against their plain versions on what a
     # full-width step gives them
     calls = capture_all({"e": (coal, "coal_resident"),
-                         "c": (step, "transport"), "d": (dense, "rebin_x")},
+                         "c": (step, "transport"), "d": (dense, "rebin_x"),
+                         "b": (step, "cond")},
                         lambda: dense3d_run(prt, opts, 1, dict(
                             fields, th=th, rv=rv)))
     e_kw, c_kw, d_kw = calls["e"][-1], calls["c"][-1], calls["d"][-1]
+    # B at this shape (a row of its own: its bound, the kernel and the
+    # plain version timed on the step's arguments)
+    b_kw = calls["b"][-1]
+    b_row = kernel_row(_ext.COND, launches["cond"], err,
+                       lambda plain: step.cond(**b_kw, plain=plain),
+                       cond_kw_bound(b_kw), card, reps=3,
+                       where="in (a)'s counted steps")
+    del b_kw
     t1 = time.perf_counter()
     kc = check_c3d("3-D dense", _ext.TRANSPORT_3D, c_kw, err)
     check_d3d("3-D dense", _ext.MERGE_3D, d_kw, err)
@@ -5432,6 +5709,9 @@ def dense3d_case(fields, m2, _ext, dense, c, card, profile_on, err):
         r["in_step_ms"] = in_step.get(
             {"transport_3d": "transport_kernel", "merge_3d": "merge3d",
              "coal_3d": "coal_kernel"}[r["name"]])
+    b_row["in_step_ms"] = in_step.get("cond_kernel")
+    out["b"] = {k: b_row[k] for k in ("launches", "ms", "in_step_ms",
+                                      "plain_ms", "bound_ms", "bound_by")}
     if profile_on:
         profile("3-D dense (a)", lambda: prt.adopt(init),
                 lambda k: dense3d_run(prt, opts, k, fields), card, steps=3)

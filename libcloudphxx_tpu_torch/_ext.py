@@ -103,6 +103,17 @@ TRANSPORT_PRED_CORR = Kernel(
     "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, transport :338-487) "
     "with the pred_corr advection that the JAX package runs in XLA "
     "(lgrngn/dense.py:962-1005)")
+# kernel C's pred_corr form on a shard of the x-slab mesh: TRANSPORT's
+# arguments, the shard's first column and its width, then its courant_x
+# and courant_z in the halo-2 layout (parallel/decomp.xchng_courants_pc)
+TRANSPORT_PRED_CORR_UNWRAPPED = Kernel(
+    "transport_pred_corr_unwrapped", "lcp_transport_pred_corr_unwrapped",
+    TRANSPORT.argtypes[:-1] + [_I, _I, _P, _P],
+    "libcloudphxx_tpu_torch/csrc/transport.cu",
+    "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel with x_wrap=False, "
+    ":378-382) with the pred_corr advection that the JAX package's mesh "
+    "runs in XLA (lgrngn/dense.py:962-1005 with x_wrap=False; "
+    "parallel/dense_mesh.py:320-328)")
 # planes in (7), targets, planes out (7), drops; n_cell, cap, nx, nz
 MERGE = Kernel(
     "merge", "lcp_merge", [_P] * 16 + [_I, _I, _I, _I],
@@ -322,8 +333,10 @@ COAL_VOHL_3D = Kernel(
     "libcloudphxx_tpu_torch/csrc/coal.cu",
     _COAL_Y + "on the 3-D grid with vohl's efficiencies (lgrngn/dense.py:"
     "801-804; lgrngn/coalescence.py:374-376)")
+# kernel E's onishi form: COAL's arguments (row0 last), then the y plane in
+# and out (null twice off the 3-D grid; row0 0 on it)
 COAL_ONISHI = Kernel(
-    "coal_onishi", "lcp_coal_onishi", COAL_3D.argtypes[:-1],
+    "coal_onishi", "lcp_coal_onishi", COAL.argtypes[:-1] + [_P, _P],
     "libcloudphxx_tpu_torch/csrc/coal.cu",
     _COAL_Y + "with the onishi kernels at dissipation rate 0, which the JAX "
     "package computes in XLA (lgrngn/dense.py:606, :738; "
@@ -338,7 +351,7 @@ KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
            COND_SD_ADAPTIVE_PARCEL_TURB, COND_FLAT_ICE, COND_FLAT_ICE_TURB,
            COND_FLAT_PARCEL_ICE, COND_FLAT_PARCEL_ICE_TURB, TRANSPORT_3D,
            TRANSPORT_3D_PRED_CORR, MERGE_3D, MERGE_3D_EXACT, COAL_3D,
-           COAL_VOHL_3D, COAL_ONISHI)
+           COAL_VOHL_3D, COAL_ONISHI, TRANSPORT_PRED_CORR_UNWRAPPED)
 
 _lib = None
 

@@ -159,7 +159,9 @@ extern "C" int lcp_coal_vohl_3d(
 
 // The onishi form (onishi_hall, onishi_hall_davis_no_waals at dissipation
 // rate 0; ``coef`` their kernel_parameters[0], the hall family's table):
-// lcp_coal_3d's arguments, the y plane null off the 3-D grid.
+// lcp_coal's arguments, row r drawing as row row0 + r (a shard's of the
+// x-slab mesh on the 2-D grid), then the y plane in and out, null off the
+// 3-D grid.
 extern "C" int lcp_coal_onishi(
     const float* n, const float* rw2, const float* rd3, const float* kpa,
     const float* x, const float* z, const float* cells, const float* eff,
@@ -167,15 +169,16 @@ extern "C" int lcp_coal_onishi(
     float* x_out, float* z_out, unsigned char* ovf, int n_cell, int cap,
     int sstp, double dt_sub, int kern, double coef, double r_max_m1,
     int clamp, unsigned seed, unsigned step, int vt, int sort,
-    const float* y, float* y_out, cudaStream_t stream) {
-  if (eff == nullptr || clamp > 126 || (y == nullptr) != (y_out == nullptr))
+    unsigned row0, const float* y, float* y_out, cudaStream_t stream) {
+  if (eff == nullptr || clamp > 126 || (y == nullptr) != (y_out == nullptr)
+      || (y != nullptr && row0 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   return coal_y_formula(
       vt, sort,
       with_y(coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out,
                        rd3_out, kpa_out, x_out, z_out, nullptr, ovf, n_cell,
                        cap, sstp, dt_sub, kern, coef, r_max_m1, clamp, seed,
-                       step, 0),
+                       step, row0),
              y, y_out),
       stream);
 }

@@ -60,9 +60,11 @@
 // TPU kernel does this (the JAX package reads vohl's efficiencies in XLA,
 // lgrngn/coalescence.py:374-376); its plain version is the same
 // coal_resident_plain.
-// The y and onishi forms (the rows' type YRows; the resident forms on the
-// grid's own rows, 10 instantiations a formula, each formula's in a
-// source coal_y*.cu of its own) carry the 3-D grid's y plane: it is
+// The y and onishi forms (the rows' type YRows; the resident forms, 10
+// instantiations a formula, each formula's in a source coal_y*.cu of its
+// own; the y forms on the grid's own rows, the onishi form also on a
+// shard's of the x-slab mesh, its rows keyed by row0 as ShardRows' are)
+// carry the 3-D grid's y plane: it is
 // written out by the slot of origin, as x and z are (the JAX package's
 // sort pairing carries y, libcloudphxx_tpu/lgrngn/dense.py:801-804),
 // where the rows' y pointer is set.  Their collision kernel is picked at
@@ -144,15 +146,17 @@ struct WideTable : R {
     return WideTable{R::of(row0)};
   }
 };
-// The grid's rows with the y plane in and out (null where there is none:
-// the onishi form off the 3-D grid), the collision kernel's table picked
-// at run time
+// Rows with the y plane in and out (null where there is none: the onishi
+// form off the 3-D grid), the collision kernel's table picked at run time;
+// row r draws as the global row row0 + r (0 on the grid, a shard's first
+// row under the onishi kernels on the x-slab mesh)
 struct YRows {
   static constexpr int kTable = kTableAny;
   const float* y;
   float* y_out;
+  uint32_t row0;
   __device__ __forceinline__ uint32_t global(int r) const {
-    return static_cast<uint32_t>(r);
+    return row0 + static_cast<uint32_t>(r);
   }
 };
 template <class R>
@@ -519,9 +523,9 @@ coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
 // the five cell rows and the efficiency table; the planes out (vt_out
 // only in the standalone form) and the row flags; the sizes, the substeps
 // and the collision kernel; the draws' seed and step, and the global index
-// of the first row (a shard's of the x-slab mesh, resident forms only; 0
-// otherwise); whether the table is the wide one (resident forms only); the
-// y plane in and out (the y and onishi forms; null otherwise).
+// of the first row (a shard's of the x-slab mesh, the resident forms
+// only; 0 otherwise); whether the table is the wide one (resident forms
+// only); the y plane in and out (the y and onishi forms; null otherwise).
 struct CoalArgs {
   const float *n, *rw2, *rd3, *kpa, *x, *z, *cells;
   float *n_out, *rw2_out, *rd3_out, *kpa_out, *x_out, *z_out, *vt_out;
@@ -539,7 +543,7 @@ struct CoalArgs {
 template <class R>
 R rows_of(const CoalArgs& a) {
   if constexpr (kYRows<R>)
-    return R{a.y, a.y_out};
+    return R{a.y, a.y_out, a.row0};
   else
     return R::of(a.row0);
 }
@@ -597,7 +601,7 @@ extern template int coal_launch_wide<kVtKhvorostyanovNonspherical>(
 template <int VT>
 int coal_launch_y(int mode, const CoalArgs& a, cudaStream_t stream) {
   if (a.cap < 1 || a.cap > kMaxCap || (a.cap & (a.cap - 1)) || a.n_cell < 0
-      || (mode != kStride && mode != kSort) || a.row0 != 0)
+      || (mode != kStride && mode != kSort))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_cell == 0) return 0;
   return mode == kSort ? launch_mode<kSort, VT, YRows>(a, stream)

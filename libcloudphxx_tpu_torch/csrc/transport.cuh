@@ -37,6 +37,23 @@
 // two.  Sedimentation, subsidence, walls and targets follow as in the
 // other forms.
 //
+// The pred_corr form on a shard of the x-slab mesh (entry
+// lcp_transport_pred_corr_unwrapped, the geometry a PredCorrSlabGeometry),
+// which the JAX package's mesh runs in XLA (lgrngn/dense.py:962-1005 with
+// x_wrap=False): the rows as the unwrapped form's, the predictor and the
+// corrector as the pred_corr form's, x wrapped as that form wraps it (the
+// predictor's wrap and the final one; the open side walls do not kill), so
+// that a shard's positions are the serial engine's bits.  The corrector's
+// courants come from the halo-2 layout of parallel/decomp.py
+// xchng_courants_pc: x faces -2 .. nx_pad + 2 ((nx_pad + 6) * nz values)
+// and z columns -2 .. nx_pad + 1 ((nx_pad + 4) * (nz + 1)), indexed by the
+// predictor's global column less col0, taken modulo nx into [-2, ncol + 1]
+// (a predictor across the periodic wrap reads the ring's halo).  A droplet
+// whose column is outside the shard's, or that moved across the periodic
+// wrap (on one shard its column is the shard's own), gets target -1: the
+// mesh moves it, as the serial engine's wrap clause sends it to the
+// neighbouring column.
+//
 // The 3-D forms (entries lcp_transport_3d and lcp_transport_3d_pred_corr,
 // the geometry a With3D<Geometry> or With3D<PredCorrGeometry>) run the
 // 3-D grid, which the JAX package runs in XLA (lgrngn/dense.py:918-1030;
@@ -117,6 +134,18 @@ struct PredCorrGeometry : Geometry {
 template <class G>
 constexpr bool kPredCorr = std::is_base_of_v<PredCorrGeometry, G>;
 
+// the pred_corr form's on a shard: the shard's first column and its width
+// (the courants in the halo-2 layout)
+struct PredCorrSlabGeometry : PredCorrGeometry {
+  int col0, ncol;
+};
+
+// the forms on a shard's rows (x unwrapped in the euler and implicit form,
+// wrapped as the serial engine wraps it in the pred_corr form)
+template <class G>
+constexpr bool kSlab =
+    kUnwrapped<G> || std::is_same_v<G, PredCorrSlabGeometry>;
+
 // the 3-D forms' y axis: the rows of columns, y's bounds, the y plane in
 // and out, and courant_y (read by the pred_corr form)
 struct YAxis {
@@ -170,7 +199,7 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
   if (r >= n_cell) return;  // the whole warp
   float i_row;
   [[maybe_unused]] float j_row = 0.0f;
-  if constexpr (kUnwrapped<G>) {
+  if constexpr (kSlab<G>) {
     i_row = static_cast<float>(geo.col0 + r / geo.nz);
   } else if constexpr (kThreeD<G>) {
     i_row = static_cast<float>(r / (geo.ya.ny * geo.nz));
@@ -285,7 +314,17 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
           }
           const int im = cell_of(xq, geo.dx_d, geo.nx);
           const int km = cell_of(zq, geo.dz_d, geo.nz);
-          const int lft = im * geo.nz + km, blw = lft + im;
+          int lft = im * geo.nz + km, blw = lft + im;
+          if constexpr (kSlab<G>) {  // the halo-2 layout, from column -2
+            int li = im - geo.col0;
+            if (li < -2)
+              li += geo.nx;
+            else if (li > geo.ncol + 1)
+              li -= geo.nx;
+            li = li < -2 ? -2 : li > geo.ncol + 1 ? geo.ncol + 1 : li;
+            lft = (li + 2) * geo.nz + km;
+            blw = (li + 2) * (geo.nz + 1) + km;
+          }
           const float cl = __ldg(geo.cx + lft);
           const float cr = __ldg(geo.cx + lft + geo.nz);
           const float cb = __ldg(geo.cz + blw);
@@ -310,12 +349,17 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
         if (geo.do_sedi) zq = zq - geo.dt * vt[q];
         if (geo.do_subs) zq = zq - geo.dt * w_ls;
 
-        if constexpr (!kUnwrapped<G>) {  // else the mesh wraps or kills
+        if constexpr (!kSlab<G>) {  // else the mesh wraps or kills
           if (!geo.open_side) {
             const float s = xq - geo.x0;
             xq = geo.x0 + (s - floorf(s / geo.wx) * geo.wx);
           } else if (xq >= geo.x1 || xq < geo.x0) {
             m = 0.0f;
+          }
+        } else if constexpr (kPredCorr<G>) {  // the serial form's wrap
+          if (!geo.open_side) {
+            const float s = xq - geo.x0;
+            xq = geo.x0 + (s - floorf(s / geo.wx) * geo.wx);
           }
         }
         if constexpr (kThreeD<G>) {  // the y side walls, as x's
@@ -373,7 +417,7 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
               tgt[q] = r;
               far = true;
             }
-          } else if constexpr (!kUnwrapped<G>) {
+          } else if constexpr (!kSlab<G>) {
             const float wrap = static_cast<float>(geo.nx - 1);
             const bool near_z = fabsf(dk) <= 1.0f;
             const bool near_x = di == 0.0f || di == 1.0f || di == -1.0f
@@ -384,14 +428,20 @@ transport_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
               tgt[q] = r;
               far = true;
             }
-          } else if (!(xq < geo.x0 || xq >= geo.x1
-                       || i_t < static_cast<float>(geo.col0)
-                       || i_t >= static_cast<float>(geo.col0 + geo.ncol))) {
+          } else {
+            bool leaves = xq < geo.x0 || xq >= geo.x1
+                          || i_t < static_cast<float>(geo.col0)
+                          || i_t >= static_cast<float>(geo.col0 + geo.ncol);
+            if constexpr (kPredCorr<G>) {  // a move across the wrap
+              const float wrap = static_cast<float>(geo.nx - 1);
+              leaves = leaves || (!geo.open_side && wrap > 1.0f
+                                  && (di == wrap || di == -wrap));
+            }
             // a droplet that stays in the shard; one that leaves keeps -1
-            if (fabsf(dk) <= 1.0f && fabsf(di) <= 1.0f) {
+            if (!leaves && fabsf(dk) <= 1.0f && fabsf(di) <= 1.0f) {
               tgt[q] = (static_cast<int>(i_t) - geo.col0) * geo.nz
                        + static_cast<int>(k_t);
-            } else {
+            } else if (!leaves) {
               tgt[q] = r;
               far = true;
             }

@@ -100,7 +100,10 @@ class DenseState:
     carries no meaning.  The y plane is (n_cell, cap) on the 3-D grid and
     courant_y the y courants there; both are empty otherwise.  The
     private ambient planes sd_th, sd_rv, sd_rh and sd_p are (n_cell, cap)
-    in exact_sstp_cond mode and empty (0, 0) otherwise."""
+    in exact_sstp_cond mode and empty (0, 0) otherwise.  A shard of the
+    x-slab mesh under pred_corr advection also carries its courants in the
+    halo-2 layout (halo_cx, halo_cz: parallel/decomp.xchng_courants_pc),
+    which its corrector reads; they are empty otherwise."""
 
     n: torch.Tensor
     rw2: torch.Tensor
@@ -128,6 +131,10 @@ class DenseState:
     sd_rv: torch.Tensor = dataclasses.field(default_factory=_no_plane)
     sd_rh: torch.Tensor = dataclasses.field(default_factory=_no_plane)
     sd_p: torch.Tensor = dataclasses.field(default_factory=_no_plane)
+    halo_cx: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros(0))
+    halo_cz: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros(0))
     # the coalescence draws: Philox key (opts_init.rng_seed) and the step
     # counter, host integers advanced by every coalescence call
     rng_seed: int = 44
@@ -561,9 +568,10 @@ def step_fused_shard(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
     ``cfg`` is the global configuration; ``d`` holds the shard's rows, the
     global columns col0, col0 + 1, ... with ``slab`` = (col0, ncol) the
     first ncol of them its own, and x in global coordinates.  Condensation,
-    coalescence (its draws keyed by the global row) and kernel C's
-    unwrapped form, which gives the droplets that leave the slab target -1,
-    and the puddle fold; no merge and no far-mover repair: the mesh's
+    coalescence (its draws keyed by the global row, E's onishi form too)
+    and kernel C's unwrapped form, which gives the droplets that leave the
+    slab target -1 (under pred_corr its pred_corr form on a slab, which
+    reads d's halo-2 courants), and the puddle fold; no merge and no far-mover repair: the mesh's
     re-binning (parallel/dense_mesh.rebin_sharded) does both.  Returns (d,
     th, rv, tgt, far): d with the positions after transport, tgt the local
     target row of every slot and far the number of rows with a far mover
@@ -691,8 +699,9 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
         do_coal=do_coal, do_adve=do_adve, w_cells=w_cells, params=params,
         sstp_coal=sstp_coal, rng=(d.rng_seed, d.rng_step),
         coal_pairing=coal_pairing, slab=slab, closure=closure,
-        courants=(d.courant_x, d.courant_z) + (
-            (d.courant_y,) if y3 is not None else ()),
+        courants=(d.halo_cx, d.halo_cz) if slab is not None else (
+            (d.courant_x, d.courant_z)
+            + ((d.courant_y,) if y3 is not None else ())),
         y3=y3, plain=plain)
     puddle = d.puddle
     if rowinfo is not None:

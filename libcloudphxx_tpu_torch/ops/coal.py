@@ -215,7 +215,9 @@ def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
                   y=None, plain=False):
     """Kernel E in the resident step's form, or coal_resident_plain (same
     arguments and results): on the 3-D grid (``y``) its y forms, under the
-    turbulent kernels its onishi form."""
+    turbulent kernels its onishi form.  Row r draws as the global row
+    ``row0`` + r (a shard's of the x-slab mesh) in every form but the y
+    forms, which run on the grid's own rows."""
     if pairing not in PAIRINGS:
         raise ValueError(f"coal: pairing must be one of {PAIRINGS}, got "
                          f"{pairing!r}")
@@ -231,9 +233,9 @@ def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
         return _launch(kernel, cfg, params, sstp_coal, dt, seed, step,
                        (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
                        int(pairing == "sort"), int(row0))
-    # the y and onishi forms: the grid's rows only (the mesh runs neither)
-    if row0:
-        raise ValueError("coal: the y and onishi forms take no row0")
+    # the y forms: the grid's rows only (the x-slab mesh is 2-D)
+    if row0 and y is not None:
+        raise ValueError("coal: the y forms take no row0")
     if y is not None:
         _ext.check_planes("coal", n.shape[1], n, y)
         _ext.check("coal", n, y)
@@ -243,6 +245,7 @@ def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
     *outs, ovf = _launch(kernel, cfg, params, sstp_coal, dt, seed, step,
                          (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
                          int(pairing == "sort"),
+                         *((int(row0),) if onishi else ()),
                          None if y is None else y.data_ptr(),
                          None if y is None else y_out.data_ptr())
     return (*outs,) + (() if y is None else (y_out,)) + (ovf,)

@@ -199,8 +199,19 @@ def _cell_of(pos, d, n):
     return torch.clamp(torch.floor(q).to(torch.int64), 0, n - 1)
 
 
+def halo_column(cfg, i, col0, ncol):
+    """A global column ``i`` as a column of a shard's halo-2 layout
+    (parallel/decomp.xchng_courants_pc): i - col0, taken modulo nx into
+    [-2, ncol + 1] (the ring's halo holds the columns across the periodic
+    wrap), clamped there."""
+    li = i - col0
+    li = torch.where(li < -2, li + cfg.nx,
+                     torch.where(li > ncol + 1, li - cfg.nx, li))
+    return torch.clamp(li, -2, ncol + 1)
+
+
 def pred_corr(cfg, x, z, i_row, k_row, C_l, C_r, C_b, C_a, courants,
-              yax=None):
+              yax=None, slab=None):
     """The predictor-corrector SD advection of a row's droplets
     (libcloudphxx_tpu/lgrngn/dense.py:962-1005, the port's flat
     transport.adve; reference adve.ipp:184-304): the euler predictor with
@@ -210,8 +221,11 @@ def pred_corr(cfg, x, z, i_row, k_row, C_l, C_r, C_b, C_a, courants,
     courants of the predictor's cell, gathered from the staggered
     ``courants`` = (courant_x (nx+1)*ny*nz, courant_z nx*ny*(nz+1)[,
     courant_y nx*(ny+1)*nz]) with transport.courant_indices' index math.
-    On the 3-D grid ``yax`` = (y, j_row, C_f, C_h).  Returns (x, z), or
-    (x, z, y) with ``yax``."""
+    On the 3-D grid ``yax`` = (y, j_row, C_f, C_h).  On a shard of the
+    x-slab mesh (``slab`` = (col0, ncol)) ``courants`` are the shard's in
+    the halo-2 layout of parallel/decomp.xchng_courants_pc (x faces from
+    -2, z columns from -2), read at the predictor's halo_column.  Returns
+    (x, z), or (x, z, y) with ``yax``."""
     dCx, dCz = (C_r - C_l)[:, None], (C_a - C_b)[:, None]
     x_old, z_old = x, z
     x = x + dCx * (x - cfg.dx * i_row) + cfg.dx * C_l[:, None]
@@ -232,7 +246,11 @@ def pred_corr(cfg, x, z, i_row, k_row, C_l, C_r, C_b, C_a, courants,
             y = y_wr
     cx, cz = courants[:2]
     i_m, k_m = _cell_of(x, cfg.dx, cfg.nx), _cell_of(z, cfg.dz, cfg.nz)
-    if yax is None:
+    if slab is not None:
+        li = halo_column(cfg, i_m, *slab) + 2
+        lft, blw = li * cfg.nz + k_m, li * (cfg.nz + 1) + k_m
+        rgt = lft + cfg.nz
+    elif yax is None:
         lft = i_m * cfg.nz + k_m
         rgt, blw = lft + cfg.nz, lft + i_m
     else:
@@ -288,7 +306,11 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
     the open side walls do not kill, and a droplet outside the shard's
     columns or outside [x0, x1) gets target -1 and no far flag (the mesh
     moves it).  The targets are local rows; the near test has no x-wrap
-    clause."""
+    clause.  Under pred_corr the slab form reads ``courants`` in the
+    halo-2 layout (pred_corr) and wraps x as the serial form does, so
+    that the positions are the serial engine's; a droplet that moved
+    across the periodic wrap leaves too (on one shard its column is the
+    shard's own)."""
     n_cell, cap = n.shape
     col0, ncol = _slab(cfg, n_cell, slab)
     three = y3 is not None
@@ -313,10 +335,12 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
             + ((y,) if three else ())
 
     scheme = as_t(cfg.adve_scheme)
-    if do_adve and scheme == as_t.pred_corr:
+    pc = do_adve and scheme == as_t.pred_corr
+    if pc:
         x, z, *yy = pred_corr(cfg, x, z, i_row, k_row, C_l, C_r, C_b, C_a,
                               courants,
-                              (y, j_row, C_f, C_h) if three else None)
+                              (y, j_row, C_f, C_h) if three else None,
+                              slab=slab)
         y = yy[0] if three else None
     elif do_adve:
         dCx = col(C_r - C_l)
@@ -342,6 +366,8 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
             n = torch.where((x >= cfg.x1) | (x < cfg.x0), 0.0, n)
         else:
             x = wrap_x(cfg, x)
+    elif pc and not cfg.open_side_walls:
+        x = wrap_x(cfg, x)
     if three:
         if cfg.open_side_walls:
             n = torch.where((y >= cfg.y1) | (y < cfg.y0), 0.0, n)
@@ -375,8 +401,12 @@ def transport_plain(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta,
         wrap = float(cfg.nx - 1)
         near_x = near_x | (di == wrap) | (di == -wrap)
     else:
-        alive = alive & ~((x < cfg.x0) | (x >= cfg.x1) | (i_t < col0)
-                          | (i_t >= col0 + ncol))
+        leaves = (x < cfg.x0) | (x >= cfg.x1) | (i_t < col0) \
+            | (i_t >= col0 + ncol)
+        wrap = float(cfg.nx - 1)
+        if pc and not cfg.open_side_walls and wrap > 1.0:
+            leaves = leaves | (di == wrap) | (di == -wrap)
+        alive = alive & ~leaves
     near = (torch.abs(dk) <= 1.0) & near_x
     if three:
         j_t = row_of_y(cfg, y)
@@ -404,13 +434,14 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
     """Kernel C, or its plain version transport_plain (same arguments and
     results); with a ``slab`` kernel C's unwrapped form, counted as
     _ext.TRANSPORT_UNWRAPPED; advecting under pred_corr its pred_corr
-    form, counted as _ext.TRANSPORT_PRED_CORR, which reads ``courants``;
-    on the 3-D grid (``y3``) its 3-D forms, _ext.TRANSPORT_3D and
+    form, counted as _ext.TRANSPORT_PRED_CORR, which reads ``courants``,
+    and with a ``slab`` too its pred_corr form on a shard,
+    _ext.TRANSPORT_PRED_CORR_UNWRAPPED, which reads them in the halo-2
+    layout; on the 3-D grid (``y3``) its 3-D forms, _ext.TRANSPORT_3D and
     _ext.TRANSPORT_3D_PRED_CORR."""
     pc = do_adve and as_t(cfg.adve_scheme) == as_t.pred_corr
-    if pc and (courants is None or slab is not None):
-        raise ValueError("transport: pred_corr needs the staggered courants "
-                         "and has no unwrapped form")
+    if pc and courants is None:
+        raise ValueError("transport: pred_corr needs the staggered courants")
     kw = dict(do_adve=do_adve, w_cells=w_cells, slab=slab,
               courants=courants, y3=y3)
     args = (n, rw2, rd3, x, z, T, p, rhod, eta, C_l, C_r, C_b, C_a)
@@ -454,18 +485,23 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
         kernel, extra = (_ext.TRANSPORT, ()) if slab is None else \
             (_ext.TRANSPORT_UNWRAPPED, (col0, ncol))
         if pc:
-            kernel = _ext.TRANSPORT_PRED_CORR
+            kernel = _ext.TRANSPORT_PRED_CORR if slab is None else \
+                _ext.TRANSPORT_PRED_CORR_UNWRAPPED
     if pc:
         cx, cz = courants[:2]
         shapes = ((cfg.nx + 1) * cfg.ny * cfg.nz,
                   cfg.nx * cfg.ny * (cfg.nz + 1))
+        if slab is not None:  # the halo-2 layout (xchng_courants_pc)
+            nx_pad = n_cell // cfg.nz
+            shapes = ((nx_pad + 6) * cfg.nz, (nx_pad + 4) * (cfg.nz + 1))
         if three:
             cy = courants[2]
             shapes += (cfg.nx * (cfg.ny + 1) * cfg.nz,)
         if tuple(a.shape for a in courants) != tuple((k,) for k in shapes):
             raise ValueError("transport: courants must be the staggered "
                              "(nx+1)*ny*nz, nx*ny*(nz+1) (and 3-D "
-                             "nx*(ny+1)*nz) fields")
+                             "nx*(ny+1)*nz) fields, on a slab in the halo-2 "
+                             "layout")
         _ext.check("transport", n, *courants)
         extra += (cx.data_ptr(), cz.data_ptr()) + (
             (cy.data_ptr(),) if three else ())

@@ -27,8 +27,8 @@ The cases: "dryrun" is the JAX tool's configuration (19 x 8 cells of 100
 m, sd_conc 4, n_sd_max 8 a cell, the geometric kernel, beard77fast,
 sstp_cond = sstp_coal = 2, Cx 0.3, Cz 0.05; the dense mesh at row capacity
 16, buf 32); "dryrun_pred_corr" the same with pred_corr advection (the
-halo-2 courant exchange crossing between the ranks; flat front only, as
-the dense mesh refuses pred_corr); "gmd" is bench.py's full-width case
+halo-2 courant exchange crossing between the ranks, on both fronts);
+"gmd" is bench.py's full-width case
 (Kinematic2D at 76 x 76, sd_conc 64, sstp_cond = sstp_coal = 10, the
 model's n_sd_max of 739,328 slots; the dense mesh at row capacity 128
 and MeshRunner's buf).
@@ -237,7 +237,7 @@ class DenseMeshRun:
 
     def step(self, k):
         for _ in range(k):
-            self.shards, self.th, self.rv, c = self._step(
+            self.shards, self.th, self.rv, c, _ = self._step(
                 self.shards, self.th, self.rv, self.params, self.dt)
             self.crossed.append(c)
 

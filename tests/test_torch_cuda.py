@@ -1424,6 +1424,76 @@ def test_mesh_matches_serial_on_the_card(dev, coal_on):
     assert int(r.state().overflow) == 0
 
 
+@pytest.mark.parametrize("case", ["onishi_hall", "pred_corr",
+                                  "const_multi"])
+def test_mesh_options_match_serial_on_the_card(dev, case):
+    """The 8-shard mesh (slabs of 3,3,3,2,2,2,2,2 columns) under the
+    onishi kernel, pred_corr advection and a const-multi population's
+    coalescence, 19x10 cells, the courants x20 and the radii x30: 4 steps
+    (1 spin-up) every plane lane for lane bitwise the serial dense
+    engine's, th and rv too, and the same sstp_coal growth; E's onishi
+    form and C's pred_corr form on a slab launched on every shard."""
+    from libcloudphxx_tpu_torch.parallel import MeshRunner
+    oi = {"onishi_hall": dict(kernel=kernel_t.onishi_hall,
+                              kernel_parameters=[100.0]),
+          "pred_corr": dict(adve_scheme=as_t.pred_corr,
+                            kernel_parameters=[100.0]),
+          "const_multi": dict(sd_const_multi=1e11,
+                              kernel_parameters=[1e8])}[case]
+    kw = dict(nx=19, nz=10, sd_conc=0 if case == "const_multi" else 24,
+              sstp_cond=3, sstp_coal=2, n_sd_max=24 * 190, device=dev,
+              opts_init_kw=oi)
+    serial, mesh = Kinematic2D(**kw), Kinematic2D(**kw)
+    d0 = serial.dense_state
+    d0 = dataclasses.replace(d0, courant_x=20.0 * d0.courant_x,
+                             courant_z=20.0 * d0.courant_z,
+                             rw2=900.0 * d0.rw2)
+    r = MeshRunner(mesh, 8)
+    r.load(d0, mesh.th, mesh.rv)
+    for k in _ext.KERNELS:
+        k.launches = 0
+    r.run(4, spinup=1)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _ext.KERNELS}
+    serial.dense_state = d0
+    serial.run_device_lgrngn(4, spinup=1, engine="dense")
+    want = {"onishi_hall": dict(coal_onishi=8 * 3, transport_unwrapped=32),
+            "pred_corr": dict(coal=8 * 3, transport_pred_corr_unwrapped=32),
+            "const_multi": dict(coal=8 * 3, transport_unwrapped=32)}[case]
+    assert {k: launches[k] for k in want} == want
+    assert int(r.crossed) > 0
+    d_m, d_s = r.state(), serial.dense_state
+    for a in dense.ATTRS:
+        assert torch.equal(getattr(d_m, a), getattr(d_s, a)), a
+    assert torch.equal(mesh.th, serial.th) and torch.equal(mesh.rv, serial.rv)
+    assert mesh.prtcls._sstp_coal_extra == serial.prtcls._sstp_coal_extra
+    assert int(d_m.overflow) == 0
+
+
+@pytest.mark.parametrize("name", ["onishi_hall-eps100",
+                                  "onishi_hall_davis_no_waals"])
+@pytest.mark.parametrize("form", ["stride", "sort"])
+@pytest.mark.parametrize("cap", [32, 128, 512])
+def test_coal_onishi_kernel_with_row0_matches_plain(coal_model, cap, form,
+                                                    name):
+    """Kernel E's onishi form keyed by the global row (row0 of a mesh
+    shard) bitwise equal to its plain version lane by lane, and equal to
+    the same rows of a call on the grid they are part of."""
+    kernel, params = COAL_Y_KERNELS[name]
+    cfg = _coal_cfg(coal_model, kernel)
+    planes, cells = _coal_rows(coal_model.device, cap, rows=48, seed=4)
+    base = (cfg, params, 10, 100.0, 44, 3)
+    part = lambda plain: coal.coal_resident(
+        *base, *(p[16:40] for p in planes), *(c[16:40] for c in cells),
+        pairing=form, row0=16, plain=plain)
+    k = _launches(_ext.COAL_ONISHI, lambda: part(False))
+    p = part(True)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    whole = coal.coal_resident(*base, *planes, *cells, pairing=form)
+    assert all(torch.equal(a[16:40], b) for a, b in zip(whole, k))
+    assert float(k[0].sum()) < float(planes[0][16:40].sum())   # collided
+
+
 # ------------------------------------------- E's vohl form, C's pred_corr
 @pytest.mark.parametrize("form", ["stride", "sort"])
 @pytest.mark.parametrize("cap", [2, 32, 128, 256, 512])
@@ -1535,6 +1605,65 @@ def test_transport_pred_corr_kernel_matches_plain(dev, cap, misaligned,
         own = (torch.arange(cfg.n_cell, device=dev, dtype=torch.int32)
                [:, None].expand(n.shape))
         assert bool((kc[4][live] != own[live]).any())
+
+
+# (col0, ncol) of the pred_corr form's slabs of _pred_corr_case's 8-column
+# grid: MESH_SLABS', and the whole grid as one shard, the ring to itself
+# (a move across the periodic wrap leaves it)
+PC_SLABS = dict(MESH_SLABS, whole=(0, 8))
+
+
+def _halo2(cx, cz, nx, nz, col0, nx_pad):
+    """A grid's staggered courants as a shard's halo-2 layout
+    (parallel/decomp.xchng_courants_pc): x faces -2 .. nx_pad + 3 and z
+    columns -2 .. nx_pad + 1 from col0, the grid's taken round the
+    periodic ring."""
+    at = lambda lo, hi: torch.remainder(
+        torch.arange(col0 + lo, col0 + hi, device=cx.device), nx)
+    return (cx.view(nx + 1, nz)[at(-2, nx_pad + 4)].reshape(-1).contiguous(),
+            cz.view(nx, nz + 1)[at(-2, nx_pad + 2)].reshape(-1).contiguous())
+
+
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("slab", list(PC_SLABS))
+@pytest.mark.parametrize("cap", [2, 32, 100, 128, 512])
+def test_transport_pred_corr_unwrapped_kernel_matches_plain(dev, cap, slab,
+                                                            misaligned):
+    """Kernel C's pred_corr form on a shard of the x-slab mesh at row
+    capacity 2 to 512, in both layouts, on the first, an inner and the
+    last slab of three columns and on the whole grid as one shard, with
+    sedimentation: n, x, z, vt and the targets bitwise equal to
+    transport_plain in every slot, the far flags exact, the puddle
+    partials rel 1e-5, one launch counted as
+    TRANSPORT_PRED_CORR_UNWRAPPED; droplets leave the slab (across the
+    periodic wrap on the whole grid)."""
+    col0, ncol = PC_SLABS[slab]
+    nx_pad = 8 if slab == "whole" else 3
+    cfg, planes, cells, courants = _pred_corr_case(dev, cap)
+    rows = slice(col0 * 6, (col0 + nx_pad) * 6)
+    n, rw2, rd3, kpa, x, z = (p[rows].contiguous() for p in planes)
+    if misaligned:
+        buf = torch.empty(rw2.numel() + 1, dtype=torch.float32, device=dev)
+        buf[1:].view(rw2.shape).copy_(rw2)
+        rw2 = buf[1:].view(rw2.shape)
+    args = (cfg, 1.0, True, n, rw2, rd3, x, z) \
+        + tuple(c[rows].contiguous() for c in cells)
+    kw = dict(slab=(col0, ncol), courants=_halo2(*courants, 8, 6, col0,
+                                                  nx_pad))
+    before = _ext.TRANSPORT_PRED_CORR.launches
+    kc = _launches(_ext.TRANSPORT_PRED_CORR_UNWRAPPED,
+                   lambda: step.transport(*args, **kw))
+    assert _ext.TRANSPORT_PRED_CORR.launches == before
+    pc = step.transport(*args, **kw, plain=True)
+    for a, b in zip(kc[:5], pc[:5]):                      # n x z vt targets
+        assert torch.equal(a, b)
+    assert torch.equal(kc[5][:, 4], pc[5][:, 4])
+    assert torch.allclose(kc[5][:, :4], pc[5][:, :4], rtol=1e-5, atol=0.0)
+    if cap >= 32:
+        assert bool(((pc[0] > 0) & (pc[4] == -1)).any())
+    with pytest.raises(ValueError, match="halo-2"):
+        step.transport(*args, slab=(col0, ncol), courants=courants)
 
 
 def test_transport_pred_corr_refusals(dev):

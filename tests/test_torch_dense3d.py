@@ -497,8 +497,8 @@ def test_factory_gives_the_dense_front_in_3d():
 
 
 def test_mesh_refuses_3d():
-    """The x-slab mesh is 2-D, as the JAX package's (ROADMAP.md, Queue 1,
-    item 8)."""
+    """The x-slab mesh is 2-D, as the JAX package's (its y plane and
+    courant_y empty, its re-binning 2-D: parallel/dense_mesh.py)."""
     from libcloudphxx_tpu_torch.parallel import dense_mesh
     cfg = tl.particles_t(tl.backend_t.serial, _oi(tl), **F64).cfg
     with pytest.raises(NotImplementedError, match="3-D.*serial dense"):

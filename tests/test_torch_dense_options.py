@@ -61,6 +61,7 @@ from libcloudphxx_tpu_torch.lgrngn.dense_front import dense_capable
 from libcloudphxx_tpu_torch.lgrngn.state import (OUT_COAL_OVERFLOW,
                                                  OUT_PRTCL_NUM)
 from libcloudphxx_tpu_torch.ops import coal as tcoal
+from libcloudphxx_tpu_torch.parallel import MeshRunner
 
 F64 = dict(device="cpu", dtype=torch.float64)
 NX = NZ = 8
@@ -385,38 +386,68 @@ def test_sstp_coal_growth_counts_as_jax(engine):
     assert m.prtcls._sstp_coal_extra == 2
 
 
+def _mesh_and_serial(n_shards=2, nt=3, spinup=1, **kw):
+    """The x-slab mesh's run (MeshRunner) and the serial dense engine's
+    (run_device_lgrngn) of the same model: (mesh state, its model, serial
+    state, its model)."""
+    m, s = Kinematic2D(**kw, **F64), Kinematic2D(**kw, **F64)
+    r = MeshRunner(m, n_shards)
+    r.run(nt, spinup=spinup)
+    s.run_device_lgrngn(nt, spinup=spinup, engine="dense")
+    return r.state(), m, s.dense_state, s
+
+
+def _same_as_serial(d_m, m, d_s, s):
+    """The mesh's population lane for lane the serial engine's: n, rd3,
+    kappa and x equal, rw2, vt, z, th and rv at rtol 1e-12
+    (tests/test_torch_dense_mesh_options.py's gates), the same sstp_coal
+    growth."""
+    for a in tdense.ATTRS:
+        got, want = getattr(d_m, a).numpy(), getattr(d_s, a).numpy()
+        if a in ("n", "rd3", "kpa", "x"):
+            np.testing.assert_array_equal(got, want, err_msg=a)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-300,
+                                       err_msg=a)
+    np.testing.assert_allclose(m.th.numpy(), s.th.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(m.rv.numpy(), s.rv.numpy(), rtol=1e-12)
+    assert m.prtcls._sstp_coal_extra == s.prtcls._sstp_coal_extra
+    assert int(d_m.overflow) == 0
+
+
 def test_onishi_stays_refused():
-    """The x-slab mesh refuses the turbulent kernels (ROADMAP.md, Queue 1,
-    "The dense mesh with the onishi kernels"); the serial dense
-    engine runs them, as the JAX package's dense engine does
-    (tests/test_torch_dense_onishi.py), and so does the flat engine
-    (tests/test_torch_les.py)."""
-    from libcloudphxx_tpu_torch.parallel import MeshRunner
+    """The x-slab mesh refused the turbulent kernels until kernel E's
+    onishi form was keyed by the global rows; now it runs both, lane for
+    lane the serial dense engine's run (E's onishi form on each shard's
+    rows, with its first row), which runs them as the JAX package's dense
+    engine does (tests/test_torch_dense_onishi.py); the flat engine runs
+    them too (tests/test_torch_les.py)."""
     for kern in (tl.kernel_t.onishi_hall,
                  tl.kernel_t.onishi_hall_davis_no_waals):
         kw = dict(nx=8, nz=4, sd_conc=2, opts_init_kw={
-            "kernel": kern, "kernel_parameters": [100.0]}, **F64)
-        with pytest.raises(NotImplementedError,
-                           match=f"{kern.name}.*serial dense engine"):
-            MeshRunner(Kinematic2D(**kw), 2).run(1)
-        for engine in ("flat", "dense"):
-            m = Kinematic2D(engine=engine, **kw)
-            m.run_device_lgrngn(2, spinup=1, engine=engine)
-            assert torch.isfinite(m.th).all()
+            "kernel": kern, "kernel_parameters": [100.0]})
+        _same_as_serial(*_mesh_and_serial(**kw))
+        m = Kinematic2D(engine="flat", **kw, **F64)
+        m.run_device_lgrngn(2, spinup=1, engine="flat")
+        assert torch.isfinite(m.th).all()
 
 
 def test_mesh_refuses_pred_corr_and_const_multi():
-    """The x-slab mesh keeps refusing what it cannot run: pred_corr (the
-    corrector reads courants a shard does not hold) and a const-multi
-    population's coalescence (its sstp_coal growth); vohl runs there (E's
-    wide form keyed by the shard's global rows)."""
-    from libcloudphxx_tpu_torch.parallel import MeshRunner
-    for oi, match in (({"adve_scheme": tl.as_t.pred_corr}, "pred_corr"),
-                      ({"sd_const_multi": 1e11}, "const-multi")):
-        m = Kinematic2D(nx=8, nz=4, sd_conc=0 if "sd_const_multi" in oi
-                        else 4, n_sd_max=4096, opts_init_kw=oi, **F64)
-        with pytest.raises(NotImplementedError, match=match):
-            MeshRunner(m, 2).run(1)
+    """The x-slab mesh refused pred_corr (the corrector reads courants a
+    shard does not hold) and a const-multi population's coalescence (its
+    sstp_coal growth) until kernel C's pred_corr form on a slab read the
+    halo-2 courants and the step read every shard's growth request; now
+    both run lane for lane the serial engine's, const-multi growing
+    sstp_coal alike; vohl runs there too (E's wide form keyed by the
+    shard's global rows)."""
+    for oi in ({"adve_scheme": tl.as_t.pred_corr},
+               {"sd_const_multi": 1e11, "kernel_parameters": [1e8]}):
+        kw = dict(nx=8, nz=4, sd_conc=0 if "sd_const_multi" in oi else 4,
+                  n_sd_max=4096, opts_init_kw=oi)
+        d_m, m, d_s, s = _mesh_and_serial(**kw)
+        _same_as_serial(d_m, m, d_s, s)
+        if "sd_const_multi" in oi:
+            assert s.prtcls._sstp_coal_extra > 0
     m = Kinematic2D(nx=8, nz=4, sd_conc=4, n_sd_max=4096, opts_init_kw={
         "kernel": tl.kernel_t.vohl_davis_no_waals}, **F64)
     r = MeshRunner(m, 2)

@@ -332,16 +332,19 @@ def test_unported_paths_raise(what, port):
     m, _, _ = port
     if what == "coalescence":
         # coalescence runs (test_coal_slice_*), with the turbulent kernels
-        # too (tests/test_torch_dense_onishi.py), but not with them on the
-        # x-slab mesh (ROADMAP.md, Queue 1, "The dense mesh with the onishi
-        # kernels")
-        from libcloudphxx_tpu_torch.parallel import MeshRunner
+        # too (tests/test_torch_dense_onishi.py), on the x-slab mesh as well
+        # (tests/test_torch_dense_mesh_options.py); what the mesh refuses
+        # is the 3-D grid, which the JAX package's mesh does not run either
+        from libcloudphxx_tpu_torch.parallel import (MeshRunner,
+                                                     dense_step_sharded)
         m2 = Kinematic2D(nx=8, nz=4, sd_conc=2, device="cpu",
                          dtype=torch.float64,
                          opts_init_kw={"kernel": kernel_t.onishi_hall,
                                        "kernel_parameters": [100.0]})
-        with pytest.raises(NotImplementedError, match="onishi_hall"):
-            MeshRunner(m2, 2).run(1)
+        MeshRunner(m2, 2).run(1)
+        cfg3 = dataclasses.replace(m2.cfg, n_dims=3)
+        with pytest.raises(NotImplementedError, match="3-D grid"):
+            dense_step_sharded(cfg3, [], 1, 1, True, True, 44.0)
         return
     if what == "grid":
         # the cell and node grids run (test_torch_kinematic_blk.py); an

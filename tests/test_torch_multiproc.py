@@ -113,6 +113,27 @@ def test_dense_mesh_bitwise_two_processes(coal_run):
     assert dense["crossed"] > 0
 
 
+def test_dense_mesh_pred_corr_bitwise_two_processes(tmp_path):
+    """The dense mesh under pred_corr advection: its halo-2 courant
+    exchange (at the load) and its movers crossing between the ranks, the
+    two-process mesh is bitwise the one-process mesh after 2 steps, with
+    no SD dropped and the crossings summed over the ranks."""
+    ranks = twoproc.launch(tmp_path / "two", case="dryrun_pred_corr",
+                           steps=1, timeout=RANK_TIMEOUT, **CPU_NAMES)
+    (tmp_path / "one").mkdir()
+    dense = _one_process(twoproc.run_dense, "dryrun_pred_corr",
+                         out=tmp_path / "one")
+    assert twoproc.same_files(tmp_path / "two", tmp_path / "one",
+                              DENSE) == []
+    for r in ranks:
+        d = r["dense"]
+        assert d["overflow"] == 0.0 and d["finite"]
+        for k in ("total0", "total1", "crossed"):
+            assert d[k] == dense[k], k
+    assert dense["crossed"] > 0
+    assert ranks[0]["dense"]["launches"] == {}      # the CPU runs no kernel
+
+
 @pytest.mark.parametrize("call", ["get_attr", "outbuf", "diag_sd_conc",
                                   "save", "sync_out", "sources"])
 def test_two_process_front_refuses_host_fetches(coal_run, call):

@@ -37,30 +37,34 @@ def port_state(jax_dense, dtype=torch.float64):
     return dense_state_from_numpy(arrays, "cpu", dtype)
 
 
-def port_shuffle(seed, step, substep, n):
+def port_shuffle(seed, step, substep, n, row0=0):
     """The port's shuffle of one coalescence substep (ops/coal.py) as a
-    numpy gather index: row r's lane j takes the SD of lane perm[r, j]."""
+    numpy gather index: row r's lane j takes the SD of lane perm[r, j]
+    (row r drawing as the global row row0 + r)."""
     from libcloudphxx_tpu_torch.ops import coal, philox
     n = np.asarray(n)
-    bits = philox.draw(seed, step, substep, philox.SHUFFLE, *n.shape)
+    bits = philox.draw(seed, step, substep, philox.SHUFFLE, *n.shape,
+                       row0=row0)
     key = coal.shuffle_key(bits, torch.tensor(n > 0))
     return torch.sort(key, dim=1).indices.numpy()
 
 
-def port_u01(seed, step, substep, shape):
+def port_u01(seed, step, substep, shape, row0=0):
     """The port's Bernoulli plane of one coalescence substep, float64."""
     from libcloudphxx_tpu_torch.ops import philox
-    bits = philox.draw(seed, step, substep, philox.BERNOULLI, *shape)
+    bits = philox.draw(seed, step, substep, philox.BERNOULLI, *shape,
+                       row0=row0)
     return philox.u01(bits, torch.float64).numpy()
 
 
 def jax_coal_loop(cfg, params, sstp, dt, seed, step, planes, cells,
-                  pairing="stride", eff_table=None, r_max_um=0.0):
+                  pairing="stride", eff_table=None, r_max_um=0.0, row0=0):
     """The coalescence phase of the resident step (pallas_step.py:233-336)
     built from the JAX package's functions, fed the port's shuffles and
-    Bernoulli planes.  ``planes`` (n, rw2, rd3, kpa, x, z), or with the
-    3-D grid's y after z, and ``cells`` (T, p, rhod, eta, dv) numpy;
-    returns the planes."""
+    Bernoulli planes (the rows drawing as the global rows row0, row0 + 1,
+    ...: a shard's of the x-slab mesh).  ``planes`` (n, rw2, rd3, kpa, x,
+    z), or with the 3-D grid's y after z, and ``cells`` (T, p, rhod, eta,
+    dv) numpy; returns the planes."""
     import jax.numpy as jnp
 
     from libcloudphxx_tpu.lgrngn import dense as jdense
@@ -80,21 +84,22 @@ def jax_coal_loop(cfg, params, sstp, dt, seed, step, planes, cells,
         for s in range(sstp):
             if s % n_strides == 0:
                 n, rw2, rd3, kpa, *pos = take(
-                    port_shuffle(seed, step, s, n), n, rw2, rd3, kpa, *pos)
+                    port_shuffle(seed, step, s, n, row0), n, rw2, rd3, kpa,
+                    *pos)
             n, rw2, rd3, kpa, _ = jdense.pair_and_collide_stride(
                 cfg, jp, (n, rw2, rd3, kpa, vt_of(jnp.asarray(rw2))),
                 1 << (s % n_strides), dv, rhod, eta, dt_sub,
-                port_u01(seed, step, s, n.shape), **kw)
+                port_u01(seed, step, s, n.shape, row0), **kw)
     else:
         ids = np.broadcast_to(np.arange(n.shape[1]), n.shape)
         for s in range(sstp):
-            n, rw2, rd3, kpa, ids = take(port_shuffle(seed, step, s, n), n,
-                                         rw2, rd3, kpa, ids)
+            n, rw2, rd3, kpa, ids = take(port_shuffle(seed, step, s, n, row0),
+                                         n, rw2, rd3, kpa, ids)
             count = (n > 0).sum(1, keepdims=True).astype(float)
             n, rw2, rd3, kpa, _ = jdense.pair_and_collide(
                 cfg, jp, (n, rw2, rd3, kpa, vt_of(jnp.asarray(rw2))), count,
-                dv, rhod, eta, dt_sub, port_u01(seed, step, s, n.shape),
-                **kw)
+                dv, rhod, eta, dt_sub,
+                port_u01(seed, step, s, n.shape, row0), **kw)
         n, rw2, rd3, kpa = take(np.argsort(ids, axis=1), n, rw2, rd3, kpa)
     return tuple(np.asarray(a) for a in (n, rw2, rd3, kpa, *pos))
 
