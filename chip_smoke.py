@@ -299,9 +299,26 @@ checks them:
      dataset finite and (76, 76), the kernels it launched counted (A
      twice a step, B, C and D once, E once a coalescing step), its
      ms/step beside Kinematic2D.run()'s at the same settings
+ 26. run_device_lgrngn's two switches of the JAX package on bench.py's
+     case, TIME_STEPS steps from init with SWITCH_SPINUP of spin-up: the
+     default, defer_x (the deferred re-binning: kernel B's merge-prologue
+     form in every step but the first, D only at the run's end),
+     mpdata_fuse (th and rv advected in D's MPDATA-epilogue form, kernel A
+     at each phase's first step) and both, each with bench.py's physics
+     checks, its launches of A, B, B's form, D and D's form counted and
+     bitwise the default run (every plane, th, rv, the overflow); defer_x
+     with the repack policy every SWITCH_REPACK steps bitwise its default
+     twin, chunk logs alike; B's merge-prologue form against its plain
+     version on a deferred step's inputs (the merged planes and drops
+     bitwise, the condensation within B's gates) and D's MPDATA form on a
+     fused step's (the planes bitwise D's, th and rv bitwise kernel A's
+     and _advect_body's); ms/step, best of TIME_REPS, of each run, the
+     device launches and kernel times a step from a profile of
+     SWITCH_PROFILE_STEPS coalescing steps, each form timed alone beside
+     what it replaces, its plain version and its bound
 
 Every phase prints its seconds (``phase N: s``), and the script the
-seconds of phases 3-25 beside the build's.
+seconds of phases 3-26 beside the build's.
 
 Run from the repository root: ``python3 chip_smoke.py``; ``--profile``
 adds the device-time split of the coalescing steps on the dense engine,
@@ -351,6 +368,10 @@ EXACT_VARIANTS = {
 EXACT_LENGTHS, EXACT_DEAD = (1, 32773), 65536
 EXACT_PLAIN_STEPS, EXACT_PLAIN_SPINUP = 5, 3
 FORM_PLAIN_REPS = 3
+# phase 10's plain path from init: one rep, not TIME_REPS (0.3-0.4 s a step
+# on an H100: three reps took about a minute of the script's time), and
+# the kernels' plain versions FORM_PLAIN_REPS calls each, not KERNEL_REPS
+PLAIN_TIME_REPS = 1
 
 # the card's peak rates (H100 SXM data sheet, at a 700 W power limit):
 # device memory bytes/s, float32 and float64 operations/s outside the
@@ -600,6 +621,13 @@ MULTI_MOM_GATE = {0: 2.5e-6, 3: 2.5e-6}
 TWOPROC_CASE, TWOPROC_STEPS, TWOPROC_TIMEOUT = "gmd", 5, 300.0
 TWOPROC_DENSE = ("cond", "coal", "transport_unwrapped", "merge")
 CLI_NT, CLI_SPINUP, CLI_OUTFREQ = 30, 10, 10
+# phase 26: run_device_lgrngn's two switches on bench.py's case, TIME_STEPS
+# steps from init (SWITCH_SPINUP of spin-up), the repack policy's chunks
+# of SWITCH_REPACK steps, and the profiled window's coalescing steps
+SWITCHES = {"default": {}, "defer_x": {"defer_x": True},
+            "mpdata_fuse": {"mpdata_fuse": True},
+            "both": {"defer_x": True, "mpdata_fuse": True}}
+SWITCH_SPINUP, SWITCH_REPACK, SWITCH_PROFILE_STEPS = 10, 10, 10
 # kernel C's 3-D forms a live SD beside OPS_TRANSPORT: y's advection, wall
 # and classification; kernel E's onishi form a pair beside the table
 # lookup: Wang's enhancement (onishi.cuh wang_enhancement) and the square
@@ -728,14 +756,14 @@ def device_ms(run, steps, names):
     return out
 
 
-def time_reps(m, init, steps, plain, totals, dense):
-    """Best of TIME_REPS from-init reps of ``steps`` dense steps of model
+def time_reps(m, init, steps, plain, totals, dense, reps=TIME_REPS):
+    """Best of ``reps`` from-init reps of ``steps`` dense steps of model
     ``m`` (after a 2-step warm-up), bench.py's physics checks against
     ``totals`` (water, dry) on every rep: (seconds, (th, rv, state) of the
     last rep); the model is put back at ``init``."""
     m.run_device_lgrngn(2, plain=plain, engine="dense")  # warm-up
     best = float("inf")
-    for _ in range(TIME_REPS):
+    for _ in range(reps):
         m.dense_state, m.th, m.rv = init
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1532,7 +1560,8 @@ def smoke(opts):
 
     # ---- 10. timing: from-init reps through the kernels and the plain path
     def run_reps(m, init, steps, plain):
-        return time_reps(m, init, steps, plain, (water0, dry0), dense)
+        return time_reps(m, init, steps, plain, (water0, dry0), dense,
+                         PLAIN_TIME_REPS if plain else TIME_REPS)
 
     dense_ms = {}
     for label, m, init, steps in (
@@ -1545,10 +1574,11 @@ def smoke(opts):
         wk = dense.water_dry_totals(s_k, rv_k)[0]
         wp = dense.water_dry_totals(s_p, rv_p2)[0]
         lost = collided(init[0], s_k)
-        for how, t in (("kernels", t_k), ("plain", t_p)):
+        for how, t, reps in (("kernels", t_k, TIME_REPS),
+                             ("plain", t_p, PLAIN_TIME_REPS)):
             print(f"timing {label}, {how}: {t / steps * 1e3:.3f} ms/step, "
                   f"{n_sd * steps / t:.4g} SD-updates/s ({steps} steps, "
-                  f"best of {TIME_REPS}; {card})")
+                  f"best of {reps}; {card})")
         print(f"{label}, kernels vs plain after {steps} steps: th rel "
               f"{rel_th:.2e}, rv rel {rel_rv:.2e}, total water rel "
               f"{abs(wk - wp) / wp:.2e}; multiplicity lost to collisions "
@@ -1663,10 +1693,11 @@ def smoke(opts):
                  _ext.TRANSPORT_3D, _ext.TRANSPORT_3D_PRED_CORR,
                  _ext.MERGE_3D, _ext.MERGE_3D_EXACT, _ext.COAL_3D,
                  _ext.COAL_VOHL_3D, _ext.COAL_ONISHI,         # 22's
-                 _ext.TRANSPORT_PRED_CORR_UNWRAPPED):         # 14's
+                 _ext.TRANSPORT_PRED_CORR_UNWRAPPED,          # 14's
+                 _ext.COND_MERGED, _ext.MERGE_MPDATA):        # 26's
             continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
-        plain_ms = time_cuda(lambda: calls[k.name](True), KERNEL_REPS)
+        plain_ms = time_cuda(lambda: calls[k.name](True), FORM_PLAIN_REPS)
         bound_ms, bound_by = bounds[k.name]
         print(f"kernel {k.name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}) ({card})")
@@ -1834,7 +1865,11 @@ def smoke(opts):
         if kr["name"] in cli_launches:
             kr["cli_launches"] = cli_launches[kr["name"]]
     phase_done(25)
-    print(f"chip_smoke: phases 3-25 in {time.perf_counter() - t_start:.1f} s "
+
+    # ---- 26. the deferred re-binning and D's MPDATA epilogue
+    rows += switches_phase(Kinematic2D, dense, _ext, step, mpdata, card)
+    phase_done(26)
+    print(f"chip_smoke: phases 3-26 in {time.perf_counter() - t_start:.1f} s "
           f"(the build before them {build_s:.1f} s)", flush=True)
 
     if opts.profile:
@@ -3658,15 +3693,20 @@ def kernel_bounds(cfg, d0, ds, th0, rv0, tha, rva, mp, kc, f_cfg, f_kw,
         2 * n_cell * (OPS_DONOR + OPS_ANTIDIFF + OPS_DONOR))
     out["cond"] = cond_bound(cfg, d0, tha, rva)
     out["transport"] = transport_bound(cfg, d0, kc)
-    # D: the targets of every slot and the seven planes of the droplets it
-    # takes (those alive after C) in, seven planes and the drops out
-    slot, live_c = d0.n.element_size(), int((kc[0] > 0).sum())
-    out["merge"] = bound(
-        nbytes(kc[4]) + 7 * slot * live_c + 7 * nbytes(d0.n)
-        + nbytes(d0.rhod), live_c * OPS_MERGE)
+    out["merge"] = bound(*merge_work(kc[4], kc[0]))
     out.update(coal_bounds(cfg, ds, work_e))
     out["cond_flat"] = cond_flat_bound(f_cfg, f_kw)
     return out
+
+
+def merge_work(tgt, n):
+    """Kernel D's (bytes, operations) on the targets ``tgt`` of kernel C's
+    planes, ``n`` their multiplicities: the targets of every slot and the
+    seven planes of the droplets it takes (those alive after C) in, seven
+    planes and the drops out; each taken droplet's placement."""
+    slot, live_c = n.element_size(), int((n > 0).sum())
+    return (nbytes(tgt) + 7 * slot * live_c + 7 * nbytes(n)
+            + n.shape[0] * slot, live_c * OPS_MERGE)
 
 
 def cond_flat_bound(f_cfg, f_kw):
@@ -3722,6 +3762,11 @@ def cond_kw_bound(kw):
     planes, nine cell fields and the row order in, one plane and six cell
     fields out; the first substep's growth work sstp_cond times, each live
     droplet's set-up and rebuilt vt, each cell's substeps."""
+    return bound(*cond_kw_work(kw))
+
+
+def cond_kw_work(kw):
+    """cond_kw_bound's (bytes, float32 operations, float64 operations)."""
     from libcloudphxx_tpu_torch.lgrngn.hskpng import hskpng_Tpr
     from libcloudphxx_tpu_torch.lgrngn.vterm import vt_in_kernel
     cfg, n, sstp = kw["cfg"], kw["n"], kw["sstp_cond"]
@@ -3744,10 +3789,9 @@ def cond_kw_bound(kw):
     print(f"B cond: {brk / n_live:.4f} of the {n_live} live droplets "
           f"bracketed in the first substep")
     vt32, vt64 = vt_ops(cfg, kw["rw2"][live])
-    return bound(
-        5 * nbytes(n) + 16 * nbytes(rhod),
-        sstp * ops_b + live0 * OPS_DROP + vt32 + n.numel()
-        + n_cell * (sstp * OPS_CELL_SUBSTEP + 2 * OPS_CLOSURE), vt64)
+    return (5 * nbytes(n) + 16 * nbytes(rhod),
+            sstp * ops_b + live0 * OPS_DROP + vt32 + n.numel()
+            + n_cell * (sstp * OPS_CELL_SUBSTEP + 2 * OPS_CLOSURE), vt64)
 
 
 def transport_bound(cfg, d0, kc):
@@ -3840,12 +3884,16 @@ def mpdata_bound(fields, mp, n_iters, fct):
     """Kernel A's bound on ``fields``: each field in and out, the courants
     and G, against the donor passes, the corrective iterations and their
     limiter (with ``fct``) of every cell and field."""
+    return bound(*mpdata_work(fields, mp, n_iters, fct))
+
+
+def mpdata_work(fields, mp, n_iters, fct):
+    """mpdata_bound's (bytes, operations)."""
     n_cell = fields[0].numel()
-    return bound(2 * nbytes(*fields) + nbytes(*mp),
-                 len(fields) * n_cell * (
-                     n_iters * OPS_DONOR
-                     + (n_iters - 1) * (OPS_ANTIDIFF + (OPS_FCT if fct
-                                                        else 0))))
+    return (2 * nbytes(*fields) + nbytes(*mp),
+            len(fields) * n_cell * (
+                n_iters * OPS_DONOR
+                + (n_iters - 1) * (OPS_ANTIDIFF + (OPS_FCT if fct else 0))))
 
 
 def bulk_phase(Kinematic2D, mpdata, _ext, card, profile_on):
@@ -6375,6 +6423,242 @@ def cli_phase(Kinematic2D, _ext, card):
           f"rw_rng001_mom0 max {float(last['rw_rng001_mom0'].max()):.4g} "
           f"({card})", flush=True)
     return launches
+
+
+# ------------------------------------------------------------------ phase 26
+def switch_launches(steps, spinup, kw):
+    """The launches of kernels A, B, B's merge-prologue form, D and D's
+    MPDATA form that run_device_lgrngn(steps, spinup, engine="dense",
+    **kw) makes from a flushed state without far movers: one of A, B and D
+    a step by default; defer_x moves every step's merge but the last into
+    the next step's B (the run's end flushes the last), mpdata_fuse moves
+    A into D's launch but at each phase's first step, and with both A
+    runs after every deferred step and at each phase's first."""
+    defer, fuse = kw.get("defer_x", False), kw.get("mpdata_fuse", False)
+    phases = 2 if 0 < spinup < steps else 1
+    return {"mpdata": (phases if fuse else 0)
+            + (steps if defer or not fuse else 0),
+            "cond": 1 if defer else steps,
+            "cond_merged": steps - 1 if defer else 0,
+            "merge": 1 if defer else (0 if fuse else steps),
+            "merge_mpdata": steps if fuse and not defer else 0}
+
+
+def same_run(a, b):
+    """Whether two (DenseState, th, rv) are bitwise equal: every plane and
+    cell field, th, rv and the overflow."""
+    (da, tha, rva), (db, thb, rvb) = a, b
+    fields = [f.name for f in dataclasses.fields(da)
+              if isinstance(getattr(da, f.name), torch.Tensor)]
+    return (torch.equal(tha, thb) and torch.equal(rva, rvb)
+            and all(torch.equal(getattr(da, f), getattr(db, f))
+                    for f in fields))
+
+
+def switch_profile(m, start, kw, steps=SWITCH_PROFILE_STEPS):
+    """Device launches and time a step of ``steps`` coalescing steps of
+    run_device_lgrngn(**kw) from ``start`` (torch.profiler): (launches of
+    every kernel, launches of the port's kernels, busy ms, {kernel: ms})
+    a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    m.dense_state, m.th, m.rv = start
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        m.run_device_lgrngn(steps, engine="dense", **kw)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    mine = {k.split("(")[0].replace("void ", ""): ms for k, ms, _ in rows
+            if "lcp::" in k}
+    return (sum(r[2] for r in rows), sum(r[2] for r in rows
+                                         if "lcp::" in r[0]),
+            sum(r[1] for r in rows), mine)
+
+
+def switches_phase(Kinematic2D, dense, _ext, step, mpdata, card):
+    """Phase 26 (the module docstring): run_device_lgrngn's defer_x and
+    mpdata_fuse on bench.py's case.  Returns the kernel rows of B's
+    merge-prologue form and D's MPDATA-epilogue form."""
+    from libcloudphxx_tpu_torch.models.mpdata import _advect_body
+    m = make_model(Kinematic2D, coal=True)
+    init = (m.dense_state, m.th, m.rv)
+    totals = dense.water_dry_totals(init[0], init[2])
+    err, runs, got = {}, {}, {}
+    # (a) the four runs from init, their launches counted
+    for label, kw in SWITCHES.items():
+        m.dense_state, m.th, m.rv = init
+        reset(_ext.KERNELS)
+        m.run_device_lgrngn(TIME_STEPS, spinup=SWITCH_SPINUP, engine="dense",
+                            **kw)
+        torch.cuda.synchronize()
+        physics_checks(m, *totals, dense)
+        runs[label] = (m.dense_state, m.th, m.rv)
+        want = switch_launches(TIME_STEPS, SWITCH_SPINUP, kw)
+        got[label] = {k.name: k.launches for k in _ext.KERNELS
+                      if k.name in want}
+        same = label == "default" or same_run(runs[label], runs["default"])
+        print(f"phase 26 (a) {label}: {SWITCH_SPINUP} spin-up + "
+              f"{TIME_STEPS - SWITCH_SPINUP} steps, launches {got[label]}, "
+              f"the default run's bits {same}", flush=True)
+        check(got[label] == want, f"phase 26 {label}: launches {got[label]}, "
+              f"expected {want}")
+        check(same, f"phase 26 {label}: the run differs from the default")
+    # (b) defer_x with the repack policy: chunk ends on pending merges
+    logs = {}
+    for defer in (False, True):
+        m.dense_state, m.th, m.rv = init
+        log = []
+        m.run_device_lgrngn(TIME_STEPS, spinup=SWITCH_SPINUP, engine="dense",
+                            repack_every=SWITCH_REPACK, chunk_log=log,
+                            defer_x=defer)
+        logs[defer] = ([{k: v for k, v in e.items() if k != "seconds"}
+                        for e in log], (m.dense_state, m.th, m.rv))
+    same = logs[True][0] == logs[False][0] and same_run(logs[True][1],
+                                                        logs[False][1])
+    print(f"phase 26 (b) defer_x, repack_every={SWITCH_REPACK}: "
+          f"{len(logs[True][0])} chunks, the default twin's bits and chunk "
+          f"log {same}", flush=True)
+    check(same, "phase 26: defer_x with the repack policy differs from its "
+          "default twin")
+
+    # (c) each form against its plain version on what a step gives it
+    m.dense_state, m.th, m.rv = init
+    m.run_device_lgrngn(SWITCH_SPINUP, spinup=SWITCH_SPINUP, engine="dense")
+    s_sp = (m.dense_state, m.th, m.rv)
+
+    def set_state(s):
+        m.dense_state, m.th, m.rv = s
+
+    b_kw = capture(step, "cond", lambda: (
+        set_state(s_sp), m.run_device_lgrngn(2, engine="dense",
+                                             defer_x=True)))
+    check(b_kw.get("pending_tgt") is not None,
+          "phase 26: the second deferred step's B had no pending merge")
+    kb, pb = step.cond(**b_kw), step.cond(**b_kw, plain=True)
+    torch.cuda.synchronize()
+    live = pb[7] > 0
+    planes_same = all(torch.equal(a, b) for a, b in zip(kb[7:], pb[7:]))
+    rel = (max_rel(kb[1], pb[1]), max_rel(kb[2], pb[2]),
+           max_rel(kb[0][live], pb[0][live]))
+    err["cond_merged"] = max(max_abs(kb[0][live], pb[0][live]),
+                             *(max_abs(a, b) for a, b in zip(kb[1:], pb[1:])))
+    moved = int((b_kw["pending_tgt"] != torch.arange(
+        b_kw["n"].shape[0], device=live.device)[:, None])[
+            b_kw["n"] > 0].sum())
+    print(f"B cond_merged: {int(live.sum())} SDs, {moved} of them merged "
+          f"from another row; merged planes and drops bitwise "
+          f"{planes_same}; th rel {rel[0]:.2e}, rv rel {rel[1]:.2e}, rw2 "
+          f"rel {rel[2]:.2e}", flush=True)
+    check(planes_same and rel[0] <= 2e-6 and rel[1] <= 2e-5
+          and rel[2] <= 1e-5,
+          "B's merge-prologue form disagrees with its plain version")
+    calls = capture(dense, "rebin_x", lambda: (
+        set_state(s_sp), m.run_device_lgrngn(1, engine="dense",
+                                             mpdata_fuse=True)), which=None)
+    d_kw = [c for c in calls if c.get("mpdata") is not None]
+    check(len(d_kw) == 1, f"phase 26: {len(d_kw)} D calls with the "
+          f"epilogue in a fused step")
+    d_kw = d_kw[0]
+    th, rv, gc_x, gc_z, G, n_iters, fct = d_kw["mpdata"]
+    kd, pd = step.rebin_x(**d_kw), step.rebin_x(**d_kw, plain=True)
+    d_plain_kw = {a: v for a, v in d_kw.items() if a != "mpdata"}
+    d_only = step.rebin_x(**d_plain_kw)
+    a_k = mpdata.advect2(th.reshape(NX, NZ), rv.reshape(NX, NZ), gc_x, gc_z,
+                         G, n_iters=n_iters, fct=fct)
+    a_p = tuple(_advect_body(f.reshape(NX, NZ), gc_x, gc_z, G, n_iters, fct)
+                for f in (th, rv))
+    torch.cuda.synchronize()
+    same_d = all(torch.equal(a, b) and torch.equal(a, c)
+                 for a, b, c in zip(kd[:8], pd[:8], d_only))
+    same_a = all(torch.equal(a, b) and torch.equal(a, c)
+                 for a, b, c in zip(kd[8:], a_k, a_p))
+    err["merge_mpdata"] = max(max_abs(a, b) for a, b in zip(kd, pd))
+    print(f"D merge_mpdata: planes and drops bitwise D's and the plain "
+          f"version's {same_d}; th and rv bitwise kernel A's and "
+          f"_advect_body's {same_a} (n_iters {n_iters}, fct {fct})",
+          flush=True)
+    check(same_d and same_a, "D's MPDATA-epilogue form disagrees")
+
+    # (d) ms/step, best of TIME_REPS from init, and (e) the profile
+    ms_step, prof = {}, {}
+    for label, kw in SWITCHES.items():
+        m.dense_state, m.th, m.rv = init
+        m.run_device_lgrngn(2, engine="dense", **kw)       # warm-up
+        best = float("inf")
+        for _ in range(TIME_REPS):
+            m.dense_state, m.th, m.rv = init
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.run_device_lgrngn(TIME_STEPS, engine="dense", **kw)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+            physics_checks(m, *totals, dense)
+        ms_step[label] = best / TIME_STEPS * 1e3
+        prof[label] = switch_profile(m, s_sp, kw)
+        n_all, n_mine, busy, mine = prof[label]
+        print(f"timing {label}: {ms_step[label]:.3f} ms/step ({TIME_STEPS} "
+              f"steps from init, best of {TIME_REPS}); profile of "
+              f"{SWITCH_PROFILE_STEPS} coalescing steps: {n_all:.1f} device "
+              f"launches a step, {n_mine:.1f} of the port's kernels, busy "
+              f"{busy:.4f} ms; " + ", ".join(
+                  f"{name} {v:.4f}" for name, v in sorted(mine.items()))
+              + f" ms a step ({card})", flush=True)
+    m.dense_state, m.th, m.rv = init
+
+    # (f) the forms alone and what they replace, (g) their bounds
+    merged_kw = {a: v for a, v in b_kw.items()
+                 if a not in ("pending_tgt", "vt", "x", "z")}
+    merged_kw.update(n=pb[7], rw2=pb[8], rd3=pb[9], kpa=pb[10])
+    d_bytes, d_ops = merge_work(b_kw["pending_tgt"], b_kw["n"])
+    b_bytes, b_ops, b_ops64 = cond_kw_work(merged_kw)
+    dm_bytes, dm_ops = merge_work(d_kw["tgt"], d_kw["n"])
+    a_bytes, a_ops = mpdata_work((th, rv), (gc_x, gc_z, G), n_iters, fct)
+    bounds = {"cond_merged": bound(b_bytes + d_bytes, b_ops + d_ops, b_ops64),
+              "merge_mpdata": bound(dm_bytes + a_bytes, dm_ops + a_ops)}
+    timed = {
+        "cond_merged": (lambda plain: step.cond(**b_kw, plain=plain),
+                        "B alone on the merged rows",
+                        lambda: step.cond(**merged_kw)),
+        "merge_mpdata": (lambda plain: step.rebin_x(**d_kw, plain=plain),
+                         "D alone",
+                         lambda: step.rebin_x(**d_plain_kw))}
+    a_ms = time_cuda(lambda: mpdata.advect2(
+        th.reshape(NX, NZ), rv.reshape(NX, NZ), gc_x, gc_z, G,
+        n_iters=n_iters, fct=fct), KERNEL_REPS)
+    kernel_names = {"cond_merged": "cond_kernel", "merge_mpdata":
+                    "merge_mpdata_kernel"}
+    launches = {"cond_merged": got["defer_x"]["cond_merged"],
+                "merge_mpdata": got["mpdata_fuse"]["merge_mpdata"]}
+    where = {"cond_merged": "defer_x", "merge_mpdata": "mpdata_fuse"}
+    rows = []
+    for name, (call, alone, other) in timed.items():
+        kernel = getattr(_ext, name.upper())
+        ms = time_cuda(lambda: call(False), KERNEL_REPS)
+        plain_ms = time_cuda(lambda: call(True), FORM_PLAIN_REPS)
+        other_ms = time_cuda(other, KERNEL_REPS)
+        in_step = sum(v for k, v in prof[where[name]][3].items()
+                      if kernel_names[name] in k
+                      and (name != "cond_merged" or "MergePrologue" in k))
+        bound_ms, bound_by = bounds[name]
+        print(f"kernel {name}: {ms:.4f} ms a call, in the step "
+              f"{in_step:.4f} ms; {alone} {other_ms:.4f} ms"
+              + (f", A alone {a_ms:.4f} ms" if name == "merge_mpdata"
+                 else "") + f"; plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}); {launches[name]} launches "
+              f"in the {where[name]} run ({card})", flush=True)
+        check(launches[name] > 0, f"kernel {name} was not launched")
+        rows.append({"name": name, "route": "cuda", "source": kernel.source,
+                     "replaces": kernel.replaces,
+                     "launches": launches[name],
+                     "max_abs_err": err[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None,
+                     "in_step_ms": in_step, "ms_per_step": ms_step})
+    return rows
 
 
 def profile(label, start, run, card, steps=20):

@@ -342,6 +342,27 @@ COAL_ONISHI = Kernel(
     "package computes in XLA (lgrngn/dense.py:606, :738; "
     "lgrngn/coalescence.py:377-388) and its TPU kernel refuses "
     "(lgrngn/dense.py:1221-1225)")
+# kernel B's merge-prologue form (the deferred re-binning, then the
+# condensation of the merged rows): COND's arguments (the planes before the
+# merge), then the planes vt, x, z before it, the targets, the seven merged
+# planes out, the drops a row, nx and nz
+COND_MERGED = Kernel(
+    "cond_merged", "lcp_cond_merged", COND.argtypes[:-1] + [_P] * 12
+    + [_I, _I],
+    "libcloudphxx_tpu_torch/csrc/cond_merged.cu",
+    "libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel with do_xmerge, the "
+    "deferred-x prologue :170-175 over _xmerge_values :53; "
+    "step_resident(..., xkey) :537)")
+# kernel D's MPDATA-epilogue form: MERGE's arguments, then th and rv in,
+# their advected fields out, gc_x, gc_z, G; n_iters, fct, the plan
+# (models/mpdata.py launch_plan: CTAs a cluster, columns a CTA, shared
+# bytes a CTA)
+MERGE_MPDATA = Kernel(
+    "merge_mpdata", "lcp_merge_mpdata", MERGE.argtypes[:-1] + [_P] * 7
+    + [_I] * 5,
+    "libcloudphxx_tpu_torch/csrc/merge_mpdata.cu",
+    "libcloudphxx_tpu/ops/pallas_step.py:716 (_xmerge_kernel with mp_iters, "
+    "the MPDATA epilogue :740-757; rebin_x(..., mpdata_fields) :765)")
 KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
            COND_FLAT, COND_SD, TRANSPORT_UNWRAPPED, MERGE_EXACT,
            COND_SD_FIXED, COND_SD_ADAPTIVE, COAL_VOHL, TRANSPORT_PRED_CORR,
@@ -351,7 +372,8 @@ KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
            COND_SD_ADAPTIVE_PARCEL_TURB, COND_FLAT_ICE, COND_FLAT_ICE_TURB,
            COND_FLAT_PARCEL_ICE, COND_FLAT_PARCEL_ICE_TURB, TRANSPORT_3D,
            TRANSPORT_3D_PRED_CORR, MERGE_3D, MERGE_3D_EXACT, COAL_3D,
-           COAL_VOHL_3D, COAL_ONISHI, TRANSPORT_PRED_CORR_UNWRAPPED)
+           COAL_VOHL_3D, COAL_ONISHI, TRANSPORT_PRED_CORR_UNWRAPPED,
+           COND_MERGED, MERGE_MPDATA)
 
 _lib = None
 

@@ -29,9 +29,6 @@ from .lgrngn.dense import ATTRS, EXACT_ATTRS, Y_ATTRS, DenseState
 from .lgrngn.state import TENSOR_FIELDS, State, StaticConfig
 from .models.kinematic_2d import BULK_FIELDS
 
-# JAX DenseState fields the port's dense engine does not hold: they must be
-# empty (it has no deferred x pass) or are the JAX RNG key
-_EMPTY = ("xkey",)
 # the planes and cell fields it holds where they are not empty: the exact
 # mode's private planes, and the 3-D grid's y plane and courant_y
 _OPTIONAL = EXACT_ATTRS + Y_ATTRS + ("courant_y",)
@@ -49,20 +46,32 @@ def static_config_from_numpy(fields: dict) -> StaticConfig:
         fields[k], np.generic) else fields[k] for k in names})
 
 
-def dense_state_from_numpy(arrays: dict, device, dtype,
-                           rng_seed=44) -> DenseState:
+def dense_state_from_numpy(arrays: dict, device, dtype, rng_seed=44,
+                           cfg: StaticConfig = None) -> DenseState:
     """A port DenseState from the JAX DenseState's arrays as numpy, the
     exact mode's private planes (sd_th, sd_rv, sd_rh, sd_p) and the 3-D
-    grid's y plane and courant_y where the arrays hold them, else empty.  The coalescence draws are keyed by
-    ``arrays["rng_seed"]`` where the arrays came from the port, else by
-    ``rng_seed`` (opts_init.rng_seed), and continue from
-    ``arrays["rng_step"]`` (else step 0)."""
-    for k in _EMPTY:
-        if k in arrays and np.asarray(arrays[k]).size:
-            raise NotImplementedError(
-                f"dense_state_from_numpy: {k} is not held by the port")
+    grid's y plane and courant_y where the arrays hold them, else empty.
+    The coalescence draws are keyed by ``arrays["rng_seed"]`` where the
+    arrays came from the port, else by ``rng_seed`` (opts_init.rng_seed),
+    and continue from ``arrays["rng_step"]`` (else step 0).
+
+    A JAX state whose deferred x pass is pending (a non-empty ``xkey``)
+    becomes a state whose merge is pending (pending_tgt, from
+    pending_targets; its planes are the JAX ones, merged in z), which
+    needs the configuration ``cfg`` (the port's StaticConfig) for the
+    grid."""
+    xkey = np.asarray(arrays.get("xkey", np.zeros(0)))
     # a copy: JAX hands out read-only buffers
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    pending = {}
+    if xkey.size:
+        if cfg is None:
+            raise ValueError("dense_state_from_numpy: the JAX state's "
+                             "deferred x pass is pending (xkey); the "
+                             "targets need cfg")
+        pending["pending_tgt"] = torch.tensor(
+            pending_targets(cfg, np.asarray(arrays["n"]), xkey),
+            device=device)
     return DenseState(
         **{k: t(arrays[k]) for k in ATTRS + _CELLS},
         **{k: t(arrays[k]) for k in _OPTIONAL
@@ -70,13 +79,36 @@ def dense_state_from_numpy(arrays: dict, device, dtype,
         overflow=torch.as_tensor(int(np.asarray(arrays["overflow"])),
                                  dtype=torch.int64, device=device),
         rng_seed=int(arrays.get("rng_seed", rng_seed)),
-        rng_step=int(arrays.get("rng_step", 0)))
+        rng_step=int(arrays.get("rng_step", 0)), **pending)
+
+
+def pending_targets(cfg: StaticConfig, n, xkey):
+    """The target row of every slot of a JAX DenseState whose x pass is
+    pending, as kernel D takes it (int32, -1 for none): its ``xkey``
+    (libcloudphxx_tpu/ops/pallas_step.py _xmerge_values, :53-112) sends 0
+    (a left mover) to the row one column to the left, 1 (a right mover)
+    one column to the right, x-periodic, and keeps 2 (stay) in its own
+    row; a mover at a lane >= cap/2 lies outside the x pass's window and
+    stays in its own row; 3 and the slots with n == 0 go nowhere."""
+    n_cell, cap = n.shape
+    rows = np.arange(n_cell)[:, None]
+    i, k = rows // cfg.nz, rows % cfg.nz
+    step = np.where(xkey == 0, -1, np.where(xkey == 1, 1, 0))
+    step = np.where(np.arange(cap)[None, :] < cap // 2, step, 0)
+    tgt = ((i + step) % cfg.nx) * cfg.nz + k
+    return np.where((n > 0) & (xkey < 3), tgt, -1).astype(np.int32)
 
 
 def dense_state_to_numpy(d: DenseState) -> dict:
     """The DenseState's arrays as numpy, under the JAX DenseState's names
     (the private planes (0, 0) outside exact mode and y off the 3-D grid,
-    as JAX's), and its random stream as ``rng_seed`` and ``rng_step``."""
+    as JAX's), and its random stream as ``rng_seed`` and ``rng_step``.
+    A state whose merge is pending has no such form (its rows are kernel
+    C's, not the JAX package's z-merged rows): flush it first
+    (lgrngn/dense.flush_merge)."""
+    if d.pending_tgt.numel():
+        raise ValueError("dense_state_to_numpy: the state's re-binning is "
+                         "pending; run lgrngn/dense.flush_merge first")
     out = {k: getattr(d, k).detach().cpu().numpy()
            for k in ATTRS + _CELLS + _OPTIONAL}
     out["overflow"] = np.asarray(int(d.overflow))

@@ -1,7 +1,9 @@
 // Kernel D's row code, shared by its forms: merge.cu (the seven planes of
-// the main path) and merge_exact.cu (eleven, with the exact mode's private
-// ambient planes) on the 2-D grid (Grid2), merge3d.cu and merge3d_exact.cu
-// (eight and twelve: the y plane rides) on the 3-D grid (Grid3).  Each
+// the main path), merge_mpdata.cu (the seven with the MPDATA epilogue) and
+// merge_exact.cu (eleven, with the exact mode's private ambient planes) on
+// the 2-D grid (Grid2), merge3d.cu and merge3d_exact.cu (eight and twelve:
+// the y plane rides) on the 3-D grid (Grid3); and kernel B's
+// merge-prologue form (cond_merged.cu).  Each
 // form is a source of its own, so that the main path's kernel compiles as
 // it did before the second form existed: in one translation unit the
 // second instantiation changes the first one's register allocation and
@@ -47,6 +49,15 @@ struct Grid2 {
   }
 };
 
+// Grid2 with 3 (source, tile) units in flight, not 9: kernel B's
+// merge-prologue form (cond.cuh MergePrologue), whose registers are the
+// condensation's to spend
+struct Grid2Lean : Grid2 {
+  static constexpr int kGroupUnits = 3;
+  __device__ __forceinline__ Grid2Lean(int r, int nx_, int nz_)
+      : Grid2(r, nx_, nz_) {}
+};
+
 // ... and on the 3-D grid (row (i*ny + j)*nz + k): the 27 of
 // MERGE_SOURCES_3D (ops/step.py), (di, dj, dk) with dk innermost, each
 // 0, -1, 1; x and y periodic, -2 beyond the z walls.  At capacity 128 the
@@ -66,19 +77,18 @@ struct Grid3 {
   }
 };
 
-// The warp's destination row, over the NP planes ``in`` (read) and ``out``
-// (written), which the kernels fill from their own __restrict__
-// parameters; G the grid (Grid2, Grid3), made from the row and ``dims``.
-template <int NP, bool VEC, class G, class... Dims>
-__device__ __forceinline__ void merge_rows(
+// Destination row ``r``, taken by the warp, over the NP planes ``in``
+// (read) and ``out`` (written), which the kernels fill from their own
+// __restrict__ parameters; ``grid`` (Grid2, Grid3) gives r's source rows.
+// Kernel B's merge-prologue form (cond.cuh MergePrologue) and D's MPDATA
+// form (merge_mpdata.cu) call it for the rows they own.
+template <int NP, bool VEC, class G>
+__device__ __forceinline__ void merge_row(
     const float* const (&in)[NP], float* const (&out)[NP],
-    const int* __restrict__ tgt, float* __restrict__ drops, int n_cell,
-    int cap, Dims... dims) {
+    const int* __restrict__ tgt, float* __restrict__ drops, int r, int cap,
+    const G& grid) {
   constexpr int kUnits = G::kGroupUnits;
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
-  if (r >= n_cell) return;  // the whole warp
-  const G grid(r, dims...);
   const unsigned below = (1u << lane) - 1u;
   const int tiles = (cap + kTile - 1) / kTile;
   const size_t dst = static_cast<size_t>(r) * cap;
@@ -165,6 +175,18 @@ __device__ __forceinline__ void merge_rows(
     }
   }
   if (lane == 0) drops[r] = count > cap ? float(count - cap) : 0.0f;
+}
+
+// merge_row for the warp's row in D's own layout: 8 rows a block, a row
+// a warp; G made from the row and ``dims``.
+template <int NP, bool VEC, class G, class... Dims>
+__device__ __forceinline__ void merge_rows(
+    const float* const (&in)[NP], float* const (&out)[NP],
+    const int* __restrict__ tgt, float* __restrict__ drops, int n_cell,
+    int cap, Dims... dims) {
+  const int r = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  if (r >= n_cell) return;  // the whole warp
+  merge_row<NP, VEC>(in, out, tgt, drops, r, cap, G(r, dims...));
 }
 
 }  // namespace lcp

@@ -23,6 +23,16 @@ substepping reads them (step_cond_exact, step_cond_adaptive: kernel G's
 fixed-count or adaptive form on the card, one launch a phase over the
 rows), and they ride every re-binning, so that an SD that moved keeps its
 old cell's snapshot.
+
+A step may defer its re-binning (step_fused(..., defer=True), the JAX
+package's deferred-x pipeline, LIBCLOUD_DEFER_X): the state then carries
+kernel C's planes and each slot's target row (DenseState.pending_tgt),
+and the next step's condensation merges the rows first (kernel B's
+merge-prologue form), so that a steady deferred step launches no kernel D.
+flush_merge runs the pending merge (kernel D); repack, unpack and every
+phase that is not a deferred step flush first.  The merge's inputs are
+the immediate path's, so a deferred run, once flushed, is bitwise the
+default run.
 """
 
 import dataclasses
@@ -35,7 +45,7 @@ from ..ops import cond as cond_ops
 from ..ops.step import rebin_x, step_resident
 from . import coalescence as coal_mod
 from .condensation import apply_drv_to_th_rv, exact_route, third_moment
-from .enums import kernel_t
+from .enums import as_t, kernel_t
 from .hskpng import T_p, hskpng_mfp, hskpng_Tpr, ijk_of_xyz
 from .state import (OUT_COAL_OVERFLOW, OUT_DRY_VOL, OUT_LIQ_NUM, OUT_LIQ_VOL,
                     OUT_PRTCL_NUM, State, StaticConfig)
@@ -86,8 +96,33 @@ def supported(cfg: StaticConfig):
         raise NotImplementedError("dense engine: diag_incloud_time off only")
 
 
+def defer_ok(cfg: StaticConfig):
+    """Whether step_fused(..., defer=True) defers the re-binning for
+    ``cfg``: where the JAX package's deferred-x pipeline runs, the static
+    part of its eligibility (libcloudphxx_tpu/lgrngn/dense.py:1209
+    resident_static_ok): the 2-D grid with the merge's distinct columns (nx
+    >= 3), no exact mode, implicit or euler advection, and with
+    coalescence the golovin, geometric or long kernel or a table of the
+    hall family (vohl's wider table and the onishi kernels excluded).
+    Elsewhere the switch runs the ordinary step, as the JAX package
+    ignores LIBCLOUD_DEFER_X there."""
+    kern = kernel_t(cfg.kernel)
+    if cfg.coal_switch and kern not in (
+            kernel_t.golovin, kernel_t.geometric, kernel_t.long):
+        table = coal_mod.clamped_efficiency_table(kern)
+        if kern in coal_mod.TURBULENT or table is None \
+                or table[0].shape[1] != coal_mod.NARROW:
+            return False
+    return (cfg.n_dims == 2 and cfg.nx >= 3 and not cfg.exact_sstp_cond
+            and as_t(cfg.adve_scheme) in (as_t.implicit, as_t.euler))
+
+
 def _no_plane():
     return torch.zeros((0, 0))
+
+
+def _no_tgt():
+    return torch.zeros((0, 0), dtype=torch.int32)
 
 
 @dataclasses.dataclass
@@ -103,7 +138,15 @@ class DenseState:
     in exact_sstp_cond mode and empty (0, 0) otherwise.  A shard of the
     x-slab mesh under pred_corr advection also carries its courants in the
     halo-2 layout (halo_cx, halo_cz: parallel/decomp.xchng_courants_pc),
-    which its corrector reads; they are empty otherwise."""
+    which its corrector reads; they are empty otherwise.
+
+    ``pending_tgt`` is empty unless the step that made the state deferred
+    its re-binning (step_fused(..., defer=True)): it is then kernel C's
+    int32 target row of every slot (-1 for none), the planes are C's, not
+    yet merged, and ``overflow`` does not yet count the merge's drops.  It
+    is the counterpart of the JAX package's ``xkey``, the x classification
+    that its deferred x pass carries (lgrngn/dense.py DenseState.xkey);
+    flush_merge runs the merge."""
 
     n: torch.Tensor
     rw2: torch.Tensor
@@ -139,6 +182,7 @@ class DenseState:
     # counter, host integers advanced by every coalescence call
     rng_seed: int = 44
     rng_step: int = 0
+    pending_tgt: torch.Tensor = dataclasses.field(default_factory=_no_tgt)
     # how many times the global re-bin (the far-mover repair) ran on this
     # population
     rebins: int = 0
@@ -202,7 +246,9 @@ def repack(cfg: StaticConfig, d: DenseState, new_cap: int) -> DenseState:
     row keeps its droplets in their lane order, and the droplets a row
     cannot hold are added to ``overflow``.  The occupancy-aware repack
     policy of Kinematic2D.run_device_lgrngn uses it so that the capacity
-    follows the population."""
+    follows the population.  A pending merge runs first (flush_merge; the
+    JAX package's repack flushes its deferred x pass, dense.py:245-258)."""
+    d = flush_merge(cfg, d)
     n_cell, cap = d.n.shape
     attrs = attrs_of(cfg)
     flat = [getattr(d, a).reshape(-1) for a in attrs]
@@ -220,7 +266,9 @@ def unpack(cfg: StaticConfig, d: DenseState, state: State) -> State:
     are the values saved at the end of the last step, and the random
     stream carries over.  In exact_sstp_cond mode the sd_* planes become
     the State's per-SD snapshot; otherwise the snapshot is the saved cell
-    values.  Stepping never creates SDs, so the live ones fit."""
+    values.  Stepping never creates SDs, so the live ones fit.  A pending
+    merge runs first (flush_merge)."""
+    d = flush_merge(cfg, d)
     n_cell, cap = d.n.shape
     attrs = attrs_of(cfg)
     flat = {a: getattr(d, a).reshape(-1) for a in attrs}
@@ -522,6 +570,7 @@ def coal(cfg: StaticConfig, d: DenseState, params, dt, sstp_coal: int, *,
             "dense.coal: the standalone coalescence loop carries no y plane "
             "(the 3-D grid's coalescence runs in step_fused and "
             "step_async_resident)")
+    d = flush_merge(cfg, d)
     n, rw2, rd3, kpa, vt, x, z, ovf = coal_ops.coal_standalone(
         cfg, params, sstp_coal, dt, d.rng_seed, d.rng_step, d.n, d.rw2,
         d.rd3, d.kpa, d.x, d.z, d.T, d.p, d.rhod, d.eta, d.dv, plain=plain)
@@ -540,8 +589,8 @@ def _fold_coal_overflow(puddle, flag):
 
 
 def step_fused(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params, dt,
-               RH_max, sstp_coal: int, do_coal: bool, do_sedi: bool, *,
-               coal_pairing="stride", plain=False):
+               RH_max, sstp_coal: int, do_coal: bool, do_sedi: bool, mp=None,
+               *, coal_pairing="stride", defer=False, plain=False):
     """One whole microphysics step (libcloudphxx_tpu/lgrngn/dense.py:1283):
     condensation substeps, coalescence substeps, transport and walls
     (step_resident), the re-binning merge (rebin_x), the puddle fold and,
@@ -552,11 +601,27 @@ def step_fused(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params, dt,
     Same phase order as the reference step_sync + step_async
     (particles_step.ipp:161-494).  ``params`` are
     opts_init.kernel_parameters; ``coal_pairing`` "stride" (the default) or
-    "sort" (ops/coal.coal_resident).  Returns (DenseState, th, rv)."""
+    "sort" (ops/coal.coal_resident).  Returns (DenseState, th, rv).
+
+    ``defer`` (the JAX package's LIBCLOUD_DEFER_X) leaves the re-binning
+    pending where defer_ok(cfg): the state carries C's targets in
+    pending_tgt, the next deferred step merges the rows in its first
+    launch (kernel B's merge-prologue form), and flush_merge, repack,
+    unpack or any other phase runs the merge (kernel D); a far mover
+    flushes and re-bins at once, as the JAX package's repair does
+    (dense.py:1581-1594).
+
+    ``mp`` = (gc_x, gc_z, G, n_iters, fct) (the JAX package's mp=,
+    LIBCLOUD_MPDATA_FUSE) also advects the step's th and rv for the next
+    step, and the result is (DenseState, th, rv, th_adv, rv_adv) with the
+    advected fields (nx, nz): in kernel D's MPDATA-epilogue form where the
+    step launches D's seven-plane form, else kernel A (_mp_apply), as on
+    the deferred path."""
     return _resident_phases(
         cfg, d, th_adv, rv_adv, params, dt, RH_max, sstp_coal,
         do_cond=True, do_coal=do_coal, do_adve=True, do_sedi=do_sedi,
-        w_cells=None, coal_pairing=coal_pairing, plain=plain)
+        w_cells=None, coal_pairing=coal_pairing, defer=defer, mp=mp,
+        plain=plain)
 
 
 def step_fused_shard(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
@@ -623,42 +688,93 @@ def step_async_resident(cfg: StaticConfig, d: DenseState, params, dt,
 def _resident_phases(cfg: StaticConfig, d: DenseState, th_adv, rv_adv,
                      params, dt, RH_max, sstp_coal: int, *, do_cond: bool,
                      do_coal: bool, do_adve: bool, do_sedi: bool, w_cells,
-                     coal_pairing="stride", plain=False):
+                     coal_pairing="stride", defer=False, mp=None,
+                     plain=False):
     """The dispatcher behind step_fused, step_cond_resident and
     step_async_resident (libcloudphxx_tpu/lgrngn/dense.py:1444-1631): one
     step_resident call with the phase flags, then, where anything moved,
     the puddle fold, the merge (rebin_x) and the far-mover repair.
     ``w_cells`` (n_cell,) is the subsidence velocity of each row, or None.
-    Returns (DenseState, th, rv)."""
+    ``defer`` and ``mp`` are step_fused's.  Returns (DenseState, th, rv),
+    and with ``mp`` the advected th and rv after them."""
+    moves = do_adve or do_sedi or w_cells is not None
+    deferring = defer and do_cond and moves and defer_ok(cfg)
+    if not deferring:
+        d = flush_merge(cfg, d, plain=plain)
     d, th, rv, tgt, far = _resident_step(
         cfg, d, th_adv, rv_adv, params, dt, RH_max, sstp_coal,
         do_cond=do_cond, do_coal=do_coal, do_adve=do_adve, do_sedi=do_sedi,
         w_cells=w_cells, coal_pairing=coal_pairing, plain=plain)
     if tgt is None:
-        return d, th, rv
+        return _mp_apply(mp, cfg, d, th, rv, plain)
     if cfg.nx < 3 or (cfg.n_dims == 3 and cfg.ny < 3):
         # the merge needs distinct left, own and right columns (and front,
         # own and hind rows of columns); as in the JAX package's rebin,
         # dense.py:1162-1165
-        return _rebin_global(cfg, d), th, rv
-    d = merge(cfg, d, tgt, plain=plain)
+        return _mp_apply(mp, cfg, _rebin_global(cfg, d), th, rv, plain)
+    adv = ()
+    if deferring:
+        # the merge waits for the next step's first launch (or a flush);
+        # the advected pair then comes from kernel A, as the JAX package's
+        # deferred path does (dense.py:1596-1607)
+        d = dataclasses.replace(d, pending_tgt=tgt)
+    elif mp is not None and len(attrs_of(cfg)) == len(ATTRS):
+        # the pair rides D's launch (its MPDATA-epilogue form)
+        d, *adv = merge(cfg, d, tgt, mpdata=(th, rv) + tuple(mp),
+                        plain=plain)
+    else:
+        d = merge(cfg, d, tgt, plain=plain)
     if bool(far > 0):  # one host sync a step: far movers are rare
-        d = _rebin_global(cfg, d)
-    return d, th, rv
+        d = _rebin_global(cfg, flush_merge(cfg, d, plain=plain))
+    if adv:
+        return (d, th, rv) + tuple(adv)
+    return _mp_apply(mp, cfg, d, th, rv, plain)
 
 
-def merge(cfg: StaticConfig, d: DenseState, tgt, *, plain=False):
+def _mp_apply(mp, cfg: StaticConfig, d: DenseState, th, rv, plain):
+    """(d, th, rv), and with ``mp`` = (gc_x, gc_z, G, n_iters, fct) th and
+    rv advected for the next step by kernel A after them: the paths
+    without D's MPDATA-epilogue form (libcloudphxx_tpu/lgrngn/dense.py:1429
+    _mp_apply)."""
+    if mp is None:
+        return d, th, rv
+    from ..models import mpdata
+    gc_x, gc_z, G, n_iters, fct = mp
+    tha, rva = mpdata.advect2(
+        th.reshape(cfg.nx, cfg.nz), rv.reshape(cfg.nx, cfg.nz), gc_x, gc_z,
+        G, n_iters=int(n_iters), fct=bool(fct), plain=plain)
+    return d, th, rv, tha, rva
+
+
+def flush_merge(cfg: StaticConfig, d: DenseState, *, plain=False):
+    """Run a deferred step's pending merge (kernel D) and clear
+    pending_tgt: the counterpart of the JAX package's flush_xmerge
+    (libcloudphxx_tpu/lgrngn/dense.py:1634).  A no-op when nothing is
+    pending."""
+    if d.pending_tgt.numel() == 0:
+        return d
+    return dataclasses.replace(merge(cfg, d, d.pending_tgt, plain=plain),
+                               pending_tgt=_no_tgt())
+
+
+def merge(cfg: StaticConfig, d: DenseState, tgt, *, mpdata=None,
+          plain=False):
     """Each row takes the droplets whose target ``tgt`` it is (rebin_x,
     kernel D: on the 3-D grid its 3-D form, from 27 rows with the y plane
     riding; in exact mode the forms with the private planes riding); the
-    droplets a full row cannot hold are added to ``overflow``."""
+    droplets a full row cannot hold are added to ``overflow``.  With
+    ``mpdata`` (rebin_x's: D's MPDATA-epilogue form) returns (d, th_adv,
+    rv_adv)."""
     attrs = attrs_of(cfg)
-    *planes, drops = rebin_x(
+    out = rebin_x(
         cfg, *(getattr(d, a) for a in ATTRS), tgt,
-        extra=tuple(getattr(d, a) for a in attrs[len(ATTRS):]), plain=plain)
-    return dataclasses.replace(
+        extra=tuple(getattr(d, a) for a in attrs[len(ATTRS):]),
+        mpdata=mpdata, plain=plain)
+    drops = out[len(attrs)]
+    d = dataclasses.replace(
         d, overflow=d.overflow + drops.sum().to(d.overflow.dtype),
-        **dict(zip(attrs, planes)))
+        **dict(zip(attrs, out)))
+    return d if mpdata is None else (d,) + tuple(out[len(attrs) + 1:])
 
 
 def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
@@ -691,6 +807,10 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
     # mean free paths from the previous step's T/p (dense.py:1519)
     lam_D, lam_K = hskpng_mfp(d.T, d.p) if do_cond else (None, None)
     y3 = _y_axis(cfg, d)
+    # a deferred merge rides this step's first launch (kernel B's
+    # merge-prologue form); _resident_phases flushed it unless the step
+    # defers, which implies condensation
+    pending = d.pending_tgt if d.pending_tgt.numel() else None
     (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta, rowinfo,
      *y) = step_resident(
         cfg, cfg.sstp_cond, dt, RH_max, do_sedi, d.n, d.rw2, d.rd3, d.kpa,
@@ -702,8 +822,8 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
         courants=(d.halo_cx, d.halo_cz) if slab is not None else (
             (d.courant_x, d.courant_z)
             + ((d.courant_y,) if y3 is not None else ())),
-        y3=y3, plain=plain)
-    puddle = d.puddle
+        y3=y3, pending_tgt=pending, vt=d.vt, plain=plain)
+    puddle, overflow = d.puddle, d.overflow
     if rowinfo is not None:
         info = rowinfo.sum(dim=0).to(puddle.dtype)
         fold = torch.zeros_like(puddle)
@@ -712,6 +832,8 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
         puddle = puddle + fold
         if do_coal:
             puddle = _fold_coal_overflow(puddle, info[6] > 0)
+        if pending is not None:  # the merge's drops (rowinfo's lane 5)
+            overflow = overflow + rowinfo[:, 5].sum().to(overflow.dtype)
     exact = {}
     if do_cond and cfg.exact_sstp_cond:
         # exact mode at one substep ran the per-cell kernel B: the private
@@ -722,14 +844,19 @@ def _resident_step(cfg: StaticConfig, d: DenseState, th_adv, rv_adv, params,
     d = dataclasses.replace(
         d, n=n, rw2=rw2, rd3=rd3, kpa=kpa, vt=d.vt if vt is None else vt,
         x=x, z=z, T=T, p=p, RH=RH, eta=eta, sstp_tmp_th=th, sstp_tmp_rv=rv,
-        puddle=puddle, rng_step=d.rng_step + int(do_coal), **exact,
+        puddle=puddle, overflow=overflow, pending_tgt=_no_tgt(),
+        rng_step=d.rng_step + int(do_coal), **exact,
         **dict(zip(Y_ATTRS, y)))
     return d, th, rv, tgt, None if tgt is None else info[4]
 
 
 def moment(d: DenseState, rng_lo2, rng_hi2, power, specific=True):
     """Per-cell wet-radius moment over an rw^2 range, a row reduction
-    (the dense diag_wet_rng + diag_wet_mom, particles_impl_moms.ipp)."""
+    (the dense diag_wet_rng + diag_wet_mom, particles_impl_moms.ipp).
+    The rows must be merged (flush_merge)."""
+    if d.pending_tgt.numel():
+        raise ValueError("moment: the state's re-binning is pending; "
+                         "dense.flush_merge it first")
     sel = (d.n > 0) & (d.rw2 >= rng_lo2) & (d.rw2 < rng_hi2)
     nf = torch.where(sel, d.n, 0.0)
     if power == 0:

@@ -144,7 +144,9 @@ class particles_dense_t(particles_t):
 
     def adopt(self, d):
         """Make the DenseState ``d`` the authoritative population (a dense
-        run of the model hands its result back here)."""
+        run of the model hands its result back here), its pending merge
+        run (dense.flush_merge)."""
+        d = dense.flush_merge(self.cfg, d)
         self._d, self._loc, self._cap = d, "dense", d.cap
         self._dense_stepped, self._riders = True, {}
 

@@ -615,27 +615,42 @@ class Kinematic2D(nn.Module):
         self.prtcls._sstp_coal_extra += int(grew)
         return puddle
 
-    def _dense_step(self, d, spinup, plain):
+    def _mp(self):
+        """Kernel A's arguments after the fields: (gc_x, gc_z, G, n_iters,
+        fct)."""
+        return self.gc_x, self.gc_z, self.G, self.mpdata_iters, self.fct
+
+    def _advect(self, plain):
+        """MPDATA of th and rv (kernel A, one launch)."""
+        gc_x, gc_z, G, n_iters, fct = self._mp()
+        return mpdata.advect2(self.th, self.rv, gc_x, gc_z, G,
+                              n_iters=n_iters, fct=fct, plain=plain)
+
+    def _dense_step(self, d, spinup, plain, defer=False, adv=None):
         """One step of the dense engine: MPDATA of th/rv, then the fused
         microphysics step (lgrngn/dense.step_fused; in exact mode the
         per-particle substepping first, its private planes riding the
         re-binning).  During spin-up coalescence and sedimentation are off
-        and RH is capped at 1.01."""
+        and RH is capped at 1.01.  ``defer`` defers the step's re-binning
+        (step_fused's).  With ``adv``, the th and rv that the previous step
+        advected, the step takes them and advects its own th and rv for the
+        next step (step_fused's mp: kernel D's MPDATA epilogue, the JAX
+        package's 5-carry, models/kinematic_2d.py:586-607).  Returns (d,
+        the advected pair or None)."""
         cfg = self.cfg
-        th, rv = mpdata.advect2(self.th, self.rv, self.gc_x, self.gc_z,
-                                self.G, n_iters=self.mpdata_iters,
-                                fct=self.fct, plain=plain)
-        d, th, rv = dense.step_fused(
+        th, rv = self._advect(plain) if adv is None else adv
+        d, th, rv, *adv = dense.step_fused(
             cfg, d, th.reshape(-1), rv.reshape(-1),
             self.opts_init.kernel_parameters, self.setup.dt,
             1.01 if spinup else 44.0, self._sstp_coal(),
             self._does_coal(spinup), (not spinup) and cfg.sedi_switch,
-            coal_pairing=self.coal_pairing, plain=plain)
+            None if adv is None else self._mp(),
+            coal_pairing=self.coal_pairing, defer=defer, plain=plain)
         d = dataclasses.replace(d, puddle=self._consume_overflow(d.puddle,
                                                                  spinup))
         self.th, self.rv = th.reshape(self.nx, self.nz), \
             rv.reshape(self.nx, self.nz)
-        return d
+        return d, tuple(adv) or None
 
     @property
     def dense_state(self):
@@ -669,7 +684,7 @@ class Kinematic2D(nn.Module):
 
     def run_device_lgrngn(self, nt, spinup=0, engine="flat", repack_every=0,
                           repack_margin=1.25, chunk_log=None, *,
-                          plain=False):
+                          defer_x=False, mpdata_fuse=False, plain=False):
         """``nt`` model steps, the first ``spinup`` of them spin-up steps,
         with the population on the device throughout
         (libcloudphxx_tpu/models/kinematic_2d.py:721).  engine="flat" runs
@@ -699,7 +714,18 @@ class Kinematic2D(nn.Module):
         collision in a pair grows sstp_coal by one for the steps after it,
         on either engine, as the public API's step_async does (one host
         read a coalescing step; the count is the public API's, so run()
-        and run_device_lgrngn share it)."""
+        and run_device_lgrngn share it).
+
+        The dense engine's two switches of the JAX package (which reads them
+        from its environment; the port reads none): ``defer_x``
+        (LIBCLOUD_DEFER_X) defers each step's re-binning into the next
+        step's first launch where dense.defer_ok (step_fused's defer; the
+        run flushes the pending merge at its end and before the repack
+        policy reads the occupancy or the overflow), and ``mpdata_fuse``
+        (LIBCLOUD_MPDATA_FUSE) advects th and rv for the next step in the
+        step's launch of kernel D (step_fused's mp; the first step of each
+        chunk advects with kernel A).  Both leave the results bitwise as
+        they are without them."""
         if engine not in ("flat", "dense"):
             raise ValueError(f"run_device_lgrngn: engine must be 'flat' or "
                              f"'dense', got {engine!r}")
@@ -724,7 +750,8 @@ class Kinematic2D(nn.Module):
                 "steps through run()")
         if engine == "dense":
             d = self._run_dense(self.dense_state, nt, spinup, repack_every,
-                                repack_margin, chunk_log, plain)
+                                repack_margin, chunk_log, plain, defer_x,
+                                mpdata_fuse)
             dropped = int(d.overflow)
             if dropped:
                 raise RuntimeError(
@@ -744,10 +771,10 @@ class Kinematic2D(nn.Module):
         self.t += nt * self.setup.dt
 
     def _run_dense(self, d, nt, spinup, repack_every, margin, chunk_log,
-                   plain):
+                   plain, defer_x=False, mpdata_fuse=False):
         """The dense steps of run_device_lgrngn with its repack policy
-        (libcloudphxx_tpu/models/kinematic_2d.py:772-846).  Returns the
-        final DenseState."""
+        (libcloudphxx_tpu/models/kinematic_2d.py:772-846) and its switches.
+        Returns the final DenseState, its merge run."""
         def occupancy(d):
             return int((d.n > 0).sum(1).max())
 
@@ -757,8 +784,14 @@ class Kinematic2D(nn.Module):
                 t0 = time.perf_counter()
                 k = min(repack_every, n - done) if repack_every else n - done
                 prev = (d, self.th, self.rv)
+                # the chunk's prologue: kernel A advects its first step's
+                # th and rv (the JAX runner's, kinematic_2d.py:626-631)
+                adv = self._advect(plain) if mpdata_fuse else None
                 for _ in range(k):
-                    d = self._dense_step(d, sp, plain)
+                    d, adv = self._dense_step(d, sp, plain, defer_x, adv)
+                if repack_every:
+                    # the policy reads the rows and the overflow merged
+                    d = dense.flush_merge(self.cfg, d, plain=plain)
                 if repack_every and int(d.overflow) > int(prev[0].overflow):
                     # a row outgrew the capacity within the chunk: run it
                     # again from its start at a larger one
@@ -784,7 +817,7 @@ class Kinematic2D(nn.Module):
                             spinup=sp, steps=k, occ=occ, cap=d.cap,
                             seconds=time.perf_counter() - t0, redo=redo))
                 redo = 0
-        return d
+        return dense.flush_merge(self.cfg, d, plain=plain)
 
     # ------------------------------------------------------- diagnostics
     def diag_lgrngn(self, what="rc"):

@@ -6,7 +6,11 @@ The TPU runs the step as one Pallas kernel over row blocks
 (pallas_step._xmerge_kernel).  On the card the same work runs as four
 hand-written kernels, each beside its plain PyTorch version:
 
-  kernel B  csrc/cond.cu       cond / cond_plain: condensation substeps
+  kernel B  csrc/cond.cu       cond / cond_plain: condensation substeps;
+            with a pending merge (``pending_tgt``) its merge-prologue form,
+            csrc/cond_merged.cu / cond_merged_plain: the previous step's
+            re-binning (kernel D's row code), then the condensation of the
+            merged rows
   kernel E  csrc/coal.cu       ops/coal.coal_resident: coalescence substeps
   kernel C  csrc/transport.cu  transport / transport_plain: vt refresh,
             advection, sedimentation, subsidence, walls, puddle partials,
@@ -19,7 +23,10 @@ hand-written kernels, each beside its plain PyTorch version:
             pass of the re-binning at once); seven planes, or eleven with
             the exact mode's private ambient planes; on the 3-D grid
             (csrc/merge3d.cu) from itself and its 26 neighbours, x and y
-            periodic, with the y plane riding: eight planes, or twelve
+            periodic, with the y plane riding: eight planes, or twelve;
+            with ``mpdata`` its MPDATA-epilogue form, csrc/merge_mpdata.cu:
+            a cluster of CTAs more a field advects the next step's th and
+            rv
 
 Dispatch is by device: CPU tensors run the plain version, CUDA tensors
 launch the kernel (float32, contiguous, or the wrapper raises), and
@@ -158,34 +165,99 @@ def cond_plain(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv,
     return rw2, th, rv, T, p, RH, eta
 
 
+def cond_merged_plain(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, vt, x,
+                      z, tgt, thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K,
+                      p0):
+    """The plain version of kernel B's merge-prologue form: the pending
+    merge of the planes n ... z by their targets ``tgt`` (rebin_x_plain),
+    then cond_plain on the merged rows.  Returns cond_plain's seven, then
+    the merged (n, rw2, rd3, kpa, vt, x, z) and the drops a row."""
+    merged = rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt)
+    n_m, rw2_m, rd3_m, kpa_m = merged[:4]
+    return cond_plain(cfg, sstp_cond, dt, RH_max, n_m, rw2_m, rd3_m, kpa_m,
+                      thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K,
+                      p0) + tuple(merged)
+
+
 def cond(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
-         rv0, rhod, dv, lam_D, lam_K, p0, *, plain=False):
+         rv0, rhod, dv, lam_D, lam_K, p0, *, pending_tgt=None, vt=None,
+         x=None, z=None, plain=False):
     """Kernel B, or its plain version cond_plain (same arguments and
-    results)."""
+    results).  With ``pending_tgt``, the int32 target row of every slot of
+    a step whose re-binning was deferred (lgrngn/dense.DenseState
+    .pending_tgt), the planes n, rw2, rd3, kpa and ``vt``, ``x``, ``z``
+    are that step's, before the merge: kernel B's merge-prologue form
+    (_ext.COND_MERGED; the TPU kernel's deferred-x prologue) merges each
+    row first, with kernel D's row code, and condenses the merged row, or
+    its plain version cond_merged_plain (same results: cond's seven, then
+    the merged seven planes and the drops a row)."""
+    if pending_tgt is not None:
+        return _cond_merged(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa,
+                            vt, x, z, pending_tgt, thadv, rvadv, th0, rv0,
+                            rhod, dv, lam_D, lam_K, p0, plain)
     args = (n, rw2, rd3, kpa, thadv, rvadv, th0, rv0, rhod, dv, lam_D,
             lam_K, p0)
     if _ext.use_plain("cond", n, plain):
         return cond_plain(cfg, sstp_cond, dt, RH_max, *args)
+    return _launch_cond(_ext.COND, cfg, sstp_cond, dt, RH_max, *args)
+
+
+def _cond_merged(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, vt, x, z, tgt,
+                 thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, p0, plain):
+    """cond with a pending merge: kernel B's merge-prologue form or
+    cond_merged_plain."""
+    if any(a is None for a in (vt, x, z)):
+        raise ValueError("cond: a pending merge needs the planes vt, x, z")
+    if cfg.n_dims != 2 or cfg.nx < 3:
+        raise ValueError("cond: the merge-prologue form needs the 2-D grid "
+                         "with nx >= 3")
+    fields = (thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, p0)
+    if _ext.use_plain("cond_merged", n, plain):
+        return cond_merged_plain(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa,
+                                 vt, x, z, tgt, *fields)
+    planes = (n, rw2, rd3, kpa, vt, x, z)
+    _ext.check_planes("cond_merged", n.shape[1], *planes, tgt)
+    _ext.check("cond_merged", *planes)
+    _ext.check("cond_merged", tgt, dtype=torch.int32)
+    merged = tuple(torch.empty_like(p) for p in planes)
+    drops = torch.empty(n.shape[0], dtype=n.dtype, device=n.device)
+    return _launch_cond(
+        _ext.COND_MERGED, cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa,
+        *fields, vt.data_ptr(), x.data_ptr(), z.data_ptr(), tgt.data_ptr(),
+        *(m.data_ptr() for m in merged), drops.data_ptr(), cfg.nx,
+        cfg.nz) + merged + (drops,)
+
+
+def _launch_cond(kernel, cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv,
+                 rvadv, th0, rv0, rhod, dv, lam_D, lam_K, p0, *form):
+    """Check kernel B's four planes and nine cell fields, launch ``kernel``
+    (a form of B) on them with the form's own arguments ``form`` after
+    B's, and return (rw2, th, rv, T, p, RH, eta)."""
+    name = kernel.name
     n_cell, cap = n.shape
-    _ext.check_planes("cond", cap, n, rw2, rd3, kpa)
+    _ext.check_planes(name, cap, n, rw2, rd3, kpa)
     fields = (thadv, rvadv, th0, rv0, rhod, dv, lam_D, lam_K, p0)
     if any(a.shape != (n_cell,) for a in fields):
-        raise ValueError(f"cond: cell fields must be ({n_cell},)")
+        raise ValueError(f"{name}: cell fields must be ({n_cell},)")
     cells = torch.stack(fields)
-    _ext.check("cond", n, rw2, rd3, kpa, cells)
+    _ext.check(name, n, rw2, rd3, kpa, cells)
     if n.numel() >= 2 ** 31:
-        raise ValueError("cond: more than 2**31 - 1 SD lanes")
+        raise ValueError(f"{name}: more than 2**31 - 1 SD lanes")
     rw2_out = torch.empty_like(rw2)
     cells_out = torch.empty((6, n_cell), dtype=n.dtype, device=n.device)
     pos, buf = _ext.cond_scratch(n.numel(), n.device)
+    # the rows fullest first; under a pending merge as they were before it:
+    # a step moves few droplets between rows, and a count of the targets
+    # (an index_add's atomics, or bincount's wait for the card) costs more
+    # than the order saves
     order = _ext.longest_first((n > 0).sum(1))
-    _ext.COND.launch(
+    kernel.launch(
         n.data_ptr(), rw2.data_ptr(), rd3.data_ptr(), kpa.data_ptr(),
         cells.data_ptr(), rw2_out.data_ptr(), cells_out.data_ptr(),
         pos.data_ptr(), buf.data_ptr(), order.data_ptr(), n_cell, cap,
         int(sstp_cond), dt / sstp_cond, float(RH_max), int(cfg.th_dry),
         int(cfg.const_p), int(cfg.RH_formula), _root_iters(n.dtype),
-        vt_t(cfg.terminal_velocity).value)
+        vt_t(cfg.terminal_velocity).value, *form)
     return (rw2_out,) + tuple(cells_out.unbind(0))
 
 
@@ -523,7 +595,8 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
                   C_b, C_a, p0, *, do_cond=True, do_coal=False, do_adve=True,
                   w_cells=None, params=(), sstp_coal=1, rng=(0, 0),
                   coal_pairing="stride", slab=None, closure=None,
-                  courants=None, y3=None, plain=False):
+                  courants=None, y3=None, pending_tgt=None, vt=None,
+                  plain=False):
     """One microphysics step or a phase of one (pallas_step.step_resident
     with its phase flags): condensation (kernel B) with ``do_cond``, else
     the cell closure of th0/rv0 (the post-condensation values of the async
@@ -545,8 +618,21 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
     ``courants``, the staggered (courant_x, courant_z[, courant_y]), are
     what pred_corr advection reads.  On the 3-D grid ``y3`` = (y, C_f,
     C_h) (transport): y rides coalescence and transport, and the result
-    has it after the fifteen."""
-    if do_cond:
+    has it after the fifteen.  With ``pending_tgt`` (a deferred merge's
+    targets, ``vt`` that step's vt plane) the planes are the previous
+    step's before its merge, and condensation runs kernel B's
+    merge-prologue form (cond): the step goes on from the merged rows, and
+    rowinfo's lane 5 holds the droplets each row could not hold."""
+    drops = None
+    if pending_tgt is not None:
+        if not do_cond:
+            raise ValueError("step_resident: a pending merge rides the "
+                             "condensation (kernel B's merge-prologue form)")
+        (rw2, th, rv, T, p, RH, eta, n, _, rd3, kpa, _, x, z,
+         drops) = cond(cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv,
+                       rvadv, th0, rv0, rhod, dv, lam_D, lam_K, p0,
+                       pending_tgt=pending_tgt, vt=vt, x=x, z=z, plain=plain)
+    elif do_cond:
         rw2, th, rv, T, p, RH, eta = cond(
             cfg, sstp_cond, dt, RH_max, n, rw2, rd3, kpa, thadv, rvadv, th0,
             rv0, rhod, dv, lam_D, lam_K, p0, plain=plain)
@@ -570,11 +656,13 @@ def step_resident(cfg, sstp_cond, dt, RH_max, do_sedi, n, rw2, rd3, kpa, x,
             courants=courants, y3=None if y3 is None else (y,) + y3[1:],
             plain=plain)
         y = yy[0] if yy else None
+    if (do_coal or drops is not None) and rowinfo is None:
+        rowinfo = torch.zeros((n.shape[0], 8), dtype=n.dtype,
+                              device=n.device)
     if do_coal:
-        if rowinfo is None:
-            rowinfo = torch.zeros((n.shape[0], 8), dtype=n.dtype,
-                                  device=n.device)
         rowinfo[:, 6] = coal_ovf.to(rowinfo.dtype)
+    if drops is not None:
+        rowinfo[:, 5] = drops.to(rowinfo.dtype)
     return (n, rw2, rd3, kpa, vt, x, z, tgt, th, rv, T, p, RH, eta,
             rowinfo) + (() if y3 is None else (y,))
 
@@ -630,14 +718,42 @@ def rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=()):
     return tuple(torch.cat(c) for c in zip(*outs)) + (torch.cat(drops),)
 
 
-def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=(), plain=False):
+def rebin_x_mpdata_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, mpdata):
+    """The plain version of kernel D's MPDATA-epilogue form: rebin_x_plain,
+    then models/mpdata._advect_body of th and rv, ``mpdata`` = (th, rv,
+    gc_x, gc_z, G, n_iters, fct) with th and rv the (n_cell,) cell fields.
+    Returns rebin_x_plain's results and the advected th and rv, (nx,
+    nz)."""
+    from ..models.mpdata import _advect_body
+    th, rv, gc_x, gc_z, G, n_iters, fct = mpdata
+    G = _mpdata_G(cfg, G, th)
+    return rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt) + tuple(
+        _advect_body(f.reshape(cfg.nx, cfg.nz), gc_x, gc_z, G, int(n_iters),
+                     bool(fct)) for f in (th, rv))
+
+
+def _mpdata_G(cfg, G, like):
+    """G as an (nx, nz) field of ``like``'s type and device (a number or
+    an array, as models/mpdata takes it)."""
+    return torch.broadcast_to(torch.as_tensor(
+        G, dtype=like.dtype, device=like.device), (cfg.nx, cfg.nz))
+
+
+def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=(), mpdata=None,
+            plain=False):
     """Kernel D, or its plain version rebin_x_plain (same arguments and
     results).  It does the work of the z-merge epilogue of
     pallas_step._kernel and of pallas_step._xmerge_kernel together.  With
     four ``extra`` planes (the exact mode's sd_th, sd_rv, sd_rh and sd_p)
     it is D's 11-plane form, counted as _ext.MERGE_EXACT.  On the 3-D grid
     ``extra`` is y, or y and the four private planes: D's 3-D forms,
-    _ext.MERGE_3D (eight planes) and _ext.MERGE_3D_EXACT (twelve)."""
+    _ext.MERGE_3D (eight planes) and _ext.MERGE_3D_EXACT (twelve).  With
+    ``mpdata`` = (th, rv, gc_x, gc_z, G, n_iters, fct), the post-
+    condensation cell fields and kernel A's arguments, the seven-plane 2-D
+    form also advects th and rv for the next step: D's MPDATA-epilogue
+    form, _ext.MERGE_MPDATA (the TPU x-merge kernel's epilogue), or its
+    plain version rebin_x_mpdata_plain; the results then end with the
+    advected th and rv, (nx, nz), bitwise kernel A's."""
     three = cfg.n_dims == 3
     if cfg.nx < 3 or (three and cfg.ny < 3):
         raise ValueError("rebin_x: the merge needs nx >= 3 (left, own and "
@@ -646,6 +762,12 @@ def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=(), plain=False):
     if len(extra) not in ((1, 5) if three else (0, 4)):
         raise ValueError(f"rebin_x: {'1 or 5' if three else '0 or 4'} "
                          f"extra planes, got {len(extra)}")
+    if mpdata is not None:
+        if three or extra:
+            raise ValueError("rebin_x: the MPDATA epilogue rides the "
+                             "seven-plane form on the 2-D grid")
+        return _rebin_x_mpdata(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, mpdata,
+                               plain)
     planes = (n, rw2, rd3, kpa, vt, x, z) + tuple(extra)
     if _ext.use_plain("rebin_x", n, plain):
         return rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt,
@@ -666,3 +788,40 @@ def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=(), plain=False):
     kernel.launch(*(p.data_ptr() for p in planes), tgt.data_ptr(),
                   *(o.data_ptr() for o in outs), drops.data_ptr(), *dims)
     return outs + (drops,)
+
+
+def _rebin_x_mpdata(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, mpdata, plain):
+    """rebin_x with ``mpdata``: kernel D's MPDATA-epilogue form or
+    rebin_x_mpdata_plain."""
+    from ..models.mpdata import launch_plan
+    if _ext.use_plain("merge_mpdata", n, plain):
+        return rebin_x_mpdata_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt,
+                                    mpdata)
+    th, rv, gc_x, gc_z, G, n_iters, fct = mpdata
+    planes = (n, rw2, rd3, kpa, vt, x, z)
+    n_cell, cap = n.shape
+    nx, nz = cfg.nx, cfg.nz
+    _ext.check_planes("merge_mpdata", cap, *planes, tgt)
+    G = _mpdata_G(cfg, G, th).contiguous()
+    if th.numel() != n_cell or rv.numel() != n_cell \
+            or gc_x.shape != (nx + 1, nz) or gc_z.shape != (nx, nz + 1):
+        raise ValueError(
+            f"merge_mpdata: th and rv must hold the {n_cell} cells and the "
+            f"courants fit the {nx}x{nz} grid, got {tuple(th.shape)}, "
+            f"{tuple(rv.shape)}, {tuple(gc_x.shape)}, {tuple(gc_z.shape)}")
+    if int(n_iters) < 1:
+        raise ValueError(f"merge_mpdata: n_iters must be >= 1, got {n_iters}")
+    _ext.check("merge_mpdata", *planes, th, rv, gc_x, gc_z, G)
+    _ext.check("merge_mpdata", tgt, dtype=torch.int32)
+    outs = tuple(torch.empty_like(p) for p in planes)
+    drops = torch.empty(n_cell, dtype=n.dtype, device=n.device)
+    adv = torch.empty((2, nx, nz), dtype=n.dtype, device=n.device)
+    # a cluster of at most 8 CTAs a field, kernel A's slabs
+    plan = launch_plan(nx, nz, bool(fct), max_cluster=8)
+    _ext.MERGE_MPDATA.launch(
+        *(p.data_ptr() for p in planes), tgt.data_ptr(),
+        *(o.data_ptr() for o in outs), drops.data_ptr(), n_cell, cap, nx, nz,
+        th.data_ptr(), rv.data_ptr(), adv[0].data_ptr(), adv[1].data_ptr(),
+        gc_x.data_ptr(), gc_z.data_ptr(), G.data_ptr(), int(n_iters),
+        int(bool(fct)), *plan)
+    return outs + (drops,) + tuple(adv.unbind(0))

@@ -114,8 +114,10 @@ def scatter_dense(cfg, d: DenseState, doms, group=None):
     puddle and the overflow count, so that gather_state gives them back.
     In exact mode the private ambient planes ride as the others.  With a
     ``group``, the shards this process owns (every process scatters the
-    same global state: decomp.global_put's counterpart)."""
+    same global state: decomp.global_put's counterpart).  A pending merge
+    runs first (dense.flush_merge)."""
     _check_pred_corr(cfg, doms)
+    d = dense.flush_merge(cfg, d)
     nz, cap = cfg.nz, d.cap
     nx_pad = _nx_pad(doms)
     mine = owned_shards(len(doms), group)

@@ -19,7 +19,8 @@ writes OUT_DIR/state.npz and OUT_DIR/report.json, and
 says whether two such runs ended in bitwise the same state and which
 kernels' SASS or resources differ.  Kernel names are compared with the
 template arguments that only select a form off the main path removed
-(kernel E's ``GridRows``, kernel C's ``Geometry``).
+(kernel E's ``GridRows``, kernel C's ``Geometry``, kernel B's
+``NoMerge``).
 """
 
 import argparse
@@ -36,7 +37,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 PLANES = ("n", "rw2", "rd3", "kpa", "vt", "x", "z", "puddle")
 # the template arguments that select a form off the main path
-_FORM_ARGS = (", lcp::GridRows", ", lcp::Geometry>")
+_FORM_ARGS = (", lcp::GridRows", ", lcp::Geometry>", ", lcp::NoMerge")
 
 
 def kernel_name(demangled):

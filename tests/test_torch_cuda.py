@@ -83,7 +83,16 @@ onishi kernel at 8x8 equals its plain path bitwise.  The flat engine's
 multi-device front (3 and 8 shards of a 19x10 grid on the card) matches
 the serial flat engine away from the cells where slab-local x rounds an
 SD across a face, and F and G's fixed-count form on a shard's padded
-slab match their plain versions.
+slab match their plain versions.  Kernel B's merge-prologue form (the
+deferred re-binning, then the condensation of the merged rows) runs under
+each terminal velocity formula at row capacity 32 and 256 on a deferred
+step of the 8x8 case, and at 2 to 512 on kernel C's crowded synthetic
+rows, its merged planes and drops bitwise and its condensation within
+B's gates against its plain version; kernel D's MPDATA-epilogue form runs
+at row capacity 32 and 128 with FCT off and on and n_iters 1-3, its
+planes bitwise D's and its advected th and rv bitwise kernel A's and the
+plain version's; and the dense run with both switches equals the default
+run on the card bitwise.
 
 Marked ``cuda``; without a card they skip.  The machine with the card has
 no JAX, so there run them without the JAX test configuration:
@@ -2389,3 +2398,130 @@ def test_multi_shard_forms_match_plain(dev, variant):
             assert torch.equal(k[0], pl[0])
             for a, b in zip(k[1:], pl[1:]):
                 assert torch.equal(a[live], b[live])
+
+
+def _merged_case(m, formula=None):
+    """A deferred step's pending state of model ``m`` on the card (the
+    plain path) and kernel B's merge-prologue arguments on it: (cfg, args,
+    kw) for step.cond, the condensation of the next step from the step's
+    th and rv."""
+    cfg = m.cfg if formula is None else _with_vt(m.cfg, formula)
+    d = m.dense_state
+    d, th, rv = dense.step_fused(cfg, d, m.th.reshape(-1), m.rv.reshape(-1),
+                                 (), 1.0, 44.0, 1, False, True, defer=True,
+                                 plain=True)
+    assert d.pending_tgt.shape == d.n.shape
+    lam_D, lam_K = hskpng_mfp(d.T, d.p)
+    args = (cfg, cfg.sstp_cond, 1.0, 44.0, d.n, d.rw2, d.rd3, d.kpa,
+            th * 1.0001, rv * 1.002, d.sstp_tmp_th, d.sstp_tmp_rv, d.rhod,
+            d.dv, lam_D, lam_K, d.p)
+    return args, dict(pending_tgt=d.pending_tgt, vt=d.vt, x=d.x, z=d.z)
+
+
+def _check_cond_merged(args, kw):
+    """Kernel B's merge-prologue form against its plain version: the merged
+    planes and the drops bitwise, the condensation within B's gates, the
+    merged rows' dead lanes copied through.  Returns the plain results."""
+    k = _launches(_ext.COND_MERGED, lambda: step.cond(*args, **kw))
+    p = step.cond(*args, **kw, plain=True)
+    assert len(k) == len(p) == 15
+    for a, b in zip(k[7:], p[7:]):           # merged n..z, the drops
+        assert torch.equal(a, b)
+    alive = p[7] > 0
+    assert _rel(k[1], p[1]) <= 2e-6          # th
+    assert _rel(k[2], p[2]) <= 2e-5          # rv
+    assert _rel(k[0][alive], p[0][alive]) <= 1e-5
+    assert torch.equal(k[0][~alive], p[8][~alive])
+    for a, b in zip(k[3:7], p[3:7]):         # T, p, RH, eta
+        assert _rel(a, b) <= 2e-6
+    return p
+
+
+@pytest.mark.parametrize("formula", [None] + OTHER_VT,
+                         ids=lambda f: "beard77" if f is None else f.name)
+def test_cond_merged_kernel_matches_plain(model, formula):
+    """Kernel B's merge-prologue form on a deferred step of the 8x8 case
+    at row capacity 32 (D's scalar slots) and 256 (its 16-byte slots),
+    under each formula it is instantiated for."""
+    p = _check_cond_merged(*_merged_case(model, formula))
+    assert bool((p[7] > 0).any())
+
+
+@pytest.mark.parametrize("cap", [2, 32, 100, 128, 512])
+def test_cond_merged_kernel_on_synthetic_rows(dev, cap):
+    """Kernel B's merge-prologue form on kernel C's targets of the crowded
+    synthetic rows (transport_case: far movers, the puddle, rows that
+    receive more droplets than they hold) at row capacity 2 to 512, with
+    B's synthetic cells."""
+    cfg, (n, rw2, rd3, kpa, x, z), cells = transport_case(
+        8, 6, cap, device=dev, dtype=torch.float32)
+    n, x, z, vt, tgt, _ = step.transport(cfg, 1.0, True, n, rw2, rd3, x, z,
+                                         *cells, plain=True)
+    _, cond_cells = _cond_rows(dev, cap, False, rows=cfg.n_cell)
+    args = (cfg, 5, 1.0, 44.0, n, rw2, rd3, kpa) + tuple(cond_cells)
+    p = _check_cond_merged(args, dict(pending_tgt=tgt, vt=vt, x=x, z=z))
+    assert float(p[14].sum()) > 0            # drops
+    # the merged planes are kernel D's on the same inputs
+    d = step.rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt)
+    for a, b in zip(p[7:], d):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fct", [False, True])
+@pytest.mark.parametrize("n_iters", [1, 2, 3])
+@pytest.mark.parametrize("cap", [32, 128])
+def test_merge_mpdata_kernel_matches_plain(dev, cap, n_iters, fct):
+    """Kernel D's MPDATA-epilogue form on kernel C's targets of the
+    synthetic rows and the GMD courants of the same 8x6 grid: the planes
+    and drops bitwise kernel D's and the plain version's, th and rv
+    advected bitwise kernel A's and the plain version's."""
+    cfg, (n, rw2, rd3, kpa, x, z), cells = transport_case(
+        8, 6, cap, device=dev, dtype=torch.float32)
+    n, x, z, vt, tgt, _ = step.transport(cfg, 1.0, True, n, rw2, rd3, x, z,
+                                         *cells, plain=True)
+    gc_x, gc_z, G, th, rv = _mpdata_case(dev, 8, 6)
+    planes = (cfg, n, rw2, rd3, kpa, vt, x, z, tgt)
+    mp = (th.reshape(-1), rv.reshape(-1), gc_x, gc_z, G, n_iters, fct)
+    k = _launches(_ext.MERGE_MPDATA, lambda: step.rebin_x(*planes,
+                                                          mpdata=mp))
+    p = step.rebin_x(*planes, mpdata=mp, plain=True)
+    d = step.rebin_x(*planes)
+    a = mpdata.advect2(th, rv, gc_x, gc_z, G, n_iters=n_iters, fct=fct)
+    assert len(k) == len(p) == 10
+    for x_k, x_p, x_d in zip(k[:8], p[:8], d):
+        assert torch.equal(x_k, x_p) and torch.equal(x_k, x_d)
+    for x_k, x_p, x_a in zip(k[8:], p[8:], a):
+        assert torch.equal(x_k, x_p) and torch.equal(x_k, x_a)
+
+
+def test_switched_dense_runs_on_the_card(dev):
+    """run_device_lgrngn(engine="dense") with defer_x, mpdata_fuse and both
+    on the card, bitwise the default run (every plane, th, rv, the
+    overflow); the deferred run launches B's merge-prologue form in every
+    step but the first and D once, at the flush; the fused run D's MPDATA
+    form every step and kernel A at each phase's first step."""
+    kw = dict(nx=8, nz=8, sd_conc=24, sstp_cond=3, sstp_coal=3,
+              n_sd_max=24 * 64, opts_init_kw={"kernel_parameters": [100.0]},
+              device=dev)
+    m = Kinematic2D(**kw)
+    start = (m.dense_state, m.th, m.rv)
+    m.run_device_lgrngn(6, spinup=2, engine="dense")
+    want = (m.dense_state, m.th, m.rv)
+    kernels = (_ext.MPDATA, _ext.MERGE, _ext.COND, _ext.COND_MERGED,
+               _ext.MERGE_MPDATA)
+    expect = {(True, False): (6, 1, 1, 5, 0), (False, True): (2, 0, 6, 0, 6),
+              (True, True): (8, 1, 1, 5, 0)}
+    for (defer, fuse), counts in expect.items():
+        m.dense_state, m.th, m.rv = start
+        before = [k.launches for k in kernels]
+        m.run_device_lgrngn(6, spinup=2, engine="dense", defer_x=defer,
+                            mpdata_fuse=fuse)
+        torch.cuda.synchronize()
+        got = tuple(k.launches - b for k, b in zip(kernels, before))
+        assert got == counts, (defer, fuse, got)
+        assert torch.equal(m.th, want[1]) and torch.equal(m.rv, want[2])
+        for f in dataclasses.fields(want[0]):
+            a, b = getattr(m.dense_state, f.name), getattr(want[0], f.name)
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else a == b), f.name
+
