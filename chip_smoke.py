@@ -194,8 +194,12 @@ checks them:
      adaptively (sstp_cond_act 8), and with turb_cond (120 steps): its
      parcel form of F or G once a step, water a kg conserved to 1e-5, RH
      peaking above 1 and relaxing, the form against its plain version (F
-     and G-fixed within B's gates, G-adaptive bitwise) and timed beside
-     its bound; the reference's lgrngn_cond parcel in float32 through F's
+     and G-fixed within B's gates, G-adaptive bitwise; F's and G-fixed's
+     cluster forms bitwise from launch to launch) and timed beside its
+     bound; a parcel of 65,536 SDs, 2 steps per cell and exactly with
+     mixing, each form the same way; F's and G-fixed's cluster forms
+     (and their turb_cond forms) timed at 1 SD, their latency floor; the
+     reference's lgrngn_cond parcel in float32 through F's
      parcel form with its th and rv gates and the evaporation leg's rv
      return within its float32 bound; (c) 1-D, 76 cells, a courant_x of
      0.2, 20 steps through F with the conservation checks and SDs wrapping
@@ -548,11 +552,15 @@ LES_SD_HEADROOM = 65_536
 # PARCEL_STEPS steps of a dry-adiabatic ascent at PARCEL_W m/s from
 # PARCEL_P0 Pa at dry potential temperature PARCEL_TH and vapour PARCEL_RV
 # (RH ~0.95 at the start), PARCEL_TURB_STEPS with the SGS supersaturation,
-# and the lgrngn_cond parcel's rv-return gate (lgrngn_cond_case); (c) 1-D:
+# PARCEL_LARGE_STEPS of a parcel of PARCEL_SD_LARGE SDs in F's and
+# G-fixed's modes (their cluster forms at 8 slots a thread), a launch of
+# those forms at 1 SD (their latency floor), and the lgrngn_cond parcel's
+# rv-return gate (lgrngn_cond_case); (c) 1-D:
 # GRID_N cells, a courant_x of GRID1D_CX, GRID1D_STEPS steps
 GRID_N, GRID_D, GRID_CY = 76, 20.0, 0.1
 GRID_STEPS, GRID_REPS, GRID_KERNEL_REPS = 5, 2, 5
 PARCEL_SD, PARCEL_STEPS, PARCEL_TURB_STEPS = 4096, 300, 120
+PARCEL_SD_LARGE, PARCEL_LARGE_STEPS = 65_536, 2
 PARCEL_W, PARCEL_P0, PARCEL_TH, PARCEL_RV = 1.0, 100000.0, 289.0, 1.1e-2
 PARCEL_RV_RETURN = 7.5e-7
 GRID1D_CX, GRID1D_STEPS = 0.2, 20
@@ -4569,6 +4577,44 @@ PARCEL_FORMS = {
     "adaptive": dict(exact_sstp_cond=True, adaptive_sstp_cond=True,
                      sstp_cond_act=8),
 }
+# the modes whose forms run a cell on a thread-block cluster (F's and
+# G-fixed's parcel forms)
+PARCEL_CLUSTER_MODES = ("per cell", "exact, mixing")
+
+
+def parcel_setup(m2, mode, turb, n_sd):
+    """A rising parcel of ``n_sd`` SDs in PARCEL_FORMS' ``mode`` (with
+    ``turb`` the SGS supersaturation on), initialised at the ascent's
+    start: (prt, opts, the dissipation rate or None, the condensation
+    wrapper's name, its kernel, th0, rv0, the state after init)."""
+    from libcloudphxx_tpu_torch import lgrngn as tl
+    over = dict(sd_conc=n_sd, n_sd_max=n_sd, **PARCEL_FORMS[mode])
+    if turb:
+        over.update(turb_cond_switch=True)
+    prt = grid_factory(grid_oi(m2, 0, **over), f"parcel ({mode})")
+    fname, kernel = form_of(prt.cfg, turb)
+    th0 = torch.full((1,), PARCEL_TH, device=DEVICE)
+    rv0 = torch.full((1,), PARCEL_RV, device=DEVICE)
+    prt.init(th0, rv0, torch.full((1,), parcel_rhod(0)[0], device=DEVICE))
+    opts = tl.opts_t()
+    opts.cond = True
+    opts.turb_cond = turb
+    diss = torch.full((1,), LES_DISS, device=DEVICE) if turb else None
+    return prt, opts, diss, fname, kernel, th0, rv0, prt.state
+
+
+def check_repeat(label, kw):
+    """Two launches of the form that the captured arguments ``kw`` run
+    give the same bits (the cluster forms' cell sums add in a fixed
+    order)."""
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    fname, kernel = kw_form(kw)
+    f = getattr(cond_ops, fname)
+    a, b = f(**kw), f(**kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"{kernel.name} {label}: two launches bitwise {same}", flush=True)
+    check(same, f"{kernel.name} {label}: two launches differ")
 
 
 def parcel_run(prt, opts, rhods, th0, rv0, diss=None):
@@ -4601,25 +4647,13 @@ def parcel_case(m2, _ext, c, card, err, turb):
     PARCEL_FORMS' modes (with ``turb`` the SGS supersaturation on: opts.
     turb_cond and a dissipation rate, PARCEL_TURB_STEPS steps).  Returns
     (the forms' kernel rows, {mode: numbers})."""
-    from libcloudphxx_tpu_torch import lgrngn as tl
     from libcloudphxx_tpu_torch.ops import cond as cond_ops
     steps = PARCEL_TURB_STEPS if turb else PARCEL_STEPS
-    rhod0, *rhods = parcel_rhod(steps)
+    rhods = parcel_rhod(steps)[1:]
     rows, out = [], {}
-    for mode, kw in PARCEL_FORMS.items():
-        over = dict(sd_conc=PARCEL_SD, n_sd_max=PARCEL_SD, **kw)
-        if turb:
-            over.update(turb_cond_switch=True)
-        prt = grid_factory(grid_oi(m2, 0, **over), f"parcel ({mode})")
-        fname, kernel = form_of(prt.cfg, turb)
-        th0 = torch.full((1,), PARCEL_TH, device=DEVICE)
-        rv0 = torch.full((1,), PARCEL_RV, device=DEVICE)
-        prt.init(th0, rv0, torch.full((1,), rhod0, device=DEVICE))
-        init = prt.state
-        opts = tl.opts_t()
-        opts.cond = True
-        opts.turb_cond = turb
-        diss = torch.full((1,), LES_DISS, device=DEVICE) if turb else None
+    for mode in PARCEL_FORMS:
+        prt, opts, diss, fname, kernel, th0, rv0, init = parcel_setup(
+            m2, mode, turb, PARCEL_SD)
         reset(_ext.KERNELS)
         secs, rh, water, th, rv = parcel_run(prt, opts, rhods, th0, rv0,
                                              diss)
@@ -4647,12 +4681,82 @@ def parcel_case(m2, _ext, c, card, err, turb):
         kw_f = capture(cond_ops, fname, lambda: parcel_run(
             prt, opts, rhods[:2], th0, rv0, diss))
         check_form(f"({label})", kw_f, err)
+        if mode in PARCEL_CLUSTER_MODES:
+            check_repeat(label, kw_f)
         rows.append(form_row(kw_f, launches[kernel.name],
                              f"the {steps} steps of {label}", err))
         out[label] = dict(ms_per_step=secs / steps * 1e3,
                           rh_peak=float(rh.max()), rh_last=float(rh[-1]),
                           water_rel_change=dwat, launches=steps)
     return rows, out
+
+
+def parcel_large_case(m2, _ext, card, err):
+    """Phase 19 (b): the rising parcel with PARCEL_SD_LARGE SDs,
+    PARCEL_LARGE_STEPS steps through the public API in each of
+    PARCEL_CLUSTER_MODES (F's and G-fixed's cluster forms at 8 slots a
+    thread): finite th and rv, the water a kg kept, the form once a step,
+    the form against its plain version and bitwise from launch to launch
+    on a step's arguments, timed.  Returns (the forms' kernel rows,
+    {mode: numbers})."""
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    steps = PARCEL_LARGE_STEPS
+    rhods = parcel_rhod(steps)[1:]
+    rows, out = [], {}
+    for mode in PARCEL_CLUSTER_MODES:
+        prt, opts, _, fname, kernel, th0, rv0, init = parcel_setup(
+            m2, mode, False, PARCEL_SD_LARGE)
+        reset(_ext.KERNELS)
+        secs, _, water, th, rv = parcel_run(prt, opts, rhods, th0, rv0)
+        launches = {k.name: k.launches for k in _ext.KERNELS if k.launches}
+        dwat = float(np.abs(water / water[0] - 1.0).max())
+        label = f"parcel of {PARCEL_SD_LARGE} SDs ({mode})"
+        print(f"{label}: {steps} steps in {secs:.3f} s "
+              f"({secs / steps * 1e3:.3f} ms/step); total water a kg max "
+              f"rel change {dwat:.2e}; th {float(th[0]):.4f}, rv "
+              f"{float(rv[0]):.6e}; launches {launches} ({card})",
+              flush=True)
+        check(bool(torch.isfinite(th).all() and torch.isfinite(rv).all()),
+              f"{label}: non-finite th/rv")
+        check(launches == {kernel.name: steps},
+              f"{label}: {kernel.name} once a step expected, got {launches}")
+        check(dwat < 1e-5, f"{label}: water a kg not conserved ({dwat:.2e})")
+        prt.state = init
+        kw_f = capture(cond_ops, fname, lambda: parcel_run(
+            prt, opts, rhods[:1], th0, rv0))
+        check_form(f"({label})", kw_f, err)
+        check_repeat(label, kw_f)
+        rows.append(form_row(kw_f, launches[kernel.name],
+                             f"the {steps} steps of {label}", err,
+                             name=f"{kernel.name}_{PARCEL_SD_LARGE}"))
+        out[label] = dict(ms_per_step=secs / steps * 1e3,
+                          water_rel_change=dwat, launches=steps,
+                          kernel_ms=rows[-1]["ms"])
+        prt.state = None
+        del prt, init, kw_f
+        torch.cuda.empty_cache()
+    return rows, out
+
+
+def parcel_floor(m2, card):
+    """Phase 19 (b): a launch of each cluster form (PARCEL_CLUSTER_MODES,
+    with and without turb_cond) on a parcel of one SD, on the arguments
+    its first step gives it: the form's latency floor, one droplet's
+    chain of root finds over the sstp_cond substeps.  Returns {kernel
+    name: ms a launch}."""
+    from libcloudphxx_tpu_torch.ops import cond as cond_ops
+    out = {}
+    for mode in PARCEL_CLUSTER_MODES:
+        for turb in (False, True):
+            prt, opts, diss, fname, kernel, th0, rv0, _ = parcel_setup(
+                m2, mode, turb, 1)
+            kw_f = capture(cond_ops, fname, lambda: parcel_run(
+                prt, opts, parcel_rhod(1)[1:], th0, rv0, diss))
+            f = getattr(cond_ops, fname)
+            out[kernel.name] = time_cuda(lambda: f(**kw_f), KERNEL_REPS)
+            print(f"kernel {kernel.name}: {out[kernel.name]:.4f} ms a "
+                  f"launch on 1 SD, the latency floor ({card})", flush=True)
+    return out
 
 
 def lgrngn_cond_case(m2, _ext, card):
@@ -4773,6 +4877,12 @@ def grid_phase(Kinematic2D, _ext, c, card, profile_on):
     turb_rows, out["parcel, turb_cond"] = parcel_case(m2, _ext, c, card, err,
                                                       turb=True)
     rows += turb_rows
+    large_rows, out["parcel, large"] = parcel_large_case(m2, _ext, card, err)
+    rows += large_rows
+    out["parcel, 1 SD"] = parcel_floor(m2, card)
+    for row in rows:                # the cluster forms' latency floor
+        if row["name"] in out["parcel, 1 SD"]:
+            row["floor_ms"] = out["parcel, 1 SD"][row["name"]]
     out["lgrngn_cond"] = lgrngn_cond_case(m2, _ext, card)
     print(f"phase 19 (b): {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()

@@ -220,30 +220,33 @@ COND_SD_ADAPTIVE_TURB = Kernel(
 # the parcel forms of kernels F and G (a parcel's cell is 1 kg of dry
 # air: F weighs a droplet by 1 / (dv rhod) with dv = 1 / rhod at each
 # substep, G feeds an SD's private air its vapour undivided), without and
-# with turb_cond: each the arguments of its grid form
+# with turb_cond: each the arguments of its grid form; F's and G-fixed's
+# (a cluster of CTAs a cell, G-fixed's without the scratch positions)
+# then their plan (ops/cond.py parcel_plan: CTAs a cluster, threads a CTA)
 _PARCEL = ("libcloudphxx_tpu/ops/pallas_cond.py:34 (_kernel; "
            "advance_rw2_pallas :46, call :78) in a parcel (n_dims 0: dv = "
            "1/rhod, libcloudphxx_tpu/lgrngn/hskpng.py:50), with ")
+_PLAN = [_I, _I]
 COND_FLAT_PARCEL = Kernel(
-    "cond_flat_parcel", "lcp_cond_flat_parcel", COND_FLAT.argtypes[:-1],
-    "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
+    "cond_flat_parcel", "lcp_cond_flat_parcel", COND_FLAT.argtypes[:-1]
+    + _PLAN, "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
     _PARCEL + "the host substep loop of lgrngn/condensation.py:312-388 "
     "(the weight's dv * rhod at each substep, :366)")
 COND_FLAT_PARCEL_TURB = Kernel(
     "cond_flat_parcel_turb", "lcp_cond_flat_parcel_turb",
-    COND_FLAT_TURB.argtypes[:-1],
+    COND_FLAT_TURB.argtypes[:-1] + _PLAN,
     "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
     _PARCEL + "the host substep loop of lgrngn/condensation.py:312-388 at "
     "each SD's RH plus its ssp (:353-358)")
+_SD_PARCEL = COND_SD_FIXED.argtypes[:24] + COND_SD_FIXED.argtypes[25:-1]
 COND_SD_FIXED_PARCEL = Kernel(
-    "cond_sd_fixed_parcel", "lcp_cond_sd_fixed_parcel",
-    COND_SD_FIXED.argtypes[:-1],
+    "cond_sd_fixed_parcel", "lcp_cond_sd_fixed_parcel", _SD_PARCEL + _PLAN,
     "libcloudphxx_tpu_torch/csrc/cond_sd_fixed.cu",
     _PARCEL + "the substep loop of lgrngn/condensation.py:412-528 "
     "cond_perparticle (drv per kg of air, :478-481)")
 COND_SD_FIXED_PARCEL_TURB = Kernel(
     "cond_sd_fixed_parcel_turb", "lcp_cond_sd_fixed_parcel_turb",
-    COND_SD_FIXED_TURB.argtypes[:-1],
+    _SD_PARCEL + [_P] + _PLAN,
     "libcloudphxx_tpu_torch/csrc/cond_sd_fixed.cu",
     _PARCEL + "the substep loop of lgrngn/condensation.py:412-528 "
     "cond_perparticle (drv per kg of air, :478-481; RHp + ssp, :462-463)")
@@ -450,6 +453,18 @@ def load():
         lib.lcp_mpdata_clusters.restype = _I
         _lib = lib
     return _lib
+
+
+def max_clusters(kernel, ctas, threads):
+    """How many clusters of ``ctas`` CTAs of ``threads`` threads of a
+    cluster kernel (F's and G-fixed's parcel forms) the card holds at
+    once: 0 where it takes no cluster of that size."""
+    fn = getattr(load(), kernel.symbol + "_clusters")
+    fn.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    fn.restype = _I
+    count = _I(0)
+    fn(ctas, threads, ctypes.byref(count))
+    return count.value
 
 
 def use_plain(name, t, plain):

@@ -290,13 +290,15 @@ struct Sgs {
 };
 
 // The air a cell's droplets exchange vapour with (the template parameter
-// ``A`` of cond_cell, kernel G's forms): CellAir is a grid cell's, rhod dv
-// of dry air, dv its volume (every form of a grid); ParcelAir a parcel's,
-// 1 kg of dry air (the JAX package's n_dims == 0; libcloudphxx_tpu/lgrngn/
-// hskpng.py:50, condensation.py:478-481, 787-790): kernel F weighs a
-// droplet by wnum / (dv rhod) with dv = 1 / rhod at each substep's rhod,
-// and G feeds an SD's private air the vapour itself.  CellAir's code is
-// what it was before ParcelAir.
+// ``A`` of cond_cell, kernel G-adaptive's forms): CellAir is a grid
+// cell's, rhod dv of dry air, dv its volume (every form of a grid);
+// ParcelAir a parcel's, 1 kg of dry air (the JAX package's n_dims == 0;
+// libcloudphxx_tpu/lgrngn/hskpng.py:50, condensation.py:478-481,
+// 787-790): kernel F's parcel ice forms weigh a droplet by wnum / (dv
+// rhod) with dv = 1 / rhod at each substep's rhod, and G-adaptive feeds an
+// SD's private air the vapour itself.  F's and G-fixed's warm parcel
+// forms take the same air on a cluster (cond_cluster.cuh).  CellAir's
+// code is what it was before ParcelAir.
 struct CellAir {
   static constexpr bool parcel = false;
 };

@@ -52,11 +52,20 @@
 // air (cond_cell.cuh ParcelAir), where a grid's forms divide it by the
 // air of the cell, rhod dv (libcloudphxx_tpu/lgrngn/condensation.py:
 // 478-481); their plain version is perparticle_fixed_plain on a parcel's
-// configuration.
+// configuration.  In the warp frame a parcel's one cell was one warp's,
+// its SDs 32 at a time, each chunk a dependent chain of root finds no
+// other warp hid: 22.9 ms a call at 4096 SDs against an operations bound
+// of 0.00081 ms.  They run the cell on a thread-block cluster
+// (cond_cluster.cuh; ops/cond.py parcel_plan), an SD a thread in
+// registers across the substeps up to 8192 SDs, several a thread beyond
+// (their state in the outputs between substeps); with mixing the
+// substep's sums over one cluster barrier, without it no barrier at all:
+// 0.23 ms a call at 4096 SDs, 0.18 ms at 1 SD (the latency floor), 1.9 ms
+// at 65,536 (H100; PERF.md section 6).
 
 #include <cuda_runtime.h>
 
-#include "cond_cell.cuh"
+#include "cond_cluster.cuh"
 
 namespace lcp {
 
@@ -70,7 +79,7 @@ struct FixedSsp {
   const float* __restrict__ ssp;  // per slot
 };
 
-template <class S, class A>
+template <class S>
 __device__ __forceinline__ void cond_sd_fixed_body(
     const SdIn& in, const SdCells& cells, const SdLayout& L, const SdOut& out,
     int* __restrict__ pos, int n_cell, const CondOpts& o, int mix,
@@ -118,12 +127,8 @@ __device__ __forceinline__ void cond_sd_fixed_body(
                                      cl, rh, base_rv, a.lam_D, a.lam_K, o);
       const bool live = n > 0.0f;
       const float drw3 = live ? rw3_of(w_new) - rw3_of(w) : 0.0f;
-      // the SD's private air: rhod dv of a grid cell, a parcel's 1 kg
-      float drv;
-      if constexpr (A::parcel)
-        drv = drw3 * F(kDrvMlt) * n;
-      else
-        drv = drw3 * F(kDrvMlt) * n / rh / a.dv;
+      // the SD's private air: rhod dv of its cell
+      const float drv = drw3 * F(kDrvMlt) * n / rh / a.dv;
       const float dth = live ? drv * d_th_d_rv(cl.T, base_th) : 0.0f;
       if (mix) {
         part_rv += on ? static_cast<double>(drv) : 0.0;
@@ -154,41 +159,161 @@ __device__ __forceinline__ void cond_sd_fixed_body(
 __global__ void __launch_bounds__(32 * kCondWarps)
 cond_sd_fixed_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
                      int* __restrict__ pos, int n_cell, CondOpts o, int mix) {
-  cond_sd_fixed_body<NoSsp, CellAir>(in, cells, L, out, pos, n_cell, o, mix,
-                                     NoSsp{});
+  cond_sd_fixed_body<NoSsp>(in, cells, L, out, pos, n_cell, o, mix,
+                            NoSsp{});
 }
 
 __global__ void __launch_bounds__(32 * kCondWarps)
 cond_sd_fixed_turb_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
                           int* __restrict__ pos, int n_cell, CondOpts o,
                           int mix, FixedSsp sg) {
-  cond_sd_fixed_body<FixedSsp, CellAir>(in, cells, L, out, pos, n_cell, o,
-                                        mix, sg);
+  cond_sd_fixed_body<FixedSsp>(in, cells, L, out, pos, n_cell, o, mix,
+                               sg);
 }
 
-// the parcel forms: each SD's private air is 1 kg of dry air (ParcelAir),
-// without and with the SGS supersaturation
-__global__ void __launch_bounds__(32 * kCondWarps)
+// An SD as the parcel forms advance it: its slot, whether it advances
+// (n > 0 or rw2 > 0), its weight, rw2 and private th, rv, rhod and p, what
+// its growth takes from it alone, and its increments of a substep (its
+// cell's value minus its own at the last save, over sstp)
+struct ParcelSd {
+  long long j;
+  bool on;
+  float n, w, th, rv, rh, p, rd3, kpa, vt, ssp;
+  float inc_th, inc_rv, inc_rh, inc_p;
+};
+
+// The parcel forms: a cell on a thread-block cluster (cond_cluster.cuh),
+// each SD's private air 1 kg of dry air (the vapour of its d(rw^3)
+// undivided, as cond_cell's ParcelAir), without and with the SGS
+// supersaturation.  An SD's operations are cond_sd_fixed_body's, in its
+// order; a thread holding one slot keeps its SD in registers across the
+// substeps, one holding more keeps it in the outputs between them, as
+// cond_sd_fixed_body does.  Without mixing no thread waits for another;
+// with it the substep's sums are cluster_sum's, which every SD takes at
+// the start of the next substep and after the last.
+template <class S>
+__device__ __forceinline__ void cond_sd_fixed_parcel_body(
+    const SdIn& in, const SdCells& cells, const SdLayout& L, const SdOut& out,
+    const CondOpts& o, int mix, const S& sg) {
+  __shared__ ClusterSum<2> sm;
+  const int c = cluster_cell();
+  long long begin, end;
+  L.segment(c, begin, end);
+  const SdCell a = SdCell::of(cells, c);
+  const ClusterLane lane(begin, end);
+  const bool resident = lane.n_chunk <= 1;
+  const auto taken = [&](long long j) {
+    return in.n[j] > 0.0f || in.rw2[j] > 0.0f;
+  };
+  // sorted position q's SD, at the state of the last save or, ``held``,
+  // as the outputs hold it between substeps; past the segment or where the
+  // plain version does not advance it, a placeholder at the cell's state,
+  // masked off
+  const auto load = [&](long long q, bool held) {
+    ParcelSd x{0,   false, 0.0f, kMaskedRw2, a.th, a.rv, a.rhod, a.p,
+               F(1e-21), 0.5f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    const long long j = q < end ? L.slot(q) : 0;
+    if (q < end && taken(j)) {
+      x = ParcelSd{j, true, in.n[j], (held ? out.rw2 : in.rw2)[j],
+                   (held ? out.th : in.th)[j], (held ? out.rv : in.rv)[j],
+                   (held ? out.rh : in.rh)[j], (held ? out.p : in.p)[j],
+                   in.rd3[j], in.kpa[j], in.vt[j], 0.0f,
+                   div_s(a.th - in.th[j], o.sstp),
+                   div_s(a.rv - in.rv[j], o.sstp),
+                   div_s(a.rhod - in.rh[j], o.sstp),
+                   div_s(a.p - in.p[j], o.sstp)};
+      if constexpr (S::on) x.ssp = sg.ssp[j];
+    }
+    return x;
+  };
+  // the slots not advanced keep their rw2 and private state
+  for (int ch = 0; ch < lane.n_chunk; ++ch) {
+    const long long q = begin + lane.t + ch * lane.stride;
+    if (q >= end) continue;
+    const long long j = L.slot(q);
+    if (!taken(j)) out.keep(in, j);
+  }
+  ParcelSd x = load(begin + lane.t, false);
+  float sum_rv = 0.0f, sum_th = 0.0f;  // mixing: the last substep's sums
+  for (int s = 0; s < o.sstp; ++s) {
+    const bool last = s == o.sstp - 1;
+    double part[2] = {0.0, 0.0};
+    for (int ch = 0; ch < lane.n_chunk; ++ch) {
+      if (!resident) x = load(begin + lane.t + ch * lane.stride, s > 0);
+      float th = x.th, rv = x.rv;
+      if (mix && s > 0) {
+        rv = rv + sum_rv;
+        th = th + sum_th;
+      }
+      const float base_rv = rv + x.inc_rv;
+      const float base_th = th + x.inc_th;
+      const float rh = x.rh + x.inc_rh;
+      const float p = o.const_p ? x.p + x.inc_p : x.p;
+      Closure cl = sd_closure(o.th_dry, o.const_p, o.rh_formula, base_th,
+                              base_rv, rh, p);
+      // the turb_cond form: the SD grows at its RH plus its ssp
+      if constexpr (S::on) cl.RH = cl.RH + x.ssp;
+      const float w_new = sd_advance(x.on, x.w, x.rd3, x.kpa, x.vt, cl, rh,
+                                     base_rv, a.lam_D, a.lam_K, o);
+      const bool live = x.n > 0.0f;
+      const float drw3 = live ? rw3_of(w_new) - rw3_of(x.w) : 0.0f;
+      // the SD's private air: a parcel's 1 kg
+      const float drv = drw3 * F(kDrvMlt) * x.n;
+      const float dth = live ? drv * d_th_d_rv(cl.T, base_th) : 0.0f;
+      if (mix) {
+        part[0] += x.on ? static_cast<double>(drv) : 0.0;
+        part[1] += x.on ? static_cast<double>(dth) : 0.0;
+      }
+      x.w = w_new;
+      x.rv = mix ? base_rv : base_rv + drv;
+      x.th = mix ? base_th : base_th + dth;
+      x.rh = rh;
+      x.p = p;
+      if (x.on && (last || !resident)) {
+        out.rw2[x.j] = x.w;
+        out.rv[x.j] = x.rv;
+        out.th[x.j] = x.th;
+        out.rh[x.j] = x.rh;
+        out.p[x.j] = x.p;
+      }
+    }
+    if (mix) {
+      cluster_sum(part, sm, s & 1);
+      sum_rv = static_cast<float>(part[0]);
+      sum_th = static_cast<float>(part[1]);
+    }
+  }
+  if (mix) {
+    for (int ch = 0; ch < lane.n_chunk; ++ch) {
+      if (!resident) x = load(begin + lane.t + ch * lane.stride, true);
+      if (x.on) {
+        out.rv[x.j] = x.rv + sum_rv;
+        out.th[x.j] = x.th + sum_th;
+      }
+    }
+    cg::this_cluster().sync();  // no CTA leaves while another may read it
+  }
+}
+
+__global__ void __launch_bounds__(kParcelThreads, 1)
 cond_sd_fixed_parcel_kernel(SdIn in, SdCells cells, SdLayout L, SdOut out,
-                            int* __restrict__ pos, int n_cell, CondOpts o,
-                            int mix) {
-  cond_sd_fixed_body<NoSsp, ParcelAir>(in, cells, L, out, pos, n_cell, o,
-                                       mix, NoSsp{});
+                            CondOpts o, int mix) {
+  cond_sd_fixed_parcel_body(in, cells, L, out, o, mix, NoSsp{});
 }
 
-__global__ void __launch_bounds__(32 * kCondWarps)
+__global__ void __launch_bounds__(kParcelThreads, 1)
 cond_sd_fixed_parcel_turb_kernel(SdIn in, SdCells cells, SdLayout L,
-                                 SdOut out, int* __restrict__ pos, int n_cell,
-                                 CondOpts o, int mix, FixedSsp sg) {
-  cond_sd_fixed_body<FixedSsp, ParcelAir>(in, cells, L, out, pos, n_cell, o,
-                                          mix, sg);
+                                 SdOut out, CondOpts o, int mix,
+                                 FixedSsp sg) {
+  cond_sd_fixed_parcel_body(in, cells, L, out, o, mix, sg);
 }
 
 }  // namespace lcp
 
 namespace {
 
-// the set-up every entry shares; ``launch`` starts its kernel
+// the set-up every entry shares; ``launch`` starts its kernel and returns
+// the launch's error
 template <class Launch>
 int launch_fixed(const float* n, const float* rw2, const float* rd3,
                  const float* kpa, const float* vt, const float* th0,
@@ -210,9 +335,11 @@ int launch_fixed(const float* n, const float* rw2, const float* rd3,
                         static_cast<float>(RH_max), th_dry, const_p,
                         rh_formula, 0, iters};
   const int blocks = (n_cell + lcp::kCondWarps - 1) / lcp::kCondWarps;
-  launch(blocks, 32 * lcp::kCondWarps, in, cells, L, out, o);
-  return static_cast<int>(cudaGetLastError());
+  return launch(blocks, 32 * lcp::kCondWarps, in, cells, L, out, o);
 }
+
+// whether the parcel forms may take clusters of more than 8 CTAs yet
+bool parcel_wide = false, parcel_turb_wide = false;
 
 }  // namespace
 
@@ -240,6 +367,7 @@ extern "C" int lcp_cond_sd_fixed(
           const lcp::SdOut& out, const lcp::CondOpts& o) {
         lcp::cond_sd_fixed_kernel<<<blocks, threads, 0, stream>>>(
             in, cells, L, out, pos, n_cell, o, mix);
+        return static_cast<int>(cudaGetLastError());
       });
 }
 
@@ -263,10 +391,14 @@ extern "C" int lcp_cond_sd_fixed_turb(
           const lcp::SdOut& out, const lcp::CondOpts& o) {
         lcp::cond_sd_fixed_turb_kernel<<<blocks, threads, 0, stream>>>(
             in, cells, L, out, pos, n_cell, o, mix, lcp::FixedSsp{ssp});
+        return static_cast<int>(cudaGetLastError());
       });
 }
 
-// the parcel forms: the same arguments (the cells' dv is not read)
+// the parcel forms: the same arguments without the scratch positions
+// (the cells' dv is not read), then the plan (ops/cond.py parcel_plan): a
+// cluster of ``ctas`` CTAs of ``threads`` threads a cell, cell k on the
+// k-th cluster
 extern "C" int lcp_cond_sd_fixed_parcel(
     const float* n, const float* rw2, const float* rd3, const float* kpa,
     const float* vt, const float* th0, const float* rv0, const float* rh0,
@@ -274,18 +406,19 @@ extern "C" int lcp_cond_sd_fixed_parcel(
     const float* p, const float* dv, const float* T_mfp, const float* p_mfp,
     const long long* order, const long long* ends, const long long* sijk,
     float* rw2_out, float* th_out, float* rv_out, float* rh_out,
-    float* p_out, int* pos, int n_cell, int cap, int sstp, double dt,
-    double RH_max, int th_dry, int const_p, int rh_formula, int mix,
-    int iters, cudaStream_t stream) {
+    float* p_out, int n_cell, int cap, int sstp, double dt, double RH_max,
+    int th_dry, int const_p, int rh_formula, int mix, int iters, int ctas,
+    int threads, cudaStream_t stream) {
   return launch_fixed(
       n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, th, rv, rhod, p, dv, T_mfp,
       p_mfp, order, ends, sijk, rw2_out, th_out, rv_out, rh_out, p_out,
       n_cell, cap, sstp, dt, RH_max, th_dry, const_p, rh_formula, iters,
-      [&](int blocks, int threads, const lcp::SdIn& in,
-          const lcp::SdCells& cells, const lcp::SdLayout& L,
-          const lcp::SdOut& out, const lcp::CondOpts& o) {
-        lcp::cond_sd_fixed_parcel_kernel<<<blocks, threads, 0, stream>>>(
-            in, cells, L, out, pos, n_cell, o, mix);
+      [&](int, int, const lcp::SdIn& in, const lcp::SdCells& cells,
+          const lcp::SdLayout& L, const lcp::SdOut& out,
+          const lcp::CondOpts& o) {
+        return lcp::parcel_launch(lcp::cond_sd_fixed_parcel_kernel,
+                                  parcel_wide, n_cell, ctas, threads, stream,
+                                  in, cells, L, out, o, mix);
       });
 }
 
@@ -296,17 +429,33 @@ extern "C" int lcp_cond_sd_fixed_parcel_turb(
     const float* p, const float* dv, const float* T_mfp, const float* p_mfp,
     const long long* order, const long long* ends, const long long* sijk,
     float* rw2_out, float* th_out, float* rv_out, float* rh_out,
-    float* p_out, int* pos, int n_cell, int cap, int sstp, double dt,
-    double RH_max, int th_dry, int const_p, int rh_formula, int mix,
-    int iters, const float* ssp, cudaStream_t stream) {
+    float* p_out, int n_cell, int cap, int sstp, double dt, double RH_max,
+    int th_dry, int const_p, int rh_formula, int mix, int iters,
+    const float* ssp, int ctas, int threads, cudaStream_t stream) {
   return launch_fixed(
       n, rw2, rd3, kpa, vt, th0, rv0, rh0, p0, th, rv, rhod, p, dv, T_mfp,
       p_mfp, order, ends, sijk, rw2_out, th_out, rv_out, rh_out, p_out,
       n_cell, cap, sstp, dt, RH_max, th_dry, const_p, rh_formula, iters,
-      [&](int blocks, int threads, const lcp::SdIn& in,
-          const lcp::SdCells& cells, const lcp::SdLayout& L,
-          const lcp::SdOut& out, const lcp::CondOpts& o) {
-        lcp::cond_sd_fixed_parcel_turb_kernel<<<blocks, threads, 0, stream>>>(
-            in, cells, L, out, pos, n_cell, o, mix, lcp::FixedSsp{ssp});
+      [&](int, int, const lcp::SdIn& in, const lcp::SdCells& cells,
+          const lcp::SdLayout& L, const lcp::SdOut& out,
+          const lcp::CondOpts& o) {
+        return lcp::parcel_launch(lcp::cond_sd_fixed_parcel_turb_kernel,
+                                  parcel_turb_wide, n_cell, ctas, threads,
+                                  stream, in, cells, L, out, o, mix,
+                                  lcp::FixedSsp{ssp});
       });
+}
+
+// how many clusters of a parcel form's plan the card holds at once (0:
+// none of that size)
+extern "C" int lcp_cond_sd_fixed_parcel_clusters(int ctas, int threads,
+                                                 int* count) {
+  return lcp::parcel_clusters(lcp::cond_sd_fixed_parcel_kernel, parcel_wide,
+                              ctas, threads, count);
+}
+
+extern "C" int lcp_cond_sd_fixed_parcel_turb_clusters(int ctas, int threads,
+                                                      int* count) {
+  return lcp::parcel_clusters(lcp::cond_sd_fixed_parcel_turb_kernel,
+                              parcel_turb_wide, ctas, threads, count);
 }

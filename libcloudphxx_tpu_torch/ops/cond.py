@@ -42,7 +42,9 @@ forms): F weighs a droplet by wgt / (dv rhod) with dv = 1 / rhod at each
 substep's rhod, and G feeds an SD's private air the vapour of its
 d(rw^3) undivided, where the grid forms take the cell volume dv and
 divide by the private air's rhod dv.  Their plain versions are the same
-plain functions on a parcel's configuration.
+plain functions on a parcel's configuration.  F's and G-fixed's parcel
+forms run a cell on a thread-block cluster (csrc/cond_cluster.cuh), of
+the shape parcel_plan picks from the longest cell.
 
 With ice_switch F runs its ice forms (csrc/cond_flat.cu
 lcp_cond_flat_ice, _ice_turb, _parcel_ice, _parcel_ice_turb): the TPU
@@ -67,6 +69,9 @@ particles_t.get_attr and save, show a dead slot's rw2, which is then the
 kernel's or the plain version's.
 """
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from .. import _ext
@@ -79,6 +84,57 @@ from ..lgrngn import ice as ice_mod
 _FORM_KERNELS = {"cond_flat": "COND_FLAT",
                  "perparticle_fixed": "COND_SD_FIXED",
                  "perparticle_adaptive": "COND_SD_ADAPTIVE"}
+
+
+# the parcel forms' clusters: at most PARCEL_MAX_CLUSTER CTAs (above 8 only
+# where the card takes that many), at most PARCEL_MAX_THREADS threads a
+# CTA (csrc/cond_cluster.cuh kParcelCluster, kParcelThreads)
+PARCEL_MAX_CLUSTER = 16
+PARCEL_PORTABLE_CLUSTER = 8
+PARCEL_MAX_THREADS = 512
+
+
+class ParcelPlan(NamedTuple):
+    """The launch of F's and G-fixed's parcel forms: a cluster of ``ctas``
+    CTAs of ``threads`` threads a cell; thread t of a cluster takes the
+    slots t, t + ctas * threads, ... of its cell's segment."""
+    ctas: int
+    threads: int
+
+
+def parcel_plan(longest, max_cluster=PARCEL_MAX_CLUSTER):
+    """The parcel forms' plan for cells of at most ``longest`` slots: a
+    warp for every 32 slots, spread over at most ``max_cluster`` CTAs of
+    at most PARCEL_MAX_THREADS threads, so that up to max_cluster *
+    PARCEL_MAX_THREADS slots a thread holds one (in registers across the
+    substeps) and a longer cell gives each thread several."""
+    warps = max(1, -(-int(longest) // 32))
+    ctas = max(1, min(max_cluster, warps))
+    return ParcelPlan(ctas, 32 * min(PARCEL_MAX_THREADS // 32,
+                                     -(-warps // ctas)))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_holds(kernel, plan):
+    return _ext.max_clusters(kernel, *plan) > 0
+
+
+def card_parcel_plan(kernel, longest):
+    """parcel_plan for ``kernel`` on the card: clusters of up to
+    PARCEL_MAX_CLUSTER CTAs where the card holds one, else of the
+    portable PARCEL_PORTABLE_CLUSTER."""
+    plan = parcel_plan(longest, PARCEL_MAX_CLUSTER)
+    if plan.ctas > PARCEL_PORTABLE_CLUSTER and not _card_holds(kernel, plan):
+        plan = parcel_plan(longest, PARCEL_PORTABLE_CLUSTER)
+    return plan
+
+
+def _longest(ends, n_slots):
+    """The most slots a cell of the segments ending at ``ends`` holds (one
+    cell: all of them, without reading the card)."""
+    if ends.shape[0] == 1:
+        return n_slots
+    return int(torch.diff(ends, prepend=ends.new_full((1,), -1)).max())
 
 
 def form_kernel(form, parcel, turb, ice=False):
@@ -233,7 +289,10 @@ def cond_flat(cfg, sstp, dt_sub, RH_max, var_rho, sijk, ends, rw2, rd3, kpa,
     if ice is not None:
         ice_out = (torch.empty_like(rw2), torch.empty_like(rw2))
         args += tuple(a.data_ptr() for a in tuple(ice) + ice_out)
-    form_kernel("cond_flat", parcel, turb, ice is not None).launch(*args)
+    kernel = form_kernel("cond_flat", parcel, turb, ice is not None)
+    if kernel in (_ext.COND_FLAT_PARCEL, _ext.COND_FLAT_PARCEL_TURB):
+        args += card_parcel_plan(kernel, _longest(ends, n_sd))
+    kernel.launch(*args)
     cells = tuple(cells_out.unbind(0))
     out = (rw2_out,) + cells[:3] + out
     return out if ice is None else out + ice_out + cells[3:]
@@ -415,11 +474,14 @@ def _launch_sd(name, kernel, sd, cells, seg, *scalars, sgs=()):
                       device=sd[1].device)
     rw2, th, rv, rh, p = out.unbind(0)
     outs = (rw2, th, rv, rh, p)
-    if kernel in (_ext.COND_SD_FIXED, _ext.COND_SD_FIXED_TURB,
-                  _ext.COND_SD_FIXED_PARCEL, _ext.COND_SD_FIXED_PARCEL_TURB):
+    if kernel in (_ext.COND_SD_FIXED, _ext.COND_SD_FIXED_TURB):
         # its scratch: the ranked positions
         outs += (torch.empty(n_slots, dtype=torch.int32,
                              device=sd[1].device),)
+    plan = ()
+    if kernel in (_ext.COND_SD_FIXED_PARCEL, _ext.COND_SD_FIXED_PARCEL_TURB):
+        plan = card_parcel_plan(kernel, sd[1].shape[1] if seg is None
+                                else _longest(seg[2], n_slots))
     lay = seg if seg is not None else (None, None, None)
     sijk, order, ends = (a.data_ptr() if a is not None else None
                          for a in lay)
@@ -428,7 +490,8 @@ def _launch_sd(name, kernel, sd, cells, seg, *scalars, sgs=()):
     kernel.launch(*(a.data_ptr() for a in sd + cells), order, ends, sijk,
                   *(a.data_ptr() for a in outs), cells[0].shape[0], cap,
                   *scalars, *(a.data_ptr() for a in sgs),
-                  *((ssp_out.data_ptr(),) if ssp_out is not None else ()))
+                  *((ssp_out.data_ptr(),) if ssp_out is not None else ()),
+                  *plan)
     return (rw2, rv, th, rh, p) + ((ssp_out,) if ssp_out is not None else ())
 
 

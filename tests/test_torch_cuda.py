@@ -140,6 +140,8 @@ def dev():
 
 
 def _rel(a, b):
+    if a.numel() == 0 and b.numel() == 0:    # nothing to differ
+        return 0.0
     a, b = a.double(), b.double()
     return float((torch.abs(a - b) / torch.clamp(torch.abs(b), min=1e-300))
                  .max())
@@ -1915,6 +1917,132 @@ def test_cond_sd_adaptive_parcel_matches_plain(dev, layout, mode, turb):
                                          **kw)
     live = sd[0] > 0
     assert not torch.equal(k[1][live], grid[1][live])
+
+
+# one parcel of these many live SDs, dead slots mixed in: empty, one SD,
+# less than a warp, a warp and one, a thread a slot of the 16-CTA cluster,
+# one more, 8 slots a thread
+PARCEL_SIZES = [0, 1, 31, 33, 4096, 4097, 65536]
+
+
+def _parcel_flat(dev, n, config, turb):
+    """One parcel of ``n`` live droplets and n // 8 + 5 dead slots mixed
+    in, for kernel F's parcel forms: the weights per kg of air, scaled to
+    the liquid of _flat_case's 64-droplet cells (more would move T by
+    tens of K a substep); with ``turb`` ssp and dot_ssp."""
+    cfg, kw = flat_cond_case([n], n // 8 + 5, 11, dev, torch.float32,
+                             **{k: v for k, v in FLAT_CONFIGS[config].items()
+                                if k != "var_rho"})
+    kw["var_rho"] = config == "var_rho"
+    kw["wgt"] = kw["wgt"] / (kw["dv"] * kw["rhod"])[kw["sijk"]] \
+        * (64.0 / max(n, 64))
+    sgs = dict(zip(("ssp", "dot_ssp"), _sgs(kw["rw2"].shape[0], 7, dev))) \
+        if turb else {}
+    return _parcel(cfg), dict(kw, **sgs)
+
+
+def _check_flat_parcel(pcfg, kw):
+    """F's parcel form (one launch, twice the same bits) against its plain
+    version within F's gates: live rw2 1e-5, th 2e-6, rv 2e-5; rhod, the
+    live droplets' ssp and the dead slots (rw2, ssp) bitwise."""
+    turb = "ssp" in kw
+    kernel = _ext.COND_FLAT_PARCEL_TURB if turb else _ext.COND_FLAT_PARCEL
+    k = _launches(kernel, lambda: cond_ops.cond_flat(pcfg, RH_max=44.0,
+                                                     **kw))
+    again = cond_ops.cond_flat(pcfg, RH_max=44.0, **kw)
+    p = cond_ops.cond_flat(pcfg, RH_max=44.0, plain=True, **kw)
+    for a, b in zip(k, again):
+        assert torch.equal(a, b)
+    live = kw["wgt"] > 0
+    if bool(live.any()):
+        assert _rel(k[0][live], p[0][live]) <= 1e-5
+        assert _rel(k[0][live], kw["rw2"][live]) > 1e-3     # they grew
+    assert _rel(k[1], p[1]) <= 2e-6 and _rel(k[2], p[2]) <= 2e-5
+    assert torch.equal(k[3], p[3])
+    assert torch.equal(k[0][~live], kw["rw2"][~live])
+    if turb:
+        assert torch.equal(k[4][live], p[4][live])
+        assert torch.equal(k[4][~live], kw["ssp"][~live])
+    return k
+
+
+@pytest.mark.parametrize("turb", [False, True], ids=["", "turb"])
+@pytest.mark.parametrize("config", ["th_dry", "var_rho", "const_p"])
+@pytest.mark.parametrize("n", PARCEL_SIZES)
+def test_cond_flat_parcel_cluster_matches_plain(dev, n, config, turb):
+    """Kernel F's parcel forms on one parcel of 0 to 65,536 droplets (a
+    cluster of up to 16 CTAs; one slot a thread up to 8,192 droplets,
+    several beyond), under each closure and with rhod substepped, against
+    their plain version within F's gates, and bitwise from launch to
+    launch."""
+    pcfg, kw = _parcel_flat(dev, n, config, turb)
+    plan = cond_ops.card_parcel_plan(
+        _ext.COND_FLAT_PARCEL_TURB if turb else _ext.COND_FLAT_PARCEL,
+        kw["rw2"].shape[0])
+    assert plan == cond_ops.parcel_plan(kw["rw2"].shape[0]) or plan.ctas == 8
+    _check_flat_parcel(pcfg, kw)
+
+
+def _parcel_sd(dev, n, layout, mode, turb):
+    """One parcel of ``n`` live SDs for G-fixed's parcel forms: flat
+    segments with n // 8 + 5 dead slots mixed in, or a dense row of
+    capacity n + n // 8 + 5 (a hole and a dead tail); the weights scaled
+    to the vapour of _g_counts' cells of 64; with ``turb`` each SD's
+    ssp."""
+    cap = None if layout == "flat" else n + n // 8 + 5
+    cfg, sd, cells, seg = perparticle_case(
+        [n], cap=cap, dead0=n // 8 + 5, seed=12, device=dev,
+        dtype=torch.float32, sstp_cond=10, **FIXED_MODES[mode])
+    sd = (sd[0] * (64.0 / max(n, 64)),) + sd[1:]
+    kw = {"ssp": _sgs(sd[0].numel(), 8, dev)[0].reshape(sd[0].shape)} \
+        if turb else {}
+    return _parcel(cfg), sd, cells[:7], seg, kw
+
+
+@pytest.mark.parametrize("turb", [False, True], ids=["", "turb"])
+@pytest.mark.parametrize("mode", ["mix", "nomix"])
+@pytest.mark.parametrize("layout", ["cap", "flat"])
+@pytest.mark.parametrize("n", PARCEL_SIZES)
+def test_cond_sd_fixed_parcel_cluster_matches_plain(dev, n, layout, mode,
+                                                    turb):
+    """G-fixed's parcel forms on one parcel of 0 to 65,536 SDs, as a dense
+    row and as flat segments, with and without mixing (a cluster barrier
+    a substep, or none), against their plain version as _check_form holds
+    them, and bitwise from launch to launch."""
+    pcfg, sd, cells, seg, kw = _parcel_sd(dev, n, layout, mode, turb)
+    kernel = _ext.COND_SD_FIXED_PARCEL_TURB if kw \
+        else _ext.COND_SD_FIXED_PARCEL
+    k = _check_form(kernel, cond_ops.perparticle_fixed, pcfg, sd, cells,
+                    seg, **kw)
+    again = cond_ops.perparticle_fixed(pcfg, 1.0, 44.0, sd, cells, seg,
+                                       **kw)
+    for a, b in zip(k, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [33, 4097, 65536])
+def test_parcel_forms_on_the_portable_cluster(dev, monkeypatch, n):
+    """F's and G-fixed's parcel forms (and their turb_cond forms) with the
+    plan held to the portable cluster of 8 CTAs through the plan
+    function: the same gates, where 4,097 droplets already give a thread
+    two slots."""
+    monkeypatch.setattr(cond_ops, "PARCEL_MAX_CLUSTER", 8)
+    for turb in (False, True):
+        pcfg, kw = _parcel_flat(dev, n, "var_rho", turb)
+        kernel = _ext.COND_FLAT_PARCEL_TURB if turb \
+            else _ext.COND_FLAT_PARCEL
+        plan = cond_ops.card_parcel_plan(kernel, kw["rw2"].shape[0])
+        assert plan == cond_ops.parcel_plan(kw["rw2"].shape[0], 8)
+        assert plan.ctas <= 8
+        _check_flat_parcel(pcfg, kw)
+        for layout, mode in (("flat", "mix"), ("cap", "nomix")):
+            pcfg, sd, cells, seg, kw_g = _parcel_sd(dev, n, layout, mode,
+                                                    turb)
+            kernel = _ext.COND_SD_FIXED_PARCEL_TURB if turb \
+                else _ext.COND_SD_FIXED_PARCEL
+            assert cond_ops.card_parcel_plan(kernel, n).ctas <= 8
+            _check_form(kernel, cond_ops.perparticle_fixed, pcfg, sd, cells,
+                        seg, **kw_g)
 
 
 PARCEL_MODES = {
