@@ -247,8 +247,11 @@ checks them:
      capacity 128) on the factory's pick on the card, the dense front:
      10 counted steps (B, E's y form, C's and D's 3-D forms once a step,
      no other kernel), C's, D's and E's 3-D forms against their plain
-     versions on what a full-width step gives them (bitwise; E also with
-     radii x10, C also on 1 mm rain), the best of 3 reps of 10 steps from
+     versions on what a full-width step gives them (bitwise, D and E also
+     from one launch to the next; E also with radii x10, C also on 1 mm
+     rain), D's and E's registers, shared memory and blocks an SM at
+     their launch plans (D's bricks, E's warps a row; also in (b) and
+     (c)), the best of 3 reps of 10 steps from
      init, on every rep finite fields, water and dry mass conserved with
      the puddle, the live count balanced against coalescence and the
      walls, no SD dropped and SDs wrapped in y, the device time of each
@@ -2323,7 +2326,7 @@ def mesh_options(Kinematic2D, dense, _ext, step, card):
                     **kw, plain=True), kw["n"])
                 bnd = coal_y_bound(kw, work, OPS_EFF + OPS_WANG)
                 call = lambda plain: coal.coal_resident(**kw, plain=plain)
-                kernel, sym, plain_reps = e_kernel, "coal_kernel", 1
+                kernel, sym, plain_reps = e_kernel, "coal_y_kernel", 1
             row = kernel_row(kernel, main[kernel.name], err, call, bnd,
                              card, plain_reps=plain_reps,
                              where=f"in the {MESH_SHARDS}-shard mesh's "
@@ -5660,42 +5663,93 @@ def check_c3d(label, kernel, c_kw, err):
 
 def check_d3d(label, kernel, d_kw, err):
     """Kernel D's 3-D form against its plain version on ``d_kw``
-    (rebin_x's arguments): every plane and the drops bitwise."""
+    (rebin_x's arguments): every plane and the drops bitwise, and a second
+    launch the same bits."""
     from libcloudphxx_tpu_torch.ops import step
     kd = _counted(kernel, lambda: step.rebin_x(**d_kw))
+    again = _counted(kernel, lambda: step.rebin_x(**d_kw))
     pd = step.rebin_x(**d_kw, plain=True)
     same = all(torch.equal(a, b) for a, b in zip(kd, pd))
+    repeat = all(torch.equal(a, b) for a, b in zip(kd, again))
     err[kernel.name] = max(err.get(kernel.name, 0.0),
                            *(max_abs(a, b) for a, b in zip(kd, pd)))
     print(f"D {kernel.name}, {label}: {len(kd) - 1} planes and the drops "
-          f"equal {same}; droplets placed {int((kd[0] > 0).sum())}, dropped "
+          f"equal {same}, a second launch the same bits {repeat}; droplets "
+          f"placed {int((kd[0] > 0).sum())}, dropped "
           f"{float(kd[-1].sum()):.0f}", flush=True)
     check(same, f"D {kernel.name}, {label}: kernel and plain version differ")
+    check(repeat, f"D {kernel.name}, {label}: two launches differ")
 
 
 def check_e(label, kernel, e_kw, err, cases):
     """Kernel E's form ``kernel`` against its plain version on ``e_kw``
     (coal_resident's arguments) in each of ``cases`` ((name, rw2 factor,
     pairing)): every plane (y too) lane by lane and the overflow flags
-    row by row bitwise; the scaled populations collide."""
+    row by row bitwise, a second launch the same bits; the scaled
+    populations collide."""
     from libcloudphxx_tpu_torch.ops import coal
     n_in = e_kw["n"]
     for pop, scale, form in cases:
         kw = dict(e_kw, pairing=form, rw2=e_kw["rw2"] * scale)
         k_out = _counted(kernel, lambda: coal.coal_resident(**kw))
+        again = _counted(kernel, lambda: coal.coal_resident(**kw))
         p_out = coal.coal_resident(**kw, plain=True)
         lanes = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+        repeat = all(torch.equal(a, b) for a, b in zip(k_out, again))
         err[kernel.name] = max(err.get(kernel.name, 0.0), *(
             max_abs(a, b) for a, b in zip(k_out, p_out)))
         lost = float(n_in.double().sum() - k_out[0].double().sum())
         print(f"E {kernel.name} {form}, {label}, {pop}: lanes equal "
               f"{lanes} ({len(k_out) - 1} planes and the flags; "
               f"{int(k_out[-1].sum())} of {n_in.shape[0]} rows flagged), "
-              f"multiplicity lost {lost:.6g}", flush=True)
+              f"a second launch the same bits {repeat}, multiplicity lost "
+              f"{lost:.6g}", flush=True)
         check(lanes, f"E {kernel.name} {form}, {label}, {pop}: kernel "
               "and plain version differ")
+        check(repeat, f"E {kernel.name} {form}, {label}, {pop}: two "
+              "launches differ")
         check(lost > 0.0 or scale == 1.0,
               f"E {kernel.name} {form}, {label}, {pop}: no collision")
+
+
+def form_resources(_ext, row, query, *args, **plan):
+    """The card's attributes of a kernel form (_ext.attributes of the C
+    query ``query`` with ``args``), printed and kept in the kernels row
+    ``row`` with the launch plan ``plan``."""
+    a = _ext.attributes(query, *args)
+    rows = (f", {a['warps_a_row']} warps a row of {a['slots_a_lane']} "
+            f"register slots a lane" if a["warps_a_row"] else "")
+    print(f"resources {row['name']} {query}{args} {plan}: {a['registers']} "
+          f"registers a thread, {a['static_shared']} B static and "
+          f"{a['dynamic_shared']} B dynamic shared memory, {a['local']} B "
+          f"local memory, {a['blocks_per_sm']} blocks of {a['threads']} "
+          f"threads an SM{rows}", flush=True)
+    row["resources"] = dict(a, **plan)
+
+
+def d3d_resources(_ext, row, kernel, d_kw):
+    """form_resources of kernel D's 3-D form ``kernel`` at the plan
+    rebin_x takes for ``d_kw`` (its arguments), in the layout the launch
+    takes at its capacity."""
+    from libcloudphxx_tpu_torch.ops import step
+    cap = d_kw["n"].shape[1]
+    plan = step.merge3d_plan(cap, d_kw["cfg"].nz)
+    form_resources(_ext, row, kernel.symbol + "_attrs", int(cap % 128 == 0),
+                   plan.brick, cap, brick=plan.brick, bricks=plan.bricks)
+
+
+def ey_resources(_ext, row, e_kw):
+    """form_resources of kernel E's y or onishi form at ``e_kw``'s (its
+    arguments') formula, pairing and capacity: the plan's row, and above
+    cap 128 also the one-warp pass (``resources_one_warp``)."""
+    from libcloudphxx_tpu_torch.lgrngn import vt_t
+    cap = e_kw["n"].shape[1]
+    args = (vt_t(e_kw["cfg"].terminal_velocity).value,
+            int(e_kw.get("pairing", "stride") == "sort"), cap)
+    if cap > 128:
+        form_resources(_ext, row, "lcp_coal_y_attrs", *args, 1)
+        row["resources_one_warp"] = row.pop("resources")
+    form_resources(_ext, row, "lcp_coal_y_attrs", *args, 0)
 
 
 def kernel_row(kernel, launches, err, call, bnd, card, reps=KERNEL_REPS,
@@ -5840,6 +5894,8 @@ def dense3d_case(fields, m2, _ext, dense, c, card, profile_on, err):
                    lambda plain: coal.coal_resident(**e_kw, plain=plain),
                    coal_y_bound(e_kw, work), card, reps=5,
                    where="in (a)'s counted steps")]
+    d3d_resources(_ext, rows[1], _ext.MERGE_3D, d_kw)
+    ey_resources(_ext, rows[2], e_kw)
     del calls, e_kw, c_kw, d_kw, kc
     # best of DENSE3D_REPS reps of DENSE3D_STEPS steps from init
     best = float("inf")
@@ -5854,7 +5910,7 @@ def dense3d_case(fields, m2, _ext, dense, c, card, profile_on, err):
                sd_updates_per_s=n_sd * DENSE3D_STEPS / best)
     prt.adopt(init)
     in_step = device_ms(lambda k: dense3d_run(prt, opts, k, fields),
-                        PROFILE_STEPS, ("cond_kernel", "coal_kernel",
+                        PROFILE_STEPS, ("cond_kernel", "coal_y_kernel",
                                         "transport_kernel", "merge3d"))
     out["in_step_ms"] = in_step
     print(f"timing, 3-D dense: {out['ms_per_step']:.3f} ms/step, "
@@ -5866,7 +5922,7 @@ def dense3d_case(fields, m2, _ext, dense, c, card, profile_on, err):
     for r in rows:
         r["in_step_ms"] = in_step.get(
             {"transport_3d": "transport_kernel", "merge_3d": "merge3d",
-             "coal_3d": "coal_kernel"}[r["name"]])
+             "coal_3d": "coal_y_kernel"}[r["name"]])
     b_row["in_step_ms"] = in_step.get("cond_kernel")
     out["b"] = {k: b_row[k] for k in ("launches", "ms", "in_step_ms",
                                       "plain_ms", "bound_ms", "bound_by")}
@@ -5965,6 +6021,7 @@ def dense3d_forms(fields, m2, _ext, dense, c, card, err):
                 lambda plain: step.rebin_x(**d_kw, plain=plain),
                 merge3d_bound(d_kw), card, reps=5,
                 where=f"in (b) {label}'s counted steps"))
+            d3d_resources(_ext, rows[-1], _ext.MERGE_3D_EXACT, d_kw)
         else:
             kc = check_c3d(label, _ext.TRANSPORT_3D_PRED_CORR, c_kw, err)
             # rain to 0.8 mm: vohl's table past index 126
@@ -5983,6 +6040,7 @@ def dense3d_forms(fields, m2, _ext, dense, c, card, err):
                                                             plain=plain),
                            coal_y_bound(e_kw, work, OPS_EFF), card, reps=5,
                            where=f"in (b) {label}'s counted steps")]
+            ey_resources(_ext, rows[-1], e_kw)
         out[label] = dict(chk, launches=launches, init_s=init_s,
                           ms_per_step=secs / DENSE3D_FORM_STEPS * 1e3,
                           seconds=time.perf_counter() - t0)
@@ -6052,6 +6110,7 @@ def onishi_case(Kinematic2D, _ext, dense, c, card, err):
                      coal_y_bound(e_kw, work, OPS_EFF + OPS_WANG), card,
                      reps=KERNEL_REPS, plain_reps=3,
                      where=f"in (c)'s {SLICE_MAIN} coalescing steps")
+    ey_resources(_ext, row, e_kw)
     # best of TIME_REPS reps of ONISHI_TIME_STEPS steps from init
     restore(init)
     m.run_device_lgrngn(2, engine="dense")                 # warm-up
@@ -6066,8 +6125,8 @@ def onishi_case(Kinematic2D, _ext, dense, c, card, err):
         physics_checks(m, *totals, dense)
     restore(init)
     in_step = device_ms(lambda k: m.run_device_lgrngn(k, engine="dense"),
-                        PROFILE_STEPS, ("coal_kernel",))
-    row["in_step_ms"] = in_step.get("coal_kernel")
+                        PROFILE_STEPS, ("coal_y_kernel",))
+    row["in_step_ms"] = in_step.get("coal_y_kernel")
     out = {"ms_per_step": best / ONISHI_TIME_STEPS * 1e3,
            "sd_updates_per_s": n_sd * ONISHI_TIME_STEPS / best,
            "collided": lost, "water_rel_err": dw, "dry_rel_err": dd}

@@ -306,28 +306,32 @@ TRANSPORT_3D_PRED_CORR = Kernel(
     TRANSPORT_3D.argtypes[:-1] + [_P] * 3,
     "libcloudphxx_tpu_torch/csrc/transport3d.cu",
     _3D + ", its pred_corr branch :962-1005)")
-# kernel D's 3-D forms (27 source rows, x and y periodic): planes in (8:
-# n rw2 rd3 kpa vt x z y), targets, planes out (8), drops; n_cell, cap, nx,
-# ny, nz; the exact mode's with the four private planes after the eight
+# kernel D's 3-D forms (27 source rows, x and y periodic; a brick of
+# destination rows a block): planes in (8: n rw2 rd3 kpa vt x z y),
+# targets, planes out (8), drops; n_cell, cap, nx, ny, nz, the brick's rows
+# (ops/step.py merge3d_plan); the exact mode's with the four private
+# planes after the eight
 _MERGE_3D = ("libcloudphxx_tpu/ops/pallas_step.py:716 (_xmerge_kernel) and "
              ":405 (_kernel z-merge epilogue) on the 3-D grid, which the JAX "
              "package re-bins in XLA (lgrngn/dense.py:1095-1180 "
              "_rebin_neighbor, rebin")
 MERGE_3D = Kernel(
-    "merge_3d", "lcp_merge_3d", [_P] * 18 + [_I] * 5,
+    "merge_3d", "lcp_merge_3d", [_P] * 18 + [_I] * 6,
     "libcloudphxx_tpu_torch/csrc/merge3d.cu", _MERGE_3D + ")")
 MERGE_3D_EXACT = Kernel(
-    "merge_3d_exact", "lcp_merge_3d_exact", [_P] * 26 + [_I] * 5,
+    "merge_3d_exact", "lcp_merge_3d_exact", [_P] * 26 + [_I] * 6,
     "libcloudphxx_tpu_torch/csrc/merge3d_exact.cu",
     _MERGE_3D + ", with the exact mode's per-SD ambient planes)")
 # kernel E's y forms (the 3-D grid's y plane riding) and its onishi form
 # (the turbulent kernels at dissipation rate 0): COAL's arguments up to the
 # pairing, then the y plane in and out (null twice for the onishi form off
-# the 3-D grid)
+# the 3-D grid) and the scratch of n_cell + 1 ints (csrc/coal_y.cuh: the
+# rows above 128 slots that the one-warp pass leaves to the wide form; null
+# up to cap 128)
 _COAL_Y = ("libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, coal phase "
            ":233-336) ")
 COAL_3D = Kernel(
-    "coal_3d", "lcp_coal_3d", COAL.argtypes[:-2] + [_P, _P],
+    "coal_3d", "lcp_coal_3d", COAL.argtypes[:-2] + [_P, _P, _P],
     "libcloudphxx_tpu_torch/csrc/coal.cu",
     _COAL_Y + "on the 3-D grid, whose sort pairing carries y in the JAX "
     "package's XLA coalescence (lgrngn/dense.py:801-804)")
@@ -337,9 +341,9 @@ COAL_VOHL_3D = Kernel(
     _COAL_Y + "on the 3-D grid with vohl's efficiencies (lgrngn/dense.py:"
     "801-804; lgrngn/coalescence.py:374-376)")
 # kernel E's onishi form: COAL's arguments (row0 last), then the y plane in
-# and out (null twice off the 3-D grid; row0 0 on it)
+# and out (null twice off the 3-D grid; row0 0 on it) and the scratch
 COAL_ONISHI = Kernel(
-    "coal_onishi", "lcp_coal_onishi", COAL.argtypes[:-1] + [_P, _P],
+    "coal_onishi", "lcp_coal_onishi", COAL.argtypes[:-1] + [_P, _P, _P],
     "libcloudphxx_tpu_torch/csrc/coal.cu",
     _COAL_Y + "with the onishi kernels at dissipation rate 0, which the JAX "
     "package computes in XLA (lgrngn/dense.py:606, :738; "
@@ -465,6 +469,33 @@ def max_clusters(kernel, ctas, threads):
     count = _I(0)
     fn(ctas, threads, ctypes.byref(count))
     return count.value
+
+
+# what attributes() reports of a kernel
+ATTRS = ("registers", "static_shared", "dynamic_shared", "local",
+         "blocks_per_sm", "threads", "warps_a_row", "slots_a_lane")
+
+
+def attributes(query, *args):
+    """What the card makes of a kernel: the C query ``query`` (kernel D's
+    3-D forms' ``lcp_merge_3d_attrs`` and ``lcp_merge_3d_exact_attrs``
+    with (vec, brick, cap); kernel E's y and onishi forms'
+    ``lcp_coal_y_attrs`` with (vt, sort, cap, narrow): the wide form, or
+    with narrow 1 the one-warp pass) over cudaFuncGetAttributes
+    and cudaOccupancyMaxActiveBlocksPerMultiprocessor, as {ATTRS[i]: int}
+    (registers a thread, shared memory static and dynamic and local memory
+    a thread in bytes, blocks an SM, threads a block; E's forms also warps
+    a row and register slots a lane).  Raises with the CUDA error of the
+    query (D's sets the dynamic shared memory first)."""
+    fn = getattr(load(), query)
+    fn.argtypes = [_I] * len(args) + [ctypes.POINTER(_I)]
+    fn.restype = _I
+    out = (_I * len(ATTRS))()
+    err = fn(*args, out)
+    if err:
+        raise RuntimeError(f"{query}{args}: CUDA error {err} "
+                           f"({load().lcp_error_string(err).decode()})")
+    return dict(zip(ATTRS, out))
 
 
 def use_plain(name, t, plain):

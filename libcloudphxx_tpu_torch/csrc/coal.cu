@@ -95,11 +95,11 @@ extern "C" int lcp_coal_standalone(
 
 namespace {
 
-int coal_y_formula(int vt, int sort, const lcp::CoalArgs& a,
+int coal_y_formula(int vt, int sort, const lcp::CoalArgs& a, int* queue,
                    cudaStream_t stream) {
   return lcp::with_vt(vt, [&](auto f) {
     return lcp::coal_launch_y<decltype(f)::value>(
-        sort ? lcp::kSort : lcp::kStride, a, stream);
+        sort ? lcp::kSort : lcp::kStride, a, queue, stream);
   });
 }
 
@@ -112,9 +112,11 @@ lcp::CoalArgs with_y(lcp::CoalArgs a, const float* y, float* y_out) {
 }  // namespace
 
 // The y forms, the resident step's on the 3-D grid (the y plane riding):
-// lcp_coal's arguments up to the pairing, then the y plane in and out;
-// the grid's own rows.  lcp_coal_3d reads the formula kernels and the
-// hall family's tables, lcp_coal_vohl_3d vohl's wide table.
+// lcp_coal's arguments up to the pairing, then the y plane in and out and
+// the scratch of n_cell + 1 ints (coal_y.cuh: the rows the one-warp pass
+// leaves to the wide form; unused up to cap 128); the grid's own rows.
+// lcp_coal_3d reads the formula kernels and the hall family's tables,
+// lcp_coal_vohl_3d vohl's wide table.
 extern "C" int lcp_coal_3d(const float* n, const float* rw2, const float* rd3,
                            const float* kpa, const float* x, const float* z,
                            const float* cells, const float* eff,
@@ -124,7 +126,7 @@ extern "C" int lcp_coal_3d(const float* n, const float* rw2, const float* rd3,
                            double dt_sub, int kern, double coef,
                            double r_max_m1, int clamp, unsigned seed,
                            unsigned step, int vt, int sort, const float* y,
-                           float* y_out, cudaStream_t stream) {
+                           float* y_out, int* queue, cudaStream_t stream) {
   if (y == nullptr || y_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return coal_y_formula(
@@ -134,7 +136,7 @@ extern "C" int lcp_coal_3d(const float* n, const float* rw2, const float* rd3,
                        cap, sstp, dt_sub, kern, coef, r_max_m1, clamp, seed,
                        step, 0),
              y, y_out),
-      stream);
+      queue, stream);
 }
 
 extern "C" int lcp_coal_vohl_3d(
@@ -144,7 +146,7 @@ extern "C" int lcp_coal_vohl_3d(
     float* x_out, float* z_out, unsigned char* ovf, int n_cell, int cap,
     int sstp, double dt_sub, int kern, double coef, double r_max_m1,
     int clamp, unsigned seed, unsigned step, int vt, int sort,
-    const float* y, float* y_out, cudaStream_t stream) {
+    const float* y, float* y_out, int* queue, cudaStream_t stream) {
   if (eff == nullptr || clamp < 127 || y == nullptr || y_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return coal_y_formula(
@@ -154,14 +156,14 @@ extern "C" int lcp_coal_vohl_3d(
                        cap, sstp, dt_sub, kern, coef, r_max_m1, clamp, seed,
                        step, 0, true),
              y, y_out),
-      stream);
+      queue, stream);
 }
 
 // The onishi form (onishi_hall, onishi_hall_davis_no_waals at dissipation
 // rate 0; ``coef`` their kernel_parameters[0], the hall family's table):
 // lcp_coal's arguments, row r drawing as row row0 + r (a shard's of the
 // x-slab mesh on the 2-D grid), then the y plane in and out, null off the
-// 3-D grid.
+// 3-D grid, and lcp_coal_3d's scratch.
 extern "C" int lcp_coal_onishi(
     const float* n, const float* rw2, const float* rd3, const float* kpa,
     const float* x, const float* z, const float* cells, const float* eff,
@@ -169,7 +171,8 @@ extern "C" int lcp_coal_onishi(
     float* x_out, float* z_out, unsigned char* ovf, int n_cell, int cap,
     int sstp, double dt_sub, int kern, double coef, double r_max_m1,
     int clamp, unsigned seed, unsigned step, int vt, int sort,
-    unsigned row0, const float* y, float* y_out, cudaStream_t stream) {
+    unsigned row0, const float* y, float* y_out, int* queue,
+    cudaStream_t stream) {
   if (eff == nullptr || clamp > 126 || (y == nullptr) != (y_out == nullptr)
       || (y != nullptr && row0 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -180,5 +183,16 @@ extern "C" int lcp_coal_onishi(
                        cap, sstp, dt_sub, kern, coef, r_max_m1, clamp, seed,
                        step, row0),
              y, y_out),
-      stream);
+      queue, stream);
+}
+
+// Kernel E's y or onishi form's kernels on the card (coal_y.cuh
+// coal_y_attrs) for formula ``vt``, pairing ``sort`` and capacity ``cap``:
+// the wide form (``narrow`` 0) or the one-warp pass (``narrow`` 1)
+extern "C" int lcp_coal_y_attrs(int vt, int sort, int cap, int narrow,
+                                int* out) {
+  return lcp::with_vt(vt, [&](auto f) {
+    return lcp::coal_y_attrs<decltype(f)::value>(
+        sort ? lcp::kSort : lcp::kStride, cap, narrow, out);
+  });
 }

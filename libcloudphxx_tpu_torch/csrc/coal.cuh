@@ -60,21 +60,20 @@
 // TPU kernel does this (the JAX package reads vohl's efficiencies in XLA,
 // lgrngn/coalescence.py:374-376); its plain version is the same
 // coal_resident_plain.
-// The y and onishi forms (the rows' type YRows; the resident forms, 10
-// instantiations a formula, each formula's in a source coal_y*.cu of its
-// own; the y forms on the grid's own rows, the onishi form also on a
-// shard's of the x-slab mesh, its rows keyed by row0 as ShardRows' are)
-// carry the 3-D grid's y plane: it is
-// written out by the slot of origin, as x and z are (the JAX package's
-// sort pairing carries y, libcloudphxx_tpu/lgrngn/dense.py:801-804),
-// where the rows' y pointer is set.  Their collision kernel is picked at
-// run time (physics.cuh kTableAny): the formula kernels, the hall
-// family's narrow table, vohl's wide one, and the turbulent (onishi)
-// kernels at dissipation rate 0 (onishi.cuh: the hall table's efficiency
-// times Wang's enhancement times the geometric kernel), which the JAX
-// package computes in XLA and its TPU kernel refuses (lgrngn/
-// dense.py:1221-1225).  Their plain version is coal_resident_plain with
-// ``y``.
+// The y and onishi forms (coal_y.cuh: the same substep loop with a row
+// over one warp or several, 10 instantiations a formula, each formula's in
+// a source coal_y*.cu of its own; the y forms on the grid's own rows, the
+// onishi form also on a shard's of the x-slab mesh, its rows keyed by row0
+// as ShardRows' are) carry the 3-D grid's y plane: it is written out by
+// the slot of origin, as x and z are (the JAX package's sort pairing
+// carries y, libcloudphxx_tpu/lgrngn/dense.py:801-804), where the rows' y
+// pointer is set.  Their collision kernel is picked at run time
+// (physics.cuh kTableAny): the formula kernels, the hall family's narrow
+// table, vohl's wide one, and the turbulent (onishi) kernels at
+// dissipation rate 0 (onishi.cuh: the hall table's efficiency times Wang's
+// enhancement times the geometric kernel), which the JAX package computes
+// in XLA and its TPU kernel refuses (lgrngn/dense.py:1221-1225).  Their
+// plain version is coal_resident_plain with ``y``.
 
 #pragma once
 
@@ -146,22 +145,6 @@ struct WideTable : R {
     return WideTable{R::of(row0)};
   }
 };
-// Rows with the y plane in and out (null where there is none: the onishi
-// form off the 3-D grid), the collision kernel's table picked at run time;
-// row r draws as the global row row0 + r (0 on the grid, a shard's first
-// row under the onishi kernels on the x-slab mesh)
-struct YRows {
-  static constexpr int kTable = kTableAny;
-  const float* y;
-  float* y_out;
-  uint32_t row0;
-  __device__ __forceinline__ uint32_t global(int r) const {
-    return row0 + static_cast<uint32_t>(r);
-  }
-};
-template <class R>
-constexpr bool kYRows = std::is_same_v<R, YRows>;
-
 // Where a row's random draws come from: key (seed, row), counter (step,
 // substep, kind, slot).
 struct Draws {
@@ -506,9 +489,6 @@ coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
     kpa_out[row + j] = v.kpa[c];
     x_out[row + j] = x_in[row + v.org[c]];
     z_out[row + j] = z_in[row + v.org[c]];
-    if constexpr (kYRows<R>) {
-      if (rows.y_out) rows.y_out[row + j] = rows.y[row + v.org[c]];
-    }
     if (MODE == kStandalone) {  // a live SD's cached vt is vt_of(rw2)
       float vt = v.vt[c];
       if (v.n[c] <= 0.0f) vt = vt_formula<VT>(v.rw2[c], amb);
@@ -525,7 +505,8 @@ coal_kernel(const float* __restrict__ n_in, const float* __restrict__ rw2_in,
 // and the collision kernel; the draws' seed and step, and the global index
 // of the first row (a shard's of the x-slab mesh, the resident forms
 // only; 0 otherwise); whether the table is the wide one (resident forms
-// only); the y plane in and out (the y and onishi forms; null otherwise).
+// only); the y plane in and out (the y and onishi forms, coal_y.cuh; null
+// otherwise).
 struct CoalArgs {
   const float *n, *rw2, *rd3, *kpa, *x, *z, *cells;
   float *n_out, *rw2_out, *rd3_out, *kpa_out, *x_out, *z_out, *vt_out;
@@ -539,15 +520,6 @@ struct CoalArgs {
   float* y_out;
 };
 
-// the kernel's rows argument for a launch
-template <class R>
-R rows_of(const CoalArgs& a) {
-  if constexpr (kYRows<R>)
-    return R{a.y, a.y_out, a.row0};
-  else
-    return R::of(a.row0);
-}
-
 template <int MODE, int S, int VT, class R>
 cudaError_t launch_rows(const CoalArgs& a, cudaStream_t stream) {
   constexpr int kRows = rows_per_block<S>();
@@ -555,7 +527,7 @@ cudaError_t launch_rows(const CoalArgs& a, cudaStream_t stream) {
                                 0, stream>>>(
       a.n, a.rw2, a.rd3, a.kpa, a.x, a.z, a.cells, a.n_out, a.rw2_out,
       a.rd3_out, a.kpa_out, a.x_out, a.z_out, a.vt_out, a.ovf, a.n_cell,
-      a.cap, a.sstp, a.dt_sub, a.kern, a.seed, a.step, rows_of<R>(a));
+      a.cap, a.sstp, a.dt_sub, a.kern, a.seed, a.step, R::of(a.row0));
   return cudaGetLastError();
 }
 
@@ -597,27 +569,32 @@ extern template int coal_launch_wide<kVtKhvorostyanovNonspherical>(
     int, const CoalArgs&, cudaStream_t);
 
 // The y and onishi forms in a resident ``mode`` (stride or sort) for
-// formula VT; instantiated in the sources coal_y*.cu
+// formula VT (``queue``: n_cell + 1 ints of scratch above cap 128), and
+// their kernels' attributes on the card at a capacity; defined in
+// coal_y.cuh, instantiated in the sources coal_y*.cu
 template <int VT>
-int coal_launch_y(int mode, const CoalArgs& a, cudaStream_t stream) {
-  if (a.cap < 1 || a.cap > kMaxCap || (a.cap & (a.cap - 1)) || a.n_cell < 0
-      || (mode != kStride && mode != kSort))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (a.n_cell == 0) return 0;
-  return mode == kSort ? launch_mode<kSort, VT, YRows>(a, stream)
-                       : launch_mode<kStride, VT, YRows>(a, stream);
-}
+int coal_launch_y(int mode, const CoalArgs& a, int* queue,
+                  cudaStream_t stream);
+template <int VT>
+int coal_y_attrs(int mode, int cap, int narrow, int* out);
 
-extern template int coal_launch_y<kVtUndefined>(int, const CoalArgs&,
+extern template int coal_launch_y<kVtUndefined>(int, const CoalArgs&, int*,
                                                 cudaStream_t);
-extern template int coal_launch_y<kVtBeard76>(int, const CoalArgs&,
+extern template int coal_launch_y<kVtBeard76>(int, const CoalArgs&, int*,
                                               cudaStream_t);
-extern template int coal_launch_y<kVtBeard77>(int, const CoalArgs&,
+extern template int coal_launch_y<kVtBeard77>(int, const CoalArgs&, int*,
                                               cudaStream_t);
 extern template int coal_launch_y<kVtKhvorostyanovSpherical>(
-    int, const CoalArgs&, cudaStream_t);
+    int, const CoalArgs&, int*, cudaStream_t);
 extern template int coal_launch_y<kVtKhvorostyanovNonspherical>(
-    int, const CoalArgs&, cudaStream_t);
+    int, const CoalArgs&, int*, cudaStream_t);
+extern template int coal_y_attrs<kVtUndefined>(int, int, int, int*);
+extern template int coal_y_attrs<kVtBeard76>(int, int, int, int*);
+extern template int coal_y_attrs<kVtBeard77>(int, int, int, int*);
+extern template int coal_y_attrs<kVtKhvorostyanovSpherical>(
+    int, int, int, int*);
+extern template int coal_y_attrs<kVtKhvorostyanovNonspherical>(
+    int, int, int, int*);
 
 // Kernel E in ``mode`` for formula VT, after the checks every form shares
 template <int VT>

@@ -1,11 +1,13 @@
 // Kernel E's y and onishi forms (the 3-D grid's y plane riding, the
 // turbulent kernels at dissipation rate 0) under the
-// khvorostyanov_nonspherical terminal velocity: coal.cuh's kernels with the
-// rows' type YRows, instantiated in a source of their own so that nvcc
-// compiles them beside the other forms (coal.cu holds the entry points,
-// onishi.cuh the onishi kernels' value).
+// khvorostyanov_nonspherical terminal velocity: coal_y.cuh's kernels, a row
+// over one warp or several, instantiated in a source of their own so that
+// nvcc compiles them beside the other forms (coal.cu holds the entry
+// points).
 
-#include "onishi.cuh"
+#include "coal_y.cuh"
 
 template int lcp::coal_launch_y<lcp::kVtKhvorostyanovNonspherical>(
-    int, const lcp::CoalArgs&, cudaStream_t);
+    int, const lcp::CoalArgs&, int*, cudaStream_t);
+template int lcp::coal_y_attrs<lcp::kVtKhvorostyanovNonspherical>(
+    int, int, int, int*);

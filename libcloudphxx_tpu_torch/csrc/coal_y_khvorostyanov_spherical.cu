@@ -1,11 +1,12 @@
 // Kernel E's y and onishi forms (the 3-D grid's y plane riding, the
 // turbulent kernels at dissipation rate 0) under the khvorostyanov_spherical
-// terminal velocity: coal.cuh's kernels with the rows' type YRows,
+// terminal velocity: coal_y.cuh's kernels, a row over one warp or several,
 // instantiated in a source of their own so that nvcc compiles them beside
-// the other forms (coal.cu holds the entry points, onishi.cuh the onishi
-// kernels' value).
+// the other forms (coal.cu holds the entry points).
 
-#include "onishi.cuh"
+#include "coal_y.cuh"
 
 template int lcp::coal_launch_y<lcp::kVtKhvorostyanovSpherical>(
-    int, const lcp::CoalArgs&, cudaStream_t);
+    int, const lcp::CoalArgs&, int*, cudaStream_t);
+template int lcp::coal_y_attrs<lcp::kVtKhvorostyanovSpherical>(
+    int, int, int, int*);

@@ -1,9 +1,9 @@
-// Kernel D's row code, shared by its forms: merge.cu (the seven planes of
-// the main path), merge_mpdata.cu (the seven with the MPDATA epilogue) and
-// merge_exact.cu (eleven, with the exact mode's private ambient planes) on
-// the 2-D grid (Grid2), merge3d.cu and merge3d_exact.cu (eight and twelve:
-// the y plane rides) on the 3-D grid (Grid3); and kernel B's
-// merge-prologue form (cond_merged.cu).  Each
+// Kernel D's row code, shared by its forms on the 2-D grid (Grid2):
+// merge.cu (the seven planes of the main path), merge_mpdata.cu (the seven
+// with the MPDATA epilogue) and merge_exact.cu (eleven, with the exact
+// mode's private ambient planes); and kernel B's merge-prologue form
+// (cond_merged.cu).  The 3-D forms have a design of their own
+// (merge3d.cuh), which takes MERGE_SOURCES' (di, dk) order from here.  Each
 // form is a source of its own, so that the main path's kernel compiles as
 // it did before the second form existed: in one translation unit the
 // second instantiation changes the first one's register allocation and
@@ -58,28 +58,10 @@ struct Grid2Lean : Grid2 {
       : Grid2(r, nx_, nz_) {}
 };
 
-// ... and on the 3-D grid (row (i*ny + j)*nz + k): the 27 of
-// MERGE_SOURCES_3D (ops/step.py), (di, dj, dk) with dk innermost, each
-// 0, -1, 1; x and y periodic, -2 beyond the z walls.  At capacity 128 the
-// 27 target loads of a row go in flight before the first ballot.
-struct Grid3 {
-  static constexpr int kSources = 27, kGroupUnits = 27;
-  int i, j, k, nx, ny, nz;
-  __device__ __forceinline__ Grid3(int r, int nx_, int ny_, int nz_)
-      : i(r / (ny_ * nz_)), j((r / nz_) % ny_), k(r % nz_), nx(nx_),
-        ny(ny_), nz(nz_) {}
-  __device__ __forceinline__ int source(int s) const {
-    const int ks = k + source_dk(s);
-    if (ks < 0 || ks >= nz) return -2;
-    const int is = (i + source_dk(s / 9) + nx) % nx;
-    const int js = (j + source_dk((s / 3) % 3) + ny) % ny;
-    return (is * ny + js) * nz + ks;
-  }
-};
-
 // Destination row ``r``, taken by the warp, over the NP planes ``in``
 // (read) and ``out`` (written), which the kernels fill from their own
-// __restrict__ parameters; ``grid`` (Grid2, Grid3) gives r's source rows.
+// __restrict__ parameters; ``grid`` (Grid2, Grid2Lean) gives r's source
+// rows.
 // Kernel B's merge-prologue form (cond.cuh MergePrologue) and D's MPDATA
 // form (merge_mpdata.cu) call it for the rows they own.
 template <int NP, bool VEC, class G>

@@ -1,54 +1,44 @@
 // Kernel D's 3-D form: the re-binning merge on the 3-D grid, each row
 // taking its droplets from itself and its 26 neighbours in one pass, the
-// eight planes n rw2 rd3 kpa vt x z y.
-//
-// Replaces the merge of the re-binning that the JAX package runs in XLA on
-// the 3-D grid (libcloudphxx_tpu/lgrngn/dense.py:1095-1144 _rebin_neighbor,
-// its z, y and x phases; :1150-1180 rebin), which its TPU kernels
-// (libcloudphxx_tpu/ops/pallas_step.py:_kernel's z-merge epilogue and
-// :716 _xmerge_kernel) do not run in 3-D.  Plain version: ops/step.py
-// rebin_x_plain on the 3-D grid.
-//
-// The design is merge.cu's, over merge.cuh's row code with Grid3: a warp a
-// destination row, the 27 source rows in MERGE_SOURCES_3D order (x and y
-// periodic, z bounded), at capacity 128 every source's target loads in
-// flight before the first ballot.  What bounds it is memory: the targets
-// of 27 rows are read for every slot, the taken droplets' planes once and
-// every plane written in full.  A droplet that wraps in y lands here as
-// one that wraps in x does, where the JAX package sends it to the global
-// re-bin (dense.py:1170-1173); the rows' multisets are the same.
+// eight planes n rw2 rd3 kpa vt x z y.  The design, what it replaces and
+// what bounds it: merge3d.cuh (a brick of destination rows a block, the
+// targets staged in shared memory); merge3d_exact.cu is the exact mode's
+// form, with four more planes.  Plain version: ops/step.py rebin_x_plain
+// on the 3-D grid.
 
 #include <cuda_runtime.h>
 
-#include "merge.cuh"
+#include "merge3d.cuh"
 
 namespace lcp {
 
 constexpr int kPlanes3 = 8;  // n rw2 rd3 kpa vt x z y
 
 template <bool VEC>
-__global__ void __launch_bounds__(kWarpRows * 32)
-merge3d_kernel(const float* __restrict__ n, const float* __restrict__ rw2,
-               const float* __restrict__ rd3, const float* __restrict__ kpa,
-               const float* __restrict__ vt, const float* __restrict__ x,
-               const float* __restrict__ z, const float* __restrict__ y,
-               const int* __restrict__ tgt, float* __restrict__ n_out,
-               float* __restrict__ rw2_out, float* __restrict__ rd3_out,
-               float* __restrict__ kpa_out, float* __restrict__ vt_out,
-               float* __restrict__ x_out, float* __restrict__ z_out,
-               float* __restrict__ y_out, float* __restrict__ drops,
-               int n_cell, int cap, int nx, int ny, int nz) {
+__global__ void __launch_bounds__(kMaxBrick * 32, 2)
+merge3d_brick_kernel(
+    const float* __restrict__ n, const float* __restrict__ rw2,
+    const float* __restrict__ rd3, const float* __restrict__ kpa,
+    const float* __restrict__ vt, const float* __restrict__ x,
+    const float* __restrict__ z, const float* __restrict__ y,
+    const int* __restrict__ tgt, float* __restrict__ n_out,
+    float* __restrict__ rw2_out, float* __restrict__ rd3_out,
+    float* __restrict__ kpa_out, float* __restrict__ vt_out,
+    float* __restrict__ x_out, float* __restrict__ z_out,
+    float* __restrict__ y_out, float* __restrict__ drops, int cap, int nx,
+    int ny, int nz, int brick, int bricks) {
   const float* const in[kPlanes3] = {n, rw2, rd3, kpa, vt, x, z, y};
   float* const out[kPlanes3] = {n_out, rw2_out, rd3_out, kpa_out, vt_out,
                                 x_out, z_out, y_out};
-  merge_rows<kPlanes3, VEC, Grid3>(in, out, tgt, drops, n_cell, cap, nx, ny,
-                                   nz);
+  merge_brick<kPlanes3, VEC>(in, out, tgt, drops, cap, nx, ny, nz, brick,
+                             bricks);
 }
 
 }  // namespace lcp
 
-// lcp_merge's arguments with the y plane after z, in and out, and ny
-// before nz; n_cell = nx * ny * nz, nx and ny at least 3
+// lcp_merge's arguments with the y plane after z, in and out, ny before nz
+// and the brick's rows (ops/step.py merge3d_plan) after them; n_cell = nx *
+// ny * nz, nx and ny at least 3
 extern "C" int lcp_merge_3d(const float* n, const float* rw2,
                             const float* rd3, const float* kpa,
                             const float* vt, const float* x, const float* z,
@@ -56,17 +46,23 @@ extern "C" int lcp_merge_3d(const float* n, const float* rw2,
                             float* rw2_out, float* rd3_out, float* kpa_out,
                             float* vt_out, float* x_out, float* z_out,
                             float* y_out, float* drops, int n_cell, int cap,
-                            int nx, int ny, int nz, cudaStream_t stream) {
-  if (nx < 3 || ny < 3 || n_cell != nx * ny * nz)
-    return static_cast<int>(cudaErrorInvalidValue);
+                            int nx, int ny, int nz, int brick,
+                            cudaStream_t stream) {
   const bool vec = lcp::vector_ok(
       cap, {n, rw2, rd3, kpa, vt, x, z, y, tgt, n_out, rw2_out, rd3_out,
             kpa_out, vt_out, x_out, z_out, y_out});
-  const dim3 grid(lcp::row_blocks(n_cell)), block(lcp::kWarpRows * 32);
-  auto kernel = vec ? lcp::merge3d_kernel<true> : lcp::merge3d_kernel<false>;
-  kernel<<<grid, block, 0, stream>>>(n, rw2, rd3, kpa, vt, x, z, y, tgt,
-                                     n_out, rw2_out, rd3_out, kpa_out,
-                                     vt_out, x_out, z_out, y_out, drops,
-                                     n_cell, cap, nx, ny, nz);
-  return static_cast<int>(cudaGetLastError());
+  auto kernel = vec ? lcp::merge3d_brick_kernel<true>
+                    : lcp::merge3d_brick_kernel<false>;
+  return lcp::launch_brick(kernel, n_cell, cap, nx, ny, nz, brick, stream,
+                           n, rw2, rd3, kpa, vt, x, z, y, tgt, n_out,
+                           rw2_out, rd3_out, kpa_out, vt_out, x_out, z_out,
+                           y_out, drops);
+}
+
+// The form's kernel on the card (lcp::brick_attrs) in its 16-byte (vec 1)
+// or scalar-slot layout
+extern "C" int lcp_merge_3d_attrs(int vec, int brick, int cap, int* out) {
+  return lcp::brick_attrs(vec ? lcp::merge3d_brick_kernel<true>
+                              : lcp::merge3d_brick_kernel<false>,
+                          brick, cap, out);
 }

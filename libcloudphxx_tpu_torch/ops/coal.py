@@ -30,7 +30,8 @@ runs the plain version on any device.  Under vohl_davis_no_waals, whose
 efficiency table is wider than the hall family's 128 (wide_table), the
 resident form launches E's wide-table form (_ext.COAL_VOHL).  On the 3-D
 grid the resident form carries the y plane (``y``), which rides as x and
-z do: E's y forms _ext.COAL_3D and _ext.COAL_VOHL_3D.  Under the
+z do: E's y forms _ext.COAL_3D and _ext.COAL_VOHL_3D, a row over
+coal_y_plan's warps (csrc/coal_y.cuh).  Under the
 turbulent kernels (onishi_hall, onishi_hall_davis_no_waals) it launches
 E's onishi form, _ext.COAL_ONISHI (the y plane riding on the 3-D grid):
 the hall table's efficiency times Wang's enhancement times the
@@ -41,6 +42,8 @@ overflow flag: some pair of the row asked for more than one collision
 in a substep (lane 6 of the TPU kernel's per-block flags,
 pallas_step.py:527).
 """
+
+from typing import NamedTuple
 
 import torch
 
@@ -54,6 +57,33 @@ from . import philox
 
 MAX_CAP = 512        # kernel E: 16 register slots a lane of a warp a row
 PAIRINGS = ("stride", "sort")
+Y_ROW_SLOTS = 128    # kernel E's y and onishi forms: the slots of a warp
+
+
+class CoalYPlan(NamedTuple):
+    """How kernel E's y and onishi forms (csrc/coal_y.cuh) lay a row out:
+    over ``warps`` warps of ``slots`` register slots a lane, row slot j in
+    warp j // 128, lane j % 32, register slot (j % 128) // 32."""
+    warps: int
+    slots: int
+
+
+def coal_y_plan(cap):
+    """The y and onishi forms' row at row capacity ``cap`` (a power of two
+    up to MAX_CAP): one warp of cap / 32 register slots (at least 1) up to
+    cap 128, the one-warp row of E's other forms; above it cap / 128 warps
+    of 4, so that a lane holds no more than 4 slots and a stride pair (the
+    partner j ^ 2**k, k < 6) or a sort pair (2i, 2i + 1) never crosses a
+    warp.  The kernels pick the same from cap (coal_y.cuh with_y_form).
+    Above cap 128 a row whose droplets all lie in its first 128 slots runs
+    first, as a one-warp row of 4 slots a lane over those 128 (its dead
+    slots past them never move: the same bits), and only the others take
+    this plan's warps (a second launch over the rows the first queued)."""
+    if cap < 1 or cap & (cap - 1) or cap > MAX_CAP:
+        raise ValueError(f"coal: the row capacity must be a power of two up "
+                         f"to {MAX_CAP}, got {cap}")
+    return CoalYPlan(max(1, cap // Y_ROW_SLOTS),
+                     max(1, min(cap, Y_ROW_SLOTS) // 32))
 
 
 def n_strides_of(cap):
@@ -242,12 +272,15 @@ def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
     kernel = _ext.COAL_ONISHI if onishi else (
         _ext.COAL_VOHL_3D if wide_table(cfg) else _ext.COAL_3D)
     y_out = None if y is None else torch.empty_like(y)
+    queue = torch.empty(n.shape[0] + 1, dtype=torch.int32, device=n.device) \
+        if n.shape[1] > Y_ROW_SLOTS else None
     *outs, ovf = _launch(kernel, cfg, params, sstp_coal, dt, seed, step,
                          (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
                          int(pairing == "sort"),
                          *((int(row0),) if onishi else ()),
                          None if y is None else y.data_ptr(),
-                         None if y is None else y_out.data_ptr())
+                         None if y is None else y_out.data_ptr(),
+                         None if queue is None else queue.data_ptr())
     return (*outs,) + (() if y is None else (y_out,)) + (ovf,)
 
 

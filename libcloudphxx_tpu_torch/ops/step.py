@@ -22,8 +22,9 @@ hand-written kernels, each beside its plain PyTorch version:
             droplets from itself and its eight neighbours (the z and the x
             pass of the re-binning at once); seven planes, or eleven with
             the exact mode's private ambient planes; on the 3-D grid
-            (csrc/merge3d.cu) from itself and its 26 neighbours, x and y
-            periodic, with the y plane riding: eight planes, or twelve;
+            (csrc/merge3d.cu, a brick of rows a block: merge3d_plan)
+            from itself and its 26 neighbours, x and y periodic, with the
+            y plane riding: eight planes, or twelve;
             with ``mpdata`` its MPDATA-epilogue form, csrc/merge_mpdata.cu:
             a cluster of CTAs more a field advects the next step's th and
             rv
@@ -35,6 +36,9 @@ timings.  Layout: SD planes (n_cell, cap), row i*nz + k holding cell
 (i, k), or on the 3-D grid row (i*ny + j)*nz + k holding cell (i, j, k);
 cell fields (n_cell,).
 """
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -58,6 +62,14 @@ MERGE_SOURCES_3D = tuple((di, dj, dk) for di in (0, -1, 1)
                          for dj in (0, -1, 1) for dk in (0, -1, 1))
 # rebin_x_plain's candidate slots a block of destination rows
 MERGE_BLOCK = 1 << 25
+# kernel D's 3-D forms: at most MERGE3D_MAX_BRICK destination rows (warps)
+# a block (csrc/merge3d.cuh kMaxBrick).  An H100 SM gives its blocks
+# SM_SHARED bytes of shared memory, BLOCK_RESERVED of them each block's
+# own, and a block at most BLOCK_SHARED.
+MERGE3D_MAX_BRICK = 16
+SM_SHARED = 233_472
+BLOCK_SHARED = 232_448
+BLOCK_RESERVED = 1_024
 
 
 def _rows(cfg, n_cell, like, col0=0):
@@ -718,6 +730,75 @@ def rebin_x_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=()):
     return tuple(torch.cat(c) for c in zip(*outs)) + (torch.cat(drops),)
 
 
+class Merge3dPlan(NamedTuple):
+    """The launch of kernel D's 3-D forms: block b of column (i, j) = b //
+    ``bricks`` owns the ``brick`` rows (a warp each) from level (b %
+    bricks) * brick of it, clipped at nz, and stages the targets of the 3 x
+    3 columns around it at those levels and one more on each side into
+    ``smem`` bytes of dynamic shared memory."""
+    brick: int
+    bricks: int
+    smem: int
+
+
+def merge3d_smem(brick, cap):
+    """csrc/merge3d.cuh brick_smem: a byte a slot of 9 x (brick + 2) staged
+    rows at a row stride of whole 128-slot tiles, then each row's list of
+    the slots it takes (4 bytes a slot)."""
+    return 9 * (brick + 2) * (-(-cap // 128) * 128) + 4 * brick * cap
+
+
+def merge3d_plan(cap, nz, brick=None):
+    """Kernel D's 3-D forms' plan at row capacity ``cap`` on columns of
+    ``nz`` rows: bricks of at most MERGE3D_MAX_BRICK rows, a column split
+    into as few as hold it and their heights as even as a whole number
+    allows (at nz = 76 bricks of 16 rows, the last 12), lowered until two
+    blocks' shared memory fits an SM.  ``brick`` forces the height (any
+    from 1 to MERGE3D_MAX_BRICK whose shared memory a block may take;
+    above nz a brick's last warps have no row).  Raises for a height no
+    block holds."""
+    if brick is None:
+        bricks = -(-int(nz) // MERGE3D_MAX_BRICK)
+        brick = -(-int(nz) // bricks)
+        while brick > 1 and 2 * (merge3d_smem(brick, cap)
+                                 + BLOCK_RESERVED) > SM_SHARED:
+            brick -= 1
+    brick = int(brick)
+    smem = merge3d_smem(brick, cap)
+    if not 1 <= brick <= MERGE3D_MAX_BRICK or smem > BLOCK_SHARED:
+        raise ValueError(
+            f"rebin_x: no 3-D merge plan with a brick of {brick} rows at "
+            f"capacity {cap}: 1 to {MERGE3D_MAX_BRICK} rows whose "
+            f"{smem} bytes of shared memory fit a block's {BLOCK_SHARED}")
+    return Merge3dPlan(brick, -(-int(nz) // brick), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def card_merge3d(kernel, plan, cap):
+    """Raise unless the card runs ``kernel`` (_ext.MERGE_3D or
+    MERGE_3D_EXACT) at ``plan`` and row capacity ``cap`` in both its
+    layouts: cudaFuncSetAttribute must take the plan's dynamic shared
+    memory and at least one block must fit an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns the
+    kernel's attributes (_ext.attributes) in the 16-byte layout."""
+    for vec in (0, 1):
+        try:
+            a = _ext.attributes(kernel.symbol + "_attrs", vec, plan.brick,
+                                cap)
+        except RuntimeError as e:
+            raise ValueError(
+                f"{kernel.name}: the card refuses a brick of {plan.brick} "
+                f"rows at capacity {cap}, {plan.smem} bytes of dynamic "
+                f"shared memory (cudaFuncSetAttribute): {e}") from None
+        if a["blocks_per_sm"] < 1:
+            raise ValueError(
+                f"{kernel.name}: no block of a brick of {plan.brick} rows "
+                f"at capacity {cap} ({plan.smem} bytes of dynamic shared "
+                f"memory, {a['registers']} registers a thread) fits an SM "
+                f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    return a
+
+
 def rebin_x_mpdata_plain(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, mpdata):
     """The plain version of kernel D's MPDATA-epilogue form: rebin_x_plain,
     then models/mpdata._advect_body of th and rv, ``mpdata`` = (th, rv,
@@ -747,7 +828,8 @@ def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=(), mpdata=None,
     four ``extra`` planes (the exact mode's sd_th, sd_rv, sd_rh and sd_p)
     it is D's 11-plane form, counted as _ext.MERGE_EXACT.  On the 3-D grid
     ``extra`` is y, or y and the four private planes: D's 3-D forms,
-    _ext.MERGE_3D (eight planes) and _ext.MERGE_3D_EXACT (twelve).  With
+    _ext.MERGE_3D (eight planes) and _ext.MERGE_3D_EXACT (twelve), at
+    merge3d_plan's bricks.  With
     ``mpdata`` = (th, rv, gc_x, gc_z, G, n_iters, fct), the post-
     condensation cell fields and kernel A's arguments, the seven-plane 2-D
     form also advects th and rv for the next step: D's MPDATA-epilogue
@@ -781,7 +863,9 @@ def rebin_x(cfg, n, rw2, rd3, kpa, vt, x, z, tgt, *, extra=(), mpdata=None,
     exact = len(extra) > int(three)
     if three:
         kernel = _ext.MERGE_3D_EXACT if exact else _ext.MERGE_3D
-        dims = (n_cell, cap, cfg.nx, cfg.ny, cfg.nz)
+        plan = merge3d_plan(cap, cfg.nz)
+        card_merge3d(kernel, plan, cap)
+        dims = (n_cell, cap, cfg.nx, cfg.ny, cfg.nz, plan.brick)
     else:
         kernel = _ext.MERGE_EXACT if exact else _ext.MERGE
         dims = (n_cell, cap, cfg.nx, cfg.nz)

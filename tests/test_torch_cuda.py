@@ -1484,22 +1484,28 @@ def test_mesh_options_match_serial_on_the_card(dev, case):
 @pytest.mark.parametrize("name", ["onishi_hall-eps100",
                                   "onishi_hall_davis_no_waals"])
 @pytest.mark.parametrize("form", ["stride", "sort"])
-@pytest.mark.parametrize("cap", [32, 128, 512])
+@pytest.mark.parametrize("cap", [2, 32, 128, 256, 512])
 def test_coal_onishi_kernel_with_row0_matches_plain(coal_model, cap, form,
                                                     name):
     """Kernel E's onishi form keyed by the global row (row0 of a mesh
-    shard) bitwise equal to its plain version lane by lane, and equal to
-    the same rows of a call on the grid they are part of."""
+    shard) bitwise equal to its plain version lane by lane (a row over
+    one warp to cap 128, over 2 and 4 at 256 and 512), the same bits from
+    launch to launch, and equal to the same rows of a call on the grid
+    they are part of."""
     kernel, params = COAL_Y_KERNELS[name]
     cfg = _coal_cfg(coal_model, kernel)
     planes, cells = _coal_rows(coal_model.device, cap, rows=48, seed=4)
+    if cap < 32:        # radii x10: a row of two droplets collides
+        planes = (planes[0], planes[1] * 100.0) + planes[2:]
     base = (cfg, params, 10, 100.0, 44, 3)
     part = lambda plain: coal.coal_resident(
         *base, *(p[16:40] for p in planes), *(c[16:40] for c in cells),
         pairing=form, row0=16, plain=plain)
     k = _launches(_ext.COAL_ONISHI, lambda: part(False))
+    again = _launches(_ext.COAL_ONISHI, lambda: part(False))
     p = part(True)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
     whole = coal.coal_resident(*base, *planes, *cells, pairing=form)
     assert all(torch.equal(a[16:40], b) for a, b in zip(whole, k))
     assert float(k[0].sum()) < float(planes[0][16:40].sum())   # collided
@@ -2257,27 +2263,125 @@ def test_transport_3d_kernel_matches_plain(dev, cap, scheme, open_walls):
             assert int(kc[5][:, 4].sum()) > 0              # far movers
 
 
-@pytest.mark.parametrize("exact", [False, True], ids=["8", "12"])
-@pytest.mark.parametrize("cap", [2, 32, 100, 128, 512])
-def test_merge_3d_kernel_matches_plain(dev, cap, exact):
-    """Kernel D's 3-D forms (eight planes, twelve with the exact mode's
-    private planes) at row capacity 2 to 512 on kernel C's targets,
-    bitwise equal to rebin_x_plain in every slot, the drops exact; rows
-    received more droplets than they hold."""
-    cfg, d = _case3d(dev, cap, exact_sstp_cond=exact)
-    n, x, z, vt, tgt, _, y = _transport3d(cfg, d, False)
-    rng = np.random.default_rng(cap)
-    extra = (y,) + tuple(
+def _merge3d_check(cfg, planes, tgt, exact, seed):
+    """Kernel D's 3-D form (twelve planes with ``exact``) on ``planes``
+    (n rw2 rd3 kpa vt x z y) and ``tgt`` against rebin_x_plain, bitwise in
+    every slot and plane, the drops exact, and a second launch on the same
+    input the same bits.  Returns the kernel's results."""
+    rng = np.random.default_rng(seed)
+    n = planes[0]
+    extra = (planes[7],) + tuple(
         torch.as_tensor(rng.uniform(0.5, 1.5, n.shape), dtype=torch.float32,
-                        device=dev) for _ in range(4 if exact else 0))
-    args = (cfg, n, d.rw2, d.rd3, d.kpa, vt, x, z, tgt)
+                        device=n.device) for _ in range(4 if exact else 0))
+    args = (cfg, *planes[:7], tgt)
     kernel = _ext.MERGE_3D_EXACT if exact else _ext.MERGE_3D
     k = _launches(kernel, lambda: step.rebin_x(*args, extra=extra))
+    again = _launches(kernel, lambda: step.rebin_x(*args, extra=extra))
     p = step.rebin_x(*args, extra=extra, plain=True)
     assert len(k) == len(p) == 8 + len(extra)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
+    return k
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["8", "12"])
+@pytest.mark.parametrize("cap", [2, 32, 100, 128, 256, 512])
+def test_merge_3d_kernel_matches_plain(dev, cap, exact):
+    """Kernel D's 3-D forms (eight planes, twelve with the exact mode's
+    private planes) at row capacity 2 to 512 on kernel C's targets, at
+    merge3d_plan's bricks, bitwise equal to rebin_x_plain in every slot,
+    the drops exact, and the same bits from launch to launch; rows
+    received more droplets than they hold."""
+    cfg, d = _case3d(dev, cap, exact_sstp_cond=exact)
+    n, x, z, vt, tgt, _, y = _transport3d(cfg, d, False)
+    k = _merge3d_check(cfg, (n, d.rw2, d.rd3, d.kpa, vt, x, z, y), tgt,
+                       exact, cap)
     if cap < 128:
         assert float(k[-1].sum()) > 0
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["8", "12"])
+@pytest.mark.parametrize("brick", range(1, step.MERGE3D_MAX_BRICK + 1))
+@pytest.mark.parametrize("grid,cap", [((6, 5, 4), 32), ((3, 3, 7), 128),
+                                      ((4, 3, 17), 100)],
+                         ids=["6x5x4", "3x3x7", "4x3x17"])
+def test_merge_3d_bricks_match_plain(dev, monkeypatch, grid, cap, brick,
+                                     exact):
+    """Kernel D's 3-D forms at every brick height merge3d_plan takes
+    (forced through the plan function rebin_x calls): nz below one brick
+    (4), not a multiple of it (7, 17), nx and ny at 3; bitwise
+    rebin_x_plain's."""
+    plan = step.merge3d_plan
+    monkeypatch.setattr(step, "merge3d_plan",
+                        lambda cap_, nz: plan(cap_, nz, brick))
+    assert step.merge3d_plan(cap, grid[2]).brick == brick
+    cfg, d = dense3d_case(*grid, cap, seed=brick, device=dev,
+                          dtype=torch.float32, exact_sstp_cond=exact)
+    n, x, z, vt, tgt, _, y = _transport3d(cfg, d, False)
+    _merge3d_check(cfg, (n, d.rw2, d.rd3, d.kpa, vt, x, z, y), tgt, exact,
+                   brick)
+
+
+def _merge3d_targets(cfg, d, case):
+    """Targets for kernel D's edge cases on ``d``'s live droplets: every
+    droplet to the neighbour (+1, +1, +1) of its row (x and y wrapping, z
+    clipped at the top: there it stays), every other one a far mover (-1),
+    or every droplet of the 27 rows around row (1, 1, 1) to that row."""
+    n_cell, cap = d.n.shape
+    r = torch.arange(n_cell, device=d.n.device)
+    ny, nz = cfg.ny, cfg.nz
+    i, j, k = r // (ny * nz), (r // nz) % ny, r % nz
+    own = r[:, None].expand(n_cell, cap)
+    if case == "leave":
+        t = (((i + 1) % cfg.nx) * ny + (j + 1) % ny) * nz \
+            + torch.clamp(k + 1, max=nz - 1)
+        t = t[:, None].expand(n_cell, cap)
+    elif case == "far":
+        lane = torch.arange(cap, device=r.device)[None, :]
+        t = torch.where(lane % 2 == 0, own, -1)
+    else:
+        hub = (1 * ny + 1) * nz + 1
+        near = ((i - 1).abs() <= 1) & ((j - 1).abs() <= 1) \
+            & ((k - 1).abs() <= 1)
+        t = torch.where(near[:, None], hub, own)
+    return torch.where(d.n > 0, t, -1).to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["8", "12"])
+@pytest.mark.parametrize("case", ["leave", "far", "overflow"])
+@pytest.mark.parametrize("cap", [2, 32, 128, 256, 512])
+def test_merge_3d_kernel_edge_rows_match_plain(dev, cap, case, exact):
+    """Kernel D's 3-D forms where every droplet leaves its row, where
+    every other one is a far mover (target -1), and where the 27 rows
+    around one row all send it their droplets (it overflows): bitwise
+    rebin_x_plain's, the drops exact."""
+    cfg, d = _case3d(dev, cap, exact_sstp_cond=exact)
+    tgt = _merge3d_targets(cfg, d, case)
+    k = _merge3d_check(cfg, (d.n, d.rw2, d.rd3, d.kpa, d.vt, d.x, d.z, d.y),
+                       tgt, exact, cap + 1)
+    live = int((d.n > 0).sum())
+    placed = int((k[0] > 0).sum())
+    if case == "far":
+        assert placed < live
+    if case == "overflow" and cap >= 32:
+        assert float(k[-1].sum()) > 0
+    if case == "leave":
+        assert placed + float(k[-1].sum()) == live
+
+
+def test_merge_3d_resources(dev):
+    """Kernel D's 3-D forms' kernels at the 76^3 plan (capacity 128):
+    within the launch bounds' 64 registers, no local memory, two blocks
+    of 16 warps an SM or more, in both layouts."""
+    plan = step.merge3d_plan(128, 76)
+    assert plan.brick == 16
+    for kernel in (_ext.MERGE_3D, _ext.MERGE_3D_EXACT):
+        for vec in (0, 1):
+            a = _ext.attributes(kernel.symbol + "_attrs", vec, plan.brick,
+                                128)
+            assert a["registers"] <= 64 and a["local"] == 0, a
+            assert a["blocks_per_sm"] >= 2 and a["threads"] == 512, a
+            assert a["dynamic_shared"] == plan.smem, a
 
 
 COAL_Y_KERNELS = {"geometric": (kernel_t.geometric, (2.0,)),
@@ -2322,10 +2426,85 @@ def test_coal_y_and_onishi_kernels_match_plain(coal_model, cap, form, name,
         cfg, params, 10, 100.0, 44, 3, *planes, *cells, pairing=form, y=y,
         plain=plain)
     k = _launches(want, lambda: run(False))
+    again = _launches(want, lambda: run(False))
     p = run(True)
     assert len(k) == len(p) == 7 + int(with_y)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
     assert not torch.equal(k[0], planes[0])               # collisions
+
+
+def _warp_rows(dev, cap, seed):
+    """_coal_rows' planes at ``cap`` with rows 4-8 laid across the warps
+    of coal_y_plan's row: droplets only in the slots around each warp
+    boundary (128 m - 5 .. 128 m + 4), cap - 1 droplets, one droplet in
+    the last slot, 129 (an odd count over two warps), one at slot 7 of
+    each of the first three warps; rows 9 and 10 with 64 and 127 droplets
+    in their first 128 slots (above cap 128 the one-warp pass's); the
+    others as _coal_rows makes them."""
+    planes, cells = _coal_rows(dev, cap, rows=48, seed=seed)
+    planes = tuple(a.clone() for a in planes)
+    rng = np.random.default_rng(seed)
+    rw = np.exp(rng.uniform(np.log(2e-6), np.log(3e-4), cap))
+    vals = (np.floor(10.0 ** rng.uniform(5, 9, cap)), rw ** 2,
+            (rw * rng.uniform(1e-3, 1e-1, cap)) ** 3,
+            rng.uniform(0.1, 1.2, cap))
+    lane = np.arange(cap)
+    edge = np.zeros(cap, dtype=bool)
+    for m in range(1, cap // 128):
+        edge |= (lane >= 128 * m - 5) & (lane < 128 * m + 4)
+    rows = (edge if edge.any() else lane % 3 == 0, lane != cap // 2,
+            lane == cap - 1, lane < min(129, cap - 1),
+            (lane % 128 == 7) & (lane < 384), (lane < 128) & (lane % 2 == 0),
+            lane < min(127, cap - 1))
+    for r, alive in enumerate(rows, start=4):
+        for plane, v in zip(planes[:4], vals):
+            plane[r] = torch.as_tensor(np.where(alive, v, 0.0),
+                                       dtype=torch.float32, device=dev)
+    return planes, cells
+
+
+@pytest.mark.parametrize("name", ["geometric", "vohl", "onishi_hall-eps100"])
+@pytest.mark.parametrize("form", ["stride", "sort"])
+@pytest.mark.parametrize("cap", [2, 32, 64, 128, 256, 512])
+def test_coal_y_rows_across_warps_match_plain(coal_model, cap, form, name):
+    """Kernel E's y and onishi forms on rows whose droplets straddle the
+    boundaries of the row's warps (coal_y_plan: one warp up to cap 128,
+    cap / 128 above), rows of an odd live count, of one droplet in the
+    last warp and of one a warp: bitwise coal_resident_plain's lane by
+    lane, the same bits from launch to launch (above cap 128 both passes:
+    rows 4-8 hold droplets past slot 127, the others run on one warp
+    first); the kernel's rows are the plan's (warps a row, register slots
+    a lane: the card's attributes of the wide form and of the one-warp
+    pass), within their launch bounds (three blocks of 8 warps an SM)."""
+    from libcloudphxx_tpu_torch.lgrngn.enums import vt_t as vt_enum
+    kernel, params = COAL_Y_KERNELS[name]
+    cfg = _coal_cfg(coal_model, kernel)
+    planes, cells = _warp_rows(coal_model.device, cap, seed=cap + 5)
+    planes = (planes[0], planes[1] * 100.0) + planes[2:]
+    assert (planes[0] > 0).sum(1)[5:8].tolist() == [
+        cap - 1, 1, min(129, cap - 1)]
+    y = torch.as_tensor(np.random.default_rng(cap).uniform(
+        0.0, 1500.0, planes[0].shape), dtype=torch.float32,
+        device=planes[0].device)
+    want = _ext.COAL_ONISHI if name.startswith("onishi") else (
+        _ext.COAL_VOHL_3D if name == "vohl" else _ext.COAL_3D)
+    run = lambda plain: coal.coal_resident(
+        cfg, params, 10, 100.0, 44, 3, *planes, *cells, pairing=form, y=y,
+        plain=plain)
+    k = _launches(want, lambda: run(False))
+    again = _launches(want, lambda: run(False))
+    p = run(True)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
+    assert not torch.equal(k[0], planes[0])               # collisions
+    for narrow in (0, 1):
+        a = _ext.attributes("lcp_coal_y_attrs",
+                            vt_enum(cfg.terminal_velocity).value,
+                            int(form == "sort"), cap, narrow)
+        plan = coal.coal_y_plan(min(cap, 128) if narrow else cap)
+        assert (a["warps_a_row"], a["slots_a_lane"]) == plan, a
+        assert a["blocks_per_sm"] >= 3 and a["threads"] == 256, a
 
 
 def test_dense_front_3d_matches_plain(dev):
