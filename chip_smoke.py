@@ -67,8 +67,10 @@ checks them:
      global re-bins, conservation and the SDs alive at the end
  12. the repack policy forced to retarget at full width: 118 SDs a cell
      started at capacity 128 (a grow) and at 512 (a shrink), every repack
-     conserving the population per cell, and kernel E's device time in the
-     step at capacities 512 and 256
+     conserving the population per cell, and kernel E's 2-D rows above
+     capacity 128 (its warp rows over csrc/coal_y.cuh) at 256 and 512:
+     bitwise their plain version, the rows on the one-warp pass, a call's
+     time, its device time in the step, its bound and resources
  13. the terminal velocity formulas the main path does not use (beard76,
      khvorostyanov_spherical, khvorostyanov_nonspherical): kernels B, C
      (full and vt-only forms, cloud and rain) and E (stride, sort,
@@ -144,8 +146,11 @@ checks them:
      reference's mt19937 init (timed); for each: the factory on the card
      gives the dense front; spin-up and coalescing steps through
      run_device_lgrngn(engine="dense") with bench.py's physics checks,
-     kernels A, B, D, E (its wide-table form under vohl) and C (its
-     pred_corr form under pred_corr) launched, collisions, and in (a)
+     kernels A, B, D, E (its wide-table form under vohl; above capacity
+     128 its warp rows, as (b)'s rows of capacity 256, with the share on
+     the one-warp pass; (b) repacked to capacity 128 runs the one-warp
+     wide-table form too) and C (its pred_corr form under pred_corr)
+     launched, collisions, and in (a)
      whether the sstp_coal growth fired; the dense front bitwise equal to
      it; the kernel path bitwise equal to the plain path from init;
      kernel E's form (lane by lane and the overflow flags row by row) and
@@ -249,9 +254,10 @@ checks them:
      no other kernel), C's, D's and E's 3-D forms against their plain
      versions on what a full-width step gives them (bitwise, D and E also
      from one launch to the next; E also with radii x10, C also on 1 mm
-     rain), D's and E's registers, shared memory and blocks an SM at
-     their launch plans (D's bricks, E's warps a row; also in (b) and
-     (c)), the best of 3 reps of 10 steps from
+     rain), C's, D's and E's registers, shared memory and blocks an SM at
+     their launch plans (C's bricks and persistent blocks, D's bricks, E's
+     warps a row; also in (b) and (c)), C's time a call and in the step
+     against its bound, the best of 3 reps of 10 steps from
      init, on every rep finite fields, water and dry mass conserved with
      the puddle, the live count balanced against coalescence and the
      walls, no SD dropped and SDs wrapped in y, the device time of each
@@ -1705,7 +1711,9 @@ def smoke(opts):
                  _ext.MERGE_3D, _ext.MERGE_3D_EXACT, _ext.COAL_3D,
                  _ext.COAL_VOHL_3D, _ext.COAL_ONISHI,         # 22's
                  _ext.TRANSPORT_PRED_CORR_UNWRAPPED,          # 14's
-                 _ext.COND_MERGED, _ext.MERGE_MPDATA):        # 26's
+                 _ext.COND_MERGED, _ext.MERGE_MPDATA,         # 26's
+                 _ext.COAL_WARP_ROWS,                         # 12's
+                 _ext.COAL_VOHL_WARP_ROWS):                   # 17's
             continue
         ms = time_cuda(lambda: calls[k.name](False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: calls[k.name](True), FORM_PLAIN_REPS)
@@ -1752,7 +1760,7 @@ def smoke(opts):
     phase_done(11)
 
     # ---- 12. the repack policy forced to retarget at full width
-    forced_retargets(Kinematic2D, dense, _ext, card)
+    rows.append(forced_retargets(Kinematic2D, dense, _ext, card))
 
     phase_done(12)
 
@@ -2161,14 +2169,16 @@ def mesh_lane_check(label, r, m, ref):
           f"lane for lane: {same}")
 
 
-def mesh_option_forms(label, step, coal, calls, pc, onishi):
+def mesh_option_forms(label, step, coal, calls, pc):
     """C's and E's calls of a mesh step (capture_all's "transport" and
     "coal") against their plain versions, bitwise (C: n, x, z, vt, the
     targets and the far flags).  Returns {kernel name: max abs error}."""
     from libcloudphxx_tpu_torch import _ext
     c_kernel = _ext.TRANSPORT_PRED_CORR_UNWRAPPED if pc \
         else _ext.TRANSPORT_UNWRAPPED
-    e_kernel = _ext.COAL_ONISHI if onishi else _ext.COAL
+    # E's route at the shards' capacity (above 128 its warp rows)
+    e_kernel = coal.resident_kernel(calls["coal"][0]["cfg"],
+                                    calls["coal"][0]["n"].shape[1])
     err = {c_kernel.name: 0.0, e_kernel.name: 0.0}
     same = {"C": True, "E": True}
     for kw in calls["transport"]:
@@ -2230,7 +2240,8 @@ def mesh_options(Kinematic2D, dense, _ext, step, card):
         lost = collided(sp[0], ref[0])
         c_kernel = _ext.TRANSPORT_PRED_CORR_UNWRAPPED if pc \
             else _ext.TRANSPORT_UNWRAPPED
-        e_kernel = _ext.COAL_ONISHI if onishi else _ext.COAL
+        # E's route at the capacity (above 128 its warp rows)
+        e_kernel = coal.resident_kernel(m.cfg, sp[0].cap)
         shard_counts = (MESH_SHARDS,) if name.endswith("waals") \
             else (MESH_SHARDS, 1)
         for n_shards in shard_counts:
@@ -2274,8 +2285,8 @@ def mesh_options(Kinematic2D, dense, _ext, step, card):
             r.load(*st)
             calls = capture_all({"transport": (step, "transport"),
                                  "coal": (coal, "coal_resident")}, r.step)
-            for k, e in mesh_option_forms(name, step, coal, calls, pc,
-                                          onishi).items():
+            for k, e in mesh_option_forms(name, step, coal, calls,
+                                          pc).items():
                 err[k] = max(err.get(k, 0.0), e)
             if st is sp:
                 kws = calls
@@ -2687,15 +2698,20 @@ def forced_retargets(Kinematic2D, dense, _ext, card):
     """The repack policy at full width with retargets forced: 118 SDs a
     cell (0.92 of capacity 128) started at 128, where it must grow (or
     run a chunk again), and then at 512, where it must shrink; every repack
-    conserves the population per cell.  Kernel E's device time in the step
-    at 512 and 256 (torch.profiler), after the policy runs."""
+    conserves the population per cell.  Kernel E's 2-D rows above
+    capacity 128 (its warp rows, _ext.COAL_WARP_ROWS) at 256 and 512:
+    bitwise their plain version on a step's arguments, the rows that take
+    the one-warp pass, a call's time and its device time in the step
+    (torch.profiler) against their bound.  Returns the kernels row of E's
+    warp rows (launches: the policy's runs)."""
+    from libcloudphxx_tpu_torch.ops import coal
     m = make_model(Kinematic2D, coal=True, sd_conc=FORCED_SD_CONC)
     d = m.dense_state
     occ0 = occupancy(d)
     print(f"forced retargets: {int((d.n > 0).sum())} SDs, densest cell "
           f"{occ0} = {occ0 / 128:.3f} of capacity 128", flush=True)
     check(0.85 <= occ0 / 128 < 1.0, f"forced: densest cell {occ0}")
-    repacks = []
+    repacks, rows_launched = [], 0
     unwrap = checked_repacks(dense, repacks)
     try:
         for label, cap in (("grow", 128), ("shrink", 512)):
@@ -2716,31 +2732,69 @@ def forced_retargets(Kinematic2D, dense, _ext, card):
                          else ""))
             print(f"forced {label}: capacities {caps}; launches {launches}",
                   flush=True)
-            check(launches["coal"] == FORCED_EVERY * FORCED_CHUNKS
+            # E's one-warp row up to capacity 128, its warp rows above
+            check(launches["coal"] + launches["coal_warp_rows"]
+                  == FORCED_EVERY * FORCED_CHUNKS
                   + FORCED_EVERY * sum(e["redo"] for e in log),
                   f"forced {label}: kernel E launches {launches}")
+            check(launches["coal_warp_rows"] > 0,
+                  f"forced {label}: no capacity above 128 ran ({caps})")
+            rows_launched += launches["coal_warp_rows"]
             moved = caps[1] > caps[0] if label == "grow" else \
                 caps[1] < caps[0]
             check(moved, f"forced {label}: the policy kept capacity "
                   f"{caps[0]} ({caps})")
             check(int(m.dense_state.overflow) == 0,
                   f"forced {label}: SDs dropped")
-        # kernel E's device time in the step at the capacities reached
-        fields, e_ms = (m.th, m.rv), {}
-        for at in (512, 256):
+        # kernel E's warp rows at the capacities reached: against the plain
+        # version on a step's arguments, timed a call and in the step
+        fields, err, row = (m.th, m.rv), {}, None
+        for at in (256, 512):
             m.dense_state = dense.repack(m.cfg, start, at)
-            e_ms[at] = device_ms(
-                lambda n: m.run_device_lgrngn(n, engine="dense"),
-                PROFILE_STEPS, ("coal_kernel",)).get("coal_kernel")
+            e_kw = capture(coal, "coal_resident",
+                           lambda: m.run_device_lgrngn(1, engine="dense"))
             m.th, m.rv = fields
-        print(f"kernel E in the step, {FORCED_SD_CONC} SDs a cell: " + ", ".join(
-            f"capacity {at} " + (f"{ms:.4f} ms/step" if ms else
-                                 "not measured")
-            for at, ms in e_ms.items()) + f" ({card})")
+            check(coal.resident_kernel(m.cfg, at) is _ext.COAL_WARP_ROWS,
+                  f"forced: capacity {at} is not on E's warp rows")
+            check_e(f"forced, capacity {at}", _ext.COAL_WARP_ROWS, e_kw,
+                    err, (("cloud", 1.0, "stride"), ("drizzle", 100.0,
+                                                       "sort")))
+            n = e_kw["n"]
+            one_warp = float((~(n[:, 128:] > 0).any(1)).float().mean())
+            work = coal_work(lambda: coal.coal_resident(**e_kw, plain=True),
+                             n)
+            r = kernel_row(_ext.COAL_WARP_ROWS, rows_launched, err,
+                           lambda plain: coal.coal_resident(**e_kw,
+                                                            plain=plain),
+                           coal_y_bound(e_kw, work), card,
+                           where=f"in phase 12's runs (capacity {at})")
+            ey_resources(_ext, r, e_kw)
+            m.dense_state = dense.repack(m.cfg, start, at)
+            r["in_step_ms"] = device_ms(
+                lambda k: m.run_device_lgrngn(k, engine="dense"),
+                PROFILE_STEPS, ("coal_y_kernel",)).get("coal_y_kernel")
+            m.th, m.rv = fields
+            r["one_warp_share"] = one_warp
+            print(f"kernel E's warp rows, {FORCED_SD_CONC} SDs a cell, "
+                  f"capacity {at}: {r['ms']:.4f} ms a call, in the step "
+                  + (f"{r['in_step_ms']:.4f}" if r["in_step_ms"] else
+                     "not measured")
+                  + f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+                  f"rows on the one-warp pass {one_warp:.4f} ({card})",
+                  flush=True)
+            if row is None:
+                row = r
+            else:
+                row[f"cap{at}"] = {k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "in_step_ms",
+                    "one_warp_share", "resources", "resources_one_warp",
+                    "max_abs_err") if k in r}
+            del e_kw
     finally:
         unwrap()
     print(f"forced retargets: repacks {repacks}, each conserving every "
           f"cell's SDs", flush=True)
+    return row
 
 
 def form_of(cfg, turb=False):
@@ -3274,7 +3328,7 @@ def dense_options(Kinematic2D, dense, _ext, step, coal, card):
         per_cell = (d0.n > 0).sum(1)
         n_sd = int(per_cell.sum())
         totals = dense.water_dry_totals(d0, m.rv)
-        e_form = _ext.COAL_VOHL if case == "vohl_pred_corr" else _ext.COAL
+        e_form = coal.resident_kernel(m.cfg, d0.cap)
         c_form = _ext.TRANSPORT_PRED_CORR if case == "vohl_pred_corr" \
             else _ext.TRANSPORT
         print(f"{case}: init (factory -> init, then pack) {t_init:.2f} s; "
@@ -3422,6 +3476,7 @@ def dense_options(Kinematic2D, dense, _ext, step, coal, card):
                   f"{label}: kernel and plain version differ")
         if case == "vohl_pred_corr":
             forms = dict(e=e_kw, c=c_kw, launches=launches)
+            forms["narrow"] = vohl_at_128(m, sp, dense, _ext, coal, err)
 
         # timing: best of TIME_REPS from-init reps of TIME_STEPS steps,
         # bench.py's physics checks on each, the growth reset each rep
@@ -3440,8 +3495,9 @@ def dense_options(Kinematic2D, dense, _ext, step, coal, card):
         timing[case] = best / TIME_STEPS * 1e3
         restore(init)
         in_step = device_ms(lambda k: m.run_device_lgrngn(k, engine="dense"),
-                            PROFILE_STEPS, ("coal_kernel", "transport_kernel",
-                                            "WideTable", "PredCorrGeometry"))
+                            PROFILE_STEPS, ("coal_kernel", "coal_y_kernel",
+                                            "transport_kernel", "WideTable",
+                                            "PredCorrGeometry"))
         restore(init)
         print(f"timing {case} (run_device_lgrngn, coalescence on), kernels: "
               f"{timing[case]:.3f} ms/step, "
@@ -3453,33 +3509,73 @@ def dense_options(Kinematic2D, dense, _ext, step, coal, card):
 
     rows = []
     e_kw, c_kw = forms["e"], forms["c"]
+    e_form = coal.resident_kernel(e_kw["cfg"], e_kw["n"].shape[1])
     work = coal_work(lambda: coal.coal_resident(**e_kw, plain=True),
                      e_kw["n"])
-    print(f"E coal_vohl work on the vohl_pred_corr population: {work}")
-    for kernel, call, bnd in (
+    one_warp = float((~(e_kw["n"][:, 128:] > 0).any(1)).float().mean())
+    print(f"E {e_form.name} work on the vohl_pred_corr population "
+          f"(capacity {e_kw['n'].shape[1]}): {work}; rows on the one-warp "
+          f"pass {one_warp:.4f}")
+    n_kw, n_work, n_launches = forms["narrow"]
+    for kernel, call, bnd, n_launch, kw in (
+            (e_form, lambda plain: coal.coal_resident(**e_kw, plain=plain),
+             coal_wide_bound(e_kw, work), forms["launches"][e_form.name],
+             e_kw),
             (_ext.COAL_VOHL,
-             lambda plain: coal.coal_resident(**e_kw, plain=plain),
-             coal_wide_bound(e_kw, work)),
+             lambda plain: coal.coal_resident(**n_kw, plain=plain),
+             coal_wide_bound(n_kw, n_work), n_launches, n_kw),
             (_ext.TRANSPORT_PRED_CORR,
              lambda plain: step.transport(**c_kw, plain=plain),
-             transport_pred_corr_bound(c_kw, step.transport(**c_kw)))):
+             transport_pred_corr_bound(c_kw, step.transport(**c_kw)),
+             forms["launches"][_ext.TRANSPORT_PRED_CORR.name], None)):
         ms = time_cuda(lambda: call(False), KERNEL_REPS)
         plain_ms = time_cuda(lambda: call(True), KERNEL_REPS)
         bound_ms, bound_by = bnd
-        n_launch = forms["launches"][kernel.name]
         print(f"kernel {kernel.name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}); {n_launch} launches in "
-              f"{steps} steps of vohl_pred_corr ({card})")
+              f"{steps} steps of vohl_pred_corr"
+              + ("" if kw is None else f" at capacity {kw['n'].shape[1]}")
+              + f" ({card})")
         check(n_launch > 0, f"kernel {kernel.name} was not launched")
         rows.append({"name": kernel.name, "route": "cuda",
                      "source": kernel.source, "replaces": kernel.replaces,
                      "launches": n_launch, "max_abs_err": err[kernel.name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
+        if kernel is _ext.COAL_VOHL_WARP_ROWS:
+            rows[-1]["one_warp_share"] = one_warp
+            ey_resources(_ext, rows[-1], e_kw)
     print(f"timing, phase 17 (run_device_lgrngn, coalescence on, from "
           f"init): " + ", ".join(f"{k} {v:.3f}" for k, v in timing.items())
           + f" ms/step ({card})", flush=True)
     return rows, err
+
+
+def vohl_at_128(m, sp, dense, _ext, coal, err):
+    """Phase 17 (b)'s vohl population after its spin-up, repacked to
+    capacity 128 (its rows hold fewer droplets): OPTION_MAIN coalescing
+    steps through E's one-warp wide-table form (_ext.COAL_VOHL), which the
+    capacity-256 run leaves to the warp rows; the form against its plain
+    version on a step's arguments.  Returns (those arguments, the work
+    their data needs, the form's launches in the steps)."""
+    d, th, rv = sp
+    check(occupancy(d) <= 128, f"vohl at 128: densest row {occupancy(d)}")
+    m.dense_state, m.th, m.rv = dense.repack(m.cfg, d, 128), th, rv
+    reset(_ext.KERNELS)
+    m.run_device_lgrngn(OPTION_MAIN, engine="dense")
+    torch.cuda.synchronize()
+    launches = _ext.COAL_VOHL.launches
+    check(launches == OPTION_MAIN and _ext.COAL_VOHL_WARP_ROWS.launches == 0,
+          f"vohl at 128: launches {launches}")
+    m.dense_state, m.th, m.rv = dense.repack(m.cfg, d, 128), th, rv
+    kw = capture(coal, "coal_resident",
+                 lambda: m.run_device_lgrngn(1, engine="dense"))
+    check_e("vohl at capacity 128", _ext.COAL_VOHL, kw, err,
+            (("rain", 2500.0, "stride"), ("rain", 2500.0, "sort")))
+    work = coal_work(lambda: coal.coal_resident(**kw, plain=True), kw["n"])
+    print(f"vohl at capacity 128: {launches} launches of coal_vohl in "
+          f"{OPTION_MAIN} steps; work {work}", flush=True)
+    return kw, work, launches
 
 
 def _counted(kernel, fn):
@@ -5752,6 +5848,32 @@ def ey_resources(_ext, row, e_kw):
     form_resources(_ext, row, "lcp_coal_y_attrs", *args, 0)
 
 
+def c3_resources(_ext, row, c_kw):
+    """form_resources of kernel C's 3-D streaming kernel at ``c_kw``'s (its
+    arguments') form, formula and capacity, with the plan transport takes
+    there (ops/step.py transport3d_plan)."""
+    from libcloudphxx_tpu_torch.lgrngn import as_t, vt_t
+    from libcloudphxx_tpu_torch.ops import step
+    cfg, (n_cell, cap) = c_kw["cfg"], c_kw["n"].shape
+    pc = c_kw["do_adve"] and as_t(cfg.adve_scheme) == as_t.pred_corr
+    vt = vt_t(cfg.terminal_velocity).value
+    plan = step.transport3d_plan(cap, n_cell,
+                                 step.card_transport3d(pc, vt, cap))
+    form_resources(_ext, row, "lcp_transport_3d_attrs", vt, int(pc), cap,
+                   brick=plan.brick, blocks=plan.blocks)
+
+
+def c3_line(row, card):
+    """Print kernel C's 3-D form's row: a call's time and its device time
+    in the step against its bound."""
+    step_ms = row.get("in_step_ms")
+    print(f"C {row['name']}: {row['ms']:.4f} ms a call, in the step "
+          + (f"{step_ms:.4f}" if step_ms else "not measured")
+          + f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+          f"{row['bound_ms'] / (step_ms or row['ms']):.3f} of it ({card})",
+          flush=True)
+
+
 def kernel_row(kernel, launches, err, call, bnd, card, reps=KERNEL_REPS,
                plain_reps=1, where=""):
     """A ``kernels`` row: ``call(plain)`` timed through the kernel (reps)
@@ -5894,6 +6016,7 @@ def dense3d_case(fields, m2, _ext, dense, c, card, profile_on, err):
                    lambda plain: coal.coal_resident(**e_kw, plain=plain),
                    coal_y_bound(e_kw, work), card, reps=5,
                    where="in (a)'s counted steps")]
+    c3_resources(_ext, rows[0], c_kw)
     d3d_resources(_ext, rows[1], _ext.MERGE_3D, d_kw)
     ey_resources(_ext, rows[2], e_kw)
     del calls, e_kw, c_kw, d_kw, kc
@@ -5911,7 +6034,7 @@ def dense3d_case(fields, m2, _ext, dense, c, card, profile_on, err):
     prt.adopt(init)
     in_step = device_ms(lambda k: dense3d_run(prt, opts, k, fields),
                         PROFILE_STEPS, ("cond_kernel", "coal_y_kernel",
-                                        "transport_kernel", "merge3d"))
+                                        "transport3d_kernel", "merge3d"))
     out["in_step_ms"] = in_step
     print(f"timing, 3-D dense: {out['ms_per_step']:.3f} ms/step, "
           f"{out['sd_updates_per_s']:.4e} SD-updates/s (best of "
@@ -5921,8 +6044,9 @@ def dense3d_case(fields, m2, _ext, dense, c, card, profile_on, err):
           flush=True)
     for r in rows:
         r["in_step_ms"] = in_step.get(
-            {"transport_3d": "transport_kernel", "merge_3d": "merge3d",
+            {"transport_3d": "transport3d_kernel", "merge_3d": "merge3d",
              "coal_3d": "coal_y_kernel"}[r["name"]])
+    c3_line(rows[0], card)
     b_row["in_step_ms"] = in_step.get("cond_kernel")
     out["b"] = {k: b_row[k] for k in ("launches", "ms", "in_step_ms",
                                       "plain_ms", "bound_ms", "bound_by")}
@@ -6029,12 +6153,15 @@ def dense3d_forms(fields, m2, _ext, dense, c, card, err):
                     (("rain", 2500.0, "stride"),))
             work = coal_work(lambda: coal.coal_resident(**e_kw, plain=True),
                              e_kw["n"])
-            rows += [kernel_row(
+            c_row = kernel_row(
                 _ext.TRANSPORT_3D_PRED_CORR,
                 launches["transport_3d_pred_corr"], err,
                 lambda plain: step.transport(**c_kw, plain=plain),
                 transport3d_bound(c_kw, kc), card, reps=5,
-                where=f"in (b) {label}'s counted steps"),
+                where=f"in (b) {label}'s counted steps")
+            c3_resources(_ext, c_row, c_kw)
+            c3_line(c_row, card)
+            rows += [c_row,
                 kernel_row(_ext.COAL_VOHL_3D, launches["coal_vohl_3d"], err,
                            lambda plain: coal.coal_resident(**e_kw,
                                                             plain=plain),

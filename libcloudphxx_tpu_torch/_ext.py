@@ -290,16 +290,17 @@ COND_FLAT_PARCEL_ICE_TURB = Kernel(
     "libcloudphxx_tpu_torch/csrc/cond_flat.cu",
     _ICE + ", in a parcel (dv = 1/rhod, lgrngn/hskpng.py:50), at each SD's "
     "RH plus its ssp (:254-263)")
-# kernel C's 3-D forms: TRANSPORT's arguments, then the y plane in and out
-# and the y axis (ny; dy, y0, y1); the pred_corr form then the staggered
-# courant_x, courant_z and courant_y
+# kernel C's 3-D forms: TRANSPORT's arguments, then the y plane in and out,
+# the y axis (ny; dy, y0, y1) and the launch plan (a brick's rows, the
+# persistent blocks: ops/step.py transport3d_plan); the pred_corr form then
+# the staggered courant_x, courant_z and courant_y
 _3D = ("libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, transport and "
        "re-bin classification :338-487) on the 3-D grid, which the TPU "
        "kernel refuses (lgrngn/dense.py:1209-1241) and the JAX package runs "
        "in XLA (lgrngn/dense.py:918-1030 adve_sedi_bcnd")
 TRANSPORT_3D = Kernel(
     "transport_3d", "lcp_transport_3d",
-    TRANSPORT.argtypes[:-1] + [_P, _P, _I, _D, _D, _D],
+    TRANSPORT.argtypes[:-1] + [_P, _P, _I, _D, _D, _D, _I, _I],
     "libcloudphxx_tpu_torch/csrc/transport3d.cu", _3D + ")")
 TRANSPORT_3D_PRED_CORR = Kernel(
     "transport_3d_pred_corr", "lcp_transport_3d_pred_corr",
@@ -340,6 +341,18 @@ COAL_VOHL_3D = Kernel(
     "libcloudphxx_tpu_torch/csrc/coal.cu",
     _COAL_Y + "on the 3-D grid with vohl's efficiencies (lgrngn/dense.py:"
     "801-804; lgrngn/coalescence.py:374-376)")
+# kernel E's 2-D rows above capacity 128 on the y forms' warp rows
+# (csrc/coal_y.cuh, no y plane): COAL's arguments (row0 last), then the
+# scratch; the hall family's tables and the formula kernels, or vohl's
+_WARP_ROWS = ("libcloudphxx_tpu/ops/pallas_step.py:115 (_kernel, coal phase "
+              ":233-336) at row capacities above 128")
+COAL_WARP_ROWS = Kernel(
+    "coal_warp_rows", "lcp_coal_warp_rows", COAL.argtypes[:-1] + [_P],
+    "libcloudphxx_tpu_torch/csrc/coal.cu", _WARP_ROWS)
+COAL_VOHL_WARP_ROWS = Kernel(
+    "coal_vohl_warp_rows", "lcp_coal_vohl_warp_rows",
+    COAL_WARP_ROWS.argtypes[:-1], "libcloudphxx_tpu_torch/csrc/coal.cu",
+    _WARP_ROWS + ", with vohl's efficiencies (lgrngn/coalescence.py:374-376)")
 # kernel E's onishi form: COAL's arguments (row0 last), then the y plane in
 # and out (null twice off the 3-D grid; row0 0 on it) and the scratch
 COAL_ONISHI = Kernel(
@@ -380,7 +393,7 @@ KERNELS = (MPDATA, COND, TRANSPORT, MERGE, COAL, COAL_STANDALONE,
            COND_FLAT_PARCEL_ICE, COND_FLAT_PARCEL_ICE_TURB, TRANSPORT_3D,
            TRANSPORT_3D_PRED_CORR, MERGE_3D, MERGE_3D_EXACT, COAL_3D,
            COAL_VOHL_3D, COAL_ONISHI, TRANSPORT_PRED_CORR_UNWRAPPED,
-           COND_MERGED, MERGE_MPDATA)
+           COND_MERGED, MERGE_MPDATA, COAL_WARP_ROWS, COAL_VOHL_WARP_ROWS)
 
 _lib = None
 
@@ -479,9 +492,11 @@ ATTRS = ("registers", "static_shared", "dynamic_shared", "local",
 def attributes(query, *args):
     """What the card makes of a kernel: the C query ``query`` (kernel D's
     3-D forms' ``lcp_merge_3d_attrs`` and ``lcp_merge_3d_exact_attrs``
-    with (vec, brick, cap); kernel E's y and onishi forms'
-    ``lcp_coal_y_attrs`` with (vt, sort, cap, narrow): the wide form, or
-    with narrow 1 the one-warp pass) over cudaFuncGetAttributes
+    with (vec, brick, cap); kernel E's y and onishi forms' (and its 2-D
+    warp rows') ``lcp_coal_y_attrs`` with (vt, sort, cap, narrow): the
+    wide form, or with narrow 1 the one-warp pass; kernel C's 3-D forms'
+    streaming kernel ``lcp_transport_3d_attrs`` with (vt, pred_corr, cap))
+    over cudaFuncGetAttributes
     and cudaOccupancyMaxActiveBlocksPerMultiprocessor, as {ATTRS[i]: int}
     (registers a thread, shared memory static and dynamic and local memory
     a thread in bytes, blocks an SM, threads a block; E's forms also warps

@@ -1,6 +1,7 @@
 // Kernel E's entry points, and its instantiation for the beard77 formulas
 // (the main path's); the kernels are in coal.cuh, the wide-table form's
-// instantiations in coal_vohl*.cu, the y and onishi forms' in coal_y*.cu.
+// instantiations in coal_vohl*.cu, the y and onishi forms' and the 2-D
+// warp rows' (above capacity 128) in coal_y*.cu.
 
 #include "coal.cuh"
 
@@ -183,6 +184,49 @@ extern "C" int lcp_coal_onishi(
                        cap, sstp, dt_sub, kern, coef, r_max_m1, clamp, seed,
                        step, row0),
              y, y_out),
+      queue, stream);
+}
+
+// The resident step's 2-D rows above capacity 128 (coal_y.cuh's warp
+// rows: the one-warp pass over the rows whose droplets lie in their first
+// 128 slots, the others queued to cap / 128 warps a row; no y plane):
+// lcp_coal's arguments, row r drawing as row row0 + r (a shard's of the
+// x-slab mesh), then lcp_coal_3d's scratch.  lcp_coal_warp_rows reads the
+// formula kernels and the hall family's tables, lcp_coal_vohl_warp_rows
+// vohl's wide table.
+extern "C" int lcp_coal_warp_rows(
+    const float* n, const float* rw2, const float* rd3, const float* kpa,
+    const float* x, const float* z, const float* cells, const float* eff,
+    float* n_out, float* rw2_out, float* rd3_out, float* kpa_out,
+    float* x_out, float* z_out, unsigned char* ovf, int n_cell, int cap,
+    int sstp, double dt_sub, int kern, double coef, double r_max_m1,
+    int clamp, unsigned seed, unsigned step, int vt, int sort,
+    unsigned row0, int* queue, cudaStream_t stream) {
+  if (eff != nullptr && clamp > 126)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return coal_y_formula(
+      vt, sort,
+      coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out, rd3_out,
+                kpa_out, x_out, z_out, nullptr, ovf, n_cell, cap, sstp,
+                dt_sub, kern, coef, r_max_m1, clamp, seed, step, row0),
+      queue, stream);
+}
+
+extern "C" int lcp_coal_vohl_warp_rows(
+    const float* n, const float* rw2, const float* rd3, const float* kpa,
+    const float* x, const float* z, const float* cells, const float* eff,
+    float* n_out, float* rw2_out, float* rd3_out, float* kpa_out,
+    float* x_out, float* z_out, unsigned char* ovf, int n_cell, int cap,
+    int sstp, double dt_sub, int kern, double coef, double r_max_m1,
+    int clamp, unsigned seed, unsigned step, int vt, int sort,
+    unsigned row0, int* queue, cudaStream_t stream) {
+  if (eff == nullptr || clamp < 127)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return coal_y_formula(
+      vt, sort,
+      coal_args(n, rw2, rd3, kpa, x, z, cells, eff, n_out, rw2_out, rd3_out,
+                kpa_out, x_out, z_out, nullptr, ovf, n_cell, cap, sstp,
+                dt_sub, kern, coef, r_max_m1, clamp, seed, step, row0, true),
       queue, stream);
 }
 

@@ -20,8 +20,8 @@
 // pairs collide in a substep.
 // What the design does about it:
 //   - one warp a row for the whole substep loop, several rows a block (8,
-//     4 at cap 512: what keeps the warps' tiles in 48 KB), no block
-//     barrier: slot j of the row lives in lane j % 32, register slot
+//     4 at cap 512 in the standalone form: what keeps the warps' tiles in
+//     48 KB), no block barrier: slot j of the row lives in lane j % 32, register slot
 //     j / 32 (S = max(1, cap / 32) register slots a lane, a template
 //     parameter, so every slot index is known at compile time);
 //   - the shuffle is a bitonic network over the row's tie-free keys
@@ -46,16 +46,18 @@
 //     the bits the plain version's recomputation at every substep gives).
 // The vt formula is a template parameter beside the mode, the register
 // slots and the rows' type (GridRows, or ShardRows for the resident forms
-// on a mesh shard): 25 instantiations a formula.  coal.cu instantiates
+// on a mesh shard): 17 instantiations a formula (the resident forms at 1,
+// 2 and 4 register slots a lane, up to cap 128: their rows above it run on
+// coal_y.cuh's warp rows; the standalone form at 1-16).  coal.cu instantiates
 // beard77's, and each other formula's come from a source of their own
 // (coal_beard76.cu, coal_khvorostyanov_spherical.cu,
 // coal_khvorostyanov_nonspherical.cu, coal_undefined.cu), so that nvcc
 // compiles them in parallel.
 // The hall-family efficiencies are read from the 128x128 table in global
 // memory through the read-only cache.  The wide-table form (the rows' type
-// WideTable<GridRows> or WideTable<ShardRows>; the resident forms only, 20
-// instantiations a formula, each formula's in a source coal_vohl*.cu of
-// its own) reads a table wider than 128 at row stride clamp + 2:
+// WideTable<GridRows> or WideTable<ShardRows>; the resident forms only, 12
+// instantiations a formula up to cap 128, each formula's in a source
+// coal_vohl*.cu of its own) reads a table wider than 128 at row stride clamp + 2:
 // vohl_davis_no_waals's, whose saturation index is 150.  Nothing in the
 // TPU kernel does this (the JAX package reads vohl's efficiencies in XLA,
 // lgrngn/coalescence.py:374-376); its plain version is the same
@@ -533,13 +535,24 @@ cudaError_t launch_rows(const CoalArgs& a, cudaStream_t stream) {
 
 template <int MODE, int VT, class R>
 int launch_mode(const CoalArgs& a, cudaStream_t stream) {
-  // register slots a lane: what cap forces
-  auto go = a.cap <= 32    ? &launch_rows<MODE, 1, VT, R>
-            : a.cap == 64  ? &launch_rows<MODE, 2, VT, R>
-            : a.cap == 128 ? &launch_rows<MODE, 4, VT, R>
-            : a.cap == 256 ? &launch_rows<MODE, 8, VT, R>
-                           : &launch_rows<MODE, 16, VT, R>;
-  return static_cast<int>(go(a, stream));
+  // register slots a lane: what cap forces.  The resident forms' rows
+  // above 128 slots run on coal_y.cuh's warp rows (ops/coal.py routes them
+  // to lcp_coal_warp_rows / lcp_coal_vohl_warp_rows), so only the
+  // standalone form instantiates 8 and 16 slots a lane.
+  if constexpr (MODE != kStandalone) {
+    if (a.cap > 128) return static_cast<int>(cudaErrorInvalidValue);
+    auto go = a.cap <= 32   ? &launch_rows<MODE, 1, VT, R>
+              : a.cap == 64 ? &launch_rows<MODE, 2, VT, R>
+                            : &launch_rows<MODE, 4, VT, R>;
+    return static_cast<int>(go(a, stream));
+  } else {
+    auto go = a.cap <= 32    ? &launch_rows<MODE, 1, VT, R>
+              : a.cap == 64  ? &launch_rows<MODE, 2, VT, R>
+              : a.cap == 128 ? &launch_rows<MODE, 4, VT, R>
+              : a.cap == 256 ? &launch_rows<MODE, 8, VT, R>
+                             : &launch_rows<MODE, 16, VT, R>;
+    return static_cast<int>(go(a, stream));
+  }
 }
 
 // The wide-table form in a resident ``mode`` (stride or sort) for formula

@@ -93,7 +93,8 @@
 // here once every row has them.
 //
 // The entry points are in transport.cu (the 2-D forms) and transport3d.cu
-// (the 3-D forms).
+// (the 3-D forms, which run this row code in the scalar layout only; their
+// 16-byte layout is transport3d.cuh's streaming kernel).
 
 #pragma once
 
@@ -492,13 +493,8 @@ int transport_launch(const float* n, const float* rw2, const float* rd3,
                      const G& geo, int vt, cudaStream_t stream) {
   // with no transport only n, rw2, the cell fields and vt are passed (the
   // other pointers may be null)
-  bool vec = lcp::vector_ok(
+  const bool vec = lcp::vector_ok(
       cap, {n, rw2, x, z, n_out, x_out, z_out, vt_out, tgt_out});
-  if constexpr (lcp::kThreeD<G>) {  // the y plane in and out too
-    const uintptr_t y_in = reinterpret_cast<uintptr_t>(geo.ya.y);
-    const uintptr_t y_out = reinterpret_cast<uintptr_t>(geo.ya.y_out);
-    vec = vec && y_in % 16 == 0 && y_out % 16 == 0;
-  }
   const dim3 grid(lcp::row_blocks(n_cell)), block(lcp::kWarpRows * 32);
   return lcp::with_vt(vt, [&](auto f) {
     constexpr int VT = decltype(f)::value;

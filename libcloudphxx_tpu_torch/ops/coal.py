@@ -31,7 +31,11 @@ efficiency table is wider than the hall family's 128 (wide_table), the
 resident form launches E's wide-table form (_ext.COAL_VOHL).  On the 3-D
 grid the resident form carries the y plane (``y``), which rides as x and
 z do: E's y forms _ext.COAL_3D and _ext.COAL_VOHL_3D, a row over
-coal_y_plan's warps (csrc/coal_y.cuh).  Under the
+coal_y_plan's warps (csrc/coal_y.cuh).  The 2-D rows above capacity 128
+take the same warp rows without the y plane (_ext.COAL_WARP_ROWS and
+_ext.COAL_VOHL_WARP_ROWS, row r drawing as row0 + r): a one-warp pass over
+the rows whose droplets lie in their first 128 slots, cap / 128 warps for
+the others (resident_kernel names each route).  Under the
 turbulent kernels (onishi_hall, onishi_hall_davis_no_waals) it launches
 E's onishi form, _ext.COAL_ONISHI (the y plane riding on the 3-D grid):
 the hall table's efficiency times Wang's enhancement times the
@@ -200,6 +204,22 @@ def wide_table(cfg):
     return t is not None and t[0].shape[1] != coal_mod.NARROW
 
 
+def resident_kernel(cfg, cap, three=False):
+    """The kernel coal_resident launches for ``cfg``'s collision kernel at
+    row capacity ``cap`` (on the 3-D grid with ``three``): the onishi form
+    under the turbulent kernels; the y forms on the 3-D grid; above
+    capacity 128 the 2-D warp rows of coal_y.cuh; else E's one-warp row
+    (csrc/coal.cuh), each in its narrow or its wide-table (vohl) form."""
+    if kernel_t(cfg.kernel) in coal_mod.TURBULENT:
+        return _ext.COAL_ONISHI
+    wide = wide_table(cfg)
+    if three:
+        return _ext.COAL_VOHL_3D if wide else _ext.COAL_3D
+    if cap > Y_ROW_SLOTS:
+        return _ext.COAL_VOHL_WARP_ROWS if wide else _ext.COAL_WARP_ROWS
+    return _ext.COAL_VOHL if wide else _ext.COAL
+
+
 def _launch(kernel, cfg, params, sstp_coal, dt, seed, step, planes, cells,
             n_outs, *mode):
     """Check what kernel E takes, launch it and return its n_outs planes
@@ -245,9 +265,10 @@ def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
                   y=None, plain=False):
     """Kernel E in the resident step's form, or coal_resident_plain (same
     arguments and results): on the 3-D grid (``y``) its y forms, under the
-    turbulent kernels its onishi form.  Row r draws as the global row
-    ``row0`` + r (a shard's of the x-slab mesh) in every form but the y
-    forms, which run on the grid's own rows."""
+    turbulent kernels its onishi form, above capacity 128 its 2-D warp
+    rows (resident_kernel).  Row r draws as the global row ``row0`` + r (a
+    shard's of the x-slab mesh) in every form but the y forms, which run
+    on the grid's own rows."""
     if pairing not in PAIRINGS:
         raise ValueError(f"coal: pairing must be one of {PAIRINGS}, got "
                          f"{pairing!r}")
@@ -257,30 +278,30 @@ def coal_resident(cfg, params, sstp_coal, dt, seed, step, n, rw2, rd3, kpa,
         raise ValueError(f"coal: row0 {row0} out of range")
     if _ext.use_plain("coal", n, plain):
         return coal_resident_plain(*args, pairing=pairing, row0=row0, y=y)
-    onishi = kernel_t(cfg.kernel) in coal_mod.TURBULENT
-    if y is None and not onishi:
-        kernel = _ext.COAL_VOHL if wide_table(cfg) else _ext.COAL
+    kernel = resident_kernel(cfg, n.shape[1], three=y is not None)
+    planes, cells = (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv)
+    sort = int(pairing == "sort")
+    if kernel in (_ext.COAL, _ext.COAL_VOHL):
         return _launch(kernel, cfg, params, sstp_coal, dt, seed, step,
-                       (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
-                       int(pairing == "sort"), int(row0))
-    # the y forms: the grid's rows only (the x-slab mesh is 2-D)
+                       planes, cells, 6, sort, int(row0))
+    # coal_y.cuh's warp rows: the y forms on the grid's rows only (the
+    # x-slab mesh is 2-D); above capacity 128 the queue's scratch
     if row0 and y is not None:
         raise ValueError("coal: the y forms take no row0")
     if y is not None:
         _ext.check_planes("coal", n.shape[1], n, y)
         _ext.check("coal", n, y)
-    kernel = _ext.COAL_ONISHI if onishi else (
-        _ext.COAL_VOHL_3D if wide_table(cfg) else _ext.COAL_3D)
     y_out = None if y is None else torch.empty_like(y)
     queue = torch.empty(n.shape[0] + 1, dtype=torch.int32, device=n.device) \
         if n.shape[1] > Y_ROW_SLOTS else None
+    ptr = lambda a: None if a is None else a.data_ptr()
+    # the y forms take no row0, the 2-D warp rows no y plane
+    three = kernel in (_ext.COAL_3D, _ext.COAL_VOHL_3D)
+    mode = (sort,) + (() if three else (int(row0),)) + (
+        () if kernel in (_ext.COAL_WARP_ROWS, _ext.COAL_VOHL_WARP_ROWS)
+        else (ptr(y), ptr(y_out))) + (ptr(queue),)
     *outs, ovf = _launch(kernel, cfg, params, sstp_coal, dt, seed, step,
-                         (n, rw2, rd3, kpa, x, z), (T, p, rhod, eta, dv), 6,
-                         int(pairing == "sort"),
-                         *((int(row0),) if onishi else ()),
-                         None if y is None else y.data_ptr(),
-                         None if y is None else y_out.data_ptr(),
-                         None if queue is None else queue.data_ptr())
+                         planes, cells, 6, *mode)
     return (*outs,) + (() if y is None else (y_out,)) + (ovf,)
 
 

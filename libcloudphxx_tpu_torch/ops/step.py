@@ -17,7 +17,8 @@ hand-written kernels, each beside its plain PyTorch version:
             and the target cell of every droplet (or the vt refresh alone);
             with a ``slab`` the unwrapped form a shard of the x-slab mesh
             runs; on the 3-D grid (``y3``) the 3-D forms, which also advect
-            and wrap y
+            and wrap y (csrc/transport3d.cu, bricks of rows streamed by
+            persistent blocks: transport3d_plan)
   kernel D  csrc/merge.cu      rebin_x / rebin_x_plain: each row takes its
             droplets from itself and its eight neighbours (the z and the x
             pass of the re-binning at once); seven planes, or eleven with
@@ -70,6 +71,75 @@ MERGE3D_MAX_BRICK = 16
 SM_SHARED = 233_472
 BLOCK_SHARED = 232_448
 BLOCK_RESERVED = 1_024
+
+
+# kernel C's 3-D forms (csrc/transport3d.cuh): warps a block (a row each
+# at a time), the rows a warp's prefetch of n runs ahead, the floats of a
+# row's cell fields in its ring slot, the slots of a warp's rows in a
+# brick, and the blocks an SM the launch bounds keep; an H100 has H100_SMS
+# SMs
+C3D_WARPS, C3D_AHEAD, C3D_FIELDS, C3D_SLOTS, C3D_MIN_BLOCKS = 8, 2, 16, 512, 3
+H100_SMS = 132
+
+
+class Transport3dPlan(NamedTuple):
+    """The launch of kernel C's 3-D forms in the 16-byte layout: bricks of
+    ``brick`` consecutive rows (C3D_WARPS warps, warp w on the brick's rows
+    w, w + C3D_WARPS, ...), ``blocks`` persistent blocks walking the bricks
+    b, b + blocks, ..., ``smem`` bytes of dynamic shared memory a block."""
+    brick: int
+    blocks: int
+    smem: int
+
+
+def transport3d_smem(cap):
+    """csrc/transport3d.cuh c3_smem: each warp's ring of C3D_AHEAD + 1 rows
+    (n, then the row's C3D_FIELDS fields, 4 bytes each), then its list of
+    live slots (2 bytes a slot)."""
+    return C3D_WARPS * ((C3D_AHEAD + 1) * (cap + C3D_FIELDS) * 4 + 2 * cap)
+
+
+def transport3d_plan(cap, n_cell, resident=None):
+    """Kernel C's 3-D forms' plan at row capacity ``cap`` (a multiple of
+    128: the 16-byte layout) on ``n_cell`` rows: bricks of C3D_WARPS x
+    max(1, C3D_SLOTS / cap) rows (32 at cap 128, 8 from cap 512), and as
+    many blocks as the card holds at once, ``resident`` (an H100's SMs
+    times the blocks an SM by shared memory, at most C3D_MIN_BLOCKS, where
+    not given), but no more than there are bricks.  Raises for a capacity
+    no block holds."""
+    cap, n_cell = int(cap), int(n_cell)
+    smem = transport3d_smem(cap)
+    if cap < 128 or cap % 128 or smem > BLOCK_SHARED or n_cell < 1:
+        raise ValueError(
+            f"transport: no 3-D streaming plan at capacity {cap} on {n_cell} "
+            f"rows: a multiple of 128 whose {smem} bytes of shared memory "
+            f"fit a block's {BLOCK_SHARED}")
+    brick = C3D_WARPS * max(1, C3D_SLOTS // cap)
+    if resident is None:
+        resident = H100_SMS * max(1, min(
+            C3D_MIN_BLOCKS, SM_SHARED // (smem + BLOCK_RESERVED)))
+    bricks = -(-n_cell // brick)
+    return Transport3dPlan(brick, max(1, min(bricks, int(resident))), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def card_transport3d(pc, vt, cap):
+    """Blocks of kernel C's 3-D streaming kernel (the pred_corr form's with
+    ``pc``) under formula ``vt`` the card holds at once at capacity
+    ``cap``: its blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    after cudaFuncSetAttribute takes the dynamic shared memory) times the
+    SMs.  Raises where no block fits an SM."""
+    try:
+        a = _ext.attributes("lcp_transport_3d_attrs", vt, int(pc), cap)
+    except RuntimeError as e:
+        raise ValueError(f"transport: the card refuses the 3-D streaming "
+                         f"kernel at capacity {cap}: {e}") from None
+    if a["blocks_per_sm"] < 1:
+        raise ValueError(f"transport: no block of the 3-D streaming kernel "
+                         f"at capacity {cap} fits an SM")
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return a["blocks_per_sm"] * sms
 
 
 def _rows(cfg, n_cell, like, col0=0):
@@ -564,7 +634,12 @@ def transport(cfg, dt, do_sedi, n, rw2, rd3, x, z, T, p, rhod, eta, C_l,
         ptr = lambda a: None
     if three:
         kernel = _ext.TRANSPORT_3D_PRED_CORR if pc else _ext.TRANSPORT_3D
-        extra = (ptr(y), ptr(y_out), cfg.ny, cfg.dy, cfg.y0, cfg.y1)
+        plan = (C3D_WARPS, 1)       # the scalar layout's: unused
+        if cap % 128 == 0:
+            vt = vt_t(cfg.terminal_velocity).value
+            plan = transport3d_plan(cap, n_cell,
+                                    card_transport3d(pc, vt, cap))[:2]
+        extra = (ptr(y), ptr(y_out), cfg.ny, cfg.dy, cfg.y0, cfg.y1) + plan
     else:
         kernel, extra = (_ext.TRANSPORT, ()) if slab is None else \
             (_ext.TRANSPORT_UNWRAPPED, (col0, ncol))

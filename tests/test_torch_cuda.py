@@ -677,7 +677,8 @@ def _coal_run(form, args):
         k = _launches(_ext.COAL_STANDALONE, lambda: run(False))
         return k, run(True), (0, 2, 3, 1, 5, 6, 4)   # n rd3 kpa rw2 x z vt
     run = lambda plain: coal.coal_resident(*args, pairing=form, plain=plain)
-    k = _launches(_ext.COAL, lambda: run(False))
+    kernel = coal.resident_kernel(args[0], args[6].shape[1])
+    k = _launches(kernel, lambda: run(False))
     return k, run(True), (0, 2, 3, 1, 4, 5)          # n rd3 kpa rw2 x z
 
 
@@ -1387,7 +1388,7 @@ def test_coal_kernel_with_row0_matches_plain(coal_model, cap, form):
     part = lambda plain: coal.coal_resident(
         *base, *(p[16:40] for p in planes), *(c[16:40] for c in cells),
         pairing=form, row0=16, plain=plain)
-    k = _launches(_ext.COAL, lambda: part(False))
+    k = _launches(coal.resident_kernel(cfg, cap), lambda: part(False))
     p = part(True)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
     whole = coal.coal_resident(*base, *planes, *cells, pairing=form)
@@ -1518,7 +1519,8 @@ def test_coal_vohl_kernel_matches_plain(coal_model, cap, form):
     """Kernel E's wide-table form (vohl_davis_no_waals, its table K + 2 =
     152 wide) on droplets of 10 um to 1.5 mm (table indices past 126),
     bitwise equal to its plain version lane by lane, and launched as
-    _ext.COAL_VOHL; keyed by a mesh shard's global rows too."""
+    _ext.COAL_VOHL (above capacity 128 as _ext.COAL_VOHL_WARP_ROWS); keyed
+    by a mesh shard's global rows too."""
     cfg = _coal_cfg(coal_model, kernel_t.vohl_davis_no_waals)
     planes, cells = _coal_rows(coal_model.device, cap,
                                rows=max(48, 1024 // cap), seed=4)
@@ -1527,9 +1529,12 @@ def test_coal_vohl_kernel_matches_plain(coal_model, cap, form):
     args = (cfg, (), 10, 100.0, 44, 3) + planes + cells
     run = lambda plain, **kw: coal.coal_resident(*args, pairing=form,
                                                  plain=plain, **kw)
-    before = _ext.COAL.launches
-    k = _launches(_ext.COAL_VOHL, lambda: run(False))
-    assert _ext.COAL.launches == before
+    kernel = coal.resident_kernel(cfg, cap)
+    assert kernel is (_ext.COAL_VOHL_WARP_ROWS if cap > 128
+                      else _ext.COAL_VOHL)
+    before = _ext.COAL.launches, _ext.COAL_WARP_ROWS.launches
+    k = _launches(kernel, lambda: run(False))
+    assert (_ext.COAL.launches, _ext.COAL_WARP_ROWS.launches) == before
     p = run(True)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
     assert float(p[0].sum()) < float(planes[0].sum())     # collisions
@@ -1537,7 +1542,7 @@ def test_coal_vohl_kernel_matches_plain(coal_model, cap, form):
     part = lambda plain: coal.coal_resident(
         cfg, (), 10, 100.0, 44, 3, *(a[rows] for a in planes),
         *(c[rows] for c in cells), pairing=form, row0=8, plain=plain)
-    ks = _launches(_ext.COAL_VOHL, lambda: part(False))
+    ks = _launches(kernel, lambda: part(False))
     assert all(torch.equal(a, b) for a, b in zip(ks, part(True)))
     assert all(torch.equal(a[rows], b) for a, b in zip(k, ks))
 
@@ -2832,3 +2837,135 @@ def test_switched_dense_runs_on_the_card(dev):
             assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
                     else a == b), f.name
 
+
+
+# ---------------------- C's 3-D streaming kernel, E's 2-D warp rows (cap > 128)
+def _transport3d_forms(cfg, d, moves, sedi, subs, plain=False):
+    """transport on dense3d_case's state: with ``moves`` (advection by the
+    cfg's scheme) or the vt-only call, sedimentation on drizzle, and a
+    subsidence row."""
+    w = torch.linspace(-0.4, 0.4, d.n.shape[0], device=d.n.device) \
+        if subs else None
+    return step.transport(
+        cfg, 1.0, sedi and moves, d.n, d.rw2 * (400.0 if sedi else 1.0),
+        d.rd3, d.x, d.z, d.T, d.p, d.rhod, d.eta,
+        *dense._row_courants(cfg, d), do_adve=moves, w_cells=w,
+        courants=(d.courant_x, d.courant_z, d.courant_y),
+        y3=dense._y_axis(cfg, d), plain=plain)
+
+
+@pytest.mark.parametrize("formula", [vt_t.beard77, vt_t.beard76],
+                         ids=lambda f: f.name)
+@pytest.mark.parametrize("motion", ["sedi", "subs", "sedi+subs", "none"])
+@pytest.mark.parametrize("open_walls", [False, True], ids=["periodic",
+                                                           "open"])
+@pytest.mark.parametrize("scheme", list(SCHEMES_3D))
+@pytest.mark.parametrize("cap", [128, 256, 512])
+def test_transport_3d_stream_matches_plain(dev, cap, scheme, open_walls,
+                                           motion, formula):
+    """Kernel C's 3-D streaming kernel (capacities that are multiples of
+    128) under each scheme, side wall, sedimentation and subsidence and
+    two formulas, on dense3d_case's rows (dead slots among the odd rows'
+    droplets, an all-dead and a full row, droplets into the puddle):
+    every slot, y and the far flags bitwise transport_plain's, the puddle
+    partials rel 1e-5, and a second launch the same bits (the partials
+    too); the vt-only call writes vt alone, bitwise."""
+    cfg, d = _case3d(dev, cap, scheme, open_side_walls=open_walls)
+    cfg = _with_vt(cfg, formula)
+    sedi, subs = "sedi" in motion, "subs" in motion
+    kernel = _ext.TRANSPORT_3D_PRED_CORR if scheme == "pred_corr" \
+        else _ext.TRANSPORT_3D
+    kc = _launches(kernel, lambda: _transport3d_forms(cfg, d, True, sedi,
+                                                      subs))
+    again = _launches(kernel, lambda: _transport3d_forms(cfg, d, True, sedi,
+                                                         subs))
+    pc = _transport3d_forms(cfg, d, True, sedi, subs, plain=True)
+    for a, b in zip(kc[:5] + kc[6:], pc[:5] + pc[6:]):
+        assert torch.equal(a, b)
+    assert torch.equal(kc[5][:, 4], pc[5][:, 4])
+    assert torch.allclose(kc[5][:, :4], pc[5][:, :4], rtol=1e-5, atol=0.0)
+    assert all(torch.equal(a, b) for a, b in zip(kc, again))
+    assert int(kc[5][:, 4].sum()) > 0                     # far movers
+    if sedi and not cfg.periodic_topbot_walls:
+        assert float(kc[5][:, 3].sum()) > 0               # the puddle
+    if scheme != "pred_corr":
+        kv = _launches(_ext.TRANSPORT_3D, lambda: _transport3d_forms(
+            cfg, d, False, False, False))
+        pv = _transport3d_forms(cfg, d, False, False, False, plain=True)
+        assert kv[4] is None and torch.equal(kv[3], pv[3])
+
+
+@pytest.mark.parametrize("resident", [1, 2, 7])
+@pytest.mark.parametrize("cap", [128, 512])
+def test_transport_3d_stream_on_few_blocks_matches_plain(dev, monkeypatch,
+                                                         cap, resident):
+    """The persistent blocks each walk many bricks (the card's resident
+    blocks forced down to 1, 2 and 7): the same bits as the plain
+    version, the puddle partials and far flags as a full grid's."""
+    cfg, d = _case3d(dev, cap, "implicit")
+    full = _launches(_ext.TRANSPORT_3D, lambda: _transport3d_forms(
+        cfg, d, True, True, False))
+    monkeypatch.setattr(step, "card_transport3d",
+                        lambda pc, vt, c: resident)
+    k = _launches(_ext.TRANSPORT_3D, lambda: _transport3d_forms(
+        cfg, d, True, True, False))
+    p = _transport3d_forms(cfg, d, True, True, False, plain=True)
+    for a, b in zip(k[:5] + k[6:], p[:5] + p[6:]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(k, full))
+
+
+@pytest.mark.parametrize("pc", [False, True], ids=["implicit", "pred_corr"])
+@pytest.mark.parametrize("cap", [128, 256, 512])
+def test_transport_3d_stream_resources(dev, cap, pc):
+    """The streaming kernel's attributes on the card: the plan's shared
+    memory, no local memory (no spill), at least the launch bounds'
+    blocks an SM, 256 threads a block; the plan's blocks what the card
+    holds at once."""
+    a = _ext.attributes("lcp_transport_3d_attrs", vt_t.beard77.value,
+                        int(pc), cap)
+    assert a["dynamic_shared"] == step.transport3d_smem(cap)
+    assert a["threads"] == 256 and a["local"] == 0, a
+    assert a["blocks_per_sm"] >= step.C3D_MIN_BLOCKS, a
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert step.card_transport3d(pc, vt_t.beard77.value, cap) \
+        == a["blocks_per_sm"] * sms
+
+
+@pytest.mark.parametrize("row0", [0, 4], ids=["grid", "shard"])
+@pytest.mark.parametrize("name", ["geometric", "hall", "vohl"])
+@pytest.mark.parametrize("form", ["stride", "sort"])
+@pytest.mark.parametrize("cap", [256, 512])
+def test_coal_warp_rows_2d_match_plain(coal_model, cap, form, name, row0):
+    """Kernel E's 2-D rows above capacity 128 (no y plane) on coal_y.cuh's
+    warp rows, with the narrow table, the formula kernel and vohl's wide
+    one, on the grid's rows and keyed by a shard's row0: rows under and
+    over 128 droplets (both launches run), bitwise coal_resident_plain's
+    lane by lane, the same bits launch to launch, launched as
+    COAL_WARP_ROWS or COAL_VOHL_WARP_ROWS (not the one-warp row); a
+    shard's rows are the whole grid's."""
+    kernel, params = COAL_Y_KERNELS[name]
+    cfg = _coal_cfg(coal_model, kernel)
+    planes, cells = _warp_rows(coal_model.device, cap, seed=cap + 9)
+    planes = (planes[0], planes[1] * 100.0) + planes[2:]
+    want = coal.resident_kernel(cfg, cap)
+    assert want is (_ext.COAL_VOHL_WARP_ROWS if name == "vohl"
+                    else _ext.COAL_WARP_ROWS)
+    rows = slice(row0, row0 + 24)             # rows 9, 10: the one-warp pass
+    live = (planes[0][rows] > 0).sum(1)
+    past = (planes[0][rows][:, 128:] > 0).any(1)
+    assert bool(past.any()) and bool((~past & (live > 0)).any())
+    run = lambda plain: coal.coal_resident(
+        cfg, params, 10, 100.0, 44, 3, *(a[rows] for a in planes),
+        *(c[rows] for c in cells), pairing=form, row0=row0, plain=plain)
+    before = (_ext.COAL.launches, _ext.COAL_VOHL.launches)
+    k = _launches(want, lambda: run(False))
+    again = _launches(want, lambda: run(False))
+    assert (_ext.COAL.launches, _ext.COAL_VOHL.launches) == before
+    p = run(True)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
+    whole = coal.coal_resident(cfg, params, 10, 100.0, 44, 3, *planes,
+                               *cells, pairing=form)
+    assert all(torch.equal(a[rows], b) for a, b in zip(whole, k))
+    assert not torch.equal(k[0], planes[0][rows])          # collisions

@@ -20,7 +20,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
-from torch_parity import dense3d_case
+from torch_parity import c_params, dense3d_case
 
 from libcloudphxx_tpu_torch import _ext
 from libcloudphxx_tpu_torch.lgrngn import dense
@@ -267,27 +267,6 @@ def test_coal_y_plan_refuses(cap):
 
 
 # ------------------------------------------------------ the C entries
-_C_TYPES = {"int": ctypes.c_int, "unsigned": ctypes.c_uint32,
-            "double": ctypes.c_double, "cudaStream_t": ctypes.c_void_p}
-
-
-def _c_params(source, symbol):
-    """The ctypes type of each parameter of ``extern "C" int symbol(...)``
-    in csrc/``source``: pointers c_void_p."""
-    text = (_ext.CSRC / source).read_text()
-    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", text,
-                  re.S)
-    assert m, f"{symbol} not found in {source}"
-    out = []
-    for p in m.group(1).split(","):
-        decl = " ".join(p.split())
-        if "*" in decl:
-            out.append(ctypes.c_void_p)
-        else:
-            out.append(_C_TYPES[decl.rsplit(" ", 1)[0]])
-    return out
-
-
 @pytest.mark.parametrize("kernel", [_ext.MERGE_3D, _ext.MERGE_3D_EXACT,
                                     _ext.COAL_3D, _ext.COAL_VOHL_3D,
                                     _ext.COAL_ONISHI],
@@ -296,7 +275,7 @@ def test_entry_signatures_match_the_wrappers(kernel):
     """_ext's argtypes are the C entry's parameters one for one (the
     merge's brick height last before the stream)."""
     source = kernel.source.rsplit("/", 1)[1]
-    assert _c_params(source, kernel.symbol) == kernel.argtypes
+    assert c_params(source, kernel.symbol) == kernel.argtypes
     if kernel in (_ext.MERGE_3D, _ext.MERGE_3D_EXACT):
         assert kernel.argtypes[-7:-1] == [ctypes.c_int] * 6
     else:       # the y plane in and out, the queue's scratch, the stream
@@ -311,7 +290,7 @@ def test_attribute_queries_match_the_wrapper(source, symbol):
     """The queries _ext.attributes calls: three ints (E's four: the
     one-warp pass or the wide form), then the int array of _ext.ATTRS."""
     ints = 4 if symbol == "lcp_coal_y_attrs" else 3
-    assert _c_params(source, symbol) == [ctypes.c_int] * ints \
+    assert c_params(source, symbol) == [ctypes.c_int] * ints \
         + [ctypes.c_void_p]
     assert len(_ext.ATTRS) == 8
 

@@ -494,3 +494,24 @@ def dense3d_case(nx, ny, nz, cap, seed=0, device="cpu", dtype=torch.float64,
         overflow=torch.zeros((), dtype=torch.int64, device=device),
         y=t(y), courant_y=t(c(nx, ny + 1, nz)))
     return cfg, d
+
+
+def c_params(source, symbol):
+    """The ctypes type of each parameter of ``extern "C" int symbol(...)``
+    in the port's csrc/``source``: pointers c_void_p."""
+    import ctypes
+    import re
+
+    from libcloudphxx_tpu_torch import _ext
+    types = {"int": ctypes.c_int, "unsigned": ctypes.c_uint32,
+             "double": ctypes.c_double, "cudaStream_t": ctypes.c_void_p}
+    text = (_ext.CSRC / source).read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", text,
+                  re.S)
+    assert m, f"{symbol} not found in {source}"
+    out = []
+    for p in m.group(1).split(","):
+        decl = " ".join(p.split())
+        out.append(ctypes.c_void_p if "*" in decl
+                   else types[decl.rsplit(" ", 1)[0]])
+    return out
